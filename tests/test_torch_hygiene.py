@@ -1,0 +1,126 @@
+"""The port stands alone: no JAX, no ``repro``, no silent CPU path."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core import agu, compiler, hopper, lowering
+from repro_torch.core.ssr import KernelBody, LoweringError
+from repro_torch.kernels import ops, reduction
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+PORT = SRC / "repro_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(SRC).with_suffix("").parts).replace(
+        ".__init__", "")
+    for p in PORT.rglob("*.py"))
+
+
+def test_every_port_module_imports_without_jax_or_repro():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n")
+    env = {"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"}
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert len(MODULES) >= 18
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(PORT)))
+def test_no_source_imports_jax_or_repro(path):
+    text = path.read_text()
+    bad = re.findall(r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|$)",
+                     text, flags=re.M)
+    assert not bad, bad
+
+
+def test_csrc_holds_the_four_kernels():
+    names = sorted(p.stem for p in (PORT / "csrc").glob("*.cu"))
+    assert names == sorted(hopper.KERNELS)
+    for name, info in hopper.KERNELS.items():
+        src = (SRC.parent / info["source"]).read_text()
+        assert "Replaces" in src and "Bound on H100" in src
+        assert f'extern "C" int ssr_{name}(' in src
+        file, line = info["replaces"].split(":")
+        assert (SRC.parent / file).is_file() and int(line) > 0
+
+
+def test_asking_for_cuda_without_it_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the CPU sandbox")
+    x = torch.ones(64)
+    with pytest.raises(RuntimeError, match="cuda"):
+        lowering.ssr_call(compiler.dot_product_nest(64), reduction.MUL,
+                          {"A": x, "B": x}, device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ops.dot(x, x, ssr=True, device="cuda")
+    prev = repro_torch.default_device()
+    try:
+        repro_torch.set_default_device("cuda")
+        with pytest.raises(RuntimeError, match="is_available"):
+            ops.relu(x, ssr=True)
+    finally:
+        repro_torch.set_default_device(prev)
+    with pytest.raises(ValueError, match="neither"):
+        repro_torch.set_default_device("meta")
+
+
+def test_bodies_without_a_device_kernel_are_refused_for_the_card():
+    call = lowering.prepare_call(compiler.dot_product_nest(64),
+                                 lambda a, b: a * b,
+                                 {"A": torch.ones(64), "B": torch.ones(64)},
+                                 device="cpu")
+    with pytest.raises(LoweringError, match="no Hopper kernel"):
+        call.kernel.device_kernel()
+    tagged = lowering.prepare_call(
+        compiler.dot_product_nest(64), KernelBody(lambda a, b: a * b, "mul"),
+        {"A": torch.ones(64), "B": torch.ones(64)}, device="cpu")
+    assert tagged.kernel.device_kernel() is hopper.reduce_mul
+    assert float(tagged.run()) == 64.0
+
+
+@pytest.mark.parametrize("name", sorted(hopper.KERNELS))
+def test_wrappers_refuse_cpu_tensors(name):
+    """On the CPU the plain version runs only through SsrKernel; a wrapper
+    handed a CPU tensor raises instead of computing anything."""
+    geo = agu.StreamGeometry(
+        grid=(1,), ins=(agu.BlockAGU((8, 128), (0, 0), ((0, 0),)),) * 2,
+        out=agu.BlockAGU((8, 128), (0, 0), ((0, 0),)), out_shape=(8, 128))
+    t = torch.zeros(8, 128)
+    n_in = 1 if name == "map_relu" else 2
+    before = dict(hopper.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        getattr(hopper, name)(geo, [t] * n_in, torch.float32)
+    assert hopper.LAUNCHES == before
+
+
+def test_plain_versions_need_in_range_walks():
+    geo = agu.StreamGeometry(
+        grid=(2,), ins=(agu.BlockAGU((8, 128), (0, 0), ((1, 0),)),),
+        out=agu.BlockAGU((8, 128), (0, 0), ((1, 0),)), out_shape=(16, 128))
+    with pytest.raises(ValueError, match="outside the layout"):
+        hopper.plain_map(lambda x: x, geo, [torch.zeros(8, 128)],
+                         torch.float32)
+    out = hopper.plain_map(lambda x: x + 1, geo, [torch.zeros(16, 128)],
+                           torch.float32)
+    np.testing.assert_array_equal(out.numpy(), np.ones((16, 128)))
+
+
+def test_build_key_follows_the_sources():
+    path = hopper.library_path("reduce_mul")
+    assert path.parent == hopper.BUILD_DIR
+    assert path.name.startswith("reduce_mul-") and path.suffix == ".so"
+    assert "sm_90a" in " ".join(hopper.NVCC_FLAGS)
