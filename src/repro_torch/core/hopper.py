@@ -1,7 +1,7 @@
-"""The streamed emitter's Hopper kernels, and their plain PyTorch versions.
+"""The Hopper kernels of the port, and their plain PyTorch versions.
 
-Each kernel runs one lowered SSR schedule — a grid plus the streams' affine
-block walks (:class:`~repro_torch.core.agu.StreamGeometry`) — on the card:
+The streamed kernels each run one lowered SSR schedule — a grid plus the
+streams' affine block walks (:class:`~repro_torch.core.agu.StreamGeometry`):
 
 ==============  ===========  ===============================================
 kernel          call mode    body op
@@ -12,6 +12,14 @@ contract_gemm   nest         ``dot``    (gemm's C += A·B)
 contract_gemv   nest         ``matvec`` (gemv's y += A·x)
 ==============  ===========  ===============================================
 
+The monolithic baselines (``MonolithicKernel``) take the padded layouts of
+the reference's baseline bodies instead, and walk them with an explicit,
+serialised load per block (:data:`BASELINE_KERNELS`, by body op):
+``base_reduce`` (``mul``), ``base_relu`` (``relu``), ``base_gemm``
+(``dot``) and ``base_gemv`` (``matvec``).  Each runs on the same number of
+CTAs, with the same CTA tile, as its streamed counterpart, so the time of
+the pair is the card's SSR-against-baseline comparison.
+
 The kernels are CUDA C++ for ``sm_90a`` under ``repro_torch/csrc``, each
 built by ``nvcc`` into a shared library with a plain C interface at first
 use (into ``build/repro_torch/`` of the checkout, keyed on a hash of the
@@ -20,13 +28,15 @@ layouts, checks what its kernel accepts and raises on anything else,
 launches on PyTorch's current stream and counts the launch in
 :data:`LAUNCHES`.  It never falls back to anything.
 
-The plain versions (:func:`plain_reduce`, :func:`plain_map`,
-:func:`plain_contract`) run the same lowered computation with any PyTorch
-body: they gather every step's blocks through the same AGU programming,
-apply the body to all steps at once (``torch.vmap``) and apply the
-reference's epilogue — the vector accumulator fold, the dense map write, the
-f32 contraction accumulator with its drain cast.  The CPU runs them; the
-tests and ``chip_smoke.py`` hold each kernel against them.
+The plain versions of the streamed kernels (:func:`plain_reduce`,
+:func:`plain_map`, :func:`plain_contract`) run the same lowered computation
+with any PyTorch body: they gather every step's blocks through the same AGU
+programming, apply the body to all steps at once (``torch.vmap``) and apply
+the reference's epilogue — the vector accumulator fold, the dense map
+write, the f32 contraction accumulator with its drain cast.  Those of the
+baselines (``plain_base_*``) run the baseline bodies' block walks on the
+same padded layouts.  The CPU runs them; the tests and ``chip_smoke.py``
+hold each kernel against them.
 """
 
 from __future__ import annotations
@@ -38,7 +48,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Any, Callable, Dict, Iterable, Sequence
+from typing import (Any, Callable, Dict, Iterable, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 
@@ -59,12 +70,20 @@ KERNELS: Dict[str, Dict[str, str]] = {
                       "source": "src/repro_torch/csrc/contract_gemm.cu"},
     "contract_gemv": {"replaces": "src/repro/kernels/gemv.py:29",
                       "source": "src/repro_torch/csrc/contract_gemv.cu"},
+    "base_reduce": {"replaces": "src/repro/kernels/reduction.py:53",
+                    "source": "src/repro_torch/csrc/base_reduce.cu"},
+    "base_relu": {"replaces": "src/repro/kernels/relu.py:48",
+                  "source": "src/repro_torch/csrc/base_relu.cu"},
+    "base_gemm": {"replaces": "src/repro/kernels/gemm.py:112",
+                  "source": "src/repro_torch/csrc/base_gemm.cu"},
+    "base_gemv": {"replaces": "src/repro/kernels/gemv.py:62",
+                  "source": "src/repro_torch/csrc/base_gemv.cu"},
 }
 
 #: Wrapper calls per kernel since the last :func:`reset_launches`: one per
-#: call that launched its kernel.  A ``reduce_mul`` call is two device
-#: launches (the per-CTA partials, then the one-CTA fold); every other
-#: kernel's call is one.
+#: call that launched its kernel.  A ``reduce_mul`` or ``base_reduce`` call
+#: is two device launches (the per-CTA partials, then the one-CTA fold);
+#: every other kernel's call is one.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
@@ -143,6 +162,10 @@ _SIGNATURES = {
     "map_relu": [_P, _P, _I, _I, _GP, _SP, _SP, _I64, _I64, _P],
     "contract_gemm": [_P, _P, _P, _I, _I, _I, _GP, _SP, _SP, _SP, _I64, _P],
     "contract_gemv": [_P, _P, _P, _I, _I, _I, _GP, _SP, _SP, _SP, _I64, _P],
+    "base_reduce": [_P, _P, _I, _I64, _P, _I64, _I64, _P, _P],
+    "base_relu": [_P, _P, _I, _I64, _I64, _I64, _P],
+    "base_gemm": [_P, _P, _P, _I, _I, _I, _I64, _I64, _I64, _P],
+    "base_gemv": [_P, _P, _P, _I, _I, _I64, _I64, _P],
 }
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -150,8 +173,14 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 def _lib(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
-        build((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
+        try:
+            build((name,))
+            lib = ctypes.CDLL(str(library_path(name)))
+        except OSError as e:
+            # a kernel that cannot be built or loaded is broken, not cache
+            # I/O: no fallback rung may take it for a transient OSError
+            raise RuntimeError(f"{name}: cannot build or load the kernel: "
+                               f"{e}") from e
         entry = getattr(lib, f"ssr_{name}")
         entry.argtypes = _SIGNATURES[name]
         entry.restype = ctypes.c_int
@@ -185,39 +214,112 @@ def _stream_arg(agu: BlockAGU, layout: torch.Tensor) -> _Stream:
     return s
 
 
-def _checked(name: str, geo: StreamGeometry,
-             layouts: Sequence[torch.Tensor], n_in: int,
-             dtypes: Sequence[torch.dtype]) -> torch.device:
-    """Validate what every wrapper's kernel takes; return the device."""
-    if len(layouts) != n_in:
-        raise ValueError(f"{name}: takes {n_in} streams, got {len(layouts)}")
-    dev = layouts[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: launches on CUDA tensors, got {dev}")
-    for k, (t, agu) in enumerate(zip(layouts, geo.ins)):
-        if t.device != dev:
-            raise ValueError(f"{name}: stream {k} on {t.device}, not {dev}")
-        if t.dtype not in dtypes:
-            raise TypeError(f"{name}: stream {k} has dtype {t.dtype}; the "
-                            f"kernel takes {[str(d) for d in dtypes]}")
-        if t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"{name}: stream {k} needs a contiguous 2-D "
-                             f"layout, got shape {tuple(t.shape)}")
-        if math.prod(agu.block) >= 2 ** 31:
-            raise ValueError(f"{name}: block {agu.block} has 2**31 or more "
-                             "elements; the kernels index blocks in 32 bits")
-        agu.check_within(geo.grid, tuple(t.shape), f"{name}[{k}]")
-    if len({t.dtype for t in layouts}) != 1:
-        raise TypeError(f"{name}: streams of mixed dtypes "
-                        f"{[str(t.dtype) for t in layouts]}")
-    if len(geo.out_shape) != 2:
-        raise ValueError(f"{name}: output layout {geo.out_shape} is not 2-D")
-    geo.out.check_within(geo.grid, geo.out_shape, f"{name}[out]")
+_FLOATS = (torch.float32, torch.bfloat16)
+
+
+def _gemm_composes(geo: StreamGeometry) -> bool:
+    (tm, tk), (tk2, tn) = geo.ins[0].block, geo.ins[1].block
+    return (tk2, geo.out.block) == (tk, (tm, tn))
+
+
+def _gemv_composes(geo: StreamGeometry) -> bool:
+    tm, tn = geo.ins[0].block
+    return (geo.ins[1].block, geo.out.block) == ((1, tn), (1, tm))
+
+
+#: What each streamed kernel takes: read streams, input dtypes, and the
+#: block composition it computes (as text, and as a test of the geometry).
+_TAKES: Dict[str, tuple] = {
+    "reduce_mul": (2, _FLOATS, "one block shape for every read stream",
+                   lambda geo: len({a.block for a in geo.ins}) == 1),
+    "map_relu": (1, _FLOATS + (torch.int32,), "read block = write block",
+                 lambda geo: geo.ins[0].block == geo.out.block),
+    "contract_gemm": (2, _FLOATS, "C += A·B", _gemm_composes),
+    "contract_gemv": (2, _FLOATS, "y += A·xᵀ", _gemv_composes),
+}
+
+
+def _smem_refusal(name: str, dev: torch.device) -> Optional[str]:
     need = getattr(_lib(name), f"ssr_{name}_smem_bytes")()
     limit = _card(dev).shared_memory_per_block_optin
     if need > limit:
-        raise ValueError(f"{name}: a CTA needs {need} bytes of shared memory, "
-                         f"the card allows {limit}")
+        return (f"{name}: a CTA needs {need} bytes of shared memory, the "
+                f"card allows {limit}")
+    return None
+
+
+def _refusal(name: str, geo: StreamGeometry, dtype: torch.dtype,
+             dev: torch.device) -> Optional[str]:
+    """Why kernel ``name`` refuses this geometry at ``dtype``, or None."""
+    n_in, dtypes, formula, composes = _TAKES[name]
+    if len(geo.ins) != n_in:
+        return f"{name}: takes {n_in} streams, the schedule has {len(geo.ins)}"
+    if dtype not in dtypes:
+        return (f"{name}: takes {[str(d) for d in dtypes]}, not {dtype}")
+    if len(geo.grid) > SSR_MAX_AXES:
+        return f"{name}: grid {geo.grid} has more than {SSR_MAX_AXES} axes"
+    for agu in (*geo.ins, geo.out):
+        if math.prod(agu.block) >= 2 ** 31:
+            return (f"{name}: block {agu.block} has 2**31 or more elements; "
+                    "the kernels index blocks in 32 bits")
+    if len(geo.out_shape) != 2:
+        return f"{name}: output layout {geo.out_shape} is not 2-D"
+    if not composes(geo):
+        return (f"{name}: blocks {[a.block for a in geo.ins]} → "
+                f"{geo.out.block} do not compose as {formula}")
+    return _smem_refusal(name, dev) if dev.type == "cuda" else None
+
+
+def accepts(op: tuple, geo: StreamGeometry, dtype: torch.dtype,
+            device: Union[str, torch.device]) -> Tuple[bool, str]:
+    """(takes, reason): whether the streamed kernel of ``op`` — a (call
+    mode, body op) pair of :data:`DEVICE_KERNELS` — takes this geometry at
+    this input dtype on ``device``.  The wrappers refuse exactly what this
+    refuses; the autotuner filters its candidates with it.  On a CUDA
+    device the shared-memory check builds the kernel."""
+    kernel = DEVICE_KERNELS.get(op)
+    if kernel is None:
+        return False, f"no Hopper kernel for {op}"
+    reason = _refusal(kernel.__name__, geo, dtype, torch.device(device))
+    return reason is None, reason or "ok"
+
+
+def _checked_operands(name: str, tensors: Sequence[torch.Tensor],
+                      dtypes: Sequence[torch.dtype]) -> torch.device:
+    """What every wrapper's kernel takes of its operands — one CUDA device,
+    one dtype of ``dtypes``, contiguous 2-D layouts; return the device."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: launches on CUDA tensors, got {dev}")
+    for k, t in enumerate(tensors):
+        if t.device != dev:
+            raise ValueError(f"{name}: operand {k} on {t.device}, not {dev}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: operand {k} has dtype {t.dtype}; the "
+                            f"kernel takes {[str(d) for d in dtypes]}")
+        if t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{name}: operand {k} needs a contiguous 2-D "
+                             f"layout, got shape {tuple(t.shape)}")
+    if len({t.dtype for t in tensors}) != 1:
+        raise TypeError(f"{name}: operands of mixed dtypes "
+                        f"{[str(t.dtype) for t in tensors]}")
+    return dev
+
+
+def _checked(name: str, geo: StreamGeometry,
+             layouts: Sequence[torch.Tensor]) -> torch.device:
+    """Validate what every streamed wrapper's kernel takes; return the
+    device."""
+    n_in, dtypes = _TAKES[name][:2]
+    if len(layouts) != n_in:
+        raise ValueError(f"{name}: takes {n_in} streams, got {len(layouts)}")
+    dev = _checked_operands(name, layouts, dtypes)
+    for k, (t, agu) in enumerate(zip(layouts, geo.ins)):
+        agu.check_within(geo.grid, tuple(t.shape), f"{name}[{k}]")
+    reason = _refusal(name, geo, layouts[0].dtype, dev)
+    if reason is not None:
+        raise ValueError(reason)
+    geo.out.check_within(geo.grid, geo.out_shape, f"{name}[out]")
     return dev
 
 
@@ -250,12 +352,6 @@ def _ctas(dev: torch.device, steps: int, per_sm: int) -> tuple:
     return -(-steps // per_cta), per_cta
 
 
-def _blocks_equal(name: str, *agus: BlockAGU) -> None:
-    if len({a.block for a in agus}) != 1:
-        raise ValueError(f"{name}: streams need one block shape, got "
-                         f"{[a.block for a in agus]}")
-
-
 def _vector_width(tensors: Sequence[torch.Tensor],
                   agus: Sequence[BlockAGU]) -> int:
     """Elements per 16-byte access where every base pointer, row pitch and
@@ -274,12 +370,10 @@ def reduce_mul(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                out_dtype: torch.dtype,
                acc_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """K1: Σ promote(a)·promote(b) over every step → (1, 1) f32."""
-    dev = _checked("reduce_mul", geo, layouts, 2,
-                   (torch.float32, torch.bfloat16))
+    dev = _checked("reduce_mul", geo, layouts)
     if out_dtype != torch.float32:
         raise TypeError(f"reduce_mul: accumulates in float32, asked for "
                         f"{out_dtype}")
-    _blocks_equal("reduce_mul", *geo.ins)
     a, b = layouts
     ctas, per_cta = _ctas(dev, geo.steps, per_sm=8)
     partials = torch.empty(ctas, dtype=torch.float32, device=dev)
@@ -298,13 +392,11 @@ def map_relu(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
              out_dtype: torch.dtype,
              acc_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """K2: each step's block → max(0, block) through the dense out map."""
-    dev = _checked("map_relu", geo, layouts, 1,
-                   (torch.float32, torch.bfloat16, torch.int32))
+    dev = _checked("map_relu", geo, layouts)
     (x,) = layouts
     if out_dtype != x.dtype:
         raise TypeError(f"map_relu: keeps the dtype ({x.dtype}), asked for "
                         f"{out_dtype}")
-    _blocks_equal("map_relu", geo.ins[0], geo.out)
     ctas, per_cta = _ctas(dev, geo.steps, per_sm=64)
     out = torch.empty(geo.out_shape, dtype=x.dtype, device=dev)
     g, sx, so = _grid_arg(geo.grid), _stream_arg(geo.ins[0], x), \
@@ -319,12 +411,9 @@ def map_relu(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
 
 def _contract(name: str, geo: StreamGeometry,
               layouts: Sequence[torch.Tensor], out_dtype: torch.dtype,
-              acc_dtype: torch.dtype, blocks_compose: bool, formula: str,
+              acc_dtype: torch.dtype,
               vec_of: Callable[[], int]) -> torch.Tensor:
-    dev = _checked(name, geo, layouts, 2, (torch.float32, torch.bfloat16))
-    if not blocks_compose:
-        raise ValueError(f"{name}: blocks {[a.block for a in geo.ins]} → "
-                         f"{geo.out.block} do not compose as {formula}")
+    dev = _checked(name, geo, layouts)
     if acc_dtype != torch.float32:
         raise TypeError(f"{name}: accumulates in float32, the schedule asks "
                         f"for {acc_dtype}")
@@ -347,11 +436,9 @@ def contract_gemm(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                   out_dtype: torch.dtype,
                   acc_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """K3: C block (tm, tn) += A block (tm, tk) · B block (tk, tn)."""
-    (tm, tk), (tk2, tn) = geo.ins[0].block, geo.ins[1].block
     # A and B are read in 16-byte packs where they can be (f32 only)
     return _contract(
         "contract_gemm", geo, layouts, out_dtype, acc_dtype,
-        (tk2, geo.out.block) == (tk, (tm, tn)), "C += A·B",
         lambda: 4 if layouts[0].dtype == torch.float32
         and _vector_width(layouts, geo.ins) == 4 else 1)
 
@@ -360,11 +447,8 @@ def contract_gemv(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                   out_dtype: torch.dtype,
                   acc_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """K4: y block (1, tm) += A block (tm, tn) · x block (1, tn)ᵀ."""
-    tm, tn = geo.ins[0].block
     # A is read in 16-byte packs where it can be; x is staged element-wise
     return _contract("contract_gemv", geo, layouts, out_dtype, acc_dtype,
-                     (geo.ins[1].block, geo.out.block) == ((1, tn), (1, tm)),
-                     "y += A·xᵀ",
                      lambda: _vector_width(layouts[:1], geo.ins[:1]))
 
 
@@ -374,6 +458,123 @@ DEVICE_KERNELS: Dict[tuple, Callable[..., torch.Tensor]] = {
     ("map", "relu"): map_relu,
     ("nest", "dot"): contract_gemm,
     ("nest", "matvec"): contract_gemv,
+}
+
+
+# -- the four baseline wrappers ---------------------------------------------
+#
+# They take the padded layouts of the reference's baseline bodies: x and y
+# as (rows, 128) with rows a multiple of 8 (``frontend.pad_vector``); A as
+# (m, k) with k a multiple of 128 and B as (k, n); A as (m8, n) with m8 a
+# multiple of 8 and x as (1, n).
+
+ROWS, LANES = 8, 128
+
+
+def _checked_base(name: str, tensors: Sequence[torch.Tensor],
+                  dtypes: Sequence[torch.dtype]) -> torch.device:
+    """Validate what every baseline wrapper's kernel takes; return the
+    device."""
+    dev = _checked_operands(name, tensors, dtypes)
+    reason = _smem_refusal(name, dev)
+    if reason is not None:
+        raise ValueError(reason)
+    return dev
+
+
+def _row_blocks(name: str, t: torch.Tensor) -> int:
+    """(8, 128) blocks of a padded vector layout; at least one."""
+    rows, lanes = t.shape
+    if lanes != LANES or rows % ROWS or rows == 0:
+        raise ValueError(f"{name}: needs a (rows, {LANES}) layout with rows "
+                         f"a positive multiple of {ROWS}, got {tuple(t.shape)}")
+    return rows // ROWS
+
+
+def base_reduce(x: torch.Tensor, y: torch.Tensor,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """B1: Σ promote(x)·promote(y) over the (8, 128) blocks → (1, 1) f32."""
+    dev = _checked_base("base_reduce", (x, y), _FLOATS)
+    if out_dtype != torch.float32:
+        raise TypeError(f"base_reduce: accumulates in float32, asked for "
+                        f"{out_dtype}")
+    if x.shape != y.shape:
+        raise ValueError(f"base_reduce: layouts {tuple(x.shape)} and "
+                         f"{tuple(y.shape)} differ")
+    nblk = _row_blocks("base_reduce", x)
+    ctas, per_cta = _ctas(dev, nblk, per_sm=8)       # K1's split
+    partials = torch.empty(ctas, dtype=torch.float32, device=dev)
+    out = torch.empty((1, 1), dtype=torch.float32, device=dev)
+    _launch("base_reduce", dev, x.data_ptr(), y.data_ptr(),
+            _DTYPE_CODE[x.dtype], nblk, partials.data_ptr(), ctas, per_cta,
+            out.data_ptr())
+    return out
+
+
+def base_relu(x: torch.Tensor,
+              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """B2: each (8, 128) block → max(0, block), dtype kept."""
+    dev = _checked_base("base_relu", (x,), _FLOATS + (torch.int32,))
+    if out_dtype not in (None, x.dtype):
+        raise TypeError(f"base_relu: keeps the dtype ({x.dtype}), asked for "
+                        f"{out_dtype}")
+    nblk = _row_blocks("base_relu", x)
+    ctas, per_cta = _ctas(dev, nblk, per_sm=64)      # K2's split
+    out = torch.empty_like(x)
+    _launch("base_relu", dev, x.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[x.dtype], nblk, ctas, per_cta)
+    return out
+
+
+def base_gemm(a: torch.Tensor, b: torch.Tensor,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """B3: C (m, n) = A (m, k) · B (k, n) over 128-wide k chunks, f32
+    accumulator, cast to ``out_dtype`` once."""
+    dev = _checked_base("base_gemm", (a, b), _FLOATS)
+    (m, k), (k2, n) = a.shape, b.shape
+    if k != k2 or k % LANES or k == 0:
+        raise ValueError(f"base_gemm: needs A (m, k) · B (k, n) with k a "
+                         f"positive multiple of {LANES}, got {tuple(a.shape)}"
+                         f" · {tuple(b.shape)}")
+    if out_dtype not in _FLOATS:
+        raise TypeError(f"base_gemm: drains to float32 or bfloat16, asked "
+                        f"for {out_dtype}")
+    if m == 0 or n == 0:
+        raise ValueError(f"base_gemm: empty output ({m}, {n})")
+    out = torch.empty((m, n), dtype=out_dtype, device=dev)
+    # 16-byte loads where A and B are f32 and every row starts aligned
+    vec = 4 if (a.dtype == torch.float32
+                and _vector_width((a, b), ()) == 4) else 1
+    _launch("base_gemm", dev, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[a.dtype], _DTYPE_CODE[out_dtype], vec, m, n, k)
+    return out
+
+
+def base_gemv(a: torch.Tensor, x: torch.Tensor,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """B4: y (m8, 1) f32, each 8-row panel of A times x (1, n), with x
+    re-read from device memory for every panel."""
+    dev = _checked_base("base_gemv", (a, x), _FLOATS)
+    (m8, n) = a.shape
+    if m8 % ROWS or m8 == 0 or n == 0 or tuple(x.shape) != (1, n):
+        raise ValueError(f"base_gemv: needs A (m8, n) with m8 a positive "
+                         f"multiple of {ROWS} and x (1, n), got "
+                         f"{tuple(a.shape)} and {tuple(x.shape)}")
+    if out_dtype != torch.float32:
+        raise TypeError(f"base_gemv: writes float32, asked for {out_dtype}")
+    out = torch.empty((m8, 1), dtype=torch.float32, device=dev)
+    _launch("base_gemv", dev, a.data_ptr(), x.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[a.dtype], _vector_width((a, x), ()), m8 // ROWS, n)
+    return out
+
+
+#: Body op → the baseline kernel that runs it on the card.  Every wrapper
+#: is called as ``kernel(*layouts, out_dtype=...)``, like the plain versions.
+BASELINE_KERNELS: Dict[str, Callable[..., torch.Tensor]] = {
+    "mul": base_reduce,
+    "relu": base_relu,
+    "dot": base_gemm,
+    "matvec": base_gemv,
 }
 
 
@@ -444,3 +645,47 @@ def plain_contract(body: Callable, geo: StreamGeometry,
 
 PLAIN: Dict[str, Callable[..., torch.Tensor]] = {
     "reduce": plain_reduce, "map": plain_map, "nest": plain_contract}
+
+
+# -- plain versions of the baselines ------------------------------------------
+#
+# The reference's baseline bodies on the same padded layouts: the same
+# (8, 128) blocks, 128-wide k chunks and 8-row panels, promoted to f32.
+
+
+def _promote(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.float32)
+
+
+def plain_base_reduce(x: torch.Tensor, y: torch.Tensor,
+                      out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Each (8, 128) block's Σ promote(x)·promote(y), summed → (1, 1)."""
+    blocks = x.reshape(-1, ROWS * LANES), y.reshape(-1, ROWS * LANES)
+    parts = (_promote(blocks[0]) * _promote(blocks[1])).sum(1)
+    return parts.sum().reshape(1, 1).to(out_dtype)
+
+
+def plain_base_map(fn: Callable, x: torch.Tensor,
+                   out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``fn`` on each (8, 128) block, written in place of the block."""
+    blocks = x.reshape(-1, ROWS, LANES)
+    out = torch.vmap(fn)(blocks).reshape(x.shape)
+    return out.to(out_dtype or x.dtype)
+
+
+def plain_base_gemm(a: torch.Tensor, b: torch.Tensor,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """acc (m, n) += A[:, kc] · B[kc, :] over 128-wide k chunks, in f32."""
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
+                      device=a.device)
+    bk = min(a.shape[1], LANES)
+    for k0 in range(0, a.shape[1], bk):
+        acc += _promote(a[:, k0:k0 + bk]) @ _promote(b[k0:k0 + bk, :])
+    return acc.to(out_dtype)
+
+
+def plain_base_gemv(a: torch.Tensor, x: torch.Tensor,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Each 8-row panel of A times x (1, n)ᵀ → (m8, 1) f32."""
+    panels = _promote(a).reshape(-1, ROWS, a.shape[1])
+    return (panels @ _promote(x).mT).reshape(-1, 1).to(out_dtype)

@@ -29,10 +29,15 @@ eagerly, so there is no jit: a call pads the operands, runs the kernel and
 trims the result.  Plans, lowerings and built kernels are cached on the
 nest, the schedule and the body (:func:`_body_key`).
 
+With no ``schedule=`` and the default policy, ``ssr_call`` and
+:func:`prepare_call` resolve the schedule from the autotuner's cache
+(:func:`repro_torch.core.autotune.lookup`); a tuned schedule that fails to
+lower or build with a typed error (:mod:`~repro_torch.core.resilience`) is
+quarantined and the call runs again under :data:`DEFAULT_SCHEDULE`.
+
 Not in this port yet, each a :class:`LoweringError` naming the slice that
 brings it: halo reads, gathers and the online-softmax accumulator of
-``lower_nest``; chains and DAGs; schedules from the autotuner's cache
-(``ssr_call`` runs :data:`DEFAULT_SCHEDULE` or the ``schedule=`` given).
+``lower_nest``; chains and DAGs.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import DeviceLike, resolve_device, to_device
-from . import agu, nest_analysis
+from . import agu, nest_analysis, resilience
 from .compiler import Allocation, LoopNest, StreamPlan, _dense_strides, ssrify
 from .ssr import (BlockStream, LoweringError, SsrKernel, auto_block,
                   probe_part_shape, scratch_bytes)
@@ -338,6 +343,7 @@ def lower_plan(plan: StreamPlan,
     The flat path honours only the schedule's block geometry; a
     non-``None`` ``axis_order`` is rejected, as in the reference.
     """
+    resilience.inject("lowering")
     sched = _resolve_schedule(policy, schedule)
     if sched.axis_order is not None:
         raise LoweringError(
@@ -572,6 +578,7 @@ def lower_nest(plan: StreamPlan,
     allocated ref; the output's contraction axes innermost, so one
     accumulator carries all revisits of an output block.
     """
+    resilience.inject("lowering")
     sched = _resolve_schedule(policy, schedule)
     policy = sched.policy
     nest = plan.nest
@@ -661,9 +668,24 @@ def _lowered_for(plan: StreamPlan, sched: Schedule, nested: bool):
 _PLAN_CACHES = (_plan_for, _lowered_for)
 
 #: ``builds`` counts streamed kernels built (cache misses), ``calls``
-#: counts ``ssr_call`` entries.  A repeated identical call moves
-#: ``calls`` only.
-DISPATCH_STATS: Dict[str, int] = {"builds": 0, "calls": 0}
+#: counts ``ssr_call``/``prepare_call`` entries.  A repeated identical call
+#: moves ``calls`` only.  ``fallbacks`` counts schedule lookups abandoned
+#: for the default (a cache fault before any kernel was built);
+#: ``degraded`` counts tuned schedules that failed to lower or build and
+#: were quarantined and re-run on the default.  Both stay 0 when healthy.
+DISPATCH_STATS: Dict[str, int] = {"builds": 0, "calls": 0, "fallbacks": 0,
+                                  "degraded": 0}
+
+
+def _record_fallback(site: str, error: BaseException, *,
+                     from_schedule: str, to_schedule: str,
+                     key: Optional[str] = None,
+                     counter: str = "fallbacks") -> None:
+    """Count and log one degradation step (see ``core/resilience.py``)."""
+    DISPATCH_STATS[counter] += 1
+    resilience.record_fallback(seam=resilience.classify(error), site=site,
+                               error=error, from_schedule=from_schedule,
+                               to_schedule=to_schedule, key=key)
 
 
 def reset_dispatch_stats() -> None:
@@ -714,10 +736,12 @@ def _kernel_cache_put(key, fn: SsrKernel) -> None:
 
 
 def clear_caches() -> None:
-    """Empty every lowering-layer cache: plans, lowerings, built kernels."""
+    """Empty every lowering-layer cache: plans, lowerings, built kernels,
+    resolved schedules."""
     for c in _PLAN_CACHES:
         c.cache_clear()
     _kernel_cache.clear()
+    _resolved_schedules.clear()
 
 
 def _build_kernel(lowered: LoweredPlan, body: Callable, mode: str,
@@ -821,24 +845,24 @@ class PreparedCall:
         return self.finish(self.kernel(*self.layouts))
 
 
-def prepare_call(nest: LoopNest, body: Callable[..., torch.Tensor],
-                 operands: Dict[str, Any], *,
-                 mode: str = "reduce",
-                 out_dtype: torch.dtype = torch.float32,
-                 policy: BlockPolicy = DEFAULT_POLICY,
-                 schedule: Optional[Schedule] = None,
-                 num_lanes: Optional[int] = None,
-                 device: DeviceLike = None) -> PreparedCall:
-    """Everything :func:`ssr_call` does before the launch (same arguments)."""
-    dev = resolve_device(device)
-    sched = _resolve_schedule(policy, schedule)
-    num_lanes = nest_analysis.auto_lanes(nest, num_lanes)
+def build_kernel(lowered: Any, body: Callable, mode: str,
+                 out_dtype: torch.dtype) -> SsrKernel:
+    """The :class:`SsrKernel` of a lowered schedule (flat or level-mapped):
+    its geometry is what the Hopper kernel is programmed with."""
+    if isinstance(lowered, LoweredNest):
+        return _build_nest_kernel(lowered, body, out_dtype)
+    return _build_kernel(lowered, body, mode, out_dtype)
+
+
+def _prepare(nest: LoopNest, body: Callable, operands: Dict[str, Any],
+             mode: str, out_dtype: torch.dtype, sched: Schedule,
+             num_lanes: int, dev: torch.device) -> PreparedCall:
+    """Lower under ``sched``, build (or reuse) the kernel, lay out the
+    operands: everything up to the launch."""
     plan = _plan_for(nest, num_lanes)
     has_output = any(r.kind == Direction.WRITE for r in nest.refs)
     if has_output:
         mode = "nest"          # the output ref, not the mode, shapes the call
-    DISPATCH_STATS["calls"] += 1
-
     lowered = _lowered_for(plan, sched, has_output)
     missing = [s.name for s in lowered.in_streams if s.name not in operands]
     if missing:
@@ -848,15 +872,103 @@ def prepare_call(nest: LoopNest, body: Callable[..., torch.Tensor],
            tuple((tuple(a.shape), a.dtype) for a in arrays), num_lanes)
     kernel = _kernel_cache_get(key)
     if kernel is None:
-        if has_output:
-            kernel = _build_nest_kernel(lowered, body, out_dtype)
-        else:
-            kernel = _build_kernel(lowered, body, mode, out_dtype)
+        resilience.inject("compile")
+        kernel = build_kernel(lowered, body, mode, out_dtype)
         DISPATCH_STATS["builds"] += 1
         _kernel_cache_put(key, kernel)
     layouts = tuple(s.prepare(a) for s, a in zip(lowered.in_streams, arrays))
     return PreparedCall(kernel=kernel, layouts=layouts, lowered=lowered,
                         bounds=tuple(nest.bounds))
+
+
+#: ``ssr_call``'s resolved schedules: (epoch, nest, operand shapes and
+#: dtypes, mode, output dtype, device) → (schedule, tuned key or None).
+#: Keyed on :func:`autotune.epoch`, as ``NestKernel``'s entries are, so a
+#: commit, quarantine or new cache directory in this process resolves anew;
+#: another process's commit is adopted by :func:`autotune.refresh`.
+_resolved_schedules: Dict[Any, Tuple[Schedule, Optional[str]]] = {}
+
+
+def _tuned_schedule(nest: LoopNest, operands: Dict[str, Any], mode: str,
+                    out_dtype: torch.dtype,
+                    dev: torch.device) -> Tuple[Schedule, Optional[str]]:
+    """(schedule, tuned key) from the autotuner's cache, memoised per
+    epoch; the key is None when the schedule is the default."""
+    from . import autotune
+
+    memo = (autotune.epoch(), nest,
+            tuple((k, tuple(v.shape), v.dtype)
+                  for k, v in sorted(operands.items())),
+            mode, out_dtype, dev)
+    hit = _resolved_schedules.get(memo)
+    if hit is not None:
+        return hit
+    try:
+        schedule = autotune.lookup(nest, operands, mode=mode,
+                                   out_dtype=out_dtype, device=dev)
+    except resilience.fallback_error_types() as e:
+        _record_fallback("ssr_call", e, from_schedule="tuned-lookup",
+                         to_schedule="default")
+        return DEFAULT_SCHEDULE, None     # not memoised: the next call retries
+    key = None if schedule == DEFAULT_SCHEDULE else autotune.cache_key(
+        nest, operands, mode=mode, out_dtype=out_dtype, device=dev)
+    if len(_resolved_schedules) >= CACHE_MAX:
+        _resolved_schedules.clear()
+    _resolved_schedules[memo] = (schedule, key)
+    return schedule, key
+
+
+def _resolved(nest: LoopNest, operands: Dict[str, Any], mode: str,
+              out_dtype: torch.dtype, policy: BlockPolicy,
+              schedule: Optional[Schedule], dev: torch.device,
+              attempt: Callable[[Schedule], Any]) -> Any:
+    """Run ``attempt(schedule)`` under the resolved schedule, with the
+    tuned → default ladder.
+
+    With no ``schedule`` and the default ``policy`` the autotuner's cache is
+    consulted on the call's device (:func:`_tuned_schedule`).  A failed
+    lookup falls back to the default (``fallbacks``); a tuned schedule whose
+    attempt fails with a typed error (:func:`resilience.fallback_error_types`)
+    is quarantined and the attempt runs again under the default
+    (``degraded``).  A kernel build or launch error is not typed: it
+    propagates.
+    """
+    tuned_key: Optional[str] = None
+    if schedule is None and policy is DEFAULT_POLICY:
+        schedule, tuned_key = _tuned_schedule(nest, operands, mode,
+                                              out_dtype, dev)
+    DISPATCH_STATS["calls"] += 1
+    sched = _resolve_schedule(policy, schedule)
+    if tuned_key is None:
+        return attempt(sched)
+    try:
+        return attempt(sched)
+    except resilience.fallback_error_types() as e:
+        from . import autotune
+
+        autotune.global_cache().quarantine(tuned_key)
+        _record_fallback("ssr_call", e, from_schedule="tuned",
+                         to_schedule="default", key=tuned_key,
+                         counter="degraded")
+        return attempt(DEFAULT_SCHEDULE)
+
+
+def prepare_call(nest: LoopNest, body: Callable[..., torch.Tensor],
+                 operands: Dict[str, Any], *,
+                 mode: str = "reduce",
+                 out_dtype: torch.dtype = torch.float32,
+                 policy: BlockPolicy = DEFAULT_POLICY,
+                 schedule: Optional[Schedule] = None,
+                 num_lanes: Optional[int] = None,
+                 device: DeviceLike = None) -> PreparedCall:
+    """Everything :func:`ssr_call` does before the launch (same arguments,
+    the same schedule resolution and ladder)."""
+    dev = resolve_device(device)
+    lanes = nest_analysis.auto_lanes(nest, num_lanes)
+    return _resolved(
+        nest, operands, mode, out_dtype, policy, schedule, dev,
+        lambda s: _prepare(nest, body, operands, mode, out_dtype, s, lanes,
+                           dev))
 
 
 def ssr_call(nest: LoopNest, body: Callable[..., torch.Tensor],
@@ -888,7 +1000,16 @@ def ssr_call(nest: LoopNest, body: Callable[..., torch.Tensor],
     whose ``op`` has a Hopper kernel; on the CPU any PyTorch body runs
     through the plain version.  Zero padding is applied per stream, so
     bodies must be padding-neutral for ``reduce`` and for contraction axes.
+
+    With no ``schedule`` (and the default ``policy``) the schedule comes
+    from the autotuner's cache, resolved once per problem and
+    :func:`autotune.epoch` like ``NestKernel``'s, so every entry point runs
+    the same winner for the same problem; a failing tuned schedule degrades
+    to the default (see :func:`_resolved`).
     """
-    return prepare_call(nest, body, operands, mode=mode, out_dtype=out_dtype,
-                        policy=policy, schedule=schedule,
-                        num_lanes=num_lanes, device=device).run()
+    dev = resolve_device(device)
+    lanes = nest_analysis.auto_lanes(nest, num_lanes)
+    return _resolved(
+        nest, operands, mode, out_dtype, policy, schedule, dev,
+        lambda s: _prepare(nest, body, operands, mode, out_dtype, s, lanes,
+                           dev).run())

@@ -75,8 +75,8 @@ class KernelBody:
     fn: Callable[..., torch.Tensor]
     op: str
 
-    def __call__(self, *blocks):
-        return self.fn(*blocks)
+    def __call__(self, *blocks, **kw):
+        return self.fn(*blocks, **kw)
 
 
 @dataclasses.dataclass(frozen=True)

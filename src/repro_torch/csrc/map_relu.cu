@@ -21,20 +21,6 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// The float tests run on the bits: a float compare-and-select may be fused
-// into max.NaN, which returns the canonical NaN instead of the input's.
-__device__ __forceinline__ float relu_of(float v) {
-  const uint32_t u = __float_as_uint(v);
-  const bool keep = static_cast<int32_t>(u) > 0 || (u & 0x7fffffffu) > 0x7f800000u;
-  return keep ? v : 0.f;
-}
-__device__ __forceinline__ __nv_bfloat16 relu_of(__nv_bfloat16 v) {
-  const uint16_t u = __bfloat16_as_ushort(v);
-  const bool keep = static_cast<int16_t>(u) > 0 || (u & 0x7fffu) > 0x7f80u;
-  return keep ? v : __ushort_as_bfloat16(0);
-}
-__device__ __forceinline__ int32_t relu_of(int32_t v) { return v > 0 ? v : 0; }
-
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
     map_relu_kernel(const T* __restrict__ x, T* __restrict__ out, SsrGrid g,
@@ -53,7 +39,7 @@ __global__ void __launch_bounds__(kThreads)
       Pack p = *reinterpret_cast<const Pack*>(
           px + static_cast<int64_t>(w.r) * sx.pitch + w.c * V);
 #pragma unroll
-      for (int j = 0; j < V; ++j) p.v[j] = relu_of(p.v[j]);
+      for (int j = 0; j < V; ++j) p.v[j] = ssr_relu(p.v[j]);
       *reinterpret_cast<Pack*>(po + static_cast<int64_t>(w.r) * so.pitch +
                                w.c * V) = p;
     }

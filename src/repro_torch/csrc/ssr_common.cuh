@@ -93,6 +93,23 @@ __device__ __forceinline__ __nv_bfloat16 ssr_cast<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// max(0, v), dtype kept, bit-exact with jnp.maximum(v, 0): the value is
+// selected, never computed, so int32 above 2^24 stays exact, NaN passes
+// through with its payload and -0.0 becomes +0.0.  The float tests run on
+// the bits: a float compare-and-select may be fused into max.NaN, which
+// returns the canonical NaN instead of the input's.
+__device__ __forceinline__ float ssr_relu(float v) {
+  const uint32_t u = __float_as_uint(v);
+  const bool keep = static_cast<int32_t>(u) > 0 || (u & 0x7fffffffu) > 0x7f800000u;
+  return keep ? v : 0.f;
+}
+__device__ __forceinline__ __nv_bfloat16 ssr_relu(__nv_bfloat16 v) {
+  const uint16_t u = __bfloat16_as_ushort(v);
+  const bool keep = static_cast<int16_t>(u) > 0 || (u & 0x7fffu) > 0x7f80u;
+  return keep ? v : __ushort_as_bfloat16(0);
+}
+__device__ __forceinline__ int32_t ssr_relu(int32_t v) { return v > 0 ? v : 0; }
+
 // V consecutive elements moved as one access (16 bytes when the wrapper
 // found every address aligned; V = 1 otherwise).
 template <typename T, int V>

@@ -11,9 +11,16 @@ contraction accumulators, padding — comes out of
 Dtype policy: bodies compute in :data:`COMPUTE_DTYPE` (f32) whatever the
 storage dtype; :func:`promote` is the one place that states it.
 
-The monolithic baselines (``MonolithicKernel``) and the waivered
-``StreamKernel``/``ChainedKernel`` shells come with later slices of the
-port; this one carries the streamed path.
+:class:`MonolithicKernel` is the same contract for the *baseline*
+variants: the kernel walks the padded operands block by block with an
+explicit load per block, on the card through the Hopper baseline kernel of
+the body's ``op`` (:data:`~repro_torch.core.hopper.BASELINE_KERNELS`), on
+the CPU through the body's plain version — so "baseline" and "ssr" differ
+only in how operands are delivered.  The waivered ``StreamKernel`` and
+``ChainedKernel`` shells come with later slices of the port.
+
+:class:`NestKernel` resolves its schedule from the autotuner's cache when
+none is given, and owns the tuned → default degradation ladder.
 """
 
 from __future__ import annotations
@@ -24,17 +31,23 @@ import torch
 import torch.nn.functional as F
 
 from .. import DeviceLike, resolve_device, to_device
+from ..core import autotune, hopper, resilience
 from ..core.lowering import DEFAULT_SCHEDULE, Schedule, _body_key, ssr_call
+from ..core.ssr import LoweringError
 
 ROWS = 8
 LANES = 128
 BLOCK_ELEMS = ROWS * LANES
 COMPUTE_DTYPE = torch.float32
 
-#: ``builds`` counts per-signature entries built (nest + body resolved),
-#: ``calls`` counts ``NestKernel.__call__``.  A repeated call with the same
-#: signature moves ``calls`` only.
-DISPATCH_STATS: Dict[str, int] = {"builds": 0, "calls": 0}
+#: ``builds`` counts per-signature entries built (nest, body and schedule
+#: resolved, or a baseline's kernel chosen), ``calls`` counts calls of a
+#: kernel shell.  A repeated call with the same signature moves ``calls``
+#: only.  ``fallbacks``/``degraded`` mirror the lowering counters: lookups
+#: abandoned for the default schedule, and tuned entries quarantined and
+#: rebuilt on the default — zero when healthy.
+DISPATCH_STATS: Dict[str, int] = {"builds": 0, "calls": 0, "fallbacks": 0,
+                                  "degraded": 0}
 
 #: Built-entry cap per kernel instance: stops pathological shape churn.
 _PIPELINE_CACHE_MAX = 512
@@ -106,6 +119,73 @@ def pad_leading(a: torch.Tensor, mult: int) -> torch.Tensor:
     return a
 
 
+def baseline_kernel(body: Callable) -> Callable[..., torch.Tensor]:
+    """The Hopper baseline kernel for a tagged body, or a LoweringError
+    naming the missing kernel."""
+    op = getattr(body, "op", None)
+    kernel = hopper.BASELINE_KERNELS.get(op)
+    if kernel is None:
+        raise LoweringError(
+            f"no Hopper baseline kernel for a body with op {op!r} "
+            f"({body!r}); the baseline kernels are "
+            f"{sorted(hopper.BASELINE_KERNELS)} — wrap the body in "
+            "KernelBody(fn, op) or run on the CPU")
+    return kernel
+
+
+class MonolithicKernel:
+    """A baseline kernel: the body walks the padded layouts with explicit
+    per-block loads (the paper's serialised load → compute issue).
+
+    ``prepare(*args, **params) -> (layouts, static, final)`` pads the
+    operands; ``body(static)`` gives the baseline's plain version over the
+    padded layouts, ``fn(*layouts, out_dtype=...)``, tagged with its device
+    kernel's ``op`` (a :class:`~repro_torch.core.ssr.KernelBody`);
+    ``out_dtype(static, *layouts)`` its output dtype; ``finish(out,
+    final)`` trims.  On a CUDA tensor the call launches the baseline kernel
+    of ``op`` or raises; on the CPU it runs the plain version.  The chosen
+    callable is cached on the raw call inputs (shapes, dtypes, static
+    values); padding and trimming run on every call.  The baseline has no
+    streams, so it takes no schedule.
+    """
+
+    def __init__(self, name: str, *, prepare: Callable, body: Callable,
+                 out_dtype: Callable, finish: Optional[Callable] = None):
+        self.name = name
+        self._prepare = prepare
+        self._body = body
+        self._out_dtype = out_dtype
+        self._finish = finish
+        self._cache: Dict[Any, Callable] = {}
+
+    def _build(self, static, arrays: tuple) -> Callable:
+        body = self._body(static)
+        out_dtype = self._out_dtype(static, *arrays)
+
+        def run(*layouts: torch.Tensor) -> torch.Tensor:
+            if layouts[0].device.type == "cpu":
+                return body(*layouts, out_dtype=out_dtype)
+            return baseline_kernel(body)(*layouts, out_dtype=out_dtype)
+
+        return run
+
+    def __call__(self, *args, device: DeviceLike = None, **params):
+        DISPATCH_STATS["calls"] += 1
+        dev = resolve_device(device)
+        args = on_device(args, dev)
+        arrays, static, final = self._prepare(*args, **params)
+        key = _call_key(args, params)
+        fn = self._cache.get(key)
+        if fn is None:
+            fn = self._build(static, tuple(arrays))
+            DISPATCH_STATS["builds"] += 1
+            if len(self._cache) >= _PIPELINE_CACHE_MAX:
+                self._cache.clear()
+            self._cache[key] = fn
+        out = fn(*arrays)
+        return self._finish(out, final) if self._finish else out
+
+
 class NestKernel:
     """A kernel whose schedule IS its :class:`~repro_torch.core.LoopNest`.
 
@@ -120,8 +200,10 @@ class NestKernel:
     * ``finish(out, final)`` — result post-processing (trim, cast);
     * ``out_dtype(static)`` — the output dtype (None: f32 accumulation).
 
-    The schedule is :data:`DEFAULT_SCHEDULE` or the caller's
-    ``schedule=``; this slice of the port reads no tuned schedule cache.
+    With ``schedule=None`` the schedule comes from the autotuner's cache
+    (:func:`repro_torch.core.autotune.lookup`), resolved when an entry is
+    built; the entry cache keys on :func:`autotune.epoch`, so a newly
+    committed winner rebuilds on the next call.
     """
 
     def __init__(self, name: str, *, prepare: Callable, nest: Callable,
@@ -137,25 +219,98 @@ class NestKernel:
         self._out_dtype = out_dtype
         self._cache: Dict[Any, tuple] = {}
 
+    def _out_dtype_of(self, static) -> torch.dtype:
+        return torch.float32 if self._out_dtype is None else \
+            self._out_dtype(static)
+
+    def _lookup(self, operands, static, dev: torch.device) -> Schedule:
+        return autotune.lookup(self._nest(static), dict(operands),
+                               mode=self._mode,
+                               out_dtype=self._out_dtype_of(static),
+                               device=dev)
+
+    def schedule_for(self, *args, device: DeviceLike = None,
+                     **params) -> Schedule:
+        """The schedule this call would run: tuned (cache hit) or default."""
+        dev = resolve_device(device)
+        operands, static, _final = self._prepare(*on_device(args, dev),
+                                                 **params)
+        return self._lookup(operands, static, dev)
+
     def __call__(self, *args, schedule: Optional[Schedule] = None,
                  device: DeviceLike = None, **params):
-        """Run prepare → ssr_call → finish on ``device``."""
+        """Run prepare → ssr_call → finish on ``device``.
+
+        **Degradation**: the entry hands ``ssr_call`` an explicit schedule,
+        so this level owns the ladder.  A typed failure
+        (:func:`resilience.fallback_error_types`: an injected fault, cache
+        I/O, a ``LoweringError``) under a *tuned* schedule quarantines the
+        cache entry and runs the call again on the default schedule.  An
+        explicit ``schedule=`` always propagates the error, and so does a
+        kernel that fails to build or launch.
+        """
         DISPATCH_STATS["calls"] += 1
         dev = resolve_device(device)
         args = on_device(args, dev)
+        try:
+            return self._dispatch(args, params, schedule, dev)
+        except resilience.fallback_error_types() as e:
+            if schedule is not None:
+                raise
+            key = self._quarantine_tuned(args, params, dev)
+            if key is None:
+                raise
+            DISPATCH_STATS["degraded"] += 1
+            resilience.record_fallback(
+                seam=resilience.classify(e), site=f"nest_kernel:{self.name}",
+                error=e, from_schedule="tuned", to_schedule="default",
+                key=key)
+            return self._dispatch(args, params, DEFAULT_SCHEDULE, dev)
+
+    def _quarantine_tuned(self, args, params,
+                          dev: torch.device) -> Optional[str]:
+        """Sideline the committed tuned entry for this call, if any.
+
+        Returns the quarantined key, or ``None`` when the call was already
+        on the default schedule (the failure is genuine and propagates).
+        """
+        try:
+            operands, static, _final = self._prepare(*args, **params)
+            if self._lookup(operands, static, dev) == DEFAULT_SCHEDULE:
+                return None
+            return autotune.quarantine(
+                self._nest(static), dict(operands), mode=self._mode,
+                out_dtype=self._out_dtype_of(static), device=dev)
+        except Exception:  # re-probe failed: keep the original error
+            return None
+
+    def _dispatch(self, args, params, schedule: Optional[Schedule],
+                  dev: torch.device):
         operands, static, final = self._prepare(*args, **params)
-        key = (_call_key(args, params), schedule)
+        key = (_call_key(args, params), schedule, dev,
+               autotune.epoch() if schedule is None else -1)
         entry = self._cache.get(key)
         if entry is None:
+            sched = schedule
+            if sched is None:
+                try:
+                    sched = self._lookup(operands, static, dev)
+                except resilience.fallback_error_types() as e:
+                    DISPATCH_STATS["fallbacks"] += 1
+                    resilience.record_fallback(
+                        seam=resilience.classify(e),
+                        site=f"nest_kernel:{self.name}", error=e,
+                        from_schedule="tuned-lookup", to_schedule="default")
+                    sched = DEFAULT_SCHEDULE
             kw = {} if self._out_dtype is None else \
                 {"out_dtype": self._out_dtype(static)}
-            entry = (self._nest(static), self._body(static), kw)
+            resilience.inject("compile")
+            entry = (self._nest(static), self._body(static), kw, sched)
             DISPATCH_STATS["builds"] += 1
             if len(self._cache) >= _PIPELINE_CACHE_MAX:
                 self._cache.clear()
             self._cache[key] = entry
-        nest, body, kw = entry
+        nest, body, kw, sched = entry
         out = ssr_call(nest, body, dict(operands), mode=self._mode,
-                       schedule=schedule or DEFAULT_SCHEDULE, device=dev,
-                       **kw)
+                       schedule=sched, device=dev, **kw)
         return self._finish(out, final) if self._finish else out

@@ -7,6 +7,12 @@ read streams; one write ref revisited across k) and the block product, and
 repeats across n; B's storage order (k, n) permutes the loop order) and
 the f32 accumulator over the k walk.  On the card the schedule runs as the
 ``contract_gemm`` Hopper kernel (``csrc/contract_gemm.cu``).
+
+Baseline variant: the reference's monolithic kernel — k zero-padded to a
+multiple of 128, the body walks k in ``min(k, 128)`` chunks with explicit
+loads of A[:, kc] and B[kc, :] and an f32 accumulator cast to
+``out_dtype`` once.  On the card it runs as the ``base_gemm`` Hopper kernel
+(``csrc/base_gemm.cu``).
 """
 
 from __future__ import annotations
@@ -15,9 +21,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core import compiler
+from ..core import compiler, hopper
 from ..core.ssr import KernelBody
-from .frontend import NestKernel, promote
+from .frontend import MonolithicKernel, NestKernel, promote
 from .registry import KernelEntry, register_kernel
 
 
@@ -68,6 +74,30 @@ def ssr_matmul(a: torch.Tensor, b: torch.Tensor, *,
                 schedule=schedule, device=device)
 
 
+def _prepare_base(a, b, out_dtype=None):
+    out_dtype = out_dtype or a.dtype
+    pk = (-a.shape[1]) % 128
+    if pk:
+        a = F.pad(a, (0, pk))
+        b = F.pad(b, (0, 0, 0, pk))
+    return (a.contiguous(), b.contiguous()), out_dtype, None
+
+
+#: The baseline body: the k-chunk walk over the padded layouts, whose
+#: device kernel is ``base_gemm``.
+BASE_DOT = KernelBody(hopper.plain_base_gemm, "dot")
+
+_base = MonolithicKernel(
+    "gemm", prepare=_prepare_base, body=lambda out_dtype: BASE_DOT,
+    out_dtype=lambda out_dtype, a, b: out_dtype)
+
+
+def baseline_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
+                    device=None) -> torch.Tensor:
+    """The monolithic baseline of C = A·B."""
+    return _base(a, b, out_dtype=out_dtype, device=device)
+
+
 @register_kernel("gemm")
 def _entry() -> KernelEntry:
     from . import ref
@@ -82,6 +112,7 @@ def _entry() -> KernelEntry:
                  torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32))),
                 {"out_dtype": torch.float32})
 
-    return KernelEntry(name="gemm", ssr=ssr_matmul, ref=_ref,
+    return KernelEntry(name="gemm", ssr=ssr_matmul,
+                       baseline=baseline_matmul, ref=_ref,
                        example=example, tol={"rtol": 2e-4, "atol": 2e-4},
                        problem="32×32 · 32×32")

@@ -5,6 +5,12 @@ a *repeat* stream (coefficient 0 on the row level — the paper's repeat
 register), and y is revisited across the column walk, so ``lower_nest``
 carries it in an accumulator.  On the card the schedule runs as the
 ``contract_gemv`` Hopper kernel (``csrc/contract_gemv.cu``).
+
+Baseline variant: the reference's monolithic kernel — A's rows padded to a
+multiple of 8, x as (1, n), each 8-row panel loaded explicitly and
+multiplied by x read whole again, into an (m8, 1) f32 output trimmed to
+m.  On the card it runs as the ``base_gemv`` Hopper kernel
+(``csrc/base_gemv.cu``).
 """
 
 from __future__ import annotations
@@ -12,9 +18,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core import compiler
+from ..core import compiler, hopper
 from ..core.ssr import KernelBody
-from .frontend import NestKernel, promote
+from .frontend import ROWS, MonolithicKernel, NestKernel, pad_leading, promote
 from .registry import KernelEntry, register_kernel
 
 
@@ -38,6 +44,27 @@ def ssr_gemv(a: torch.Tensor, x: torch.Tensor, *, schedule=None,
     return _ssr(a, x, schedule=schedule, device=device)
 
 
+def _prepare_base(a, x):
+    m, n = a.shape
+    return (pad_leading(a, ROWS).contiguous(), x.reshape(1, n)), None, m
+
+
+#: The baseline body: the panel walk over the padded layouts, whose device
+#: kernel is ``base_gemv``.
+BASE_MATVEC = KernelBody(hopper.plain_base_gemv, "matvec")
+
+_base = MonolithicKernel(
+    "gemv", prepare=_prepare_base, body=lambda static: BASE_MATVEC,
+    out_dtype=lambda static, a, x: torch.float32,
+    finish=lambda out, m: out.reshape(-1)[:m])
+
+
+def baseline_gemv(a: torch.Tensor, x: torch.Tensor, *,
+                  device=None) -> torch.Tensor:
+    """The monolithic baseline of y = A·x, f32 out."""
+    return _base(a, x, device=device)
+
+
 @register_kernel("gemv")
 def _entry() -> KernelEntry:
     from . import ref
@@ -48,6 +75,7 @@ def _entry() -> KernelEntry:
                  torch.from_numpy(rng.standard_normal(n).astype(np.float32))),
                 {})
 
-    return KernelEntry(name="gemv", ssr=ssr_gemv, ref=ref.gemv_ref,
+    return KernelEntry(name="gemv", ssr=ssr_gemv, baseline=baseline_gemv,
+                       ref=ref.gemv_ref,
                        example=example, tol={"rtol": 1e-3, "atol": 1e-3},
                        problem="64×64 · 64")

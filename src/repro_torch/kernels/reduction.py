@@ -6,6 +6,11 @@ become read streams walked in lockstep by the AGU, the body multiplies two
 (8, 128) blocks, and the reduce epilogue is the accumulator register ``%x``
 of Fig. 4.  On the card the schedule runs as the ``reduce_mul`` Hopper
 kernel (``csrc/reduce_mul.cu``).
+
+Baseline variant: the reference's monolithic kernel — both vectors padded
+to (rows, 128), the body walks the (8, 128) blocks with an explicit load
+pair per block and sums at once, with no run-ahead.  On the card it runs
+as the ``base_reduce`` Hopper kernel (``csrc/base_reduce.cu``).
 """
 
 from __future__ import annotations
@@ -13,9 +18,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core import compiler
+from ..core import compiler, hopper
 from ..core.ssr import KernelBody
-from .frontend import NestKernel, promote
+from .frontend import MonolithicKernel, NestKernel, pad_vector, promote
 from .registry import KernelEntry, register_kernel
 
 
@@ -35,10 +40,30 @@ _ssr = NestKernel(
     mode="reduce")
 
 
+def _prepare_base(x, y):
+    return (pad_vector(x), pad_vector(y)), None, None
+
+
+#: The baseline body: the block walk over the padded layouts, whose device
+#: kernel is ``base_reduce``.
+BASE_MUL = KernelBody(hopper.plain_base_reduce, "mul")
+
+_base = MonolithicKernel(
+    "reduction", prepare=_prepare_base, body=lambda static: BASE_MUL,
+    out_dtype=lambda static, *layouts: torch.float32,
+    finish=lambda out, _: out[0, 0])
+
+
 def ssr_dot(x: torch.Tensor, y: torch.Tensor, *, schedule=None,
             device=None) -> torch.Tensor:
     """Streamed dot product; n is padded up to a whole number of blocks."""
     return _ssr(x, y, schedule=schedule, device=device)
+
+
+def baseline_dot(x: torch.Tensor, y: torch.Tensor, *,
+                 device=None) -> torch.Tensor:
+    """The monolithic baseline of the dot product."""
+    return _base(x, y, device=device)
 
 
 @register_kernel("reduction")
@@ -51,6 +76,7 @@ def _entry() -> KernelEntry:
                  torch.from_numpy(rng.standard_normal(n).astype(np.float32))),
                 {})
 
-    return KernelEntry(name="reduction", ssr=ssr_dot, ref=ref.dot_ref,
+    return KernelEntry(name="reduction", ssr=ssr_dot, baseline=baseline_dot,
+                       ref=ref.dot_ref,
                        example=example, tol={"rtol": 1e-2, "atol": 1e-2},
                        problem="dot product, n=2048")

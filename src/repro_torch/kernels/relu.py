@@ -7,18 +7,24 @@ On the card it runs as the ``map_relu`` Hopper kernel
 (``csrc/map_relu.cu``); ``ssr_elementwise`` takes any unary body on the
 CPU, and on the card only a :class:`~repro_torch.core.ssr.KernelBody`
 whose op has a kernel.
+
+Baseline variant: the reference's monolithic kernel — x padded to
+(rows, 128), each (8, 128) block loaded explicitly and its relu stored in
+its place.  On the card it runs as the ``base_relu`` Hopper kernel
+(``csrc/base_relu.cu``); a custom ``fn`` has no baseline kernel there.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import numpy as np
 import torch
 
-from ..core import compiler
+from ..core import compiler, hopper
 from ..core.ssr import KernelBody
-from .frontend import NestKernel
+from .frontend import MonolithicKernel, NestKernel, pad_vector, trim_vector
 from .registry import KernelEntry, register_kernel
 from .ref import relu_ref
 
@@ -40,6 +46,23 @@ _ssr = NestKernel(
     out_dtype=lambda static: static[2])
 
 
+def _prepare_base(x, fn=RELU):
+    return (pad_vector(x),), fn, x.shape[0]
+
+
+def _baseline_body(fn):
+    """``fn`` on every block of the padded layout; the ``base_relu`` kernel
+    runs it on the card when ``fn`` is tagged ``relu``."""
+    plain = functools.partial(hopper.plain_base_map, fn)
+    return KernelBody(plain, "relu") if getattr(fn, "op", None) == "relu" \
+        else plain
+
+
+_base = MonolithicKernel(
+    "relu", prepare=_prepare_base, body=_baseline_body,
+    out_dtype=lambda fn, x2d: x2d.dtype, finish=trim_vector)
+
+
 def ssr_elementwise(x: torch.Tensor, fn: Callable, *, schedule=None,
                     device=None) -> torch.Tensor:
     """Streamed elementwise unary: one read stream, one write stream."""
@@ -51,6 +74,11 @@ def ssr_relu(x: torch.Tensor, *, schedule=None,
     return _ssr(x, schedule=schedule, device=device)
 
 
+def baseline_relu(x: torch.Tensor, *, device=None) -> torch.Tensor:
+    """The monolithic baseline of relu, dtype kept."""
+    return _base(x, device=device)
+
+
 @register_kernel("relu")
 def _entry() -> KernelEntry:
     def example(rng: np.random.Generator, odd: bool = False):
@@ -58,6 +86,7 @@ def _entry() -> KernelEntry:
         return ((torch.from_numpy(rng.standard_normal(n).astype(np.float32)),),
                 {})
 
-    return KernelEntry(name="relu", ssr=ssr_relu, ref=relu_ref,
+    return KernelEntry(name="relu", ssr=ssr_relu, baseline=baseline_relu,
+                       ref=relu_ref,
                        example=example, tol={"rtol": 0.0, "atol": 0.0},
                        problem="max(0,x), n=1024")

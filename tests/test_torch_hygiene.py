@@ -38,8 +38,10 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert len(MODULES) >= 18
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")),
-                         ids=lambda p: str(p.relative_to(PORT)))
+@pytest.mark.parametrize(
+    "path", [*sorted(PORT.rglob("*.py")), SRC.parent / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(PORT)) if p.is_relative_to(PORT)
+    else p.name)
 def test_no_source_imports_jax_or_repro(path):
     text = path.read_text()
     bad = re.findall(r"^\s*(?:import|from)\s+(?:jax|repro)(?:\.|\s|$)",
@@ -47,7 +49,7 @@ def test_no_source_imports_jax_or_repro(path):
     assert not bad, bad
 
 
-def test_csrc_holds_the_four_kernels():
+def test_csrc_holds_every_kernel():
     names = sorted(p.stem for p in (PORT / "csrc").glob("*.cu"))
     assert names == sorted(hopper.KERNELS)
     for name, info in hopper.KERNELS.items():
@@ -94,16 +96,23 @@ def test_bodies_without_a_device_kernel_are_refused_for_the_card():
 
 @pytest.mark.parametrize("name", sorted(hopper.KERNELS))
 def test_wrappers_refuse_cpu_tensors(name):
-    """On the CPU the plain version runs only through SsrKernel; a wrapper
-    handed a CPU tensor raises instead of computing anything."""
+    """On the CPU the plain versions run only through SsrKernel and
+    MonolithicKernel; a wrapper handed a CPU tensor raises instead of
+    computing anything."""
     geo = agu.StreamGeometry(
         grid=(1,), ins=(agu.BlockAGU((8, 128), (0, 0), ((0, 0),)),) * 2,
         out=agu.BlockAGU((8, 128), (0, 0), ((0, 0),)), out_shape=(8, 128))
     t = torch.zeros(8, 128)
+    baseline_args = {"base_reduce": (t, t), "base_relu": (t,),
+                     "base_gemm": (t, torch.zeros(128, 8)),
+                     "base_gemv": (t, torch.zeros(1, 128))}
     n_in = 1 if name == "map_relu" else 2
     before = dict(hopper.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        getattr(hopper, name)(geo, [t] * n_in, torch.float32)
+        if name in baseline_args:
+            getattr(hopper, name)(*baseline_args[name])
+        else:
+            getattr(hopper, name)(geo, [t] * n_in, torch.float32)
     assert hopper.LAUNCHES == before
 
 

@@ -29,7 +29,10 @@ OPS = {"reduction": ops.dot, "relu": ops.relu, "gemm": ops.matmul,
 
 
 @pytest.fixture(autouse=True)
-def _cpu():
+def _cpu(tmp_path, monkeypatch):
+    # a schedule cache of the test's own: a tuned entry elsewhere must not
+    # change either package's schedule
+    monkeypatch.setenv("REPRO_SCHEDULE_CACHE", str(tmp_path / "schedules"))
     prev = repro_torch.default_device()
     repro_torch.set_default_device("cpu")
     yield
@@ -48,7 +51,8 @@ def test_registry_lists_the_slice():
     for name in KERNELS:
         e, je = registry.get(name), jregistry.get(name)
         assert e.tol == je.tol and e.problem == je.problem
-        assert e.baseline is None
+        assert e.baseline is not None
+        assert sorted(e.variants()) == sorted(je.variants())
     with pytest.raises(KeyError, match="registered"):
         registry.get("typo")
 
@@ -206,9 +210,11 @@ def test_nest_kernel_dispatch_cache():
     x = torch.ones(3000)
     for _ in range(3):
         ops.dot(x, x, ssr=True)
-    assert frontend.DISPATCH_STATS == {"builds": 1, "calls": 3}
+    assert frontend.DISPATCH_STATS == {"builds": 1, "calls": 3,
+                                       "fallbacks": 0, "degraded": 0}
     ops.dot(torch.ones(2000), torch.ones(2000), ssr=True)
-    assert frontend.DISPATCH_STATS == {"builds": 2, "calls": 4}
+    assert frontend.DISPATCH_STATS == {"builds": 2, "calls": 4,
+                                       "fallbacks": 0, "degraded": 0}
 
 
 def test_numpy_operands_become_tensors():

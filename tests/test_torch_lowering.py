@@ -29,7 +29,10 @@ from repro_torch.kernels.frontend import promote
 
 
 @pytest.fixture(autouse=True)
-def _cpu():
+def _cpu(tmp_path, monkeypatch):
+    # a schedule cache of the test's own: a tuned entry elsewhere must not
+    # change either package's schedule
+    monkeypatch.setenv("REPRO_SCHEDULE_CACHE", str(tmp_path / "schedules"))
     prev = repro_torch.default_device()
     repro_torch.set_default_device("cpu")
     yield
@@ -350,7 +353,8 @@ def test_ssr_call_missing_operand_and_cache():
     x = torch.ones(64)
     for _ in range(2):
         lowering.ssr_call(nest, lambda a, b: a * b, {"A": x, "B": x})
-    assert lowering.DISPATCH_STATS == {"builds": 1, "calls": 2}
+    assert lowering.DISPATCH_STATS == {"builds": 1, "calls": 2,
+                                       "fallbacks": 0, "degraded": 0}
 
 
 # -- interop: geometry objects carried across --------------------------------
