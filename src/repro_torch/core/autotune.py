@@ -1,7 +1,7 @@
 """Schedule autotuner: cost-model-guided block-policy search + dispatch cache.
 
-The PyTorch counterpart of ``repro.core.autotune`` (its single-nest half;
-the fused-DAG search comes with the chains and DAGs of a later slice).  The
+The PyTorch counterpart of ``repro.core.autotune``: the single-nest search
+and, for fused DAGs, the graph-cut search (:func:`autotune_dag`).  The
 schedule is a searched artifact:
 
 1. **candidate generation** — :func:`candidate_schedules` enumerates the
@@ -34,11 +34,16 @@ digest.  The backend is the device the call runs on: ``"cpu"``, or
 ``"cuda:<device name>"``, so a winner tuned on one card is never served to
 another card or to the CPU.
 
-Dispatch: ``lowering.ssr_call``/``prepare_call`` and
-``kernels.frontend.NestKernel`` consult :func:`lookup` when no schedule is
-given, once per problem and :func:`epoch`: a commit, quarantine or cache
-switch in this process bumps the epoch, and :func:`refresh` adopts another
-process's commits.
+Dispatch: ``lowering.ssr_call``/``prepare_call``/``ssr_chain_call`` and
+``kernels.frontend.NestKernel`` consult :func:`lookup` (``ssr_dag_call``
+:func:`lookup_dag`) when no schedule is given, once per problem and
+:func:`epoch`: a commit, quarantine or cache switch in this process bumps
+the epoch, and :func:`refresh` adopts another process's commits.
+
+The DAG search (:func:`enumerate_cuts` → :func:`dag_cut_is_legal` →
+:func:`dag_model_cost` → measure → commit a ``Schedule.cut_edges``) keeps
+the reference's keys (:func:`dag_cache_key`) and model; its legality drops
+the TPU budget and, on the card, asks each component's kernel.
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ import torch
 
 from .. import DeviceLike, default_device, resolve_device
 from . import hopper, nest_analysis, resilience
-from .compiler import LoopNest, ssrify
+from .compiler import ChainDAG, LoopNest, ssrify
 from .lowering import (DEFAULT_SCHEDULE, LoweredNest, LoweringError,
                        Schedule, _lowered_for, _plan_for, build_kernel)
 from .nest_analysis import auto_lanes
@@ -542,9 +547,9 @@ def _candidate_kernel(nest: LoopNest, sched: Schedule, body: Callable,
 
 def _refusal_of(kernel, body: Callable, operands: Optional[Dict[str, Any]],
                 device: DeviceLike) -> Optional[str]:
-    takes, why = hopper.accepts((kernel.mode, getattr(body, "op", None)),
-                                kernel.geometry, _operand_dtype(operands),
-                                torch.device(device))
+    takes, why = hopper.accepts(kernel.device_key, kernel.geometry,
+                                _operand_dtype(operands),
+                                torch.device(device), program=kernel.program)
     return None if takes else why
 
 
@@ -845,24 +850,32 @@ def _synchronize(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _pick_winner(survivors: Sequence[Schedule],
-                 samples: Sequence[Sequence[float]], *,
-                 on_card: bool) -> Tuple[Schedule, float, float, bool]:
+def _pick(candidates: Sequence[Schedule],
+          samples: Sequence[Sequence[float]], i_default: int, *,
+          on_card: bool) -> Tuple[Schedule, float, float, bool]:
     """(winner, its µs, the default's µs, held back) of one race: the
-    survivor with the fastest sample, ties to the earlier one.  On the card
-    a winner that beats the default by no more than the race's own spread
-    (max − min over the samples of either) is held back for the default."""
+    candidate with the fastest sample, ties to the earlier one.  On the
+    card a winner that beats the default (``candidates[i_default]``) by no
+    more than the race's own spread (max − min over the samples of either)
+    is held back for the default."""
     best = [(min(xs) * 1e6, i) for i, xs in enumerate(samples)]
-    i_default = list(survivors).index(DEFAULT_SCHEDULE)
     default_us = best[i_default][0]
     tuned_us, i_win = min(best)
     if not on_card or i_win == i_default:
-        return survivors[i_win], tuned_us, default_us, False
+        return candidates[i_win], tuned_us, default_us, False
     spread_us = max(max(samples[i]) - min(samples[i])
                     for i in (i_default, i_win)) * 1e6
     if default_us - tuned_us <= spread_us:
-        return DEFAULT_SCHEDULE, default_us, default_us, True
-    return survivors[i_win], tuned_us, default_us, False
+        return candidates[i_default], default_us, default_us, True
+    return candidates[i_win], tuned_us, default_us, False
+
+
+def _pick_winner(survivors: Sequence[Schedule],
+                 samples: Sequence[Sequence[float]], *,
+                 on_card: bool) -> Tuple[Schedule, float, float, bool]:
+    """:func:`_pick` with the default schedule as the one to beat."""
+    return _pick(survivors, samples, list(survivors).index(DEFAULT_SCHEDULE),
+                 on_card=on_card)
 
 
 def autotune(nest: LoopNest, body: Callable, operands: Dict[str, Any], *,
@@ -1020,3 +1033,323 @@ def quarantine(nest: LoopNest, operands: Dict[str, Any], *,
                     cores=cores, device=device)
     cache.quarantine(key)
     return key
+
+
+def stream_block_bytes(lowered: Any, itemsize: int = 4) -> int:
+    """Depth-buffered stream blocks plus kernel-resident scratch, in bytes.
+
+    The reference's working-set accounting (``_stream_block_bytes``), byte
+    for byte, for a :class:`LoweredPlan`, :class:`LoweredNest` or
+    :class:`LoweredChain`: every stream block at the schedule's (possibly
+    per-stream) FIFO depth, the synthesised or explicit output, the
+    contraction or reduce accumulator, and for a chain or DAG one block per
+    live intermediate slot (refcounted: a diamond's peak is 2).  The port
+    reports it and holds it to no budget.
+    """
+    from .lowering import LoweredChain, LoweredPlan, _dag_slots
+    from .ssr import stream_vmem_bytes
+
+    sched = lowered.schedule
+    total = 0
+    n_in = len(lowered.in_streams)
+    for i, s in enumerate(lowered.in_streams):
+        total += stream_vmem_bytes(
+            math.prod(s.stream.block_shape) * itemsize,
+            _depth_of(sched, i, n_in))
+    if isinstance(lowered, LoweredNest):
+        out_block = math.prod(lowered.out_stream.stream.block_shape)
+        total += stream_vmem_bytes(out_block * itemsize, _max_depth(sched))
+        if lowered.contraction_axes:     # the accumulator scratch
+            total += out_block * itemsize
+        return total
+    block = lowered.policy.rows * lowered.policy.lanes
+    total += stream_vmem_bytes(block * itemsize, _max_depth(sched))
+    if isinstance(lowered, LoweredChain):
+        if isinstance(lowered.chained, ChainDAG):
+            _, n_slots = _dag_slots(lowered.chained)
+        else:
+            n_slots = len(lowered.chained.links)
+        total += n_slots * block * itemsize  # intermediate scratch slots
+    else:
+        assert isinstance(lowered, LoweredPlan)
+    return total + block * itemsize          # reduce accumulator scratch
+
+
+def _depth_of(sched: Schedule, i: int, n_in: int) -> int:
+    """FIFO depth of read stream ``i`` of ``n_in`` under ``sched``."""
+    if sched.stream_depths is not None and len(sched.stream_depths) == n_in:
+        return sched.stream_depths[i]
+    return sched.buffer_depth
+
+
+# --------------------------------------------------------------------------
+# DAG fusion search: enumerate legal graph cuts, prune by the Eq. (1)–(3)
+# model, measure the survivors, commit the winning partition.
+#
+# A "cut" is a set of edge indices into ``ChainDAG.edges``.  Every cut edge
+# materialises its intermediate in device memory (one kernel stops, another
+# reloads); every fused edge keeps it on chip.  The committed winner lands
+# in the same :class:`ScheduleCache` under a DAG-specific key, so
+# ``ssr_dag_call`` resolves the best partitioning on its next dispatch.
+# --------------------------------------------------------------------------
+
+
+def dag_cache_key(nests: Sequence[LoopNest], operands: Dict[str, Any], *,
+                  mode: str = "map", out_dtype: Any = "float32",
+                  backend: Optional[str] = None, cores: int = 1,
+                  uniforms: Optional[Dict[str, Any]] = None,
+                  device: DeviceLike = None) -> str:
+    """Stable hex digest identifying one DAG fusion problem (the
+    reference's for backend ``"cpu"``)."""
+    backend = backend or _backend(call_device(operands, device))
+    blob = json.dumps({
+        "v": SCHEDULE_CACHE_VERSION,
+        "dag": [nest_signature(n) for n in nests],
+        "operands": operand_signature(operands),
+        "uniforms": operand_signature(uniforms or {}),
+        "mode": mode,
+        "out_dtype": dtype_name(out_dtype),
+        "backend": backend,
+        "cores": int(cores),
+    }, sort_keys=True)
+    return hashlib.sha256(blob.encode()).hexdigest()[:32]
+
+
+def lookup_dag(nests: Sequence[LoopNest], operands: Dict[str, Any], *,
+               mode: str = "map", out_dtype: Any = "float32",
+               cores: int = 1, cache: Optional[ScheduleCache] = None,
+               uniforms: Optional[Dict[str, Any]] = None,
+               device: DeviceLike = None) -> Schedule:
+    """Cache-only partition resolution for ``ssr_dag_call`` dispatch."""
+    cache = cache or global_cache()
+    key = dag_cache_key(nests, operands, mode=mode, out_dtype=out_dtype,
+                        cores=cores, uniforms=uniforms, device=device)
+    return cache.get(key) or DEFAULT_SCHEDULE
+
+
+def quarantine_dag(nests: Sequence[LoopNest], operands: Dict[str, Any], *,
+                   mode: str = "map", out_dtype: Any = "float32",
+                   cores: int = 1, cache: Optional[ScheduleCache] = None,
+                   uniforms: Optional[Dict[str, Any]] = None,
+                   device: DeviceLike = None) -> str:
+    """DAG-keyed twin of :func:`quarantine` for ``ssr_dag_call`` dispatch."""
+    cache = cache or global_cache()
+    key = dag_cache_key(nests, operands, mode=mode, out_dtype=out_dtype,
+                        cores=cores, uniforms=uniforms, device=device)
+    cache.quarantine(key)
+    return key
+
+
+def enumerate_cuts(dag: ChainDAG) -> List[Tuple[int, ...]]:
+    """Every subset of edge indices, smallest cuts first: ``()`` (all
+    fused) first, the full cut (all unfused) last."""
+    idx = range(len(dag.edges))
+    cuts: List[Tuple[int, ...]] = []
+    for r in range(len(dag.edges) + 1):
+        cuts.extend(itertools.combinations(idx, r))
+    return cuts
+
+
+def dag_cut_is_legal(dag: ChainDAG, cut: Sequence[int], *,
+                     sched: Schedule = DEFAULT_SCHEDULE,
+                     itemsize: int = 4,
+                     nests: Optional[Sequence[LoopNest]] = None,
+                     bodies: Optional[Sequence[Callable]] = None,
+                     mode: str = "map", out_dtype: Any = torch.float32,
+                     uniforms: Optional[Dict[str, Any]] = None,
+                     num_lanes: Optional[int] = None,
+                     device: DeviceLike = None) -> Tuple[bool, str]:
+    """(legal, reason) for one cut: every component has a single exit.
+
+    The reference also holds each component's working set to the TPU's
+    VMEM budget; the port does not (a block here is a walk over device
+    memory).  On a CUDA ``device``, given the ``nests`` and ``bodies``, each
+    component's kernel must also be one the card runs
+    (:func:`hopper.accepts`).
+    """
+    from .lowering import (_component_exit, _dag_components,
+                           component_kernel, dag_components)
+
+    cutset = frozenset(int(i) for i in cut)
+    for i in cutset:
+        if not 0 <= i < len(dag.edges):
+            return False, (f"edge index {i} out of range for "
+                           f"{len(dag.edges)} edges")
+    for comp in _dag_components(dag, cutset):
+        try:
+            _component_exit(dag, comp, cutset)
+        except LoweringError as e:
+            return False, str(e)
+    if nests is None or bodies is None or device is None \
+            or torch.device(device).type != "cuda":
+        return True, "ok"
+    shapes = tuple(tuple(u.shape) if u.dim() > 1 else (1, u.shape[0])
+                   for u in (torch.as_tensor(v) for v in
+                             (uniforms or {}).values()))
+    try:
+        comps = dag_components(dag, tuple(nests), tuple(bodies), cutset,
+                               mode=mode, num_lanes=num_lanes,
+                               schedule=sched)
+        for comp in comps:
+            kernel = component_kernel(comp, out_dtype=torch_dtype(out_dtype),
+                                      num_lanes=num_lanes, schedule=sched,
+                                      uniforms=shapes)
+            takes, why = hopper.accepts(kernel.device_key, kernel.geometry,
+                                        torch.float32, device,
+                                        program=kernel.program)
+            if not takes:
+                return False, f"component {comp.stages}: {why}"
+    except LoweringError as e:
+        return False, str(e)
+    return True, "ok"
+
+
+def dag_model_cost(dag: ChainDAG, cut: Sequence[int], *,
+                   sched: Schedule = DEFAULT_SCHEDULE,
+                   step_cost: int = STEP_COST) -> float:
+    """Eq. (1)–(3) cost of executing the DAG under one cut.
+
+    Each fused component is ONE stream region (single setup, bodies summed,
+    union of lanes); each cut edge charges the store its producer pays and
+    the load its consumer re-issues; every component pays the per-grid-step
+    charge of its own kernel.
+    """
+    from .compiler import _fused_region_count
+    from .lowering import _dag_components
+
+    cutset = frozenset(int(i) for i in cut)
+    comps = _dag_components(dag, cutset)
+    elems = math.prod(dag.bounds)
+    steps = -(-dag.bounds[-1] // sched.block_elems) * \
+        math.prod(dag.bounds[:-1])
+    half = step_cost / 2.0
+    per_step = half + half / (_max_depth(sched) - 1)
+    total = 0.0
+    for comp in comps:
+        total += _fused_region_count([dag.stages[s] for s in comp],
+                                     dag.bounds)
+        total += per_step * steps
+    cut_names = {dag.edges[i].name for i in cutset}
+    total += elems * (len(cutset) + len(cut_names))  # loads + stores
+    return float(total)
+
+
+def autotune_dag(nests: Sequence[LoopNest], bodies: Sequence[Callable],
+                 operands: Dict[str, Any], *,
+                 mode: str = "map", out_dtype: Any = "float32",
+                 num_lanes: Optional[int] = None,
+                 top_k: int = 4, warmup: int = 1, iters: int = 3,
+                 cores: int = 1,
+                 cache: Optional[ScheduleCache] = None,
+                 use_cache: bool = True, force: bool = False,
+                 uniforms: Optional[Dict[str, Any]] = None,
+                 clock: Optional[Callable[[], float]] = None,
+                 device: DeviceLike = None) -> TuneResult:
+    """Search the DAG's legal cuts → prune by model → measure → commit.
+
+    The all-fused cut ``()`` and the full cut (the unfused composition)
+    always race.  The winner is committed as a :class:`Schedule` whose
+    ``cut_edges`` records the partition, under :func:`dag_cache_key`, so a
+    later plain ``ssr_dag_call`` resolves it.  On a CUDA device the card is
+    synchronized before each clock read, legality adds each component
+    kernel's acceptance, and a cut that beats all-fused by no more than the
+    race's spread is held back for all-fused (``held_back``).  ``timings``
+    holds each survivor as its schedule and best µs.
+    """
+    from .lowering import _dag_for, _uniform_items, ssr_dag_call
+
+    dev = resolve_device(call_device(operands, device))
+    nests = tuple(nests)
+    bodies = tuple(bodies)
+    dag = _dag_for(nests, num_lanes)
+    cache = cache or (global_cache() if use_cache else None)
+    # normalised exactly like ssr_dag_call, so the committed key is the one
+    # its dispatch looks up
+    uniforms = dict(_uniform_items(uniforms, dev))
+    key = dag_cache_key(nests, operands, mode=mode, out_dtype=out_dtype,
+                        cores=cores, uniforms=uniforms, device=dev)
+    if cache is not None and not force:
+        hit = cache.get(key)
+        if hit is not None:
+            meta = cache.meta(key) or {}
+            m = meta.get("meta", {})
+            return TuneResult(key=key, schedule=hit,
+                              tuned_us=float(m.get("tuned_us", 0.0)),
+                              default_us=float(m.get("default_us", 0.0)),
+                              candidates=int(m.get("candidates", 0)),
+                              measured=0, from_cache=True)
+
+    legal = [c for c in enumerate_cuts(dag)
+             if dag_cut_is_legal(dag, c, nests=nests, bodies=bodies,
+                                 mode=mode, out_dtype=out_dtype,
+                                 uniforms=uniforms, num_lanes=num_lanes,
+                                 device=dev)[0]]
+    full = tuple(range(len(dag.edges)))
+    ranked = sorted(legal, key=lambda c: (dag_model_cost(dag, c), c))
+    survivors = ranked[:max(1, top_k)]
+    for anchor in ((), full):            # both endpoints always race
+        if anchor in legal and anchor not in survivors:
+            survivors.append(anchor)
+    scheds = [dataclasses.replace(DEFAULT_SCHEDULE, cut_edges=c)
+              for c in survivors]
+
+    def call(sched: Schedule):
+        return ssr_dag_call(nests, bodies, operands, mode=mode,
+                            out_dtype=torch_dtype(out_dtype), schedule=sched,
+                            num_lanes=num_lanes, device=dev,
+                            uniforms=uniforms)
+
+    clock = clock or time.perf_counter
+    samples: List[List[float]] = [[] for _ in scheds]
+    try:
+        for _ in range(max(0, warmup)):
+            for sched in scheds:
+                call(sched)
+                _synchronize(dev)
+        for _ in range(max(1, iters)):
+            for i, sched in enumerate(scheds):
+                resilience.inject("measure")
+                t0 = clock()
+                call(sched)
+                _synchronize(dev)
+                samples[i].append(clock() - t0)
+    except resilience.fallback_error_types() as e:
+        resilience.record_fallback(
+            seam=resilience.classify(e), site="autotune_dag", error=e,
+            from_schedule="measure", to_schedule="default", key=key)
+        return TuneResult(key=key, schedule=DEFAULT_SCHEDULE, tuned_us=0.0,
+                          default_us=0.0, candidates=len(legal), measured=0,
+                          degraded=True, committed=False)
+    i_fused = survivors.index(()) if () in survivors else None
+    if i_fused is None:      # all-fused illegal: the fastest legal cut
+        tuned_us, i_win = min((min(xs) * 1e6, i)
+                              for i, xs in enumerate(samples))
+        winner, fused_us, held_back = scheds[i_win], float("inf"), False
+    else:
+        winner, tuned_us, fused_us, held_back = _pick(
+            scheds, samples, i_fused, on_card=dev.type == "cuda")
+
+    committed = False
+    if cache is not None:
+        try:
+            cache.put(key, winner, meta={
+                "tuned_us": tuned_us, "default_us": fused_us,
+                "candidates": len(legal), "measured": len(survivors),
+                "held_back": held_back,
+                "dag": [nest_signature(n) for n in nests],
+                "edges": len(dag.edges),
+                "cut_edges": list(winner.cut_edges),
+                "mode": mode, "out_dtype": dtype_name(out_dtype),
+                "cores": cores, "backend": _backend(dev),
+            })
+            committed = True
+        except resilience.fallback_error_types() as e:
+            resilience.record_fallback(
+                seam=resilience.classify(e), site="autotune_dag", error=e,
+                from_schedule="winner", to_schedule="uncommitted", key=key)
+    return TuneResult(key=key, schedule=winner, tuned_us=tuned_us,
+                      default_us=fused_us, candidates=len(legal),
+                      measured=len(survivors), committed=committed,
+                      held_back=held_back,
+                      timings=tuple((s, min(xs) * 1e6)
+                                    for s, xs in zip(scheds, samples)))

@@ -35,9 +35,16 @@ With no ``schedule=`` and the default policy, ``ssr_call`` and
 lower or build with a typed error (:mod:`~repro_torch.core.resilience`) is
 quarantined and the call runs again under :data:`DEFAULT_SCHEDULE`.
 
+Chains and DAGs (:func:`lower_chain`, :func:`ssr_chain_call`,
+:func:`ssr_dag_call`) fuse several nests over one grid into one
+:class:`~repro_torch.core.ssr.StageKernel` whose intermediates stay on chip;
+a committed ``Schedule.cut_edges`` runs a DAG as one kernel per component.
+``ssr_call`` and the DAG call take ``uniforms=``: whole arrays delivered at
+every step as one block with a constant walk.
+
 Not in this port yet, each a :class:`LoweringError` naming the slice that
 brings it: halo reads, gathers and the online-softmax accumulator of
-``lower_nest``; chains and DAGs.
+``lower_nest``.
 """
 
 from __future__ import annotations
@@ -46,20 +53,23 @@ import collections
 import dataclasses
 import functools
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from .. import DeviceLike, resolve_device, to_device
 from . import agu, nest_analysis, resilience
-from .compiler import Allocation, LoopNest, StreamPlan, _dense_strides, ssrify
-from .ssr import (BlockStream, LoweringError, SsrKernel, auto_block,
-                  probe_part_shape, scratch_bytes)
+from .compiler import (Allocation, ChainDAG, ChainedPlan, LoopNest,
+                       StreamPlan, _dense_strides, chain, chain_dag, ssrify)
+from .ssr import (BlockStream, KernelBody, LoweringError, SsrKernel,
+                  StageKernel, StageProgram, auto_block, probe_part_shape,
+                  scratch_bytes)
 from .stream import Direction, StreamSpec
 
 __all__ = ["LoweringError", "BlockPolicy", "Schedule", "DEFAULT_POLICY",
-           "DEFAULT_SCHEDULE", "lower_plan", "lower_nest", "ssr_call"]
+           "DEFAULT_SCHEDULE", "lower_plan", "lower_nest", "lower_chain",
+           "ssr_call", "ssr_chain_call", "ssr_dag_call"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,8 +113,9 @@ class Schedule:
       uniform or per read stream.  Validated (2..8) and accounted in
       :class:`~repro_torch.core.ssr.StreamReport`; the Hopper kernels of
       this port do not stage by it yet;
-    * ``cut_edges`` — for fused-DAG calls, which this port does not run
-      yet; kept so the JSON round trip is exact.
+    * ``cut_edges`` — for fused-DAG calls (:func:`ssr_dag_call`), the
+      graph cut: the edges whose intermediates go through device memory,
+      one kernel per remaining component (``()`` is all-fused, as ``None``).
     """
 
     rows: int = 8
@@ -742,48 +753,82 @@ def clear_caches() -> None:
         c.cache_clear()
     _kernel_cache.clear()
     _resolved_schedules.clear()
+    _resolved_dag_schedules.clear()
+
+
+def _uniform_streams(uniforms: Sequence[Tuple[int, ...]]) -> list:
+    """Each uniform as a read stream whose one block is the whole array,
+    the same at every step: its AGU coefficients are all 0."""
+    def _whole(nd: int):
+        return lambda *_g: (0,) * nd
+
+    return [BlockStream(tuple(u), _whole(len(u)), Direction.READ,
+                        name=f"_uniform{i}")
+            for i, u in enumerate(uniforms)]
+
+
+def _depths_with_uniforms(sched: Schedule, n_in: int, n_uniform: int):
+    """The FIFO depths of the streams, uniforms (depth 2) appended."""
+    depths = _depths_for(sched, n_in)
+    if isinstance(depths, tuple):
+        depths = depths + (2,) * n_uniform
+    return depths
 
 
 def _build_kernel(lowered: LoweredPlan, body: Callable, mode: str,
-                  out_dtype: torch.dtype) -> SsrKernel:
-    """A flat map/reduce kernel: ``body(*stream_blocks)`` per grid step.
+                  out_dtype: torch.dtype,
+                  uniforms: Sequence[Tuple[int, ...]] = ()) -> SsrKernel:
+    """A flat map/reduce kernel: ``body(*stream_blocks, *uniforms)`` per
+    grid step.
 
     Reduce mode accumulates into a (rows, lanes) vector accumulator when
     the partial is a multi-element 2-D block, folded to the scalar once;
     a scalar partial keeps a (1, 1) accumulator.  Map mode writes one
-    block per step through a dense row-major write stream.
+    block per step through a dense row-major write stream.  Each uniform
+    (its shape in ``uniforms``) trails the streamed inputs as one whole
+    block delivered at every step.
     """
     policy = lowered.policy
-    depths = _depths_for(lowered.schedule, len(lowered.in_streams))
-    ins = [s.stream for s in lowered.in_streams]
+    depths = _depths_with_uniforms(lowered.schedule,
+                                   len(lowered.in_streams), len(uniforms))
+    ins = [s.stream for s in lowered.in_streams] + _uniform_streams(uniforms)
+    common = dict(grid=lowered.grid, in_streams=ins, out_dtype=out_dtype,
+                  buffer_depth=depths, n_uniform=len(uniforms))
     if mode == "reduce":
         part = probe_part_shape(body, [s.block_shape for s in ins], out_dtype)
         vector = len(part) == 2 and math.prod(part) > 1
-        out = BlockStream((1, 1), lambda *g: (0, 0), Direction.WRITE,
-                          name="acc")
-        return SsrKernel(body, mode=mode, grid=lowered.grid, in_streams=ins,
-                         out_stream=out, out_shape=(1, 1),
-                         out_dtype=out_dtype,
+        return SsrKernel(body, mode=mode, out_stream=_acc_stream(),
+                         out_shape=(1, 1),
                          scratch_bytes=scratch_bytes(
                              part if vector else (1, 1), out_dtype),
-                         buffer_depth=depths)
+                         **common)
     if mode == "map":
-        place = _dense_strides(lowered.grid)
-
-        def out_map(*g):
-            row = g[0] * place[0]
-            for k in range(1, len(g)):
-                row = row + g[k] * place[k]
-            return (row, 0)
-
-        out = BlockStream(policy.block_shape, out_map, Direction.WRITE,
-                          name="out")
-        return SsrKernel(body, mode=mode, grid=lowered.grid, in_streams=ins,
-                         out_stream=out,
+        return SsrKernel(body, mode=mode,
+                         out_stream=_map_out_stream(lowered.grid, policy),
                          out_shape=(lowered.steps * policy.rows,
                                     policy.lanes),
-                         out_dtype=out_dtype, buffer_depth=depths)
+                         **common)
     raise ValueError(f"unknown ssr_call mode {mode!r}")
+
+
+def _acc_stream() -> BlockStream:
+    """The reduce epilogue's (1, 1) output: the folded accumulator."""
+    return BlockStream((1, 1), lambda *g: (0, 0), Direction.WRITE,
+                       name="acc")
+
+
+def _map_out_stream(grid: Tuple[int, ...], policy: BlockPolicy) -> BlockStream:
+    """The map epilogue's dense row-major write stream: one block a step."""
+    place = _dense_strides(grid)
+
+    def out_map(*g):
+        row = g[0] * place[0]
+        for k in range(1, len(g)):
+            row = row + g[k] * place[k]
+        return (row, 0)
+
+    return BlockStream(policy.block_shape, out_map, Direction.WRITE,
+                       name="out")
 
 
 def _build_nest_kernel(lowered: LoweredNest, body: Callable,
@@ -846,17 +891,46 @@ class PreparedCall:
 
 
 def build_kernel(lowered: Any, body: Callable, mode: str,
-                 out_dtype: torch.dtype) -> SsrKernel:
+                 out_dtype: torch.dtype,
+                 uniforms: Sequence[Tuple[int, ...]] = ()) -> SsrKernel:
     """The :class:`SsrKernel` of a lowered schedule (flat or level-mapped):
     its geometry is what the Hopper kernel is programmed with."""
     if isinstance(lowered, LoweredNest):
         return _build_nest_kernel(lowered, body, out_dtype)
-    return _build_kernel(lowered, body, mode, out_dtype)
+    return _build_kernel(lowered, body, mode, out_dtype, uniforms)
+
+
+def _uniform_items(uniforms: Optional[Dict[str, Any]],
+                   dev: torch.device) -> Tuple[Tuple[str, torch.Tensor], ...]:
+    """A uniforms dict as ``((name, tensor on dev), ...)`` in dict order.
+
+    1-D arrays gain a leading singleton (a block is at least 2-D); scalars
+    are rejected — a Python float in the body's closure (or a
+    :class:`KernelBody` parameter) is already hashable and free.
+    """
+    if not uniforms:
+        return ()
+    items = []
+    for name, arr in uniforms.items():
+        a = to_device(arr, dev)
+        if a.dim() == 0:
+            raise ValueError(
+                f"uniform {name!r} is a scalar; close over the Python "
+                "value instead — scalar closures hash and cache fine")
+        if a.dim() == 1:
+            a = a.reshape(1, -1)
+        items.append((name, a.contiguous()))
+    return tuple(items)
+
+
+def _uniform_sig(items: Tuple[Tuple[str, torch.Tensor], ...]) -> Tuple:
+    return tuple((nm, tuple(a.shape), a.dtype) for nm, a in items)
 
 
 def _prepare(nest: LoopNest, body: Callable, operands: Dict[str, Any],
              mode: str, out_dtype: torch.dtype, sched: Schedule,
-             num_lanes: int, dev: torch.device) -> PreparedCall:
+             num_lanes: int, dev: torch.device,
+             uni: Tuple[Tuple[str, torch.Tensor], ...] = ()) -> PreparedCall:
     """Lower under ``sched``, build (or reuse) the kernel, lay out the
     operands: everything up to the launch."""
     plan = _plan_for(nest, num_lanes)
@@ -869,16 +943,18 @@ def _prepare(nest: LoopNest, body: Callable, operands: Dict[str, Any],
         raise ValueError(f"missing operands for streams {missing}")
     arrays = [to_device(operands[s.name], dev) for s in lowered.in_streams]
     key = (nest, sched, mode, _body_key(body), out_dtype,
-           tuple((tuple(a.shape), a.dtype) for a in arrays), num_lanes)
+           tuple((tuple(a.shape), a.dtype) for a in arrays),
+           _uniform_sig(uni), num_lanes)
     kernel = _kernel_cache_get(key)
     if kernel is None:
         resilience.inject("compile")
-        kernel = build_kernel(lowered, body, mode, out_dtype)
+        kernel = build_kernel(lowered, body, mode, out_dtype,
+                              tuple(tuple(a.shape) for _, a in uni))
         DISPATCH_STATS["builds"] += 1
         _kernel_cache_put(key, kernel)
     layouts = tuple(s.prepare(a) for s, a in zip(lowered.in_streams, arrays))
-    return PreparedCall(kernel=kernel, layouts=layouts, lowered=lowered,
-                        bounds=tuple(nest.bounds))
+    return PreparedCall(kernel=kernel, layouts=layouts + tuple(
+        a for _, a in uni), lowered=lowered, bounds=tuple(nest.bounds))
 
 
 #: ``ssr_call``'s resolved schedules: (epoch, nest, operand shapes and
@@ -890,8 +966,8 @@ _resolved_schedules: Dict[Any, Tuple[Schedule, Optional[str]]] = {}
 
 
 def _tuned_schedule(nest: LoopNest, operands: Dict[str, Any], mode: str,
-                    out_dtype: torch.dtype,
-                    dev: torch.device) -> Tuple[Schedule, Optional[str]]:
+                    out_dtype: torch.dtype, dev: torch.device,
+                    site: str = "ssr_call") -> Tuple[Schedule, Optional[str]]:
     """(schedule, tuned key) from the autotuner's cache, memoised per
     epoch; the key is None when the schedule is the default."""
     from . import autotune
@@ -907,7 +983,7 @@ def _tuned_schedule(nest: LoopNest, operands: Dict[str, Any], mode: str,
         schedule = autotune.lookup(nest, operands, mode=mode,
                                    out_dtype=out_dtype, device=dev)
     except resilience.fallback_error_types() as e:
-        _record_fallback("ssr_call", e, from_schedule="tuned-lookup",
+        _record_fallback(site, e, from_schedule="tuned-lookup",
                          to_schedule="default")
         return DEFAULT_SCHEDULE, None     # not memoised: the next call retries
     key = None if schedule == DEFAULT_SCHEDULE else autotune.cache_key(
@@ -921,7 +997,8 @@ def _tuned_schedule(nest: LoopNest, operands: Dict[str, Any], mode: str,
 def _resolved(nest: LoopNest, operands: Dict[str, Any], mode: str,
               out_dtype: torch.dtype, policy: BlockPolicy,
               schedule: Optional[Schedule], dev: torch.device,
-              attempt: Callable[[Schedule], Any]) -> Any:
+              attempt: Callable[[Schedule], Any],
+              site: str = "ssr_call") -> Any:
     """Run ``attempt(schedule)`` under the resolved schedule, with the
     tuned → default ladder.
 
@@ -936,7 +1013,7 @@ def _resolved(nest: LoopNest, operands: Dict[str, Any], mode: str,
     tuned_key: Optional[str] = None
     if schedule is None and policy is DEFAULT_POLICY:
         schedule, tuned_key = _tuned_schedule(nest, operands, mode,
-                                              out_dtype, dev)
+                                              out_dtype, dev, site)
     DISPATCH_STATS["calls"] += 1
     sched = _resolve_schedule(policy, schedule)
     if tuned_key is None:
@@ -947,7 +1024,7 @@ def _resolved(nest: LoopNest, operands: Dict[str, Any], mode: str,
         from . import autotune
 
         autotune.global_cache().quarantine(tuned_key)
-        _record_fallback("ssr_call", e, from_schedule="tuned",
+        _record_fallback(site, e, from_schedule="tuned",
                          to_schedule="default", key=tuned_key,
                          counter="degraded")
         return attempt(DEFAULT_SCHEDULE)
@@ -960,15 +1037,27 @@ def prepare_call(nest: LoopNest, body: Callable[..., torch.Tensor],
                  policy: BlockPolicy = DEFAULT_POLICY,
                  schedule: Optional[Schedule] = None,
                  num_lanes: Optional[int] = None,
-                 device: DeviceLike = None) -> PreparedCall:
+                 device: DeviceLike = None,
+                 uniforms: Optional[Dict[str, Any]] = None) -> PreparedCall:
     """Everything :func:`ssr_call` does before the launch (same arguments,
     the same schedule resolution and ladder)."""
     dev = resolve_device(device)
     lanes = nest_analysis.auto_lanes(nest, num_lanes)
+    uni = _checked_uniforms(nest, uniforms, dev)
     return _resolved(
         nest, operands, mode, out_dtype, policy, schedule, dev,
         lambda s: _prepare(nest, body, operands, mode, out_dtype, s, lanes,
-                           dev))
+                           dev, uni))
+
+
+def _checked_uniforms(nest: LoopNest, uniforms: Optional[Dict[str, Any]],
+                      dev: torch.device):
+    uni = _uniform_items(uniforms, dev)
+    if uni and any(r.kind == Direction.WRITE for r in nest.refs):
+        raise LoweringError(
+            "uniform operands are not supported on the level-mapped "
+            "(explicit WRITE ref) path; use a map/reduce nest")
+    return uni
 
 
 def ssr_call(nest: LoopNest, body: Callable[..., torch.Tensor],
@@ -978,11 +1067,14 @@ def ssr_call(nest: LoopNest, body: Callable[..., torch.Tensor],
              policy: BlockPolicy = DEFAULT_POLICY,
              schedule: Optional[Schedule] = None,
              num_lanes: Optional[int] = None,
-             device: DeviceLike = None) -> torch.Tensor:
+             device: DeviceLike = None,
+             uniforms: Optional[Dict[str, Any]] = None) -> torch.Tensor:
     """Execute a :class:`LoopNest` as one streamed kernel.
 
-    ``body(*blocks)`` receives one block per allocated read stream (in
-    allocation order) and returns
+    ``body(*blocks, *uniforms)`` receives one block per allocated read
+    stream (in allocation order), then every ``uniforms`` array whole (in
+    dict order; a 1-D array as ``(1, n)``, a scalar is refused), and
+    returns
 
     * ``mode="reduce"`` — a partial accumulated across all grid steps; a
       block-shaped partial uses a (rows, lanes) vector accumulator folded
@@ -1009,7 +1101,766 @@ def ssr_call(nest: LoopNest, body: Callable[..., torch.Tensor],
     """
     dev = resolve_device(device)
     lanes = nest_analysis.auto_lanes(nest, num_lanes)
+    uni = _checked_uniforms(nest, uniforms, dev)
     return _resolved(
         nest, operands, mode, out_dtype, policy, schedule, dev,
         lambda s: _prepare(nest, body, operands, mode, out_dtype, s, lanes,
-                           dev).run())
+                           dev, uni).run())
+
+
+# --------------------------------------------------------------------------
+# Stream chaining: a ChainedPlan or ChainDAG lowers to ONE kernel whose
+# intermediates stay on chip and never touch device memory.
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LoweredChain:
+    """A ChainedPlan *or* ChainDAG turned into one launchable schedule.
+
+    All stages share one grid (the unified iteration space, innermost level
+    tiled by the policy block).  ``stage_in_streams[k]`` are stage k's
+    external read streams; the link intermediates have *no* streams at all —
+    they exist only on chip inside the kernel.  For a ChainDAG the scratch
+    slots are refcounted: a produced block's slot is reused once its last
+    consumer stage has read it (see ``_dag_slots``).
+    """
+
+    chained: Any                    # ChainedPlan | ChainDAG
+    policy: BlockPolicy
+    grid: Tuple[int, ...]
+    stage_in_streams: Tuple[Tuple[LoweredStream, ...], ...]
+    schedule: Schedule = DEFAULT_SCHEDULE
+
+    @property
+    def in_streams(self) -> Tuple[LoweredStream, ...]:
+        return tuple(s for stage in self.stage_in_streams for s in stage)
+
+    @property
+    def steps(self) -> int:
+        return math.prod(self.grid)
+
+
+def lower_chain(chained, policy: BlockPolicy = DEFAULT_POLICY, *,
+                schedule: Optional[Schedule] = None) -> LoweredChain:
+    """Lower a chain (or chain DAG) to one fused schedule.
+
+    Accepts a linear :class:`ChainedPlan` or a :class:`ChainDAG` — both
+    expose ``stages``/``links``/``bounds``, and the stage emission is
+    topologically ordered either way.  Block-granular chaining requires each
+    link to walk the canonical dense row-major pattern of the shared
+    iteration space: then grid step ``g``'s produced block is *exactly* the
+    block the consumer eats at step ``g``, so the intermediate can stay on
+    chip.  Anything else raises :class:`LoweringError`.
+    """
+    resilience.inject("lowering")
+    sched = _resolve_schedule(policy, schedule)
+    if sched.axis_order is not None:
+        raise LoweringError(
+            "schedule.axis_order applies to the level-mapped path "
+            "(lower_nest) only; a chain's grid IS the unified AGU walk")
+    policy = sched.policy
+    bounds = chained.bounds
+    dense = _dense_strides(bounds)
+    for link in chained.links:
+        if link.coeffs != dense or link.offset != 0:
+            raise LoweringError(
+                f"link '{link.name}': intermediate walk {link.coeffs}+"
+                f"{link.offset} is not the dense row-major walk {dense}+0 of "
+                "the iteration space — the producer's block is not the "
+                "consumer's block, so the intermediate cannot stay in VMEM")
+    if not any(p.allocations for p in chained.stages):
+        raise LoweringError(
+            "chained plan has no stream allocations (every stage kept the "
+            "baseline verdict); chain with force=True for the "
+            "runtime-decision path")
+
+    stage_streams = []
+    for k, plan in enumerate(chained.stages):
+        lowered = [_lower_allocation(a, plan.nest, policy)
+                   for a in plan.allocations]
+        writes = [s.name for s in lowered
+                  if s.stream.direction == Direction.WRITE]
+        if writes:
+            raise LoweringError(
+                f"chain stage {k} carries write streams {writes}; only the "
+                "final output (synthesised from the call mode) may leave "
+                "the fused region")
+        stage_streams.append(tuple(lowered))
+
+    return LoweredChain(chained=chained, policy=policy,
+                        grid=_canonical_grid(bounds, policy),
+                        stage_in_streams=tuple(stage_streams),
+                        schedule=sched)
+
+
+@functools.lru_cache(maxsize=CACHE_MAX)
+def _chain_for(nests: Tuple[LoopNest, ...],
+               num_lanes: Optional[int]) -> ChainedPlan:
+    """Chained-plan cache (force=True: the caller asked to execute fused)."""
+    return chain(nests, num_lanes=num_lanes, force=True)
+
+
+@functools.lru_cache(maxsize=CACHE_MAX)
+def _dag_for(nests: Tuple[LoopNest, ...],
+             num_lanes: Optional[int]) -> ChainDAG:
+    """Chain-DAG cache (force=True: the caller asked to execute fused)."""
+    return chain_dag(nests, num_lanes=num_lanes, force=True)
+
+
+@functools.lru_cache(maxsize=CACHE_MAX)
+def _lowered_chain_for(chained: Any, sched: Schedule) -> LoweredChain:
+    return lower_chain(chained, schedule=sched)
+
+
+_PLAN_CACHES += (_chain_for, _dag_for, _lowered_chain_for)
+
+
+def _stage_offsets(lowered: LoweredChain) -> Tuple[list, list]:
+    counts = [len(stage) for stage in lowered.stage_in_streams]
+    offsets = [0]
+    for c in counts[:-1]:
+        offsets.append(offsets[-1] + c)
+    return counts, offsets
+
+
+def _chain_stage_shapes(lowered: LoweredChain, bodies: Sequence[Callable],
+                        out_dtype: torch.dtype,
+                        require_final_block: bool = False) -> Tuple[int, ...]:
+    """Shape-check every stage by one step on zeros; return the final
+    partial's shape.
+
+    Each linked intermediate must fill exactly one policy block — the
+    on-chip block the next stage reads.  ``require_final_block`` extends
+    the check to the last stage (map mode, where the value feeds the dense
+    write stream).
+    """
+    policy = lowered.policy
+    shape: Tuple[int, ...] = ()
+    for k, stage in enumerate(lowered.stage_in_streams):
+        ins = [s.stream.block_shape for s in stage]
+        carried = [policy.block_shape] if k else []
+        shape = probe_part_shape(bodies[k], carried + ins, out_dtype)
+        must_block = k < len(bodies) - 1 or require_final_block
+        if must_block and math.prod(shape) != policy.block_elems:
+            what = ("a linked intermediate" if k < len(bodies) - 1
+                    else "the map-mode output")
+            raise LoweringError(
+                f"chain stage {k} body returns shape {shape} "
+                f"({math.prod(shape)} elements); {what} "
+                f"must fill one {policy.block_shape} VMEM block")
+    return shape
+
+
+def _stage_kernel(lowered: LoweredChain, bodies: Sequence[Callable],
+                  sources: Sequence[Sequence[Tuple[str, int]]], mode: str,
+                  out_dtype: torch.dtype, part: Tuple[int, ...],
+                  uniforms: Sequence[Tuple[int, ...]] = (),
+                  slots: Sequence[Optional[int]] = (),
+                  n_slots: int = 0) -> StageKernel:
+    """The :class:`StageKernel` of a lowered chain or DAG with the map or
+    reduce epilogue of ``mode``."""
+    policy = lowered.policy
+    n_streams = len(lowered.in_streams)
+    ins = [s.stream for s in lowered.in_streams] + _uniform_streams(uniforms)
+    program = StageProgram.of(bodies, sources, n_streams, len(uniforms),
+                              slots, n_slots, policy.block_shape, mode)
+    block = scratch_bytes(policy.block_shape, out_dtype)
+    common = dict(mode=mode, grid=lowered.grid, in_streams=ins,
+                  out_dtype=out_dtype,
+                  buffer_depth=_depths_with_uniforms(
+                      lowered.schedule, n_streams, len(uniforms)),
+                  n_uniform=len(uniforms))
+    if mode == "reduce":
+        vector = len(part) == 2 and math.prod(part) > 1
+        return StageKernel(bodies, program, out_stream=_acc_stream(),
+                           out_shape=(1, 1),
+                           scratch_bytes=n_slots * block + scratch_bytes(
+                               part if vector else (1, 1), out_dtype),
+                           **common)
+    if mode == "map":
+        return StageKernel(bodies, program,
+                           out_stream=_map_out_stream(lowered.grid, policy),
+                           out_shape=(lowered.steps * policy.rows,
+                                      policy.lanes),
+                           scratch_bytes=n_slots * block, **common)
+    raise ValueError(f"unknown ssr_call mode {mode!r}")
+
+
+def _build_chain_kernel(lowered: LoweredChain, bodies: Sequence[Callable],
+                        mode: str, out_dtype: torch.dtype) -> StageKernel:
+    """Fuse all stage bodies into ONE kernel.
+
+    Per grid step: stage 0 computes its block from its read streams; each
+    intermediate stays on chip and is the next stage's first argument the
+    same step; the final stage's value feeds the map/reduce epilogue.
+    """
+    counts, offsets = _stage_offsets(lowered)
+    final = _chain_stage_shapes(lowered, bodies, out_dtype,
+                                require_final_block=(mode == "map"))
+    sources = [([("stage", k - 1)] if k else [])
+               + [("stream", offsets[k] + j) for j in range(counts[k])]
+               for k in range(len(bodies))]
+    n_links = len(lowered.chained.links)
+    return _stage_kernel(lowered, bodies, sources, mode, out_dtype, final,
+                         slots=[0] * n_links + [None],
+                         n_slots=min(n_links, 1))
+
+
+def _dag_slots(dag: ChainDAG) -> Tuple[Dict[str, int], int]:
+    """Refcounted scratch-slot assignment for a ChainDAG's values.
+
+    Walking the stages in (topological) order: a produced block takes a
+    slot; once its *last* consumer stage has read it the slot returns to
+    the free list and the next producer reuses it.  Returns ``(slot_of,
+    n_slots)``: the per-intermediate slot index and the peak number of live
+    blocks (a diamond needs 2 slots, not one per edge).
+    """
+    slot_of: Dict[str, int] = {}
+    free: list = []
+    n_slots = 0
+    n = len(dag.stages)
+    for k in range(n):
+        for name in sorted({e.name for e in dag.in_edges(k)}):
+            if dag.last_consumer(name) == k:
+                free.append(slot_of[name])
+        if k == n - 1:
+            continue        # the final value exits via the call epilogue
+        produced = sorted({e.name for e in dag.out_edges(k)})
+        if len(produced) != 1:
+            raise LoweringError(
+                f"dag stage {k} produces intermediates {produced}; a stage "
+                "body returns one block, so each non-final stage must "
+                "write exactly one intermediate")
+        if free:
+            slot_of[produced[0]] = free.pop()
+        else:
+            slot_of[produced[0]] = n_slots
+            n_slots += 1
+    return slot_of, n_slots
+
+
+def _dag_stage_shapes(lowered: LoweredChain, bodies: Sequence[Callable],
+                      out_dtype: torch.dtype,
+                      require_final_block: bool = False,
+                      uniforms: Sequence[Tuple[int, ...]] = ()
+                      ) -> Tuple[int, ...]:
+    """Shape-check every DAG stage by one step on zeros; return the final
+    partial's shape.
+
+    Stage ``k``'s body receives one carried block per incoming edge (in
+    ``ChainDAG.in_edges`` order), its external stream blocks, then every
+    uniform array; every non-final stage must return exactly one policy
+    block — the on-chip block its consumers read.
+    """
+    policy = lowered.policy
+    dag = lowered.chained
+    shape: Tuple[int, ...] = ()
+    for k, stage in enumerate(lowered.stage_in_streams):
+        carried = [policy.block_shape for _ in dag.in_edges(k)]
+        ins = [s.stream.block_shape for s in stage]
+        shape = probe_part_shape(bodies[k], carried + ins + list(uniforms),
+                                 out_dtype)
+        must_block = k < len(bodies) - 1 or require_final_block
+        if must_block and math.prod(shape) != policy.block_elems:
+            what = ("a dag intermediate" if k < len(bodies) - 1
+                    else "the map-mode output")
+            raise LoweringError(
+                f"dag stage {k} body returns shape {shape} "
+                f"({math.prod(shape)} elements); {what} "
+                f"must fill one {policy.block_shape} VMEM block")
+    return shape
+
+
+def _build_dag_kernel(lowered: LoweredChain, bodies: Sequence[Callable],
+                      mode: str, out_dtype: torch.dtype,
+                      uniforms: Sequence[Tuple[int, ...]] = ()
+                      ) -> StageKernel:
+    """Fuse a ChainDAG's stage bodies into ONE kernel.
+
+    Topologically-ordered stages: per grid step each stage reads its carried
+    blocks (the values of its incoming edges' producers, this step), its
+    stream blocks and the uniforms, and computes; a multi-consumer value is
+    produced once and read by every consumer on chip.  The program records
+    each product's refcounted scratch slot (:func:`_dag_slots`).
+    """
+    dag = lowered.chained
+    counts, offsets = _stage_offsets(lowered)
+    slot_of, n_slots = _dag_slots(dag)
+    final = _dag_stage_shapes(lowered, bodies, out_dtype,
+                              require_final_block=(mode == "map"),
+                              uniforms=uniforms)
+    sources = [[("stage", e.producer_stage) for e in dag.in_edges(k)]
+               + [("stream", offsets[k] + j) for j in range(counts[k])]
+               for k in range(len(bodies))]
+    slots = [slot_of[dag.out_edges(k)[0].name] if k < len(bodies) - 1
+             else None for k in range(len(bodies))]
+    return _stage_kernel(lowered, bodies, sources, mode, out_dtype, final,
+                         uniforms, slots, n_slots)
+
+
+def _check_bodies(nests: Tuple[LoopNest, ...], bodies: Tuple) -> None:
+    if len(bodies) != len(nests):
+        raise ValueError(
+            f"need one body per nest, got {len(bodies)} bodies for "
+            f"{len(nests)} nests")
+
+
+def _prepare_stages(lowered: LoweredChain, key: Any,
+                    build: Callable[[], Any], operands: Dict[str, Any], uni,
+                    dev: torch.device, bounds: Tuple[int, ...]
+                    ) -> PreparedCall:
+    """Lay out a chain's or DAG's operands and build (or reuse) its kernel
+    under ``key`` + the operand signature: everything up to the launch."""
+    flat = lowered.in_streams
+    missing = sorted({s.name for s in flat} - set(operands))
+    if missing:
+        raise ValueError(f"missing operands for streams {missing}")
+    arrays = [to_device(operands[s.name], dev) for s in flat]
+    key = key + (tuple((tuple(a.shape), a.dtype) for a in arrays),
+                 _uniform_sig(uni))
+    kernel = _kernel_cache_get(key)
+    if kernel is None:
+        resilience.inject("compile")
+        kernel = build()
+        DISPATCH_STATS["builds"] += 1
+        _kernel_cache_put(key, kernel)
+    layouts = tuple(s.prepare(a) for s, a in zip(flat, arrays))
+    return PreparedCall(kernel=kernel, layouts=layouts + tuple(
+        a for _, a in uni), lowered=lowered, bounds=tuple(bounds))
+
+
+def _prepare_chain(nests: Tuple[LoopNest, ...], bodies: Tuple,
+                   operands: Dict[str, Any], mode: str,
+                   out_dtype: torch.dtype, sched: Schedule,
+                   num_lanes: Optional[int], dev: torch.device
+                   ) -> PreparedCall:
+    chained = _chain_for(nests, num_lanes)
+    lowered = _lowered_chain_for(chained, sched)
+    return _prepare_stages(
+        lowered, ("chain", nests, sched, mode,
+                  tuple(_body_key(b) for b in bodies), out_dtype, num_lanes),
+        lambda: _build_chain_kernel(lowered, bodies, mode, out_dtype),
+        operands, (), dev, chained.bounds)
+
+
+def _prepare_dag(nests: Tuple[LoopNest, ...], bodies: Tuple,
+                 operands: Dict[str, Any], mode: str,
+                 out_dtype: torch.dtype, sched: Schedule,
+                 num_lanes: Optional[int], dev: torch.device, uni
+                 ) -> PreparedCall:
+    dag = _dag_for(nests, num_lanes)
+    lowered = _lowered_chain_for(dag, sched)
+    return _prepare_stages(
+        lowered, ("dag", nests, sched, mode,
+                  tuple(_body_key(b) for b in bodies), out_dtype, num_lanes),
+        lambda: _build_dag_kernel(lowered, bodies, mode, out_dtype,
+                                  tuple(tuple(a.shape) for _, a in uni)),
+        operands, uni, dev, dag.bounds)
+
+
+def prepare_chain_call(nests: Sequence[LoopNest],
+                       bodies: Sequence[Callable[..., torch.Tensor]],
+                       operands: Dict[str, Any], *, mode: str = "map",
+                       out_dtype: torch.dtype = torch.float32,
+                       schedule: Schedule = DEFAULT_SCHEDULE,
+                       num_lanes: Optional[int] = None,
+                       device: DeviceLike = None) -> PreparedCall:
+    """:func:`ssr_chain_call` up to the launch, under ``schedule``: the
+    fused kernel and its operands' layouts."""
+    nests, bodies = tuple(nests), tuple(bodies)
+    _check_bodies(nests, bodies)
+    return _prepare_chain(nests, bodies, operands, mode, out_dtype, schedule,
+                          num_lanes, resolve_device(device))
+
+
+def prepare_dag_call(nests: Sequence[LoopNest],
+                     bodies: Sequence[Callable[..., torch.Tensor]],
+                     operands: Dict[str, Any], *, mode: str = "map",
+                     out_dtype: torch.dtype = torch.float32,
+                     schedule: Schedule = DEFAULT_SCHEDULE,
+                     num_lanes: Optional[int] = None,
+                     device: DeviceLike = None,
+                     uniforms: Optional[Dict[str, Any]] = None
+                     ) -> PreparedCall:
+    """:func:`ssr_dag_call` all-fused, up to the launch, under
+    ``schedule`` (whose ``cut_edges`` must be empty): the fused kernel and
+    its operands' layouts, uniforms last.  A cut's kernels are those of
+    :func:`dag_components`."""
+    nests, bodies = tuple(nests), tuple(bodies)
+    _check_bodies(nests, bodies)
+    if schedule.cut_edges:
+        raise LoweringError(
+            f"prepare_dag_call runs the DAG all-fused; schedule.cut_edges "
+            f"{schedule.cut_edges} asks for one kernel per component")
+    dev = resolve_device(device)
+    return _prepare_dag(nests, bodies, operands, mode, out_dtype,
+                        dataclasses.replace(schedule, cut_edges=None),
+                        num_lanes, dev, _uniform_items(uniforms, dev))
+
+
+def ssr_chain_call(nests: Sequence[LoopNest],
+                   bodies: Sequence[Callable[..., torch.Tensor]],
+                   operands: Dict[str, Any], *,
+                   mode: str = "map",
+                   out_dtype: torch.dtype = torch.float32,
+                   policy: BlockPolicy = DEFAULT_POLICY,
+                   schedule: Optional[Schedule] = None,
+                   num_lanes: Optional[int] = None,
+                   device: DeviceLike = None) -> torch.Tensor:
+    """Execute a producer→consumer chain of nests as ONE kernel.
+
+    ``nests[k]`` and ``nests[k+1]`` must be chainable (see
+    :func:`repro_torch.core.compiler.chain`): the producer's WRITE ref
+    unifies with the consumer's READ ref over one shared iteration space.
+    The intermediates stay on chip — never stored to, or re-loaded from,
+    device memory.
+
+    ``bodies[0](*stage0_blocks)`` computes the first intermediate;
+    ``bodies[k](carried_block, *stagek_blocks)`` receives the previous
+    stage's block first.  ``mode`` applies to the *final* stage, with the
+    same contract as :func:`ssr_call`.  Reduce bodies must be
+    padding-neutral at every stage.  On the card the kernel is the one of
+    ``(mode, tuple of the bodies' ops)`` (:data:`hopper.DEVICE_KERNELS`).
+
+    With no ``schedule`` the autotuner's cache is consulted under the
+    stage-0 nest's key, once per problem and :func:`autotune.epoch` as
+    :func:`ssr_call` does (the reference probes on every call); a failing
+    tuned schedule degrades to the default.
+    """
+    nests = tuple(nests)
+    bodies = tuple(bodies)
+    _check_bodies(nests, bodies)
+    dev = resolve_device(device)
+    return _resolved(
+        nests[0], operands, mode, out_dtype, policy, schedule, dev,
+        lambda s: _prepare_chain(nests, bodies, operands, mode, out_dtype, s,
+                                 num_lanes, dev).run(),
+        site="ssr_chain_call")
+
+
+def _dag_components(dag: ChainDAG,
+                    cut: frozenset) -> Tuple[Tuple[int, ...], ...]:
+    """Connected stage components over the *non-cut* edges, ordered by
+    their maximum stage index — a valid topological order of the
+    partition (every cut edge points from one component's exit to a
+    higher-indexed stage of a later component)."""
+    parent = list(range(len(dag.stages)))
+
+    def find(x: int) -> int:
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    for i, e in enumerate(dag.edges):
+        if i not in cut:
+            parent[find(e.producer_stage)] = find(e.consumer_stage)
+    groups: Dict[int, list] = {}
+    for s in range(len(dag.stages)):
+        groups.setdefault(find(s), []).append(s)
+    return tuple(sorted((tuple(sorted(g)) for g in groups.values()),
+                        key=max))
+
+
+def _component_exit(dag: ChainDAG, comp: Tuple[int, ...],
+                    cut: frozenset) -> int:
+    """The component's unique exit stage — the one whose value leaves.
+
+    A value leaves through a cut out-edge or by being the whole DAG's
+    final stage; a legal cut gives every component exactly one such stage
+    (otherwise more than one buffer would have to exit a single fused
+    kernel, which the map/reduce epilogue cannot express).
+    """
+    inside = set(comp)
+    exits = set()
+    for i, e in enumerate(dag.edges):
+        if i in cut and e.producer_stage in inside:
+            exits.add(e.producer_stage)
+    if len(dag.stages) - 1 in inside:
+        exits.add(len(dag.stages) - 1)
+    if len(exits) != 1:
+        raise LoweringError(
+            f"cut {tuple(sorted(cut))} gives component {comp} exit stages "
+            f"{sorted(exits)}; a legal cut leaves each fused component "
+            "exactly one stage whose value exits the kernel")
+    return exits.pop()
+
+
+def _reorder_body(body: Callable, callee_names: Sequence[str],
+                  want_names: Sequence[str], where: str) -> Callable:
+    """Adapt a DAG-convention body to a callee's block-argument order.
+
+    ``callee_names`` is the order the executing kernel passes blocks in;
+    ``want_names`` is the order ``body`` expects (incoming-edge blocks in
+    ``in_edges`` order, then the stage's external streams in allocation
+    order).  Cut edges turn carried blocks into external operand streams,
+    so the two orders differ per partition — the adapter permutes by name.
+    A :class:`KernelBody` stays one, with its op and the permutation (its
+    kernel permutes its stream pointers); trailing uniforms pass through
+    unpermuted.
+    """
+    pos = {nm: i for i, nm in enumerate(callee_names)}
+    missing = [nm for nm in want_names if nm not in pos]
+    if missing or len(callee_names) != len(want_names):
+        raise LoweringError(
+            f"{where}: body expects blocks {list(want_names)} but the "
+            f"partitioned kernel streams {list(callee_names)}")
+    perm = tuple(pos[nm] for nm in want_names)
+    if perm == tuple(range(len(perm))):
+        return body
+    if isinstance(body, KernelBody):
+        return body.reordered(perm)
+    return lambda *blocks, _b=body, _p=perm: _b(
+        *(blocks[i] for i in _p), *blocks[len(_p):])
+
+
+def _stage_arg_names(dag: ChainDAG, k: int) -> list:
+    """Stage ``k``'s body-argument names in the fused-DAG convention."""
+    return ([e.name for e in dag.in_edges(k)]
+            + [a.ref.name for a in dag.stages[k].allocations])
+
+
+@dataclasses.dataclass(frozen=True)
+class DagComponent:
+    """One kernel of a DAG run under a cut: its stages, the mode of its
+    epilogue, the intermediate it exports (``None`` for the final one), and
+    its nests and bodies, reordered to the kernel's block order.  A single
+    stage runs as an :func:`ssr_call`, several as an :func:`ssr_dag_call`.
+    """
+
+    stages: Tuple[int, ...]
+    mode: str
+    exported: Optional[str]
+    nests: Tuple[LoopNest, ...]
+    bodies: Tuple[Callable, ...]
+
+
+def dag_components(dag: ChainDAG, nests: Tuple[LoopNest, ...],
+                   bodies: Tuple[Callable, ...], cut: Sequence[int], *,
+                   mode: str, num_lanes: Optional[int] = None,
+                   schedule: Schedule = DEFAULT_SCHEDULE
+                   ) -> Tuple[DagComponent, ...]:
+    """The kernels a DAG runs as under ``cut``, in topological order."""
+    cutset = frozenset(int(i) for i in cut)
+    for i in cutset:
+        if not 0 <= i < len(dag.edges):
+            raise LoweringError(
+                f"schedule.cut_edges index {i} is out of range for a dag "
+                f"with {len(dag.edges)} edges")
+    sub_sched = _sub_schedule(schedule)
+    n = len(nests)
+    out = []
+    for comp in _dag_components(dag, cutset):
+        exit_stage = _component_exit(dag, comp, cutset)
+        final = (n - 1) in comp
+        exported = None if final else dag.out_edges(exit_stage)[0].name
+        sub_nests = []
+        for s in comp:
+            nest = nests[s]
+            if exported is not None and s == exit_stage:
+                refs = tuple(r for r in nest.refs
+                             if not (r.kind == Direction.WRITE
+                                     and r.name == exported))
+                nest = dataclasses.replace(nest, refs=refs)
+            sub_nests.append(nest)
+        if len(comp) == 1:
+            s = comp[0]
+            lanes = nest_analysis.auto_lanes(sub_nests[0], num_lanes)
+            lowered = _lowered_for(_plan_for(sub_nests[0], lanes), sub_sched,
+                                   False)
+            sub_bodies = [_reorder_body(
+                bodies[s], [st.name for st in lowered.in_streams],
+                _stage_arg_names(dag, s), f"dag stage {s}")]
+        else:
+            sub_dag = _dag_for(tuple(sub_nests), num_lanes)
+            lowered = _lowered_chain_for(sub_dag, sub_sched)
+            sub_bodies = []
+            for j, s in enumerate(comp):
+                callee = ([e.name for e in sub_dag.in_edges(j)]
+                          + [st.name for st in lowered.stage_in_streams[j]])
+                sub_bodies.append(_reorder_body(
+                    bodies[s], callee, _stage_arg_names(dag, s),
+                    f"dag stage {s}"))
+        out.append(DagComponent(comp, mode if final else "map", exported,
+                                tuple(sub_nests), tuple(sub_bodies)))
+    return tuple(out)
+
+
+def _sub_schedule(sched: Schedule) -> Schedule:
+    """A component's schedule: the committed geometry and depth carry
+    over, the partition fields do not (sub-calls are separate kernels with
+    their own stream counts)."""
+    return dataclasses.replace(sched, cut_edges=None, stream_depths=None)
+
+
+def component_kernel(comp: DagComponent, *, out_dtype: torch.dtype,
+                     num_lanes: Optional[int] = None,
+                     schedule: Schedule = DEFAULT_SCHEDULE,
+                     uniforms: Sequence[Tuple[int, ...]] = ()) -> SsrKernel:
+    """The kernel one component of a cut builds (no operands needed)."""
+    sched = _sub_schedule(schedule)
+    if len(comp.stages) == 1:
+        nest = comp.nests[0]
+        lanes = nest_analysis.auto_lanes(nest, num_lanes)
+        return build_kernel(_lowered_for(_plan_for(nest, lanes), sched,
+                                         False),
+                            comp.bodies[0], comp.mode, out_dtype, uniforms)
+    lowered = _lowered_chain_for(_dag_for(comp.nests, num_lanes), sched)
+    return _build_dag_kernel(lowered, comp.bodies, comp.mode, out_dtype,
+                             uniforms)
+
+
+def _dag_partition_call(dag: ChainDAG, nests: Tuple[LoopNest, ...],
+                        bodies: Tuple[Callable, ...],
+                        operands: Dict[str, Any], sched: Schedule, *,
+                        mode: str, out_dtype: torch.dtype,
+                        num_lanes: Optional[int], dev: torch.device,
+                        uniforms: Optional[Dict[str, Any]] = None
+                        ) -> torch.Tensor:
+    """Execute a ChainDAG under a committed cut: one kernel per component.
+
+    Each cut edge materialises its intermediate as a flat array in device
+    memory (a map-mode output) that downstream components stream back in as
+    a plain dense operand; within a component the DAG fuses as usual.
+    Components run in topological order, so by the time one launches every
+    cut value it reads already exists.
+    """
+    sub_sched = _sub_schedule(sched)
+    env = dict(operands)
+    result: Optional[torch.Tensor] = None
+    for comp in dag_components(dag, nests, bodies, sched.cut_edges or (),
+                               mode=mode, num_lanes=num_lanes,
+                               schedule=sched):
+        if len(comp.stages) == 1:
+            result = ssr_call(comp.nests[0], comp.bodies[0], env,
+                              mode=comp.mode, out_dtype=out_dtype,
+                              schedule=sub_sched, num_lanes=num_lanes,
+                              device=dev, uniforms=uniforms)
+        else:
+            result = ssr_dag_call(comp.nests, comp.bodies, env,
+                                  mode=comp.mode, out_dtype=out_dtype,
+                                  schedule=sub_sched, num_lanes=num_lanes,
+                                  device=dev, uniforms=uniforms)
+        if comp.exported is not None:
+            env[comp.exported] = result
+    assert result is not None
+    return result
+
+
+#: ``ssr_dag_call``'s resolved schedules, as :data:`_resolved_schedules`
+#: is ``ssr_call``'s: (epoch, nests, operand and uniform signatures, mode,
+#: output dtype, device) → (schedule, tuned key or None).
+_resolved_dag_schedules: Dict[Any, Tuple[Schedule, Optional[str]]] = {}
+
+
+def _tuned_dag_schedule(nests: Tuple[LoopNest, ...],
+                        operands: Dict[str, Any], uni, mode: str,
+                        out_dtype: torch.dtype, dev: torch.device
+                        ) -> Tuple[Schedule, Optional[str]]:
+    """(schedule, tuned key) of a DAG from the autotuner's cache, memoised
+    per epoch; the key is None when the schedule is the default."""
+    from . import autotune
+
+    uniforms = dict(uni)
+    memo = (autotune.epoch(), nests,
+            tuple((k, tuple(v.shape), v.dtype)
+                  for k, v in sorted(operands.items())),
+            _uniform_sig(uni), mode, out_dtype, dev)
+    hit = _resolved_dag_schedules.get(memo)
+    if hit is not None:
+        return hit
+    try:
+        schedule = autotune.lookup_dag(nests, operands, mode=mode,
+                                       out_dtype=out_dtype,
+                                       uniforms=uniforms, device=dev)
+    except resilience.fallback_error_types() as e:
+        _record_fallback("ssr_dag_call", e, from_schedule="tuned-lookup",
+                         to_schedule="default")
+        return DEFAULT_SCHEDULE, None     # not memoised: the next call retries
+    key = None if schedule == DEFAULT_SCHEDULE else autotune.dag_cache_key(
+        nests, operands, mode=mode, out_dtype=out_dtype, uniforms=uniforms,
+        device=dev)
+    if len(_resolved_dag_schedules) >= CACHE_MAX:
+        _resolved_dag_schedules.clear()
+    _resolved_dag_schedules[memo] = (schedule, key)
+    return schedule, key
+
+
+def ssr_dag_call(nests: Sequence[LoopNest],
+                 bodies: Sequence[Callable[..., torch.Tensor]],
+                 operands: Dict[str, Any], *,
+                 mode: str = "map",
+                 out_dtype: torch.dtype = torch.float32,
+                 policy: BlockPolicy = DEFAULT_POLICY,
+                 schedule: Optional[Schedule] = None,
+                 num_lanes: Optional[int] = None,
+                 device: DeviceLike = None,
+                 uniforms: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+    """Execute a DAG of nests — diamonds included — as ONE kernel.
+
+    Dataflow is discovered by name (see
+    :func:`repro_torch.core.compiler.chain_dag`): a ref WRITTEN by stage p
+    and READ by any later stages becomes on-chip edges; one producer may
+    feed several consumers.
+
+    ``bodies[k]`` receives stage ``k``'s *incoming-edge blocks first* (in
+    ``ChainDAG.in_edges`` order), then its external stream blocks in
+    allocation order, then every ``uniforms`` array (in dict order) —
+    whole arrays such as MLP weights, one loop-invariant block each,
+    appended to EVERY stage body's arguments.  ``mode`` applies to the
+    final stage with the :func:`ssr_call` contract.  On the card the kernel
+    is the one of ``(mode, tuple of the bodies' ops)``.
+
+    **Transparent partitioning**: with no ``schedule`` (and the default
+    ``policy``) the autotuner's cache is consulted under the DAG's own key
+    (:func:`autotune.lookup_dag`), once per problem and
+    :func:`autotune.epoch` (the reference probes on every call); a committed
+    ``Schedule.cut_edges`` splits the graph into one kernel per component,
+    each cut intermediate through device memory, and ``()`` runs the same
+    kernel as ``None``.  A failing tuned schedule is quarantined
+    (:func:`autotune.quarantine_dag`) and the call runs all-fused.
+    """
+    nests = tuple(nests)
+    bodies = tuple(bodies)
+    _check_bodies(nests, bodies)
+    dev = resolve_device(device)
+    dag = _dag_for(nests, num_lanes)
+    uni = _uniform_items(uniforms, dev)
+    if uni:
+        clash = sorted({nm for nm, _ in uni} & set(operands))
+        if clash:
+            raise ValueError(
+                f"uniform names {clash} collide with streamed operands; "
+                "uniforms are a separate argument namespace")
+    tuned_key: Optional[str] = None
+    if schedule is None and policy is DEFAULT_POLICY:
+        schedule, tuned_key = _tuned_dag_schedule(nests, operands, uni, mode,
+                                                  out_dtype, dev)
+
+    def attempt(resolved: Schedule) -> torch.Tensor:
+        sched = resolved
+        if sched.cut_edges:
+            return _dag_partition_call(dag, nests, bodies, operands, sched,
+                                       mode=mode, out_dtype=out_dtype,
+                                       num_lanes=num_lanes, dev=dev,
+                                       uniforms=dict(uni))
+        if sched.cut_edges is not None:  # () — all-fused, same kernel as None
+            sched = dataclasses.replace(sched, cut_edges=None)
+        DISPATCH_STATS["calls"] += 1
+        return _prepare_dag(nests, bodies, operands, mode, out_dtype, sched,
+                            num_lanes, dev, uni).run()
+
+    sched = _resolve_schedule(policy, schedule)
+    if tuned_key is None:
+        return attempt(sched)
+    try:
+        return attempt(sched)
+    except resilience.fallback_error_types() as e:
+        from . import autotune
+
+        autotune.global_cache().quarantine(tuned_key)
+        _record_fallback("ssr_dag_call", e, from_schedule="tuned",
+                         to_schedule="default", key=tuned_key,
+                         counter="degraded")
+        return attempt(DEFAULT_SCHEDULE)

@@ -16,7 +16,9 @@ What changes on Hopper is the emitter.  :func:`ssr_kernel` returns an
 tensor goes to the hand-written kernel for the body's ``op``
 (:mod:`repro_torch.core.hopper`), a CPU tensor to the plain version of the
 same lowered computation.  A body without a device kernel raises on CUDA; it
-never drops to the CPU.
+never drops to the CPU.  A fused chain or DAG is a :class:`StageKernel`: the
+stage bodies plus a :class:`StageProgram` naming each stage's op and where
+its blocks come from, looked up on the card by the tuple of stage ops.
 
 The lowered blocks are the streams' unit of delivery in device memory, not
 shared-memory buffers: :class:`StreamReport` counts the same bytes as the
@@ -29,7 +31,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
-from typing import Any, Callable, Sequence, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -70,13 +72,105 @@ class KernelBody:
     version runs; ``op`` names the CUDA kernel that computes the same thing
     on the card (see :data:`hopper.DEVICE_KERNELS`).  A CUDA kernel cannot
     take an arbitrary callable, so only tagged bodies run on the card.
+
+    ``params`` are the body's scalar parameters (axpy's α), passed to ``fn``
+    after the blocks and to the kernel as arguments; being fields, they key
+    the kernel caches, so two values never share an entry.  ``perm`` is set
+    on a body whose caller passes its blocks in another order (a DAG cut
+    turns carried blocks into streams): argument ``i`` of ``fn`` is block
+    ``perm[i]``, and blocks past ``len(perm)`` (uniforms) trail unpermuted.
+    ``drain`` is applied once to each drained accumulator block of a
+    level-mapped call, never to a partial (``matvec_relu``'s relu).
     """
 
     fn: Callable[..., torch.Tensor]
     op: str
+    params: Tuple[Any, ...] = ()
+    perm: Optional[Tuple[int, ...]] = None
+    drain: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
     def __call__(self, *blocks, **kw):
-        return self.fn(*blocks, **kw)
+        if self.perm is not None:
+            blocks = (*(blocks[i] for i in self.perm),
+                      *blocks[len(self.perm):])
+        return self.fn(*blocks, *self.params, **kw)
+
+    def reordered(self, perm: Tuple[int, ...]) -> "KernelBody":
+        """The same body (op, params, drain) taking its blocks in the
+        caller's order: argument ``i`` is the caller's block ``perm[i]``."""
+        if self.perm is not None:
+            raise ValueError(f"body {self.op!r} is reordered already")
+        return dataclasses.replace(self, perm=tuple(perm))
+
+
+@dataclasses.dataclass(frozen=True)
+class StageProgram:
+    """What a fused kernel runs besides its geometry: its stages by name.
+
+    ``ops[k]`` is stage ``k``'s body op; ``sources[k]`` the blocks its body
+    receives, in the order the caller passes them: ``("stage", j)`` is the
+    value stage ``j`` produced this step (kept on chip), ``("stream", i)``
+    the block of read stream ``i``.  The ``n_uniform`` uniform arrays trail
+    the ``n_streams`` streams and every stage's arguments.  ``perms`` and
+    ``params`` are the bodies' (:class:`KernelBody`); ``slots[k]`` is the
+    scratch slot of stage ``k``'s product (``None`` for the final stage)
+    and ``n_slots`` the peak of live carried blocks (``_dag_slots``);
+    ``block`` is the policy block every carried value fills; ``mode`` the
+    call mode of the final stage's epilogue.
+    A single-body ``ssr_call`` is the one-stage program.
+    """
+
+    ops: Tuple[Optional[str], ...]
+    sources: Tuple[Tuple[Tuple[str, int], ...], ...]
+    n_streams: int
+    n_uniform: int = 0
+    mode: str = "map"
+    perms: Tuple[Optional[Tuple[int, ...]], ...] = ()
+    params: Tuple[Tuple[Any, ...], ...] = ()
+    slots: Tuple[Optional[int], ...] = ()
+    n_slots: int = 0
+    block: Tuple[int, ...] = ()
+
+    @classmethod
+    def of(cls, bodies: Sequence[Callable],
+           sources: Sequence[Sequence[Tuple[str, int]]], n_streams: int,
+           n_uniform: int = 0, slots: Sequence[Optional[int]] = (),
+           n_slots: int = 0, block: Tuple[int, ...] = (),
+           mode: str = "map") -> "StageProgram":
+        return cls(ops=tuple(getattr(b, "op", None) for b in bodies),
+                   sources=tuple(tuple(s) for s in sources),
+                   n_streams=n_streams, n_uniform=n_uniform, mode=mode,
+                   perms=tuple(getattr(b, "perm", None) for b in bodies),
+                   params=tuple(tuple(getattr(b, "params", ()))
+                                for b in bodies),
+                   slots=tuple(slots), n_slots=n_slots, block=tuple(block))
+
+    @classmethod
+    def single(cls, body: Callable, n_in: int, n_uniform: int = 0,
+               mode: str = "map") -> "StageProgram":
+        """The program of one body over ``n_in`` read streams, the last
+        ``n_uniform`` of them uniforms."""
+        n_streams = n_in - n_uniform
+        return cls.of((body,), (tuple(("stream", i)
+                                      for i in range(n_streams)),),
+                      n_streams, n_uniform, (None,), mode=mode)
+
+    def canonical(self, k: int) -> Tuple[Tuple[str, int], ...]:
+        """Stage ``k``'s sources in the order its unpermuted body takes
+        them, the uniforms (``("uniform", j)``) last."""
+        src = self.sources[k]
+        perm = self.perms[k] if self.perms else None
+        named = src if perm is None else tuple(src[i] for i in perm)
+        return named + tuple(("uniform", j) for j in range(self.n_uniform))
+
+    @property
+    def plain(self) -> bool:
+        """One stage over its streams in order: what a single-op kernel
+        of slices 1-2 takes (no permutation, parameters or uniforms)."""
+        return (len(self.ops) == 1 and self.n_uniform == 0
+                and not any(self.params) and not any(
+                    p is not None and p != tuple(range(len(p)))
+                    for p in self.perms))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,7 +260,9 @@ class SsrKernel:
     ``mode`` picks the epilogue — ``"reduce"`` (carried accumulator folded
     to a (1, 1) scalar), ``"map"`` (one block per step through the dense
     write stream) or ``"nest"`` (level-mapped; an accumulator over the
-    trailing ``contraction_axes`` drained once per output block).
+    trailing ``contraction_axes`` drained once per output block).  The last
+    ``n_uniform`` read streams are uniforms: whole arrays, the same block
+    at every step.
     """
 
     def __init__(self, body: Callable, *, mode: str,
@@ -178,7 +274,9 @@ class SsrKernel:
                  acc_dtype: torch.dtype = torch.float32,
                  contraction_axes: Tuple[int, ...] = (),
                  scratch_bytes: int = 0,
-                 buffer_depth=DEFAULT_BUFFER_DEPTH):
+                 buffer_depth=DEFAULT_BUFFER_DEPTH,
+                 n_uniform: int = 0,
+                 program: Optional[StageProgram] = None):
         if mode not in hopper.PLAIN:
             raise ValueError(f"unknown ssr_call mode {mode!r}")
         for s in in_streams:
@@ -197,6 +295,8 @@ class SsrKernel:
         self.acc_dtype = acc_dtype
         self.scratch_bytes = scratch_bytes
         self.depths = _depths(buffer_depth, len(in_streams))
+        self.program = program or StageProgram.single(
+            body, len(in_streams), n_uniform, mode)
         self.geometry = agu.StreamGeometry(
             grid=self.grid,
             ins=tuple(s.agu(self.grid) for s in in_streams),
@@ -204,27 +304,36 @@ class SsrKernel:
             out_shape=tuple(out_shape),
             contraction_axes=tuple(contraction_axes))
 
+    @property
+    def device_key(self) -> tuple:
+        """(call mode, body op): the key of :data:`hopper.DEVICE_KERNELS`."""
+        return (self.mode, getattr(self.body, "op", None))
+
     def device_kernel(self) -> Callable[..., torch.Tensor]:
         """The CUDA kernel for this body, or a LoweringError naming it."""
-        op = getattr(self.body, "op", None)
-        kernel = hopper.DEVICE_KERNELS.get((self.mode, op))
+        kernel = hopper.DEVICE_KERNELS.get(self.device_key)
         if kernel is None:
             have = ", ".join(f"{m}/{o}" for m, o in hopper.DEVICE_KERNELS)
             raise LoweringError(
                 f"no Hopper kernel for a {self.mode}-mode body with op "
-                f"{op!r} ({self.body!r}); the device kernels are {have} — "
-                "wrap the body in KernelBody(fn, op) or run on the CPU")
+                f"{self.device_key[1]!r} ({self.body!r}); the device kernels "
+                f"are {have} — wrap the body in KernelBody(fn, op) or run on "
+                "the CPU")
         return kernel
+
+    def plain(self, layouts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The plain PyTorch version of this kernel, on any device."""
+        return hopper.PLAIN[self.mode](self.body, self.geometry, layouts,
+                                       self.out_dtype, self.acc_dtype)
 
     def __call__(self, *layouts: torch.Tensor) -> torch.Tensor:
         devices = {t.device for t in layouts}
         if len(devices) != 1:
             raise ValueError(f"operands on several devices: {devices}")
         if layouts[0].device.type == "cpu":
-            return hopper.PLAIN[self.mode](self.body, self.geometry, layouts,
-                                           self.out_dtype, self.acc_dtype)
+            return self.plain(layouts)
         return self.device_kernel()(self.geometry, layouts, self.out_dtype,
-                                    self.acc_dtype)
+                                    self.acc_dtype, program=self.program)
 
     def report(self, dtypes: Sequence[Any]) -> StreamReport:
         """Bytes per invocation: one dtype per stream (inputs, then out)."""
@@ -244,6 +353,32 @@ class SsrKernel:
                             hbm_bytes_streamed=streamed,
                             hbm_bytes_unique=unique,
                             scratch_bytes=self.scratch_bytes)
+
+
+class StageKernel(SsrKernel):
+    """A fused chain or DAG: several stage bodies over one grid, each
+    step's intermediates kept on chip, one map/reduce epilogue.
+
+    ``bodies[k]`` receives the blocks ``program.sources[k]`` names (carried
+    values and stream blocks) followed by the uniforms; the final stage's
+    value feeds the epilogue of ``mode``.  On the card the kernel is looked
+    up by ``(mode, tuple of stage ops)``; on the CPU the plain version runs
+    the stages in order on every step's blocks.
+    """
+
+    def __init__(self, bodies: Sequence[Callable], program: StageProgram,
+                 **kw):
+        super().__init__(bodies[-1], program=program, **kw)
+        self.bodies = tuple(bodies)
+
+    @property
+    def device_key(self) -> tuple:
+        return (self.mode, tuple(self.program.ops))
+
+    def plain(self, layouts: Sequence[torch.Tensor]) -> torch.Tensor:
+        return hopper.plain_stages(self.bodies, self.program, self.mode,
+                                   self.geometry, layouts, self.out_dtype,
+                                   self.acc_dtype)
 
 
 def scratch_bytes(shape: Tuple[int, ...], dtype) -> int:

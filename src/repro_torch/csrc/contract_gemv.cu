@@ -18,6 +18,11 @@
 // does.  Lanes read consecutive 16-byte packs of a row (where the wrapper
 // found A aligned for it), so each warp's loads are coalesced; the per-row
 // sums are folded across the warp on the drain.
+//
+// With `relu` set (body op matvec_relu, the fused gemv_relu of
+// repro/kernels/chained.py:63-72, whose relu rides the reference's finish)
+// the drain writes max(0, y), selected as K2 selects it (ssr_relu), once per
+// output element after the whole contraction: never to a partial.
 #include "ssr_common.cuh"
 
 namespace {
@@ -32,7 +37,7 @@ __global__ void __launch_bounds__(kThreads)
     contract_gemv_kernel(const T* __restrict__ a, const T* __restrict__ x,
                          O* __restrict__ y, SsrGrid g, SsrStream sa,
                          SsrStream sx, SsrStream sy, int64_t zsteps,
-                         int64_t groups) {
+                         int64_t groups, int relu) {
   using Pack = SsrPack<T, V>;
   using XPack = SsrPack<float, V>;
   __shared__ __align__(32) float xs[kChunk];
@@ -78,6 +83,10 @@ __global__ void __launch_bounds__(kThreads)
     part0 += __shfl_xor_sync(0xffffffffu, part0, o);
     part1 += __shfl_xor_sync(0xffffffffu, part1, o);
   }
+  if (relu) {
+    part0 = ssr_relu(part0);
+    part1 = ssr_relu(part1);
+  }
   // drain: y's block is (1, tm); its element (0, r) sits at origin + r
   O* py = y + ssr_block_origin(sy, g, p * zsteps);
   if (lane == 0) {
@@ -89,17 +98,18 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, typename O>
 int launch(int vec, const void* a, const void* x, void* y, const SsrGrid* g,
            const SsrStream* sa, const SsrStream* sx, const SsrStream* sy,
-           int64_t zsteps, int64_t ctas, int64_t groups, cudaStream_t st) {
+           int64_t zsteps, int64_t ctas, int64_t groups, int relu,
+           cudaStream_t st) {
   constexpr int kV = 16 / sizeof(T);
   const unsigned n = static_cast<unsigned>(ctas);
   if (vec == kV)
     contract_gemv_kernel<T, O, kV><<<n, kThreads, 0, st>>>(
         static_cast<const T*>(a), static_cast<const T*>(x), static_cast<O*>(y),
-        *g, *sa, *sx, *sy, zsteps, groups);
+        *g, *sa, *sx, *sy, zsteps, groups, relu);
   else if (vec == 1)
     contract_gemv_kernel<T, O, 1><<<n, kThreads, 0, st>>>(
         static_cast<const T*>(a), static_cast<const T*>(x), static_cast<O*>(y),
-        *g, *sa, *sx, *sy, zsteps, groups);
+        *g, *sa, *sx, *sy, zsteps, groups, relu);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -108,25 +118,25 @@ int launch(int vec, const void* a, const void* x, void* y, const SsrGrid* g,
 }  // namespace
 
 // `vec` is 16 / sizeof(element) when A's pitch, block width and base pointer
-// allow 16-byte accesses, else 1.
+// allow 16-byte accesses, else 1; `relu` (0 or 1) selects the relu drain.
 extern "C" int ssr_contract_gemv(const void* a, const void* x, void* y,
                                  int in_dtype, int out_dtype, int vec,
                                  const SsrGrid* g, const SsrStream* sa,
                                  const SsrStream* sx, const SsrStream* sy,
-                                 int64_t zsteps, void* stream) {
+                                 int64_t zsteps, int relu, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int64_t steps = 1;
   for (int k = 0; k < g->ndim; ++k) steps *= g->dims[k];
   const int64_t groups = (sa->block[0] + kRowsPerCta - 1) / kRowsPerCta;
   const int64_t ctas = (steps / zsteps) * groups;
   if (in_dtype == SSR_F32 && out_dtype == SSR_F32)
-    return launch<float, float>(vec, a, x, y, g, sa, sx, sy, zsteps, ctas, groups, st);
+    return launch<float, float>(vec, a, x, y, g, sa, sx, sy, zsteps, ctas, groups, relu, st);
   if (in_dtype == SSR_F32 && out_dtype == SSR_BF16)
-    return launch<float, __nv_bfloat16>(vec, a, x, y, g, sa, sx, sy, zsteps, ctas, groups, st);
+    return launch<float, __nv_bfloat16>(vec, a, x, y, g, sa, sx, sy, zsteps, ctas, groups, relu, st);
   if (in_dtype == SSR_BF16 && out_dtype == SSR_F32)
-    return launch<__nv_bfloat16, float>(vec, a, x, y, g, sa, sx, sy, zsteps, ctas, groups, st);
+    return launch<__nv_bfloat16, float>(vec, a, x, y, g, sa, sx, sy, zsteps, ctas, groups, relu, st);
   if (in_dtype == SSR_BF16 && out_dtype == SSR_BF16)
-    return launch<__nv_bfloat16, __nv_bfloat16>(vec, a, x, y, g, sa, sx, sy, zsteps, ctas, groups, st);
+    return launch<__nv_bfloat16, __nv_bfloat16>(vec, a, x, y, g, sa, sx, sy, zsteps, ctas, groups, relu, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -10,8 +10,9 @@ from a reference object's fields (duck typing: nothing here imports
   compiler's input IR, field by field;
 * :func:`to_tensor` / :func:`operands_to_tensors` — numpy operands as
   tensors on a chosen device;
-* :func:`rekey_schedule` — a schedule committed for one backend, served
-  under another backend's key.
+* :func:`rekey_schedule` — a schedule committed for one backend (a single
+  nest's, or a fused DAG's with its ``cut_edges``), served under another
+  backend's key.
 
 The schedule cache needs no conversion: both packages write the same
 document (``version``, ``schedule`` JSON, ``meta``) under the same key for
@@ -61,26 +62,46 @@ def operands_to_tensors(operands: Dict[str, Any],
     return {name: to_tensor(a, device) for name, a in operands.items()}
 
 
+def _schedule_key(nest: Any, operands: Dict[str, Any], backend: str,
+                  mode: Optional[str], out_dtype: Any, cores: int,
+                  uniforms: Optional[Dict[str, Any]]) -> str:
+    """The cache key of a single-nest problem, or of a DAG's when ``nest``
+    is a sequence of nests."""
+    if isinstance(nest, (tuple, list)):
+        return autotune.dag_cache_key(nest, operands, mode=mode or "map",
+                                      out_dtype=out_dtype, backend=backend,
+                                      cores=cores, uniforms=uniforms)
+    return autotune.cache_key(nest, operands, mode=mode or "reduce",
+                              out_dtype=out_dtype, backend=backend,
+                              cores=cores)
+
+
 def rekey_schedule(nest: Any, operands: Dict[str, Any], *,
-                   from_backend: str, to_backend: str, mode: str = "reduce",
-                   out_dtype: Any = "float32", cores: int = 1,
-                   cache: Optional[autotune.ScheduleCache] = None
+                   from_backend: str, to_backend: str,
+                   mode: Optional[str] = None, out_dtype: Any = "float32",
+                   cores: int = 1,
+                   cache: Optional[autotune.ScheduleCache] = None,
+                   uniforms: Optional[Dict[str, Any]] = None
                    ) -> Optional[str]:
     """Serve the schedule committed for ``from_backend`` (a reference run's
     ``"cpu"`` or ``"tpu"``, say) under ``to_backend``'s key as well.
 
-    The schedule is copied unchanged, its ``meta`` kept and marked with
-    where it came from.  ``nest`` may be the port's or the reference's (the
-    signature reads the same fields).  Returns the new key, or ``None``
-    when nothing is committed under ``from_backend``.
+    ``nest`` is one nest (the key of ``cache_key``, mode ``"reduce"`` by
+    default) or the sequence of a DAG's nests (the key of
+    ``dag_cache_key``, mode ``"map"`` by default, with its ``uniforms``);
+    either package's nests will do (the signature reads the same fields).
+    The schedule — a DAG's ``cut_edges`` included — is copied unchanged,
+    its ``meta`` kept and marked with where it came from.  Returns the new
+    key, or ``None`` when nothing is committed under ``from_backend``.
     """
     cache = cache or autotune.global_cache()
-    kw = dict(mode=mode, out_dtype=out_dtype, cores=cores)
-    src = autotune.cache_key(nest, operands, backend=from_backend, **kw)
+    kw = dict(mode=mode, out_dtype=out_dtype, cores=cores,
+              uniforms=uniforms)
+    src = _schedule_key(nest, operands, from_backend, **kw)
     doc = cache.meta(src)
     if doc is None:
         return None
-    dst = autotune.cache_key(nest, operands, backend=to_backend, **kw)
+    dst = _schedule_key(nest, operands, to_backend, **kw)
     cache.put(dst, Schedule.from_json(doc["schedule"]),
               meta={**doc.get("meta", {}),
                     "rekeyed_from": {"key": src, "backend": from_backend}})

@@ -30,3 +30,24 @@ def gemv(a, x, *, ssr: Optional[bool] = None, device: DeviceLike = None):
 def matmul(a, b, *, ssr: Optional[bool] = None, device: DeviceLike = None,
            **kw):
     return registry.dispatch("gemm", a, b, ssr=ssr, device=device, **kw)
+
+
+# -- fused (stream-chained) ops ---------------------------------------------
+# One kernel each: the producer's result reaches the consumer on chip, never
+# through device memory.  ``ssr=False`` runs the PyTorch oracle.
+
+
+def gemv_relu(a, x, *, ssr: Optional[bool] = None,
+              device: DeviceLike = None):
+    return registry.dispatch("gemv_relu", a, x, ssr=ssr, device=device)
+
+
+def sum_sq_diff(x, y, *, ssr: Optional[bool] = None,
+                device: DeviceLike = None):
+    return registry.dispatch("sum_sq_diff", x, y, ssr=ssr, device=device)
+
+
+def axpy_dot(x, y, w, *, alpha: float = 1.0, ssr: Optional[bool] = None,
+             device: DeviceLike = None):
+    return registry.dispatch("axpy_dot", x, y, w, alpha=alpha, ssr=ssr,
+                             device=device)

@@ -25,7 +25,7 @@ from ..core.region import ssr_enabled
 from .frontend import on_device
 
 # Every module under repro_torch.kernels that registers a kernel.
-_KERNEL_MODULES = ("reduction", "relu", "gemv", "gemm")
+_KERNEL_MODULES = ("reduction", "relu", "gemv", "gemm", "chained", "dag")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

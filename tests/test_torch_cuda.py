@@ -273,3 +273,238 @@ def test_baseline_fallback_runs_the_baseline_kernel(dev, name, base,
         [f"registry:{name}"]
     resilience.reset()
     assert torch.allclose(got.cpu(), want, **entry.tol)
+
+
+# -- the fused chains and DAGs (K5–K8) and K4's relu drain ---------------------
+
+# map outputs of the DAG kernels: max |kernel − plain| over max(1, |plain|)
+# (rsqrtf, expf and the row sums' order differ from PyTorch's by a few ulp;
+# an input rounded to bf16 reads about 1e-3 and more)
+MAP_LIMIT = 1e-5
+
+
+def _chain_inputs(dev, n, k, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    # uniform in [0, 1): every term of the sums is non-negative, so the
+    # limit relative to the sum sees a dropped or doubled grid step
+    return [torch.rand(n, generator=g, device=dev) for _ in range(k)]
+
+
+def _run_and_plain(call):
+    before = dict(hopper.LAUNCHES)
+    got = call.run()
+    launched = _launched(before)
+    want = call.finish(call.kernel.plain(call.layouts))
+    return got, want, launched
+
+
+@pytest.mark.parametrize("n", [1, 1000, 5000, 1 << 20])
+def test_chain_elem_fused(dev, n):
+    from repro_torch.kernels import chained
+    x, y, w = _chain_inputs(dev, n, 3, n)
+    for nests, bodies, ops_, scale in (
+            (chained._chain_nests(n, False),
+             (chained.SQ_DIFF, chained.IDENTITY), {"X": x, "Y": y},
+             float(((x - y) ** 2).sum())),
+            (chained._chain_nests(n, True),
+             (chained.axpy_block(0.5), chained.DOT),
+             {"X": x, "Y": y, "W": w},
+             float(((0.5 * x + y) * w).sum()))):
+        call = lowering.prepare_chain_call(nests, bodies, ops_,
+                                           mode="reduce", device=dev)
+        got, want, launched = _run_and_plain(call)
+        assert launched == {"chain_elem"}
+        assert abs(float(got) - float(want)) <= DOT_LIMIT * max(scale, 1e-30)
+
+
+@pytest.mark.parametrize("n", [7, 1025, 1 << 20])
+def test_chain_elem_stages(dev, n):
+    from repro_torch.kernels import chained
+    x, y = _chain_inputs(dev, n, 2, n + 1)
+    nest2 = compiler.elementwise_nest(n, ("X", "Y"), 2)
+    for body in (chained.SQ_DIFF, chained.axpy_block(-1.5)):
+        call = lowering.prepare_call(nest2, body, {"X": x, "Y": y},
+                                     mode="map", device=dev)
+        got, want, launched = _run_and_plain(call)
+        assert launched == {"chain_elem"}
+        assert torch.equal(got, want)          # rounded as PyTorch rounds
+    call = lowering.prepare_call(compiler.elementwise_nest(n, ("T",), 1),
+                                 chained.IDENTITY, {"T": x}, device=dev)
+    got, want, launched = _run_and_plain(call)
+    assert launched == {"chain_elem"}
+    assert abs(float(got) - float(want)) <= DOT_LIMIT * float(x.sum())
+
+
+def test_axpy_alpha_is_a_kernel_argument(dev):
+    from repro_torch.kernels import chained
+    x, y, w = _chain_inputs(dev, 3000, 3, 9)
+    a = chained.fused_axpy_dot(x, y, w, alpha=0.5, device=dev)
+    b = chained.fused_axpy_dot(x, y, w, alpha=2.0, device=dev)
+    for alpha, got in ((0.5, a), (2.0, b)):
+        want = ((alpha * x + y) * w).sum()
+        assert abs(float(got) - float(want)) <= DOT_LIMIT * float(want)
+
+
+def _dag_case(name, rows, seed):
+    from repro_torch.kernels import dag
+    case = {c.name: c for c in dag.dag_cases()}[name]
+    rng = np.random.default_rng(seed)
+    if name == "layernorm":
+        args = (torch.from_numpy(rng.standard_normal((rows, 128))
+                                 .astype(np.float32)),)
+    elif name == "softmax_xent":
+        z = torch.from_numpy(rng.standard_normal((rows, 128))
+                             .astype(np.float32))
+        p = torch.from_numpy(np.eye(128, dtype=np.float32)[
+            rng.integers(0, 128, rows)])
+        args = (z, p)
+    else:
+        args, _ = case.example(rng)
+        args = (torch.from_numpy(rng.standard_normal((rows, 128))
+                                 .astype(np.float32)),) + tuple(args[1:])
+    return case, args
+
+
+def _abs_call(call):
+    """The plain version of the same call with every input and uniform
+    replaced by its absolute value: for the MLP's monotone stages the
+    |a|·|b| scale of each output."""
+    layouts = tuple(t.abs() for t in call.layouts)
+    return call.finish(call.kernel.plain(layouts))
+
+
+@pytest.mark.parametrize("rows", [37, 1000])
+@pytest.mark.parametrize("name", ["layernorm", "softmax_xent", "mlp_block"])
+def test_dag_every_component_of_every_legal_cut(dev, name, rows):
+    """Each instantiation a legal cut can launch, on its own inputs,
+    against its plain version; and each cut's result against all-fused."""
+    from repro_torch.core import autotune
+    case, args = _dag_case(name, rows, rows)
+    args = tuple(a.to(dev) for a in args)
+    nests, bodies, operands, mode, uniforms = case.spec(*args)
+    dag = lowering._dag_for(nests, None)
+    kernel = {"layernorm": "dag_layernorm",
+              "softmax_xent": "dag_softmax_xent", "mlp_block": "dag_mlp"}[name]
+    fused = None
+    for cut in autotune.enumerate_cuts(dag):
+        if not autotune.dag_cut_is_legal(dag, cut, nests=nests,
+                                         bodies=bodies, mode=mode,
+                                         uniforms=uniforms, device=dev)[0]:
+            continue
+        env = dict(operands)
+        for comp in lowering.dag_components(dag, nests, bodies, cut,
+                                            mode=mode):
+            if len(comp.stages) == 1:
+                call = lowering.prepare_call(
+                    comp.nests[0], comp.bodies[0], env, mode=comp.mode,
+                    schedule=lowering.DEFAULT_SCHEDULE, device=dev,
+                    uniforms=uniforms)
+            else:
+                call = lowering.prepare_dag_call(
+                    comp.nests, comp.bodies, env, mode=comp.mode, device=dev,
+                    uniforms=uniforms)
+            got, want, launched = _run_and_plain(call)
+            assert launched == {kernel}, (cut, comp.stages)
+            if name == "mlp_block":
+                scale = _abs_call(call)
+                assert float(((got - want).abs() / (scale + 1e-30)).max()) \
+                    <= CONTRACT_LIMIT, (cut, comp.stages)
+            elif comp.mode == "reduce":
+                assert abs(float(got) - float(want)) <= \
+                    DOT_LIMIT * abs(float(want)), (cut, comp.stages)
+            else:
+                err = (got - want).abs() / want.abs().clamp(min=1.0)
+                assert float(err.max()) <= MAP_LIMIT, (cut, comp.stages)
+            if comp.exported is not None:
+                env[comp.exported] = got
+        if fused is None:
+            fused = got
+        else:
+            err = (got - fused).abs() / fused.abs().clamp(min=1.0)
+            assert float(err.max()) <= 1e-4, cut
+
+
+@pytest.mark.parametrize("name", ["layernorm", "softmax_xent", "mlp_block"])
+def test_fused_is_one_launch_unfused_one_per_stage(dev, name):
+    case, args = _dag_case(name, 37, 4)
+    args = tuple(a.to(dev) for a in args)
+    kernel = {"layernorm": "dag_layernorm",
+              "softmax_xent": "dag_softmax_xent", "mlp_block": "dag_mlp"}[name]
+    hopper.reset_launches()
+    fused = case.fused(*args, schedule=lowering.DEFAULT_SCHEDULE, device=dev)
+    assert hopper.LAUNCHES[kernel] == 1
+    unfused = case.unfused(*args, device=dev)
+    assert hopper.LAUNCHES[kernel] == 4
+    want = case.ref(*(a.cpu() for a in args))
+    for got in (fused, unfused):
+        assert torch.allclose(got.cpu(), want, **case.tol)
+
+
+def test_gemv_relu_drain_is_the_selection(dev):
+    """K4's relu drain equals K4's plain drain put through the selection,
+    bit for bit: negative, zero and NaN outputs included."""
+    from repro_torch.kernels import chained
+    g = torch.Generator(device=dev).manual_seed(8)
+    a = torch.randn(300, 700, generator=g, device=dev)
+    x = torch.randn(700, generator=g, device=dev)
+    a[0] = 0.0
+    a[1] = -0.0
+    a[2, 5] = float("nan")
+    a[3, :] = -1.0
+    x[:] = x.abs()
+    before = dict(hopper.LAUNCHES)
+    fused = chained.fused_gemv_relu(a, x, device=dev)
+    assert _launched(before) == {"contract_gemv"}
+    plain = gemv.ssr_gemv(a, x, device=dev)
+    want = relu.relu_block(plain)
+    assert torch.equal(fused.view(torch.int32), want.view(torch.int32))
+    assert bool(torch.isnan(fused[2])) and float(fused[3]) == 0.0
+
+
+def test_reordered_body_permutes_its_streams(dev):
+    """A reordered KernelBody runs the same kernel with its streams
+    permuted: normalise(C, V) fed as (V, C)."""
+    from repro_torch.kernels import dag
+    g = torch.Generator(device=dev).manual_seed(3)
+    c = torch.randn(37 * 128, generator=g, device=dev)
+    v = torch.rand(37 * 128, generator=g, device=dev)
+    body = dag._LN_BODIES[2]
+    n = c.numel()
+    straight = lowering.ssr_call(compiler.elementwise_nest(n, ("C", "V"), 3),
+                                 body, {"C": c, "V": v}, mode="map",
+                                 device=dev)
+    swapped = body.reordered((1, 0))
+    assert swapped.op == body.op and swapped.perm == (1, 0)
+    call = lowering.prepare_call(compiler.elementwise_nest(n, ("V", "C"), 3),
+                                 swapped, {"C": c, "V": v}, mode="map",
+                                 device=dev)
+    got, want, launched = _run_and_plain(call)
+    assert launched == {"dag_layernorm"}
+    assert torch.equal(got, straight)
+    assert float((got - want).abs().max()) <= MAP_LIMIT * 10
+
+
+def test_dag_mlp_refuses_a_card_without_the_shared_memory(dev, monkeypatch):
+    case, args = _dag_case("mlp_block", 37, 5)
+    args = tuple(a.to(dev) for a in args)
+    nests, bodies, operands, mode, uniforms = case.spec(*args)
+    call = lowering.prepare_dag_call(nests, bodies, operands, mode=mode,
+                                     device=dev, uniforms=uniforms)
+    kern = call.kernel
+    assert hopper.accepts(kern.device_key, kern.geometry, torch.float32, dev,
+                          program=kern.program)[0]
+    props = hopper._card(dev)
+
+    class Small:
+        multi_processor_count = props.multi_processor_count
+        shared_memory_per_block_optin = 48 * 1024
+
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    monkeypatch.setitem(hopper._CARDS, index, Small())
+    takes, why = hopper.accepts(kern.device_key, kern.geometry,
+                                torch.float32, dev, program=kern.program)
+    assert not takes and "shared memory" in why
+    before = dict(hopper.LAUNCHES)
+    with pytest.raises(LoweringError, match="shared memory"):
+        call.run()
+    assert hopper.LAUNCHES == before

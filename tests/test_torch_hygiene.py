@@ -128,8 +128,49 @@ def test_plain_versions_need_in_range_walks():
     np.testing.assert_array_equal(out.numpy(), np.ones((16, 128)))
 
 
-def test_build_key_follows_the_sources():
+def test_build_key_follows_the_sources(tmp_path, monkeypatch):
     path = hopper.library_path("reduce_mul")
     assert path.parent == hopper.BUILD_DIR
     assert path.name.startswith("reduce_mul-") and path.suffix == ".so"
     assert "sm_90a" in " ".join(hopper.NVCC_FLAGS)
+    assert "--use_fast_math" not in hopper.NVCC_FLAGS
+    # every shared header joins the key: an edited header never loads a
+    # library built from the old one
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(hopper.CSRC, csrc)
+    monkeypatch.setattr(hopper, "CSRC", csrc)
+    keys = {n: hopper.library_path(n) for n in hopper.KERNELS}
+    assert keys == {n: hopper.library_path(n) for n in hopper.KERNELS}
+    headers = sorted(p.name for p in csrc.glob("*.cuh"))
+    assert headers == ["ssr_common.cuh", "ssr_rows.cuh"]
+    for header in headers:
+        with open(csrc / header, "a") as f:
+            f.write("\n// edited\n")
+        moved = {n: hopper.library_path(n) for n in hopper.KERNELS}
+        assert all(moved[n] != keys[n] for n in keys), header
+        keys = moved
+    with open(csrc / "dag_mlp.cu", "a") as f:
+        f.write("\n// edited\n")
+    moved = {n: hopper.library_path(n) for n in hopper.KERNELS}
+    assert [n for n in keys if moved[n] != keys[n]] == ["dag_mlp"]
+
+
+def test_every_stage_kernel_instantiation_is_listed():
+    """(mode, ops) keys of the fused kernels: a tuple of stage ops for a
+    fused call, the single op for an unfused stage."""
+    keys = {k for k, v in hopper.DEVICE_KERNELS.items()
+            if v.__name__ in ("chain_elem", "dag_layernorm",
+                              "dag_softmax_xent", "dag_mlp")}
+    assert ("reduce", ("sq_diff", "identity")) in keys
+    assert ("reduce", ("axpy", "mul")) in keys
+    assert {("map", "sq_diff"), ("map", "axpy"),
+            ("reduce", "identity")} <= keys
+    for ops, final in ((("ln_centre", "ln_square", "ln_normalise"), "map"),
+                       (("sx_shift", "sx_exp", "sx_loss"), "reduce"),
+                       (("mlp_hidden", "mlp_out", "mlp_residual"), "map")):
+        assert (final, ops) in keys and (final, ops[1:]) in keys
+        assert {("map", ops[0]), ("map", ops[1]), (final, ops[2])} <= keys
+    assert hopper.DEVICE_KERNELS[("reduce", "mul")] is hopper.reduce_mul
+    assert hopper.DEVICE_KERNELS[("nest", "matvec_relu")].__name__ == \
+        "contract_gemv_relu"
