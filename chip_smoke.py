@@ -23,8 +23,13 @@ printing JSON lines:
    each kernel's baseline at the same inputs; the fused cells fused and
    unfused: ``gemv_relu`` 8192**2, ``sum_sq_diff`` and ``axpy_dot`` at
    n = 2**26, ``layernorm``, ``softmax_xent`` and ``mlp_block`` at 2**19
-   rows of 128; check that every kernel launched, that a fused call is one
-   launch and an unfused one one per stage, and that no fallback fired;
+   rows of 128; the halo and rescale cells: ``stencil1d`` (and its
+   baseline) and ``stencil1d_relu`` (fused and unfused) at n = 2**26,
+   ``stencil2d`` at 8192**2, ``attention_qwen3`` (40 heads, 4096**2,
+   D = 128, causal) and ``attention_danube`` (32 heads, 8192**2, D = 80,
+   causal, window 4096); check that every kernel launched, that a fused call
+   is one launch and an unfused one one per stage, and that no fallback
+   fired;
 3. hold each kernel's output against its plain PyTorch version on the
    card, on the same inputs, and each baseline's against the streamed
    kernel's; each instantiation of K5–K8 (every component of every legal
@@ -50,8 +55,9 @@ printing JSON lines:
 6b. arm one ``compile`` fault under that cut and check that the call
    degrades to all-fused (one K6 launch), quarantines the entry and stays
    right;
-7. print the ``{"kernels": [...]}`` line (K1–K8 and B1–B4), then the
-   device line last.
+7. print the ``{"kernels": [...]}`` line (K1–K11 and B1–B5; K11's row is
+   the attention_qwen3 cell, attention_danube has a time line of its own),
+   then the device line last.
 
 Any failure exits non-zero; without a CUDA device, or without the repo's
 ``src/repro_torch`` beside this file, it exits non-zero before any result.
@@ -90,6 +96,22 @@ CONTRACT_LIMIT = 5e-6
 # dot limit relative to Σ|x·y| (= x·y: the inputs are uniform in [0, 1)).
 DOT_LIMIT = 1e-6
 
+# The stencils (K9, K10, B5): max |kernel − plain| relative to the stencil
+# of the absolute values, Σ_j |w_j|·|x_{i+j}|.  nvcc contracts the taps
+# into FMA and PyTorch rounds each product, a few ulp of that sum (≈ 1e-7);
+# the plain version on inputs rounded to bf16 reads about 1e-3, and the run
+# fails unless it lands above.
+STENCIL_LIMIT = 1e-6
+# Attention (K11): max |kernel − plain| / max |v|.  The kernel sums the
+# keys in sub-tiles of 64 (the plain version in the lowered kv tiles) and
+# its products in another order: about 1e-7 of max |v|; the plain version
+# on q, k, v rounded to TF32 reads about 1e-4, and must land above.
+ATTENTION_LIMIT = 1e-5
+# the attention cells: (heads, sequence, head dim, causal, window)
+ATTENTION_CELLS = {"attention_qwen3": (40, 4096, 128, True, None),
+                   "attention_danube": (32, 8192, 80, True, 4096)}
+STENCIL2D_SIZE = 8192   # the 2-D cell's output is 8192 x 8192
+
 # The DAG kernels' map outputs: max |kernel − plain| / max(1, |plain|).
 # rsqrtf, expf and the order of a row's sums differ from PyTorch's by a few
 # ulp (≈ 1e-7 of values of order 1); the same plain version on inputs
@@ -106,6 +128,8 @@ FUSED_LAUNCHES = {
     "layernorm": ({"dag_layernorm": 1}, {"dag_layernorm": 3}),
     "softmax_xent": ({"dag_softmax_xent": 1}, {"dag_softmax_xent": 3}),
     "mlp_block": ({"dag_mlp": 1}, {"dag_mlp": 3}),
+    "stencil1d_relu": ({"halo_stencil1d": 1},
+                       {"halo_stencil1d": 1, "map_relu": 1}),
 }
 # the fused instantiation each K5–K8 row of the kernels line times
 FUSED_ROW = {"chain_elem": "sum_sq_diff", "dag_layernorm": "layernorm",
@@ -113,7 +137,8 @@ FUSED_ROW = {"chain_elem": "sum_sq_diff", "dag_layernorm": "layernorm",
 
 # streamed kernel → its monolithic baseline
 PAIRS = {"reduce_mul": "base_reduce", "map_relu": "base_relu",
-         "contract_gemm": "base_gemm", "contract_gemv": "base_gemv"}
+         "contract_gemm": "base_gemm", "contract_gemv": "base_gemv",
+         "halo_stencil1d": "base_stencil1d"}
 
 
 def emit(obj) -> None:
@@ -180,6 +205,16 @@ def map_err(got, want) -> float:
     return float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
 
 
+def unmasked_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs the attention mask leaves visible, query rows
+    aligned to the keys' end: the work the kernel must do."""
+    rows = torch.arange(sq, dtype=torch.int64) + (sk - sq)
+    hi = torch.clamp(rows + 1, max=sk) if causal else torch.full_like(rows, sk)
+    lo = torch.clamp(rows - window + 1, min=0) if window is not None \
+        else torch.zeros_like(rows)
+    return int(torch.clamp(hi - lo, min=0).sum())
+
+
 def first_block_zeroed(call):
     """The call's layouts with every stream's first block zeroed (uniforms
     kept): what a kernel that dropped one grid step would have read."""
@@ -226,8 +261,9 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     import repro_torch
     from repro_torch.core import (autotune, compiler, hopper, lowering,
                                   resilience)
-    from repro_torch.kernels import (chained, dag, frontend, gemm, gemv, ops,
-                                     reduction, registry, relu)
+    from repro_torch.kernels import (attention, chained, dag, frontend, gemm,
+                                     gemv, ops, reduction, registry, relu,
+                                     stencil)
 
     dev = torch.device("cuda")
     repro_torch.set_default_device(dev)
@@ -287,10 +323,20 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         128).float()
     w1, w2 = randn(128, 128) * 0.1, randn(128, 128) * 0.1
     b1, b2 = randn(128) * 0.1, randn(128) * 0.1
+    # the halo cells: a padded vector and grid, taps ~ N(0, 0.3²); the
+    # attention cells' heads
+    xs = randn(n_vec + stencil.TAPS - 1)
+    ws = randn(stencil.TAPS) * 0.3
+    hw = STENCIL2D_SIZE
+    x2 = randn(hw + stencil.TAPS - 1, hw + stencil.TAPS - 1)
+    wx2, wy2 = randn(stencil.TAPS) * 0.3, randn(stencil.TAPS) * 0.3
+    qkv = {cell: tuple(randn(h, s_, d) for _ in range(3))
+           for cell, (h, s_, d, _c, _w) in ATTENTION_CELLS.items()}
     fused_args = {"gemv_relu": ((ga, gx), {}), "sum_sq_diff": ((x, y), {}),
                   "axpy_dot": ((x, y, w), {"alpha": 0.5}),
                   "layernorm": ((lx,), {}), "softmax_xent": ((lz, lp), {}),
-                  "mlp_block": ((mx, w1, b1, w2, b2), {})}
+                  "mlp_block": ((mx, w1, b1, w2, b2), {}),
+                  "stencil1d_relu": ((xs, ws), {})}
     torch.cuda.synchronize()
 
     # -- 2. the main path, counters at 0 just before it --------------------
@@ -322,6 +368,16 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                                                   ssr=True),
         "mlp_block": lambda: registry.dispatch("mlp_block", mx, w1, b1, w2,
                                                b2, ssr=True),
+        # the halo reads and the online-softmax accumulator
+        "stencil1d": lambda: ops.stencil1d(xs, ws, ssr=True),
+        "stencil1d_baseline": lambda: registry.get("stencil1d").baseline(
+            xs, ws),
+        "stencil2d": lambda: ops.stencil2d(x2, wx2, wy2, ssr=True),
+        "stencil1d_relu": lambda: ops.stencil1d_relu(xs, ws, ssr=True),
+        **{cell: (lambda c=cell: ops.flash_attention(
+            *qkv[c], causal=ATTENTION_CELLS[c][3],
+            window=ATTENTION_CELLS[c][4], ssr=True))
+           for cell in ATTENTION_CELLS},
         **{f"{cell}_unfused": (lambda c=cell: registry.get(c).baseline(
             *fused_args[c][0], **fused_args[c][1]))
            for cell in FUSED_LAUNCHES},
@@ -380,25 +436,47 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             compiler.gemm_nest(m, n, k), gemm.DOT, {"A": a, "B": b}),
         "contract_gemv": lowering.prepare_call(
             compiler.gemv_nest(gm, gn), gemv.MATVEC, {"A": ga, "x": gx}),
+        "halo_stencil1d": lowering.prepare_call(
+            compiler.stencil_nest(n_vec, stencil.TAPS), stencil.STENCIL1D,
+            {"x": xs, "w": ws}),
+        "halo_stencil2d": lowering.prepare_call(
+            compiler.stencil2d_nest(hw, hw, stencil.TAPS), stencil.STENCIL2D,
+            {"x": x2, "wx": wx2, "wy": wy2}),
     }
+    # K11 over each attention cell's head batch: the single-head plan and
+    # kernel, every head's layouts (what ssr_flash_attention launches)
+    att_calls = {}
+    for cell, (heads, seq, d, causal, window) in ATTENTION_CELLS.items():
+        q_, k_, v_ = qkv[cell]
+        _, static, _ = attention._prepare(q_[0], k_[0], v_[0], causal, window)
+        one = lowering.prepare_call(
+            attention._nest(static), attention._body(static),
+            {"Q": q_[0], "K": k_[0], "V": v_[0]}, out_dtype=q_.dtype)
+        batch = {"Q": q_, "K": k_, "V": v_}
+        layouts = lowering.stream_layouts(
+            one.lowered, [batch[s_.name] for s_ in one.lowered.in_streams],
+            lead=(heads,))
+        att_calls[cell] = lowering.PreparedCall(
+            kernel=one.kernel, layouts=layouts, lowered=one.lowered,
+            bounds=one.bounds)
+    calls["rescale_attention"] = att_calls["attention_qwen3"]
     # the baselines' padded layouts, as their MonolithicKernels prepare them
     xp, yp = frontend.pad_vector(x), frontend.pad_vector(y)
     gxp = gx.reshape(1, gn)
     base_layouts = {"base_reduce": (xp, yp),
                     "base_relu": (frontend.pad_vector(xr),),
-                    "base_gemm": (a, b), "base_gemv": (ga, gxp)}
+                    "base_gemm": (a, b), "base_gemv": (ga, gxp),
+                    "base_stencil1d": (xs.reshape(1, -1), ws.reshape(1, -1))}
     base_plain = {
         "base_reduce": hopper.plain_base_reduce,
         "base_relu": lambda t: hopper.plain_base_map(relu.relu_block, t),
         "base_gemm": hopper.plain_base_gemm,
         "base_gemv": hopper.plain_base_gemv,
+        "base_stencil1d": hopper.plain_base_stencil1d,
     }
 
     def plain(call):
-        kern = call.kernel
-        return call.finish(hopper.PLAIN[kern.mode](
-            kern.body, kern.geometry, call.layouts, kern.out_dtype,
-            kern.acc_dtype))
+        return call.finish(call.kernel.plain(call.layouts))
 
     checks, errors, failed = {}, {}, []
     # dot: f32 sums of 2**26 products in two orders.  The control is what a
@@ -486,6 +564,79 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             "abs_err": float((main[f"{key}_baseline"] - main[key])
                              .abs().max()),
             "limit": CONTRACT_LIMIT}
+    # -- 3a. the halo and rescale kernels against their plain versions -----
+    def rel_max(got, want, scale_t) -> float:
+        return float(((got - want).abs() / scale_t).max())
+
+    def stencil_check(key, kname, got, want, scale_t, ctrl):
+        """``got`` against ``want`` relative to the stencil of the absolute
+        values, beside the control: the plain version on bf16 inputs."""
+        c = {"abs_err": float((got - want).abs().max()),
+             "rel_err": rel_max(got, want, scale_t), "limit": STENCIL_LIMIT,
+             "bf16_control": rel_max(ctrl, want, scale_t), "kernel": kname}
+        checks[key] = c
+        errors[kname] = max(errors.get(kname, 0.0), c["abs_err"])
+        if c["bf16_control"] <= STENCIL_LIMIT:
+            failed.append(f"{key}: limit above the bf16 control")
+
+    def bf16(t):
+        return t.to(torch.bfloat16).float()
+
+    halo_plain = {}
+    for key, kname in (("stencil1d", "halo_stencil1d"),
+                       ("stencil2d", "halo_stencil2d")):
+        call = calls[kname]
+        want = plain(call)
+        scale_t = call.finish(call.kernel.plain(tuple(
+            t.abs() for t in call.layouts))) + 1e-30
+        ctrl = call.finish(call.kernel.plain(tuple(
+            bf16(t) for t in call.layouts)))
+        stencil_check(key, kname, main[key], want, scale_t, ctrl)
+        halo_plain[key] = (want, scale_t)
+    # B5 against its plain version (the baseline body on its layouts), and
+    # against K9
+    bx, bwt = base_layouts["base_stencil1d"]
+    want = hopper.plain_base_stencil1d(bx, bwt).reshape(-1)
+    scale_t = hopper.plain_base_stencil1d(bx.abs(), bwt.abs()).reshape(-1) \
+        + 1e-30
+    stencil_check("stencil1d_baseline", "base_stencil1d",
+                  main["stencil1d_baseline"], want, scale_t,
+                  hopper.plain_base_stencil1d(bf16(bx), bf16(bwt)).reshape(-1))
+    checks["stencil1d_baseline_vs_ssr"] = {
+        "abs_err": float((main["stencil1d_baseline"]
+                          - main["stencil1d"]).abs().max()),
+        "rel_err": rel_max(main["stencil1d_baseline"], main["stencil1d"],
+                           halo_plain["stencil1d"][1]),
+        "limit": STENCIL_LIMIT}
+    # K9's relu drain: bit for bit the selection of K9's own output
+    checks["stencil1d_relu_vs_selection"] = {
+        "exact": bool(torch.equal(
+            main["stencil1d_relu"].view(torch.int32),
+            relu.relu_block(main["stencil1d"]).view(torch.int32))),
+        "abs_err": 0.0, "limit": 0.0}
+    # K11 over every head of each cell against its plain version, relative
+    # to max |v|, beside the plain version on TF32 inputs
+    for cell, call in att_calls.items():
+        vmax = float(qkv[cell][2].abs().max())
+        want = plain(call)
+        ctrl = plain(lowering.PreparedCall(
+            kernel=call.kernel, layouts=tuple(tf32_round(t)
+                                              for t in call.layouts),
+            lowered=call.lowered, bounds=call.bounds))
+        c = {"abs_err": float((main[cell] - want).abs().max()),
+             "limit": ATTENTION_LIMIT, "heads": ATTENTION_CELLS[cell][0],
+             "kernel": "rescale_attention"}
+        c["rel_err"] = c["abs_err"] / vmax
+        c["tf32_control"] = float((ctrl - want).abs().max()) / vmax
+        checks[cell] = c
+        errors["rescale_attention"] = max(
+            errors.get("rescale_attention", 0.0), c["abs_err"])
+        if c["tf32_control"] <= ATTENTION_LIMIT:
+            failed.append(f"{cell}: limit above the TF32 control")
+        if tuple(main[cell].shape) != tuple(qkv[cell][0].shape):
+            failed.append(f"{cell}: output shape {tuple(main[cell].shape)}")
+        del want, ctrl
+
     # -- 3b. the fused kernels' instantiations against their plain versions
     def inst_check(label, kname, call, kind):
         """One instantiation, run on the card and plain on the same inputs,
@@ -539,7 +690,17 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         "gemv_relu": lowering.prepare_call(
             compiler.gemv_nest(gm, gn), chained.MATVEC_RELU,
             {"A": ga, "x": gx}),
+        "stencil1d_relu": lowering.prepare_call(
+            compiler.stencil_nest(n_vec, stencil.TAPS),
+            chained.STENCIL1D_RELU, {"x": xs, "w": ws}),
     }
+    # K9's relu drain against its plain version (the stencil limit; the
+    # relu of the stencil of |x| and |w| is that stencil itself)
+    sr_call = fused_calls["stencil1d_relu"]
+    stencil_check("stencil1d_relu", "halo_stencil1d", main["stencil1d_relu"],
+                  plain(sr_call), halo_plain["stencil1d"][1],
+                  sr_call.finish(sr_call.kernel.plain(tuple(
+                      bf16(t) for t in sr_call.layouts))))
     for cell in ("sum_sq_diff", "axpy_dot"):
         inst_check(f"{cell}_fused", "chain_elem", fused_calls[cell],
                    "reduce")
@@ -560,9 +721,14 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     relu_call = lowering.prepare_call(
         compiler.elementwise_nest(gm), relu.RELU, {"X": main["gemv"]},
         mode="map", out_dtype=torch.float32)
+    stencil_relu_call = lowering.prepare_call(
+        compiler.elementwise_nest(n_vec), relu.RELU, {"X": main["stencil1d"]},
+        mode="map", out_dtype=torch.float32)
     unfused_calls = {"sum_sq_diff": [sq_call, id_call],
                      "axpy_dot": [ax_call, dot_call],
-                     "gemv_relu": [calls["contract_gemv"], relu_call]}
+                     "gemv_relu": [calls["contract_gemv"], relu_call],
+                     "stencil1d_relu": [calls["halo_stencil1d"],
+                                        stencil_relu_call]}
     # K4's relu drain: the gemv limit and TF32 control, and bit for bit the
     # selection of K4's own drain
     gscale = torch.abs(ga) @ torch.abs(gx)
@@ -651,6 +817,10 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         elif cell == "layernorm":
             c = {"abs_err": float((f_ - u_).abs().max()),
                  "rel_err": map_err(u_, f_), "limit": MAP_LIMIT}
+        elif cell == "stencil1d_relu":   # one K9 arithmetic: to the bit
+            c = {"exact": bool(torch.equal(f_.view(torch.int32),
+                                           u_.view(torch.int32))),
+                 "abs_err": float((f_ - u_).abs().max()), "limit": 0.0}
         else:
             fc = fused_calls[cell]
             sc_ = gscale if cell == "gemv_relu" else fc.finish(
@@ -671,7 +841,8 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         if not ok:
             failed.append(key)
     for key in ("dot", "dot_ssr_call", "gemm", "gemv", "dot_baseline",
-                "gemm_baseline", "gemv_baseline"):
+                "gemm_baseline", "gemv_baseline", "stencil1d",
+                "stencil1d_baseline", "stencil2d", *ATTENTION_CELLS):
         if not bool(torch.isfinite(main[key]).all()):
             failed.append(f"{key}: non-finite")
     # the repo's own oracle on small odd inputs, within the registry tol
@@ -680,6 +851,8 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         ex_args, ex_kw = entry.example(rng, odd=True)
         want = entry.ref(*[t.to(dev) for t in ex_args], **ex_kw)
         for variant in ("ssr", "baseline"):
+            if getattr(entry, variant) is None:     # stencil2d, attention
+                continue
             got = getattr(entry, variant)(*ex_args, device=dev, **ex_kw)
             ok = bool(torch.allclose(got, want, **entry.tol))
             checks[f"registry_{entry.name}_{variant}"] = {"ok": ok}
@@ -697,17 +870,52 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         return lambda: dk(kern.geometry, call.layouts, kern.out_dtype,
                           kern.acc_dtype, program=kern.program)
 
+    taps, wide = stencil.TAPS, hw + stencil.TAPS - 1
+
+    def attention_work(cell):
+        """(bytes of q, k, v read once and out written once, the FP32
+        operations of the unmasked pairs: 2·D FMAs each)."""
+        heads, seq, d, causal, window = ATTENTION_CELLS[cell]
+        pairs = unmasked_pairs(seq, seq, causal, window)
+        return 4 * heads * seq * d * 4, 4 * d * pairs * heads
+
+    # the 2-D stencil as one 11 x 11 convolution: the cross of the two arms
+    cross = torch.zeros(taps, taps, device=dev)
+    cross[taps // 2, :] += wx2
+    cross[:, taps // 2] += wy2
+
+    def sdpa(cell):
+        """One PyTorch call computing the attention of the cell: causal,
+        and for a window a boolean mask of the visible pairs."""
+        heads, seq, d, causal, window = ATTENTION_CELLS[cell]
+        if window is None:
+            return lambda: F.scaled_dot_product_attention(*qkv[cell],
+                                                          is_causal=causal)
+        i = torch.arange(seq, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        return lambda: F.scaled_dot_product_attention(*qkv[cell],
+                                                      attn_mask=mask)
+
     work = {   # (bytes each input read once + output written once, FLOPs)
         "reduce_mul": (2 * n_vec * 4 + 4, 2 * n_vec),
         "map_relu": (2 * n_vec * 4, n_vec),
         "contract_gemm": ((m * k + k * n + m * n) * 4, 2 * m * n * k),
         "contract_gemv": ((gm * gn + gn + gm) * 4, 2 * gm * gn),
+        "halo_stencil1d": ((2 * n_vec + 2 * taps - 1) * 4, 2 * taps * n_vec),
+        "halo_stencil2d": ((wide * wide + hw * hw + 2 * taps) * 4,
+                           4 * taps * hw * hw),
+        "rescale_attention": attention_work("attention_qwen3"),
     }
     library = {
         "reduce_mul": lambda: torch.dot(x, y),
         "map_relu": lambda: torch.relu(xr),
         "contract_gemm": lambda: torch.matmul(a, b),
         "contract_gemv": lambda: torch.mv(ga, gx),
+        "halo_stencil1d": lambda: F.conv1d(xs.view(1, 1, -1),
+                                           ws.view(1, 1, -1)),
+        "halo_stencil2d": lambda: F.conv2d(x2.view(1, 1, wide, wide),
+                                           cross.view(1, 1, taps, taps)),
+        "rescale_attention": sdpa("attention_qwen3"),
     }
     timed = {name: (kernel_fn(call), lambda c=call: plain(c))
              for name, call in calls.items()}
@@ -733,6 +941,17 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             "library_ms": time_ms(library[name]),
         })
         emit({"phase": "time", **rows[-1]})
+    # the second attention cell: K11 over its heads, as the row above
+    call = att_calls["attention_danube"]
+    nbytes, flops = attention_work("attention_danube")
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / fp32 * 1e3
+    danube = {"ms": time_ms(kernel_fn(call)),
+              "plain_ms": time_ms(lambda c=call: plain(c)),
+              "bound_ms": max(t_bytes, t_ops),
+              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+              "library_ms": time_ms(sdpa("attention_danube"))}
+    emit({"phase": "time", "cell": "attention_danube",
+          "name": "rescale_attention", **danube})
     # the fused cells: the fused instantiation against the unfused stages'
     # kernels run one after another, each timed alone; bytes each input
     # read once and each output written once (unfused: every intermediate
@@ -749,6 +968,9 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         "softmax_xent": (2 * nf * 4 + 4, 7 * nf * 4 + 4, 7 * nf),
         "mlp_block": (2 * nf * 4 + weights, 7 * nf * 4 + 3 * weights,
                       mlp_ops),
+        "stencil1d_relu": ((2 * n_vec + 2 * taps - 1) * 4,
+                           (4 * n_vec + 2 * taps - 1) * 4,
+                           (2 * taps + 1) * n_vec),
     }
     # one PyTorch call computing the same function, where there is one;
     # else the composition of library calls, labelled as such
@@ -762,6 +984,8 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         "axpy_dot": lambda: torch.dot(torch.add(y, x, alpha=0.5), w),
         "mlp_block": lambda: (lambda h: torch.addmm(b2, h, w2) + h)(
             torch.relu(torch.addmm(b1, mx, w1))),
+        "stencil1d_relu": lambda: torch.relu(F.conv1d(xs.view(1, 1, -1),
+                                                      ws.view(1, 1, -1))),
     }
     cells = {}
     for cell, (fb, ub, flops) in cell_work.items():

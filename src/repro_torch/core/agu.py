@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Tuple
+from typing import Any, Callable, Tuple
 
 import numpy as np
 import torch
@@ -229,6 +229,10 @@ class StreamGeometry:
     ``grid`` runs row-major with ``contraction_axes`` (if any) trailing, so
     all visits of one output block are consecutive steps; ``ins``/``out``
     are the streams' AGU programming and ``out_shape`` the output layout.
+    ``halos`` are the lowering's ``HaloRead``\\ s: each windowed read's
+    shifted streams (their slots in ``ins``), widened into one block per
+    step.  ``level_tiles`` gives, per loop level, its grid axis and tile:
+    the global offsets a rescale body receives (empty for other calls).
     """
 
     grid: Tuple[int, ...]
@@ -236,6 +240,8 @@ class StreamGeometry:
     out: BlockAGU
     out_shape: Tuple[int, ...]
     contraction_axes: Tuple[int, ...] = ()
+    halos: Tuple[Any, ...] = ()
+    level_tiles: Tuple[Tuple[int, int], ...] = ()
 
     @property
     def steps(self) -> int:

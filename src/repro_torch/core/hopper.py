@@ -21,7 +21,16 @@ dag_softmax_xent  reduce, map  K7: ``sx_shift``, ``sx_exp``, ``sx_loss`` —
                                the same subsets (with ``sx_loss``: reduce)
 dag_mlp           map          K8: ``mlp_hidden``, ``mlp_out``,
                                ``mlp_residual`` — the same subsets
+halo_stencil1d    nest         K9: ``stencil1d`` (an 11-tap window on x);
+                               ``stencil1d_relu`` with its relu drain
+halo_stencil2d    nest         K10: ``stencil2d`` (the 11-point star)
+rescale_attention nest         K11: ``attn_scores`` (the online-softmax
+                               accumulator over a head batch)
 ================  ===========  =============================================
+
+A halo'd read arrives as ``2**k`` shifted streams (the lowering's
+``HaloRead``); K9 and K10 read the widened block from the first slot's walk
+alone.  K11 runs the kv axis as a loop inside each CTA.
 
 A fused kernel (K5–K8) is one template per family of stages, instantiated
 for every subset a legal cut of its DAG can produce (:data:`_FAMILIES`): a
@@ -34,7 +43,8 @@ The monolithic baselines (``MonolithicKernel``) take the padded layouts of
 the reference's baseline bodies instead, and walk them with an explicit,
 serialised load per block (:data:`BASELINE_KERNELS`, by body op):
 ``base_reduce`` (``mul``), ``base_relu`` (``relu``), ``base_gemm``
-(``dot``) and ``base_gemv`` (``matvec``).  Each runs on the same number of
+(``dot``), ``base_gemv`` (``matvec``) and ``base_stencil1d``
+(``stencil1d``).  Each runs on the same number of
 CTAs, with the same CTA tile, as its streamed counterpart, so the time of
 the pair is the card's SSR-against-baseline comparison.
 
@@ -47,12 +57,14 @@ launches on PyTorch's current stream and counts the launch in
 :data:`LAUNCHES`.  It never falls back to anything.
 
 The plain versions of the streamed kernels (:func:`plain_reduce`,
-:func:`plain_map`, :func:`plain_contract`, :func:`plain_stages`) run the
-same lowered computation with any PyTorch bodies: they gather every step's
-blocks through the same AGU programming, apply the body (or the stages in
-order) to all steps at once (``torch.vmap``) and apply the reference's
-epilogue — the vector accumulator fold, the dense map write, the f32
-contraction accumulator with its drain.  Those of the
+:func:`plain_map`, :func:`plain_contract`, :func:`plain_rescale`,
+:func:`plain_stages`) run the same lowered computation with any PyTorch
+bodies: they gather every step's blocks through the same AGU programming
+(widening a halo'd read's shifted blocks as the reference does), apply the
+body (or the stages in order) to all steps at once (``torch.vmap``) and
+apply the reference's epilogue — the vector accumulator fold, the dense map
+write, the f32 contraction accumulator with its drain, the online-softmax
+recurrence over the kv steps.  Those of the
 baselines (``plain_base_*``) run the baseline bodies' block walks on the
 same padded layouts.  The CPU runs them; the tests and ``chip_smoke.py``
 hold each kernel against them.
@@ -73,7 +85,7 @@ from typing import (Any, Callable, Dict, Iterable, NamedTuple, Optional,
 
 import torch
 
-from .agu import SSR_MAX_AXES, BlockAGU, StreamGeometry
+from .agu import SSR_MAX_AXES, BlockAGU, StreamGeometry, grid_steps
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -106,13 +118,23 @@ KERNELS: Dict[str, Dict[str, str]] = {
                          "source": "src/repro_torch/csrc/dag_softmax_xent.cu"},
     "dag_mlp": {"replaces": "src/repro/kernels/dag.py:215",
                 "source": "src/repro_torch/csrc/dag_mlp.cu"},
+    "halo_stencil1d": {"replaces": "src/repro/kernels/stencil.py:39",
+                       "source": "src/repro_torch/csrc/halo_stencil1d.cu"},
+    "halo_stencil2d": {"replaces": "src/repro/kernels/stencil.py:167",
+                       "source": "src/repro_torch/csrc/halo_stencil2d.cu"},
+    "rescale_attention": {"replaces": "src/repro/core/lowering.py:1457",
+                          "source":
+                              "src/repro_torch/csrc/rescale_attention.cu"},
+    "base_stencil1d": {"replaces": "src/repro/kernels/stencil.py:95",
+                       "source": "src/repro_torch/csrc/base_stencil1d.cu"},
 }
 
 #: Wrapper calls per kernel since the last :func:`reset_launches`: one per
 #: call that launched its kernel.  A call of ``reduce_mul``, ``base_reduce``,
 #: or of a reduce of ``chain_elem`` or ``dag_softmax_xent``, is two device
 #: launches (the per-CTA partials, then the one-CTA fold); every other
-#: kernel's call is one.  K4's relu drain counts as ``contract_gemv``.
+#: kernel's call is one.  K4's relu drain counts as ``contract_gemv``, K9's
+#: as ``halo_stencil1d``; a K11 call over a head batch is one launch.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
@@ -206,7 +228,18 @@ _SIGNATURES = {
                          _SP, _SP, _I64, _I64, _P],
     "dag_mlp": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _GP, _SP, _SP, _SP,
                 _SP, _I64, _P],
+    "halo_stencil1d": [_P, _P, _P, _I, _I, _GP, _SP, _SP, _SP, _I64, _I64,
+                       _I, _P],
+    "halo_stencil2d": [_P, _P, _P, _P, _I, _I, _GP, _SP, _SP, _SP, _SP, _I64,
+                       _P],
+    "rescale_attention": [_P, _P, _P, _P, _I, _I, _GP, _SP, _SP, _SP, _SP,
+                          _I64, _I64, _P, ctypes.c_float, _I, _I64, _I64,
+                          _I64, _P],
+    "base_stencil1d": [_P, _P, _P, _I, _I64, _I64, _I64, _P],
 }
+#: Arguments of a kernel's ``ssr_<name>_smem_bytes`` (none for the rest).
+_SMEM_SIGNATURES = {"halo_stencil1d": [_I64], "halo_stencil2d": [_I64],
+                    "rescale_attention": [_I64]}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -225,7 +258,8 @@ def _lib(name: str) -> ctypes.CDLL:
         entry.argtypes = _SIGNATURES[name]
         entry.restype = ctypes.c_int
         smem = getattr(lib, f"ssr_{name}_smem_bytes")
-        smem.argtypes, smem.restype = [], ctypes.c_int64
+        smem.argtypes = _SMEM_SIGNATURES.get(name, [])
+        smem.restype = ctypes.c_int64
         lib.ssr_error_string.argtypes = [ctypes.c_int]
         lib.ssr_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
@@ -267,6 +301,74 @@ def _gemv_composes(geo: StreamGeometry) -> bool:
     return (geo.ins[1].block, geo.out.block) == ((1, tn), (1, tm))
 
 
+#: The window of the stencil kernels (K9, K10, B5): the 11 taps of the
+#: reference's stencils (``kernels/stencil.py``'s ``TAPS``).
+STENCIL_TAPS = 11
+#: CTAs per SM of K9 (and of B5, on K9's split): one wave at K9's
+#: occupancy.
+STENCIL_PER_SM = 8
+#: The head dim K11 holds: the lowered lanes tile.
+ATTENTION_LANES = 128
+
+
+def _invariant(agu: BlockAGU, width: int) -> bool:
+    """A one-row block at least ``width`` wide, the same at every step."""
+    return (agu.block[0] == 1 and agu.block[1] >= width
+            and not any(any(c) for c in agu.coeffs))
+
+
+def _shifted_twins(geo: StreamGeometry) -> bool:
+    """Every halo's slots are its first slot's walk, shifted one block on
+    the levels of their bits — what the kernels take as read."""
+    for h in geo.halos:
+        first = geo.ins[h.slots[0]]
+        for m, slot in enumerate(h.slots):
+            want = list(first.offset)
+            for j, ax in enumerate(h.axes):
+                want[ax] += (m >> j) & 1
+            a = geo.ins[slot]
+            if (a.block, a.coeffs, list(a.offset)) != \
+                    (first.block, first.coeffs, want):
+                return False
+    return True
+
+
+def _halo_composes(geo: StreamGeometry, slots: Tuple[int, ...],
+                   axes: Tuple[int, ...]) -> bool:
+    """One windowed read on ``slots`` over block ``axes`` with the stencil
+    window, its tile at least the overlap, the output block its tile, and
+    the coefficient streams invariant blocks of the taps."""
+    if len(geo.halos) != 1:
+        return False
+    h = geo.halos[0]
+    x = geo.ins[h.slots[0]]
+    return (h.slots == slots and h.axes == axes
+            and h.windows == (STENCIL_TAPS,) * len(axes)
+            and x.block == geo.out.block
+            and all(x.block[a] >= STENCIL_TAPS - 1 for a in axes)
+            and all(_invariant(a, STENCIL_TAPS) for a in geo.ins[len(slots):])
+            and _shifted_twins(geo))
+
+
+def _stencil1d_composes(geo: StreamGeometry) -> bool:
+    return geo.ins[0].block[0] == 1 and _halo_composes(geo, (0, 1), (1,))
+
+
+def _stencil2d_composes(geo: StreamGeometry) -> bool:
+    return _halo_composes(geo, (0, 1, 2, 3), (0, 1))
+
+
+def _attention_composes(geo: StreamGeometry) -> bool:
+    """K, V (tk, D), Q and O (tq, D) with D the held lanes tile, one
+    contraction axis (the kv walk) along which Q and O stay put."""
+    if len(geo.contraction_axes) != 1 or not geo.level_tiles or geo.halos:
+        return False
+    (kb, vb, qb), z = (a.block for a in geo.ins), geo.contraction_axes[0]
+    return (kb == vb and qb == geo.out.block
+            and kb[1] == qb[1] == ATTENTION_LANES
+            and not any(geo.ins[2].coeffs[z]) and not any(geo.out.coeffs[z]))
+
+
 #: What each streamed kernel takes: read streams, input dtypes, and the
 #: block composition it computes (as text, and as a test of the geometry).
 _TAKES: Dict[str, tuple] = {
@@ -277,11 +379,28 @@ _TAKES: Dict[str, tuple] = {
     "contract_gemm": (2, _FLOATS, "C += A·B", _gemm_composes),
     "contract_gemv": (2, _FLOATS, "y += A·xᵀ", _gemv_composes),
     "contract_gemv_relu": (2, _FLOATS, "y = relu(Σ A·xᵀ)", _gemv_composes),
+    "halo_stencil1d": (3, _FLOATS, "y = Σ_j w[j]·x[i+j] over 11 taps, x "
+                       "widened by its +1-shifted twin", _stencil1d_composes),
+    "halo_stencil1d_relu": (3, _FLOATS, "y = relu(Σ_j w[j]·x[i+j])",
+                            _stencil1d_composes),
+    "halo_stencil2d": (6, _FLOATS, "the 11-point star over x widened by "
+                       "its three shifted twins", _stencil2d_composes),
+    "rescale_attention": (3, _FLOATS, "O = softmax(Q·Kᵀ)·V over the kv "
+                          "walk, head dim 128", _attention_composes),
 }
+#: The arguments of each kernel's shared-memory count, from its geometry.
+_SMEM_ARGS: Dict[str, Callable[[StreamGeometry], tuple]] = {
+    "halo_stencil1d": lambda geo: (geo.halos[0].windows[0],),
+    "halo_stencil1d_relu": lambda geo: (geo.halos[0].windows[0],),
+    "halo_stencil2d": lambda geo: (geo.halos[0].windows[0],),
+    "rescale_attention": lambda geo: (geo.ins[0].block[1],),
+}
+#: The scalar parameters a kernel takes from its body (K11's mask).
+_PARAMS = {"rescale_attention": 5}
 
 
-def _smem_refusal(name: str, dev: torch.device) -> Optional[str]:
-    need = getattr(_lib(name), f"ssr_{name}_smem_bytes")()
+def _smem_refusal(name: str, dev: torch.device, *args: int) -> Optional[str]:
+    need = getattr(_lib(name), f"ssr_{name}_smem_bytes")(*args)
     limit = _card(dev).shared_memory_per_block_optin
     if need > limit:
         return (f"{name}: a CTA needs {need} bytes of shared memory, the "
@@ -308,12 +427,15 @@ def _refusal(name: str, geo: StreamGeometry, dtype: torch.dtype,
     if not composes(geo):
         return (f"{name}: blocks {[a.block for a in geo.ins]} → "
                 f"{geo.out.block} do not compose as {formula}")
-    return _smem_refusal(_LIB_OF.get(name, name), dev) \
-        if dev.type == "cuda" else None
+    if dev.type != "cuda":
+        return None
+    args = _SMEM_ARGS[name](geo) if name in _SMEM_ARGS else ()
+    return _smem_refusal(_LIB_OF.get(name, name), dev, *args)
 
 
 #: Wrappers that launch another wrapper's library.
-_LIB_OF = {"contract_gemv_relu": "contract_gemv"}
+_LIB_OF = {"contract_gemv_relu": "contract_gemv",
+           "halo_stencil1d_relu": "halo_stencil1d"}
 
 
 def accepts(op: tuple, geo: StreamGeometry, dtype: torch.dtype,
@@ -339,12 +461,20 @@ def accepts(op: tuple, geo: StreamGeometry, dtype: torch.dtype,
 
 
 def _program_refusal(name: str, program: Optional[Any]) -> Optional[str]:
-    """A single-op kernel of slices 1-2 runs one body over its streams in
-    order, with no parameters, permutation or uniforms."""
-    if program is not None and not program.plain:
-        return (f"{name}: runs one body over its streams in order; the "
-                "program has uniforms, parameters or a permutation")
-    return None
+    """A single-op kernel runs one body over its streams in order, with no
+    permutation or uniforms, and with the parameters it takes (none but
+    K11's mask)."""
+    if program is None:
+        return None
+    want = _PARAMS.get(name, 0)
+    if want and len(program.ops) == 1 and not program.n_uniform \
+            and len(program.params[0]) == want and program.perms[0] is None:
+        return None
+    if not want and program.plain:
+        return None
+    return (f"{name}: runs one body over its streams in order with "
+            f"{want} parameters; the program has uniforms, other "
+            "parameters or a permutation")
 
 
 def _checked_operands(name: str, tensors: Sequence[torch.Tensor],
@@ -378,9 +508,9 @@ def _checked(name: str, geo: StreamGeometry,
     if reason is not None:
         raise ValueError(reason)
     n_in, dtypes = _TAKES[name][:2]
+    dev = _checked_operands(name, layouts, dtypes)
     if len(layouts) != n_in:
         raise ValueError(f"{name}: takes {n_in} streams, got {len(layouts)}")
-    dev = _checked_operands(name, layouts, dtypes)
     for k, (t, agu) in enumerate(zip(layouts, geo.ins)):
         agu.check_within(geo.grid, tuple(t.shape), f"{name}[{k}]")
     reason = _refusal(name, geo, layouts[0].dtype, dev)
@@ -534,6 +664,131 @@ def contract_gemv_relu(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
     """K4 with its relu drain: y = max(0, A·x) (``matvec_relu``)."""
     return contract_gemv(geo, layouts, out_dtype, acc_dtype, program,
                          relu=True)
+
+
+# -- the halo and rescale kernels -------------------------------------------
+
+
+def _halo_stencil1d(name: str, geo: StreamGeometry,
+                    layouts: Sequence[torch.Tensor], out_dtype: torch.dtype,
+                    program: Optional[Any], relu: bool) -> torch.Tensor:
+    dev = _checked(name, geo, layouts, program)
+    _f32_out(name, out_dtype)
+    x, _twin, w = layouts
+    ctas, per_cta = _ctas(dev, geo.steps, per_sm=STENCIL_PER_SM)
+    out = torch.empty(geo.out_shape, dtype=torch.float32, device=dev)
+    vec = 4 if x.dtype == torch.float32 and _vector_width(
+        (x, out), (geo.ins[0], geo.out)) == 4 else 1
+    g = _grid_arg(geo.grid)
+    sx, sw, so = (_stream_arg(geo.ins[0], x), _stream_arg(geo.ins[2], w),
+                  _stream_arg(geo.out, out))
+    _launch("halo_stencil1d", dev, x.data_ptr(), w.data_ptr(),
+            out.data_ptr(), _DTYPE_CODE[x.dtype], vec, ctypes.byref(g),
+            ctypes.byref(sx), ctypes.byref(sw), ctypes.byref(so), ctas,
+            per_cta, int(relu))
+    return out
+
+
+def halo_stencil1d(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
+                   out_dtype: torch.dtype,
+                   acc_dtype: torch.dtype = torch.float32,
+                   program: Optional[Any] = None) -> torch.Tensor:
+    """K9: y block (1, t) = Σ_j w[j]·x[i+j] over the widened block (1, t +
+    10) read from x's first slot; the twin's walk is not read."""
+    return _halo_stencil1d("halo_stencil1d", geo, layouts, out_dtype,
+                           program, relu=False)
+
+
+def halo_stencil1d_relu(geo: StreamGeometry,
+                        layouts: Sequence[torch.Tensor],
+                        out_dtype: torch.dtype,
+                        acc_dtype: torch.dtype = torch.float32,
+                        program: Optional[Any] = None) -> torch.Tensor:
+    """K9 with its relu drain: y = max(0, Σ_j w[j]·x[i+j]), selected as K2
+    selects it (``stencil1d_relu``)."""
+    return _halo_stencil1d("halo_stencil1d_relu", geo, layouts, out_dtype,
+                           program, relu=True)
+
+
+def halo_stencil2d(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
+                   out_dtype: torch.dtype,
+                   acc_dtype: torch.dtype = torch.float32,
+                   program: Optional[Any] = None) -> torch.Tensor:
+    """K10: the 11-point star over each block, widened by 10 rows and 10
+    columns, read from x's first slot; the three twins are not read."""
+    dev = _checked("halo_stencil2d", geo, layouts, program)
+    _f32_out("halo_stencil2d", out_dtype)
+    x, wx, wy = layouts[0], layouts[4], layouts[5]
+    out = torch.empty(geo.out_shape, dtype=torch.float32, device=dev)
+    vec = 4 if x.dtype == torch.float32 and _vector_width(
+        (x,), (geo.ins[0],)) == 4 else 1
+    g = _grid_arg(geo.grid)
+    sx, swx, swy, so = (_stream_arg(geo.ins[0], x),
+                        _stream_arg(geo.ins[4], wx),
+                        _stream_arg(geo.ins[5], wy),
+                        _stream_arg(geo.out, out))
+    ctas = 4 * _card(dev).multi_processor_count      # persistent (f32)
+    _launch("halo_stencil2d", dev, x.data_ptr(), wx.data_ptr(),
+            wy.data_ptr(), out.data_ptr(), _DTYPE_CODE[x.dtype], vec,
+            ctypes.byref(g), ctypes.byref(sx), ctypes.byref(swx),
+            ctypes.byref(swy), ctypes.byref(so), ctas)
+    return out
+
+
+def _heads(name: str, layouts: Sequence[torch.Tensor]
+           ) -> Tuple[int, list]:
+    """(heads, one head's layouts): every layout 2-D, or every layout 3-D,
+    contiguous, over the same leading head dim."""
+    dims = {t.dim() for t in layouts}
+    if dims == {2}:
+        return 1, list(layouts)
+    if dims == {3} and len({t.shape[0] for t in layouts}) == 1 \
+            and layouts[0].shape[0] > 0 \
+            and all(t.is_contiguous() for t in layouts):
+        return layouts[0].shape[0], [t[0] for t in layouts]
+    raise ValueError(f"{name}: needs 2-D layouts or contiguous 3-D layouts "
+                     f"over one head dim, got "
+                     f"{[tuple(t.shape) for t in layouts]}")
+
+
+def rescale_attention(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
+                      out_dtype: torch.dtype,
+                      acc_dtype: torch.dtype = torch.float32,
+                      program: Optional[Any] = None) -> torch.Tensor:
+    """K11: O = softmax(Q·Kᵀ·scale + mask)·V for every head of the batch in
+    one launch, the kv walk a loop inside each CTA carrying m, l and acc.
+    The mask is the body's parameters: (causal, window, scale, sk − sq,
+    sk)."""
+    name = "rescale_attention"
+    # K11 loads rows in 16-byte packs: a layout that is a view starting off
+    # a 16-byte boundary (a slice of a larger tensor) is copied once
+    layouts = [t if t.data_ptr() % 16 == 0 else t.clone() for t in layouts]
+    heads, head0 = _heads(name, layouts)
+    dev = _checked(name, geo, head0, program)
+    if acc_dtype != torch.float32:
+        raise TypeError(f"{name}: carries m, l and acc in float32, the "
+                        f"schedule asks for {acc_dtype}")
+    if out_dtype not in _FLOATS:
+        raise TypeError(f"{name}: drains to float32 or bfloat16, asked for "
+                        f"{out_dtype}")
+    causal, window, scale, off_rc, sk = program.params[0]
+    k, v, q = layouts
+    shape = geo.out_shape if k.dim() == 2 else (heads, *geo.out_shape)
+    out = torch.empty(shape, dtype=out_dtype, device=dev)
+    per_head = [t[0].numel() if t.dim() == 3 else 0 for t in (k, v, q, out)]
+    strides = (ctypes.c_int64 * 4)(*per_head)
+    g = _grid_arg(geo.grid)
+    sk_, sv, sq, so = (_stream_arg(geo.ins[0], head0[0]),
+                       _stream_arg(geo.ins[1], head0[1]),
+                       _stream_arg(geo.ins[2], head0[2]),
+                       _stream_arg(geo.out, out if out.dim() == 2 else out[0]))
+    _launch(name, dev, k.data_ptr(), v.data_ptr(), q.data_ptr(),
+            out.data_ptr(), _DTYPE_CODE[k.dtype], _DTYPE_CODE[out_dtype],
+            ctypes.byref(g), ctypes.byref(sk_), ctypes.byref(sv),
+            ctypes.byref(sq), ctypes.byref(so), geo.contraction_steps, heads,
+            strides, float(scale), int(bool(causal)),
+            -1 if window is None else int(window), int(off_rc), int(sk))
+    return out
 
 
 # -- the stage kernels: fused chains and DAGs ----------------------------------
@@ -890,6 +1145,10 @@ DEVICE_KERNELS: Dict[tuple, Callable[..., torch.Tensor]] = {
     **_stage_keys(_LAYERNORM, dag_layernorm),
     **_stage_keys(_SOFTMAX_XENT, dag_softmax_xent),
     **_stage_keys(_MLP, dag_mlp),
+    ("nest", "stencil1d"): halo_stencil1d,
+    ("nest", "stencil1d_relu"): halo_stencil1d_relu,
+    ("nest", "stencil2d"): halo_stencil2d,
+    ("nest", "attn_scores"): rescale_attention,
 }
 
 
@@ -1000,6 +1259,31 @@ def base_gemv(a: torch.Tensor, x: torch.Tensor,
     return out
 
 
+#: B5's grid step: K9's default tile (128 lanes × lanes_tile_factor 4).
+STENCIL_TILE = 512
+
+
+def base_stencil1d(x: torch.Tensor, w: torch.Tensor,
+                   out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """B5: y (1, n) f32 = Σ_j w[j]·x[i+j] over x (1, n + 10) and the f32
+    taps w (1, 11), one global load per tap, on K9's default CTAs."""
+    dev = _checked_base("base_stencil1d", (x,), _FLOATS)
+    _checked_operands("base_stencil1d", (w,), (torch.float32,))
+    n = x.shape[1] - (STENCIL_TAPS - 1)
+    if x.shape[0] != 1 or n < 1 or tuple(w.shape) != (1, STENCIL_TAPS) \
+            or w.device != dev:
+        raise ValueError(f"base_stencil1d: needs x (1, n + {STENCIL_TAPS - 1})"
+                         f" and w (1, {STENCIL_TAPS}) on one device, got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    _f32_out("base_stencil1d", out_dtype)
+    ctas, per_cta = _ctas(dev, -(-n // STENCIL_TILE),
+                          per_sm=STENCIL_PER_SM)          # K9's split
+    out = torch.empty((1, n), dtype=torch.float32, device=dev)
+    _launch("base_stencil1d", dev, x.data_ptr(), w.data_ptr(),
+            out.data_ptr(), _DTYPE_CODE[x.dtype], n, ctas, per_cta)
+    return out
+
+
 #: Body op → the baseline kernel that runs it on the card.  Every wrapper
 #: is called as ``kernel(*layouts, out_dtype=...)``, like the plain versions.
 BASELINE_KERNELS: Dict[str, Callable[..., torch.Tensor]] = {
@@ -1007,6 +1291,7 @@ BASELINE_KERNELS: Dict[str, Callable[..., torch.Tensor]] = {
     "relu": base_relu,
     "dot": base_gemm,
     "matvec": base_gemv,
+    "stencil1d": base_stencil1d,
 }
 
 
@@ -1048,11 +1333,37 @@ def _step_blocks(geo: StreamGeometry,
             for b, d in zip(blocks, dims)]
 
 
+def _halo_widen(parts: Sequence[torch.Tensor], halo: Any) -> torch.Tensor:
+    """Stitch a halo's ``2**k`` shifted blocks into one widened block.
+
+    Pass ``j`` pairs the blocks differing only in halo bit ``j`` (adjacent
+    after earlier passes), concatenates each pair along that level's block
+    axis and keeps the first ``tile + w - 1`` columns, as the reference's
+    ``_halo_widen`` does.
+    """
+    for ax, t, w in zip(halo.axes, halo.tiles, halo.windows):
+        parts = [torch.cat([parts[m], parts[m + 1]], dim=ax).narrow(
+            ax, 0, t + w - 1) for m in range(0, len(parts), 2)]
+    return parts[0]
+
+
+def _widened(geo: StreamGeometry, blocks: Sequence[torch.Tensor]) -> list:
+    """One step's blocks as the body takes them: each halo's shifted blocks
+    widened into one, in the first slot's place."""
+    if not geo.halos:
+        return list(blocks)
+    first = {h.slots[0]: h for h in geo.halos}
+    twins = {s for h in geo.halos for s in h.slots[1:]}
+    return [_halo_widen([blocks[s] for s in first[k].slots], first[k])
+            if k in first else b
+            for k, b in enumerate(blocks) if k not in twins]
+
+
 def _each_step(fn: Callable, geo: StreamGeometry,
                layouts: Sequence[torch.Tensor]) -> torch.Tensor:
     """``fn`` applied to every step's blocks at once: (steps, *partial)."""
     blocks, dims = _step_inputs(geo, layouts)
-    return torch.vmap(fn, in_dims=dims)(*blocks)
+    return torch.vmap(lambda *b: fn(*_widened(geo, b)), in_dims=dims)(*blocks)
 
 
 def _write_blocks(geo: StreamGeometry, blocks: torch.Tensor,
@@ -1152,8 +1463,62 @@ def plain_stages(bodies: Sequence[Callable], program: StageProgram,
     raise ValueError(f"stage programs run in map or reduce mode, not {mode!r}")
 
 
+RESCALE_FILL = -1e30   # the initial running max (and the masks' fill)
+
+
+def plain_rescale(body: Callable, geo: StreamGeometry,
+                  layouts: Sequence[torch.Tensor], out_dtype: torch.dtype,
+                  acc_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Online-softmax epilogue: per output block, the m/l/acc recurrence
+    over its kv steps in grid order, drained as ``acc / max(l, 1e-30)``.
+
+    ``body(*blocks, offs)`` returns the masked score block ``s`` and the
+    value block ``v`` of one step (``offs``: the step's global offset of
+    every loop level); ``m`` starts at ``RESCALE_FILL``.  The parallel steps
+    run at once (``torch.vmap``).  3-D layouts are a head batch: each head
+    runs alike and the heads stack.
+    """
+    if layouts and layouts[0].dim() == 3:
+        return torch.stack([plain_rescale(body, geo, [t[h] for t in layouts],
+                                          out_dtype, acc_dtype)
+                            for h in range(layouts[0].shape[0])])
+    blocks, dims = _step_inputs(geo, layouts)
+    z = geo.contraction_steps
+    par = geo.steps // z
+    steps = grid_steps(geo.grid, layouts[0].device)
+    offs = torch.stack([steps[:, a] * t for a, t in geo.level_tiles], dim=1)
+    blocks = [b.reshape(par, z, *b.shape[1:]) if d == 0 else b
+              for b, d in zip(blocks, dims)]
+
+    def one(*args):
+        *blks, off = args
+        for j in range(z):
+            step = [b[j] if d == 0 else b for b, d in zip(blks, dims)]
+            s, v = body(*_widened(geo, step),
+                        tuple(off[j][i] for i in range(off.shape[-1])))
+            s = s.to(acc_dtype)
+            if j == 0:
+                m = torch.full((s.shape[0], 1), RESCALE_FILL,
+                               dtype=acc_dtype, device=s.device)
+                l = torch.zeros_like(m)
+                acc = torch.zeros((s.shape[0], v.shape[-1]), dtype=acc_dtype,
+                                  device=s.device)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + p @ v.to(acc_dtype)
+            m = m_new
+        return acc / torch.clamp(l, min=1e-30)
+
+    out = torch.vmap(one, in_dims=(*dims, 0))(*blocks,
+                                              offs.reshape(par, z, -1))
+    return _write_blocks(geo, out.to(out_dtype), out_dtype, every=z)
+
+
 PLAIN: Dict[str, Callable[..., torch.Tensor]] = {
-    "reduce": plain_reduce, "map": plain_map, "nest": plain_contract}
+    "reduce": plain_reduce, "map": plain_map, "nest": plain_contract,
+    "rescale": plain_rescale}
 
 
 # -- plain versions of the baselines ------------------------------------------
@@ -1190,6 +1555,20 @@ def plain_base_gemm(a: torch.Tensor, b: torch.Tensor,
     bk = min(a.shape[1], LANES)
     for k0 in range(0, a.shape[1], bk):
         acc += _promote(a[:, k0:k0 + bk]) @ _promote(b[k0:k0 + bk, :])
+    return acc.to(out_dtype)
+
+
+def plain_base_stencil1d(x: torch.Tensor, w: torch.Tensor,
+                         out_dtype: torch.dtype = torch.float32
+                         ) -> torch.Tensor:
+    """acc (1, n) += w[0, j]·x[:, j:j + n] over the taps, from zero, in f32
+    (the baseline body's dynamic slices)."""
+    taps = w.shape[1]
+    n = x.shape[1] - (taps - 1)
+    xf, wf = _promote(x), _promote(w)
+    acc = torch.zeros((1, n), dtype=torch.float32, device=x.device)
+    for j in range(taps):
+        acc = acc + wf[0, j] * xf[:, j:j + n]
     return acc.to(out_dtype)
 
 

@@ -42,9 +42,11 @@ a committed ``Schedule.cut_edges`` runs a DAG as one kernel per component.
 ``ssr_call`` and the DAG call take ``uniforms=``: whole arrays delivered at
 every step as one block with a constant walk.
 
-Not in this port yet, each a :class:`LoweringError` naming the slice that
-brings it: halo reads, gathers and the online-softmax accumulator of
-``lower_nest``.
+``lower_nest`` also serves halo reads (a windowed READ ref becomes
+``2**k`` +1-shifted streams, widened into one block per step) and the
+online-softmax accumulator (the flash-attention m/l/acc recurrence over one
+contraction axis).  Not in this port yet: gathers, a :class:`LoweringError`
+naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -406,9 +408,17 @@ class NestStream:
     policy: BlockPolicy
     offset: int = 0
 
-    def prepare(self, arr: torch.Tensor) -> torch.Tensor:
-        """Pad + reshape ``arr`` into the layout the index_map addresses."""
+    def prepare(self, arr: torch.Tensor,
+                lead: Tuple[int, ...] = ()) -> torch.Tensor:
+        """Pad + reshape ``arr`` into the layout the index_map addresses.
+
+        ``lead`` are leading batch dims that ``arr`` carries in front of
+        the operand (a head batch): each batch entry is laid out alike.
+        """
         lanes = self.policy.lanes
+        if lead and not self.levels:
+            raise ValueError(f"stream '{self.name}': a loop-invariant "
+                             "operand takes no batch dims")
         if not self.levels:
             flat = arr.reshape(-1)[self.offset:]
             if flat.shape[0] == 0:
@@ -424,19 +434,44 @@ class NestStream:
                     "give the operand a varying loop level instead")
             return _pad_last(flat, (-flat.shape[0]) % lanes).reshape(-1, lanes)
         want = math.prod(self.logical_shape)
-        flat = arr.reshape(-1)
-        if flat.shape[0] != want:
+        flat = arr.reshape(*lead, -1)
+        if flat.shape[-1] != want:
             raise ValueError(
-                f"stream '{self.name}': operand has {flat.shape[0]} "
+                f"stream '{self.name}': operand has {flat.shape[-1]} "
                 f"elements, plan expects logical shape {self.logical_shape}")
-        view = flat.reshape(self.logical_shape)
+        view = flat.reshape(*lead, *self.logical_shape)
         pads: Tuple[int, ...] = ()
         for l, p in zip(reversed(self.logical_shape),
                         reversed(self.padded_shape)):
             pads += (0, p - l)
         if any(pads):
             view = F.pad(view, pads)
-        return view.reshape(self.layout_shape)
+        return view.reshape(*lead, *self.layout_shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class HaloRead:
+    """One windowed READ ref lowered to shifted streams + in-kernel taps.
+
+    A ref with ``window[l] = w > 1`` revisits ``w - 1`` neighbouring
+    elements per step on level ``l`` — the stencil halo.  A block walk
+    addresses whole tiles, so the lowering emits ``2**k`` copies of the
+    stream (``k`` halo'd levels): slot bit ``j`` adds a +1 grid shift on
+    halo level ``j``.  The plain version concatenates each shifted pair
+    along the level's block axis and keeps the first ``tile + w - 1``
+    columns — the widened block the body sees; a Hopper kernel loads that
+    widened block straight from the first slot's walk.
+
+    ``slots`` are the shifted streams' positions in ``in_streams`` (binary
+    order, bit 0 first); ``axes``/``tiles``/``windows`` are per halo'd
+    level, in slot-bit order.
+    """
+
+    name: str
+    slots: Tuple[int, ...]
+    axes: Tuple[int, ...]
+    tiles: Tuple[int, ...]
+    windows: Tuple[int, ...]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -446,7 +481,8 @@ class LoweredNest:
     ``grid[k]`` covers loop level ``axis_order[k]``; ``tiles`` and
     ``padded_bounds`` stay in loop-level order.  ``contraction_axes`` are
     the output's revisited levels as grid-axis positions (``arbitrary``,
-    trailing); every other axis is ``parallel``.
+    trailing); every other axis is ``parallel``.  ``halos`` are the plan's
+    windowed reads; ``rescale`` marks the online-softmax accumulator.
     """
 
     plan: StreamPlan
@@ -459,6 +495,8 @@ class LoweredNest:
     schedule: Schedule = DEFAULT_SCHEDULE
     axis_order: Tuple[int, ...] = ()
     padded_bounds: Tuple[int, ...] = ()
+    halos: Tuple[HaloRead, ...] = ()
+    rescale: bool = False
 
     @property
     def semantics(self) -> Tuple[str, ...]:
@@ -488,6 +526,12 @@ def _nest_tiles(nest: LoopNest, orders: Dict[str, Tuple[int, ...]],
     (aligned to ``lanes``, target ``lanes·lanes_tile_factor``); a level in
     outer positions only is a sublane level (aligned to ``rows``, target
     ``rows·rows_tile_factor``); a level no stream varies with has tile 1.
+
+    A halo'd level (some ref reads a ``window[l] = w > 1`` neighbourhood)
+    needs ``w - 1`` overlap columns served by one +1-shifted neighbour
+    block, so its tile target is raised to at least the aligned overlap;
+    a tile that still undershoots it fails in :func:`_lower_halo_streams`
+    (and the autotuner filters it).
     """
     policy = sched.policy
     roles: Dict[int, str] = {}
@@ -497,6 +541,12 @@ def _nest_tiles(nest: LoopNest, orders: Dict[str, Tuple[int, ...]],
     for order in orders.values():
         for lvl in order[:-1]:
             roles.setdefault(lvl, "sublane")
+    halo_need: Dict[int, int] = {}
+    for ref in nest.refs:
+        if ref.name in orders and ref.has_window():
+            for lvl, w in enumerate(ref.window):
+                if w > 1:
+                    halo_need[lvl] = max(halo_need.get(lvl, 0), w - 1)
     tiles, padded = [], []
     for lvl, b in enumerate(nest.bounds):
         role = roles.get(lvl)
@@ -510,6 +560,9 @@ def _nest_tiles(nest: LoopNest, orders: Dict[str, Tuple[int, ...]],
             tiles.append(1)
             padded.append(b)
             continue
+        need = halo_need.get(lvl, 0)
+        if need:
+            target = max(target, -(-need // align) * align)
         pb = -(-b // align) * align
         tiles.append(auto_block(pb, target, align))
         padded.append(pb)
@@ -579,6 +632,72 @@ def _lower_nest_stream(alloc: Allocation, nest: LoopNest,
         layout_shape=layout, policy=policy)
 
 
+def _lower_halo_streams(alloc: Allocation, nest: LoopNest,
+                        tiles: Tuple[int, ...], padded: Tuple[int, ...],
+                        policy: BlockPolicy, pos: Dict[int, int]
+                        ) -> Tuple[list, Tuple[int, ...], Tuple[int, ...],
+                                   Tuple[int, ...]]:
+    """Lower one windowed READ ref to ``2**k`` shifted streams.
+
+    A block walk addresses whole tiles, so it cannot deliver a
+    ``tile + w - 1`` widened block: each halo'd level doubles the stream,
+    the copy's index map shifted +1 grid step on that level.  The operand
+    layout is padded by one extra tile per halo'd level so the shifted walk
+    stays in range at the grid edge.
+
+    Returns ``(streams, axes, halo_tiles, windows)`` — the shifted
+    :class:`NestStream`\\ s in binary slot order plus the per-halo'd-level
+    metadata of :class:`HaloRead` (block axis, tile, window width).
+    """
+    ref = alloc.ref
+    order = _storage_order_or_raise(ref, nest)
+    if ref.offset:
+        raise LoweringError(
+            f"stream '{ref.name}': base offset {ref.offset} cannot shift a "
+            "level-mapped block walk; fold it into the operand view")
+    halo_lvls = tuple(lvl for lvl, w in enumerate(ref.window) if w > 1)
+    for lvl in halo_lvls:
+        w = ref.window[lvl]
+        if w - 1 > tiles[lvl]:
+            raise LoweringError(
+                f"stream '{ref.name}': halo window {ref.window} needs "
+                f"{w - 1} overlap columns on level {lvl}, but the block "
+                f"tile is only {tiles[lvl]} wide; widen the tile so one "
+                "block plus its +1-shifted neighbour covers the window")
+    halo_set = set(halo_lvls)
+    logical = tuple(nest_analysis.level_extent(ref, nest, l) for l in order)
+    pad_shape = tuple(padded[l] + (tiles[l] if l in halo_set else 0)
+                      for l in order)
+    streams = []
+    for m in range(1 << len(halo_lvls)):
+        shift = {lvl: (m >> j) & 1 for j, lvl in enumerate(halo_lvls)}
+        if len(order) == 1:
+            lvl = order[0]
+            block = (1, tiles[lvl])
+            layout = (1, pad_shape[0])
+
+            def index_map(*g, _p=pos[lvl], _s=shift[lvl]):
+                return (0, g[_p] + _s)
+        else:
+            block = tuple(tiles[l] for l in order)
+            layout = pad_shape
+
+            def index_map(*g, _ps=tuple(pos[l] for l in order),
+                          _ss=tuple(shift.get(l, 0) for l in order)):
+                return tuple(g[p] + s for p, s in zip(_ps, _ss))
+
+        streams.append(NestStream(
+            name=ref.name,
+            stream=BlockStream(block, index_map, direction=ref.kind,
+                               name=ref.name),
+            levels=order, logical_shape=logical, padded_shape=pad_shape,
+            layout_shape=layout, policy=policy))
+    axes = tuple(1 if len(order) == 1 else order.index(lvl)
+                 for lvl in halo_lvls)
+    return (streams, axes, tuple(tiles[lvl] for lvl in halo_lvls),
+            tuple(ref.window[lvl] for lvl in halo_lvls))
+
+
 def lower_nest(plan: StreamPlan,
                policy: BlockPolicy = DEFAULT_POLICY, *,
                schedule: Optional[Schedule] = None) -> LoweredNest:
@@ -587,7 +706,10 @@ def lower_nest(plan: StreamPlan,
     Requirements (each a :class:`LoweringError` otherwise): exactly one
     WRITE ref, affine and allocated; a dense storage order for every
     allocated ref; the output's contraction axes innermost, so one
-    accumulator carries all revisits of an output block.
+    accumulator carries all revisits of an output block.  An
+    ``online_softmax`` output needs exactly one contraction axis, two
+    varying levels whose lanes level is served in one step, and an f32
+    accumulator.
     """
     resilience.inject("lowering")
     sched = _resolve_schedule(policy, schedule)
@@ -620,19 +742,25 @@ def lower_nest(plan: StreamPlan,
             f"output ref '{out_ref.name}': contraction axes {zaxes} are not "
             f"the innermost levels (output varies with {out_varying}); the "
             "accumulator would be drained and re-initialised mid-reduction")
-    if out_ref.acc_kind == "online_softmax":
-        raise LoweringError(
-            f"output ref '{out_ref.name}': the online-softmax accumulator "
-            "arrives with port slice 4 (halo reads and online softmax)")
+
+    rescale = out_ref.acc_kind == "online_softmax"
+    if rescale:
+        if len(zaxes) != 1:
+            raise LoweringError(
+                f"output ref '{out_ref.name}': online_softmax needs exactly "
+                f"one contraction axis to carry the (m, l, acc) triple "
+                f"across, got {zaxes}")
+        if set(out_varying) | set(zaxes) != set(range(len(nest.bounds))):
+            raise LoweringError(
+                f"output ref '{out_ref.name}': online_softmax requires the "
+                "output plus the contraction axis to cover every loop "
+                f"level (output varies with {out_varying}, contraction "
+                f"{zaxes}, nest depth {len(nest.bounds)})")
     for r in nest.refs:
         if r.is_indirect():
             raise LoweringError(
                 f"indirect ref '{r.name}': gathers arrive with port slice 5 "
                 "(indirection streams)")
-        if r.has_window():
-            raise LoweringError(
-                f"windowed ref '{r.name}': halo reads arrive with port "
-                "slice 4 (halo reads and online softmax)")
 
     orders = {a.ref.name: _storage_order_or_raise(a.ref, nest)
               for a in plan.allocations}
@@ -641,8 +769,39 @@ def lower_nest(plan: StreamPlan,
     pos = {lvl: k for k, lvl in enumerate(axis_order)}
     grid = tuple(padded[l] // tiles[l] for l in axis_order)
 
-    ins, outs = [], []
+    if rescale:
+        out_order = orders[out_ref.name]
+        if len(out_order) != 2:
+            raise LoweringError(
+                f"output ref '{out_ref.name}': online_softmax carries a "
+                "(rows, lanes) accumulator block, so the output needs "
+                f"exactly two varying levels, got storage order {out_order}")
+        lanes_lvl = out_order[-1]
+        if padded[lanes_lvl] != tiles[lanes_lvl]:
+            raise LoweringError(
+                f"output ref '{out_ref.name}': online_softmax needs the "
+                f"lanes level {lanes_lvl} served in one grid step "
+                f"(padded {padded[lanes_lvl]} vs tile {tiles[lanes_lvl]}); "
+                "the rescaled accumulator cannot split its lane dim")
+        if sched.torch_acc_dtype != torch.float32:
+            raise LoweringError(
+                f"output ref '{out_ref.name}': online_softmax pins "
+                f"acc_dtype=float32 (running max/sum rescaling is not "
+                f"stable in {sched.acc_dtype}); adjust the schedule")
+
+    ins: list = []
+    outs: list = []
+    halos: list = []
     for a in plan.allocations:
+        ref = a.ref
+        if ref.kind == Direction.READ and ref.has_window():
+            streams, axes, htiles, hwins = _lower_halo_streams(
+                a, nest, tiles, padded, policy, pos)
+            slots = tuple(range(len(ins), len(ins) + len(streams)))
+            ins.extend(streams)
+            halos.append(HaloRead(name=ref.name, slots=slots, axes=axes,
+                                  tiles=htiles, windows=hwins))
+            continue
         s = _lower_nest_stream(a, nest, tiles, padded, policy, pos)
         (outs if s.stream.direction == Direction.WRITE else ins).append(s)
 
@@ -650,7 +809,8 @@ def lower_nest(plan: StreamPlan,
                        in_streams=tuple(ins), out_stream=outs[0],
                        contraction_axes=tuple(sorted(pos[z] for z in zaxes)),
                        schedule=sched, axis_order=axis_order,
-                       padded_bounds=tuple(padded))
+                       padded_bounds=tuple(padded), halos=tuple(halos),
+                       rescale=rescale)
 
 
 # --------------------------------------------------------------------------
@@ -835,9 +995,26 @@ def _build_nest_kernel(lowered: LoweredNest, body: Callable,
                        out_dtype: torch.dtype) -> SsrKernel:
     """A level-mapped kernel: ``body(*read_blocks)`` is one output-block
     partial per step, accumulated in ``schedule.acc_dtype`` over the
-    contraction axes and cast to ``out_dtype`` on the drain."""
+    contraction axes and cast to ``out_dtype`` on the drain.
+
+    A halo'd ref's shifted streams reach the body as ONE widened block.
+    With ``lowered.rescale`` the accumulator is the online-softmax triple:
+    ``body(*blocks, offs)`` (``offs`` the per-level global offsets of the
+    step, for the masks) returns the masked score block ``s`` (rows ×
+    contraction tile) and the value block ``v``; the kernel carries
+    ``m' = max(m, rowmax s)``, ``α = e^{m−m'}``, ``l' = αl + Σ e^{s−m'}``,
+    ``acc' = α·acc + e^{s−m'}·v`` and drains ``acc / max(l, 1e-30)``; its
+    scratch is m and l, (rows, 1), and acc, (rows, lanes), all f32.
+    """
     acc_dtype = lowered.schedule.torch_acc_dtype
     acc_shape = lowered.out_stream.stream.block_shape
+    scratch = (scratch_bytes(acc_shape, acc_dtype)
+               if lowered.contraction_axes else 0)
+    level_tiles: Tuple[Tuple[int, int], ...] = ()
+    if lowered.rescale:
+        scratch += 2 * scratch_bytes((acc_shape[0], 1), acc_dtype)
+        pos = {lvl: k for k, lvl in enumerate(lowered.axis_order)}
+        level_tiles = tuple((pos[l], t) for l, t in enumerate(lowered.tiles))
     return SsrKernel(
         body, mode="nest", grid=lowered.grid,
         in_streams=[s.stream for s in lowered.in_streams],
@@ -845,19 +1022,21 @@ def _build_nest_kernel(lowered: LoweredNest, body: Callable,
         out_shape=lowered.out_stream.layout_shape,
         out_dtype=out_dtype, acc_dtype=acc_dtype,
         contraction_axes=lowered.contraction_axes,
-        scratch_bytes=(scratch_bytes(acc_shape, acc_dtype)
-                       if lowered.contraction_axes else 0),
-        buffer_depth=_depths_for(lowered.schedule, len(lowered.in_streams)))
+        scratch_bytes=scratch,
+        buffer_depth=_depths_for(lowered.schedule, len(lowered.in_streams)),
+        halos=lowered.halos, rescale=lowered.rescale,
+        level_tiles=level_tiles)
 
 
 def _trim_nest_output(out: torch.Tensor, lowered: LoweredNest) -> torch.Tensor:
-    """Drop per-level padding; return the output's logical nd array."""
+    """Drop per-level padding; return the output's logical nd array (with
+    any leading batch dims of a multi-level output kept)."""
     ns = lowered.out_stream
     if not ns.levels:
         return out[0, 0]
     if len(ns.levels) == 1:
         return out[0, :ns.logical_shape[0]]
-    return out[tuple(slice(0, e) for e in ns.logical_shape)]
+    return out[(..., *(slice(0, e) for e in ns.logical_shape))]
 
 
 def _trim_output(out: torch.Tensor, bounds: Tuple[int, ...], mode: str,
@@ -927,6 +1106,22 @@ def _uniform_sig(items: Tuple[Tuple[str, torch.Tensor], ...]) -> Tuple:
     return tuple((nm, tuple(a.shape), a.dtype) for nm, a in items)
 
 
+def stream_layouts(lowered: Any, arrays: Sequence[torch.Tensor],
+                   lead: Tuple[int, ...] = ()) -> Tuple[torch.Tensor, ...]:
+    """Each read stream's padded layout of its operand (with ``lead``
+    leading batch dims on a level-mapped call).  A halo'd ref's shifted
+    streams address one layout, laid out once and shared."""
+    twin = {s: h.slots[0] for h in getattr(lowered, "halos", ())
+            for s in h.slots[1:]}
+    out: list = []
+    for k, (s, a) in enumerate(zip(lowered.in_streams, arrays)):
+        if k in twin:
+            out.append(out[twin[k]])
+        else:
+            out.append(s.prepare(a, lead) if lead else s.prepare(a))
+    return tuple(out)
+
+
 def _prepare(nest: LoopNest, body: Callable, operands: Dict[str, Any],
              mode: str, out_dtype: torch.dtype, sched: Schedule,
              num_lanes: int, dev: torch.device,
@@ -952,7 +1147,7 @@ def _prepare(nest: LoopNest, body: Callable, operands: Dict[str, Any],
                               tuple(tuple(a.shape) for _, a in uni))
         DISPATCH_STATS["builds"] += 1
         _kernel_cache_put(key, kernel)
-    layouts = tuple(s.prepare(a) for s, a in zip(lowered.in_streams, arrays))
+    layouts = stream_layouts(lowered, arrays)
     return PreparedCall(kernel=kernel, layouts=layouts + tuple(
         a for _, a in uni), lowered=lowered, bounds=tuple(nest.bounds))
 

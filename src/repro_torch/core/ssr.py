@@ -262,7 +262,10 @@ class SsrKernel:
     write stream) or ``"nest"`` (level-mapped; an accumulator over the
     trailing ``contraction_axes`` drained once per output block).  The last
     ``n_uniform`` read streams are uniforms: whole arrays, the same block
-    at every step.
+    at every step.  ``halos`` (the lowering's ``HaloRead``\\ s) widen
+    shifted read streams into one block per step; ``rescale`` makes the
+    nest accumulator the online-softmax (m, l, acc) triple, whose body also
+    receives the per-level global offsets (``level_tiles``).
     """
 
     def __init__(self, body: Callable, *, mode: str,
@@ -276,7 +279,10 @@ class SsrKernel:
                  scratch_bytes: int = 0,
                  buffer_depth=DEFAULT_BUFFER_DEPTH,
                  n_uniform: int = 0,
-                 program: Optional[StageProgram] = None):
+                 program: Optional[StageProgram] = None,
+                 halos: Tuple[Any, ...] = (),
+                 rescale: bool = False,
+                 level_tiles: Tuple[Tuple[int, int], ...] = ()):
         if mode not in hopper.PLAIN:
             raise ValueError(f"unknown ssr_call mode {mode!r}")
         for s in in_streams:
@@ -294,6 +300,7 @@ class SsrKernel:
         self.out_dtype = out_dtype
         self.acc_dtype = acc_dtype
         self.scratch_bytes = scratch_bytes
+        self.rescale = rescale
         self.depths = _depths(buffer_depth, len(in_streams))
         self.program = program or StageProgram.single(
             body, len(in_streams), n_uniform, mode)
@@ -302,7 +309,13 @@ class SsrKernel:
             ins=tuple(s.agu(self.grid) for s in in_streams),
             out=out_stream.agu(self.grid),
             out_shape=tuple(out_shape),
-            contraction_axes=tuple(contraction_axes))
+            contraction_axes=tuple(contraction_axes),
+            halos=tuple(halos), level_tiles=tuple(level_tiles))
+
+    @property
+    def plain_kind(self) -> str:
+        """The key of this kernel's plain version in :data:`hopper.PLAIN`."""
+        return "rescale" if self.rescale else self.mode
 
     @property
     def device_key(self) -> tuple:
@@ -323,8 +336,9 @@ class SsrKernel:
 
     def plain(self, layouts: Sequence[torch.Tensor]) -> torch.Tensor:
         """The plain PyTorch version of this kernel, on any device."""
-        return hopper.PLAIN[self.mode](self.body, self.geometry, layouts,
-                                       self.out_dtype, self.acc_dtype)
+        return hopper.PLAIN[self.plain_kind](self.body, self.geometry,
+                                             layouts, self.out_dtype,
+                                             self.acc_dtype)
 
     def __call__(self, *layouts: torch.Tensor) -> torch.Tensor:
         devices = {t.device for t in layouts}

@@ -1,0 +1,324 @@
+// K11 rescale_attention: the online-softmax (flash) accumulator of one
+// attention layer, out = softmax(q k^T scale + mask) v, for a batch of heads.
+//
+// Replaces the TPU kernel repro/core/ssr.py:ssr_pallas (sync emitter) with
+// the online-softmax branch of repro/core/lowering.py:_build_nest_kernel
+// (the m/l/acc recurrence) and the score body repro/kernels/attention.py:
+// _body (scale, then the causal, sliding-window and padded-column masks
+// filled with -1e30).  For Sq = Sk = 4096, D = 128 the default lowering
+// gives grid (16, 1, 16) over (q, d, kv), kv `arbitrary`, blocks Q, K, V
+// and O (256, 128).
+//
+// Bound on H100: operations.  Each unmasked (query, key) pair costs 2 D FMAs
+// (the score and its share of p v); Q, K, V and O move once.
+//
+// Design: the TPU walks the kv axis as sequential grid steps and carries
+// (m, l, acc) in VMEM scratch.  Here the kv axis is a loop inside the CTA:
+// a CTA owns 128 query rows of one lowered Q block (grid.x) of one head
+// (grid.y), keeps m and l in registers (replicated over the 16 threads of a
+// row group) and acc -- 8 rows x 8 lanes a thread -- in registers, and walks
+// the lowered kv blocks in grid order in sub-tiles of 64 keys.  Per
+// sub-tile: K (transposed) and V are staged in shared memory, every load of
+// a thread issued before the barrier that precedes its stores; each thread
+// computes an 8 x 4 score micro-tile in FP32 FMA (no TF32: the reference
+// asks for f32), masks it, updates m and l with warp shuffles over its row
+// group, rescales acc by alpha = exp(m - m') and adds p v, with p passed
+// through shared memory.  expf is the accurate one (no fast math).  m starts
+// at -1e30 and masked scores are -1e30, never -inf: a row whose first keys
+// are all masked adds p = 1 garbage that alpha = exp(-1e30 - m) = 0 removes
+// exactly once it meets a visible key, where -inf would give NaN.  A
+// sub-tile masked for every row of the CTA (past the causal diagonal,
+// before the window, or padding) is skipped: the result is the same to
+// float error.  The head dim is the lowered lanes tile, 128; a head dim of
+// 80 arrives zero-padded by the layout, so the padded lanes add 0 to every
+// score and leave 0 in acc.  Heavy CTAs (late query blocks under the causal
+// mask) are launched first.
+#include "ssr_common.cuh"
+
+namespace {
+
+constexpr int kD = 128;        // head dim: the lowered lanes tile
+constexpr int kBQ = 128;       // query rows per CTA
+constexpr int kBK = 64;        // keys per sub-tile
+constexpr int kThreads = 256;  // 16 row groups of 8 rows x 16 column groups
+constexpr int kQPitch = kBQ + 4;
+constexpr int kKPitch = kBK + 1;
+constexpr int kPPitch = kBQ + 4;
+constexpr int kSmemFloats = kD * kQPitch + kD * kKPitch + kBK * kD + kBK * kPPitch;
+constexpr float kFill = -1e30f;
+
+__device__ __forceinline__ int64_t block_row(const SsrOdometer& o,
+                                             const SsrStream& s) {
+  int64_t i0 = s.offset[0];
+#pragma unroll
+  for (int k = 0; k < SSR_MAX_AXES; ++k) i0 += o.g[k] * s.coeff[k][0];
+  return i0 * s.block[0];
+}
+
+// Four consecutive elements of a row as floats: one 16-byte (f32) or
+// 8-byte (bf16) load; the wrapper checked the alignment.
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p);
+template <>
+__device__ __forceinline__ float4 load4<float>(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+template <>
+__device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+constexpr int kQPacks = kBQ * kD / 4 / kThreads;    // 16-byte packs a thread
+constexpr int kKPacks = kBK * kD / 4 / kThreads;    // stages of Q, of K and V
+
+struct Mask {
+  float scale;
+  int causal;
+  int64_t window;   // < 0: none
+  int64_t off_rc;   // sk - sq: query rows align to the keys' end
+  int64_t sk;       // keys past sk are padding
+};
+
+template <typename T, typename O>
+__global__ void __launch_bounds__(kThreads, 1)
+    rescale_attention_kernel(const T* __restrict__ kp, const T* __restrict__ vp,
+                             const T* __restrict__ qp, O* __restrict__ op,
+                             SsrGrid g, SsrStream sk, SsrStream sv,
+                             SsrStream sq, SsrStream so, int64_t zsteps,
+                             int64_t qsub, int64_t nblocks, int64_t hk,
+                             int64_t hv, int64_t hq, int64_t ho, Mask mk) {
+  extern __shared__ __align__(16) float smem[];
+  float* qt = smem;                    // [kD][kQPitch]: Q transposed
+  float* kt = qt + kD * kQPitch;       // [kD][kKPitch]: K transposed
+  float* vs = kt + kD * kKPitch;       // [kBK][kD]
+  float* pt = vs + kBK * kD;           // [kBK][kPPitch]: p transposed
+
+  const int64_t p = nblocks - 1 - static_cast<int64_t>(blockIdx.x) / qsub;
+  const int64_t qs = static_cast<int64_t>(blockIdx.x) % qsub;
+  const int64_t head = blockIdx.y;
+  kp += head * hk;
+  vp += head * hv;
+  qp += head * hq;
+  op += head * ho;
+
+  const int tid = threadIdx.x;
+  const int tr = tid >> 4;     // rows 8 tr .. 8 tr + 7
+  const int tc = tid & 15;     // score columns tc + 16 k; acc lanes 8 tc ..
+  SsrOdometer odo(g, p * zsteps);
+  const int64_t qr0 = qs * kBQ;
+  const int nrows = static_cast<int>(sq.block[0] - qr0 < kBQ ? sq.block[0] - qr0 : kBQ);
+  const int64_t row0 = block_row(odo, sq) + qr0 + mk.off_rc;  // row 0's index
+  const T* q = qp + odo.origin(sq) + qr0 * sq.pitch;
+  O* out = op + odo.origin(so) + qr0 * so.pitch;
+
+  {  // stage Q transposed: every load issued before any store
+    float4 r4[kQPacks];
+#pragma unroll
+    for (int k = 0; k < kQPacks; ++k) {
+      const int i = tid + k * kThreads, r = i / (kD / 4), d4 = i % (kD / 4);
+      r4[k] = r < nrows ? load4(q + r * sq.pitch + 4 * d4) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < kQPacks; ++k) {
+      const int i = tid + k * kThreads, r = i / (kD / 4), d4 = i % (kD / 4);
+      qt[(4 * d4) * kQPitch + r] = r4[k].x;
+      qt[(4 * d4 + 1) * kQPitch + r] = r4[k].y;
+      qt[(4 * d4 + 2) * kQPitch + r] = r4[k].z;
+      qt[(4 * d4 + 3) * kQPitch + r] = r4[k].w;
+    }
+  }
+
+  float m[8], l[8], acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = kFill;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+  const int64_t row_min = row0, row_max = row0 + nrows - 1;
+
+  for (int64_t z = 0; z < zsteps; ++z, odo.advance(g)) {
+    const T* kb = kp + odo.origin(sk);
+    const T* vb = vp + odo.origin(sv);
+    const int64_t kv_block = block_row(odo, sk);
+    for (int64_t j0 = 0; j0 < sk.block[0]; j0 += kBK) {
+      const int kvalid = static_cast<int>(sk.block[0] - j0 < kBK ? sk.block[0] - j0 : kBK);
+      const int64_t kv0 = kv_block + j0;
+      if (kv0 >= mk.sk || (mk.causal && kv0 > row_max) ||
+          (mk.window >= 0 && kv0 + kvalid - 1 <= row_min - mk.window))
+        continue;
+      // K (transposed) and V of the sub-tile: every load issued before the
+      // barrier and any store, so the sub-tile costs one trip to memory
+      float4 k4[kKPacks], v4[kKPacks];
+#pragma unroll
+      for (int k = 0; k < kKPacks; ++k) {
+        const int i = tid + k * kThreads, c = i / (kD / 4), d4 = i % (kD / 4);
+        const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+        k4[k] = c < kvalid ? load4(kb + (j0 + c) * sk.pitch + 4 * d4) : zero;
+        v4[k] = c < kvalid ? load4(vb + (j0 + c) * sv.pitch + 4 * d4) : zero;
+      }
+      __syncthreads();   // the previous sub-tile's readers are done
+#pragma unroll
+      for (int k = 0; k < kKPacks; ++k) {
+        const int i = tid + k * kThreads, c = i / (kD / 4), d4 = i % (kD / 4);
+        kt[(4 * d4) * kKPitch + c] = k4[k].x;
+        kt[(4 * d4 + 1) * kKPitch + c] = k4[k].y;
+        kt[(4 * d4 + 2) * kKPitch + c] = k4[k].z;
+        kt[(4 * d4 + 3) * kKPitch + c] = k4[k].w;
+        reinterpret_cast<float4*>(vs + c * kD)[d4] = v4[k];
+      }
+      __syncthreads();
+
+      float s[8][4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) s[i][k] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < kD; ++d) {
+        const float4 qa = reinterpret_cast<const float4*>(qt + d * kQPitch)[2 * tr];
+        const float4 qb = reinterpret_cast<const float4*>(qt + d * kQPitch)[2 * tr + 1];
+        const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+        float kk[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) kk[k] = kt[d * kKPitch + tc + 16 * k];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) s[i][k] = fmaf(qv[i], kk[k], s[i][k]);
+      }
+
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int64_t row = row0 + 8 * tr + i;
+        float mx = kFill;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int c = tc + 16 * k;
+          const int64_t col = kv0 + c;
+          const bool keep = c < kvalid && col < mk.sk &&
+                            (!mk.causal || col <= row) &&
+                            (mk.window < 0 || col > row - mk.window);
+          s[i][k] = keep ? s[i][k] * mk.scale : kFill;
+          mx = fmaxf(mx, s[i][k]);
+        }
+#pragma unroll
+        for (int o = 1; o < 16; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_new = fmaxf(m[i], mx);
+        const float alpha = expf(m[i] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          s[i][k] = expf(s[i][k] - m_new);
+          sum += s[i][k];
+        }
+#pragma unroll
+        for (int o = 1; o < 16; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        l[i] = l[i] * alpha + sum;
+        m[i] = m_new;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] *= alpha;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float4* dst = reinterpret_cast<float4*>(pt + (tc + 16 * k) * kPPitch + 8 * tr);
+        dst[0] = make_float4(s[0][k], s[1][k], s[2][k], s[3][k]);
+        dst[1] = make_float4(s[4][k], s[5][k], s[6][k], s[7][k]);
+      }
+      __syncthreads();
+
+#pragma unroll 4
+      for (int c = 0; c < kBK; ++c) {
+        const float4 pa = reinterpret_cast<const float4*>(pt + c * kPPitch)[2 * tr];
+        const float4 pb = reinterpret_cast<const float4*>(pt + c * kPPitch)[2 * tr + 1];
+        const float4 va = reinterpret_cast<const float4*>(vs + c * kD)[2 * tc];
+        const float4 vb = reinterpret_cast<const float4*>(vs + c * kD)[2 * tc + 1];
+        const float pv[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
+        const float vv[8] = {va.x, va.y, va.z, va.w, vb.x, vb.y, vb.z, vb.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+      }
+    }
+  }
+
+  // drain: acc / max(l, 1e-30), cast to the output dtype
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = 8 * tr + i;
+    if (r >= nrows) break;
+    const float lmax = fmaxf(l[i], 1e-30f);
+    O* dst = out + r * so.pitch + 8 * tc;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dst[j] = ssr_cast<O>(acc[i][j] / lmax);
+  }
+}
+
+template <typename T, typename O>
+int launch(const void* k, const void* v, const void* q, void* o,
+           const SsrGrid* g, const SsrStream* sk, const SsrStream* sv,
+           const SsrStream* sq, const SsrStream* so, int64_t zsteps,
+           int64_t heads, const int64_t* strides, const Mask& mk,
+           cudaStream_t st) {
+  const size_t smem = sizeof(float) * kSmemFloats;
+  auto kernel = rescale_attention_kernel<T, O>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int64_t steps = 1;
+  for (int a = 0; a < g->ndim; ++a) steps *= g->dims[a];
+  const int64_t nblocks = steps / zsteps;
+  const int64_t qsub = (sq->block[0] + kBQ - 1) / kBQ;
+  if (nblocks * qsub >= (int64_t{1} << 31) || heads > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(nblocks * qsub), static_cast<unsigned>(heads));
+  kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(q),
+      static_cast<O*>(o), *g, *sk, *sv, *sq, *so, zsteps, qsub, nblocks,
+      strides[0], strides[1], strides[2], strides[3], mk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K, V (Sk_pad, 128), Q (Sq_pad, 128) and O, each `heads` times at the
+// element strides in `strides` (K, V, Q, O); the walks `sk`, `sv`, `sq`,
+// `so` of one head; `zsteps` the kv grid steps (the trailing axis).
+// `window` < 0 means no sliding window.
+extern "C" int ssr_rescale_attention(const void* k, const void* v,
+                                     const void* q, void* o, int in_dtype,
+                                     int out_dtype, const SsrGrid* g,
+                                     const SsrStream* sk, const SsrStream* sv,
+                                     const SsrStream* sq, const SsrStream* so,
+                                     int64_t zsteps, int64_t heads,
+                                     const int64_t* strides, float scale,
+                                     int causal, int64_t window,
+                                     int64_t off_rc, int64_t sk_len,
+                                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Mask mk{scale, causal, window, off_rc, sk_len};
+  if (in_dtype == SSR_F32 && out_dtype == SSR_F32)
+    return launch<float, float>(k, v, q, o, g, sk, sv, sq, so, zsteps, heads, strides, mk, st);
+  if (in_dtype == SSR_BF16 && out_dtype == SSR_BF16)
+    return launch<__nv_bfloat16, __nv_bfloat16>(k, v, q, o, g, sk, sv, sq, so, zsteps, heads,
+                                                 strides, mk, st);
+  if (in_dtype == SSR_BF16 && out_dtype == SSR_F32)
+    return launch<__nv_bfloat16, float>(k, v, q, o, g, sk, sv, sq, so, zsteps, heads, strides,
+                                        mk, st);
+  if (in_dtype == SSR_F32 && out_dtype == SSR_BF16)
+    return launch<float, __nv_bfloat16>(k, v, q, o, g, sk, sv, sq, so, zsteps, heads, strides,
+                                        mk, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Shared memory of one CTA for a head dim padded to `lanes` (the kernel
+// takes 128; a wider tile would need proportionally more).
+extern "C" int64_t ssr_rescale_attention_smem_bytes(int64_t lanes) {
+  return static_cast<int64_t>(sizeof(float)) *
+         (lanes * kQPitch + lanes * kKPitch + kBK * lanes + kBK * kPPitch);
+}

@@ -117,6 +117,29 @@ struct alignas(sizeof(T) * V) SsrPack {
   T v[V];
 };
 
+// Asynchronous copies from device memory to shared memory (cp.async): a
+// 16-byte copy needs both addresses 16-byte aligned.  A thread's copies
+// join a group at `ssr_cp_async_commit`; `ssr_cp_async_wait<N>` waits until
+// at most N of its groups are pending.  A __syncthreads() after the wait
+// makes every thread's copies visible to the CTA.
+__device__ __forceinline__ void ssr_cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void ssr_cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void ssr_cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void ssr_cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Message for a code that an entry point returned (cudaError_t).
 extern "C" const char* ssr_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

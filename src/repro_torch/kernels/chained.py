@@ -9,7 +9,9 @@ in ``repro.kernels.chained``:
 * **nest reuse** (:class:`~repro_torch.kernels.frontend.NestKernel`) —
   ``gemv+relu`` shares the gemv nest; relu applies once to each drained
   output block, never to a k-tile partial.  On the card that is K4's relu
-  drain (body op ``matvec_relu``), so no library relu runs after it;
+  drain (body op ``matvec_relu``), so no library relu runs after it.
+  ``stencil1d+relu`` shares the stencil's halo nest the same way: K9's
+  relu drain (body op ``stencil1d_relu``);
 * **nest-level chaining** (:func:`repro_torch.core.lowering.ssr_chain_call`)
   — ``sum_sq_diff`` (reduction-of-map) and ``axpy_dot`` go through the full
   compiler path: ``chain()`` unifies the producer's WRITE ref with the
@@ -20,8 +22,7 @@ in ``repro.kernels.chained``:
 Each registry entry exposes ``ssr`` = the fused kernel, ``baseline`` = the
 honest unfused composition (the same streamed engine pinned to the default
 schedule, intermediate through device memory), and ``ref`` = the PyTorch
-oracle.  ``stencil1d_relu`` arrives with the stencils (port slice 4) and the
-``cluster_*`` variants with the cluster (port slice 7).
+oracle.  The ``cluster_*`` variants arrive with the cluster (port slice 7).
 """
 
 from __future__ import annotations
@@ -42,6 +43,9 @@ from .frontend import BLOCK_ELEMS, NestKernel
 from .gemv import matvec_block, ssr_gemv
 from .registry import KernelEntry, register_kernel
 from .relu import relu_block, ssr_relu
+from .stencil import _nest_1d as _stencil_nest
+from .stencil import _prepare_1d as _stencil_prepare
+from .stencil import ssr_stencil1d, stencil1d_block
 
 
 def _padded_blocks(n: int) -> Tuple[int, int]:
@@ -79,6 +83,36 @@ def unfused_gemv_relu(a: torch.Tensor, x: torch.Tensor, *,
     fusion is the only variable.
     """
     return ssr_relu(ssr_gemv(a, x, device=device),
+                    schedule=DEFAULT_SCHEDULE, device=device)
+
+
+# --------------------------------------------------------------------------
+# stencil1d + relu (nest-reuse fusion)
+# --------------------------------------------------------------------------
+
+#: The stencil body whose drain applies relu to each output block (K9's
+#: relu drain on the card): a map nest, so the consumer applies per block
+#: on chip before the write stream drains it — exact fusion.
+STENCIL1D_RELU = KernelBody(stencil1d_block, "stencil1d_relu",
+                            drain=relu_block)
+
+_stencil_relu = NestKernel(
+    "stencil1d_relu", prepare=_stencil_prepare, nest=_stencil_nest,
+    body=lambda n: STENCIL1D_RELU)
+
+
+def fused_stencil1d_relu(x: torch.Tensor, w: torch.Tensor, *, schedule=None,
+                         device=None) -> torch.Tensor:
+    """relu(stencil(x)) as one kernel."""
+    return _stencil_relu(x, w, schedule=schedule, device=device)
+
+
+def unfused_stencil1d_relu(x: torch.Tensor, w: torch.Tensor, *,
+                           device=None) -> torch.Tensor:
+    """The stencil (K9) on the default schedule, its result through device
+    memory into relu (K2), also pinned: fusion is the only variable."""
+    return ssr_relu(ssr_stencil1d(x, w, schedule=DEFAULT_SCHEDULE,
+                                  device=device),
                     schedule=DEFAULT_SCHEDULE, device=device)
 
 
@@ -223,6 +257,10 @@ def _gemv_inter(a, x, **kw) -> Tuple[str, Tuple[int, ...]]:
     return ("f32", _padded_blocks(a.shape[0]))
 
 
+def _stencil_inter(x, w, **kw) -> Tuple[str, Tuple[int, ...]]:
+    return ("f32", _padded_blocks(x.shape[0] - (w.shape[0] - 1)))
+
+
 def _f32(rng: np.random.Generator, *shape) -> torch.Tensor:
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
 
@@ -232,6 +270,13 @@ def _mk_examples():
         m, n = (60, 64) if odd else (64, 64)
         return (_f32(rng, m, n), _f32(rng, n)), {}
 
+    def ex_stencil(rng, odd: bool = False):
+        from .stencil import TAPS
+        n = 500 if odd else 1024
+        x = _f32(rng, n + TAPS - 1)
+        w = (rng.standard_normal(TAPS) * 0.3).astype(np.float32)
+        return (x, torch.from_numpy(w)), {}
+
     def ex_ssd(rng, odd: bool = False):
         n = 5000 if odd else 4096
         return (_f32(rng, n), _f32(rng, n)), {}
@@ -240,18 +285,21 @@ def _mk_examples():
         n = 3000 if odd else 4096
         return (_f32(rng, n), _f32(rng, n), _f32(rng, n)), {"alpha": 0.5}
 
-    return ex_gemv, ex_ssd, ex_axpy
+    return ex_gemv, ex_stencil, ex_ssd, ex_axpy
 
 
 def fused_cases() -> Tuple[FusedCase, ...]:
     from . import ref
 
-    ex_gemv, ex_ssd, ex_axpy = _mk_examples()
+    ex_gemv, ex_stencil, ex_ssd, ex_axpy = _mk_examples()
     loose = {"rtol": 1e-3, "atol": 1e-3}
     reduce_tol = {"rtol": 1e-2, "atol": 1e-2}
     return (
         FusedCase("gemv_relu", fused_gemv_relu, unfused_gemv_relu,
                   ref.gemv_relu_ref, ex_gemv, _gemv_inter, loose),
+        FusedCase("stencil1d_relu", fused_stencil1d_relu,
+                  unfused_stencil1d_relu, ref.stencil1d_relu_ref,
+                  ex_stencil, _stencil_inter, loose),
         FusedCase("sum_sq_diff", fused_sum_sq_diff, unfused_sum_sq_diff,
                   ref.sum_sq_diff_ref, ex_ssd, _vector_inter, reduce_tol),
         FusedCase("axpy_dot", fused_axpy_dot, unfused_axpy_dot,

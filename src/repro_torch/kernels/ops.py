@@ -32,6 +32,27 @@ def matmul(a, b, *, ssr: Optional[bool] = None, device: DeviceLike = None,
     return registry.dispatch("gemm", a, b, ssr=ssr, device=device, **kw)
 
 
+def stencil1d(x, w, *, ssr: Optional[bool] = None,
+              device: DeviceLike = None):
+    return registry.dispatch("stencil1d", x, w, ssr=ssr, device=device)
+
+
+def stencil2d(x, wx, wy, *, ssr: Optional[bool] = None,
+              device: DeviceLike = None):
+    return registry.dispatch("stencil2d", x, wx, wy, ssr=ssr, device=device)
+
+
+def flash_attention(q, k, v, *, causal: bool = False,
+                    window: Optional[int] = None,
+                    scale: Optional[float] = None,
+                    ssr: Optional[bool] = None, device: DeviceLike = None):
+    """Attention over q (…, Sq, D), k/v (…, Sk, D); leading dims are heads,
+    run by the streamed kernel in one launch."""
+    return registry.dispatch("attention", q, k, v, causal=causal,
+                             window=window, scale=scale, ssr=ssr,
+                             device=device)
+
+
 # -- fused (stream-chained) ops ---------------------------------------------
 # One kernel each: the producer's result reaches the consumer on chip, never
 # through device memory.  ``ssr=False`` runs the PyTorch oracle.
@@ -45,6 +66,11 @@ def gemv_relu(a, x, *, ssr: Optional[bool] = None,
 def sum_sq_diff(x, y, *, ssr: Optional[bool] = None,
                 device: DeviceLike = None):
     return registry.dispatch("sum_sq_diff", x, y, ssr=ssr, device=device)
+
+
+def stencil1d_relu(x, w, *, ssr: Optional[bool] = None,
+                   device: DeviceLike = None):
+    return registry.dispatch("stencil1d_relu", x, w, ssr=ssr, device=device)
 
 
 def axpy_dot(x, y, w, *, alpha: float = 1.0, ssr: Optional[bool] = None,

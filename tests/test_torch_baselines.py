@@ -19,7 +19,8 @@ from repro.kernels import relu as jrelu
 import repro_torch
 from repro_torch.core import hopper
 from repro_torch.core.ssr import KernelBody, LoweringError
-from repro_torch.kernels import frontend, gemm, gemv, reduction, registry, relu
+from repro_torch.kernels import (frontend, gemm, gemv, reduction, registry,
+                                 relu, stencil)
 
 KERNELS = ["reduction", "relu", "gemm", "gemv"]
 RELU_SPECIALS = np.array([-0.0, 0.0, np.nan, -np.inf, np.inf, -1e-30, 1e-30,
@@ -184,8 +185,10 @@ def test_baseline_bodies_name_their_kernels():
         hopper.base_relu
     assert frontend.baseline_kernel(gemm.BASE_DOT) is hopper.base_gemm
     assert frontend.baseline_kernel(gemv.BASE_MATVEC) is hopper.base_gemv
+    assert frontend.baseline_kernel(stencil.BASE_STENCIL1D) is \
+        hopper.base_stencil1d
     assert sorted(hopper.BASELINE_KERNELS) == ["dot", "matvec", "mul",
-                                               "relu"]
+                                               "relu", "stencil1d"]
 
 
 def test_custom_fn_baseline_runs_on_cpu_and_has_no_card_kernel():

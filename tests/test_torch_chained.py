@@ -30,7 +30,7 @@ from repro_torch.core.ssr import KernelBody, LoweringError
 from repro_torch.core.stream import Direction
 from repro_torch.kernels import chained, ops, registry
 
-CHAINED = ["gemv_relu", "sum_sq_diff", "axpy_dot"]
+CHAINED = ["gemv_relu", "stencil1d_relu", "sum_sq_diff", "axpy_dot"]
 
 
 @pytest.fixture(autouse=True)
@@ -321,7 +321,7 @@ def test_registry_lists_the_chains_like_the_reference():
 def test_fused_case_table_matches_the_reference():
     ours = {c.name: c for c in chained.fused_cases()}
     theirs = {c.name: c for c in jchained.fused_cases()}
-    assert set(ours) == set(theirs) - {"stencil1d_relu"}
+    assert set(ours) == set(theirs)
     for name, case in ours.items():
         args, kw = case.example(np.random.default_rng(1), odd=True)
         jargs, jkw = _jargs(args, kw)

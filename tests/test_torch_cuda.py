@@ -508,3 +508,243 @@ def test_dag_mlp_refuses_a_card_without_the_shared_memory(dev, monkeypatch):
     with pytest.raises(LoweringError, match="shared memory"):
         call.run()
     assert hopper.LAUNCHES == before
+
+
+# -- the halo and rescale kernels (K9–K11) and B5 --------------------------------
+
+# stencils: max |kernel − plain| over the stencil of |w| and |x| (nvcc
+# contracts the taps into FMA, PyTorch rounds each product: a few ulp of
+# the sum of the terms' sizes)
+STENCIL_LIMIT = 1e-6
+# attention: max |kernel − plain| over max |v| (sums over the keys in
+# another order and other kv sub-tiles; TF32 inputs read about 1e-4)
+ATTENTION_LIMIT = 1e-5
+
+
+def _stencil_scale(call):
+    """The plain version on |inputs|: Σ_j |w_j|·|x_{i+j}| per output."""
+    return call.finish(call.kernel.plain(tuple(t.abs() for t in call.layouts)))
+
+
+@pytest.mark.parametrize("n", [1, 7, 1025, 5000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_halo_stencil1d(dev, n, dtype):
+    from repro_torch.kernels import stencil
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn(n + 10, generator=g, device=dev).to(dtype)
+    w = (torch.randn(11, generator=g, device=dev) * 0.3).to(dtype)
+    for sched in (lowering.DEFAULT_SCHEDULE,
+                  lowering.Schedule(lanes_tile_factor=1),
+                  lowering.Schedule(lanes=256, lanes_tile_factor=8)):
+        call = lowering.prepare_call(compiler.stencil_nest(n, 11),
+                                     stencil.STENCIL1D, {"x": x, "w": w},
+                                     schedule=sched, device=dev)
+        got, want, launched = _run_and_plain(call)
+        assert launched == {"halo_stencil1d"}
+        assert got.shape == (n,)
+        err = (got - want).abs() / (_stencil_scale(call) + 1e-30)
+        assert float(err.max()) <= STENCIL_LIMIT
+
+
+@pytest.mark.parametrize("n", [1, 7, 1025])
+def test_stencil1d_relu_drain_is_the_selection(dev, n):
+    from repro_torch.kernels import chained, stencil
+    g = torch.Generator(device=dev).manual_seed(n + 1)
+    x = torch.randn(n + 10, generator=g, device=dev)
+    w = torch.randn(11, generator=g, device=dev) * 0.3
+    before = dict(hopper.LAUNCHES)
+    fused = chained.fused_stencil1d_relu(x, w, device=dev)
+    assert _launched(before) == {"halo_stencil1d"}
+    want = relu.relu_block(stencil.ssr_stencil1d(x, w, device=dev))
+    assert torch.equal(fused.view(torch.int32), want.view(torch.int32))
+    before = dict(hopper.LAUNCHES)
+    unfused = chained.unfused_stencil1d_relu(x, w, device=dev)
+    assert _launched(before) == {"halo_stencil1d", "map_relu"}
+    assert torch.equal(unfused.view(torch.int32), fused.view(torch.int32))
+
+
+@pytest.mark.parametrize("hw", [(37, 53), (9, 1), (300, 260)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_halo_stencil2d(dev, hw, dtype):
+    from repro_torch.kernels import stencil
+    h, wd = hw
+    g = torch.Generator(device=dev).manual_seed(h * wd)
+    x = torch.randn(h + 10, wd + 10, generator=g, device=dev).to(dtype)
+    wx = (torch.randn(11, generator=g, device=dev) * 0.3).to(dtype)
+    wy = (torch.randn(11, generator=g, device=dev) * 0.3).to(dtype)
+    for sched in (lowering.DEFAULT_SCHEDULE,
+                  lowering.Schedule(rows=16, lanes_tile_factor=1),
+                  lowering.Schedule(axis_order=(1, 0))):
+        call = lowering.prepare_call(compiler.stencil2d_nest(h, wd, 11),
+                                     stencil.STENCIL2D,
+                                     {"x": x, "wx": wx, "wy": wy},
+                                     schedule=sched, device=dev)
+        got, want, launched = _run_and_plain(call)
+        assert launched == {"halo_stencil2d"}
+        assert got.shape == (h, wd)
+        err = (got - want).abs() / (_stencil_scale(call) + 1e-30)
+        assert float(err.max()) <= STENCIL_LIMIT
+
+
+@pytest.mark.parametrize("n", [1, 7, 1025, 5000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_base_stencil1d(dev, n, dtype):
+    from repro_torch.kernels import stencil
+    g = torch.Generator(device=dev).manual_seed(n + 2)
+    x = torch.randn(n + 10, generator=g, device=dev).to(dtype)
+    w = torch.randn(11, generator=g, device=dev) * 0.3
+    before = dict(hopper.LAUNCHES)
+    got = stencil.baseline_stencil1d(x, w, device=dev)
+    assert _launched(before) == {"base_stencil1d"}
+    xl, wl = x.reshape(1, -1), w.reshape(1, -1)
+    want = hopper.plain_base_stencil1d(xl, wl).reshape(-1)
+    scale = hopper.plain_base_stencil1d(xl.abs(), wl.abs()).reshape(-1)
+    assert float(((got - want).abs() / (scale + 1e-30)).max()) \
+        <= STENCIL_LIMIT
+
+
+def _qkv(dev, sq, sk, d, seed, lead=(), dtype=torch.float32):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(*lead, s, d, generator=g, device=dev).to(dtype)
+                 for s in (sq, sk, sk))
+
+
+@pytest.mark.parametrize("shape", [(100, 333, 80, True, 64),
+                                   (100, 333, 80, False, None),
+                                   (256, 256, 64, True, None),
+                                   (1, 7, 4, False, 3),
+                                   (129, 130, 128, True, 7)])
+def test_rescale_attention(dev, shape):
+    from repro_torch.kernels import attention
+    sq, sk, d, causal, window = shape
+    q, k, v = _qkv(dev, sq, sk, d, sq * sk)
+    _, static, _ = attention._prepare(q, k, v, causal, window)
+    for sched in (lowering.DEFAULT_SCHEDULE, lowering.Schedule(rows=16),
+                  lowering.Schedule(axis_order=(1, 0, 2))):
+        call = lowering.prepare_call(attention._nest(static),
+                                     attention._body(static),
+                                     {"Q": q, "K": k, "V": v},
+                                     schedule=sched, device=dev)
+        got, want, launched = _run_and_plain(call)
+        assert launched == {"rescale_attention"}
+        assert got.shape == (sq, d)
+        assert float((got - want).abs().max()) <= \
+            ATTENTION_LIMIT * float(v.abs().max())
+
+
+def test_rescale_attention_head_batch_is_one_launch(dev):
+    from repro_torch.kernels import attention, ref
+    q, k, v = _qkv(dev, 100, 333, 80, 9, lead=(2, 3))
+    before = dict(hopper.LAUNCHES)
+    got = attention.ssr_flash_attention(q, k, v, causal=True, window=64,
+                                        device=dev)
+    assert hopper.LAUNCHES["rescale_attention"] - \
+        before["rescale_attention"] == 1
+    assert got.shape == (2, 3, 100, 80)
+    for h in ((0, 0), (1, 2)):
+        one = attention.ssr_flash_attention(q[h], k[h], v[h], causal=True,
+                                            window=64, device=dev)
+        assert float((got[h] - one).abs().max()) <= \
+            ATTENTION_LIMIT * float(v[h].abs().max())
+    want = ref.attention_ref(q, k, v, causal=True, window=64)
+    assert float((got - want).abs().max()) <= 2e-4
+
+
+@pytest.mark.parametrize("out", ["bf16", "f32"])
+def test_rescale_attention_bf16_inputs(dev, out):
+    from repro_torch.kernels import attention
+    q, k, v = _qkv(dev, 100, 333, 80, 4, dtype=torch.bfloat16)
+    _, static, _ = attention._prepare(q, k, v, True, 64)
+    out_dtype = torch.bfloat16 if out == "bf16" else torch.float32
+    call = lowering.prepare_call(attention._nest(static),
+                                 attention._body(static),
+                                 {"Q": q, "K": k, "V": v},
+                                 out_dtype=out_dtype, device=dev)
+    got, want, launched = _run_and_plain(call)
+    assert launched == {"rescale_attention"} and got.dtype == out_dtype
+    # one bf16 rounding of the output apart at most (plus f32 order)
+    tol = 2 ** -8 if out == "bf16" else ATTENTION_LIMIT
+    assert float((got.float() - want.float()).abs().max()) <= \
+        tol * float(v.float().abs().max())
+
+
+def test_rescale_attention_refuses_a_card_without_the_shared_memory(
+        dev, monkeypatch):
+    from repro_torch.kernels import attention
+    q, k, v = _qkv(dev, 100, 333, 80, 2)
+    _, static, _ = attention._prepare(q, k, v, True, 64)
+    call = lowering.prepare_call(attention._nest(static),
+                                 attention._body(static),
+                                 {"Q": q, "K": k, "V": v}, device=dev)
+    kern = call.kernel
+    assert hopper.accepts(kern.device_key, kern.geometry, torch.float32, dev,
+                          program=kern.program)[0]
+    props = hopper._card(dev)
+
+    class Small:
+        multi_processor_count = props.multi_processor_count
+        shared_memory_per_block_optin = 100 * 1024
+
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    monkeypatch.setitem(hopper._CARDS, index, Small())
+    takes, why = hopper.accepts(kern.device_key, kern.geometry,
+                                torch.float32, dev, program=kern.program)
+    assert not takes and "shared memory" in why
+    before = dict(hopper.LAUNCHES)
+    with pytest.raises(ValueError, match="shared memory"):
+        call.run()
+    assert hopper.LAUNCHES == before
+
+
+def test_new_wrappers_launch_or_raise_never_plain(dev, monkeypatch):
+    """On CUDA tensors the halo and rescale wrappers launch their kernel or
+    raise; the plain versions never run."""
+    from repro_torch.kernels import attention, stencil
+
+    def no_plain(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    for key in ("nest", "rescale"):
+        monkeypatch.setitem(hopper.PLAIN, key, no_plain)
+    monkeypatch.setattr(hopper, "plain_base_stencil1d", no_plain)
+    x = torch.randn(1010, device=dev)
+    w = torch.randn(11, device=dev)
+    q, k, v = _qkv(dev, 64, 64, 32, 1)
+    for fn, want in ((lambda: stencil.ssr_stencil1d(x, w, device=dev),
+                      "halo_stencil1d"),
+                     (lambda: stencil.ssr_stencil2d(
+                         x[:900].reshape(30, 30), w, w, device=dev),
+                      "halo_stencil2d"),
+                     (lambda: stencil.baseline_stencil1d(x, w, device=dev),
+                      "base_stencil1d"),
+                     (lambda: attention.ssr_flash_attention(
+                         q, k, v, causal=True, device=dev),
+                      "rescale_attention")):
+        before = dict(hopper.LAUNCHES)
+        fn()
+        assert _launched(before) == {want}
+    # a tagged body on a geometry its kernel does not take raises
+    call = lowering.prepare_call(compiler.stencil_nest(100, 5),
+                                 stencil.STENCIL1D,
+                                 {"x": torch.randn(104, device=dev),
+                                  "w": torch.randn(5, device=dev)},
+                                 device=dev)
+    before = dict(hopper.LAUNCHES)
+    with pytest.raises(ValueError, match="halo_stencil1d"):
+        call.run()
+    assert hopper.LAUNCHES == before
+
+
+def test_rescale_attention_takes_a_misaligned_view(dev):
+    """A view starting off a 16-byte boundary is copied before K11's packed
+    loads; the result is the aligned copy's."""
+    from repro_torch.kernels import attention
+    g = torch.Generator(device=dev).manual_seed(11)
+    flat = torch.randn(3 * 256 * 128 + 1, generator=g, device=dev)
+    q, k, v = (flat[1 + i * 256 * 128:1 + (i + 1) * 256 * 128].view(256, 128)
+               for i in range(3))
+    assert q.data_ptr() % 16 != 0
+    got = attention.ssr_flash_attention(q, k, v, causal=True, device=dev)
+    want = attention.ssr_flash_attention(q.clone(), k.clone(), v.clone(),
+                                         causal=True, device=dev)
+    assert torch.equal(got, want)

@@ -105,7 +105,9 @@ def test_wrappers_refuse_cpu_tensors(name):
     t = torch.zeros(8, 128)
     baseline_args = {"base_reduce": (t, t), "base_relu": (t,),
                      "base_gemm": (t, torch.zeros(128, 8)),
-                     "base_gemv": (t, torch.zeros(1, 128))}
+                     "base_gemv": (t, torch.zeros(1, 128)),
+                     "base_stencil1d": (torch.zeros(1, 138),
+                                        torch.zeros(1, 11))}
     n_in = 1 if name == "map_relu" else 2
     before = dict(hopper.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -174,3 +176,21 @@ def test_every_stage_kernel_instantiation_is_listed():
     assert hopper.DEVICE_KERNELS[("reduce", "mul")] is hopper.reduce_mul
     assert hopper.DEVICE_KERNELS[("nest", "matvec_relu")].__name__ == \
         "contract_gemv_relu"
+
+
+@pytest.mark.parametrize("op, args", [
+    ("stencil1d", ((1010,), (11,))),
+    ("stencil2d", ((30, 40), (11,), (11,))),
+    ("stencil1d_relu", ((1010,), (11,))),
+    ("flash_attention", ((2, 16, 8), (2, 16, 8), (2, 16, 8))),
+], ids=["stencil1d", "stencil2d", "stencil1d_relu", "flash_attention"])
+def test_new_entry_points_never_run_plain_for_the_card(op, args):
+    """Asked for the card without one, the halo and attention entry points
+    raise; on the CPU they run the plain versions."""
+    tensors = [torch.ones(s) for s in args]
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the CPU sandbox")
+    with pytest.raises(RuntimeError, match="cuda"):
+        getattr(ops, op)(*tensors, ssr=True, device="cuda")
+    out = getattr(ops, op)(*tensors, ssr=True, device="cpu")
+    assert out.device.type == "cpu" and bool(torch.isfinite(out).all())
