@@ -27,20 +27,26 @@ printing JSON lines:
    baseline) and ``stencil1d_relu`` (fused and unfused) at n = 2**26,
    ``stencil2d`` at 8192**2, ``attention_qwen3`` (40 heads, 4096**2,
    D = 128, causal) and ``attention_danube`` (32 heads, 8192**2, D = 80,
-   causal, window 4096); check that every kernel launched, that a fused call
-   is one launch and an unfused one one per stage, and that no fallback
-   fired;
+   causal, window 4096); the indirection cells: ``spmv_hpcg`` (HPCG's
+   27-point operator on a 128**3 grid: ``ops.spmv`` and ``ops.sparse_gemv``
+   on the CSR triple, and the baseline) and ``spmm_hpcg`` (the operator on
+   64**3 times 128 right-hand sides: ``ops.spmm`` and the baseline); check
+   that every kernel launched, that a fused call is one launch and an
+   unfused one one per stage, that a sparse call is one K12 or K13 launch,
+   and that no fallback fired;
 3. hold each kernel's output against its plain PyTorch version on the
    card, on the same inputs, and each baseline's against the streamed
    kernel's; each instantiation of K5–K8 (every component of every legal
    cut, on the values the kernels before it produced) and K4's relu drain
-   likewise, and each fused result against its unfused one; each limit
-   beside a control that must read above it;
+   likewise, and each fused result against its unfused one; K12, K13, B6
+   and B7 on every row, and on odd CSR inputs against the oracle; each
+   limit beside a control that must read above it;
 4. time each kernel, its plain version and one PyTorch library call with
    CUDA events, beside the least time the card could take, each baseline
    against its streamed kernel (``ssr_over_baseline``), each fused cell
-   against its unfused stages (``fused_over_unfused``), and each entry
-   point of the main path by the host's clock once warm;
+   against its unfused stages (``fused_over_unfused``), each entry
+   point of the main path by the host's clock once warm, and the sparse
+   entries' wall time split into packing, copies, layout and kernel;
 5. tune gemm 4096**3 over the quick candidates into the cache (one
    candidate per distinct kernel; a winner within the race's spread of
    the default is held back), and check that the next ``ops.matmul`` runs
@@ -55,7 +61,7 @@ printing JSON lines:
 6b. arm one ``compile`` fault under that cut and check that the call
    degrades to all-fused (one K6 launch), quarantines the entry and stays
    right;
-7. print the ``{"kernels": [...]}`` line (K1–K11 and B1–B5; K11's row is
+7. print the ``{"kernels": [...]}`` line (K1–K13 and B1–B7; K11's row is
    the attention_qwen3 cell, attention_danube has a time line of its own),
    then the device line last.
 
@@ -112,6 +118,14 @@ ATTENTION_CELLS = {"attention_qwen3": (40, 4096, 128, True, None),
                    "attention_danube": (32, 8192, 80, True, 4096)}
 STENCIL2D_SIZE = 8192   # the 2-D cell's output is 8192 x 8192
 
+# The gathers (K12, K13, B6, B7): max |kernel − plain| relative to the sum
+# of the terms' sizes, Σ_j |v_ij|·|x_cidx|, per output, the stencils' rule
+# (short signed sums); the plain version on bf16-rounded values must read
+# above it.
+SPARSE_LIMIT = 1e-6
+# the sparse cells: HPCG's 27-point operator on a grid of this side
+SPMV_GRID, SPMM_GRID, SPMM_RHS = 128, 64, 128
+
 # The DAG kernels' map outputs: max |kernel − plain| / max(1, |plain|).
 # rsqrtf, expf and the order of a row's sums differ from PyTorch's by a few
 # ulp (≈ 1e-7 of values of order 1); the same plain version on inputs
@@ -138,7 +152,8 @@ FUSED_ROW = {"chain_elem": "sum_sq_diff", "dag_layernorm": "layernorm",
 # streamed kernel → its monolithic baseline
 PAIRS = {"reduce_mul": "base_reduce", "map_relu": "base_relu",
          "contract_gemm": "base_gemm", "contract_gemv": "base_gemv",
-         "halo_stencil1d": "base_stencil1d"}
+         "halo_stencil1d": "base_stencil1d", "gather_spmv": "base_spmv",
+         "gather_spmm": "base_spmm"}
 
 
 def emit(obj) -> None:
@@ -263,7 +278,7 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                                   resilience)
     from repro_torch.kernels import (attention, chained, dag, frontend, gemm,
                                      gemv, ops, reduction, registry, relu,
-                                     stencil)
+                                     sparse, stencil)
 
     dev = torch.device("cuda")
     repro_torch.set_default_device(dev)
@@ -291,8 +306,8 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     emit({"phase": "build", "seconds": build_s, "compiled": sorted(logs),
           "kernels": sorted(hopper.KERNELS)})
     print(smi, flush=True)
-    kind = torch.cuda.get_device_name(0)
-    bw, fp32 = card_peaks(kind)
+    card = torch.cuda.get_device_name(0)
+    bw, fp32 = card_peaks(card)
 
     # -- inputs, made on the card from the seed ---------------------------
     n_vec, (m, n, k), (gm, gn) = 1 << 26, (4096, 4096, 4096), (8192, 8192)
@@ -332,6 +347,13 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     wx2, wy2 = randn(stencil.TAPS) * 0.3, randn(stencil.TAPS) * 0.3
     qkv = {cell: tuple(randn(h, s_, d) for _ in range(3))
            for cell, (h, s_, d, _c, _w) in ATTENTION_CELLS.items()}
+    # the sparse cells: HPCG's operator as CSR on the card; x ~ U[0, 1),
+    # X ~ N(0, 1)
+    n_v1, n_m2 = SPMV_GRID ** 3, SPMM_GRID ** 3
+    hcsr = sparse.hpcg_operator(SPMV_GRID, SPMV_GRID, SPMV_GRID, device=dev)
+    scsr = sparse.hpcg_operator(SPMM_GRID, SPMM_GRID, SPMM_GRID, device=dev)
+    hx = torch.rand(n_v1, generator=gen, device=dev)
+    sX = randn(n_m2, SPMM_RHS)
     fused_args = {"gemv_relu": ((ga, gx), {}), "sum_sq_diff": ((x, y), {}),
                   "axpy_dot": ((x, y, w), {"alpha": 0.5}),
                   "layernorm": ((lx,), {}), "softmax_xent": ((lz, lp), {}),
@@ -381,6 +403,12 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         **{f"{cell}_unfused": (lambda c=cell: registry.get(c).baseline(
             *fused_args[c][0], **fused_args[c][1]))
            for cell in FUSED_LAUNCHES},
+        # the indirection streams, on the CSR triple
+        "spmv": lambda: ops.spmv(*hcsr, hx, ssr=True),
+        "sparse_gemv": lambda: ops.sparse_gemv(*hcsr, hx, ssr=True),
+        "spmv_baseline": lambda: registry.get("spmv").baseline(*hcsr, hx),
+        "spmm": lambda: ops.spmm(*scsr, sX, ssr=True),
+        "spmm_baseline": lambda: registry.get("spmm").baseline(*scsr, sX),
     }
     lowering.reset_dispatch_stats()
     frontend.reset_dispatch_stats()
@@ -418,6 +446,18 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     if wrong:
         raise SystemExit(f"chip_smoke: fused or unfused calls launched "
                          f"other kernels than expected: {wrong}: {counts}")
+    # a sparse call is one launch of its kernel
+    sparse_launches = {"spmv": {"gather_spmv": 1},
+                       "sparse_gemv": {"gather_spmv": 1},
+                       "spmv_baseline": {"base_spmv": 1},
+                       "spmm": {"gather_spmm": 1},
+                       "spmm_baseline": {"base_spmm": 1}}
+    emit({"phase": "sparse_launches",
+          "launches": {key: per_call[key] for key in sparse_launches}})
+    if any(per_call[key] != want for key, want in sparse_launches.items()):
+        raise SystemExit(f"chip_smoke: a sparse call launched other kernels "
+                         f"than one K12/K13/B6/B7: "
+                         f"{ {key: per_call[key] for key in sparse_launches} }")
     if resilience.fallback_events() or any(
             v for stats in (ladder["lowering"], ladder["frontend"])
             for v in stats.values()):
@@ -460,19 +500,33 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             kernel=one.kernel, layouts=layouts, lowered=one.lowered,
             bounds=one.bounds)
     calls["rescale_attention"] = att_calls["attention_qwen3"]
+    # K12/K13 on the ELL planes the entry points pack on the card
+    hv, hc, hm, hk = sparse.pack_ell(*hcsr, n_v1)
+    sv, sc, sm, sk = sparse.pack_ell(*scsr, n_m2)
+    sparse_ops = {"spmv": {"vals": hv, "cidx": hc, "x": hx},
+                  "spmm": {"vals": sv, "cidx": sc, "X": sX}}
+    calls["gather_spmv"] = lowering.prepare_call(
+        compiler.spmv_nest(hm, hk), sparse.SPMV, sparse_ops["spmv"])
+    calls["gather_spmm"] = lowering.prepare_call(
+        compiler.spmm_nest(sm, SPMM_RHS, sk, SPMM_RHS), sparse.SPMM,
+        sparse_ops["spmm"])
     # the baselines' padded layouts, as their MonolithicKernels prepare them
     xp, yp = frontend.pad_vector(x), frontend.pad_vector(y)
     gxp = gx.reshape(1, gn)
     base_layouts = {"base_reduce": (xp, yp),
                     "base_relu": (frontend.pad_vector(xr),),
                     "base_gemm": (a, b), "base_gemv": (ga, gxp),
-                    "base_stencil1d": (xs.reshape(1, -1), ws.reshape(1, -1))}
+                    "base_stencil1d": (xs.reshape(1, -1), ws.reshape(1, -1)),
+                    "base_spmv": (hv, hc, hx.reshape(1, -1)),
+                    "base_spmm": (sv, sc, sX)}
     base_plain = {
         "base_reduce": hopper.plain_base_reduce,
         "base_relu": lambda t: hopper.plain_base_map(relu.relu_block, t),
         "base_gemm": hopper.plain_base_gemm,
         "base_gemv": hopper.plain_base_gemv,
         "base_stencil1d": hopper.plain_base_stencil1d,
+        "base_spmv": hopper.plain_base_spmv,
+        "base_spmm": hopper.plain_base_spmm,
     }
 
     def plain(call):
@@ -833,6 +887,75 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         for key in (cell, f"{cell}_unfused"):
             if not bool(torch.isfinite(main[key]).all()):
                 failed.append(f"{key}: non-finite")
+    # -- 3c. the gathers on every row, and odd CSR inputs against the oracle
+    def floats_bf16(ts):
+        return tuple(bf16(t) if t.is_floating_point() else t for t in ts)
+
+    def sparse_check(key, kname, got, want, scale_t, ctrl):
+        """``got`` against ``want`` relative to Σ_j |v_ij|·|x_cidx|, beside
+        the control: the plain version on bf16-rounded values."""
+        c = {"abs_err": float((got - want).abs().max()),
+             "rel_err": rel_max(got, want, scale_t), "limit": SPARSE_LIMIT,
+             "bf16_control": rel_max(ctrl, want, scale_t), "kernel": kname}
+        checks[key] = c
+        errors[kname] = max(errors.get(kname, 0.0), c["abs_err"])
+        if c["bf16_control"] <= SPARSE_LIMIT:
+            failed.append(f"{key}: limit above the bf16 control")
+
+    sparse_scale = {}
+    for kname, keys in (("gather_spmv", ("spmv", "sparse_gemv")),
+                        ("gather_spmm", ("spmm",))):
+        call = calls[kname]
+        want = plain(call)
+        scale_t = call.finish(call.kernel.plain(tuple(
+            t.abs() for t in call.layouts))) + 1e-30
+        ctrl = call.finish(call.kernel.plain(floats_bf16(call.layouts)))
+        for key in keys:
+            sparse_check(key, kname, main[key], want, scale_t, ctrl)
+        sparse_scale[keys[0]] = scale_t
+        del want, ctrl
+    for key, bname, kkey in (("spmv_baseline", "base_spmv", "spmv"),
+                             ("spmm_baseline", "base_spmm", "spmm")):
+        lay, pf, shape = base_layouts[bname], base_plain[bname], main[key].shape
+        sparse_check(key, bname, main[key], pf(*lay).reshape(shape),
+                     pf(*(t.abs() for t in lay)).reshape(shape) + 1e-30,
+                     pf(*floats_bf16(lay)).reshape(shape))
+        checks[f"{key}_vs_ssr"] = {
+            "abs_err": float((main[key] - main[kkey]).abs().max()),
+            "rel_err": rel_max(main[key], main[kkey], sparse_scale[kkey]),
+            "limit": SPARSE_LIMIT}
+    # odd CSR inputs through the entry points and the baselines, against
+    # the densified oracle within the registry tol of the terms' sizes:
+    # |got − oracle| ≤ tol·(1 + Σ_j |v_ij|·|x_cidx|)
+    srng = np.random.default_rng(seed)
+    long_cols = {k_: np.sort(srng.choice(1000, k_, replace=False))
+                 for k_ in (300, 600)}
+    odd_csr = {
+        "all_zero": (np.zeros(0, np.float32), np.zeros(0, np.int64),
+                     np.zeros(6, np.int64), 7),
+        "empty_rows": (np.asarray([1.0, 2.0, 3.0, 4.0], np.float32),
+                       np.asarray([0, 1, 2, 3]), np.asarray([0, 0, 4, 4, 4]),
+                       5),
+        "one_by_one": (np.asarray([3.0], np.float32), np.asarray([0]),
+                       np.asarray([0, 1]), 1),
+        **{f"row_{k_}": (srng.standard_normal(k_ + 1).astype(np.float32),
+                         np.concatenate([cols, [7]]),
+                         np.asarray([0, k_, k_ + 1]), 1000)
+           for k_, cols in long_cols.items()},
+    }
+    for name, (d_, i_, p_, n_) in odd_csr.items():
+        for prod, c_ in (("spmv", None), ("spmm", 200)):
+            operand = randn(n_) if c_ is None else randn(n_, c_)
+            ref_fn = getattr(sparse, f"ref_{prod}")
+            want = ref_fn(d_, i_, p_, operand)
+            scale_t = ref_fn(np.abs(d_), i_, p_, operand.abs())
+            for variant in ("ssr", "baseline"):
+                got = getattr(sparse, f"{variant}_{prod}")(d_, i_, p_, operand,
+                                                           device=dev)
+                checks[f"odd_{prod}_{name}_{variant}"] = {
+                    "abs_err": float((got - want).abs().max()),
+                    "rel_err": float(((got - want).abs() / (1 + scale_t))
+                                     .max()), "limit": 1e-5}
     for key, c in checks.items():
         ok = (c.get("exact", True) and
               c.get("rel_to_abs_prod", c.get("rel_err", c["abs_err"]))
@@ -842,7 +965,9 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             failed.append(key)
     for key in ("dot", "dot_ssr_call", "gemm", "gemv", "dot_baseline",
                 "gemm_baseline", "gemv_baseline", "stencil1d",
-                "stencil1d_baseline", "stencil2d", *ATTENTION_CELLS):
+                "stencil1d_baseline", "stencil2d", *ATTENTION_CELLS,
+                "spmv", "sparse_gemv", "spmv_baseline", "spmm",
+                "spmm_baseline"):
         if not bool(torch.isfinite(main[key]).all()):
             failed.append(f"{key}: non-finite")
     # the repo's own oracle on small odd inputs, within the registry tol
@@ -905,7 +1030,17 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         "halo_stencil2d": ((wide * wide + hw * hw + 2 * taps) * 4,
                            4 * taps * hw * hw),
         "rescale_attention": attention_work("attention_qwen3"),
+        # the ELL planes at their logical width k, each vector or matrix
+        # once; two operations per stored entry (and right-hand side)
+        "gather_spmv": (hm * hk * 8 + (n_v1 + hm) * 4,
+                        2 * int(hcsr[0].numel())),
+        "gather_spmm": (sm * sk * 8 + (n_m2 + sm) * SPMM_RHS * 4,
+                        2 * int(scsr[0].numel()) * SPMM_RHS),
     }
+    # cuSPARSE through PyTorch: the library call beside K12/K13
+    csr_lib = {name: torch.sparse_csr_tensor(
+        csr[2].to(torch.int32), csr[1], csr[0], size=(n_, n_))
+        for name, csr, n_ in (("spmv", hcsr, n_v1), ("spmm", scsr, n_m2))}
     library = {
         "reduce_mul": lambda: torch.dot(x, y),
         "map_relu": lambda: torch.relu(xr),
@@ -916,6 +1051,8 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         "halo_stencil2d": lambda: F.conv2d(x2.view(1, 1, wide, wide),
                                            cross.view(1, 1, taps, taps)),
         "rescale_attention": sdpa("attention_qwen3"),
+        "gather_spmv": lambda: csr_lib["spmv"] @ hx,
+        "gather_spmm": lambda: csr_lib["spmm"] @ sX,
     }
     timed = {name: (kernel_fn(call), lambda c=call: plain(c))
              for name, call in calls.items()}
@@ -1043,9 +1180,40 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         "schedule_lookup": lambda: autotune.lookup(dot_nest, dot_ops,
                                                    device=dev),
     }
-    emit({"phase": "entry_points",
-          "wall_ms": {key: wall_ms(fn)
-                      for key, fn in {**path, **probes}.items()}})
+    walls = {key: wall_ms(fn) for key, fn in {**path, **probes}.items()}
+    emit({"phase": "entry_points", "wall_ms": walls})
+    # the sparse cells: the entry's wall split into CSR validation and ELL
+    # packing on the card, the copies of a host CSR triple and x to the
+    # card, the layout copy into the lowered (m, 128) planes and the kernel;
+    # and what the gathers move
+    host = {"spmv": [t.cpu() for t in (*hcsr, hx)],
+            "spmm": [t.cpu() for t in (*scsr, sX)]}
+    cell_of = {"spmv": ("spmv_hpcg", "gather_spmv", n_v1, hcsr),
+               "spmm": ("spmm_hpcg", "gather_spmm", n_m2, scsr)}
+    for op, (cell, kname, n_, csr) in cell_of.items():
+        call, row = calls[kname], next(r for r in rows if r["name"] == kname)
+        arrays = [sparse_ops[op][s_.name]
+                  for s_ in (*call.lowered.in_streams, *call.lowered.gathers)]
+        nnz = int(csr[0].numel())
+        info = {
+            "m": n_, "nnz": nnz, "k": hk if op == "spmv" else sk,
+            "bytes": work[kname][0],
+            "layout_bytes": sum(t.numel() * t.element_size()
+                                for t in call.layouts),
+            "kernel_ms": row["ms"], "bound_ms": row["bound_ms"],
+            "share_of_bound": row["bound_ms"] / row["ms"],
+            "pack_ms": wall_ms(lambda c_=csr, n=n_: sparse.pack_ell(*c_, n)),
+            "h2d_ms": wall_ms(lambda h=host[op]: [t.to(dev) for t in h]),
+            "layout_ms": time_ms(lambda c_=call, a=arrays:
+                                 lowering.stream_layouts(c_.lowered, a)),
+            "entry_wall_ms": walls[op],
+            "entry_wall_host_csr_ms": wall_ms(
+                lambda h=host[op], k_=op: getattr(ops, k_)(*h, ssr=True)),
+        }
+        if op == "spmm":
+            info["gathered_bytes"] = nnz * SPMM_RHS * 4
+            info["gathered_bytes_per_ms"] = info["gathered_bytes"] / row["ms"]
+        emit({"phase": "sparse_cell", "cell": cell, **info})
 
     # -- 5. the tuner on the card --------------------------------------------
     nest, operands = compiler.gemm_nest(m, n, k), {"A": a, "B": b}
@@ -1186,7 +1354,7 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
 
     # -- 7. result ----------------------------------------------------------
     emit({"kernels": rows})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})
     return 0
 

@@ -10,14 +10,15 @@ the tensor equivalents, with the same results as ``repro.core.agu``:
   :func:`affine_coefficients` turn a block schedule back into the AGU's
   base/stride programming, and :class:`BlockAGU` carries that programming to
   the kernels: the CUDA kernels take it as arguments, and the plain versions
-  gather blocks with it.
+  gather blocks with it.  :class:`GatherAGU` is the indirection extension's
+  address program: an index stream's values scaled into a table.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -167,11 +168,14 @@ class BlockAGU:
                    coeffs=tuple(tuple(int(x) for x in c) for c in coeffs))
 
     def element_index(self, grid: Tuple[int, ...], layout: Tuple[int, ...],
-                      device=None) -> torch.Tensor:
-        """(steps, *block) flat layout positions of every step's block."""
+                      device=None,
+                      steps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(steps, *block) flat layout positions of every step's block, or
+        of the steps given as rows of :func:`grid_steps`."""
         rank = len(self.block)
         strides = _row_major_strides(layout)
-        steps = grid_steps(grid, device)
+        if steps is None:
+            steps = grid_steps(grid, device)
         coeffs = torch.tensor(self.coeffs, dtype=torch.int64,
                               device=device).reshape(len(grid), rank)
         # int64 products summed by hand: CUDA matmul has no int64 kernel
@@ -212,14 +216,70 @@ class BlockAGU:
                     f"[{lo * blk}, {(hi + 1) * blk}) of dim {d}, outside the "
                     f"layout {tuple(layout)}")
 
-    def gather(self, layout: torch.Tensor,
-               grid: Tuple[int, ...]) -> torch.Tensor:
-        """(steps, *block) — every block the stream delivers, in grid order."""
+    def gather(self, layout: torch.Tensor, grid: Tuple[int, ...],
+               steps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(steps, *block) — every block the stream delivers, in grid order
+        (or at the given rows of :func:`grid_steps`)."""
         if layout.dim() != len(self.block):
             raise ValueError(
                 f"layout rank {layout.dim()} != block rank {len(self.block)}")
-        idx = self.element_index(grid, tuple(layout.shape), layout.device)
+        idx = self.element_index(grid, tuple(layout.shape), layout.device,
+                                 steps)
         return layout.reshape(-1)[idx]
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherAGU:
+    """One gather's address program (the lowering's ``IndirectGather``).
+
+    At grid step ``g``, the element of the index stream's block (slot
+    ``index`` of the kernel's read streams) holding value ``v`` addresses
+    the flattened table (slot ``table``: the whole array at every step) at
+
+        scale·v + Σ_l coeffs[l]·(g[grid_pos[l]]·tiles[l] + i_l) + offset
+
+    where each affine level ``l`` prepends one block dimension ``i_l <
+    tiles[l]`` (outermost first), and the address is clipped into the
+    table, as the reference's ``_gather_block`` does.  ``extent`` are the
+    (rows, cols) of the index stream's layout that hold data: a position
+    outside it is lowering padding and gathers 0 (the kernels skip it).
+    """
+
+    index: int
+    table: int
+    scale: int
+    offset: int
+    grid_pos: Tuple[int, ...] = ()
+    tiles: Tuple[int, ...] = ()
+    coeffs: Tuple[int, ...] = ()
+    extent: Tuple[int, int] = (0, 0)
+
+    def gather(self, index_agu: BlockAGU, grid: Tuple[int, ...],
+               index_layout: torch.Tensor, table: torch.Tensor,
+               steps: torch.Tensor) -> torch.Tensor:
+        """(len(steps), *tiles, *index block): the gathered blocks at the
+        given rows of :func:`grid_steps`, in the table's dtype."""
+        dev = index_layout.device
+        pos = index_agu.element_index(grid, tuple(index_layout.shape), dev,
+                                      steps)
+        pitch = index_layout.shape[-1]
+        valid = (pos // pitch < self.extent[0]) & \
+            (pos % pitch < self.extent[1])
+        addr = index_layout.reshape(-1)[pos].to(torch.int64) * self.scale \
+            + self.offset
+        k = steps.shape[0]
+        for p, tile, coeff in zip(reversed(self.grid_pos),
+                                  reversed(self.tiles),
+                                  reversed(self.coeffs)):
+            lead = (steps[:, p] * tile).reshape(k, *([1] * addr.dim()))
+            intra = torch.arange(tile, dtype=torch.int64, device=dev)
+            addr = addr[:, None] + coeff * (
+                lead + intra.reshape(1, tile, *([1] * (addr.dim() - 1))))
+        flat = table.reshape(-1)
+        got = flat[addr.clamp(0, flat.numel() - 1)]
+        valid = valid.reshape(k, *([1] * len(self.tiles)), *valid.shape[1:])
+        return torch.where(valid, got, torch.zeros((), dtype=got.dtype,
+                                                   device=dev))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,6 +293,9 @@ class StreamGeometry:
     shifted streams (their slots in ``ins``), widened into one block per
     step.  ``level_tiles`` gives, per loop level, its grid axis and tile:
     the global offsets a rescale body receives (empty for other calls).
+    ``gathers`` are the indirect refs' address programs; their tables are
+    the trailing read streams, and the body receives the gathered blocks
+    after the other streams' blocks.
     """
 
     grid: Tuple[int, ...]
@@ -242,6 +305,7 @@ class StreamGeometry:
     contraction_axes: Tuple[int, ...] = ()
     halos: Tuple[Any, ...] = ()
     level_tiles: Tuple[Tuple[int, int], ...] = ()
+    gathers: Tuple[GatherAGU, ...] = ()
 
     @property
     def steps(self) -> int:

@@ -538,11 +538,29 @@ def _operand_dtype(operands: Optional[Dict[str, Any]]) -> torch.dtype:
     return torch.float32
 
 
+def _table_views(lowered, operands: Optional[Dict[str, Any]]) -> tuple:
+    """Each gather table's (≥2-D) view from ``operands`` (tensors, arrays
+    or ``(shape, dtype)`` pairs).  A table not given stands in as one row
+    of the gather's index scale: its geometry without its size."""
+    from .lowering import _table_view_shape
+
+    views = []
+    for g in getattr(lowered, "gathers", ()):
+        v = (operands or {}).get(g.name)
+        shape = tuple(v.shape) if hasattr(v, "shape") else \
+            tuple(v[0]) if v is not None else (1, g.scale)
+        views.append(_table_view_shape(shape))
+    return tuple(views)
+
+
 def _candidate_kernel(nest: LoopNest, sched: Schedule, body: Callable,
-                      mode: str, out_dtype: Any):
-    """The :class:`SsrKernel` a candidate builds (no operands needed)."""
-    return build_kernel(_lower_candidate(nest, sched), body, mode,
-                        torch_dtype(out_dtype))
+                      mode: str, out_dtype: Any,
+                      operands: Optional[Dict[str, Any]] = None):
+    """The :class:`SsrKernel` a candidate builds (operands give only the
+    gather tables' shapes)."""
+    lowered = _lower_candidate(nest, sched)
+    return build_kernel(lowered, body, mode, torch_dtype(out_dtype),
+                        tables=_table_views(lowered, operands))
 
 
 def _refusal_of(kernel, body: Callable, operands: Optional[Dict[str, Any]],
@@ -562,7 +580,8 @@ def kernel_refusal(nest: LoopNest, sched: Schedule, body: Callable, *,
     Builds the lowered kernel's geometry (no operands needed) and asks
     :func:`hopper.accepts`, the check its wrapper runs before a launch.
     """
-    return _refusal_of(_candidate_kernel(nest, sched, body, mode, out_dtype),
+    return _refusal_of(_candidate_kernel(nest, sched, body, mode, out_dtype,
+                                         operands),
                        body, operands, device)
 
 
@@ -578,7 +597,8 @@ def _card_candidates(nest: LoopNest, cands: Sequence[Schedule],
     seen = set()
     for sched in [DEFAULT_SCHEDULE] + [s for s in cands
                                        if s != DEFAULT_SCHEDULE]:
-        kernel = _candidate_kernel(nest, sched, body, mode, out_dtype)
+        kernel = _candidate_kernel(nest, sched, body, mode, out_dtype,
+                                   operands)
         ident = (kernel.mode, kernel.geometry, kernel.acc_dtype)
         if ident in seen or (sched != DEFAULT_SCHEDULE and _refusal_of(
                 kernel, body, operands, dev) is not None):

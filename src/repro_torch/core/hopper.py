@@ -26,11 +26,16 @@ halo_stencil1d    nest         K9: ``stencil1d`` (an 11-tap window on x);
 halo_stencil2d    nest         K10: ``stencil2d`` (the 11-point star)
 rescale_attention nest         K11: ``attn_scores`` (the online-softmax
                                accumulator over a head batch)
+gather_spmv       nest         K12: ``spmv`` (y += vals·x[cidx], a gather)
+gather_spmm       nest         K13: ``spmm`` (Y += vals·X[cidx, c])
 ================  ===========  =============================================
 
 A halo'd read arrives as ``2**k`` shifted streams (the lowering's
 ``HaloRead``); K9 and K10 read the widened block from the first slot's walk
-alone.  K11 runs the kv axis as a loop inside each CTA.
+alone.  K11 runs the kv axis as a loop inside each CTA.  A gather's table
+arrives whole as the trailing read stream, with its address program
+(:class:`~repro_torch.core.agu.GatherAGU`); K12 and K13 read only the index
+block's positions that hold data, and compute addresses in 64 bits.
 
 A fused kernel (K5–K8) is one template per family of stages, instantiated
 for every subset a legal cut of its DAG can produce (:data:`_FAMILIES`): a
@@ -43,8 +48,9 @@ The monolithic baselines (``MonolithicKernel``) take the padded layouts of
 the reference's baseline bodies instead, and walk them with an explicit,
 serialised load per block (:data:`BASELINE_KERNELS`, by body op):
 ``base_reduce`` (``mul``), ``base_relu`` (``relu``), ``base_gemm``
-(``dot``), ``base_gemv`` (``matvec``) and ``base_stencil1d``
-(``stencil1d``).  Each runs on the same number of
+(``dot``), ``base_gemv`` (``matvec``), ``base_stencil1d``
+(``stencil1d``), ``base_spmv`` (``spmv``) and ``base_spmm`` (``spmm``).
+Each runs on the same number of
 CTAs, with the same CTA tile, as its streamed counterpart, so the time of
 the pair is the card's SSR-against-baseline comparison.
 
@@ -127,6 +133,14 @@ KERNELS: Dict[str, Dict[str, str]] = {
                               "src/repro_torch/csrc/rescale_attention.cu"},
     "base_stencil1d": {"replaces": "src/repro/kernels/stencil.py:95",
                        "source": "src/repro_torch/csrc/base_stencil1d.cu"},
+    "gather_spmv": {"replaces": "src/repro/kernels/sparse.py:134",
+                    "source": "src/repro_torch/csrc/gather_spmv.cu"},
+    "gather_spmm": {"replaces": "src/repro/kernels/sparse.py:215",
+                    "source": "src/repro_torch/csrc/gather_spmm.cu"},
+    "base_spmv": {"replaces": "src/repro/kernels/sparse.py:166",
+                  "source": "src/repro_torch/csrc/base_spmv.cu"},
+    "base_spmm": {"replaces": "src/repro/kernels/sparse.py:248",
+                  "source": "src/repro_torch/csrc/base_spmm.cu"},
 }
 
 #: Wrapper calls per kernel since the last :func:`reset_launches`: one per
@@ -236,6 +250,10 @@ _SIGNATURES = {
                           _I64, _I64, _P, ctypes.c_float, _I, _I64, _I64,
                           _I64, _P],
     "base_stencil1d": [_P, _P, _P, _I, _I64, _I64, _I64, _P],
+    "gather_spmv": [_P, _P, _P, _P, _GP, _SP, _SP, _SP] + [_I64] * 6 + [_P],
+    "gather_spmm": [_P, _P, _P, _P, _GP, _SP, _SP, _SP] + [_I64] * 8 + [_P],
+    "base_spmv": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
+    "base_spmm": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
 }
 #: Arguments of a kernel's ``ssr_<name>_smem_bytes`` (none for the rest).
 _SMEM_SIGNATURES = {"halo_stencil1d": [_I64], "halo_stencil2d": [_I64],
@@ -369,6 +387,36 @@ def _attention_composes(geo: StreamGeometry) -> bool:
             and not any(geo.ins[2].coeffs[z]) and not any(geo.out.coeffs[z]))
 
 
+#: K13's columns a CTA: each lane of a warp holds four consecutive columns
+#: of a SPMM_COLS-wide chunk of the c tile (grid y walks the chunks).
+SPMM_COLS = 128
+
+
+def _gather_composes(geo: StreamGeometry, levels: int) -> bool:
+    """One gather whose index stream (slot 1) walks as the values (slot 0)
+    do, its table (slot 2) one invariant block, with ``levels`` affine
+    levels.  No levels (K12): the output block is (1, rows of the index
+    block).  One (K13): coefficient 1 on a parallel axis, a tile of whole
+    SPMM_COLS chunks, the output block (rows, tile), and every address of
+    a chunk 16-byte aligned (scale, offset and the table's size multiples
+    of 4)."""
+    if len(geo.gathers) != 1 or geo.halos or geo.level_tiles:
+        return False
+    g = geo.gathers[0]
+    v, c, t = geo.ins
+    if (g.index, g.table, len(g.grid_pos)) != (1, 2, levels) or \
+            (v.block, v.coeffs, v.offset) != (c.block, c.coeffs, c.offset) \
+            or any(any(x) for x in t.coeffs) or any(t.offset):
+        return False
+    if levels == 0:
+        return geo.out.block == (1, c.block[0])
+    (pos,), (tile,), (coeff,) = g.grid_pos, g.tiles, g.coeffs
+    return (coeff == 1 and pos not in geo.contraction_axes
+            and tile % SPMM_COLS == 0 and g.scale % 4 == 0
+            and g.offset % 4 == 0 and math.prod(t.block) % 4 == 0
+            and geo.out.block == (c.block[0], tile))
+
+
 #: What each streamed kernel takes: read streams, input dtypes, and the
 #: block composition it computes (as text, and as a test of the geometry).
 _TAKES: Dict[str, tuple] = {
@@ -387,6 +435,12 @@ _TAKES: Dict[str, tuple] = {
                        "its three shifted twins", _stencil2d_composes),
     "rescale_attention": (3, _FLOATS, "O = softmax(Q·Kᵀ)·V over the kv "
                           "walk, head dim 128", _attention_composes),
+    "gather_spmv": (3, (torch.float32,), "y = Σ_j vals·x[scale·cidx + "
+                    "offset], no affine level",
+                    lambda geo: _gather_composes(geo, 0)),
+    "gather_spmm": (3, (torch.float32,), "Y = Σ_j vals·X[scale·cidx + c + "
+                    "offset], one affine level over whole 128-column chunks",
+                    lambda geo: _gather_composes(geo, 1)),
 }
 #: The arguments of each kernel's shared-memory count, from its geometry.
 _SMEM_ARGS: Dict[str, Callable[[StreamGeometry], tuple]] = {
@@ -418,8 +472,9 @@ def _refusal(name: str, geo: StreamGeometry, dtype: torch.dtype,
         return (f"{name}: takes {[str(d) for d in dtypes]}, not {dtype}")
     if len(geo.grid) > SSR_MAX_AXES:
         return f"{name}: grid {geo.grid} has more than {SSR_MAX_AXES} axes"
-    for agu in (*geo.ins, geo.out):
-        if math.prod(agu.block) >= 2 ** 31:
+    tables = {g.table for g in geo.gathers}     # addressed in 64 bits
+    for k, agu in enumerate((*geo.ins, geo.out)):
+        if k not in tables and math.prod(agu.block) >= 2 ** 31:
             return (f"{name}: block {agu.block} has 2**31 or more elements; "
                     "the kernels index blocks in 32 bits")
     if len(geo.out_shape) != 2:
@@ -791,6 +846,92 @@ def rescale_attention(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
     return out
 
 
+# -- the gather kernels --------------------------------------------------------
+
+
+def _checked_gather(name: str, geo: StreamGeometry,
+                    layouts: Sequence[torch.Tensor],
+                    program: Optional[Any]) -> torch.device:
+    """What K12 and K13 take: f32 values and table, an int32 index stream,
+    contiguous 2-D layouts on one CUDA device, inside their walks."""
+    for t in layouts:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: launches on CUDA tensors, got "
+                             f"{t.device}")
+    reason = _program_refusal(name, program)
+    if reason is not None:
+        raise ValueError(reason)
+    if len(layouts) != 3:
+        raise ValueError(f"{name}: takes 3 streams, got {len(layouts)}")
+    vals, cidx, table = layouts
+    dev = _checked_operands(name, (vals, table), (torch.float32,))
+    _checked_operands(name, (cidx,), (torch.int32,))
+    if cidx.device != dev:
+        raise ValueError(f"{name}: operand 1 on {cidx.device}, not {dev}")
+    for k, (t, agu) in enumerate(zip(layouts, geo.ins)):
+        agu.check_within(geo.grid, tuple(t.shape), f"{name}[{k}]")
+    reason = _refusal(name, geo, vals.dtype, dev)
+    if reason is not None:
+        raise ValueError(reason)
+    geo.out.check_within(geo.grid, geo.out_shape, f"{name}[out]")
+    return dev
+
+
+def _gather_args(name: str, geo: StreamGeometry,
+                 layouts: Sequence[torch.Tensor], out_dtype: torch.dtype,
+                 acc_dtype: torch.dtype, program: Optional[Any]
+                 ) -> Tuple[torch.device, torch.Tensor, tuple]:
+    """The output, and the arguments K12 and K13 share: the three layouts
+    and the output, the grid and the walks, the contraction steps and the
+    gather's program (scale, offset, table size, the extent that holds
+    data)."""
+    dev = _checked_gather(name, geo, layouts, program)
+    _f32_out(name, out_dtype)
+    if acc_dtype != torch.float32:
+        raise TypeError(f"{name}: accumulates in float32, the schedule asks "
+                        f"for {acc_dtype}")
+    vals, cidx, table = layouts
+    g = geo.gathers[0]
+    out = torch.empty(geo.out_shape, dtype=torch.float32, device=dev)
+    return dev, out, (
+        vals.data_ptr(), cidx.data_ptr(), table.data_ptr(), out.data_ptr(),
+        ctypes.byref(_grid_arg(geo.grid)),
+        ctypes.byref(_stream_arg(geo.ins[0], vals)),
+        ctypes.byref(_stream_arg(geo.ins[1], cidx)),
+        ctypes.byref(_stream_arg(geo.out, out)),
+        geo.contraction_steps, g.scale, g.offset, table.numel(),
+        g.extent[0], g.extent[1])
+
+
+def gather_spmv(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
+                out_dtype: torch.dtype, acc_dtype: torch.dtype = torch.float32,
+                program: Optional[Any] = None) -> torch.Tensor:
+    """K12: y block (1, tm) = Σ over the contraction steps and the index
+    block's columns of vals·x[clip(scale·cidx + offset)], f32; a group of
+    four threads per row reads only the positions holding data."""
+    dev, out, args = _gather_args("gather_spmv", geo, layouts, out_dtype,
+                                  acc_dtype, program)
+    _launch("gather_spmv", dev, *args)
+    return out
+
+
+def gather_spmm(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
+                out_dtype: torch.dtype, acc_dtype: torch.dtype = torch.float32,
+                program: Optional[Any] = None) -> torch.Tensor:
+    """K13: Y block (tm, tc) = Σ vals·X[clip(scale·cidx + c + offset)], a
+    warp per row, each lane four consecutive columns gathered as one
+    16-byte load; the c tile in SPMM_COLS-wide chunks (grid y)."""
+    name = "gather_spmm"
+    # 16-byte gathers: a table view off a 16-byte boundary is copied once
+    layouts = [t if k != 2 or t.data_ptr() % 16 == 0 else t.clone()
+               for k, t in enumerate(layouts)]
+    dev, out, args = _gather_args(name, geo, layouts, out_dtype, acc_dtype,
+                                  program)
+    g = geo.gathers[0]
+    _launch(name, dev, *args, g.grid_pos[0], g.tiles[0])
+    return out
+
+
 # -- the stage kernels: fused chains and DAGs ----------------------------------
 #
 # A CUDA kernel cannot take the stage bodies, so each family of stages is one
@@ -1149,6 +1290,8 @@ DEVICE_KERNELS: Dict[tuple, Callable[..., torch.Tensor]] = {
     ("nest", "stencil1d_relu"): halo_stencil1d_relu,
     ("nest", "stencil2d"): halo_stencil2d,
     ("nest", "attn_scores"): rescale_attention,
+    ("nest", "spmv"): gather_spmv,
+    ("nest", "spmm"): gather_spmm,
 }
 
 
@@ -1284,6 +1427,51 @@ def base_stencil1d(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def _checked_ell(name: str, vals: torch.Tensor, cidx: torch.Tensor,
+                 table: torch.Tensor) -> Tuple[torch.device, int, int]:
+    """The baselines' ELL planes: f32 vals and int32 cidx (m, k) and an f32
+    table, contiguous 2-D on one CUDA device; returns (device, m, k)."""
+    dev = _checked_base(name, (vals, table), (torch.float32,))
+    _checked_operands(name, (cidx,), (torch.int32,))
+    if cidx.device != dev or cidx.shape != vals.shape or vals.numel() == 0 \
+            or table.numel() == 0:
+        raise ValueError(f"{name}: needs vals and cidx (m, k) and a table "
+                         f"on one device, got {tuple(vals.shape)}, "
+                         f"{tuple(cidx.shape)} and {tuple(table.shape)}")
+    return dev, vals.shape[0], vals.shape[1]
+
+
+def base_spmv(vals: torch.Tensor, cidx: torch.Tensor, x: torch.Tensor,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """B6: out (m, 1) f32 = Σ_j vals[i, j]·x[0, clip(cidx[i, j])] over the
+    unpadded ELL planes and x (1, n): per element the index is loaded, the
+    address computed from it, and the table load and the FMA waited on at
+    once; on K12's CTAs (64 rows of four threads)."""
+    dev, m, k = _checked_ell("base_spmv", vals, cidx, x)
+    if x.shape[0] != 1:
+        raise ValueError(f"base_spmv: needs x as (1, n), got "
+                         f"{tuple(x.shape)}")
+    _f32_out("base_spmv", out_dtype)
+    out = torch.empty((m, 1), dtype=torch.float32, device=dev)
+    _launch("base_spmv", dev, vals.data_ptr(), cidx.data_ptr(), x.data_ptr(),
+            out.data_ptr(), m, k, x.shape[1])
+    return out
+
+
+def base_spmm(vals: torch.Tensor, cidx: torch.Tensor, x: torch.Tensor,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """B7: out (m, c) f32 = Σ_j vals[i, j]·X[clip(cidx[i, j]), :] over the
+    unpadded ELL planes and X (n, c): every lane loads the index itself,
+    then its columns of the row; on K13's CTAs (a warp a row, SPMM_COLS
+    columns a CTA)."""
+    dev, m, k = _checked_ell("base_spmm", vals, cidx, x)
+    _f32_out("base_spmm", out_dtype)
+    out = torch.empty((m, x.shape[1]), dtype=torch.float32, device=dev)
+    _launch("base_spmm", dev, vals.data_ptr(), cidx.data_ptr(), x.data_ptr(),
+            out.data_ptr(), m, k, x.shape[0], x.shape[1])
+    return out
+
+
 #: Body op → the baseline kernel that runs it on the card.  Every wrapper
 #: is called as ``kernel(*layouts, out_dtype=...)``, like the plain versions.
 BASELINE_KERNELS: Dict[str, Callable[..., torch.Tensor]] = {
@@ -1292,6 +1480,8 @@ BASELINE_KERNELS: Dict[str, Callable[..., torch.Tensor]] = {
     "dot": base_gemm,
     "matvec": base_gemv,
     "stencil1d": base_stencil1d,
+    "spmv": base_spmv,
+    "spmm": base_spmm,
 }
 
 
@@ -1304,13 +1494,14 @@ def _invariant_block(agu: BlockAGU, t: torch.Tensor) -> torch.Tensor:
                    for o, b in zip(agu.offset, agu.block))]
 
 
-def _step_inputs(geo: StreamGeometry,
-                 layouts: Sequence[torch.Tensor]) -> Tuple[list, tuple]:
-    """Every step's blocks of each stream, and their ``vmap`` dims.
+def _step_inputs(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
+                 steps: Optional[torch.Tensor] = None) -> Tuple[list, tuple]:
+    """Every step's blocks of each stream (or those of the given rows of
+    :func:`grid_steps`), and their ``vmap`` dims.
 
     A stream whose walk has no varying coefficient (a loop-invariant block,
-    a uniform) delivers the same block at every step: it is passed once,
-    unbatched (dim ``None``), not gathered ``steps`` times.
+    a uniform, a gather table) delivers the same block at every step: it is
+    passed once, unbatched (dim ``None``), not gathered ``steps`` times.
     """
     if len(layouts) != len(geo.ins):
         raise ValueError(f"{len(geo.ins)} streams, got {len(layouts)} "
@@ -1320,7 +1511,8 @@ def _step_inputs(geo: StreamGeometry,
     fixed = [not any(any(c) for c in agu.coeffs) for agu in geo.ins]
     if all(fixed):        # vmap needs one batched input
         fixed[0] = False
-    blocks = [_invariant_block(agu, t) if f else agu.gather(t, geo.grid)
+    blocks = [_invariant_block(agu, t) if f else agu.gather(t, geo.grid,
+                                                            steps)
               for agu, t, f in zip(geo.ins, layouts, fixed)]
     return blocks, tuple(None if f else 0 for f in fixed)
 
@@ -1411,6 +1603,48 @@ def plain_map(body: Callable, geo: StreamGeometry,
     return _map_epilogue(_each_step(body, geo, layouts), geo, out_dtype)
 
 
+#: Gathered elements the plain version of a gather holds at once: it runs
+#: over chunks of whole output blocks' steps, so the peak stays near 1 GiB
+#: (the gathered values with their int64 addresses) whatever the grid.
+PLAIN_GATHER_ELEMS = 1 << 25
+
+
+def _plain_gather_contract(body: Callable, geo: StreamGeometry,
+                           layouts: Sequence[torch.Tensor],
+                           out_dtype: torch.dtype,
+                           acc_dtype: torch.dtype) -> torch.Tensor:
+    """:func:`plain_contract` with gathers, over chunks of grid steps.
+
+    Per step the body receives the streamed blocks (halos widened), then
+    each gather's block of the table (:meth:`GatherAGU.gather`); the
+    tables are the trailing read streams.  A chunk is a whole number of
+    output blocks' contraction steps, so each output block is summed and
+    drained as in :func:`plain_contract`.
+    """
+    n_s = len(geo.ins) - len(geo.gathers)     # the tables trail
+    dev = layouts[0].device
+    z = geo.contraction_steps
+    per_step = sum(math.prod(g.tiles) * math.prod(geo.ins[g.index].block)
+                   for g in geo.gathers)
+    chunk = z * max(1, PLAIN_GATHER_ELEMS // max(1, per_step * z))
+    drain = getattr(body, "drain", None) or (lambda t: t)
+    steps = grid_steps(geo.grid, dev)
+    out = torch.zeros(geo.out_shape, dtype=out_dtype, device=dev)
+    for s0 in range(0, geo.steps, chunk):
+        at = steps[s0:s0 + chunk]
+        blocks, dims = _step_inputs(geo, layouts, at)
+        gathered = [g.gather(geo.ins[g.index], geo.grid, layouts[g.index],
+                             layouts[g.table], at) for g in geo.gathers]
+        parts = torch.vmap(
+            lambda *b: body(*_widened(geo, b[:n_s]), *b[n_s:]),
+            in_dims=(*dims[:n_s], *(0,) * len(gathered)))(
+                *blocks[:n_s], *gathered)
+        parts = parts.to(acc_dtype).reshape(-1, z, *geo.out.block).sum(1)
+        idx = geo.out.element_index(geo.grid, geo.out_shape, dev, at[::z])
+        out.view(-1)[idx] = drain(parts).to(out_dtype)
+    return out
+
+
 def plain_contract(body: Callable, geo: StreamGeometry,
                    layouts: Sequence[torch.Tensor], out_dtype: torch.dtype,
                    acc_dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -1420,8 +1654,12 @@ def plain_contract(body: Callable, geo: StreamGeometry,
     are ``contraction_steps`` consecutive steps; their partials sum in
     ``acc_dtype``, the body's ``drain`` (if any) applies to each sum once,
     and the result is cast to ``out_dtype``.  Without contraction axes every
-    step writes its own block.
+    step writes its own block.  A call with gathers runs
+    :func:`_plain_gather_contract`.
     """
+    if geo.gathers:
+        return _plain_gather_contract(body, geo, layouts, out_dtype,
+                                      acc_dtype)
     parts = _each_step(body, geo, layouts)
     drain = getattr(body, "drain", None) or (lambda t: t)
     if not geo.contraction_axes:
@@ -1577,3 +1815,36 @@ def plain_base_gemv(a: torch.Tensor, x: torch.Tensor,
     """Each 8-row panel of A times x (1, n)ᵀ → (m8, 1) f32."""
     panels = _promote(a).reshape(-1, ROWS, a.shape[1])
     return (panels @ _promote(x).mT).reshape(-1, 1).to(out_dtype)
+
+
+def _ell_rows(vals: torch.Tensor, cidx: torch.Tensor, table: torch.Tensor,
+              row_width: int, row_fn: Callable) -> torch.Tensor:
+    """``row_fn(vals rows, the table's rows at clip(cidx))`` over chunks of
+    ELL rows, so the gathered rows held at once stay under
+    PLAIN_GATHER_ELEMS elements; the chunks' results stacked."""
+    m, k = vals.shape
+    step = max(1, PLAIN_GATHER_ELEMS // max(1, k * row_width))
+    rows = table.shape[0]
+    parts = []
+    for r0 in range(0, m, step):
+        idx = cidx[r0:r0 + step].to(torch.int64).clamp(0, rows - 1)
+        parts.append(row_fn(_promote(vals[r0:r0 + step]),
+                            _promote(table[idx])))
+    return torch.cat(parts)
+
+
+def plain_base_spmv(vals: torch.Tensor, cidx: torch.Tensor, x: torch.Tensor,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """out (m, 1) = Σ_j vals[i, j]·x[0, clip(cidx[i, j])] over every column
+    of the ELL planes: the baseline body's clipped ``take``."""
+    return _ell_rows(vals, cidx, x.reshape(-1, 1), 1,
+                     lambda v, g: (v * g[..., 0]).sum(1, keepdim=True)
+                     ).to(out_dtype)
+
+
+def plain_base_spmm(vals: torch.Tensor, cidx: torch.Tensor, x: torch.Tensor,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """out (m, c) = Σ_j vals[i, j]·X[clip(cidx[i, j]), :]: the baseline
+    body's clipped row ``take``, summed over j in f32."""
+    return _ell_rows(vals, cidx, x, x.shape[1],
+                     lambda v, g: (v[..., None] * g).sum(1)).to(out_dtype)

@@ -43,10 +43,10 @@ a committed ``Schedule.cut_edges`` runs a DAG as one kernel per component.
 every step as one block with a constant walk.
 
 ``lower_nest`` also serves halo reads (a windowed READ ref becomes
-``2**k`` +1-shifted streams, widened into one block per step) and the
+``2**k`` +1-shifted streams, widened into one block per step), the
 online-softmax accumulator (the flash-attention m/l/acc recurrence over one
-contraction axis).  Not in this port yet: gathers, a :class:`LoweringError`
-naming the slice that brings them.
+contraction axis) and gathers (an indirect ref's addresses come off an
+index stream; its table rides whole, after the streamed operands).
 """
 
 from __future__ import annotations
@@ -475,6 +475,33 @@ class HaloRead:
 
 
 @dataclasses.dataclass(frozen=True)
+class IndirectGather:
+    """One indirect ref lowered to an in-kernel gather (arXiv 2011.08070).
+
+    The index stream arrives as a normal dense block (``index_pos`` names
+    its position in ``in_streams``); the gather *table* (the indirectly
+    addressed operand) rides along whole as a trailing invariant block.
+    Per index-block element the kernel computes::
+
+        addr = scale · index_value + Σ_l coeffs[l]·(g[grid_pos[l]]·tiles[l]
+                                                    + intra_l) + offset
+
+    and serves the body the gathered block of the flattened table — each
+    affine additive level prepends one block dimension.
+    """
+
+    name: str
+    index_of: str
+    index_pos: int               # index stream's slot in in_streams
+    scale: int
+    offset: int
+    levels: Tuple[int, ...]      # affine additive levels (outermost first)
+    grid_pos: Tuple[int, ...]    # grid-axis position per level
+    tiles: Tuple[int, ...]       # tile extent per level
+    coeffs: Tuple[int, ...]      # address coefficient per level
+
+
+@dataclasses.dataclass(frozen=True)
 class LoweredNest:
     """A StreamPlan with an output ref, lowered level by level.
 
@@ -483,6 +510,9 @@ class LoweredNest:
     the output's revisited levels as grid-axis positions (``arbitrary``,
     trailing); every other axis is ``parallel``.  ``halos`` are the plan's
     windowed reads; ``rescale`` marks the online-softmax accumulator.
+    ``gathers`` are the plan's indirect refs: the body receives their
+    gathered blocks *after* the ``in_streams`` blocks, in declaration
+    order.
     """
 
     plan: StreamPlan
@@ -495,6 +525,7 @@ class LoweredNest:
     schedule: Schedule = DEFAULT_SCHEDULE
     axis_order: Tuple[int, ...] = ()
     padded_bounds: Tuple[int, ...] = ()
+    gathers: Tuple[IndirectGather, ...] = ()
     halos: Tuple[HaloRead, ...] = ()
     rescale: bool = False
 
@@ -709,7 +740,9 @@ def lower_nest(plan: StreamPlan,
     accumulator carries all revisits of an output block.  An
     ``online_softmax`` output needs exactly one contraction axis, two
     varying levels whose lanes level is served in one step, and an f32
-    accumulator.
+    accumulator.  An indirect ref must be allocated, its index stream must
+    itself be an allocated read stream, and its affine levels may not be
+    levels its index stream varies with.
     """
     resilience.inject("lowering")
     sched = _resolve_schedule(policy, schedule)
@@ -756,14 +789,18 @@ def lower_nest(plan: StreamPlan,
                 "output plus the contraction axis to cover every loop "
                 f"level (output varies with {out_varying}, contraction "
                 f"{zaxes}, nest depth {len(nest.bounds)})")
-    for r in nest.refs:
+
+    for r in plan.residual:
         if r.is_indirect():
             raise LoweringError(
-                f"indirect ref '{r.name}': gathers arrive with port slice 5 "
-                "(indirection streams)")
+                f"indirect ref '{r.name}' was not allocated a lane; a "
+                "gather cannot stay residual on the block path — raise "
+                "num_lanes so every indirect ref gets a data mover")
+    ind_allocs = [a for a in plan.allocations if a.ref.is_indirect()]
+    dense_allocs = [a for a in plan.allocations if not a.ref.is_indirect()]
 
     orders = {a.ref.name: _storage_order_or_raise(a.ref, nest)
-              for a in plan.allocations}
+              for a in dense_allocs}
     tiles, padded = _nest_tiles(nest, orders, sched)
     axis_order = _grid_axis_order(sched, len(nest.bounds), zaxes)
     pos = {lvl: k for k, lvl in enumerate(axis_order)}
@@ -792,25 +829,58 @@ def lower_nest(plan: StreamPlan,
     ins: list = []
     outs: list = []
     halos: list = []
-    for a in plan.allocations:
+    in_slot: Dict[str, int] = {}
+    for a in dense_allocs:
         ref = a.ref
         if ref.kind == Direction.READ and ref.has_window():
             streams, axes, htiles, hwins = _lower_halo_streams(
                 a, nest, tiles, padded, policy, pos)
             slots = tuple(range(len(ins), len(ins) + len(streams)))
+            in_slot.setdefault(ref.name, slots[0])
             ins.extend(streams)
             halos.append(HaloRead(name=ref.name, slots=slots, axes=axes,
                                   tiles=htiles, windows=hwins))
             continue
         s = _lower_nest_stream(a, nest, tiles, padded, policy, pos)
-        (outs if s.stream.direction == Direction.WRITE else ins).append(s)
+        if s.stream.direction == Direction.WRITE:
+            outs.append(s)
+        else:
+            in_slot.setdefault(s.name, len(ins))
+            ins.append(s)
+
+    gathers = []
+    for a in ind_allocs:
+        ref = a.ref
+        if ref.index_of not in in_slot:
+            raise LoweringError(
+                f"indirect ref '{ref.name}': its index stream "
+                f"'{ref.index_of}' must itself be an allocated read "
+                "stream — the gather addresses come off that lane")
+        idx_ref = nest_analysis.index_stream_of(ref, nest)
+        affine_lvls = tuple(k for k, c in enumerate(ref.coeffs) if c != 0)
+        overlap = set(affine_lvls) & set(
+            nest_analysis.varying_levels(idx_ref))
+        if overlap:
+            raise LoweringError(
+                f"indirect ref '{ref.name}': affine additive levels "
+                f"{sorted(overlap)} coincide with the index stream's "
+                "varying levels; the gather address would double-count "
+                "those loop indices")
+        gathers.append(IndirectGather(
+            name=ref.name, index_of=ref.index_of,
+            index_pos=in_slot[ref.index_of],
+            scale=ref.index_scale, offset=ref.offset,
+            levels=affine_lvls,
+            grid_pos=tuple(pos[l] for l in affine_lvls),
+            tiles=tuple(tiles[l] for l in affine_lvls),
+            coeffs=tuple(ref.coeffs[l] for l in affine_lvls)))
 
     return LoweredNest(plan=plan, policy=policy, grid=grid, tiles=tiles,
                        in_streams=tuple(ins), out_stream=outs[0],
                        contraction_axes=tuple(sorted(pos[z] for z in zaxes)),
                        schedule=sched, axis_order=axis_order,
-                       padded_bounds=tuple(padded), halos=tuple(halos),
-                       rescale=rescale)
+                       padded_bounds=tuple(padded), gathers=tuple(gathers),
+                       halos=tuple(halos), rescale=rescale)
 
 
 # --------------------------------------------------------------------------
@@ -829,6 +899,12 @@ def _plan_for(nest: LoopNest, num_lanes: int) -> StreamPlan:
 
 
 @functools.lru_cache(maxsize=CACHE_MAX)
+def plan_stats(nest: LoopNest, num_lanes: int = 2) -> StreamPlan:
+    """The static-verdict plan (no force) — Eq. (1)–(3) cost accounting."""
+    return ssrify(nest, num_lanes=num_lanes)
+
+
+@functools.lru_cache(maxsize=CACHE_MAX)
 def _lowered_for(plan: StreamPlan, sched: Schedule, nested: bool):
     """Lowered-schedule cache: the pure-Python lowering per (plan, sched)."""
     if nested:
@@ -836,7 +912,7 @@ def _lowered_for(plan: StreamPlan, sched: Schedule, nested: bool):
     return lower_plan(plan, schedule=sched)
 
 
-_PLAN_CACHES = (_plan_for, _lowered_for)
+_PLAN_CACHES = (_plan_for, plan_stats, _lowered_for)
 
 #: ``builds`` counts streamed kernels built (cache misses), ``calls``
 #: counts ``ssr_call``/``prepare_call`` entries.  A repeated identical call
@@ -991,11 +1067,52 @@ def _map_out_stream(grid: Tuple[int, ...], policy: BlockPolicy) -> BlockStream:
                        name="out")
 
 
+def _table_view_shape(shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    """The ≥2-D view a gather table takes (rank-1 gains a row)."""
+    return shape if len(shape) >= 2 else (1,) + tuple(shape)
+
+
+def _index_extent(ns: NestStream) -> Tuple[int, int]:
+    """(rows, cols) of a stream's 2-D layout that hold its operand."""
+    if not ns.levels:
+        return tuple(ns.layout_shape)
+    if len(ns.levels) == 1:
+        return (1, ns.logical_shape[0])
+    return (math.prod(ns.logical_shape[:-1]), ns.logical_shape[-1])
+
+
+def _gather_agus(lowered: LoweredNest) -> Tuple[agu.GatherAGU, ...]:
+    """Each gather's address program; its table is read stream
+    ``len(in_streams) + i``."""
+    n_in = len(lowered.in_streams)
+    return tuple(
+        agu.GatherAGU(index=g.index_pos, table=n_in + i, scale=g.scale,
+                      offset=g.offset, grid_pos=g.grid_pos, tiles=g.tiles,
+                      coeffs=g.coeffs,
+                      extent=_index_extent(lowered.in_streams[g.index_pos]))
+        for i, g in enumerate(lowered.gathers))
+
+
+def _table_streams(lowered: LoweredNest,
+                   tables: Sequence[Tuple[int, ...]]) -> list:
+    """Each gather table as a read stream whose one block is the whole
+    (≥2-D) table, revisited by every step."""
+    return [BlockStream(tuple(t), lambda *_g, _nd=len(t): (0,) * _nd,
+                        direction=Direction.READ, name=g.name)
+            for g, t in zip(lowered.gathers, tables)]
+
+
 def _build_nest_kernel(lowered: LoweredNest, body: Callable,
-                       out_dtype: torch.dtype) -> SsrKernel:
+                       out_dtype: torch.dtype,
+                       tables: Sequence[Tuple[int, ...]] = ()) -> SsrKernel:
     """A level-mapped kernel: ``body(*read_blocks)`` is one output-block
     partial per step, accumulated in ``schedule.acc_dtype`` over the
     contraction axes and cast to ``out_dtype`` on the drain.
+
+    With ``lowered.gathers``, ``tables`` gives one (≥2-D) shape per gather:
+    each table rides as a trailing read stream whose block is the whole
+    table at every step (FIFO depth 2, as the reference accounts it), and
+    the body receives the gathered blocks after the streamed ones.
 
     A halo'd ref's shifted streams reach the body as ONE widened block.
     With ``lowered.rescale`` the accumulator is the online-softmax triple:
@@ -1012,20 +1129,32 @@ def _build_nest_kernel(lowered: LoweredNest, body: Callable,
                if lowered.contraction_axes else 0)
     level_tiles: Tuple[Tuple[int, int], ...] = ()
     if lowered.rescale:
+        if lowered.gathers:
+            raise LoweringError(
+                "the online-softmax accumulator takes no gathers in this "
+                "port; give the nest dense streams")
         scratch += 2 * scratch_bytes((acc_shape[0], 1), acc_dtype)
         pos = {lvl: k for k, lvl in enumerate(lowered.axis_order)}
         level_tiles = tuple((pos[l], t) for l, t in enumerate(lowered.tiles))
+    if len(tables) != len(lowered.gathers):
+        raise ValueError(f"{len(lowered.gathers)} gathers, got "
+                         f"{len(tables)} table shapes")
+    depths = _depths_for(lowered.schedule, len(lowered.in_streams))
+    if lowered.gathers:
+        if isinstance(depths, int):
+            depths = (depths,) * len(lowered.in_streams)
+        depths = tuple(depths) + (2,) * len(lowered.gathers)
     return SsrKernel(
         body, mode="nest", grid=lowered.grid,
-        in_streams=[s.stream for s in lowered.in_streams],
+        in_streams=[s.stream for s in lowered.in_streams]
+        + _table_streams(lowered, tables),
         out_stream=lowered.out_stream.stream,
         out_shape=lowered.out_stream.layout_shape,
         out_dtype=out_dtype, acc_dtype=acc_dtype,
         contraction_axes=lowered.contraction_axes,
-        scratch_bytes=scratch,
-        buffer_depth=_depths_for(lowered.schedule, len(lowered.in_streams)),
+        scratch_bytes=scratch, buffer_depth=depths,
         halos=lowered.halos, rescale=lowered.rescale,
-        level_tiles=level_tiles)
+        level_tiles=level_tiles, gathers=_gather_agus(lowered))
 
 
 def _trim_nest_output(out: torch.Tensor, lowered: LoweredNest) -> torch.Tensor:
@@ -1071,11 +1200,13 @@ class PreparedCall:
 
 def build_kernel(lowered: Any, body: Callable, mode: str,
                  out_dtype: torch.dtype,
-                 uniforms: Sequence[Tuple[int, ...]] = ()) -> SsrKernel:
+                 uniforms: Sequence[Tuple[int, ...]] = (),
+                 tables: Sequence[Tuple[int, ...]] = ()) -> SsrKernel:
     """The :class:`SsrKernel` of a lowered schedule (flat or level-mapped):
-    its geometry is what the Hopper kernel is programmed with."""
+    its geometry is what the Hopper kernel is programmed with.  ``tables``
+    are the gather tables' (≥2-D) shapes of a level-mapped call."""
     if isinstance(lowered, LoweredNest):
-        return _build_nest_kernel(lowered, body, out_dtype)
+        return _build_nest_kernel(lowered, body, out_dtype, tables)
     return _build_kernel(lowered, body, mode, out_dtype, uniforms)
 
 
@@ -1110,7 +1241,16 @@ def stream_layouts(lowered: Any, arrays: Sequence[torch.Tensor],
                    lead: Tuple[int, ...] = ()) -> Tuple[torch.Tensor, ...]:
     """Each read stream's padded layout of its operand (with ``lead``
     leading batch dims on a level-mapped call).  A halo'd ref's shifted
-    streams address one layout, laid out once and shared."""
+    streams address one layout, laid out once and shared.  Arrays past the
+    read streams are the gather tables, in ``lowered.gathers`` order: each
+    is passed whole, as its contiguous ≥2-D view."""
+    n_in = len(lowered.in_streams)
+    gathers = getattr(lowered, "gathers", ())
+    if len(arrays) != n_in + len(gathers):
+        raise ValueError(f"{n_in} read streams and {len(gathers)} gather "
+                         f"tables, got {len(arrays)} operands")
+    if lead and gathers:
+        raise ValueError("a call with gathers takes no batch dims")
     twin = {s: h.slots[0] for h in getattr(lowered, "halos", ())
             for s in h.slots[1:]}
     out: list = []
@@ -1119,6 +1259,8 @@ def stream_layouts(lowered: Any, arrays: Sequence[torch.Tensor],
             out.append(out[twin[k]])
         else:
             out.append(s.prepare(a, lead) if lead else s.prepare(a))
+    for t in arrays[n_in:]:
+        out.append(t.reshape(_table_view_shape(tuple(t.shape))).contiguous())
     return tuple(out)
 
 
@@ -1133,18 +1275,25 @@ def _prepare(nest: LoopNest, body: Callable, operands: Dict[str, Any],
     if has_output:
         mode = "nest"          # the output ref, not the mode, shapes the call
     lowered = _lowered_for(plan, sched, has_output)
+    gathers = lowered.gathers if has_output else ()
     missing = [s.name for s in lowered.in_streams if s.name not in operands]
+    missing += [g.name for g in gathers if g.name not in operands]
     if missing:
         raise ValueError(f"missing operands for streams {missing}")
-    arrays = [to_device(operands[s.name], dev) for s in lowered.in_streams]
+    # gather tables travel after the streamed operands
+    arrays = [to_device(operands[s.name], dev)
+              for s in (*lowered.in_streams, *gathers)]
     key = (nest, sched, mode, _body_key(body), out_dtype,
            tuple((tuple(a.shape), a.dtype) for a in arrays),
            _uniform_sig(uni), num_lanes)
     kernel = _kernel_cache_get(key)
     if kernel is None:
         resilience.inject("compile")
-        kernel = build_kernel(lowered, body, mode, out_dtype,
-                              tuple(tuple(a.shape) for _, a in uni))
+        kernel = build_kernel(
+            lowered, body, mode, out_dtype,
+            tuple(tuple(a.shape) for _, a in uni),
+            tuple(_table_view_shape(tuple(a.shape))
+                  for a in arrays[len(lowered.in_streams):]))
         DISPATCH_STATS["builds"] += 1
         _kernel_cache_put(key, kernel)
     layouts = stream_layouts(lowered, arrays)

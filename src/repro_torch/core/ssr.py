@@ -265,7 +265,11 @@ class SsrKernel:
     at every step.  ``halos`` (the lowering's ``HaloRead``\\ s) widen
     shifted read streams into one block per step; ``rescale`` makes the
     nest accumulator the online-softmax (m, l, acc) triple, whose body also
-    receives the per-level global offsets (``level_tiles``).
+    receives the per-level global offsets (``level_tiles``).  ``gathers``
+    (:class:`~repro_torch.core.agu.GatherAGU`) are the indirect refs'
+    address programs: their tables are the trailing read streams (whole
+    arrays at every step), and the body receives the gathered blocks after
+    the other streams' blocks.
     """
 
     def __init__(self, body: Callable, *, mode: str,
@@ -282,7 +286,8 @@ class SsrKernel:
                  program: Optional[StageProgram] = None,
                  halos: Tuple[Any, ...] = (),
                  rescale: bool = False,
-                 level_tiles: Tuple[Tuple[int, int], ...] = ()):
+                 level_tiles: Tuple[Tuple[int, int], ...] = (),
+                 gathers: Tuple[agu.GatherAGU, ...] = ()):
         if mode not in hopper.PLAIN:
             raise ValueError(f"unknown ssr_call mode {mode!r}")
         for s in in_streams:
@@ -310,7 +315,8 @@ class SsrKernel:
             out=out_stream.agu(self.grid),
             out_shape=tuple(out_shape),
             contraction_axes=tuple(contraction_axes),
-            halos=tuple(halos), level_tiles=tuple(level_tiles))
+            halos=tuple(halos), level_tiles=tuple(level_tiles),
+            gathers=tuple(gathers))
 
     @property
     def plain_kind(self) -> str:

@@ -1,0 +1,116 @@
+// K12 gather_spmv: y_blk += sum_j vals[i, j] * x[clip(scale * cidx[i, j] +
+// offset)] over the trailing contraction axes, in f32 -- the indirection
+// stream: cidx's block feeds the gather's addresses.
+//
+// Replaces the TPU kernel repro/core/ssr.py:ssr_pallas (sync emitter) with
+// the contraction branch of repro/core/lowering.py:_build_nest_kernel, the
+// gather repro/core/lowering.py:_gather_block and its table stream (the
+// whole table as a revisited invariant block, lowering.py:1546-1558), and
+// the body repro/kernels/sparse.py:_body_spmv.  For HPCG's 27-point operator
+// on a 128^3 grid the default lowering gives grid (4096, 1), (parallel,
+// arbitrary), vals and cidx blocks (512, 128) of (m, 128) layouts, y (1, 512).
+//
+// Bound on H100: bytes.  vals and cidx at their logical width k, x and y
+// once each (448 MiB for HPCG 128^3: 0.140 ms at 3.35 TB/s).  x (8 MiB) is
+// gathered through the 50 MB L2 and the read-only path.
+//
+// Design.  The lowering pads k = 27 to a 128-lane tile; reading the whole
+// tile would move 4.7x the bytes.  So the kernel reads only the positions of
+// the index block that hold data -- the extent (valid_rows, valid_cols) of
+// cidx's layout, from the nest -- and skips the rest, whose vals are 0.  The
+// TPU's grid step is one CTA of 256 threads per 64 rows of the lowered row
+// block; a row of 27 entries would leave most of a warp idle, so a row gets
+// a group of 4 threads (an eighth of a warp: eight rows under each warp
+// load, which beat 1, 2, 8 and 16 threads a row on HPCG's operator), each
+// loading four of its entries (vals and cidx) before it issues their four
+// gathers.  The contraction steps (k beyond one lane tile) run as a loop
+// inside the CTA, the sum carried in registers; the group folds its sums by
+// shuffles and writes y once.  Addresses are 64-bit and clipped into the
+// table, as the reference clips them, so nothing is read outside it.
+#include "ssr_common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kGroup = 4;                          // threads per ELL row
+constexpr int kRowsPerCta = kThreads / kGroup;     // 64
+constexpr int kPer = 4;                            // entries a thread holds
+
+__global__ void __launch_bounds__(kThreads)
+    gather_spmv_kernel(const float* __restrict__ vals,
+                       const int32_t* __restrict__ cidx,
+                       const float* __restrict__ table, float* __restrict__ y,
+                       SsrGrid g, SsrStream sv, SsrStream sc, SsrStream sy,
+                       int64_t zsteps, int64_t groups, int64_t scale,
+                       int64_t offset, int64_t table_elems, int64_t valid_rows,
+                       int64_t valid_cols) {  // groups: CTAs per row block
+  const int64_t p = blockIdx.x / groups;
+  const int64_t grp = blockIdx.x % groups;
+  const int t = threadIdx.x % kGroup;
+  const int64_t tm = sc.block[0], tk = sc.block[1];
+  const int64_t r = grp * kRowsPerCta + threadIdx.x / kGroup;  // row in block
+  const bool live = r < tm;
+  float acc = 0.f;
+
+  SsrOdometer odo(g, p * zsteps);
+  for (int64_t z = 0; z < zsteps; ++z, odo.advance(g)) {
+    const int64_t row = odo.index(sc, 0) * tm + r;
+    const int64_t col0 = odo.index(sc, 1) * tk;
+    const int64_t ncols = valid_cols - col0 < tk ? valid_cols - col0 : tk;
+    if (!live || row >= valid_rows || ncols <= 0) continue;
+    const float* pv = vals + odo.origin(sv) + r * sv.pitch;
+    const int32_t* pc = cidx + odo.origin(sc) + r * sc.pitch;
+    for (int64_t j0 = t; j0 < ncols; j0 += kGroup * kPer) {
+      float v[kPer];
+      int64_t a[kPer];
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        const int64_t j = j0 + q * kGroup;
+        v[q] = 0.f;
+        a[q] = 0;
+        if (j < ncols) {
+          v[q] = __ldg(pv + j);
+          const int64_t addr = static_cast<int64_t>(__ldg(pc + j)) * scale + offset;
+          a[q] = addr < 0 ? 0 : (addr >= table_elems ? table_elems - 1 : addr);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kPer; ++q)
+        if (j0 + q * kGroup < ncols) acc = fmaf(v[q], __ldg(table + a[q]), acc);
+    }
+  }
+
+#pragma unroll
+  for (int o = kGroup / 2; o > 0; o >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, o, kGroup);
+  // drain: y's block is (1, tm); its element (0, r) sits at origin + r
+  if (live && t == 0) y[ssr_block_origin(sy, g, p * zsteps) + r] = acc;
+}
+
+}  // namespace
+
+// vals (f32) and cidx (int32) share one walk; the table is the whole x.
+// `valid_rows`/`valid_cols` bound the positions of cidx's layout that hold
+// data; `scale`, `offset` and `table_elems` are the gather's program.
+extern "C" int ssr_gather_spmv(const void* vals, const void* cidx,
+                               const void* table, void* y, const SsrGrid* g,
+                               const SsrStream* sv, const SsrStream* sc,
+                               const SsrStream* sy, int64_t zsteps,
+                               int64_t scale, int64_t offset,
+                               int64_t table_elems, int64_t valid_rows,
+                               int64_t valid_cols, void* stream) {
+  int64_t steps = 1;
+  for (int k = 0; k < g->ndim; ++k) steps *= g->dims[k];
+  const int64_t groups = (sc->block[0] + kRowsPerCta - 1) / kRowsPerCta;
+  const int64_t ctas = (steps / zsteps) * groups;
+  if (ctas < 1 || ctas > 0x7fffffffLL || table_elems < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  gather_spmv_kernel<<<static_cast<unsigned>(ctas), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(vals), static_cast<const int32_t*>(cidx),
+      static_cast<const float*>(table), static_cast<float*>(y), *g, *sv, *sc,
+      *sy, zsteps, groups, scale, offset, table_elems, valid_rows, valid_cols);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int64_t ssr_gather_spmv_smem_bytes() { return 0; }

@@ -60,6 +60,15 @@ struct SsrOdometer {
     }
   }
 
+  // Block index along dim `d` (0: rows, 1: columns) of the block `s`
+  // delivers here.
+  __device__ __forceinline__ int64_t index(const SsrStream& s, int d) const {
+    int64_t i = s.offset[d];
+#pragma unroll
+    for (int k = 0; k < SSR_MAX_AXES; ++k) i += g[k] * s.coeff[k][d];
+    return i;
+  }
+
   // Flat position of the (0, 0) element of the block `s` delivers here.
   __device__ __forceinline__ int64_t origin(const SsrStream& s) const {
     int64_t i0 = s.offset[0], i1 = s.offset[1];

@@ -1,6 +1,7 @@
-"""The port's streamed kernel suite: reduction, relu, gemm, gemv, the fused
-chains (gemv_relu, sum_sq_diff, axpy_dot) and DAGs (layernorm, softmax_xent,
-mlp_block).
+"""The port's streamed kernel suite: reduction, relu, gemm, gemv, the
+stencils, attention, the sparse products (spmv, spmm), the fused chains
+(gemv_relu, sum_sq_diff, axpy_dot, stencil1d_relu) and DAGs (layernorm,
+softmax_xent, mlp_block).
 
 Each module declares its kernel as a LoopNest plus a tagged block body
 (:class:`~repro_torch.core.ssr.KernelBody`) and registers it; ``ops`` is
@@ -17,3 +18,4 @@ from .gemv import ssr_gemv  # noqa: F401
 from .reduction import ssr_dot  # noqa: F401
 from .registry import entries, get, register_kernel  # noqa: F401
 from .relu import ssr_elementwise, ssr_relu  # noqa: F401
+from .sparse import ssr_sparse_gemv, ssr_spmm, ssr_spmv  # noqa: F401

@@ -53,6 +53,27 @@ def flash_attention(q, k, v, *, causal: bool = False,
                              device=device)
 
 
+def spmv(data, indices, indptr, x, *, ssr: Optional[bool] = None,
+         device: DeviceLike = None):
+    """CSR sparse-matrix × dense-vector via the indirection-stream path."""
+    return registry.dispatch("spmv", data, indices, indptr, x, ssr=ssr,
+                             device=device)
+
+
+def spmm(data, indices, indptr, x, *, ssr: Optional[bool] = None,
+         device: DeviceLike = None):
+    """CSR sparse-matrix × dense-matrix via the indirection-stream path."""
+    return registry.dispatch("spmm", data, indices, indptr, x, ssr=ssr,
+                             device=device)
+
+
+def sparse_gemv(data, indices, indptr, x, *, ssr: Optional[bool] = None,
+                device: DeviceLike = None):
+    """The sparse-row generalisation of :func:`gemv` (alias of spmv)."""
+    return registry.dispatch("spmv", data, indices, indptr, x, ssr=ssr,
+                             device=device)
+
+
 # -- fused (stream-chained) ops ---------------------------------------------
 # One kernel each: the producer's result reaches the consumer on chip, never
 # through device memory.  ``ssr=False`` runs the PyTorch oracle.

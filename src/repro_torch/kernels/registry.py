@@ -26,7 +26,7 @@ from .frontend import on_device
 
 # Every module under repro_torch.kernels that registers a kernel.
 _KERNEL_MODULES = ("reduction", "relu", "gemv", "gemm", "stencil",
-                   "attention", "chained", "dag")
+                   "attention", "chained", "dag", "sparse")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

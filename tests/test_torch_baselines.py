@@ -20,7 +20,7 @@ import repro_torch
 from repro_torch.core import hopper
 from repro_torch.core.ssr import KernelBody, LoweringError
 from repro_torch.kernels import (frontend, gemm, gemv, reduction, registry,
-                                 relu, stencil)
+                                 relu, sparse, stencil)
 
 KERNELS = ["reduction", "relu", "gemm", "gemv"]
 RELU_SPECIALS = np.array([-0.0, 0.0, np.nan, -np.inf, np.inf, -1e-30, 1e-30,
@@ -187,8 +187,11 @@ def test_baseline_bodies_name_their_kernels():
     assert frontend.baseline_kernel(gemv.BASE_MATVEC) is hopper.base_gemv
     assert frontend.baseline_kernel(stencil.BASE_STENCIL1D) is \
         hopper.base_stencil1d
+    assert frontend.baseline_kernel(sparse.BASE_SPMV) is hopper.base_spmv
+    assert frontend.baseline_kernel(sparse.BASE_SPMM) is hopper.base_spmm
     assert sorted(hopper.BASELINE_KERNELS) == ["dot", "matvec", "mul",
-                                               "relu", "stencil1d"]
+                                               "relu", "spmm", "spmv",
+                                               "stencil1d"]
 
 
 def test_custom_fn_baseline_runs_on_cpu_and_has_no_card_kernel():

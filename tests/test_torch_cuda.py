@@ -748,3 +748,218 @@ def test_rescale_attention_takes_a_misaligned_view(dev):
     want = attention.ssr_flash_attention(q.clone(), k.clone(), v.clone(),
                                          causal=True, device=dev)
     assert torch.equal(got, want)
+
+
+# -- the gather kernels (K12, K13) and their baselines (B6, B7) ---------------
+
+# spmv/spmm: max |kernel − plain| over Σ_j |v_ij|·|x_cidx| per output (short
+# signed sums: nvcc contracts into FMA, PyTorch rounds each product), the
+# stencils' rule
+SPARSE_LIMIT = 1e-6
+
+
+def _csr_case(name, seed):
+    """(data, indices, indptr, n): the odd inputs of the card checks."""
+    from repro_torch.kernels import sparse
+    rng = np.random.default_rng(seed)
+    if name == "example":
+        return (*sparse.random_csr(rng, 37, 53, 0.1), 53)
+    if name == "zero":
+        return (np.zeros(0, np.float32), np.zeros(0, np.int64),
+                np.zeros(6, np.int64), 7)
+    if name == "empty_rows":
+        return (np.asarray([1.0, 2.0, 3.0, 4.0], np.float32),
+                np.asarray([0, 1, 2, 3]), np.asarray([0, 0, 4, 4, 4]), 5)
+    if name == "one":
+        return (np.asarray([3.0], np.float32), np.asarray([0]),
+                np.asarray([0, 1]), 1)
+    if name in ("row300", "row600"):        # one long row: k > 128
+        k = int(name[3:])
+        cols = np.sort(rng.choice(1000, k, replace=False))
+        data = rng.standard_normal(k + 2).astype(np.float32)
+        return (data, np.concatenate([cols, [5, 9]]),
+                np.asarray([0, k, k + 1, k + 2]), 1000)
+    if name == "hpcg":
+        data, indices, indptr = sparse.hpcg_operator(8, 8, 8)
+        return data.numpy(), indices.numpy(), indptr.numpy(), 512
+    raise KeyError(name)
+
+
+SPARSE_CASES = ["example", "zero", "empty_rows", "one", "row300", "row600",
+                "hpcg"]
+SPARSE_SCHEDULES = [lowering.DEFAULT_SCHEDULE,
+                    lowering.Schedule(lanes_tile_factor=1, rows_tile_factor=2)]
+
+
+def _ell_on(dev, data, indices, indptr, n):
+    from repro_torch.kernels import sparse
+    vals, cidx, m, k = sparse.csr_to_ell(data, indices, indptr, n)
+    return (torch.from_numpy(vals).to(dev), torch.from_numpy(cidx).to(dev),
+            m, k)
+
+
+def _sparse_check(call, launched, want_kernel):
+    got = call.run()
+    assert _launched(launched) == {want_kernel}
+    want = call.finish(call.kernel.plain(call.layouts))
+    scale = call.finish(call.kernel.plain(tuple(t.abs()
+                                                for t in call.layouts)))
+    assert got.shape == want.shape
+    assert float(((got - want).abs() / (scale + 1e-30)).max()) \
+        <= SPARSE_LIMIT
+    return got
+
+
+def _oracle_check(ssr, baseline, ref, kernels, data, indices, indptr, x,
+                  dev):
+    """The entry point and its baseline, one launch each, against the
+    densified oracle within the registry tol (1e-5) of the terms' sizes,
+    Σ_j |v_ij|·|x_cidx|: a row of 600 terms sums them in another order."""
+    want = ref(data, indices, indptr, x)
+    scale = ref(np.abs(data), indices, indptr, x.abs())
+    for variant, kname in zip((ssr, baseline), kernels):
+        before = dict(hopper.LAUNCHES)
+        got = variant(data, indices, indptr, x, device=dev)
+        assert _launched(before) == {kname}
+        assert got.shape == want.shape
+        assert bool(((got - want).abs() <= 1e-5 + 1e-5 * scale).all())
+
+
+@pytest.mark.parametrize("case", SPARSE_CASES)
+def test_gather_spmv(dev, case):
+    from repro_torch.kernels import sparse
+    data, indices, indptr, n = _csr_case(case, 3)
+    vals, cidx, m, k = _ell_on(dev, data, indices, indptr, n)
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn(n, generator=g, device=dev)
+    for sched in SPARSE_SCHEDULES:
+        call = lowering.prepare_call(compiler.spmv_nest(m, k), sparse.SPMV,
+                                     {"vals": vals, "cidx": cidx, "x": x},
+                                     schedule=sched, device=dev)
+        _sparse_check(call, dict(hopper.LAUNCHES), "gather_spmv")
+    _oracle_check(sparse.ssr_spmv, sparse.baseline_spmv, sparse.ref_spmv,
+                  ("gather_spmv", "base_spmv"), data, indices, indptr, x, dev)
+
+
+@pytest.mark.parametrize("c", [1, 17, 128, 200])
+@pytest.mark.parametrize("case", SPARSE_CASES)
+def test_gather_spmm(dev, case, c):
+    from repro_torch.kernels import sparse
+    data, indices, indptr, n = _csr_case(case, 4)
+    vals, cidx, m, k = _ell_on(dev, data, indices, indptr, n)
+    g = torch.Generator(device=dev).manual_seed(n * c)
+    x = torch.randn(n, c, generator=g, device=dev)
+    pitch = -(-c // 128) * 128
+    xp = torch.nn.functional.pad(x, (0, pitch - c))
+    for sched in SPARSE_SCHEDULES:
+        call = lowering.prepare_call(compiler.spmm_nest(m, c, k, pitch),
+                                     sparse.SPMM,
+                                     {"vals": vals, "cidx": cidx, "X": xp},
+                                     schedule=sched, device=dev)
+        _sparse_check(call, dict(hopper.LAUNCHES), "gather_spmm")
+    _oracle_check(sparse.ssr_spmm, sparse.baseline_spmm, sparse.ref_spmm,
+                  ("gather_spmm", "base_spmm"), data, indices, indptr, x, dev)
+
+
+@pytest.mark.parametrize("case", SPARSE_CASES)
+def test_base_spmv_and_spmm(dev, case):
+    data, indices, indptr, n = _csr_case(case, 5)
+    vals, cidx, m, k = _ell_on(dev, data, indices, indptr, n)
+    g = torch.Generator(device=dev).manual_seed(n + 1)
+    x = torch.randn(1, n, generator=g, device=dev)
+    X = torch.randn(n, 200, generator=g, device=dev)
+    for wrapper, plain, table in (
+            (hopper.base_spmv, hopper.plain_base_spmv, x),
+            (hopper.base_spmm, hopper.plain_base_spmm, X)):
+        before = dict(hopper.LAUNCHES)
+        got = wrapper(vals, cidx, table)
+        assert _launched(before) == {wrapper.__name__}
+        want = plain(vals, cidx, table)
+        scale = plain(vals.abs(), cidx, table.abs())
+        assert float(((got - want).abs() / (scale + 1e-30)).max()) \
+            <= SPARSE_LIMIT
+
+
+def test_gather_addresses_are_64_bit(dev):
+    """cidx · 128 past 2**31: a table of 2**31 + 2048 elements (8 GiB) read
+    at rows beyond 2**24 gives the rows' values, not a wrapped address."""
+    from repro_torch.kernels import sparse
+    n, c = (1 << 24) + 16, 128
+    X = torch.zeros(n, c, device=dev)
+    rows = torch.arange(n - 8, n, device=dev)
+    X[rows] = torch.arange(8 * c, dtype=torch.float32,
+                           device=dev).reshape(8, c) + 1
+    X[rows - (1 << 24)] = -7.0         # where a 32-bit wrap would land
+    indices = np.arange(n - 8, n, dtype=np.int64)
+    data = np.ones(8, np.float32)
+    indptr = np.arange(9, dtype=np.int64)
+    before = dict(hopper.LAUNCHES)
+    got = sparse.ssr_spmm(data, indices, indptr, X, device=dev)
+    assert _launched(before) == {"gather_spmm"}
+    assert torch.equal(got, X[rows])
+    got_b = sparse.baseline_spmm(data, indices, indptr, X, device=dev)
+    assert torch.equal(got_b, X[rows])
+    del X
+
+
+def test_pack_ell_on_the_card_matches_csr_to_ell(dev):
+    from repro_torch.kernels import sparse
+    data, indices, indptr = sparse.hpcg_operator(6, 5, 4, device=dev)
+    n = 6 * 5 * 4
+    got = sparse.pack_ell(data, indices, indptr, n)
+    want = sparse.csr_to_ell(data.cpu().numpy(), indices.cpu().numpy(),
+                             indptr.cpu().numpy(), n)
+    assert got[2:] == want[2:]
+    assert torch.equal(got[0].cpu(), torch.from_numpy(want[0]))
+    assert torch.equal(got[1].cpu(), torch.from_numpy(want[1]))
+    bad = indptr.clone()
+    bad[3] = bad[2] - 1
+    with pytest.raises(ValueError, match="indptr must be non-decreasing"):
+        sparse.pack_ell(data, indices, bad, n)
+    with pytest.raises(ValueError, match="column index out of range"):
+        sparse.pack_ell(data, indices, indptr, n - 1)
+
+
+def test_sparse_entry_points_launch_or_raise_never_plain(dev, monkeypatch):
+    """On the card spmv, sparse_gemv and spmm launch K12/K13 (one launch a
+    call) and the baselines B6/B7; no plain version runs."""
+    from repro_torch.kernels import sparse
+
+    def no_plain(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setitem(hopper.PLAIN, "nest", no_plain)
+    monkeypatch.setattr(hopper, "plain_base_spmv", no_plain)
+    monkeypatch.setattr(hopper, "plain_base_spmm", no_plain)
+    data, indices, indptr = sparse.hpcg_operator(8, 8, 8, device=dev)
+    x = torch.rand(512, device=dev)
+    X = torch.randn(512, 40, device=dev)
+    for fn, want in (
+            (lambda: ops.spmv(data, indices, indptr, x, ssr=True),
+             {"gather_spmv": 1}),
+            (lambda: ops.sparse_gemv(data, indices, indptr, x, ssr=True),
+             {"gather_spmv": 1}),
+            (lambda: ops.spmm(data, indices, indptr, X, ssr=True),
+             {"gather_spmm": 1}),
+            (lambda: registry.get("spmv").baseline(data, indices, indptr, x),
+             {"base_spmv": 1}),
+            (lambda: registry.get("spmm").baseline(data, indices, indptr, X),
+             {"base_spmm": 1})):
+        before = dict(hopper.LAUNCHES)
+        fn()
+        assert {k: v - before[k] for k, v in hopper.LAUNCHES.items()
+                if v != before[k]} == want
+
+
+def test_gather_skips_the_lowering_pad_lanes(dev):
+    """x[0] = inf: K12 reads only the lanes holding data, as its plain
+    version does, so a full row stays finite; a row with an ELL pad (its
+    (0.0, 0) entry) is NaN on both, and on B6 every row that reads x[0]."""
+    from repro_torch.kernels import sparse
+    data = np.asarray([1.0, 2.0, 3.0], np.float32)
+    indices, indptr = np.asarray([1, 2, 3]), np.asarray([0, 2, 3])
+    x = torch.tensor([float("inf"), 1.0, 2.0, 3.0], device=dev)
+    got = sparse.ssr_spmv(data, indices, indptr, x, device=dev)
+    assert float(got[0]) == 5.0 and bool(torch.isnan(got[1]))
+    base = sparse.baseline_spmv(data, indices, indptr, x, device=dev)
+    assert float(base[0]) == 5.0 and bool(torch.isnan(base[1]))

@@ -107,7 +107,11 @@ def test_wrappers_refuse_cpu_tensors(name):
                      "base_gemm": (t, torch.zeros(128, 8)),
                      "base_gemv": (t, torch.zeros(1, 128)),
                      "base_stencil1d": (torch.zeros(1, 138),
-                                        torch.zeros(1, 11))}
+                                        torch.zeros(1, 11)),
+                     "base_spmv": (t, torch.zeros(8, 128, dtype=torch.int32),
+                                   torch.zeros(1, 64)),
+                     "base_spmm": (t, torch.zeros(8, 128, dtype=torch.int32),
+                                   torch.zeros(64, 8))}
     n_in = 1 if name == "map_relu" else 2
     before = dict(hopper.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA tensors"):
@@ -194,3 +198,21 @@ def test_new_entry_points_never_run_plain_for_the_card(op, args):
         getattr(ops, op)(*tensors, ssr=True, device="cuda")
     out = getattr(ops, op)(*tensors, ssr=True, device="cpu")
     assert out.device.type == "cpu" and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("op", ["spmv", "sparse_gemv", "spmm"])
+def test_sparse_entry_points_never_run_plain_for_the_card(op):
+    """Asked for the card without one, the sparse entry points raise
+    before packing anything; on the CPU they run the plain versions."""
+    from repro_torch.kernels import sparse
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks a machine "
+                    "without one")
+    csr = sparse.hpcg_operator(3, 3, 3)
+    x = torch.ones(27) if op != "spmm" else torch.ones(27, 4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        getattr(ops, op)(*csr, x, ssr=True, device="cuda")
+    out = getattr(ops, op)(*csr, x, ssr=True, device="cpu")
+    assert out.device.type == "cpu" and bool(torch.isfinite(out).all())
+    # the operator's rows sum to 26 − (neighbours): the corner row has 7
+    assert float(out.reshape(27, -1)[0, 0]) == 26.0 - 7.0

@@ -25,7 +25,7 @@ from repro_torch.kernels.relu import ssr_elementwise, ssr_relu
 
 KERNELS = ["reduction", "relu", "gemm", "gemv", "gemv_relu", "sum_sq_diff",
            "axpy_dot", "layernorm", "softmax_xent", "mlp_block", "stencil1d",
-           "stencil2d", "stencil1d_relu", "attention"]
+           "stencil2d", "stencil1d_relu", "attention", "spmv", "spmm"]
 # the single-nest kernels; the chains and DAGs have their own parity tests
 # (tests/test_torch_chained.py, tests/test_torch_dag.py)
 STREAMED = KERNELS[:4]
