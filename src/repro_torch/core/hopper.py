@@ -30,6 +30,16 @@ gather_spmv       nest         K12: ``spmv`` (y += vals·x[cidx], a gather)
 gather_spmm       nest         K13: ``spmm`` (Y += vals·X[cidx, c])
 ================  ===========  =============================================
 
+The waivered stream kernels run a module's :class:`~repro_torch.kernels.
+frontend.Launch` instead of a lowered schedule (:data:`STREAM_KERNELS`, by
+body op): K14 ``stream_scan`` (``scan``: the inclusive prefix sum, its
+carry combined by a deterministic second pass), K15 ``stream_fft``
+(``fft``: the radix-2 Stockham stages, in shared memory up to
+:data:`FFT_SMEM_POINTS` points, as global passes above) and K16
+``stream_bitonic`` (``bitonic``: the ascending sort network, its
+compare-exchanges below :data:`SORT_TILE` in shared memory).  A leading
+``parallel`` grid axis is a batch of rows (the counterpart of ``vmap``).
+
 A halo'd read arrives as ``2**k`` shifted streams (the lowering's
 ``HaloRead``); K9 and K10 read the widened block from the first slot's walk
 alone.  K11 runs the kv axis as a loop inside each CTA.  A gather's table
@@ -49,7 +59,8 @@ the reference's baseline bodies instead, and walk them with an explicit,
 serialised load per block (:data:`BASELINE_KERNELS`, by body op):
 ``base_reduce`` (``mul``), ``base_relu`` (``relu``), ``base_gemm``
 (``dot``), ``base_gemv`` (``matvec``), ``base_stencil1d``
-(``stencil1d``), ``base_spmv`` (``spmv``) and ``base_spmm`` (``spmm``).
+(``stencil1d``), ``base_spmv`` (``spmv``), ``base_spmm`` (``spmm``) and
+``base_scan`` (``scan``).
 Each runs on the same number of
 CTAs, with the same CTA tile, as its streamed counterpart, so the time of
 the pair is the card's SSR-against-baseline comparison.
@@ -70,7 +81,8 @@ bodies: they gather every step's blocks through the same AGU programming
 body (or the stages in order) to all steps at once (``torch.vmap``) and
 apply the reference's epilogue — the vector accumulator fold, the dense map
 write, the f32 contraction accumulator with its drain, the online-softmax
-recurrence over the kv steps.  Those of the
+recurrence over the kv steps.  :func:`plain_stream` runs a stream
+kernel's Launch as an in-order block walk of its body.  Those of the
 baselines (``plain_base_*``) run the baseline bodies' block walks on the
 same padded layouts.  The CPU runs them; the tests and ``chip_smoke.py``
 hold each kernel against them.
@@ -80,6 +92,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import math
 import os
@@ -89,6 +102,7 @@ from pathlib import Path
 from typing import (Any, Callable, Dict, Iterable, NamedTuple, Optional,
                     Sequence, Tuple, Union)
 
+import numpy as np
 import torch
 
 from .agu import SSR_MAX_AXES, BlockAGU, StreamGeometry, grid_steps
@@ -141,14 +155,29 @@ KERNELS: Dict[str, Dict[str, str]] = {
                   "source": "src/repro_torch/csrc/base_spmv.cu"},
     "base_spmm": {"replaces": "src/repro/kernels/sparse.py:248",
                   "source": "src/repro_torch/csrc/base_spmm.cu"},
+    "stream_scan": {"replaces": "src/repro/kernels/scan.py:28",
+                    "source": "src/repro_torch/csrc/stream_scan.cu"},
+    "stream_fft": {"replaces": "src/repro/kernels/fft.py:52",
+                   "source": "src/repro_torch/csrc/stream_fft.cu"},
+    "stream_bitonic": {"replaces": "src/repro/kernels/bitonic.py:29",
+                       "source": "src/repro_torch/csrc/stream_bitonic.cu"},
+    "base_scan": {"replaces": "src/repro/kernels/scan.py:64",
+                  "source": "src/repro_torch/csrc/base_scan.cu"},
 }
 
 #: Wrapper calls per kernel since the last :func:`reset_launches`: one per
 #: call that launched its kernel.  A call of ``reduce_mul``, ``base_reduce``,
 #: or of a reduce of ``chain_elem`` or ``dag_softmax_xent``, is two device
 #: launches (the per-CTA partials, then the one-CTA fold); every other
-#: kernel's call is one.  K4's relu drain counts as ``contract_gemv``, K9's
-#: as ``halo_stencil1d``; a K11 call over a head batch is one launch.
+#: kernel's call is one — except the stream kernels: a ``stream_scan`` or
+#: ``base_scan`` call is three (the tiles' totals, the one-CTA scan of the
+#: totals, the tiles' scans); a ``stream_fft`` call one for n up to
+#: FFT_SMEM_POINTS, else log2 n (one global pass a stage); a
+#: ``stream_bitonic`` call one for n up to SORT_TILE, else one tile sort
+#: plus, for each k = 2 SORT_TILE … n, a global pass for each j ≥ SORT_TILE
+#: and one tile merge (105 at n = 2**26).  K4's relu drain counts as
+#: ``contract_gemv``, K9's as ``halo_stencil1d``; a K11 call over a head
+#: batch is one launch, and so is a K15 or K16 call over a batch of rows.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
@@ -254,10 +283,14 @@ _SIGNATURES = {
     "gather_spmm": [_P, _P, _P, _P, _GP, _SP, _SP, _SP] + [_I64] * 8 + [_P],
     "base_spmv": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
     "base_spmm": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+    "stream_scan": [_P, _I, _P, _P, _I64, _I64, _P],
+    "base_scan": [_P, _I, _P, _P, _I64, _I64, _P],
+    "stream_fft": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _P],
+    "stream_bitonic": [_P, _P, _I, _I64, _I64, _P],
 }
 #: Arguments of a kernel's ``ssr_<name>_smem_bytes`` (none for the rest).
 _SMEM_SIGNATURES = {"halo_stencil1d": [_I64], "halo_stencil2d": [_I64],
-                    "rescale_attention": [_I64]}
+                    "rescale_attention": [_I64], "stream_fft": [_I64]}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -325,8 +358,9 @@ STENCIL_TAPS = 11
 #: CTAs per SM of K9 (and of B5, on K9's split): one wave at K9's
 #: occupancy.
 STENCIL_PER_SM = 8
-#: The head dim K11 holds: the lowered lanes tile.
-ATTENTION_LANES = 128
+#: The lanes tiles K11 holds (the head dim padded to a multiple of 128):
+#: 128 with 128-row query tiles, 256 with 64-row ones.
+ATTENTION_LANES = (128, 256)
 
 
 def _invariant(agu: BlockAGU, width: int) -> bool:
@@ -377,13 +411,13 @@ def _stencil2d_composes(geo: StreamGeometry) -> bool:
 
 
 def _attention_composes(geo: StreamGeometry) -> bool:
-    """K, V (tk, D), Q and O (tq, D) with D the held lanes tile, one
+    """K, V (tk, D), Q and O (tq, D) with D a held lanes tile, one
     contraction axis (the kv walk) along which Q and O stay put."""
     if len(geo.contraction_axes) != 1 or not geo.level_tiles or geo.halos:
         return False
     (kb, vb, qb), z = (a.block for a in geo.ins), geo.contraction_axes[0]
     return (kb == vb and qb == geo.out.block
-            and kb[1] == qb[1] == ATTENTION_LANES
+            and kb[1] == qb[1] and qb[1] in ATTENTION_LANES
             and not any(geo.ins[2].coeffs[z]) and not any(geo.out.coeffs[z]))
 
 
@@ -434,7 +468,7 @@ _TAKES: Dict[str, tuple] = {
     "halo_stencil2d": (6, _FLOATS, "the 11-point star over x widened by "
                        "its three shifted twins", _stencil2d_composes),
     "rescale_attention": (3, _FLOATS, "O = softmax(Q·Kᵀ)·V over the kv "
-                          "walk, head dim 128", _attention_composes),
+                          "walk, lanes tile 128 or 256", _attention_composes),
     "gather_spmv": (3, (torch.float32,), "y = Σ_j vals·x[scale·cidx + "
                     "offset], no affine level",
                     lambda geo: _gather_composes(geo, 0)),
@@ -724,6 +758,12 @@ def contract_gemv_relu(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
 # -- the halo and rescale kernels -------------------------------------------
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or its copy where it starts off a 16-byte boundary (a view
+    into a larger tensor): the kernels load 16-byte packs."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _halo_stencil1d(name: str, geo: StreamGeometry,
                     layouts: Sequence[torch.Tensor], out_dtype: torch.dtype,
                     program: Optional[Any], relu: bool) -> torch.Tensor:
@@ -817,7 +857,7 @@ def rescale_attention(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
     name = "rescale_attention"
     # K11 loads rows in 16-byte packs: a layout that is a view starting off
     # a 16-byte boundary (a slice of a larger tensor) is copied once
-    layouts = [t if t.data_ptr() % 16 == 0 else t.clone() for t in layouts]
+    layouts = [_aligned16(t) for t in layouts]
     heads, head0 = _heads(name, layouts)
     dev = _checked(name, geo, head0, program)
     if acc_dtype != torch.float32:
@@ -923,13 +963,184 @@ def gather_spmm(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
     16-byte load; the c tile in SPMM_COLS-wide chunks (grid y)."""
     name = "gather_spmm"
     # 16-byte gathers: a table view off a 16-byte boundary is copied once
-    layouts = [t if k != 2 or t.data_ptr() % 16 == 0 else t.clone()
-               for k, t in enumerate(layouts)]
+    layouts = [_aligned16(t) if k == 2 else t for k, t in enumerate(layouts)]
     dev, out, args = _gather_args(name, geo, layouts, out_dtype, acc_dtype,
                                   program)
     g = geo.gathers[0]
     _launch(name, dev, *args, g.grid_pos[0], g.tiles[0])
     return out
+
+
+# -- the stream kernels (StreamKernel) -----------------------------------------
+#
+# They run a module's Launch, not a lowered schedule: each wrapper checks that
+# the Launch is the one its kernel computes (grid, every stream's walk, the
+# output shapes, scratch and dimension semantics) besides the operands.
+
+#: K14's and B8's CTA tile: 4096 elements, 16 consecutive ones a thread.
+SCAN_TILE = 4096
+#: K15 runs a transform of up to this many points in one CTA's shared
+#: memory (re and im twice: 16 bytes a point); longer ones as global passes.
+FFT_SMEM_POINTS = 8192
+#: K16's shared-memory tile: compare-exchanges at distance j < SORT_TILE
+#: run in shared memory, those at j ≥ SORT_TILE as global passes.
+SORT_TILE = 8192
+
+
+def launch_walks(launch: Any) -> Tuple[Tuple[BlockAGU, ...],
+                                       Tuple[BlockAGU, ...]]:
+    """The AGU programming of a Launch's read and write streams; raises
+    when an index map is not affine."""
+    grid = tuple(launch.grid)
+    return (tuple(s.agu(grid) for s in launch.in_streams),
+            tuple(s.agu(grid) for s in launch.out_streams))
+
+
+def _same_walk(a: BlockAGU, b: BlockAGU, grid: Tuple[int, ...]) -> bool:
+    """The same blocks at every step: block, offset, and the coefficient of
+    every axis that takes more than one step."""
+    return (a.block == b.block and a.offset == b.offset
+            and all(ca == cb for ca, cb, g in zip(a.coeffs, b.coeffs, grid)
+                    if g > 1))
+
+
+def _launch_refusal(name: str, launch: Any, grid: Tuple[int, ...],
+                    ins: Sequence[BlockAGU], outs: Sequence[BlockAGU],
+                    out_shapes: Sequence[tuple], scratch: Sequence[tuple],
+                    semantics: Tuple[str, ...]) -> Optional[str]:
+    """Why kernel ``name`` does not compute this Launch, or None: the
+    kernel's grid, walks, output (shape, dtype)s, scratch and semantics."""
+    if tuple(launch.grid) != grid:
+        return f"{name}: runs grid {grid}, the Launch has {tuple(launch.grid)}"
+    got_in, got_out = launch_walks(launch)
+    got, want = (*got_in, *got_out), (*ins, *outs)
+    if (len(got_in), len(got_out)) != (len(ins), len(outs)) or \
+            not all(_same_walk(a, b, grid) for a, b in zip(got, want)):
+        return (f"{name}: walks {[(a.block, a.offset, a.coeffs) for a in got]}"
+                f" are not the kernel's "
+                f"{[(a.block, a.offset, a.coeffs) for a in want]}")
+    got = [(tuple(o.shape), o.dtype) for o in launch.out_shapes]
+    if got != list(out_shapes):
+        return f"{name}: writes {list(out_shapes)}, the Launch asks for {got}"
+    got = [(tuple(o.shape), o.dtype) for o in launch.scratch_shapes]
+    if got != list(scratch):
+        return f"{name}: carries scratch {list(scratch)}, the Launch has {got}"
+    if tuple(launch.dimension_semantics or ()) != semantics:
+        return (f"{name}: runs axes {semantics}, the Launch declares "
+                f"{launch.dimension_semantics}")
+    return None
+
+
+def _power_of_two_rows(name: str, t: torch.Tensor) -> Tuple[int, int]:
+    """(rows, n) of a (rows, n) layout of power-of-two rows."""
+    rows, n = t.shape
+    if rows == 0 or n <= 0 or n & (n - 1):
+        raise ValueError(f"{name}: needs (rows, n) with rows > 0 and n a "
+                         f"power of two, got {tuple(t.shape)}")
+    return rows, n
+
+
+def _checked_launch(name: str, launch: Any, *expect) -> None:
+    reason = _launch_refusal(name, launch, *expect)
+    if reason is not None:
+        raise ValueError(reason)
+
+
+def _scan_launch(name: str, dev: torch.device, x: torch.Tensor
+                 ) -> torch.Tensor:
+    """K14's or B8's three launches over the padded vector x."""
+    reason = _smem_refusal(name, dev)
+    if reason is not None:
+        raise ValueError(reason)
+    x = _aligned16(x)
+    tiles = -(-x.numel() // SCAN_TILE)
+    out = torch.empty(x.shape, dtype=torch.float32, device=dev)
+    totals = torch.empty(tiles, dtype=torch.float32, device=dev)
+    _launch(name, dev, x.data_ptr(), _DTYPE_CODE[x.dtype], out.data_ptr(),
+            totals.data_ptr(), x.numel(), tiles)
+    return out
+
+
+def stream_scan(launch: Any, x: torch.Tensor) -> Tuple[torch.Tensor]:
+    """K14: the inclusive prefix sum of the padded vector x (rows, 128) in
+    f32, the Launch's (8, 128) blocks walked in order with an f32 carry:
+    per SCAN_TILE tile its total, one CTA's scan of the totals in order,
+    then each tile's scan from its offset — the same result every run."""
+    name = "stream_scan"
+    dev = _checked_operands(name, (x,), _FLOATS + (torch.int32,))
+    nblk = _row_blocks(name, x)
+    walk = BlockAGU((ROWS, LANES), (0, 0), ((1, 0),))
+    _checked_launch(name, launch, (nblk,), (walk,), (walk,),
+                    ((tuple(x.shape), torch.float32),),
+                    (((1, 1), torch.float32),), ("arbitrary",))
+    return (_scan_launch(name, dev, x),)
+
+
+def stream_fft(launch: Any, xr: torch.Tensor, xi: torch.Tensor,
+               wr: torch.Tensor, wi: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K15: the forward DFT of every row of (xr, xi) (rows, n), n a power
+    of two, by the reference's Stockham stages and twiddle tables (wr, wi)
+    (log2 n, n/2), f32 out: one CTA a row in shared memory up to
+    FFT_SMEM_POINTS points, else one global pass a stage."""
+    name = "stream_fft"
+    dev = _checked_operands(name, (xr, xi), _FLOATS)
+    _checked_operands(name, (wr, wi), (torch.float32,))
+    if wr.device != dev:
+        raise ValueError(f"{name}: twiddles on {wr.device}, not {dev}")
+    rows, n = _power_of_two_rows(name, xr)
+    stages = n.bit_length() - 1
+    if xi.shape != xr.shape or tuple(wr.shape) != (stages, n // 2) \
+            or wi.shape != wr.shape:
+        raise ValueError(f"{name}: needs re and im (rows, n) and twiddles "
+                         f"({stages}, {n // 2}), got {tuple(xr.shape)}, "
+                         f"{tuple(xi.shape)}, {tuple(wr.shape)} and "
+                         f"{tuple(wi.shape)}")
+    row = BlockAGU((1, n), (0, 0), ((1, 0),))
+    tw = BlockAGU((stages, n // 2), (0, 0), ((0, 0),))
+    _checked_launch(name, launch, (rows,), (row, row, tw, tw), (row, row),
+                    (((rows, n), torch.float32),) * 2, (), ("parallel",))
+    reason = _smem_refusal(name, dev, n)
+    if reason is not None:
+        raise ValueError(reason)
+    yr, yi = (torch.empty((rows, n), dtype=torch.float32, device=dev)
+              for _ in range(2))
+    # the global passes ping-pong between the output and a scratch pair
+    tmp = [torch.empty((rows, n), dtype=torch.float32, device=dev)
+           for _ in range(2)] if n > FFT_SMEM_POINTS else []
+    ptrs = [t.data_ptr() for t in tmp] or [None, None]
+    _launch(name, dev, xr.data_ptr(), xi.data_ptr(), _DTYPE_CODE[xr.dtype],
+            wr.data_ptr(), wi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            *ptrs, rows, n, stages)
+    return yr, yi
+
+
+def stream_bitonic(launch: Any, x: torch.Tensor) -> Tuple[torch.Tensor]:
+    """K16: every row of x (rows, n), n a power of two, through the
+    ascending bitonic network, dtype kept; min and max are selects on the
+    bits with jnp's order: NaN propagates, −0 < +0."""
+    name = "stream_bitonic"
+    dev = _checked_operands(name, (x,), _FLOATS + (torch.int32,))
+    rows, n = _power_of_two_rows(name, x)
+    row = BlockAGU((1, n), (0, 0), ((1, 0),))
+    _checked_launch(name, launch, (rows,), (row,), (row,),
+                    (((rows, n), x.dtype),), (), ("parallel",))
+    reason = _smem_refusal(name, dev)
+    if reason is not None:
+        raise ValueError(reason)
+    out = torch.empty_like(x)
+    _launch(name, dev, x.data_ptr(), out.data_ptr(), _DTYPE_CODE[x.dtype],
+            rows, n)
+    return (out,)
+
+
+#: Body op → the stream kernel that runs a StreamKernel's Launch on the
+#: card, called as ``kernel(launch, *arrays) -> tuple of outputs``.
+STREAM_KERNELS: Dict[str, Callable[..., tuple]] = {
+    "scan": stream_scan,
+    "fft": stream_fft,
+    "bitonic": stream_bitonic,
+}
 
 
 # -- the stage kernels: fused chains and DAGs ----------------------------------
@@ -1472,6 +1683,19 @@ def base_spmm(vals: torch.Tensor, cidx: torch.Tensor, x: torch.Tensor,
     return out
 
 
+def base_scan(x: torch.Tensor,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """B8: the inclusive prefix sum of the padded vector x (rows, 128) in
+    f32 on K14's CTAs and tiles: each CTA walks its tile's (8, 128) blocks
+    in order, the carry in a register, one explicit load a thread a block,
+    used before the next block's."""
+    name = "base_scan"
+    dev = _checked_base(name, (x,), _FLOATS + (torch.int32,))
+    _row_blocks(name, x)
+    _f32_out(name, out_dtype)
+    return _scan_launch(name, dev, x)
+
+
 #: Body op → the baseline kernel that runs it on the card.  Every wrapper
 #: is called as ``kernel(*layouts, out_dtype=...)``, like the plain versions.
 BASELINE_KERNELS: Dict[str, Callable[..., torch.Tensor]] = {
@@ -1482,6 +1706,7 @@ BASELINE_KERNELS: Dict[str, Callable[..., torch.Tensor]] = {
     "stencil1d": base_stencil1d,
     "spmv": base_spmv,
     "spmm": base_spmm,
+    "scan": base_scan,
 }
 
 
@@ -1754,6 +1979,67 @@ def plain_rescale(body: Callable, geo: StreamGeometry,
     return _write_blocks(geo, out.to(out_dtype), out_dtype, every=z)
 
 
+def plain_stream(body: Callable, launch: Any,
+                 arrays: Sequence[torch.Tensor]) -> tuple:
+    """A stream kernel's Launch as an in-order block walk: the counterpart
+    of the reference's sequential Pallas grid.
+
+    Leading ``parallel`` axes are independent instances, batched as
+    ``vmap`` batches a kernel; the remaining axes (``arbitrary``, or all of
+    them when the Launch declares no semantics) are walked in row-major
+    order, calling ``body(step, *in_blocks, *scratch) -> (out_blocks,
+    scratch)`` with ``step`` counting from 0 and the scratch (zeros at
+    first) carried from step to step.  A stream whose walk never moves is
+    handed its one block unbatched.  Returns the outputs, blocks a step
+    leaves unwritten zero."""
+    grid = tuple(launch.grid)
+    sem = tuple(launch.dimension_semantics or ("arbitrary",) * len(grid))
+    par = 0
+    while par < len(grid) and sem[par] == "parallel":
+        par += 1
+    if "parallel" in sem[par:]:
+        raise ValueError(f"parallel axes must lead the grid, got {sem}")
+    n_par, n_seq = math.prod(grid[:par]), math.prod(grid[par:])
+    ins, outs = launch_walks(launch)
+    dev = arrays[0].device
+    blocks, dims = [], []
+    for k, (agu, t) in enumerate(zip(ins, arrays)):
+        agu.check_within(grid, tuple(t.shape), f"in[{k}]")
+        if not any(any(c) for c in agu.coeffs):
+            blocks.append(_invariant_block(agu, t))
+            dims.append(None)
+        else:
+            blocks.append(agu.gather(t, grid).reshape(n_par, n_seq,
+                                                      *agu.block))
+            dims.append(0)
+    batched = n_par > 1
+    lead = (n_par,) if batched else ()
+    scratch = tuple(torch.zeros((*lead, *sh.shape), dtype=sh.dtype,
+                                device=dev) for sh in launch.scratch_shapes)
+    results = []
+    for step in range(n_seq):
+        at = [b if d is None else (b[:, step] if batched else b[0, step])
+              for b, d in zip(blocks, dims)]
+        if batched:
+            fn = torch.vmap(functools.partial(body, step),
+                            in_dims=(*dims, *([0] * len(scratch))))
+            got, scratch = fn(*at, *scratch)
+        else:
+            got, scratch = body(step, *at, *scratch)
+        results.append(tuple(got))
+    out = []
+    for k, (agu, sh) in enumerate(zip(outs, launch.out_shapes)):
+        o = torch.zeros(tuple(sh.shape), dtype=sh.dtype, device=dev)
+        agu.check_within(grid, tuple(sh.shape), f"out[{k}]")
+        if results:
+            blk = torch.stack([r[k] for r in results],
+                              dim=1 if batched else 0)
+            idx = agu.element_index(grid, tuple(sh.shape), dev)
+            o.view(-1)[idx.reshape(-1)] = blk.reshape(-1).to(sh.dtype)
+        out.append(o)
+    return tuple(out)
+
+
 PLAIN: Dict[str, Callable[..., torch.Tensor]] = {
     "reduce": plain_reduce, "map": plain_map, "nest": plain_contract,
     "rescale": plain_rescale}
@@ -1848,3 +2134,16 @@ def plain_base_spmm(vals: torch.Tensor, cidx: torch.Tensor, x: torch.Tensor,
     body's clipped row ``take``, summed over j in f32."""
     return _ell_rows(vals, cidx, x, x.shape[1],
                      lambda v, g: (v[..., None] * g).sum(1)).to(out_dtype)
+
+
+def plain_base_scan(x: torch.Tensor,
+                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The baseline body's block walk: each (8, 128) block's f32 cumsum
+    plus the carry, the carry then plus the block's last sum — the carries
+    accumulated in f32 in block order."""
+    csum = torch.cumsum(_promote(x).reshape(-1, ROWS * LANES), 1)
+    last = csum[:, -1].cpu().numpy().astype(np.float32)
+    carry = np.add.accumulate(np.concatenate([[0.0], last[:-1]]).astype(
+        np.float32), dtype=np.float32)
+    out = csum + torch.from_numpy(carry).to(x.device)[:, None]
+    return out.reshape(x.shape).to(out_dtype)

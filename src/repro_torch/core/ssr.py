@@ -233,8 +233,11 @@ def _unique_blocks(stream: BlockStream, grid: Tuple[int, ...]) -> int:
     return len(seen)
 
 
-def _depths(buffer_depth, n_in: int) -> Tuple[int, ...]:
-    """Per-input FIFO depths, validated as the reference validates them."""
+def _depths(buffer_depth, n_in: int,
+            beyond: str = "is not searched") -> Tuple[int, ...]:
+    """Per-input FIFO depths, validated as the reference validates them;
+    ``beyond`` ends the message for a depth past the bounds (the
+    reference's lowering and its ``ssr_pallas`` word it differently)."""
     if isinstance(buffer_depth, (tuple, list)):
         depths = tuple(int(d) for d in buffer_depth)
         if len(depths) != n_in:
@@ -250,7 +253,7 @@ def _depths(buffer_depth, n_in: int) -> Tuple[int, ...]:
             raise ValueError(
                 f"buffer_depth {d} outside [{DEFAULT_BUFFER_DEPTH}, "
                 f"{MAX_BUFFER_DEPTH}] — depth < 2 cannot overlap fetch with "
-                f"compute, deeper than {MAX_BUFFER_DEPTH} is not searched")
+                f"compute, deeper than {MAX_BUFFER_DEPTH} {beyond}")
     return depths
 
 

@@ -14,13 +14,14 @@
 //
 // Design: the TPU walks the kv axis as sequential grid steps and carries
 // (m, l, acc) in VMEM scratch.  Here the kv axis is a loop inside the CTA:
-// a CTA owns 128 query rows of one lowered Q block (grid.x) of one head
-// (grid.y), keeps m and l in registers (replicated over the 16 threads of a
-// row group) and acc -- 8 rows x 8 lanes a thread -- in registers, and walks
+// a CTA owns kBQ query rows of one lowered Q block (grid.x) of one head
+// (grid.y), keeps m and l in registers (replicated over the column group of
+// a row) and acc -- 8 rows x 8 lanes a thread -- in registers, and walks
 // the lowered kv blocks in grid order in sub-tiles of 64 keys.  Per
-// sub-tile: K (transposed) and V are staged in shared memory, every load of
-// a thread issued before the barrier that precedes its stores; each thread
-// computes an 8 x 4 score micro-tile in FP32 FMA (no TF32: the reference
+// sub-tile: K (transposed) and V are staged in shared memory, a thread's
+// loads of a chunk of 8 packs issued before the stores of the chunk (the
+// first chunk's before the barrier that precedes them); each thread
+// computes an 8-row score micro-tile in FP32 FMA (no TF32: the reference
 // asks for f32), masks it, updates m and l with warp shuffles over its row
 // group, rescales acc by alpha = exp(m - m') and adds p v, with p passed
 // through shared memory.  expf is the accurate one (no fast math).  m starts
@@ -29,23 +30,49 @@
 // exactly once it meets a visible key, where -inf would give NaN.  A
 // sub-tile masked for every row of the CTA (past the causal diagonal,
 // before the window, or padding) is skipped: the result is the same to
-// float error.  The head dim is the lowered lanes tile, 128; a head dim of
-// 80 arrives zero-padded by the layout, so the padded lanes add 0 to every
-// score and leave 0 in acc.  Heavy CTAs (late query blocks under the causal
-// mask) are launched first.
+// float error.  Heavy CTAs (late query blocks under the causal mask) are
+// launched first.
+//
+// Tiles by head dim.  The head dim is the lowered lanes tile kD, which the
+// layout pads to a multiple of 128:
+//   * D <= 128 (80 arrives zero-padded to 128): kD = 128, kBQ = 128 query
+//     rows, 16 row groups x 16 column groups, 4 scores a thread a sub-tile;
+//     shared memory 41,856 floats (163.5 KiB);
+//   * 128 < D <= 256 (192 arrives zero-padded to 256): kD = 256, kBQ = 64,
+//     8 row groups x 32 column groups (a warp a row group), 2 scores a
+//     thread a sub-tile; shared memory 54,784 floats (214 KiB), within the
+//     227 KiB a CTA can opt into.  kBQ = 128 at D = 256 would need 294 KiB.
+// Either way a thread holds 64 accumulator floats.  The padded lanes add 0
+// to every score and leave 0 in acc.  Other lanes tiles are refused.
 #include "ssr_common.cuh"
 
 namespace {
 
-constexpr int kD = 128;        // head dim: the lowered lanes tile
-constexpr int kBQ = 128;       // query rows per CTA
 constexpr int kBK = 64;        // keys per sub-tile
-constexpr int kThreads = 256;  // 16 row groups of 8 rows x 16 column groups
-constexpr int kQPitch = kBQ + 4;
-constexpr int kKPitch = kBK + 1;
-constexpr int kPPitch = kBQ + 4;
-constexpr int kSmemFloats = kD * kQPitch + kD * kKPitch + kBK * kD + kBK * kPPitch;
+constexpr int kThreads = 256;  // kBQ / 8 row groups x kD / 8 column groups
+constexpr int kChunk = 8;      // 16-byte packs of K and of V a thread holds
 constexpr float kFill = -1e30f;
+
+// The CTA's tiles for a lanes tile of D: kBQ query rows.
+template <int D, int BQ>
+struct Tiles {
+  static constexpr int kD = D;
+  static constexpr int kBQ = BQ;
+  static constexpr int kRowGroups = BQ / 8;
+  static constexpr int kColGroups = kThreads / kRowGroups;
+  static constexpr int kSC = kBK / kColGroups;       // scores a thread
+  static constexpr int kQPitch = BQ + 4;
+  static constexpr int kKPitch = kBK + 1;
+  static constexpr int kPPitch = BQ + 4;
+  static constexpr int kSmemFloats = D * kQPitch + D * kKPitch + kBK * D + kBK * kPPitch;
+  static constexpr int kQPacks = BQ * D / 4 / kThreads;   // 16-byte packs a
+  static constexpr int kKPacks = kBK * D / 4 / kThreads;  // thread stages
+  static_assert(kColGroups * 8 == D, "a thread holds 8 lanes of acc");
+  static_assert(kColGroups <= 32 && kSC >= 1, "a row group within a warp");
+  static_assert(kKPacks % kChunk == 0, "whole chunks of K and V");
+};
+using Tiles128 = Tiles<128, 128>;
+using Tiles256 = Tiles<256, 64>;
 
 __device__ __forceinline__ int64_t block_row(const SsrOdometer& o,
                                              const SsrStream& s) {
@@ -71,9 +98,6 @@ __device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-constexpr int kQPacks = kBQ * kD / 4 / kThreads;    // 16-byte packs a thread
-constexpr int kKPacks = kBK * kD / 4 / kThreads;    // stages of Q, of K and V
-
 struct Mask {
   float scale;
   int causal;
@@ -82,7 +106,7 @@ struct Mask {
   int64_t sk;       // keys past sk are padding
 };
 
-template <typename T, typename O>
+template <typename L, typename T, typename O>
 __global__ void __launch_bounds__(kThreads, 1)
     rescale_attention_kernel(const T* __restrict__ kp, const T* __restrict__ vp,
                              const T* __restrict__ qp, O* __restrict__ op,
@@ -90,6 +114,8 @@ __global__ void __launch_bounds__(kThreads, 1)
                              SsrStream sq, SsrStream so, int64_t zsteps,
                              int64_t qsub, int64_t nblocks, int64_t hk,
                              int64_t hv, int64_t hq, int64_t ho, Mask mk) {
+  constexpr int kD = L::kD, kBQ = L::kBQ, kCG = L::kColGroups, kSC = L::kSC;
+  constexpr int kQPitch = L::kQPitch, kKPitch = L::kKPitch, kPPitch = L::kPPitch;
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;                    // [kD][kQPitch]: Q transposed
   float* kt = qt + kD * kQPitch;       // [kD][kKPitch]: K transposed
@@ -105,8 +131,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   op += head * ho;
 
   const int tid = threadIdx.x;
-  const int tr = tid >> 4;     // rows 8 tr .. 8 tr + 7
-  const int tc = tid & 15;     // score columns tc + 16 k; acc lanes 8 tc ..
+  const int tr = tid / kCG;    // rows 8 tr .. 8 tr + 7
+  const int tc = tid % kCG;    // score columns tc + kCG k; acc lanes 8 tc ..
   SsrOdometer odo(g, p * zsteps);
   const int64_t qr0 = qs * kBQ;
   const int nrows = static_cast<int>(sq.block[0] - qr0 < kBQ ? sq.block[0] - qr0 : kBQ);
@@ -115,14 +141,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   O* out = op + odo.origin(so) + qr0 * so.pitch;
 
   {  // stage Q transposed: every load issued before any store
-    float4 r4[kQPacks];
+    float4 r4[L::kQPacks];
 #pragma unroll
-    for (int k = 0; k < kQPacks; ++k) {
+    for (int k = 0; k < L::kQPacks; ++k) {
       const int i = tid + k * kThreads, r = i / (kD / 4), d4 = i % (kD / 4);
       r4[k] = r < nrows ? load4(q + r * sq.pitch + 4 * d4) : make_float4(0.f, 0.f, 0.f, 0.f);
     }
 #pragma unroll
-    for (int k = 0; k < kQPacks; ++k) {
+    for (int k = 0; k < L::kQPacks; ++k) {
       const int i = tid + k * kThreads, r = i / (kD / 4), d4 = i % (kD / 4);
       qt[(4 * d4) * kQPitch + r] = r4[k].x;
       qt[(4 * d4 + 1) * kQPitch + r] = r4[k].y;
@@ -151,45 +177,49 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (kv0 >= mk.sk || (mk.causal && kv0 > row_max) ||
           (mk.window >= 0 && kv0 + kvalid - 1 <= row_min - mk.window))
         continue;
-      // K (transposed) and V of the sub-tile: every load issued before the
-      // barrier and any store, so the sub-tile costs one trip to memory
-      float4 k4[kKPacks], v4[kKPacks];
+      // K (transposed) and V of the sub-tile, a chunk of packs at a time:
+      // a chunk's loads all issued before its stores, the first chunk's
+      // before the barrier, so the sub-tile costs one or two trips to memory
 #pragma unroll
-      for (int k = 0; k < kKPacks; ++k) {
-        const int i = tid + k * kThreads, c = i / (kD / 4), d4 = i % (kD / 4);
-        const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-        k4[k] = c < kvalid ? load4(kb + (j0 + c) * sk.pitch + 4 * d4) : zero;
-        v4[k] = c < kvalid ? load4(vb + (j0 + c) * sv.pitch + 4 * d4) : zero;
-      }
-      __syncthreads();   // the previous sub-tile's readers are done
+      for (int c0 = 0; c0 < L::kKPacks; c0 += kChunk) {
+        float4 k4[kChunk], v4[kChunk];
 #pragma unroll
-      for (int k = 0; k < kKPacks; ++k) {
-        const int i = tid + k * kThreads, c = i / (kD / 4), d4 = i % (kD / 4);
-        kt[(4 * d4) * kKPitch + c] = k4[k].x;
-        kt[(4 * d4 + 1) * kKPitch + c] = k4[k].y;
-        kt[(4 * d4 + 2) * kKPitch + c] = k4[k].z;
-        kt[(4 * d4 + 3) * kKPitch + c] = k4[k].w;
-        reinterpret_cast<float4*>(vs + c * kD)[d4] = v4[k];
+        for (int k = 0; k < kChunk; ++k) {
+          const int i = tid + (c0 + k) * kThreads, c = i / (kD / 4), d4 = i % (kD / 4);
+          const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+          k4[k] = c < kvalid ? load4(kb + (j0 + c) * sk.pitch + 4 * d4) : zero;
+          v4[k] = c < kvalid ? load4(vb + (j0 + c) * sv.pitch + 4 * d4) : zero;
+        }
+        if (c0 == 0) __syncthreads();   // the previous sub-tile's readers are done
+#pragma unroll
+        for (int k = 0; k < kChunk; ++k) {
+          const int i = tid + (c0 + k) * kThreads, c = i / (kD / 4), d4 = i % (kD / 4);
+          kt[(4 * d4) * kKPitch + c] = k4[k].x;
+          kt[(4 * d4 + 1) * kKPitch + c] = k4[k].y;
+          kt[(4 * d4 + 2) * kKPitch + c] = k4[k].z;
+          kt[(4 * d4 + 3) * kKPitch + c] = k4[k].w;
+          reinterpret_cast<float4*>(vs + c * kD)[d4] = v4[k];
+        }
       }
       __syncthreads();
 
-      float s[8][4];
+      float s[8][kSC];
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int k = 0; k < 4; ++k) s[i][k] = 0.f;
+        for (int k = 0; k < kSC; ++k) s[i][k] = 0.f;
 #pragma unroll 4
       for (int d = 0; d < kD; ++d) {
         const float4 qa = reinterpret_cast<const float4*>(qt + d * kQPitch)[2 * tr];
         const float4 qb = reinterpret_cast<const float4*>(qt + d * kQPitch)[2 * tr + 1];
         const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
-        float kk[4];
+        float kk[kSC];
 #pragma unroll
-        for (int k = 0; k < 4; ++k) kk[k] = kt[d * kKPitch + tc + 16 * k];
+        for (int k = 0; k < kSC; ++k) kk[k] = kt[d * kKPitch + tc + kCG * k];
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int k = 0; k < 4; ++k) s[i][k] = fmaf(qv[i], kk[k], s[i][k]);
+          for (int k = 0; k < kSC; ++k) s[i][k] = fmaf(qv[i], kk[k], s[i][k]);
       }
 
 #pragma unroll
@@ -197,8 +227,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int64_t row = row0 + 8 * tr + i;
         float mx = kFill;
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int c = tc + 16 * k;
+        for (int k = 0; k < kSC; ++k) {
+          const int c = tc + kCG * k;
           const int64_t col = kv0 + c;
           const bool keep = c < kvalid && col < mk.sk &&
                             (!mk.causal || col <= row) &&
@@ -207,25 +237,25 @@ __global__ void __launch_bounds__(kThreads, 1)
           mx = fmaxf(mx, s[i][k]);
         }
 #pragma unroll
-        for (int o = 1; o < 16; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        for (int o = 1; o < kCG; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
         const float m_new = fmaxf(m[i], mx);
         const float alpha = expf(m[i] - m_new);
         float sum = 0.f;
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
+        for (int k = 0; k < kSC; ++k) {
           s[i][k] = expf(s[i][k] - m_new);
           sum += s[i][k];
         }
 #pragma unroll
-        for (int o = 1; o < 16; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        for (int o = 1; o < kCG; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
         l[i] = l[i] * alpha + sum;
         m[i] = m_new;
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] *= alpha;
       }
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        float4* dst = reinterpret_cast<float4*>(pt + (tc + 16 * k) * kPPitch + 8 * tr);
+      for (int k = 0; k < kSC; ++k) {
+        float4* dst = reinterpret_cast<float4*>(pt + (tc + kCG * k) * kPPitch + 8 * tr);
         dst[0] = make_float4(s[0][k], s[1][k], s[2][k], s[3][k]);
         dst[1] = make_float4(s[4][k], s[5][k], s[6][k], s[7][k]);
       }
@@ -259,21 +289,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <typename T, typename O>
-int launch(const void* k, const void* v, const void* q, void* o,
-           const SsrGrid* g, const SsrStream* sk, const SsrStream* sv,
-           const SsrStream* sq, const SsrStream* so, int64_t zsteps,
-           int64_t heads, const int64_t* strides, const Mask& mk,
-           cudaStream_t st) {
-  const size_t smem = sizeof(float) * kSmemFloats;
-  auto kernel = rescale_attention_kernel<T, O>;
+template <typename L, typename T, typename O>
+int launch_tiles(const void* k, const void* v, const void* q, void* o,
+                 const SsrGrid* g, const SsrStream* sk, const SsrStream* sv,
+                 const SsrStream* sq, const SsrStream* so, int64_t zsteps,
+                 int64_t heads, const int64_t* strides, const Mask& mk,
+                 cudaStream_t st) {
+  const size_t smem = sizeof(float) * L::kSmemFloats;
+  auto kernel = rescale_attention_kernel<L, T, O>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   int64_t steps = 1;
   for (int a = 0; a < g->ndim; ++a) steps *= g->dims[a];
   const int64_t nblocks = steps / zsteps;
-  const int64_t qsub = (sq->block[0] + kBQ - 1) / kBQ;
+  const int64_t qsub = (sq->block[0] + L::kBQ - 1) / L::kBQ;
   if (nblocks * qsub >= (int64_t{1} << 31) || heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(nblocks * qsub), static_cast<unsigned>(heads));
@@ -284,9 +314,25 @@ int launch(const void* k, const void* v, const void* q, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instantiation of the lanes tile (the blocks' width): 128 or 256.
+template <typename T, typename O>
+int launch(const void* k, const void* v, const void* q, void* o,
+           const SsrGrid* g, const SsrStream* sk, const SsrStream* sv,
+           const SsrStream* sq, const SsrStream* so, int64_t zsteps,
+           int64_t heads, const int64_t* strides, const Mask& mk,
+           cudaStream_t st) {
+  if (sq->block[1] == Tiles128::kD)
+    return launch_tiles<Tiles128, T, O>(k, v, q, o, g, sk, sv, sq, so, zsteps, heads,
+                                        strides, mk, st);
+  if (sq->block[1] == Tiles256::kD)
+    return launch_tiles<Tiles256, T, O>(k, v, q, o, g, sk, sv, sq, so, zsteps, heads,
+                                        strides, mk, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// K, V (Sk_pad, 128), Q (Sq_pad, 128) and O, each `heads` times at the
+// K, V (Sk_pad, D), Q (Sq_pad, D) and O, D = 128 or 256 lanes,, each `heads` times at the
 // element strides in `strides` (K, V, Q, O); the walks `sk`, `sv`, `sq`,
 // `so` of one head; `zsteps` the kv grid steps (the trailing axis).
 // `window` < 0 means no sliding window.
@@ -316,9 +362,11 @@ extern "C" int ssr_rescale_attention(const void* k, const void* v,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Shared memory of one CTA for a head dim padded to `lanes` (the kernel
-// takes 128; a wider tile would need proportionally more).
+// Shared memory of one CTA for a lanes tile of `lanes` (the head dim padded
+// to a multiple of 128): the 128-row tiles up to 128 lanes, the 64-row tiles
+// above (the kernel takes 128 and 256).
 extern "C" int64_t ssr_rescale_attention_smem_bytes(int64_t lanes) {
+  const int64_t bq = lanes <= Tiles128::kD ? Tiles128::kBQ : Tiles256::kBQ;
   return static_cast<int64_t>(sizeof(float)) *
-         (lanes * kQPitch + lanes * kKPitch + kBK * lanes + kBK * kPPitch);
+         (lanes * (bq + 4) + lanes * (kBK + 1) + kBK * lanes + kBK * (bq + 4));
 }

@@ -172,6 +172,92 @@ __device__ __forceinline__ float ssr_cta_sum(float v) {
   return v;
 }
 
+// Exclusive scan of one value a thread over the CTA, in a fixed order (the
+// same result every run): each warp scans with shuffles, warp 0 scans the
+// warps' totals.  `*total` gets the CTA's total in every thread.  Every
+// thread of the CTA must call it.  THREADS is a multiple of 32, at most 1024.
+template <int THREADS>
+__device__ __forceinline__ float ssr_cta_exclusive_scan(float v, float* total) {
+  constexpr int kWarps = THREADS / 32;
+  __shared__ float warp_incl[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float t = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += t;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.f;
+  __syncthreads();  // a previous call's readers of warp_incl are done
+  if (lane == 31) warp_incl[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    float w = lane < kWarps ? warp_incl[lane] : 0.f;
+#pragma unroll
+    for (int o = 1; o < kWarps; o <<= 1) {
+      const float t = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += t;
+    }
+    if (lane < kWarps) warp_incl[lane] = w;
+  }
+  __syncthreads();
+  *total = warp_incl[kWarps - 1];
+  return warp > 0 ? warp_incl[warp - 1] + excl : excl;
+}
+
+// One CTA of THREADS threads turns totals[0, n) into exclusive prefix sums
+// in place, in a fixed order: chunks of THREADS x 16 in order with a running
+// carry; in a chunk each thread sums its 16 consecutive totals in order, then
+// a CTA scan of the thread sums.  The scan kernels' second pass (K14, B8).
+template <int THREADS>
+__global__ void __launch_bounds__(THREADS)
+    ssr_exclusive_offsets(float* totals, int64_t n) {
+  constexpr int kItems = 16;
+  float carry = 0.f;
+  for (int64_t base = 0; base < n; base += THREADS * kItems) {
+    const int64_t e0 = base + static_cast<int64_t>(threadIdx.x) * kItems;
+    float v[kItems];
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      v[j] = e0 + j < n ? totals[e0 + j] : 0.f;
+      s += v[j];
+    }
+    float chunk;
+    float run = ssr_cta_exclusive_scan<THREADS>(s, &chunk);
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      if (e0 + j < n) totals[e0 + j] = carry + run;
+      run += v[j];
+    }
+    carry += chunk;
+  }
+}
+
+// Four consecutive elements as floats, one 16-byte (f32, int32) or 8-byte
+// (bf16) load; int32 rounds to nearest, as a cast to float32 does.  The
+// caller checked the alignment.
+template <typename T>
+__device__ __forceinline__ float4 ssr_load4_f32(const T* p);
+template <>
+__device__ __forceinline__ float4 ssr_load4_f32<float>(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+template <>
+__device__ __forceinline__ float4 ssr_load4_f32<__nv_bfloat16>(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+template <>
+__device__ __forceinline__ float4 ssr_load4_f32<int32_t>(const int32_t* p) {
+  const int4 v = *reinterpret_cast<const int4*>(p);
+  return make_float4(__int2float_rn(v.x), __int2float_rn(v.y), __int2float_rn(v.z),
+                     __int2float_rn(v.w));
+}
+
 // Walks the cells of a (rows, cols) block with a fixed thread stride,
 // without a division per cell: (r, c) advance by (dr, dc) each step.
 // A block holds fewer than 2^31 cells (the wrappers check).

@@ -16,8 +16,17 @@ variants: the kernel walks the padded operands block by block with an
 explicit load per block, on the card through the Hopper baseline kernel of
 the body's ``op`` (:data:`~repro_torch.core.hopper.BASELINE_KERNELS`), on
 the CPU through the body's plain version — so "baseline" and "ssr" differ
-only in how operands are delivered.  The waivered ``StreamKernel`` and
-``ChainedKernel`` shells come with later slices of the port.
+only in how operands are delivered.
+
+:class:`StreamKernel` is the waivered escape hatch: a module hands it a raw
+:class:`Launch` (grid, read and write :class:`BlockStream`\\ s, scratch,
+dimension semantics) with a mandatory ``lowering_waiver`` stating why the
+pattern is outside the block-granular AGU model (a carried scan total, an
+FFT's per-stage strides, a sort network's compare-exchanges).  On the CPU
+the Launch runs as an in-order block walk
+(:func:`~repro_torch.core.hopper.plain_stream`); on the card the Hopper
+kernel of the body's ``op`` (:data:`~repro_torch.core.hopper.STREAM_KERNELS`)
+runs it.  ``ChainedKernel`` comes with a later slice of the port.
 
 :class:`NestKernel` resolves its schedule from the autotuner's cache when
 none is given, and owns the tuned → default degradation ladder.
@@ -25,7 +34,8 @@ none is given, and owns the tuned → default degradation ladder.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+import dataclasses
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,7 +43,7 @@ import torch.nn.functional as F
 from .. import DeviceLike, resolve_device, to_device
 from ..core import autotune, hopper, resilience
 from ..core.lowering import DEFAULT_SCHEDULE, Schedule, _body_key, ssr_call
-from ..core.ssr import LoweringError
+from ..core.ssr import BlockStream, LoweringError, _depths
 
 ROWS = 8
 LANES = 128
@@ -119,18 +129,68 @@ def pad_leading(a: torch.Tensor, mult: int) -> torch.Tensor:
     return a
 
 
+def require_power_of_two(n: int, what: str) -> None:
+    # n & (n - 1) alone accepts n == 0 (0 & -1 == 0): an empty operand would
+    # reach the stage loops and fail far from the cause
+    if n <= 0 or n & (n - 1):
+        raise ValueError(f"{what} needs a power-of-two length, got {n}")
+
+
+# -- declarative kernel shells ----------------------------------------------
+
+
+class ShapeDtype(NamedTuple):
+    """An output's or a scratch buffer's shape and dtype (the counterpart of
+    ``jax.ShapeDtypeStruct``)."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class Launch:
+    """One kernel's stream geometry, as declared by its module."""
+
+    grid: Tuple[int, ...]
+    in_streams: Tuple[BlockStream, ...]
+    out_streams: Tuple[BlockStream, ...]
+    out_shapes: Tuple[ShapeDtype, ...]
+    scratch_shapes: Tuple[ShapeDtype, ...] = ()
+    dimension_semantics: Optional[Tuple[str, ...]] = None
+
+
+def _require_waiver(name: str, waiver: Optional[str]) -> str:
+    """Hand-scheduled geometry must state why the compiler cannot emit it."""
+    if not waiver or not waiver.strip():
+        raise ValueError(
+            f"kernel {name!r} constructs a Launch without a lowering_waiver; "
+            "declare why the pattern is outside the block-granular AGU "
+            "model, or migrate to NestKernel")
+    return waiver
+
+
+def _tagged_kernel(body: Callable, kernels: Dict[str, Callable],
+                   what: str) -> Callable:
+    op = getattr(body, "op", None)
+    kernel = kernels.get(op)
+    if kernel is None:
+        raise LoweringError(
+            f"no Hopper {what} kernel for a body with op {op!r} ({body!r}); "
+            f"the {what} kernels are {sorted(kernels)} — wrap the body in "
+            "KernelBody(fn, op) or run on the CPU")
+    return kernel
+
+
+def stream_kernel(body: Callable) -> Callable[..., tuple]:
+    """The Hopper stream kernel for a tagged body, or a LoweringError naming
+    the missing kernel."""
+    return _tagged_kernel(body, hopper.STREAM_KERNELS, "stream")
+
+
 def baseline_kernel(body: Callable) -> Callable[..., torch.Tensor]:
     """The Hopper baseline kernel for a tagged body, or a LoweringError
     naming the missing kernel."""
-    op = getattr(body, "op", None)
-    kernel = hopper.BASELINE_KERNELS.get(op)
-    if kernel is None:
-        raise LoweringError(
-            f"no Hopper baseline kernel for a body with op {op!r} "
-            f"({body!r}); the baseline kernels are "
-            f"{sorted(hopper.BASELINE_KERNELS)} — wrap the body in "
-            "KernelBody(fn, op) or run on the CPU")
-    return kernel
+    return _tagged_kernel(body, hopper.BASELINE_KERNELS, "baseline")
 
 
 class MonolithicKernel:
@@ -186,6 +246,77 @@ class MonolithicKernel:
         return self._finish(out, final) if self._finish else out
 
 
+class StreamKernel:
+    """A streamed kernel whose geometry the module states as a
+    :class:`Launch` (``launch(static, *arrays) -> Launch``), with a
+    mandatory ``lowering_waiver`` — prefer :class:`NestKernel`.
+
+    ``prepare(*args, **params) -> (arrays, static, final)`` pads and
+    reshapes the operands; ``body(static)`` gives the block body, called
+    as ``fn(step, *in_blocks, *scratch) -> (out_blocks, scratch)`` where
+    ``step`` counts the steps of the walk along the Launch's sequential
+    (``arbitrary``) axes from 0 — the counterpart of ``pl.program_id`` —
+    and the scratch is carried from one step to the next (the counterpart
+    of VMEM scratch); ``finish(out, final)`` trims (``out`` is the one
+    output, or the tuple of them).  On the CPU the Launch runs as an
+    in-order block walk (:func:`~repro_torch.core.hopper.plain_stream`:
+    ``parallel`` axes batched, as ``vmap`` batches a kernel); on a CUDA
+    tensor the body must be a :class:`~repro_torch.core.ssr.KernelBody`
+    whose ``op`` names a Hopper stream kernel, which runs it or raises.
+
+    ``schedule=``'s ``buffer_depth`` is validated as the reference's
+    ``ssr_pallas`` validates it; no kernel stages by it yet.  The built
+    entry (Launch, body, the device kernel) is cached on the raw call
+    inputs; prepare and finish run on every call.
+    """
+
+    def __init__(self, name: str, *, prepare: Callable, launch: Callable,
+                 body: Callable, finish: Optional[Callable] = None,
+                 lowering_waiver: Optional[str] = None):
+        self.name = name
+        self.lowering_waiver = _require_waiver(name, lowering_waiver)
+        self._prepare = prepare
+        self._launch = launch
+        self._body = body
+        self._finish = finish
+        self._cache: Dict[Any, Callable] = {}
+
+    def _build(self, static, arrays: tuple,
+               schedule: Optional[Schedule]) -> Callable:
+        lc: Launch = self._launch(static, *arrays)
+        if len(lc.out_streams) != len(lc.out_shapes):
+            raise ValueError("one out_shape per output stream")
+        _depths((schedule or DEFAULT_SCHEDULE).buffer_depth,
+                len(lc.in_streams), beyond="would eat the VMEM budget")
+        hopper.launch_walks(lc)        # every stream's walk is affine
+        body = self._body(static)
+
+        def run(*arrays: torch.Tensor) -> tuple:
+            if arrays[0].device.type == "cpu":
+                return hopper.plain_stream(body, lc, arrays)
+            return stream_kernel(body)(lc, *arrays)
+
+        return run
+
+    def __call__(self, *args, schedule: Optional[Schedule] = None,
+                 device: DeviceLike = None, **params):
+        DISPATCH_STATS["calls"] += 1
+        dev = resolve_device(device)
+        args = on_device(args, dev)
+        arrays, static, final = self._prepare(*args, **params)
+        key = (_call_key(args, params), schedule)
+        fn = self._cache.get(key)
+        if fn is None:
+            fn = self._build(static, tuple(arrays), schedule)
+            DISPATCH_STATS["builds"] += 1
+            if len(self._cache) >= _PIPELINE_CACHE_MAX:
+                self._cache.clear()
+            self._cache[key] = fn
+        outs = fn(*arrays)
+        out = outs[0] if len(outs) == 1 else outs
+        return self._finish(out, final) if self._finish else out
+
+
 class NestKernel:
     """A kernel whose schedule IS its :class:`~repro_torch.core.LoopNest`.
 
@@ -218,6 +349,10 @@ class NestKernel:
         self._finish = finish
         self._out_dtype = out_dtype
         self._cache: Dict[Any, tuple] = {}
+
+    def loop_nest(self, static):
+        """The nest this kernel executes — exposed for cost-model oracles."""
+        return self._nest(static)
 
     def _out_dtype_of(self, static) -> torch.dtype:
         return torch.float32 if self._out_dtype is None else \

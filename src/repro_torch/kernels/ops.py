@@ -19,6 +19,10 @@ def dot(x, y, *, ssr: Optional[bool] = None, device: DeviceLike = None):
     return registry.dispatch("reduction", x, y, ssr=ssr, device=device)
 
 
+def prefix_sum(x, *, ssr: Optional[bool] = None, device: DeviceLike = None):
+    return registry.dispatch("scan", x, ssr=ssr, device=device)
+
+
 def relu(x, *, ssr: Optional[bool] = None, device: DeviceLike = None):
     return registry.dispatch("relu", x, ssr=ssr, device=device)
 
@@ -72,6 +76,18 @@ def sparse_gemv(data, indices, indptr, x, *, ssr: Optional[bool] = None,
     """The sparse-row generalisation of :func:`gemv` (alias of spmv)."""
     return registry.dispatch("spmv", data, indices, indptr, x, ssr=ssr,
                              device=device)
+
+
+def fft(re, im, *, ssr: Optional[bool] = None, device: DeviceLike = None):
+    """Forward DFT of power-of-two rows, split re/im; leading dims are a
+    batch of transforms."""
+    return registry.dispatch("fft", re, im, ssr=ssr, device=device)
+
+
+def sort(x, *, ssr: Optional[bool] = None, device: DeviceLike = None):
+    """Ascending sort of power-of-two rows (the bitonic network); leading
+    dims are a batch of rows."""
+    return registry.dispatch("bitonic", x, ssr=ssr, device=device)
 
 
 # -- fused (stream-chained) ops ---------------------------------------------

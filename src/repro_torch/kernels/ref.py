@@ -16,6 +16,11 @@ def dot_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.sum(x.to(torch.float32) * y.to(torch.float32))
 
 
+def scan_ref(x: torch.Tensor) -> torch.Tensor:
+    """All prefix sums (inclusive), in f32."""
+    return torch.cumsum(x.to(torch.float32), 0)
+
+
 def relu_ref(x: torch.Tensor) -> torch.Tensor:
     """max(0, x) with ``jnp.maximum``'s signed zeros: -0.0 → +0.0, NaN kept."""
     return torch.where((x > 0) | torch.isnan(x), x, x.new_zeros(()))
@@ -59,6 +64,19 @@ def gemv_ref(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+
+
+def fft_ref(re: torch.Tensor,
+            im: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forward DFT (no normalisation), split real/imag, f32."""
+    z = torch.fft.fft(torch.complex(re.to(torch.float32),
+                                    im.to(torch.float32)))
+    return z.real.contiguous(), z.imag.contiguous()
+
+
+def sort_ref(x: torch.Tensor) -> torch.Tensor:
+    """Ascending sort along the last axis (NaN last)."""
+    return torch.sort(x).values
 
 
 # -- fused (chained and DAG) oracles ------------------------------------------

@@ -25,8 +25,8 @@ from ..core.region import ssr_enabled
 from .frontend import on_device
 
 # Every module under repro_torch.kernels that registers a kernel.
-_KERNEL_MODULES = ("reduction", "relu", "gemv", "gemm", "stencil",
-                   "attention", "chained", "dag", "sparse")
+_KERNEL_MODULES = ("reduction", "scan", "relu", "stencil", "gemv", "gemm",
+                   "fft", "bitonic", "attention", "chained", "dag", "sparse")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -182,6 +182,31 @@ def test_sweep_matches_the_reference(case):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize("case", [(96, 160, 192, True, None),
+                                  (64, 100, 192, False, 7),
+                                  (96, 160, 256, True, 64),
+                                  (130, 130, 256, False, None)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_wide_head_dims_match_the_reference(case):
+    """D = 192 and 256 lower to a 256-lane tile (192 zero-padded), as K11's
+    64-row tiles take them on the card."""
+    sq, sk, d, causal, window = case
+    q, k, v = _qkv(sq, sk, d, seed=sq + sk + d)
+    got = attention.ssr_flash_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+        window=window)
+    want = np.asarray(jattention.ssr_flash_attention(
+        *(jnp.asarray(a) for a in (q, k, v)), causal=causal, window=window,
+        schedule=jlowering.DEFAULT_SCHEDULE))
+    assert tuple(got.shape) == want.shape == (sq, d)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    # f32 sums over the keys in another order: a few ulp of |v| ≈ 4
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    lw, rw = _lower_both((sq, sk, d), {})
+    assert_same_geometry(lw, rw)
+    assert lw.in_streams[0].stream.block_shape[1] == 256
+
+
 def test_schedule_invariance():
     """The m/l/acc recurrence does not depend on the kv tiling: any legal
     schedule agrees to float error (the reference's own test)."""

@@ -20,7 +20,7 @@ import repro_torch
 from repro_torch.core import hopper
 from repro_torch.core.ssr import KernelBody, LoweringError
 from repro_torch.kernels import (frontend, gemm, gemv, reduction, registry,
-                                 relu, sparse, stencil)
+                                 relu, scan, sparse, stencil)
 
 KERNELS = ["reduction", "relu", "gemm", "gemv"]
 RELU_SPECIALS = np.array([-0.0, 0.0, np.nan, -np.inf, np.inf, -1e-30, 1e-30,
@@ -189,8 +189,9 @@ def test_baseline_bodies_name_their_kernels():
         hopper.base_stencil1d
     assert frontend.baseline_kernel(sparse.BASE_SPMV) is hopper.base_spmv
     assert frontend.baseline_kernel(sparse.BASE_SPMM) is hopper.base_spmm
+    assert frontend.baseline_kernel(scan.BASE_SCAN) is hopper.base_scan
     assert sorted(hopper.BASELINE_KERNELS) == ["dot", "matvec", "mul",
-                                               "relu", "spmm", "spmv",
+                                               "relu", "scan", "spmm", "spmv",
                                                "stencil1d"]
 
 

@@ -963,3 +963,258 @@ def test_gather_skips_the_lowering_pad_lanes(dev):
     assert float(got[0]) == 5.0 and bool(torch.isnan(got[1]))
     base = sparse.baseline_spmv(data, indices, indptr, x, device=dev)
     assert float(base[0]) == 5.0 and bool(torch.isnan(base[1]))
+
+
+# -- K11 at head dims above 128 --------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(100, 333, 192, True, 64),
+                                   (100, 333, 192, False, None),
+                                   (256, 256, 256, True, None),
+                                   (129, 130, 256, False, 7)])
+def test_rescale_attention_wide_heads(dev, shape):
+    """D = 192 arrives zero-padded to a 256-lane tile, D = 256 as one: K11's
+    64-row tiles, against the plain version."""
+    from repro_torch.kernels import attention
+    sq, sk, d, causal, window = shape
+    q, k, v = _qkv(dev, sq, sk, d, sq * sk + d)
+    _, static, _ = attention._prepare(q, k, v, causal, window)
+    for sched in (lowering.DEFAULT_SCHEDULE, lowering.Schedule(rows=16)):
+        call = lowering.prepare_call(attention._nest(static),
+                                     attention._body(static),
+                                     {"Q": q, "K": k, "V": v},
+                                     schedule=sched, device=dev)
+        assert call.kernel.geometry.ins[0].block[1] == 256
+        got, want, launched = _run_and_plain(call)
+        assert launched == {"rescale_attention"}
+        assert got.shape == (sq, d)
+        assert float((got - want).abs().max()) <= \
+            ATTENTION_LIMIT * float(v.abs().max())
+
+
+@pytest.mark.parametrize("d", [192, 256])
+def test_rescale_attention_wide_head_batch_is_one_launch(dev, d):
+    from repro_torch.kernels import attention, ref
+    q, k, v = _qkv(dev, 100, 333, d, d, lead=(2, 3))
+    before = dict(hopper.LAUNCHES)
+    got = attention.ssr_flash_attention(q, k, v, causal=True, window=64,
+                                        device=dev)
+    assert hopper.LAUNCHES["rescale_attention"] - \
+        before["rescale_attention"] == 1
+    assert got.shape == (2, 3, 100, d)
+    for h in ((0, 0), (1, 2)):
+        one = attention.ssr_flash_attention(q[h], k[h], v[h], causal=True,
+                                            window=64, device=dev)
+        assert float((got[h] - one).abs().max()) <= \
+            ATTENTION_LIMIT * float(v[h].abs().max())
+    want = ref.attention_ref(q, k, v, causal=True, window=64)
+    assert float((got - want).abs().max()) <= 2e-4
+
+
+@pytest.mark.parametrize("out", ["bf16", "f32"])
+@pytest.mark.parametrize("d", [192, 256])
+def test_rescale_attention_wide_heads_bf16_inputs(dev, d, out):
+    from repro_torch.kernels import attention
+    q, k, v = _qkv(dev, 100, 333, d, 4, dtype=torch.bfloat16)
+    _, static, _ = attention._prepare(q, k, v, True, 64)
+    out_dtype = torch.bfloat16 if out == "bf16" else torch.float32
+    call = lowering.prepare_call(attention._nest(static),
+                                 attention._body(static),
+                                 {"Q": q, "K": k, "V": v},
+                                 out_dtype=out_dtype, device=dev)
+    got, want, launched = _run_and_plain(call)
+    assert launched == {"rescale_attention"} and got.dtype == out_dtype
+    tol = 2 ** -8 if out == "bf16" else ATTENTION_LIMIT
+    assert float((got.float() - want.float()).abs().max()) <= \
+        tol * float(v.float().abs().max())
+
+
+def test_rescale_attention_refuses_an_unheld_lanes_tile(dev):
+    """A 384-lane tile is neither of K11's: refused with the kernel's name,
+    nothing launched."""
+    from repro_torch.kernels import attention
+    q, k, v = _qkv(dev, 64, 64, 384, 3)
+    _, static, _ = attention._prepare(q, k, v, True, None)
+    call = lowering.prepare_call(attention._nest(static),
+                                 attention._body(static),
+                                 {"Q": q, "K": k, "V": v}, device=dev)
+    kern = call.kernel
+    takes, why = hopper.accepts(kern.device_key, kern.geometry,
+                                torch.float32, dev, program=kern.program)
+    assert not takes and "rescale_attention" in why
+    before = dict(hopper.LAUNCHES)
+    with pytest.raises(ValueError, match="rescale_attention"):
+        call.run()
+    assert hopper.LAUNCHES == before
+
+
+# -- the stream kernels (K14–K16) and B8 -----------------------------------------
+
+# scan: max |got − f64 prefix sum| over the f64 prefix sum of |x| (f32 sums
+# in any fixed order read about 1e-7; one tile's carry dropped reads 1e-2
+# and more, chip_smoke.py's control)
+SCAN_LIMIT = 1e-6
+# fft: max |kernel − plain| over Σ|x| of the row (the kernel rounds each
+# product and sum as the plain version does: 0 expected; twiddles rounded
+# to bf16 read about 1e-4)
+FFT_LIMIT = 1e-6
+
+
+def _stream(module, *args):
+    """(Launch, prepared arrays, body) of a StreamKernel module's call."""
+    arrays, static, _ = module._prepare(*args)
+    return (module._launch(static, *arrays), tuple(arrays),
+            module._ssr._body(static))
+
+
+@pytest.mark.parametrize("n", [1, 1000, 4096, 5000, 1 << 20, (1 << 22) + 12])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_stream_scan_and_base_scan(dev, n, dtype):
+    from repro_torch.kernels import scan
+    g = torch.Generator(device=dev).manual_seed(n)
+    if dtype == torch.int32:
+        x = torch.randint(-1000, 1000, (n,), generator=g, device=dev,
+                          dtype=dtype)
+    else:
+        x = torch.randn(n, generator=g, device=dev).to(dtype)
+    exact = torch.cumsum(x.double(), 0)
+    scale = torch.cumsum(x.double().abs(), 0) + 1e-30
+    outs = {}
+    for kname, fn in (("stream_scan", scan.ssr_scan),
+                      ("base_scan", scan.baseline_scan)):
+        before = dict(hopper.LAUNCHES)
+        got = fn(x, device=dev)
+        assert _launched(before) == {kname}
+        assert got.dtype == torch.float32 and got.shape == (n,)
+        assert float(((got.double() - exact).abs() / scale).max()) \
+            <= SCAN_LIMIT
+        outs[kname] = got
+    # the same result every run: no order depends on timing
+    assert torch.equal(scan.ssr_scan(x, device=dev), outs["stream_scan"])
+    assert torch.equal(scan.baseline_scan(x, device=dev), outs["base_scan"])
+    if n <= 5000:      # the plain walk, one step a block
+        lc, arrays, body = _stream(scan, x)
+        want = hopper.plain_stream(body, lc, arrays)[0].reshape(-1)[:n]
+        assert float(((want.double() - exact).abs() / scale).max()) \
+            <= SCAN_LIMIT
+        base = hopper.plain_base_scan(arrays[0]).reshape(-1)[:n]
+        assert float(((base.double() - exact).abs() / scale).max()) \
+            <= SCAN_LIMIT
+
+
+@pytest.mark.parametrize("shape", [(1,), (2,), (256,), (3, 2048), (5, 8192),
+                                   (1 << 14,), (2, 1 << 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_fft(dev, shape, dtype):
+    from repro_torch.kernels import fft
+    g = torch.Generator(device=dev).manual_seed(shape[-1])
+    re, im = (torch.randn(*shape, generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    lc, arrays, body = _stream(fft, re, im)
+    before = dict(hopper.LAUNCHES)
+    got = fft.ssr_fft(re, im, device=dev)
+    assert _launched(before) == {"stream_fft"}
+    want = [t.reshape(shape) for t in hopper.plain_stream(body, lc, arrays)]
+    scale = (re.float().abs() + im.float().abs()).sum(-1, keepdim=True)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and a.shape == shape
+        assert float(((a - b).abs() / scale).max()) <= FFT_LIMIT
+    z = torch.fft.fft(torch.complex(re.float(), im.float()))
+    assert float(((got[0] - z.real).abs() / scale).max()) <= 1e-5
+    assert float(((got[1] - z.imag).abs() / scale).max()) <= 1e-5
+
+
+def _bits(t):
+    return t.view({torch.float32: torch.int32, torch.bfloat16: torch.int16,
+                   torch.int32: torch.int32}[t.dtype])
+
+
+@pytest.mark.parametrize("shape", [(1,), (2,), (64,), (3, 1024), (8192,),
+                                   (1 << 14,), (2, 1 << 17)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_stream_bitonic_bit_exact(dev, shape, dtype):
+    from repro_torch.kernels import bitonic
+    g = torch.Generator(device=dev).manual_seed(shape[-1] + 1)
+    if dtype == torch.int32:
+        x = torch.randint(-(1 << 31), (1 << 31) - 1, shape, generator=g,
+                          device=dev, dtype=dtype)
+    else:
+        x = torch.randn(*shape, generator=g, device=dev).to(dtype)
+        flat = x.view(-1)
+        flat[: min(4, flat.numel())] = torch.tensor(
+            [0.0, -0.0, float("inf"), float("-inf")][: min(4, flat.numel())])
+    lc, arrays, body = _stream(bitonic, x)
+    before = dict(hopper.LAUNCHES)
+    got = bitonic.ssr_sort(x, device=dev)
+    assert _launched(before) == {"stream_bitonic"}
+    want = hopper.plain_stream(body, lc, arrays)[0].reshape(shape)
+    assert got.dtype == dtype and torch.equal(_bits(got), _bits(want))
+    assert torch.equal(got, torch.sort(x).values)
+
+
+@pytest.mark.parametrize("n", [8, 1 << 15])
+def test_stream_bitonic_nan_and_signed_zeros(dev, n):
+    """One NaN turns every output to NaN, as the reference's ssr_sort; −0
+    sorts below +0 — both as the plain version, to the bit."""
+    from repro_torch.kernels import bitonic
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn(n, generator=g, device=dev)
+    x[: n // 2] = 0.0
+    x[: n // 4] = -0.0
+    x = x[torch.randperm(n, generator=g, device=dev)]
+    got = bitonic.ssr_sort(x, device=dev)
+    lc, arrays, body = _stream(bitonic, x)
+    want = hopper.plain_stream(body, lc, arrays)[0].reshape(-1)
+    assert torch.equal(_bits(got), _bits(want))
+    zeros = got[got == 0]
+    assert bool(torch.signbit(zeros[: n // 4]).all())
+    assert not bool(torch.signbit(zeros[n // 4:]).any())
+    x[n // 3] = float("nan")
+    got = bitonic.ssr_sort(x, device=dev)
+    lc, arrays, body = _stream(bitonic, x)
+    want = hopper.plain_stream(body, lc, arrays)[0].reshape(-1)
+    assert bool(torch.isnan(got).all())
+    assert torch.equal(_bits(got), _bits(want))
+
+
+def test_stream_kernels_launch_or_raise_never_plain(dev, monkeypatch):
+    """On CUDA tensors the stream entry points and B8 launch their kernel or
+    raise; the plain walk never runs.  A body without a stream kernel
+    raises a LoweringError and launches nothing."""
+    from repro_torch.kernels import frontend, scan
+
+    def no_plain(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(hopper, "plain_stream", no_plain)
+    monkeypatch.setattr(hopper, "plain_base_scan", no_plain)
+    x = torch.randn(4096, device=dev)
+    for fn, want in ((lambda: ops.prefix_sum(x, ssr=True, device=dev),
+                      "stream_scan"),
+                     (lambda: scan.baseline_scan(x, device=dev), "base_scan"),
+                     (lambda: ops.fft(x, x, ssr=True, device=dev),
+                      "stream_fft"),
+                     (lambda: ops.sort(x, ssr=True, device=dev),
+                      "stream_bitonic")):
+        before = dict(hopper.LAUNCHES)
+        fn()
+        assert _launched(before) == {want}
+    plain_body = frontend.StreamKernel(
+        "untagged", prepare=scan._prepare, launch=scan._launch,
+        body=lambda static: scan._scan_block,
+        lowering_waiver="a body without a device kernel")
+    before = dict(hopper.LAUNCHES)
+    with pytest.raises(LoweringError, match="no Hopper stream kernel"):
+        plain_body(x, device=dev)
+    assert hopper.LAUNCHES == before
+    # a tagged body on a Launch its kernel does not compute raises
+    wrong = frontend.StreamKernel(
+        "wrong", prepare=scan._prepare,
+        launch=lambda static, x2d: dataclasses.replace(
+            scan._launch(static, x2d), dimension_semantics=("parallel",)),
+        body=lambda static: scan.SCAN, lowering_waiver="a wrong Launch")
+    with pytest.raises(ValueError, match="stream_scan"):
+        wrong(x, device=dev)
+    assert hopper.LAUNCHES == before

@@ -111,12 +111,19 @@ def test_wrappers_refuse_cpu_tensors(name):
                      "base_spmv": (t, torch.zeros(8, 128, dtype=torch.int32),
                                    torch.zeros(1, 64)),
                      "base_spmm": (t, torch.zeros(8, 128, dtype=torch.int32),
-                                   torch.zeros(64, 8))}
+                                   torch.zeros(64, 8)),
+                     "base_scan": (t,)}
+    # the stream kernels take a Launch and the prepared arrays
+    row = torch.zeros(1, 8)
+    stream_args = {"stream_scan": (t,), "stream_fft": (row, row, row, row),
+                   "stream_bitonic": (row,)}
     n_in = 1 if name == "map_relu" else 2
     before = dict(hopper.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA tensors"):
         if name in baseline_args:
             getattr(hopper, name)(*baseline_args[name])
+        elif name in stream_args:
+            getattr(hopper, name)(None, *stream_args[name])
         else:
             getattr(hopper, name)(geo, [t] * n_in, torch.float32)
     assert hopper.LAUNCHES == before

@@ -25,9 +25,12 @@ from repro_torch.kernels.relu import ssr_elementwise, ssr_relu
 
 KERNELS = ["reduction", "relu", "gemm", "gemv", "gemv_relu", "sum_sq_diff",
            "axpy_dot", "layernorm", "softmax_xent", "mlp_block", "stencil1d",
-           "stencil2d", "stencil1d_relu", "attention", "spmv", "spmm"]
-# the single-nest kernels; the chains and DAGs have their own parity tests
-# (tests/test_torch_chained.py, tests/test_torch_dag.py)
+           "stencil2d", "stencil1d_relu", "attention", "spmv", "spmm", "scan",
+           "fft", "bitonic"]
+# the single-nest kernels; the chains and DAGs, and the waivered stream
+# kernels (scan, fft, bitonic), have their own parity tests
+# (tests/test_torch_chained.py, tests/test_torch_dag.py,
+# tests/test_torch_stream.py)
 STREAMED = KERNELS[:4]
 OPS = {"reduction": ops.dot, "relu": ops.relu, "gemm": ops.matmul,
        "gemv": ops.gemv}
