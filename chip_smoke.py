@@ -49,17 +49,29 @@ printing JSON lines:
    the bit; K15 on the batch cell, one transform of 2**22 points (the
    global passes) and bf16 inputs; K16 to the bit on the cell, a batch of
    2**16 rows of 1024, bf16 and int32, and inputs holding ±0 and a NaN;
+   the ring kernels R1–R4 (a schedule deeper than 2) against K1–K4 to the
+   bit on the dot (f32, bf16), relu (f32, int32, bf16), gemm, gemv and
+   gemv_relu cells at depths 3, 4 and 8 (and per-stream (2, 4), (4, 2) on
+   dot and gemm), each beside the ring on its first block zeroed, which
+   must differ; R1–R4 at each cell's main-path depth (and the main
+   path's own ring outputs) against the plain ring at the cell's size,
+   beside the ring on its first block zeroed, which must read above the
+   limit; the plain ring against R1–R4 at small sizes;
    each limit beside a control that must read above it;
 4. time each kernel, its plain version and one PyTorch library call with
    CUDA events, beside the least time the card could take, each baseline
    against its streamed kernel (``ssr_over_baseline``), each fused cell
    against its unfused stages (``fused_over_unfused``), each entry
    point of the main path by the host's clock once warm, and the sparse
-   entries' wall time split into packing, copies, layout and kernel;
+   entries' wall time split into packing, copies, layout and kernel; a
+   ``depth_sweep`` line per ring cell: ms at depths 2 (the K-kernel), 3, 4
+   and 8, the best per-stream pair, ``ring_over_sync`` = K ms / R ms;
 5. tune gemm 4096**3 over the quick candidates into the cache (one
-   candidate per distinct kernel; a winner within the race's spread of
-   the default is held back), and check that the next ``ops.matmul`` runs
-   the committed schedule, correctly;
+   candidate per distinct kernel, depth-only variants racing as R3; a
+   winner within the race's spread of the default is held back), and
+   check that the next ``ops.matmul`` runs the committed schedule,
+   correctly; then commit the race's fastest depth-3 survivor and check
+   that ``ssr_call`` with no schedule runs it on R3, to K3's bits;
 6. arm one ``compile`` fault and check that ``ops.matmul`` under the tuned
    schedule degrades to the default, quarantines the entry and stays
    right;
@@ -70,12 +82,19 @@ printing JSON lines:
 6b. arm one ``compile`` fault under that cut and check that the call
    degrades to all-fused (one K6 launch), quarantines the entry and stays
    right;
-7. print the ``{"kernels": [...]}`` line (K1–K16 and B1–B8; K11's row is
-   the attention_qwen3 cell, the other attention cells have time lines of
-   their own), then the device line last.
+7. print the ``{"kernels": [...]}`` line (K1–K16, B1–B8 and R1–R4; K11's
+   row is the attention_qwen3 cell, the other attention cells have time
+   lines of their own; an R row times its main-path depth), then the
+   device line last.
 
-Any failure exits non-zero; without a CUDA device, or without the repo's
-``src/repro_torch`` beside this file, it exits non-zero before any result.
+Phase 2 also drives the rings: ``ssr_dot``, ``ssr_relu`` (three dtypes),
+``ssr_gemv`` and ``fused_gemv_relu`` at depth 4, ``ssr_matmul`` at depth
+3 and ``ssr_call`` at per-stream depths (2, 4); each must launch its ring
+kernel and no K1–K4, and each depth-2 call K1–K4 and no ring.
+
+Any failure exits non-zero; without a CUDA device, without the repo's
+``src/repro_torch`` beside this file, or with ``REPRO_DISABLE_PIPELINE``
+set (the rings would not run), it exits non-zero before any result.
 """
 
 from __future__ import annotations
@@ -173,6 +192,34 @@ FUSED_LAUNCHES = {
 FUSED_ROW = {"chain_elem": "sum_sq_diff", "dag_layernorm": "layernorm",
              "dag_softmax_xent": "softmax_xent", "dag_mlp": "mlp_block"}
 
+# main-path entry at a depth above 2 → (the ring kernel it must launch, the
+# depth-2 entry whose K-kernel it must not)
+RING_PATH = {"dot_ring": ("ring_reduce_mul", "dot"),
+             "dot_ssr_call_ring": ("ring_reduce_mul", "dot_ssr_call"),
+             "relu_ring": ("ring_map_relu", "relu"),
+             "relu_int32_ring": ("ring_map_relu", "relu_int32"),
+             "relu_bf16_ring": ("ring_map_relu", "relu_bf16"),
+             "gemm_ring": ("ring_contract_gemm", "gemm"),
+             "gemv_ring": ("ring_contract_gemv", "gemv"),
+             "gemv_relu_ring": ("ring_contract_gemv", "gemv_relu")}
+SYNC = ("reduce_mul", "map_relu", "contract_gemm", "contract_gemv")
+RING_DEPTHS = (3, 4, 8)
+RING_PAIRS = ((2, 4), (4, 2))
+# main-path entry at a depth above 2 → (its ring cell of phase 3e, depth)
+RING_ENTRY = {"dot_ring": ("dot", 4), "dot_ssr_call_ring": ("dot", (2, 4)),
+              "relu_ring": ("relu", 4), "relu_int32_ring": ("relu_int32", 4),
+              "relu_bf16_ring": ("relu_bf16", 4), "gemm_ring": ("gemm", 3),
+              "gemv_ring": ("gemv", 4), "gemv_relu_ring": ("gemv_relu", 4)}
+# ring cell → the depth the main path runs it at (dot_bf16 as dot)
+RING_MAIN_DEPTH = {cell: depth for cell, depth in RING_ENTRY.values()
+                   if not isinstance(depth, tuple)}
+RING_MAIN_DEPTH["dot_bf16"] = 4
+# the ring kernel → its sync kernel and the main-path entry its row times
+RING_ROW = {"ring_reduce_mul": ("reduce_mul", "dot"),
+            "ring_map_relu": ("map_relu", "relu"),
+            "ring_contract_gemm": ("contract_gemm", "gemm"),
+            "ring_contract_gemv": ("contract_gemv", "gemv")}
+
 # streamed kernel → its monolithic baseline
 PAIRS = {"reduce_mul": "base_reduce", "map_relu": "base_relu",
          "contract_gemm": "base_gemm", "contract_gemv": "base_gemv",
@@ -260,6 +307,13 @@ def unmasked_pairs(sq: int, sk: int, causal: bool, window) -> int:
     return int(torch.clamp(hi - lo, min=0).sum())
 
 
+def depth_schedule(depth, lowering):
+    """The default schedule at a uniform depth, or at per-stream depths."""
+    if isinstance(depth, tuple):
+        return lowering.Schedule(stream_depths=depth)
+    return lowering.Schedule(buffer_depth=depth)
+
+
 def first_block_zeroed(call):
     """The call's layouts with every stream's first block zeroed (uniforms
     kept): what a kernel that dropped one grid step would have read."""
@@ -288,6 +342,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
+        return 2
+    if os.environ.get("REPRO_DISABLE_PIPELINE"):
+        print("chip_smoke: REPRO_DISABLE_PIPELINE is set, so no ring kernel "
+              "would run; unset it", file=sys.stderr)
         return 2
     (root / "build").mkdir(exist_ok=True)
     cache_dir = tempfile.mkdtemp(prefix="chip_smoke_schedules_",
@@ -396,6 +454,8 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     torch.cuda.synchronize()
 
     # -- 2. the main path, counters at 0 just before it --------------------
+    deep = {d: depth_schedule(d, lowering)
+            for d in (*RING_DEPTHS, *RING_PAIRS)}
     base = {name: registry.get(name).baseline
             for name in ("reduction", "relu", "gemm", "gemv")}
     path = {
@@ -448,6 +508,18 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         "prefix_sum_baseline": lambda: registry.get("scan").baseline(xsc),
         "fft": lambda: ops.fft(fre, fim, ssr=True),
         "sort": lambda: ops.sort(xso, ssr=True),
+        # the stage rings: the entry points at a schedule deeper than 2
+        "dot_ring": lambda: reduction.ssr_dot(x, y, schedule=deep[4]),
+        "dot_ssr_call_ring": lambda: lowering.ssr_call(
+            compiler.dot_product_nest(n_vec), reduction.MUL,
+            {"A": x, "B": y}, schedule=deep[(2, 4)]),
+        "relu_ring": lambda: relu.ssr_relu(xr, schedule=deep[4]),
+        "relu_int32_ring": lambda: relu.ssr_relu(xi, schedule=deep[4]),
+        "relu_bf16_ring": lambda: relu.ssr_relu(xb, schedule=deep[4]),
+        "gemm_ring": lambda: gemm.ssr_matmul(a, b, schedule=deep[3]),
+        "gemv_ring": lambda: gemv.ssr_gemv(ga, gx, schedule=deep[4]),
+        "gemv_relu_ring": lambda: chained.fused_gemv_relu(
+            ga, gx, schedule=deep[4]),
     }
     lowering.reset_dispatch_stats()
     frontend.reset_dispatch_stats()
@@ -510,6 +582,19 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         raise SystemExit(f"chip_smoke: a stream call launched other kernels "
                          f"than its K14/B8/K15/K16: "
                          f"{ {key: per_call[key] for key in stream_launches} }")
+    # a call deeper than 2 launches its ring kernel and no K1–K4; its
+    # depth-2 twin launches K1–K4 and no ring
+    ring_launches = {key: per_call[key] for pair in RING_PATH.items()
+                     for key in pair[1][1:] + (pair[0],)}
+    emit({"phase": "ring_launches", "launches": ring_launches})
+    wrong = [key for key, (ring, sync) in RING_PATH.items()
+             if per_call[key] != {ring: 1}
+             or any(k_.startswith("ring_") for k_ in per_call[sync])
+             or not set(per_call[sync]) <= set(SYNC)]
+    if wrong:
+        raise SystemExit(f"chip_smoke: a depth call launched other kernels "
+                         f"than its ring, or a depth-2 call a ring: {wrong}: "
+                         f"{ring_launches}")
     if resilience.fallback_events() or any(
             v for stats in (ladder["lowering"], ladder["frontend"])
             for v in stats.values()):
@@ -1132,6 +1217,160 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     got = sort_check("sort_nan", xz)
     checks["sort_nan"]["exact"] &= bool(torch.isnan(got).all())
 
+    # -- 3e. the rings against K1–K4 to the bit, at the cells' sizes -------
+    # (call mode, nest, body, operands, out dtype, bit view, depths) a cell
+    ring_cells = {
+        "dot": ("reduce", compiler.dot_product_nest(n_vec), reduction.MUL,
+                {"A": x, "B": y}, None, torch.int32,
+                (*RING_DEPTHS, *RING_PAIRS)),
+        "dot_bf16": ("reduce", compiler.dot_product_nest(n_vec),
+                     reduction.MUL, {"A": x.bfloat16(), "B": y.bfloat16()},
+                     None, torch.int32, RING_DEPTHS),
+        "relu": ("map", compiler.elementwise_nest(n_vec), relu.RELU,
+                 {"X": xr}, xr.dtype, torch.int32, RING_DEPTHS),
+        "relu_int32": ("map", compiler.elementwise_nest(n_vec), relu.RELU,
+                       {"X": xi}, xi.dtype, torch.int32, RING_DEPTHS),
+        "relu_bf16": ("map", compiler.elementwise_nest(n_vec), relu.RELU,
+                      {"X": xb}, xb.dtype, torch.int16, RING_DEPTHS),
+        "gemm": ("nest", compiler.gemm_nest(m, n, k), gemm.DOT,
+                 {"A": a, "B": b}, None, torch.int32,
+                 (*RING_DEPTHS, *RING_PAIRS)),
+        "gemv": ("nest", compiler.gemv_nest(gm, gn), gemv.MATVEC,
+                 {"A": ga, "x": gx}, None, torch.int32, RING_DEPTHS),
+        "gemv_relu": ("nest", compiler.gemv_nest(gm, gn),
+                      chained.MATVEC_RELU, {"A": ga, "x": gx}, None,
+                      torch.int32, RING_DEPTHS),
+    }
+
+    def cell_call(cell, depth):
+        mode_, nest_, body_, ops_, out_dt, _, _ = ring_cells[cell]
+        kw = {} if out_dt is None else {"out_dtype": out_dt}
+        return lowering.prepare_call(nest_, body_, ops_, mode=mode_,
+                                     schedule=deep[depth] if depth != 2
+                                     else lowering.DEFAULT_SCHEDULE, **kw)
+
+    def same_bits(t1, t2, view) -> bool:
+        return bool(torch.equal(t1.contiguous().view(view),
+                                t2.contiguous().view(view)))
+
+    def ring_measure(cell):
+        """(err(got, want), limit) of a ring cell against the plain ring:
+        relu's bits (the max |difference| besides NaNs, held to 0), a dot's
+        |difference| over Σ|a·b| (DOT_LIMIT), a contraction's over |A|·|B|
+        per output (CONTRACT_LIMIT)."""
+        if cell.startswith("relu"):
+            def err(got, want):
+                d = (got.float() - want.float()).abs()
+                return float(d[~d.isnan()].max())
+            return err, 0.0
+        a_, b_ = (t.float() for t in ring_cells[cell][3].values())
+        if cell.startswith("dot"):
+            sc = float(torch.sum(torch.abs(a_ * b_)))
+            return (lambda got, want: float(
+                (got.float() - want.float()).abs().max()) / sc), DOT_LIMIT
+        sc = torch.abs(a_) @ torch.abs(b_)
+        return (lambda got, want: rel_to_abs_prod(
+            got.reshape(sc.shape), want.reshape(sc.shape), sc)), \
+            CONTRACT_LIMIT
+
+    def plain_ring_check(key, cell, depth, got, want, ctrl):
+        """``got`` (a ring's output at the cell's size) against ``want``,
+        the plain ring's, beside ``ctrl``, the ring on its first block
+        zeroed: its err must read above the limit (relu: its bits must
+        differ)."""
+        err, limit = ring_measure(cell)
+        view = ring_cells[cell][5]
+        relu_cell = cell.startswith("relu")
+        c = {"exact": same_bits(got, want, view) if relu_cell else True,
+             "rel_err": err(got, want), "abs_err": float(
+                 (got.float() - want.float()).abs().nan_to_num().max()),
+             "limit": limit, "depths": list(ring_calls[cell, depth]
+                                            .kernel.depths)}
+        if relu_cell:
+            c["control_differs"] = not same_bits(ctrl, want, view)
+            bad = not c["control_differs"]
+        else:
+            c["zeroed_block_control"] = err(ctrl, want)
+            bad = c["zeroed_block_control"] <= limit
+        checks[key] = c
+        if bad:
+            failed.append(f"{key}: limit above the zeroed-block control")
+
+    ring_calls = {}
+    for cell, (_, _, _, _, _, view, depths) in ring_cells.items():
+        want = cell_call(cell, 2).run()
+        for depth in depths:
+            call = ring_calls[cell, depth] = cell_call(cell, depth)
+            rname = hopper.RING_KERNELS[call.kernel.device_key]
+            got = call.run()
+            ctrl = call.finish(call.kernel(*first_block_zeroed(call)))
+            err = float((got.float() - want.float()).abs().nan_to_num()
+                        .max())
+            c = {"exact": same_bits(got, want, view)
+                 and call.kernel.pipelined,
+                 "control_differs": not same_bits(ctrl, want, view),
+                 "abs_err": err, "limit": 0.0, "kernel": rname,
+                 "depths": list(call.kernel.depths)}
+            checks[f"ring_{cell}_{depth}"] = c
+            errors[rname] = max(errors.get(rname, 0.0), err)
+            if not c["control_differs"]:
+                failed.append(f"ring_{cell}_{depth}: the zeroed first block "
+                              "left the result unchanged")
+            # at the main path's depths: the ring kernel and the main
+            # path's own ring outputs against the plain ring at full size
+            entries = [e for e, cd in RING_ENTRY.items() if cd == (cell, depth)]
+            if entries or RING_MAIN_DEPTH[cell] == depth:
+                want_p = plain(call)
+                plain_ring_check(f"plain_ring_full_{cell}_{depth}", cell,
+                                 depth, got, want_p, ctrl)
+                for e in entries:
+                    plain_ring_check(f"{e}_vs_plain_ring", cell, depth,
+                                     main[e], want_p, ctrl)
+                del want_p
+            del got, ctrl
+        del want
+    # the plain ring (its fetch log the reference's rotation) against R1–R4
+    # at small sizes, one CTA's run over the whole grid
+    sa_, sb_ = randn(300, 1100), randn(1100, 260)
+    sv_ = torch.rand(1 << 20, generator=gen, device=dev)
+    small = {
+        "dot": (lowering.prepare_call(
+            compiler.dot_product_nest((1 << 20) - 3), reduction.MUL,
+            {"A": sv_[3:], "B": sv_[:-3]}, schedule=deep[(2, 4)]),
+            DOT_LIMIT),
+        "relu": (lowering.prepare_call(
+            compiler.elementwise_nest(1 << 20), relu.RELU, {"X": xr[:1 << 20]},
+            mode="map", out_dtype=xr.dtype, schedule=deep[8]), 0.0),
+        "gemm": (lowering.prepare_call(
+            compiler.gemm_nest(300, 260, 1100), gemm.DOT,
+            {"A": sa_, "B": sb_}, schedule=deep[4]), CONTRACT_LIMIT),
+        "gemv_x_invariant": (lowering.prepare_call(
+            compiler.gemv_nest(2048, 512), gemv.MATVEC,
+            {"A": ga[:2048, :512].contiguous(), "x": gx[:512]},
+            schedule=deep[4]),
+            CONTRACT_LIMIT),
+    }
+    for cell, (call, limit) in small.items():
+        kern = call.kernel
+        got = call.run()
+        want = plain(call)
+        zeroed = call.finish(kern.plain(first_block_zeroed(call)))
+        scale_t = call.finish(kern.plain(tuple(t.abs() for t in call.layouts)
+                                         )) + 1e-30
+        rel = float(((got.float() - want.float()).abs() / scale_t.float())
+                    .nan_to_num().max())
+        ctrl = float(((zeroed.float() - want.float()).abs()
+                      / scale_t.float()).nan_to_num().max())
+        checks[f"plain_ring_{cell}"] = {
+            "rel_err": rel, "abs_err": float((got.float() - want.float())
+                                             .abs().nan_to_num().max()),
+            "limit": limit, "zeroed_block_control": ctrl,
+            "kernel": hopper.RING_KERNELS[kern.device_key],
+            "pipelined": kern.pipelined, "invariant": list(kern.invariant),
+            "exact": kern.pipelined}
+        if ctrl <= limit:
+            failed.append(f"plain_ring_{cell}: limit above the control")
+
     for key, c in checks.items():
         ok = (c.get("exact", True) and
               c.get("rel_to_abs_prod", c.get("rel_err", c["abs_err"]))
@@ -1144,7 +1383,8 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                 "stencil1d_baseline", "stencil2d", *ATTENTION_CELLS,
                 "spmv", "sparse_gemv", "spmv_baseline", "spmm",
                 "spmm_baseline", "prefix_sum", "prefix_sum_baseline",
-                "sort"):
+                "sort", "dot_ring", "dot_ssr_call_ring", "gemm_ring",
+                "gemv_ring", "gemv_relu_ring"):
         if not bool(torch.isfinite(main[key]).all()):
             failed.append(f"{key}: non-finite")
     # the repo's own oracle on small odd inputs, within the registry tol
@@ -1169,9 +1409,9 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     # -- 4. timing ----------------------------------------------------------
     def kernel_fn(call):
         kern = call.kernel
-        dk = kern.device_kernel()
+        dk, kw = kern.device_kernel(), kern.device_args()
         return lambda: dk(kern.geometry, call.layouts, kern.out_dtype,
-                          kern.acc_dtype, program=kern.program)
+                          kern.acc_dtype, **kw)
 
     taps, wide = stencil.TAPS, hw + stencil.TAPS - 1
 
@@ -1373,6 +1613,56 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             "library_ms": cells[cell]["library_ms"],
         })
         emit({"phase": "time", "cell": cell, **rows[-1]})
+    # the rings: each cell at depths 2 (the K-kernel), 3, 4 and 8 and the
+    # per-stream pairs, beside K's bound and library call; a ring row times
+    # its main-path depth
+    nb = 2 * n_vec * 2
+    sweep_work = {   # cell: (bytes, FLOPs, library call or None)
+        "dot": (*work["reduce_mul"], library["reduce_mul"]),
+        "dot_bf16": (nb + 4, 2 * n_vec, lambda: torch.dot(
+            ring_cells["dot_bf16"][3]["A"], ring_cells["dot_bf16"][3]["B"])),
+        "relu": (*work["map_relu"], library["map_relu"]),
+        "relu_int32": (*work["map_relu"], lambda: torch.relu(xi)),
+        "relu_bf16": (nb, n_vec, lambda: torch.relu(xb)),
+        "gemm": (*work["contract_gemm"], library["contract_gemm"]),
+        "gemv": (*work["contract_gemv"], library["contract_gemv"]),
+        "gemv_relu": (*work["contract_gemv"], None),
+    }
+    sweeps = {}
+    for cell, (_, _, _, _, _, _, depths) in ring_cells.items():
+        nbytes, flops, lib = sweep_work[cell]
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / fp32 * 1e3
+        at = {2: time_ms(kernel_fn(cell_call(cell, 2)))}
+        for depth in depths:
+            at[depth] = time_ms(kernel_fn(ring_calls[cell, depth]))
+        pairs = {d: t for d, t in at.items() if isinstance(d, tuple)}
+        best = min(pairs, key=pairs.get) if pairs else None
+        sweeps[cell] = {
+            "ms": {str(d): t for d, t in at.items()},
+            "best_pair": list(best) if best else None,
+            "best_pair_ms": pairs[best] if best else None,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": time_ms(lib) if lib is not None else None,
+            "ring_over_sync": {str(d): at[2] / t for d, t in at.items()
+                               if d != 2}}
+        emit({"phase": "depth_sweep", "cell": cell, **sweeps[cell]})
+    for rname, (kname, cell) in RING_ROW.items():
+        krow = next(r for r in rows if r["name"] == kname)
+        call = ring_calls[cell, RING_MAIN_DEPTH[cell]]
+        rows.append({
+            "name": rname, "route": "cuda",
+            "source": hopper.KERNELS[rname]["source"],
+            "replaces": hopper.KERNELS[rname]["replaces"],
+            "launches": launches[rname],
+            "max_abs_err": errors[rname],
+            "ms": sweeps[cell]["ms"][str(RING_MAIN_DEPTH[cell])],
+            "plain_ms": time_ms(lambda c=call: plain(c)),
+            "bound_ms": krow["bound_ms"], "bound_by": krow["bound_by"],
+            "library_ms": krow["library_ms"],
+            "depth": RING_MAIN_DEPTH[cell],
+        })
+        emit({"phase": "time", "cell": cell, **rows[-1]})
     ms = {r["name"]: r["ms"] for r in rows}
     emit({"phase": "ssr_vs_baseline", "ssr_over_baseline": {
         kname: ms[bname] / ms[kname] for kname, bname in PAIRS.items()}})
@@ -1456,6 +1746,34 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             hopper.LAUNCHES["contract_gemm"] == before:
         raise SystemExit("chip_smoke: ops.matmul did not run the committed "
                          "winner correctly")
+
+    # a committed depth winner dispatches R3: the race's fastest pipelined
+    # survivor (the winner itself where it is one), committed, then
+    # ssr_call with no schedule, to the bits of K3 on the same geometry
+    deep_runs = sorted((us, i, s_) for i, (s_, us) in enumerate(res.timings)
+                       if max(s_.stream_depths or (s_.buffer_depth,)) > 2)
+    depth_sched = deep_runs[0][2] if deep_runs else deep[3]
+    autotune.global_cache().put(res.key, depth_sched,
+                                meta={"note": "the fastest depth survivor"})
+    before = dict(hopper.LAUNCHES)
+    depth_out = lowering.ssr_call(nest, gemm.DOT, operands)
+    torch.cuda.synchronize()
+    depth_launched = {k_: v - before[k_] for k_, v in hopper.LAUNCHES.items()
+                      if v != before[k_]}
+    twin = lowering.prepare_call(nest, gemm.DOT, operands, schedule=(
+        lowering.Schedule.from_json({**depth_sched.to_json(),
+                                     "buffer_depth": 2,
+                                     "stream_depths": None}))).run()
+    torch.cuda.synchronize()
+    emit({"phase": "depth_dispatch", "committed": depth_sched.to_json(),
+          "raced": bool(deep_runs), "launched": depth_launched,
+          "same_bits_as_k3": bool(torch.equal(depth_out.view(torch.int32),
+                                              twin.view(torch.int32)))})
+    if depth_launched != {"ring_contract_gemm": 1} or not torch.equal(
+            depth_out.view(torch.int32), twin.view(torch.int32)):
+        raise SystemExit("chip_smoke: a committed depth winner did not run "
+                         "R3, or not to K3's bits")
+    autotune.global_cache().put(res.key, res.schedule)
 
     # -- 6. the degradation ladder on the card --------------------------------
     tuned, note = res.schedule, "the committed winner, committed again"

@@ -12,6 +12,8 @@ the tensor equivalents, with the same results as ``repro.core.agu``:
   the kernels: the CUDA kernels take it as arguments, and the plain versions
   gather blocks with it.  :class:`GatherAGU` is the indirection extension's
   address program: an index stream's values scaled into a table.
+  :class:`RingProgram` is the data mover's FIFO: the N-deep ring a
+  pipelined kernel delivers its read streams through.
 """
 
 from __future__ import annotations
@@ -137,6 +139,59 @@ def _row_major_strides(shape: Tuple[int, ...]) -> Tuple[int, ...]:
         out.append(acc)
         acc *= e
     return tuple(reversed(out))
+
+
+def stream_vmem_bytes(block_bytes: int, depth: int = 2) -> int:
+    """In-flight footprint of one stream's blocks: ``depth`` buffers.
+
+    The one accounting helper for the per-stream working set, as in the
+    reference (``repro.core.ssr.stream_vmem_bytes``): the emitter's
+    :class:`~repro_torch.core.ssr.StreamReport`, the tuner's working-set
+    count and a pipelined kernel's ring (:class:`RingProgram`) all call it.
+    """
+    return depth * block_bytes
+
+
+def stream_is_invariant(index_map: Callable, grid: Tuple[int, ...]) -> bool:
+    """True when the index map ignores every grid axis (the repeat
+    register): the reference's ``_stream_is_invariant``.  A pipelined
+    kernel fetches such a stream once, into slot 0 of its ring."""
+    affine = affine_coefficients(index_map, grid)
+    if affine is None:
+        return False
+    _, coeffs = affine
+    return all(int(x) == 0 for dim in coeffs for x in dim)
+
+
+@dataclasses.dataclass(frozen=True)
+class RingProgram:
+    """The N-deep ring through which a pipelined kernel delivers its read
+    streams (the reference's ``_pipelined_call``).
+
+    Read stream ``i`` has ``depths[i]`` slots.  Over a run of consecutive
+    grid steps, the run's first step primes :meth:`prime` fetches; at step
+    ``s`` of the run the stream starts the fetch of step ``s + depths[i] −
+    1`` (if the run has it) into slot ``(s + depths[i] − 1) % depths[i]``,
+    then waits on slot ``s % depths[i]``.  An ``invariant`` stream is
+    fetched once into slot 0 and re-read from there.  ``slot_bytes[i]`` is
+    one slot of stream ``i`` — the kernel's tile of it — and ``ring_bytes``
+    the whole ring, each stream at its full depth (the reference budgets an
+    invariant stream so too).
+    """
+
+    depths: Tuple[int, ...]
+    invariant: Tuple[bool, ...]
+    slot_bytes: Tuple[int, ...] = ()
+
+    @property
+    def ring_bytes(self) -> int:
+        return sum(stream_vmem_bytes(b, d)
+                   for b, d in zip(self.slot_bytes, self.depths))
+
+    def prime(self, i: int, run: int) -> int:
+        """Fetches stream ``i`` issues at the first step of a ``run``-step
+        run, before it computes."""
+        return 1 if self.invariant[i] else min(self.depths[i] - 1, run)
 
 
 @dataclasses.dataclass(frozen=True)

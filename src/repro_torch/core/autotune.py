@@ -89,8 +89,8 @@ _LANES_FACTORS = (1, 2, 4)
 _ROWS_FACTORS = (8, 32)
 _QUICK_ROWS = (8, 16)
 _QUICK_LANES = (128, 256)
-#: FIFO depths explored.  No Hopper kernel of the port stages by depth yet,
-#: so a depth-only variant builds the same kernel as its depth-2 twin.
+#: FIFO depths explored.  Where a kernel's family stages
+#: (``hopper.RING_KERNELS``), a depth above 2 runs its ring kernel.
 _DEPTH_CHOICES = (2, 3, 4)
 _QUICK_DEPTHS = (2, 3)
 
@@ -567,7 +567,7 @@ def _refusal_of(kernel, body: Callable, operands: Optional[Dict[str, Any]],
                 device: DeviceLike) -> Optional[str]:
     takes, why = hopper.accepts(kernel.device_key, kernel.geometry,
                                 _operand_dtype(operands),
-                                torch.device(device), program=kernel.program)
+                                torch.device(device), **kernel.device_args())
     return None if takes else why
 
 
@@ -591,7 +591,8 @@ def _card_candidates(nest: LoopNest, cands: Sequence[Schedule],
                      dev: torch.device) -> List[Schedule]:
     """The candidates worth racing on the card: the default, then each one
     the Hopper kernel takes whose kernel differs from every one kept before
-    it.  No port kernel stages by depth yet, so a depth-only variant builds
+    it.  The depths are part of a kernel's identity where it is pipelined
+    (its ring kernel stages by them); elsewhere a depth-only variant builds
     its depth-2 twin's kernel and would only race noise against it."""
     kept: List[Schedule] = []
     seen = set()
@@ -599,7 +600,8 @@ def _card_candidates(nest: LoopNest, cands: Sequence[Schedule],
                                        if s != DEFAULT_SCHEDULE]:
         kernel = _candidate_kernel(nest, sched, body, mode, out_dtype,
                                    operands)
-        ident = (kernel.mode, kernel.geometry, kernel.acc_dtype)
+        ident = (kernel.mode, kernel.geometry, kernel.acc_dtype,
+                 kernel.depths if kernel.pipelined else None)
         if ident in seen or (sched != DEFAULT_SCHEDULE and _refusal_of(
                 kernel, body, operands, dev) is not None):
             continue

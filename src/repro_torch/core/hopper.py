@@ -30,6 +30,16 @@ gather_spmv       nest         K12: ``spmv`` (y += vals·x[cidx], a gather)
 gather_spmm       nest         K13: ``spmm`` (Y += vals·X[cidx, c])
 ================  ===========  =============================================
 
+A schedule deeper than 2 makes a call of K1–K4's families pipelined
+(:attr:`~repro_torch.core.ssr.SsrKernel.pipelined`): it runs the ring kernel
+of :data:`RING_KERNELS` instead — R1 ``ring_reduce_mul``, R2
+``ring_map_relu``, R3 ``ring_contract_gemm`` (its ring over 16-wide k
+chunks), R4 ``ring_contract_gemv`` (with the relu drain) — whose read
+streams arrive through an N-deep ring of shared-memory slots filled by
+``cp.async``, each stream ``depth − 1`` fetches ahead (the reference's
+``_pipelined_call``), with the same arithmetic, so the same bits, as the
+sync kernel.  Its plain version is :func:`plain_ring`.
+
 The waivered stream kernels run a module's :class:`~repro_torch.kernels.
 frontend.Launch` instead of a lowered schedule (:data:`STREAM_KERNELS`, by
 body op): K14 ``stream_scan`` (``scan``: the inclusive prefix sum, its
@@ -105,7 +115,8 @@ from typing import (Any, Callable, Dict, Iterable, NamedTuple, Optional,
 import numpy as np
 import torch
 
-from .agu import SSR_MAX_AXES, BlockAGU, StreamGeometry, grid_steps
+from .agu import (SSR_MAX_AXES, BlockAGU, RingProgram, StreamGeometry,
+                  grid_steps)
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -163,6 +174,16 @@ KERNELS: Dict[str, Dict[str, str]] = {
                        "source": "src/repro_torch/csrc/stream_bitonic.cu"},
     "base_scan": {"replaces": "src/repro/kernels/scan.py:64",
                   "source": "src/repro_torch/csrc/base_scan.cu"},
+    "ring_reduce_mul": {"replaces": "src/repro/core/ssr.py:215",
+                        "source": "src/repro_torch/csrc/ring_reduce_mul.cu"},
+    "ring_map_relu": {"replaces": "src/repro/core/ssr.py:215",
+                      "source": "src/repro_torch/csrc/ring_map_relu.cu"},
+    "ring_contract_gemm": {"replaces": "src/repro/core/ssr.py:215",
+                           "source":
+                               "src/repro_torch/csrc/ring_contract_gemm.cu"},
+    "ring_contract_gemv": {"replaces": "src/repro/core/ssr.py:215",
+                           "source":
+                               "src/repro_torch/csrc/ring_contract_gemv.cu"},
 }
 
 #: Wrapper calls per kernel since the last :func:`reset_launches`: one per
@@ -178,6 +199,8 @@ KERNELS: Dict[str, Dict[str, str]] = {
 #: and one tile merge (105 at n = 2**26).  K4's relu drain counts as
 #: ``contract_gemv``, K9's as ``halo_stencil1d``; a K11 call over a head
 #: batch is one launch, and so is a K15 or K16 call over a batch of rows.
+#: A pipelined call counts its ring kernel (R4's drain as
+#: ``ring_contract_gemv``; an R1 call is two device launches, as K1's).
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
@@ -197,11 +220,26 @@ def _nvcc() -> str:
                        "Hopper kernels are built from source at first use")
 
 
+def _headers(source: Path) -> list:
+    """The repo headers ``source`` includes, directly or through another."""
+    seen: list = []
+    todo = [source]
+    while todo:
+        for line in todo.pop().read_text().splitlines():
+            if line.startswith('#include "'):
+                h = CSRC / line.split('"')[1]
+                if h not in seen:
+                    seen.append(h)
+                    todo.append(h)
+    return sorted(seen)
+
+
 def library_path(name: str) -> Path:
     """Where the built library of ``name`` lives, keyed on its inputs: its
-    source, every shared header and the flags."""
+    source, the headers it includes and the flags."""
     h = hashlib.sha256()
-    for f in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
+    source = CSRC / f"{name}.cu"
+    for f in (*_headers(source), source):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -251,8 +289,14 @@ class _Stream(ctypes.Structure):
                 ("pitch", ctypes.c_int64)]
 
 
+class _Ring(ctypes.Structure):
+    _fields_ = [("depth", ctypes.c_int64 * 2),
+                ("invariant", ctypes.c_int64 * 2)]
+
+
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _GP, _SP = ctypes.POINTER(_Grid), ctypes.POINTER(_Stream)
+_RP = ctypes.POINTER(_Ring)
 _SIGNATURES = {
     "reduce_mul": [_P, _P, _I, _I, _GP, _SP, _SP, _P, _I64, _I64, _P, _P],
     "map_relu": [_P, _P, _I, _I, _GP, _SP, _SP, _I64, _I64, _P],
@@ -287,6 +331,14 @@ _SIGNATURES = {
     "base_scan": [_P, _I, _P, _P, _I64, _I64, _P],
     "stream_fft": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _P],
     "stream_bitonic": [_P, _P, _I, _I64, _I64, _P],
+    "ring_reduce_mul": [_P, _P, _I, _I, _GP, _SP, _SP, _RP, _I64, _P, _I64,
+                        _I64, _P, _P],
+    "ring_map_relu": [_P, _P, _I, _I, _GP, _SP, _SP, _RP, _I64, _I64, _I64,
+                      _P],
+    "ring_contract_gemm": [_P, _P, _P, _I, _I, _I, _GP, _SP, _SP, _SP, _I64,
+                           _RP, _I64, _P],
+    "ring_contract_gemv": [_P, _P, _P, _I, _I, _I, _I, _GP, _SP, _SP, _SP,
+                           _I64, _I64, _I, _RP, _I64, _P],
 }
 #: Arguments of a kernel's ``ssr_<name>_smem_bytes`` (none for the rest).
 _SMEM_SIGNATURES = {"halo_stencil1d": [_I64], "halo_stencil2d": [_I64],
@@ -499,6 +551,18 @@ def _smem_refusal(name: str, dev: torch.device, *args: int) -> Optional[str]:
 def _refusal(name: str, geo: StreamGeometry, dtype: torch.dtype,
              dev: torch.device) -> Optional[str]:
     """Why kernel ``name`` refuses this geometry at ``dtype``, or None."""
+    reason = _geometry_refusal(name, geo, dtype)
+    if reason is not None or dev.type != "cuda":
+        return reason
+    args = _SMEM_ARGS[name](geo) if name in _SMEM_ARGS else ()
+    return _smem_refusal(_LIB_OF.get(name, name), dev, *args)
+
+
+def _geometry_refusal(name: str, geo: StreamGeometry,
+                      dtype: torch.dtype) -> Optional[str]:
+    """What kernel ``name`` (or its ring kernel) refuses of the geometry at
+    ``dtype``, on any device: streams, dtypes, axes, block sizes and the
+    block composition."""
     n_in, dtypes, formula, composes = _TAKES[name]
     if len(geo.ins) != n_in:
         return f"{name}: takes {n_in} streams, the schedule has {len(geo.ins)}"
@@ -516,10 +580,74 @@ def _refusal(name: str, geo: StreamGeometry, dtype: torch.dtype,
     if not composes(geo):
         return (f"{name}: blocks {[a.block for a in geo.ins]} → "
                 f"{geo.out.block} do not compose as {formula}")
-    if dev.type != "cuda":
-        return None
-    args = _SMEM_ARGS[name](geo) if name in _SMEM_ARGS else ()
-    return _smem_refusal(_LIB_OF.get(name, name), dev, *args)
+    return None
+
+
+# -- the rings of the pipelined kernels --------------------------------------
+
+#: (call mode, body op) → the ring kernel a pipelined call of that family
+#: runs on the card (R1–R4); the other families stay synchronous at any
+#: depth.
+RING_KERNELS: Dict[tuple, str] = {
+    ("reduce", "mul"): "ring_reduce_mul",
+    ("map", "relu"): "ring_map_relu",
+    ("nest", "dot"): "ring_contract_gemm",
+    ("nest", "matvec"): "ring_contract_gemv",
+    ("nest", "matvec_relu"): "ring_contract_gemv",
+}
+#: R3's CTA tile (K3's): 128 x 128 outputs over 16-wide k chunks, the unit
+#: of its ring; an A slot's rows are padded by 16 bytes.
+GEMM_TILE_M, GEMM_TILE_N, GEMM_CHUNK_K = 128, 128, 16
+#: R4's rows a CTA (one a warp).
+GEMV_RING_ROWS = 8
+#: Shared memory one CTA may opt into on an H100 or H200 (what the card
+#: reports as ``shared_memory_per_block_optin``): the budget of a ring, the
+#: same wherever the schedule is checked.
+SMEM_OPTIN_BYTES = 232448
+
+
+def device_ring(name: str, geo: StreamGeometry, ring: RingProgram,
+                dtype: torch.dtype) -> RingProgram:
+    """``ring`` as ring kernel ``name`` allocates it: one slot per stream
+    and depth, each the kernel's tile of that stream.  R3's unit is the k
+    chunk, which moves at every step, so no stream of it is invariant."""
+    size = _itemsize(dtype)
+    if name == "ring_contract_gemm":
+        pad = 16 // size
+        return RingProgram(
+            ring.depths, (False, False),
+            (GEMM_TILE_M * (GEMM_CHUNK_K + pad) * size,
+             GEMM_CHUNK_K * GEMM_TILE_N * size))
+    if name == "ring_contract_gemv":
+        tn = geo.ins[0].block[1]
+        return RingProgram(ring.depths, ring.invariant,
+                           (GEMV_RING_ROWS * tn * size, tn * size))
+    return RingProgram(ring.depths, ring.invariant,
+                       tuple(math.prod(a.block) * size for a in geo.ins))
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _ring_refusal(op: tuple, name: str, geo: StreamGeometry,
+                  dtype: torch.dtype, ring: RingProgram) -> Optional[str]:
+    """Why the ring kernel of ``op`` refuses this pipelined call: what the
+    sync kernel ``name`` refuses of the geometry, then a ring over the
+    shared memory a CTA may opt into (:data:`SMEM_OPTIN_BYTES`)."""
+    rname = RING_KERNELS[op]
+    reason = _geometry_refusal(name, geo, dtype)
+    if reason is not None:
+        return reason.replace(f"{name}:", f"{rname}:", 1)
+    if len(ring.depths) != len(geo.ins):
+        return (f"{rname}: a ring of {len(ring.depths)} streams for "
+                f"{len(geo.ins)} read streams")
+    need = device_ring(rname, geo, ring, dtype).ring_bytes
+    if need > SMEM_OPTIN_BYTES:
+        return (f"{rname}: its ring at depths {ring.depths} needs {need} "
+                f"bytes of shared memory a CTA, the card allows "
+                f"{SMEM_OPTIN_BYTES}")
+    return None
 
 
 #: Wrappers that launch another wrapper's library.
@@ -529,19 +657,27 @@ _LIB_OF = {"contract_gemv_relu": "contract_gemv",
 
 def accepts(op: tuple, geo: StreamGeometry, dtype: torch.dtype,
             device: Union[str, torch.device],
-            program: Optional[Any] = None) -> Tuple[bool, str]:
+            program: Optional[Any] = None,
+            ring: Optional[RingProgram] = None) -> Tuple[bool, str]:
     """(takes, reason): whether the streamed kernel of ``op`` — a (call
     mode, body op or tuple of stage ops) pair of :data:`DEVICE_KERNELS` —
     takes this geometry at this input dtype on ``device``, running
     ``program`` (a :class:`~repro_torch.core.ssr.StageProgram`; the stage
-    kernels need it).  The wrappers refuse exactly what this refuses; the
-    autotuners filter their candidates with it.  On a CUDA device the
-    shared-memory check builds the kernel."""
+    kernels need it).  With ``ring`` (a pipelined call) it is the ring
+    kernel of :data:`RING_KERNELS` that must take it, its ring within the
+    shared memory a CTA may opt into.  The wrappers refuse exactly what
+    this refuses; the autotuners filter their candidates with it.  On a
+    CUDA device the sync kernels' shared-memory check builds the kernel."""
     kernel = DEVICE_KERNELS.get(op)
     if kernel is None:
         return False, f"no Hopper kernel for {op}"
     name, dev = kernel.__name__, torch.device(device)
-    if name in _TAKES:
+    if ring is not None:
+        if op not in RING_KERNELS:
+            return False, f"no Hopper ring kernel for {op}"
+        reason = _program_refusal(name, program) or \
+            _ring_refusal(op, name, geo, dtype, ring)
+    elif name in _TAKES:
         reason = _program_refusal(name, program) or \
             _refusal(name, geo, dtype, dev)
     else:
@@ -590,9 +726,11 @@ def _checked_operands(name: str, tensors: Sequence[torch.Tensor],
 
 def _checked(name: str, geo: StreamGeometry,
              layouts: Sequence[torch.Tensor],
-             program: Optional[Any] = None) -> torch.device:
-    """Validate what every streamed wrapper's kernel takes; return the
-    device."""
+             program: Optional[Any] = None,
+             ring: Optional[RingProgram] = None,
+             op: Optional[tuple] = None) -> torch.device:
+    """Validate what every streamed wrapper's kernel takes (with ``ring``,
+    what the ring kernel of ``op`` takes); return the device."""
     reason = _program_refusal(name, program)
     if reason is not None:
         raise ValueError(reason)
@@ -602,7 +740,8 @@ def _checked(name: str, geo: StreamGeometry,
         raise ValueError(f"{name}: takes {n_in} streams, got {len(layouts)}")
     for k, (t, agu) in enumerate(zip(layouts, geo.ins)):
         agu.check_within(geo.grid, tuple(t.shape), f"{name}[{k}]")
-    reason = _refusal(name, geo, layouts[0].dtype, dev)
+    reason = _refusal(name, geo, layouts[0].dtype, dev) if ring is None \
+        else _ring_refusal(op, name, geo, layouts[0].dtype, ring)
     if reason is not None:
         raise ValueError(reason)
     geo.out.check_within(geo.grid, geo.out_shape, f"{name}[out]")
@@ -652,12 +791,22 @@ def _vector_width(tensors: Sequence[torch.Tensor],
 # -- the four wrappers ------------------------------------------------------
 
 
+def _ring_arg(ring: RingProgram) -> _Ring:
+    r = _Ring()
+    for i, (d, inv) in enumerate(zip(ring.depths, ring.invariant)):
+        r.depth[i], r.invariant[i] = d, int(inv)
+    return r
+
+
 def reduce_mul(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                out_dtype: torch.dtype,
                acc_dtype: torch.dtype = torch.float32,
-               program: Optional[Any] = None) -> torch.Tensor:
-    """K1: Σ promote(a)·promote(b) over every step → (1, 1) f32."""
-    dev = _checked("reduce_mul", geo, layouts, program)
+               program: Optional[Any] = None,
+               ring: Optional[RingProgram] = None) -> torch.Tensor:
+    """K1: Σ promote(a)·promote(b) over every step → (1, 1) f32; with
+    ``ring`` (a pipelined call) R1, on K1's split of the steps."""
+    dev = _checked("reduce_mul", geo, layouts, program, ring,
+                   ("reduce", "mul"))
     if out_dtype != torch.float32:
         raise TypeError(f"reduce_mul: accumulates in float32, asked for "
                         f"{out_dtype}")
@@ -667,20 +816,27 @@ def reduce_mul(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
     out = torch.empty((1, 1), dtype=torch.float32, device=dev)
     g, sa, sb = _grid_arg(geo.grid), _stream_arg(geo.ins[0], a), \
         _stream_arg(geo.ins[1], b)
-    _launch("reduce_mul", dev, a.data_ptr(), b.data_ptr(),
-            _DTYPE_CODE[a.dtype], _vector_width(layouts, geo.ins),
-            ctypes.byref(g), ctypes.byref(sa),
-            ctypes.byref(sb), partials.data_ptr(), ctas, per_cta,
-            out.data_ptr())
+    streams = (a.data_ptr(), b.data_ptr(), _DTYPE_CODE[a.dtype],
+               _vector_width(layouts, geo.ins), ctypes.byref(g),
+               ctypes.byref(sa), ctypes.byref(sb))
+    tail = (partials.data_ptr(), ctas, per_cta, out.data_ptr())
+    if ring is None:
+        _launch("reduce_mul", dev, *streams, *tail)
+    else:
+        dr = device_ring("ring_reduce_mul", geo, ring, a.dtype)
+        _launch("ring_reduce_mul", dev, *streams,
+                ctypes.byref(_ring_arg(dr)), dr.ring_bytes, *tail)
     return out
 
 
 def map_relu(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
              out_dtype: torch.dtype,
              acc_dtype: torch.dtype = torch.float32,
-             program: Optional[Any] = None) -> torch.Tensor:
-    """K2: each step's block → max(0, block) through the dense out map."""
-    dev = _checked("map_relu", geo, layouts, program)
+             program: Optional[Any] = None,
+             ring: Optional[RingProgram] = None) -> torch.Tensor:
+    """K2: each step's block → max(0, block) through the dense out map;
+    with ``ring`` (a pipelined call) R2, on K2's split of the steps."""
+    dev = _checked("map_relu", geo, layouts, program, ring, ("map", "relu"))
     (x,) = layouts
     if out_dtype != x.dtype:
         raise TypeError(f"map_relu: keeps the dtype ({x.dtype}), asked for "
@@ -689,19 +845,27 @@ def map_relu(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
     out = torch.empty(geo.out_shape, dtype=x.dtype, device=dev)
     g, sx, so = _grid_arg(geo.grid), _stream_arg(geo.ins[0], x), \
         _stream_arg(geo.out, out)
-    _launch("map_relu", dev, x.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[x.dtype],
-            _vector_width((x, out), (geo.ins[0], geo.out)),
-            ctypes.byref(g), ctypes.byref(sx),
-            ctypes.byref(so), ctas, per_cta)
+    streams = (x.data_ptr(), out.data_ptr(), _DTYPE_CODE[x.dtype],
+               _vector_width((x, out), (geo.ins[0], geo.out)),
+               ctypes.byref(g), ctypes.byref(sx), ctypes.byref(so))
+    if ring is None:
+        _launch("map_relu", dev, *streams, ctas, per_cta)
+    else:
+        dr = device_ring("ring_map_relu", geo, ring, x.dtype)
+        _launch("ring_map_relu", dev, *streams, ctypes.byref(_ring_arg(dr)),
+                dr.ring_bytes, ctas, per_cta)
     return out
 
 
 def _contract(name: str, geo: StreamGeometry,
               layouts: Sequence[torch.Tensor], out_dtype: torch.dtype,
-              acc_dtype: torch.dtype, vec_of: Callable[[], int],
-              program: Optional[Any], *extra) -> torch.Tensor:
-    dev = _checked(name, geo, layouts, program)
+              acc_dtype: torch.dtype, program: Optional[Any],
+              ring: Optional[RingProgram], op: tuple,
+              args: Callable[[torch.device], tuple]) -> torch.Tensor:
+    """Check and launch a contraction: ``args(dev)`` are the kernel's
+    arguments after the operands, dtypes and vector widths, or, with
+    ``ring``, the ring kernel's."""
+    dev = _checked(name, geo, layouts, program, ring, op)
     if acc_dtype != torch.float32:
         raise TypeError(f"{name}: accumulates in float32, the schedule asks "
                         f"for {acc_dtype}")
@@ -709,49 +873,84 @@ def _contract(name: str, geo: StreamGeometry,
         raise TypeError(f"{name}: drains to float32 or bfloat16, asked for "
                         f"{out_dtype}")
     out = torch.empty(geo.out_shape, dtype=out_dtype, device=dev)
+    kernel, widths, rest = args(dev)
     g = _grid_arg(geo.grid)
     s0, s1 = (_stream_arg(a, t) for a, t in zip(geo.ins, layouts))
     so = _stream_arg(geo.out, out)
-    _launch(name, dev, layouts[0].data_ptr(), layouts[1].data_ptr(),
+    _launch(kernel, dev, layouts[0].data_ptr(), layouts[1].data_ptr(),
             out.data_ptr(), _DTYPE_CODE[layouts[0].dtype],
-            _DTYPE_CODE[out_dtype], vec_of(), ctypes.byref(g),
+            _DTYPE_CODE[out_dtype], *widths, ctypes.byref(g),
             ctypes.byref(s0), ctypes.byref(s1), ctypes.byref(so),
-            geo.contraction_steps, *extra)
+            geo.contraction_steps, *rest)
     return out
 
 
 def contract_gemm(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                   out_dtype: torch.dtype,
                   acc_dtype: torch.dtype = torch.float32,
-                  program: Optional[Any] = None) -> torch.Tensor:
-    """K3: C block (tm, tn) += A block (tm, tk) · B block (tk, tn)."""
-    # A and B are read in 16-byte packs where they can be (f32 only)
-    return _contract(
-        "contract_gemm", geo, layouts, out_dtype, acc_dtype,
-        lambda: 4 if layouts[0].dtype == torch.float32
-        and _vector_width(layouts, geo.ins) == 4 else 1, program)
+                  program: Optional[Any] = None,
+                  ring: Optional[RingProgram] = None) -> torch.Tensor:
+    """K3: C block (tm, tn) += A block (tm, tk) · B block (tk, tn); with
+    ``ring`` (a pipelined call) R3."""
+    def args(dev):
+        if ring is None:
+            # A and B are read in 16-byte packs where they can be (f32 only)
+            return "contract_gemm", (
+                4 if layouts[0].dtype == torch.float32
+                and _vector_width(layouts, geo.ins) == 4 else 1,), ()
+        # R3 copies 16 bytes where A and B allow it, in either dtype
+        dr = device_ring("ring_contract_gemm", geo, ring, layouts[0].dtype)
+        return "ring_contract_gemm", (
+            int(_vector_width(layouts, geo.ins) > 1),), (
+            ctypes.byref(_ring_arg(dr)), dr.ring_bytes)
+
+    return _contract("contract_gemm", geo, layouts, out_dtype, acc_dtype,
+                     program, ring, ("nest", "dot"), args)
 
 
 def contract_gemv(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                   out_dtype: torch.dtype,
                   acc_dtype: torch.dtype = torch.float32,
-                  program: Optional[Any] = None, *,
+                  program: Optional[Any] = None,
+                  ring: Optional[RingProgram] = None, *,
                   relu: bool = False) -> torch.Tensor:
     """K4: y block (1, tm) += A block (tm, tn) · x block (1, tn)ᵀ; with
     ``relu`` the drain writes max(0, y) (selected, as K2 does), once per
-    output block, never to a partial."""
+    output block, never to a partial.  With ``ring`` (a pipelined call) R4,
+    each CTA on a run of whole output blocks: one where the contraction
+    takes several steps (K4's split), else as many as spread the blocks
+    over 8 CTAs an SM, so that the ring has steps to run ahead over."""
     # A is read in 16-byte packs where it can be; x is staged element-wise
+    vec = _vector_width(layouts[:1], geo.ins[:1])
+
+    def args(dev):
+        if ring is None:
+            return "contract_gemv", (vec,), (int(relu),)
+        z = geo.contraction_steps
+        groups = -(-geo.ins[0].block[0] // GEMV_RING_ROWS)
+        blocks = geo.steps // z
+        per_run = 1
+        if z == 1:
+            sms = _card(dev).multi_processor_count
+            per_run = min(blocks, -(-(blocks * groups) // (8 * sms)))
+        dr = device_ring("ring_contract_gemv", geo, ring, layouts[0].dtype)
+        xvec = int(_vector_width(layouts[1:], geo.ins[1:]) > 1)
+        return "ring_contract_gemv", (vec, xvec), (
+            per_run, int(relu), ctypes.byref(_ring_arg(dr)), dr.ring_bytes)
+
     return _contract("contract_gemv", geo, layouts, out_dtype, acc_dtype,
-                     lambda: _vector_width(layouts[:1], geo.ins[:1]),
-                     program, int(relu))
+                     program, ring,
+                     ("nest", "matvec_relu" if relu else "matvec"), args)
 
 
 def contract_gemv_relu(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                        out_dtype: torch.dtype,
                        acc_dtype: torch.dtype = torch.float32,
-                       program: Optional[Any] = None) -> torch.Tensor:
-    """K4 with its relu drain: y = max(0, A·x) (``matvec_relu``)."""
-    return contract_gemv(geo, layouts, out_dtype, acc_dtype, program,
+                       program: Optional[Any] = None,
+                       ring: Optional[RingProgram] = None) -> torch.Tensor:
+    """K4 with its relu drain: y = max(0, A·x) (``matvec_relu``); R4 with
+    ``ring``."""
+    return contract_gemv(geo, layouts, out_dtype, acc_dtype, program, ring,
                          relu=True)
 
 
@@ -1777,9 +1976,12 @@ def _widened(geo: StreamGeometry, blocks: Sequence[torch.Tensor]) -> list:
 
 
 def _each_step(fn: Callable, geo: StreamGeometry,
-               layouts: Sequence[torch.Tensor]) -> torch.Tensor:
-    """``fn`` applied to every step's blocks at once: (steps, *partial)."""
-    blocks, dims = _step_inputs(geo, layouts)
+               layouts: Sequence[torch.Tensor],
+               inputs: Optional[Tuple[list, tuple]] = None) -> torch.Tensor:
+    """``fn`` applied to every step's blocks at once: (steps, *partial).
+    ``inputs`` are the blocks and their ``vmap`` dims as delivered (by the
+    ring), else :func:`_step_inputs` gathers them."""
+    blocks, dims = inputs or _step_inputs(geo, layouts)
     return torch.vmap(lambda *b: fn(*_widened(geo, b)), in_dims=dims)(*blocks)
 
 
@@ -1815,17 +2017,21 @@ def _map_epilogue(parts: torch.Tensor, geo: StreamGeometry,
 
 def plain_reduce(body: Callable, geo: StreamGeometry,
                  layouts: Sequence[torch.Tensor], out_dtype: torch.dtype,
-                 acc_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                 acc_dtype: torch.dtype = torch.float32,
+                 inputs: Optional[Tuple[list, tuple]] = None) -> torch.Tensor:
     """Reduce epilogue: accumulate every step's partial, fold once → (1, 1)
     (see :func:`_reduce_epilogue`)."""
-    return _reduce_epilogue(_each_step(body, geo, layouts), geo, out_dtype)
+    return _reduce_epilogue(_each_step(body, geo, layouts, inputs), geo,
+                            out_dtype)
 
 
 def plain_map(body: Callable, geo: StreamGeometry,
               layouts: Sequence[torch.Tensor], out_dtype: torch.dtype,
-              acc_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+              acc_dtype: torch.dtype = torch.float32,
+              inputs: Optional[Tuple[list, tuple]] = None) -> torch.Tensor:
     """Map epilogue: each step's body block → the dense write stream."""
-    return _map_epilogue(_each_step(body, geo, layouts), geo, out_dtype)
+    return _map_epilogue(_each_step(body, geo, layouts, inputs), geo,
+                         out_dtype)
 
 
 #: Gathered elements the plain version of a gather holds at once: it runs
@@ -1872,7 +2078,9 @@ def _plain_gather_contract(body: Callable, geo: StreamGeometry,
 
 def plain_contract(body: Callable, geo: StreamGeometry,
                    layouts: Sequence[torch.Tensor], out_dtype: torch.dtype,
-                   acc_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                   acc_dtype: torch.dtype = torch.float32,
+                   inputs: Optional[Tuple[list, tuple]] = None
+                   ) -> torch.Tensor:
     """Level-mapped epilogue: accumulate over the contraction steps, drain.
 
     The contraction axes trail the grid, so the visits of one output block
@@ -1885,7 +2093,7 @@ def plain_contract(body: Callable, geo: StreamGeometry,
     if geo.gathers:
         return _plain_gather_contract(body, geo, layouts, out_dtype,
                                       acc_dtype)
-    parts = _each_step(body, geo, layouts)
+    parts = _each_step(body, geo, layouts, inputs)
     drain = getattr(body, "drain", None) or (lambda t: t)
     if not geo.contraction_axes:
         parts = drain(parts).to(out_dtype).reshape(geo.steps, *geo.out.block)
@@ -2043,6 +2251,69 @@ def plain_stream(body: Callable, launch: Any,
 PLAIN: Dict[str, Callable[..., torch.Tensor]] = {
     "reduce": plain_reduce, "map": plain_map, "nest": plain_contract,
     "rescale": plain_rescale}
+
+
+def plain_ring(body: Callable, geo: StreamGeometry,
+               layouts: Sequence[torch.Tensor], out_dtype: torch.dtype,
+               acc_dtype: torch.dtype = torch.float32, *, mode: str,
+               ring: RingProgram, steps_per_cta: Optional[int] = None
+               ) -> Tuple[torch.Tensor, list]:
+    """A pipelined kernel's plain version: the blocks of
+    :func:`plain_reduce`, :func:`plain_map` or :func:`plain_contract`
+    (``mode``) delivered through ``ring``, then the same computation.
+
+    The grid runs as runs of ``steps_per_cta`` consecutive steps (one run
+    by default: the reference's single core).  Each run starts with an
+    empty ring of ``ring.depths[i]`` slots a stream, primes
+    :meth:`RingProgram.prime` fetches, and at each of its steps ``s``
+    first starts the fetch of step ``s + d − 1`` (if the run has it) into
+    slot ``(s + d − 1) % d``, then takes the block of slot ``s % d``; an
+    invariant stream is fetched once into slot 0 and taken from there.  The
+    slots hold the grid step of the block they were last filled with, and
+    each step's blocks are gathered once at the end from the steps its
+    reads found: a slot read too early or refilled too soon delivers
+    another step's block.  Returns the result and the fetch log:
+    ``(stream, step, slot)`` in issue order, ``step`` counted over the
+    whole grid.
+    """
+    steps = geo.steps
+    run = steps_per_cta or steps
+    held = [[-1] * (1 if inv else d)
+            for d, inv in zip(ring.depths, ring.invariant)]
+    taken = [[-1] * steps for _ in geo.ins]
+    log = []
+
+    def fetch(i: int, step: int, slot: int) -> None:
+        held[i][slot] = step
+        log.append((i, step, slot))
+
+    streams = range(len(geo.ins))
+    for s0 in range(0, steps, run):
+        n = min(run, steps - s0)
+        for i in streams:
+            for j in range(ring.prime(i, n)):
+                fetch(i, s0 + j, j)
+        for s in range(n):
+            for i in streams:
+                t = s + ring.depths[i] - 1
+                if not ring.invariant[i] and t < n:
+                    fetch(i, s0 + t, t % ring.depths[i])
+            for i in streams:
+                taken[i][s0 + s] = held[i][0 if ring.invariant[i]
+                                           else s % ring.depths[i]]
+    got = []
+    for agu, t, at in zip(geo.ins, layouts, taken):
+        index = agu.element_index(geo.grid, tuple(t.shape), t.device)
+        got.append(t.reshape(-1)[index[torch.tensor(at, device=t.device)]])
+    # an invariant stream is handed its one block unbatched, as the
+    # gathering plain versions hand it (vmap needs one batched input)
+    fixed = list(ring.invariant) if not all(ring.invariant) else \
+        [False] + list(ring.invariant[1:])
+    blocks = [g[0] if f else g for g, f in zip(got, fixed)]
+    dims = tuple(None if f else 0 for f in fixed)
+    out = PLAIN[mode](body, geo, layouts, out_dtype, acc_dtype,
+                      inputs=(blocks, dims))
+    return out, log
 
 
 # -- plain versions of the baselines ------------------------------------------

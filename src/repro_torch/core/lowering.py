@@ -113,8 +113,9 @@ class Schedule:
     * ``acc_dtype`` — the contraction accumulator dtype, by name;
     * ``buffer_depth``/``stream_depths`` — the data mover's FIFO depth,
       uniform or per read stream.  Validated (2..8) and accounted in
-      :class:`~repro_torch.core.ssr.StreamReport`; the Hopper kernels of
-      this port do not stage by it yet;
+      :class:`~repro_torch.core.ssr.StreamReport`; above 2 the kernels of
+      K1–K4's families run their ring kernels (R1–R4), the others stay
+      synchronous (:attr:`~repro_torch.core.ssr.SsrKernel.pipelined`);
     * ``cut_edges`` — for fused-DAG calls (:func:`ssr_dag_call`), the
       graph cut: the edges whose intermediates go through device memory,
       one kernel per remaining component (``()`` is all-fused, as ``None``).

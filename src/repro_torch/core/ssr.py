@@ -20,22 +20,30 @@ never drops to the CPU.  A fused chain or DAG is a :class:`StageKernel`: the
 stage bodies plus a :class:`StageProgram` naming each stage's op and where
 its blocks come from, looked up on the card by the tuple of stage ops.
 
-The lowered blocks are the streams' unit of delivery in device memory, not
-shared-memory buffers: :class:`StreamReport` counts the same bytes as the
-reference, and checks no budget.  Each CUDA kernel checks its own CTA
-configuration against the card.
+The lowered blocks are the streams' unit of delivery in device memory:
+:class:`StreamReport` counts the same bytes as the reference, and checks no
+budget.  Each CUDA kernel checks its own CTA configuration against the
+card.  A schedule deeper than 2 (``buffer_depth`` or ``stream_depths``)
+makes a kernel :attr:`SsrKernel.pipelined` where its family stages — the
+reference's ``_pipelined_call``: its read streams then arrive through an
+N-deep ring (:class:`~repro_torch.core.agu.RingProgram`), on the card in
+shared memory (the ring kernels R1–R4 of :data:`hopper.RING_KERNELS`), on
+the CPU in :func:`hopper.plain_ring`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import math
+import os
 from typing import Any, Callable, Optional, Sequence, Tuple
 
 import torch
 
 from . import agu, hopper
+from .agu import stream_vmem_bytes
 from .stream import Direction
 
 
@@ -44,20 +52,23 @@ class LoweringError(ValueError):
 
 
 #: The data mover's FIFO depth bounds.  Depth 2 is the classic double-
-#: buffered pipeline; the schedule validates and accounts it as the
-#: reference does, but the slice-1 kernels do not stage by it yet.
+#: buffered pipeline (the sync kernels); a deeper one runs ``depth − 1``
+#: fetches ahead of the body through a ring, where the kernel's family
+#: stages (:attr:`SsrKernel.pipelined`).
 DEFAULT_BUFFER_DEPTH = 2
 MAX_BUFFER_DEPTH = 8
 
 
-def stream_vmem_bytes(block_bytes: int,
-                      depth: int = DEFAULT_BUFFER_DEPTH) -> int:
-    """In-flight footprint of one stream's blocks: ``depth`` buffers.
+def pipeline_supported() -> bool:
+    """Whether a schedule deeper than 2 may run through a ring here.
 
-    The one accounting helper for the per-stream working set, as in the
-    reference (the name is kept so the two reports compare line by line).
+    Always, but for ``REPRO_DISABLE_PIPELINE``: a switch kept for parity
+    with the reference's opt-out, under which every kernel runs its
+    synchronous (depth-2) version, on the card K1–K4 in place of R1–R4.
+    Semantics are identical either way; ``chip_smoke.py`` refuses to run
+    under it, since its rings would not run.
     """
-    return depth * block_bytes
+    return not os.environ.get("REPRO_DISABLE_PIPELINE")
 
 
 def _itemsize(dtype) -> int:
@@ -321,6 +332,29 @@ class SsrKernel:
             halos=tuple(halos), level_tiles=tuple(level_tiles),
             gathers=tuple(gathers))
 
+    @functools.cached_property
+    def invariant(self) -> Tuple[bool, ...]:
+        """Per read stream: whether its block never moves over the grid."""
+        return tuple(agu.stream_is_invariant(s.index_map, self.grid)
+                     for s in self.in_streams)
+
+    @property
+    def pipelined(self) -> bool:
+        """Whether the read streams arrive through an N-deep ring: a depth
+        above 2, a grid of more than one step, :func:`pipeline_supported`
+        and a family that stages (:data:`hopper.RING_KERNELS`).  The same
+        on the CPU and on the card."""
+        return (max(self.depths, default=DEFAULT_BUFFER_DEPTH)
+                > DEFAULT_BUFFER_DEPTH and self.geometry.steps > 1
+                and pipeline_supported()
+                and self.device_key in hopper.RING_KERNELS)
+
+    @property
+    def ring(self) -> agu.RingProgram:
+        """The ring's depths and invariant streams (its slots are sized by
+        whoever runs it: the plain ring, or a ring kernel's tile)."""
+        return agu.RingProgram(depths=self.depths, invariant=self.invariant)
+
     @property
     def plain_kind(self) -> str:
         """The key of this kernel's plain version in :data:`hopper.PLAIN`."""
@@ -344,10 +378,23 @@ class SsrKernel:
         return kernel
 
     def plain(self, layouts: Sequence[torch.Tensor]) -> torch.Tensor:
-        """The plain PyTorch version of this kernel, on any device."""
+        """The plain PyTorch version of this kernel, on any device: through
+        the ring (:func:`hopper.plain_ring`) when :attr:`pipelined`."""
+        if self.pipelined:
+            return hopper.plain_ring(self.body, self.geometry, layouts,
+                                     self.out_dtype, self.acc_dtype,
+                                     mode=self.mode, ring=self.ring)[0]
         return hopper.PLAIN[self.plain_kind](self.body, self.geometry,
                                              layouts, self.out_dtype,
                                              self.acc_dtype)
+
+    def device_args(self) -> dict:
+        """The keywords the device kernel takes besides the geometry,
+        layouts and dtypes: the program, and the ring when pipelined."""
+        kw = {"program": self.program}
+        if self.pipelined:
+            kw["ring"] = self.ring
+        return kw
 
     def __call__(self, *layouts: torch.Tensor) -> torch.Tensor:
         devices = {t.device for t in layouts}
@@ -356,7 +403,7 @@ class SsrKernel:
         if layouts[0].device.type == "cpu":
             return self.plain(layouts)
         return self.device_kernel()(self.geometry, layouts, self.out_dtype,
-                                    self.acc_dtype, program=self.program)
+                                    self.acc_dtype, **self.device_args())
 
     def report(self, dtypes: Sequence[Any]) -> StreamReport:
         """Bytes per invocation: one dtype per stream (inputs, then out)."""

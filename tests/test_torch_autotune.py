@@ -475,11 +475,12 @@ def test_the_card_commits_only_a_gain_above_the_spread(on_card, default_ms,
 
 
 def test_the_card_races_one_candidate_per_kernel():
-    """Depth-only variants build their depth-2 twin's kernel: on the card
-    they do not race.  Every distinct kernel keeps one candidate, the
-    default's its own."""
-    nest = compiler.gemm_nest(256, 256, 256)
-    ops = {"A": torch.ones(256, 256), "B": torch.ones(256, 256)}
+    """A kernel is its geometry, accumulator and — where it is pipelined
+    (gemm's ring kernel stages by them) — its depths: on the card each
+    distinct kernel races once, the default's its own, so a depth-only
+    variant of a pipelined geometry races beside its depth-2 twin."""
+    nest = compiler.gemm_nest(256, 256, 1024)
+    ops = {"A": torch.ones(256, 1024), "B": torch.ones(1024, 256)}
     cands = autotune.candidate_schedules(nest, quick=True)
     kept = autotune._card_candidates(nest, cands, gemm.DOT, mode="nest",
                                      out_dtype="float32", operands=ops,
@@ -487,13 +488,14 @@ def test_the_card_races_one_candidate_per_kernel():
 
     def ident(s):
         k = autotune._candidate_kernel(nest, s, gemm.DOT, "nest", "float32")
-        return k.mode, k.geometry, k.acc_dtype
+        return (k.mode, k.geometry, k.acc_dtype,
+                k.depths if k.pipelined else None)
 
     assert kept[0] == DEFAULT_SCHEDULE
     assert len({ident(s) for s in kept}) == len(kept)
     assert {ident(s) for s in kept} == {ident(s) for s in cands}
-    assert any(s.buffer_depth != 2 for s in cands)
-    assert all(s.buffer_depth == 2 for s in kept)
+    assert any(s.buffer_depth != 2 for s in kept)
+    assert all(ident(s)[3] is not None for s in kept if s.buffer_depth != 2)
 
 
 def test_ssr_call_resolves_once_per_epoch(monkeypatch):

@@ -1218,3 +1218,122 @@ def test_stream_kernels_launch_or_raise_never_plain(dev, monkeypatch):
     with pytest.raises(ValueError, match="stream_scan"):
         wrong(x, device=dev)
     assert hopper.LAUNCHES == before
+
+
+# -- the stage rings (R1–R4): a schedule deeper than 2 ------------------------
+
+RING_DEPTHS = [3, 4, 8, (2, 4), (4, 2)]
+
+
+def _depth(depth):
+    return lowering.Schedule(stream_depths=depth) if isinstance(depth, tuple) \
+        else lowering.Schedule(buffer_depth=depth)
+
+
+def _ring_against_sync(nest, body, ops_, depth, bits=torch.int32, **kw):
+    """The call at ``depth`` and at depth 2: the ring kernel's output, the
+    sync kernel's, and what each launched."""
+    out = []
+    for sched in (_depth(depth), lowering.DEFAULT_SCHEDULE):
+        call = lowering.prepare_call(nest, body, ops_, schedule=sched, **kw)
+        before = dict(hopper.LAUNCHES)
+        got = call.run()
+        out.append((got.contiguous().view(bits), _launched(before),
+                    call.kernel))
+    return out
+
+
+@pytest.mark.parametrize("depth", RING_DEPTHS, ids=str)
+@pytest.mark.parametrize("n", [5000, (1 << 20) + 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_reduce_mul_is_k1_to_the_bit(dev, n, dtype, depth):
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.rand(n, generator=g, device=dev).to(dtype)
+    y = torch.rand(n, generator=g, device=dev).to(dtype)
+    (got, ring, kr), (want, sync, _) = _ring_against_sync(
+        compiler.dot_product_nest(n), reduction.MUL, {"A": x, "B": y}, depth)
+    assert kr.pipelined and ring == {"ring_reduce_mul"} \
+        and sync == {"reduce_mul"}
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("depth", [3, 4, 8, (5,)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_ring_map_relu_is_k2_to_the_bit(dev, dtype, depth):
+    n = (1 << 20) + 7
+    g = torch.Generator(device=dev).manual_seed(3)
+    if dtype == torch.int32:
+        x = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), generator=g,
+                          device=dev, dtype=dtype)
+    else:
+        x = torch.randn(n, generator=g, device=dev).to(dtype)
+        x[:3] = torch.tensor([-0.0, float("nan"), float("-inf")])
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    (got, ring, kr), (want, sync, _) = _ring_against_sync(
+        compiler.elementwise_nest(n), relu.RELU, {"X": x}, depth, bits,
+        mode="map", out_dtype=dtype)
+    assert kr.pipelined and ring == {"ring_map_relu"} \
+        and sync == {"map_relu"}
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("depth", RING_DEPTHS, ids=str)
+@pytest.mark.parametrize("mnk", [(300, 260, 1100), (1024, 1024, 1024)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_contract_gemm_is_k3_to_the_bit(dev, mnk, dtype, depth):
+    m, n, k = mnk
+    g = torch.Generator(device=dev).manual_seed(m + n + k)
+    a = torch.randn(m, k, generator=g, device=dev).to(dtype)
+    b = torch.randn(k, n, generator=g, device=dev).to(dtype)
+    (got, ring, kr), (want, sync, _) = _ring_against_sync(
+        compiler.gemm_nest(m, n, k), gemm.DOT, {"A": a, "B": b}, depth)
+    assert kr.pipelined and ring == {"ring_contract_gemm"} \
+        and sync == {"contract_gemm"}
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("depth", RING_DEPTHS, ids=str)
+@pytest.mark.parametrize("mn", [(1000, 1536), (2048, 512), (300, 5000)])
+@pytest.mark.parametrize("body", ["matvec", "matvec_relu"])
+def test_ring_contract_gemv_is_k4_to_the_bit(dev, mn, body, depth):
+    from repro_torch.kernels import chained
+    m, n = mn
+    g = torch.Generator(device=dev).manual_seed(m * n)
+    a = torch.randn(m, n, generator=g, device=dev)
+    x = torch.randn(n, generator=g, device=dev)
+    fn = gemv.MATVEC if body == "matvec" else chained.MATVEC_RELU
+    (got, ring, kr), (want, sync, _) = _ring_against_sync(
+        compiler.gemv_nest(m, n), fn, {"A": a, "x": x}, depth)
+    assert kr.pipelined and ring == {"ring_contract_gemv"} \
+        and sync == {"contract_gemv"}
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("depth", [3, 8, (2, 4)], ids=str)
+def test_plain_ring_matches_the_ring_kernel(dev, depth):
+    g = torch.Generator(device=dev).manual_seed(1)
+    a = torch.randn(300, 1100, generator=g, device=dev)
+    b = torch.randn(1100, 260, generator=g, device=dev)
+    call = lowering.prepare_call(compiler.gemm_nest(300, 260, 1100),
+                                 gemm.DOT, {"A": a, "B": b},
+                                 schedule=_depth(depth))
+    got = call.run()
+    want, log = hopper.plain_ring(call.kernel.body, call.kernel.geometry,
+                                  call.layouts, call.kernel.out_dtype,
+                                  mode="nest", ring=call.kernel.ring)
+    assert len({(i, s) for i, s, _ in log}) == len(log)
+    scale = a.abs() @ b.abs()
+    assert float(((got - call.finish(want)).abs() / scale).max()) \
+        <= CONTRACT_LIMIT
+
+
+def test_ring_over_the_budget_raises_on_the_card(dev):
+    x = torch.ones(1 << 16, device=dev)
+    call = lowering.prepare_call(
+        compiler.dot_product_nest(1 << 16), reduction.MUL, {"A": x, "B": x},
+        schedule=lowering.Schedule(rows=16, lanes=512, buffer_depth=8))
+    before = dict(hopper.LAUNCHES)
+    with pytest.raises(ValueError, match="ring_reduce_mul: its ring"):
+        call.run()
+    assert hopper.LAUNCHES == before

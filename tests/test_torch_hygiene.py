@@ -117,7 +117,13 @@ def test_wrappers_refuse_cpu_tensors(name):
     row = torch.zeros(1, 8)
     stream_args = {"stream_scan": (t,), "stream_fft": (row, row, row, row),
                    "stream_bitonic": (row,)}
-    n_in = 1 if name == "map_relu" else 2
+    # a ring kernel launches from its sync kernel's wrapper, given a ring
+    rings = {ring: wrapper for (_, op), ring in hopper.RING_KERNELS.items()
+             for wrapper in (hopper.DEVICE_KERNELS[(_, op)].__name__,)}
+    wrapper = rings.get(name, name)
+    n_in = 1 if wrapper == "map_relu" else 2
+    kw = {"ring": agu.RingProgram((3,) * n_in, (False,) * n_in)} \
+        if name in rings else {}
     before = dict(hopper.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA tensors"):
         if name in baseline_args:
@@ -125,7 +131,7 @@ def test_wrappers_refuse_cpu_tensors(name):
         elif name in stream_args:
             getattr(hopper, name)(None, *stream_args[name])
         else:
-            getattr(hopper, name)(geo, [t] * n_in, torch.float32)
+            getattr(hopper, wrapper)(geo, [t] * n_in, torch.float32, **kw)
     assert hopper.LAUNCHES == before
 
 
@@ -147,8 +153,9 @@ def test_build_key_follows_the_sources(tmp_path, monkeypatch):
     assert path.name.startswith("reduce_mul-") and path.suffix == ".so"
     assert "sm_90a" in " ".join(hopper.NVCC_FLAGS)
     assert "--use_fast_math" not in hopper.NVCC_FLAGS
-    # every shared header joins the key: an edited header never loads a
-    # library built from the old one
+    # every header a source includes, directly or through another, joins
+    # its key: an edited header never loads a library built from the old
+    # one, and a header a kernel does not include leaves its key alone
     import shutil
     csrc = tmp_path / "csrc"
     shutil.copytree(hopper.CSRC, csrc)
@@ -156,12 +163,19 @@ def test_build_key_follows_the_sources(tmp_path, monkeypatch):
     keys = {n: hopper.library_path(n) for n in hopper.KERNELS}
     assert keys == {n: hopper.library_path(n) for n in hopper.KERNELS}
     headers = sorted(p.name for p in csrc.glob("*.cuh"))
-    assert headers == ["ssr_common.cuh", "ssr_rows.cuh"]
+    assert headers == ["ssr_common.cuh", "ssr_ring.cuh", "ssr_rows.cuh"]
+    rows = {"ring_reduce_mul", "dag_layernorm", "dag_softmax_xent",
+            "chain_elem"}
+    users = {"ssr_common.cuh": set(hopper.KERNELS),
+             "ssr_ring.cuh": {n for n in hopper.KERNELS
+                              if n.startswith("ring_")},
+             "ssr_rows.cuh": {n for n in hopper.KERNELS if n in rows}}
     for header in headers:
         with open(csrc / header, "a") as f:
             f.write("\n// edited\n")
         moved = {n: hopper.library_path(n) for n in hopper.KERNELS}
-        assert all(moved[n] != keys[n] for n in keys), header
+        assert {n for n in keys if moved[n] != keys[n]} == users[header], \
+            header
         keys = moved
     with open(csrc / "dag_mlp.cu", "a") as f:
         f.write("\n// edited\n")
