@@ -35,10 +35,14 @@ printing JSON lines:
    baseline at n = 2**26), ``fft_2048_b32768`` (``ops.fft`` on 32,768
    transforms of 2048 points) and ``sort_2p26`` (``ops.sort`` on one row of
    2**26); K11's wide heads: ``attention_d192`` and ``attention_d256`` (8
-   heads, 2048**2, causal); check that every kernel launched, that a fused
+   heads, 2048**2, causal); the ChainedKernel cells: ``chained_axpy_relu``
+   (relu(0.3·x + y) on 2**26 elements, f32 and bf16, a flat (rows, 128)
+   Launch of (8, 128) blocks) and ``chained_scale_relu`` (relu(x·w), x
+   8192**2 f32 in (8, 512) blocks, w one invariant block), and the unfused
+   composition of the first; check that every kernel launched, that a fused
    call is one launch and an unfused one one per stage, that a sparse or
-   stream call is one wrapper call of its kernel, and that no fallback
-   fired;
+   stream call is one wrapper call of its kernel, that a ChainedKernel call
+   is one K17 launch, and that no fallback fired;
 3. hold each kernel's output against its plain PyTorch version on the
    card, on the same inputs, and each baseline's against the streamed
    kernel's; each instantiation of K5–K8 (every component of every legal
@@ -56,7 +60,12 @@ printing JSON lines:
    must differ; R1–R4 at each cell's main-path depth (and the main
    path's own ring outputs) against the plain ring at the cell's size,
    beside the ring on its first block zeroed, which must read above the
-   limit; the plain ring against R1–R4 at small sizes;
+   limit; the plain ring against R1–R4 at small sizes; K17 against its
+   plain version to the bit (f32, bf16, the invariant stream), R5 against
+   K17 at depths 3, 4 and 8, R6 against K5 on sum_sq_diff, axpy_dot and
+   their unfused stages at 2**26 at depths 3, 4, 8 and per-stream depths,
+   each beside its run with the first block zeroed, which must differ; R5
+   and R6 at the main path's depth against the plain ring at full size;
    each limit beside a control that must read above it;
 4. time each kernel, its plain version and one PyTorch library call with
    CUDA events, beside the least time the card could take, each baseline
@@ -65,7 +74,11 @@ printing JSON lines:
    point of the main path by the host's clock once warm, and the sparse
    entries' wall time split into packing, copies, layout and kernel; a
    ``depth_sweep`` line per ring cell: ms at depths 2 (the K-kernel), 3, 4
-   and 8, the best per-stream pair, ``ring_over_sync`` = K ms / R ms;
+   and 8, the best per-stream pair, ``ring_over_sync`` = K ms / R ms; a
+   ``chained_time`` line per ChainedKernel cell (K17 and R5 at depths 2–8,
+   the composed library calls, and for axpy_relu the unfused stages and
+   ``fused_over_unfused`` beside the byte prediction 20 / 12) and a
+   ``chain_depth_sweep`` line per R6 cell;
 5. tune gemm 4096**3 over the quick candidates into the cache (one
    candidate per distinct kernel, depth-only variants racing as R3; a
    winner within the race's spread of the default is held back), and
@@ -82,15 +95,17 @@ printing JSON lines:
 6b. arm one ``compile`` fault under that cut and check that the call
    degrades to all-fused (one K6 launch), quarantines the entry and stays
    right;
-7. print the ``{"kernels": [...]}`` line (K1–K16, B1–B8 and R1–R4; K11's
+7. print the ``{"kernels": [...]}`` line (K1–K17, B1–B8 and R1–R6; K11's
    row is the attention_qwen3 cell, the other attention cells have time
    lines of their own; an R row times its main-path depth), then the
    device line last.
 
 Phase 2 also drives the rings: ``ssr_dot``, ``ssr_relu`` (three dtypes),
 ``ssr_gemv`` and ``fused_gemv_relu`` at depth 4, ``ssr_matmul`` at depth
-3 and ``ssr_call`` at per-stream depths (2, 4); each must launch its ring
-kernel and no K1–K4, and each depth-2 call K1–K4 and no ring.
+3 and ``ssr_call`` at per-stream depths (2, 4), the ChainedKernel cells and
+``fused_sum_sq_diff``/``fused_axpy_dot`` at depth 4; each must launch its
+ring kernel (R1–R6) and no sync kernel, and each depth-2 call its sync
+kernel and no ring.
 
 Any failure exits non-zero; without a CUDA device, without the repo's
 ``src/repro_torch`` beside this file, or with ``REPRO_DISABLE_PIPELINE``
@@ -201,8 +216,17 @@ RING_PATH = {"dot_ring": ("ring_reduce_mul", "dot"),
              "relu_bf16_ring": ("ring_map_relu", "relu_bf16"),
              "gemm_ring": ("ring_contract_gemm", "gemm"),
              "gemv_ring": ("ring_contract_gemv", "gemv"),
-             "gemv_relu_ring": ("ring_contract_gemv", "gemv_relu")}
-SYNC = ("reduce_mul", "map_relu", "contract_gemm", "contract_gemv")
+             "gemv_relu_ring": ("ring_contract_gemv", "gemv_relu"),
+             "sum_sq_diff_ring": ("ring_chain_elem", "sum_sq_diff"),
+             "axpy_dot_ring": ("ring_chain_elem", "axpy_dot"),
+             "chained_axpy_relu_ring": ("ring_chained_map",
+                                        "chained_axpy_relu"),
+             "chained_axpy_relu_bf16_ring": ("ring_chained_map",
+                                             "chained_axpy_relu_bf16"),
+             "chained_scale_relu_ring": ("ring_chained_map",
+                                         "chained_scale_relu")}
+SYNC = ("reduce_mul", "map_relu", "contract_gemm", "contract_gemv",
+        "chain_elem", "chained_map")
 RING_DEPTHS = (3, 4, 8)
 RING_PAIRS = ((2, 4), (4, 2))
 # main-path entry at a depth above 2 → (its ring cell of phase 3e, depth)
@@ -219,6 +243,29 @@ RING_ROW = {"ring_reduce_mul": ("reduce_mul", "dot"),
             "ring_map_relu": ("map_relu", "relu"),
             "ring_contract_gemm": ("contract_gemm", "gemm"),
             "ring_contract_gemv": ("contract_gemv", "gemv")}
+
+# The ChainedKernel cells (K17, R5): relu(0.3·x + y) on 2**26 elements of
+# a flat (rows, 128) Launch in (8, 128) blocks, f32 and bf16 (the bias-add-
+# then-activation pattern); relu(x·w) on an 8192 x 8192 f32 x in (8, 512)
+# blocks on a (1024, 16) grid, w one invariant (8, 512) block read at every
+# step (the repeat register).  The main path runs them at depth 2 (K17) and
+# at CHAINED_MAIN_DEPTH (R5); the chains of K5 at that depth run R6.
+CHAINED_ALPHA = 0.3
+SCALE_BLOCK = (8, 512)
+CHAINED_MAIN_DEPTH = 4
+# main-path entry → the launches of one call: K17 once, the unfused
+# composition (K5's axpy map, then K2) one launch a stage
+CHAINED_LAUNCHES = {"chained_axpy_relu": {"chained_map": 1},
+                    "chained_axpy_relu_bf16": {"chained_map": 1},
+                    "chained_scale_relu": {"chained_map": 1},
+                    "chained_axpy_relu_unfused": {"chain_elem": 1,
+                                                  "map_relu": 1}}
+# R6's cells: (K5 program, stream count) → the depths checked and swept
+R6_DEPTHS = {"sum_sq_diff": (3, 4, 8, (2, 4), (4, 2)),
+             "axpy_dot": (3, 4, 8, (2, 4, 3), (4, 2, 2)),
+             "sq_diff_map": (3, 4, 8, (2, 4), (4, 2)),
+             "axpy_map": (3, 4, 8, (2, 4), (4, 2)),
+             "identity_reduce": (3, 4, 8)}
 
 # streamed kernel → its monolithic baseline
 PAIRS = {"reduce_mul": "base_reduce", "map_relu": "base_relu",
@@ -328,6 +375,47 @@ def first_block_zeroed(call):
     return tuple(out)
 
 
+def chained_kernels(frontend, chained, relu, block_stream, direction):
+    """The ChainedKernel cells as a user states them: (axpy_relu, a flat
+    (rows, 128) Launch of (8, 128) blocks; scale_relu, x in SCALE_BLOCK
+    blocks on a 2-D grid with w one invariant block)."""
+    def flat(static, x, y):
+        walk = block_stream((8, 128), lambda i: (i, 0))
+        return frontend.Launch(
+            grid=(x.shape[0] // 8,), in_streams=(walk, walk),
+            out_streams=(block_stream((8, 128), lambda i: (i, 0),
+                                      direction.WRITE),),
+            out_shapes=(frontend.ShapeDtype(tuple(x.shape), x.dtype),),
+            dimension_semantics=("parallel",))
+
+    def scaled(static, x, w):
+        (r, c), (br, bc) = x.shape, SCALE_BLOCK
+        return frontend.Launch(
+            grid=(r // br, c // bc),
+            in_streams=(block_stream(SCALE_BLOCK, lambda i, j: (i, j)),
+                        block_stream(SCALE_BLOCK, lambda i, j: (0, 0))),
+            out_streams=(block_stream(SCALE_BLOCK, lambda i, j: (i, j),
+                                      direction.WRITE),),
+            out_shapes=(frontend.ShapeDtype(tuple(x.shape), x.dtype),),
+            dimension_semantics=("parallel", "parallel"))
+
+    waiver = ("a producer block handed to an elementwise consumer in the "
+              "same step, over a hand-stated Launch")
+    axpy_relu = frontend.ChainedKernel(
+        "chained_axpy_relu",
+        prepare=lambda x, y: ((frontend.pad_vector(x), frontend.pad_vector(y)),
+                              None, x.shape[0]),
+        launch=flat, producer=lambda s: chained.axpy_block(CHAINED_ALPHA),
+        consumer=lambda s: relu.RELU,
+        finish=lambda out, n: frontend.trim_vector(out, n),
+        lowering_waiver=waiver)
+    scale_relu = frontend.ChainedKernel(
+        "chained_scale_relu", prepare=lambda x, w: ((x, w), None, None),
+        launch=scaled, producer=lambda s: chained.DOT,
+        consumer=lambda s: relu.RELU, lowering_waiver=waiver)
+    return axpy_relu, scale_relu
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -364,6 +452,8 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     import repro_torch
     from repro_torch.core import (autotune, compiler, hopper, lowering,
                                   resilience)
+    from repro_torch.core.ssr import BlockStream
+    from repro_torch.core.stream import Direction
     from repro_torch.kernels import (attention, bitonic, chained, dag, fft,
                                      frontend, gemm, gemv, ops, reduction,
                                      registry, relu, scan, sparse, stencil)
@@ -451,6 +541,14 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                   "layernorm": ((lx,), {}), "softmax_xent": ((lz, lp), {}),
                   "mlp_block": ((mx, w1, b1, w2, b2), {}),
                   "stencil1d_relu": ((xs, ws), {})}
+    # the ChainedKernel cells: signed x and y ~ N(0, 1) and their bf16
+    # roundings; the scale cell's x is gemv's A, its w ~ N(0, 1)
+    cx, cy = randn(n_vec), randn(n_vec)
+    cxb, cyb = cx.to(torch.bfloat16), cy.to(torch.bfloat16)
+    cw = randn(*SCALE_BLOCK)
+    axpy_relu, scale_relu = chained_kernels(frontend, chained, relu,
+                                            BlockStream, Direction)
+    pair_c = compiler.elementwise_nest(n_vec, ("X", "Y"), 2)
     torch.cuda.synchronize()
 
     # -- 2. the main path, counters at 0 just before it --------------------
@@ -520,6 +618,27 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         "gemv_ring": lambda: gemv.ssr_gemv(ga, gx, schedule=deep[4]),
         "gemv_relu_ring": lambda: chained.fused_gemv_relu(
             ga, gx, schedule=deep[4]),
+        # the ChainedKernel (K17; at a depth above 2, R5) beside its unfused
+        # composition (K5's axpy map, then K2), and K5's chains at a depth
+        # above 2 (R6)
+        "chained_axpy_relu": lambda: axpy_relu(cx, cy),
+        "chained_axpy_relu_bf16": lambda: axpy_relu(cxb, cyb),
+        "chained_scale_relu": lambda: scale_relu(ga, cw),
+        "chained_axpy_relu_unfused": lambda: relu.ssr_relu(
+            lowering.ssr_call(pair_c, chained.axpy_block(CHAINED_ALPHA),
+                              {"X": cx, "Y": cy}, mode="map",
+                              schedule=lowering.DEFAULT_SCHEDULE),
+            schedule=lowering.DEFAULT_SCHEDULE),
+        "chained_axpy_relu_ring": lambda: axpy_relu(
+            cx, cy, schedule=deep[CHAINED_MAIN_DEPTH]),
+        "chained_axpy_relu_bf16_ring": lambda: axpy_relu(
+            cxb, cyb, schedule=deep[CHAINED_MAIN_DEPTH]),
+        "chained_scale_relu_ring": lambda: scale_relu(
+            ga, cw, schedule=deep[CHAINED_MAIN_DEPTH]),
+        "sum_sq_diff_ring": lambda: chained.fused_sum_sq_diff(
+            x, y, schedule=deep[CHAINED_MAIN_DEPTH]),
+        "axpy_dot_ring": lambda: chained.fused_axpy_dot(
+            x, y, w, alpha=0.5, schedule=deep[CHAINED_MAIN_DEPTH]),
     }
     lowering.reset_dispatch_stats()
     frontend.reset_dispatch_stats()
@@ -595,6 +714,13 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         raise SystemExit(f"chip_smoke: a depth call launched other kernels "
                          f"than its ring, or a depth-2 call a ring: {wrong}: "
                          f"{ring_launches}")
+    # a ChainedKernel call is one K17 launch, its unfused composition one
+    # launch a stage
+    chained_launches = {key: per_call[key] for key in CHAINED_LAUNCHES}
+    emit({"phase": "chained_launches", "launches": chained_launches})
+    if chained_launches != CHAINED_LAUNCHES:
+        raise SystemExit(f"chip_smoke: a chained call launched other kernels "
+                         f"than expected: {chained_launches}")
     if resilience.fallback_events() or any(
             v for stats in (ladder["lowering"], ladder["frontend"])
             for v in stats.values()):
@@ -1371,6 +1497,118 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         if ctrl <= limit:
             failed.append(f"plain_ring_{cell}: limit above the control")
 
+    # -- 3f. K17 and R5 (the ChainedKernel), R6 (K5's chains), to the bit ---
+    # K17 against its plain version, R5 against K17 at every depth, R6
+    # against K5 at every depth and per-stream depths, each beside its run
+    # on the inputs with every moving stream's first block zeroed, which
+    # must differ; R5 and R6 at the main path's depth against the plain
+    # ring at full size (R6's sums within DOT_LIMIT)
+    chained_cells = {"axpy_relu": (axpy_relu, (cx, cy), torch.int32),
+                     "axpy_relu_bf16": (axpy_relu, (cxb, cyb), torch.int16),
+                     "scale_relu": (scale_relu, (ga, cw), torch.int32)}
+
+    def zeroed(parts):
+        geo_ = hopper.chained_geometry(parts.launch)
+        arrays_ = []
+        for a_, t in zip(geo_.ins, parts.arrays):
+            if any(any(c_) for c_ in a_.coeffs):
+                t = t.clone()
+                t[:a_.block[0], :a_.block[1]] = 0
+            arrays_.append(t)
+        return parts._replace(arrays=tuple(arrays_))
+
+    def bits_check(key, kname, got, want, ctrl, view, **extra):
+        c = {"exact": same_bits(got, want, view),
+             "control_differs": not same_bits(ctrl, want, view),
+             "abs_err": float((got.float() - want.float()).abs()
+                              .nan_to_num().max()),
+             "limit": 0.0, "kernel": kname, **extra}
+        checks[key] = c
+        errors[kname] = max(errors.get(kname, 0.0), c["abs_err"])
+        if not c["control_differs"]:
+            failed.append(f"{key}: the zeroed first block left the result "
+                          "unchanged")
+
+    chained_parts, k17_out = {}, {}
+    for cell, (kern_, args_, view) in chained_cells.items():
+        entry = f"chained_{cell}"
+        p2 = chained_parts[cell, 2] = kern_.parts(*args_)
+        k17 = k17_out[cell] = p2.run()[0]
+        bits_check(f"{entry}_vs_plain", "chained_map", k17, p2.plain()[0],
+                   zeroed(p2).plain()[0], view)
+        checks[f"{entry}_vs_plain"]["exact"] &= same_bits(
+            main[entry].reshape(k17.shape), k17, view) and p2.ring is None
+        for depth in RING_DEPTHS:
+            pr = chained_parts[cell, depth] = kern_.parts(
+                *args_, schedule=deep[depth])
+            got = pr.run()[0]
+            bits_check(f"ring_chained_{cell}_{depth}", "ring_chained_map",
+                       got, k17, zeroed(pr).run()[0], view, depth=depth)
+            checks[f"ring_chained_{cell}_{depth}"]["exact"] &= \
+                pr.ring is not None
+            if depth == CHAINED_MAIN_DEPTH:
+                want_p = pr.plain()[0]
+                bits_check(f"{entry}_ring_vs_plain_ring", "ring_chained_map",
+                           main[f"{entry}_ring"].reshape(want_p.shape),
+                           want_p, zeroed(pr).plain()[0], view, depth=depth)
+                checks[f"{entry}_ring_vs_plain_ring"]["exact"] &= \
+                    same_bits(got, want_p, view)
+                del want_p
+            del got
+    # the unfused composition (K5's axpy map, then K2) rounds as K17 does
+    checks["chained_axpy_relu_fused_vs_unfused"] = {
+        "exact": same_bits(main["chained_axpy_relu"],
+                           main["chained_axpy_relu_unfused"], torch.int32),
+        "abs_err": 0.0, "limit": 0.0}
+    r6_calls = {
+        "sum_sq_diff": lambda s_: lowering.prepare_chain_call(
+            chained._chain_nests(n_v, False),
+            (chained.SQ_DIFF, chained.IDENTITY), ssd_ops, mode="reduce",
+            schedule=s_),
+        "axpy_dot": lambda s_: lowering.prepare_chain_call(
+            chained._chain_nests(n_v, True),
+            (chained.axpy_block(0.5), chained.DOT), axd_ops, mode="reduce",
+            schedule=s_),
+        "sq_diff_map": lambda s_: lowering.prepare_call(
+            pair2, chained.SQ_DIFF, ssd_ops, mode="map", schedule=s_),
+        "axpy_map": lambda s_: lowering.prepare_call(
+            pair2, chained.axpy_block(0.5), ssd_ops, mode="map",
+            schedule=s_),
+        "identity_reduce": lambda s_: lowering.prepare_call(
+            compiler.elementwise_nest(n_v, ("T",), 1), chained.IDENTITY,
+            {"T": t_sq}, schedule=s_),
+    }
+
+    def r6_call(cell, depth):
+        return r6_calls[cell](lowering.DEFAULT_SCHEDULE if depth == 2
+                              else depth_schedule(depth, lowering))
+
+    for cell, depths in R6_DEPTHS.items():
+        want = r6_call(cell, 2).run()
+        for depth in depths:
+            call = r6_call(cell, depth)
+            got = call.run()
+            bits_check(f"ring_chain_{cell}_{depth}", "ring_chain_elem", got,
+                       want, call.finish(call.kernel(*first_block_zeroed(
+                           call))), torch.int32,
+                       depths=list(call.kernel.depths))
+            checks[f"ring_chain_{cell}_{depth}"]["exact"] &= \
+                call.kernel.pipelined
+            del got
+        del want
+    for cell in ("sum_sq_diff", "axpy_dot"):
+        call = r6_call(cell, CHAINED_MAIN_DEPTH)
+        want = float(call.finish(call.kernel.plain(call.layouts)))
+        ctrl = float(call.finish(call.kernel.plain(first_block_zeroed(call))))
+        got = float(main[f"{cell}_ring"])
+        checks[f"{cell}_ring_vs_plain_ring"] = {
+            "abs_err": abs(got - want), "rel_err": abs(got - want) / want,
+            "limit": DOT_LIMIT, "zeroed_block_control": abs(ctrl - want) / want,
+            "exact": call.kernel.pipelined and float(call.run()) == got}
+        if abs(ctrl - want) / want <= DOT_LIMIT:
+            failed.append(f"{cell}_ring_vs_plain_ring: limit above the "
+                          "control")
+
     for key, c in checks.items():
         ok = (c.get("exact", True) and
               c.get("rel_to_abs_prod", c.get("rel_err", c["abs_err"]))
@@ -1384,7 +1622,10 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                 "spmv", "sparse_gemv", "spmv_baseline", "spmm",
                 "spmm_baseline", "prefix_sum", "prefix_sum_baseline",
                 "sort", "dot_ring", "dot_ssr_call_ring", "gemm_ring",
-                "gemv_ring", "gemv_relu_ring"):
+                "gemv_ring", "gemv_relu_ring", *CHAINED_LAUNCHES,
+                "chained_axpy_relu_ring", "chained_axpy_relu_bf16_ring",
+                "chained_scale_relu_ring", "sum_sq_diff_ring",
+                "axpy_dot_ring"):
         if not bool(torch.isfinite(main[key]).all()):
             failed.append(f"{key}: non-finite")
     # the repo's own oracle on small odd inputs, within the registry tol
@@ -1661,6 +1902,86 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             "bound_ms": krow["bound_ms"], "bound_by": krow["bound_by"],
             "library_ms": krow["library_ms"],
             "depth": RING_MAIN_DEPTH[cell],
+        })
+        emit({"phase": "time", "cell": cell, **rows[-1]})
+    # the ChainedKernel cells: K17 (depth 2) and R5 at depths 3, 4 and 8,
+    # beside the unfused composition's stage kernels (K5's axpy map, then
+    # K2; the axpy_relu cell) and the composed library calls; bytes each
+    # input read once and the output written once, two FP32 operations an
+    # element for the axpy (a product and a sum), one for the scale
+    rep_w = cw.view(1, SCALE_BLOCK[0], 1, SCALE_BLOCK[1])
+    chained_work = {   # cell: (bytes, FLOPs, composed library call)
+        "axpy_relu": (3 * n_vec * 4, 2 * n_vec,
+                      lambda: torch.relu(torch.add(cy, cx,
+                                                   alpha=CHAINED_ALPHA))),
+        "axpy_relu_bf16": (3 * n_vec * 2, 2 * n_vec,
+                           lambda: torch.relu(torch.add(
+                               cyb, cxb, alpha=CHAINED_ALPHA))),
+        "scale_relu": (2 * gm * gn * 4 + math.prod(SCALE_BLOCK) * 4, gm * gn,
+                       lambda: torch.relu(ga.view(
+                           gm // SCALE_BLOCK[0], SCALE_BLOCK[0],
+                           gn // SCALE_BLOCK[1], SCALE_BLOCK[1]) * rep_w)),
+    }
+    ax_stage = lowering.prepare_call(pair_c, chained.axpy_block(CHAINED_ALPHA),
+                                     {"X": cx, "Y": cy}, mode="map")
+    relu_stage = lowering.prepare_call(
+        compiler.elementwise_nest(n_vec), relu.RELU, {"X": ax_stage.run()},
+        mode="map", out_dtype=torch.float32)
+    chained_sweeps = {}
+    for cell, (nbytes, flops, lib) in chained_work.items():
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / fp32 * 1e3
+        at = {d: time_ms(lambda p_=chained_parts[cell, d]: p_.run())
+              for d in (2, *RING_DEPTHS)}
+        line = {"ms": {str(d): t for d, t in at.items()},
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_composed_ms": time_ms(lib),
+                "ring_over_sync": {str(d): at[2] / t for d, t in at.items()
+                                   if d != 2}}
+        if cell == "axpy_relu":
+            stages_t = [time_ms(kernel_fn(c_))
+                        for c_ in (ax_stage, relu_stage)]
+            line.update(unfused_stage_ms=stages_t,
+                        fused_over_unfused=sum(stages_t) / at[2],
+                        predicted_fused_over_unfused=20 / 12)
+        chained_sweeps[cell] = line
+        emit({"phase": "chained_time", "cell": cell, **line})
+    # R6: each chain cell at depth 2 (K5) and at R6's depths
+    chain_sweeps = {}
+    for cell, depths in R6_DEPTHS.items():
+        at = {d: time_ms(kernel_fn(r6_call(cell, d))) for d in (2, *depths)}
+        chain_sweeps[cell] = {
+            "ms": {str(d): t for d, t in at.items()},
+            "ring_over_sync": {str(d): at[2] / t for d, t in at.items()
+                               if d != 2}}
+        emit({"phase": "chain_depth_sweep", "cell": cell,
+              **chain_sweeps[cell]})
+    k5row = next(r_ for r_ in rows if r_["name"] == "chain_elem")
+    for name, cell, plain_fn, bound, lib_ms, comp_ms in (
+            ("chained_map", "axpy_relu",
+             lambda: chained_parts["axpy_relu", 2].plain(),
+             chained_sweeps["axpy_relu"], None,
+             chained_sweeps["axpy_relu"]["library_composed_ms"]),
+            ("ring_chained_map", "axpy_relu",
+             lambda: chained_parts["axpy_relu", CHAINED_MAIN_DEPTH].plain(),
+             chained_sweeps["axpy_relu"], None,
+             chained_sweeps["axpy_relu"]["library_composed_ms"]),
+            ("ring_chain_elem", "sum_sq_diff",
+             lambda c_=r6_call("sum_sq_diff", CHAINED_MAIN_DEPTH):
+             c_.kernel.plain(c_.layouts), k5row, k5row["library_ms"], None)):
+        depth = 2 if name == "chained_map" else CHAINED_MAIN_DEPTH
+        sweep = chained_sweeps.get(cell) or chain_sweeps[cell]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": hopper.KERNELS[name]["source"],
+            "replaces": hopper.KERNELS[name]["replaces"],
+            "launches": launches[name],
+            "max_abs_err": errors[name],
+            "ms": sweep["ms"][str(depth)],
+            "plain_ms": time_ms(plain_fn),
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "library_ms": lib_ms, "library_composed_ms": comp_ms,
+            "depth": depth,
         })
         emit({"phase": "time", "cell": cell, **rows[-1]})
     ms = {r["name"]: r["ms"] for r in rows}

@@ -30,15 +30,23 @@ gather_spmv       nest         K12: ``spmv`` (y += vals·x[cidx], a gather)
 gather_spmm       nest         K13: ``spmm`` (Y += vals·X[cidx, c])
 ================  ===========  =============================================
 
-A schedule deeper than 2 makes a call of K1–K4's families pipelined
+A schedule deeper than 2 makes a call of K1–K5's families pipelined
 (:attr:`~repro_torch.core.ssr.SsrKernel.pipelined`): it runs the ring kernel
 of :data:`RING_KERNELS` instead — R1 ``ring_reduce_mul``, R2
 ``ring_map_relu``, R3 ``ring_contract_gemm`` (its ring over 16-wide k
-chunks), R4 ``ring_contract_gemv`` (with the relu drain) — whose read
-streams arrive through an N-deep ring of shared-memory slots filled by
-``cp.async``, each stream ``depth − 1`` fetches ahead (the reference's
-``_pipelined_call``), with the same arithmetic, so the same bits, as the
-sync kernel.  Its plain version is :func:`plain_ring`.
+chunks), R4 ``ring_contract_gemv`` (with the relu drain), R6
+``ring_chain_elem`` (every program of K5) — whose read streams arrive
+through an N-deep ring of shared-memory slots filled by ``cp.async``, each
+stream ``depth − 1`` fetches ahead (the reference's ``_pipelined_call``),
+with the same arithmetic, so the same bits, as the sync kernel.  Its plain
+version is :func:`plain_ring` (:func:`ring_delivery` delivers the blocks).
+The DAG kernels (K6–K8) and K9–K16 stay synchronous at any depth.
+
+A ``ChainedKernel`` (a producer body, then a unary consumer body, on each
+step of a module's Launch, one output stream) runs as K17 ``chained_map``
+(:data:`CHAINED_PROGRAMS`, by the pair of body ops), or, at a uniform depth
+above 2, as R5 ``ring_chained_map``; its plain version is
+:func:`plain_chained`.
 
 The waivered stream kernels run a module's :class:`~repro_torch.kernels.
 frontend.Launch` instead of a lowered schedule (:data:`STREAM_KERNELS`, by
@@ -184,6 +192,12 @@ KERNELS: Dict[str, Dict[str, str]] = {
     "ring_contract_gemv": {"replaces": "src/repro/core/ssr.py:215",
                            "source":
                                "src/repro_torch/csrc/ring_contract_gemv.cu"},
+    "chained_map": {"replaces": "src/repro/kernels/frontend.py:465",
+                    "source": "src/repro_torch/csrc/chained_map.cu"},
+    "ring_chained_map": {"replaces": "src/repro/core/ssr.py:215",
+                         "source": "src/repro_torch/csrc/ring_chained_map.cu"},
+    "ring_chain_elem": {"replaces": "src/repro/core/ssr.py:215",
+                        "source": "src/repro_torch/csrc/ring_chain_elem.cu"},
 }
 
 #: Wrapper calls per kernel since the last :func:`reset_launches`: one per
@@ -200,7 +214,9 @@ KERNELS: Dict[str, Dict[str, str]] = {
 #: ``contract_gemv``, K9's as ``halo_stencil1d``; a K11 call over a head
 #: batch is one launch, and so is a K15 or K16 call over a batch of rows.
 #: A pipelined call counts its ring kernel (R4's drain as
-#: ``ring_contract_gemv``; an R1 call is two device launches, as K1's).
+#: ``ring_contract_gemv``; an R1 call, or a reduce of R6, is two device
+#: launches, as K1's and K5's).  A ``chained_map`` or ``ring_chained_map``
+#: call is one.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
@@ -290,8 +306,8 @@ class _Stream(ctypes.Structure):
 
 
 class _Ring(ctypes.Structure):
-    _fields_ = [("depth", ctypes.c_int64 * 2),
-                ("invariant", ctypes.c_int64 * 2)]
+    _fields_ = [("depth", ctypes.c_int64 * 3),
+                ("invariant", ctypes.c_int64 * 3)]
 
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -339,6 +355,12 @@ _SIGNATURES = {
                            _RP, _I64, _P],
     "ring_contract_gemv": [_P, _P, _P, _I, _I, _I, _I, _GP, _SP, _SP, _SP,
                            _I64, _I64, _I, _RP, _I64, _P],
+    "chained_map": [_I, _P, _P, _P, _I, _I, ctypes.c_float, _GP, _SP, _SP,
+                    _SP, _I64, _I64, _P],
+    "ring_chained_map": [_I, _P, _P, _P, _I, _I, ctypes.c_float, _GP, _SP,
+                         _SP, _SP, _RP, _I64, _I64, _I64, _P],
+    "ring_chain_elem": [_I, _P, _P, _P, _P, ctypes.c_float, _I, _GP, _SP, _SP,
+                        _SP, _SP, _RP, _I64, _P, _I64, _I64, _P],
 }
 #: Arguments of a kernel's ``ssr_<name>_smem_bytes`` (none for the rest).
 _SMEM_SIGNATURES = {"halo_stencil1d": [_I64], "halo_stencil2d": [_I64],
@@ -585,15 +607,35 @@ def _geometry_refusal(name: str, geo: StreamGeometry,
 
 # -- the rings of the pipelined kernels --------------------------------------
 
-#: (call mode, body op) → the ring kernel a pipelined call of that family
-#: runs on the card (R1–R4); the other families stay synchronous at any
-#: depth.
+#: K17's producers: body op → (read streams, parameters); its consumers.
+#: A program is ``producer index · 2 + consumer index`` (the order here),
+#: numbered as ``csrc/ssr_chained_map.cuh`` numbers them.
+CHAINED_PRODUCERS: Dict[str, Tuple[int, int]] = {
+    "identity": (1, 0), "relu": (1, 0), "sq_diff": (2, 0), "axpy": (2, 1),
+    "mul": (2, 0)}
+CHAINED_CONSUMERS: Tuple[str, ...] = ("identity", "relu")
+#: (producer op, consumer op) → K17's program number.
+CHAINED_PROGRAMS: Dict[Tuple[str, str], int] = {
+    (p, c): 2 * i + j for i, p in enumerate(CHAINED_PRODUCERS)
+    for j, c in enumerate(CHAINED_CONSUMERS)}
+
+#: (call mode, body op — or the tuple of stage ops of a fused chain) → the
+#: ring kernel a pipelined call of that family runs on the card (R1–R4, R6
+#: for every key of K5); ``("chained", (producer op, consumer op))`` → R5
+#: for a ChainedKernel.  The DAG families (K6–K8) and K9–K16 stay
+#: synchronous at any depth.
 RING_KERNELS: Dict[tuple, str] = {
     ("reduce", "mul"): "ring_reduce_mul",
     ("map", "relu"): "ring_map_relu",
     ("nest", "dot"): "ring_contract_gemm",
     ("nest", "matvec"): "ring_contract_gemv",
     ("nest", "matvec_relu"): "ring_contract_gemv",
+    ("reduce", ("sq_diff", "identity")): "ring_chain_elem",
+    ("reduce", ("axpy", "mul")): "ring_chain_elem",
+    ("map", "sq_diff"): "ring_chain_elem",
+    ("map", "axpy"): "ring_chain_elem",
+    ("reduce", "identity"): "ring_chain_elem",
+    **{("chained", pair): "ring_chained_map" for pair in CHAINED_PROGRAMS},
 }
 #: R3's CTA tile (K3's): 128 x 128 outputs over 16-wide k chunks, the unit
 #: of its ring; an A slot's rows are padded by 16 bytes.
@@ -610,8 +652,14 @@ def device_ring(name: str, geo: StreamGeometry, ring: RingProgram,
                 dtype: torch.dtype) -> RingProgram:
     """``ring`` as ring kernel ``name`` allocates it: one slot per stream
     and depth, each the kernel's tile of that stream.  R3's unit is the k
-    chunk, which moves at every step, so no stream of it is invariant."""
+    chunk, which moves at every step, so no stream of it is invariant.  R5
+    and R6 give an invariant stream the one slot it is fetched into."""
     size = _itemsize(dtype)
+    if name in ("ring_chained_map", "ring_chain_elem"):
+        return RingProgram(
+            tuple(1 if inv else d
+                  for d, inv in zip(ring.depths, ring.invariant)),
+            ring.invariant, tuple(math.prod(a.block) * size for a in geo.ins))
     if name == "ring_contract_gemm":
         pad = 16 // size
         return RingProgram(
@@ -631,14 +679,25 @@ def _itemsize(dtype: torch.dtype) -> int:
 
 
 def _ring_refusal(op: tuple, name: str, geo: StreamGeometry,
-                  dtype: torch.dtype, ring: RingProgram) -> Optional[str]:
+                  dtype: torch.dtype, ring: RingProgram,
+                  reason: Optional[str] = None) -> Optional[str]:
     """Why the ring kernel of ``op`` refuses this pipelined call: what the
-    sync kernel ``name`` refuses of the geometry, then a ring over the
-    shared memory a CTA may opt into (:data:`SMEM_OPTIN_BYTES`)."""
+    sync kernel ``name`` refuses of the geometry (for a stage kernel, its
+    ``reason``), then a ring over the shared memory a CTA may opt into
+    (:data:`SMEM_OPTIN_BYTES`)."""
     rname = RING_KERNELS[op]
-    reason = _geometry_refusal(name, geo, dtype)
+    if name in _TAKES:
+        reason = _geometry_refusal(name, geo, dtype)
     if reason is not None:
         return reason.replace(f"{name}:", f"{rname}:", 1)
+    return _ring_budget_refusal(rname, geo, dtype, ring)
+
+
+def _ring_budget_refusal(rname: str, geo: StreamGeometry, dtype: torch.dtype,
+                         ring: RingProgram) -> Optional[str]:
+    """A ring of another stream count than the read streams, or one over
+    the shared memory a CTA may opt into, as ring kernel ``rname`` sizes
+    it."""
     if len(ring.depths) != len(geo.ins):
         return (f"{rname}: a ring of {len(ring.depths)} streams for "
                 f"{len(geo.ins)} read streams")
@@ -660,14 +719,19 @@ def accepts(op: tuple, geo: StreamGeometry, dtype: torch.dtype,
             program: Optional[Any] = None,
             ring: Optional[RingProgram] = None) -> Tuple[bool, str]:
     """(takes, reason): whether the streamed kernel of ``op`` — a (call
-    mode, body op or tuple of stage ops) pair of :data:`DEVICE_KERNELS` —
-    takes this geometry at this input dtype on ``device``, running
+    mode, body op or tuple of stage ops) pair of :data:`DEVICE_KERNELS`, or
+    ``("chained", (producer op, consumer op))`` for K17 on a Launch's
+    geometry (:func:`chained_geometry`) — takes this geometry at this input
+    dtype on ``device``, running
     ``program`` (a :class:`~repro_torch.core.ssr.StageProgram`; the stage
     kernels need it).  With ``ring`` (a pipelined call) it is the ring
     kernel of :data:`RING_KERNELS` that must take it, its ring within the
     shared memory a CTA may opt into.  The wrappers refuse exactly what
     this refuses; the autotuners filter their candidates with it.  On a
     CUDA device the sync kernels' shared-memory check builds the kernel."""
+    if op and op[0] == "chained":
+        reason = _chained_refusal(op[1], geo, dtype, dtype, ring)
+        return reason is None, reason or "ok"
     kernel = DEVICE_KERNELS.get(op)
     if kernel is None:
         return False, f"no Hopper kernel for {op}"
@@ -675,8 +739,12 @@ def accepts(op: tuple, geo: StreamGeometry, dtype: torch.dtype,
     if ring is not None:
         if op not in RING_KERNELS:
             return False, f"no Hopper ring kernel for {op}"
-        reason = _program_refusal(name, program) or \
-            _ring_refusal(op, name, geo, dtype, ring)
+        if name in _TAKES:
+            reason = _program_refusal(name, program) or \
+                _ring_refusal(op, name, geo, dtype, ring)
+        else:
+            reason = _ring_refusal(op, name, geo, dtype, ring, _stage_refusal(
+                name, program, geo, dtype, dev))
     elif name in _TAKES:
         reason = _program_refusal(name, program) or \
             _refusal(name, geo, dtype, dev)
@@ -1342,6 +1410,123 @@ STREAM_KERNELS: Dict[str, Callable[..., tuple]] = {
 }
 
 
+# -- the chained kernel (ChainedKernel) ------------------------------------------
+#
+# K17 runs a ChainedKernel's Launch: the producer body on each step's blocks,
+# the value rounded to the output dtype, the consumer body on it, the block
+# written through the one output stream.  The bodies are named by their ops
+# (CHAINED_PROGRAMS); every block is the output block.
+
+
+def chained_geometry(launch: Any) -> StreamGeometry:
+    """A ChainedKernel's Launch as the geometry K17 walks: the read streams'
+    walks and the one output stream's; raises when an index map is not
+    affine or the Launch writes another number of streams than one."""
+    ins, outs = launch_walks(launch)
+    if len(outs) != 1 or len(launch.out_shapes) != 1:
+        raise ValueError(f"a chained kernel writes one output stream; the "
+                         f"Launch has {len(outs)} streams and "
+                         f"{len(launch.out_shapes)} out_shapes")
+    return StreamGeometry(grid=tuple(launch.grid), ins=ins, out=outs[0],
+                          out_shape=tuple(launch.out_shapes[0].shape))
+
+
+def _chained_refusal(pair: Tuple[Optional[str], Optional[str]],
+                     geo: StreamGeometry, dtype: torch.dtype,
+                     out_dtype: torch.dtype,
+                     ring: Optional[RingProgram] = None) -> Optional[str]:
+    """Why K17 (with ``ring``: R5) refuses the pair of body ops on this
+    geometry at these dtypes, or None: a program it has, its producer's
+    streams, one float dtype throughout, every block the 2-D output block,
+    an output walk that writes each block once, and R5's ring within the
+    shared memory a CTA may opt into."""
+    name = "chained_map" if ring is None else "ring_chained_map"
+    if pair not in CHAINED_PROGRAMS:
+        return (f"{name}: no program for producer op {pair[0]!r} → consumer "
+                f"op {pair[1]!r}; it runs {sorted(CHAINED_PROGRAMS)}")
+    n_in = CHAINED_PRODUCERS[pair[0]][0]
+    if len(geo.ins) != n_in:
+        return (f"{name}: producer {pair[0]!r} takes {n_in} streams, the "
+                f"Launch has {len(geo.ins)}")
+    if dtype not in _FLOATS or out_dtype != dtype:
+        return (f"{name}: takes one dtype of {[str(d) for d in _FLOATS]} for "
+                f"every stream and the output, got {dtype} → {out_dtype}")
+    if len(geo.grid) > SSR_MAX_AXES:
+        return f"{name}: grid {geo.grid} has more than {SSR_MAX_AXES} axes"
+    blocks = {a.block for a in (*geo.ins, geo.out)}
+    if len(blocks) != 1 or len(geo.out.block) != 2 or \
+            len(geo.out_shape) != 2:
+        return (f"{name}: every stream needs the 2-D output block "
+                f"{geo.out.block} of a 2-D output, got "
+                f"{[a.block for a in geo.ins]} → {geo.out_shape}")
+    if math.prod(geo.out.block) >= 2 ** 31:
+        return (f"{name}: block {geo.out.block} has 2**31 or more elements; "
+                "the kernels index blocks in 32 bits")
+    if any(g > 1 and not any(c) for c, g in zip(geo.out.coeffs, geo.grid)):
+        return (f"{name}: the output walk {geo.out.coeffs} stays put along a "
+                f"grid axis of {geo.grid}: steps run concurrently, so each "
+                "must write its own block")
+    if ring is None:
+        return None
+    return _ring_budget_refusal(name, geo, dtype, ring)
+
+
+def chained_map(producer: Callable, consumer: Callable, launch: Any,
+                *arrays: torch.Tensor,
+                ring: Optional[RingProgram] = None) -> Tuple[torch.Tensor]:
+    """K17: every step's out block = consumer(producer(*in blocks)) through
+    the Launch's walks, the producer in the storage dtype (α rounded to it),
+    its value rounded to the output dtype before the consumer, the
+    intermediate in registers; with ``ring`` (a pipelined call) R5, on K17's
+    split of the steps, to K17's bits.  ``producer`` and ``consumer`` are
+    :class:`~repro_torch.core.ssr.KernelBody`\\ s of a pair of
+    :data:`CHAINED_PROGRAMS`; the Launch's scratch is never handed to
+    them."""
+    pair = (getattr(producer, "op", None), getattr(consumer, "op", None))
+    name = "chained_map" if ring is None else "ring_chained_map"
+    geo = chained_geometry(launch)
+    if not arrays:
+        raise ValueError(f"{name}: no operands")
+    dev = _checked_operands(name, arrays, _FLOATS)
+    if len(arrays) != len(geo.ins):
+        raise ValueError(f"{name}: the Launch has {len(geo.ins)} read "
+                         f"streams, got {len(arrays)} operands")
+    for k, (t, agu) in enumerate(zip(arrays, geo.ins)):
+        agu.check_within(geo.grid, tuple(t.shape), f"{name}[{k}]")
+    geo.out.check_within(geo.grid, geo.out_shape, f"{name}[out]")
+    reason = _chained_refusal(pair, geo, arrays[0].dtype,
+                              launch.out_shapes[0].dtype, ring)
+    if reason is not None:
+        raise ValueError(reason)
+    want = CHAINED_PRODUCERS[pair[0]][1]
+    for body, n in ((producer, want), (consumer, 0)):
+        if getattr(body, "perm", None) is not None or \
+                len(getattr(body, "params", ())) != n or \
+                getattr(body, "drain", None) is not None:
+            raise ValueError(f"{name}: body {body.op!r} takes {n} parameters "
+                             "and no permutation or drain")
+    alpha = float(producer.params[0]) if want else 0.0
+    x = arrays[0]
+    ctas, per_cta = _ctas(dev, geo.steps, per_sm=64)
+    out = torch.empty(geo.out_shape, dtype=x.dtype, device=dev)
+    b = arrays[-1]
+    head = (CHAINED_PROGRAMS[pair], x.data_ptr(),
+            b.data_ptr() if len(arrays) == 2 else None, out.data_ptr(),
+            _DTYPE_CODE[x.dtype],
+            _vector_width((*arrays, out), (*geo.ins, geo.out)), alpha,
+            ctypes.byref(_grid_arg(geo.grid)),
+            ctypes.byref(_stream_arg(geo.ins[0], x)),
+            ctypes.byref(_stream_arg(geo.ins[-1], b)),
+            ctypes.byref(_stream_arg(geo.out, out)))
+    if ring is None:
+        _launch("chained_map", dev, *head, ctas, per_cta)
+    else:
+        dr = device_ring("ring_chained_map", geo, ring, x.dtype)
+        _launch("ring_chained_map", dev, *head, ctypes.byref(_ring_arg(dr)),
+                dr.ring_bytes, ctas, per_cta)
+    return (out,)
+
+
 # -- the stage kernels: fused chains and DAGs ----------------------------------
 #
 # A CUDA kernel cannot take the stage bodies, so each family of stages is one
@@ -1576,12 +1761,26 @@ def _f32_out(name: str, out_dtype: torch.dtype) -> None:
         raise TypeError(f"{name}: writes float32, asked for {out_dtype}")
 
 
+def _value_ring(res: _Resolved, names: Sequence[str],
+                ring: RingProgram) -> RingProgram:
+    """A ring of the read streams (:func:`device_ring`'s) in the order of
+    the named values, as the stage kernel takes its streams; a value kept
+    on chip, or not read, gets depth 2 and no slot."""
+    at = [res.streams.get(v) for v in names]
+    return RingProgram(
+        tuple(2 if j is None else ring.depths[j] for j in at),
+        tuple(j is not None and ring.invariant[j] for j in at),
+        tuple(0 if j is None else ring.slot_bytes[j] for j in at))
+
+
 def chain_elem(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                out_dtype: torch.dtype, acc_dtype: torch.dtype = torch.float32,
-               program: Optional[Any] = None) -> torch.Tensor:
+               program: Optional[Any] = None,
+               ring: Optional[RingProgram] = None) -> torch.Tensor:
     """K5: the elementwise chains: Σ (x − y)², Σ (αx + y)·w fused (the
     intermediate in registers), their map producers (x − y)² and αx + y,
-    and Σ t, over the streams' AGU walks."""
+    and Σ t, over the streams' AGU walks.  With ``ring`` (a pipelined call)
+    R6, on K5's split of the steps, to K5's bits."""
     dev, res = _checked_stages("chain_elem", geo, layouts, program)
     _f32_out("chain_elem", out_dtype)
     prog = {(0, 3): 0, (1, 3): 1, (0, 1): 2, (1, 1): 3, (0, 2): 4}[
@@ -1589,19 +1788,30 @@ def chain_elem(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
     ctas, per_cta = _ctas(dev, geo.steps, per_sm=8 if program.mode ==
                           "reduce" else 64)
     out, partials = _stage_out(geo, dev, program.mode, ctas)
-    (pa, sa), (pb, sb), (pc, sc) = _value_streams(
-        res, ("X", "Y", "W") if prog != 4 else ("T", "Y", "W"), geo,
-        layouts)
+    names = ("X", "Y", "W") if prog != 4 else ("T", "Y", "W")
+    (pa, sa), (pb, sb), (pc, sc) = _value_streams(res, names, geo, layouts)
     so = _stream_arg(geo.out, out)
     vec = _stage_vec(res, geo, layouts, out, program.mode,
                      program.n_streams)
     g = _grid_arg(geo.grid)
-    _launch("chain_elem", dev, prog, pa, pb, pc, out.data_ptr(),
+    head = (prog, pa, pb, pc, out.data_ptr(),
             res.params[0] if res.params else 0.0, vec, ctypes.byref(g),
             ctypes.byref(sa), ctypes.byref(sb), ctypes.byref(sc),
-            ctypes.byref(so),
-            partials.data_ptr() if partials is not None else None, ctas,
+            ctypes.byref(so))
+    tail = (partials.data_ptr() if partials is not None else None, ctas,
             per_cta)
+    if ring is None:
+        _launch("chain_elem", dev, *head, *tail)
+        return out
+    reason = _ring_budget_refusal("ring_chain_elem", geo, torch.float32,
+                                  ring)
+    if reason is not None:      # a schedule the ring kernel does not take
+        from .ssr import LoweringError
+        raise LoweringError(reason)
+    dr = _value_ring(res, names, device_ring("ring_chain_elem", geo, ring,
+                                             torch.float32))
+    _launch("ring_chain_elem", dev, *head, ctypes.byref(_ring_arg(dr)),
+            dr.ring_bytes, *tail)
     return out
 
 
@@ -2106,11 +2316,13 @@ def plain_contract(body: Callable, geo: StreamGeometry,
 def plain_stages(bodies: Sequence[Callable], program: StageProgram,
                  mode: str, geo: StreamGeometry,
                  layouts: Sequence[torch.Tensor], out_dtype: torch.dtype,
-                 acc_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """A stage program's plain version: on every step's blocks at once, run
-    the stages in order — each carried value cast to ``out_dtype`` and
-    shaped as the policy block, as the reference writes it to its scratch
-    slot — and apply the final stage's map or reduce epilogue."""
+                 acc_dtype: torch.dtype = torch.float32,
+                 inputs: Optional[Tuple[list, tuple]] = None) -> torch.Tensor:
+    """A stage program's plain version: on every step's blocks at once (as
+    delivered, by the ring: ``inputs``), run the stages in order — each
+    carried value cast to ``out_dtype`` and shaped as the policy block, as
+    the reference writes it to its scratch slot — and apply the final
+    stage's map or reduce epilogue."""
     n_s = program.n_streams
 
     def step(*xs):
@@ -2126,7 +2338,7 @@ def plain_stages(bodies: Sequence[Callable], program: StageProgram,
             vals.append(cur)
         return vals[-1]
 
-    parts = _each_step(step, geo, layouts)
+    parts = _each_step(step, geo, layouts, inputs)
     if mode == "reduce":
         return _reduce_epilogue(parts, geo, out_dtype)
     if mode == "map":
@@ -2253,14 +2465,12 @@ PLAIN: Dict[str, Callable[..., torch.Tensor]] = {
     "rescale": plain_rescale}
 
 
-def plain_ring(body: Callable, geo: StreamGeometry,
-               layouts: Sequence[torch.Tensor], out_dtype: torch.dtype,
-               acc_dtype: torch.dtype = torch.float32, *, mode: str,
-               ring: RingProgram, steps_per_cta: Optional[int] = None
-               ) -> Tuple[torch.Tensor, list]:
-    """A pipelined kernel's plain version: the blocks of
-    :func:`plain_reduce`, :func:`plain_map` or :func:`plain_contract`
-    (``mode``) delivered through ``ring``, then the same computation.
+def ring_delivery(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
+                  ring: RingProgram, steps_per_cta: Optional[int] = None
+                  ) -> Tuple[Tuple[list, tuple], list]:
+    """Every step's blocks of each stream as ``ring`` delivers them, in the
+    form the plain versions take them (``inputs``: the blocks and their
+    ``vmap`` dims), and the fetch log.
 
     The grid runs as runs of ``steps_per_cta`` consecutive steps (one run
     by default: the reference's single core).  Each run starts with an
@@ -2272,9 +2482,8 @@ def plain_ring(body: Callable, geo: StreamGeometry,
     slots hold the grid step of the block they were last filled with, and
     each step's blocks are gathered once at the end from the steps its
     reads found: a slot read too early or refilled too soon delivers
-    another step's block.  Returns the result and the fetch log:
-    ``(stream, step, slot)`` in issue order, ``step`` counted over the
-    whole grid.
+    another step's block.  The log is ``(stream, step, slot)`` in issue
+    order, ``step`` counted over the whole grid.
     """
     steps = geo.steps
     run = steps_per_cta or steps
@@ -2310,10 +2519,48 @@ def plain_ring(body: Callable, geo: StreamGeometry,
     fixed = list(ring.invariant) if not all(ring.invariant) else \
         [False] + list(ring.invariant[1:])
     blocks = [g[0] if f else g for g, f in zip(got, fixed)]
-    dims = tuple(None if f else 0 for f in fixed)
+    return (blocks, tuple(None if f else 0 for f in fixed)), log
+
+
+def plain_ring(body: Callable, geo: StreamGeometry,
+               layouts: Sequence[torch.Tensor], out_dtype: torch.dtype,
+               acc_dtype: torch.dtype = torch.float32, *, mode: str,
+               ring: RingProgram, steps_per_cta: Optional[int] = None
+               ) -> Tuple[torch.Tensor, list]:
+    """A pipelined kernel's plain version: the blocks of
+    :func:`plain_reduce`, :func:`plain_map` or :func:`plain_contract`
+    (``mode``) delivered through ``ring`` (:func:`ring_delivery`), then the
+    same computation.  Returns the result and the fetch log."""
+    inputs, log = ring_delivery(geo, layouts, ring, steps_per_cta)
     out = PLAIN[mode](body, geo, layouts, out_dtype, acc_dtype,
-                      inputs=(blocks, dims))
+                      inputs=inputs)
     return out, log
+
+
+def _chained_step(producer: Callable, consumer: Callable,
+                  block: Tuple[int, ...], out_dtype: torch.dtype) -> Callable:
+    """One step of a ChainedKernel: the producer's value cast to the output
+    dtype and shaped as the output block (the reference's scratch block),
+    the consumer's value likewise."""
+    def step(*blocks: torch.Tensor) -> torch.Tensor:
+        t = torch.as_tensor(producer(*blocks)).to(out_dtype).reshape(block)
+        return torch.as_tensor(consumer(t)).to(out_dtype).reshape(block)
+    return step
+
+
+def plain_chained(producer: Callable, consumer: Callable, launch: Any,
+                  arrays: Sequence[torch.Tensor],
+                  ring: Optional[RingProgram] = None) -> Tuple[torch.Tensor]:
+    """K17's plain version (and, with ``ring``, R5's): a ChainedKernel's
+    Launch as a block walk of :func:`_chained_step` — every step at once,
+    the grid's steps being independent (no scratch is carried: the Launch's
+    own is never handed to the bodies); with ``ring`` the blocks arrive
+    through it (:func:`ring_delivery`).  Blocks no step writes stay zero."""
+    geo = chained_geometry(launch)
+    out_dtype = launch.out_shapes[0].dtype
+    step = _chained_step(producer, consumer, geo.out.block, out_dtype)
+    inputs = None if ring is None else ring_delivery(geo, arrays, ring)[0]
+    return (plain_map(step, geo, arrays, out_dtype, inputs=inputs),)
 
 
 # -- plain versions of the baselines ------------------------------------------

@@ -27,8 +27,10 @@ card.  A schedule deeper than 2 (``buffer_depth`` or ``stream_depths``)
 makes a kernel :attr:`SsrKernel.pipelined` where its family stages — the
 reference's ``_pipelined_call``: its read streams then arrive through an
 N-deep ring (:class:`~repro_torch.core.agu.RingProgram`), on the card in
-shared memory (the ring kernels R1–R4 of :data:`hopper.RING_KERNELS`), on
-the CPU in :func:`hopper.plain_ring`.
+shared memory (the ring kernels R1–R4 and R6 of
+:data:`hopper.RING_KERNELS`), on the CPU in :func:`hopper.plain_ring`.
+The chains of K5 stage (a :class:`StageKernel` too); the DAG kernels K6–K8
+do not, and run synchronously at any depth.
 """
 
 from __future__ import annotations
@@ -64,7 +66,8 @@ def pipeline_supported() -> bool:
 
     Always, but for ``REPRO_DISABLE_PIPELINE``: a switch kept for parity
     with the reference's opt-out, under which every kernel runs its
-    synchronous (depth-2) version, on the card K1–K4 in place of R1–R4.
+    synchronous (depth-2) version, on the card K1–K5 in place of R1–R4
+    and R6, K17 in place of R5.
     Semantics are identical either way; ``chip_smoke.py`` refuses to run
     under it, since its rings would not run.
     """
@@ -433,7 +436,10 @@ class StageKernel(SsrKernel):
     values and stream blocks) followed by the uniforms; the final stage's
     value feeds the epilogue of ``mode``.  On the card the kernel is looked
     up by ``(mode, tuple of stage ops)``; on the CPU the plain version runs
-    the stages in order on every step's blocks.
+    the stages in order on every step's blocks.  A fused chain of K5's
+    families is :attr:`pipelined` at a depth above 2 (R6 on the card, the
+    stages over the ring's blocks on the CPU); a DAG (K6–K8) is not: its
+    key has no ring kernel, so it runs synchronously at any depth.
     """
 
     def __init__(self, bodies: Sequence[Callable], program: StageProgram,
@@ -446,9 +452,11 @@ class StageKernel(SsrKernel):
         return (self.mode, tuple(self.program.ops))
 
     def plain(self, layouts: Sequence[torch.Tensor]) -> torch.Tensor:
+        inputs = hopper.ring_delivery(self.geometry, layouts, self.ring)[0] \
+            if self.pipelined else None
         return hopper.plain_stages(self.bodies, self.program, self.mode,
                                    self.geometry, layouts, self.out_dtype,
-                                   self.acc_dtype)
+                                   self.acc_dtype, inputs=inputs)
 
 
 def scratch_bytes(shape: Tuple[int, ...], dtype) -> int:

@@ -9,13 +9,8 @@
 // block, the consumer reads it back the same step, and the reduce epilogue
 // carries a (rows, lanes) accumulator over the `arbitrary` grid.
 //
-// Programs (`prog`), one template each:
-//   0  reduce  sum (x - y)^2            (sq_diff -> identity, fused)
-//   1  reduce  sum (alpha x + y) * w     (axpy -> mul, fused)
-//   2  map     (x - y)^2                 (sq_diff, unfused producer)
-//   3  map     alpha x + y               (axpy, unfused producer)
-//   4  reduce  sum t                     (identity, unfused consumer)
-// The unfused consumer of axpy_dot, sum t * w, is K1 reduce_mul.
+// Programs (`prog`), one template each: the five of ssr_chain.cuh.  The
+// unfused consumer of axpy_dot, sum t * w, is K1 reduce_mul.
 //
 // Bound on H100: bytes.  Each input element is read once for one or two
 // operations; a map writes each output once.  Fused, the intermediate never
@@ -29,26 +24,12 @@
 // contraction into an FMA), so the map programs equal the plain version to
 // the bit.  A reduce leaves per-CTA partials, folded in a fixed order by a
 // second one-CTA launch: no atomics, the same bits from run to run.
+#include "ssr_chain.cuh"
 #include "ssr_rows.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-template <int PROG>
-__device__ __forceinline__ float chain_value(float a, float b, float c,
-                                             float alpha) {
-  if constexpr (PROG == 0 || PROG == 2) {
-    const float d = a - b;
-    return __fmul_rn(d, d);
-  } else if constexpr (PROG == 1) {
-    return __fmul_rn(__fadd_rn(__fmul_rn(alpha, a), b), c);
-  } else if constexpr (PROG == 3) {
-    return __fadd_rn(__fmul_rn(alpha, a), b);
-  } else {
-    return a;
-  }
-}
 
 template <int PROG, int V>
 __global__ void __launch_bounds__(kThreads)

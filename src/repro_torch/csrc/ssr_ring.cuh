@@ -35,10 +35,12 @@
 
 #include "ssr_common.cuh"
 
-// Depth of each read stream (2..8) and whether its block never moves.
+// Depth of each read stream (2..8; one slot for a stream whose block never
+// moves, where the kernel allocates one) and whether its block never moves.
+// R1-R4 use the first two entries, R6 all three.
 struct SsrRing {
-  int64_t depth[2];
-  int64_t invariant[2];
+  int64_t depth[3];
+  int64_t invariant[3];
 };
 
 // cp.async of 16 or 4 bytes that zero-fills the destination when `in` is
@@ -113,8 +115,8 @@ struct SsrRingSide {
   // (selects, not r.depth[i]: a runtime index into a kernel parameter
   // would copy the struct to local memory)
   __device__ __forceinline__ SsrRingSide(const SsrRing& r, int i)
-      : depth(static_cast<int>(i ? r.depth[1] : r.depth[0])),
-        invariant((i ? r.invariant[1] : r.invariant[0]) != 0) {}
+      : depth(static_cast<int>(i == 2 ? r.depth[2] : i ? r.depth[1] : r.depth[0])),
+        invariant((i == 2 ? r.invariant[2] : i ? r.invariant[1] : r.invariant[0]) != 0) {}
 
   // At virtual step u: fetch run step u + depth - 1 if it lies in the run
   // (an invariant stream fetches step 0 once, at the first u), then commit
@@ -141,6 +143,25 @@ struct SsrRingSide {
   __device__ __forceinline__ int slot() const { return get; }
   __device__ __forceinline__ void step() {
     if (!invariant) get = get + 1 == depth ? 0 : get + 1;
+  }
+};
+
+// The fetching group of this thread when the CTA's warps are split among
+// `streams` streams (1..3), whole warps each: group g holds warps
+// [g * warps / streams, (g + 1) * warps / streams).  `stream` is the group,
+// `lane` the thread's rank in it and `size` its threads.
+struct SsrRingGroup {
+  int stream, lane, size;
+
+  __device__ __forceinline__ explicit SsrRingGroup(int streams) {
+    const int warps = static_cast<int>(blockDim.x) / 32;
+    const int warp = static_cast<int>(threadIdx.x) / 32;
+    int g = 0;
+    while (g + 1 < streams && (g + 1) * warps / streams <= warp) ++g;
+    const int lo = g * warps / streams * 32;
+    stream = g;
+    lane = static_cast<int>(threadIdx.x) - lo;
+    size = (g + 1) * warps / streams * 32 - lo;
   }
 };
 

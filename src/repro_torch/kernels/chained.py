@@ -184,7 +184,9 @@ def unfused_sum_sq_diff(x: torch.Tensor, y: torch.Tensor, *,
 
 
 def _axpy(a, b, alpha):
-    return alpha * a + b
+    # α in the blocks' dtype, as jnp takes a weakly typed scalar: in bf16 α
+    # is rounded to bf16 first, and each operation then rounds to bf16
+    return torch.as_tensor(alpha, dtype=a.dtype, device=a.device) * a + b
 
 
 def axpy_block(alpha: float) -> KernelBody:

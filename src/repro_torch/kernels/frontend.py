@@ -26,7 +26,17 @@ FFT's per-stage strides, a sort network's compare-exchanges).  On the CPU
 the Launch runs as an in-order block walk
 (:func:`~repro_torch.core.hopper.plain_stream`); on the card the Hopper
 kernel of the body's ``op`` (:data:`~repro_torch.core.hopper.STREAM_KERNELS`)
-runs it.  ``ChainedKernel`` comes with a later slice of the port.
+runs it.
+
+:class:`ChainedKernel` is the waivered producer→consumer fusion: a Launch
+with one output stream, a producer body over each step's read blocks and a
+unary consumer body over the producer's block, in the same step, the
+intermediate never in device memory.  On the CPU the Launch runs as a block
+walk of the two bodies (:func:`~repro_torch.core.hopper.plain_chained`); on
+the card the Hopper kernel of the pair of body ops runs it: K17
+``chained_map``, or R5 ``ring_chained_map`` at a uniform ``buffer_depth``
+above 2, its read streams through the stage ring (the reference's
+``_pipelined_call``).
 
 :class:`NestKernel` resolves its schedule from the autotuner's cache when
 none is given, and owns the tuned → default degradation ladder.
@@ -35,6 +45,7 @@ none is given, and owns the tuned → default degradation ladder.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -43,7 +54,8 @@ import torch.nn.functional as F
 from .. import DeviceLike, resolve_device, to_device
 from ..core import autotune, hopper, resilience
 from ..core.lowering import DEFAULT_SCHEDULE, Schedule, _body_key, ssr_call
-from ..core.ssr import BlockStream, LoweringError, _depths
+from ..core.agu import RingProgram
+from ..core.ssr import BlockStream, LoweringError, _depths, pipeline_supported
 
 ROWS = 8
 LANES = 128
@@ -185,6 +197,21 @@ def stream_kernel(body: Callable) -> Callable[..., tuple]:
     """The Hopper stream kernel for a tagged body, or a LoweringError naming
     the missing kernel."""
     return _tagged_kernel(body, hopper.STREAM_KERNELS, "stream")
+
+
+def chained_kernel(producer: Callable, consumer: Callable
+                   ) -> Callable[..., tuple]:
+    """The Hopper kernel for a ChainedKernel's pair of tagged bodies,
+    called as ``kernel(launch, *arrays, ring=...)``, or a LoweringError
+    naming the missing kernel."""
+    pair = (getattr(producer, "op", None), getattr(consumer, "op", None))
+    if pair not in hopper.CHAINED_PROGRAMS:
+        raise LoweringError(
+            f"no Hopper chained kernel for producer op {pair[0]!r} "
+            f"({producer!r}) → consumer op {pair[1]!r} ({consumer!r}); K17 "
+            f"runs {sorted(hopper.CHAINED_PROGRAMS)} — wrap the bodies in "
+            "KernelBody(fn, op) or run on the CPU")
+    return functools.partial(hopper.chained_map, producer, consumer)
 
 
 def baseline_kernel(body: Callable) -> Callable[..., torch.Tensor]:
@@ -449,3 +476,118 @@ class NestKernel:
         out = ssr_call(nest, body, dict(operands), mode=self._mode,
                        schedule=sched, device=dev, **kw)
         return self._finish(out, final) if self._finish else out
+
+
+class ChainedParts(NamedTuple):
+    """What one ChainedKernel call runs: the Launch, the prepared arrays,
+    the two bodies, the ring where the call is pipelined (else None), and
+    the ``final`` that ``finish`` takes."""
+
+    launch: Launch
+    arrays: Tuple[torch.Tensor, ...]
+    producer: Callable
+    consumer: Callable
+    ring: Optional[RingProgram]
+    final: Any
+
+    def run(self) -> tuple:
+        """The call's kernel on the arrays' device: the plain version on
+        the CPU, K17 or R5 on the card."""
+        if self.arrays[0].device.type == "cpu":
+            return hopper.plain_chained(self.producer, self.consumer,
+                                        self.launch, self.arrays,
+                                        ring=self.ring)
+        return chained_kernel(self.producer, self.consumer)(
+            self.launch, *self.arrays, ring=self.ring)
+
+    def plain(self) -> tuple:
+        """The plain version on the arrays' device."""
+        return hopper.plain_chained(self.producer, self.consumer,
+                                    self.launch, self.arrays, ring=self.ring)
+
+
+class ChainedKernel:
+    """A fused producer→consumer kernel (stream chaining) over a module's
+    :class:`Launch`, with a mandatory ``lowering_waiver``.
+
+    ``prepare(*args, **params) -> (arrays, static, final)`` pads and
+    reshapes the operands; ``launch(static, *arrays) -> Launch`` states the
+    geometry, with exactly one output stream: its block and dtype are the
+    intermediate's.  Per step ``producer(static)``'s body runs on the read
+    blocks (in their storage dtype), its value is cast to the output dtype
+    and shaped as the output block — the reference's VMEM scratch block —
+    and ``consumer(static)``'s body, a unary block→block post-op, runs on
+    it; its value, cast and shaped likewise, is the step's output block.
+    The Launch's own scratch is accepted and never handed to the bodies.
+    ``finish(out, final)`` trims.
+
+    ``schedule=``'s uniform ``buffer_depth`` is validated as the reference's
+    ``ssr_pallas`` validates it (2..8; ``stream_depths`` is not read, as in
+    the reference); above 2, on a grid of more than one step, the read
+    streams arrive through the stage ring (:func:`~repro_torch.core.hopper.
+    ring_delivery` on the CPU, R5 on the card) where the pair of bodies has
+    a Hopper kernel.  On a CUDA tensor the bodies must be
+    :class:`~repro_torch.core.ssr.KernelBody`\\ s of a pair of
+    :data:`~repro_torch.core.hopper.CHAINED_PROGRAMS` (K17, or R5), which
+    runs them or raises.  The built entry is cached on the raw call inputs
+    and the schedule; prepare and finish run on every call.
+    """
+
+    def __init__(self, name: str, *, prepare: Callable, launch: Callable,
+                 producer: Callable, consumer: Callable,
+                 finish: Optional[Callable] = None,
+                 lowering_waiver: Optional[str] = None):
+        self.name = name
+        self.lowering_waiver = _require_waiver(name, lowering_waiver)
+        self._prepare = prepare
+        self._launch = launch
+        self._producer = producer
+        self._consumer = consumer
+        self._finish = finish
+        self._cache: Dict[Any, tuple] = {}
+
+    def _build(self, static, arrays: tuple,
+               schedule: Optional[Schedule]) -> tuple:
+        lc: Launch = self._launch(static, *arrays)
+        if len(lc.out_streams) != 1:
+            raise ValueError(
+                f"{self.name}: ChainedKernel needs exactly one output "
+                "stream to size the intermediate scratch")
+        depth = (schedule or DEFAULT_SCHEDULE).buffer_depth
+        depths = _depths(depth, len(lc.in_streams),
+                         beyond="would eat the VMEM budget")
+        geo = hopper.chained_geometry(lc)     # every stream's walk is affine
+        producer, consumer = self._producer(static), self._consumer(static)
+        pair = (getattr(producer, "op", None), getattr(consumer, "op", None))
+        ring = None
+        if (max(depths, default=2) > 2 and geo.steps > 1
+                and pipeline_supported()
+                and ("chained", pair) in hopper.RING_KERNELS):
+            ring = RingProgram(depths, tuple(not any(any(c) for c in a.coeffs)
+                                             for a in geo.ins))
+        return lc, producer, consumer, ring
+
+    def parts(self, *args, schedule: Optional[Schedule] = None,
+              device: DeviceLike = None, **params) -> ChainedParts:
+        """What this call runs (:class:`ChainedParts`), built or from the
+        cache."""
+        args = on_device(args, resolve_device(device))
+        arrays, static, final = self._prepare(*args, **params)
+        key = (_call_key(args, params), schedule)
+        entry = self._cache.get(key)
+        if entry is None:
+            entry = self._build(static, tuple(arrays), schedule)
+            DISPATCH_STATS["builds"] += 1
+            if len(self._cache) >= _PIPELINE_CACHE_MAX:
+                self._cache.clear()
+            self._cache[key] = entry
+        lc, producer, consumer, ring = entry
+        return ChainedParts(lc, tuple(arrays), producer, consumer, ring,
+                            final)
+
+    def __call__(self, *args, schedule: Optional[Schedule] = None,
+                 device: DeviceLike = None, **params):
+        DISPATCH_STATS["calls"] += 1
+        parts = self.parts(*args, schedule=schedule, device=device, **params)
+        (out,) = parts.run()
+        return self._finish(out, parts.final) if self._finish else out

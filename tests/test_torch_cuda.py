@@ -1337,3 +1337,155 @@ def test_ring_over_the_budget_raises_on_the_card(dev):
     with pytest.raises(ValueError, match="ring_reduce_mul: its ring"):
         call.run()
     assert hopper.LAUNCHES == before
+
+
+# -- K17 and R5: the ChainedKernel; R6: K5's chains through the ring ----------
+
+
+def _chained(producer, consumer, rows=8, lanes=128):
+    """A ChainedKernel over (n_rows, lanes) layouts in (rows, lanes) blocks,
+    one a step; its operands as the caller gives them."""
+    from repro_torch.core.ssr import BlockStream
+    from repro_torch.core.stream import Direction
+
+    def launch(static, *arrays):
+        return frontend.Launch(
+            grid=(arrays[0].shape[0] // rows,),
+            in_streams=tuple(BlockStream((rows, lanes), lambda i: (i, 0))
+                             for _ in arrays),
+            out_streams=(BlockStream((rows, lanes), lambda i: (i, 0),
+                                     Direction.WRITE),),
+            out_shapes=(frontend.ShapeDtype(tuple(arrays[0].shape),
+                                            arrays[0].dtype),))
+
+    return frontend.ChainedKernel(
+        "chained", prepare=lambda *xs: (xs, None, None), launch=launch,
+        producer=lambda s: producer, consumer=lambda s: consumer,
+        lowering_waiver="a test instance")
+
+
+def _pairs():
+    from repro_torch.kernels import chained
+    producers = {"identity": chained.IDENTITY, "relu": relu.RELU,
+                 "sq_diff": chained.SQ_DIFF, "axpy": chained.axpy_block(0.3),
+                 "mul": chained.DOT}
+    consumers = {"identity": chained.IDENTITY, "relu": relu.RELU}
+    return [(producers[p], consumers[c]) for p, c in hopper.CHAINED_PROGRAMS]
+
+
+@pytest.mark.parametrize("depth", [2, 3, 4, 8])
+@pytest.mark.parametrize("lanes", [128, 130])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pair", range(10))
+def test_chained_map_every_program_to_the_bit(dev, pair, dtype, lanes, depth):
+    """Every producer and consumer pair, 16-byte packs (128 lanes) and
+    element accesses (130), each depth: K17 against its plain version to
+    the bit, and R5 against K17."""
+    producer, consumer = _pairs()[pair]
+    n_in = hopper.CHAINED_PRODUCERS[producer.op][0]
+    g = torch.Generator(device=dev).manual_seed(pair)
+    xs = [torch.randn(40, lanes, generator=g, device=dev).to(dtype)
+          for _ in range(n_in)]
+    if producer.op in ("identity", "relu"):     # selections: ±0, NaN
+        xs[0][0, :3] = torch.tensor([-0.0, float("nan"), 0.0])
+    kern = _chained(producer, consumer, lanes=lanes)
+    parts = kern.parts(*xs, schedule=_depth(depth), device=dev)
+    before = dict(hopper.LAUNCHES)
+    got = parts.run()[0]
+    torch.cuda.synchronize()
+    assert _launched(before) == ({"ring_chained_map"} if depth > 2
+                                 else {"chained_map"})
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got.view(bits), parts.plain()[0].view(bits))
+    k17 = kern.parts(*xs, device=dev).run()[0]
+    assert torch.equal(got.view(bits), k17.view(bits))
+
+
+@pytest.mark.parametrize("depth", [2, 3, 8])
+@pytest.mark.parametrize("shape", [(8, 512), (24, 1536), (1032, 4096)])
+def test_chained_map_invariant_stream(dev, shape, depth):
+    """relu(x·w) on a 2-D grid, w one invariant (8, 512) block."""
+    from repro_torch.core.ssr import BlockStream
+    from repro_torch.core.stream import Direction
+    from repro_torch.kernels import chained
+
+    def launch(static, x, w):
+        r, c = x.shape
+        return frontend.Launch(
+            grid=(r // 8, c // 512),
+            in_streams=(BlockStream((8, 512), lambda i, j: (i, j)),
+                        BlockStream((8, 512), lambda i, j: (0, 0))),
+            out_streams=(BlockStream((8, 512), lambda i, j: (i, j),
+                                     Direction.WRITE),),
+            out_shapes=(frontend.ShapeDtype(tuple(x.shape), x.dtype),))
+
+    kern = frontend.ChainedKernel(
+        "scale_relu", prepare=lambda x, w: ((x, w), None, None),
+        launch=launch, producer=lambda s: chained.DOT,
+        consumer=lambda s: relu.RELU, lowering_waiver="a test instance")
+    g = torch.Generator(device=dev).manual_seed(shape[0])
+    x = torch.randn(*shape, generator=g, device=dev)
+    w = torch.randn(8, 512, generator=g, device=dev)
+    got = kern(x, w, schedule=_depth(depth))
+    assert torch.equal(got.view(torch.int32),
+                       torch.relu(x * w.repeat(shape[0] // 8, shape[1] // 512)
+                                  ).view(torch.int32))
+
+
+def test_untagged_chained_body_raises_on_the_card(dev):
+    kern = _chained(lambda a, b: a + b, relu.RELU)
+    x = torch.ones(16, 128, device=dev)
+    with pytest.raises(LoweringError, match="no Hopper chained kernel"):
+        kern(x, x)
+
+
+def _chain_call(kind, n, sched, dev):
+    from repro_torch.kernels import chained
+    g = torch.Generator(device=dev).manual_seed(n)
+    x, y, w = (torch.rand(n, generator=g, device=dev) for _ in range(3))
+    pair = compiler.elementwise_nest(n, ("X", "Y"), 2)
+    if kind == "sum_sq_diff":
+        return lowering.prepare_chain_call(
+            chained._chain_nests(n, False),
+            (chained.SQ_DIFF, chained.IDENTITY), {"X": x, "Y": y},
+            mode="reduce", schedule=sched)
+    if kind == "axpy_dot":
+        return lowering.prepare_chain_call(
+            chained._chain_nests(n, True),
+            (chained.axpy_block(0.3), chained.DOT),
+            {"X": x, "Y": y, "W": w}, mode="reduce", schedule=sched)
+    if kind == "sq_diff":
+        return lowering.prepare_call(pair, chained.SQ_DIFF,
+                                     {"X": x, "Y": y}, mode="map",
+                                     schedule=sched)
+    if kind == "axpy":
+        return lowering.prepare_call(pair, chained.axpy_block(0.3),
+                                     {"X": x, "Y": y}, mode="map",
+                                     schedule=sched)
+    return lowering.prepare_call(compiler.elementwise_nest(n, ("T",), 1),
+                                 chained.IDENTITY, {"T": x}, schedule=sched)
+
+
+R6_DEPTHS = {"sum_sq_diff": [3, 4, 8, (2, 4), (4, 2)],
+             "axpy_dot": [3, 4, 8, (2, 4, 3), (4, 2, 2)],
+             "sq_diff": [3, 4, 8, (2, 4), (4, 2)],
+             "axpy": [3, 4, 8, (2, 4), (4, 2)],
+             "identity": [3, 4, 8]}
+
+
+@pytest.mark.parametrize("case", [(k, d) for k, ds in R6_DEPTHS.items()
+                                  for d in ds], ids=str)
+@pytest.mark.parametrize("n", [5001, (1 << 20) + 3])
+def test_ring_chain_elem_is_k5_to_the_bit(dev, n, case):
+    kind, depth = case
+    ring = _chain_call(kind, n, _depth(depth), dev)
+    sync = _chain_call(kind, n, lowering.DEFAULT_SCHEDULE, dev)
+    assert ring.kernel.pipelined and not sync.kernel.pipelined
+    before = dict(hopper.LAUNCHES)
+    got = ring.run()
+    torch.cuda.synchronize()
+    assert _launched(before) == {"ring_chain_elem"}
+    before = dict(hopper.LAUNCHES)
+    want = sync.run()
+    assert _launched(before) == {"chain_elem"}
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -11,8 +11,9 @@ import torch
 
 import repro_torch
 from repro_torch.core import agu, compiler, hopper, lowering
-from repro_torch.core.ssr import KernelBody, LoweringError
-from repro_torch.kernels import ops, reduction
+from repro_torch.core.ssr import BlockStream, KernelBody, LoweringError
+from repro_torch.core.stream import Direction
+from repro_torch.kernels import chained, frontend, ops, reduction, relu
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
@@ -117,19 +118,31 @@ def test_wrappers_refuse_cpu_tensors(name):
     row = torch.zeros(1, 8)
     stream_args = {"stream_scan": (t,), "stream_fft": (row, row, row, row),
                    "stream_bitonic": (row,)}
-    # a ring kernel launches from its sync kernel's wrapper, given a ring
-    rings = {ring: wrapper for (_, op), ring in hopper.RING_KERNELS.items()
-             for wrapper in (hopper.DEVICE_KERNELS[(_, op)].__name__,)}
+    # a ring kernel launches from its sync kernel's wrapper, given a ring;
+    # K17 and R5 take a ChainedKernel's Launch and its two bodies
+    rings = {ring: hopper.DEVICE_KERNELS[key].__name__
+             for key, ring in hopper.RING_KERNELS.items()
+             if key[0] != "chained"}
+    rings["ring_chained_map"] = "chained_map"
     wrapper = rings.get(name, name)
     n_in = 1 if wrapper == "map_relu" else 2
     kw = {"ring": agu.RingProgram((3,) * n_in, (False,) * n_in)} \
         if name in rings else {}
+    whole = BlockStream((8, 128), lambda i: (0, 0))
+    launch = frontend.Launch(
+        grid=(1,), in_streams=(whole, whole),
+        out_streams=(BlockStream((8, 128), lambda i: (0, 0),
+                                 Direction.WRITE),),
+        out_shapes=(frontend.ShapeDtype((8, 128), torch.float32),))
     before = dict(hopper.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA tensors"):
         if name in baseline_args:
             getattr(hopper, name)(*baseline_args[name])
         elif name in stream_args:
             getattr(hopper, name)(None, *stream_args[name])
+        elif wrapper == "chained_map":
+            hopper.chained_map(chained.axpy_block(0.5), relu.RELU, launch,
+                               t, t, **kw)
         else:
             getattr(hopper, wrapper)(geo, [t] * n_in, torch.float32, **kw)
     assert hopper.LAUNCHES == before
@@ -163,10 +176,13 @@ def test_build_key_follows_the_sources(tmp_path, monkeypatch):
     keys = {n: hopper.library_path(n) for n in hopper.KERNELS}
     assert keys == {n: hopper.library_path(n) for n in hopper.KERNELS}
     headers = sorted(p.name for p in csrc.glob("*.cuh"))
-    assert headers == ["ssr_common.cuh", "ssr_ring.cuh", "ssr_rows.cuh"]
+    assert headers == ["ssr_chain.cuh", "ssr_chained_map.cuh",
+                       "ssr_common.cuh", "ssr_ring.cuh", "ssr_rows.cuh"]
     rows = {"ring_reduce_mul", "dag_layernorm", "dag_softmax_xent",
-            "chain_elem"}
-    users = {"ssr_common.cuh": set(hopper.KERNELS),
+            "chain_elem", "ring_chain_elem"}
+    users = {"ssr_chain.cuh": {"chain_elem", "ring_chain_elem"},
+             "ssr_chained_map.cuh": {"chained_map", "ring_chained_map"},
+             "ssr_common.cuh": set(hopper.KERNELS),
              "ssr_ring.cuh": {n for n in hopper.KERNELS
                               if n.startswith("ring_")},
              "ssr_rows.cuh": {n for n in hopper.KERNELS if n in rows}}

@@ -242,3 +242,34 @@ def test_frontend_helpers():
     assert frontend.pad_leading(torch.ones(3, 2), 8).shape == (8, 2)
     assert frontend.promote(torch.ones(2, dtype=torch.bfloat16)).dtype == \
         torch.float32
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["sq_diff", "identity", "axpy", "mul",
+                                  "relu"])
+def test_chained_bodies_round_as_the_reference(name, dtype):
+    """The tagged bodies a ChainedKernel's K17 runs, on stored blocks: in
+    bf16 α rounds to bf16 and every operation to bf16, in both packages."""
+    from repro.kernels import chained as jchained
+    from repro.kernels import relu as jrelu
+
+    from repro_torch.kernels import chained, relu
+
+    port = {"sq_diff": chained.SQ_DIFF, "identity": chained.IDENTITY,
+            "axpy": chained.axpy_block(0.3), "mul": chained.DOT,
+            "relu": relu.RELU}[name]
+    ref = {"sq_diff": jchained._sq_diff_block,
+           "identity": jchained._identity_block,
+           "axpy": jchained._axpy_block(0.3), "mul": jchained._dot_block,
+           "relu": jrelu.relu_block}[name]
+    rng = np.random.default_rng(17)
+    tdt = getattr(torch, dtype)
+    blocks = [torch.from_numpy(rng.standard_normal((8, 128)).astype(
+        np.float32)).to(tdt) for _ in range(2)]
+    n_in = 1 if name in ("identity", "relu") else 2
+    got = port(*blocks[:n_in])
+    want = ref(*[jnp.asarray(b.float().numpy()).astype(getattr(jnp, dtype))
+                 for b in blocks[:n_in]])
+    assert got.dtype == tdt and str(want.dtype) == dtype
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))

@@ -1,20 +1,25 @@
 """Pipelined delivery in the port: the N-deep ring against the depth-2 path.
 
 The counterpart of ``tests/test_pipeline.py``.  A schedule deeper than 2
-(``buffer_depth`` or per-stream ``stream_depths``) makes a call of K1–K4's
+(``buffer_depth`` or per-stream ``stream_depths``) makes a call of K1–K5's
 families pipelined: its read streams arrive through an N-deep ring (on the
-CPU :func:`hopper.plain_ring`, on the card the ring kernels R1–R4).  The
-contracts, on the CPU:
+CPU :func:`hopper.plain_ring`, on the card the ring kernels R1–R4 and R6;
+a ChainedKernel's R5 has its own tests, ``tests/test_torch_chained_kernel
+.py``, and its fetch log here).  The contracts, on the CPU:
 
-* **delivery changes, the arithmetic does not** — map, reduce, gemm, gemv
-  and gemv_relu at depths 3, 4, 8 and per-stream depths give the depth-2
-  result bit for bit, and the reference's sync result (Pallas interpret
-  mode) within the registry ``tol`` (relu bit for bit);
+* **delivery changes, the arithmetic does not** — map, reduce, gemm, gemv,
+  gemv_relu and K5's chains (sum_sq_diff fused, its (x − y)² map stage;
+  axpy_dot fused, its axpy map and identity reduce stages) at depths 3, 4,
+  8 and per-stream depths give the depth-2 result bit for bit, and the
+  reference's sync result (Pallas interpret mode) within the registry
+  ``tol`` (relu bit for bit);
 * **pipelined where a ring runs** — True for those, False for a one-step
-  grid, the unstaged families and under ``REPRO_DISABLE_PIPELINE``;
+  grid, the unstaged families (the DAGs, the halo and gather kernels) and
+  under ``REPRO_DISABLE_PIPELINE``;
 * **the reference's rotation** — the plain ring's fetch log is the
   prime / run-ahead / no-fetch-past-the-run formula of ``_pipelined_call``
-  for several run splits, and an invariant stream is fetched once;
+  for several run splits (R1's, R5's and R6's), and an invariant stream is
+  fetched once;
 * **one budget** — ``StreamReport`` and the tuner's working-set count agree
   at every depth; a ring over the shared memory a CTA may opt into is
   refused by ``accepts`` with the kernel's name;
@@ -30,6 +35,7 @@ import torch
 
 import jax.numpy as jnp
 from repro.core import compiler as jcompiler
+from repro.core import lowering as jlowering
 from repro.core.lowering import DEFAULT_SCHEDULE as REF_DEFAULT
 from repro.core.lowering import Schedule as JSchedule
 from repro.kernels import chained as jchained
@@ -41,8 +47,10 @@ from repro_torch.core import agu, autotune, compiler, hopper, lowering, ssr
 from repro_torch.core.autotune import ScheduleCache
 from repro_torch.core.lowering import DEFAULT_SCHEDULE, Schedule, ssr_call
 from repro_torch.core.ssr import MAX_BUFFER_DEPTH, stream_vmem_bytes
-from repro_torch.kernels import (chained, gemm, gemv, reduction, relu,
-                                 sparse, stencil)
+from repro_torch.core.ssr import BlockStream
+from repro_torch.core.stream import Direction
+from repro_torch.kernels import (chained, dag, frontend, gemm, gemv,
+                                 reduction, relu, sparse, stencil)
 
 DEPTHS = [3, 4, 8, (2, 4), (4, 2)]
 # relu has one read stream: a per-stream depth is a 1-tuple
@@ -123,9 +131,39 @@ def _gemv_relu_case(rng):
                                             {"A": a, "x": x}, schedule=s))
 
 
+def _sum_sq_diff_chain_case(rng):
+    x, y = _f32(rng, 5000), _f32(rng, 5000)
+    return (lambda s: chained.fused_sum_sq_diff(x, y, schedule=s),
+            lambda: jchained.fused_sum_sq_diff(jnp.asarray(x.numpy()),
+                                               jnp.asarray(y.numpy())),
+            "sum_sq_diff",
+            lambda s: lowering.prepare_chain_call(
+                chained._chain_nests(5000, False),
+                (chained.SQ_DIFF, chained.IDENTITY), {"X": x, "Y": y},
+                mode="reduce", schedule=s))
+
+
+def _sq_diff_map_case(rng):
+    x, y = _f32(rng, 5000), _f32(rng, 5000)
+    nest = compiler.elementwise_nest(5000, ("X", "Y"), 2)
+    jnest = jcompiler.elementwise_nest(5000, ("X", "Y"), 2)
+    return (lambda s: ssr_call(nest, chained.SQ_DIFF, {"X": x, "Y": y},
+                               mode="map", schedule=s),
+            lambda: jlowering.ssr_call(
+                jnest, jchained._sq_diff_block,
+                {"X": jnp.asarray(x.numpy()), "Y": jnp.asarray(y.numpy())},
+                mode="map", schedule=REF_DEFAULT),
+            "sum_sq_diff",
+            lambda s: lowering.prepare_call(nest, chained.SQ_DIFF,
+                                            {"X": x, "Y": y}, mode="map",
+                                            schedule=s))
+
+
 CASES = {"dot": _dot_case, "gemm": _gemm_case, "gemv": _gemv_case,
          "gemv_x_invariant": lambda rng: _gemv_case(rng, (2048, 512)),
-         "gemv_relu": _gemv_relu_case}
+         "gemv_relu": _gemv_relu_case,
+         "sum_sq_diff_chain": _sum_sq_diff_chain_case,
+         "sq_diff_map": _sq_diff_map_case}
 
 
 @pytest.mark.parametrize("depth", DEPTHS, ids=str)
@@ -171,6 +209,51 @@ def test_map_relu_is_bit_identical(depth, dtype):
                                   ref_bits)
 
 
+AXPY_DEPTHS = [3, 4, 8, (2, 4, 3), (4, 2, 2)]
+
+
+@pytest.mark.parametrize("depth", AXPY_DEPTHS, ids=str)
+def test_axpy_dot_chain_and_stages_are_bit_identical(depth):
+    """K5's three-stream chain and its two unfused stages (R6 on the card):
+    the depth-2 bits at every depth, the reference within the tol."""
+    rng = np.random.default_rng(13)
+    x, y, w = _f32(rng, 5000), _f32(rng, 5000), _f32(rng, 5000)
+    jx, jy, jw = (jnp.asarray(t.numpy()) for t in (x, y, w))
+    tol = jregistry.get("axpy_dot").tol
+    call = lowering.prepare_chain_call(
+        chained._chain_nests(5000, True), (chained.axpy_block(0.5),
+                                           chained.DOT),
+        {"X": x, "Y": y, "W": w}, mode="reduce", schedule=_sched(depth))
+    assert call.kernel.pipelined and len(call.kernel.depths) == 3
+    got = chained.fused_axpy_dot(x, y, w, alpha=0.5, schedule=_sched(depth))
+    assert torch.equal(got, chained.fused_axpy_dot(x, y, w, alpha=0.5))
+    assert torch.equal(call.run().reshape(got.shape), got)
+    np.testing.assert_allclose(got.numpy(), np.asarray(
+        jchained.fused_axpy_dot(jx, jy, jw, alpha=0.5)), **tol)
+    # the unfused stages: the axpy map (two streams), the identity reduce
+    pair = compiler.elementwise_nest(5000, ("X", "Y"), 2)
+    stage = depth[:2] if isinstance(depth, tuple) else depth
+    t = ssr_call(pair, chained.axpy_block(0.5), {"X": x, "Y": y},
+                 mode="map", schedule=_sched(stage))
+    assert torch.equal(t, ssr_call(pair, chained.axpy_block(0.5),
+                                   {"X": x, "Y": y}, mode="map"))
+    jt = jlowering.ssr_call(jcompiler.elementwise_nest(5000, ("X", "Y"), 2),
+                            jchained._axpy_block(0.5), {"X": jx, "Y": jy},
+                            mode="map", schedule=REF_DEFAULT)
+    np.testing.assert_allclose(t.numpy(), np.asarray(jt), **tol)
+    single = compiler.elementwise_nest(5000, ("T",), 1)
+    red = (stage[0],) if isinstance(stage, tuple) else stage
+    got_sum = ssr_call(single, chained.IDENTITY, {"T": t},
+                       schedule=_sched(red))
+    assert lowering.prepare_call(single, chained.IDENTITY, {"T": t},
+                                 schedule=_sched(red)).kernel.pipelined \
+        is (max(red if isinstance(red, tuple) else (red,)) > 2)
+    assert torch.equal(got_sum, ssr_call(single, chained.IDENTITY, {"T": t}))
+    np.testing.assert_allclose(got_sum.numpy(), np.asarray(jlowering.ssr_call(
+        jcompiler.elementwise_nest(5000, ("T",), 1),
+        jchained._identity_block, {"T": jt}, schedule=REF_DEFAULT)), **tol)
+
+
 # -- where the ring runs -------------------------------------------------------
 
 
@@ -196,21 +279,21 @@ def _unstaged(n=4096):
     """Prepared calls of families without a ring kernel, at depth 3."""
     x, w = torch.ones(n + stencil.TAPS - 1), torch.ones(stencil.TAPS)
     s = Schedule(buffer_depth=3)
-    pair = compiler.elementwise_nest(n, ("X", "Y"), 2)
     csr = sparse.hpcg_operator(16, 16, 16, device="cpu")
     vals, cidx, m, k = sparse.pack_ell(*csr, 4096)
+    ln_nests, ln_bodies, ln_ops, ln_mode, _ = dag.layernorm_spec(
+        torch.ones(64, 128))
+    side = 1024 + stencil.TAPS - 1
     return {
         "stencil1d": lowering.prepare_call(
             compiler.stencil_nest(n, stencil.TAPS), stencil.STENCIL1D,
             {"x": x, "w": w}, schedule=s),
-        "sq_diff_map": lowering.prepare_call(
-            pair, chained.SQ_DIFF, {"X": torch.ones(n), "Y": torch.ones(n)},
-            mode="map", schedule=s),
-        "sum_sq_diff_chain": lowering.prepare_chain_call(
-            chained._chain_nests(n, False),
-            (chained.SQ_DIFF, chained.IDENTITY),
-            {"X": torch.ones(n), "Y": torch.ones(n)}, mode="reduce",
-            schedule=s),
+        "layernorm_dag": lowering.prepare_dag_call(
+            ln_nests, ln_bodies, ln_ops, mode=ln_mode, schedule=s),
+        "stencil2d": lowering.prepare_call(
+            compiler.stencil2d_nest(1024, 1024, stencil.TAPS),
+            stencil.STENCIL2D,
+            {"x": torch.ones(side, side), "wx": w, "wy": w}, schedule=s),
         "spmv": lowering.prepare_call(
             compiler.spmv_nest(m, k), sparse.SPMV,
             {"vals": vals, "cidx": cidx, "x": torch.ones(4096)}, schedule=s),
@@ -220,8 +303,8 @@ def _unstaged(n=4096):
     }
 
 
-@pytest.mark.parametrize("name", ["stencil1d", "sq_diff_map",
-                                  "sum_sq_diff_chain", "spmv", "untagged"])
+@pytest.mark.parametrize("name", ["stencil1d", "layernorm_dag",
+                                  "stencil2d", "spmv", "untagged"])
 def test_unstaged_families_stay_sync(name):
     call = _unstaged()[name]
     assert max(call.kernel.depths) == 3 and call.kernel.geometry.steps > 1
@@ -279,6 +362,57 @@ def test_plain_ring_fetch_log_is_the_reference_rotation(depth, run):
     # every step's block arrives exactly once per stream
     for i in range(2):
         assert sorted(s for j, s, _ in log if j == i) == list(range(13))
+
+
+@pytest.mark.parametrize("run", [None, 1, 2, 5], ids=str)
+@pytest.mark.parametrize("depth", [3, 8, (2, 4, 3), (4, 2, 2)], ids=str)
+def test_r6_chain_fetch_log_is_the_reference_rotation(depth, run):
+    """axpy_dot's three streams through R6's ring, in the plain version."""
+    x, y, w = (_f32(np.random.default_rng(k), 13 * 1024) for k in (1, 2, 3))
+    call = lowering.prepare_chain_call(
+        chained._chain_nests(13 * 1024, True),
+        (chained.axpy_block(0.5), chained.DOT), {"X": x, "Y": y, "W": w},
+        mode="reduce", schedule=_sched(depth))
+    kern = call.kernel
+    assert kern.pipelined and kern.geometry.steps == 13
+    inputs, log = hopper.ring_delivery(kern.geometry, call.layouts, kern.ring,
+                                       run)
+    assert log == _formula(kern.depths, (False,) * 3, 13, run or 13)
+    assert torch.equal(hopper.plain_stages(
+        kern.bodies, kern.program, kern.mode, kern.geometry, call.layouts,
+        kern.out_dtype, inputs=inputs), kern.plain(call.layouts))
+
+
+def _r5_axpy_relu(n_rows):
+    """A ChainedKernel relu(0.5·x + y) on a flat Launch of (8, 128) blocks,
+    and its inputs: ``n_rows`` / 8 steps."""
+    def launch(static, x, y):
+        return frontend.Launch(
+            grid=(x.shape[0] // 8,),
+            in_streams=(BlockStream((8, 128), lambda i: (i, 0)),) * 2,
+            out_streams=(BlockStream((8, 128), lambda i: (i, 0),
+                                     Direction.WRITE),),
+            out_shapes=(frontend.ShapeDtype(tuple(x.shape), x.dtype),))
+
+    kern = frontend.ChainedKernel(
+        "axpy_relu", prepare=lambda x, y: ((x, y), None, None), launch=launch,
+        producer=lambda s: chained.axpy_block(0.5),
+        consumer=lambda s: relu.RELU, lowering_waiver="a test instance")
+    rng = np.random.default_rng(n_rows)
+    return kern, (_f32(rng, n_rows, 128), _f32(rng, n_rows, 128))
+
+
+@pytest.mark.parametrize("run", [None, 1, 2, 5], ids=str)
+@pytest.mark.parametrize("depth", [3, 4, 8])
+def test_r5_fetch_log_is_the_reference_rotation(depth, run):
+    kern, xs = _r5_axpy_relu(13 * 8)
+    parts = kern.parts(*xs, schedule=Schedule(buffer_depth=depth))
+    geo = hopper.chained_geometry(parts.launch)
+    assert geo.steps == 13 and parts.ring.depths == (depth, depth)
+    inputs, log = hopper.ring_delivery(geo, parts.arrays, parts.ring, run)
+    assert log == _formula((depth, depth), (False, False), 13, run or 13)
+    assert torch.equal(parts.plain()[0], kern(*xs))
+    assert torch.equal(parts.plain()[0], torch.relu(0.5 * xs[0] + xs[1]))
 
 
 @pytest.mark.parametrize("run", [None, 1, 3], ids=str)
@@ -346,11 +480,17 @@ def _over_budget():
     mv = lambda s: lowering.prepare_call(  # noqa: E731
         compiler.gemv_nest(64, 8192), gemv.MATVEC, {"A": a, "x": v},
         schedule=s)
+    ssd = lambda s: lowering.prepare_chain_call(  # noqa: E731
+        chained._chain_nests(1 << 16, False),
+        (chained.SQ_DIFF, chained.IDENTITY), {"X": x, "Y": x},
+        mode="reduce", schedule=s)
     return {"ring_reduce_mul": (dot, dict(rows=16, lanes=512)),
-            "ring_contract_gemv": (mv, dict(lanes=512, lanes_tile_factor=4))}
+            "ring_contract_gemv": (mv, dict(lanes=512, lanes_tile_factor=4)),
+            "ring_chain_elem": (ssd, dict(rows=16, lanes=512))}
 
 
-@pytest.mark.parametrize("name", ["ring_reduce_mul", "ring_contract_gemv"])
+@pytest.mark.parametrize("name", ["ring_reduce_mul", "ring_contract_gemv",
+                                  "ring_chain_elem"])
 def test_accepts_refuses_a_ring_over_the_budget(name):
     prepare, geometry = _over_budget()[name]
     for depth, fits in ((3, True), (MAX_BUFFER_DEPTH, False)):
@@ -388,11 +528,17 @@ def _candidates(nest, body, mode, ops):
     return cands, kept
 
 
-@pytest.mark.parametrize("family", ["gemm", "dot", "relu", "gemv"])
+@pytest.mark.parametrize("family", ["gemm", "dot", "relu", "gemv",
+                                    "sq_diff_map", "identity_reduce"])
 def test_card_race_keeps_depth_only_candidates_where_the_kernel_stages(
         family):
     n = 1 << 14
     nest, body, mode, ops = {
+        "sq_diff_map": (compiler.elementwise_nest(n, ("X", "Y"), 2),
+                        chained.SQ_DIFF, "map",
+                        {"X": torch.ones(n), "Y": torch.ones(n)}),
+        "identity_reduce": (compiler.elementwise_nest(n, ("T",), 1),
+                            chained.IDENTITY, "reduce", {"T": torch.ones(n)}),
         "gemm": (compiler.gemm_nest(256, 256, 1024), gemm.DOT, "nest",
                  {"A": torch.ones(256, 1024), "B": torch.ones(1024, 256)}),
         "dot": (compiler.dot_product_nest(n), reduction.MUL, "reduce",
