@@ -41,8 +41,11 @@ printing JSON lines:
    8192**2 f32 in (8, 512) blocks, w one invariant block), and the unfused
    composition of the first; check that every kernel launched, that a fused
    call is one launch and an unfused one one per stage, that a sparse or
-   stream call is one wrapper call of its kernel, that a ChainedKernel call
-   is one K17 launch, and that no fallback fired;
+   stream call is one wrapper call of its kernel, that one sort_2p26 call
+   runs the 28 device kernels of K16's schedule (at most 32) and one
+   fft_2048_b32768 call K15's one (``torch.profiler`` counts: the ``device_launches``
+   line), that a ChainedKernel call is one K17 launch, and that no
+   fallback fired;
 3. hold each kernel's output against its plain PyTorch version on the
    card, on the same inputs, and each baseline's against the streamed
    kernel's; each instantiation of K5–K8 (every component of every legal
@@ -50,8 +53,9 @@ printing JSON lines:
    likewise, and each fused result against its unfused one; K12, K13, B6
    and B7 on every row, and on odd CSR inputs against the oracle; K14 and
    B8 (and their plain versions) against an f64 prefix sum, K14 twice to
-   the bit; K15 on the batch cell, one transform of 2**22 points (the
-   global passes) and bf16 inputs; K16 to the bit on the cell, a batch of
+   the bit; K15 to the bit on the batch cell and bf16 inputs, within the
+   limit on one transform of 2**22 points (the global passes); K16 to the
+   bit on the cell, a batch of
    2**16 rows of 1024, bf16 and int32, and inputs holding ±0 and a NaN;
    the ring kernels R1–R4 (a schedule deeper than 2) against K1–K4 to the
    bit on the dot (f32, bf16), relu (f32, int32, bf16), gemm, gemv and
@@ -177,11 +181,13 @@ SPMV_GRID, SPMM_GRID, SPMM_RHS = 128, 64, 128
 # and the run fails unless the control, the carry out of the first tile
 # dropped, reads above.  FFT (K15): max |kernel − plain| over Σ|x| of each
 # transform; the kernel rounds each product and sum as the plain version
-# does (0 expected), and the plain version with its twiddles rounded to
-# bf16 must read above.  Sort (K16): to the bit.
+# does, so a row that fits a CTA (the fft and fft_bf16 checks) must equal
+# it to the bit, and the plain version with its twiddles rounded to bf16
+# must read above the limit.  Sort (K16): to the bit.
 SCAN_LIMIT = 1e-6
 FFT_LIMIT = 1e-6
 SCAN_N, SORT_N = 1 << 26, 1 << 26      # the scan_2p26 and sort_2p26 cells
+SORT_MOST_LAUNCHES = 32                # K16's device kernels on sort_2p26, most
 FFT_N, FFT_BATCH = 2048, 32768         # fft_2048_b32768
 
 # The DAG kernels' map outputs: max |kernel − plain| / max(1, |plain|).
@@ -274,8 +280,46 @@ PAIRS = {"reduce_mul": "base_reduce", "map_relu": "base_relu",
          "gather_spmm": "base_spmm", "stream_scan": "base_scan"}
 
 
+#: the stream kernels whose device launches a call are counted: their cell
+STREAM_CELL = {"stream_bitonic": "sort", "stream_fft": "fft"}
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def count_device_launches(calls) -> dict:
+    """Device kernels of one call each, from a ``torch.profiler`` trace
+    (CUDA activity): ``calls`` maps a cell to (call, the schedule's count,
+    the most allowed, substrings of its kernels' names).  Exits unless each
+    call launched exactly its schedule's kernels, all of them its own."""
+    from torch.profiler import ProfilerActivity, profile
+    counts = {}
+    for key, (fn, want, most, names) in calls.items():
+        fn()                       # built, loaded and warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        trace = os.path.join(os.environ["REPRO_SCHEDULE_CACHE"],
+                             f"trace_{key}.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f)
+        events = events.get("traceEvents", events) \
+            if isinstance(events, dict) else events
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        counts[key] = {"device_kernels": len(kernels), "schedule": want,
+                       "most": most,
+                       "names": sorted(set(kernels)),
+                       "ok": len(kernels) == want <= most and all(
+                           any(n_ in k for n_ in names) for k in kernels)}
+    emit({"phase": "device_launches", "calls": counts})
+    wrong = [key for key, c in counts.items() if not c["ok"]]
+    if wrong:
+        raise SystemExit(f"chip_smoke: device kernels per call differ from "
+                         f"the schedule: {wrong}: {counts}")
+    return {key: c["device_kernels"] for key, c in counts.items()}
 
 
 def card_peaks(name: str):
@@ -690,7 +734,8 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                          f"than one K12/K13/B6/B7: "
                          f"{ {key: per_call[key] for key in sparse_launches} }")
     # a stream call is one wrapper call of its kernel (three device launches
-    # for a scan, one for the FFT cell, 105 for the sort cell: LAUNCHES)
+    # for a scan, one for the FFT cell, 28 for the sort cell: LAUNCHES and
+    # the device_launches line below)
     stream_launches = {"prefix_sum": {"stream_scan": 1},
                        "prefix_sum_baseline": {"base_scan": 1},
                        "fft": {"stream_fft": 1},
@@ -701,6 +746,13 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         raise SystemExit(f"chip_smoke: a stream call launched other kernels "
                          f"than its K14/B8/K15/K16: "
                          f"{ {key: per_call[key] for key in stream_launches} }")
+    # the device kernels of one sort_2p26 and one fft_2048_b32768 call,
+    # counted by the profiler, against K16's and K15's Python schedules
+    device_launches = count_device_launches({
+        "sort": (lambda: ops.sort(xso, ssr=True),
+                 len(bitonic.sort_passes(SORT_N)), SORT_MOST_LAUNCHES,
+                 ("sort_pass",)),
+        "fft": (lambda: ops.fft(fre, fim, ssr=True), 1, 1, ("fft_rows",))})
     # a call deeper than 2 launches its ring kernel and no K1–K4; its
     # depth-2 twin launches K1–K4 and no ring
     ring_launches = {key: per_call[key] for pair in RING_PATH.items()
@@ -1284,6 +1336,8 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                               for g, w in zip(got, want)),
              "bf16_twiddle_control": rel(ctrl_), "kernel": "stream_fft",
              "shape": list(shape_), "dtype": str(re_.dtype)}
+        if key != "fft_2p22":      # the row fits a CTA: the same bits
+            c["exact"] = c["bit_exact"]
         checks[key] = c
         errors["stream_fft"] = max(errors.get("stream_fft", 0.0),
                                    c["abs_err"])
@@ -1766,7 +1820,9 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": time_ms(library[name]),
         })
-        emit({"phase": "time", **rows[-1]})
+        emit({"phase": "time", **rows[-1], **(
+            {"device_launches": device_launches[STREAM_CELL[name]]}
+            if name in STREAM_CELL else {})})
     # the other attention cells: K11 over their heads, as the row above
     for cell in ATTENTION_CELLS:
         if cell == "attention_qwen3":

@@ -52,10 +52,12 @@ The waivered stream kernels run a module's :class:`~repro_torch.kernels.
 frontend.Launch` instead of a lowered schedule (:data:`STREAM_KERNELS`, by
 body op): K14 ``stream_scan`` (``scan``: the inclusive prefix sum, its
 carry combined by a deterministic second pass), K15 ``stream_fft``
-(``fft``: the radix-2 Stockham stages, in shared memory up to
-:data:`FFT_SMEM_POINTS` points, as global passes above) and K16
-``stream_bitonic`` (``bitonic``: the ascending sort network, its
-compare-exchanges below :data:`SORT_TILE` in shared memory).  A leading
+(``fft``: the radix-2 Stockham stages, a row a CTA up to
+:data:`FFT_SMEM_POINTS` points with :data:`FFT_RADIX_LOG2` stages at a time
+in registers, as global passes above) and K16 ``stream_bitonic``
+(``bitonic``: the ascending sort network in passes over
+:data:`SORT_TILE`-element tiles, up to :data:`SORT_GROUP` stages a group
+pass).  A leading
 ``parallel`` grid axis is a batch of rows (the counterpart of ``vmap``).
 
 A halo'd read arrives as ``2**k`` shifted streams (the lowering's
@@ -209,10 +211,12 @@ KERNELS: Dict[str, Dict[str, str]] = {
 #: totals, the tiles' scans); a ``stream_fft`` call one for n up to
 #: FFT_SMEM_POINTS, else log2 n (one global pass a stage); a
 #: ``stream_bitonic`` call one for n up to SORT_TILE, else one tile sort
-#: plus, for each k = 2 SORT_TILE … n, a global pass for each j ≥ SORT_TILE
-#: and one tile merge (105 at n = 2**26).  K4's relu drain counts as
-#: ``contract_gemv``, K9's as ``halo_stencil1d``; a K11 call over a head
-#: batch is one launch, and so is a K15 or K16 call over a batch of rows.
+#: plus, for each k = 2 SORT_TILE … n, a group pass for each SORT_GROUP
+#: stages (or fewer) with j ≥ SORT_TILE and one tile merge
+#: (``kernels/bitonic.py::sort_passes``: 28 at n = 2**26).  K4's relu
+#: drain counts as ``contract_gemv``, K9's as ``halo_stencil1d``; a K11
+#: call over a head batch is one launch, and so is a K15 or K16 call over a
+#: batch of rows.
 #: A pipelined call counts its ring kernel (R4's drain as
 #: ``ring_contract_gemv``; an R1 call, or a reduce of R6, is two device
 #: launches, as K1's and K5's).  A ``chained_map`` or ``ring_chained_map``
@@ -1246,21 +1250,46 @@ def gather_spmm(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
 
 #: K14's and B8's CTA tile: 4096 elements, 16 consecutive ones a thread.
 SCAN_TILE = 4096
-#: K15 runs a transform of up to this many points in one CTA's shared
-#: memory (re and im twice: 16 bytes a point); longer ones as global passes.
+#: K15 runs a transform of up to this many points in one CTA (re and im in
+#: one shared-memory buffer: 8 bytes a point); longer ones as global passes.
 FFT_SMEM_POINTS = 8192
-#: K16's shared-memory tile: compare-exchanges at distance j < SORT_TILE
-#: run in shared memory, those at j ≥ SORT_TILE as global passes.
-SORT_TILE = 8192
+#: K15 runs the stages of a CTA's row in groups of this many (log2 of the
+#: points a thread holds in registers), the row crossing shared memory once
+#: a group (``kernels/fft.py::fft_groups``).
+FFT_RADIX_LOG2 = 3
+#: K16's shared-memory tile: a row of up to SORT_TILE elements is one
+#: launch; a longer one is walked in passes of SORT_TILE-element tiles
+#: (``kernels/bitonic.py::sort_passes``).
+SORT_TILE = 16384
+#: The most stages (adjacent j ≥ SORT_TILE of one k) one K16 group pass runs.
+SORT_GROUP = 9
+#: log2 of the elements a K16 thread holds in registers (one run of stages
+#: a pass of the tile through shared memory: ``bitonic.register_runs``).
+SORT_REG_LOG2 = 5
+
+
+#: launch_walks' results by the Launch's id (with the Launch, so that the id
+#: is not reused while the entry stands): a Launch is frozen, and an entry
+#: point reuses its Launch from call to call, so its index maps are probed
+#: once, not at every call.
+_WALKS: Dict[int, Tuple[Any, tuple]] = {}
+_WALKS_MAX = 256
 
 
 def launch_walks(launch: Any) -> Tuple[Tuple[BlockAGU, ...],
                                        Tuple[BlockAGU, ...]]:
     """The AGU programming of a Launch's read and write streams; raises
     when an index map is not affine."""
+    hit = _WALKS.get(id(launch))
+    if hit is not None and hit[0] is launch:
+        return hit[1]
     grid = tuple(launch.grid)
-    return (tuple(s.agu(grid) for s in launch.in_streams),
-            tuple(s.agu(grid) for s in launch.out_streams))
+    walks = (tuple(s.agu(grid) for s in launch.in_streams),
+             tuple(s.agu(grid) for s in launch.out_streams))
+    if len(_WALKS) >= _WALKS_MAX:
+        _WALKS.clear()
+    _WALKS[id(launch)] = (launch, walks)
+    return walks
 
 
 def _same_walk(a: BlockAGU, b: BlockAGU, grid: Tuple[int, ...]) -> bool:
@@ -1348,8 +1377,9 @@ def stream_fft(launch: Any, xr: torch.Tensor, xi: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K15: the forward DFT of every row of (xr, xi) (rows, n), n a power
     of two, by the reference's Stockham stages and twiddle tables (wr, wi)
-    (log2 n, n/2), f32 out: one CTA a row in shared memory up to
-    FFT_SMEM_POINTS points, else one global pass a stage."""
+    (log2 n, n/2), f32 out: one CTA a row up to FFT_SMEM_POINTS points
+    (FFT_RADIX_LOG2 stages at a time in registers), else one global pass a
+    stage."""
     name = "stream_fft"
     dev = _checked_operands(name, (xr, xi), _FLOATS)
     _checked_operands(name, (wr, wi), (torch.float32,))
@@ -1395,6 +1425,7 @@ def stream_bitonic(launch: Any, x: torch.Tensor) -> Tuple[torch.Tensor]:
     reason = _smem_refusal(name, dev)
     if reason is not None:
         raise ValueError(reason)
+    x = _aligned16(x)
     out = torch.empty_like(x)
     _launch(name, dev, x.data_ptr(), out.data_ptr(), _DTYPE_CODE[x.dtype],
             rows, n)

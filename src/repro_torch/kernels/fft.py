@@ -12,6 +12,14 @@ runs as the block walk, on the card as K15 ``stream_fft``
 Leading dims of ``re``/``im`` are a batch of independent transforms (the
 counterpart of ``jax.vmap(ssr_fft)``): the Launch's one grid axis walks
 the rows, ``parallel``.
+
+K15 runs a row's stages in groups of ``hopper.FFT_RADIX_LOG2`` in
+registers: :func:`fft_groups` lists the groups, :func:`fft_thread_points`
+each thread's points at a group's start, :func:`fft_group_outputs` where
+they land after it, :func:`fft_exchange_word` the shared-memory word of a
+point between groups, and :func:`stockham_grouped` runs the transform
+group by group through those point sets — the plain mirror of the kernel's
+schedule, equal to :func:`_stockham` to the bit.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import math
 import numpy as np
 import torch
 
+from ..core.hopper import FFT_RADIX_LOG2
 from ..core.ssr import BlockStream, KernelBody
 from ..core.stream import Direction
 from .frontend import (Launch, ShapeDtype, StreamKernel, promote,
@@ -89,6 +98,85 @@ def _stockham(i, xr_blk, xi_blk, wr, wi):
 
 
 FFT = KernelBody(_stockham, "fft")
+
+
+# -- K15's schedule, mirrored ------------------------------------------------
+
+
+def fft_groups(stages: int, r: int = FFT_RADIX_LOG2
+               ) -> tuple[tuple[int, int], ...]:
+    """K15's stage groups of a row of ``2**stages`` points: (first stage,
+    stages) a group, ``r`` stages each but the last."""
+    r = min(r, stages)
+    return tuple((s0, min(r, stages - s0))
+                 for s0 in range(0, stages, r)) if r else ()
+
+
+def fft_thread_points(n: int, r: int = FFT_RADIX_LOG2) -> torch.Tensor:
+    """(n >> r', 2**r') int64, r' = min(r, log2 n): the points thread t
+    holds at every group's start, register c holding t + c·n/2**r' (the
+    points that differ in the index's top r' bits)."""
+    stages = n.bit_length() - 1
+    r = min(r, stages)
+    t = torch.arange(n >> r, dtype=torch.int64)[:, None]
+    c = torch.arange(1 << r, dtype=torch.int64)[None, :]
+    return t | (c << (stages - r))
+
+
+def fft_group_outputs(points: torch.Tensor, n: int, s0: int, g: int
+                      ) -> torch.Tensor:
+    """Where the value at each of ``points`` lands after the ``g`` stages
+    from ``s0``: stage s sends the index's top bit to bit s and moves the
+    bits from s up by one, so the bits below s0 stay, the top g bits land
+    reversed in s0 … s0 + g − 1 and the bits s0 … log2 n − g − 1 move up
+    by g."""
+    stages = n.bit_length() - 1
+    out = (points & ((1 << s0) - 1)) | (
+        ((points >> s0) & ((1 << (stages - g - s0)) - 1)) << (s0 + g))
+    for i in range(g):
+        out = out | (((points >> (stages - 1 - i)) & 1) << (s0 + i))
+    return out
+
+
+def fft_exchange_word(points: torch.Tensor) -> torch.Tensor:
+    """K15's shared-memory word of each point between groups: bits 5–7
+    XORed into the bank bits (bit 5 into bit 0, bit 6 into bits 1 and 3,
+    bit 7 into bits 2 and 4), so that a warp's writes after a group from
+    stage 0 or 3 and its reads at a group's start each hit 32 banks."""
+    return points ^ ((points >> 5) & 7) ^ ((points >> 3) & 24)
+
+
+def stockham_grouped(xr: torch.Tensor, xi: torch.Tensor, wr: torch.Tensor,
+                     wi: torch.Tensor, r: int = FFT_RADIX_LOG2
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The transform of every row of (xr, xi) (rows, n), f32 out, group by
+    group as K15 runs it: each thread's points gathered, the group's
+    stages run on them (at step j the registers differing in bit r' − 1 − j
+    pair up, the twiddle ``w[s, p]`` of the lower one's butterfly, each
+    operation as :func:`_stockham` rounds it), the values scattered to
+    :func:`fft_group_outputs`."""
+    rows, n = xr.shape
+    stages = n.bit_length() - 1
+    re, im = promote(xr).clone(), promote(xi).clone()
+    pts = fft_thread_points(n, r)
+    rr = pts.shape[1].bit_length() - 1
+    for s0, g in fft_groups(stages, r):
+        vr, vi = re[:, pts], im[:, pts]
+        for j in range(g):
+            s, hb = s0 + j, 1 << (rr - 1 - j)
+            a = [c for c in range(1 << rr) if not c & hb]
+            b = [c | hb for c in a]
+            p = (pts[:, a] >> s0) & ((1 << (stages - 1 - s)) - 1)
+            w_r, w_i = wr[s][p], wi[s][p]
+            ar, ai, br, bi = vr[..., a], vi[..., a], vr[..., b], vi[..., b]
+            dr, di = ar - br, ai - bi
+            vr[..., a], vi[..., a] = ar + br, ai + bi
+            vr[..., b] = dr * w_r - di * w_i
+            vi[..., b] = dr * w_i + di * w_r
+        out = fft_group_outputs(pts, n, s0, g)
+        re, im = torch.empty_like(re), torch.empty_like(im)
+        re[:, out], im[:, out] = vr, vi
+    return re, im
 
 
 def _launch(static, xr, xi, wr, wi):

@@ -1125,13 +1125,54 @@ def test_stream_fft(dev, shape, dtype):
     assert float(((got[1] - z.imag).abs() / scale).max()) <= 1e-5
 
 
+@pytest.mark.parametrize("shape", [(1,), (2,), (4,), (8,), (32,), (256,),
+                                   (3, 2048), (5, 8192)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_fft_bit_exact_in_a_cta(dev, shape, dtype):
+    """A row of up to FFT_SMEM_POINTS points runs in one CTA, its stages in
+    register groups, every operation rounded as the plain version rounds
+    it: the same bits, in one device launch."""
+    from repro_torch.kernels import fft
+    g = torch.Generator(device=dev).manual_seed(shape[-1] + 7)
+    re, im = (torch.randn(*shape, generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    lc, arrays, body = _stream(fft, re, im)
+    got = fft.ssr_fft(re, im, device=dev)
+    want = [t.reshape(shape) for t in hopper.plain_stream(body, lc, arrays)]
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert _device_kernels(lambda: fft.ssr_fft(re, im, device=dev)) == 1
+
+
+def _device_kernels(fn) -> int:
+    """Device kernels one call of ``fn`` launches (profiler, CUDA
+    activity)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+@pytest.mark.parametrize("n", [1 << 13, 1 << 14, 1 << 18])
+def test_stream_bitonic_device_launches_follow_the_schedule(dev, n):
+    from repro_torch.kernels import bitonic
+    x = torch.randn(n, device=dev)
+    assert _device_kernels(lambda: bitonic.ssr_sort(x, device=dev)) == \
+        len(bitonic.sort_passes(n))
+
+
 def _bits(t):
     return t.view({torch.float32: torch.int32, torch.bfloat16: torch.int16,
                    torch.int32: torch.int32}[t.dtype])
 
 
 @pytest.mark.parametrize("shape", [(1,), (2,), (64,), (3, 1024), (8192,),
-                                   (1 << 14,), (2, 1 << 17)])
+                                   (5, 8), (7, 16), (1 << 14,), (2, 1 << 17),
+                                   (1 << 21,), (1 << 24,)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.int32])
 def test_stream_bitonic_bit_exact(dev, shape, dtype):
