@@ -70,7 +70,14 @@ printing JSON lines:
    their unfused stages at 2**26 at depths 3, 4, 8 and per-stream depths,
    each beside its run with the first block zeroed, which must differ; R5
    and R6 at the main path's depth against the plain ring at full size;
-   each limit beside a control that must read above it;
+   R7–R9 against K6–K8 to the bit on every instantiation of each DAG cell
+   (on the values the kernels before it produced) at depths 3, 4 and 8,
+   and at per-stream depths (softmax_xent fused (2, 4), (4, 2), its loss
+   alone (2, 4, 3), the MLP's residual alone (4, 2)), each beside its run
+   with the first block zeroed, which must differ; R7–R9 at depth 4 (and
+   the main path's DAG ring outputs) against the plain ring at full size
+   within the DAG limits; each limit beside a control that must read above
+   it;
 4. time each kernel, its plain version and one PyTorch library call with
    CUDA events, beside the least time the card could take, each baseline
    against its streamed kernel (``ssr_over_baseline``), each fused cell
@@ -81,8 +88,10 @@ printing JSON lines:
    and 8, the best per-stream pair, ``ring_over_sync`` = K ms / R ms; a
    ``chained_time`` line per ChainedKernel cell (K17 and R5 at depths 2–8,
    the composed library calls, and for axpy_relu the unfused stages and
-   ``fused_over_unfused`` beside the byte prediction 20 / 12) and a
-   ``chain_depth_sweep`` line per R6 cell;
+   ``fused_over_unfused`` beside the byte prediction 20 / 12), a
+   ``chain_depth_sweep`` line per R6 cell and a ``depth_sweep`` line per
+   DAG cell (K6–K8 and R7–R9 at depths 2, 3, 4, 8 and softmax_xent's
+   pairs);
 5. tune gemm 4096**3 over the quick candidates into the cache (one
    candidate per distinct kernel, depth-only variants racing as R3; a
    winner within the race's spread of the default is held back), and
@@ -99,16 +108,17 @@ printing JSON lines:
 6b. arm one ``compile`` fault under that cut and check that the call
    degrades to all-fused (one K6 launch), quarantines the entry and stays
    right;
-7. print the ``{"kernels": [...]}`` line (K1–K17, B1–B8 and R1–R6; K11's
+7. print the ``{"kernels": [...]}`` line (K1–K17, B1–B8 and R1–R9; K11's
    row is the attention_qwen3 cell, the other attention cells have time
    lines of their own; an R row times its main-path depth), then the
    device line last.
 
 Phase 2 also drives the rings: ``ssr_dot``, ``ssr_relu`` (three dtypes),
 ``ssr_gemv`` and ``fused_gemv_relu`` at depth 4, ``ssr_matmul`` at depth
-3 and ``ssr_call`` at per-stream depths (2, 4), the ChainedKernel cells and
-``fused_sum_sq_diff``/``fused_axpy_dot`` at depth 4; each must launch its
-ring kernel (R1–R6) and no sync kernel, and each depth-2 call its sync
+3 and ``ssr_call`` at per-stream depths (2, 4), the ChainedKernel cells,
+``fused_sum_sq_diff``/``fused_axpy_dot`` and ``fused_layernorm``/
+``fused_softmax_xent``/``fused_mlp_block`` at depth 4; each must launch
+its ring kernel (R1–R9) and no sync kernel, and each depth-2 call its sync
 kernel and no ring.
 
 Any failure exits non-zero; without a CUDA device, without the repo's
@@ -230,9 +240,13 @@ RING_PATH = {"dot_ring": ("ring_reduce_mul", "dot"),
              "chained_axpy_relu_bf16_ring": ("ring_chained_map",
                                              "chained_axpy_relu_bf16"),
              "chained_scale_relu_ring": ("ring_chained_map",
-                                         "chained_scale_relu")}
+                                         "chained_scale_relu"),
+             "layernorm_ring": ("ring_dag_layernorm", "layernorm"),
+             "softmax_xent_ring": ("ring_dag_softmax_xent", "softmax_xent"),
+             "mlp_block_ring": ("ring_dag_mlp", "mlp_block")}
 SYNC = ("reduce_mul", "map_relu", "contract_gemm", "contract_gemv",
-        "chain_elem", "chained_map")
+        "chain_elem", "chained_map", "dag_layernorm", "dag_softmax_xent",
+        "dag_mlp")
 RING_DEPTHS = (3, 4, 8)
 RING_PAIRS = ((2, 4), (4, 2))
 # main-path entry at a depth above 2 → (its ring cell of phase 3e, depth)
@@ -272,6 +286,20 @@ R6_DEPTHS = {"sum_sq_diff": (3, 4, 8, (2, 4), (4, 2)),
              "sq_diff_map": (3, 4, 8, (2, 4), (4, 2)),
              "axpy_map": (3, 4, 8, (2, 4), (4, 2)),
              "identity_reduce": (3, 4, 8)}
+
+# The DAG rings (R7–R9): each DAG cell's entry at DAG_MAIN_DEPTH on the
+# main path; every instantiation of K6–K8 against its ring at
+# RING_DEPTHS, and at per-stream depths where it reads two or more
+# streams (softmax_xent fused reads Z, P; its loss alone C, E, P; the MLP's
+# residual alone H, Y)
+DAG_MAIN_DEPTH = 4
+DAG_RING_PAIRS = {("softmax_xent", (0, 1, 2)): ((2, 4), (4, 2)),
+                  ("softmax_xent", (2,)): ((2, 4, 3),),
+                  ("mlp_block", (2,)): ((4, 2),)}
+# the ring kernel → its sync kernel and the DAG cell its row times
+DAG_RING_ROW = {"ring_dag_layernorm": ("dag_layernorm", "layernorm"),
+                "ring_dag_softmax_xent": ("dag_softmax_xent", "softmax_xent"),
+                "ring_dag_mlp": ("dag_mlp", "mlp_block")}
 
 # streamed kernel → its monolithic baseline
 PAIRS = {"reduce_mul": "base_reduce", "map_relu": "base_relu",
@@ -683,6 +711,13 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             x, y, schedule=deep[CHAINED_MAIN_DEPTH]),
         "axpy_dot_ring": lambda: chained.fused_axpy_dot(
             x, y, w, alpha=0.5, schedule=deep[CHAINED_MAIN_DEPTH]),
+        # the DAGs at a depth above 2 (R7–R9)
+        "layernorm_ring": lambda: dag.fused_layernorm(
+            lx, schedule=deep[DAG_MAIN_DEPTH]),
+        "softmax_xent_ring": lambda: dag.fused_softmax_xent(
+            lz, lp, schedule=deep[DAG_MAIN_DEPTH]),
+        "mlp_block_ring": lambda: dag.fused_mlp_block(
+            mx, w1, b1, w2, b2, schedule=deep[DAG_MAIN_DEPTH]),
     }
     lowering.reset_dispatch_stats()
     frontend.reset_dispatch_stats()
@@ -1121,12 +1156,12 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     cases = {cs.name: cs for cs in dag.dag_cases()}
     dag_kernel = {"layernorm": "dag_layernorm",
                   "softmax_xent": "dag_softmax_xent", "mlp_block": "dag_mlp"}
-    stage_calls = {}
+    stage_calls, dag_insts = {}, {}
     for cell, kname in dag_kernel.items():
         nests, bodies, operands, mode, uniforms = cases[cell].spec(
             *fused_args[cell][0])
         graph = lowering._dag_for(nests, None)
-        stage_calls[cell], finals = {}, {}
+        stage_calls[cell], dag_insts[cell], finals = {}, {}, {}
         for cut in autotune.enumerate_cuts(graph):
             if not autotune.dag_cut_is_legal(
                     graph, cut, nests=nests, bodies=bodies, mode=mode,
@@ -1152,6 +1187,9 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                     out = inst_check(
                         f"{cell}_{''.join(map(str, comp.stages))}", kname,
                         call, how)
+                    dag_insts[cell][comp.stages] = (
+                        comp.nests, comp.bodies, dict(env), comp.mode,
+                        uniforms, out)
                 if comp.exported is not None:
                     env[comp.exported] = out
             finals[cut] = out
@@ -1663,6 +1701,71 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             failed.append(f"{cell}_ring_vs_plain_ring: limit above the "
                           "control")
 
+    # -- 3g. R7–R9 (K6–K8's DAGs through the ring), to the bit ------------
+    # every instantiation of each DAG cell, on the values the kernels before
+    # it produced, against its K kernel at RING_DEPTHS and DAG_RING_PAIRS,
+    # each beside its run with the first block zeroed, which must differ;
+    # each fused cell at DAG_MAIN_DEPTH, and the main path's own ring
+    # output, against the plain ring at full size within the DAG limits
+    def dag_call(inst, depth):
+        nests_, bodies_, env_, mode_, uni_, _ = inst
+        sched_ = depth_schedule(depth, lowering)
+        if len(nests_) == 1:
+            return lowering.prepare_call(nests_[0], bodies_[0], env_,
+                                         mode=mode_, schedule=sched_,
+                                         uniforms=uni_)
+        return lowering.prepare_dag_call(nests_, bodies_, env_, mode=mode_,
+                                         schedule=sched_, uniforms=uni_)
+
+    dag_ring_calls = {}
+    for cell, insts in dag_insts.items():
+        rname = f"ring_{dag_kernel[cell]}"
+        for stages, inst in insts.items():
+            for depth in (*RING_DEPTHS, *DAG_RING_PAIRS.get((cell, stages),
+                                                            ())):
+                call = dag_call(inst, depth)
+                key = f"ring_dag_{cell}_{''.join(map(str, stages))}_{depth}"
+                bits_check(key, rname, call.run(), inst[5], call.finish(
+                    call.kernel(*first_block_zeroed(call))), torch.int32,
+                    depths=list(call.kernel.depths))
+                checks[key]["exact"] &= call.kernel.pipelined
+                if stages == (0, 1, 2):
+                    dag_ring_calls[cell, depth] = call
+
+    def dag_err(cell, call):
+        """(err(got, want), limit) of a fused DAG cell: layernorm's
+        MAP_LIMIT measure, the loss relative to itself, the MLP's relative
+        to |a|·|b| (the plain ring on the absolute values)."""
+        if cell == "layernorm":
+            return (lambda g_, w_: map_err(g_.reshape(w_.shape), w_)), \
+                MAP_LIMIT
+        if cell == "softmax_xent":
+            return (lambda g_, w_: abs(float(g_) - float(w_))
+                    / abs(float(w_))), DOT_LIMIT
+        scale_t = call.finish(call.kernel.plain(tuple(
+            t.abs() for t in call.layouts))) + 1e-30
+        return (lambda g_, w_: rel_to_abs_prod(g_.reshape(w_.shape), w_,
+                                               scale_t)), CONTRACT_LIMIT
+
+    for cell, kname in dag_kernel.items():
+        call = dag_ring_calls[cell, DAG_MAIN_DEPTH]
+        err, limit = dag_err(cell, call)
+        want_p = plain(call)
+        control = err(call.finish(call.kernel(*first_block_zeroed(call))),
+                      want_p)
+        for key, got in ((f"plain_ring_full_dag_{cell}_{DAG_MAIN_DEPTH}",
+                          call.run()),
+                         (f"{cell}_ring_vs_plain_ring", main[f"{cell}_ring"])):
+            checks[key] = {
+                "rel_err": err(got, want_p), "abs_err": float(
+                    (got.reshape(want_p.shape) - want_p).abs().max()),
+                "limit": limit, "zeroed_block_control": control,
+                "kernel": f"ring_{kname}", "exact": call.kernel.pipelined}
+        if control <= limit:
+            failed.append(f"plain_ring_full_dag_{cell}: limit above the "
+                          "zeroed-block control")
+        del want_p
+
     for key, c in checks.items():
         ok = (c.get("exact", True) and
               c.get("rel_to_abs_prod", c.get("rel_err", c["abs_err"]))
@@ -1679,7 +1782,8 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                 "gemv_ring", "gemv_relu_ring", *CHAINED_LAUNCHES,
                 "chained_axpy_relu_ring", "chained_axpy_relu_bf16_ring",
                 "chained_scale_relu_ring", "sum_sq_diff_ring",
-                "axpy_dot_ring"):
+                "axpy_dot_ring", "layernorm_ring", "softmax_xent_ring",
+                "mlp_block_ring"):
         if not bool(torch.isfinite(main[key]).all()):
             failed.append(f"{key}: non-finite")
     # the repo's own oracle on small odd inputs, within the registry tol
@@ -2038,6 +2142,46 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
             "library_ms": lib_ms, "library_composed_ms": comp_ms,
             "depth": depth,
+        })
+        emit({"phase": "time", "cell": cell, **rows[-1]})
+    # R7–R9: each DAG cell fused at depth 2 (K6–K8) and at the ring depths
+    # and per-stream pairs, beside K's bound and library call; a ring row
+    # times DAG_MAIN_DEPTH
+    dag_sweeps = {}
+    for cell in dag_kernel:
+        fb, _, flops = cell_work[cell]
+        t_bytes, t_ops = fb / bw * 1e3, flops / fp32 * 1e3
+        at = {2: time_ms(kernel_fn(fused_calls[cell]))}
+        for depth in (*RING_DEPTHS, *DAG_RING_PAIRS.get((cell, (0, 1, 2)),
+                                                        ())):
+            at[depth] = time_ms(kernel_fn(dag_ring_calls[cell, depth]))
+        pairs = {d: t for d, t in at.items() if isinstance(d, tuple)}
+        best = min(pairs, key=pairs.get) if pairs else None
+        dag_sweeps[cell] = {
+            "ms": {str(d): t for d, t in at.items()},
+            "best_pair": list(best) if best else None,
+            "best_pair_ms": pairs[best] if best else None,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": cells[cell]["library_ms"],
+            "library_composed_ms": cells[cell]["library_composed_ms"],
+            "ring_over_sync": {str(d): at[2] / t for d, t in at.items()
+                               if d != 2}}
+        emit({"phase": "depth_sweep", "cell": cell, **dag_sweeps[cell]})
+    for rname, (kname, cell) in DAG_RING_ROW.items():
+        krow = next(r_ for r_ in rows if r_["name"] == kname)
+        call = dag_ring_calls[cell, DAG_MAIN_DEPTH]
+        rows.append({
+            "name": rname, "route": "cuda",
+            "source": hopper.KERNELS[rname]["source"],
+            "replaces": hopper.KERNELS[rname]["replaces"],
+            "launches": launches[rname],
+            "max_abs_err": errors[rname],
+            "ms": dag_sweeps[cell]["ms"][str(DAG_MAIN_DEPTH)],
+            "plain_ms": time_ms(lambda c_=call: c_.kernel.plain(c_.layouts)),
+            "bound_ms": krow["bound_ms"], "bound_by": krow["bound_by"],
+            "library_ms": krow["library_ms"],
+            "depth": DAG_MAIN_DEPTH,
         })
         emit({"phase": "time", "cell": cell, **rows[-1]})
     ms = {r["name"]: r["ms"] for r in rows}

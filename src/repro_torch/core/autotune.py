@@ -90,8 +90,8 @@ _ROWS_FACTORS = (8, 32)
 _QUICK_ROWS = (8, 16)
 _QUICK_LANES = (128, 256)
 #: FIFO depths explored.  Where a kernel's family stages
-#: (``hopper.RING_KERNELS``: K1–K5's, R1–R4 and R6), a depth above 2 runs
-#: its ring kernel, and a depth-only candidate races on the card.
+#: (``hopper.RING_KERNELS``: K1–K8's, R1–R4 and R6–R9), a depth above 2
+#: runs its ring kernel, and a depth-only candidate races on the card.
 _DEPTH_CHOICES = (2, 3, 4)
 _QUICK_DEPTHS = (2, 3)
 

@@ -30,17 +30,19 @@ gather_spmv       nest         K12: ``spmv`` (y += vals·x[cidx], a gather)
 gather_spmm       nest         K13: ``spmm`` (Y += vals·X[cidx, c])
 ================  ===========  =============================================
 
-A schedule deeper than 2 makes a call of K1–K5's families pipelined
+A schedule deeper than 2 makes a call of K1–K8's families pipelined
 (:attr:`~repro_torch.core.ssr.SsrKernel.pipelined`): it runs the ring kernel
 of :data:`RING_KERNELS` instead — R1 ``ring_reduce_mul``, R2
 ``ring_map_relu``, R3 ``ring_contract_gemm`` (its ring over 16-wide k
 chunks), R4 ``ring_contract_gemv`` (with the relu drain), R6
-``ring_chain_elem`` (every program of K5) — whose read streams arrive
-through an N-deep ring of shared-memory slots filled by ``cp.async``, each
-stream ``depth − 1`` fetches ahead (the reference's ``_pipelined_call``),
-with the same arithmetic, so the same bits, as the sync kernel.  Its plain
-version is :func:`plain_ring` (:func:`ring_delivery` delivers the blocks).
-The DAG kernels (K6–K8) and K9–K16 stay synchronous at any depth.
+``ring_chain_elem`` (every program of K5), R7 ``ring_dag_layernorm``, R8
+``ring_dag_softmax_xent`` and R9 ``ring_dag_mlp`` (every instantiation of
+K6–K8; R9's ring of step blocks feeds K8's 128-row tile) — whose read
+streams arrive through an N-deep ring of shared-memory slots filled by
+``cp.async``, each stream ``depth − 1`` fetches ahead (the reference's
+``_pipelined_call``), with the same arithmetic, so the same bits, as the
+sync kernel.  Its plain version is :func:`plain_ring` (:func:`ring_delivery`
+delivers the blocks).  K9–K16 stay synchronous at any depth.
 
 A ``ChainedKernel`` (a producer body, then a unary consumer body, on each
 step of a module's Launch, one output stream) runs as K17 ``chained_map``
@@ -200,6 +202,14 @@ KERNELS: Dict[str, Dict[str, str]] = {
                          "source": "src/repro_torch/csrc/ring_chained_map.cu"},
     "ring_chain_elem": {"replaces": "src/repro/core/ssr.py:215",
                         "source": "src/repro_torch/csrc/ring_chain_elem.cu"},
+    "ring_dag_layernorm": {"replaces": "src/repro/core/ssr.py:215",
+                           "source":
+                               "src/repro_torch/csrc/ring_dag_layernorm.cu"},
+    "ring_dag_softmax_xent": {
+        "replaces": "src/repro/core/ssr.py:215",
+        "source": "src/repro_torch/csrc/ring_dag_softmax_xent.cu"},
+    "ring_dag_mlp": {"replaces": "src/repro/core/ssr.py:215",
+                     "source": "src/repro_torch/csrc/ring_dag_mlp.cu"},
 }
 
 #: Wrapper calls per kernel since the last :func:`reset_launches`: one per
@@ -218,9 +228,9 @@ KERNELS: Dict[str, Dict[str, str]] = {
 #: call over a head batch is one launch, and so is a K15 or K16 call over a
 #: batch of rows.
 #: A pipelined call counts its ring kernel (R4's drain as
-#: ``ring_contract_gemv``; an R1 call, or a reduce of R6, is two device
-#: launches, as K1's and K5's).  A ``chained_map`` or ``ring_chained_map``
-#: call is one.
+#: ``ring_contract_gemv``; an R1 call, or a reduce of R6 or R8, is two
+#: device launches, as K1's, K5's and K7's).  A ``chained_map`` or
+#: ``ring_chained_map`` call is one.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
@@ -365,6 +375,12 @@ _SIGNATURES = {
                          _SP, _SP, _RP, _I64, _I64, _I64, _P],
     "ring_chain_elem": [_I, _P, _P, _P, _P, ctypes.c_float, _I, _GP, _SP, _SP,
                         _SP, _SP, _RP, _I64, _P, _I64, _I64, _P],
+    "ring_dag_layernorm": [_I, _P, _P, _P, _P, _I, _GP, _SP, _SP, _SP, _SP,
+                           _RP, _I64, _I64, _I64, _P],
+    "ring_dag_softmax_xent": [_I, _P, _P, _P, _P, _P, _P, _I, _GP, _SP, _SP,
+                              _SP, _SP, _SP, _RP, _I64, _I64, _I64, _P],
+    "ring_dag_mlp": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _GP, _SP, _SP,
+                     _SP, _SP, _RP, _I64, _I64, _I64, _P],
 }
 #: Arguments of a kernel's ``ssr_<name>_smem_bytes`` (none for the rest).
 _SMEM_SIGNATURES = {"halo_stencil1d": [_I64], "halo_stencil2d": [_I64],
@@ -623,11 +639,11 @@ CHAINED_PROGRAMS: Dict[Tuple[str, str], int] = {
     (p, c): 2 * i + j for i, p in enumerate(CHAINED_PRODUCERS)
     for j, c in enumerate(CHAINED_CONSUMERS)}
 
-#: (call mode, body op — or the tuple of stage ops of a fused chain) → the
-#: ring kernel a pipelined call of that family runs on the card (R1–R4, R6
-#: for every key of K5); ``("chained", (producer op, consumer op))`` → R5
-#: for a ChainedKernel.  The DAG families (K6–K8) and K9–K16 stay
-#: synchronous at any depth.
+#: (call mode, body op — or the tuple of stage ops of a fused chain or DAG)
+#: → the ring kernel a pipelined call of that family runs on the card
+#: (R1–R4; R6 for every key of K5, R7–R9 for every key of K6–K8, added
+#: beside :data:`DEVICE_KERNELS`); ``("chained", (producer op, consumer
+#: op))`` → R5 for a ChainedKernel.  K9–K16 stay synchronous at any depth.
 RING_KERNELS: Dict[tuple, str] = {
     ("reduce", "mul"): "ring_reduce_mul",
     ("map", "relu"): "ring_map_relu",
@@ -650,16 +666,41 @@ GEMV_RING_ROWS = 8
 #: reports as ``shared_memory_per_block_optin``): the budget of a ring, the
 #: same wherever the schedule is checked.
 SMEM_OPTIN_BYTES = 232448
+#: What R9 (as K8) stages besides its ring: W1 and W2 once a CTA and one
+#: 128-row tile on a 132-float pitch (``csrc/ssr_dag.cuh``); its ring's
+#: slots are step blocks on that pitch.  The residual alone stages nothing.
+MLP_ROWS_TILE, MLP_PITCH = 128, 132
+MLP_STAGED_BYTES = 4 * (2 * 128 * 128 + MLP_ROWS_TILE * MLP_PITCH)
 
 
 def device_ring(name: str, geo: StreamGeometry, ring: RingProgram,
-                dtype: torch.dtype) -> RingProgram:
+                dtype: torch.dtype,
+                reads: Optional[frozenset] = None) -> RingProgram:
     """``ring`` as ring kernel ``name`` allocates it: one slot per stream
-    and depth, each the kernel's tile of that stream.  R3's unit is the k
+    and depth, each the kernel's tile of that stream — of the streams in
+    ``reads`` where given (a stage kernel fetches a value once, however
+    many of its stages take it; the others get no slot).  R3's unit is the k
     chunk, which moves at every step, so no stream of it is invariant.  R5
-    and R6 give an invariant stream the one slot it is fetched into."""
+    and R6–R8 give an invariant stream the one slot it is fetched into.
+    R9's slots are step blocks on the tile's pitch; its uniforms, staged
+    whole (:func:`_staged_bytes`), are never among the streams it
+    ``reads``."""
+    dr = _device_ring(name, geo, ring, dtype)
+    if reads is None:
+        return dr
+    return RingProgram(dr.depths, dr.invariant, tuple(
+        b if k in reads else 0 for k, b in enumerate(dr.slot_bytes)))
+
+
+def _device_ring(name: str, geo: StreamGeometry, ring: RingProgram,
+                 dtype: torch.dtype) -> RingProgram:
     size = _itemsize(dtype)
-    if name in ("ring_chained_map", "ring_chain_elem"):
+    if name == "ring_dag_mlp":
+        return RingProgram(ring.depths, ring.invariant,
+                           tuple(a.block[0] * MLP_PITCH * size
+                                 for a in geo.ins))
+    if name in ("ring_chained_map", "ring_chain_elem", "ring_dag_layernorm",
+                "ring_dag_softmax_xent"):
         return RingProgram(
             tuple(1 if inv else d
                   for d, inv in zip(ring.depths, ring.invariant)),
@@ -684,31 +725,47 @@ def _itemsize(dtype: torch.dtype) -> int:
 
 def _ring_refusal(op: tuple, name: str, geo: StreamGeometry,
                   dtype: torch.dtype, ring: RingProgram,
-                  reason: Optional[str] = None) -> Optional[str]:
+                  reason: Optional[str] = None,
+                  reads: Optional[frozenset] = None) -> Optional[str]:
     """Why the ring kernel of ``op`` refuses this pipelined call: what the
     sync kernel ``name`` refuses of the geometry (for a stage kernel, its
-    ``reason``), then a ring over the shared memory a CTA may opt into
-    (:data:`SMEM_OPTIN_BYTES`)."""
+    ``reason`` and the streams it ``reads``), then a ring over the shared
+    memory a CTA may opt into (:data:`SMEM_OPTIN_BYTES`)."""
     rname = RING_KERNELS[op]
     if name in _TAKES:
         reason = _geometry_refusal(name, geo, dtype)
     if reason is not None:
         return reason.replace(f"{name}:", f"{rname}:", 1)
-    return _ring_budget_refusal(rname, geo, dtype, ring)
+    ops = op[1] if isinstance(op[1], tuple) else (op[1],)
+    return _ring_budget_refusal(rname, geo, dtype, ring,
+                                _staged_bytes(rname, ops), reads)
+
+
+def _staged_bytes(rname: str, ops: Sequence[str]) -> int:
+    """The shared memory ring kernel ``rname`` takes besides its ring,
+    running the stage ``ops``: R9 stages K8's weights and tile but for the
+    residual alone; the others nothing."""
+    if rname == "ring_dag_mlp" and tuple(ops) != ("mlp_residual",):
+        return MLP_STAGED_BYTES
+    return 0
 
 
 def _ring_budget_refusal(rname: str, geo: StreamGeometry, dtype: torch.dtype,
-                         ring: RingProgram) -> Optional[str]:
-    """A ring of another stream count than the read streams, or one over
-    the shared memory a CTA may opt into, as ring kernel ``rname`` sizes
-    it."""
+                         ring: RingProgram, staged: int = 0,
+                         reads: Optional[frozenset] = None) -> Optional[str]:
+    """A ring of another stream count than the read streams, or one that,
+    with the ``staged`` bytes the kernel takes besides it, is over the
+    shared memory a CTA may opt into, as ring kernel ``rname`` sizes it
+    (:func:`device_ring`, over the streams it ``reads``)."""
     if len(ring.depths) != len(geo.ins):
         return (f"{rname}: a ring of {len(ring.depths)} streams for "
                 f"{len(geo.ins)} read streams")
-    need = device_ring(rname, geo, ring, dtype).ring_bytes
+    need = device_ring(rname, geo, ring, dtype, reads).ring_bytes + staged
     if need > SMEM_OPTIN_BYTES:
+        also = f" ({staged} of them its staged weights and tile)" \
+            if staged else ""
         return (f"{rname}: its ring at depths {ring.depths} needs {need} "
-                f"bytes of shared memory a CTA, the card allows "
+                f"bytes of shared memory a CTA{also}, the card allows "
                 f"{SMEM_OPTIN_BYTES}")
     return None
 
@@ -747,8 +804,9 @@ def accepts(op: tuple, geo: StreamGeometry, dtype: torch.dtype,
             reason = _program_refusal(name, program) or \
                 _ring_refusal(op, name, geo, dtype, ring)
         else:
-            reason = _ring_refusal(op, name, geo, dtype, ring, _stage_refusal(
-                name, program, geo, dtype, dev))
+            reason = _stage_refusal(name, program, geo, dtype, dev)
+            reason = _ring_refusal(op, name, geo, dtype, ring, reason, None
+                                   if reason else _stage_reads(name, program))
     elif name in _TAKES:
         reason = _program_refusal(name, program) or \
             _refusal(name, geo, dtype, dev)
@@ -1731,6 +1789,12 @@ def _stage_refusal(name: str, program: Optional[Any], geo: StreamGeometry,
     return _smem_refusal(name, dev) if dev.type == "cuda" else None
 
 
+def _stage_reads(name: str, program: Any) -> frozenset:
+    """The read streams stage kernel ``name`` fetches running ``program``:
+    each value's first stream (a value two stages take is read once)."""
+    return frozenset(_resolve(name, program).streams.values())
+
+
 def _checked_stages(name: str, geo: StreamGeometry,
                     layouts: Sequence[torch.Tensor],
                     program: Optional[Any]) -> Tuple[torch.device,
@@ -1792,16 +1856,25 @@ def _f32_out(name: str, out_dtype: torch.dtype) -> None:
         raise TypeError(f"{name}: writes float32, asked for {out_dtype}")
 
 
-def _value_ring(res: _Resolved, names: Sequence[str],
-                ring: RingProgram) -> RingProgram:
-    """A ring of the read streams (:func:`device_ring`'s) in the order of
-    the named values, as the stage kernel takes its streams; a value kept
-    on chip, or not read, gets depth 2 and no slot."""
-    at = [res.streams.get(v) for v in names]
-    return RingProgram(
-        tuple(2 if j is None else ring.depths[j] for j in at),
-        tuple(j is not None and ring.invariant[j] for j in at),
-        tuple(0 if j is None else ring.slot_bytes[j] for j in at))
+def _read_ring(rname: str, res: _Resolved, names: Sequence[str],
+               geo: StreamGeometry, ring: RingProgram,
+               staged: int = 0) -> RingProgram:
+    """The ring of the values a stage kernel reads from device memory, in
+    the order of ``names`` (R6–R9 number their streams so; a value kept on
+    chip has none), each as :func:`device_ring` sizes it.  A LoweringError
+    naming ``rname`` where the ring, with the ``staged`` bytes, is over the
+    budget: the refusal of :func:`accepts`."""
+    reads = frozenset(res.streams.values())
+    reason = _ring_budget_refusal(rname, geo, torch.float32, ring, staged,
+                                  reads)
+    if reason is not None:      # a schedule the ring kernel does not take
+        from .ssr import LoweringError
+        raise LoweringError(reason)
+    dr = device_ring(rname, geo, ring, torch.float32)
+    at = [res.streams[v] for v in names if v in res.streams]
+    return RingProgram(tuple(dr.depths[j] for j in at),
+                       tuple(dr.invariant[j] for j in at),
+                       tuple(dr.slot_bytes[j] for j in at))
 
 
 def chain_elem(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
@@ -1834,13 +1907,7 @@ def chain_elem(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
     if ring is None:
         _launch("chain_elem", dev, *head, *tail)
         return out
-    reason = _ring_budget_refusal("ring_chain_elem", geo, torch.float32,
-                                  ring)
-    if reason is not None:      # a schedule the ring kernel does not take
-        from .ssr import LoweringError
-        raise LoweringError(reason)
-    dr = _value_ring(res, names, device_ring("ring_chain_elem", geo, ring,
-                                             torch.float32))
+    dr = _read_ring("ring_chain_elem", res, names, geo, ring)
     _launch("ring_chain_elem", dev, *head, ctypes.byref(_ring_arg(dr)),
             dr.ring_bytes, *tail)
     return out
@@ -1849,78 +1916,107 @@ def chain_elem(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
 def dag_layernorm(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                   out_dtype: torch.dtype,
                   acc_dtype: torch.dtype = torch.float32,
-                  program: Optional[Any] = None) -> torch.Tensor:
+                  program: Optional[Any] = None,
+                  ring: Optional[RingProgram] = None) -> torch.Tensor:
     """K6: layernorm's diamond x → {C = x − μ, V = C²} → C·rsqrt(mean V + ε)
-    on 128-wide rows, any subset of its stages, one warp per row."""
+    on 128-wide rows, any subset of its stages, one warp per row.  With
+    ``ring`` (a pipelined call) R7, on K6's split of the steps, to K6's
+    bits."""
     dev, res = _checked_stages("dag_layernorm", geo, layouts, program)
     _f32_out("dag_layernorm", out_dtype)
     ctas, per_cta = _ctas(dev, geo.steps, per_sm=8)
     out, _ = _stage_out(geo, dev, "map", ctas)
-    (px, sx), (pc, sc), (pv, sv) = _value_streams(res, ("X", "C", "V"),
-                                                  geo, layouts)
+    names = ("X", "C", "V")
+    (px, sx), (pc, sc), (pv, sv) = _value_streams(res, names, geo, layouts)
     g, so = _grid_arg(geo.grid), _stream_arg(geo.out, out)
-    _launch("dag_layernorm", dev, res.mask, px, pc, pv, out.data_ptr(),
+    head = (res.mask, px, pc, pv, out.data_ptr(),
             _stage_vec(res, geo, layouts, out, "map", program.n_streams),
             ctypes.byref(g), ctypes.byref(sx), ctypes.byref(sc),
-            ctypes.byref(sv), ctypes.byref(so), ctas, per_cta)
+            ctypes.byref(sv), ctypes.byref(so))
+    if ring is None:
+        _launch("dag_layernorm", dev, *head, ctas, per_cta)
+        return out
+    dr = _read_ring("ring_dag_layernorm", res, names, geo, ring)
+    _launch("ring_dag_layernorm", dev, *head, ctypes.byref(_ring_arg(dr)),
+            dr.ring_bytes, ctas, per_cta)
     return out
 
 
 def dag_softmax_xent(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                      out_dtype: torch.dtype,
                      acc_dtype: torch.dtype = torch.float32,
-                     program: Optional[Any] = None) -> torch.Tensor:
+                     program: Optional[Any] = None,
+                     ring: Optional[RingProgram] = None) -> torch.Tensor:
     """K7: softmax cross-entropy's diamond z → {C = z − max, E = eᶜ} →
     Σ mask·(lse − p·C) on 128-wide rows, any subset of its stages; the
-    loss is folded from per-CTA partials in a fixed order."""
+    loss is folded from per-CTA partials in a fixed order.  With ``ring``
+    (a pipelined call) R8, on K7's split and fold, to K7's bits."""
     dev, res = _checked_stages("dag_softmax_xent", geo, layouts, program)
     _f32_out("dag_softmax_xent", out_dtype)
     ctas, per_cta = _ctas(dev, geo.steps, per_sm=8)
     out, partials = _stage_out(geo, dev, program.mode, ctas)
-    (pz, sz), (pc, sc), (pe, se), (pp, sp) = _value_streams(
-        res, ("Z", "C", "E", "P"), geo, layouts)
+    names = ("Z", "C", "E", "P")
+    (pz, sz), (pc, sc), (pe, se), (pp, sp) = _value_streams(res, names, geo,
+                                                            layouts)
     g, so = _grid_arg(geo.grid), _stream_arg(geo.out, out)
-    _launch("dag_softmax_xent", dev, res.mask, pz, pc, pe, pp,
-            out.data_ptr(),
+    head = (res.mask, pz, pc, pe, pp, out.data_ptr(),
             partials.data_ptr() if partials is not None else None,
             _stage_vec(res, geo, layouts, out, program.mode,
                        program.n_streams),
             ctypes.byref(g), ctypes.byref(sz), ctypes.byref(sc),
-            ctypes.byref(se), ctypes.byref(sp), ctypes.byref(so), ctas,
-            per_cta)
+            ctypes.byref(se), ctypes.byref(sp), ctypes.byref(so))
+    if ring is None:
+        _launch("dag_softmax_xent", dev, *head, ctas, per_cta)
+        return out
+    dr = _read_ring("ring_dag_softmax_xent", res, names, geo, ring)
+    _launch("ring_dag_softmax_xent", dev, *head,
+            ctypes.byref(_ring_arg(dr)), dr.ring_bytes, ctas, per_cta)
     return out
 
 
 def dag_mlp(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
             out_dtype: torch.dtype, acc_dtype: torch.dtype = torch.float32,
-            program: Optional[Any] = None) -> torch.Tensor:
+            program: Optional[Any] = None,
+            ring: Optional[RingProgram] = None) -> torch.Tensor:
     """K8: the MLP block's diamond x → H = relu(xW₁ + b₁) → {Y = HW₂ + b₂,
     Y + H} on 128-wide rows, any subset of its stages, in FP32 FMA; W₁ and
-    W₂ (uniforms) staged in shared memory once per CTA."""
+    W₂ (uniforms) staged in shared memory once per CTA.  With ``ring`` (a
+    pipelined call) R9: a ring of step blocks feeding K8's 128-row tile,
+    to K8's bits."""
     dev, res = _checked_stages("dag_mlp", geo, layouts, program)
     _f32_out("dag_mlp", out_dtype)
     out, _ = _stage_out(geo, dev, "map", 0)
-    (px, sx), (ph, sh), (py, sy) = _value_streams(res, ("X", "H", "Y"), geo,
-                                                  layouts)
+    names = ("X", "H", "Y")
+    (px, sx), (ph, sh), (py, sy) = _value_streams(res, names, geo, layouts)
     w1, b1, w2, b2 = layouts[program.n_streams:]
-    rows = geo.steps * geo.out.block[0]      # 128-row tiles, persistent CTAs
-    ctas = min(-(-rows // 128), _card(dev).multi_processor_count)
     g, so = _grid_arg(geo.grid), _stream_arg(geo.out, out)
-    _launch("dag_mlp", dev, res.mask, px, ph, py, w1.data_ptr(),
-            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
+    head = (res.mask, px, ph, py, w1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
             _stage_vec(res, geo, layouts, out, "map", program.n_streams),
             ctypes.byref(g), ctypes.byref(sx), ctypes.byref(sh),
-            ctypes.byref(sy), ctypes.byref(so), ctas)
+            ctypes.byref(sy), ctypes.byref(so))
+    sms = _card(dev).multi_processor_count
+    if ring is None:
+        rows = geo.steps * geo.out.block[0]  # 128-row tiles, persistent CTAs
+        _launch("dag_mlp", dev, *head, min(-(-rows // MLP_ROWS_TILE), sms))
+        return out
+    staged = _staged_bytes("ring_dag_mlp", program.ops)
+    dr = _read_ring("ring_dag_mlp", res, names, geo, ring, staged)
+    per_tile = max(1, MLP_ROWS_TILE // geo.out.block[0])
+    _launch("ring_dag_mlp", dev, *head, ctypes.byref(_ring_arg(dr)),
+            dr.ring_bytes + staged, per_tile,
+            min(-(-geo.steps // per_tile), sms))
     return out
 
 
-def _stage_keys(fam: _Family, wrapper: Callable) -> Dict[tuple, Callable]:
-    """The DEVICE_KERNELS entries of one family: one per instantiated
-    subset, a single stage under its op, several under their tuple."""
+def _stage_keys(fam: _Family, value: Any) -> Dict[tuple, Any]:
+    """The DEVICE_KERNELS (or RING_KERNELS) entries of one family: one per
+    instantiated subset, a single stage under its op, several under their
+    tuple, each mapped to ``value``."""
     keys = {}
     for sub in fam.subsets:
         ops = tuple(fam.stages[i] for i in sub)
-        keys[(fam.mode_of(sub), ops[0] if len(ops) == 1 else ops)] = wrapper
+        keys[(fam.mode_of(sub), ops[0] if len(ops) == 1 else ops)] = value
     return keys
 
 
@@ -1944,6 +2040,9 @@ DEVICE_KERNELS: Dict[tuple, Callable[..., torch.Tensor]] = {
     ("nest", "spmv"): gather_spmv,
     ("nest", "spmm"): gather_spmm,
 }
+RING_KERNELS.update({**_stage_keys(_LAYERNORM, "ring_dag_layernorm"),
+                     **_stage_keys(_SOFTMAX_XENT, "ring_dag_softmax_xent"),
+                     **_stage_keys(_MLP, "ring_dag_mlp")})
 
 
 # -- the four baseline wrappers ---------------------------------------------

@@ -27,10 +27,11 @@ card.  A schedule deeper than 2 (``buffer_depth`` or ``stream_depths``)
 makes a kernel :attr:`SsrKernel.pipelined` where its family stages — the
 reference's ``_pipelined_call``: its read streams then arrive through an
 N-deep ring (:class:`~repro_torch.core.agu.RingProgram`), on the card in
-shared memory (the ring kernels R1–R4 and R6 of
+shared memory (the ring kernels R1–R4 and R6–R9 of
 :data:`hopper.RING_KERNELS`), on the CPU in :func:`hopper.plain_ring`.
-The chains of K5 stage (a :class:`StageKernel` too); the DAG kernels K6–K8
-do not, and run synchronously at any depth.
+The chains of K5 and the DAGs of K6–K8 stage too (each a
+:class:`StageKernel`); the halo, attention, gather and stream kernels run
+synchronously at any depth.
 """
 
 from __future__ import annotations
@@ -66,8 +67,8 @@ def pipeline_supported() -> bool:
 
     Always, but for ``REPRO_DISABLE_PIPELINE``: a switch kept for parity
     with the reference's opt-out, under which every kernel runs its
-    synchronous (depth-2) version, on the card K1–K5 in place of R1–R4
-    and R6, K17 in place of R5.
+    synchronous (depth-2) version, on the card K1–K8 in place of R1–R4
+    and R6–R9, K17 in place of R5.
     Semantics are identical either way; ``chip_smoke.py`` refuses to run
     under it, since its rings would not run.
     """
@@ -437,9 +438,8 @@ class StageKernel(SsrKernel):
     value feeds the epilogue of ``mode``.  On the card the kernel is looked
     up by ``(mode, tuple of stage ops)``; on the CPU the plain version runs
     the stages in order on every step's blocks.  A fused chain of K5's
-    families is :attr:`pipelined` at a depth above 2 (R6 on the card, the
-    stages over the ring's blocks on the CPU); a DAG (K6–K8) is not: its
-    key has no ring kernel, so it runs synchronously at any depth.
+    families, and a DAG of K6–K8's, is :attr:`pipelined` at a depth above
+    2 (R6–R9 on the card, the stages over the ring's blocks on the CPU).
     """
 
     def __init__(self, bodies: Sequence[Callable], program: StageProgram,

@@ -22,15 +22,14 @@
 // its value through the dense output stream.  Map-mode steps are
 // independent: each CTA takes a run of steps (hopper._ctas, as K1) and
 // walks them with an odometer over the lowered grid.  rsqrtf, and no fast
-// math: the mean is sum / 128, exactly the reference's.
-#include "ssr_rows.cuh"
+// math: the mean is sum / 128, exactly the reference's.  The row's
+// arithmetic (ssr_dag.cuh::ln_row) is R7's too.
+#include "ssr_dag.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr float kEps = 1e-5f;
-constexpr int kCentre = 1, kSquare = 2, kNormalise = 4;
 
 template <int MASK, int V>
 __global__ void __launch_bounds__(kThreads)
@@ -44,39 +43,14 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t s0 = static_cast<int64_t>(blockIdx.x) * steps_per_cta;
   const int64_t s1 = s0 + steps_per_cta < steps ? s0 + steps_per_cta : steps;
   const int rows = static_cast<int>(so.block[0]);
+  using R = LnReads<MASK>;
   SsrOdometer odo(g, s0);
   for (int64_t s = s0; s < s1; ++s, odo.advance(g)) {
-    for (int r = warp; r < rows; r += kWarps) {
-      SsrRow<V> c, v;
-      if constexpr ((MASK & kCentre) != 0) {
-        SsrRow<V> xr;
-        xr.load(x + ssr_row_origin(odo, sx, r), lane);
-        const float mean = xr.sum() / static_cast<float>(kRowLanes);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) c.v[j] = xr.v[j] - mean;
-      } else {
-        c.load(c_in + ssr_row_origin(odo, sc, r), lane);
-      }
-      if constexpr ((MASK & kSquare) != 0) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v.v[j] = __fmul_rn(c.v[j], c.v[j]);
-      } else if constexpr ((MASK & kNormalise) != 0) {
-        v.load(v_in + ssr_row_origin(odo, sv, r), lane);
-      }
-      float* po = out + ssr_row_origin(odo, so, r);
-      if constexpr ((MASK & kNormalise) != 0) {
-        const float inv =
-            rsqrtf(v.sum() / static_cast<float>(kRowLanes) + kEps);
-        SsrRow<V> y;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) y.v[j] = __fmul_rn(c.v[j], inv);
-        y.store(po, lane);
-      } else if constexpr ((MASK & kSquare) != 0) {
-        v.store(po, lane);
-      } else {
-        c.store(po, lane);
-      }
-    }
+    for (int r = warp; r < rows; r += kWarps)
+      ln_row<MASK, V>(R::x ? x + ssr_row_origin(odo, sx, r) : nullptr,
+                      R::x ? nullptr : c_in + ssr_row_origin(odo, sc, r),
+                      R::v ? v_in + ssr_row_origin(odo, sv, r) : nullptr,
+                      out + ssr_row_origin(odo, so, r), lane);
   }
 }
 

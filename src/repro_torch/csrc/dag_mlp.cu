@@ -26,75 +26,20 @@
 // it never reaches device memory.  One template per stage subset (`MASK`:
 // 1 hidden, 2 out, 4 residual; instantiated for {0,1,2}, {0}, {1}, {2} and
 // {1,2}); a value whose producer is not in the subset comes from its stream.
-// The residual alone ({2}) is an elementwise add, one warp per row.
-#include "ssr_common.cuh"
+// The residual alone ({2}) is an elementwise add, one warp per row.  The
+// tile's arithmetic (ssr_dag.cuh::mlp_tile) is R9's too.
+#include "ssr_dag.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kN = 128;              // row width, and both weights' sides
-constexpr int kTile = 128;           // rows per CTA tile
-constexpr int kPitch = kN + 4;       // shared-memory row pitch of the tile
-constexpr int kHidden = 1, kOut = 2, kResidual = 4;
-constexpr size_t kSmemBytes = sizeof(float) * (2 * kN * kN + kTile * kPitch);
+constexpr int kThreads = kMlpThreads;
+constexpr int kN = kMlpN, kTile = kMlpTile, kPitch = kMlpPitch;
 
 __device__ __forceinline__ int64_t row_origin(const SsrStream& s,
                                               const SsrGrid& g, int64_t row,
                                               int64_t rows_per_step) {
   return ssr_block_origin(s, g, row / rows_per_step) +
          (row % rows_per_step) * s.pitch;
-}
-
-template <int V>
-__device__ __forceinline__ float4 load4(const float* p) {
-  if constexpr (V == 4) return *reinterpret_cast<const float4*>(p);
-  return make_float4(p[0], p[1], p[2], p[3]);
-}
-
-template <int V>
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  if constexpr (V == 4) {
-    *reinterpret_cast<float4*>(p) = v;
-  } else {
-    p[0] = v.x; p[1] = v.y; p[2] = v.z; p[3] = v.w;
-  }
-}
-
-// acc[i][j] = sum_k T[ty + 16 i][k] * W[k][col j], col j = c0 + j (j < 4)
-// or c1 + j - 4.  Sequential in k, one FMA per term.
-__device__ __forceinline__ void tile_product(const float* T, const float* W,
-                                             int ty, int c0, int c1,
-                                             float acc[8][8]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll 1
-  for (int k = 0; k < kN; k += 4) {
-    float a[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float4 v =
-          *reinterpret_cast<const float4*>(T + (ty + 16 * i) * kPitch + k);
-      a[i][0] = v.x; a[i][1] = v.y; a[i][2] = v.z; a[i][3] = v.w;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float4 w0 = *reinterpret_cast<const float4*>(W + (k + kk) * kN + c0);
-      const float4 w1 = *reinterpret_cast<const float4*>(W + (k + kk) * kN + c1);
-      const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i][kk], w[j], acc[i][j]);
-    }
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void stage_weight(float* dst, const float* src) {
-  for (int i = threadIdx.x; i < kN * kN / 4; i += kThreads)
-    reinterpret_cast<float4*>(dst)[i] = load4<V>(src + 4 * i);
 }
 
 template <int MASK, int V>
@@ -105,31 +50,18 @@ __global__ void __launch_bounds__(kThreads, 1)
                    float* __restrict__ out, SsrGrid g, SsrStream sx,
                    SsrStream sh, SsrStream so, int64_t rows_total,
                    int64_t rows_per_step) {
-  constexpr bool kH = (MASK & kHidden) != 0, kY = (MASK & kOut) != 0,
-                 kR = (MASK & kResidual) != 0;
+  constexpr bool kH = (MASK & kMlpHidden) != 0, kY = (MASK & kMlpOut) != 0;
   extern __shared__ __align__(16) float smem[];
   float* W1s = smem;
   float* W2s = smem + kN * kN;
   float* T = smem + 2 * kN * kN;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int c0 = 4 * tx, c1 = 64 + 4 * tx;
-  if constexpr (kH) stage_weight<V>(W1s, w1);
-  if constexpr (kY) stage_weight<V>(W2s, w2);
-  const float* bias = kY ? b2 : b1;
-  float bv[8];
-  {
-    const float4 p0 = load4<V>(bias + c0), p1 = load4<V>(bias + c1);
-    const float t[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) bv[j] = t[j];
-  }
-  float b1v[8];
-  if constexpr (kH && kY) {
-    const float4 p0 = load4<V>(b1 + c0), p1 = load4<V>(b1 + c1);
-    const float t[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) b1v[j] = t[j];
-  }
+  if constexpr (kH) mlp_stage_weight<V>(W1s, w1);
+  if constexpr (kY) mlp_stage_weight<V>(W2s, w2);
+  float bv[8], b1v[8];
+  mlp_bias<V>(kY ? b2 : b1, c0, c1, bv);
+  if constexpr (kH && kY) mlp_bias<V>(b1, c0, c1, b1v);
   const float* src = kH ? x : h_in;
   const SsrStream& ss = kH ? sx : sh;
   const int64_t tiles = (rows_total + kTile - 1) / kTile;
@@ -141,49 +73,17 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int r = i / (kN / 4), q = i % (kN / 4);
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (r0 + r < rows_total)
-        v = load4<V>(src + row_origin(ss, g, r0 + r, rows_per_step) + 4 * q);
+        v = mlp_load4<V>(src + row_origin(ss, g, r0 + r, rows_per_step) + 4 * q);
       *reinterpret_cast<float4*>(T + r * kPitch + 4 * q) = v;
     }
     __syncthreads();
-    if constexpr (kH) {
-      tile_product(T, W1s, ty, c0, c1, acc);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          acc[i][j] = ssr_relu(acc[i][j] + (kY ? b1v[j] : bv[j]));
-      if constexpr (kY) {
-        __syncthreads();  // every thread has read x from the tile
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          float* row = T + (ty + 16 * i) * kPitch;
-          *reinterpret_cast<float4*>(row + c0) =
-              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-          *reinterpret_cast<float4*>(row + c1) =
-              make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
-        }
-        __syncthreads();  // H is the tile now
-      }
-    }
-    if constexpr (kY) {
-      tile_product(T, W2s, ty, c0, c1, acc);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float* hrow = T + (ty + 16 * i) * kPitch;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          acc[i][j] += bv[j];
-          if constexpr (kR) acc[i][j] += hrow[j < 4 ? c0 + j : c1 + j - 4];
-        }
-      }
-    }
+    mlp_tile<MASK>(T, W1s, W2s, ty, c0, c1, bv, b1v, acc);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int64_t row = r0 + ty + 16 * i;
       if (row >= rows_total) continue;
-      float* po = out + row_origin(so, g, row, rows_per_step);
-      store4<V>(po + c0, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-      store4<V>(po + c1, make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
+      mlp_store_row<V>(out + row_origin(so, g, row, rows_per_step), c0, c1,
+                       acc[i]);
     }
   }
 }
@@ -199,10 +99,10 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t warps = static_cast<int64_t>(gridDim.x) * (kThreads / 32);
   for (int64_t row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
        row < rows_total; row += warps) {
-    const float4 hv = load4<V>(h + row_origin(sh, g, row, rows_per_step) + 4 * lane);
-    const float4 yv = load4<V>(y + row_origin(sy, g, row, rows_per_step) + 4 * lane);
-    store4<V>(out + row_origin(so, g, row, rows_per_step) + 4 * lane,
-              make_float4(yv.x + hv.x, yv.y + hv.y, yv.z + hv.z, yv.w + hv.w));
+    const float4 hv = mlp_load4<V>(h + row_origin(sh, g, row, rows_per_step) + 4 * lane);
+    const float4 yv = mlp_load4<V>(y + row_origin(sy, g, row, rows_per_step) + 4 * lane);
+    mlp_store4<V>(out + row_origin(so, g, row, rows_per_step) + 4 * lane,
+                  make_float4(yv.x + hv.x, yv.y + hv.y, yv.z + hv.z, yv.w + hv.w));
   }
 }
 
@@ -218,15 +118,15 @@ struct Args {
 template <int MASK, int V>
 int run(const Args& a) {
   const unsigned n = static_cast<unsigned>(a.ctas);
-  if constexpr (MASK == kResidual) {
+  if constexpr (MASK == kMlpResidual) {
     dag_mlp_residual<V><<<n, kThreads, 0, a.st>>>(
         a.h, a.y, a.out, a.g, a.sh, a.sy, a.so, a.rows_total, a.rows_per_step);
   } else {
     cudaError_t err = cudaFuncSetAttribute(
         dag_mlp_kernel<MASK, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kSmemBytes));
+        static_cast<int>(kMlpStagedBytes));
     if (err != cudaSuccess) return static_cast<int>(err);
-    dag_mlp_kernel<MASK, V><<<n, kThreads, kSmemBytes, a.st>>>(
+    dag_mlp_kernel<MASK, V><<<n, kThreads, kMlpStagedBytes, a.st>>>(
         a.x, a.h, a.w1, a.b1, a.w2, a.b2, a.out, a.g, a.sx, a.sh, a.so,
         a.rows_total, a.rows_per_step);
   }
@@ -275,5 +175,5 @@ extern "C" int ssr_dag_mlp(int mask, const void* x, const void* h,
 }
 
 extern "C" int64_t ssr_dag_mlp_smem_bytes() {
-  return static_cast<int64_t>(kSmemBytes);
+  return kMlpStagedBytes;
 }

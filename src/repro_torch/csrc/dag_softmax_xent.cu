@@ -22,14 +22,14 @@
 // adds mask * (lse - p . C) once (the 128 copies of that / 128 the
 // reference sums are the same number); each CTA folds its rows in a fixed
 // order to one partial, and a second one-CTA launch folds the partials in a
-// fixed order.  No atomics: the same bits from run to run.
-#include "ssr_rows.cuh"
+// fixed order.  No atomics: the same bits from run to run.  The row's
+// arithmetic (ssr_dag.cuh::sx_row) is R8's too.
+#include "ssr_dag.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kShift = 1, kExp = 2, kLoss = 4;
 
 template <int MASK, int V>
 __global__ void __launch_bounds__(kThreads)
@@ -42,49 +42,24 @@ __global__ void __launch_bounds__(kThreads)
                             SsrStream sz, SsrStream sc, SsrStream se,
                             SsrStream sp, SsrStream so, int64_t steps,
                             int64_t steps_per_cta) {
+  using R = SxReads<MASK>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t s0 = static_cast<int64_t>(blockIdx.x) * steps_per_cta;
   const int64_t s1 = s0 + steps_per_cta < steps ? s0 + steps_per_cta : steps;
   // a reduce writes one (1, 1) block: the rows come from the read streams
-  const int rows = static_cast<int>(
-      ((MASK & kShift) != 0 ? sz : sc).block[0]);
+  const int rows = static_cast<int>((R::z ? sz : sc).block[0]);
   float acc = 0.f;
   SsrOdometer odo(g, s0);
   for (int64_t s = s0; s < s1; ++s, odo.advance(g)) {
-    for (int r = warp; r < rows; r += kWarps) {
-      SsrRow<V> c, e;
-      if constexpr ((MASK & kShift) != 0) {
-        SsrRow<V> zr;
-        zr.load(z + ssr_row_origin(odo, sz, r), lane);
-        const float m = zr.max();
-#pragma unroll
-        for (int j = 0; j < 4; ++j) c.v[j] = zr.v[j] - m;
-      } else {
-        c.load(c_in + ssr_row_origin(odo, sc, r), lane);
-      }
-      if constexpr ((MASK & kExp) != 0) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) e.v[j] = expf(c.v[j]);
-      } else if constexpr ((MASK & kLoss) != 0) {
-        e.load(e_in + ssr_row_origin(odo, se, r), lane);
-      }
-      if constexpr ((MASK & kLoss) != 0) {
-        SsrRow<V> pr, pc;
-        pr.load(p + ssr_row_origin(odo, sp, r), lane);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) pc.v[j] = __fmul_rn(pr.v[j], c.v[j]);
-        const float mask = pr.sum();
-        const float lse = logf(fmaxf(e.sum(), 1e-30f));
-        const float dot = pc.sum();
-        if (lane == 0) acc += mask * (lse - dot);
-      } else if constexpr ((MASK & kExp) != 0) {
-        e.store(out + ssr_row_origin(odo, so, r), lane);
-      } else {
-        c.store(out + ssr_row_origin(odo, so, r), lane);
-      }
-    }
+    for (int r = warp; r < rows; r += kWarps)
+      sx_row<MASK, V>(R::z ? z + ssr_row_origin(odo, sz, r) : nullptr,
+                      R::z ? nullptr : c_in + ssr_row_origin(odo, sc, r),
+                      R::e ? e_in + ssr_row_origin(odo, se, r) : nullptr,
+                      R::p ? p + ssr_row_origin(odo, sp, r) : nullptr,
+                      R::p ? nullptr : out + ssr_row_origin(odo, so, r),
+                      lane, acc);
   }
-  if constexpr ((MASK & kLoss) != 0) {
+  if constexpr ((MASK & kSxLoss) != 0) {
     acc = ssr_cta_sum<kThreads>(acc);
     if (threadIdx.x == 0) partials[blockIdx.x] = acc;
   }
@@ -116,7 +91,7 @@ int launch(int vec, const Args& a) {
   else
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || (MASK & kLoss) == 0) return static_cast<int>(err);
+  if (err != cudaSuccess || (MASK & kSxLoss) == 0) return static_cast<int>(err);
   ssr_fold_partials<<<1, kFoldThreads, 0, a.st>>>(a.partials, a.ctas, a.out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,16 +10,19 @@ public API with the ``ssrcfg`` switch.
 """
 
 from . import frontend, ops, ref, registry  # noqa: F401
+from .attention import ssr_flash_attention  # noqa: F401
 from .bitonic import ssr_sort  # noqa: F401
 from .chained import (fused_axpy_dot, fused_cases, fused_gemv_relu,  # noqa: F401
-                      fused_sum_sq_diff)
+                      fused_stencil1d_relu, fused_sum_sq_diff)
 from .dag import (dag_cases, fused_layernorm, fused_mlp_block,  # noqa: F401
                   fused_softmax_xent)
 from .fft import ssr_fft  # noqa: F401
-from .gemm import ssr_matmul  # noqa: F401
-from .gemv import ssr_gemv  # noqa: F401
-from .reduction import ssr_dot  # noqa: F401
+from .gemm import baseline_matmul, ssr_matmul  # noqa: F401
+from .gemv import baseline_gemv, ssr_gemv  # noqa: F401
+from .reduction import baseline_dot, ssr_dot  # noqa: F401
 from .registry import entries, get, register_kernel  # noqa: F401
-from .relu import ssr_elementwise, ssr_relu  # noqa: F401
+from .relu import baseline_relu, ssr_elementwise, ssr_relu  # noqa: F401
 from .scan import baseline_scan, ssr_scan  # noqa: F401
 from .sparse import ssr_sparse_gemv, ssr_spmm, ssr_spmv  # noqa: F401
+from .stencil import (baseline_stencil1d, ssr_stencil1d,  # noqa: F401
+                      ssr_stencil2d)

@@ -68,9 +68,13 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def fft_ref(re: torch.Tensor,
             im: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Forward DFT (no normalisation), split real/imag, f32."""
-    z = torch.fft.fft(torch.complex(re.to(torch.float32),
-                                    im.to(torch.float32)))
+    """Forward DFT (no normalisation), split real/imag, f32.  Rows of 0
+    points give the empty pair, as ``jnp.fft.fft`` does (``torch.fft``
+    refuses them)."""
+    re, im = re.to(torch.float32), im.to(torch.float32)
+    if re.shape[-1] == 0:
+        return torch.empty_like(re), torch.empty_like(im)
+    z = torch.fft.fft(torch.complex(re, im))
     return z.real.contiguous(), z.imag.contiguous()
 
 

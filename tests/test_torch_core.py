@@ -232,3 +232,30 @@ def test_block_agu_rejects_walks_outside_the_layout():
 def test_direction_values_match():
     from repro.core.stream import Direction as RefDirection
     assert [d.value for d in Direction] == [d.value for d in RefDirection]
+
+
+#: the reference's TPU-only names: the port checks each kernel's CTA
+#: against the card (``hopper.accepts``) instead
+TPU_ONLY = {"ssr_pallas", "VMEM_BUDGET_BYTES", "check_mxu_alignment"}
+
+
+@pytest.mark.parametrize("package", ["core", "kernels"])
+def test_the_port_re_exports_the_references_public_names(package):
+    """Every public non-module name of ``repro.core`` and ``repro.kernels``
+    (but the TPU-only three) is one of the port's package namespace too,
+    so code written against the reference's packages switches over."""
+    import importlib
+    import types
+
+    def public(mod):
+        return {n for n in dir(mod) if not n.startswith("_")
+                and not isinstance(getattr(mod, n), types.ModuleType)}
+
+    ref_pkg = importlib.import_module(f"repro.{package}")
+    port_pkg = importlib.import_module(f"repro_torch.{package}")
+    want = public(ref_pkg) - TPU_ONLY
+    assert want - public(port_pkg) == set()
+    assert not TPU_ONLY & public(port_pkg)
+    for name in want:   # the same kind of object: class, function, value
+        assert callable(getattr(ref_pkg, name)) is \
+            callable(getattr(port_pkg, name)), name

@@ -1530,3 +1530,108 @@ def test_ring_chain_elem_is_k5_to_the_bit(dev, n, case):
     want = sync.run()
     assert _launched(before) == {"chain_elem"}
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# -- R7–R9: the DAGs of K6–K8 through the ring ------------------------------
+
+_DAG_KERNEL = {"layernorm": "dag_layernorm",
+               "softmax_xent": "dag_softmax_xent", "mlp_block": "dag_mlp"}
+
+
+def _dag_instances(name, rows, dev):
+    """Every instantiation a legal cut of the family's DAG runs, as
+    ``stages -> (nests, bodies, operands, mode, uniforms)``, each on the
+    values the sync kernels before it produced."""
+    from repro_torch.core import autotune
+    case, args = _dag_case(name, rows, rows)
+    args = tuple(a.to(dev) for a in args)
+    nests, bodies, operands, mode, uniforms = case.spec(*args)
+    graph = lowering._dag_for(nests, None)
+    out = {}
+    for cut in autotune.enumerate_cuts(graph):
+        if not autotune.dag_cut_is_legal(graph, cut, nests=nests,
+                                         bodies=bodies, mode=mode,
+                                         uniforms=uniforms, device=dev)[0]:
+            continue
+        env = dict(operands)
+        for comp in lowering.dag_components(graph, nests, bodies, cut,
+                                            mode=mode):
+            inst = (comp.nests, comp.bodies, dict(env), comp.mode, uniforms)
+            out.setdefault(comp.stages, inst)
+            if comp.exported is not None:
+                env[comp.exported] = _dag_instance_call(
+                    inst, lowering.DEFAULT_SCHEDULE).run()
+    return out
+
+
+def _dag_instance_call(inst, sched):
+    nests, bodies, env, mode, uniforms = inst
+    if len(nests) == 1:
+        return lowering.prepare_call(nests[0], bodies[0], env, mode=mode,
+                                     schedule=sched, uniforms=uniforms)
+    return lowering.prepare_dag_call(nests, bodies, env, mode=mode,
+                                     schedule=sched, uniforms=uniforms)
+
+
+# one per-stream case a family, on the instantiation that reads the most
+# streams: layernorm's normalise (C, V), softmax_xent's loss (C, E, P),
+# the MLP's residual (H, Y)
+DAG_RING_PAIRS = {"layernorm": ((2,), (2, 4)),
+                  "softmax_xent": ((2,), (2, 4, 3)),
+                  "mlp_block": ((2,), (4, 2))}
+
+
+@pytest.mark.parametrize("depth", [3, 8, "pair"], ids=str)
+@pytest.mark.parametrize("rows", [37, 1001, 20011])
+@pytest.mark.parametrize("name", ["layernorm", "softmax_xent", "mlp_block"])
+def test_ring_dag_is_its_k_kernel_to_the_bit(dev, name, rows, depth):
+    """R7–R9 on every instantiation of K6–K8 give the K kernel's bits, and
+    launch their ring kernel alone; the depth-2 call its K kernel alone."""
+    kname = _DAG_KERNEL[name]
+    insts = _dag_instances(name, rows, dev)
+    assert set(insts) == {(0, 1, 2), (0,), (1,), (2,), (1, 2)}
+    if depth == "pair":
+        stages, pair = DAG_RING_PAIRS[name]
+        todo = {stages: lowering.Schedule(stream_depths=pair)}
+    else:
+        todo = {s: lowering.Schedule(buffer_depth=depth) for s in insts}
+    for stages, sched in todo.items():
+        ring = _dag_instance_call(insts[stages], sched)
+        sync = _dag_instance_call(insts[stages], lowering.DEFAULT_SCHEDULE)
+        assert ring.kernel.pipelined and not sync.kernel.pipelined, stages
+        before = dict(hopper.LAUNCHES)
+        got = ring.run()
+        assert _launched(before) == {f"ring_{kname}"}, stages
+        before = dict(hopper.LAUNCHES)
+        want = sync.run()
+        assert _launched(before) == {kname}, stages
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            (stages, float((got - want).abs().max()))
+
+
+@pytest.mark.parametrize("name", ["layernorm", "softmax_xent", "mlp_block"])
+def test_ring_dag_entry_point_launches_the_ring(dev, name):
+    case, args = _dag_case(name, 1001, 3)
+    args = tuple(a.to(dev) for a in args)
+    kname = _DAG_KERNEL[name]
+    before = dict(hopper.LAUNCHES)
+    got = case.fused(*args, schedule=lowering.Schedule(buffer_depth=4),
+                     device=dev)
+    assert _launched(before) == {f"ring_{kname}"}
+    want = case.fused(*args, schedule=lowering.DEFAULT_SCHEDULE, device=dev)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_ring_dag_mlp_over_the_budget_raises_on_the_card(dev):
+    case, args = _dag_case("mlp_block", 1001, 5)
+    args = tuple(a.to(dev) for a in args)
+    nests, bodies, operands, mode, uniforms = case.spec(*args)
+    call = lowering.prepare_dag_call(
+        nests, bodies, operands, mode=mode, uniforms=uniforms,
+        schedule=lowering.Schedule(rows=16, buffer_depth=8))
+    before = dict(hopper.LAUNCHES)
+    with pytest.raises(LoweringError, match="ring_dag_mlp: its ring at "
+                       r"depths \(8, 8, 8, 8, 8\)") as err:
+        call.run()
+    assert str(hopper.SMEM_OPTIN_BYTES) in str(err.value)
+    assert hopper.LAUNCHES == before

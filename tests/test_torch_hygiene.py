@@ -177,12 +177,15 @@ def test_build_key_follows_the_sources(tmp_path, monkeypatch):
     assert keys == {n: hopper.library_path(n) for n in hopper.KERNELS}
     headers = sorted(p.name for p in csrc.glob("*.cuh"))
     assert headers == ["ssr_chain.cuh", "ssr_chained_map.cuh",
-                       "ssr_common.cuh", "ssr_ring.cuh", "ssr_rows.cuh"]
-    rows = {"ring_reduce_mul", "dag_layernorm", "dag_softmax_xent",
-            "chain_elem", "ring_chain_elem"}
+                       "ssr_common.cuh", "ssr_dag.cuh", "ssr_ring.cuh",
+                       "ssr_rows.cuh"]
+    dags = {"dag_layernorm", "dag_softmax_xent", "dag_mlp",
+            "ring_dag_layernorm", "ring_dag_softmax_xent", "ring_dag_mlp"}
+    rows = {"ring_reduce_mul", "chain_elem", "ring_chain_elem", *dags}
     users = {"ssr_chain.cuh": {"chain_elem", "ring_chain_elem"},
              "ssr_chained_map.cuh": {"chained_map", "ring_chained_map"},
              "ssr_common.cuh": set(hopper.KERNELS),
+             "ssr_dag.cuh": dags,
              "ssr_ring.cuh": {n for n in hopper.KERNELS
                               if n.startswith("ring_")},
              "ssr_rows.cuh": {n for n in hopper.KERNELS if n in rows}}

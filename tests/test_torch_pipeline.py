@@ -1,11 +1,12 @@
 """Pipelined delivery in the port: the N-deep ring against the depth-2 path.
 
 The counterpart of ``tests/test_pipeline.py``.  A schedule deeper than 2
-(``buffer_depth`` or per-stream ``stream_depths``) makes a call of K1–K5's
+(``buffer_depth`` or per-stream ``stream_depths``) makes a call of K1–K8's
 families pipelined: its read streams arrive through an N-deep ring (on the
 CPU :func:`hopper.plain_ring`, on the card the ring kernels R1–R4 and R6;
 a ChainedKernel's R5 has its own tests, ``tests/test_torch_chained_kernel
-.py``, and its fetch log here).  The contracts, on the CPU:
+.py``, and its fetch log here; the DAGs' R7–R9 theirs,
+``tests/test_torch_dag_ring.py``).  The contracts, on the CPU:
 
 * **delivery changes, the arithmetic does not** — map, reduce, gemm, gemv,
   gemv_relu and K5's chains (sum_sq_diff fused, its (x − y)² map stage;
@@ -14,7 +15,7 @@ a ChainedKernel's R5 has its own tests, ``tests/test_torch_chained_kernel
   reference's sync result (Pallas interpret mode) within the registry
   ``tol`` (relu bit for bit);
 * **pipelined where a ring runs** — True for those, False for a one-step
-  grid, the unstaged families (the DAGs, the halo and gather kernels) and
+  grid, the unstaged families (the halo and gather kernels) and
   under ``REPRO_DISABLE_PIPELINE``;
 * **the reference's rotation** — the plain ring's fetch log is the
   prime / run-ahead / no-fetch-past-the-run formula of ``_pipelined_call``
@@ -49,7 +50,7 @@ from repro_torch.core.lowering import DEFAULT_SCHEDULE, Schedule, ssr_call
 from repro_torch.core.ssr import MAX_BUFFER_DEPTH, stream_vmem_bytes
 from repro_torch.core.ssr import BlockStream
 from repro_torch.core.stream import Direction
-from repro_torch.kernels import (chained, dag, frontend, gemm, gemv,
+from repro_torch.kernels import (chained, frontend, gemm, gemv,
                                  reduction, relu, sparse, stencil)
 
 DEPTHS = [3, 4, 8, (2, 4), (4, 2)]
@@ -281,15 +282,11 @@ def _unstaged(n=4096):
     s = Schedule(buffer_depth=3)
     csr = sparse.hpcg_operator(16, 16, 16, device="cpu")
     vals, cidx, m, k = sparse.pack_ell(*csr, 4096)
-    ln_nests, ln_bodies, ln_ops, ln_mode, _ = dag.layernorm_spec(
-        torch.ones(64, 128))
     side = 1024 + stencil.TAPS - 1
     return {
         "stencil1d": lowering.prepare_call(
             compiler.stencil_nest(n, stencil.TAPS), stencil.STENCIL1D,
             {"x": x, "w": w}, schedule=s),
-        "layernorm_dag": lowering.prepare_dag_call(
-            ln_nests, ln_bodies, ln_ops, mode=ln_mode, schedule=s),
         "stencil2d": lowering.prepare_call(
             compiler.stencil2d_nest(1024, 1024, stencil.TAPS),
             stencil.STENCIL2D,
@@ -303,8 +300,8 @@ def _unstaged(n=4096):
     }
 
 
-@pytest.mark.parametrize("name", ["stencil1d", "layernorm_dag",
-                                  "stencil2d", "spmv", "untagged"])
+@pytest.mark.parametrize("name", ["stencil1d", "stencil2d", "spmv",
+                                  "untagged"])
 def test_unstaged_families_stay_sync(name):
     call = _unstaged()[name]
     assert max(call.kernel.depths) == 3 and call.kernel.geometry.steps > 1

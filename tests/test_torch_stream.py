@@ -426,3 +426,19 @@ def test_ssrcfg_switch_keeps_semantics(name, op):
         torch.testing.assert_close(s, p, **{"rtol": 1e-3, "atol": 1e-3}
                                    if name != "bitonic" else
                                    {"rtol": 0, "atol": 0})
+
+
+@pytest.mark.parametrize("path", ["ref", "ops"])
+def test_fft_of_rows_of_zero_points_is_the_empty_pair(path):
+    """Rows of 0 points: ``jnp.fft.fft`` returns two (rows, 0) f32 arrays
+    (``torch.fft`` refuses them), through the oracle and through ``ops.fft``
+    with the ssrcfg switch off."""
+    from repro.kernels import ops as jops
+    z = np.zeros((3, 0), np.float32)
+    want = (jref.fft_ref if path == "ref" else jops.fft)(jnp.asarray(z),
+                                                         jnp.asarray(z))
+    got = (ref.fft_ref if path == "ref" else ops.fft)(_t(z), _t(z))
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape == (3, 0)
+        assert g.dtype == torch.float32 and w.dtype == jnp.float32
