@@ -77,7 +77,14 @@ printing JSON lines:
    with the first block zeroed, which must differ; R7–R9 at depth 4 (and
    the main path's DAG ring outputs) against the plain ring at full size
    within the DAG limits; each limit beside a control that must read above
-   it;
+   it; R10–R12 against K9–K11 to the bit on the stencil1d, stencil1d_relu
+   and stencil2d cells at depths 3, 4 and 8 and a per-stream tuple, and on
+   every attention cell at depths 3, 4 and (4, 4, 2) (R12 refusing depth 8
+   by name, its ring over the shared memory a CTA may opt into), each
+   beside its run with every moving stream's first block zeroed, which must
+   differ; R10–R12 at depth 4 (and the main path's ring outputs) against
+   the plain ring at full size within STENCIL_LIMIT or ATTENTION_LIMIT,
+   beside the zeroed-block control above it;
 4. time each kernel, its plain version and one PyTorch library call with
    CUDA events, beside the least time the card could take, each baseline
    against its streamed kernel (``ssr_over_baseline``), each fused cell
@@ -91,13 +98,16 @@ printing JSON lines:
    ``fused_over_unfused`` beside the byte prediction 20 / 12), a
    ``chain_depth_sweep`` line per R6 cell and a ``depth_sweep`` line per
    DAG cell (K6–K8 and R7–R9 at depths 2, 3, 4, 8 and softmax_xent's
-   pairs);
+   pairs) and per halo and attention cell (K9–K11 and R10–R12 at depth 2
+   and at their ring depths);
 5. tune gemm 4096**3 over the quick candidates into the cache (one
    candidate per distinct kernel, depth-only variants racing as R3; a
    winner within the race's spread of the default is held back), and
    check that the next ``ops.matmul`` runs the committed schedule,
    correctly; then commit the race's fastest depth-3 survivor and check
-   that ``ssr_call`` with no schedule runs it on R3, to K3's bits;
+   that ``ssr_call`` with no schedule runs it on R3, to K3's bits; then
+   commit depth 4 for the stencil1d cell and check that ``ops.stencil1d``
+   (``ssr=True``) runs R10, to the bits of the main path's ring;
 6. arm one ``compile`` fault and check that ``ops.matmul`` under the tuned
    schedule degrades to the default, quarantines the entry and stays
    right;
@@ -108,18 +118,20 @@ printing JSON lines:
 6b. arm one ``compile`` fault under that cut and check that the call
    degrades to all-fused (one K6 launch), quarantines the entry and stays
    right;
-7. print the ``{"kernels": [...]}`` line (K1–K17, B1–B8 and R1–R9; K11's
-   row is the attention_qwen3 cell, the other attention cells have time
-   lines of their own; an R row times its main-path depth), then the
-   device line last.
+7. print the ``{"kernels": [...]}`` line (K1–K17, B1–B8 and R1–R12; K11's
+   and R12's rows are the attention_qwen3 cell, the other attention cells
+   have time and depth_sweep lines of their own; an R row times its
+   main-path depth), then the device line last.
 
 Phase 2 also drives the rings: ``ssr_dot``, ``ssr_relu`` (three dtypes),
 ``ssr_gemv`` and ``fused_gemv_relu`` at depth 4, ``ssr_matmul`` at depth
 3 and ``ssr_call`` at per-stream depths (2, 4), the ChainedKernel cells,
 ``fused_sum_sq_diff``/``fused_axpy_dot`` and ``fused_layernorm``/
-``fused_softmax_xent``/``fused_mlp_block`` at depth 4; each must launch
-its ring kernel (R1–R9) and no sync kernel, and each depth-2 call its sync
-kernel and no ring.
+``fused_softmax_xent``/``fused_mlp_block``, ``ssr_stencil1d``,
+``fused_stencil1d_relu``, ``ssr_stencil2d`` and ``ssr_flash_attention`` on
+attention_qwen3 and attention_d256 at depth 4; each must launch its ring
+kernel (R1–R12) and no sync kernel, and each depth-2 call its sync kernel
+and no ring.
 
 Any failure exits non-zero; without a CUDA device, without the repo's
 ``src/repro_torch`` beside this file, or with ``REPRO_DISABLE_PIPELINE``
@@ -243,10 +255,17 @@ RING_PATH = {"dot_ring": ("ring_reduce_mul", "dot"),
                                          "chained_scale_relu"),
              "layernorm_ring": ("ring_dag_layernorm", "layernorm"),
              "softmax_xent_ring": ("ring_dag_softmax_xent", "softmax_xent"),
-             "mlp_block_ring": ("ring_dag_mlp", "mlp_block")}
+             "mlp_block_ring": ("ring_dag_mlp", "mlp_block"),
+             "stencil1d_ring": ("ring_halo_stencil1d", "stencil1d"),
+             "stencil1d_relu_ring": ("ring_halo_stencil1d", "stencil1d_relu"),
+             "stencil2d_ring": ("ring_halo_stencil2d", "stencil2d"),
+             "attention_qwen3_ring": ("ring_rescale_attention",
+                                      "attention_qwen3"),
+             "attention_d256_ring": ("ring_rescale_attention",
+                                     "attention_d256")}
 SYNC = ("reduce_mul", "map_relu", "contract_gemm", "contract_gemv",
         "chain_elem", "chained_map", "dag_layernorm", "dag_softmax_xent",
-        "dag_mlp")
+        "dag_mlp", "halo_stencil1d", "halo_stencil2d", "rescale_attention")
 RING_DEPTHS = (3, 4, 8)
 RING_PAIRS = ((2, 4), (4, 2))
 # main-path entry at a depth above 2 → (its ring cell of phase 3e, depth)
@@ -300,6 +319,24 @@ DAG_RING_PAIRS = {("softmax_xent", (0, 1, 2)): ((2, 4), (4, 2)),
 DAG_RING_ROW = {"ring_dag_layernorm": ("dag_layernorm", "layernorm"),
                 "ring_dag_softmax_xent": ("dag_softmax_xent", "softmax_xent"),
                 "ring_dag_mlp": ("dag_mlp", "mlp_block")}
+
+# The halo and attention rings (R10–R12): the stencil cells and every
+# attention cell against K9–K11 at these depths (R12 where its budget
+# admits them: depth 8 must be refused by name) and at one per-stream tuple
+# each; the main path runs stencil1d, stencil1d_relu, stencil2d,
+# attention_qwen3 and attention_d256 at HALO_MAIN_DEPTH
+HALO_MAIN_DEPTH = 4
+HALO_RING_CELLS = {"stencil1d": (3, 4, 8, (4, 2, 2)),
+                   "stencil1d_relu": (3, 4, 8, (4, 2, 2)),
+                   "stencil2d": (3, 4, 8, (4, 2, 2, 2, 2, 2)),
+                   **{cell: (3, 4, (4, 4, 2)) for cell in ATTENTION_CELLS}}
+# R12's depth beyond its shared memory, checked as a refusal naming it
+ATTENTION_REFUSED_DEPTH = 8
+# the ring kernel → its sync kernel and the cell its row times
+HALO_RING_ROW = {"ring_halo_stencil1d": ("halo_stencil1d", "stencil1d"),
+                 "ring_halo_stencil2d": ("halo_stencil2d", "stencil2d"),
+                 "ring_rescale_attention": ("rescale_attention",
+                                            "attention_qwen3")}
 
 # streamed kernel → its monolithic baseline
 PAIRS = {"reduce_mul": "base_reduce", "map_relu": "base_relu",
@@ -718,6 +755,17 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             lz, lp, schedule=deep[DAG_MAIN_DEPTH]),
         "mlp_block_ring": lambda: dag.fused_mlp_block(
             mx, w1, b1, w2, b2, schedule=deep[DAG_MAIN_DEPTH]),
+        # the halos and attention at a depth above 2 (R10–R12)
+        "stencil1d_ring": lambda: stencil.ssr_stencil1d(
+            xs, ws, schedule=deep[HALO_MAIN_DEPTH]),
+        "stencil1d_relu_ring": lambda: chained.fused_stencil1d_relu(
+            xs, ws, schedule=deep[HALO_MAIN_DEPTH]),
+        "stencil2d_ring": lambda: stencil.ssr_stencil2d(
+            x2, wx2, wy2, schedule=deep[HALO_MAIN_DEPTH]),
+        **{f"{cell}_ring": (lambda c=cell: attention.ssr_flash_attention(
+            *qkv[c], causal=ATTENTION_CELLS[c][3],
+            window=ATTENTION_CELLS[c][4], schedule=deep[HALO_MAIN_DEPTH]))
+           for cell in ("attention_qwen3", "attention_d256")},
     }
     lowering.reset_dispatch_stats()
     frontend.reset_dispatch_stats()
@@ -834,21 +882,24 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             {"x": x2, "wx": wx2, "wy": wy2}),
     }
     # K11 over each attention cell's head batch: the single-head plan and
-    # kernel, every head's layouts (what ssr_flash_attention launches)
-    att_calls = {}
-    for cell, (heads, seq, d, causal, window) in ATTENTION_CELLS.items():
+    # kernel, every head's layouts (what ssr_flash_attention launches); at a
+    # schedule deeper than 2, R12
+    def attention_call(cell, schedule=lowering.DEFAULT_SCHEDULE):
+        heads, _s, _d, causal, window = ATTENTION_CELLS[cell]
         q_, k_, v_ = qkv[cell]
         _, static, _ = attention._prepare(q_[0], k_[0], v_[0], causal, window)
         one = lowering.prepare_call(
             attention._nest(static), attention._body(static),
-            {"Q": q_[0], "K": k_[0], "V": v_[0]}, out_dtype=q_.dtype)
+            {"Q": q_[0], "K": k_[0], "V": v_[0]}, out_dtype=q_.dtype,
+            schedule=schedule)
         batch = {"Q": q_, "K": k_, "V": v_}
         layouts = lowering.stream_layouts(
             one.lowered, [batch[s_.name] for s_ in one.lowered.in_streams],
             lead=(heads,))
-        att_calls[cell] = lowering.PreparedCall(
-            kernel=one.kernel, layouts=layouts, lowered=one.lowered,
-            bounds=one.bounds)
+        return lowering.PreparedCall(kernel=one.kernel, layouts=layouts,
+                                     lowered=one.lowered, bounds=one.bounds)
+
+    att_calls = {cell: attention_call(cell) for cell in ATTENTION_CELLS}
     calls["rescale_attention"] = att_calls["attention_qwen3"]
     # K12/K13 on the ELL planes the entry points pack on the card
     hv, hc, hm, hk = sparse.pack_ell(*hcsr, n_v1)
@@ -1766,6 +1817,120 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                           "zeroed-block control")
         del want_p
 
+    # -- 3h. R10–R12 (K9–K11 through the ring), to the bit ------------------
+    # each halo and attention cell against its K kernel at HALO_RING_CELLS'
+    # depths, each beside its run with every moving stream's first block
+    # zeroed, which must differ; R12 refusing ATTENTION_REFUSED_DEPTH by
+    # name; at HALO_MAIN_DEPTH the ring, and the main path's own ring
+    # output, against the plain ring at full size within STENCIL_LIMIT or
+    # ATTENTION_LIMIT, beside the zeroed-block control above it
+    def halo_call(cell, depth):
+        sched_ = lowering.DEFAULT_SCHEDULE if depth == 2 \
+            else depth_schedule(depth, lowering)
+        if cell in ATTENTION_CELLS:
+            return attention_call(cell, sched_)
+        if cell == "stencil2d":
+            return lowering.prepare_call(
+                compiler.stencil2d_nest(hw, hw, stencil.TAPS),
+                stencil.STENCIL2D, {"x": x2, "wx": wx2, "wy": wy2},
+                schedule=sched_)
+        body_ = chained.STENCIL1D_RELU if cell == "stencil1d_relu" \
+            else stencil.STENCIL1D
+        return lowering.prepare_call(
+            compiler.stencil_nest(n_vec, stencil.TAPS), body_,
+            {"x": xs, "w": ws}, schedule=sched_)
+
+    def moving_blocks_zeroed(call):
+        """The call's layouts with every moving stream's first and last
+        blocks zeroed (a head batch: every head's; the last too, since a
+        sliding window can hide the first from every query); invariant
+        streams kept."""
+        out = []
+        for t, agu_ in zip(call.layouts, call.kernel.geometry.ins):
+            if any(any(c_) for c_ in agu_.coeffs):
+                t = t.clone()
+                rows, cols = agu_.block
+                t[..., :rows, :cols] = 0
+                t[..., -rows:, -cols:] = 0
+            out.append(t)
+        return tuple(out)
+
+    halo_ring_calls = {}
+    for cell, depths in HALO_RING_CELLS.items():
+        sync_call = halo_call(cell, 2)
+        want = sync_call.run()
+        kname = sync_call.kernel.device_kernel().__name__.replace("_relu", "")
+        for depth in depths:
+            call = halo_ring_calls[cell, depth] = halo_call(cell, depth)
+            rname = hopper.RING_KERNELS[call.kernel.device_key]
+            got = call.run()
+            ctrl = call.finish(call.kernel(*moving_blocks_zeroed(call)))
+            c = {"exact": same_bits(got, want, torch.int32)
+                 and call.kernel.pipelined,
+                 "control_differs": not same_bits(ctrl, want, torch.int32),
+                 "abs_err": float((got - want).abs().max()), "limit": 0.0,
+                 "kernel": rname, "against": kname,
+                 "depths": list(call.kernel.depths)}
+            checks[f"ring_{cell}_{depth}"] = c
+            errors[rname] = max(errors.get(rname, 0.0), c["abs_err"])
+            if not c["control_differs"]:
+                failed.append(f"ring_{cell}_{depth}: the zeroed first blocks "
+                              "left the result unchanged")
+            del got, ctrl
+        if cell in ATTENTION_CELLS:   # R12's budget: refused by name
+            call = halo_call(cell, ATTENTION_REFUSED_DEPTH)
+            kern = call.kernel
+            takes, why = hopper.accepts(kern.device_key, kern.geometry,
+                                        qkv[cell][0].dtype, dev,
+                                        **kern.device_args())
+            before = dict(hopper.LAUNCHES)
+            try:
+                call.run()
+                raised = ""
+            except ValueError as e:
+                raised = str(e)
+            named = raised.startswith("ring_rescale_attention: its ring")
+            checks[f"ring_{cell}_{ATTENTION_REFUSED_DEPTH}_refused"] = {
+                "exact": named and not takes and raised == why
+                and hopper.LAUNCHES == before,
+                "message": raised, "abs_err": 0.0, "limit": 0.0}
+        del want
+    for cell, entry in (("stencil1d", "stencil1d_ring"),
+                        ("stencil1d_relu", "stencil1d_relu_ring"),
+                        ("stencil2d", "stencil2d_ring"),
+                        ("attention_qwen3", "attention_qwen3_ring"),
+                        ("attention_d256", "attention_d256_ring")):
+        call = halo_ring_calls[cell, HALO_MAIN_DEPTH]
+        rname = hopper.RING_KERNELS[call.kernel.device_key]
+        want_p = plain(call)
+        if cell in ATTENTION_CELLS:
+            vmax = float(qkv[cell][2].abs().max())
+            limit = ATTENTION_LIMIT
+
+            def err(got_, vm=vmax):
+                return float((got_ - want_p).abs().max()) / vm
+        else:
+            scale_t = halo_plain["stencil2d" if cell == "stencil2d"
+                                 else "stencil1d"][1]
+            limit = STENCIL_LIMIT
+
+            def err(got_, sc=scale_t):
+                return rel_max(got_, want_p, sc)
+        control = err(call.finish(call.kernel(*moving_blocks_zeroed(call))))
+        for key, got in ((f"plain_ring_full_{cell}_{HALO_MAIN_DEPTH}",
+                          call.run()),
+                         (f"{entry}_vs_plain_ring", main[entry])):
+            checks[key] = {"rel_err": err(got), "abs_err": float(
+                (got - want_p).abs().max()), "limit": limit,
+                "zeroed_block_control": control, "kernel": rname,
+                "exact": call.kernel.pipelined}
+            errors[rname] = max(errors.get(rname, 0.0),
+                                checks[key]["abs_err"])
+        if control <= limit:
+            failed.append(f"plain_ring_full_{cell}: limit above the "
+                          "zeroed-block control")
+        del want_p
+
     for key, c in checks.items():
         ok = (c.get("exact", True) and
               c.get("rel_to_abs_prod", c.get("rel_err", c["abs_err"]))
@@ -1783,7 +1948,9 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                 "chained_axpy_relu_ring", "chained_axpy_relu_bf16_ring",
                 "chained_scale_relu_ring", "sum_sq_diff_ring",
                 "axpy_dot_ring", "layernorm_ring", "softmax_xent_ring",
-                "mlp_block_ring"):
+                "mlp_block_ring", "stencil1d_ring", "stencil1d_relu_ring",
+                "stencil2d_ring", "attention_qwen3_ring",
+                "attention_d256_ring"):
         if not bool(torch.isfinite(main[key]).all()):
             failed.append(f"{key}: non-finite")
     # the repo's own oracle on small odd inputs, within the registry tol
@@ -2184,6 +2351,51 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             "depth": DAG_MAIN_DEPTH,
         })
         emit({"phase": "time", "cell": cell, **rows[-1]})
+    # R10–R12: each halo and attention cell at depth 2 (K9–K11) and at its
+    # ring depths, beside K's bound and library call; a ring row times
+    # HALO_MAIN_DEPTH on its cell
+    halo_work = {   # cell: (bytes, FLOPs, library call)
+        "stencil1d": (*work["halo_stencil1d"], library["halo_stencil1d"]),
+        "stencil1d_relu": (cell_work["stencil1d_relu"][0],
+                           cell_work["stencil1d_relu"][2],
+                           library_composed["stencil1d_relu"]),
+        "stencil2d": (*work["halo_stencil2d"], library["halo_stencil2d"]),
+        **{cell: (*attention_work(cell), sdpa(cell))
+           for cell in ATTENTION_CELLS},
+    }
+    halo_sweeps = {}
+    for cell, depths in HALO_RING_CELLS.items():
+        nbytes, flops, lib = halo_work[cell]
+        t_bytes, t_ops = nbytes / bw * 1e3, flops / fp32 * 1e3
+        at = {2: time_ms(kernel_fn(halo_call(cell, 2)))}
+        for depth in depths:
+            at[depth] = time_ms(kernel_fn(halo_ring_calls[cell, depth]))
+        halo_sweeps[cell] = {
+            "ms": {str(d): t for d, t in at.items()},
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": time_ms(lib),
+            "refused": [ATTENTION_REFUSED_DEPTH] if cell in ATTENTION_CELLS
+            else [],
+            "ring_over_sync": {str(d): at[2] / t for d, t in at.items()
+                               if d != 2}}
+        emit({"phase": "depth_sweep", "cell": cell, **halo_sweeps[cell]})
+    for rname, (kname, cell) in HALO_RING_ROW.items():
+        krow = next(r_ for r_ in rows if r_["name"] == kname)
+        call = halo_ring_calls[cell, HALO_MAIN_DEPTH]
+        rows.append({
+            "name": rname, "route": "cuda",
+            "source": hopper.KERNELS[rname]["source"],
+            "replaces": hopper.KERNELS[rname]["replaces"],
+            "launches": launches[rname],
+            "max_abs_err": errors[rname],
+            "ms": halo_sweeps[cell]["ms"][str(HALO_MAIN_DEPTH)],
+            "plain_ms": time_ms(lambda c_=call: plain(c_)),
+            "bound_ms": krow["bound_ms"], "bound_by": krow["bound_by"],
+            "library_ms": krow["library_ms"],
+            "depth": HALO_MAIN_DEPTH,
+        })
+        emit({"phase": "time", "cell": cell, **rows[-1]})
     ms = {r["name"]: r["ms"] for r in rows}
     emit({"phase": "ssr_vs_baseline", "ssr_over_baseline": {
         kname: ms[bname] / ms[kname] for kname, bname in PAIRS.items()}})
@@ -2295,6 +2507,30 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         raise SystemExit("chip_smoke: a committed depth winner did not run "
                          "R3, or not to K3's bits")
     autotune.global_cache().put(res.key, res.schedule)
+
+    # a committed depth-4 schedule for the stencil1d cell makes ops.stencil1d
+    # (ssr=True, no schedule) run R10, to the bits of the main path's ring
+    st_ops, st_static, _ = stencil._ssr_1d._prepare(xs, ws)
+    st_key = autotune.cache_key(stencil._ssr_1d._nest(st_static),
+                                dict(st_ops), mode=stencil._ssr_1d._mode,
+                                out_dtype=stencil._ssr_1d._out_dtype_of(
+                                    st_static), device=dev)
+    autotune.global_cache().put(st_key, deep[HALO_MAIN_DEPTH],
+                                meta={"note": "the stencil1d cell's depth"})
+    before = dict(hopper.LAUNCHES)
+    ops_out = ops.stencil1d(xs, ws, ssr=True)
+    torch.cuda.synchronize()
+    ops_launched = {k_: v - before[k_] for k_, v in hopper.LAUNCHES.items()
+                    if v != before[k_]}
+    ops_same = bool(torch.equal(ops_out.view(torch.int32),
+                                main["stencil1d_ring"].view(torch.int32)))
+    emit({"phase": "ops_depth_dispatch", "cell": "stencil1d",
+          "committed": deep[HALO_MAIN_DEPTH].to_json(),
+          "launched": ops_launched, "same_bits_as_ring": ops_same})
+    if ops_launched != {"ring_halo_stencil1d": 1} or not ops_same:
+        raise SystemExit("chip_smoke: ops.stencil1d under a committed depth "
+                         "did not run R10, or not to its bits")
+    autotune.global_cache().put(st_key, lowering.DEFAULT_SCHEDULE)
 
     # -- 6. the degradation ladder on the card --------------------------------
     tuned, note = res.schedule, "the committed winner, committed again"

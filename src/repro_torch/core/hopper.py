@@ -30,19 +30,22 @@ gather_spmv       nest         K12: ``spmv`` (y += vals·x[cidx], a gather)
 gather_spmm       nest         K13: ``spmm`` (Y += vals·X[cidx, c])
 ================  ===========  =============================================
 
-A schedule deeper than 2 makes a call of K1–K8's families pipelined
+A schedule deeper than 2 makes a call of K1–K11's families pipelined
 (:attr:`~repro_torch.core.ssr.SsrKernel.pipelined`): it runs the ring kernel
 of :data:`RING_KERNELS` instead — R1 ``ring_reduce_mul``, R2
 ``ring_map_relu``, R3 ``ring_contract_gemm`` (its ring over 16-wide k
 chunks), R4 ``ring_contract_gemv`` (with the relu drain), R6
 ``ring_chain_elem`` (every program of K5), R7 ``ring_dag_layernorm``, R8
 ``ring_dag_softmax_xent`` and R9 ``ring_dag_mlp`` (every instantiation of
-K6–K8; R9's ring of step blocks feeds K8's 128-row tile) — whose read
-streams arrive through an N-deep ring of shared-memory slots filled by
-``cp.async``, each stream ``depth − 1`` fetches ahead (the reference's
-``_pipelined_call``), with the same arithmetic, so the same bits, as the
-sync kernel.  Its plain version is :func:`plain_ring` (:func:`ring_delivery`
-delivers the blocks).  K9–K16 stay synchronous at any depth.
+K6–K8; R9's ring of step blocks feeds K8's 128-row tile), R10
+``ring_halo_stencil1d`` (K9's items, with the relu drain), R11
+``ring_halo_stencil2d`` (K10's windows) and R12 ``ring_rescale_attention``
+(K11's K/V walk in units of 32 or 16 keys) — whose read streams arrive
+through an N-deep ring of shared-memory slots filled by ``cp.async``, each
+stream ``depth − 1`` fetches ahead (the reference's ``_pipelined_call``),
+with the same arithmetic, so the same bits, as the sync kernel.  Its plain
+version is :func:`plain_ring` (:func:`ring_delivery` delivers the blocks).
+K12–K16 stay synchronous at any depth.
 
 A ``ChainedKernel`` (a producer body, then a unary consumer body, on each
 step of a module's Launch, one output stream) runs as K17 ``chained_map``
@@ -63,8 +66,9 @@ pass).  A leading
 ``parallel`` grid axis is a batch of rows (the counterpart of ``vmap``).
 
 A halo'd read arrives as ``2**k`` shifted streams (the lowering's
-``HaloRead``); K9 and K10 read the widened block from the first slot's walk
-alone.  K11 runs the kv axis as a loop inside each CTA.  A gather's table
+``HaloRead``); K9 and K10 (and R10, R11) read the widened block from the
+first slot's walk alone.  K11 (and R12) runs the kv axis as a loop inside
+each CTA.  A gather's table
 arrives whole as the trailing read stream, with its address program
 (:class:`~repro_torch.core.agu.GatherAGU`); K12 and K13 read only the index
 block's positions that hold data, and compute addresses in 64 bits.
@@ -210,6 +214,15 @@ KERNELS: Dict[str, Dict[str, str]] = {
         "source": "src/repro_torch/csrc/ring_dag_softmax_xent.cu"},
     "ring_dag_mlp": {"replaces": "src/repro/core/ssr.py:215",
                      "source": "src/repro_torch/csrc/ring_dag_mlp.cu"},
+    "ring_halo_stencil1d": {"replaces": "src/repro/core/ssr.py:215",
+                            "source":
+                                "src/repro_torch/csrc/ring_halo_stencil1d.cu"},
+    "ring_halo_stencil2d": {"replaces": "src/repro/core/ssr.py:215",
+                            "source":
+                                "src/repro_torch/csrc/ring_halo_stencil2d.cu"},
+    "ring_rescale_attention": {
+        "replaces": "src/repro/core/ssr.py:215",
+        "source": "src/repro_torch/csrc/ring_rescale_attention.cu"},
 }
 
 #: Wrapper calls per kernel since the last :func:`reset_launches`: one per
@@ -228,8 +241,9 @@ KERNELS: Dict[str, Dict[str, str]] = {
 #: call over a head batch is one launch, and so is a K15 or K16 call over a
 #: batch of rows.
 #: A pipelined call counts its ring kernel (R4's drain as
-#: ``ring_contract_gemv``; an R1 call, or a reduce of R6 or R8, is two
-#: device launches, as K1's, K5's and K7's).  A ``chained_map`` or
+#: ``ring_contract_gemv``, R10's as ``ring_halo_stencil1d``; an R1 call, or
+#: a reduce of R6 or R8, is two device launches, as K1's, K5's and K7's; an
+#: R12 call over a head batch is one).  A ``chained_map`` or
 #: ``ring_chained_map`` call is one.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -381,6 +395,13 @@ _SIGNATURES = {
                               _SP, _SP, _SP, _RP, _I64, _I64, _I64, _P],
     "ring_dag_mlp": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _GP, _SP, _SP,
                      _SP, _SP, _RP, _I64, _I64, _I64, _P],
+    "ring_halo_stencil1d": [_P, _P, _P, _I, _I, _GP, _SP, _SP, _SP, _I64,
+                            _I64, _I, _RP, _I64, _P],
+    "ring_halo_stencil2d": [_P, _P, _P, _P, _I, _I, _GP, _SP, _SP, _SP, _SP,
+                            _RP, _I64, _P],
+    "ring_rescale_attention": [_P, _P, _P, _P, _I, _I, _GP, _SP, _SP, _SP,
+                               _SP, _I64, _I64, _P, ctypes.c_float, _I, _I64,
+                               _I64, _I64, _RP, _I64, _P],
 }
 #: Arguments of a kernel's ``ssr_<name>_smem_bytes`` (none for the rest).
 _SMEM_SIGNATURES = {"halo_stencil1d": [_I64], "halo_stencil2d": [_I64],
@@ -642,8 +663,9 @@ CHAINED_PROGRAMS: Dict[Tuple[str, str], int] = {
 #: (call mode, body op — or the tuple of stage ops of a fused chain or DAG)
 #: → the ring kernel a pipelined call of that family runs on the card
 #: (R1–R4; R6 for every key of K5, R7–R9 for every key of K6–K8, added
-#: beside :data:`DEVICE_KERNELS`); ``("chained", (producer op, consumer
-#: op))`` → R5 for a ChainedKernel.  K9–K16 stay synchronous at any depth.
+#: beside :data:`DEVICE_KERNELS`; R10–R12 for K9–K11's); ``("chained",
+#: (producer op, consumer op))`` → R5 for a ChainedKernel.  K12–K16 stay
+#: synchronous at any depth.
 RING_KERNELS: Dict[tuple, str] = {
     ("reduce", "mul"): "ring_reduce_mul",
     ("map", "relu"): "ring_map_relu",
@@ -656,6 +678,10 @@ RING_KERNELS: Dict[tuple, str] = {
     ("map", "axpy"): "ring_chain_elem",
     ("reduce", "identity"): "ring_chain_elem",
     **{("chained", pair): "ring_chained_map" for pair in CHAINED_PROGRAMS},
+    ("nest", "stencil1d"): "ring_halo_stencil1d",
+    ("nest", "stencil1d_relu"): "ring_halo_stencil1d",
+    ("nest", "stencil2d"): "ring_halo_stencil2d",
+    ("nest", "attn_scores"): "ring_rescale_attention",
 }
 #: R3's CTA tile (K3's): 128 x 128 outputs over 16-wide k chunks, the unit
 #: of its ring; an A slot's rows are padded by 16 bytes.
@@ -671,6 +697,21 @@ SMEM_OPTIN_BYTES = 232448
 #: slots are step blocks on that pitch.  The residual alone stages nothing.
 MLP_ROWS_TILE, MLP_PITCH = 128, 132
 MLP_STAGED_BYTES = 4 * (2 * 128 * 128 + MLP_ROWS_TILE * MLP_PITCH)
+#: R10's slot: one of K9's work items, 512 outputs and their halo on a
+#: 528-element stretch (``csrc/ssr_stencil1d.cuh``'s kStaged).
+STENCIL1D_STAGED = 528
+#: R11's slot: one of K10's windows, 42 staged rows on a 16-byte pitch: 140
+#: f32 or 144 bf16 elements (``csrc/ssr_stencil2d.cuh``).
+STENCIL2D_WIDE_ROWS = 42
+STENCIL2D_PITCH = {torch.float32: 140, torch.bfloat16: 144}
+#: R12's tiles by lanes tile D: (query rows a CTA, keys a ring unit).  A K
+#: slot is a unit of rows on a pitch of D elements and 16 bytes, a V slot a
+#: unit of rows of D; Q^T (D × rows, f32) is staged once a CTA, and the p
+#: tile (64 keys × rows + 4, f32) besides the ring
+#: (``csrc/ring_rescale_attention.cu``).
+ATTENTION_RING_TILES = {128: (128, 32), 256: (64, 16)}
+#: Keys a rescale of m, l and acc covers (K11's and R12's sub-tile).
+ATTENTION_SUBTILE = 64
 
 
 def device_ring(name: str, geo: StreamGeometry, ring: RingProgram,
@@ -684,7 +725,10 @@ def device_ring(name: str, geo: StreamGeometry, ring: RingProgram,
     and R6–R8 give an invariant stream the one slot it is fetched into.
     R9's slots are step blocks on the tile's pitch; its uniforms, staged
     whole (:func:`_staged_bytes`), are never among the streams it
-    ``reads``."""
+    ``reads``.  R10 and R11 ring the halo's first slot at its depth: the
+    shifted twins get no bytes, the invariant taps one slot of 11 floats;
+    R12 rings K and V in units of :data:`ATTENTION_RING_TILES` keys, and
+    counts Q as the one tile it stages, at depth 1."""
     dr = _device_ring(name, geo, ring, dtype)
     if reads is None:
         return dr
@@ -715,6 +759,22 @@ def _device_ring(name: str, geo: StreamGeometry, ring: RingProgram,
         tn = geo.ins[0].block[1]
         return RingProgram(ring.depths, ring.invariant,
                            (GEMV_RING_ROWS * tn * size, tn * size))
+    if name in ("ring_halo_stencil1d", "ring_halo_stencil2d"):
+        slot = STENCIL1D_STAGED * size if name == "ring_halo_stencil1d" \
+            else STENCIL2D_WIDE_ROWS * STENCIL2D_PITCH[dtype] * size
+        twins = set(geo.halos[0].slots[1:])
+        return RingProgram(
+            tuple(1 if inv else d
+                  for d, inv in zip(ring.depths, ring.invariant)),
+            ring.invariant,
+            tuple(slot if k == 0 else 0 if k in twins
+                  else STENCIL_TAPS * 4 for k in range(len(geo.ins))))
+    if name == "ring_rescale_attention":
+        d = geo.ins[0].block[1]
+        rows, unit = ATTENTION_RING_TILES[d]
+        return RingProgram(
+            (*ring.depths[:2], 1), ring.invariant,
+            (unit * (d + 16 // size) * size, unit * d * size, d * rows * 4))
     return RingProgram(ring.depths, ring.invariant,
                        tuple(math.prod(a.block) * size for a in geo.ins))
 
@@ -738,16 +798,26 @@ def _ring_refusal(op: tuple, name: str, geo: StreamGeometry,
         return reason.replace(f"{name}:", f"{rname}:", 1)
     ops = op[1] if isinstance(op[1], tuple) else (op[1],)
     return _ring_budget_refusal(rname, geo, dtype, ring,
-                                _staged_bytes(rname, ops), reads)
+                                _staged_bytes(rname, ops, geo), reads)
 
 
-def _staged_bytes(rname: str, ops: Sequence[str]) -> int:
+def _staged_bytes(rname: str, ops: Sequence[str],
+                  geo: StreamGeometry) -> int:
     """The shared memory ring kernel ``rname`` takes besides its ring,
     running the stage ``ops``: R9 stages K8's weights and tile but for the
-    residual alone; the others nothing."""
+    residual alone; R12 its p tile (Q is in its ring, one tile); the others
+    nothing."""
     if rname == "ring_dag_mlp" and tuple(ops) != ("mlp_residual",):
         return MLP_STAGED_BYTES
+    if rname == "ring_rescale_attention":
+        rows = ATTENTION_RING_TILES[geo.ins[0].block[1]][0]
+        return 4 * ATTENTION_SUBTILE * (rows + 4)
     return 0
+
+
+#: What a ring kernel's staged bytes hold, for its refusal.
+_STAGED_WHAT = {"ring_dag_mlp": "its staged weights and tile",
+                "ring_rescale_attention": "its p tile"}
 
 
 def _ring_budget_refusal(rname: str, geo: StreamGeometry, dtype: torch.dtype,
@@ -762,8 +832,7 @@ def _ring_budget_refusal(rname: str, geo: StreamGeometry, dtype: torch.dtype,
                 f"{len(geo.ins)} read streams")
     need = device_ring(rname, geo, ring, dtype, reads).ring_bytes + staged
     if need > SMEM_OPTIN_BYTES:
-        also = f" ({staged} of them its staged weights and tile)" \
-            if staged else ""
+        also = f" ({staged} of them {_STAGED_WHAT[rname]})" if staged else ""
         return (f"{rname}: its ring at depths {ring.depths} needs {need} "
                 f"bytes of shared memory a CTA{also}, the card allows "
                 f"{SMEM_OPTIN_BYTES}")
@@ -1093,69 +1162,109 @@ def _aligned16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _first_slot_ring(rname: str, geo: StreamGeometry, ring: RingProgram,
+                     dtype: torch.dtype) -> RingProgram:
+    """The one stream R10 and R11 ring: the halo's first slot, as
+    :func:`device_ring` sizes it (the twins and taps are not ringed)."""
+    dr = device_ring(rname, geo, ring, dtype)
+    return RingProgram(dr.depths[:1], (False,), dr.slot_bytes[:1])
+
+
+def _copies16(t: torch.Tensor, agu: BlockAGU) -> bool:
+    """Whether every block row of ``t`` along ``agu``'s walk starts 16-byte
+    aligned (base pointer, row pitch and block width)."""
+    return _vector_width((t,), (agu,)) == 16 // t.element_size()
+
+
 def _halo_stencil1d(name: str, geo: StreamGeometry,
                     layouts: Sequence[torch.Tensor], out_dtype: torch.dtype,
-                    program: Optional[Any], relu: bool) -> torch.Tensor:
-    dev = _checked(name, geo, layouts, program)
+                    program: Optional[Any], ring: Optional[RingProgram],
+                    relu: bool) -> torch.Tensor:
+    op = ("nest", "stencil1d_relu" if relu else "stencil1d")
+    dev = _checked(name, geo, layouts, program, ring, op)
     _f32_out(name, out_dtype)
     x, _twin, w = layouts
     ctas, per_cta = _ctas(dev, geo.steps, per_sm=STENCIL_PER_SM)
     out = torch.empty(geo.out_shape, dtype=torch.float32, device=dev)
-    vec = 4 if x.dtype == torch.float32 and _vector_width(
-        (x, out), (geo.ins[0], geo.out)) == 4 else 1
     g = _grid_arg(geo.grid)
     sx, sw, so = (_stream_arg(geo.ins[0], x), _stream_arg(geo.ins[2], w),
                   _stream_arg(geo.out, out))
-    _launch("halo_stencil1d", dev, x.data_ptr(), w.data_ptr(),
-            out.data_ptr(), _DTYPE_CODE[x.dtype], vec, ctypes.byref(g),
-            ctypes.byref(sx), ctypes.byref(sw), ctypes.byref(so), ctas,
-            per_cta, int(relu))
+    head = (x.data_ptr(), w.data_ptr(), out.data_ptr(), _DTYPE_CODE[x.dtype])
+    streams = (ctypes.byref(g), ctypes.byref(sx), ctypes.byref(sw),
+               ctypes.byref(so), ctas, per_cta, int(relu))
+    if ring is None:
+        vec = 4 if x.dtype == torch.float32 and _vector_width(
+            (x, out), (geo.ins[0], geo.out)) == 4 else 1
+        _launch("halo_stencil1d", dev, *head, vec, *streams)
+        return out
+    # R10 copies x in 16-byte packs and stores y in them where both allow
+    vec = 4 if _copies16(x, geo.ins[0]) and _vector_width(
+        (out,), (geo.out,)) == 4 else 1
+    xr = _first_slot_ring("ring_halo_stencil1d", geo, ring, x.dtype)
+    _launch("ring_halo_stencil1d", dev, *head, vec, *streams,
+            ctypes.byref(_ring_arg(xr)), xr.ring_bytes)
     return out
 
 
 def halo_stencil1d(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                    out_dtype: torch.dtype,
                    acc_dtype: torch.dtype = torch.float32,
-                   program: Optional[Any] = None) -> torch.Tensor:
+                   program: Optional[Any] = None,
+                   ring: Optional[RingProgram] = None) -> torch.Tensor:
     """K9: y block (1, t) = Σ_j w[j]·x[i+j] over the widened block (1, t +
-    10) read from x's first slot; the twin's walk is not read."""
+    10) read from x's first slot; the twin's walk is not read.  With
+    ``ring`` (a pipelined call) R10, x's items through a ring of the first
+    slot's depth, on K9's split of the steps, to K9's bits."""
     return _halo_stencil1d("halo_stencil1d", geo, layouts, out_dtype,
-                           program, relu=False)
+                           program, ring, relu=False)
 
 
 def halo_stencil1d_relu(geo: StreamGeometry,
                         layouts: Sequence[torch.Tensor],
                         out_dtype: torch.dtype,
                         acc_dtype: torch.dtype = torch.float32,
-                        program: Optional[Any] = None) -> torch.Tensor:
+                        program: Optional[Any] = None,
+                        ring: Optional[RingProgram] = None) -> torch.Tensor:
     """K9 with its relu drain: y = max(0, Σ_j w[j]·x[i+j]), selected as K2
-    selects it (``stencil1d_relu``)."""
+    selects it (``stencil1d_relu``); R10 with its drain with ``ring``."""
     return _halo_stencil1d("halo_stencil1d_relu", geo, layouts, out_dtype,
-                           program, relu=True)
+                           program, ring, relu=True)
 
 
 def halo_stencil2d(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                    out_dtype: torch.dtype,
                    acc_dtype: torch.dtype = torch.float32,
-                   program: Optional[Any] = None) -> torch.Tensor:
+                   program: Optional[Any] = None,
+                   ring: Optional[RingProgram] = None) -> torch.Tensor:
     """K10: the 11-point star over each block, widened by 10 rows and 10
-    columns, read from x's first slot; the three twins are not read."""
-    dev = _checked("halo_stencil2d", geo, layouts, program)
+    columns, read from x's first slot; the three twins are not read.  With
+    ``ring`` (a pipelined call) R11, K10's windows through a ring of the
+    first slot's depth, on as many persistent CTAs as fit the card, to
+    K10's bits."""
+    dev = _checked("halo_stencil2d", geo, layouts, program, ring,
+                   ("nest", "stencil2d"))
     _f32_out("halo_stencil2d", out_dtype)
     x, wx, wy = layouts[0], layouts[4], layouts[5]
     out = torch.empty(geo.out_shape, dtype=torch.float32, device=dev)
-    vec = 4 if x.dtype == torch.float32 and _vector_width(
-        (x,), (geo.ins[0],)) == 4 else 1
     g = _grid_arg(geo.grid)
     sx, swx, swy, so = (_stream_arg(geo.ins[0], x),
                         _stream_arg(geo.ins[4], wx),
                         _stream_arg(geo.ins[5], wy),
                         _stream_arg(geo.out, out))
-    ctas = 4 * _card(dev).multi_processor_count      # persistent (f32)
-    _launch("halo_stencil2d", dev, x.data_ptr(), wx.data_ptr(),
-            wy.data_ptr(), out.data_ptr(), _DTYPE_CODE[x.dtype], vec,
-            ctypes.byref(g), ctypes.byref(sx), ctypes.byref(swx),
-            ctypes.byref(swy), ctypes.byref(so), ctas)
+    head = (x.data_ptr(), wx.data_ptr(), wy.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[x.dtype])
+    streams = (ctypes.byref(g), ctypes.byref(sx), ctypes.byref(swx),
+               ctypes.byref(swy), ctypes.byref(so))
+    if ring is None:
+        vec = 4 if x.dtype == torch.float32 and _vector_width(
+            (x,), (geo.ins[0],)) == 4 else 1
+        ctas = 4 * _card(dev).multi_processor_count      # persistent (f32)
+        _launch("halo_stencil2d", dev, *head, vec, *streams, ctas)
+        return out
+    xr = _first_slot_ring("ring_halo_stencil2d", geo, ring, x.dtype)
+    _launch("ring_halo_stencil2d", dev, *head,
+            4 if _copies16(x, geo.ins[0]) else 1, *streams,
+            ctypes.byref(_ring_arg(xr)), xr.ring_bytes)
     return out
 
 
@@ -1178,17 +1287,20 @@ def _heads(name: str, layouts: Sequence[torch.Tensor]
 def rescale_attention(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                       out_dtype: torch.dtype,
                       acc_dtype: torch.dtype = torch.float32,
-                      program: Optional[Any] = None) -> torch.Tensor:
+                      program: Optional[Any] = None,
+                      ring: Optional[RingProgram] = None) -> torch.Tensor:
     """K11: O = softmax(Q·Kᵀ·scale + mask)·V for every head of the batch in
     one launch, the kv walk a loop inside each CTA carrying m, l and acc.
     The mask is the body's parameters: (causal, window, scale, sk − sq,
-    sk)."""
+    sk).  With ``ring`` (a pipelined call) R12: K and V through rings of
+    their streams' depths in units of :data:`ATTENTION_RING_TILES` keys,
+    Q staged once a CTA, to K11's bits."""
     name = "rescale_attention"
     # K11 loads rows in 16-byte packs: a layout that is a view starting off
     # a 16-byte boundary (a slice of a larger tensor) is copied once
     layouts = [_aligned16(t) for t in layouts]
     heads, head0 = _heads(name, layouts)
-    dev = _checked(name, geo, head0, program)
+    dev = _checked(name, geo, head0, program, ring, ("nest", "attn_scores"))
     if acc_dtype != torch.float32:
         raise TypeError(f"{name}: carries m, l and acc in float32, the "
                         f"schedule asks for {acc_dtype}")
@@ -1206,12 +1318,19 @@ def rescale_attention(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                        _stream_arg(geo.ins[1], head0[1]),
                        _stream_arg(geo.ins[2], head0[2]),
                        _stream_arg(geo.out, out if out.dim() == 2 else out[0]))
-    _launch(name, dev, k.data_ptr(), v.data_ptr(), q.data_ptr(),
-            out.data_ptr(), _DTYPE_CODE[k.dtype], _DTYPE_CODE[out_dtype],
-            ctypes.byref(g), ctypes.byref(sk_), ctypes.byref(sv),
-            ctypes.byref(sq), ctypes.byref(so), geo.contraction_steps, heads,
-            strides, float(scale), int(bool(causal)),
+    args = (k.data_ptr(), v.data_ptr(), q.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[k.dtype], _DTYPE_CODE[out_dtype], ctypes.byref(g),
+            ctypes.byref(sk_), ctypes.byref(sv), ctypes.byref(sq),
+            ctypes.byref(so), geo.contraction_steps, heads, strides,
+            float(scale), int(bool(causal)),
             -1 if window is None else int(window), int(off_rc), int(sk))
+    if ring is None:
+        _launch(name, dev, *args)
+        return out
+    dr = device_ring("ring_rescale_attention", geo, ring, k.dtype)
+    _launch("ring_rescale_attention", dev, *args,
+            ctypes.byref(_ring_arg(dr)),
+            dr.ring_bytes + _staged_bytes("ring_rescale_attention", (), geo))
     return out
 
 
@@ -2000,7 +2119,7 @@ def dag_mlp(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
         rows = geo.steps * geo.out.block[0]  # 128-row tiles, persistent CTAs
         _launch("dag_mlp", dev, *head, min(-(-rows // MLP_ROWS_TILE), sms))
         return out
-    staged = _staged_bytes("ring_dag_mlp", program.ops)
+    staged = _staged_bytes("ring_dag_mlp", program.ops, geo)
     dr = _read_ring("ring_dag_mlp", res, names, geo, ring, staged)
     per_tile = max(1, MLP_ROWS_TILE // geo.out.block[0])
     _launch("ring_dag_mlp", dev, *head, ctypes.byref(_ring_arg(dr)),
@@ -2481,7 +2600,9 @@ RESCALE_FILL = -1e30   # the initial running max (and the masks' fill)
 
 def plain_rescale(body: Callable, geo: StreamGeometry,
                   layouts: Sequence[torch.Tensor], out_dtype: torch.dtype,
-                  acc_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                  acc_dtype: torch.dtype = torch.float32,
+                  inputs: Optional[Tuple[list, tuple]] = None
+                  ) -> torch.Tensor:
     """Online-softmax epilogue: per output block, the m/l/acc recurrence
     over its kv steps in grid order, drained as ``acc / max(l, 1e-30)``.
 
@@ -2489,13 +2610,14 @@ def plain_rescale(body: Callable, geo: StreamGeometry,
     value block ``v`` of one step (``offs``: the step's global offset of
     every loop level); ``m`` starts at ``RESCALE_FILL``.  The parallel steps
     run at once (``torch.vmap``).  3-D layouts are a head batch: each head
-    runs alike and the heads stack.
+    runs alike and the heads stack.  ``inputs`` are one head's blocks as
+    delivered (by the ring: :func:`plain_ring`).
     """
     if layouts and layouts[0].dim() == 3:
         return torch.stack([plain_rescale(body, geo, [t[h] for t in layouts],
                                           out_dtype, acc_dtype)
                             for h in range(layouts[0].shape[0])])
-    blocks, dims = _step_inputs(geo, layouts)
+    blocks, dims = inputs or _step_inputs(geo, layouts)
     z = geo.contraction_steps
     par = geo.steps // z
     steps = grid_steps(geo.grid, layouts[0].device)
@@ -2658,9 +2780,18 @@ def plain_ring(body: Callable, geo: StreamGeometry,
                ring: RingProgram, steps_per_cta: Optional[int] = None
                ) -> Tuple[torch.Tensor, list]:
     """A pipelined kernel's plain version: the blocks of
-    :func:`plain_reduce`, :func:`plain_map` or :func:`plain_contract`
-    (``mode``) delivered through ``ring`` (:func:`ring_delivery`), then the
-    same computation.  Returns the result and the fetch log."""
+    :func:`plain_reduce`, :func:`plain_map`, :func:`plain_contract` or
+    :func:`plain_rescale` (``mode``, a key of :data:`PLAIN`: the kernel's
+    ``plain_kind``) delivered through ``ring`` (:func:`ring_delivery`), then
+    the same computation.  3-D layouts are a head batch: each head through
+    the ring alike, the results stacked.  Returns the result and the fetch
+    log (one head's)."""
+    if layouts and layouts[0].dim() == 3:
+        runs = [plain_ring(body, geo, [t[h] for t in layouts], out_dtype,
+                           acc_dtype, mode=mode, ring=ring,
+                           steps_per_cta=steps_per_cta)
+                for h in range(layouts[0].shape[0])]
+        return torch.stack([r[0] for r in runs]), runs[0][1]
     inputs, log = ring_delivery(geo, layouts, ring, steps_per_cta)
     out = PLAIN[mode](body, geo, layouts, out_dtype, acc_dtype,
                       inputs=inputs)

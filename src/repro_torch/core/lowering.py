@@ -114,7 +114,7 @@ class Schedule:
     * ``buffer_depth``/``stream_depths`` — the data mover's FIFO depth,
       uniform or per read stream.  Validated (2..8) and accounted in
       :class:`~repro_torch.core.ssr.StreamReport`; above 2 the kernels of
-      K1–K8's families run their ring kernels (R1–R4, R6–R9), the others
+      K1–K11's families run their ring kernels (R1–R4, R6–R12), the others
       stay synchronous (:attr:`~repro_torch.core.ssr.SsrKernel.pipelined`);
     * ``cut_edges`` — for fused-DAG calls (:func:`ssr_dag_call`), the
       graph cut: the edges whose intermediates go through device memory,

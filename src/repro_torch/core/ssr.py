@@ -27,11 +27,11 @@ card.  A schedule deeper than 2 (``buffer_depth`` or ``stream_depths``)
 makes a kernel :attr:`SsrKernel.pipelined` where its family stages — the
 reference's ``_pipelined_call``: its read streams then arrive through an
 N-deep ring (:class:`~repro_torch.core.agu.RingProgram`), on the card in
-shared memory (the ring kernels R1–R4 and R6–R9 of
+shared memory (the ring kernels R1–R4 and R6–R12 of
 :data:`hopper.RING_KERNELS`), on the CPU in :func:`hopper.plain_ring`.
 The chains of K5 and the DAGs of K6–K8 stage too (each a
-:class:`StageKernel`); the halo, attention, gather and stream kernels run
-synchronously at any depth.
+:class:`StageKernel`), and so do the halo (K9, K10) and attention (K11)
+kernels; the gather and stream kernels run synchronously at any depth.
 """
 
 from __future__ import annotations
@@ -67,8 +67,8 @@ def pipeline_supported() -> bool:
 
     Always, but for ``REPRO_DISABLE_PIPELINE``: a switch kept for parity
     with the reference's opt-out, under which every kernel runs its
-    synchronous (depth-2) version, on the card K1–K8 in place of R1–R4
-    and R6–R9, K17 in place of R5.
+    synchronous (depth-2) version, on the card K1–K11 in place of R1–R4
+    and R6–R12, K17 in place of R5.
     Semantics are identical either way; ``chip_smoke.py`` refuses to run
     under it, since its rings would not run.
     """
@@ -387,7 +387,7 @@ class SsrKernel:
         if self.pipelined:
             return hopper.plain_ring(self.body, self.geometry, layouts,
                                      self.out_dtype, self.acc_dtype,
-                                     mode=self.mode, ring=self.ring)[0]
+                                     mode=self.plain_kind, ring=self.ring)[0]
         return hopper.PLAIN[self.plain_kind](self.body, self.geometry,
                                              layouts, self.out_dtype,
                                              self.acc_dtype)

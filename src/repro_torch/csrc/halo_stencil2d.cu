@@ -29,121 +29,15 @@
 // shared-memory reads take 0.27 wavefronts an output, where a thread of
 // four rows and four strided columns reading 4 bytes a tap took 0.45.
 // Taps run in the reference's order: per j the wx arm, then the wy arm.
-#include "ssr_common.cuh"
+// The windows, the taps and compute_window are ssr_stencil2d.cuh, which
+// R11 ring_halo_stencil2d runs too.
+#include "ssr_stencil2d.cuh"
 
 namespace {
 
-constexpr int kTaps = 11;
-constexpr int kR = kTaps / 2;
-constexpr int kRows = 32;                     // CTA output tile
-constexpr int kCols = 128;
-constexpr int kThreads = 128;                 // 4 row groups x 32 columns of 4
-constexpr int kRowsPer = kRows / (kThreads / 32);   // rows a thread owns
-constexpr int kWideRows = kRows + kTaps - 1;  // 42
-constexpr int kWideCols = kCols + kTaps - 1;  // 138
-constexpr int kPitch = 140;                   // staged row, 16-byte multiple
+using namespace stencil2d;
+
 constexpr int kWinStages = 2;                 // f32 windows in the ring
-
-// A window: one 32 x 128 output sub-tile of a grid step's block, its
-// widened input at `src` (rows x cols outputs, + 10 each way) and its
-// output at `dst`.
-template <typename T>
-struct Window {
-  const T* src;
-  float* dst;
-  int rows, cols;
-};
-
-template <typename T>
-__device__ __forceinline__ Window<T> window_of(int64_t w, const T* x, float* y,
-                                               const SsrGrid& g,
-                                               const SsrStream& sx,
-                                               const SsrStream& sy,
-                                               int64_t subr, int64_t subc) {
-  const int64_t per_step = subr * subc;
-  const int64_t step = w / per_step, rem = w % per_step;
-  const int64_t r0 = (rem / subc) * kRows, c0 = (rem % subc) * kCols;
-  const SsrOdometer odo(g, step);
-  Window<T> win;
-  win.rows = static_cast<int>(sx.block[0] - r0 < kRows ? sx.block[0] - r0 : kRows);
-  win.cols = static_cast<int>(sx.block[1] - c0 < kCols ? sx.block[1] - c0 : kCols);
-  win.src = x + odo.origin(sx) + r0 * sx.pitch + c0;
-  win.dst = y + odo.origin(sy) + r0 * sy.pitch + c0;
-  return win;
-}
-
-// Columns 5 + c .. 8 + c of staged row `row`: the wy arm's four values for
-// a thread's columns c .. c + 3, from two aligned 16-byte reads.
-__device__ __forceinline__ float4 wy_cols(const float* xs, int row, int c) {
-  const float4* r = reinterpret_cast<const float4*>(xs + row * kPitch + c);
-  const float4 a = r[1], b = r[2];
-  return make_float4(a.y, a.z, a.w, b.x);
-}
-
-__device__ __forceinline__ float lane_of(const float4& v, int m) {
-  return m == 0 ? v.x : m == 1 ? v.y : m == 2 ? v.z : v.w;
-}
-
-// The taps of one window from its staged input.  A thread owns eight rows
-// and four consecutive columns; it walks its rows keeping the wy arm's
-// eleven rows in a register ring (one new row a step) and reads the wx
-// arm's fourteen values of each row as four 16-byte reads: 68 16-byte
-// reads for its 32 outputs.  Each output sums per j the wx arm, then the
-// wy arm, from zero.
-__device__ __forceinline__ void compute_window(const float* xs, const float* wxs,
-                                               const float* wys, float* dst,
-                                               int64_t pitch, int rows, int cols) {
-  const int r0 = kRowsPer * (threadIdx.x >> 5), c = 4 * (threadIdx.x & 31);
-  float wx[kTaps], wy[kTaps];
-#pragma unroll
-  for (int j = 0; j < kTaps; ++j) {
-    wx[j] = wxs[j];
-    wy[j] = wys[j];
-  }
-  float4 ycols[kTaps];
-#pragma unroll
-  for (int q = 0; q < kTaps - 1; ++q) ycols[q] = wy_cols(xs, r0 + q, c);
-#pragma unroll
-  for (int i = 0; i < kRowsPer; ++i) {
-    if (r0 + i >= rows) break;
-    ycols[(i + kTaps - 1) % kTaps] = wy_cols(xs, r0 + i + kTaps - 1, c);
-    float xr[16];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float4 v = reinterpret_cast<const float4*>(xs + (r0 + i + kR) * kPitch + c)[q];
-      xr[4 * q] = v.x; xr[4 * q + 1] = v.y; xr[4 * q + 2] = v.z; xr[4 * q + 3] = v.w;
-    }
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < kTaps; ++j)
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        acc[m] = acc[m] + wx[j] * xr[m + j];
-        acc[m] = acc[m] + wy[j] * lane_of(ycols[(i + j) % kTaps], m);
-      }
-    float* out = dst + (r0 + i) * pitch + c;
-    if (c + 3 < cols && (reinterpret_cast<uintptr_t>(out) & 15) == 0) {
-      *reinterpret_cast<float4*>(out) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    } else {
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-        if (c + m < cols) out[m] = acc[m];
-    }
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void load_taps(const T* wx, const T* wy,
-                                          const SsrStream& swx,
-                                          const SsrStream& swy,
-                                          const SsrGrid& g, float* wxs,
-                                          float* wys) {
-  if (threadIdx.x < kTaps) {
-    const SsrOdometer odo(g, 0);
-    wxs[threadIdx.x] = ssr_f32(wx[odo.origin(swx) + threadIdx.x]);
-    wys[threadIdx.x] = ssr_f32(wy[odo.origin(swy) + threadIdx.x]);
-  }
-}
 
 // f32: persistent CTAs walk the windows grid-stride (the CTAs of one wave
 // take neighbouring windows, whose halos meet in L2) through two

@@ -43,68 +43,14 @@
 //     thread a sub-tile; shared memory 54,784 floats (214 KiB), within the
 //     227 KiB a CTA can opt into.  kBQ = 128 at D = 256 would need 294 KiB.
 // Either way a thread holds 64 accumulator floats.  The padded lanes add 0
-// to every score and leave 0 in acc.  Other lanes tiles are refused.
-#include "ssr_common.cuh"
+// to every score and leave 0 in acc.  Other lanes tiles are refused.  The
+// mask, the rescale, the p v products and the drain are ssr_attention.cuh,
+// which R12 ring_rescale_attention runs too.
+#include "ssr_attention.cuh"
 
 namespace {
 
-constexpr int kBK = 64;        // keys per sub-tile
-constexpr int kThreads = 256;  // kBQ / 8 row groups x kD / 8 column groups
-constexpr int kChunk = 8;      // 16-byte packs of K and of V a thread holds
-constexpr float kFill = -1e30f;
-
-// The CTA's tiles for a lanes tile of D: kBQ query rows.
-template <int D, int BQ>
-struct Tiles {
-  static constexpr int kD = D;
-  static constexpr int kBQ = BQ;
-  static constexpr int kRowGroups = BQ / 8;
-  static constexpr int kColGroups = kThreads / kRowGroups;
-  static constexpr int kSC = kBK / kColGroups;       // scores a thread
-  static constexpr int kQPitch = BQ + 4;
-  static constexpr int kKPitch = kBK + 1;
-  static constexpr int kPPitch = BQ + 4;
-  static constexpr int kSmemFloats = D * kQPitch + D * kKPitch + kBK * D + kBK * kPPitch;
-  static constexpr int kQPacks = BQ * D / 4 / kThreads;   // 16-byte packs a
-  static constexpr int kKPacks = kBK * D / 4 / kThreads;  // thread stages
-  static_assert(kColGroups * 8 == D, "a thread holds 8 lanes of acc");
-  static_assert(kColGroups <= 32 && kSC >= 1, "a row group within a warp");
-  static_assert(kKPacks % kChunk == 0, "whole chunks of K and V");
-};
-using Tiles128 = Tiles<128, 128>;
-using Tiles256 = Tiles<256, 64>;
-
-__device__ __forceinline__ int64_t block_row(const SsrOdometer& o,
-                                             const SsrStream& s) {
-  int64_t i0 = s.offset[0];
-#pragma unroll
-  for (int k = 0; k < SSR_MAX_AXES; ++k) i0 += o.g[k] * s.coeff[k][0];
-  return i0 * s.block[0];
-}
-
-// Four consecutive elements of a row as floats: one 16-byte (f32) or
-// 8-byte (bf16) load; the wrapper checked the alignment.
-template <typename T>
-__device__ __forceinline__ float4 load4(const T* p);
-template <>
-__device__ __forceinline__ float4 load4<float>(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-template <>
-__device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-struct Mask {
-  float scale;
-  int causal;
-  int64_t window;   // < 0: none
-  int64_t off_rc;   // sk - sq: query rows align to the keys' end
-  int64_t sk;       // keys past sk are padding
-};
+using namespace attention;
 
 template <typename L, typename T, typename O>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -115,7 +61,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                              int64_t qsub, int64_t nblocks, int64_t hk,
                              int64_t hv, int64_t hq, int64_t ho, Mask mk) {
   constexpr int kD = L::kD, kBQ = L::kBQ, kCG = L::kColGroups, kSC = L::kSC;
-  constexpr int kQPitch = L::kQPitch, kKPitch = L::kKPitch, kPPitch = L::kPPitch;
+  constexpr int kQPitch = L::kQPitch, kKPitch = L::kKPitch;
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;                    // [kD][kQPitch]: Q transposed
   float* kt = qt + kD * kQPitch;       // [kD][kKPitch]: K transposed
@@ -174,9 +120,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int64_t j0 = 0; j0 < sk.block[0]; j0 += kBK) {
       const int kvalid = static_cast<int>(sk.block[0] - j0 < kBK ? sk.block[0] - j0 : kBK);
       const int64_t kv0 = kv_block + j0;
-      if (kv0 >= mk.sk || (mk.causal && kv0 > row_max) ||
-          (mk.window >= 0 && kv0 + kvalid - 1 <= row_min - mk.window))
-        continue;
+      if (masked_out(kv0, kvalid, row_min, row_max, mk)) continue;
       // K (transposed) and V of the sub-tile, a chunk of packs at a time:
       // a chunk's loads all issued before its stores, the first chunk's
       // before the barrier, so the sub-tile costs one or two trips to memory
@@ -222,71 +166,14 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int k = 0; k < kSC; ++k) s[i][k] = fmaf(qv[i], kk[k], s[i][k]);
       }
 
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int64_t row = row0 + 8 * tr + i;
-        float mx = kFill;
-#pragma unroll
-        for (int k = 0; k < kSC; ++k) {
-          const int c = tc + kCG * k;
-          const int64_t col = kv0 + c;
-          const bool keep = c < kvalid && col < mk.sk &&
-                            (!mk.causal || col <= row) &&
-                            (mk.window < 0 || col > row - mk.window);
-          s[i][k] = keep ? s[i][k] * mk.scale : kFill;
-          mx = fmaxf(mx, s[i][k]);
-        }
-#pragma unroll
-        for (int o = 1; o < kCG; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-        const float m_new = fmaxf(m[i], mx);
-        const float alpha = expf(m[i] - m_new);
-        float sum = 0.f;
-#pragma unroll
-        for (int k = 0; k < kSC; ++k) {
-          s[i][k] = expf(s[i][k] - m_new);
-          sum += s[i][k];
-        }
-#pragma unroll
-        for (int o = 1; o < kCG; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        l[i] = l[i] * alpha + sum;
-        m[i] = m_new;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] *= alpha;
-      }
-#pragma unroll
-      for (int k = 0; k < kSC; ++k) {
-        float4* dst = reinterpret_cast<float4*>(pt + (tc + kCG * k) * kPPitch + 8 * tr);
-        dst[0] = make_float4(s[0][k], s[1][k], s[2][k], s[3][k]);
-        dst[1] = make_float4(s[4][k], s[5][k], s[6][k], s[7][k]);
-      }
+      rescale<L>(s, m, l, acc, pt, row0, tr, tc, kv0, kvalid, mk);
       __syncthreads();
 
-#pragma unroll 4
-      for (int c = 0; c < kBK; ++c) {
-        const float4 pa = reinterpret_cast<const float4*>(pt + c * kPPitch)[2 * tr];
-        const float4 pb = reinterpret_cast<const float4*>(pt + c * kPPitch)[2 * tr + 1];
-        const float4 va = reinterpret_cast<const float4*>(vs + c * kD)[2 * tc];
-        const float4 vb = reinterpret_cast<const float4*>(vs + c * kD)[2 * tc + 1];
-        const float pv[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
-        const float vv[8] = {va.x, va.y, va.z, va.w, vb.x, vb.y, vb.z, vb.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-      }
+      accumulate_pv<L, kBK>(acc, pt, vs, kD, tr, tc);
     }
   }
 
-  // drain: acc / max(l, 1e-30), cast to the output dtype
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = 8 * tr + i;
-    if (r >= nrows) break;
-    const float lmax = fmaxf(l[i], 1e-30f);
-    O* dst = out + r * so.pitch + 8 * tc;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[j] = ssr_cast<O>(acc[i][j] / lmax);
-  }
+  drain(acc, l, out, so.pitch, nrows, tr, tc);
 }
 
 template <typename L, typename T, typename O>

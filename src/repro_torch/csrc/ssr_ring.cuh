@@ -1,4 +1,4 @@
-// The N-deep stage ring of the pipelined Hopper kernels (R1-R4).
+// The N-deep stage ring of the pipelined Hopper kernels (R1-R12).
 //
 // Replaces the rotation of repro/core/ssr.py:_pipelined_call, which a
 // schedule with buffer_depth > 2 (or per-stream stream_depths) emits on the
@@ -28,16 +28,18 @@
 //
 // wait_group takes an immediate, so the depth stays a runtime argument and
 // ssr_ring_wait switches over the counts (depth <= 8).  A copy moves 16
-// bytes where the wrapper found the layout aligned for it, else 4 bytes
-// (f32, int32), else one 2-byte element through a load and st.shared: still
-// issued depth - 1 steps ahead, into the same slot.
+// bytes where the wrapper found the layout aligned for it (a row's last
+// pack partial where its width asks), else 4 bytes (f32, int32), else one
+// 2-byte element through a load and st.shared: still issued depth - 1
+// steps ahead, into the same slot.
 #pragma once
 
 #include "ssr_common.cuh"
 
 // Depth of each read stream (2..8; one slot for a stream whose block never
 // moves, where the kernel allocates one) and whether its block never moves.
-// R1-R4 use the first two entries, R6 all three.
+// R10 and R11 use the first entry, R1-R4 and R12 the first two, R6 all
+// three.
 struct SsrRing {
   int64_t depth[3];
   int64_t invariant[3];
@@ -60,6 +62,17 @@ __device__ __forceinline__ void ssr_ring_cp4(void* smem, const void* gmem,
                : "memory");
 }
 
+// cp.async of the first `bytes` (0..16) of a 16-byte pack; the rest of the
+// destination pack is zero-filled and nothing past `bytes` is read.  Both
+// addresses are 16-byte aligned.
+__device__ __forceinline__ void ssr_ring_cp16_part(void* smem, const void* gmem,
+                                                   int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(bytes)
+               : "memory");
+}
+
 // Wait until at most `pending` of this thread's cp.async groups are in
 // flight (0 <= pending <= 6).
 __device__ __forceinline__ void ssr_ring_wait(int pending) {
@@ -76,8 +89,10 @@ __device__ __forceinline__ void ssr_ring_wait(int pending) {
 
 // Copy a rows x cols tile of T (row pitch `pitch` elements in device
 // memory) to shared memory (row stride `ld` elements), by thread `lane` of
-// the `nthreads` that fetch this stream.  `vec16`: every row start and
-// width allows 16-byte copies (the wrapper checked).
+// the `nthreads` that fetch this stream.  `vec16`: every row start allows
+// 16-byte copies (the wrapper checked), and `ld` is a multiple of 16
+// bytes; a row whose width is no multiple of 16 bytes ends in a partial
+// copy (the rest of its last pack zero-filled, nothing past the row read).
 template <typename T>
 __device__ __forceinline__ void ssr_ring_copy(T* dst, int ld, const T* src,
                                               int64_t pitch, int rows,
@@ -85,9 +100,13 @@ __device__ __forceinline__ void ssr_ring_copy(T* dst, int ld, const T* src,
                                               int nthreads) {
   if (vec16) {
     constexpr int V = 16 / sizeof(T);
-    for (SsrBlockWalk w(lane, nthreads, cols / V); w.r < rows; w.next())
-      ssr_ring_cp16(dst + w.r * ld + w.c * V,
-                    src + static_cast<int64_t>(w.r) * pitch + w.c * V, true);
+    for (SsrBlockWalk w(lane, nthreads, (cols + V - 1) / V); w.r < rows;
+         w.next()) {
+      const int left = cols - w.c * V;
+      ssr_ring_cp16_part(dst + w.r * ld + w.c * V,
+                         src + static_cast<int64_t>(w.r) * pitch + w.c * V,
+                         static_cast<int>(sizeof(T)) * (left < V ? left : V));
+    }
   } else {
     for (SsrBlockWalk w(lane, nthreads, cols); w.r < rows; w.next()) {
       T* d = dst + w.r * ld + w.c;
@@ -97,6 +116,26 @@ __device__ __forceinline__ void ssr_ring_copy(T* dst, int ld, const T* src,
       else
         *d = *s;
     }
+  }
+}
+
+// Copy a run of `n` consecutive elements of T to shared memory, by thread
+// `lane` of the `nthreads` that fetch it: as ssr_ring_copy's one row, but
+// with no row walk to set up, whose divisions cost more than the one or
+// two copies a thread makes of a short run (R10's item).
+template <typename T>
+__device__ __forceinline__ void ssr_ring_copy_run(T* dst, const T* src, int n,
+                                                  bool vec16, int lane,
+                                                  int nthreads) {
+  if (!vec16) {
+    ssr_ring_copy<T>(dst, n, src, 0, 1, n, false, lane, nthreads);
+    return;
+  }
+  constexpr int V = 16 / sizeof(T);
+  for (int p = lane; p * V < n; p += nthreads) {
+    const int left = n - p * V;
+    ssr_ring_cp16_part(dst + p * V, src + p * V,
+                       static_cast<int>(sizeof(T)) * (left < V ? left : V));
   }
 }
 

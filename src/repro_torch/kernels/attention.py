@@ -11,7 +11,9 @@ padded-column masks are index arithmetic in the body (against the step's
 global offsets), filled with −1e30.
 
 On the card the recurrence runs as K11 ``rescale_attention``
-(``csrc/rescale_attention.cu``), the kv walk a loop inside each CTA.  The
+(``csrc/rescale_attention.cu``), the kv walk a loop inside each CTA; a
+schedule deeper than 2 runs R12 ``ring_rescale_attention``, K11's
+arithmetic with K and V arriving through N-deep rings.  The
 mask parameters are the body's :class:`~repro_torch.core.ssr.KernelBody`
 ``params``, so each keys the kernel caches.
 

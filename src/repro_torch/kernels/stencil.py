@@ -11,7 +11,10 @@ On the card the 1-D stencil runs as K9 ``halo_stencil1d``
 (``csrc/halo_stencil1d.cu``) and the 2-D one as K10 ``halo_stencil2d``
 (``csrc/halo_stencil2d.cu``); each reads the widened block straight from
 the first slot's walk, so the twins stay in the plan and its accounting but
-are never read.  The 1-D baseline is the reference's monolithic kernel (one
+are never read.  A schedule deeper than 2 runs them as the ring kernels R10
+``ring_halo_stencil1d`` and R11 ``ring_halo_stencil2d``: the same
+arithmetic, the widened items or windows arriving through an N-deep ring
+at the first slot's depth.  The 1-D baseline is the reference's monolithic kernel (one
 explicit dynamic-slice load per tap), on the card B5 ``base_stencil1d``
 (``csrc/base_stencil1d.cu``).  ``cluster_stencil1d`` arrives with the
 cluster (port slice 7).

@@ -1635,3 +1635,188 @@ def test_ring_dag_mlp_over_the_budget_raises_on_the_card(dev):
         call.run()
     assert str(hopper.SMEM_OPTIN_BYTES) in str(err.value)
     assert hopper.LAUNCHES == before
+
+
+# -- the halo and attention rings (R10–R12) -----------------------------------
+
+
+def _zeroed_end_blocks(call):
+    """The call's layouts with every moving stream's first and last blocks
+    zeroed (a head batch: every head's): what a ring that delivered another
+    block in a slot would have read.  The last block too, since a mask can
+    hide the first from every query (a sliding window)."""
+    out = []
+    for t, agu in zip(call.layouts, call.kernel.geometry.ins):
+        if any(any(c) for c in agu.coeffs):
+            t = t.clone()
+            rows, cols = agu.block
+            t[..., :rows, :cols] = 0
+            t[..., -rows:, -cols:] = 0
+        out.append(t)
+    return tuple(out)
+
+
+def _ring_is_sync(make, depth, sync, ring):
+    """``make(schedule)``'s call at ``depth`` (pipelined, launching only
+    ``ring``) against its depth-2 twin (launching only ``sync``), to the
+    bit, beside the ring on the end blocks zeroed, which must differ."""
+    deep, flat = make(_depth(depth)), make(lowering.DEFAULT_SCHEDULE)
+    assert deep.kernel.pipelined and not flat.kernel.pipelined
+    assert hopper.RING_KERNELS[deep.kernel.device_key] == ring
+    before = dict(hopper.LAUNCHES)
+    got = deep.run()
+    assert _launched(before) == {ring}
+    before = dict(hopper.LAUNCHES)
+    want = flat.run()
+    assert _launched(before) == {sync}
+    bits = torch.int32 if got.dtype == torch.float32 else torch.int16
+    assert torch.equal(got.contiguous().view(bits), want.contiguous().view(bits)), \
+        float((got.float() - want.float()).abs().max())
+    zeroed = deep.finish(deep.kernel(*_zeroed_end_blocks(deep)))
+    assert not torch.equal(zeroed.contiguous().view(bits),
+                           want.contiguous().view(bits))
+
+
+@pytest.mark.parametrize("depth", [3, 4, 8, (4, 2, 2), (2, 4, 2)], ids=str)
+@pytest.mark.parametrize("n", [1025, 5000, (1 << 20) + 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("drain", ["stencil1d", "stencil1d_relu"])
+def test_ring_halo_stencil1d_is_k9_to_the_bit(dev, drain, dtype, n, depth):
+    from repro_torch.kernels import chained, stencil
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn(n + 10, generator=g, device=dev).to(dtype)
+    w = (torch.randn(11, generator=g, device=dev) * 0.3).to(dtype)
+    body = chained.STENCIL1D_RELU if drain == "stencil1d_relu" \
+        else stencil.STENCIL1D
+    for extra in ({}, {"lanes": 256, "lanes_tile_factor": 8}):
+        def make(sched):
+            sched = dataclasses.replace(sched, **extra)
+            return lowering.prepare_call(compiler.stencil_nest(n, 11), body,
+                                         {"x": x, "w": w}, schedule=sched,
+                                         device=dev)
+        if make(lowering.DEFAULT_SCHEDULE).kernel.geometry.steps == 1:
+            continue      # a one-step grid never stages
+        _ring_is_sync(make, depth, "halo_stencil1d", "ring_halo_stencil1d")
+
+
+@pytest.mark.parametrize("depth", [3, 4, 8, (4, 2, 2, 2, 2, 2)], ids=str)
+@pytest.mark.parametrize("hw", [(37, 53), (300, 260), (1000, 700)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_halo_stencil2d_is_k10_to_the_bit(dev, dtype, hw, depth):
+    from repro_torch.kernels import stencil
+    h, wd = hw
+    g = torch.Generator(device=dev).manual_seed(h * wd)
+    x = torch.randn(h + 10, wd + 10, generator=g, device=dev).to(dtype)
+    wx = (torch.randn(11, generator=g, device=dev) * 0.3).to(dtype)
+    wy = (torch.randn(11, generator=g, device=dev) * 0.3).to(dtype)
+    for extra in ({}, {"rows": 16, "lanes_tile_factor": 1}):
+        def make(sched):
+            sched = dataclasses.replace(sched, **extra)
+            return lowering.prepare_call(compiler.stencil2d_nest(h, wd, 11),
+                                         stencil.STENCIL2D,
+                                         {"x": x, "wx": wx, "wy": wy},
+                                         schedule=sched, device=dev)
+        if make(lowering.DEFAULT_SCHEDULE).kernel.geometry.steps == 1:
+            continue      # a one-step grid never stages
+        _ring_is_sync(make, depth, "halo_stencil2d", "ring_halo_stencil2d")
+
+
+ATTENTION_RING_SHAPES = [(100, 333, 80, True, 64), (129, 130, 128, True, 7),
+                         (256, 600, 64, False, None), (300, 500, 192, True, None),
+                         (130, 700, 256, False, None), (96, 400, 256, True, 64)]
+
+
+@pytest.mark.parametrize("depth", [3, 4, (4, 4, 2), (2, 4, 2), (4, 2, 2)],
+                         ids=str)
+@pytest.mark.parametrize("shape", ATTENTION_RING_SHAPES, ids=str)
+def test_ring_rescale_attention_is_k11_to_the_bit(dev, shape, depth):
+    from repro_torch.kernels import attention
+    sq, sk, d, causal, window = shape
+    q, k, v = _qkv(dev, sq, sk, d, sq + sk + d)
+    _, static, _ = attention._prepare(q, k, v, causal, window)
+    for extra in ({}, {"rows": 16}):
+        def make(sched):
+            sched = dataclasses.replace(sched, **extra)
+            return lowering.prepare_call(attention._nest(static),
+                                         attention._body(static),
+                                         {"Q": q, "K": k, "V": v},
+                                         schedule=sched, device=dev)
+        if make(lowering.DEFAULT_SCHEDULE).kernel.geometry.steps == 1:
+            continue
+        _ring_is_sync(make, depth, "rescale_attention",
+                      "ring_rescale_attention")
+
+
+@pytest.mark.parametrize("out", ["bf16", "f32"])
+@pytest.mark.parametrize("d", [80, 256])
+def test_ring_rescale_attention_bf16_and_head_batch(dev, d, out):
+    from repro_torch.kernels import attention
+    q, k, v = _qkv(dev, 100, 333, d, 4, lead=(2, 3), dtype=torch.bfloat16)
+    out_dtype = torch.bfloat16 if out == "bf16" else torch.float32
+    _, static, _ = attention._prepare(q[0, 0], k[0, 0], v[0, 0], True, 64)
+
+    def make(sched):
+        one = lowering.prepare_call(
+            attention._nest(static), attention._body(static),
+            {"Q": q[0, 0], "K": k[0, 0], "V": v[0, 0]}, out_dtype=out_dtype,
+            schedule=sched, device=dev)
+        batch = {"Q": q.reshape(6, 100, d), "K": k.reshape(6, 333, d),
+                 "V": v.reshape(6, 333, d)}
+        layouts = lowering.stream_layouts(
+            one.lowered, [batch[s.name] for s in one.lowered.in_streams],
+            lead=(6,))
+        return lowering.PreparedCall(kernel=one.kernel, layouts=layouts,
+                                     lowered=one.lowered, bounds=one.bounds)
+    _ring_is_sync(make, 4, "rescale_attention", "ring_rescale_attention")
+
+
+def test_ring_entry_points_launch_the_rings(dev):
+    """The entry points at depth 4 launch R10–R12, at depth 2 K9–K11."""
+    from repro_torch.kernels import attention, chained, stencil
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(70000 + 10, generator=g, device=dev)
+    w = torch.randn(11, generator=g, device=dev) * 0.3
+    x2 = torch.randn(1010, 1010, generator=g, device=dev)
+    q, k, v = _qkv(dev, 512, 512, 128, 5, lead=(4,))
+    deep, flat = lowering.Schedule(buffer_depth=4), lowering.DEFAULT_SCHEDULE
+    for fn, ring, sync in (
+            (lambda s: stencil.ssr_stencil1d(x, w, schedule=s, device=dev),
+             "ring_halo_stencil1d", "halo_stencil1d"),
+            (lambda s: chained.fused_stencil1d_relu(x, w, schedule=s,
+                                                    device=dev),
+             "ring_halo_stencil1d", "halo_stencil1d"),
+            (lambda s: stencil.ssr_stencil2d(x2, w, w, schedule=s,
+                                             device=dev),
+             "ring_halo_stencil2d", "halo_stencil2d"),
+            (lambda s: attention.ssr_flash_attention(
+                q, k, v, causal=True, schedule=s, device=dev),
+             "ring_rescale_attention", "rescale_attention")):
+        before = dict(hopper.LAUNCHES)
+        got = fn(deep)
+        assert _launched(before) == {ring}
+        before = dict(hopper.LAUNCHES)
+        want = fn(flat)
+        assert _launched(before) == {sync}
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("d", [128, 256])
+def test_ring_rescale_attention_refuses_depth_8(dev, d):
+    from repro_torch.kernels import attention
+    q, k, v = _qkv(dev, 300, 600, d, 8)
+    _, static, _ = attention._prepare(q, k, v, True, None)
+    call = lowering.prepare_call(attention._nest(static),
+                                 attention._body(static),
+                                 {"Q": q, "K": k, "V": v},
+                                 schedule=lowering.Schedule(buffer_depth=8),
+                                 device=dev)
+    kern = call.kernel
+    takes, why = hopper.accepts(kern.device_key, kern.geometry, q.dtype, dev,
+                                **kern.device_args())
+    assert not takes and why.startswith("ring_rescale_attention: its ring")
+    before = dict(hopper.LAUNCHES)
+    with pytest.raises(ValueError, match=r"ring_rescale_attention: its ring "
+                       r"at depths \(8, 8, 8\)") as err:
+        call.run()
+    assert str(hopper.SMEM_OPTIN_BYTES) in str(err.value)
+    assert hopper.LAUNCHES == before

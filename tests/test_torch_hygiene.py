@@ -176,13 +176,18 @@ def test_build_key_follows_the_sources(tmp_path, monkeypatch):
     keys = {n: hopper.library_path(n) for n in hopper.KERNELS}
     assert keys == {n: hopper.library_path(n) for n in hopper.KERNELS}
     headers = sorted(p.name for p in csrc.glob("*.cuh"))
-    assert headers == ["ssr_chain.cuh", "ssr_chained_map.cuh",
-                       "ssr_common.cuh", "ssr_dag.cuh", "ssr_ring.cuh",
-                       "ssr_rows.cuh"]
+    assert headers == ["ssr_attention.cuh", "ssr_chain.cuh",
+                       "ssr_chained_map.cuh", "ssr_common.cuh", "ssr_dag.cuh",
+                       "ssr_ring.cuh", "ssr_rows.cuh", "ssr_stencil1d.cuh",
+                       "ssr_stencil2d.cuh"]
     dags = {"dag_layernorm", "dag_softmax_xent", "dag_mlp",
             "ring_dag_layernorm", "ring_dag_softmax_xent", "ring_dag_mlp"}
     rows = {"ring_reduce_mul", "chain_elem", "ring_chain_elem", *dags}
-    users = {"ssr_chain.cuh": {"chain_elem", "ring_chain_elem"},
+    users = {"ssr_attention.cuh": {"rescale_attention",
+                                   "ring_rescale_attention"},
+             "ssr_stencil1d.cuh": {"halo_stencil1d", "ring_halo_stencil1d"},
+             "ssr_stencil2d.cuh": {"halo_stencil2d", "ring_halo_stencil2d"},
+             "ssr_chain.cuh": {"chain_elem", "ring_chain_elem"},
              "ssr_chained_map.cuh": {"chained_map", "ring_chained_map"},
              "ssr_common.cuh": set(hopper.KERNELS),
              "ssr_dag.cuh": dags,

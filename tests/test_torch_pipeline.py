@@ -1,12 +1,14 @@
 """Pipelined delivery in the port: the N-deep ring against the depth-2 path.
 
 The counterpart of ``tests/test_pipeline.py``.  A schedule deeper than 2
-(``buffer_depth`` or per-stream ``stream_depths``) makes a call of K1–K8's
+(``buffer_depth`` or per-stream ``stream_depths``) makes a call of K1–K11's
 families pipelined: its read streams arrive through an N-deep ring (on the
 CPU :func:`hopper.plain_ring`, on the card the ring kernels R1–R4 and R6;
 a ChainedKernel's R5 has its own tests, ``tests/test_torch_chained_kernel
 .py``, and its fetch log here; the DAGs' R7–R9 theirs,
-``tests/test_torch_dag_ring.py``).  The contracts, on the CPU:
+``tests/test_torch_dag_ring.py``; the halos' and attention's R10–R12
+theirs, ``tests/test_torch_halo_attention_ring.py``).  The contracts, on
+the CPU:
 
 * **delivery changes, the arithmetic does not** — map, reduce, gemm, gemv,
   gemv_relu and K5's chains (sum_sq_diff fused, its (x − y)² map stage;
@@ -14,9 +16,9 @@ a ChainedKernel's R5 has its own tests, ``tests/test_torch_chained_kernel
   8 and per-stream depths give the depth-2 result bit for bit, and the
   reference's sync result (Pallas interpret mode) within the registry
   ``tol`` (relu bit for bit);
-* **pipelined where a ring runs** — True for those, False for a one-step
-  grid, the unstaged families (the halo and gather kernels) and
-  under ``REPRO_DISABLE_PIPELINE``;
+* **pipelined where a ring runs** — True for those and the halo
+  families, False for a one-step grid, the unstaged families (the gather
+  kernels, an untagged body) and under ``REPRO_DISABLE_PIPELINE``;
 * **the reference's rotation** — the plain ring's fetch log is the
   prime / run-ahead / no-fetch-past-the-run formula of ``_pipelined_call``
   for several run splits (R1's, R5's and R6's), and an invariant stream is
@@ -50,10 +52,12 @@ from repro_torch.core.lowering import DEFAULT_SCHEDULE, Schedule, ssr_call
 from repro_torch.core.ssr import MAX_BUFFER_DEPTH, stream_vmem_bytes
 from repro_torch.core.ssr import BlockStream
 from repro_torch.core.stream import Direction
-from repro_torch.kernels import (chained, frontend, gemm, gemv,
+from repro_torch.kernels import (attention, chained, frontend, gemm, gemv,
                                  reduction, relu, sparse, stencil)
 
 DEPTHS = [3, 4, 8, (2, 4), (4, 2)]
+# a causal attention problem of 512 queries and keys, D = 128 (its static)
+_ATT = (512, 512, 128, True, None, 128 ** -0.5, torch.float32)
 # relu has one read stream: a per-stream depth is a 1-tuple
 MAP_DEPTHS = [3, 4, 8, (5,), (8,)]
 
@@ -277,7 +281,8 @@ def test_single_step_grid_is_not_pipelined():
 
 
 def _unstaged(n=4096):
-    """Prepared calls of families without a ring kernel, at depth 3."""
+    """Prepared calls at depth 3: the halo families (which stage, R10 and
+    R11) and families without a ring kernel."""
     x, w = torch.ones(n + stencil.TAPS - 1), torch.ones(stencil.TAPS)
     s = Schedule(buffer_depth=3)
     csr = sparse.hpcg_operator(16, 16, 16, device="cpu")
@@ -300,12 +305,20 @@ def _unstaged(n=4096):
     }
 
 
-@pytest.mark.parametrize("name", ["stencil1d", "stencil2d", "spmv",
-                                  "untagged"])
+@pytest.mark.parametrize("name", ["spmv", "untagged"])
 def test_unstaged_families_stay_sync(name):
     call = _unstaged()[name]
     assert max(call.kernel.depths) == 3 and call.kernel.geometry.steps > 1
     assert not call.kernel.pipelined
+
+
+@pytest.mark.parametrize("name, ring", [("stencil1d", "ring_halo_stencil1d"),
+                                        ("stencil2d", "ring_halo_stencil2d")])
+def test_halo_families_now_pipeline(name, ring):
+    call = _unstaged()[name]
+    assert max(call.kernel.depths) == 3 and call.kernel.geometry.steps > 1
+    assert call.kernel.pipelined
+    assert hopper.RING_KERNELS[call.kernel.device_key] == ring
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -526,7 +539,8 @@ def _candidates(nest, body, mode, ops):
 
 
 @pytest.mark.parametrize("family", ["gemm", "dot", "relu", "gemv",
-                                    "sq_diff_map", "identity_reduce"])
+                                    "sq_diff_map", "identity_reduce",
+                                    "stencil1d", "attention"])
 def test_card_race_keeps_depth_only_candidates_where_the_kernel_stages(
         family):
     n = 1 << 14
@@ -544,6 +558,13 @@ def test_card_race_keeps_depth_only_candidates_where_the_kernel_stages(
                  {"X": torch.ones(n)}),
         "gemv": (compiler.gemv_nest(1024, 2048), gemv.MATVEC, "nest",
                  {"A": torch.ones(1024, 2048), "x": torch.ones(2048)}),
+        "stencil1d": (compiler.stencil_nest(n, stencil.TAPS),
+                      stencil.STENCIL1D, "nest",
+                      {"x": torch.ones(n + stencil.TAPS - 1),
+                       "w": torch.ones(stencil.TAPS)}),
+        "attention": (attention._nest(_ATT), attention._body(_ATT), "nest",
+                      {"Q": torch.ones(512, 128), "K": torch.ones(512, 128),
+                       "V": torch.ones(512, 128)}),
     }[family]
     cands, kept = _candidates(nest, body, mode, ops)
     assert kept[0] == DEFAULT_SCHEDULE
@@ -559,11 +580,11 @@ def test_card_race_keeps_depth_only_candidates_where_the_kernel_stages(
 
 
 def test_card_race_drops_depth_only_candidates_where_it_does_not_stage():
-    n = 1 << 14
-    nest = compiler.stencil_nest(n, stencil.TAPS)
-    ops = {"x": torch.ones(n + stencil.TAPS - 1),
-           "w": torch.ones(stencil.TAPS)}
-    cands, kept = _candidates(nest, stencil.STENCIL1D, "nest", ops)
+    csr = sparse.hpcg_operator(16, 16, 16, device="cpu")
+    vals, cidx, m, k = sparse.pack_ell(*csr, 4096)
+    nest = compiler.spmv_nest(m, k)
+    ops = {"vals": vals, "cidx": cidx, "x": torch.ones(4096)}
+    cands, kept = _candidates(nest, sparse.SPMV, "nest", ops)
     assert any(s.buffer_depth != 2 for s in cands)
     assert all(s.buffer_depth == 2 for s in kept)
 
