@@ -84,7 +84,14 @@ printing JSON lines:
    beside its run with every moving stream's first block zeroed, which must
    differ; R10–R12 at depth 4 (and the main path's ring outputs) against
    the plain ring at full size within STENCIL_LIMIT or ATTENTION_LIMIT,
-   beside the zeroed-block control above it;
+   beside the zeroed-block control above it; R13–R15 against K12–K14 to
+   the bit on spmv_hpcg and spmm_hpcg at depths 3, 4, 8, (2, 4) and
+   (4, 2) (a depth over the shared memory refused by name) and on
+   scan_2p26 at 3, 4 and 8, each beside its run on the moving streams'
+   first blocks zeroed, which must differ; R13/R14 at depth 4 on the odd
+   CSR inputs; R13–R15 at depth 4 (and the main path's ring outputs)
+   against the plain ring at full size under the ring kernel's runs, within
+   SPARSE_LIMIT or SCAN_LIMIT, beside the zeroed-block control above it;
 4. time each kernel, its plain version and one PyTorch library call with
    CUDA events, beside the least time the card could take, each baseline
    against its streamed kernel (``ssr_over_baseline``), each fused cell
@@ -99,7 +106,8 @@ printing JSON lines:
    ``chain_depth_sweep`` line per R6 cell and a ``depth_sweep`` line per
    DAG cell (K6–K8 and R7–R9 at depths 2, 3, 4, 8 and softmax_xent's
    pairs) and per halo and attention cell (K9–K11 and R10–R12 at depth 2
-   and at their ring depths);
+   and at their ring depths) and per gather and scan cell (K12–K14 and
+   R13–R15 at depth 2, 3, 4, 8 and the pairs);
 5. tune gemm 4096**3 over the quick candidates into the cache (one
    candidate per distinct kernel, depth-only variants racing as R3; a
    winner within the race's spread of the default is held back), and
@@ -118,10 +126,10 @@ printing JSON lines:
 6b. arm one ``compile`` fault under that cut and check that the call
    degrades to all-fused (one K6 launch), quarantines the entry and stays
    right;
-7. print the ``{"kernels": [...]}`` line (K1–K17, B1–B8 and R1–R12; K11's
-   and R12's rows are the attention_qwen3 cell, the other attention cells
-   have time and depth_sweep lines of their own; an R row times its
-   main-path depth), then the device line last.
+7. print the ``{"kernels": [...]}`` line (K1–K17, B1–B8 and R1–R15, 40
+   rows; K11's and R12's rows are the attention_qwen3 cell, the other
+   attention cells have time and depth_sweep lines of their own; an R row
+   times its main-path depth), then the device line last.
 
 Phase 2 also drives the rings: ``ssr_dot``, ``ssr_relu`` (three dtypes),
 ``ssr_gemv`` and ``fused_gemv_relu`` at depth 4, ``ssr_matmul`` at depth
@@ -129,9 +137,11 @@ Phase 2 also drives the rings: ``ssr_dot``, ``ssr_relu`` (three dtypes),
 ``fused_sum_sq_diff``/``fused_axpy_dot`` and ``fused_layernorm``/
 ``fused_softmax_xent``/``fused_mlp_block``, ``ssr_stencil1d``,
 ``fused_stencil1d_relu``, ``ssr_stencil2d`` and ``ssr_flash_attention`` on
-attention_qwen3 and attention_d256 at depth 4; each must launch its ring
-kernel (R1–R12) and no sync kernel, and each depth-2 call its sync kernel
-and no ring.
+attention_qwen3 and attention_d256 at depth 4, ``ops.spmv``,
+``ops.sparse_gemv`` and ``ops.spmm`` under a committed depth-4 schedule and
+``scan.ssr_scan`` at depth 4 (R15's three device launches, counted by the
+profiler); each must launch its ring kernel (R1–R15) and no sync kernel,
+and each depth-2 call its sync kernel and no ring.
 
 Any failure exits non-zero; without a CUDA device, without the repo's
 ``src/repro_torch`` beside this file, or with ``REPRO_DISABLE_PIPELINE``
@@ -262,10 +272,15 @@ RING_PATH = {"dot_ring": ("ring_reduce_mul", "dot"),
              "attention_qwen3_ring": ("ring_rescale_attention",
                                       "attention_qwen3"),
              "attention_d256_ring": ("ring_rescale_attention",
-                                     "attention_d256")}
+                                     "attention_d256"),
+             "spmv_ring": ("ring_gather_spmv", "spmv"),
+             "sparse_gemv_ring": ("ring_gather_spmv", "sparse_gemv"),
+             "spmm_ring": ("ring_gather_spmm", "spmm"),
+             "prefix_sum_ring": ("ring_stream_scan", "prefix_sum")}
 SYNC = ("reduce_mul", "map_relu", "contract_gemm", "contract_gemv",
         "chain_elem", "chained_map", "dag_layernorm", "dag_softmax_xent",
-        "dag_mlp", "halo_stencil1d", "halo_stencil2d", "rescale_attention")
+        "dag_mlp", "halo_stencil1d", "halo_stencil2d", "rescale_attention",
+        "gather_spmv", "gather_spmm", "stream_scan")
 RING_DEPTHS = (3, 4, 8)
 RING_PAIRS = ((2, 4), (4, 2))
 # main-path entry at a depth above 2 → (its ring cell of phase 3e, depth)
@@ -337,6 +352,23 @@ HALO_RING_ROW = {"ring_halo_stencil1d": ("halo_stencil1d", "stencil1d"),
                  "ring_halo_stencil2d": ("halo_stencil2d", "stencil2d"),
                  "ring_rescale_attention": ("rescale_attention",
                                             "attention_qwen3")}
+
+# The gather and scan rings (R13–R15): spmv_hpcg and spmm_hpcg against
+# K12/K13 at these depths and per-stream pairs (a depth over R13's or R14's
+# shared memory is checked as a refusal naming it), scan_2p26 against K14;
+# the main path runs ops.spmv, ops.sparse_gemv and ops.spmm under a
+# committed GATHER_MAIN_DEPTH schedule and scan.ssr_scan at that depth
+GATHER_MAIN_DEPTH = 4
+GATHER_RING_CELLS = {"spmv_hpcg": (3, 4, 8, (2, 4), (4, 2)),
+                     "spmm_hpcg": (3, 4, 8, (2, 4), (4, 2)),
+                     "scan_2p26": (3, 4, 8)}
+# the main-path entries that commit a schedule around their call (their
+# host wall time is not the entry's)
+COMMITTED_ENTRIES = ("spmv_ring", "sparse_gemv_ring", "spmm_ring")
+# the ring kernel → its sync kernel and the cell its row times
+GATHER_RING_ROW = {"ring_gather_spmv": ("gather_spmv", "spmv_hpcg"),
+                   "ring_gather_spmm": ("gather_spmm", "spmm_hpcg"),
+                   "ring_stream_scan": ("stream_scan", "scan_2p26")}
 
 # streamed kernel → its monolithic baseline
 PAIRS = {"reduce_mul": "base_reduce", "map_relu": "base_relu",
@@ -658,6 +690,33 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     axpy_relu, scale_relu = chained_kernels(frontend, chained, relu,
                                             BlockStream, Direction)
     pair_c = compiler.elementwise_nest(n_vec, ("X", "Y"), 2)
+    # the ELL planes the sparse entry points pack on the card, and the
+    # schedule-cache keys of their NestKernels (a depth committed under a
+    # key is what the entry point runs with no schedule)
+    hv, hc, hm, hk = sparse.pack_ell(*hcsr, n_v1)
+    sv, sc, sm, sk = sparse.pack_ell(*scsr, n_m2)
+
+    def entry_key(nk, *args_, **params):
+        ops_, static_, _ = nk._prepare(*args_, **params)
+        return autotune.cache_key(nk._nest(static_), dict(ops_), mode=nk._mode,
+                                  out_dtype=nk._out_dtype_of(static_),
+                                  device=dev)
+
+    spmv_key = entry_key(sparse._ssr_spmv, hv, hc, hx, m=hm, k=hk)
+    spmm_key = entry_key(sparse._ssr_spmm, sv, sc, sX, m=sm, k=sk,
+                         pitch=SPMM_RHS)
+
+    def committed(key, fn):
+        """``fn()`` with GATHER_MAIN_DEPTH committed under ``key``, the
+        default committed again after it."""
+        cache = autotune.global_cache()
+        cache.put(key, deep[GATHER_MAIN_DEPTH],
+                  meta={"note": "a sparse cell's ring depth"})
+        try:
+            return fn()
+        finally:
+            cache.put(key, lowering.DEFAULT_SCHEDULE)
+
     torch.cuda.synchronize()
 
     # -- 2. the main path, counters at 0 just before it --------------------
@@ -766,6 +825,16 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             *qkv[c], causal=ATTENTION_CELLS[c][3],
             window=ATTENTION_CELLS[c][4], schedule=deep[HALO_MAIN_DEPTH]))
            for cell in ("attention_qwen3", "attention_d256")},
+        # the gathers under a committed depth above 2 and the scan at one
+        # (R13–R15)
+        "spmv_ring": lambda: committed(
+            spmv_key, lambda: ops.spmv(*hcsr, hx, ssr=True)),
+        "sparse_gemv_ring": lambda: committed(
+            spmv_key, lambda: ops.sparse_gemv(*hcsr, hx, ssr=True)),
+        "spmm_ring": lambda: committed(
+            spmm_key, lambda: ops.spmm(*scsr, sX, ssr=True)),
+        "prefix_sum_ring": lambda: scan.ssr_scan(
+            xsc, schedule=deep[GATHER_MAIN_DEPTH]),
     }
     lowering.reset_dispatch_stats()
     frontend.reset_dispatch_stats()
@@ -830,14 +899,18 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                          f"than its K14/B8/K15/K16: "
                          f"{ {key: per_call[key] for key in stream_launches} }")
     # the device kernels of one sort_2p26 and one fft_2048_b32768 call,
-    # counted by the profiler, against K16's and K15's Python schedules
+    # counted by the profiler, against K16's and K15's Python schedules;
+    # one scan_2p26 call at GATHER_MAIN_DEPTH runs R15's three (its two
+    # ring passes and the one-CTA scan of the totals) and none of K14's
     device_launches = count_device_launches({
         "sort": (lambda: ops.sort(xso, ssr=True),
                  len(bitonic.sort_passes(SORT_N)), SORT_MOST_LAUNCHES,
                  ("sort_pass",)),
-        "fft": (lambda: ops.fft(fre, fim, ssr=True), 1, 1, ("fft_rows",))})
-    # a call deeper than 2 launches its ring kernel and no K1–K4; its
-    # depth-2 twin launches K1–K4 and no ring
+        "fft": (lambda: ops.fft(fre, fim, ssr=True), 1, 1, ("fft_rows",)),
+        "prefix_sum_ring": (path["prefix_sum_ring"], 3, 3,
+                            ("ring_tile", "ssr_exclusive_offsets"))})
+    # a call deeper than 2 launches its ring kernel and no K kernel; its
+    # depth-2 twin launches its K kernel and no ring
     ring_launches = {key: per_call[key] for pair in RING_PATH.items()
                      for key in pair[1][1:] + (pair[0],)}
     emit({"phase": "ring_launches", "launches": ring_launches})
@@ -902,8 +975,6 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     att_calls = {cell: attention_call(cell) for cell in ATTENTION_CELLS}
     calls["rescale_attention"] = att_calls["attention_qwen3"]
     # K12/K13 on the ELL planes the entry points pack on the card
-    hv, hc, hm, hk = sparse.pack_ell(*hcsr, n_v1)
-    sv, sc, sm, sk = sparse.pack_ell(*scsr, n_m2)
     sparse_ops = {"spmv": {"vals": hv, "cidx": hc, "x": hx},
                   "spmm": {"vals": sv, "cidx": sc, "X": sX}}
     calls["gather_spmv"] = lowering.prepare_call(
@@ -1931,6 +2002,195 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                           "zeroed-block control")
         del want_p
 
+    # -- 3i. R13–R15 (K12–K14 through the ring), to the bit -----------------
+    # spmv_hpcg and spmm_hpcg against K12/K13 at GATHER_RING_CELLS' depths
+    # (a depth over the budget refused by name), scan_2p26 against K14, each
+    # beside its run on every moving stream's first and last blocks zeroed
+    # (the scan: its first block), which must differ; R13/R14 at depth 4 on
+    # the odd CSR inputs of 3c, launched on their geometry (one-step grids,
+    # which the entry points never stage); at GATHER_MAIN_DEPTH the ring,
+    # and the main path's own ring output, against the plain ring at full
+    # size under the runs the ring kernel launches, within SPARSE_LIMIT or
+    # SCAN_LIMIT, beside the zeroed-block control above it
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def gather_call(cell, depth):
+        sched_ = lowering.DEFAULT_SCHEDULE if depth == 2 \
+            else depth_schedule(depth, lowering)
+        if cell == "spmv_hpcg":
+            return lowering.prepare_call(compiler.spmv_nest(hm, hk),
+                                         sparse.SPMV, sparse_ops["spmv"],
+                                         schedule=sched_)
+        return lowering.prepare_call(
+            compiler.spmm_nest(sm, SPMM_RHS, sk, SPMM_RHS), sparse.SPMM,
+            sparse_ops["spmm"], schedule=sched_)
+
+    def forced_ring(call, depth):
+        """R13/R14 on the call's geometry at ``depth``, whatever its grid:
+        (its output, None), or (None, the message) where it is refused."""
+        kern = call.kernel
+        ring = hopper.RingProgram((depth,) * (len(kern.depths) - 1) + (2,),
+                                  kern.invariant)
+        try:
+            return call.finish(kern.device_kernel()(
+                kern.geometry, call.layouts, kern.out_dtype, kern.acc_dtype,
+                program=kern.program, ring=ring)), None
+        except ValueError as e:
+            return None, str(e)
+
+    scan_ring_out = {}
+    gather_ring_calls = {}
+    for cell, depths in GATHER_RING_CELLS.items():
+        if cell == "scan_2p26":
+            want = main["prefix_sum"]
+            kname, rname = "stream_scan", "ring_stream_scan"
+        else:
+            want = gather_call(cell, 2).run()
+            kname = "gather_spmv" if cell == "spmv_hpcg" else "gather_spmm"
+            rname = "ring_" + kname
+        for depth in depths:
+            key = f"ring_{cell}_{depth}"
+            if cell == "scan_2p26":
+                sched_ = depth_schedule(depth, lowering)
+                got = scan.ssr_scan(xsc, schedule=sched_)
+                zx = xsc.clone()
+                zx[:1024] = 0
+                ctrl = scan.ssr_scan(zx, schedule=sched_)
+                scan_ring_out[depth] = got
+                piped = True
+                del zx
+            else:
+                call = gather_ring_calls[cell, depth] = gather_call(cell,
+                                                                    depth)
+                kern = call.kernel
+                takes, why = hopper.accepts(kern.device_key, kern.geometry,
+                                            torch.float32, dev,
+                                            **kern.device_args())
+                if not takes:       # refused by name, launching nothing
+                    before = dict(hopper.LAUNCHES)
+                    try:
+                        call.run()
+                        raised = ""
+                    except ValueError as e:
+                        raised = str(e)
+                    checks[f"{key}_refused"] = {
+                        "exact": raised == why and hopper.LAUNCHES == before
+                        and raised.startswith(f"{rname}: its ring"),
+                        "message": raised, "abs_err": 0.0, "limit": 0.0}
+                    continue
+                got = call.run()
+                ctrl = call.finish(call.kernel(*moving_blocks_zeroed(call)))
+                piped = kern.pipelined
+            c = {"exact": same_bits(got, want, torch.int32) and piped,
+                 "control_differs": not same_bits(ctrl, want, torch.int32),
+                 "abs_err": float((got - want).abs().max()), "limit": 0.0,
+                 "kernel": rname, "against": kname,
+                 "depths": list(depth) if isinstance(depth, tuple)
+                 else [depth]}
+            checks[key] = c
+            errors[rname] = max(errors.get(rname, 0.0), c["abs_err"])
+            if not c["control_differs"]:
+                failed.append(f"{key}: the zeroed first blocks left the "
+                              "result unchanged")
+            del got, ctrl
+        del want
+    # R13/R14 at depth 4 on the odd CSR inputs, against K12/K13 to the bit
+    for name, (d_, i_, p_, n_) in odd_csr.items():
+        ell = sparse.pack_ell(*(torch.as_tensor(np.asarray(a_), device=dev)
+                                for a_ in (d_, i_, p_)), n_)
+        for prod, c_ in (("spmv", None), ("spmm", 200)):
+            operand = randn(n_) if c_ is None else randn(n_, c_)
+            if prod == "spmv":
+                call = lowering.prepare_call(
+                    compiler.spmv_nest(ell[2], ell[3]), sparse.SPMV,
+                    {"vals": ell[0], "cidx": ell[1], "x": operand})
+            else:
+                pitch_ = -(-c_ // 128) * 128
+                call = lowering.prepare_call(
+                    compiler.spmm_nest(ell[2], c_, ell[3], pitch_),
+                    sparse.SPMM,
+                    {"vals": ell[0], "cidx": ell[1],
+                     "X": F.pad(operand, (0, pitch_ - c_))})
+            want = call.run()
+            before = dict(hopper.LAUNCHES)
+            got, raised = forced_ring(call, GATHER_MAIN_DEPTH)
+            torch.cuda.synchronize()
+            launched = {k_ for k_, v in hopper.LAUNCHES.items()
+                        if v != before[k_]}
+            rname = f"ring_gather_{prod}"
+            key = f"ring_odd_{prod}_{name}_{GATHER_MAIN_DEPTH}"
+            if got is None:     # a slot of the block's width over budget
+                checks[f"{key}_refused"] = {
+                    "exact": raised.startswith(f"{rname}: its ring")
+                    and not launched, "message": raised, "abs_err": 0.0,
+                    "limit": 0.0}
+                continue
+            checks[key] = {
+                "exact": same_bits(got, want, torch.int32)
+                and launched == {rname},
+                "abs_err": float((got - want).abs().max()), "limit": 0.0,
+                "kernel": rname}
+    # the plain ring at full size against the ring and the main path's ring
+    # outputs, under the runs the ring kernel launches
+    for cell, op, entries in (("spmv_hpcg", "spmv",
+                               ("spmv_ring", "sparse_gemv_ring")),
+                              ("spmm_hpcg", "spmm", ("spmm_ring",))):
+        call = gather_ring_calls[cell, GATHER_MAIN_DEPTH]
+        kern = call.kernel
+        rname = hopper.RING_KERNELS[kern.device_key]
+        run_ = hopper.ring_run_steps(rname, kern.geometry, kern.ring,
+                                     torch.float32, sms)
+        want_p = call.finish(hopper.plain_ring(
+            kern.body, kern.geometry, call.layouts, kern.out_dtype,
+            kern.acc_dtype, mode="nest", ring=kern.ring,
+            steps_per_cta=run_)[0])
+        scale_t = sparse_scale[op]
+        control = rel_max(call.finish(call.kernel(
+            *moving_blocks_zeroed(call))), want_p, scale_t)
+        for key, got in ((f"plain_ring_full_{cell}_{GATHER_MAIN_DEPTH}",
+                          call.run()),
+                         *((f"{e}_vs_plain_ring", main[e]) for e in entries)):
+            checks[key] = {"rel_err": rel_max(got, want_p, scale_t),
+                           "abs_err": float((got - want_p).abs().max()),
+                           "limit": SPARSE_LIMIT, "steps_per_cta": run_,
+                           "zeroed_block_control": control, "kernel": rname,
+                           "exact": kern.pipelined}
+        if control <= SPARSE_LIMIT:
+            failed.append(f"plain_ring_full_{cell}: limit above the "
+                          "zeroed-block control")
+        del want_p
+    exact64 = torch.cumsum(xsc.double(), 0)
+    pscale = torch.cumsum(xsc.double().abs(), 0)
+    sc_entry = scan._ssr._build(None, sc_arrays,
+                                deep[GATHER_MAIN_DEPTH])
+    sc_run = hopper.ring_run_steps("ring_stream_scan",
+                                   hopper.launch_geometry(sc_lc),
+                                   sc_entry.ring, xsc.dtype, sms)
+    sc_plain_ring = hopper.plain_stream(
+        scan.SCAN, sc_lc, sc_arrays, ring=sc_entry.ring,
+        steps_per_cta=sc_run)[0].reshape(-1)[:SCAN_N]
+    zx = xsc.clone()
+    zx[:1024] = 0
+    scan_zero_ctrl = scan_rel(scan.ssr_scan(zx, schedule=deep[
+        GATHER_MAIN_DEPTH]))
+    del zx
+    for key, got in ((f"plain_ring_full_scan_2p26_{GATHER_MAIN_DEPTH}",
+                      scan_ring_out[GATHER_MAIN_DEPTH]),
+                     ("prefix_sum_ring_vs_plain_ring",
+                      main["prefix_sum_ring"])):
+        checks[key] = {"rel_err": scan_rel(got),
+                       "plain_rel_err": scan_rel(sc_plain_ring),
+                       "abs_err": float((got - sc_plain_ring).abs().max()),
+                       "limit": SCAN_LIMIT, "steps_per_cta": sc_run,
+                       "zeroed_block_control": scan_zero_ctrl,
+                       "kernel": "ring_stream_scan"}
+        if checks[key]["plain_rel_err"] > SCAN_LIMIT:
+            failed.append(f"{key}: the plain ring above the limit")
+    if scan_zero_ctrl <= SCAN_LIMIT:
+        failed.append("plain_ring_full_scan_2p26: limit above the "
+                      "zeroed-block control")
+    del exact64, pscale, sc_plain_ring
+
     for key, c in checks.items():
         ok = (c.get("exact", True) and
               c.get("rel_to_abs_prod", c.get("rel_err", c["abs_err"]))
@@ -1943,8 +2203,9 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                 "stencil1d_baseline", "stencil2d", *ATTENTION_CELLS,
                 "spmv", "sparse_gemv", "spmv_baseline", "spmm",
                 "spmm_baseline", "prefix_sum", "prefix_sum_baseline",
-                "sort", "dot_ring", "dot_ssr_call_ring", "gemm_ring",
-                "gemv_ring", "gemv_relu_ring", *CHAINED_LAUNCHES,
+                "sort", "spmv_ring", "sparse_gemv_ring", "spmm_ring",
+                "prefix_sum_ring", "dot_ring", "dot_ssr_call_ring",
+                "gemm_ring", "gemv_ring", "gemv_relu_ring", *CHAINED_LAUNCHES,
                 "chained_axpy_relu_ring", "chained_axpy_relu_bf16_ring",
                 "chained_scale_relu_ring", "sum_sq_diff_ring",
                 "axpy_dot_ring", "layernorm_ring", "softmax_xent_ring",
@@ -2396,6 +2657,70 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             "depth": HALO_MAIN_DEPTH,
         })
         emit({"phase": "time", "cell": cell, **rows[-1]})
+    # R13–R15: each gather and scan cell at depth 2 (K12–K14) and at its
+    # ring depths, beside K's bound and library call; a ring row times
+    # GATHER_MAIN_DEPTH on its cell, its plain_ms the plain ring under the
+    # ring kernel's runs
+    def scan_ring_fn(depth):
+        entry = scan._ssr._build(None, sc_arrays, depth_schedule(depth,
+                                                                 lowering))
+        return lambda: hopper.ring_stream_scan(sc_lc, *sc_arrays,
+                                               ring=entry.ring)
+
+    gather_sweeps, ring_plain = {}, {}
+    for cell, depths in GATHER_RING_CELLS.items():
+        kname = {"spmv_hpcg": "gather_spmv", "spmm_hpcg": "gather_spmm",
+                 "scan_2p26": "stream_scan"}[cell]
+        krow = next(r_ for r_ in rows if r_["name"] == kname)
+        at = {2: krow["ms"]} if cell == "scan_2p26" else \
+            {2: time_ms(kernel_fn(gather_call(cell, 2)))}
+        refused = []
+        for depth in depths:
+            if cell == "scan_2p26":
+                at[depth] = time_ms(scan_ring_fn(depth))
+            elif f"ring_{cell}_{depth}_refused" in checks:
+                refused.append(depth)
+            else:
+                at[depth] = time_ms(kernel_fn(gather_ring_calls[cell, depth]))
+        pairs = {d: t for d, t in at.items() if isinstance(d, tuple)}
+        best = min(pairs, key=pairs.get) if pairs else None
+        gather_sweeps[cell] = {
+            "ms": {str(d): t for d, t in at.items()},
+            "best_pair": list(best) if best else None,
+            "best_pair_ms": pairs[best] if best else None,
+            "bound_ms": krow["bound_ms"], "bound_by": krow["bound_by"],
+            "library_ms": krow["library_ms"], "refused": refused,
+            "ring_over_sync": {str(d): at[2] / t for d, t in at.items()
+                               if d != 2}}
+        emit({"phase": "depth_sweep", "cell": cell, **gather_sweeps[cell]})
+    for rname, (kname, cell) in GATHER_RING_ROW.items():
+        krow = next(r_ for r_ in rows if r_["name"] == kname)
+        if cell == "scan_2p26":
+            plain_fn = (lambda e=sc_entry: hopper.plain_stream(
+                scan.SCAN, sc_lc, sc_arrays, ring=e.ring,
+                steps_per_cta=sc_run))
+        else:
+            call = gather_ring_calls[cell, GATHER_MAIN_DEPTH]
+            kern = call.kernel
+            plain_fn = (lambda c_=call, k_=kern: hopper.plain_ring(
+                k_.body, k_.geometry, c_.layouts, k_.out_dtype,
+                k_.acc_dtype, mode="nest", ring=k_.ring,
+                steps_per_cta=hopper.ring_run_steps(
+                    hopper.RING_KERNELS[k_.device_key], k_.geometry,
+                    k_.ring, torch.float32, sms)))
+        rows.append({
+            "name": rname, "route": "cuda",
+            "source": hopper.KERNELS[rname]["source"],
+            "replaces": hopper.KERNELS[rname]["replaces"],
+            "launches": launches[rname],
+            "max_abs_err": errors[rname],
+            "ms": gather_sweeps[cell]["ms"][str(GATHER_MAIN_DEPTH)],
+            "plain_ms": time_ms(plain_fn),
+            "bound_ms": krow["bound_ms"], "bound_by": krow["bound_by"],
+            "library_ms": krow["library_ms"],
+            "depth": GATHER_MAIN_DEPTH,
+        })
+        emit({"phase": "time", "cell": cell, **rows[-1]})
     ms = {r["name"]: r["ms"] for r in rows}
     emit({"phase": "ssr_vs_baseline", "ssr_over_baseline": {
         kname: ms[bname] / ms[kname] for kname, bname in PAIRS.items()}})
@@ -2414,7 +2739,8 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         "schedule_lookup": lambda: autotune.lookup(dot_nest, dot_ops,
                                                    device=dev),
     }
-    walls = {key: wall_ms(fn) for key, fn in {**path, **probes}.items()}
+    walls = {key: wall_ms(fn) for key, fn in {**path, **probes}.items()
+             if key not in COMMITTED_ENTRIES}
     emit({"phase": "entry_points", "wall_ms": walls})
     # the sparse cells: the entry's wall split into CSR validation and ELL
     # packing on the card, the copies of a host CSR triple and x to the

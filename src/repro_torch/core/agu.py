@@ -314,14 +314,34 @@ class GatherAGU:
                steps: torch.Tensor) -> torch.Tensor:
         """(len(steps), *tiles, *index block): the gathered blocks at the
         given rows of :func:`grid_steps`, in the table's dtype."""
-        dev = index_layout.device
-        pos = index_agu.element_index(grid, tuple(index_layout.shape), dev,
-                                      steps)
-        pitch = index_layout.shape[-1]
+        pos = index_agu.element_index(grid, tuple(index_layout.shape),
+                                      index_layout.device, steps)
+        return self._gathered(index_layout.reshape(-1)[pos], pos,
+                              index_layout.shape[-1], table, steps)
+
+    def gather_delivered(self, index_blocks: torch.Tensor,
+                         index_agu: BlockAGU, grid: Tuple[int, ...],
+                         index_shape: Tuple[int, ...], table: torch.Tensor,
+                         steps: torch.Tensor) -> torch.Tensor:
+        """:meth:`gather` with the index values taken from ``index_blocks``
+        (len(steps), *index block), the blocks a ring delivered to those
+        steps: the addresses come from the delivered values, the extent mask
+        and the affine levels from the steps that compute, as R13 and R14
+        compute them (``index_shape``: the index stream's layout)."""
+        pos = index_agu.element_index(grid, tuple(index_shape),
+                                      index_blocks.device, steps)
+        return self._gathered(index_blocks, pos, index_shape[-1], table,
+                              steps)
+
+    def _gathered(self, values: torch.Tensor, pos: torch.Tensor, pitch: int,
+                  table: torch.Tensor, steps: torch.Tensor) -> torch.Tensor:
+        """The table's elements at the addresses of index ``values`` held
+        at layout positions ``pos`` (pitch ``pitch``) of the given steps; 0
+        outside the extent."""
+        dev = values.device
         valid = (pos // pitch < self.extent[0]) & \
             (pos % pitch < self.extent[1])
-        addr = index_layout.reshape(-1)[pos].to(torch.int64) * self.scale \
-            + self.offset
+        addr = values.to(torch.int64) * self.scale + self.offset
         k = steps.shape[0]
         for p, tile, coeff in zip(reversed(self.grid_pos),
                                   reversed(self.tiles),

@@ -89,9 +89,10 @@ _LANES_FACTORS = (1, 2, 4)
 _ROWS_FACTORS = (8, 32)
 _QUICK_ROWS = (8, 16)
 _QUICK_LANES = (128, 256)
-#: FIFO depths explored.  Where a kernel's family stages
-#: (``hopper.RING_KERNELS``: K1–K11's, R1–R4 and R6–R12), a depth above 2
-#: runs its ring kernel, and a depth-only candidate races on the card.
+#: FIFO depths explored.  Where a kernel's family stages (the rings R1–R4
+#: and R6–R15: ``hopper.RING_KERNELS`` for K1–K13's families, R15 for a
+#: StreamKernel's scan), a depth above 2 runs its ring kernel, and a
+#: depth-only candidate races on the card.
 _DEPTH_CHOICES = (2, 3, 4)
 _QUICK_DEPTHS = (2, 3)
 

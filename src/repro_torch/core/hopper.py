@@ -30,7 +30,7 @@ gather_spmv       nest         K12: ``spmv`` (y += vals·x[cidx], a gather)
 gather_spmm       nest         K13: ``spmm`` (Y += vals·X[cidx, c])
 ================  ===========  =============================================
 
-A schedule deeper than 2 makes a call of K1–K11's families pipelined
+A schedule deeper than 2 makes a call of K1–K13's families pipelined
 (:attr:`~repro_torch.core.ssr.SsrKernel.pipelined`): it runs the ring kernel
 of :data:`RING_KERNELS` instead — R1 ``ring_reduce_mul``, R2
 ``ring_map_relu``, R3 ``ring_contract_gemm`` (its ring over 16-wide k
@@ -40,12 +40,17 @@ chunks), R4 ``ring_contract_gemv`` (with the relu drain), R6
 K6–K8; R9's ring of step blocks feeds K8's 128-row tile), R10
 ``ring_halo_stencil1d`` (K9's items, with the relu drain), R11
 ``ring_halo_stencil2d`` (K10's windows) and R12 ``ring_rescale_attention``
-(K11's K/V walk in units of 32 or 16 keys) — whose read streams arrive
-through an N-deep ring of shared-memory slots filled by ``cp.async``, each
-stream ``depth − 1`` fetches ahead (the reference's ``_pipelined_call``),
-with the same arithmetic, so the same bits, as the sync kernel.  Its plain
-version is :func:`plain_ring` (:func:`ring_delivery` delivers the blocks).
-K12–K16 stay synchronous at any depth.
+(K11's K/V walk in units of 32 or 16 keys), R13 ``ring_gather_spmv`` and
+R14 ``ring_gather_spmm`` (K12's and K13's rows of vals and cidx; the table
+is gathered as the sync kernels gather it, never ringed) — whose read
+streams arrive through an N-deep ring of shared-memory slots filled by
+``cp.async``, each stream ``depth − 1`` fetches ahead (the reference's
+``_pipelined_call``), with the same arithmetic, so the same bits, as the
+sync kernel.  Its plain version is :func:`plain_ring` (:func:`ring_taken`
+schedules the fetches, :func:`ring_blocks` delivers the blocks).  A
+StreamKernel's scan at a depth above 2 runs R15 ``ring_stream_scan``
+(:data:`STREAM_RING_KERNELS`: K14's tiles through a ring); the FFT and the
+sort have a one-step grid, so they stay synchronous at any depth.
 
 A ``ChainedKernel`` (a producer body, then a unary consumer body, on each
 step of a module's Launch, one output stream) runs as K17 ``chained_map``
@@ -64,6 +69,8 @@ in registers, as global passes above) and K16 ``stream_bitonic``
 :data:`SORT_TILE`-element tiles, up to :data:`SORT_GROUP` stages a group
 pass).  A leading
 ``parallel`` grid axis is a batch of rows (the counterpart of ``vmap``).
+:func:`plain_stream` takes the ring too (``ring=``), and walks the blocks
+it delivers.
 
 A halo'd read arrives as ``2**k`` shifted streams (the lowering's
 ``HaloRead``); K9 and K10 (and R10, R11) read the widened block from the
@@ -223,6 +230,12 @@ KERNELS: Dict[str, Dict[str, str]] = {
     "ring_rescale_attention": {
         "replaces": "src/repro/core/ssr.py:215",
         "source": "src/repro_torch/csrc/ring_rescale_attention.cu"},
+    "ring_gather_spmv": {"replaces": "src/repro/core/ssr.py:215",
+                         "source": "src/repro_torch/csrc/ring_gather_spmv.cu"},
+    "ring_gather_spmm": {"replaces": "src/repro/core/ssr.py:215",
+                         "source": "src/repro_torch/csrc/ring_gather_spmm.cu"},
+    "ring_stream_scan": {"replaces": "src/repro/core/ssr.py:215",
+                         "source": "src/repro_torch/csrc/ring_stream_scan.cu"},
 }
 
 #: Wrapper calls per kernel since the last :func:`reset_launches`: one per
@@ -243,8 +256,8 @@ KERNELS: Dict[str, Dict[str, str]] = {
 #: A pipelined call counts its ring kernel (R4's drain as
 #: ``ring_contract_gemv``, R10's as ``ring_halo_stencil1d``; an R1 call, or
 #: a reduce of R6 or R8, is two device launches, as K1's, K5's and K7's; an
-#: R12 call over a head batch is one).  A ``chained_map`` or
-#: ``ring_chained_map`` call is one.
+#: R12 call over a head batch is one; a ``ring_stream_scan`` call is three,
+#: as K14's).  A ``chained_map`` or ``ring_chained_map`` call is one.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
@@ -402,6 +415,11 @@ _SIGNATURES = {
     "ring_rescale_attention": [_P, _P, _P, _P, _I, _I, _GP, _SP, _SP, _SP,
                                _SP, _I64, _I64, _P, ctypes.c_float, _I, _I64,
                                _I64, _I64, _RP, _I64, _P],
+    "ring_gather_spmv": [_P, _P, _P, _P, _GP, _SP, _SP, _SP] + [_I64] * 8
+    + [_I, _RP, _I64, _P],
+    "ring_gather_spmm": [_P, _P, _P, _P, _GP, _SP, _SP, _SP] + [_I64] * 10
+    + [_I, _RP, _I64, _P],
+    "ring_stream_scan": [_P, _I, _P, _P, _I64, _I64, _I64, _RP, _I64, _P],
 }
 #: Arguments of a kernel's ``ssr_<name>_smem_bytes`` (none for the rest).
 _SMEM_SIGNATURES = {"halo_stencil1d": [_I64], "halo_stencil2d": [_I64],
@@ -663,9 +681,9 @@ CHAINED_PROGRAMS: Dict[Tuple[str, str], int] = {
 #: (call mode, body op — or the tuple of stage ops of a fused chain or DAG)
 #: → the ring kernel a pipelined call of that family runs on the card
 #: (R1–R4; R6 for every key of K5, R7–R9 for every key of K6–K8, added
-#: beside :data:`DEVICE_KERNELS`; R10–R12 for K9–K11's); ``("chained",
-#: (producer op, consumer op))`` → R5 for a ChainedKernel.  K12–K16 stay
-#: synchronous at any depth.
+#: beside :data:`DEVICE_KERNELS`; R10–R12 for K9–K11's, R13 and R14 for
+#: K12's and K13's); ``("chained", (producer op, consumer op))`` → R5 for a
+#: ChainedKernel.  A StreamKernel's ring is :data:`STREAM_RING_KERNELS`'s.
 RING_KERNELS: Dict[tuple, str] = {
     ("reduce", "mul"): "ring_reduce_mul",
     ("map", "relu"): "ring_map_relu",
@@ -682,6 +700,8 @@ RING_KERNELS: Dict[tuple, str] = {
     ("nest", "stencil1d_relu"): "ring_halo_stencil1d",
     ("nest", "stencil2d"): "ring_halo_stencil2d",
     ("nest", "attn_scores"): "ring_rescale_attention",
+    ("nest", "spmv"): "ring_gather_spmv",
+    ("nest", "spmm"): "ring_gather_spmm",
 }
 #: R3's CTA tile (K3's): 128 x 128 outputs over 16-wide k chunks, the unit
 #: of its ring; an A slot's rows are padded by 16 bytes.
@@ -712,6 +732,14 @@ STENCIL2D_PITCH = {torch.float32: 140, torch.bfloat16: 144}
 ATTENTION_RING_TILES = {128: (128, 32), 256: (64, 16)}
 #: Keys a rescale of m, l and acc covers (K11's and R12's sub-tile).
 ATTENTION_SUBTILE = 64
+#: R13's and R14's rows a CTA (K12's and K13's): a slot holds one step's
+#: rows of vals (or cidx) on a pitch of :func:`gather_slot_width` elements.
+SPMV_RING_ROWS, SPMM_RING_ROWS = 64, 8
+#: Shared memory an SM of an H100 or H200 holds for its CTAs (228 KiB), and
+#: what the card keeps of it for each CTA (1 KiB): a persistent ring
+#: kernel launches as many CTAs as fit an SM beside their rings, at most
+#: its sync kernel's.
+SMEM_SM_BYTES, SMEM_CTA_RESERVED = 233472, 1024
 
 
 def device_ring(name: str, geo: StreamGeometry, ring: RingProgram,
@@ -728,7 +756,11 @@ def device_ring(name: str, geo: StreamGeometry, ring: RingProgram,
     ``reads``.  R10 and R11 ring the halo's first slot at its depth: the
     shifted twins get no bytes, the invariant taps one slot of 11 floats;
     R12 rings K and V in units of :data:`ATTENTION_RING_TILES` keys, and
-    counts Q as the one tile it stages, at depth 1."""
+    counts Q as the one tile it stages, at depth 1.  R13 and R14 ring vals
+    and cidx at their depths, a slot a row group's step on the pitch of
+    :func:`gather_slot_width`, and give the table 0 bytes: it is gathered
+    from device memory, never copied into a slot.  R15's slot is one of
+    K14's tiles, the input's words on K14's padded layout."""
     dr = _device_ring(name, geo, ring, dtype)
     if reads is None:
         return dr
@@ -775,12 +807,71 @@ def _device_ring(name: str, geo: StreamGeometry, ring: RingProgram,
         return RingProgram(
             (*ring.depths[:2], 1), ring.invariant,
             (unit * (d + 16 // size) * size, unit * d * size, d * rows * 4))
+    if name in ("ring_gather_spmv", "ring_gather_spmm"):
+        rows = SPMV_RING_ROWS if name == "ring_gather_spmv" \
+            else SPMM_RING_ROWS
+        slot = rows * gather_slot_width(geo) * 4     # f32 vals, int32 cidx
+        return RingProgram(ring.depths, ring.invariant, (slot, slot, 0))
+    if name == "ring_stream_scan":
+        return RingProgram(ring.depths, ring.invariant,
+                           (scan_slot_words(size) * 4,))
     return RingProgram(ring.depths, ring.invariant,
                        tuple(math.prod(a.block) * size for a in geo.ins))
 
 
 def _itemsize(dtype: torch.dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
+
+
+def gather_slot_width(geo: StreamGeometry) -> int:
+    """R13's and R14's slot pitch in elements: the index block's valid
+    width (the gather's ``extent``, at most the block's) rounded up to 16
+    bytes — 28 of 128 lanes for an ELL width of 27."""
+    return min(geo.ins[1].block[1], -(-geo.gathers[0].extent[1] // 4) * 4)
+
+
+def scan_slot_words(itemsize: int) -> int:
+    """4-byte words of one of R15's slots: a SCAN_TILE tile of the input's
+    words (one element a word in f32 or int32, two in bf16) with K14's pad
+    word every 32 (``csrc/ssr_scan.cuh``)."""
+    words = SCAN_TILE * itemsize // 4
+    return words + words // 32
+
+
+def _ctas_per_sm(smem: int, most: int) -> int:
+    """CTAs of a kernel taking ``smem`` bytes of shared memory that fit an
+    SM, at most ``most``."""
+    return max(1, min(most, SMEM_SM_BYTES // (smem + SMEM_CTA_RESERVED)))
+
+
+#: The most CTAs an SM of R13, R14 and R15 (256 threads each): R13 and R14
+#: are bounded to 64 registers a thread, four CTAs an SM (K13's bound).
+_RING_PER_SM = {"ring_gather_spmv": 4, "ring_gather_spmm": 4,
+                "ring_stream_scan": 8}
+
+
+def ring_run_steps(rname: str, geo: StreamGeometry, ring: RingProgram,
+                   dtype: torch.dtype, sms: int) -> int:
+    """The grid steps a CTA of the persistent ring kernel ``rname`` (R13,
+    R14 or R15) walks, consecutive, on a card of ``sms`` SMs: the output
+    blocks (R13, R14: whole ones, of ``contraction_steps`` steps each) or
+    SCAN_TILE tiles (R15: four of the Launch's (8, 128) blocks each) spread
+    over as many CTAs as fit the SMs beside their rings.  The wrapper
+    launches that split; the plain ring takes it as ``steps_per_cta``."""
+    dr = device_ring(rname, geo, ring, dtype)
+    smem = dr.ring_bytes + _staged_bytes(rname, (), geo)
+    ctas = _ctas_per_sm(smem, _RING_PER_SM[rname]) * sms
+    if rname == "ring_stream_scan":
+        per = SCAN_TILE // (ROWS * LANES)
+        tiles = -(-geo.steps // per)
+        return -(-tiles // min(tiles, ctas)) * per
+    z = geo.contraction_steps
+    blocks = geo.steps // z
+    rows = SPMV_RING_ROWS if rname == "ring_gather_spmv" else SPMM_RING_ROWS
+    units = blocks * -(-geo.ins[1].block[0] // rows)
+    if rname == "ring_gather_spmm":
+        units *= geo.gathers[0].tiles[0] // SPMM_COLS
+    return min(blocks, -(-units // ctas)) * z
 
 
 def _ring_refusal(op: tuple, name: str, geo: StreamGeometry,
@@ -805,19 +896,22 @@ def _staged_bytes(rname: str, ops: Sequence[str],
                   geo: StreamGeometry) -> int:
     """The shared memory ring kernel ``rname`` takes besides its ring,
     running the stage ``ops``: R9 stages K8's weights and tile but for the
-    residual alone; R12 its p tile (Q is in its ring, one tile); the others
-    nothing."""
+    residual alone; R12 its p tile (Q is in its ring, one tile); R15 its
+    third pass's tile of sums (K14's float tile); the others nothing."""
     if rname == "ring_dag_mlp" and tuple(ops) != ("mlp_residual",):
         return MLP_STAGED_BYTES
     if rname == "ring_rescale_attention":
         rows = ATTENTION_RING_TILES[geo.ins[0].block[1]][0]
         return 4 * ATTENTION_SUBTILE * (rows + 4)
+    if rname == "ring_stream_scan":
+        return 4 * scan_slot_words(4)
     return 0
 
 
 #: What a ring kernel's staged bytes hold, for its refusal.
 _STAGED_WHAT = {"ring_dag_mlp": "its staged weights and tile",
-                "ring_rescale_attention": "its p tile"}
+                "ring_rescale_attention": "its p tile",
+                "ring_stream_scan": "its tile of sums"}
 
 
 def _ring_budget_refusal(rname: str, geo: StreamGeometry, dtype: torch.dtype,
@@ -1338,10 +1432,12 @@ def rescale_attention(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
 
 
 def _checked_gather(name: str, geo: StreamGeometry,
-                    layouts: Sequence[torch.Tensor],
-                    program: Optional[Any]) -> torch.device:
+                    layouts: Sequence[torch.Tensor], program: Optional[Any],
+                    ring: Optional[RingProgram] = None) -> torch.device:
     """What K12 and K13 take: f32 values and table, an int32 index stream,
-    contiguous 2-D layouts on one CUDA device, inside their walks."""
+    contiguous 2-D layouts on one CUDA device, inside their walks; with
+    ``ring``, what their ring kernel R13 or R14 takes (its ring within the
+    shared memory a CTA may opt into)."""
     for t in layouts:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: launches on CUDA tensors, got "
@@ -1358,7 +1454,9 @@ def _checked_gather(name: str, geo: StreamGeometry,
         raise ValueError(f"{name}: operand 1 on {cidx.device}, not {dev}")
     for k, (t, agu) in enumerate(zip(layouts, geo.ins)):
         agu.check_within(geo.grid, tuple(t.shape), f"{name}[{k}]")
-    reason = _refusal(name, geo, vals.dtype, dev)
+    reason = _refusal(name, geo, vals.dtype, dev) if ring is None else \
+        _ring_refusal(("nest", "spmv" if name == "gather_spmv" else "spmm"),
+                      name, geo, vals.dtype, ring)
     if reason is not None:
         raise ValueError(reason)
     geo.out.check_within(geo.grid, geo.out_shape, f"{name}[out]")
@@ -1367,13 +1465,14 @@ def _checked_gather(name: str, geo: StreamGeometry,
 
 def _gather_args(name: str, geo: StreamGeometry,
                  layouts: Sequence[torch.Tensor], out_dtype: torch.dtype,
-                 acc_dtype: torch.dtype, program: Optional[Any]
+                 acc_dtype: torch.dtype, program: Optional[Any],
+                 ring: Optional[RingProgram] = None
                  ) -> Tuple[torch.device, torch.Tensor, tuple]:
-    """The output, and the arguments K12 and K13 share: the three layouts
-    and the output, the grid and the walks, the contraction steps and the
-    gather's program (scale, offset, table size, the extent that holds
-    data)."""
-    dev = _checked_gather(name, geo, layouts, program)
+    """The output, and the arguments K12 and K13 (R13 and R14 with
+    ``ring``) share: the three layouts and the output, the grid and the
+    walks, the contraction steps and the gather's program (scale, offset,
+    table size, the extent that holds data)."""
+    dev = _checked_gather(name, geo, layouts, program, ring)
     _f32_out(name, out_dtype)
     if acc_dtype != torch.float32:
         raise TypeError(f"{name}: accumulates in float32, the schedule asks "
@@ -1391,24 +1490,65 @@ def _gather_args(name: str, geo: StreamGeometry,
         g.extent[0], g.extent[1])
 
 
+def _gather_ring_args(rname: str, geo: StreamGeometry,
+                      layouts: Sequence[torch.Tensor], ring: RingProgram,
+                      dev: torch.device) -> tuple:
+    """What R13 and R14 take besides their sync kernel's arguments: the
+    output blocks a CTA's run walks (:func:`ring_run_steps`), the slot
+    pitch, whether vals' and cidx's block rows allow 16-byte copies, the
+    ring as :func:`device_ring` sizes it and its bytes."""
+    dr = device_ring(rname, geo, ring, torch.float32)
+    steps = ring_run_steps(rname, geo, ring, torch.float32,
+                           _card(dev).multi_processor_count)
+    vec16 = _copies16(layouts[0], geo.ins[0]) and \
+        _copies16(layouts[1], geo.ins[1])
+    return (steps // geo.contraction_steps, gather_slot_width(geo),
+            int(vec16), ctypes.byref(_ring_arg(dr)), dr.ring_bytes)
+
+
 def gather_spmv(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                 out_dtype: torch.dtype, acc_dtype: torch.dtype = torch.float32,
-                program: Optional[Any] = None) -> torch.Tensor:
+                program: Optional[Any] = None,
+                ring: Optional[RingProgram] = None) -> torch.Tensor:
     """K12: y block (1, tm) = Σ over the contraction steps and the index
     block's columns of vals·x[clip(scale·cidx + offset)], f32; a group of
-    four threads per row reads only the positions holding data."""
+    four threads per row reads only the positions holding data.  With
+    ``ring`` (a pipelined call) R13 (:func:`ring_gather_spmv`)."""
+    if ring is not None:
+        return ring_gather_spmv(geo, layouts, out_dtype, acc_dtype, program,
+                                ring)
     dev, out, args = _gather_args("gather_spmv", geo, layouts, out_dtype,
                                   acc_dtype, program)
     _launch("gather_spmv", dev, *args)
     return out
 
 
+def ring_gather_spmv(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
+                     out_dtype: torch.dtype, acc_dtype: torch.dtype,
+                     program: Optional[Any], ring: RingProgram
+                     ) -> torch.Tensor:
+    """R13: K12 with vals' and cidx's rows through rings of their streams'
+    depths, on persistent CTAs that each walk a run of whole output blocks
+    for their 64 rows (:func:`ring_run_steps`); the table gathered as K12
+    gathers it; K12's bits."""
+    dev, out, args = _gather_args("gather_spmv", geo, layouts, out_dtype,
+                                  acc_dtype, program, ring)
+    _launch("ring_gather_spmv", dev, *args, *_gather_ring_args(
+        "ring_gather_spmv", geo, layouts, ring, dev))
+    return out
+
+
 def gather_spmm(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                 out_dtype: torch.dtype, acc_dtype: torch.dtype = torch.float32,
-                program: Optional[Any] = None) -> torch.Tensor:
+                program: Optional[Any] = None,
+                ring: Optional[RingProgram] = None) -> torch.Tensor:
     """K13: Y block (tm, tc) = Σ vals·X[clip(scale·cidx + c + offset)], a
     warp per row, each lane four consecutive columns gathered as one
-    16-byte load; the c tile in SPMM_COLS-wide chunks (grid y)."""
+    16-byte load; the c tile in SPMM_COLS-wide chunks (grid y).  With
+    ``ring`` (a pipelined call) R14 (:func:`ring_gather_spmm`)."""
+    if ring is not None:
+        return ring_gather_spmm(geo, layouts, out_dtype, acc_dtype, program,
+                                ring)
     name = "gather_spmm"
     # 16-byte gathers: a table view off a 16-byte boundary is copied once
     layouts = [_aligned16(t) if k == 2 else t for k, t in enumerate(layouts)]
@@ -1416,6 +1556,22 @@ def gather_spmm(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                                   program)
     g = geo.gathers[0]
     _launch(name, dev, *args, g.grid_pos[0], g.tiles[0])
+    return out
+
+
+def ring_gather_spmm(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
+                     out_dtype: torch.dtype, acc_dtype: torch.dtype,
+                     program: Optional[Any], ring: RingProgram
+                     ) -> torch.Tensor:
+    """R14: K13 with vals' and cidx's rows through R13's rings, on
+    persistent CTAs that each walk a run of whole output blocks for their 8
+    rows and 128-column chunk; X gathered as K13 gathers it; K13's bits."""
+    layouts = [_aligned16(t) if k == 2 else t for k, t in enumerate(layouts)]
+    dev, out, args = _gather_args("gather_spmm", geo, layouts, out_dtype,
+                                  acc_dtype, program, ring)
+    g = geo.gathers[0]
+    _launch("ring_gather_spmm", dev, *args, g.grid_pos[0], g.tiles[0],
+            *_gather_ring_args("ring_gather_spmm", geo, layouts, ring, dev))
     return out
 
 
@@ -1534,19 +1690,60 @@ def _scan_launch(name: str, dev: torch.device, x: torch.Tensor
     return out
 
 
-def stream_scan(launch: Any, x: torch.Tensor) -> Tuple[torch.Tensor]:
-    """K14: the inclusive prefix sum of the padded vector x (rows, 128) in
-    f32, the Launch's (8, 128) blocks walked in order with an f32 carry:
-    per SCAN_TILE tile its total, one CTA's scan of the totals in order,
-    then each tile's scan from its offset — the same result every run."""
-    name = "stream_scan"
+def _checked_scan(name: str, launch: Any, x: torch.Tensor) -> torch.device:
+    """What K14 and R15 take: the padded vector x (rows, 128) in f32, bf16
+    or int32 on a CUDA device, and the scan's Launch over it."""
     dev = _checked_operands(name, (x,), _FLOATS + (torch.int32,))
     nblk = _row_blocks(name, x)
     walk = BlockAGU((ROWS, LANES), (0, 0), ((1, 0),))
     _checked_launch(name, launch, (nblk,), (walk,), (walk,),
                     ((tuple(x.shape), torch.float32),),
                     (((1, 1), torch.float32),), ("arbitrary",))
-    return (_scan_launch(name, dev, x),)
+    return dev
+
+
+def stream_scan(launch: Any, x: torch.Tensor) -> Tuple[torch.Tensor]:
+    """K14: the inclusive prefix sum of the padded vector x (rows, 128) in
+    f32, the Launch's (8, 128) blocks walked in order with an f32 carry:
+    per SCAN_TILE tile its total, one CTA's scan of the totals in order,
+    then each tile's scan from its offset — the same result every run."""
+    dev = _checked_scan("stream_scan", launch, x)
+    return (_scan_launch("stream_scan", dev, x),)
+
+
+def launch_geometry(launch: Any) -> StreamGeometry:
+    """A Launch's walks as a geometry (its first output stream as ``out``):
+    what a stream kernel's ring is sized and scheduled over."""
+    ins, outs = launch_walks(launch)
+    return StreamGeometry(grid=tuple(launch.grid), ins=ins, out=outs[0],
+                          out_shape=tuple(launch.out_shapes[0].shape))
+
+
+def ring_stream_scan(launch: Any, x: torch.Tensor, ring: RingProgram
+                     ) -> Tuple[torch.Tensor]:
+    """R15: K14's three passes with passes 1 and 3 on persistent CTAs, each
+    walking a run of consecutive SCAN_TILE tiles (:func:`ring_run_steps`)
+    through a ring of ``ring.depths[0]`` tile slots (the ring's unit is
+    K14's tile, four of the Launch's blocks); K14's bits."""
+    name = "ring_stream_scan"
+    dev = _checked_scan(name, launch, x)
+    geo = launch_geometry(launch)
+    reason = _ring_budget_refusal(name, geo, x.dtype, ring,
+                                  _staged_bytes(name, (), geo))
+    if reason is not None:
+        raise ValueError(reason)
+    x = _aligned16(x)
+    tiles = -(-x.numel() // SCAN_TILE)
+    out = torch.empty(x.shape, dtype=torch.float32, device=dev)
+    totals = torch.empty(tiles, dtype=torch.float32, device=dev)
+    dr = device_ring(name, geo, ring, x.dtype)
+    per_cta = ring_run_steps(name, geo, ring, x.dtype,
+                             _card(dev).multi_processor_count) \
+        // (SCAN_TILE // (ROWS * LANES))
+    _launch(name, dev, x.data_ptr(), _DTYPE_CODE[x.dtype], out.data_ptr(),
+            totals.data_ptr(), x.numel(), tiles, per_cta,
+            ctypes.byref(_ring_arg(dr)), dr.ring_bytes)
+    return (out,)
 
 
 def stream_fft(launch: Any, xr: torch.Tensor, xi: torch.Tensor,
@@ -1616,6 +1813,13 @@ STREAM_KERNELS: Dict[str, Callable[..., tuple]] = {
     "fft": stream_fft,
     "bitonic": stream_bitonic,
 }
+#: Body op → the ring kernel that runs a StreamKernel's Launch at a depth
+#: above 2 on a grid of more than one step, called as ``kernel(launch,
+#: *arrays, ring=...)``.  The FFT and the sort run a one-step grid, which
+#: never stages.
+STREAM_RING_KERNELS: Dict[str, Callable[..., tuple]] = {
+    "scan": ring_stream_scan,
+}
 
 
 # -- the chained kernel (ChainedKernel) ------------------------------------------
@@ -1630,13 +1834,12 @@ def chained_geometry(launch: Any) -> StreamGeometry:
     """A ChainedKernel's Launch as the geometry K17 walks: the read streams'
     walks and the one output stream's; raises when an index map is not
     affine or the Launch writes another number of streams than one."""
-    ins, outs = launch_walks(launch)
+    outs = launch_walks(launch)[1]
     if len(outs) != 1 or len(launch.out_shapes) != 1:
         raise ValueError(f"a chained kernel writes one output stream; the "
                          f"Launch has {len(outs)} streams and "
                          f"{len(launch.out_shapes)} out_shapes")
-    return StreamGeometry(grid=tuple(launch.grid), ins=ins, out=outs[0],
-                          out_shape=tuple(launch.out_shapes[0].shape))
+    return launch_geometry(launch)
 
 
 def _chained_refusal(pair: Tuple[Optional[str], Optional[str]],
@@ -2501,15 +2704,22 @@ PLAIN_GATHER_ELEMS = 1 << 25
 
 def _plain_gather_contract(body: Callable, geo: StreamGeometry,
                            layouts: Sequence[torch.Tensor],
-                           out_dtype: torch.dtype,
-                           acc_dtype: torch.dtype) -> torch.Tensor:
+                           out_dtype: torch.dtype, acc_dtype: torch.dtype,
+                           ring: Optional[RingProgram] = None,
+                           taken: Optional[Sequence[Sequence[int]]] = None
+                           ) -> torch.Tensor:
     """:func:`plain_contract` with gathers, over chunks of grid steps.
 
     Per step the body receives the streamed blocks (halos widened), then
     each gather's block of the table (:meth:`GatherAGU.gather`); the
     tables are the trailing read streams.  A chunk is a whole number of
     output blocks' contraction steps, so each output block is summed and
-    drained as in :func:`plain_contract`.
+    drained as in :func:`plain_contract`.  With ``ring`` and its ``taken``
+    steps (:func:`ring_taken`) the streamed blocks are the ones the ring
+    delivers (:func:`ring_blocks`), a chunk at a time, and each gather's
+    addresses come from the index block delivered
+    (:meth:`GatherAGU.gather_delivered`), its extent mask and affine levels
+    from the step that computes.
     """
     n_s = len(geo.ins) - len(geo.gathers)     # the tables trail
     dev = layouts[0].device
@@ -2522,9 +2732,18 @@ def _plain_gather_contract(body: Callable, geo: StreamGeometry,
     out = torch.zeros(geo.out_shape, dtype=out_dtype, device=dev)
     for s0 in range(0, geo.steps, chunk):
         at = steps[s0:s0 + chunk]
-        blocks, dims = _step_inputs(geo, layouts, at)
-        gathered = [g.gather(geo.ins[g.index], geo.grid, layouts[g.index],
-                             layouts[g.table], at) for g in geo.gathers]
+        if taken is None:
+            blocks, dims = _step_inputs(geo, layouts, at)
+            gathered = [g.gather(geo.ins[g.index], geo.grid,
+                                 layouts[g.index], layouts[g.table], at)
+                        for g in geo.gathers]
+        else:
+            blocks, dims = ring_blocks(geo, layouts, ring, taken, s0,
+                                       s0 + chunk)
+            gathered = [g.gather_delivered(
+                _batched(blocks[g.index], dims[g.index], len(at)),
+                geo.ins[g.index], geo.grid, tuple(layouts[g.index].shape),
+                layouts[g.table], at) for g in geo.gathers]
         parts = torch.vmap(
             lambda *b: body(*_widened(geo, b[:n_s]), *b[n_s:]),
             in_dims=(*dims[:n_s], *(0,) * len(gathered)))(
@@ -2533,6 +2752,12 @@ def _plain_gather_contract(body: Callable, geo: StreamGeometry,
         idx = geo.out.element_index(geo.grid, geo.out_shape, dev, at[::z])
         out.view(-1)[idx] = drain(parts).to(out_dtype)
     return out
+
+
+def _batched(block: torch.Tensor, dim: Optional[int],
+             steps: int) -> torch.Tensor:
+    """A delivered block per step: an unbatched (invariant) one repeated."""
+    return block.expand(steps, *block.shape) if dim is None else block
 
 
 def plain_contract(body: Callable, geo: StreamGeometry,
@@ -2652,7 +2877,9 @@ def plain_rescale(body: Callable, geo: StreamGeometry,
 
 
 def plain_stream(body: Callable, launch: Any,
-                 arrays: Sequence[torch.Tensor]) -> tuple:
+                 arrays: Sequence[torch.Tensor],
+                 ring: Optional[RingProgram] = None,
+                 steps_per_cta: Optional[int] = None) -> tuple:
     """A stream kernel's Launch as an in-order block walk: the counterpart
     of the reference's sequential Pallas grid.
 
@@ -2662,8 +2889,11 @@ def plain_stream(body: Callable, launch: Any,
     order, calling ``body(step, *in_blocks, *scratch) -> (out_blocks,
     scratch)`` with ``step`` counting from 0 and the scratch (zeros at
     first) carried from step to step.  A stream whose walk never moves is
-    handed its one block unbatched.  Returns the outputs, blocks a step
-    leaves unwritten zero."""
+    handed its one block unbatched.  With ``ring`` (a pipelined call) the
+    moving streams' blocks are the ones it delivers over the flat grid
+    (:func:`ring_delivery`, in runs of ``steps_per_cta`` steps; one run by
+    default), the carry threaded as without it.  Returns the outputs,
+    blocks a step leaves unwritten zero."""
     grid = tuple(launch.grid)
     sem = tuple(launch.dimension_semantics or ("arbitrary",) * len(grid))
     par = 0
@@ -2677,12 +2907,16 @@ def plain_stream(body: Callable, launch: Any,
     blocks, dims = [], []
     for k, (agu, t) in enumerate(zip(ins, arrays)):
         agu.check_within(grid, tuple(t.shape), f"in[{k}]")
+    if ring is not None:
+        delivered = ring_delivery(launch_geometry(launch), arrays, ring,
+                                  steps_per_cta)[0][0]
+    for k, (agu, t) in enumerate(zip(ins, arrays)):
         if not any(any(c) for c in agu.coeffs):
             blocks.append(_invariant_block(agu, t))
             dims.append(None)
         else:
-            blocks.append(agu.gather(t, grid).reshape(n_par, n_seq,
-                                                      *agu.block))
+            got = agu.gather(t, grid) if ring is None else delivered[k]
+            blocks.append(got.reshape(n_par, n_seq, *agu.block))
             dims.append(0)
     batched = n_par > 1
     lead = (n_par,) if batched else ()
@@ -2717,12 +2951,11 @@ PLAIN: Dict[str, Callable[..., torch.Tensor]] = {
     "rescale": plain_rescale}
 
 
-def ring_delivery(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
-                  ring: RingProgram, steps_per_cta: Optional[int] = None
-                  ) -> Tuple[Tuple[list, tuple], list]:
-    """Every step's blocks of each stream as ``ring`` delivers them, in the
-    form the plain versions take them (``inputs``: the blocks and their
-    ``vmap`` dims), and the fetch log.
+def ring_taken(geo: StreamGeometry, ring: RingProgram,
+               steps_per_cta: Optional[int] = None
+               ) -> Tuple[list, list]:
+    """The ring's schedule over the whole grid: per stream the grid step
+    whose block each step takes, and the fetch log.
 
     The grid runs as runs of ``steps_per_cta`` consecutive steps (one run
     by default: the reference's single core).  Each run starts with an
@@ -2731,11 +2964,10 @@ def ring_delivery(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
     first starts the fetch of step ``s + d − 1`` (if the run has it) into
     slot ``(s + d − 1) % d``, then takes the block of slot ``s % d``; an
     invariant stream is fetched once into slot 0 and taken from there.  The
-    slots hold the grid step of the block they were last filled with, and
-    each step's blocks are gathered once at the end from the steps its
-    reads found: a slot read too early or refilled too soon delivers
-    another step's block.  The log is ``(stream, step, slot)`` in issue
-    order, ``step`` counted over the whole grid.
+    slots hold the grid step of the block they were last filled with, so a
+    slot read too early or refilled too soon hands its step another step's
+    block.  The log is ``(stream, step, slot)`` in issue order, ``step``
+    counted over the whole grid.
     """
     steps = geo.steps
     run = steps_per_cta or steps
@@ -2762,16 +2994,41 @@ def ring_delivery(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
             for i in streams:
                 taken[i][s0 + s] = held[i][0 if ring.invariant[i]
                                            else s % ring.depths[i]]
-    got = []
-    for agu, t, at in zip(geo.ins, layouts, taken):
-        index = agu.element_index(geo.grid, tuple(t.shape), t.device)
-        got.append(t.reshape(-1)[index[torch.tensor(at, device=t.device)]])
-    # an invariant stream is handed its one block unbatched, as the
-    # gathering plain versions hand it (vmap needs one batched input)
+    return taken, log
+
+
+def ring_blocks(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
+                ring: RingProgram, taken: Sequence[Sequence[int]],
+                start: int = 0, stop: Optional[int] = None
+                ) -> Tuple[list, tuple]:
+    """The blocks of steps ``start`` … ``stop`` as the ring delivers them
+    (``taken``: :func:`ring_taken`'s), in the form the plain versions take
+    them: the blocks and their ``vmap`` dims.  An invariant stream is
+    handed its one block unbatched, as the gathering plain versions hand it
+    (vmap needs one batched input, so the first stream is batched when
+    every stream is invariant)."""
+    stop = geo.steps if stop is None else stop
     fixed = list(ring.invariant) if not all(ring.invariant) else \
         [False] + list(ring.invariant[1:])
-    blocks = [g[0] if f else g for g, f in zip(got, fixed)]
-    return (blocks, tuple(None if f else 0 for f in fixed)), log
+    blocks = []
+    for agu, t, at, f in zip(geo.ins, layouts, taken, fixed):
+        if f:
+            blocks.append(_invariant_block(agu, t))
+            continue
+        at = torch.tensor(at[start:stop], dtype=torch.int64, device=t.device)
+        blocks.append(agu.gather(t, geo.grid,
+                                 grid_steps(geo.grid, t.device)[at]))
+    return blocks, tuple(None if f else 0 for f in fixed)
+
+
+def ring_delivery(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
+                  ring: RingProgram, steps_per_cta: Optional[int] = None
+                  ) -> Tuple[Tuple[list, tuple], list]:
+    """Every step's blocks of each stream as ``ring`` delivers them
+    (:func:`ring_blocks` over the whole grid), and the fetch log
+    (:func:`ring_taken`)."""
+    taken, log = ring_taken(geo, ring, steps_per_cta)
+    return ring_blocks(geo, layouts, ring, taken), log
 
 
 def plain_ring(body: Callable, geo: StreamGeometry,
@@ -2783,18 +3040,22 @@ def plain_ring(body: Callable, geo: StreamGeometry,
     :func:`plain_reduce`, :func:`plain_map`, :func:`plain_contract` or
     :func:`plain_rescale` (``mode``, a key of :data:`PLAIN`: the kernel's
     ``plain_kind``) delivered through ``ring`` (:func:`ring_delivery`), then
-    the same computation.  3-D layouts are a head batch: each head through
-    the ring alike, the results stacked.  Returns the result and the fetch
-    log (one head's)."""
+    the same computation; a contraction with gathers takes the delivered
+    blocks a chunk of steps at a time (:func:`_plain_gather_contract`).  3-D
+    layouts are a head batch: each head through the ring alike, the results
+    stacked.  Returns the result and the fetch log (one head's)."""
     if layouts and layouts[0].dim() == 3:
         runs = [plain_ring(body, geo, [t[h] for t in layouts], out_dtype,
                            acc_dtype, mode=mode, ring=ring,
                            steps_per_cta=steps_per_cta)
                 for h in range(layouts[0].shape[0])]
         return torch.stack([r[0] for r in runs]), runs[0][1]
-    inputs, log = ring_delivery(geo, layouts, ring, steps_per_cta)
+    taken, log = ring_taken(geo, ring, steps_per_cta)
+    if mode == "nest" and geo.gathers:
+        return _plain_gather_contract(body, geo, layouts, out_dtype,
+                                      acc_dtype, ring, taken), log
     out = PLAIN[mode](body, geo, layouts, out_dtype, acc_dtype,
-                      inputs=inputs)
+                      inputs=ring_blocks(geo, layouts, ring, taken))
     return out, log
 
 

@@ -27,11 +27,12 @@ card.  A schedule deeper than 2 (``buffer_depth`` or ``stream_depths``)
 makes a kernel :attr:`SsrKernel.pipelined` where its family stages — the
 reference's ``_pipelined_call``: its read streams then arrive through an
 N-deep ring (:class:`~repro_torch.core.agu.RingProgram`), on the card in
-shared memory (the ring kernels R1–R4 and R6–R12 of
+shared memory (the ring kernels R1–R4 and R6–R14 of
 :data:`hopper.RING_KERNELS`), on the CPU in :func:`hopper.plain_ring`.
 The chains of K5 and the DAGs of K6–K8 stage too (each a
-:class:`StageKernel`), and so do the halo (K9, K10) and attention (K11)
-kernels; the gather and stream kernels run synchronously at any depth.
+:class:`StageKernel`), and so do the halo (K9, K10), attention (K11) and
+gather (K12, K13) kernels; a StreamKernel's scan stages through R15
+(``kernels/frontend.py``), its FFT and sort, one grid step each, never.
 """
 
 from __future__ import annotations
@@ -346,8 +347,9 @@ class SsrKernel:
     def pipelined(self) -> bool:
         """Whether the read streams arrive through an N-deep ring: a depth
         above 2, a grid of more than one step, :func:`pipeline_supported`
-        and a family that stages (:data:`hopper.RING_KERNELS`).  The same
-        on the CPU and on the card."""
+        and a family that stages (:data:`hopper.RING_KERNELS`: R1–R4 and
+        R6–R14, every streamed family of K1–K13).  The same on the CPU and
+        on the card."""
         return (max(self.depths, default=DEFAULT_BUFFER_DEPTH)
                 > DEFAULT_BUFFER_DEPTH and self.geometry.steps > 1
                 and pipeline_supported()

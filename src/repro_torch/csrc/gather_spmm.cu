@@ -30,19 +30,11 @@
 // index block's positions that hold data are read; the contraction steps
 // run as a loop inside the CTA; Y is written once per row.  Addresses are
 // 64-bit.
-#include "ssr_common.cuh"
+#include "ssr_gather.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowsPerCta = kThreads / 32;  // a warp per row
-constexpr int kCols = 128;                  // a warp's columns, four a lane
-constexpr int kBatch = 4;                   // entries gathered before FMAs
-
-__device__ __forceinline__ float clipped(const float* __restrict__ table,
-                                         int64_t a, int64_t elems) {
-  return __ldg(table + (a < 0 ? 0 : (a >= elems ? elems - 1 : a)));
-}
+using namespace gather;
 
 // Four CTAs an SM: the walk registers and four 16-byte gathers in flight
 // take about 80 registers a thread unbounded (three CTAs an SM); at 64 the
@@ -59,71 +51,21 @@ __global__ void __launch_bounds__(kThreads, 4)
   const int64_t p = blockIdx.x / groups;
   const int64_t grp = blockIdx.x % groups;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t tm = sc.block[0], tk = sc.block[1];
-  const int64_t r = grp * kRowsPerCta + warp;       // row in the block
-  const int64_t col = static_cast<int64_t>(blockIdx.y) * kCols + lane * 4;
+  const int64_t tm = sc.block[0];
+  const int64_t r = grp * kSpmmRows + warp;         // row in the block
+  const int64_t col = static_cast<int64_t>(blockIdx.y) * kSpmmCols + lane * 4;
   const bool live = r < tm;                         // the same for the warp
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 
   SsrOdometer odo(g, p * zsteps);
   for (int64_t z = 0; z < zsteps; ++z, odo.advance(g)) {
     const int64_t row = odo.index(sc, 0) * tm + r;
-    const int64_t col0 = odo.index(sc, 1) * tk;
-    const int64_t ncols = valid_cols - col0 < tk ? valid_cols - col0 : tk;
+    const int64_t ncols = valid_cols_at(odo, sc, valid_cols);
     if (!live || row >= valid_rows || ncols <= 0) continue;
-    const float* pv = vals + odo.origin(sv) + r * sv.pitch;
-    const int32_t* pc = cidx + odo.origin(sc) + r * sc.pitch;
-    // the affine level's address: coefficient 1 on grid axis gpos
-    int64_t level = 0;
-#pragma unroll
-    for (int k = 0; k < SSR_MAX_AXES; ++k)
-      if (k == gpos) level = odo.g[k];
-    const int64_t base = offset + level * gtile + col;
-    const int64_t last = table_elems - 4;   // the last segment's start
-    for (int64_t j0 = 0; j0 < ncols; j0 += 32) {
-      float v = 0.f;
-      int c = 0;
-      if (j0 + lane < ncols) {
-        v = __ldg(pv + j0 + lane);
-        c = __ldg(pc + j0 + lane);
-      }
-      const int cnt = ncols - j0 < 32 ? static_cast<int>(ncols - j0) : 32;
-      for (int q0 = 0; q0 < cnt; q0 += kBatch) {
-        float vq[kBatch];
-        int ci[kBatch];
-        float4 xv[kBatch];
-        bool outside = false;
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {   // past cnt: entry q0, not used
-          const int q = q0 + u < cnt ? q0 + u : q0;
-          vq[u] = __shfl_sync(0xffffffffu, v, q);
-          ci[u] = __shfl_sync(0xffffffffu, c, q);
-          const int64_t a = static_cast<int64_t>(ci[u]) * scale + base;
-          const int64_t s = a < 0 ? 0 : (a > last ? last : a);
-          outside |= s != a;
-          xv[u] = __ldg(reinterpret_cast<const float4*>(table + s));
-        }
-        if (outside) {
-#pragma unroll
-          for (int u = 0; u < kBatch; ++u) {
-            const int64_t a = static_cast<int64_t>(ci[u]) * scale + base;
-            xv[u] = make_float4(clipped(table, a, table_elems),
-                                clipped(table, a + 1, table_elems),
-                                clipped(table, a + 2, table_elems),
-                                clipped(table, a + 3, table_elems));
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kBatch; ++u) {
-          if (q0 + u < cnt) {
-            acc.x = fmaf(vq[u], xv[u].x, acc.x);
-            acc.y = fmaf(vq[u], xv[u].y, acc.y);
-            acc.z = fmaf(vq[u], xv[u].z, acc.z);
-            acc.w = fmaf(vq[u], xv[u].w, acc.w);
-          }
-        }
-      }
-    }
+    spmm_row<true>(vals + odo.origin(sv) + r * sv.pitch,
+                   cidx + odo.origin(sc) + r * sc.pitch, ncols, lane, table,
+                   scale, offset + spmm_level(odo, gpos, gtile) + col,
+                   table_elems, acc);
   }
   // drain: Y's block is (tm, tile); row r, columns col .. col + 3
   if (live)
@@ -147,14 +89,14 @@ extern "C" int ssr_gather_spmm(const void* vals, const void* cidx,
                                void* stream) {
   int64_t steps = 1;
   for (int k = 0; k < g->ndim; ++k) steps *= g->dims[k];
-  const int64_t groups = (sc->block[0] + kRowsPerCta - 1) / kRowsPerCta;
+  const int64_t groups = (sc->block[0] + kSpmmRows - 1) / kSpmmRows;
   const int64_t ctas = (steps / zsteps) * groups;
   if (ctas < 1 || ctas > 0x7fffffffLL || table_elems < 4 || table_elems % 4 ||
-      gtile % kCols ||
-      gtile / kCols > 65535 || gpos < 0 || gpos >= g->ndim)
+      gtile % kSpmmCols ||
+      gtile / kSpmmCols > 65535 || gpos < 0 || gpos >= g->ndim)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(ctas),
-                  static_cast<unsigned>(gtile / kCols));
+                  static_cast<unsigned>(gtile / kSpmmCols));
   gather_spmm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(vals), static_cast<const int32_t*>(cidx),
       static_cast<const float*>(table), static_cast<float*>(y), *g, *sv, *sc,

@@ -27,14 +27,11 @@
 // inside the CTA, the sum carried in registers; the group folds its sums by
 // shuffles and writes y once.  Addresses are 64-bit and clipped into the
 // table, as the reference clips them, so nothing is read outside it.
-#include "ssr_common.cuh"
+#include "ssr_gather.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kGroup = 4;                          // threads per ELL row
-constexpr int kRowsPerCta = kThreads / kGroup;     // 64
-constexpr int kPer = 4;                            // entries a thread holds
+using namespace gather;
 
 __global__ void __launch_bounds__(kThreads)
     gather_spmv_kernel(const float* __restrict__ vals,
@@ -46,43 +43,22 @@ __global__ void __launch_bounds__(kThreads)
                        int64_t valid_cols) {  // groups: CTAs per row block
   const int64_t p = blockIdx.x / groups;
   const int64_t grp = blockIdx.x % groups;
-  const int t = threadIdx.x % kGroup;
-  const int64_t tm = sc.block[0], tk = sc.block[1];
-  const int64_t r = grp * kRowsPerCta + threadIdx.x / kGroup;  // row in block
+  const int t = threadIdx.x % kSpmvGroup;
+  const int64_t tm = sc.block[0];
+  const int64_t r = grp * kSpmvRows + threadIdx.x / kSpmvGroup;  // row in block
   const bool live = r < tm;
   float acc = 0.f;
 
   SsrOdometer odo(g, p * zsteps);
   for (int64_t z = 0; z < zsteps; ++z, odo.advance(g)) {
     const int64_t row = odo.index(sc, 0) * tm + r;
-    const int64_t col0 = odo.index(sc, 1) * tk;
-    const int64_t ncols = valid_cols - col0 < tk ? valid_cols - col0 : tk;
+    const int64_t ncols = valid_cols_at(odo, sc, valid_cols);
     if (!live || row >= valid_rows || ncols <= 0) continue;
-    const float* pv = vals + odo.origin(sv) + r * sv.pitch;
-    const int32_t* pc = cidx + odo.origin(sc) + r * sc.pitch;
-    for (int64_t j0 = t; j0 < ncols; j0 += kGroup * kPer) {
-      float v[kPer];
-      int64_t a[kPer];
-#pragma unroll
-      for (int q = 0; q < kPer; ++q) {
-        const int64_t j = j0 + q * kGroup;
-        v[q] = 0.f;
-        a[q] = 0;
-        if (j < ncols) {
-          v[q] = __ldg(pv + j);
-          const int64_t addr = static_cast<int64_t>(__ldg(pc + j)) * scale + offset;
-          a[q] = addr < 0 ? 0 : (addr >= table_elems ? table_elems - 1 : addr);
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < kPer; ++q)
-        if (j0 + q * kGroup < ncols) acc = fmaf(v[q], __ldg(table + a[q]), acc);
-    }
+    acc = spmv_row<true>(vals + odo.origin(sv) + r * sv.pitch,
+                         cidx + odo.origin(sc) + r * sc.pitch, ncols, t, table,
+                         scale, offset, table_elems, acc);
   }
-
-#pragma unroll
-  for (int o = kGroup / 2; o > 0; o >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, o, kGroup);
+  acc = spmv_fold(acc);
   // drain: y's block is (1, tm); its element (0, r) sits at origin + r
   if (live && t == 0) y[ssr_block_origin(sy, g, p * zsteps) + r] = acc;
 }
@@ -101,7 +77,7 @@ extern "C" int ssr_gather_spmv(const void* vals, const void* cidx,
                                int64_t valid_cols, void* stream) {
   int64_t steps = 1;
   for (int k = 0; k < g->ndim; ++k) steps *= g->dims[k];
-  const int64_t groups = (sc->block[0] + kRowsPerCta - 1) / kRowsPerCta;
+  const int64_t groups = (sc->block[0] + kSpmvRows - 1) / kSpmvRows;
   const int64_t ctas = (steps / zsteps) * groups;
   if (ctas < 1 || ctas > 0x7fffffffLL || table_elems < 1)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -28,85 +28,31 @@
 // predecessors' totals happen to be ready, would not be.  The association
 // differs from the reference's (1024-element cumsums plus a sequential
 // carry): both are f32 prefix sums within rounding of the exact one.
-#include "ssr_common.cuh"
+#include "ssr_scan.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kItems = 16;                  // consecutive elements a thread
-constexpr int kTile = kThreads * kItems;    // 4096 elements a CTA
-constexpr int kPacks = kItems / 4;          // 16-byte loads a thread
-constexpr int kSmem = kTile + kTile / 32;   // one pad float every 32
-
-// A thread reads its 16 consecutive elements at stride 16: one pad float
-// every 32 spreads a warp's reads over all banks.
-__device__ __forceinline__ int padded(int i) { return i + (i >> 5); }
-
-// x[base, base + kTile) into shared memory as floats, 0 past n (a multiple
-// of 4): every load of the thread issued before its stores.
-template <typename T>
-__device__ __forceinline__ void stage(const T* __restrict__ x, int64_t base, int64_t n,
-                                      float* sm) {
-  float4 v[kPacks];
-#pragma unroll
-  for (int k = 0; k < kPacks; ++k) {
-    const int64_t e = base + 4 * (threadIdx.x + k * kThreads);
-    v[k] = e < n ? ssr_load4_f32(x + e) : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-#pragma unroll
-  for (int k = 0; k < kPacks; ++k) {
-    const int e = 4 * (threadIdx.x + k * kThreads);
-    sm[padded(e)] = v[k].x;
-    sm[padded(e + 1)] = v[k].y;
-    sm[padded(e + 2)] = v[k].z;
-    sm[padded(e + 3)] = v[k].w;
-  }
-  __syncthreads();
-}
-
-// The sum of the thread's 16 staged elements, in order.
-__device__ __forceinline__ float thread_sum(const float* sm) {
-  const int e0 = threadIdx.x * kItems;
-  float s = sm[padded(e0)];
-#pragma unroll
-  for (int j = 1; j < kItems; ++j) s += sm[padded(e0 + j)];
-  return s;
-}
+using namespace scan;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     tile_totals(const T* __restrict__ x, int64_t n, float* __restrict__ totals) {
-  __shared__ float sm[kSmem];
+  __shared__ float sm[kWords];
   stage(x, static_cast<int64_t>(blockIdx.x) * kTile, n, sm);
-  float total;
-  ssr_cta_exclusive_scan<kThreads>(thread_sum(sm), &total);
+  const float total = tile_total(sm);
   if (threadIdx.x == 0) totals[blockIdx.x] = total;
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    tile_scan(const T* __restrict__ x, int64_t n, const float* __restrict__ offsets,
-              float* __restrict__ out) {
-  __shared__ float sm[kSmem];
+    tile_scan_kernel(const T* __restrict__ x, int64_t n,
+                     const float* __restrict__ offsets, float* __restrict__ out) {
+  __shared__ float sm[kWords];
   const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile;
   stage(x, base, n, sm);
-  float total;
-  float run = ssr_cta_exclusive_scan<kThreads>(thread_sum(sm), &total);
-  const float off = offsets[blockIdx.x];
-  const int e0 = threadIdx.x * kItems;
-#pragma unroll
-  for (int j = 0; j < kItems; ++j) {
-    run += sm[padded(e0 + j)];
-    sm[padded(e0 + j)] = off + run;
-  }
+  tile_scan(sm, offsets[blockIdx.x], sm);
   __syncthreads();
-#pragma unroll
-  for (int k = 0; k < kPacks; ++k) {
-    const int e = 4 * (threadIdx.x + k * kThreads);
-    if (base + e < n)
-      *reinterpret_cast<float4*>(out + base + e) =
-          make_float4(sm[padded(e)], sm[padded(e + 1)], sm[padded(e + 2)], sm[padded(e + 3)]);
-  }
+  store_tile(sm, out, base, n);
 }
 
 template <typename T>
@@ -122,7 +68,7 @@ int launch(const void* x, float* out, float* totals, int64_t n, int64_t tiles,
   ssr_exclusive_offsets<kThreads><<<1, kThreads, 0, st>>>(totals, tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  tile_scan<T><<<grid, kThreads, 0, st>>>(xp, n, totals, out);
+  tile_scan_kernel<T><<<grid, kThreads, 0, st>>>(xp, n, totals, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -143,5 +89,5 @@ extern "C" int ssr_stream_scan(const void* x, int dtype, void* out, void* totals
 }
 
 extern "C" int64_t ssr_stream_scan_smem_bytes() {
-  return static_cast<int64_t>(sizeof(float)) * (kSmem + kThreads / 32);
+  return static_cast<int64_t>(sizeof(float)) * (kWords + kThreads / 32);
 }

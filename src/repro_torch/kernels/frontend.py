@@ -26,7 +26,8 @@ FFT's per-stage strides, a sort network's compare-exchanges).  On the CPU
 the Launch runs as an in-order block walk
 (:func:`~repro_torch.core.hopper.plain_stream`); on the card the Hopper
 kernel of the body's ``op`` (:data:`~repro_torch.core.hopper.STREAM_KERNELS`)
-runs it.
+runs it, or at a depth above 2 its ring kernel (:data:`~repro_torch.core.
+hopper.STREAM_RING_KERNELS`: R15 for the scan).
 
 :class:`ChainedKernel` is the waivered producer→consumer fusion: a Launch
 with one output stream, a producer body over each step's read blocks and a
@@ -46,6 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -199,6 +201,13 @@ def stream_kernel(body: Callable) -> Callable[..., tuple]:
     return _tagged_kernel(body, hopper.STREAM_KERNELS, "stream")
 
 
+def stream_ring_kernel(body: Callable) -> Callable[..., tuple]:
+    """The Hopper stream ring kernel for a tagged body, called as
+    ``kernel(launch, *arrays, ring=...)``, or a LoweringError naming the
+    missing kernel."""
+    return _tagged_kernel(body, hopper.STREAM_RING_KERNELS, "stream ring")
+
+
 def chained_kernel(producer: Callable, consumer: Callable
                    ) -> Callable[..., tuple]:
     """The Hopper kernel for a ChainedKernel's pair of tagged bodies,
@@ -292,9 +301,17 @@ class StreamKernel:
     whose ``op`` names a Hopper stream kernel, which runs it or raises.
 
     ``schedule=``'s ``buffer_depth`` is validated as the reference's
-    ``ssr_pallas`` validates it; no kernel stages by it yet.  The built
-    entry (Launch, body, the device kernel) is cached on the raw call
-    inputs; prepare and finish run on every call.
+    ``ssr_pallas`` validates it, and decides "pipelined" as ``ssr_pallas``
+    does: above 2, on a grid of more than one step, where
+    :func:`~repro_torch.core.ssr.pipeline_supported` and the body's ``op``
+    has a ring kernel (:data:`~repro_torch.core.hopper.
+    STREAM_RING_KERNELS`), the read streams arrive through the stage ring —
+    on the CPU the block walk over :func:`~repro_torch.core.hopper.
+    ring_delivery`'s blocks, on the card R15 ``ring_stream_scan`` for the
+    scan.  Everything else runs its sync kernel at any depth (the FFT and
+    the sort have a one-step grid).  The built entry (Launch, body, ring,
+    the device kernel) is cached on the raw call inputs and the schedule;
+    prepare and finish run on every call.
     """
 
     def __init__(self, name: str, *, prepare: Callable, launch: Callable,
@@ -313,16 +330,25 @@ class StreamKernel:
         lc: Launch = self._launch(static, *arrays)
         if len(lc.out_streams) != len(lc.out_shapes):
             raise ValueError("one out_shape per output stream")
-        _depths((schedule or DEFAULT_SCHEDULE).buffer_depth,
-                len(lc.in_streams), beyond="would eat the VMEM budget")
-        hopper.launch_walks(lc)        # every stream's walk is affine
+        depths = _depths((schedule or DEFAULT_SCHEDULE).buffer_depth,
+                         len(lc.in_streams), beyond="would eat the VMEM budget")
+        ins, _ = hopper.launch_walks(lc)   # every stream's walk is affine
         body = self._body(static)
+        ring = None
+        if (max(depths, default=2) > 2 and math.prod(lc.grid) > 1
+                and pipeline_supported()
+                and getattr(body, "op", None) in hopper.STREAM_RING_KERNELS):
+            ring = RingProgram(depths, tuple(not any(any(c) for c in a.coeffs)
+                                             for a in ins))
 
         def run(*arrays: torch.Tensor) -> tuple:
             if arrays[0].device.type == "cpu":
-                return hopper.plain_stream(body, lc, arrays)
-            return stream_kernel(body)(lc, *arrays)
+                return hopper.plain_stream(body, lc, arrays, ring=ring)
+            if ring is None:
+                return stream_kernel(body)(lc, *arrays)
+            return stream_ring_kernel(body)(lc, *arrays, ring=ring)
 
+        run.ring = ring                # the built entry's ring (None: sync)
         return run
 
     def __call__(self, *args, schedule: Optional[Schedule] = None,

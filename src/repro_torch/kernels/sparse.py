@@ -25,7 +25,10 @@ drives gathers from the dense operand.  As in the reference:
 
 On the card the streamed kernels are K12 ``gather_spmv``
 (``csrc/gather_spmv.cu``) and K13 ``gather_spmm`` (``csrc/gather_spmm.cu``),
-the baselines B6 ``base_spmv`` and B7 ``base_spmm``.  The entry points pack
+the baselines B6 ``base_spmv`` and B7 ``base_spmm``; a schedule deeper than
+2 runs their rings R13 ``ring_gather_spmv`` and R14 ``ring_gather_spmm``
+(vals' and cidx's rows through shared-memory slots, the table gathered as
+K12 and K13 gather it), to the sync kernels' bits.  The entry points pack
 on the call's device: a CSR triple on the card is validated and packed
 there.  ``k`` is a data fact, so the entry points take concrete CSR arrays
 and derive it before the shape-static ``NestKernel``.

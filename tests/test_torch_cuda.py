@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import compiler, hopper, lowering, resilience
+from repro_torch.core import agu, compiler, hopper, lowering, resilience
 from repro_torch.core.ssr import LoweringError
 from repro_torch.kernels import (frontend, gemm, gemv, ops, reduction,
                                  registry, relu)
@@ -1820,3 +1820,225 @@ def test_ring_rescale_attention_refuses_depth_8(dev, d):
         call.run()
     assert str(hopper.SMEM_OPTIN_BYTES) in str(err.value)
     assert hopper.LAUNCHES == before
+
+
+# -- the gather and scan rings (R13–R15) ----------------------------------------
+
+
+GATHER_RING = {"spmv": ("gather_spmv", "ring_gather_spmv"),
+               "spmm": ("gather_spmm", "ring_gather_spmm")}
+
+
+def _gather_make(kind, case, c, dev, extra):
+    """``make(schedule)`` of a sparse case (``hpcg16``: HPCG's operator on
+    16**3, 4096 rows): its prepared call at the schedule with ``extra``
+    replaced."""
+    from repro_torch.kernels import sparse
+    if case == "hpcg16":
+        data, indices, indptr = (t.numpy() for t in
+                                 sparse.hpcg_operator(16, 16, 16))
+        n = 4096
+    else:
+        data, indices, indptr, n = _csr_case(case, 6)
+    vals, cidx, m, k = _ell_on(dev, data, indices, indptr, n)
+    g = torch.Generator(device=dev).manual_seed(n + c)
+    if kind == "spmv":
+        ops_ = {"vals": vals, "cidx": cidx,
+                "x": torch.randn(n, generator=g, device=dev)}
+        nest, body = compiler.spmv_nest(m, k), sparse.SPMV
+    else:
+        pitch = -(-c // 128) * 128
+        ops_ = {"vals": vals, "cidx": cidx, "X": torch.nn.functional.pad(
+            torch.randn(n, c, generator=g, device=dev), (0, pitch - c))}
+        nest, body = compiler.spmm_nest(m, c, k, pitch), sparse.SPMM
+
+    def make(sched):
+        return lowering.prepare_call(nest, body, ops_,
+                                     schedule=dataclasses.replace(sched,
+                                                                  **extra),
+                                     device=dev)
+    return make
+
+
+def _forced_ring(call, depth, rname):
+    """R13/R14 on the call's geometry at ``depth`` whatever its grid (a
+    one-step grid, which the entry points never stage): its output and what
+    it launched, or None and nothing launched where ``accepts`` refuses the
+    ring (by the kernel's name, with the same message the wrapper raises)."""
+    kern = call.kernel
+    ring = agu.RingProgram((depth,) * (len(kern.depths) - 1) + (2,),
+                           kern.invariant)
+    takes, why = hopper.accepts(kern.device_key, kern.geometry,
+                                torch.float32, call.layouts[0].device,
+                                program=kern.program, ring=ring)
+    before = dict(hopper.LAUNCHES)
+    if not takes:
+        assert why.startswith(f"{rname}: its ring at depths")
+        with pytest.raises(ValueError) as err:
+            kern.device_kernel()(kern.geometry, call.layouts, kern.out_dtype,
+                                 kern.acc_dtype, program=kern.program,
+                                 ring=ring)
+        assert str(err.value) == why and hopper.LAUNCHES == before
+        return None, set()
+    out = kern.device_kernel()(kern.geometry, call.layouts, kern.out_dtype,
+                               kern.acc_dtype, program=kern.program,
+                               ring=ring)
+    return call.finish(out), _launched(before)
+
+
+@pytest.mark.parametrize("depth", RING_DEPTHS, ids=str)
+@pytest.mark.parametrize("case", ["row300", "row600", "hpcg16"])
+@pytest.mark.parametrize("kind", ["spmv", "spmm"])
+def test_ring_gather_is_its_k_kernel_to_the_bit(dev, kind, case, depth):
+    """R13/R14 against K12/K13 at every depth their budget admits (a depth
+    it does not admit is refused by name, launching nothing), beside the
+    ring on the end blocks zeroed, which must differ."""
+    sync, ring = GATHER_RING[kind]
+    for extra in ({}, {"lanes_tile_factor": 1, "rows_tile_factor": 2}):
+        make = _gather_make(kind, case, 200, dev, extra)
+        if make(lowering.DEFAULT_SCHEDULE).kernel.geometry.steps == 1:
+            continue      # a one-step grid never stages
+        deep = make(_depth(depth))
+        kern = deep.kernel
+        takes, why = hopper.accepts(kern.device_key, kern.geometry,
+                                    torch.float32, dev, **kern.device_args())
+        if not takes:
+            assert why.startswith(f"{ring}: its ring at depths")
+            before = dict(hopper.LAUNCHES)
+            with pytest.raises(ValueError, match=f"{ring}: its ring"):
+                deep.run()
+            assert hopper.LAUNCHES == before
+            continue
+        _ring_is_sync(make, depth, sync, ring)
+
+
+@pytest.mark.parametrize("kind, c", [("spmv", 1), ("spmm", 1), ("spmm", 200)])
+@pytest.mark.parametrize("case", SPARSE_CASES)
+def test_ring_gather_on_the_odd_inputs_is_its_k_kernel(dev, case, kind, c):
+    """R13/R14 at depth 4 on the odd inputs (the all-zero matrix, empty
+    rows, 1 × 1, rows of 300 and 600 entries, c = 200), launched on their
+    geometry directly (most are one-step grids), to K12's/K13's bits; R13
+    refuses the rows of 300 and 600 by name where their slots (64 rows of
+    the block's valid width) are over the budget."""
+    sync, ring = GATHER_RING[kind]
+    for extra in ({}, {"lanes_tile_factor": 1, "rows_tile_factor": 2}):
+        call = _gather_make(kind, case, c, dev, extra)(
+            lowering.DEFAULT_SCHEDULE)
+        before = dict(hopper.LAUNCHES)
+        want = call.run()
+        assert _launched(before) == {sync}
+        got, launched = _forced_ring(call, 4, ring)
+        if got is None:
+            assert kind == "spmv" and case in ("row300", "row600")
+            continue
+        assert launched == {ring}
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("depth", [3, 4, 8], ids=str)
+@pytest.mark.parametrize("n", [5000, 1 << 20, (1 << 22) + 12])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_ring_stream_scan_is_k14_to_the_bit(dev, dtype, n, depth):
+    """R15 against K14 to the bit, three device launches, beside R15 on the
+    first block zeroed, which must differ."""
+    from repro_torch.kernels import scan
+    g = torch.Generator(device=dev).manual_seed(n + depth)
+    if dtype == torch.int32:
+        x = torch.randint(-1000, 1000, (n,), generator=g, device=dev,
+                          dtype=dtype)
+    else:
+        x = torch.randn(n, generator=g, device=dev).to(dtype)
+    sched = lowering.Schedule(buffer_depth=depth)
+    before = dict(hopper.LAUNCHES)
+    got = scan._ssr(x, schedule=sched, device=dev)
+    assert _launched(before) == {"ring_stream_scan"}
+    before = dict(hopper.LAUNCHES)
+    want = scan.ssr_scan(x, device=dev)
+    assert _launched(before) == {"stream_scan"}
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    zeroed = x.clone()
+    zeroed[:1024] = 0
+    ctrl = scan._ssr(zeroed, schedule=sched, device=dev)
+    assert not torch.equal(ctrl.view(torch.int32), want.view(torch.int32))
+    # the plain ring (one run) against R15, within the scan limit
+    lc, arrays, body = _stream(scan, x)
+    entry = scan._ssr._build(None, arrays, sched)
+    if n <= 5000:
+        plain = hopper.plain_stream(body, lc, arrays, ring=entry.ring)[0]
+        exact = torch.cumsum(x.double(), 0)
+        scale = torch.cumsum(x.double().abs(), 0) + 1e-30
+        assert float(((plain.reshape(-1)[:n].double() - exact).abs()
+                      / scale).max()) <= SCAN_LIMIT
+
+
+def test_ring_stream_scan_one_block_stays_k14(dev):
+    from repro_torch.kernels import scan
+    x = torch.randn(1000, device=dev)
+    before = dict(hopper.LAUNCHES)
+    got = scan._ssr(x, schedule=lowering.Schedule(buffer_depth=4), device=dev)
+    assert _launched(before) == {"stream_scan"}
+    assert torch.equal(got, scan.ssr_scan(x, device=dev))
+
+
+def test_ring_gather_and_scan_entry_points_launch_the_rings(dev):
+    """The entry points at depth 4 launch R13–R15, at depth 2 K12–K14."""
+    from repro_torch.kernels import scan, sparse
+    csr = sparse.hpcg_operator(32, 32, 32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    x, X = (torch.rand(32 ** 3, generator=g, device=dev),
+            torch.randn(32 ** 3, 128, generator=g, device=dev))
+    xs = torch.randn(1 << 20, generator=g, device=dev)
+    deep, flat = lowering.Schedule(buffer_depth=4), lowering.DEFAULT_SCHEDULE
+    for fn, ring, sync in (
+            (lambda s: sparse.ssr_spmv(*csr, x, schedule=s, device=dev),
+             "ring_gather_spmv", "gather_spmv"),
+            (lambda s: sparse.ssr_spmm(*csr, X, schedule=s, device=dev),
+             "ring_gather_spmm", "gather_spmm"),
+            (lambda s: scan._ssr(xs, schedule=s, device=dev),
+             "ring_stream_scan", "stream_scan")):
+        before = dict(hopper.LAUNCHES)
+        got = fn(deep)
+        assert _launched(before) == {ring}
+        before = dict(hopper.LAUNCHES)
+        want = fn(flat)
+        assert _launched(before) == {sync}
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_ring_gather_spmv_over_the_budget_raises_on_the_card(dev):
+    """k = 300 under 128-lane k steps: a slot is 64 x 128 x 4 bytes a
+    stream, so depth 4 needs 262,144 bytes and is refused by name."""
+    make = _gather_make("spmv", "row300", 1, dev,
+                        {"lanes_tile_factor": 1, "rows_tile_factor": 2})
+    call = make(lowering.Schedule(buffer_depth=4))
+    before = dict(hopper.LAUNCHES)
+    with pytest.raises(ValueError, match=r"ring_gather_spmv: its ring at "
+                       r"depths \(4, 4, 2\) needs 262144 bytes"):
+        call.run()
+    assert hopper.LAUNCHES == before
+
+
+@pytest.mark.parametrize("kind", ["spmv", "spmm"])
+def test_ring_gather_copies_4_bytes_where_a_layout_is_off_16(dev, kind):
+    """vals and cidx layouts that start 4 bytes past a 16-byte boundary (a
+    view into a larger tensor): R13/R14 copy them 4 bytes a cp.async, to
+    the bits of the aligned call."""
+    sync, ring = GATHER_RING[kind]
+    call = _gather_make(kind, "hpcg16", 200, dev, {})(
+        lowering.Schedule(buffer_depth=4))
+    assert call.kernel.pipelined
+
+    def shifted(t):
+        big = torch.zeros(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = big[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 4
+        return view
+    layouts = [shifted(t) if k < 2 else t
+               for k, t in enumerate(call.layouts)]
+    before = dict(hopper.LAUNCHES)
+    got = call.finish(call.kernel(*layouts))
+    assert _launched(before) == {ring}
+    want = call.run()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

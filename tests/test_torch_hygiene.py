@@ -118,14 +118,23 @@ def test_wrappers_refuse_cpu_tensors(name):
     row = torch.zeros(1, 8)
     stream_args = {"stream_scan": (t,), "stream_fft": (row, row, row, row),
                    "stream_bitonic": (row,)}
-    # a ring kernel launches from its sync kernel's wrapper, given a ring;
-    # K17 and R5 take a ChainedKernel's Launch and its two bodies
+    # a ring kernel launches from its sync kernel's wrapper, given a ring
+    # (every key of RING_KERNELS maps onto a sync kernel's, and the stream
+    # rings onto STREAM_KERNELS'); K17 and R5 take a ChainedKernel's Launch
+    # and its two bodies
     rings = {ring: hopper.DEVICE_KERNELS[key].__name__
              for key, ring in hopper.RING_KERNELS.items()
              if key[0] != "chained"}
+    assert {("nest", "spmv"), ("nest", "spmm")} <= set(hopper.RING_KERNELS)
     rings["ring_chained_map"] = "chained_map"
+    for op, ring in hopper.STREAM_RING_KERNELS.items():
+        assert op in hopper.STREAM_KERNELS
+        stream_args[ring.__name__] = stream_args[
+            hopper.STREAM_KERNELS[op].__name__]
+        rings[ring.__name__] = ring.__name__
+    assert set(rings) <= set(hopper.KERNELS)
     wrapper = rings.get(name, name)
-    n_in = 1 if wrapper == "map_relu" else 2
+    n_in = 1 if wrapper in ("map_relu", "ring_stream_scan") else 2
     kw = {"ring": agu.RingProgram((3,) * n_in, (False,) * n_in)} \
         if name in rings else {}
     whole = BlockStream((8, 128), lambda i: (0, 0))
@@ -139,7 +148,7 @@ def test_wrappers_refuse_cpu_tensors(name):
         if name in baseline_args:
             getattr(hopper, name)(*baseline_args[name])
         elif name in stream_args:
-            getattr(hopper, name)(None, *stream_args[name])
+            getattr(hopper, name)(None, *stream_args[name], **kw)
         elif wrapper == "chained_map":
             hopper.chained_map(chained.axpy_block(0.5), relu.RELU, launch,
                                t, t, **kw)
@@ -178,7 +187,8 @@ def test_build_key_follows_the_sources(tmp_path, monkeypatch):
     headers = sorted(p.name for p in csrc.glob("*.cuh"))
     assert headers == ["ssr_attention.cuh", "ssr_chain.cuh",
                        "ssr_chained_map.cuh", "ssr_common.cuh", "ssr_dag.cuh",
-                       "ssr_ring.cuh", "ssr_rows.cuh", "ssr_stencil1d.cuh",
+                       "ssr_gather.cuh", "ssr_ring.cuh", "ssr_rows.cuh",
+                       "ssr_scan.cuh", "ssr_stencil1d.cuh",
                        "ssr_stencil2d.cuh"]
     dags = {"dag_layernorm", "dag_softmax_xent", "dag_mlp",
             "ring_dag_layernorm", "ring_dag_softmax_xent", "ring_dag_mlp"}
@@ -191,6 +201,9 @@ def test_build_key_follows_the_sources(tmp_path, monkeypatch):
              "ssr_chained_map.cuh": {"chained_map", "ring_chained_map"},
              "ssr_common.cuh": set(hopper.KERNELS),
              "ssr_dag.cuh": dags,
+             "ssr_gather.cuh": {"gather_spmv", "gather_spmm",
+                                "ring_gather_spmv", "ring_gather_spmm"},
+             "ssr_scan.cuh": {"stream_scan", "ring_stream_scan"},
              "ssr_ring.cuh": {n for n in hopper.KERNELS
                               if n.startswith("ring_")},
              "ssr_rows.cuh": {n for n in hopper.KERNELS if n in rows}}

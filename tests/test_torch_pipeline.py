@@ -1,14 +1,15 @@
 """Pipelined delivery in the port: the N-deep ring against the depth-2 path.
 
 The counterpart of ``tests/test_pipeline.py``.  A schedule deeper than 2
-(``buffer_depth`` or per-stream ``stream_depths``) makes a call of K1–K11's
+(``buffer_depth`` or per-stream ``stream_depths``) makes a call of K1–K13's
 families pipelined: its read streams arrive through an N-deep ring (on the
 CPU :func:`hopper.plain_ring`, on the card the ring kernels R1–R4 and R6;
 a ChainedKernel's R5 has its own tests, ``tests/test_torch_chained_kernel
 .py``, and its fetch log here; the DAGs' R7–R9 theirs,
 ``tests/test_torch_dag_ring.py``; the halos' and attention's R10–R12
-theirs, ``tests/test_torch_halo_attention_ring.py``).  The contracts, on
-the CPU:
+theirs, ``tests/test_torch_halo_attention_ring.py``; the gathers' R13, R14
+and the scan's R15 theirs, ``tests/test_torch_gather_scan_ring.py``).  The
+contracts, on the CPU:
 
 * **delivery changes, the arithmetic does not** — map, reduce, gemm, gemv,
   gemv_relu and K5's chains (sum_sq_diff fused, its (x − y)² map stage;
@@ -16,9 +17,9 @@ the CPU:
   8 and per-stream depths give the depth-2 result bit for bit, and the
   reference's sync result (Pallas interpret mode) within the registry
   ``tol`` (relu bit for bit);
-* **pipelined where a ring runs** — True for those and the halo
-  families, False for a one-step grid, the unstaged families (the gather
-  kernels, an untagged body) and under ``REPRO_DISABLE_PIPELINE``;
+* **pipelined where a ring runs** — True for those and the halo and
+  gather families, False for a one-step grid, an untagged body and under
+  ``REPRO_DISABLE_PIPELINE``;
 * **the reference's rotation** — the plain ring's fetch log is the
   prime / run-ahead / no-fetch-past-the-run formula of ``_pipelined_call``
   for several run splits (R1's, R5's and R6's), and an invariant stream is
@@ -27,7 +28,7 @@ the CPU:
   at every depth; a ring over the shared memory a CTA may opt into is
   refused by ``accepts`` with the kernel's name;
 * **the race on the card** keeps depth-only candidates where the kernel
-  stages, and drops them where it does not;
+  stages, and drops them where it does not (the pipeline disabled);
 * **interop** — a reference schedule with depths resolves, through a shared
   cache entry, to a pipelined port kernel with the same depths.
 """
@@ -281,8 +282,8 @@ def test_single_step_grid_is_not_pipelined():
 
 
 def _unstaged(n=4096):
-    """Prepared calls at depth 3: the halo families (which stage, R10 and
-    R11) and families without a ring kernel."""
+    """Prepared calls at depth 3: the halo and gather families (which
+    stage, R10, R11 and R13) and a body without a ring kernel."""
     x, w = torch.ones(n + stencil.TAPS - 1), torch.ones(stencil.TAPS)
     s = Schedule(buffer_depth=3)
     csr = sparse.hpcg_operator(16, 16, 16, device="cpu")
@@ -305,7 +306,7 @@ def _unstaged(n=4096):
     }
 
 
-@pytest.mark.parametrize("name", ["spmv", "untagged"])
+@pytest.mark.parametrize("name", ["untagged"])
 def test_unstaged_families_stay_sync(name):
     call = _unstaged()[name]
     assert max(call.kernel.depths) == 3 and call.kernel.geometry.steps > 1
@@ -540,7 +541,8 @@ def _candidates(nest, body, mode, ops):
 
 @pytest.mark.parametrize("family", ["gemm", "dot", "relu", "gemv",
                                     "sq_diff_map", "identity_reduce",
-                                    "stencil1d", "attention"])
+                                    "stencil1d", "attention", "spmv",
+                                    "spmm"])
 def test_card_race_keeps_depth_only_candidates_where_the_kernel_stages(
         family):
     n = 1 << 14
@@ -565,6 +567,7 @@ def test_card_race_keeps_depth_only_candidates_where_the_kernel_stages(
         "attention": (attention._nest(_ATT), attention._body(_ATT), "nest",
                       {"Q": torch.ones(512, 128), "K": torch.ones(512, 128),
                        "V": torch.ones(512, 128)}),
+        **_gather_families(),
     }[family]
     cands, kept = _candidates(nest, body, mode, ops)
     assert kept[0] == DEFAULT_SCHEDULE
@@ -575,11 +578,29 @@ def test_card_race_keeps_depth_only_candidates_where_the_kernel_stages(
                for s in kept if s.buffer_depth == 2}
     for s in deep:      # a ring beside the sync kernel of its geometry
         k = autotune._candidate_kernel(nest, s, body, mode, "float32", ops)
-        assert k.pipelined and k.depths == (3,) * len(k.depths)
+        # a gather's table trails at depth 2, whole (the reference's)
+        n = len(k.depths) - len(k.geometry.gathers)
+        assert k.pipelined and k.depths == (3,) * n + (2,) * (len(k.depths)
+                                                              - n)
         assert k.geometry in shallow
 
 
-def test_card_race_drops_depth_only_candidates_where_it_does_not_stage():
+def _gather_families():
+    """spmv and spmm on HPCG's operator at 16**3 (k = 27): their race
+    entries (nest, body, mode, operands)."""
+    csr = sparse.hpcg_operator(16, 16, 16, device="cpu")
+    vals, cidx, m, k = sparse.pack_ell(*csr, 4096)
+    return {"spmv": (compiler.spmv_nest(m, k), sparse.SPMV, "nest",
+                     {"vals": vals, "cidx": cidx, "x": torch.ones(4096)}),
+            "spmm": (compiler.spmm_nest(m, 128, k, 128), sparse.SPMM, "nest",
+                     {"vals": vals, "cidx": cidx,
+                      "X": torch.ones(4096, 128)})}
+
+
+def test_card_race_drops_depth_only_candidates_where_it_does_not_stage(
+        monkeypatch):
+    # every streamed family stages now: with the pipeline disabled none does
+    monkeypatch.setenv("REPRO_DISABLE_PIPELINE", "1")
     csr = sparse.hpcg_operator(16, 16, 16, device="cpu")
     vals, cidx, m, k = sparse.pack_ell(*csr, 4096)
     nest = compiler.spmv_nest(m, k)
