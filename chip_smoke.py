@@ -89,9 +89,12 @@ printing JSON lines:
    (4, 2) (a depth over the shared memory refused by name) and on
    scan_2p26 at 3, 4 and 8, each beside its run on the moving streams'
    first blocks zeroed, which must differ; R13/R14 at depth 4 on the odd
-   CSR inputs; R13–R15 at depth 4 (and the main path's ring outputs)
-   against the plain ring at full size under the ring kernel's runs, within
-   SPARSE_LIMIT or SCAN_LIMIT, beside the zeroed-block control above it;
+   CSR inputs; R14's local bytes a thread at most R14_LOCAL_BYTES (the
+   ``kernel_attributes`` line after the build has K12's, K13's, R13's and
+   R14's registers and local bytes); R13–R15 at depth 4 (and the main
+   path's ring outputs) against the plain ring at full size under the ring
+   kernel's runs, within SPARSE_LIMIT or SCAN_LIMIT, beside the
+   zeroed-block control above it;
 4. time each kernel, its plain version and one PyTorch library call with
    CUDA events, beside the least time the card could take, each baseline
    against its streamed kernel (``ssr_over_baseline``), each fused cell
@@ -365,6 +368,9 @@ GATHER_RING_CELLS = {"spmv_hpcg": (3, 4, 8, (2, 4), (4, 2)),
 # the main-path entries that commit a schedule around their call (their
 # host wall time is not the entry's)
 COMMITTED_ENTRIES = ("spmv_ring", "sparse_gemv_ring", "spmm_ring")
+# R14's ceiling of local (spilled) bytes a thread: the 668 bytes of spill
+# stores of the CTA-barrier ring its warp rings replaced
+R14_LOCAL_BYTES = 668
 # the ring kernel → its sync kernel and the cell its row times
 GATHER_RING_ROW = {"ring_gather_spmv": ("gather_spmv", "spmv_hpcg"),
                    "ring_gather_spmm": ("gather_spmm", "spmm_hpcg"),
@@ -385,29 +391,66 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+#: the bracketing kernel of a profiled call (``torch.cuda._sleep``'s) and
+#: its length in cycles; the host's pause before and after it, in seconds
+TRACE_MARK, TRACE_MARK_CYCLES, TRACE_PAD_S = "spin_kernel", 100_000, 0.05
+#: profiles of one call at most, while its trace lacks a bracketing kernel
+TRACE_ATTEMPTS = 3
+
+
+def traced_kernels(fn, key: str, attempt: int):
+    """The device kernels of one ``fn()`` in launch order, from a
+    ``torch.profiler`` trace (CUDA activity), or None when the trace is not
+    whole.  The call sits between two ``spin_kernel`` marks, with a host
+    pause on each side: the profiler drops the kernels whose device times
+    fall outside its window, so a trace counts only when both marks are in
+    it, first and last, and nothing else is a mark."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+        torch.cuda._sleep(TRACE_MARK_CYCLES)
+        fn()
+        torch.cuda._sleep(TRACE_MARK_CYCLES)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+    trace = os.path.join(os.environ["REPRO_SCHEDULE_CACHE"],
+                         f"trace_{key}_{attempt}.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f)
+    events = events.get("traceEvents", events) \
+        if isinstance(events, dict) else events
+    kernels = [e["name"] for e in sorted(
+        (e for e in events if e.get("cat") == "kernel"),
+        key=lambda e: float(e.get("ts", 0)))]
+    marks = [i for i, k in enumerate(kernels) if TRACE_MARK in k]
+    if marks != [0, len(kernels) - 1] or len(kernels) < 2:
+        return None
+    return kernels[1:-1]
+
+
 def count_device_launches(calls) -> dict:
     """Device kernels of one call each, from a ``torch.profiler`` trace
-    (CUDA activity): ``calls`` maps a cell to (call, the schedule's count,
-    the most allowed, substrings of its kernels' names).  Exits unless each
-    call launched exactly its schedule's kernels, all of them its own."""
-    from torch.profiler import ProfilerActivity, profile
+    (``traced_kernels``): ``calls`` maps a cell to (call, the schedule's
+    count, the most allowed, substrings of its kernels' names).  Exits
+    unless each call launched exactly its schedule's kernels, all of them
+    its own, or if no trace of a call was whole."""
     counts = {}
+    torch.cuda._sleep(TRACE_MARK_CYCLES)   # the mark's kernel loaded
     for key, (fn, want, most, names) in calls.items():
         fn()                       # built, loaded and warm
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        trace = os.path.join(os.environ["REPRO_SCHEDULE_CACHE"],
-                             f"trace_{key}.json")
-        prof.export_chrome_trace(trace)
-        with open(trace) as f:
-            events = json.load(f)
-        events = events.get("traceEvents", events) \
-            if isinstance(events, dict) else events
-        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        for attempt in range(1, TRACE_ATTEMPTS + 1):
+            kernels = traced_kernels(fn, key, attempt)
+            if kernels is not None:
+                break
+        if kernels is None:
+            raise SystemExit(f"chip_smoke: no whole profiler trace of the "
+                             f"{key} call in {TRACE_ATTEMPTS} tries: a "
+                             f"bracketing {TRACE_MARK} was missing")
         counts[key] = {"device_kernels": len(kernels), "schedule": want,
-                       "most": most,
+                       "most": most, "traces": attempt,
                        "names": sorted(set(kernels)),
                        "ok": len(kernels) == want <= most and all(
                            any(n_ in k for n_ in names) for k in kernels)}
@@ -624,6 +667,11 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     emit({"phase": "build", "seconds": build_s, "compiled": sorted(logs),
           "kernels": sorted(hopper.KERNELS)})
+    # the gathers' registers a thread and spilled bytes, as the runtime
+    # reads them (R14 held to R14_LOCAL_BYTES, in phase 3i)
+    attributes = {n: hopper.kernel_attributes(n) for n in (
+        "gather_spmv", "gather_spmm", "ring_gather_spmv", "ring_gather_spmm")}
+    emit({"phase": "kernel_attributes", "kernels": attributes})
     print(smi, flush=True)
     card = torch.cuda.get_device_name(0)
     bw, fp32 = card_peaks(card)
@@ -2094,6 +2142,11 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                               "result unchanged")
             del got, ctrl
         del want
+    # R14's spilled bytes held to R14_LOCAL_BYTES
+    local = attributes["ring_gather_spmm"]["localSizeBytes"]
+    checks["ring_gather_spmm_local_bytes"] = {
+        "exact": local <= R14_LOCAL_BYTES, "local_bytes": local,
+        "local_limit": R14_LOCAL_BYTES, "abs_err": 0.0, "limit": 0.0}
     # R13/R14 at depth 4 on the odd CSR inputs, against K12/K13 to the bit
     for name, (d_, i_, p_, n_) in odd_csr.items():
         ell = sparse.pack_ell(*(torch.as_tensor(np.asarray(a_), device=dev)

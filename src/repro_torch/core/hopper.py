@@ -41,13 +41,16 @@ K6–K8; R9's ring of step blocks feeds K8's 128-row tile), R10
 ``ring_halo_stencil1d`` (K9's items, with the relu drain), R11
 ``ring_halo_stencil2d`` (K10's windows) and R12 ``ring_rescale_attention``
 (K11's K/V walk in units of 32 or 16 keys), R13 ``ring_gather_spmv`` and
-R14 ``ring_gather_spmm`` (K12's and K13's rows of vals and cidx; the table
-is gathered as the sync kernels gather it, never ringed) — whose read
-streams arrive through an N-deep ring of shared-memory slots filled by
-``cp.async``, each stream ``depth − 1`` fetches ahead (the reference's
-``_pipelined_call``), with the same arithmetic, so the same bits, as the
-sync kernel.  Its plain version is :func:`plain_ring` (:func:`ring_taken`
-schedules the fetches, :func:`ring_blocks` delivers the blocks).  A
+R14 ``ring_gather_spmm`` (K12's and K13's rows of vals and cidx with no
+CTA barrier in the step loop: R13's filled by a ninth warp of each CTA on
+a full and an empty mbarrier a slot, R14's a ring a warp, each warp
+filling and reading its own row; the table is never ringed, but gathered
+as K12 and K13 gather it) — whose read streams arrive through an N-deep
+ring of shared-memory slots filled by ``cp.async``, each stream ``depth −
+1`` fetches ahead (the reference's ``_pipelined_call``), with the same
+arithmetic, so the same bits, as the sync kernel.  Its plain version is
+:func:`plain_ring` (:func:`ring_taken` schedules the fetches,
+:func:`ring_blocks` delivers the blocks).  A
 StreamKernel's scan at a depth above 2 runs R15 ``ring_stream_scan``
 (:data:`STREAM_RING_KERNELS`: K14's tiles through a ring); the FFT and the
 sort have a one-step grid, so they stay synchronous at any depth.
@@ -416,9 +419,9 @@ _SIGNATURES = {
                                _SP, _I64, _I64, _P, ctypes.c_float, _I, _I64,
                                _I64, _I64, _RP, _I64, _P],
     "ring_gather_spmv": [_P, _P, _P, _P, _GP, _SP, _SP, _SP] + [_I64] * 8
-    + [_I, _RP, _I64, _P],
+    + [_RP, _I64, _P],
     "ring_gather_spmm": [_P, _P, _P, _P, _GP, _SP, _SP, _SP] + [_I64] * 10
-    + [_I, _RP, _I64, _P],
+    + [_RP, _I64, _P],
     "ring_stream_scan": [_P, _I, _P, _P, _I64, _I64, _I64, _RP, _I64, _P],
 }
 #: Arguments of a kernel's ``ssr_<name>_smem_bytes`` (none for the rest).
@@ -448,6 +451,21 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.ssr_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return lib
+
+
+def kernel_attributes(name: str) -> Dict[str, int]:
+    """Registers a thread (``numRegs``) and local, spilled bytes a thread
+    (``localSizeBytes``) of kernel ``name`` as ``cudaFuncGetAttributes``
+    reads them on the current card: K12, K13, R13 and R14 report them."""
+    fn = getattr(_lib(name), f"ssr_{name}_attributes")
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int64)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int64 * 2)()
+    rc = fn(out)
+    if rc != 0:
+        raise RuntimeError(f"{name}: cudaFuncGetAttributes failed with CUDA "
+                           f"error {rc}")
+    return {"numRegs": int(out[0]), "localSizeBytes": int(out[1])}
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
@@ -735,6 +753,10 @@ ATTENTION_SUBTILE = 64
 #: R13's and R14's rows a CTA (K12's and K13's): a slot holds one step's
 #: rows of vals (or cidx) on a pitch of :func:`gather_slot_width` elements.
 SPMV_RING_ROWS, SPMM_RING_ROWS = 64, 8
+#: What R13 keeps besides its rings: a full and an empty mbarrier for each
+#: of up to 8 slots of each stream, 8 bytes each, whatever the depths
+#: (``csrc/ssr_gather_ring.cuh``).
+GATHER_RING_BARRIER_BYTES = 4 * 8 * 8
 #: Shared memory an SM of an H100 or H200 holds for its CTAs (228 KiB), and
 #: what the card keeps of it for each CTA (1 KiB): a persistent ring
 #: kernel launches as many CTAs as fit an SM beside their rings, at most
@@ -759,8 +781,9 @@ def device_ring(name: str, geo: StreamGeometry, ring: RingProgram,
     counts Q as the one tile it stages, at depth 1.  R13 and R14 ring vals
     and cidx at their depths, a slot a row group's step on the pitch of
     :func:`gather_slot_width`, and give the table 0 bytes: it is gathered
-    from device memory, never copied into a slot.  R15's slot is one of
-    K14's tiles, the input's words on K14's padded layout."""
+    from device memory, never copied into a slot (R13's slot barriers are
+    in :func:`_staged_bytes`).  R15's slot is one of K14's tiles, the
+    input's words on K14's padded layout."""
     dr = _device_ring(name, geo, ring, dtype)
     if reads is None:
         return dr
@@ -844,9 +867,10 @@ def _ctas_per_sm(smem: int, most: int) -> int:
     return max(1, min(most, SMEM_SM_BYTES // (smem + SMEM_CTA_RESERVED)))
 
 
-#: The most CTAs an SM of R13, R14 and R15 (256 threads each): R13 and R14
-#: are bounded to 64 registers a thread, four CTAs an SM (K13's bound).
-_RING_PER_SM = {"ring_gather_spmv": 4, "ring_gather_spmm": 4,
+#: The most CTAs an SM of R13 (288 threads: 56 registers a thread where
+#: four fit beside their rings, else 75 and eight gathers a thread in
+#: flight), R14 (256 threads, 80 registers) and R15 (256 threads).
+_RING_PER_SM = {"ring_gather_spmv": 4, "ring_gather_spmm": 3,
                 "ring_stream_scan": 8}
 
 
@@ -856,8 +880,11 @@ def ring_run_steps(rname: str, geo: StreamGeometry, ring: RingProgram,
     R14 or R15) walks, consecutive, on a card of ``sms`` SMs: the output
     blocks (R13, R14: whole ones, of ``contraction_steps`` steps each) or
     SCAN_TILE tiles (R15: four of the Launch's (8, 128) blocks each) spread
-    over as many CTAs as fit the SMs beside their rings.  The wrapper
-    launches that split; the plain ring takes it as ``steps_per_cta``."""
+    over as many CTAs as fit the SMs beside their rings.  R13 and R14 give
+    each row group (and R14's column chunk) the same number of runs, as
+    many as fit that count, so that no CTA waits for a second wave.  The
+    wrapper launches that split; the plain ring takes it as
+    ``steps_per_cta``."""
     dr = device_ring(rname, geo, ring, dtype)
     smem = dr.ring_bytes + _staged_bytes(rname, (), geo)
     ctas = _ctas_per_sm(smem, _RING_PER_SM[rname]) * sms
@@ -868,10 +895,11 @@ def ring_run_steps(rname: str, geo: StreamGeometry, ring: RingProgram,
     z = geo.contraction_steps
     blocks = geo.steps // z
     rows = SPMV_RING_ROWS if rname == "ring_gather_spmv" else SPMM_RING_ROWS
-    units = blocks * -(-geo.ins[1].block[0] // rows)
+    groups = -(-geo.ins[1].block[0] // rows)
     if rname == "ring_gather_spmm":
-        units *= geo.gathers[0].tiles[0] // SPMM_COLS
-    return min(blocks, -(-units // ctas)) * z
+        groups *= geo.gathers[0].tiles[0] // SPMM_COLS
+    runs = min(blocks, max(1, ctas // groups))
+    return -(-blocks // runs) * z
 
 
 def _ring_refusal(op: tuple, name: str, geo: StreamGeometry,
@@ -896,10 +924,13 @@ def _staged_bytes(rname: str, ops: Sequence[str],
                   geo: StreamGeometry) -> int:
     """The shared memory ring kernel ``rname`` takes besides its ring,
     running the stage ``ops``: R9 stages K8's weights and tile but for the
-    residual alone; R12 its p tile (Q is in its ring, one tile); R15 its
-    third pass's tile of sums (K14's float tile); the others nothing."""
+    residual alone; R12 its p tile (Q is in its ring, one tile); R13 its
+    slots' barriers; R15 its third pass's tile of sums (K14's float tile);
+    the others nothing."""
     if rname == "ring_dag_mlp" and tuple(ops) != ("mlp_residual",):
         return MLP_STAGED_BYTES
+    if rname == "ring_gather_spmv":
+        return GATHER_RING_BARRIER_BYTES
     if rname == "ring_rescale_attention":
         rows = ATTENTION_RING_TILES[geo.ins[0].block[1]][0]
         return 4 * ATTENTION_SUBTILE * (rows + 4)
@@ -911,6 +942,7 @@ def _staged_bytes(rname: str, ops: Sequence[str],
 #: What a ring kernel's staged bytes hold, for its refusal.
 _STAGED_WHAT = {"ring_dag_mlp": "its staged weights and tile",
                 "ring_rescale_attention": "its p tile",
+                "ring_gather_spmv": "its slots' barriers",
                 "ring_stream_scan": "its tile of sums"}
 
 
@@ -1490,20 +1522,19 @@ def _gather_args(name: str, geo: StreamGeometry,
         g.extent[0], g.extent[1])
 
 
-def _gather_ring_args(rname: str, geo: StreamGeometry,
-                      layouts: Sequence[torch.Tensor], ring: RingProgram,
+def _gather_ring_args(rname: str, geo: StreamGeometry, ring: RingProgram,
                       dev: torch.device) -> tuple:
     """What R13 and R14 take besides their sync kernel's arguments: the
     output blocks a CTA's run walks (:func:`ring_run_steps`), the slot
-    pitch, whether vals' and cidx's block rows allow 16-byte copies, the
-    ring as :func:`device_ring` sizes it and its bytes."""
+    pitch, the ring as :func:`device_ring` sizes it and the shared memory a
+    CTA takes (the ring and :func:`_staged_bytes`)."""
     dr = device_ring(rname, geo, ring, torch.float32)
     steps = ring_run_steps(rname, geo, ring, torch.float32,
                            _card(dev).multi_processor_count)
-    vec16 = _copies16(layouts[0], geo.ins[0]) and \
-        _copies16(layouts[1], geo.ins[1])
     return (steps // geo.contraction_steps, gather_slot_width(geo),
-            int(vec16), ctypes.byref(_ring_arg(dr)), dr.ring_bytes)
+            ctypes.byref(_ring_arg(dr)),
+            dr.ring_bytes + _staged_bytes(rname, (), geo))
+
 
 
 def gather_spmv(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
@@ -1528,13 +1559,16 @@ def ring_gather_spmv(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                      program: Optional[Any], ring: RingProgram
                      ) -> torch.Tensor:
     """R13: K12 with vals' and cidx's rows through rings of their streams'
-    depths, on persistent CTAs that each walk a run of whole output blocks
-    for their 64 rows (:func:`ring_run_steps`); the table gathered as K12
-    gathers it; K12's bits."""
+    depths, filled by a ninth warp of each CTA on a full and an empty
+    mbarrier a slot, on persistent CTAs that each walk a run of whole
+    output blocks for their 64 rows (:func:`ring_run_steps`); the table
+    gathered as K12 gathers it; K12's bits."""
+    # 16-byte copies of the rows: a view off a 16-byte boundary is copied
+    layouts = [_aligned16(t) if k < 2 else t for k, t in enumerate(layouts)]
     dev, out, args = _gather_args("gather_spmv", geo, layouts, out_dtype,
                                   acc_dtype, program, ring)
     _launch("ring_gather_spmv", dev, *args, *_gather_ring_args(
-        "ring_gather_spmv", geo, layouts, ring, dev))
+        "ring_gather_spmv", geo, ring, dev))
     return out
 
 
@@ -1563,15 +1597,16 @@ def ring_gather_spmm(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                      out_dtype: torch.dtype, acc_dtype: torch.dtype,
                      program: Optional[Any], ring: RingProgram
                      ) -> torch.Tensor:
-    """R14: K13 with vals' and cidx's rows through R13's rings, on
-    persistent CTAs that each walk a run of whole output blocks for their 8
-    rows and 128-column chunk; X gathered as K13 gathers it; K13's bits."""
-    layouts = [_aligned16(t) if k == 2 else t for k, t in enumerate(layouts)]
+    """R14: K13 with vals' and cidx's rows through rings of their streams'
+    depths, each warp's row a ring of its own, on persistent CTAs that each
+    walk a run of whole output blocks for their 8 rows and 128-column
+    chunk; X gathered as K13 gathers it; K13's bits."""
+    layouts = [_aligned16(t) for t in layouts]
     dev, out, args = _gather_args("gather_spmm", geo, layouts, out_dtype,
                                   acc_dtype, program, ring)
     g = geo.gathers[0]
     _launch("ring_gather_spmm", dev, *args, g.grid_pos[0], g.tiles[0],
-            *_gather_ring_args("ring_gather_spmm", geo, layouts, ring, dev))
+            *_gather_ring_args("ring_gather_spmm", geo, ring, dev))
     return out
 
 

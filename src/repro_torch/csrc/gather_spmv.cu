@@ -90,3 +90,13 @@ extern "C" int ssr_gather_spmv(const void* vals, const void* cidx,
 }
 
 extern "C" int64_t ssr_gather_spmv_smem_bytes() { return 0; }
+
+// The kernel's registers a thread and local (spill) bytes, as
+// cudaFuncGetAttributes reads them: out[0] numRegs, out[1] localSizeBytes.
+extern "C" int ssr_gather_spmv_attributes(int64_t* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, gather_spmv_kernel);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int64_t>(a.localSizeBytes);
+  return static_cast<int>(err);
+}

@@ -39,19 +39,21 @@ __device__ __forceinline__ int64_t clip(int64_t a, int64_t elems) {
 }
 
 // K12's share of one step of a row for thread t (0 .. kSpmvGroup - 1) of
-// its group: entry j on thread j mod 4, four of them (vals and addresses)
-// loaded before their four gathers, then fmaf in order of j into acc.
-template <bool kGlobal>
+// its group: entry j on thread j mod 4, kPer of them (vals and addresses)
+// loaded before their kPer gathers, then fmaf in order of j into acc --
+// the same order, so the same bits, whatever kPer (R13 takes eight where
+// its CTAs an SM are three or fewer).
+template <bool kGlobal, int kPer = kSpmvPer>
 __device__ __forceinline__ float spmv_row(const float* pv, const int32_t* pc,
                                           int64_t ncols, int t,
                                           const float* __restrict__ table,
                                           int64_t scale, int64_t offset,
                                           int64_t table_elems, float acc) {
-  for (int64_t j0 = t; j0 < ncols; j0 += kSpmvGroup * kSpmvPer) {
-    float v[kSpmvPer];
-    int64_t a[kSpmvPer];
+  for (int64_t j0 = t; j0 < ncols; j0 += kSpmvGroup * kPer) {
+    float v[kPer];
+    int64_t a[kPer];
 #pragma unroll
-    for (int q = 0; q < kSpmvPer; ++q) {
+    for (int q = 0; q < kPer; ++q) {
       const int64_t j = j0 + q * kSpmvGroup;
       v[q] = 0.f;
       a[q] = 0;
@@ -62,7 +64,7 @@ __device__ __forceinline__ float spmv_row(const float* pv, const int32_t* pc,
       }
     }
 #pragma unroll
-    for (int q = 0; q < kSpmvPer; ++q)
+    for (int q = 0; q < kPer; ++q)
       if (j0 + q * kSpmvGroup < ncols) acc = fmaf(v[q], __ldg(table + a[q]), acc);
   }
   return acc;

@@ -1860,12 +1860,14 @@ def _gather_make(kind, case, c, dev, extra):
     return make
 
 
-def _forced_ring(call, depth, rname):
+def _forced_ring(call, depth, rname, layouts=None):
     """R13/R14 on the call's geometry at ``depth`` whatever its grid (a
-    one-step grid, which the entry points never stage): its output and what
-    it launched, or None and nothing launched where ``accepts`` refuses the
-    ring (by the kernel's name, with the same message the wrapper raises)."""
+    one-step grid, which the entry points never stage), on the call's
+    layouts or on ``layouts``: its output and what it launched, or None and
+    nothing launched where ``accepts`` refuses the ring (by the kernel's
+    name, with the same message the wrapper raises)."""
     kern = call.kernel
+    layouts = call.layouts if layouts is None else layouts
     ring = agu.RingProgram((depth,) * (len(kern.depths) - 1) + (2,),
                            kern.invariant)
     takes, why = hopper.accepts(kern.device_key, kern.geometry,
@@ -1875,12 +1877,12 @@ def _forced_ring(call, depth, rname):
     if not takes:
         assert why.startswith(f"{rname}: its ring at depths")
         with pytest.raises(ValueError) as err:
-            kern.device_kernel()(kern.geometry, call.layouts, kern.out_dtype,
+            kern.device_kernel()(kern.geometry, layouts, kern.out_dtype,
                                  kern.acc_dtype, program=kern.program,
                                  ring=ring)
         assert str(err.value) == why and hopper.LAUNCHES == before
         return None, set()
-    out = kern.device_kernel()(kern.geometry, call.layouts, kern.out_dtype,
+    out = kern.device_kernel()(kern.geometry, layouts, kern.out_dtype,
                                kern.acc_dtype, program=kern.program,
                                ring=ring)
     return call.finish(out), _launched(before)
@@ -1917,9 +1919,11 @@ def test_ring_gather_is_its_k_kernel_to_the_bit(dev, kind, case, depth):
 def test_ring_gather_on_the_odd_inputs_is_its_k_kernel(dev, case, kind, c):
     """R13/R14 at depth 4 on the odd inputs (the all-zero matrix, empty
     rows, 1 × 1, rows of 300 and 600 entries, c = 200), launched on their
-    geometry directly (most are one-step grids), to K12's/K13's bits; R13
-    refuses the rows of 300 and 600 by name where their slots (64 rows of
-    the block's valid width) are over the budget."""
+    geometry directly (most are one-step grids), to K12's/K13's bits,
+    beside the ring on vals' first block zeroed, which must differ
+    wherever the product is not all zero; R13 refuses the rows of 300 and
+    600 by name where their slots (64 rows of the block's valid width, and
+    its barriers) are over the budget."""
     sync, ring = GATHER_RING[kind]
     for extra in ({}, {"lanes_tile_factor": 1, "rows_tile_factor": 2}):
         call = _gather_make(kind, case, c, dev, extra)(
@@ -1933,6 +1937,14 @@ def test_ring_gather_on_the_odd_inputs_is_its_k_kernel(dev, case, kind, c):
             continue
         assert launched == {ring}
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        # vals' first block zeroed (a one-step grid moves no block, so
+        # _zeroed_end_blocks would zero none)
+        vals = call.layouts[0].clone()
+        rows, cols = call.kernel.geometry.ins[0].block
+        vals[:rows, :cols] = 0
+        control, _ = _forced_ring(call, 4, ring, (vals, *call.layouts[1:]))
+        assert torch.equal(control.view(torch.int32),
+                           want.view(torch.int32)) == (case == "zero")
 
 
 @pytest.mark.parametrize("depth", [3, 4, 8], ids=str)
@@ -2008,13 +2020,15 @@ def test_ring_gather_and_scan_entry_points_launch_the_rings(dev):
 
 def test_ring_gather_spmv_over_the_budget_raises_on_the_card(dev):
     """k = 300 under 128-lane k steps: a slot is 64 x 128 x 4 bytes a
-    stream, so depth 4 needs 262,144 bytes and is refused by name."""
+    stream, so depth 4 needs 262,144 bytes and R13's 256 bytes of slot
+    barriers beside them, and is refused by name."""
     make = _gather_make("spmv", "row300", 1, dev,
                         {"lanes_tile_factor": 1, "rows_tile_factor": 2})
     call = make(lowering.Schedule(buffer_depth=4))
     before = dict(hopper.LAUNCHES)
     with pytest.raises(ValueError, match=r"ring_gather_spmv: its ring at "
-                       r"depths \(4, 4, 2\) needs 262144 bytes"):
+                       r"depths \(4, 4, 2\) needs 262400 bytes of shared "
+                       r"memory a CTA \(256 of them its slots' barriers\)"):
         call.run()
     assert hopper.LAUNCHES == before
 
@@ -2022,8 +2036,8 @@ def test_ring_gather_spmv_over_the_budget_raises_on_the_card(dev):
 @pytest.mark.parametrize("kind", ["spmv", "spmm"])
 def test_ring_gather_copies_4_bytes_where_a_layout_is_off_16(dev, kind):
     """vals and cidx layouts that start 4 bytes past a 16-byte boundary (a
-    view into a larger tensor): R13/R14 copy them 4 bytes a cp.async, to
-    the bits of the aligned call."""
+    view into a larger tensor): R13/R14, which copy rows in 16-byte packs,
+    take aligned copies of them, to the bits of the aligned call."""
     sync, ring = GATHER_RING[kind]
     call = _gather_make(kind, "hpcg16", 200, dev, {})(
         lowering.Schedule(buffer_depth=4))

@@ -21,13 +21,19 @@ numpy seed:
   stays sync at depth 4;
 * **one budget** — ``device_ring`` gives the table 0 bytes, a gather slot a
   row group × the valid width rounded up to 16 bytes × 4 bytes a stream
-  and a scan slot one of K14's tiles on its padded words; ``accepts``
-  refuses, by name, a depth over ``SMEM_OPTIN_BYTES``;
+  (R13 keeps its slots' mbarriers besides, ``_staged_bytes``) and a scan
+  slot one of K14's tiles on its padded words; ``accepts`` refuses, by
+  name, a depth over ``SMEM_OPTIN_BYTES``;
+* **one wave** — ``ring_run_steps`` gives every row group of R13 and R14
+  the same runs, as many as fit the card's CTAs, so no CTA waits for a
+  second wave, and the plain ring under those runs gives the sync plain
+  version's bits;
 * **the reference's rotation** — the fetch log of a gather walk and of the
   scan walk, under the runs the wrappers launch, is ``_pipelined_call``'s
   formula;
 * **the addresses come from the ring** — a gather ring that delivers
-  another step's cidx block changes the result.
+  another step's cidx block changes that step's result and no other (R13
+  gathers a step's table values ahead of it, from that step's cidx).
 
 The card's own checks (R13–R15 against K12–K14 to the bit) are in
 ``tests/test_torch_cuda.py``.
@@ -163,16 +169,20 @@ def test_pipelined_gather_matches_the_reference_sync_output(kind, case,
            terms=_terms(data, indices, indptr, operand))
 
 
+@pytest.mark.parametrize("sms", [1, 2, SMS])
 @pytest.mark.parametrize("depth", [3, 4, 8], ids=str)
 @pytest.mark.parametrize("kind", ["spmv", "spmm"])
-def test_plain_ring_equals_the_sync_plain_version_to_the_bit(kind, depth):
+def test_plain_ring_equals_the_sync_plain_version_to_the_bit(kind, depth,
+                                                              sms):
     """At the default schedule on HPCG's operator, the plain ring under the
-    runs R13/R14 launch equals the sync plain version to the bit."""
+    runs R13/R14 launch on a card of ``sms`` SMs (runs of one output block
+    on the H100's 132, of several on fewer) equals the sync plain version
+    to the bit."""
     call = _call(kind, _hpcg(), _sched(depth), c=200)
     kern = call.kernel
     assert kern.pipelined
     run = hopper.ring_run_steps(RING[kind], kern.geometry, kern.ring,
-                                torch.float32, SMS)
+                                torch.float32, sms)
     got, _ = hopper.plain_ring(kern.body, kern.geometry, call.layouts,
                                kern.out_dtype, kern.acc_dtype, mode="nest",
                                ring=kern.ring, steps_per_cta=run)
@@ -280,8 +290,9 @@ def test_the_rings_are_registered_kernels():
 # -- one budget ----------------------------------------------------------------
 
 
-@pytest.mark.parametrize("kind, rows", [("spmv", 64), ("spmm", 8)])
-def test_gather_ring_bytes_give_the_table_none(kind, rows):
+@pytest.mark.parametrize("kind, rows, staged", [("spmv", 64, 256),
+                                                ("spmm", 8, 0)])
+def test_gather_ring_bytes_give_the_table_none(kind, rows, staged):
     kern = _call(kind, _hpcg(), _sched((4, 3))).kernel
     geo = kern.geometry
     assert geo.gathers[0].extent[1] == 27 and geo.ins[1].block[1] == 128
@@ -291,6 +302,9 @@ def test_gather_ring_bytes_give_the_table_none(kind, rows):
     # vals and cidx: a row group × 28 lanes × 4 bytes; the table none
     assert dr.slot_bytes == (rows * 28 * 4, rows * 28 * 4, 0)
     assert dr.ring_bytes == 7 * rows * 28 * 4
+    # R13's full and empty mbarriers, 8 slots of each stream, whatever the
+    # depths; R14's warps keep nothing besides their rings
+    assert hopper._staged_bytes(RING[kind], (), geo) == staged
     if kind == "spmv":              # R13's slot at depth 1: 14,336 bytes
         assert sum(dr.slot_bytes) == 14336
 
@@ -318,28 +332,33 @@ def test_scan_ring_bytes_are_k14_tiles(dtype, words):
                                        entry.ring, staged) is None
 
 
-def test_accepts_refuses_r13_over_the_budget_by_name():
-    """k = 300: a slot is 64 rows × 128 lanes × 4 bytes a stream, so depth
-    3 fits and depth 4 (262,144 bytes) does not."""
-    for depth, fits in ((3, True), ((2, 4), True), (4, False),
-                        (8, False)):
-        kern = _call("spmv", "row300", _sched(depth, **CARRIED)).kernel
-        takes, why = hopper.accepts(kern.device_key, kern.geometry,
-                                    torch.float32, "cpu",
-                                    **kern.device_args())
-        dr = hopper.device_ring("ring_gather_spmv", kern.geometry, kern.ring,
-                                torch.float32)
-        assert takes == fits, why
-        assert (dr.ring_bytes <= hopper.SMEM_OPTIN_BYTES) == fits
-        if not fits:
-            assert why == (f"ring_gather_spmv: its ring at depths "
-                           f"{kern.depths} needs {dr.ring_bytes} bytes of "
-                           f"shared memory a CTA, the card allows "
-                           f"{hopper.SMEM_OPTIN_BYTES}")
-    # R14's slots are 8 rows: every depth fits
-    kern = _call("spmm", "row300", _sched(8, **CARRIED)).kernel
-    assert hopper.accepts(kern.device_key, kern.geometry, torch.float32,
-                          "cpu", **kern.device_args()) == (True, "ok")
+@pytest.mark.parametrize("kind, depth, fits", [
+    ("spmv", 3, True), ("spmv", (2, 4), True), ("spmv", 4, False),
+    ("spmv", 8, False), ("spmm", 8, True)], ids=str)
+def test_accepts_refuses_r13_over_the_budget_by_name(kind, depth, fits):
+    """k = 300: R13's slot is 64 rows × 128 lanes × 4 bytes a stream, so
+    with its 256 bytes of barriers depth 3 (196,864 bytes) fits and depth 4
+    (262,400 bytes) does not; R14's slots are 8 rows: every depth fits."""
+    rname = RING[kind]
+    kern = _call(kind, "row300", _sched(depth, **CARRIED)).kernel
+    takes, why = hopper.accepts(kern.device_key, kern.geometry,
+                                torch.float32, "cpu", **kern.device_args())
+    dr = hopper.device_ring(rname, kern.geometry, kern.ring, torch.float32)
+    staged = hopper._staged_bytes(rname, (), kern.geometry)
+    need = dr.ring_bytes + staged
+    assert takes == fits, why
+    assert (need <= hopper.SMEM_OPTIN_BYTES) == fits
+    assert dr.slot_bytes[0] == (64 if kind == "spmv" else 8) * 128 * 4
+    if kind == "spmv":
+        assert need == {3: 196864, (2, 4): 196864, 4: 262400,
+                        8: 524544}[depth]
+    if not fits:
+        assert why == (f"ring_gather_spmv: its ring at depths "
+                       f"{kern.depths} needs {need} bytes of shared memory "
+                       f"a CTA ({staged} of them its slots' barriers), the "
+                       f"card allows {hopper.SMEM_OPTIN_BYTES}")
+    else:
+        assert why == "ok"
 
 
 def test_accepts_refuses_what_the_sync_gather_refuses_under_the_ring_name():
@@ -374,6 +393,40 @@ def test_gather_walk_fetch_log_is_the_reference_rotation(kind, depth):
             assert taken[i] == list(range(geo.steps))
 
 
+@pytest.mark.parametrize("sms", [1, 2, 5, SMS])
+@pytest.mark.parametrize("depth", [3, 4, 8], ids=str)
+@pytest.mark.parametrize("kind", ["spmv", "spmm"])
+def test_gather_ring_runs_fill_one_wave(kind, depth, sms):
+    """R13's and R14's persistent grid on a card of ``sms`` SMs: every row
+    group (and R14's column chunk) walks the same runs of whole output
+    blocks, as many runs as fit the CTAs an SM beside the rings (R13: four
+    by registers, fewer by shared memory; R14: three by registers), so the
+    grid is one wave; and no shorter runs would fit it."""
+    rname = RING[kind]
+    call = _call(kind, _hpcg(), _sched(depth), c=200)
+    geo = call.kernel.geometry
+    z = geo.contraction_steps
+    blocks = geo.steps // z
+    rows = hopper.SPMV_RING_ROWS if kind == "spmv" else hopper.SPMM_RING_ROWS
+    groups = -(-geo.ins[1].block[0] // rows) * (
+        geo.gathers[0].tiles[0] // hopper.SPMM_COLS if kind == "spmm" else 1)
+    dr = hopper.device_ring(rname, geo, call.kernel.ring, torch.float32)
+    smem = dr.ring_bytes + hopper._staged_bytes(rname, (), geo)
+    per_sm = hopper._ctas_per_sm(smem, {"spmv": 4, "spmm": 3}[kind])
+    # R13: four, three and two CTAs an SM by shared memory (its ring and
+    # barriers); R14: three by registers at every depth
+    assert per_sm == {"spmv": {3: 4, 4: 3, 8: 2},
+                      "spmm": {3: 3, 4: 3, 8: 3}}[kind][depth]
+    run = hopper.ring_run_steps(rname, geo, call.kernel.ring,
+                                torch.float32, sms)
+    assert run % z == 0
+    per = run // z
+    ctas = -(-blocks // per) * groups
+    assert ctas <= max(per_sm * sms, groups)
+    if per > 1:                     # a block less a run: over one wave
+        assert -(-blocks // (per - 1)) * groups > per_sm * sms
+
+
 @pytest.mark.parametrize("depth", [3, 4, 8], ids=str)
 def test_scan_walk_fetch_log_is_the_reference_rotation(depth):
     x = _scan_input(40 * 1024, "float32")
@@ -395,31 +448,37 @@ def test_scan_walk_fetch_log_is_the_reference_rotation(depth):
 # -- the addresses come from the ring ------------------------------------------
 
 
+@pytest.mark.parametrize("step", [0, 3])
+@pytest.mark.parametrize("depth", [3, 4, 8], ids=str)
 @pytest.mark.parametrize("kind", ["spmv", "spmm"])
 def test_plain_gather_ring_reads_its_addresses_from_the_delivered_block(
-        kind, monkeypatch):
-    """A ring that hands step 0 the cidx block of the last step (its first
-    slot filled with another step's block) changes the result: the plain
-    ring gathers through the cidx block it delivered, not through the
-    layout.  (HPCG's first two row blocks, the z = 0 and z = 1 layers,
-    begin with the same columns; the last one does not.)"""
-    call = _call(kind, _hpcg(), _sched(4), c=200)
+        kind, depth, step, monkeypatch):
+    """A ring that hands ``step`` the cidx block of the last step (its slot
+    filled with another step's block) changes that step's result and no
+    other: the plain ring gathers through the cidx block it delivered for
+    the step, not through the layout, whatever the depth (R13 gathers a
+    step's table values ``depth − 2`` steps ahead of its arithmetic, from
+    that step's cidx slot).  (HPCG's first two row blocks, the z = 0 and z
+    = 1 layers, begin with the same columns; the last one does not.)"""
+    call = _call(kind, _hpcg(), _sched(depth), c=200)
     kern = call.kernel
     geo = kern.geometry
+    assert step < geo.steps - 1
     want = kern.plain(call.layouts)
     real = hopper.ring_taken
 
     def early(geo, ring, steps_per_cta=None):
         taken, log = real(geo, ring, steps_per_cta)
-        taken[1][0] = geo.steps - 1   # cidx only: vals still step 0's
+        taken[1][step] = geo.steps - 1   # cidx only: vals still its own
         return taken, log
 
     monkeypatch.setattr(hopper, "ring_taken", early)
     got = kern.plain(call.layouts)
-    # step 0's output block moved (its rows gathered at the last step's
+    # the step's output block moved (its rows gathered at the last step's
     # columns); every other block did not
     first = geo.out.element_index(geo.grid, geo.out_shape, None,
-                                  agu.grid_steps(geo.grid)[:1]).reshape(-1)
+                                  agu.grid_steps(geo.grid)[step:step + 1]
+                                  ).reshape(-1)
     mask = torch.zeros(got.numel(), dtype=torch.bool)
     mask[first] = True
     assert not torch.equal(got.reshape(-1)[mask], want.reshape(-1)[mask])

@@ -187,8 +187,8 @@ def test_build_key_follows_the_sources(tmp_path, monkeypatch):
     headers = sorted(p.name for p in csrc.glob("*.cuh"))
     assert headers == ["ssr_attention.cuh", "ssr_chain.cuh",
                        "ssr_chained_map.cuh", "ssr_common.cuh", "ssr_dag.cuh",
-                       "ssr_gather.cuh", "ssr_ring.cuh", "ssr_rows.cuh",
-                       "ssr_scan.cuh", "ssr_stencil1d.cuh",
+                       "ssr_gather.cuh", "ssr_gather_ring.cuh", "ssr_ring.cuh",
+                       "ssr_rows.cuh", "ssr_scan.cuh", "ssr_stencil1d.cuh",
                        "ssr_stencil2d.cuh"]
     dags = {"dag_layernorm", "dag_softmax_xent", "dag_mlp",
             "ring_dag_layernorm", "ring_dag_softmax_xent", "ring_dag_mlp"}
@@ -203,6 +203,7 @@ def test_build_key_follows_the_sources(tmp_path, monkeypatch):
              "ssr_dag.cuh": dags,
              "ssr_gather.cuh": {"gather_spmv", "gather_spmm",
                                 "ring_gather_spmv", "ring_gather_spmm"},
+             "ssr_gather_ring.cuh": {"ring_gather_spmv", "ring_gather_spmm"},
              "ssr_scan.cuh": {"stream_scan", "ring_stream_scan"},
              "ssr_ring.cuh": {n for n in hopper.KERNELS
                               if n.startswith("ring_")},
