@@ -16,7 +16,11 @@ user's cache and phases 2–4 run the default schedules.  Phases, each
 printing JSON lines:
 
 1. build every Hopper kernel from ``src/repro_torch/csrc`` (one ``nvcc``
-   per source, all at once) and print the card's name and power limit;
+   per source, all at once), print the ``kernel_attributes`` line (K12,
+   K13, R13, R14, K3, R3 and B3: registers and local bytes a thread as
+   ``cudaFuncGetAttributes`` reads them; K3, R3 and B3 also their CTAs an
+   SM from the occupancy API, R3 at its main path's ring) and the card's
+   name and power limit;
 2. drive the main path once, with every launch counter at 0 before it:
    dot and relu (f32, int32 above 2**24, bf16) at n = 2**26, gemm at
    4096**3 and gemv at 8192**2 in f32, plus one direct ``ssr_call``, and
@@ -89,9 +93,12 @@ printing JSON lines:
    (4, 2) (a depth over the shared memory refused by name) and on
    scan_2p26 at 3, 4 and 8, each beside its run on the moving streams'
    first blocks zeroed, which must differ; R13/R14 at depth 4 on the odd
-   CSR inputs; R14's local bytes a thread at most R14_LOCAL_BYTES (the
-   ``kernel_attributes`` line after the build has K12's, K13's, R13's and
-   R14's registers and local bytes); R13–R15 at depth 4 (and the main
+   CSR inputs; R14's local bytes a thread at most R14_LOCAL_BYTES and R3's
+   none; every R3 check names the route its producer warp took (``tma``,
+   ``cp.async`` or ``cp.async elements``, ``hopper.gemm_ring_route``), and
+   two more hold R3 at depth 3 on the cp.async routes to K3's bits on the
+   gemm cell's inputs (bf16, and f32 on a 4158-element pitch), beside
+   their zeroed-block controls; R13–R15 at depth 4 (and the main
    path's ring outputs) against the plain ring at full size under the ring
    kernel's runs, within SPARSE_LIMIT or SCAN_LIMIT, beside the
    zeroed-block control above it;
@@ -100,8 +107,10 @@ printing JSON lines:
    against its streamed kernel (``ssr_over_baseline``), each fused cell
    against its unfused stages (``fused_over_unfused``), each entry
    point of the main path by the host's clock once warm, and the sparse
-   entries' wall time split into packing, copies, layout and kernel; a
-   ``depth_sweep`` line per ring cell: ms at depths 2 (the K-kernel), 3, 4
+   entries' wall time split into packing, copies, layout and kernel; the
+   ``gemm_roofline`` line (K3, B3 and R3 at 3, 4, 8 on the gemm cell:
+   ms, bound_ms / ms and ms / torch.matmul's, beside their registers and
+   CTAs an SM); a ``depth_sweep`` line per ring cell: ms at depths 2 (the K-kernel), 3, 4
    and 8, the best per-stream pair, ``ring_over_sync`` = K ms / R ms; a
    ``chained_time`` line per ChainedKernel cell (K17 and R5 at depths 2–8,
    the composed library calls, and for axpy_relu the unfused stages and
@@ -505,6 +514,27 @@ def time_ms(fn, warmup: int = 3) -> float:
     return statistics.median(sample(calls) for _ in range(REPS))
 
 
+def busy_ms(fn, calls: int = 5) -> float:
+    """Median CUDA-event time of one ``fn`` call with the device kept busy:
+    each sample enqueues a call before its start event, so the timed calls
+    are enqueued while the device runs it.  ``time_ms`` times single calls
+    once a call lasts over 2 ms, and then counts the host's launch work in
+    each sample."""
+    def sample() -> float:
+        fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / calls
+
+    sample()
+    return statistics.median(sample() for _ in range(REPS))
+
+
 def wall_ms(fn) -> float:
     """Median host wall time of one call that ends in a synchronize: what a
     caller of the entry point waits, host work included."""
@@ -667,10 +697,17 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     emit({"phase": "build", "seconds": build_s, "compiled": sorted(logs),
           "kernels": sorted(hopper.KERNELS)})
-    # the gathers' registers a thread and spilled bytes, as the runtime
-    # reads them (R14 held to R14_LOCAL_BYTES, in phase 3i)
+    # the gathers' and the gemms' registers a thread and spilled bytes, as
+    # the runtime reads them (R14 held to R14_LOCAL_BYTES in phase 3i, R3
+    # to none in 3e), and the gemms' CTAs an SM from the occupancy API: R3
+    # at its main path's ring (depth 3 on A and B, f32, and its barriers)
+    r3_smem = RING_MAIN_DEPTH["gemm"] * 4 * hopper.GEMM_CHUNK_K * (
+        hopper.GEMM_TILE_M + hopper.GEMM_TILE_N) + hopper.RING_BARRIER_BYTES
     attributes = {n: hopper.kernel_attributes(n) for n in (
-        "gather_spmv", "gather_spmm", "ring_gather_spmv", "ring_gather_spmm")}
+        "gather_spmv", "gather_spmm", "ring_gather_spmv", "ring_gather_spmm",
+        "contract_gemm", "base_gemm")}
+    attributes["ring_contract_gemm"] = hopper.kernel_attributes(
+        "ring_contract_gemm", r3_smem)
     emit({"phase": "kernel_attributes", "kernels": attributes})
     print(smi, flush=True)
     card = torch.cuda.get_device_name(0)
@@ -1674,6 +1711,10 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                  (got.float() - want.float()).abs().nan_to_num().max()),
              "limit": limit, "depths": list(ring_calls[cell, depth]
                                             .kernel.depths)}
+        if cell == "gemm":
+            c["route"] = hopper.gemm_ring_route(
+                ring_calls[cell, depth].kernel.geometry,
+                ring_calls[cell, depth].layouts)
         if relu_cell:
             c["control_differs"] = not same_bits(ctrl, want, view)
             bad = not c["control_differs"]
@@ -1699,6 +1740,9 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                  "control_differs": not same_bits(ctrl, want, view),
                  "abs_err": err, "limit": 0.0, "kernel": rname,
                  "depths": list(call.kernel.depths)}
+            if rname == "ring_contract_gemm":
+                c["route"] = hopper.gemm_ring_route(call.kernel.geometry,
+                                                    call.layouts)
             checks[f"ring_{cell}_{depth}"] = c
             errors[rname] = max(errors.get(rname, 0.0), err)
             if not c["control_differs"]:
@@ -1717,6 +1761,44 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                 del want_p
             del got, ctrl
         del want
+    # R3's cp.async route at the main path's depth, against K3 to the bit
+    # on the gemm cell's inputs: in bf16, and in f32 on a layout whose
+    # pitch is no multiple of 16 bytes (lanes 126: blocks 378 wide on a
+    # 4158-element pitch, copied element by element), each beside its run
+    # on the first blocks zeroed
+    for key, ops_, lanes in (
+            ("ring_gemm_bf16_3", {"A": a.bfloat16(), "B": b.bfloat16()},
+             128),
+            ("ring_gemm_pitch_4158_3", {"A": a, "B": b}, 126)):
+        depth = RING_MAIN_DEPTH["gemm"]
+        nest_ = compiler.gemm_nest(m, n, k)
+        want = lowering.prepare_call(
+            nest_, gemm.DOT, ops_, schedule=lowering.Schedule(
+                lanes=lanes)).run()
+        call = lowering.prepare_call(
+            nest_, gemm.DOT, ops_, schedule=lowering.Schedule(
+                lanes=lanes, buffer_depth=depth))
+        route = hopper.gemm_ring_route(call.kernel.geometry, call.layouts)
+        got = call.run()
+        ctrl = call.finish(call.kernel(*first_block_zeroed(call)))
+        c = {"exact": same_bits(got, want, torch.int32)
+             and call.kernel.pipelined and route != "tma",
+             "control_differs": not same_bits(ctrl, want, torch.int32),
+             "abs_err": float((got - want).abs().max()), "limit": 0.0,
+             "kernel": "ring_contract_gemm", "route": route,
+             "pitch": int(call.layouts[0].shape[1]), "depths": [depth]}
+        checks[key] = c
+        errors["ring_contract_gemm"] = max(
+            errors.get("ring_contract_gemm", 0.0), c["abs_err"])
+        if not c["control_differs"]:
+            failed.append(f"{key}: the zeroed first block left the result "
+                          "unchanged")
+        del got, ctrl, want
+    # R3 spills nothing
+    local = attributes["ring_contract_gemm"]["localSizeBytes"]
+    checks["ring_contract_gemm_local_bytes"] = {
+        "exact": local == 0, "local_bytes": local, "local_limit": 0,
+        "abs_err": 0.0, "limit": 0.0}
     # the plain ring (its fetch log the reference's rotation) against R1–R4
     # at small sizes, one CTA's run over the whole grid
     sa_, sb_ = randn(300, 1100), randn(1100, 260)
@@ -1756,6 +1838,9 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             "kernel": hopper.RING_KERNELS[kern.device_key],
             "pipelined": kern.pipelined, "invariant": list(kern.invariant),
             "exact": kern.pipelined}
+        if cell == "gemm":
+            checks["plain_ring_gemm"]["route"] = hopper.gemm_ring_route(
+                kern.geometry, call.layouts)
         if ctrl <= limit:
             failed.append(f"plain_ring_{cell}: limit above the control")
 
@@ -2777,6 +2862,31 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     ms = {r["name"]: r["ms"] for r in rows}
     emit({"phase": "ssr_vs_baseline", "ssr_over_baseline": {
         kname: ms[bname] / ms[kname] for kname, bname in PAIRS.items()}})
+    # the gemm cell's kernels against the card's bound and torch.matmul
+    # (TF32 off), with their registers and CTAs an SM: ``ms`` as the
+    # kernels line times them, ``busy_ms`` with the device kept busy (no
+    # launch gap in a sample)
+    gsw = sweeps["gemm"]
+    gemm_fns = {"contract_gemm": timed["contract_gemm"][0],
+                "base_gemm": timed["base_gemm"][0],
+                **{f"ring_contract_gemm_{d}": kernel_fn(ring_calls["gemm", d])
+                   for d in RING_DEPTHS}}
+    gemm_ms = {"contract_gemm": ms["contract_gemm"],
+               "base_gemm": ms["base_gemm"],
+               **{f"ring_contract_gemm_{d}": gsw["ms"][str(d)]
+                  for d in RING_DEPTHS}}
+    lib_busy = busy_ms(library["contract_gemm"])
+    busy = {name: busy_ms(fn) for name, fn in gemm_fns.items()}
+    emit({"phase": "gemm_roofline", "card": smi,
+          "bound_ms": gsw["bound_ms"], "library_ms": gsw["library_ms"],
+          "library_busy_ms": lib_busy,
+          "kernels": {name: {"ms": t, "bound_over_ms": gsw["bound_ms"] / t,
+                             "over_library": t / gsw["library_ms"],
+                             "busy_ms": busy[name],
+                             "busy_over_library": busy[name] / lib_busy}
+                      for name, t in gemm_ms.items()},
+          "attributes": {n: attributes[n] for n in (
+              "contract_gemm", "ring_contract_gemm", "base_gemm")}})
     emit({"phase": "fused_vs_unfused", "fused_over_unfused": {
         cell: c_["fused_over_unfused"] for cell, c_ in cells.items()}})
     # the main path's entry points once warm, host work included; beside
@@ -2843,19 +2953,25 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
           "tuned_us": res.tuned_us, "winner": res.schedule.to_json(),
           "winner_is_default": res.is_default, "held_back": res.held_back,
           "timings_us": [[s.to_json(), us] for s, us in res.timings]})
-    before = hopper.LAUNCHES["contract_gemm"]
+    # the winner runs K3, or R3 where it is deeper than 2
+    committed = lowering.prepare_call(nest, gemm.DOT, operands,
+                                      schedule=res.schedule)
+    tuned_kernel = hopper.RING_KERNELS[committed.kernel.device_key] \
+        if committed.kernel.pipelined else "contract_gemm"
+    before = hopper.LAUNCHES[tuned_kernel]
     tuned_out = ops.matmul(a, b, ssr=True)
     torch.cuda.synchronize()
     resolved = gemm._ssr.schedule_for(a, b)
-    want = plain(lowering.prepare_call(nest, gemm.DOT, operands,
-                                       schedule=res.schedule))
+    want = plain(committed)
+    del committed
     scale_t = torch.abs(a) @ torch.abs(b)
     tuned_err = rel_to_abs_prod(tuned_out, want, scale_t)
     emit({"phase": "tuned_dispatch", "resolved": resolved.to_json(),
-          "launched": hopper.LAUNCHES["contract_gemm"] - before,
+          "kernel": tuned_kernel,
+          "launched": hopper.LAUNCHES[tuned_kernel] - before,
           "rel_to_abs_prod": tuned_err, "limit": CONTRACT_LIMIT})
     if resolved != res.schedule or tuned_err > CONTRACT_LIMIT or \
-            hopper.LAUNCHES["contract_gemm"] == before:
+            hopper.LAUNCHES[tuned_kernel] == before:
         raise SystemExit("chip_smoke: ops.matmul did not run the committed "
                          "winner correctly")
 
@@ -2877,8 +2993,12 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                                      "buffer_depth": 2,
                                      "stream_depths": None}))).run()
     torch.cuda.synchronize()
+    depth_call = lowering.prepare_call(nest, gemm.DOT, operands,
+                                       schedule=depth_sched)
     emit({"phase": "depth_dispatch", "committed": depth_sched.to_json(),
           "raced": bool(deep_runs), "launched": depth_launched,
+          "route": hopper.gemm_ring_route(depth_call.kernel.geometry,
+                                          depth_call.layouts),
           "same_bits_as_k3": bool(torch.equal(depth_out.view(torch.int32),
                                               twin.view(torch.int32)))})
     if depth_launched != {"ring_contract_gemm": 1} or not torch.equal(

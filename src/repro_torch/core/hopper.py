@@ -33,8 +33,9 @@ gather_spmm       nest         K13: ``spmm`` (Y += vals·X[cidx, c])
 A schedule deeper than 2 makes a call of K1–K13's families pipelined
 (:attr:`~repro_torch.core.ssr.SsrKernel.pipelined`): it runs the ring kernel
 of :data:`RING_KERNELS` instead — R1 ``ring_reduce_mul``, R2
-``ring_map_relu``, R3 ``ring_contract_gemm`` (its ring over 16-wide k
-chunks), R4 ``ring_contract_gemv`` (with the relu drain), R6
+``ring_map_relu``, R3 ``ring_contract_gemm`` (its rings of 16-wide k
+chunks filled by a producer warp on a full and an empty mbarrier a slot,
+with TMA where :func:`gemm_ring_route` finds the layout allows it), R4 ``ring_contract_gemv`` (with the relu drain), R6
 ``ring_chain_elem`` (every program of K5), R7 ``ring_dag_layernorm``, R8
 ``ring_dag_softmax_xent`` and R9 ``ring_dag_mlp`` (every instantiation of
 K6–K8; R9's ring of step blocks feeds K8's 128-row tile), R10
@@ -263,6 +264,11 @@ KERNELS: Dict[str, Dict[str, str]] = {
 #: as K14's).  A ``chained_map`` or ``ring_chained_map`` call is one.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
+#: Kernel → the library that reports its attributes where its own source
+#: has no entry for them (:func:`kernel_attributes`): K3's source, built
+#: once more with one entry added (``csrc/contract_gemm_probe.cu``).
+ATTRIBUTE_PROBES: Dict[str, str] = {"contract_gemm": "contract_gemm_probe"}
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -306,8 +312,10 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = tuple(KERNELS)) -> Dict[str, str]:
-    """Compile every named kernel not built yet, one ``nvcc`` each, together.
+def build(names: Iterable[str] = (*KERNELS, *ATTRIBUTE_PROBES.values())
+          ) -> Dict[str, str]:
+    """Compile every named kernel (or probe) not built yet, one ``nvcc``
+    each, together.
 
     Returns the compiler's output (``-Xptxas -v``: registers, shared memory,
     spills) for each kernel it compiled; raises if any compile failed.
@@ -453,19 +461,38 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
-def kernel_attributes(name: str) -> Dict[str, int]:
+#: The kernels whose attributes entry also reads their CTAs an SM
+#: (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, at the dynamic
+#: shared memory it is given).
+_OCCUPANCY_ATTRIBUTES = ("contract_gemm", "ring_contract_gemm", "base_gemm")
+
+
+def kernel_attributes(name: str, smem: int = 0) -> Dict[str, int]:
     """Registers a thread (``numRegs``) and local, spilled bytes a thread
     (``localSizeBytes``) of kernel ``name`` as ``cudaFuncGetAttributes``
-    reads them on the current card: K12, K13, R13 and R14 report them."""
-    fn = getattr(_lib(name), f"ssr_{name}_attributes")
-    fn.argtypes = [ctypes.POINTER(ctypes.c_int64)]
+    reads them on the current card: K12, K13, R13 and R14 report them; K3,
+    R3 and B3 also their CTAs an SM (``ctasPerSm``) at ``smem`` bytes of
+    dynamic shared memory (R3's ring; K3 and B3 take their own)."""
+    probe = ATTRIBUTE_PROBES.get(name)
+    if probe is None:
+        lib = _lib(name)
+    else:
+        build((probe,))
+        lib = ctypes.CDLL(str(library_path(probe)))
+    fn = getattr(lib, f"ssr_{name}_attributes")
+    occupancy = name in _OCCUPANCY_ATTRIBUTES
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int64),
+                   *([ctypes.c_int64] if occupancy else [])]
     fn.restype = ctypes.c_int
-    out = (ctypes.c_int64 * 2)()
-    rc = fn(out)
+    out = (ctypes.c_int64 * 3)()
+    rc = fn(out, smem) if occupancy else fn(out)
     if rc != 0:
         raise RuntimeError(f"{name}: cudaFuncGetAttributes failed with CUDA "
                            f"error {rc}")
-    return {"numRegs": int(out[0]), "localSizeBytes": int(out[1])}
+    got = {"numRegs": int(out[0]), "localSizeBytes": int(out[1])}
+    if occupancy:
+        got["ctasPerSm"] = int(out[2])
+    return got
 
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
@@ -722,7 +749,8 @@ RING_KERNELS: Dict[tuple, str] = {
     ("nest", "spmm"): "ring_gather_spmm",
 }
 #: R3's CTA tile (K3's): 128 x 128 outputs over 16-wide k chunks, the unit
-#: of its ring; an A slot's rows are padded by 16 bytes.
+#: of its ring; an A slot is 128 rows of 16 k and a B slot 16 rows of 128,
+#: unpadded (what a TMA box lands as).
 GEMM_TILE_M, GEMM_TILE_N, GEMM_CHUNK_K = 128, 128, 16
 #: R4's rows a CTA (one a warp).
 GEMV_RING_ROWS = 8
@@ -753,10 +781,10 @@ ATTENTION_SUBTILE = 64
 #: R13's and R14's rows a CTA (K12's and K13's): a slot holds one step's
 #: rows of vals (or cidx) on a pitch of :func:`gather_slot_width` elements.
 SPMV_RING_ROWS, SPMM_RING_ROWS = 64, 8
-#: What R13 keeps besides its rings: a full and an empty mbarrier for each
-#: of up to 8 slots of each stream, 8 bytes each, whatever the depths
-#: (``csrc/ssr_gather_ring.cuh``).
-GATHER_RING_BARRIER_BYTES = 4 * 8 * 8
+#: What R3 and R13 keep besides their rings: a full and an empty mbarrier
+#: for each of up to 8 slots of each of their two streams, 8 bytes each,
+#: whatever the depths (``csrc/ssr_mbarrier.cuh``).
+RING_BARRIER_BYTES = 4 * 8 * 8
 #: Shared memory an SM of an H100 or H200 holds for its CTAs (228 KiB), and
 #: what the card keeps of it for each CTA (1 KiB): a persistent ring
 #: kernel launches as many CTAs as fit an SM beside their rings, at most
@@ -805,10 +833,9 @@ def _device_ring(name: str, geo: StreamGeometry, ring: RingProgram,
                   for d, inv in zip(ring.depths, ring.invariant)),
             ring.invariant, tuple(math.prod(a.block) * size for a in geo.ins))
     if name == "ring_contract_gemm":
-        pad = 16 // size
         return RingProgram(
             ring.depths, (False, False),
-            (GEMM_TILE_M * (GEMM_CHUNK_K + pad) * size,
+            (GEMM_TILE_M * GEMM_CHUNK_K * size,
              GEMM_CHUNK_K * GEMM_TILE_N * size))
     if name == "ring_contract_gemv":
         tn = geo.ins[0].block[1]
@@ -924,13 +951,13 @@ def _staged_bytes(rname: str, ops: Sequence[str],
                   geo: StreamGeometry) -> int:
     """The shared memory ring kernel ``rname`` takes besides its ring,
     running the stage ``ops``: R9 stages K8's weights and tile but for the
-    residual alone; R12 its p tile (Q is in its ring, one tile); R13 its
-    slots' barriers; R15 its third pass's tile of sums (K14's float tile);
+    residual alone; R12 its p tile (Q is in its ring, one tile); R3 and R13
+    their slots' barriers; R15 its third pass's tile of sums (K14's float tile);
     the others nothing."""
     if rname == "ring_dag_mlp" and tuple(ops) != ("mlp_residual",):
         return MLP_STAGED_BYTES
-    if rname == "ring_gather_spmv":
-        return GATHER_RING_BARRIER_BYTES
+    if rname in ("ring_contract_gemm", "ring_gather_spmv"):
+        return RING_BARRIER_BYTES
     if rname == "ring_rescale_attention":
         rows = ATTENTION_RING_TILES[geo.ins[0].block[1]][0]
         return 4 * ATTENTION_SUBTILE * (rows + 4)
@@ -942,6 +969,7 @@ def _staged_bytes(rname: str, ops: Sequence[str],
 #: What a ring kernel's staged bytes hold, for its refusal.
 _STAGED_WHAT = {"ring_dag_mlp": "its staged weights and tile",
                 "ring_rescale_attention": "its p tile",
+                "ring_contract_gemm": "its slots' barriers",
                 "ring_gather_spmv": "its slots' barriers",
                 "ring_stream_scan": "its tile of sums"}
 
@@ -1210,24 +1238,43 @@ def _contract(name: str, geo: StreamGeometry,
     return out
 
 
+#: R3's routes (:func:`gemm_ring_route`) → the ``cvec`` its entry takes.
+_GEMM_ROUTES = {"tma": 2, "cp.async": 1, "cp.async elements": 0}
+
+
+def gemm_ring_route(geo: StreamGeometry,
+                    layouts: Sequence[torch.Tensor]) -> str:
+    """How R3's producer warp fills its slots on these layouts: ``"tma"``
+    (2-D tensor copies) where A and B are f32 with base pointers, pitches
+    and block widths in 16-byte packs and A's block width ``tk`` is a
+    multiple of :data:`GEMM_CHUNK_K` (no chunk crosses the block's k edge,
+    which TMA would not zero); else ``"cp.async"`` (16-byte packs, in either
+    dtype, where the same alignment holds) or ``"cp.async elements"``."""
+    aligned = _vector_width(layouts, geo.ins) > 1
+    if aligned and layouts[0].dtype == torch.float32 \
+            and geo.ins[0].block[1] % GEMM_CHUNK_K == 0:
+        return "tma"
+    return "cp.async" if aligned else "cp.async elements"
+
+
 def contract_gemm(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                   out_dtype: torch.dtype,
                   acc_dtype: torch.dtype = torch.float32,
                   program: Optional[Any] = None,
                   ring: Optional[RingProgram] = None) -> torch.Tensor:
     """K3: C block (tm, tn) += A block (tm, tk) · B block (tk, tn); with
-    ``ring`` (a pipelined call) R3."""
+    ``ring`` (a pipelined call) R3, by :func:`gemm_ring_route`'s route."""
     def args(dev):
         if ring is None:
             # A and B are read in 16-byte packs where they can be (f32 only)
             return "contract_gemm", (
                 4 if layouts[0].dtype == torch.float32
                 and _vector_width(layouts, geo.ins) == 4 else 1,), ()
-        # R3 copies 16 bytes where A and B allow it, in either dtype
         dr = device_ring("ring_contract_gemm", geo, ring, layouts[0].dtype)
         return "ring_contract_gemm", (
-            int(_vector_width(layouts, geo.ins) > 1),), (
-            ctypes.byref(_ring_arg(dr)), dr.ring_bytes)
+            _GEMM_ROUTES[gemm_ring_route(geo, layouts)],), (
+            ctypes.byref(_ring_arg(dr)),
+            dr.ring_bytes + _staged_bytes("ring_contract_gemm", (), geo))
 
     return _contract("contract_gemm", geo, layouts, out_dtype, acc_dtype,
                      program, ring, ("nest", "dot"), args)
@@ -2469,8 +2516,8 @@ def base_relu(x: torch.Tensor,
 
 def base_gemm(a: torch.Tensor, b: torch.Tensor,
               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """B3: C (m, n) = A (m, k) · B (k, n) over 128-wide k chunks, f32
-    accumulator, cast to ``out_dtype`` once."""
+    """B3: C (m, n) = A (m, k) · B (k, n) over 32-wide k chunks, f32
+    accumulator (K3's fmaf chain over k), cast to ``out_dtype`` once."""
     dev = _checked_base("base_gemm", (a, b), _FLOATS)
     (m, k), (k2, n) = a.shape, b.shape
     if k != k2 or k % LANES or k == 0:

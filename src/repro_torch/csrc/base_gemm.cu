@@ -1,5 +1,5 @@
 // B3 base_gemm: gemm's monolithic baseline.  C (m, n) = A (m, k) . B (k, n)
-// over 128-wide k chunks, in an f32 accumulator cast to the output dtype
+// over 64-wide k chunks, in an f32 accumulator cast to the output dtype
 // once at the end.  k is a multiple of 128 (the wrapper's layouts are the
 // reference's: k zero-padded to it).
 //
@@ -12,36 +12,47 @@
 // Bound on H100: operations.  2mnk multiply-adds in FP32 outside the tensor
 // cores, never TF32, the same bound as K3 (contract_gemm.cu).
 //
-// Design: the same 128x128 output tile per CTA as K3, 256 threads with an
-// 8x8 register accumulator each, the same shared-memory layout (A stored
-// k-major and staggered, B as it is) and the same FMA loop.  What is taken
-// away is what K3 added to deliver operands: B3 stages a whole 128-wide k
-// chunk of A and B in ONE shared-memory buffer (130 KB, so one CTA per SM),
-// then barrier, compute, barrier -- no register prefetch of the next chunk
-// and no second buffer, so no load is in flight while the FMAs run.  The
-// chunk's address comes from the k loop index at the point of use.  Global
-// loads are 16 bytes where the wrapper found A and B f32 and aligned, as in
-// K3; rows and columns past m and n read as zero and are not written.
-#include "ssr_common.cuh"
+// Design: the baseline's contract, kept inside each CTA: the computing
+// threads themselves load every element of a k chunk of A and B with plain
+// loads into ONE shared-memory buffer (in rounds of 16 k, A stored k-major
+// as K3 stages it), a barrier waits on all of them before any FMA of the
+// chunk, and a second barrier after the chunk's last FMA comes before any
+// load of the next -- no load in flight while the CTA's FMAs run, no second
+// buffer, no producer.  The FMAs and the drain are ssr_gemm.cuh's core on
+// the k-major buffer (K3's 128x128 tile and reads, 256 threads with an 8x8
+// accumulator each, fmaf over k in order: K3's bits).  What changed is
+// what the card penalised: the chunk is 64 k wide, not 128, so the buffer
+// (66,560 bytes) leaves room for two CTAs an SM, and __launch_bounds__(256,
+// 2) holds the registers to 128 for them; the SM then runs one CTA's FMAs
+// while the other waits on its loads -- the card's own multithreading, as
+// the paper runs the baseline on each core of its cluster, not run-ahead in
+// the code.  (A 32-wide chunk and A stored row-major, read along k as R3
+// reads its slots, measured slower: PERF.md.)  Global loads are 16 bytes
+// where the wrapper found A and B f32 and aligned; rows and columns past m
+// and n read as zero and are not written.
+#include "ssr_gemm.cuh"
 
 namespace {
 
-constexpr int kBM = 128, kBN = 128, kBK = 128;
-constexpr int kRound = 16;              // k rows loaded per round (K3's chunk)
-constexpr int kThreads = 256;           // 16 x 16 threads, 8 x 8 outputs each
+using sgemm::kBM;
+using sgemm::kBN;
+
+constexpr int kBK = 64;                 // k a chunk
+constexpr int kRound = 16;              // k rows loaded per round
+constexpr int kThreads = sgemm::kThreads;
 constexpr int kPadM = kBM + 4;          // staggers the transposed A stores
 constexpr int kPerThread = kBM * kRound / kThreads;  // 8 values per round
 constexpr int kSmemBytes =
     static_cast<int>(sizeof(float)) * kBK * (kPadM + kBN);
 
 // Loads k rows kg .. kg + 15 of A's tile (rows m0..) and B's tile (cols
-// n0..) straight into shared memory rows r0 .. r0 + 15 of the chunk.
+// n0..) straight into shared memory rows r0 .. r0 + 15 of the chunk: A
+// transposed to k-major, B as it is.
 template <typename T, int V>
 __device__ __forceinline__ void load_round(const T* a, const T* b, int64_t m,
                                            int64_t n, int64_t k, int64_t m0,
                                            int64_t n0, int64_t kg, int r0,
-                                           float (*As)[kPadM],
-                                           float (*Bs)[kBN]) {
+                                           float* As, float* Bs) {
   const int t = threadIdx.x;
 #pragma unroll
   for (int i = 0; i < kPerThread / V; ++i) {
@@ -58,36 +69,33 @@ __device__ __forceinline__ void load_round(const T* a, const T* b, int64_t m,
       if (gr < m) va = *reinterpret_cast<const float4*>(a + gr * k + kg + kq);
       if (gn < n)
         vb = *reinterpret_cast<const float4*>(b + (kg + krow) * n + gn);
-      As[r0 + kq + 0][row] = va.x;
-      As[r0 + kq + 1][row] = va.y;
-      As[r0 + kq + 2][row] = va.z;
-      As[r0 + kq + 3][row] = va.w;
-      *reinterpret_cast<float4*>(&Bs[r0 + krow][col]) = vb;
+      As[(r0 + kq + 0) * kPadM + row] = va.x;
+      As[(r0 + kq + 1) * kPadM + row] = va.y;
+      As[(r0 + kq + 2) * kPadM + row] = va.z;
+      As[(r0 + kq + 3) * kPadM + row] = va.w;
+      *reinterpret_cast<float4*>(Bs + (r0 + krow) * kBN + col) = vb;
     } else {
-      As[r0 + kq][row] = gr < m ? ssr_f32(a[gr * k + kg + kq]) : 0.f;
-      Bs[r0 + krow][col] = gn < n ? ssr_f32(b[(kg + krow) * n + gn]) : 0.f;
+      As[(r0 + kq) * kPadM + row] = gr < m ? ssr_f32(a[gr * k + kg + kq]) : 0.f;
+      Bs[(r0 + krow) * kBN + col] =
+          gn < n ? ssr_f32(b[(kg + krow) * n + gn]) : 0.f;
     }
   }
 }
 
 template <typename T, typename O, int V>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
     base_gemm_kernel(const T* __restrict__ a, const T* __restrict__ b,
                      O* __restrict__ c, int64_t m, int64_t n, int64_t k,
                      int64_t tiles_n) {
   extern __shared__ __align__(16) float smem[];
-  float (*As)[kPadM] = reinterpret_cast<float (*)[kPadM]>(smem);
-  float (*Bs)[kBN] = reinterpret_cast<float (*)[kBN]>(smem + kBK * kPadM);
+  float* const As = smem;                  // kBK rows of the 128 tile rows
+  float* const Bs = smem + kBK * kPadM;    // kBK rows of the 128 columns
   const int64_t m0 = (blockIdx.x / tiles_n) * kBM;
   const int64_t n0 = (blockIdx.x % tiles_n) * kBN;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
   float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
+  sgemm::zero(acc);
 #pragma unroll 1
   for (int64_t k0 = 0; k0 < k; k0 += kBK) {
     // the explicit loads of chunk k0, waited on whole before any FMA
@@ -95,41 +103,16 @@ __global__ void __launch_bounds__(kThreads)
     for (int r = 0; r < kBK; r += kRound)
       load_round<T, V>(a, b, m, n, k, m0, n0, k0 + r, r, As, Bs);
     __syncthreads();
-#pragma unroll 16
-    for (int kk = 0; kk < kBK; ++kk) {
-      float am[8], bn[8];
-      *reinterpret_cast<float4*>(&am[0]) =
-          *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      *reinterpret_cast<float4*>(&am[4]) =
-          *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
-      *reinterpret_cast<float4*>(&bn[0]) =
-          *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      *reinterpret_cast<float4*>(&bn[4]) =
-          *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(am[i], bn[j], acc[i][j]);
-    }
+    sgemm::chunk_kmajor<kBK, kPadM>(acc, As, Bs, ty, tx);
     __syncthreads();   // the one buffer is refilled only after every FMA
   }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int64_t r = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int64_t col = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (r < m && col < n) c[r * n + col] = ssr_cast<O>(acc[i][j]);
-    }
-  }
+  sgemm::drain(acc, c, n, m0, n0, m, n, sgemm::RowsK3(ty), tx);
 }
 
 template <typename T, typename O, int V>
 int launch_v(const void* a, const void* b, void* c, int64_t m, int64_t n,
              int64_t k, cudaStream_t st) {
   auto kernel = base_gemm_kernel<T, O, V>;
-  // above 48 KB a CTA's shared memory must be asked for
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -159,6 +142,7 @@ extern "C" int ssr_base_gemm(const void* a, const void* b, void* c,
                              int in_dtype, int out_dtype, int vec, int64_t m,
                              int64_t n, int64_t k, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k % kBK) return static_cast<int>(cudaErrorInvalidValue);
   if (in_dtype == SSR_F32 && out_dtype == SSR_F32)
     return launch<float, float>(vec, a, b, c, m, n, k, st);
   if (in_dtype == SSR_F32 && out_dtype == SSR_BF16)
@@ -171,3 +155,24 @@ extern "C" int ssr_base_gemm(const void* a, const void* b, void* c,
 }
 
 extern "C" int64_t ssr_base_gemm_smem_bytes() { return kSmemBytes; }
+
+// The main path's kernel (f32, 16-byte loads): out[0] its registers a
+// thread, out[1] its local (spill) bytes (cudaFuncGetAttributes), out[2]
+// its CTAs an SM at its shared memory
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); `smem` is not read.
+extern "C" int ssr_base_gemm_attributes(int64_t* out, int64_t) {
+  auto kernel = base_gemm_kernel<float, float, 4>;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  int ctas = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel,
+                                                        kThreads, kSmemBytes);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int64_t>(fa.localSizeBytes);
+  out[2] = ctas;
+  return static_cast<int>(err);
+}

@@ -30,53 +30,18 @@
 // parity n & 1.
 #pragma once
 
+#include "ssr_mbarrier.cuh"
 #include "ssr_ring.cuh"
 
 namespace gring {
 
-// The mbarriers R13 keeps: full and empty for up to 8 slots of each of
-// its two streams, 8 bytes each, whatever the depths.
-constexpr int kBarrierBytes = 4 * 8 * 8;
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// An mbarrier whose phase completes after `count` arrivals.
-__device__ __forceinline__ void bar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Arrive on `bar` once this thread's cp.async copies so far have landed.
-__device__ __forceinline__ void bar_arrive_on_copies(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Wait until the phase of `bar` with parity `parity` has completed.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n"
-        " .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
+using mbar::bar_arrive;
+using mbar::bar_arrive_on_copies;
+using mbar::bar_init;
+using mbar::bar_wait;
+using mbar::kBarrierBytes;   // R13's
+using mbar::Slots;
+using mbar::smem_u32;
 
 // Wait until at most `pending` of this thread's cp.async groups are in
 // flight (0 <= pending <= 7).
@@ -92,21 +57,6 @@ __device__ __forceinline__ void cp_wait(int pending) {
     default: ssr_cp_async_wait<7>(); break;
   }
 }
-
-// A ring of `depth` slots as one side walks it: the slot of its next fill
-// or read, and the parity of that fill's phase.
-struct Slots {
-  int depth, at = 0;
-  unsigned parity = 0;
-  __device__ __forceinline__ explicit Slots(int64_t d)
-      : depth(static_cast<int>(d)) {}
-  __device__ __forceinline__ void next() {
-    if (++at == depth) {
-      at = 0;
-      parity ^= 1u;
-    }
-  }
-};
 
 // The grid multi-index of a step, as SsrOdometer, in 32-bit registers (a
 // grid axis holds fewer than 2^31 steps).

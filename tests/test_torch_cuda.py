@@ -186,7 +186,8 @@ def test_base_relu_bit_exact(dev, n, dtype):
 
 
 @pytest.mark.parametrize("mnk", [(100, 130, 70), (300, 260, 1100),
-                                 (1, 2, 300)])
+                                 (1, 2, 300), (300, 260, 128),
+                                 (130, 1000, 128)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_base_gemm(dev, mnk, dtype):
     m, n, k = mnk
@@ -1319,19 +1320,39 @@ def test_ring_map_relu_is_k2_to_the_bit(dev, dtype, depth):
     assert torch.equal(got, want)
 
 
+# lanes → R3's route in f32 on the 300 x 260 x 1100 problem: 128 the
+# default (TMA: tk 384), 8 a block width tk = 24 off the 16-wide chunk
+# (cp.async packs), 130 a 1170-element pitch (no 16-byte packs: element
+# copies); bf16 takes the cp.async routes
+GEMM_LANES = {128: "tma", 8: "cp.async", 130: "cp.async elements"}
+
+
 @pytest.mark.parametrize("depth", RING_DEPTHS, ids=str)
 @pytest.mark.parametrize("mnk", [(300, 260, 1100), (1024, 1024, 1024)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ring_contract_gemm_is_k3_to_the_bit(dev, mnk, dtype, depth):
+@pytest.mark.parametrize("lanes", sorted(GEMM_LANES))
+def test_ring_contract_gemm_is_k3_to_the_bit(dev, mnk, dtype, depth, lanes):
     m, n, k = mnk
     g = torch.Generator(device=dev).manual_seed(m + n + k)
     a = torch.randn(m, k, generator=g, device=dev).to(dtype)
     b = torch.randn(k, n, generator=g, device=dev).to(dtype)
-    (got, ring, kr), (want, sync, _) = _ring_against_sync(
-        compiler.gemm_nest(m, n, k), gemm.DOT, {"A": a, "B": b}, depth)
-    assert kr.pipelined and ring == {"ring_contract_gemm"} \
-        and sync == {"contract_gemm"}
-    assert torch.equal(got, want)
+    nest, ops_ = compiler.gemm_nest(m, n, k), {"A": a, "B": b}
+    call = lowering.prepare_call(nest, gemm.DOT, ops_, schedule=(
+        dataclasses.replace(_depth(depth), lanes=lanes)))
+    route = hopper.gemm_ring_route(call.kernel.geometry, call.layouts)
+    if mnk == (300, 260, 1100):
+        want_route = GEMM_LANES[lanes]
+        assert route == (want_route if dtype == torch.float32 or
+                         want_route != "tma" else "cp.async")
+    before = dict(hopper.LAUNCHES)
+    got = call.run()
+    assert _launched(before) == {"ring_contract_gemm"} \
+        and call.kernel.pipelined
+    before = dict(hopper.LAUNCHES)
+    want = lowering.prepare_call(nest, gemm.DOT, ops_, schedule=(
+        lowering.Schedule(lanes=lanes))).run()
+    assert _launched(before) == {"contract_gemm"}
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.parametrize("depth", RING_DEPTHS, ids=str)

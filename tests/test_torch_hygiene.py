@@ -52,7 +52,15 @@ def test_no_source_imports_jax_or_repro(path):
 
 def test_csrc_holds_every_kernel():
     names = sorted(p.stem for p in (PORT / "csrc").glob("*.cu"))
-    assert names == sorted(hopper.KERNELS)
+    assert names == sorted([*hopper.KERNELS,
+                            *hopper.ATTRIBUTE_PROBES.values()])
+    # a probe is its kernel's own source, built once more with an entry
+    # that reads the kernel's attributes, and launches nothing
+    for name, probe in hopper.ATTRIBUTE_PROBES.items():
+        src = (PORT / "csrc" / f"{probe}.cu").read_text()
+        assert f'#include "{name}.cu"' in src
+        assert f'extern "C" int ssr_{name}_attributes(' in src
+        assert "<<<" not in src
     for name, info in hopper.KERNELS.items():
         src = (SRC.parent / info["source"]).read_text()
         assert "Replaces" in src and "Bound on H100" in src
@@ -187,8 +195,9 @@ def test_build_key_follows_the_sources(tmp_path, monkeypatch):
     headers = sorted(p.name for p in csrc.glob("*.cuh"))
     assert headers == ["ssr_attention.cuh", "ssr_chain.cuh",
                        "ssr_chained_map.cuh", "ssr_common.cuh", "ssr_dag.cuh",
-                       "ssr_gather.cuh", "ssr_gather_ring.cuh", "ssr_ring.cuh",
-                       "ssr_rows.cuh", "ssr_scan.cuh", "ssr_stencil1d.cuh",
+                       "ssr_gather.cuh", "ssr_gather_ring.cuh", "ssr_gemm.cuh",
+                       "ssr_mbarrier.cuh", "ssr_ring.cuh", "ssr_rows.cuh",
+                       "ssr_scan.cuh", "ssr_stencil1d.cuh",
                        "ssr_stencil2d.cuh"]
     dags = {"dag_layernorm", "dag_softmax_xent", "dag_mlp",
             "ring_dag_layernorm", "ring_dag_softmax_xent", "ring_dag_mlp"}
@@ -204,6 +213,9 @@ def test_build_key_follows_the_sources(tmp_path, monkeypatch):
              "ssr_gather.cuh": {"gather_spmv", "gather_spmm",
                                 "ring_gather_spmv", "ring_gather_spmm"},
              "ssr_gather_ring.cuh": {"ring_gather_spmv", "ring_gather_spmm"},
+             "ssr_gemm.cuh": {"ring_contract_gemm", "base_gemm"},
+             "ssr_mbarrier.cuh": {"ring_contract_gemm", "ring_gather_spmv",
+                                  "ring_gather_spmm"},
              "ssr_scan.cuh": {"stream_scan", "ring_stream_scan"},
              "ssr_ring.cuh": {n for n in hopper.KERNELS
                               if n.startswith("ring_")},
