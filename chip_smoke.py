@@ -93,9 +93,12 @@ printing JSON lines:
    (4, 2) (a depth over the shared memory refused by name) and on
    scan_2p26 at 3, 4 and 8, each beside its run on the moving streams'
    first blocks zeroed, which must differ; R13/R14 at depth 4 on the odd
-   CSR inputs; R14's local bytes a thread at most R14_LOCAL_BYTES and R3's
-   none; every R3 check names the route its producer warp took (``tma``,
-   ``cp.async`` or ``cp.async elements``, ``hopper.gemm_ring_route``), and
+   CSR inputs; R14's local bytes a thread at most R14_LOCAL_BYTES, R3's
+   and K3's none, and K3's shared memory as its entry and the wrapper
+   count it; the gemm check names K3's route (``packs``, ``words`` or
+   ``elements``, ``hopper.contract_gemm_route``); every R3 check names the
+   route its producer warp took (``tma``, ``cp.async`` or ``cp.async
+   elements``, ``hopper.gemm_ring_route``), and
    two more hold R3 at depth 3 on the cp.async routes to K3's bits on the
    gemm cell's inputs (bf16, and f32 on a 4158-element pitch), beside
    their zeroed-block controls; R13–R15 at depth 4 (and the main
@@ -699,8 +702,9 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
           "kernels": sorted(hopper.KERNELS)})
     # the gathers' and the gemms' registers a thread and spilled bytes, as
     # the runtime reads them (R14 held to R14_LOCAL_BYTES in phase 3i, R3
-    # to none in 3e), and the gemms' CTAs an SM from the occupancy API: R3
-    # at its main path's ring (depth 3 on A and B, f32, and its barriers)
+    # and K3 to none in 3e), and the gemms' CTAs an SM from the occupancy
+    # API: R3 at its main path's ring (depth 3 on A and B, f32, and its
+    # barriers)
     r3_smem = RING_MAIN_DEPTH["gemm"] * 4 * hopper.GEMM_CHUNK_K * (
         hopper.GEMM_TILE_M + hopper.GEMM_TILE_N) + hopper.RING_BARRIER_BYTES
     attributes = {n: hopper.kernel_attributes(n) for n in (
@@ -708,6 +712,11 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         "contract_gemm", "base_gemm")}
     attributes["ring_contract_gemm"] = hopper.kernel_attributes(
         "ring_contract_gemm", r3_smem)
+    # K3's two buffers as its entry counts them, beside the wrapper's count
+    k3_smem = {str(dt): (hopper.kernel_smem_bytes("contract_gemm", dt),
+                         hopper.contract_gemm_smem_bytes(dt))
+               for dt in (torch.float32, torch.bfloat16)}
+    attributes["contract_gemm"]["smemBytes"] = k3_smem[str(torch.float32)][0]
     emit({"phase": "kernel_attributes", "kernels": attributes})
     print(smi, flush=True)
     card = torch.cuda.get_device_name(0)
@@ -1165,6 +1174,9 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                  "rel_to_abs_prod": rel_to_abs_prod(got, want, scale_t),
                  "limit": CONTRACT_LIMIT,
                  "tf32_control": rel_to_abs_prod(ctrl, want, scale_t)}
+            if cname == "contract_gemm":     # how K3's copies ran
+                c["route"] = hopper.contract_gemm_route(
+                    calls[kname].kernel.geometry, calls[kname].layouts)
             checks[ckey] = c
             errors[cname] = c["abs_err"]
             if c["tf32_control"] <= CONTRACT_LIMIT:
@@ -1794,11 +1806,16 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             failed.append(f"{key}: the zeroed first block left the result "
                           "unchanged")
         del got, ctrl, want
-    # R3 spills nothing
-    local = attributes["ring_contract_gemm"]["localSizeBytes"]
-    checks["ring_contract_gemm_local_bytes"] = {
-        "exact": local == 0, "local_bytes": local, "local_limit": 0,
-        "abs_err": 0.0, "limit": 0.0}
+    # K3's entry and wrapper count the same shared memory
+    checks["contract_gemm_smem_bytes"] = {
+        "exact": all(e == w for e, w in k3_smem.values()),
+        "entry_and_wrapper": k3_smem, "abs_err": 0.0, "limit": 0.0}
+    # R3 and K3 spill nothing
+    for name in ("ring_contract_gemm", "contract_gemm"):
+        local = attributes[name]["localSizeBytes"]
+        checks[f"{name}_local_bytes"] = {
+            "exact": local == 0, "local_bytes": local, "local_limit": 0,
+            "abs_err": 0.0, "limit": 0.0}
     # the plain ring (its fetch log the reference's rotation) against R1–R4
     # at small sizes, one CTA's run over the whole grid
     sa_, sb_ = randn(300, 1100), randn(1100, 260)

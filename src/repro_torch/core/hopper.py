@@ -264,12 +264,6 @@ KERNELS: Dict[str, Dict[str, str]] = {
 #: as K14's).  A ``chained_map`` or ``ring_chained_map`` call is one.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
-#: Kernel → the library that reports its attributes where its own source
-#: has no entry for them (:func:`kernel_attributes`): K3's source, built
-#: once more with one entry added (``csrc/contract_gemm_probe.cu``).
-ATTRIBUTE_PROBES: Dict[str, str] = {"contract_gemm": "contract_gemm_probe"}
-
-
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -312,10 +306,9 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = (*KERNELS, *ATTRIBUTE_PROBES.values())
-          ) -> Dict[str, str]:
-    """Compile every named kernel (or probe) not built yet, one ``nvcc``
-    each, together.
+def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+    """Compile every named kernel not built yet, one ``nvcc`` each,
+    together.
 
     Returns the compiler's output (``-Xptxas -v``: registers, shared memory,
     spills) for each kernel it compiled; raises if any compile failed.
@@ -433,7 +426,8 @@ _SIGNATURES = {
     "ring_stream_scan": [_P, _I, _P, _P, _I64, _I64, _I64, _RP, _I64, _P],
 }
 #: Arguments of a kernel's ``ssr_<name>_smem_bytes`` (none for the rest).
-_SMEM_SIGNATURES = {"halo_stencil1d": [_I64], "halo_stencil2d": [_I64],
+_SMEM_SIGNATURES = {"contract_gemm": [_I],
+                    "halo_stencil1d": [_I64], "halo_stencil2d": [_I64],
                     "rescale_attention": [_I64], "stream_fft": [_I64]}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -473,13 +467,7 @@ def kernel_attributes(name: str, smem: int = 0) -> Dict[str, int]:
     reads them on the current card: K12, K13, R13 and R14 report them; K3,
     R3 and B3 also their CTAs an SM (``ctasPerSm``) at ``smem`` bytes of
     dynamic shared memory (R3's ring; K3 and B3 take their own)."""
-    probe = ATTRIBUTE_PROBES.get(name)
-    if probe is None:
-        lib = _lib(name)
-    else:
-        build((probe,))
-        lib = ctypes.CDLL(str(library_path(probe)))
-    fn = getattr(lib, f"ssr_{name}_attributes")
+    fn = getattr(_lib(name), f"ssr_{name}_attributes")
     occupancy = name in _OCCUPANCY_ATTRIBUTES
     fn.argtypes = [ctypes.POINTER(ctypes.c_int64),
                    *([ctypes.c_int64] if occupancy else [])]
@@ -654,19 +642,30 @@ _TAKES: Dict[str, tuple] = {
                     "offset], one affine level over whole 128-column chunks",
                     lambda geo: _gather_composes(geo, 1)),
 }
-#: The arguments of each kernel's shared-memory count, from its geometry.
-_SMEM_ARGS: Dict[str, Callable[[StreamGeometry], tuple]] = {
-    "halo_stencil1d": lambda geo: (geo.halos[0].windows[0],),
-    "halo_stencil1d_relu": lambda geo: (geo.halos[0].windows[0],),
-    "halo_stencil2d": lambda geo: (geo.halos[0].windows[0],),
-    "rescale_attention": lambda geo: (geo.ins[0].block[1],),
+#: The arguments of each kernel's shared-memory count, from its geometry
+#: and input dtype.
+_SMEM_ARGS: Dict[str, Callable[[StreamGeometry, torch.dtype], tuple]] = {
+    "contract_gemm": lambda geo, dtype: (_DTYPE_CODE[dtype],),
+    "halo_stencil1d": lambda geo, dtype: (geo.halos[0].windows[0],),
+    "halo_stencil1d_relu": lambda geo, dtype: (geo.halos[0].windows[0],),
+    "halo_stencil2d": lambda geo, dtype: (geo.halos[0].windows[0],),
+    "rescale_attention": lambda geo, dtype: (geo.ins[0].block[1],),
 }
 #: The scalar parameters a kernel takes from its body (K11's mask).
 _PARAMS = {"rescale_attention": 5}
 
 
+def kernel_smem_bytes(name: str, *args: Union[int, torch.dtype]) -> int:
+    """The shared memory a CTA of kernel ``name`` takes, as its own entry
+    ``ssr_<name>_smem_bytes`` counts it from ``args`` (a dtype passed as
+    its code); builds the kernel."""
+    codes = [_DTYPE_CODE[a] if isinstance(a, torch.dtype) else a
+             for a in args]
+    return int(getattr(_lib(name), f"ssr_{name}_smem_bytes")(*codes))
+
+
 def _smem_refusal(name: str, dev: torch.device, *args: int) -> Optional[str]:
-    need = getattr(_lib(name), f"ssr_{name}_smem_bytes")(*args)
+    need = kernel_smem_bytes(name, *args)
     limit = _card(dev).shared_memory_per_block_optin
     if need > limit:
         return (f"{name}: a CTA needs {need} bytes of shared memory, the "
@@ -680,7 +679,7 @@ def _refusal(name: str, geo: StreamGeometry, dtype: torch.dtype,
     reason = _geometry_refusal(name, geo, dtype)
     if reason is not None or dev.type != "cuda":
         return reason
-    args = _SMEM_ARGS[name](geo) if name in _SMEM_ARGS else ()
+    args = _SMEM_ARGS[name](geo, dtype) if name in _SMEM_ARGS else ()
     return _smem_refusal(_LIB_OF.get(name, name), dev, *args)
 
 
@@ -935,8 +934,10 @@ def _ring_refusal(op: tuple, name: str, geo: StreamGeometry,
                   reads: Optional[frozenset] = None) -> Optional[str]:
     """Why the ring kernel of ``op`` refuses this pipelined call: what the
     sync kernel ``name`` refuses of the geometry (for a stage kernel, its
-    ``reason`` and the streams it ``reads``), then a ring over the shared
-    memory a CTA may opt into (:data:`SMEM_OPTIN_BYTES`)."""
+    ``reason`` and the streams it ``reads``), then what
+    :func:`_ring_budget_refusal` refuses of the ring: its streams, its
+    bytes over the shared memory a CTA may opt into
+    (:data:`SMEM_OPTIN_BYTES`), a depth outside 2 to 8."""
     rname = RING_KERNELS[op]
     if name in _TAKES:
         reason = _geometry_refusal(name, geo, dtype)
@@ -977,10 +978,15 @@ _STAGED_WHAT = {"ring_dag_mlp": "its staged weights and tile",
 def _ring_budget_refusal(rname: str, geo: StreamGeometry, dtype: torch.dtype,
                          ring: RingProgram, staged: int = 0,
                          reads: Optional[frozenset] = None) -> Optional[str]:
-    """A ring of another stream count than the read streams, or one that,
+    """A ring of another stream count than the read streams; one that,
     with the ``staged`` bytes the kernel takes besides it, is over the
     shared memory a CTA may opt into, as ring kernel ``rname`` sizes it
-    (:func:`device_ring`, over the streams it ``reads``)."""
+    (:func:`device_ring`, over the streams it ``reads``); or one with a
+    stream's depth outside the 2 to ``MAX_BUFFER_DEPTH`` slots every ring
+    kernel takes (R3's and R13's barriers are for 8 slots a stream).
+    Every ring kernel's refusal ends here, through :func:`accepts` and in
+    its wrapper."""
+    from .ssr import DEFAULT_BUFFER_DEPTH, MAX_BUFFER_DEPTH
     if len(ring.depths) != len(geo.ins):
         return (f"{rname}: a ring of {len(ring.depths)} streams for "
                 f"{len(geo.ins)} read streams")
@@ -990,6 +996,11 @@ def _ring_budget_refusal(rname: str, geo: StreamGeometry, dtype: torch.dtype,
         return (f"{rname}: its ring at depths {ring.depths} needs {need} "
                 f"bytes of shared memory a CTA{also}, the card allows "
                 f"{SMEM_OPTIN_BYTES}")
+    if not all(DEFAULT_BUFFER_DEPTH <= d <= MAX_BUFFER_DEPTH
+               for d in ring.depths):
+        return (f"{rname}: its ring at depths {ring.depths} has a stream "
+                f"outside the {DEFAULT_BUFFER_DEPTH} to {MAX_BUFFER_DEPTH} "
+                "slots it takes")
     return None
 
 
@@ -1257,19 +1268,46 @@ def gemm_ring_route(geo: StreamGeometry,
     return "cp.async" if aligned else "cp.async elements"
 
 
+#: K3's routes (:func:`contract_gemm_route`) → the ``route`` its entry
+#: takes.
+_CONTRACT_GEMM_ROUTES = {"packs": 2, "words": 1, "elements": 0}
+#: K3's k chunk: each of its two buffers holds 32 k of A (k-major, f32, on
+#: a pitch of 132 floats) and of B (128 columns of the input dtype).
+CONTRACT_GEMM_CHUNK_K = 32
+
+
+def contract_gemm_smem_bytes(dtype: torch.dtype) -> int:
+    """The dynamic shared memory a K3 CTA takes at input ``dtype``, as its
+    entry's ``ssr_contract_gemm_smem_bytes`` counts it: two buffers of
+    :data:`CONTRACT_GEMM_CHUNK_K` k (66,560 bytes in f32, 50,176 in
+    bf16)."""
+    k = CONTRACT_GEMM_CHUNK_K
+    return 2 * k * (4 * (GEMM_TILE_M + 4) + GEMM_TILE_N * _itemsize(dtype))
+
+
+def contract_gemm_route(geo: StreamGeometry,
+                        layouts: Sequence[torch.Tensor]) -> str:
+    """How K3's threads move a chunk of A and B on these layouts: in
+    16-byte packs (``"packs"``) where both have base pointers, pitches and
+    block widths in 16-byte packs, else one element a copy: 4-byte words in
+    f32 (``"words"``), elements in bf16 (``"elements"``)."""
+    if _vector_width(layouts, geo.ins) > 1:
+        return "packs"
+    return "words" if layouts[0].dtype == torch.float32 else "elements"
+
+
 def contract_gemm(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                   out_dtype: torch.dtype,
                   acc_dtype: torch.dtype = torch.float32,
                   program: Optional[Any] = None,
                   ring: Optional[RingProgram] = None) -> torch.Tensor:
-    """K3: C block (tm, tn) += A block (tm, tk) · B block (tk, tn); with
-    ``ring`` (a pipelined call) R3, by :func:`gemm_ring_route`'s route."""
+    """K3: C block (tm, tn) += A block (tm, tk) · B block (tk, tn), by
+    :func:`contract_gemm_route`'s route; with ``ring`` (a pipelined call)
+    R3, by :func:`gemm_ring_route`'s."""
     def args(dev):
         if ring is None:
-            # A and B are read in 16-byte packs where they can be (f32 only)
             return "contract_gemm", (
-                4 if layouts[0].dtype == torch.float32
-                and _vector_width(layouts, geo.ins) == 4 else 1,), ()
+                _CONTRACT_GEMM_ROUTES[contract_gemm_route(geo, layouts)],), ()
         dr = device_ring("ring_contract_gemm", geo, ring, layouts[0].dtype)
         return "ring_contract_gemm", (
             _GEMM_ROUTES[gemm_ring_route(geo, layouts)],), (

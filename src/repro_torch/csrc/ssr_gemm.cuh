@@ -1,13 +1,14 @@
-// The FMA core that R3 ring_contract_gemm and B3 base_gemm share: K3's
-// 128 x 128 output tile on 256 computing threads, thread (tx, ty) = (t %
-// 16, t / 16) owning 8 rows and 8 columns, each output an f32 accumulator
-// that starts at +0 and chains fmaf(a[row][k], b[k][col], acc) over k in
-// ascending order -- K3's chain, so the same bits as K3 whatever the
-// thread-to-output map and however the operands arrive.
+// The FMA core that K3 contract_gemm, R3 ring_contract_gemm and B3
+// base_gemm share: a 128 x 128 output tile on 256 computing threads,
+// thread (tx, ty) = (t % 16, t / 16) owning 8 rows and 8 columns, each
+// output an f32 accumulator that starts at +0 and chains fmaf(a[row][k],
+// b[k][col], acc) over k in ascending order -- K3's chain, so the same
+// bits as K3 whatever the thread-to-output map and however the operands
+// arrive.
 //
 // A chunk of `KC` k sits in shared memory as B (KC rows of 128 columns,
-// read as two 16-byte loads a k, as K3 reads it) and A in one of two
-// layouts, each with its fragment read:
+// read as two 16-byte loads a k) and A in one of two layouts, each with
+// its fragment read:
 //
 // * rows (R3's slots, what a TMA box lands as): 128 rows of KC k on a row
 //   stride of LDA elements; a thread reads each of its 8 rows as four
@@ -16,9 +17,10 @@
 //   RowsAdjacent gives the warp's two ty neighbouring rows at each read,
 //   64 bytes apart on R3's unpadded 16-k f32 rows (32 in bf16): other
 //   banks.
-// * k-major (B3's buffer, K3's layout): KC rows of the tile's 128 rows on
-//   a stride of LDM floats; a thread reads its 8 values at each k as two
-//   16-byte loads, so its rows are K3's (RowsK3), 8 registers of A.
+// * k-major (K3's and B3's buffers, A converted to f32 as it is stored):
+//   KC rows of the tile's 128 rows on a stride of LDM floats; a thread
+//   reads its 8 values at each k as two 16-byte loads, so its rows are
+//   K3's (RowsK3), 8 registers of A.
 #pragma once
 
 #include "ssr_common.cuh"
@@ -105,11 +107,11 @@ __device__ __forceinline__ void chunk(float (&acc)[8][8], const T* As,
 }
 
 // acc += the chunk's KC k of A (k-major layout, As: k rows of the tile's
-// 128 rows on a stride of LDM floats) times B (Bs), in k order; the
-// thread's rows are RowsK3(ty)'s.
-template <int KC, int LDM>
+// 128 rows on a stride of LDM floats) times B (Bs, f32 or bf16), in k
+// order; the thread's rows are RowsK3(ty)'s.
+template <int KC, int LDM, typename T = float>
 __device__ __forceinline__ void chunk_kmajor(float (&acc)[8][8],
-                                             const float* As, const float* Bs,
+                                             const float* As, const T* Bs,
                                              int ty, int tx) {
 #pragma unroll 16
   for (int kk = 0; kk < KC; ++kk) {

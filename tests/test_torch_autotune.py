@@ -179,7 +179,8 @@ def test_no_tpu_vmem_budget():
 def test_kernel_acceptance_filters_on_the_card(monkeypatch):
     """On a CUDA device legality asks the Hopper kernel (hopper.accepts);
     here the card's shared-memory probe is stubbed, the rest is real."""
-    monkeypatch.setattr(hopper, "_smem_refusal", lambda name, dev: None)
+    monkeypatch.setattr(hopper, "_smem_refusal",
+                        lambda name, dev, *args: None)
     nest = compiler.gemm_nest(256, 256, 256)
     f32 = {"A": ((256, 256), "float32"), "B": ((256, 256), "float32")}
     f64 = {"A": ((256, 256), "float64"), "B": ((256, 256), "float64")}

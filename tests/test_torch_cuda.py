@@ -107,6 +107,45 @@ def test_contract_gemm(dev, mnk, dtype):
         assert float(rel.max()) <= CONTRACT_LIMIT
 
 
+# lanes → K3's route (f32, bf16) on the 300 x 260 x 1100 problem, three or
+# more contraction steps each, tm = 152 off the 128-row tile: 128 tk = 384;
+# 8 tk = 24, under the 32-wide chunk; 130 tk = 390 off the chunk on a
+# 1170-element pitch, tn = 260 off the tile; 131 tk = 393 on an odd pitch
+# (1179), tn = 262
+K3_LANES = {128: ("packs", "packs"), 8: ("packs", "packs"),
+            130: ("words", "elements"), 131: ("words", "elements")}
+
+
+@pytest.mark.parametrize("lanes", sorted(K3_LANES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_contract_gemm_routes(dev, lanes, dtype, out_dtype):
+    """K3 against its plain version on every route its copies take, in f32
+    and bf16 in and out, with tm, tn and tk off its tile and chunk and
+    more than one contraction step."""
+    g = torch.Generator(device=dev).manual_seed(lanes)
+    a = torch.randn(300, 1100, generator=g, device=dev).to(dtype)
+    b = torch.randn(1100, 260, generator=g, device=dev).to(dtype)
+    call = lowering.prepare_call(compiler.gemm_nest(300, 260, 1100),
+                                 gemm.DOT, {"A": a, "B": b},
+                                 out_dtype=out_dtype,
+                                 schedule=lowering.Schedule(lanes=lanes),
+                                 device=dev)
+    geo = call.kernel.geometry
+    assert geo.contraction_steps > 1 and geo.out.block[0] % 128
+    assert hopper.contract_gemm_route(geo, call.layouts) == \
+        K3_LANES[lanes][dtype == torch.bfloat16]
+    got, want, launched = _kernel_and_plain(call)
+    assert launched == {"contract_gemm"} and got.dtype == out_dtype
+    # each drains its f32 sum to the output dtype once: in bf16 the two
+    # sums, within CONTRACT_LIMIT of each other, may round one bf16 ulp
+    # (2**-7 of the value) apart
+    scale = a.float().abs() @ b.float().abs()
+    ulp = 2 ** -7 * want.float().abs() if out_dtype == torch.bfloat16 else 0
+    assert bool(((got.float() - want.float()).abs()
+                 <= CONTRACT_LIMIT * scale + ulp).all())
+
+
 @pytest.mark.parametrize("mn", [(60, 64), (1000, 1536), (3, 5000)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_contract_gemv(dev, mn, dtype):

@@ -115,8 +115,9 @@ def test_accepts_admits_r3_on_the_gemm_cell(dtype, depth):
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_r3_over_the_budget_is_refused_by_name(dtype):
     """No schedule depth (at most 8) takes R3 past the budget; a ring of 16
-    slots a stream in f32 (262,400 bytes with the barriers) is over it, one
-    in bf16 (131,328) is not."""
+    slots a stream in f32 (262,400 bytes with the barriers) is over it, and
+    refused for its bytes; one in bf16 (131,328) is within it, and refused
+    for its depth: R3's entry takes 2 to 8 slots a stream."""
     kern = _cell_call(dtype, 3).kernel
     ring = RingProgram((16, 16), (False, False))
     takes, why = hopper.accepts(kern.device_key, kern.geometry, dtype, "cpu",
@@ -129,7 +130,9 @@ def test_r3_over_the_budget_is_refused_by_name(dtype):
                        f"them its slots' barriers), the card allows "
                        f"{hopper.SMEM_OPTIN_BYTES}")
     else:
-        assert need == 131328 and (takes, why) == (True, "ok")
+        assert need == 131328 and not takes
+        assert why == ("ring_contract_gemm: its ring at depths (16, 16) has "
+                       "a stream outside the 2 to 8 slots it takes")
 
 
 # -- the route is the layout's -------------------------------------------------

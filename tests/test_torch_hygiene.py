@@ -52,15 +52,12 @@ def test_no_source_imports_jax_or_repro(path):
 
 def test_csrc_holds_every_kernel():
     names = sorted(p.stem for p in (PORT / "csrc").glob("*.cu"))
-    assert names == sorted([*hopper.KERNELS,
-                            *hopper.ATTRIBUTE_PROBES.values()])
-    # a probe is its kernel's own source, built once more with an entry
-    # that reads the kernel's attributes, and launches nothing
-    for name, probe in hopper.ATTRIBUTE_PROBES.items():
-        src = (PORT / "csrc" / f"{probe}.cu").read_text()
-        assert f'#include "{name}.cu"' in src
+    assert names == sorted(hopper.KERNELS)
+    # the kernels whose attributes kernel_attributes reads define the
+    # entry in their own source
+    for name in ("contract_gemm", "ring_contract_gemm", "base_gemm"):
+        src = (PORT / "csrc" / f"{name}.cu").read_text()
         assert f'extern "C" int ssr_{name}_attributes(' in src
-        assert "<<<" not in src
     for name, info in hopper.KERNELS.items():
         src = (SRC.parent / info["source"]).read_text()
         assert "Replaces" in src and "Bound on H100" in src
@@ -213,12 +210,13 @@ def test_build_key_follows_the_sources(tmp_path, monkeypatch):
              "ssr_gather.cuh": {"gather_spmv", "gather_spmm",
                                 "ring_gather_spmv", "ring_gather_spmm"},
              "ssr_gather_ring.cuh": {"ring_gather_spmv", "ring_gather_spmm"},
-             "ssr_gemm.cuh": {"ring_contract_gemm", "base_gemm"},
+             "ssr_gemm.cuh": {"contract_gemm", "ring_contract_gemm",
+                              "base_gemm"},
              "ssr_mbarrier.cuh": {"ring_contract_gemm", "ring_gather_spmv",
                                   "ring_gather_spmm"},
              "ssr_scan.cuh": {"stream_scan", "ring_stream_scan"},
              "ssr_ring.cuh": {n for n in hopper.KERNELS
-                              if n.startswith("ring_")},
+                              if n.startswith("ring_")} | {"contract_gemm"},
              "ssr_rows.cuh": {n for n in hopper.KERNELS if n in rows}}
     for header in headers:
         with open(csrc / header, "a") as f:
