@@ -17,10 +17,10 @@ printing JSON lines:
 
 1. build every Hopper kernel from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all at once), print the ``kernel_attributes`` line (K12,
-   K13, R13, R14, K3, R3 and B3: registers and local bytes a thread as
-   ``cudaFuncGetAttributes`` reads them; K3, R3 and B3 also their CTAs an
-   SM from the occupancy API, R3 at its main path's ring) and the card's
-   name and power limit;
+   K13, R13, R14, K3, R3, B3, R1 and R2: registers and local bytes a
+   thread as ``cudaFuncGetAttributes`` reads them; K3, R3, B3, R1 and R2
+   also their CTAs an SM from the occupancy API, the rings at their main
+   path's rings) and the card's name and power limit;
 2. drive the main path once, with every launch counter at 0 before it:
    dot and relu (f32, int32 above 2**24, bf16) at n = 2**26, gemm at
    4096**3 and gemv at 8192**2 in f32, plus one direct ``ssr_call``, and
@@ -93,8 +93,8 @@ printing JSON lines:
    (4, 2) (a depth over the shared memory refused by name) and on
    scan_2p26 at 3, 4 and 8, each beside its run on the moving streams'
    first blocks zeroed, which must differ; R13/R14 at depth 4 on the odd
-   CSR inputs; R14's local bytes a thread at most R14_LOCAL_BYTES, R3's
-   and K3's none, and K3's shared memory as its entry and the wrapper
+   CSR inputs; R14's local bytes a thread at most R14_LOCAL_BYTES, R3's,
+   K3's, R1's and R2's none, and K3's shared memory as its entry and the wrapper
    count it; the gemm check names K3's route (``packs``, ``words`` or
    ``elements``, ``hopper.contract_gemm_route``); every R3 check names the
    route its producer warp took (``tma``, ``cp.async`` or ``cp.async
@@ -700,18 +700,24 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     emit({"phase": "build", "seconds": build_s, "compiled": sorted(logs),
           "kernels": sorted(hopper.KERNELS)})
-    # the gathers' and the gemms' registers a thread and spilled bytes, as
-    # the runtime reads them (R14 held to R14_LOCAL_BYTES in phase 3i, R3
-    # and K3 to none in 3e), and the gemms' CTAs an SM from the occupancy
-    # API: R3 at its main path's ring (depth 3 on A and B, f32, and its
-    # barriers)
+    # the gathers', the gemms' and R1's and R2's registers a thread and
+    # spilled bytes, as the runtime reads them (R14 held to R14_LOCAL_BYTES
+    # in phase 3i, R3, K3, R1 and R2 to none in 3e), and the gemms' and
+    # R1's and R2's CTAs an SM from the occupancy API, each ring at its
+    # main path's ring in f32 and its barriers: R3 depth 3 on A and B;
+    # R1 and R2 at depth 4, (8, 128) blocks, R1 with its warp sums
     r3_smem = RING_MAIN_DEPTH["gemm"] * 4 * hopper.GEMM_CHUNK_K * (
         hopper.GEMM_TILE_M + hopper.GEMM_TILE_N) + hopper.RING_BARRIER_BYTES
+    block = 4 * 8 * 128
+    r1_smem = 2 * RING_MAIN_DEPTH["dot"] * block + \
+        hopper.RING_BARRIER_BYTES + hopper.STAGE_SUM_BYTES
+    r2_smem = RING_MAIN_DEPTH["relu"] * block + hopper.RING_BARRIER_BYTES
     attributes = {n: hopper.kernel_attributes(n) for n in (
         "gather_spmv", "gather_spmm", "ring_gather_spmv", "ring_gather_spmm",
         "contract_gemm", "base_gemm")}
-    attributes["ring_contract_gemm"] = hopper.kernel_attributes(
-        "ring_contract_gemm", r3_smem)
+    for n, smem_ in (("ring_contract_gemm", r3_smem),
+                     ("ring_reduce_mul", r1_smem), ("ring_map_relu", r2_smem)):
+        attributes[n] = hopper.kernel_attributes(n, smem_)
     # K3's two buffers as its entry counts them, beside the wrapper's count
     k3_smem = {str(dt): (hopper.kernel_smem_bytes("contract_gemm", dt),
                          hopper.contract_gemm_smem_bytes(dt))
@@ -1810,8 +1816,9 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     checks["contract_gemm_smem_bytes"] = {
         "exact": all(e == w for e, w in k3_smem.values()),
         "entry_and_wrapper": k3_smem, "abs_err": 0.0, "limit": 0.0}
-    # R3 and K3 spill nothing
-    for name in ("ring_contract_gemm", "contract_gemm"):
+    # R3, K3, R1 and R2 spill nothing, in any instantiation
+    for name in ("ring_contract_gemm", "contract_gemm", "ring_reduce_mul",
+                 "ring_map_relu"):
         local = attributes[name]["localSizeBytes"]
         checks[f"{name}_local_bytes"] = {
             "exact": local == 0, "local_bytes": local, "local_limit": 0,

@@ -393,7 +393,7 @@ _SIGNATURES = {
     "stream_fft": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _P],
     "stream_bitonic": [_P, _P, _I, _I64, _I64, _P],
     "ring_reduce_mul": [_P, _P, _I, _I, _GP, _SP, _SP, _RP, _I64, _P, _I64,
-                        _I64, _P, _P],
+                        _I64, _I64, _P, _P],
     "ring_map_relu": [_P, _P, _I, _I, _GP, _SP, _SP, _RP, _I64, _I64, _I64,
                       _P],
     "ring_contract_gemm": [_P, _P, _P, _I, _I, _I, _GP, _SP, _SP, _SP, _I64,
@@ -458,15 +458,17 @@ def _lib(name: str) -> ctypes.CDLL:
 #: The kernels whose attributes entry also reads their CTAs an SM
 #: (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, at the dynamic
 #: shared memory it is given).
-_OCCUPANCY_ATTRIBUTES = ("contract_gemm", "ring_contract_gemm", "base_gemm")
+_OCCUPANCY_ATTRIBUTES = ("contract_gemm", "ring_contract_gemm", "base_gemm",
+                         "ring_reduce_mul", "ring_map_relu")
 
 
 def kernel_attributes(name: str, smem: int = 0) -> Dict[str, int]:
     """Registers a thread (``numRegs``) and local, spilled bytes a thread
     (``localSizeBytes``) of kernel ``name`` as ``cudaFuncGetAttributes``
     reads them on the current card: K12, K13, R13 and R14 report them; K3,
-    R3 and B3 also their CTAs an SM (``ctasPerSm``) at ``smem`` bytes of
-    dynamic shared memory (R3's ring; K3 and B3 take their own)."""
+    R3, B3, R1 and R2 also their CTAs an SM (``ctasPerSm``) at ``smem``
+    bytes of dynamic shared memory (the ring and its barriers of R3, R1 and
+    R2, at their main path's instantiation; K3 and B3 take their own)."""
     fn = getattr(_lib(name), f"ssr_{name}_attributes")
     occupancy = name in _OCCUPANCY_ATTRIBUTES
     fn.argtypes = [ctypes.POINTER(ctypes.c_int64),
@@ -780,10 +782,15 @@ ATTENTION_SUBTILE = 64
 #: R13's and R14's rows a CTA (K12's and K13's): a slot holds one step's
 #: rows of vals (or cidx) on a pitch of :func:`gather_slot_width` elements.
 SPMV_RING_ROWS, SPMM_RING_ROWS = 64, 8
-#: What R3 and R13 keep besides their rings: a full and an empty mbarrier
-#: for each of up to 8 slots of each of their two streams, 8 bytes each,
+#: What R1, R2, R3 and R13 keep besides their rings: a full and an empty
+#: mbarrier for each of up to 8 slots of each of two streams, 8 bytes each,
 #: whatever the depths (``csrc/ssr_mbarrier.cuh``).
 RING_BARRIER_BYTES = 4 * 8 * 8
+#: R1's warp sums besides its barriers: two sets of its 8 computing warps'
+#: floats, one K1 run's and the next one's (``csrc/ssr_stage_ring.cuh``).
+STAGE_SUM_BYTES = 2 * 8 * 4
+#: The CTAs an SM of K1's split (``reduce_mul``): R1 walks K1's runs.
+REDUCE_PER_SM = 8
 #: Shared memory an SM of an H100 or H200 holds for its CTAs (228 KiB), and
 #: what the card keeps of it for each CTA (1 KiB): a persistent ring
 #: kernel launches as many CTAs as fit an SM beside their rings, at most
@@ -895,25 +902,53 @@ def _ctas_per_sm(smem: int, most: int) -> int:
 
 #: The most CTAs an SM of R13 (288 threads: 56 registers a thread where
 #: four fit beside their rings, else 75 and eight gathers a thread in
-#: flight), R14 (256 threads, 80 registers) and R15 (256 threads).
+#: flight), R14 (256 threads, 80 registers), R15 (256 threads), and R1
+#: (288 threads, built for five CTAs an SM at 40 registers a thread).
 _RING_PER_SM = {"ring_gather_spmv": 4, "ring_gather_spmm": 3,
-                "ring_stream_scan": 8}
+                "ring_stream_scan": 8, "ring_reduce_mul": 5}
+
+
+def _k_split(steps: int, ctas: int) -> Tuple[int, int]:
+    """(runs, steps a run): ``steps`` in runs of consecutive steps over at
+    most ``ctas`` CTAs, as the sync kernels split them."""
+    per = -(-steps // min(steps, ctas))
+    return -(-steps // per), per
+
+
+def _fewest_on_an_sm(units: int, per_sm: int, sms: int) -> int:
+    """The units of work a persistent CTA walks when ``units`` are spread
+    over at most ``per_sm`` CTAs on each of ``sms`` SMs, the CTAs dealt out
+    evenly: of the splits into ``c`` CTAs an SM, the one whose busiest SM
+    walks the fewest units (the smaller run, so the more CTAs, where two
+    tie)."""
+    def busiest(per: int) -> Tuple[int, int]:
+        ctas = -(-units // per)
+        return -(-ctas // sms) * per, per
+    return min((-(-units // (c * sms)) for c in range(1, per_sm + 1)),
+               key=busiest)
 
 
 def ring_run_steps(rname: str, geo: StreamGeometry, ring: RingProgram,
                    dtype: torch.dtype, sms: int) -> int:
-    """The grid steps a CTA of the persistent ring kernel ``rname`` (R13,
-    R14 or R15) walks, consecutive, on a card of ``sms`` SMs: the output
-    blocks (R13, R14: whole ones, of ``contraction_steps`` steps each) or
-    SCAN_TILE tiles (R15: four of the Launch's (8, 128) blocks each) spread
-    over as many CTAs as fit the SMs beside their rings.  R13 and R14 give
-    each row group (and R14's column chunk) the same number of runs, as
-    many as fit that count, so that no CTA waits for a second wave.  The
-    wrapper launches that split; the plain ring takes it as
-    ``steps_per_cta``."""
+    """The grid steps a CTA of the persistent ring kernel ``rname`` (R1,
+    R13, R14 or R15) walks, consecutive, on a card of ``sms`` SMs: whole
+    runs of K1's split (R1: its partials are K1's), the output blocks
+    (R13, R14: whole ones, of ``contraction_steps`` steps each) or
+    SCAN_TILE tiles (R15: four of the Launch's (8, 128) blocks each)
+    spread over as many CTAs as fit the SMs beside their rings.  R1's runs
+    are coarse (K1's 8 CTAs an SM), so it takes, of the splits into 1 to
+    that many CTAs an SM, the one whose busiest SM walks the fewest runs;
+    R13 and R14 give each row group (and R14's column chunk) the same
+    number of runs, as many as fit that count.  So no CTA waits for a
+    second wave.  The wrapper launches that split; the plain ring takes it
+    as ``steps_per_cta``."""
     dr = device_ring(rname, geo, ring, dtype)
     smem = dr.ring_bytes + _staged_bytes(rname, (), geo)
-    ctas = _ctas_per_sm(smem, _RING_PER_SM[rname]) * sms
+    per_sm = _ctas_per_sm(smem, _RING_PER_SM[rname])
+    ctas = per_sm * sms
+    if rname == "ring_reduce_mul":
+        runs, per = _k_split(geo.steps, REDUCE_PER_SM * sms)
+        return _fewest_on_an_sm(runs, per_sm, sms) * per
     if rname == "ring_stream_scan":
         per = SCAN_TILE // (ROWS * LANES)
         tiles = -(-geo.steps // per)
@@ -953,12 +988,15 @@ def _staged_bytes(rname: str, ops: Sequence[str],
     """The shared memory ring kernel ``rname`` takes besides its ring,
     running the stage ``ops``: R9 stages K8's weights and tile but for the
     residual alone; R12 its p tile (Q is in its ring, one tile); R3 and R13
-    their slots' barriers; R15 its third pass's tile of sums (K14's float tile);
-    the others nothing."""
+    their slots' barriers; R2 its slots' barriers and R1 those and its warp
+    sums; R15 its third pass's tile of sums (K14's float tile); the others
+    nothing."""
     if rname == "ring_dag_mlp" and tuple(ops) != ("mlp_residual",):
         return MLP_STAGED_BYTES
-    if rname in ("ring_contract_gemm", "ring_gather_spmv"):
+    if rname in ("ring_contract_gemm", "ring_gather_spmv", "ring_map_relu"):
         return RING_BARRIER_BYTES
+    if rname == "ring_reduce_mul":
+        return RING_BARRIER_BYTES + STAGE_SUM_BYTES
     if rname == "ring_rescale_attention":
         rows = ATTENTION_RING_TILES[geo.ins[0].block[1]][0]
         return 4 * ATTENTION_SUBTILE * (rows + 4)
@@ -972,6 +1010,8 @@ _STAGED_WHAT = {"ring_dag_mlp": "its staged weights and tile",
                 "ring_rescale_attention": "its p tile",
                 "ring_contract_gemm": "its slots' barriers",
                 "ring_gather_spmv": "its slots' barriers",
+                "ring_map_relu": "its slots' barriers",
+                "ring_reduce_mul": "its slots' barriers and warp sums",
                 "ring_stream_scan": "its tile of sums"}
 
 
@@ -983,7 +1023,8 @@ def _ring_budget_refusal(rname: str, geo: StreamGeometry, dtype: torch.dtype,
     shared memory a CTA may opt into, as ring kernel ``rname`` sizes it
     (:func:`device_ring`, over the streams it ``reads``); or one with a
     stream's depth outside the 2 to ``MAX_BUFFER_DEPTH`` slots every ring
-    kernel takes (R3's and R13's barriers are for 8 slots a stream).
+    kernel takes (R1's, R2's, R3's and R13's barriers are for 8 slots a
+    stream).
     Every ring kernel's refusal ends here, through :func:`accepts` and in
     its wrapper."""
     from .ssr import DEFAULT_BUFFER_DEPTH, MAX_BUFFER_DEPTH
@@ -1136,9 +1177,7 @@ def _launch(name: str, dev: torch.device, *args) -> None:
 
 def _ctas(dev: torch.device, steps: int, per_sm: int) -> tuple:
     """(CTAs, steps per CTA) that spread ``steps`` over the card's SMs."""
-    sms = _card(dev).multi_processor_count
-    per_cta = -(-steps // min(steps, per_sm * sms))
-    return -(-steps // per_cta), per_cta
+    return _k_split(steps, per_sm * _card(dev).multi_processor_count)
 
 
 def _vector_width(tensors: Sequence[torch.Tensor],
@@ -1168,14 +1207,15 @@ def reduce_mul(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                program: Optional[Any] = None,
                ring: Optional[RingProgram] = None) -> torch.Tensor:
     """K1: Σ promote(a)·promote(b) over every step → (1, 1) f32; with
-    ``ring`` (a pipelined call) R1, on K1's split of the steps."""
+    ``ring`` (a pipelined call) R1, whose persistent CTAs walk K1's runs
+    (:func:`ring_run_steps`), one partial a run."""
     dev = _checked("reduce_mul", geo, layouts, program, ring,
                    ("reduce", "mul"))
     if out_dtype != torch.float32:
         raise TypeError(f"reduce_mul: accumulates in float32, asked for "
                         f"{out_dtype}")
     a, b = layouts
-    ctas, per_cta = _ctas(dev, geo.steps, per_sm=8)
+    ctas, per_cta = _ctas(dev, geo.steps, per_sm=REDUCE_PER_SM)
     partials = torch.empty(ctas, dtype=torch.float32, device=dev)
     out = torch.empty((1, 1), dtype=torch.float32, device=dev)
     g, sa, sb = _grid_arg(geo.grid), _stream_arg(geo.ins[0], a), \
@@ -1183,13 +1223,17 @@ def reduce_mul(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
     streams = (a.data_ptr(), b.data_ptr(), _DTYPE_CODE[a.dtype],
                _vector_width(layouts, geo.ins), ctypes.byref(g),
                ctypes.byref(sa), ctypes.byref(sb))
-    tail = (partials.data_ptr(), ctas, per_cta, out.data_ptr())
     if ring is None:
-        _launch("reduce_mul", dev, *streams, *tail)
-    else:
-        dr = device_ring("ring_reduce_mul", geo, ring, a.dtype)
-        _launch("ring_reduce_mul", dev, *streams,
-                ctypes.byref(_ring_arg(dr)), dr.ring_bytes, *tail)
+        _launch("reduce_mul", dev, *streams, partials.data_ptr(), ctas,
+                per_cta, out.data_ptr())
+        return out
+    dr = device_ring("ring_reduce_mul", geo, ring, a.dtype)
+    run = ring_run_steps("ring_reduce_mul", geo, ring, a.dtype,
+                         _card(dev).multi_processor_count)
+    _launch("ring_reduce_mul", dev, *streams, ctypes.byref(_ring_arg(dr)),
+            dr.ring_bytes + _staged_bytes("ring_reduce_mul", (), geo),
+            partials.data_ptr(), ctas, per_cta, run // per_cta,
+            out.data_ptr())
     return out
 
 
@@ -1217,7 +1261,8 @@ def map_relu(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
     else:
         dr = device_ring("ring_map_relu", geo, ring, x.dtype)
         _launch("ring_map_relu", dev, *streams, ctypes.byref(_ring_arg(dr)),
-                dr.ring_bytes, ctas, per_cta)
+                dr.ring_bytes + _staged_bytes("ring_map_relu", (), geo),
+                ctas, per_cta)
     return out
 
 

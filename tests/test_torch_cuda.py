@@ -1311,11 +1311,13 @@ def _depth(depth):
         else lowering.Schedule(buffer_depth=depth)
 
 
-def _ring_against_sync(nest, body, ops_, depth, bits=torch.int32, **kw):
-    """The call at ``depth`` and at depth 2: the ring kernel's output, the
-    sync kernel's, and what each launched."""
+def _ring_against_sync(nest, body, ops_, depth, bits=torch.int32, lanes=128,
+                       **kw):
+    """The call at ``depth`` and at depth 2 (blocks ``lanes`` wide): the
+    ring kernel's output, the sync kernel's, and what each launched."""
     out = []
-    for sched in (_depth(depth), lowering.DEFAULT_SCHEDULE):
+    for sched in (dataclasses.replace(_depth(depth), lanes=lanes),
+                  lowering.Schedule(lanes=lanes)):
         call = lowering.prepare_call(nest, body, ops_, schedule=sched, **kw)
         before = dict(hopper.LAUNCHES)
         got = call.run()
@@ -1324,39 +1326,82 @@ def _ring_against_sync(nest, body, ops_, depth, bits=torch.int32, **kw):
     return out
 
 
+# lanes → R1's and R2's fill route: 128 the bulk copies (16-byte packs),
+# 130 a 130-element pitch, no 16-byte packs: the filling warp's element
+# copies
+FILL_LANES = {128: "bulk", 130: "elements"}
+
+
+def _fill_route(kern, layouts):
+    return "bulk" if hopper._vector_width(
+        layouts, kern.geometry.ins) > 1 else "elements"
+
+
 @pytest.mark.parametrize("depth", RING_DEPTHS, ids=str)
-@pytest.mark.parametrize("n", [5000, (1 << 20) + 3])
+@pytest.mark.parametrize("lanes", sorted(FILL_LANES))
+@pytest.mark.parametrize("n", [5000, (1 << 20) + 3, 1 << 24])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ring_reduce_mul_is_k1_to_the_bit(dev, n, dtype, depth):
+def test_ring_reduce_mul_is_k1_to_the_bit(dev, n, dtype, lanes, depth):
+    """R1 against K1 on both fill routes; at 2**24 each persistent CTA
+    walks several of K1's runs, so its ring crosses run boundaries."""
     g = torch.Generator(device=dev).manual_seed(n)
     x = torch.rand(n, generator=g, device=dev).to(dtype)
     y = torch.rand(n, generator=g, device=dev).to(dtype)
+    nest = compiler.dot_product_nest(n)
     (got, ring, kr), (want, sync, _) = _ring_against_sync(
-        compiler.dot_product_nest(n), reduction.MUL, {"A": x, "B": y}, depth)
+        nest, reduction.MUL, {"A": x, "B": y}, depth, lanes=lanes)
     assert kr.pipelined and ring == {"ring_reduce_mul"} \
         and sync == {"reduce_mul"}
+    call = lowering.prepare_call(nest, reduction.MUL, {"A": x, "B": y},
+                                 schedule=dataclasses.replace(
+                                     _depth(depth), lanes=lanes))
+    assert _fill_route(call.kernel, call.layouts) == FILL_LANES[lanes]
+    if n == 1 << 24:
+        geo = call.kernel.geometry
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        _, per = hopper._k_split(geo.steps, hopper.REDUCE_PER_SM * sms)
+        run = hopper.ring_run_steps("ring_reduce_mul", geo, call.kernel.ring,
+                                    dtype, sms)
+        assert run % per == 0 and run // per > 1
     assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("depth", [3, 4, 8, (5,)], ids=str)
+@pytest.mark.parametrize("lanes", sorted(FILL_LANES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.int32])
-def test_ring_map_relu_is_k2_to_the_bit(dev, dtype, depth):
+def test_ring_map_relu_is_k2_to_the_bit(dev, dtype, lanes, depth):
+    """R2 against K2 on both fill routes, ±0, NaN, ±inf and int32 beyond
+    2**24 (selected, never rounded) included."""
     n = (1 << 20) + 7
     g = torch.Generator(device=dev).manual_seed(3)
     if dtype == torch.int32:
         x = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), generator=g,
                           device=dev, dtype=dtype)
+        x[:4] = torch.tensor([(1 << 24) + 1, -(1 << 24) - 1, (1 << 31) - 1,
+                              -(1 << 31)], dtype=dtype)
     else:
         x = torch.randn(n, generator=g, device=dev).to(dtype)
-        x[:3] = torch.tensor([-0.0, float("nan"), float("-inf")])
+        x[:5] = torch.tensor([-0.0, 0.0, float("nan"), float("-inf"),
+                              float("inf")])
     bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    nest = compiler.elementwise_nest(n)
     (got, ring, kr), (want, sync, _) = _ring_against_sync(
-        compiler.elementwise_nest(n), relu.RELU, {"X": x}, depth, bits,
-        mode="map", out_dtype=dtype)
+        nest, relu.RELU, {"X": x}, depth, bits, mode="map", out_dtype=dtype,
+        lanes=lanes)
     assert kr.pipelined and ring == {"ring_map_relu"} \
         and sync == {"map_relu"}
-    assert torch.equal(got, want)
+    call = lowering.prepare_call(nest, relu.RELU, {"X": x}, mode="map",
+                                 out_dtype=dtype, schedule=dataclasses.replace(
+                                     _depth(depth), lanes=lanes))
+    assert _fill_route(call.kernel, call.layouts) == FILL_LANES[lanes]
+    assert torch.equal(got, want)   # the bits, ``bits`` wide
+    if dtype == torch.int32:
+        assert got[:4].tolist() == [(1 << 24) + 1, 0, (1 << 31) - 1, 0]
+    elif dtype == torch.float32:
+        v = got[:5].view(torch.float32)
+        assert got[:2].tolist() == [0, 0]      # -0 and +0 give +0
+        assert v[2].isnan() and v[3] == 0 and v[4] == float("inf")
 
 
 # lanes → R3's route in f32 on the 300 x 260 x 1100 problem: 128 the

@@ -55,7 +55,8 @@ def test_csrc_holds_every_kernel():
     assert names == sorted(hopper.KERNELS)
     # the kernels whose attributes kernel_attributes reads define the
     # entry in their own source
-    for name in ("contract_gemm", "ring_contract_gemm", "base_gemm"):
+    for name in ("contract_gemm", "ring_contract_gemm", "base_gemm",
+                 "ring_reduce_mul", "ring_map_relu"):
         src = (PORT / "csrc" / f"{name}.cu").read_text()
         assert f'extern "C" int ssr_{name}_attributes(' in src
     for name, info in hopper.KERNELS.items():
@@ -194,11 +195,12 @@ def test_build_key_follows_the_sources(tmp_path, monkeypatch):
                        "ssr_chained_map.cuh", "ssr_common.cuh", "ssr_dag.cuh",
                        "ssr_gather.cuh", "ssr_gather_ring.cuh", "ssr_gemm.cuh",
                        "ssr_mbarrier.cuh", "ssr_ring.cuh", "ssr_rows.cuh",
-                       "ssr_scan.cuh", "ssr_stencil1d.cuh",
-                       "ssr_stencil2d.cuh"]
+                       "ssr_scan.cuh", "ssr_stage_ring.cuh",
+                       "ssr_stencil1d.cuh", "ssr_stencil2d.cuh"]
     dags = {"dag_layernorm", "dag_softmax_xent", "dag_mlp",
             "ring_dag_layernorm", "ring_dag_softmax_xent", "ring_dag_mlp"}
     rows = {"ring_reduce_mul", "chain_elem", "ring_chain_elem", *dags}
+    stage = {"ring_reduce_mul", "ring_map_relu"}
     users = {"ssr_attention.cuh": {"rescale_attention",
                                    "ring_rescale_attention"},
              "ssr_stencil1d.cuh": {"halo_stencil1d", "ring_halo_stencil1d"},
@@ -209,12 +211,14 @@ def test_build_key_follows_the_sources(tmp_path, monkeypatch):
              "ssr_dag.cuh": dags,
              "ssr_gather.cuh": {"gather_spmv", "gather_spmm",
                                 "ring_gather_spmv", "ring_gather_spmm"},
-             "ssr_gather_ring.cuh": {"ring_gather_spmv", "ring_gather_spmm"},
+             "ssr_gather_ring.cuh": {"ring_gather_spmv", "ring_gather_spmm",
+                                     *stage},
              "ssr_gemm.cuh": {"contract_gemm", "ring_contract_gemm",
                               "base_gemm"},
              "ssr_mbarrier.cuh": {"ring_contract_gemm", "ring_gather_spmv",
-                                  "ring_gather_spmm"},
+                                  "ring_gather_spmm", *stage},
              "ssr_scan.cuh": {"stream_scan", "ring_stream_scan"},
+             "ssr_stage_ring.cuh": stage,
              "ssr_ring.cuh": {n for n in hopper.KERNELS
                               if n.startswith("ring_")} | {"contract_gemm"},
              "ssr_rows.cuh": {n for n in hopper.KERNELS if n in rows}}
