@@ -17,10 +17,10 @@ printing JSON lines:
 
 1. build every Hopper kernel from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all at once), print the ``kernel_attributes`` line (K12,
-   K13, R13, R14, K3, R3, B3, R1 and R2: registers and local bytes a
-   thread as ``cudaFuncGetAttributes`` reads them; K3, R3, B3, R1 and R2
-   also their CTAs an SM from the occupancy API, the rings at their main
-   path's rings) and the card's name and power limit;
+   K13, R13, R14, K3, R3, B3, R1, R2 and R4: registers and local bytes a
+   thread as ``cudaFuncGetAttributes`` reads them; K3, R3, B3, R1, R2 and
+   R4 also their CTAs an SM from the occupancy API, the rings at their
+   main path's rings) and the card's name and power limit;
 2. drive the main path once, with every launch counter at 0 before it:
    dot and relu (f32, int32 above 2**24, bf16) at n = 2**26, gemm at
    4096**3 and gemv at 8192**2 in f32, plus one direct ``ssr_call``, and
@@ -49,13 +49,18 @@ printing JSON lines:
    runs the 28 device kernels of K16's schedule (at most 32) and one
    fft_2048_b32768 call K15's one (``torch.profiler`` counts: the ``device_launches``
    line), that a ChainedKernel call is one K17 launch, and that no
-   fallback fired;
+   fallback fired, and that ``ops.spmv`` and ``ops.sparse_gemv`` lay out
+   no stream by a copy (K12 takes ``pack_ell``'s (m, k) planes as they
+   are: ``lowering.LAYOUT_COPIES``, the ``layout_copies`` of the
+   ``sparse_launches`` line);
 3. hold each kernel's output against its plain PyTorch version on the
    card, on the same inputs, and each baseline's against the streamed
    kernel's; each instantiation of K5–K8 (every component of every legal
    cut, on the values the kernels before it produced) and K4's relu drain
    likewise, and each fused result against its unfused one; K12, K13, B6
-   and B7 on every row, and on odd CSR inputs against the oracle; K14 and
+   and B7 on every row, and on odd CSR inputs against the oracle (K12
+   there also against its plain version on pack_ell's planes, beside its
+   run on the values doubled); K14 and
    B8 (and their plain versions) against an f64 prefix sum, K14 twice to
    the bit; K15 to the bit on the batch cell and bf16 inputs, within the
    limit on one transform of 2**22 points (the global passes); K16 to the
@@ -63,9 +68,10 @@ printing JSON lines:
    2**16 rows of 1024, bf16 and int32, and inputs holding ±0 and a NaN;
    the ring kernels R1–R4 (a schedule deeper than 2) against K1–K4 to the
    bit on the dot (f32, bf16), relu (f32, int32, bf16), gemm, gemv and
-   gemv_relu cells at depths 3, 4 and 8 (and per-stream (2, 4), (4, 2) on
-   dot and gemm), each beside the ring on its first block zeroed, which
-   must differ; R1–R4 at each cell's main-path depth (and the main
+   gemv_relu (f32 and bf16) cells at depths 3, 4 and 8 (and per-stream
+   (2, 4), (4, 2) on dot, gemm and the gemv cells) and on a gemv whose x
+   never moves (2048 x 512, one contraction step), each beside the ring on
+   its first block zeroed, which must differ; R1–R4 at each cell's main-path depth (and the main
    path's own ring outputs) against the plain ring at the cell's size,
    beside the ring on its first block zeroed, which must read above the
    limit; the plain ring against R1–R4 at small sizes; K17 against its
@@ -93,8 +99,9 @@ printing JSON lines:
    (4, 2) (a depth over the shared memory refused by name) and on
    scan_2p26 at 3, 4 and 8, each beside its run on the moving streams'
    first blocks zeroed, which must differ; R13/R14 at depth 4 on the odd
-   CSR inputs; R14's local bytes a thread at most R14_LOCAL_BYTES, R3's,
-   K3's, R1's and R2's none, and K3's shared memory as its entry and the wrapper
+   CSR inputs (R13 on the padded layouts, K12 on the planes); R14's local
+   bytes a thread at most R14_LOCAL_BYTES, R3's, K3's, R1's, R2's and
+   R4's none, and K3's shared memory as its entry and the wrapper
    count it; the gemm check names K3's route (``packs``, ``words`` or
    ``elements``, ``hopper.contract_gemm_route``); every R3 check names the
    route its producer warp took (``tma``, ``cp.async`` or ``cp.async
@@ -110,11 +117,14 @@ printing JSON lines:
    against its streamed kernel (``ssr_over_baseline``), each fused cell
    against its unfused stages (``fused_over_unfused``), each entry
    point of the main path by the host's clock once warm, and the sparse
-   entries' wall time split into packing, copies, layout and kernel; the
+   entries' wall time split into packing, copies, the layouts the kernel
+   takes (``layout_ms``; the padded layouts' copy beside it) and kernel; the
    ``gemm_roofline`` line (K3, B3 and R3 at 3, 4, 8 on the gemm cell:
    ms, bound_ms / ms and ms / torch.matmul's, beside their registers and
    CTAs an SM); a ``depth_sweep`` line per ring cell: ms at depths 2 (the K-kernel), 3, 4
-   and 8, the best per-stream pair, ``ring_over_sync`` = K ms / R ms; a
+   and 8, the best per-stream pair, ``ring_over_sync`` = K ms / R ms (the
+   gemv cells also through K4's and R4's C entries, ``c_entry_ms``, with
+   no wrapper's host time); a
    ``chained_time`` line per ChainedKernel cell (K17 and R5 at depths 2–8,
    the composed library calls, and for axpy_relu the unfused stages and
    ``fused_over_unfused`` beside the byte prediction 20 / 12), a
@@ -700,23 +710,28 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     emit({"phase": "build", "seconds": build_s, "compiled": sorted(logs),
           "kernels": sorted(hopper.KERNELS)})
-    # the gathers', the gemms' and R1's and R2's registers a thread and
-    # spilled bytes, as the runtime reads them (R14 held to R14_LOCAL_BYTES
-    # in phase 3i, R3, K3, R1 and R2 to none in 3e), and the gemms' and
-    # R1's and R2's CTAs an SM from the occupancy API, each ring at its
-    # main path's ring in f32 and its barriers: R3 depth 3 on A and B;
-    # R1 and R2 at depth 4, (8, 128) blocks, R1 with its warp sums
+    # the gathers', the gemms' and R1's, R2's and R4's registers a thread
+    # and spilled bytes, as the runtime reads them (R14 held to
+    # R14_LOCAL_BYTES in phase 3i, R3, K3, R1, R2 and R4 to none in 3e),
+    # and the gemms' and R1's, R2's and R4's CTAs an SM from the occupancy
+    # API, each ring at its main path's ring in f32 and its barriers: R3
+    # depth 3 on A and B; R1 and R2 at depth 4, (8, 128) blocks, R1 with
+    # its warp sums; R4 at depth 4
     r3_smem = RING_MAIN_DEPTH["gemm"] * 4 * hopper.GEMM_CHUNK_K * (
         hopper.GEMM_TILE_M + hopper.GEMM_TILE_N) + hopper.RING_BARRIER_BYTES
     block = 4 * 8 * 128
     r1_smem = 2 * RING_MAIN_DEPTH["dot"] * block + \
         hopper.RING_BARRIER_BYTES + hopper.STAGE_SUM_BYTES
     r2_smem = RING_MAIN_DEPTH["relu"] * block + hopper.RING_BARRIER_BYTES
+    # R4 at depth 4 on the gemv cell's 512-wide f32 blocks: 8 rows and x
+    r4_smem = RING_MAIN_DEPTH["gemv"] * (hopper.GEMV_RING_ROWS + 1) * 512 * 4 \
+        + hopper.RING_BARRIER_BYTES
     attributes = {n: hopper.kernel_attributes(n) for n in (
         "gather_spmv", "gather_spmm", "ring_gather_spmv", "ring_gather_spmm",
         "contract_gemm", "base_gemm")}
     for n, smem_ in (("ring_contract_gemm", r3_smem),
-                     ("ring_reduce_mul", r1_smem), ("ring_map_relu", r2_smem)):
+                     ("ring_reduce_mul", r1_smem), ("ring_map_relu", r2_smem),
+                     ("ring_contract_gemv", r4_smem)):
         attributes[n] = hopper.kernel_attributes(n, smem_)
     # K3's two buffers as its entry counts them, beside the wrapper's count
     k3_smem = {str(dt): (hopper.kernel_smem_bytes("contract_gemm", dt),
@@ -940,15 +955,17 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     frontend.reset_dispatch_stats()
     resilience.reset_fallback_log()
     hopper.reset_launches()
-    main, wall, per_call = {}, {}, {}
+    main, wall, per_call, copies = {}, {}, {}, {}
     for key, fn in path.items():   # first calls: plans, lowering, loading
         before = dict(hopper.LAUNCHES)
+        padded = lowering.LAYOUT_COPIES["padded"]
         t0 = time.perf_counter()
         main[key] = fn()
         torch.cuda.synchronize()
         wall[key] = time.perf_counter() - t0
         per_call[key] = {k_: v - before[k_] for k_, v in hopper.LAUNCHES.items()
                          if v != before[k_]}
+        copies[key] = lowering.LAYOUT_COPIES["padded"] - padded
     launches = dict(hopper.LAUNCHES)
     ladder = {"fallback_events": len(resilience.fallback_events()),
               "lowering": {c: lowering.DISPATCH_STATS[c]
@@ -979,12 +996,18 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                        "spmv_baseline": {"base_spmv": 1},
                        "spmm": {"gather_spmm": 1},
                        "spmm_baseline": {"base_spmm": 1}}
+    # and K12 takes pack_ell's planes as they are: the spmv entries at the
+    # default schedule lay out no stream by a copy (K13 pads its planes)
     emit({"phase": "sparse_launches",
-          "launches": {key: per_call[key] for key in sparse_launches}})
+          "launches": {key: per_call[key] for key in sparse_launches},
+          "layout_copies": {key: copies[key] for key in sparse_launches}})
     if any(per_call[key] != want for key, want in sparse_launches.items()):
         raise SystemExit(f"chip_smoke: a sparse call launched other kernels "
                          f"than one K12/K13/B6/B7: "
                          f"{ {key: per_call[key] for key in sparse_launches} }")
+    if copies["spmv"] or copies["sparse_gemv"]:
+        raise SystemExit(f"chip_smoke: an spmv entry copied its planes into "
+                         f"padded layouts: {copies}")
     # a stream call is one wrapper call of its kernel (three device launches
     # for a scan, one for the FFT cell, 28 for the sort cell: LAUNCHES and
     # the device_launches line below)
@@ -1661,7 +1684,10 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     checks["sort_nan"]["exact"] &= bool(torch.isnan(got).all())
 
     # -- 3e. the rings against K1–K4 to the bit, at the cells' sizes -------
-    # (call mode, nest, body, operands, out dtype, bit view, depths) a cell
+    # (call mode, nest, body, operands, out dtype, bit view, depths) a cell;
+    # R4 also in bf16 and with an x that never moves
+    gab, gxb = ga.bfloat16(), gx.bfloat16()
+    gai = ga[:2048, :512].contiguous()
     ring_cells = {
         "dot": ("reduce", compiler.dot_product_nest(n_vec), reduction.MUL,
                 {"A": x, "B": y}, None, torch.int32,
@@ -1679,10 +1705,21 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                  {"A": a, "B": b}, None, torch.int32,
                  (*RING_DEPTHS, *RING_PAIRS)),
         "gemv": ("nest", compiler.gemv_nest(gm, gn), gemv.MATVEC,
-                 {"A": ga, "x": gx}, None, torch.int32, RING_DEPTHS),
+                 {"A": ga, "x": gx}, None, torch.int32,
+                 (*RING_DEPTHS, *RING_PAIRS)),
         "gemv_relu": ("nest", compiler.gemv_nest(gm, gn),
                       chained.MATVEC_RELU, {"A": ga, "x": gx}, None,
-                      torch.int32, RING_DEPTHS),
+                      torch.int32, (*RING_DEPTHS, *RING_PAIRS)),
+        "gemv_bf16": ("nest", compiler.gemv_nest(gm, gn), gemv.MATVEC,
+                      {"A": gab, "x": gxb}, None, torch.int32,
+                      (*RING_DEPTHS, *RING_PAIRS)),
+        "gemv_relu_bf16": ("nest", compiler.gemv_nest(gm, gn),
+                           chained.MATVEC_RELU, {"A": gab, "x": gxb}, None,
+                           torch.int32, (*RING_DEPTHS, *RING_PAIRS)),
+        # one contraction step: x never moves (one slot, fetched once)
+        "gemv_x_invariant": ("nest", compiler.gemv_nest(2048, 512),
+                             gemv.MATVEC, {"A": gai, "x": gx[:512]}, None,
+                             torch.int32, (*RING_DEPTHS, *RING_PAIRS)),
     }
 
     def cell_call(cell, depth):
@@ -1769,7 +1806,7 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             # at the main path's depths: the ring kernel and the main
             # path's own ring outputs against the plain ring at full size
             entries = [e for e, cd in RING_ENTRY.items() if cd == (cell, depth)]
-            if entries or RING_MAIN_DEPTH[cell] == depth:
+            if entries or RING_MAIN_DEPTH.get(cell) == depth:
                 want_p = plain(call)
                 plain_ring_check(f"plain_ring_full_{cell}_{depth}", cell,
                                  depth, got, want_p, ctrl)
@@ -1816,9 +1853,9 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     checks["contract_gemm_smem_bytes"] = {
         "exact": all(e == w for e, w in k3_smem.values()),
         "entry_and_wrapper": k3_smem, "abs_err": 0.0, "limit": 0.0}
-    # R3, K3, R1 and R2 spill nothing, in any instantiation
+    # R3, K3, R1, R2 and R4 spill nothing, in any instantiation
     for name in ("ring_contract_gemm", "contract_gemm", "ring_reduce_mul",
-                 "ring_map_relu"):
+                 "ring_map_relu", "ring_contract_gemv"):
         local = attributes[name]["localSizeBytes"]
         checks[f"{name}_local_bytes"] = {
             "exact": local == 0, "local_bytes": local, "local_limit": 0,
@@ -2182,15 +2219,16 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             compiler.spmm_nest(sm, SPMM_RHS, sk, SPMM_RHS), sparse.SPMM,
             sparse_ops["spmm"], schedule=sched_)
 
-    def forced_ring(call, depth):
-        """R13/R14 on the call's geometry at ``depth``, whatever its grid:
-        (its output, None), or (None, the message) where it is refused."""
+    def forced_ring(call, depth, layouts):
+        """R13/R14 on the call's geometry at ``depth``, whatever its grid,
+        on the padded ``layouts`` it reads: (its output, None), or (None,
+        the message) where it is refused."""
         kern = call.kernel
         ring = hopper.RingProgram((depth,) * (len(kern.depths) - 1) + (2,),
                                   kern.invariant)
         try:
             return call.finish(kern.device_kernel()(
-                kern.geometry, call.layouts, kern.out_dtype, kern.acc_dtype,
+                kern.geometry, layouts, kern.out_dtype, kern.acc_dtype,
                 program=kern.program, ring=ring)), None
         except ValueError as e:
             return None, str(e)
@@ -2257,25 +2295,49 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         "exact": local <= R14_LOCAL_BYTES, "local_bytes": local,
         "local_limit": R14_LOCAL_BYTES, "abs_err": 0.0, "limit": 0.0}
     # R13/R14 at depth 4 on the odd CSR inputs, against K12/K13 to the bit
+    # (R13 on the padded layouts, K12 on pack_ell's planes); K12 against
+    # its plain version within SPARSE_LIMIT, beside its run on the values
+    # doubled, which must read above it where the product is not all zero
     for name, (d_, i_, p_, n_) in odd_csr.items():
         ell = sparse.pack_ell(*(torch.as_tensor(np.asarray(a_), device=dev)
                                 for a_ in (d_, i_, p_)), n_)
         for prod, c_ in (("spmv", None), ("spmm", 200)):
             operand = randn(n_) if c_ is None else randn(n_, c_)
             if prod == "spmv":
+                ops_ = {"vals": ell[0], "cidx": ell[1], "x": operand}
                 call = lowering.prepare_call(
-                    compiler.spmv_nest(ell[2], ell[3]), sparse.SPMV,
-                    {"vals": ell[0], "cidx": ell[1], "x": operand})
+                    compiler.spmv_nest(ell[2], ell[3]), sparse.SPMV, ops_)
             else:
                 pitch_ = -(-c_ // 128) * 128
+                ops_ = {"vals": ell[0], "cidx": ell[1],
+                        "X": F.pad(operand, (0, pitch_ - c_))}
                 call = lowering.prepare_call(
                     compiler.spmm_nest(ell[2], c_, ell[3], pitch_),
-                    sparse.SPMM,
-                    {"vals": ell[0], "cidx": ell[1],
-                     "X": F.pad(operand, (0, pitch_ - c_))})
+                    sparse.SPMM, ops_)
             want = call.run()
+            if prod == "spmv":
+                kern = call.kernel
+                scale_t = call.finish(kern.plain(tuple(
+                    t.abs() for t in call.layouts))) + 1e-30
+                plain_ = call.finish(kern.plain(call.layouts))
+                doubled = call.finish(kern(2 * call.layouts[0],
+                                           *call.layouts[1:]))
+                ctrl = rel_max(doubled, plain_, scale_t)
+                key = f"odd_k12_planes_{name}"
+                checks[key] = {
+                    "abs_err": float((want - plain_).abs().max()),
+                    "rel_err": rel_max(want, plain_, scale_t),
+                    "limit": SPARSE_LIMIT, "doubled_control": ctrl,
+                    "pitch": int(call.layouts[0].shape[1]),
+                    "exact": int(call.layouts[0].shape[1]) == ell[3],
+                    "kernel": "gather_spmv"}
+                errors["gather_spmv"] = max(errors.get("gather_spmv", 0.0),
+                                            checks[key]["abs_err"])
+                if bool(plain_.any()) and ctrl <= SPARSE_LIMIT:
+                    failed.append(f"{key}: limit above the doubled control")
             before = dict(hopper.LAUNCHES)
-            got, raised = forced_ring(call, GATHER_MAIN_DEPTH)
+            got, raised = forced_ring(call, GATHER_MAIN_DEPTH,
+                                      call.padded_layouts())
             torch.cuda.synchronize()
             launched = {k_ for k_, v in hopper.LAUNCHES.items()
                         if v != before[k_]}
@@ -2401,6 +2463,27 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         dk, kw = kern.device_kernel(), kern.device_args()
         return lambda: dk(kern.geometry, call.layouts, kern.out_dtype,
                           kern.acc_dtype, **kw)
+
+    def entry_fn(call):
+        """The kernel's C entry with the arguments its wrapper passes for
+        ``call`` (and the output it allocated, kept alive): its device time
+        without the wrapper's host work."""
+        kern, got = call.kernel, {}
+        real = hopper._launch
+        hopper._launch = lambda name, dev_, *a: got.update(name=name, args=a)
+        try:
+            out = kern.device_kernel()(kern.geometry, call.layouts,
+                                       kern.out_dtype, kern.acc_dtype,
+                                       **kern.device_args())
+        finally:
+            hopper._launch = real
+        fn = getattr(hopper._lib(got["name"]), f"ssr_{got['name']}")
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def run(args=got["args"], keep=out):
+            if fn(*args, stream) != 0:
+                raise SystemExit(f"chip_smoke: {got['name']} failed")
+        return run
 
     taps, wide = stencil.TAPS, hw + stencil.TAPS - 1
 
@@ -2618,6 +2701,11 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         "gemm": (*work["contract_gemm"], library["contract_gemm"]),
         "gemv": (*work["contract_gemv"], library["contract_gemv"]),
         "gemv_relu": (*work["contract_gemv"], None),
+        "gemv_bf16": ((gm * gn + gn) * 2 + gm * 4, 2 * gm * gn,
+                      lambda: torch.mv(gab, gxb)),
+        "gemv_relu_bf16": ((gm * gn + gn) * 2 + gm * 4, 2 * gm * gn, None),
+        "gemv_x_invariant": ((2048 * 512 + 512 + 2048) * 4, 2 * 2048 * 512,
+                             lambda: torch.mv(gai, gx[:512])),
     }
     sweeps = {}
     for cell, (_, _, _, _, _, _, depths) in ring_cells.items():
@@ -2637,6 +2725,13 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             "library_ms": time_ms(lib) if lib is not None else None,
             "ring_over_sync": {str(d): at[2] / t for d, t in at.items()
                                if d != 2}}
+        if cell.startswith("gemv"):     # K4 and R4 with no wrapper's host
+            c_at = {2: time_ms(entry_fn(cell_call(cell, 2)))}
+            for depth in depths:
+                c_at[depth] = time_ms(entry_fn(ring_calls[cell, depth]))
+            sweeps[cell]["c_entry_ms"] = {str(d): t for d, t in c_at.items()}
+            sweeps[cell]["c_entry_ring_over_sync"] = {
+                str(d): c_at[2] / t for d, t in c_at.items() if d != 2}
         emit({"phase": "depth_sweep", "cell": cell, **sweeps[cell]})
     for rname, (kname, cell) in RING_ROW.items():
         krow = next(r for r in rows if r["name"] == kname)
@@ -2653,6 +2748,9 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             "library_ms": krow["library_ms"],
             "depth": RING_MAIN_DEPTH[cell],
         })
+        if "c_entry_ms" in sweeps[cell]:    # R4: through its C entry too
+            rows[-1]["c_entry_ms"] = \
+                sweeps[cell]["c_entry_ms"][str(RING_MAIN_DEPTH[cell])]
         emit({"phase": "time", "cell": cell, **rows[-1]})
     # the ChainedKernel cells: K17 (depth 2) and R5 at depths 3, 4 and 8,
     # beside the unfused composition's stage kernels (K5's axpy map, then
@@ -2931,8 +3029,9 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     emit({"phase": "entry_points", "wall_ms": walls})
     # the sparse cells: the entry's wall split into CSR validation and ELL
     # packing on the card, the copies of a host CSR triple and x to the
-    # card, the layout copy into the lowered (m, 128) planes and the kernel;
-    # and what the gathers move
+    # card, the layouts the kernel takes (K12: pack_ell's planes, no copy;
+    # K13: the lowered (m, 128) layouts) and the kernel; and what the
+    # gathers move
     host = {"spmv": [t.cpu() for t in (*hcsr, hx)],
             "spmm": [t.cpu() for t in (*scsr, sX)]}
     cell_of = {"spmv": ("spmv_hpcg", "gather_spmv", n_v1, hcsr),
@@ -2947,12 +3046,19 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             "bytes": work[kname][0],
             "layout_bytes": sum(t.numel() * t.element_size()
                                 for t in call.layouts),
+            "layout_shapes": [list(t.shape) for t in call.layouts],
             "kernel_ms": row["ms"], "bound_ms": row["bound_ms"],
             "share_of_bound": row["bound_ms"] / row["ms"],
             "pack_ms": wall_ms(lambda c_=csr, n=n_: sparse.pack_ell(*c_, n)),
             "h2d_ms": wall_ms(lambda h=host[op]: [t.to(dev) for t in h]),
+            # the layouts the kernel takes on the card (K12: the planes as
+            # they are), and the padded layouts' copy beside it
             "layout_ms": time_ms(lambda c_=call, a=arrays:
-                                 lowering.stream_layouts(c_.lowered, a)),
+                                 lowering.device_layouts(
+                                     c_.kernel, c_.lowered, a, dev)),
+            "padded_layout_ms": time_ms(lambda c_=call, a=arrays:
+                                        lowering.stream_layouts(c_.lowered,
+                                                                a)),
             "entry_wall_ms": walls[op],
             "entry_wall_host_csr_ms": wall_ms(
                 lambda h=host[op], k_=op: getattr(ops, k_)(*h, ssr=True)),

@@ -261,15 +261,40 @@ class BlockAGU:
             raise ValueError(
                 f"stream '{name}': layout rank {len(layout)} != block rank "
                 f"{len(self.block)}")
-        for d, (blk, ext) in enumerate(zip(self.block, layout)):
-            span = [c[d] * (g - 1) for c, g in zip(self.coeffs, grid)]
-            lo = self.offset[d] + sum(s for s in span if s < 0)
-            hi = self.offset[d] + sum(s for s in span if s > 0)
-            if lo < 0 or (hi + 1) * blk > ext:
+        for d, ((lo, hi), ext) in enumerate(zip(self.span(grid), layout)):
+            if lo < 0 or hi > ext:
                 raise ValueError(
                     f"stream '{name}': block walk covers rows/cols "
-                    f"[{lo * blk}, {(hi + 1) * blk}) of dim {d}, outside the "
-                    f"layout {tuple(layout)}")
+                    f"[{lo}, {hi}) of dim {d}, outside the layout "
+                    f"{tuple(layout)}")
+
+    def span(self, grid: Tuple[int, ...]) -> Tuple[Tuple[int, int], ...]:
+        """Per dimension, the [first, end) rows or columns the walk's
+        blocks cover."""
+        out = []
+        for d, blk in enumerate(self.block):
+            steps = [c[d] * (g - 1) for c, g in zip(self.coeffs, grid)]
+            lo = self.offset[d] + sum(s for s in steps if s < 0)
+            hi = self.offset[d] + sum(s for s in steps if s > 0)
+            out.append((lo * blk, (hi + 1) * blk))
+        return tuple(out)
+
+    def check_extent_within(self, grid: Tuple[int, ...],
+                            layout: Tuple[int, ...],
+                            extent: Tuple[int, int],
+                            name: str = "stream") -> None:
+        """Raise unless every position a reader bounded by ``extent``
+        (rows, cols) reads lies inside ``layout``: the walk starts at no
+        negative block and the extent fits.  A walk may pass the layout's
+        ends where its blocks hold no data (K12 on unpadded planes)."""
+        spans = self.span(grid)
+        walk_fits = all(hi <= ext for (_, hi), ext in zip(spans, layout))
+        extent_fits = extent[0] <= layout[0] and extent[1] <= layout[1]
+        if len(layout) != 2 or any(lo < 0 for lo, _ in spans) or not (
+                walk_fits or extent_fits):
+            raise ValueError(
+                f"stream '{name}': the walk's extent {tuple(extent)} leaves "
+                f"the layout {tuple(layout)}")
 
     def gather(self, layout: torch.Tensor, grid: Tuple[int, ...],
                steps: Optional[torch.Tensor] = None) -> torch.Tensor:

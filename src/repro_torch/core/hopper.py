@@ -26,7 +26,9 @@ halo_stencil1d    nest         K9: ``stencil1d`` (an 11-tap window on x);
 halo_stencil2d    nest         K10: ``stencil2d`` (the 11-point star)
 rescale_attention nest         K11: ``attn_scores`` (the online-softmax
                                accumulator over a head batch)
-gather_spmv       nest         K12: ``spmv`` (y += vals·x[cidx], a gather)
+gather_spmv       nest         K12: ``spmv`` (y += vals·x[cidx], a gather;
+                               on the card it reads ``pack_ell``'s (m, k)
+                               planes at pitch k, no layout copy)
 gather_spmm       nest         K13: ``spmm`` (Y += vals·X[cidx, c])
 ================  ===========  =============================================
 
@@ -35,7 +37,10 @@ A schedule deeper than 2 makes a call of K1–K13's families pipelined
 of :data:`RING_KERNELS` instead — R1 ``ring_reduce_mul``, R2
 ``ring_map_relu``, R3 ``ring_contract_gemm`` (its rings of 16-wide k
 chunks filled by a producer warp on a full and an empty mbarrier a slot,
-with TMA where :func:`gemm_ring_route` finds the layout allows it), R4 ``ring_contract_gemv`` (with the relu drain), R6
+with TMA where :func:`gemm_ring_route` finds the layout allows it), R4
+``ring_contract_gemv`` (with the relu drain; 8 rows of A and the x block a
+step, filled by a ninth warp on mbarriers, persistent CTAs on runs of whole
+output blocks, :func:`ring_run_steps`), R6
 ``ring_chain_elem`` (every program of K5), R7 ``ring_dag_layernorm``, R8
 ``ring_dag_softmax_xent`` and R9 ``ring_dag_mlp`` (every instantiation of
 K6–K8; R9's ring of step blocks feeds K8's 128-row tile), R10
@@ -141,6 +146,7 @@ from typing import (Any, Callable, Dict, Iterable, NamedTuple, Optional,
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .agu import (SSR_MAX_AXES, BlockAGU, RingProgram, StreamGeometry,
                   grid_steps)
@@ -459,16 +465,18 @@ def _lib(name: str) -> ctypes.CDLL:
 #: (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, at the dynamic
 #: shared memory it is given).
 _OCCUPANCY_ATTRIBUTES = ("contract_gemm", "ring_contract_gemm", "base_gemm",
-                         "ring_reduce_mul", "ring_map_relu")
+                         "ring_reduce_mul", "ring_map_relu",
+                         "ring_contract_gemv")
 
 
 def kernel_attributes(name: str, smem: int = 0) -> Dict[str, int]:
     """Registers a thread (``numRegs``) and local, spilled bytes a thread
     (``localSizeBytes``) of kernel ``name`` as ``cudaFuncGetAttributes``
     reads them on the current card: K12, K13, R13 and R14 report them; K3,
-    R3, B3, R1 and R2 also their CTAs an SM (``ctasPerSm``) at ``smem``
-    bytes of dynamic shared memory (the ring and its barriers of R3, R1 and
-    R2, at their main path's instantiation; K3 and B3 take their own)."""
+    R3, B3, R1, R2 and R4 also their CTAs an SM (``ctasPerSm``) at ``smem``
+    bytes of dynamic shared memory (the ring and its barriers of R3, R1, R2
+    and R4, at their main path's instantiation; K3 and B3 take their
+    own)."""
     fn = getattr(_lib(name), f"ssr_{name}_attributes")
     occupancy = name in _OCCUPANCY_ATTRIBUTES
     fn.argtypes = [ctypes.POINTER(ctypes.c_int64),
@@ -876,7 +884,7 @@ def _device_ring(name: str, geo: StreamGeometry, ring: RingProgram,
 
 
 def _itemsize(dtype: torch.dtype) -> int:
-    return torch.empty((), dtype=dtype).element_size()
+    return dtype.itemsize
 
 
 def gather_slot_width(geo: StreamGeometry) -> int:
@@ -906,6 +914,23 @@ def _ctas_per_sm(smem: int, most: int) -> int:
 #: (288 threads, built for five CTAs an SM at 40 registers a thread).
 _RING_PER_SM = {"ring_gather_spmv": 4, "ring_gather_spmm": 3,
                 "ring_stream_scan": 8, "ring_reduce_mul": 5}
+#: The most CTAs an SM of R4 (288 threads), by input dtype: its bf16 bulk
+#: route is built for 4 (at most 56 registers a thread), whose steps are
+#: half f32's and need the CTAs; f32 and the element routes for 3 (72).
+GEMV_RING_PER_SM = {torch.float32: 3, torch.bfloat16: 4}
+#: R4's split (:func:`_gemv_runs`), fitted to the splits measured on an
+#: H100 (``tools/gemv_spmv_ablation.py``, the 8192² gemv cell): a
+#: persistent CTA's step of 8 rows takes about GEMV_STEP_US whatever its
+#: ring's depth (0.83–0.88 µs at one CTA an SM, up to 1.3 at two in bf16;
+#: 1.2 picks the fastest one-wave split at every depth there), and the
+#: card streams at most GEMV_CARD_BYTES_PER_US of A (2.8 TB/s, K4's and
+#: R4's best).  Only one-wave splits are weighed: K4's split (one output
+#: block a CTA, in waves) led them by 1.7 % on the mean at f32 depth 4
+#: over thirteen runs (tied in some) but lost by 1–5 % at (2, 4) and
+#: (4, 2), at the same split and CTAs an SM, by 11–14 % at depth 8 and by
+#: 1–7 % in bf16.
+GEMV_STEP_US = 1.2
+GEMV_CARD_BYTES_PER_US = 2.8e6
 
 
 def _k_split(steps: int, ctas: int) -> Tuple[int, int]:
@@ -928,27 +953,58 @@ def _fewest_on_an_sm(units: int, per_sm: int, sms: int) -> int:
                key=busiest)
 
 
+def _gemv_runs(groups: int, blocks: int, z: int, step_bytes: int,
+               per_sm: int, sms: int) -> int:
+    """The output blocks (of ``z`` steps of ``step_bytes``) a persistent
+    CTA of R4 walks when each of ``groups`` row groups cuts its ``blocks``
+    into runs of one length, one run a CTA: of the lengths that keep every
+    CTA in one wave at ``per_sm`` CTAs on each of ``sms`` SMs, the one
+    whose busiest SM, the CTAs dealt out evenly, takes the least time --
+    the longer of its bytes at the card's rate shared out by SM and its
+    busiest CTA's steps at :data:`GEMV_STEP_US` each (the shorter run, so
+    the more CTAs, where two tie); all of a group's blocks where no length
+    fits one wave."""
+    sm_rate = GEMV_CARD_BYTES_PER_US / sms
+
+    def cost(per: int) -> Tuple[float, int]:
+        ctas = groups * -(-blocks // per)
+        steps = -(-ctas // sms) * per * z       # the busiest SM's
+        return max(steps * step_bytes / sm_rate, per * z * GEMV_STEP_US), per
+    runs = range(1, min(blocks, per_sm * sms // groups) + 1)
+    return min((-(-blocks // r) for r in runs), key=cost, default=blocks)
+
+
+@functools.lru_cache(maxsize=256)
 def ring_run_steps(rname: str, geo: StreamGeometry, ring: RingProgram,
                    dtype: torch.dtype, sms: int) -> int:
     """The grid steps a CTA of the persistent ring kernel ``rname`` (R1,
-    R13, R14 or R15) walks, consecutive, on a card of ``sms`` SMs: whole
-    runs of K1's split (R1: its partials are K1's), the output blocks
-    (R13, R14: whole ones, of ``contraction_steps`` steps each) or
+    R4, R13, R14 or R15) walks, consecutive, on a card of ``sms`` SMs:
+    whole runs of K1's split (R1: its partials are K1's), the output blocks
+    (R4, R13, R14: whole ones, of ``contraction_steps`` steps each) or
     SCAN_TILE tiles (R15: four of the Launch's (8, 128) blocks each)
     spread over as many CTAs as fit the SMs beside their rings.  R1's runs
     are coarse (K1's 8 CTAs an SM), so it takes, of the splits into 1 to
     that many CTAs an SM, the one whose busiest SM walks the fewest runs;
-    R13 and R14 give each row group (and R14's column chunk) the same
-    number of runs, as many as fit that count.  So no CTA waits for a
-    second wave.  The wrapper launches that split; the plain ring takes it
-    as ``steps_per_cta``."""
+    R4 takes, for each of its 8-row groups, the run of output blocks whose
+    busiest SM takes the least time (:func:`_gemv_runs`); R13 and R14
+    give each row group (and R14's column chunk) the same number of runs,
+    as many as fit that count.  So no CTA waits for a second wave.  The
+    wrapper launches that split; the plain ring takes it as
+    ``steps_per_cta``.  Memoized: a wrapper asks at every call."""
     dr = device_ring(rname, geo, ring, dtype)
     smem = dr.ring_bytes + _staged_bytes(rname, (), geo)
-    per_sm = _ctas_per_sm(smem, _RING_PER_SM[rname])
+    most = GEMV_RING_PER_SM[dtype] if rname == "ring_contract_gemv" \
+        else _RING_PER_SM[rname]
+    per_sm = _ctas_per_sm(smem, most)
     ctas = per_sm * sms
     if rname == "ring_reduce_mul":
         runs, per = _k_split(geo.steps, REDUCE_PER_SM * sms)
         return _fewest_on_an_sm(runs, per_sm, sms) * per
+    if rname == "ring_contract_gemv":
+        z = geo.contraction_steps
+        groups = -(-geo.ins[0].block[0] // GEMV_RING_ROWS)
+        step = (GEMV_RING_ROWS + 1) * geo.ins[0].block[1] * _itemsize(dtype)
+        return _gemv_runs(groups, geo.steps // z, z, step, per_sm, sms) * z
     if rname == "ring_stream_scan":
         per = SCAN_TILE // (ROWS * LANES)
         tiles = -(-geo.steps // per)
@@ -988,12 +1044,13 @@ def _staged_bytes(rname: str, ops: Sequence[str],
     """The shared memory ring kernel ``rname`` takes besides its ring,
     running the stage ``ops``: R9 stages K8's weights and tile but for the
     residual alone; R12 its p tile (Q is in its ring, one tile); R3 and R13
-    their slots' barriers; R2 its slots' barriers and R1 those and its warp
-    sums; R15 its third pass's tile of sums (K14's float tile); the others
-    nothing."""
+    their slots' barriers; R2 and R4 their slots' barriers and R1 those and
+    its warp sums; R15 its third pass's tile of sums (K14's float tile);
+    the others nothing."""
     if rname == "ring_dag_mlp" and tuple(ops) != ("mlp_residual",):
         return MLP_STAGED_BYTES
-    if rname in ("ring_contract_gemm", "ring_gather_spmv", "ring_map_relu"):
+    if rname in ("ring_contract_gemm", "ring_gather_spmv", "ring_map_relu",
+                 "ring_contract_gemv"):
         return RING_BARRIER_BYTES
     if rname == "ring_reduce_mul":
         return RING_BARRIER_BYTES + STAGE_SUM_BYTES
@@ -1011,6 +1068,7 @@ _STAGED_WHAT = {"ring_dag_mlp": "its staged weights and tile",
                 "ring_contract_gemm": "its slots' barriers",
                 "ring_gather_spmv": "its slots' barriers",
                 "ring_map_relu": "its slots' barriers",
+                "ring_contract_gemv": "its slots' barriers",
                 "ring_reduce_mul": "its slots' barriers and warp sums",
                 "ring_stream_scan": "its tile of sums"}
 
@@ -1372,26 +1430,28 @@ def contract_gemv(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
     """K4: y block (1, tm) += A block (tm, tn) · x block (1, tn)ᵀ; with
     ``relu`` the drain writes max(0, y) (selected, as K2 does), once per
     output block, never to a partial.  With ``ring`` (a pipelined call) R4,
-    each CTA on a run of whole output blocks: one where the contraction
-    takes several steps (K4's split), else as many as spread the blocks
-    over 8 CTAs an SM, so that the ring has steps to run ahead over."""
+    a filling warp on mbarriers, its persistent CTAs each on a run of whole
+    output blocks of its 8 rows (:func:`ring_run_steps`), all in one
+    wave."""
     # A is read in 16-byte packs where it can be; x is staged element-wise
     vec = _vector_width(layouts[:1], geo.ins[:1])
+    if ring is not None and vec > 1:
+        # R4's bulk route copies x's blocks in 16-byte packs too: a view
+        # off a 16-byte boundary is copied once
+        layouts = (layouts[0], _aligned16(layouts[1]))
 
     def args(dev):
         if ring is None:
             return "contract_gemv", (vec,), (int(relu),)
-        z = geo.contraction_steps
-        groups = -(-geo.ins[0].block[0] // GEMV_RING_ROWS)
-        blocks = geo.steps // z
-        per_run = 1
-        if z == 1:
-            sms = _card(dev).multi_processor_count
-            per_run = min(blocks, -(-(blocks * groups) // (8 * sms)))
-        dr = device_ring("ring_contract_gemv", geo, ring, layouts[0].dtype)
+        dtype = layouts[0].dtype
+        dr = device_ring("ring_contract_gemv", geo, ring, dtype)
+        run = ring_run_steps("ring_contract_gemv", geo, ring, dtype,
+                             _card(dev).multi_processor_count)
         xvec = int(_vector_width(layouts[1:], geo.ins[1:]) > 1)
         return "ring_contract_gemv", (vec, xvec), (
-            per_run, int(relu), ctypes.byref(_ring_arg(dr)), dr.ring_bytes)
+            run // geo.contraction_steps, int(relu),
+            ctypes.byref(_ring_arg(dr)),
+            dr.ring_bytes + _staged_bytes("ring_contract_gemv", (), geo))
 
     return _contract("contract_gemv", geo, layouts, out_dtype, acc_dtype,
                      program, ring,
@@ -1597,9 +1657,10 @@ def _checked_gather(name: str, geo: StreamGeometry,
                     layouts: Sequence[torch.Tensor], program: Optional[Any],
                     ring: Optional[RingProgram] = None) -> torch.device:
     """What K12 and K13 take: f32 values and table, an int32 index stream,
-    contiguous 2-D layouts on one CUDA device, inside their walks; with
-    ``ring``, what their ring kernel R13 or R14 takes (its ring within the
-    shared memory a CTA may opt into)."""
+    contiguous 2-D layouts on one CUDA device, inside their walks (K12's
+    vals and cidx inside the gather's extent: the unpadded (m, k) planes);
+    with ``ring``, what their ring kernel R13 or R14 takes (its ring within
+    the shared memory a CTA may opt into)."""
     for t in layouts:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: launches on CUDA tensors, got "
@@ -1614,15 +1675,52 @@ def _checked_gather(name: str, geo: StreamGeometry,
     _checked_operands(name, (cidx,), (torch.int32,))
     if cidx.device != dev:
         raise ValueError(f"{name}: operand 1 on {cidx.device}, not {dev}")
-    for k, (t, agu) in enumerate(zip(layouts, geo.ins)):
-        agu.check_within(geo.grid, tuple(t.shape), f"{name}[{k}]")
+    check_gather_walks(name, geo, [tuple(t.shape) for t in layouts], ring)
     reason = _refusal(name, geo, vals.dtype, dev) if ring is None else \
-        _ring_refusal(("nest", "spmv" if name == "gather_spmv" else "spmm"),
+        _ring_refusal(_gather_key(name),
                       name, geo, vals.dtype, ring)
     if reason is not None:
         raise ValueError(reason)
     geo.out.check_within(geo.grid, geo.out_shape, f"{name}[out]")
     return dev
+
+
+#: The device kernels, by their :data:`DEVICE_KERNELS` key, that read a
+#: gather nest's read streams as their operands' unpadded (rows, cols)
+#: planes, at the planes' own pitch and bounded by the gather's extent,
+#: when they run unpipelined on the card: K12 (``pack_ell``'s (m, k)
+#: planes, no layout copy).  Their ring kernels (R13) and every other
+#: kernel read the lowering's padded layouts.
+PLANE_KERNELS = frozenset({("nest", "spmv")})
+
+
+def takes_planes(key: tuple, ring: Optional[RingProgram] = None) -> bool:
+    """Whether the device kernel of ``key`` (its ring kernel, with
+    ``ring``) reads unpadded planes (:data:`PLANE_KERNELS`)."""
+    return key in PLANE_KERNELS and ring is None
+
+
+def _gather_key(name: str) -> tuple:
+    """The :data:`DEVICE_KERNELS` key of gather kernel ``name`` (K12, K13)."""
+    return ("nest", name.removeprefix("gather_"))
+
+
+def check_gather_walks(name: str, geo: StreamGeometry,
+                       shapes: Sequence[Tuple[int, ...]],
+                       ring: Optional[RingProgram] = None) -> None:
+    """Raise unless each of gather kernel ``name``'s layouts (their
+    ``shapes``) holds what it reads: every block of its walk, but where the
+    kernel :func:`takes_planes` (K12), whose vals and cidx need hold only
+    the gather's extent -- the unpadded (m, k) planes it reads at pitch k
+    (:meth:`BlockAGU.check_extent_within`).  R13, R14 and K13 read whole
+    slots or rows of the padded layouts."""
+    planes = takes_planes(_gather_key(name), ring)
+    for k, (shape, agu) in enumerate(zip(shapes, geo.ins)):
+        if planes and k < 2:
+            agu.check_extent_within(geo.grid, tuple(shape),
+                                    geo.gathers[0].extent, f"{name}[{k}]")
+        else:
+            agu.check_within(geo.grid, tuple(shape), f"{name}[{k}]")
 
 
 def _gather_args(name: str, geo: StreamGeometry,
@@ -1673,8 +1771,10 @@ def gather_spmv(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                 ring: Optional[RingProgram] = None) -> torch.Tensor:
     """K12: y block (1, tm) = Σ over the contraction steps and the index
     block's columns of vals·x[clip(scale·cidx + offset)], f32; a group of
-    four threads per row reads only the positions holding data.  With
-    ``ring`` (a pipelined call) R13 (:func:`ring_gather_spmv`)."""
+    four threads per row reads only the positions holding data, at the
+    planes' pitch: ``pack_ell``'s (m, k) planes on the card
+    (:data:`PLANE_KERNELS`), or padded layouts (:func:`check_gather_walks`).  With ``ring`` (a pipelined call)
+    R13 (:func:`ring_gather_spmv`), on the padded layouts."""
     if ring is not None:
         return ring_gather_spmv(geo, layouts, out_dtype, acc_dtype, program,
                                 ring)
@@ -2887,6 +2987,7 @@ def _plain_gather_contract(body: Callable, geo: StreamGeometry,
     from the step that computes.
     """
     n_s = len(geo.ins) - len(geo.gathers)     # the tables trail
+    layouts = _walk_layouts(geo, layouts)
     dev = layouts[0].device
     z = geo.contraction_steps
     per_step = sum(math.prod(g.tiles) * math.prod(geo.ins[g.index].block)
@@ -2917,6 +3018,23 @@ def _plain_gather_contract(body: Callable, geo: StreamGeometry,
         idx = geo.out.element_index(geo.grid, geo.out_shape, dev, at[::z])
         out.view(-1)[idx] = drain(parts).to(out_dtype)
     return out
+
+
+def _walk_layouts(geo: StreamGeometry,
+                  layouts: Sequence[torch.Tensor]) -> list:
+    """The layouts, each narrower than its stream's walk (K12's unpadded
+    planes) zero-padded to it, as the lowering pads them: the plain
+    version reads whole blocks, and the positions past the planes hold
+    (0.0, 0), outside the gather's extent, whatever their pitch."""
+    out = []
+    for t, agu in zip(layouts, geo.ins):
+        if t.dim() == 2:
+            (_, rows), (_, cols) = agu.span(geo.grid)
+            if rows > t.shape[0] or cols > t.shape[1]:
+                t = F.pad(t, (0, max(0, cols - t.shape[1]),
+                              0, max(0, rows - t.shape[0])))
+        out.append(t)
+    return out + list(layouts[len(geo.ins):])
 
 
 def _batched(block: torch.Tensor, dim: Optional[int],

@@ -447,7 +447,19 @@ class NestStream:
             pads += (0, p - l)
         if any(pads):
             view = F.pad(view, pads)
+            LAYOUT_COPIES["padded"] += 1
         return view.reshape(*lead, *self.layout_shape)
+
+    def plane(self, arr: torch.Tensor) -> torch.Tensor:
+        """``arr`` as its (rows, cols) logical plane, unpadded: a view of a
+        contiguous operand, which a kernel reading its rows at pitch cols
+        takes as it is (K12's ELL planes, :func:`device_layouts`)."""
+        if len(self.logical_shape) != 2 or \
+                arr.numel() != math.prod(self.logical_shape):
+            raise ValueError(
+                f"stream '{self.name}': operand of shape {tuple(arr.shape)} "
+                f"is no plane of logical shape {self.logical_shape}")
+        return arr.reshape(self.logical_shape)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1182,12 +1194,16 @@ def _trim_output(out: torch.Tensor, bounds: Tuple[int, ...], mode: str,
 @dataclasses.dataclass(frozen=True)
 class PreparedCall:
     """One ``ssr_call`` up to the launch: the built kernel, its operands in
-    their padded layouts, and what trims the kernel's output."""
+    the layouts it reads (padded, or the unpadded planes where
+    :attr:`planes`), and what trims the kernel's output."""
 
     kernel: SsrKernel
     layouts: Tuple[torch.Tensor, ...]
     lowered: Any                     # LoweredPlan | LoweredNest
     bounds: Tuple[int, ...]
+    #: whether the read streams' layouts are their operands' unpadded
+    #: planes (a kernel that takes them, on the card: :func:`device_layouts`)
+    planes: bool = False
 
     def finish(self, out: torch.Tensor) -> torch.Tensor:
         if self.kernel.mode == "nest":
@@ -1197,6 +1213,17 @@ class PreparedCall:
 
     def run(self) -> torch.Tensor:
         return self.finish(self.kernel(*self.layouts))
+
+    def padded_layouts(self) -> Tuple[torch.Tensor, ...]:
+        """:attr:`layouts` with every read stream in its padded layout:
+        what the kernels that read whole blocks take (R13, on a call whose
+        K12 reads the unpadded planes); :attr:`layouts` themselves where
+        they are padded already."""
+        if not self.planes:
+            return self.layouts
+        n = len(self.lowered.in_streams) + len(self.lowered.gathers)
+        return stream_layouts(self.lowered, self.layouts[:n]) + \
+            self.layouts[n:]
 
 
 def build_kernel(lowered: Any, body: Callable, mode: str,
@@ -1238,13 +1265,22 @@ def _uniform_sig(items: Tuple[Tuple[str, torch.Tensor], ...]) -> Tuple:
     return tuple((nm, tuple(a.shape), a.dtype) for nm, a in items)
 
 
+#: Read streams laid out by a copy into their padded layouts (the
+#: ``F.pad`` of :meth:`NestStream.prepare`); the card's K12 takes a
+#: gather's planes as they are and adds none (:func:`device_layouts`).
+LAYOUT_COPIES: Dict[str, int] = {"padded": 0}
+
+
 def stream_layouts(lowered: Any, arrays: Sequence[torch.Tensor],
-                   lead: Tuple[int, ...] = ()) -> Tuple[torch.Tensor, ...]:
+                   lead: Tuple[int, ...] = (),
+                   planes: bool = False) -> Tuple[torch.Tensor, ...]:
     """Each read stream's padded layout of its operand (with ``lead``
     leading batch dims on a level-mapped call).  A halo'd ref's shifted
     streams address one layout, laid out once and shared.  Arrays past the
     read streams are the gather tables, in ``lowered.gathers`` order: each
-    is passed whole, as its contiguous ≥2-D view."""
+    is passed whole, as its contiguous ≥2-D view.  With ``planes`` (a call
+    with gathers) the read streams are their operands' unpadded (rows,
+    cols) planes instead (:meth:`NestStream.plane`)."""
     n_in = len(lowered.in_streams)
     gathers = getattr(lowered, "gathers", ())
     if len(arrays) != n_in + len(gathers):
@@ -1258,11 +1294,29 @@ def stream_layouts(lowered: Any, arrays: Sequence[torch.Tensor],
     for k, (s, a) in enumerate(zip(lowered.in_streams, arrays)):
         if k in twin:
             out.append(out[twin[k]])
+        elif planes and gathers:
+            out.append(s.plane(a))
         else:
             out.append(s.prepare(a, lead) if lead else s.prepare(a))
     for t in arrays[n_in:]:
         out.append(t.reshape(_table_view_shape(tuple(t.shape))).contiguous())
     return tuple(out)
+
+
+def device_layouts(kernel: Any, lowered: Any,
+                   arrays: Sequence[torch.Tensor],
+                   dev: torch.device) -> Tuple[torch.Tensor, ...]:
+    """The layouts ``kernel`` runs on, on ``dev``: the padded layouts of
+    :func:`stream_layouts`, but on a CUDA device for a kernel that
+    :attr:`~SsrKernel.takes_planes` (K12), which reads the operands'
+    unpadded planes as they are (no layout copy).  The CPU executor takes
+    the padded layouts.  Pure: it reads ``dev``'s type and touches no
+    device."""
+    return stream_layouts(lowered, arrays, planes=_on_planes(kernel, dev))
+
+
+def _on_planes(kernel: Any, dev: torch.device) -> bool:
+    return torch.device(dev).type == "cuda" and kernel.takes_planes
 
 
 def _prepare(nest: LoopNest, body: Callable, operands: Dict[str, Any],
@@ -1297,9 +1351,11 @@ def _prepare(nest: LoopNest, body: Callable, operands: Dict[str, Any],
                   for a in arrays[len(lowered.in_streams):]))
         DISPATCH_STATS["builds"] += 1
         _kernel_cache_put(key, kernel)
-    layouts = stream_layouts(lowered, arrays)
+    planes = _on_planes(kernel, dev)
+    layouts = stream_layouts(lowered, arrays, planes=planes)
     return PreparedCall(kernel=kernel, layouts=layouts + tuple(
-        a for _, a in uni), lowered=lowered, bounds=tuple(nest.bounds))
+        a for _, a in uni), lowered=lowered, bounds=tuple(nest.bounds),
+        planes=planes)
 
 
 #: ``ssr_call``'s resolved schedules: (epoch, nest, operand shapes and

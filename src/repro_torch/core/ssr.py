@@ -362,6 +362,14 @@ class SsrKernel:
         return agu.RingProgram(depths=self.depths, invariant=self.invariant)
 
     @property
+    def takes_planes(self) -> bool:
+        """Whether the card's kernel reads the read streams as their
+        operands' unpadded planes, not their padded layouts
+        (:func:`hopper.takes_planes`: K12, not R13)."""
+        return hopper.takes_planes(self.device_key,
+                                   self.ring if self.pipelined else None)
+
+    @property
     def plain_kind(self) -> str:
         """The key of this kernel's plain version in :data:`hopper.PLAIN`."""
         return "rescale" if self.rescale else self.mode

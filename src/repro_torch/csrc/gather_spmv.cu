@@ -8,30 +8,65 @@
 // whole table as a revisited invariant block, lowering.py:1546-1558), and
 // the body repro/kernels/sparse.py:_body_spmv.  For HPCG's 27-point operator
 // on a 128^3 grid the default lowering gives grid (4096, 1), (parallel,
-// arbitrary), vals and cidx blocks (512, 128) of (m, 128) layouts, y (1, 512).
+// arbitrary) and vals and cidx blocks (512, 128); on the card the wrapper
+// hands this kernel pack_ell's (m, 27) planes as they are, at pitch 27 (no
+// layout copy), and y (1, 512) blocks.
 //
 // Bound on H100: bytes.  vals and cidx at their logical width k, x and y
 // once each (448 MiB for HPCG 128^3: 0.140 ms at 3.35 TB/s).  x (8 MiB) is
 // gathered through the 50 MB L2 and the read-only path.
 //
-// Design.  The lowering pads k = 27 to a 128-lane tile; reading the whole
-// tile would move 4.7x the bytes.  So the kernel reads only the positions of
-// the index block that hold data -- the extent (valid_rows, valid_cols) of
-// cidx's layout, from the nest -- and skips the rest, whose vals are 0.  The
-// TPU's grid step is one CTA of 256 threads per 64 rows of the lowered row
-// block; a row of 27 entries would leave most of a warp idle, so a row gets
-// a group of 4 threads (an eighth of a warp: eight rows under each warp
-// load, which beat 1, 2, 8 and 16 threads a row on HPCG's operator), each
-// loading four of its entries (vals and cidx) before it issues their four
-// gathers.  The contraction steps (k beyond one lane tile) run as a loop
-// inside the CTA, the sum carried in registers; the group folds its sums by
-// shuffles and writes y once.  Addresses are 64-bit and clipped into the
-// table, as the reference clips them, so nothing is read outside it.
+// Design.  The lowered block is 128 lanes wide and k = 27, so the kernel
+// reads only the positions of the index block that hold data -- the
+// extent (valid_rows, valid_cols) of cidx's layout, from the nest -- on
+// planes of any pitch: the unpadded (m, k) planes the card's wrapper
+// hands it (rows back to back, 108 bytes each: a warp's 8 rows are one
+// run of 864 bytes) or the lowering's padded (m, 128) layouts (a row's 108
+// bytes 512 apart).  The TPU's grid step is one CTA of 256 threads per 64
+// rows of the lowered row block; a row of 27 entries would leave most of
+// a warp idle, so a row gets a group of 4 threads (an eighth of a warp:
+// eight rows under each warp load), entry j on thread j mod 4, each
+// loading up to kRowPer of its entries (vals and cidx) before it issues
+// their gathers (gather::spmv_row, in the order of j whatever kRowPer:
+// R13's order too, so R13 keeps K12's bits).  A thread's whole share is
+// about 7 entries, so what it does once counts (measured on an H100,
+// tools/gemv_spmv_ablation.py, PERF.md): its CTA's place in the grid and
+// the walk's odometer are unflattened once, in 32-bit arithmetic, the
+// drain's block origin taken from the same odometer; and a grid of one
+// column step (k within one lane tile, as HPCG's) skips the loop over
+// steps, so no walk stays live in registers.  Staging a CTA's rows through
+// shared memory by one bulk copy a plane, a CTA walking several 64-row
+// groups, a rolled loop of one entry at a time and loads cached in L2
+// only all measured slower.  The contraction steps (k beyond one lane
+// tile) run as a loop inside the CTA, the sum carried in registers; the
+// group folds its sums by shuffles and writes y once.  Addresses are
+// 64-bit and clipped into the table, as the reference clips them, so
+// nothing is read outside it.
 #include "ssr_gather.cuh"
 
 namespace {
 
 using namespace gather;
+
+// Entries a thread holds before their gathers (spmv_row's kPer): eight,
+// so a row of 27 is one round of loads and gathers a thread.
+constexpr int kRowPer = 8;
+
+// The odometer at `step`, unflattened in 32-bit arithmetic (the entry
+// holds the grid under 2**31 steps).
+__device__ __forceinline__ SsrOdometer odometer32(const SsrGrid& grid,
+                                                  unsigned step) {
+  SsrOdometer odo(grid, 0);
+#pragma unroll
+  for (int k = SSR_MAX_AXES - 1; k >= 0; --k) {
+    if (k < grid.ndim) {
+      const unsigned d = static_cast<unsigned>(grid.dims[k]);
+      odo.g[k] = step % d;
+      step /= d;
+    }
+  }
+  return odo;
+}
 
 __global__ void __launch_bounds__(kThreads)
     gather_spmv_kernel(const float* __restrict__ vals,
@@ -41,26 +76,33 @@ __global__ void __launch_bounds__(kThreads)
                        int64_t zsteps, int64_t groups, int64_t scale,
                        int64_t offset, int64_t table_elems, int64_t valid_rows,
                        int64_t valid_cols) {  // groups: CTAs per row block
-  const int64_t p = blockIdx.x / groups;
-  const int64_t grp = blockIdx.x % groups;
+  const unsigned p = blockIdx.x / static_cast<unsigned>(groups);
+  const unsigned grp = blockIdx.x - p * static_cast<unsigned>(groups);
   const int t = threadIdx.x % kSpmvGroup;
   const int64_t tm = sc.block[0];
-  const int64_t r = grp * kSpmvRows + threadIdx.x / kSpmvGroup;  // row in block
+  const int64_t r = static_cast<int64_t>(grp) * kSpmvRows +
+                    threadIdx.x / kSpmvGroup;  // row in block
   const bool live = r < tm;
   float acc = 0.f;
 
-  SsrOdometer odo(g, p * zsteps);
-  for (int64_t z = 0; z < zsteps; ++z, odo.advance(g)) {
-    const int64_t row = odo.index(sc, 0) * tm + r;
-    const int64_t ncols = valid_cols_at(odo, sc, valid_cols);
-    if (!live || row >= valid_rows || ncols <= 0) continue;
-    acc = spmv_row<true>(vals + odo.origin(sv) + r * sv.pitch,
-                         cidx + odo.origin(sc) + r * sc.pitch, ncols, t, table,
-                         scale, offset, table_elems, acc);
+  SsrOdometer odo = odometer32(g, p * static_cast<unsigned>(zsteps));
+  // drain: y's block is (1, tm); its element (0, r) sits at origin + r
+  float* const py = y + odo.origin(sy);
+  auto step = [&](const SsrOdometer& at) {
+    const int64_t row = at.index(sc, 0) * tm + r;
+    const int64_t ncols = valid_cols_at(at, sc, valid_cols);
+    if (live && row < valid_rows && ncols > 0)
+      acc = spmv_row<true, kRowPer>(vals + at.origin(sv) + r * sv.pitch,
+                                    cidx + at.origin(sc) + r * sc.pitch, ncols,
+                                    t, table, scale, offset, table_elems, acc);
+  };
+  if (zsteps == 1) {   // one column step: no walk to keep live
+    step(odo);
+  } else {
+    for (int64_t z = 0; z < zsteps; ++z, odo.advance(g)) step(odo);
   }
   acc = spmv_fold(acc);
-  // drain: y's block is (1, tm); its element (0, r) sits at origin + r
-  if (live && t == 0) y[ssr_block_origin(sy, g, p * zsteps) + r] = acc;
+  if (live && t == 0) py[r] = acc;
 }
 
 }  // namespace
@@ -79,7 +121,8 @@ extern "C" int ssr_gather_spmv(const void* vals, const void* cidx,
   for (int k = 0; k < g->ndim; ++k) steps *= g->dims[k];
   const int64_t groups = (sc->block[0] + kSpmvRows - 1) / kSpmvRows;
   const int64_t ctas = (steps / zsteps) * groups;
-  if (ctas < 1 || ctas > 0x7fffffffLL || table_elems < 1)
+  if (ctas < 1 || ctas > 0x7fffffffLL || steps > 0x7fffffffLL ||
+      table_elems < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   gather_spmv_kernel<<<static_cast<unsigned>(ctas), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(

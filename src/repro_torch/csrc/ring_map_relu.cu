@@ -50,9 +50,8 @@ __global__ void __launch_bounds__(kThreads, kMinCtas)
   if (threadIdx.x == 0) init_ring(bars, static_cast<int>(ring.depth[0]), 0, kBulk);
   __syncthreads();   // the barriers are set: the steps begin
   if (warp == kComputeWarps) {   // the filling warp
-    if (kBulk && lane != 0) return;
-    fill_ring<T, kBulk, 1>(x, nullptr, slots, nullptr, tile, g, sx, sx, s0,
-                           run, ring, bars, lane);
+    fill_ring<T, kBulk, 1>({x, slots, tile, rows}, {}, g, sx, sx, s0, run,
+                           ring, bars, lane);
     return;
   }
   Reader rx(bars, ring, 0);

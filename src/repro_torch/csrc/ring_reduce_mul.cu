@@ -62,9 +62,8 @@ __global__ void __launch_bounds__(kThreads, kMinCtas)
               static_cast<int>(ring.depth[1]), kBulk);
   __syncthreads();   // the barriers are set: the steps begin
   if (warp == kComputeWarps) {   // the filling warp
-    if (kBulk && lane != 0) return;
-    fill_ring<T, kBulk, 2>(a, b, a_slots, b_slots, tile, g, sa, sb, s0, run,
-                           ring, bars, lane);
+    fill_ring<T, kBulk, 2>({a, a_slots, tile, rows}, {b, b_slots, tile, rows},
+                           g, sa, sb, s0, run, ring, bars, lane);
     return;
   }
   Reader ra(bars, ring, 0), rb(bars, ring, 1);

@@ -1,6 +1,6 @@
-// The stage rings of R1 ring_reduce_mul and R2 ring_map_relu: a filling
-// warp on mbarriers, and computing warps that meet no CTA barrier in the
-// step loop.
+// The stage rings of R1 ring_reduce_mul, R2 ring_map_relu and R4
+// ring_contract_gemv: a filling warp on mbarriers, and computing warps
+// that meet no CTA barrier in the step loop.
 //
 // Replaces, for the main path's dot and relu, the CTA-wide rotation of
 // ssr_ring.cuh, where every thread copies its share of each block with
@@ -16,10 +16,12 @@
 // far ahead as the depths let it (fill_ring), on one of two routes:
 //
 // * bulk (16-byte packs: every row start on 16 bytes and whole 16-byte
-//   rows): lane 0 copies a block with one cp.async.bulk where its rows are
-//   one contiguous run (pitch == width, as on the main path's cells), else
-//   one a row, all completing on the slot's `full` mbarrier
-//   (mbarrier::complete_tx::bytes after arrive.expect_tx);
+//   rows): lane 0 arms the slot's `full` mbarrier with the block's bytes
+//   (arrive.expect_tx) and copies the block with one cp.async.bulk where
+//   its rows are one contiguous run (pitch == width, as on R1's and R2's
+//   cells), else one a row -- all by lane 0 (R1, R2) or lane r copying
+//   row r (R4's rows of A, fill_ring's kLaneRows) -- all completing on
+//   `full` (mbarrier::complete_tx::bytes);
 // * elements (any other layout): the 32 lanes copy the block element by
 //   element -- cp.async of 4 bytes (f32, int32), each lane's copies then
 //   completing on `full` (cp.async.mbarrier.arrive.noinc), or loads and
@@ -91,19 +93,34 @@ __device__ __forceinline__ void init_ring(uint64_t* bars, int da, int db,
 }
 
 // One block (rows x cols of T, row pitch `pitch` in device memory) into
-// the slot `dst` (row stride cols), completing on `full`: by lane 0 on the
-// bulk route, by every lane of the filling warp on the elements route.
-template <typename T, bool kBulk>
+// the slot `dst` (row stride cols), completing on `full`.  On the bulk
+// route, lane 0 alone arms the barrier and copies the block (one copy, or
+// one a row); with kLaneRows every lane calls it, lane 0 arms and copies
+// a block that is one run, and otherwise lane r copies rows r, r + 32, ...
+// (a row may land before lane 0 arms: the phase waits for lane 0's
+// arrival, and the transaction count may run below zero meanwhile).  On
+// the elements route every lane copies its share.
+template <typename T, bool kBulk, bool kLaneRows>
 __device__ __forceinline__ void fill_block(T* dst, const T* src,
                                            int64_t pitch, int rows, int cols,
                                            uint64_t* full, int lane) {
-  if constexpr (kBulk) {
+  if constexpr (kBulk && !kLaneRows) {
     const unsigned row = static_cast<unsigned>(cols * sizeof(T));
     bar_arrive_expect(full, rows * row);
     if (pitch == cols) {
       bulk_copy(dst, src, rows * row, full);
     } else {
       for (int r = 0; r < rows; ++r)
+        bulk_copy(dst + r * cols, src + r * pitch, row, full);
+    }
+  } else if constexpr (kBulk) {
+    const unsigned row = static_cast<unsigned>(cols * sizeof(T));
+    if (lane == 0) bar_arrive_expect(full, rows * row);
+    if (pitch == cols) {
+      if (lane == 0) bulk_copy(dst, src, rows * row, full);
+    } else {
+#pragma unroll 1
+      for (int r = lane; r < rows; r += 32)
         bulk_copy(dst + r * cols, src + r * pitch, row, full);
     }
   } else if constexpr (sizeof(T) == 4) {
@@ -129,47 +146,85 @@ __device__ __forceinline__ void fill_block(T* dst, const T* src,
   }
 }
 
+// Where the filling warp puts one read stream: the first `rows` rows of
+// each of the stream's blocks, from `src` (the walk's origins added to
+// it), into slots `tile` elements apart.
+template <typename T>
+struct Fill {
+  const T* src;
+  T* slots;
+  int tile;
+  int rows;
+};
+
+// One stream's step q of fill_ring: wait until its readers released the
+// slot (from the stream's second round of slots on), fill it and move on
+// (an invariant stream fills step 0 into slot 0, once).
+template <typename T, bool kBulk, bool kLaneRows>
+__device__ __forceinline__ void fill_step(Fill<T> f, int cols,
+                                          const SsrStream& s,
+                                          const SsrGrid& g, gring::Walk& w,
+                                          Slots& p, bool invariant, int q,
+                                          uint64_t* full, uint64_t* empty,
+                                          int lane) {
+  if (invariant) {
+    if (q == 0)
+      fill_block<T, kBulk, kLaneRows>(f.slots, f.src + w.origin(s), s.pitch, f.rows,
+                           cols, full, lane);
+    return;
+  }
+  if (q >= p.depth) bar_wait(empty + p.at, p.parity ^ 1u);
+  fill_block<T, kBulk, kLaneRows>(f.slots + p.at * f.tile, f.src + w.origin(s),
+                       s.pitch, f.rows, cols, full + p.at, lane);
+  p.next();
+  w.advance(g);
+}
+
+// Whether lane `lane` of the filling warp copies any of a stream's blocks
+// (`rows` rows each): every lane on the elements route; on the bulk route
+// lane 0 and, with kLaneRows where the rows are not one run, a lane a row.
+template <bool kBulk, bool kLaneRows>
+__device__ __forceinline__ bool fills(const SsrStream& s, int rows,
+                                      int lane) {
+  return !kBulk || lane == 0 ||
+         (kLaneRows && s.pitch != s.block[1] && lane < rows);
+}
+
 // The filling warp's loop over a CTA's `run` consecutive steps from step
-// s0, for kStreams (1 or 2) read streams a and b: at virtual step u
-// stream i fills its step u + depth_i - 1 into the slot its readers
-// released at step u - 1 (an invariant stream its first step, once, into
-// slot 0).  On the bulk route only lane 0 calls it.
-template <typename T, bool kBulk, int kStreams>
+// s0, for kStreams (1 or 2) read streams a and b walked by sa and sb: at
+// virtual step u stream i fills its step u + depth_i - 1 into the slot its
+// readers released at step u - 1 (an invariant stream its first step,
+// once, into slot 0).  All 32 lanes call it; a lane with nothing to copy
+// leaves at once.  kLaneRows (R4's 8 rows of A a step, each its own copy)
+// spreads a block's row copies over the lanes: one lane issuing them all
+// made R4 11 % slower at depth 8.  R1 and R2 (a block one copy) keep lane
+// 0 alone: their short steps ran 6-9 % slower on the lanes' code path.
+template <typename T, bool kBulk, int kStreams, bool kLaneRows = false>
 __device__ __forceinline__ void fill_ring(
-    const T* __restrict__ a, const T* __restrict__ b, T* a_slots, T* b_slots,
-    int tile, const SsrGrid& g, const SsrStream& sa, const SsrStream& sb,
-    int64_t s0, int run, const SsrRing& ring, uint64_t* bars, int lane) {
-  const int rows = static_cast<int>(sa.block[0]);
-  const int cols = static_cast<int>(sa.block[1]);
+    Fill<T> fa, Fill<T> fb, const SsrGrid& g, const SsrStream& sa,
+    const SsrStream& sb, int64_t s0, int run, const SsrRing& ring,
+    uint64_t* bars, int lane) {
+  if (!fills<kBulk, kLaneRows>(sa, fa.rows, lane) &&
+      (kStreams < 2 || !fills<kBulk, kLaneRows>(sb, fb.rows, lane)))
+    return;
   const int da = static_cast<int>(ring.depth[0]);
   const int db = kStreams > 1 ? static_cast<int>(ring.depth[1]) : 0;
-  auto fill = [&](const T* src, const SsrStream& s, T* slots,
-                  gring::Walk& w, Slots& p, bool invariant, int q,
-                  uint64_t* full, uint64_t* empty) {
-    if (invariant) {
-      if (q == 0)
-        fill_block<T, kBulk>(slots, src + w.origin(s), s.pitch, rows, cols,
-                             full, lane);
-      return;
-    }
-    if (q >= p.depth) bar_wait(empty + p.at, p.parity ^ 1u);
-    fill_block<T, kBulk>(slots + p.at * tile, src + w.origin(s), s.pitch,
-                         rows, cols, full + p.at, lane);
-    p.next();
-    w.advance(g);
-  };
   gring::Walk wa(g, s0), wb(g, s0);
   Slots pa(da), pb(db > 0 ? db : 1);
   const bool ia = ring.invariant[0] != 0;
   const bool ib = kStreams > 1 && ring.invariant[1] != 0;
   const int dmax = da > db ? da : db;
+  const int ca = static_cast<int>(sa.block[1]);
+  const int cb = static_cast<int>(sb.block[1]);
   for (int u = 1 - dmax; u < run; ++u) {
     const int qa = u + da - 1, qb = u + db - 1;
     if (qa >= 0 && qa < run)
-      fill(a, sa, a_slots, wa, pa, ia, qa, bars, bars + 16);
+      fill_step<T, kBulk, kLaneRows>(fa, ca, sa, g, wa, pa, ia, qa, bars, bars + 16,
+                          lane);
     if constexpr (kStreams > 1)
       if (qb >= 0 && qb < run)
-        fill(b, sb, b_slots, wb, pb, ib, qb, bars + 8, bars + 24);
+        fill_step<T, kBulk, kLaneRows>(fb, cb, sb, g, wb, pb, ib, qb, bars + 8,
+                            bars + 24, lane);
   }
   if constexpr (!kBulk) asm volatile("cp.async.wait_all;\n" ::: "memory");
 }

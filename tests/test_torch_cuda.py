@@ -881,6 +881,42 @@ def test_gather_spmv(dev, case):
                   ("gather_spmv", "base_spmv"), data, indices, indptr, x, dev)
 
 
+@pytest.mark.parametrize("case", SPARSE_CASES)
+def test_gather_spmv_reads_pack_ell_planes_with_no_copy(dev, case):
+    """On the card K12 takes the (m, k) planes pack_ell made as they are
+    (the same storage, no padded layout copied), at pitch k, and gives its
+    plain version's result on them within SPARSE_LIMIT, beside its run on
+    the values doubled, which must read above it where the product is not
+    all zero; R13 at depth 4 on the padded layouts gives K12's bits."""
+    from repro_torch.kernels import sparse
+    data, indices, indptr, n = _csr_case(case, 8)
+    vals, cidx, m, k = sparse.pack_ell(*(torch.as_tensor(np.asarray(a),
+                                                         device=dev)
+                                         for a in (data, indices, indptr)), n)
+    g = torch.Generator(device=dev).manual_seed(n + 2)
+    x = torch.randn(n, generator=g, device=dev)
+    ops_ = {"vals": vals, "cidx": cidx, "x": x}
+    copies = lowering.LAYOUT_COPIES["padded"]
+    call = lowering.prepare_call(compiler.spmv_nest(m, k), sparse.SPMV, ops_,
+                                 device=dev)
+    assert lowering.LAYOUT_COPIES["padded"] == copies
+    assert call.layouts[0].data_ptr() == vals.data_ptr()
+    assert call.layouts[1].data_ptr() == cidx.data_ptr()
+    assert tuple(call.layouts[0].shape) == (m, k)
+    got = _sparse_check(call, dict(hopper.LAUNCHES), "gather_spmv")
+    want = call.finish(call.kernel.plain(call.layouts))
+    scale = call.finish(call.kernel.plain(tuple(t.abs()
+                                                for t in call.layouts)))
+    doubled = call.finish(call.kernel(2 * vals, cidx, call.layouts[2]))
+    ctrl = float(((doubled - want).abs() / (scale + 1e-30)).max())
+    assert (ctrl > SPARSE_LIMIT) == bool(want.any())
+    ring, launched = _forced_ring(call, 4, "ring_gather_spmv",
+                                  call.padded_layouts())
+    if ring is not None:
+        assert launched == {"ring_gather_spmv"}
+        assert torch.equal(ring.view(torch.int32), got.view(torch.int32))
+
+
 @pytest.mark.parametrize("c", [1, 17, 128, 200])
 @pytest.mark.parametrize("case", SPARSE_CASES)
 def test_gather_spmm(dev, case, c):
@@ -1454,6 +1490,60 @@ def test_ring_contract_gemv_is_k4_to_the_bit(dev, mn, body, depth):
     assert kr.pipelined and ring == {"ring_contract_gemv"} \
         and sync == {"contract_gemv"}
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("depth", RING_DEPTHS, ids=str)
+@pytest.mark.parametrize("mn", [(1024, 1536), (2048, 512), (8192, 8192)])
+@pytest.mark.parametrize("body", ["matvec", "matvec_relu"])
+@pytest.mark.parametrize("route", ["bulk", "elements"])
+def test_ring_contract_gemv_bf16_and_its_routes_are_k4_to_the_bit(
+        dev, route, body, mn, depth):
+    """R4 against K4 in bf16 (out f32) on both fill routes (a view one
+    element into its storage has no 16-byte rows: A's and x's element
+    copies), x that never moves at (2048, 512), persistent runs of several
+    output blocks on the 8192² cell; beside R4 on A's first block zeroed,
+    which must differ."""
+    from repro_torch.kernels import chained
+    m, n = mn
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    a = torch.randn(m * n + 1, generator=g, device=dev).bfloat16()
+    x = torch.randn(n + 1, generator=g, device=dev).bfloat16()
+    off = 1 if route == "elements" else 0
+    a, x = a[off:off + m * n].view(m, n), x[off:off + n]
+    fn = gemv.MATVEC if body == "matvec" else chained.MATVEC_RELU
+    nest = compiler.gemv_nest(m, n)
+    deep = lowering.prepare_call(nest, fn, {"A": a, "x": x},
+                                 schedule=_depth(depth))
+    kern = deep.kernel
+    assert kern.pipelined
+    vec = hopper._vector_width(deep.layouts[:1], kern.geometry.ins[:1])
+    assert (vec > 1) == (route == "bulk")
+    before = dict(hopper.LAUNCHES)
+    got = deep.run()
+    assert _launched(before) == {"ring_contract_gemv"}
+    before = dict(hopper.LAUNCHES)
+    want = lowering.prepare_call(nest, fn, {"A": a, "x": x}).run()
+    assert _launched(before) == {"contract_gemv"}
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    zeroed = deep.layouts[0].clone()
+    rows, cols = kern.geometry.ins[0].block
+    zeroed[:rows, :cols] = 0
+    control = deep.finish(kern(zeroed, *deep.layouts[1:]))
+    assert not torch.equal(control.view(torch.int32), want.view(torch.int32))
+    if mn == (8192, 8192):      # each CTA runs on across output blocks
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        run = hopper.ring_run_steps("ring_contract_gemv", kern.geometry,
+                                    kern.ring, torch.bfloat16, sms)
+        assert run > kern.geometry.contraction_steps
+
+
+def test_ring_contract_gemv_spills_nothing(dev):
+    """R4's every instantiation (f32 and bf16 in and out, both routes of
+    A) has no local bytes; its CTAs an SM at the gemv cell's depth-4 ring
+    are at least two."""
+    smem = 4 * (hopper.GEMV_RING_ROWS + 1) * 512 * 4 + hopper.RING_BARRIER_BYTES
+    got = hopper.kernel_attributes("ring_contract_gemv", smem)
+    assert got["localSizeBytes"] == 0 and got["ctasPerSm"] >= 2
 
 
 @pytest.mark.parametrize("depth", [3, 8, (2, 4)], ids=str)
@@ -2031,12 +2121,14 @@ def test_ring_gather_on_the_odd_inputs_is_its_k_kernel(dev, case, kind, c):
     its barriers) are over the budget."""
     sync, ring = GATHER_RING[kind]
     for extra in ({}, {"lanes_tile_factor": 1, "rows_tile_factor": 2}):
-        call = _gather_make(kind, case, c, dev, extra)(
-            lowering.DEFAULT_SCHEDULE)
+        make = _gather_make(kind, case, c, dev, extra)
+        call = make(lowering.DEFAULT_SCHEDULE)
         before = dict(hopper.LAUNCHES)
         want = call.run()
         assert _launched(before) == {sync}
-        got, launched = _forced_ring(call, 4, ring)
+        # the ring reads the padded layouts (K12 ran on pack_ell's planes)
+        padded = call.padded_layouts()
+        got, launched = _forced_ring(call, 4, ring, padded)
         if got is None:
             assert kind == "spmv" and case in ("row300", "row600")
             continue
@@ -2044,10 +2136,10 @@ def test_ring_gather_on_the_odd_inputs_is_its_k_kernel(dev, case, kind, c):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32))
         # vals' first block zeroed (a one-step grid moves no block, so
         # _zeroed_end_blocks would zero none)
-        vals = call.layouts[0].clone()
+        vals = padded[0].clone()
         rows, cols = call.kernel.geometry.ins[0].block
         vals[:rows, :cols] = 0
-        control, _ = _forced_ring(call, 4, ring, (vals, *call.layouts[1:]))
+        control, _ = _forced_ring(call, 4, ring, (vals, *padded[1:]))
         assert torch.equal(control.view(torch.int32),
                            want.view(torch.int32)) == (case == "zero")
 
