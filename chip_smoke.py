@@ -164,7 +164,7 @@ Phase 2 also drives the rings: ``ssr_dot``, ``ssr_relu`` (three dtypes),
 ``fused_stencil1d_relu``, ``ssr_stencil2d`` and ``ssr_flash_attention`` on
 attention_qwen3 and attention_d256 at depth 4, ``ops.spmv``,
 ``ops.sparse_gemv`` and ``ops.spmm`` under a committed depth-4 schedule and
-``scan.ssr_scan`` at depth 4 (R15's three device launches, counted by the
+``scan.ssr_scan`` at depth 4 (R15's one device kernel, counted by the
 profiler); each must launch its ring kernel (R1–R15) and no sync kernel,
 and each depth-2 call its sync kernel and no ring.
 
@@ -726,12 +726,16 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     # R4 at depth 4 on the gemv cell's 512-wide f32 blocks: 8 rows and x
     r4_smem = RING_MAIN_DEPTH["gemv"] * (hopper.GEMV_RING_ROWS + 1) * 512 * 4 \
         + hopper.RING_BARRIER_BYTES
+    # R15 at the scan's main-path depth: f32 tiles and its 512-byte header
+    r15_smem = GATHER_MAIN_DEPTH * hopper.SCAN_TILE * 4 + \
+        hopper.SCAN_RING_STAGED_BYTES
     attributes = {n: hopper.kernel_attributes(n) for n in (
         "gather_spmv", "gather_spmm", "ring_gather_spmv", "ring_gather_spmm",
         "contract_gemm", "base_gemm")}
     for n, smem_ in (("ring_contract_gemm", r3_smem),
                      ("ring_reduce_mul", r1_smem), ("ring_map_relu", r2_smem),
-                     ("ring_contract_gemv", r4_smem)):
+                     ("ring_contract_gemv", r4_smem),
+                     ("ring_stream_scan", r15_smem)):
         attributes[n] = hopper.kernel_attributes(n, smem_)
     # K3's two buffers as its entry counts them, beside the wrapper's count
     k3_smem = {str(dt): (hopper.kernel_smem_bytes("contract_gemm", dt),
@@ -996,8 +1000,8 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                        "spmv_baseline": {"base_spmv": 1},
                        "spmm": {"gather_spmm": 1},
                        "spmm_baseline": {"base_spmm": 1}}
-    # and K12 takes pack_ell's planes as they are: the spmv entries at the
-    # default schedule lay out no stream by a copy (K13 pads its planes)
+    # and K12 and K13 take pack_ell's planes as they are: the spmv and spmm
+    # entries at the default schedule lay out no stream by a copy
     emit({"phase": "sparse_launches",
           "launches": {key: per_call[key] for key in sparse_launches},
           "layout_copies": {key: copies[key] for key in sparse_launches}})
@@ -1005,8 +1009,8 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         raise SystemExit(f"chip_smoke: a sparse call launched other kernels "
                          f"than one K12/K13/B6/B7: "
                          f"{ {key: per_call[key] for key in sparse_launches} }")
-    if copies["spmv"] or copies["sparse_gemv"]:
-        raise SystemExit(f"chip_smoke: an spmv entry copied its planes into "
+    if copies["spmv"] or copies["sparse_gemv"] or copies["spmm"]:
+        raise SystemExit(f"chip_smoke: a sparse entry copied its planes into "
                          f"padded layouts: {copies}")
     # a stream call is one wrapper call of its kernel (three device launches
     # for a scan, one for the FFT cell, 28 for the sort cell: LAUNCHES and
@@ -1023,15 +1027,15 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                          f"{ {key: per_call[key] for key in stream_launches} }")
     # the device kernels of one sort_2p26 and one fft_2048_b32768 call,
     # counted by the profiler, against K16's and K15's Python schedules;
-    # one scan_2p26 call at GATHER_MAIN_DEPTH runs R15's three (its two
-    # ring passes and the one-CTA scan of the totals) and none of K14's
+    # one scan_2p26 call at GATHER_MAIN_DEPTH runs R15's one pass (after a
+    # memset of its state, which is no kernel) and none of K14's
     device_launches = count_device_launches({
         "sort": (lambda: ops.sort(xso, ssr=True),
                  len(bitonic.sort_passes(SORT_N)), SORT_MOST_LAUNCHES,
                  ("sort_pass",)),
         "fft": (lambda: ops.fft(fre, fim, ssr=True), 1, 1, ("fft_rows",)),
-        "prefix_sum_ring": (path["prefix_sum_ring"], 3, 3,
-                            ("ring_tile", "ssr_exclusive_offsets"))})
+        "prefix_sum_ring": (path["prefix_sum_ring"], 1, 1,
+                            ("ring_scan_tiles",))})
     # a call deeper than 2 launches its ring kernel and no K kernel; its
     # depth-2 twin launches its K kernel and no ring
     ring_launches = {key: per_call[key] for pair in RING_PATH.items()
@@ -2239,8 +2243,14 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         if cell == "scan_2p26":
             want = main["prefix_sum"]
             kname, rname = "stream_scan", "ring_stream_scan"
+            k_planes = True
         else:
-            want = gather_call(cell, 2).run()
+            k_call = gather_call(cell, 2)
+            want = k_call.run()
+            # K12 and K13 on pack_ell's planes, their rings on the padded
+            # layouts
+            k_planes = k_call.planes
+            del k_call
             kname = "gather_spmv" if cell == "spmv_hpcg" else "gather_spmm"
             rname = "ring_" + kname
         for depth in depths:
@@ -2276,10 +2286,11 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                 got = call.run()
                 ctrl = call.finish(call.kernel(*moving_blocks_zeroed(call)))
                 piped = kern.pipelined
-            c = {"exact": same_bits(got, want, torch.int32) and piped,
+            c = {"exact": same_bits(got, want, torch.int32) and piped
+                 and k_planes,
                  "control_differs": not same_bits(ctrl, want, torch.int32),
                  "abs_err": float((got - want).abs().max()), "limit": 0.0,
-                 "kernel": rname, "against": kname,
+                 "kernel": rname, "against": kname, "k_planes": k_planes,
                  "depths": list(depth) if isinstance(depth, tuple)
                  else [depth]}
             checks[key] = c
@@ -2289,11 +2300,82 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                               "result unchanged")
             del got, ctrl
         del want
-    # R14's spilled bytes held to R14_LOCAL_BYTES
+    # R14's spilled bytes held to R14_LOCAL_BYTES; R15 and K13 spill none
     local = attributes["ring_gather_spmm"]["localSizeBytes"]
     checks["ring_gather_spmm_local_bytes"] = {
         "exact": local <= R14_LOCAL_BYTES, "local_bytes": local,
         "local_limit": R14_LOCAL_BYTES, "abs_err": 0.0, "limit": 0.0}
+    for name in ("ring_stream_scan", "gather_spmm"):
+        local = attributes[name]["localSizeBytes"]
+        checks[f"{name}_local_bytes"] = {
+            "exact": local == 0, "local_bytes": local, "local_limit": 0,
+            "abs_err": 0.0, "limit": 0.0}
+
+    # R15 against K14 to the bit, both launched on the scan's Launch at
+    # each depth, whatever its grid (n = 1024 is one block, which the entry
+    # never stages): f32, bf16 and int32 (to ±2**30: int32's rounding) at n
+    # = 1024, 4096, 2**26 ± 1024 and depths 3, 4, 8, each n beside R15 on
+    # the input with its first block zeroed, which must differ; a vector of
+    # ±0 (every output +0, as K14's) and one holding a NaN; R15 on
+    # scan_2p26 five times, the same bits
+    def r15_and_k14(x_, depth):
+        arrays_, static_, _ = scan._prepare(x_)
+        lc_ = scan._launch(static_, *arrays_)
+        ring_ = hopper.RingProgram((depth,), (False,))
+        return (hopper.ring_stream_scan(lc_, arrays_[0], ring_)[0],
+                hopper.stream_scan(lc_, arrays_[0])[0])
+
+    def bits_diff(a_, b_) -> float:
+        d_ = (a_ - b_).abs()
+        return float(torch.nan_to_num(d_, nan=0.0).max())
+
+    for dt in (torch.float32, torch.bfloat16, torch.int32):
+        tag = str(dt).removeprefix("torch.")
+        for n_ in (1024, 4096, SCAN_N - 1024, SCAN_N + 1024):
+            if dt == torch.int32:
+                x_ = torch.randint(-(1 << 30), 1 << 30, (n_,), generator=gen,
+                                   device=dev, dtype=torch.int32)
+            else:
+                x_ = randn(n_).to(dt)
+            for depth in (3, 4, 8):
+                got, want = r15_and_k14(x_, depth)
+                checks[f"r15_{tag}_{n_}_{depth}"] = {
+                    "exact": same_bits(got, want, torch.int32),
+                    "abs_err": bits_diff(got, want), "limit": 0.0,
+                    "kernel": "ring_stream_scan", "against": "stream_scan"}
+            x_[:1024] = 0
+            ctrl = r15_and_k14(x_, GATHER_MAIN_DEPTH)[0]
+            if same_bits(ctrl, want, torch.int32):
+                failed.append(f"r15_{tag}_{n_}: the zeroed first block left "
+                              "the result unchanged")
+            del x_, got, want, ctrl
+    xz = torch.zeros(1 << 20, device=dev)
+    xz[torch.rand(1 << 20, generator=gen, device=dev) < 0.5] = -0.0
+    xnan = randn(1 << 20)
+    xnan[300_000] = float("nan")
+    for key, x_ in (("r15_signed_zeros", xz), ("r15_nan", xnan),
+                    ("r15_signed_zeros_bf16", xz.bfloat16())):
+        for depth in (3, 4, 8):
+            got, want = r15_and_k14(x_, depth)
+            c = {"exact": same_bits(got, want, torch.int32),
+                 "abs_err": bits_diff(got, want), "limit": 0.0,
+                 "kernel": "ring_stream_scan", "against": "stream_scan"}
+            flat = got.reshape(-1)       # the padded (rows, 128) layout
+            if key.startswith("r15_signed_zeros"):
+                c["exact"] &= not bool(torch.signbit(flat).any())
+            else:
+                c["exact"] &= bool(torch.isnan(flat[300_000:]).all()) and \
+                    not bool(torch.isnan(flat[:300_000]).any())
+            checks[f"{key}_{depth}"] = c
+    del xz, xnan
+    runs = [scan.ssr_scan(xsc, schedule=deep[GATHER_MAIN_DEPTH])
+            for _ in range(5)]
+    checks["r15_scan_2p26_five_runs"] = {
+        "exact": all(same_bits(r_, main["prefix_sum_ring"], torch.int32)
+                     for r_ in runs), "abs_err": max(
+            bits_diff(r_, main["prefix_sum_ring"]) for r_ in runs),
+        "limit": 0.0, "kernel": "ring_stream_scan"}
+    del runs
     # R13/R14 at depth 4 on the odd CSR inputs, against K12/K13 to the bit
     # (R13 on the padded layouts, K12 on pack_ell's planes); K12 against
     # its plain version within SPARSE_LIMIT, beside its run on the values
@@ -2315,26 +2397,28 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                     compiler.spmm_nest(ell[2], c_, ell[3], pitch_),
                     sparse.SPMM, ops_)
             want = call.run()
-            if prod == "spmv":
-                kern = call.kernel
-                scale_t = call.finish(kern.plain(tuple(
-                    t.abs() for t in call.layouts))) + 1e-30
-                plain_ = call.finish(kern.plain(call.layouts))
-                doubled = call.finish(kern(2 * call.layouts[0],
-                                           *call.layouts[1:]))
-                ctrl = rel_max(doubled, plain_, scale_t)
-                key = f"odd_k12_planes_{name}"
-                checks[key] = {
-                    "abs_err": float((want - plain_).abs().max()),
-                    "rel_err": rel_max(want, plain_, scale_t),
-                    "limit": SPARSE_LIMIT, "doubled_control": ctrl,
-                    "pitch": int(call.layouts[0].shape[1]),
-                    "exact": int(call.layouts[0].shape[1]) == ell[3],
-                    "kernel": "gather_spmv"}
-                errors["gather_spmv"] = max(errors.get("gather_spmv", 0.0),
-                                            checks[key]["abs_err"])
-                if bool(plain_.any()) and ctrl <= SPARSE_LIMIT:
-                    failed.append(f"{key}: limit above the doubled control")
+            # K12 and K13 on pack_ell's planes against their plain
+            # versions, beside their runs on the values doubled
+            kern = call.kernel
+            kname = f"gather_{prod}"
+            scale_t = call.finish(kern.plain(tuple(
+                t.abs() for t in call.layouts))) + 1e-30
+            plain_ = call.finish(kern.plain(call.layouts))
+            doubled = call.finish(kern(2 * call.layouts[0],
+                                       *call.layouts[1:]))
+            ctrl = rel_max(doubled, plain_, scale_t)
+            key = f"odd_{'k12' if prod == 'spmv' else 'k13'}_planes_{name}"
+            checks[key] = {
+                "abs_err": float((want - plain_).abs().max()),
+                "rel_err": rel_max(want, plain_, scale_t),
+                "limit": SPARSE_LIMIT, "doubled_control": ctrl,
+                "pitch": int(call.layouts[0].shape[1]),
+                "exact": int(call.layouts[0].shape[1]) == ell[3],
+                "kernel": kname}
+            errors[kname] = max(errors.get(kname, 0.0),
+                                checks[key]["abs_err"])
+            if bool(plain_.any()) and ctrl <= SPARSE_LIMIT:
+                failed.append(f"{key}: limit above the doubled control")
             before = dict(hopper.LAUNCHES)
             got, raised = forced_ring(call, GATHER_MAIN_DEPTH,
                                       call.padded_layouts())

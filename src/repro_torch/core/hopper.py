@@ -29,7 +29,9 @@ rescale_attention nest         K11: ``attn_scores`` (the online-softmax
 gather_spmv       nest         K12: ``spmv`` (y += vals·x[cidx], a gather;
                                on the card it reads ``pack_ell``'s (m, k)
                                planes at pitch k, no layout copy)
-gather_spmm       nest         K13: ``spmm`` (Y += vals·X[cidx, c])
+gather_spmm       nest         K13: ``spmm`` (Y += vals·X[cidx, c]; on the
+                               card it reads ``pack_ell``'s (m, k) planes,
+                               as K12)
 ================  ===========  =============================================
 
 A schedule deeper than 2 makes a call of K1–K13's families pipelined
@@ -58,8 +60,10 @@ arithmetic, so the same bits, as the sync kernel.  Its plain version is
 :func:`plain_ring` (:func:`ring_taken` schedules the fetches,
 :func:`ring_blocks` delivers the blocks).  A
 StreamKernel's scan at a depth above 2 runs R15 ``ring_stream_scan``
-(:data:`STREAM_RING_KERNELS`: K14's tiles through a ring); the FFT and the
-sort have a one-step grid, so they stay synchronous at any depth.
+(:data:`STREAM_RING_KERNELS`: K14's tiles through a ring, in one pass
+that reads x once, each tile's offset found from its predecessors'
+published totals as K14's second pass finds it); the FFT and the sort
+have a one-step grid, so they stay synchronous at any depth.
 
 A ``ChainedKernel`` (a producer body, then a unary consumer body, on each
 step of a module's Launch, one output stream) runs as K17 ``chained_map``
@@ -266,8 +270,9 @@ KERNELS: Dict[str, Dict[str, str]] = {
 #: A pipelined call counts its ring kernel (R4's drain as
 #: ``ring_contract_gemv``, R10's as ``ring_halo_stencil1d``; an R1 call, or
 #: a reduce of R6 or R8, is two device launches, as K1's, K5's and K7's; an
-#: R12 call over a head batch is one; a ``ring_stream_scan`` call is three,
-#: as K14's).  A ``chained_map`` or ``ring_chained_map`` call is one.
+#: R12 call over a head batch is one; a ``ring_stream_scan`` call is one
+#: kernel, its one pass, after one memset of its state).  A ``chained_map``
+#: or ``ring_chained_map`` call is one.
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 def reset_launches() -> None:
@@ -466,17 +471,17 @@ def _lib(name: str) -> ctypes.CDLL:
 #: shared memory it is given).
 _OCCUPANCY_ATTRIBUTES = ("contract_gemm", "ring_contract_gemm", "base_gemm",
                          "ring_reduce_mul", "ring_map_relu",
-                         "ring_contract_gemv")
+                         "ring_contract_gemv", "ring_stream_scan")
 
 
 def kernel_attributes(name: str, smem: int = 0) -> Dict[str, int]:
     """Registers a thread (``numRegs``) and local, spilled bytes a thread
     (``localSizeBytes``) of kernel ``name`` as ``cudaFuncGetAttributes``
     reads them on the current card: K12, K13, R13 and R14 report them; K3,
-    R3, B3, R1, R2 and R4 also their CTAs an SM (``ctasPerSm``) at ``smem``
-    bytes of dynamic shared memory (the ring and its barriers of R3, R1, R2
-    and R4, at their main path's instantiation; K3 and B3 take their
-    own)."""
+    R3, B3, R1, R2, R4 and R15 also their CTAs an SM (``ctasPerSm``) at
+    ``smem`` bytes of dynamic shared memory (the ring and its barriers of
+    R3, R1, R2, R4 and R15, at their main path's instantiation; K3 and B3
+    take their own)."""
     fn = getattr(_lib(name), f"ssr_{name}_attributes")
     occupancy = name in _OCCUPANCY_ATTRIBUTES
     fn.argtypes = [ctypes.POINTER(ctypes.c_int64),
@@ -607,9 +612,10 @@ def _gather_composes(geo: StreamGeometry, levels: int) -> bool:
     do, its table (slot 2) one invariant block, with ``levels`` affine
     levels.  No levels (K12): the output block is (1, rows of the index
     block).  One (K13): coefficient 1 on a parallel axis, a tile of whole
-    SPMM_COLS chunks, the output block (rows, tile), and every address of
-    a chunk 16-byte aligned (scale, offset and the table's size multiples
-    of 4)."""
+    SPMM_COLS chunks, the output block (rows, tile), every address of a
+    chunk 16-byte aligned (scale, offset and the table's size multiples of
+    4) and a table of at least one chunk (a warp's 128 columns are tested
+    against the table's ends together)."""
     if len(geo.gathers) != 1 or geo.halos or geo.level_tiles:
         return False
     g = geo.gathers[0]
@@ -624,6 +630,7 @@ def _gather_composes(geo: StreamGeometry, levels: int) -> bool:
     return (coeff == 1 and pos not in geo.contraction_axes
             and tile % SPMM_COLS == 0 and g.scale % 4 == 0
             and g.offset % 4 == 0 and math.prod(t.block) % 4 == 0
+            and math.prod(t.block) >= SPMM_COLS
             and geo.out.block == (c.block[0], tile))
 
 
@@ -825,7 +832,7 @@ def device_ring(name: str, geo: StreamGeometry, ring: RingProgram,
     :func:`gather_slot_width`, and give the table 0 bytes: it is gathered
     from device memory, never copied into a slot (R13's slot barriers are
     in :func:`_staged_bytes`).  R15's slot is one of K14's tiles, the
-    input's words on K14's padded layout."""
+    input's words unpadded, as one bulk copy lands them."""
     dr = _device_ring(name, geo, ring, dtype)
     if reads is None:
         return dr
@@ -896,10 +903,178 @@ def gather_slot_width(geo: StreamGeometry) -> int:
 
 def scan_slot_words(itemsize: int) -> int:
     """4-byte words of one of R15's slots: a SCAN_TILE tile of the input's
-    words (one element a word in f32 or int32, two in bf16) with K14's pad
-    word every 32 (``csrc/ssr_scan.cuh``)."""
-    words = SCAN_TILE * itemsize // 4
-    return words + words // 32
+    words (one element a word in f32 or int32, two in bf16), unpadded: one
+    bulk copy lands it, and the kernel reads a thread's 16 elements as
+    16-byte words in a rotated order that spreads a quarter warp over the
+    banks (``csrc/ring_stream_scan.cu``)."""
+    return SCAN_TILE * itemsize // 4
+
+
+#: What R15 keeps before its slots (``csrc/ring_stream_scan.cu``'s
+#: kStagedBytes): its full and empty mbarriers (8 slots), each slot's tile
+#: number, a group's totals, the carry and the offset.  Its sums are staged
+#: in the tile's own slot.
+SCAN_RING_STAGED_BYTES = 512
+#: R15's groups (a group's totals summed in order) and chunks (the totals
+#: one carry spans): ``ssr_exclusive_offsets``' 16 totals a thread and
+#: 4096 a pass of its 256 threads.
+SCAN_GROUP, SCAN_CHUNK = 16, 4096
+
+
+def scan_state_words(tiles: int) -> int:
+    """The 64-bit words of one R15 call's state, zeroed by its entry: each
+    tile's total, each group's sum, each chunk's carry (one more than the
+    chunks) and the ticket counter (``ssr_ring_stream_scan_state_words``)."""
+    return tiles + -(-tiles // SCAN_GROUP) + -(-tiles // SCAN_CHUNK) + 2
+
+
+# -- the scans' association, in float32 on the host ----------------------------
+#
+# K14 and R15 give the same bits because R15 computes each tile's offset by
+# the operations of K14's second pass (``ssr_exclusive_offsets``), from its
+# predecessors alone.  These models run both in numpy float32 (IEEE single
+# adds, in the kernels' order), so the CPU tests can hold them equal.
+
+#: The threads of K14's and R15's CTA scans, and a warp's lanes.
+_SCAN_THREADS, _WARP = 256, 32
+
+
+def cta_exclusive_scan_model(v: np.ndarray) -> Tuple[np.ndarray, np.float32]:
+    """``ssr_cta_exclusive_scan<256>`` in float32 on one value a thread:
+    each warp's Kogge–Stone scan by shuffles (lane l adds lane l − o's
+    value for o = 1, 2, … 16), its exclusive value the lane below's
+    inclusive one (0 in lane 0), then the same scan over the 8 warps'
+    totals (lanes past 8 hold 0); each thread's exclusive value (its warp's
+    predecessors' inclusive total plus its own, in warps past the first)
+    and the CTA's total."""
+    incl = np.asarray(v, np.float32).reshape(-1, _WARP).copy()
+    warps = incl.shape[0]
+    o = 1
+    while o < _WARP:
+        incl[:, o:] = incl[:, o:] + incl[:, :-o]
+        o *= 2
+    excl = np.zeros_like(incl)
+    excl[:, 1:] = incl[:, :-1]
+    w = np.zeros(_WARP, np.float32)
+    w[:warps] = incl[:, -1]
+    o = 1
+    while o < warps:
+        w[o:] = w[o:] + w[:-o]
+        o *= 2
+    excl[1:] = w[:warps - 1, None] + excl[1:]
+    return excl.reshape(-1), np.float32(w[warps - 1])
+
+
+def _group_sums_model(v: np.ndarray) -> np.ndarray:
+    """Each thread's sum of its SCAN_GROUP totals (rows of ``v``), in
+    order, from 0."""
+    s = np.zeros(v.shape[0], np.float32)
+    for j in range(v.shape[1]):
+        s = s + v[:, j]
+    return s
+
+
+def scan_offsets_model(totals: np.ndarray) -> np.ndarray:
+    """K14's second pass, ``ssr_exclusive_offsets`` (``csrc/
+    ssr_common.cuh``), in float32: the tiles' ``totals`` in chunks of
+    SCAN_CHUNK with a running carry from 0; in a chunk each of 256 threads
+    sums its 16 totals in order from 0 (0 past the end), a CTA scan of the
+    sums, and tile 16 t + j's offset is carry + (the thread's exclusive
+    value + its first j totals, in order).  Each tile's exclusive offset."""
+    totals = np.asarray(totals, np.float32)
+    out = np.empty(len(totals), np.float32)
+    carry = np.float32(0)
+    for base in range(0, len(totals), SCAN_CHUNK):
+        seg = totals[base:base + SCAN_CHUNK]
+        v = np.zeros(SCAN_CHUNK, np.float32)
+        v[:len(seg)] = seg
+        v = v.reshape(_SCAN_THREADS, SCAN_GROUP)
+        run, chunk = cta_exclusive_scan_model(_group_sums_model(v))
+        offs = np.empty_like(v)
+        for j in range(SCAN_GROUP):
+            offs[:, j] = carry + run
+            run = run + v[:, j]
+        out[base:base + len(seg)] = offs.reshape(-1)[:len(seg)]
+        carry = carry + chunk
+    return out
+
+
+def scan_tile_offset_model(prior: np.ndarray, total: float,
+                           groups: Dict[int, np.float32],
+                           carries: Dict[int, np.float32]) -> np.float32:
+    """R15's offset of tile i = ``len(prior)`` (steps 3 and 4 of
+    ``csrc/ring_stream_scan.cu``), from what tiles before i published and
+    nothing else: ``prior`` their totals, ``groups`` the group sums and
+    ``carries`` the chunks' carries published so far (a KeyError if one is
+    read before it is).  With ``total``, the tile's own, it publishes its
+    group's sum (in order from 0) where it closes the group, and the next
+    chunk's carry where it closes the chunk (its scan's total over the
+    chunk's 256 group sums, added to the chunk's carry) -- the kernel does
+    both in the tile's sum step.  The chunk's earlier group sums go
+    through the CTA scan with 0 from the tile's own group on (its own
+    group's sum there where it closes it): the exclusive value of its
+    group depends on the groups before it alone."""
+    i = len(prior)
+    chunk, pos = divmod(i, SCAN_CHUNK)
+    q, j = divmod(pos, SCAN_GROUP)
+    mates = np.asarray(prior[i - j:i], np.float32)
+    g = np.zeros(_SCAN_THREADS, np.float32)
+    if j == SCAN_GROUP - 1:
+        s = np.float32(0)
+        for t in (*mates, np.float32(total)):
+            s = np.float32(s + t)
+        groups[i // SCAN_GROUP] = g[q] = s
+    for t in range(q):
+        g[t] = groups[chunk * _SCAN_THREADS + t]
+    excl, chunk_total = cta_exclusive_scan_model(g)
+    carry = carries[chunk] if chunk else np.float32(0)
+    run = excl[q]
+    for t in mates:
+        run = np.float32(run + t)
+    if pos == SCAN_CHUNK - 1:
+        carries[chunk + 1] = np.float32(carry + chunk_total)
+    return np.float32(carry + run)
+
+
+def scan_tile_offsets_model(totals: np.ndarray) -> np.ndarray:
+    """Every tile's offset as R15 finds it (:func:`scan_tile_offset_model`,
+    tile by tile in ticket order, each from its predecessors' totals)."""
+    totals = np.asarray(totals, np.float32)
+    groups: Dict[int, np.float32] = {}
+    carries: Dict[int, np.float32] = {}
+    return np.array([scan_tile_offset_model(totals[:i], totals[i], groups,
+                                            carries)
+                     for i in range(len(totals))], np.float32)
+
+
+def scan_model(x: np.ndarray) -> np.ndarray:
+    """R15's (and K14's) inclusive prefix sum of the padded vector ``x`` in
+    float32 (``csrc/ssr_scan.cuh``): per SCAN_TILE tile (0 past the end),
+    each of 256 threads sums its 16 elements in order from the first, a CTA
+    scan of the sums gives the tile's total and each thread's exclusive
+    value, and each element is the tile's offset
+    (:func:`scan_tile_offsets_model`) + its running sum from that value."""
+    x = np.asarray(x, np.float32).reshape(-1)
+    n = len(x)
+    tiles = -(-n // SCAN_TILE)
+    v = np.zeros(tiles * SCAN_TILE, np.float32)
+    v[:n] = x
+    v = v.reshape(tiles, _SCAN_THREADS, SCAN_GROUP)
+    runs, totals = [], np.empty(tiles, np.float32)
+    for i in range(tiles):
+        s = v[i, :, 0].copy()
+        for j in range(1, SCAN_GROUP):
+            s = s + v[i, :, j]
+        run, totals[i] = cta_exclusive_scan_model(s)
+        runs.append(run)
+    offs = scan_tile_offsets_model(totals)
+    out = np.empty_like(v)
+    for i in range(tiles):
+        run = runs[i]
+        for j in range(SCAN_GROUP):
+            run = run + v[i, :, j]
+            out[i, :, j] = offs[i] + run
+    return out.reshape(-1)[:n]
 
 
 def _ctas_per_sm(smem: int, most: int) -> int:
@@ -910,10 +1085,10 @@ def _ctas_per_sm(smem: int, most: int) -> int:
 
 #: The most CTAs an SM of R13 (288 threads: 56 registers a thread where
 #: four fit beside their rings, else 75 and eight gathers a thread in
-#: flight), R14 (256 threads, 80 registers), R15 (256 threads), and R1
-#: (288 threads, built for five CTAs an SM at 40 registers a thread).
+#: flight), R14 (256 threads, 80 registers) and R1 (288 threads, built for
+#: five CTAs an SM at 40 registers a thread).
 _RING_PER_SM = {"ring_gather_spmv": 4, "ring_gather_spmm": 3,
-                "ring_stream_scan": 8, "ring_reduce_mul": 5}
+                "ring_reduce_mul": 5}
 #: The most CTAs an SM of R4 (288 threads), by input dtype: its bf16 bulk
 #: route is built for 4 (at most 56 registers a thread), whose steps are
 #: half f32's and need the CTAs; f32 and the element routes for 3 (72).
@@ -979,10 +1154,12 @@ def ring_run_steps(rname: str, geo: StreamGeometry, ring: RingProgram,
                    dtype: torch.dtype, sms: int) -> int:
     """The grid steps a CTA of the persistent ring kernel ``rname`` (R1,
     R4, R13, R14 or R15) walks, consecutive, on a card of ``sms`` SMs:
-    whole runs of K1's split (R1: its partials are K1's), the output blocks
-    (R4, R13, R14: whole ones, of ``contraction_steps`` steps each) or
-    SCAN_TILE tiles (R15: four of the Launch's (8, 128) blocks each)
-    spread over as many CTAs as fit the SMs beside their rings.  R1's runs
+    whole runs of K1's split (R1: its partials are K1's) or the output
+    blocks (R4, R13, R14: whole ones, of ``contraction_steps`` steps each)
+    spread over as many CTAs as fit the SMs beside their rings; R15 walks
+    one SCAN_TILE tile (four of the Launch's (8, 128) blocks) at a time:
+    each CTA takes its next tile by a ticket, the tiles handed out in
+    increasing order, so a tile is a run of its own.  R1's runs
     are coarse (K1's 8 CTAs an SM), so it takes, of the splits into 1 to
     that many CTAs an SM, the one whose busiest SM walks the fewest runs;
     R4 takes, for each of its 8-row groups, the run of output blocks whose
@@ -991,6 +1168,8 @@ def ring_run_steps(rname: str, geo: StreamGeometry, ring: RingProgram,
     as many as fit that count.  So no CTA waits for a second wave.  The
     wrapper launches that split; the plain ring takes it as
     ``steps_per_cta``.  Memoized: a wrapper asks at every call."""
+    if rname == "ring_stream_scan":
+        return SCAN_TILE // (ROWS * LANES)
     dr = device_ring(rname, geo, ring, dtype)
     smem = dr.ring_bytes + _staged_bytes(rname, (), geo)
     most = GEMV_RING_PER_SM[dtype] if rname == "ring_contract_gemv" \
@@ -1005,10 +1184,6 @@ def ring_run_steps(rname: str, geo: StreamGeometry, ring: RingProgram,
         groups = -(-geo.ins[0].block[0] // GEMV_RING_ROWS)
         step = (GEMV_RING_ROWS + 1) * geo.ins[0].block[1] * _itemsize(dtype)
         return _gemv_runs(groups, geo.steps // z, z, step, per_sm, sms) * z
-    if rname == "ring_stream_scan":
-        per = SCAN_TILE // (ROWS * LANES)
-        tiles = -(-geo.steps // per)
-        return -(-tiles // min(tiles, ctas)) * per
     z = geo.contraction_steps
     blocks = geo.steps // z
     rows = SPMV_RING_ROWS if rname == "ring_gather_spmv" else SPMM_RING_ROWS
@@ -1045,8 +1220,8 @@ def _staged_bytes(rname: str, ops: Sequence[str],
     running the stage ``ops``: R9 stages K8's weights and tile but for the
     residual alone; R12 its p tile (Q is in its ring, one tile); R3 and R13
     their slots' barriers; R2 and R4 their slots' barriers and R1 those and
-    its warp sums; R15 its third pass's tile of sums (K14's float tile);
-    the others nothing."""
+    its warp sums; R15 its barriers, slot numbers and group sums
+    (:data:`SCAN_RING_STAGED_BYTES`); the others nothing."""
     if rname == "ring_dag_mlp" and tuple(ops) != ("mlp_residual",):
         return MLP_STAGED_BYTES
     if rname in ("ring_contract_gemm", "ring_gather_spmv", "ring_map_relu",
@@ -1058,7 +1233,7 @@ def _staged_bytes(rname: str, ops: Sequence[str],
         rows = ATTENTION_RING_TILES[geo.ins[0].block[1]][0]
         return 4 * ATTENTION_SUBTILE * (rows + 4)
     if rname == "ring_stream_scan":
-        return 4 * scan_slot_words(4)
+        return SCAN_RING_STAGED_BYTES
     return 0
 
 
@@ -1070,7 +1245,7 @@ _STAGED_WHAT = {"ring_dag_mlp": "its staged weights and tile",
                 "ring_map_relu": "its slots' barriers",
                 "ring_contract_gemv": "its slots' barriers",
                 "ring_reduce_mul": "its slots' barriers and warp sums",
-                "ring_stream_scan": "its tile of sums"}
+                "ring_stream_scan": "its barriers and sums"}
 
 
 def _ring_budget_refusal(rname: str, geo: StreamGeometry, dtype: torch.dtype,
@@ -1657,7 +1832,7 @@ def _checked_gather(name: str, geo: StreamGeometry,
                     layouts: Sequence[torch.Tensor], program: Optional[Any],
                     ring: Optional[RingProgram] = None) -> torch.device:
     """What K12 and K13 take: f32 values and table, an int32 index stream,
-    contiguous 2-D layouts on one CUDA device, inside their walks (K12's
+    contiguous 2-D layouts on one CUDA device, inside their walks (their
     vals and cidx inside the gather's extent: the unpadded (m, k) planes);
     with ``ring``, what their ring kernel R13 or R14 takes (its ring within
     the shared memory a CTA may opt into)."""
@@ -1688,10 +1863,10 @@ def _checked_gather(name: str, geo: StreamGeometry,
 #: The device kernels, by their :data:`DEVICE_KERNELS` key, that read a
 #: gather nest's read streams as their operands' unpadded (rows, cols)
 #: planes, at the planes' own pitch and bounded by the gather's extent,
-#: when they run unpipelined on the card: K12 (``pack_ell``'s (m, k)
-#: planes, no layout copy).  Their ring kernels (R13) and every other
-#: kernel read the lowering's padded layouts.
-PLANE_KERNELS = frozenset({("nest", "spmv")})
+#: when they run unpipelined on the card: K12 and K13 (``pack_ell``'s
+#: (m, k) planes, no layout copy).  Their ring kernels (R13, R14) and
+#: every other kernel read the lowering's padded layouts.
+PLANE_KERNELS = frozenset({("nest", "spmv"), ("nest", "spmm")})
 
 
 def takes_planes(key: tuple, ring: Optional[RingProgram] = None) -> bool:
@@ -1710,10 +1885,10 @@ def check_gather_walks(name: str, geo: StreamGeometry,
                        ring: Optional[RingProgram] = None) -> None:
     """Raise unless each of gather kernel ``name``'s layouts (their
     ``shapes``) holds what it reads: every block of its walk, but where the
-    kernel :func:`takes_planes` (K12), whose vals and cidx need hold only
-    the gather's extent -- the unpadded (m, k) planes it reads at pitch k
-    (:meth:`BlockAGU.check_extent_within`).  R13, R14 and K13 read whole
-    slots or rows of the padded layouts."""
+    kernel :func:`takes_planes` (K12, K13), whose vals and cidx need hold
+    only the gather's extent -- the unpadded (m, k) planes it reads at
+    pitch k (:meth:`BlockAGU.check_extent_within`).  R13 and R14 read
+    whole slots or rows of the padded layouts."""
     planes = takes_planes(_gather_key(name), ring)
     for k, (shape, agu) in enumerate(zip(shapes, geo.ins)):
         if planes and k < 2:
@@ -1808,8 +1983,11 @@ def gather_spmm(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                 ring: Optional[RingProgram] = None) -> torch.Tensor:
     """K13: Y block (tm, tc) = Σ vals·X[clip(scale·cidx + c + offset)], a
     warp per row, each lane four consecutive columns gathered as one
-    16-byte load; the c tile in SPMM_COLS-wide chunks (grid y).  With
-    ``ring`` (a pipelined call) R14 (:func:`ring_gather_spmm`)."""
+    16-byte load, eight entries in flight; the c tile in SPMM_COLS-wide
+    chunks (grid y); vals and cidx at the planes' pitch: ``pack_ell``'s
+    (m, k) planes on the card (:data:`PLANE_KERNELS`), or padded layouts.
+    With ``ring`` (a pipelined call) R14 (:func:`ring_gather_spmm`), on the
+    padded layouts."""
     if ring is not None:
         return ring_gather_spmm(geo, layouts, out_dtype, acc_dtype, program,
                                 ring)
@@ -1986,10 +2164,13 @@ def launch_geometry(launch: Any) -> StreamGeometry:
 
 def ring_stream_scan(launch: Any, x: torch.Tensor, ring: RingProgram
                      ) -> Tuple[torch.Tensor]:
-    """R15: K14's three passes with passes 1 and 3 on persistent CTAs, each
-    walking a run of consecutive SCAN_TILE tiles (:func:`ring_run_steps`)
-    through a ring of ``ring.depths[0]`` tile slots (the ring's unit is
-    K14's tile, four of the Launch's blocks); K14's bits."""
+    """R15: K14's scan in one pass that reads x once: CTAs take SCAN_TILE
+    tiles by ticket, in increasing order, through a ring of
+    ``ring.depths[0]`` tile slots (the ring's unit is K14's tile, four of
+    the Launch's blocks), and each tile finds its offset from its
+    predecessors' published totals as K14's second pass finds it; K14's
+    bits.  One memset of the call's state (:func:`scan_state_words`), then
+    one launch."""
     name = "ring_stream_scan"
     dev = _checked_scan(name, launch, x)
     geo = launch_geometry(launch)
@@ -2000,14 +2181,13 @@ def ring_stream_scan(launch: Any, x: torch.Tensor, ring: RingProgram
     x = _aligned16(x)
     tiles = -(-x.numel() // SCAN_TILE)
     out = torch.empty(x.shape, dtype=torch.float32, device=dev)
-    totals = torch.empty(tiles, dtype=torch.float32, device=dev)
+    nwords = scan_state_words(tiles)
+    words = torch.empty(nwords, dtype=torch.int64, device=dev)
     dr = device_ring(name, geo, ring, x.dtype)
-    per_cta = ring_run_steps(name, geo, ring, x.dtype,
-                             _card(dev).multi_processor_count) \
-        // (SCAN_TILE // (ROWS * LANES))
     _launch(name, dev, x.data_ptr(), _DTYPE_CODE[x.dtype], out.data_ptr(),
-            totals.data_ptr(), x.numel(), tiles, per_cta,
-            ctypes.byref(_ring_arg(dr)), dr.ring_bytes)
+            words.data_ptr(), x.numel(), tiles, nwords,
+            ctypes.byref(_ring_arg(dr)),
+            dr.ring_bytes + _staged_bytes(name, (), geo))
     return (out,)
 
 

@@ -453,7 +453,7 @@ class NestStream:
     def plane(self, arr: torch.Tensor) -> torch.Tensor:
         """``arr`` as its (rows, cols) logical plane, unpadded: a view of a
         contiguous operand, which a kernel reading its rows at pitch cols
-        takes as it is (K12's ELL planes, :func:`device_layouts`)."""
+        takes as it is (K12's and K13's ELL planes, :func:`device_layouts`)."""
         if len(self.logical_shape) != 2 or \
                 arr.numel() != math.prod(self.logical_shape):
             raise ValueError(
@@ -1216,8 +1216,9 @@ class PreparedCall:
 
     def padded_layouts(self) -> Tuple[torch.Tensor, ...]:
         """:attr:`layouts` with every read stream in its padded layout:
-        what the kernels that read whole blocks take (R13, on a call whose
-        K12 reads the unpadded planes); :attr:`layouts` themselves where
+        what the kernels that read whole blocks take (R13 or R14, on a call
+        whose K12 or K13 reads the unpadded planes); :attr:`layouts`
+        themselves where
         they are padded already."""
         if not self.planes:
             return self.layouts
@@ -1266,8 +1267,8 @@ def _uniform_sig(items: Tuple[Tuple[str, torch.Tensor], ...]) -> Tuple:
 
 
 #: Read streams laid out by a copy into their padded layouts (the
-#: ``F.pad`` of :meth:`NestStream.prepare`); the card's K12 takes a
-#: gather's planes as they are and adds none (:func:`device_layouts`).
+#: ``F.pad`` of :meth:`NestStream.prepare`); the card's K12 and K13 take a
+#: gather's planes as they are and add none (:func:`device_layouts`).
 LAYOUT_COPIES: Dict[str, int] = {"padded": 0}
 
 
@@ -1308,7 +1309,7 @@ def device_layouts(kernel: Any, lowered: Any,
                    dev: torch.device) -> Tuple[torch.Tensor, ...]:
     """The layouts ``kernel`` runs on, on ``dev``: the padded layouts of
     :func:`stream_layouts`, but on a CUDA device for a kernel that
-    :attr:`~SsrKernel.takes_planes` (K12), which reads the operands'
+    :attr:`~SsrKernel.takes_planes` (K12, K13), which reads the operands'
     unpadded planes as they are (no layout copy).  The CPU executor takes
     the padded layouts.  Pure: it reads ``dev``'s type and touches no
     device."""

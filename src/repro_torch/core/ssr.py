@@ -365,7 +365,7 @@ class SsrKernel:
     def takes_planes(self) -> bool:
         """Whether the card's kernel reads the read streams as their
         operands' unpadded planes, not their padded layouts
-        (:func:`hopper.takes_planes`: K12, not R13)."""
+        (:func:`hopper.takes_planes`: K12 and K13, not R13 or R14)."""
         return hopper.takes_planes(self.device_key,
                                    self.ring if self.pipelined else None)
 

@@ -52,22 +52,6 @@ using namespace gather;
 // so a row of 27 is one round of loads and gathers a thread.
 constexpr int kRowPer = 8;
 
-// The odometer at `step`, unflattened in 32-bit arithmetic (the entry
-// holds the grid under 2**31 steps).
-__device__ __forceinline__ SsrOdometer odometer32(const SsrGrid& grid,
-                                                  unsigned step) {
-  SsrOdometer odo(grid, 0);
-#pragma unroll
-  for (int k = SSR_MAX_AXES - 1; k >= 0; --k) {
-    if (k < grid.ndim) {
-      const unsigned d = static_cast<unsigned>(grid.dims[k]);
-      odo.g[k] = step % d;
-      step /= d;
-    }
-  }
-  return odo;
-}
-
 __global__ void __launch_bounds__(kThreads)
     gather_spmv_kernel(const float* __restrict__ vals,
                        const int32_t* __restrict__ cidx,

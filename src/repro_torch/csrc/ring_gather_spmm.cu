@@ -148,7 +148,8 @@ extern "C" int ssr_ring_gather_spmm(const void* vals, const void* cidx,
       reinterpret_cast<uintptr_t>(vals) % 16 == 0 &&
       reinterpret_cast<uintptr_t>(cidx) % 16 == 0 && sv->pitch % 4 == 0 &&
       sc->pitch % 4 == 0 && sv->block[1] % 4 == 0 && sc->block[1] % 4 == 0;
-  if (ctas < 1 || ctas > 0x7fffffffLL || table_elems < 4 || table_elems % 4 ||
+  if (ctas < 1 || ctas > 0x7fffffffLL || table_elems < kSpmmCols ||
+      table_elems % 4 ||
       gtile % kSpmmCols || gtile / kSpmmCols > 65535 || gpos < 0 ||
       gpos >= g->ndim || blocks_per_run < 1 || width < 4 || width % 4 ||
       width > sc->block[1] || !packs || d0 < 2 || d0 > 8 || d1 < 2 ||

@@ -172,11 +172,23 @@ __device__ __forceinline__ float ssr_cta_sum(float v) {
   return v;
 }
 
+// The barrier of THREADS threads numbered BAR: the CTA's (__syncthreads)
+// for BAR 0, else a named barrier that only those threads join (the first
+// THREADS of the CTA, while other warps, a filling warp, run on).
+template <int BAR, int THREADS>
+__device__ __forceinline__ void ssr_bar() {
+  if constexpr (BAR == 0)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, %1;\n" ::"n"(BAR), "n"(THREADS) : "memory");
+}
+
 // Exclusive scan of one value a thread over the CTA, in a fixed order (the
 // same result every run): each warp scans with shuffles, warp 0 scans the
 // warps' totals.  `*total` gets the CTA's total in every thread.  Every
-// thread of the CTA must call it.  THREADS is a multiple of 32, at most 1024.
-template <int THREADS>
+// thread of the CTA must call it (with BAR > 0: the first THREADS threads,
+// meeting at named barrier BAR).  THREADS is a multiple of 32, at most 1024.
+template <int THREADS, int BAR = 0>
 __device__ __forceinline__ float ssr_cta_exclusive_scan(float v, float* total) {
   constexpr int kWarps = THREADS / 32;
   __shared__ float warp_incl[kWarps];
@@ -189,9 +201,9 @@ __device__ __forceinline__ float ssr_cta_exclusive_scan(float v, float* total) {
   }
   float excl = __shfl_up_sync(0xffffffffu, incl, 1);
   if (lane == 0) excl = 0.f;
-  __syncthreads();  // a previous call's readers of warp_incl are done
+  ssr_bar<BAR, THREADS>();  // a previous call's readers of warp_incl are done
   if (lane == 31) warp_incl[warp] = incl;
-  __syncthreads();
+  ssr_bar<BAR, THREADS>();
   if (warp == 0) {
     float w = lane < kWarps ? warp_incl[lane] : 0.f;
 #pragma unroll
@@ -201,7 +213,7 @@ __device__ __forceinline__ float ssr_cta_exclusive_scan(float v, float* total) {
     }
     if (lane < kWarps) warp_incl[lane] = w;
   }
-  __syncthreads();
+  ssr_bar<BAR, THREADS>();
   *total = warp_incl[kWarps - 1];
   return warp > 0 ? warp_incl[warp - 1] + excl : excl;
 }

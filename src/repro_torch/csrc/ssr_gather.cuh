@@ -24,7 +24,7 @@ constexpr int kSpmvPer = 4;                            // entries a thread holds
 // consecutive columns of a kSpmmCols-wide chunk of the c tile.
 constexpr int kSpmmRows = kThreads / 32;
 constexpr int kSpmmCols = 128;
-constexpr int kSpmmBatch = 4;                          // entries gathered before FMAs
+constexpr int kSpmmBatch = 4;     // entries gathered before FMAs (R14's)
 
 template <bool kGlobal, typename T>
 __device__ __forceinline__ T load(const T* p) {
@@ -80,47 +80,60 @@ __device__ __forceinline__ float spmv_fold(float acc) {
 
 // K13's one step of a row, for lane `lane` of the row's warp: the warp
 // loads 32 entries of vals and cidx at once, then for each entry
-// broadcasts both by shuffles and gathers the lane's four columns of the
+// broadcasts cidx by a shuffle and gathers the lane's four columns of the
 // table's segment at scale * cidx + base as one 16-byte load (base: the
-// offset, the affine level's address and the lane's columns).  Four
-// entries' gathers are issued before their FMAs; a segment's start is
-// clipped into the table first, and only a group with a segment past the
-// table's ends re-reads it element by element, clipped.  Every lane of the
-// warp calls it with the same ncols.
-template <bool kGlobal>
+// offset, the affine level's address and the lane's columns).  kBatch
+// entries' gathers are issued before their FMAs, each entry's value
+// broadcast as its FMAs take it, so a gather in flight holds only its four
+// floats; the FMAs run in the order of the entries whatever kBatch (K13
+// takes 8, R14 4: the same bits).  The warp's 32 lanes read 128
+// consecutive columns, so whether an entry's segments all lie in the table
+// is one test on lane 0's start, clipped into the table first so that the
+// load needs no branch; only a group with an entry past the table's ends
+// re-reads it element by element, clipped as the reference clips.  Every
+// lane of the warp calls it with the same ncols.
+template <bool kGlobal, int kBatch = kSpmmBatch>
 __device__ __forceinline__ void spmm_row(const float* pv, const int32_t* pc,
                                          int64_t ncols, int lane,
                                          const float* __restrict__ table,
                                          int64_t scale, int64_t base,
                                          int64_t table_elems, float4& acc) {
-  const int64_t last = table_elems - 4;   // the last segment's start
-  for (int64_t j0 = 0; j0 < ncols; j0 += 32) {
+  const int64_t base0 = base - 4 * lane;          // lane 0's columns
+  const int64_t last0 = table_elems - 4 * 32;     // lane 0's last start inside
+  const float* const lane_table = table + 4 * lane;
+  const int nc = static_cast<int>(ncols);  // a row's positions: under 2**31
+  // rolled loops: one batch's gathers in registers at a time
+#pragma unroll 1
+  for (int j0 = 0; j0 < nc; j0 += 32) {
     float v = 0.f;
     int c = 0;
-    if (j0 + lane < ncols) {
+    if (j0 + lane < nc) {
       v = load<kGlobal>(pv + j0 + lane);
       c = load<kGlobal>(pc + j0 + lane);
     }
-    const int cnt = ncols - j0 < 32 ? static_cast<int>(ncols - j0) : 32;
-    for (int q0 = 0; q0 < cnt; q0 += kSpmmBatch) {
-      float vq[kSpmmBatch];
-      int ci[kSpmmBatch];
-      float4 xv[kSpmmBatch];
+    const int cnt = nc - j0 < 32 ? nc - j0 : 32;
+#pragma unroll 1
+    for (int q0 = 0; q0 < cnt; q0 += kBatch) {
+      float4 xv[kBatch];
       bool outside = false;
 #pragma unroll
-      for (int u = 0; u < kSpmmBatch; ++u) {   // past cnt: entry q0, not used
+      for (int u = 0; u < kBatch; ++u) {   // past cnt: entry q0, not used
         const int q = q0 + u < cnt ? q0 + u : q0;
-        vq[u] = __shfl_sync(0xffffffffu, v, q);
-        ci[u] = __shfl_sync(0xffffffffu, c, q);
-        const int64_t a = static_cast<int64_t>(ci[u]) * scale + base;
-        const int64_t s = a < 0 ? 0 : (a > last ? last : a);
-        outside |= s != a;
-        xv[u] = __ldg(reinterpret_cast<const float4*>(table + s));
+        const int64_t a0 =
+            static_cast<int64_t>(__shfl_sync(0xffffffffu, c, q)) * scale + base0;
+        const int64_t s0 = a0 < 0 ? 0 : (a0 > last0 ? last0 : a0);
+        outside |= s0 != a0;
+        xv[u] = __ldg(reinterpret_cast<const float4*>(lane_table + s0));
       }
-      if (outside) {
+      if (outside) {                       // the same on every lane
+        int cc = c;
+        asm volatile("" : "+r"(cc));       // shuffled anew, not kept live
 #pragma unroll
-        for (int u = 0; u < kSpmmBatch; ++u) {
-          const int64_t a = static_cast<int64_t>(ci[u]) * scale + base;
+        for (int u = 0; u < kBatch; ++u) {
+          const int q = q0 + u < cnt ? q0 + u : q0;
+          const int64_t a =
+              static_cast<int64_t>(__shfl_sync(0xffffffffu, cc, q)) * scale +
+              base;
           xv[u] = make_float4(__ldg(table + clip(a, table_elems)),
                               __ldg(table + clip(a + 1, table_elems)),
                               __ldg(table + clip(a + 2, table_elems)),
@@ -128,16 +141,33 @@ __device__ __forceinline__ void spmm_row(const float* pv, const int32_t* pc,
         }
       }
 #pragma unroll
-      for (int u = 0; u < kSpmmBatch; ++u) {
+      for (int u = 0; u < kBatch; ++u) {
         if (q0 + u < cnt) {
-          acc.x = fmaf(vq[u], xv[u].x, acc.x);
-          acc.y = fmaf(vq[u], xv[u].y, acc.y);
-          acc.z = fmaf(vq[u], xv[u].z, acc.z);
-          acc.w = fmaf(vq[u], xv[u].w, acc.w);
+          const float vq = __shfl_sync(0xffffffffu, v, q0 + u);
+          acc.x = fmaf(vq, xv[u].x, acc.x);
+          acc.y = fmaf(vq, xv[u].y, acc.y);
+          acc.z = fmaf(vq, xv[u].z, acc.z);
+          acc.w = fmaf(vq, xv[u].w, acc.w);
         }
       }
     }
   }
+}
+
+// The odometer at `step`, unflattened in 32-bit arithmetic (K12's and
+// K13's entries hold the grid under 2**31 steps).
+__device__ __forceinline__ SsrOdometer odometer32(const SsrGrid& grid,
+                                                  unsigned step) {
+  SsrOdometer odo(grid, 0);
+#pragma unroll
+  for (int k = SSR_MAX_AXES - 1; k >= 0; --k) {
+    if (k < grid.ndim) {
+      const unsigned d = static_cast<unsigned>(grid.dims[k]);
+      odo.g[k] = step % d;
+      step /= d;
+    }
+  }
+  return odo;
 }
 
 // The address of K13's affine level at the odometer's step: coefficient 1

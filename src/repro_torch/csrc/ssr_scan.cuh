@@ -3,17 +3,15 @@
 // same values whichever kernel staged it.
 //
 // A CTA of kThreads threads owns a tile of kTile = 4096 elements; thread t
-// holds the 16 consecutive elements from 16 t.  The tile lies in shared
-// memory on padded 4-byte words, one pad word every 32 (padded()): a thread
-// reads its elements at a stride of 16 words, and the pads spread a warp's
-// reads over all 32 banks.  K14 stages the tile as floats (one word an
-// element, converted as it loads); R15's ring slots hold the input's own
-// words, copied by cp.async -- f32 or int32 one element a word, bf16 two --
-// and staged() converts an element where it is read, as K14 converts it
-// (int32 rounded to nearest, bf16 exactly).  The thread's sum in order and
-// a fixed-order CTA scan (ssr_cta_exclusive_scan) give the tile's total and
-// each element's prefix; nothing is atomic, so every run gives the same
-// bits.
+// holds the 16 consecutive elements from 16 t.  K14 stages the tile in
+// shared memory as floats on padded 4-byte words, one pad word every 32
+// (padded()): a thread reads its elements at a stride of 16 words, and the
+// pads spread a warp's reads over all 32 banks; each element is converted
+// as it loads (int32 rounded to nearest, bf16 exactly).  R15 keeps the
+// tile unpadded and reads a thread's elements into registers, converted
+// the same way, and takes the thread's sum in the same order and the CTA
+// scan (ssr_cta_exclusive_scan) that give the tile's total and each
+// element's prefix; nothing is atomic, so every run gives the same bits.
 #pragma once
 
 #include "ssr_common.cuh"
@@ -28,22 +26,9 @@ constexpr int kWords = kTile + kTile / 32;  // a float tile on padded words
 
 __device__ __forceinline__ int padded(int i) { return i + (i >> 5); }
 
-// Words of a tile of T on padded words (a ring slot's size in words).
-template <typename T>
-__host__ __device__ constexpr int slot_words() {
-  constexpr int words = kTile * static_cast<int>(sizeof(T)) / 4;
-  return words + words / 32;
-}
-
-// Element e of a tile staged on padded words, as a float.
+// Element e of a tile staged on padded words.
 __device__ __forceinline__ float staged(const float* sm, int e) {
   return sm[padded(e)];
-}
-__device__ __forceinline__ float staged(const int32_t* sm, int e) {
-  return __int2float_rn(sm[padded(e)]);
-}
-__device__ __forceinline__ float staged(const __nv_bfloat16* sm, int e) {
-  return __bfloat162float(sm[2 * padded(e >> 1) + (e & 1)]);
 }
 
 // K14's staging: x[base, base + kTile) into shared memory as floats, 0

@@ -10,8 +10,9 @@ concurrently, so the carry is combined by a deterministic second pass
 over the tiles' totals.  A ``schedule=`` of ``buffer_depth`` above 2 on a
 grid of more than one step pipelines it: on the CPU the walk takes the
 stage ring's blocks, on the card R15 ``ring_stream_scan`` runs K14's
-passes with its tiles through a ring of shared-memory slots, to K14's
-bits.
+scan in one pass that reads x once, its tiles through a ring of
+shared-memory slots and each tile's offset found from its predecessors'
+published totals, to K14's bits.
 
 Baseline variant: the reference's monolithic kernel — the body walks the
 blocks with an explicit load per block and the carry in a register; on

@@ -337,7 +337,9 @@ SPMM = KernelBody(spmm_block, "spmm")
 
 def _prepare_spmm(vals, cidx, x, m=None, k=None, pitch=None):
     c = int(x.shape[1])
-    xp = F.pad(x, (0, pitch - c))
+    # X is the gather's table at the pitch of whole 128-lane tiles: padded
+    # only where c is not one already (F.pad copies even a pad of 0)
+    xp = x if pitch == c else F.pad(x, (0, pitch - c))
     return {"vals": vals, "cidx": cidx, "X": xp}, (m, c, k, pitch), None
 
 

@@ -2149,8 +2149,8 @@ def test_ring_gather_on_the_odd_inputs_is_its_k_kernel(dev, case, kind, c):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.int32])
 def test_ring_stream_scan_is_k14_to_the_bit(dev, dtype, n, depth):
-    """R15 against K14 to the bit, three device launches, beside R15 on the
-    first block zeroed, which must differ."""
+    """R15 against K14 to the bit, one wrapper launch (its one pass),
+    beside R15 on the first block zeroed, which must differ."""
     from repro_torch.kernels import scan
     g = torch.Generator(device=dev).manual_seed(n + depth)
     if dtype == torch.int32:
@@ -2188,6 +2188,152 @@ def test_ring_stream_scan_one_block_stays_k14(dev):
     got = scan._ssr(x, schedule=lowering.Schedule(buffer_depth=4), device=dev)
     assert _launched(before) == {"stream_scan"}
     assert torch.equal(got, scan.ssr_scan(x, device=dev))
+
+
+def _r15_and_k14(x, depth):
+    """R15 and K14 launched on the scan's Launch over ``x``, at ``depth``
+    whatever its grid (one block, which the entry never stages, too)."""
+    from repro_torch.kernels import scan
+    arrays, static, _ = scan._prepare(x)
+    lc = scan._launch(static, *arrays)
+    ring = agu.RingProgram((depth,), (False,))
+    before = dict(hopper.LAUNCHES)
+    got = hopper.ring_stream_scan(lc, arrays[0], ring)[0]
+    assert _launched(before) == {"ring_stream_scan"}
+    return got, hopper.stream_scan(lc, arrays[0])[0]
+
+
+@pytest.mark.parametrize("depth", [3, 4, 8], ids=str)
+@pytest.mark.parametrize("n", [1024, 4096, (1 << 26) - 1024, (1 << 26) + 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_ring_stream_scan_one_pass_is_k14_at_the_edges(dev, dtype, n, depth):
+    """R15's one pass against K14 to the bit at one block, one tile, and
+    2**26 ± 1024 (a partial last tile, a fifth chunk of totals): int32 to
+    ±2**30, so its rounding to f32 shows; beside R15 on the first block
+    zeroed, which must differ."""
+    g = torch.Generator(device=dev).manual_seed(n + depth)
+    if dtype == torch.int32:
+        x = torch.randint(-(1 << 30), 1 << 30, (n,), generator=g, device=dev,
+                          dtype=dtype)
+    else:
+        x = torch.randn(n, generator=g, device=dev).to(dtype)
+    got, want = _r15_and_k14(x, depth)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    x[:1024] = 0
+    ctrl, _ = _r15_and_k14(x, depth)
+    assert not torch.equal(ctrl.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("depth", [3, 4, 8], ids=str)
+def test_ring_stream_scan_signed_zeros_and_nan_as_k14(dev, depth):
+    """A vector of ±0 scans to +0 everywhere, as K14's (the offsets' chain
+    starts from 0.f); a NaN turns its own output and every later one to NaN
+    and no earlier one."""
+    g = torch.Generator(device=dev).manual_seed(depth)
+    n = 1 << 20
+    z = torch.zeros(n, device=dev)
+    z[torch.rand(n, generator=g, device=dev) < 0.5] = -0.0
+    for x in (z, z.bfloat16()):
+        got, want = _r15_and_k14(x, depth)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert not bool(torch.signbit(got).any())
+    x = torch.randn(n, generator=g, device=dev)
+    x[300_000] = float("nan")
+    got, want = _r15_and_k14(x, depth)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    flat = got.reshape(-1)               # the padded (rows, 128) layout
+    assert bool(torch.isnan(flat[300_000:]).all())
+    assert not bool(torch.isnan(flat[:300_000]).any())
+
+
+def test_ring_stream_scan_gives_the_same_bits_every_run(dev):
+    """Tiles finish in any order; the offsets do not depend on it."""
+    from repro_torch.kernels import scan
+    g = torch.Generator(device=dev).manual_seed(26)
+    x = torch.randn(1 << 26, generator=g, device=dev)
+    sched = lowering.Schedule(buffer_depth=4)
+    first = scan._ssr(x, schedule=sched, device=dev)
+    for _ in range(5):
+        again = scan._ssr(x, schedule=sched, device=dev)
+        assert torch.equal(again.view(torch.int32), first.view(torch.int32))
+
+
+def test_ring_stream_scan_is_one_kernel_that_spills_nothing(dev):
+    """One device kernel a call (its state zeroed by a memset, no kernel),
+    by the profiler; no local bytes; at least one CTA an SM at depth 4 in
+    f32."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import scan
+    x = torch.randn(1 << 22, device=dev)
+    sched = lowering.Schedule(buffer_depth=4)
+    scan._ssr(x, schedule=sched, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        scan._ssr(x, schedule=sched, device=dev)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if "ring_scan_tiles" in e.key]
+    calls = sum(e.count for e in prof.key_averages()
+                if "ring_scan_tiles" in e.key)
+    assert names and calls == 1
+    attrs = hopper.kernel_attributes(
+        "ring_stream_scan", 4 * hopper.SCAN_TILE * 4
+        + hopper.SCAN_RING_STAGED_BYTES)
+    assert attrs["localSizeBytes"] == 0 and attrs["ctasPerSm"] >= 1
+
+
+@pytest.mark.parametrize("c", [1, 200])
+@pytest.mark.parametrize("case", SPARSE_CASES)
+def test_gather_spmm_reads_pack_ell_planes_with_no_copy(dev, case, c):
+    """On the card K13 takes the (m, k) planes pack_ell made as they are,
+    at pitch k, and gives its plain version's result on them within
+    SPARSE_LIMIT, beside its run on the values doubled, which must read
+    above it where the product is not all zero; R14 at depth 4 on the
+    padded layouts gives K13's bits."""
+    from repro_torch.kernels import sparse
+    data, indices, indptr, n = _csr_case(case, 9)
+    vals, cidx, m, k = sparse.pack_ell(*(torch.as_tensor(np.asarray(a),
+                                                         device=dev)
+                                         for a in (data, indices, indptr)), n)
+    g = torch.Generator(device=dev).manual_seed(n + c)
+    pitch = -(-c // 128) * 128
+    X = torch.nn.functional.pad(torch.randn(n, c, generator=g, device=dev),
+                                (0, pitch - c))
+    copies = lowering.LAYOUT_COPIES["padded"]
+    call = lowering.prepare_call(compiler.spmm_nest(m, c, k, pitch),
+                                 sparse.SPMM, {"vals": vals, "cidx": cidx,
+                                               "X": X}, device=dev)
+    assert lowering.LAYOUT_COPIES["padded"] == copies
+    assert call.planes
+    assert call.layouts[0].data_ptr() == vals.data_ptr()
+    assert call.layouts[1].data_ptr() == cidx.data_ptr()
+    assert tuple(call.layouts[0].shape) == (m, k)
+    got = _sparse_check(call, dict(hopper.LAUNCHES), "gather_spmm")
+    want = call.finish(call.kernel.plain(call.layouts))
+    scale = call.finish(call.kernel.plain(tuple(t.abs()
+                                                for t in call.layouts)))
+    doubled = call.finish(call.kernel(2 * vals, cidx, call.layouts[2]))
+    ctrl = float(((doubled - want).abs() / (scale + 1e-30)).max())
+    assert (ctrl > SPARSE_LIMIT) == bool(want.any())
+    ring, launched = _forced_ring(call, 4, "ring_gather_spmm",
+                                  call.padded_layouts())
+    assert launched == {"ring_gather_spmm"}
+    assert torch.equal(ring.view(torch.int32), got.view(torch.int32))
+
+
+def test_gather_spmm_spills_nothing_on_the_planes_of_hpcg(dev):
+    """K13 spills no byte, and on HPCG's 64**3 operator times 128 columns
+    it reads the planes, to R14's bits at depth 4."""
+    from repro_torch.kernels import sparse
+    assert hopper.kernel_attributes("gather_spmm")["localSizeBytes"] == 0
+    csr = sparse.hpcg_operator(64, 64, 64, device=dev)
+    g = torch.Generator(device=dev).manual_seed(64)
+    X = torch.randn(64 ** 3, 128, generator=g, device=dev)
+    flat = sparse.ssr_spmm(*csr, X, device=dev)
+    deep = sparse.ssr_spmm(*csr, X, schedule=lowering.Schedule(
+        buffer_depth=4), device=dev)
+    assert torch.equal(flat.view(torch.int32), deep.view(torch.int32))
 
 
 def test_ring_gather_and_scan_entry_points_launch_the_rings(dev):

@@ -22,8 +22,8 @@ numpy seed:
 * **one budget** — ``device_ring`` gives the table 0 bytes, a gather slot a
   row group × the valid width rounded up to 16 bytes × 4 bytes a stream
   (R13 keeps its slots' mbarriers besides, ``_staged_bytes``) and a scan
-  slot one of K14's tiles on its padded words; ``accepts`` refuses, by
-  name, a depth over ``SMEM_OPTIN_BYTES``;
+  slot one of K14's tiles, unpadded; ``accepts`` refuses, by name, a depth
+  over ``SMEM_OPTIN_BYTES``;
 * **one wave** — ``ring_run_steps`` gives every row group of R13 and R14
   the same runs, as many as fit the card's CTAs, so no CTA waits for a
   second wave, and the plain ring under those runs gives the sync plain
@@ -315,10 +315,14 @@ def test_gather_slot_width_is_the_block_past_one_lane_tile():
     assert hopper.gather_slot_width(kern.geometry) == 128
 
 
-@pytest.mark.parametrize("dtype, words", [(torch.float32, 4224),
-                                          (torch.int32, 4224),
-                                          (torch.bfloat16, 2112)])
+@pytest.mark.parametrize("dtype, words", [(torch.float32, 4096),
+                                          (torch.int32, 4096),
+                                          (torch.bfloat16, 2048)])
 def test_scan_ring_bytes_are_k14_tiles(dtype, words):
+    """A slot is one of K14's tiles, unpadded (one bulk copy lands it, and
+    the tile's sums are staged back in it); besides the ring R15 keeps 512
+    bytes: its slots' barriers, their tile numbers, a group's totals, the
+    carry and the offset."""
     x = torch.zeros(3 * hopper.SCAN_TILE, dtype=dtype)
     entry, lc, _ = _scan_entry(x, Schedule(buffer_depth=8))
     geo = hopper.launch_geometry(lc)
@@ -326,8 +330,8 @@ def test_scan_ring_bytes_are_k14_tiles(dtype, words):
     assert hopper.scan_slot_words(x.element_size()) == words
     assert dr.slot_bytes == (4 * words,) and dr.ring_bytes == 32 * words
     staged = hopper._staged_bytes("ring_stream_scan", (), geo)
-    assert staged == 4 * 4224       # pass 3's tile of sums, f32
-    # every depth fits the budget, the sums tile included
+    assert staged == hopper.SCAN_RING_STAGED_BYTES == 512
+    # every depth fits the budget, those bytes included
     assert hopper._ring_budget_refusal("ring_stream_scan", geo, dtype,
                                        entry.ring, staged) is None
 
@@ -435,7 +439,8 @@ def test_scan_walk_fetch_log_is_the_reference_rotation(depth):
     run = hopper.ring_run_steps("ring_stream_scan", geo, entry.ring,
                                 torch.float32, 4)
     per = hopper.SCAN_TILE // 1024
-    assert run % per == 0 and run < geo.steps     # several runs of tiles
+    # R15's CTAs take a tile at a time by ticket: each tile a run of its own
+    assert run == per and run < geo.steps
     want = hopper.plain_stream(scan.SCAN, lc, arrays)
     for r in (None, per, run):
         _, log = hopper.ring_taken(geo, entry.ring, r)

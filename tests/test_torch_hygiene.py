@@ -200,7 +200,8 @@ def test_build_key_follows_the_sources(tmp_path, monkeypatch):
     dags = {"dag_layernorm", "dag_softmax_xent", "dag_mlp",
             "ring_dag_layernorm", "ring_dag_softmax_xent", "ring_dag_mlp"}
     rows = {"ring_reduce_mul", "chain_elem", "ring_chain_elem", *dags}
-    stage = {"ring_reduce_mul", "ring_map_relu", "ring_contract_gemv"}
+    stage = {"ring_reduce_mul", "ring_map_relu", "ring_contract_gemv",
+             "ring_stream_scan"}
     users = {"ssr_attention.cuh": {"rescale_attention",
                                    "ring_rescale_attention"},
              "ssr_stencil1d.cuh": {"halo_stencil1d", "ring_halo_stencil1d"},

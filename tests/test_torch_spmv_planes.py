@@ -182,14 +182,15 @@ def test_a_row_past_one_lane_tile_walks_several_column_steps(name):
 
 @pytest.mark.parametrize("name", ["hpcg", "row300"])
 def test_only_k12_takes_the_planes(name):
-    """One owner: K12 takes planes, R13 (its ring), K13 and the gemv do
-    not, whatever asks (the kernel, the walk check, the lowering)."""
+    """One owner: K12 takes planes (and K13, as it does since the planes
+    reached it too), R13 (its ring) and the gemv do not, whatever asks
+    (the kernel, the walk check, the lowering)."""
     call, _ = _call(name)
     ring_call, _ = _call(name, RING)
     assert call.kernel.takes_planes and not ring_call.kernel.takes_planes
     assert hopper.takes_planes(("nest", "spmv"))
     assert not hopper.takes_planes(("nest", "spmv"), ring_call.kernel.ring)
-    assert not hopper.takes_planes(("nest", "spmm"))
+    assert hopper.PLANE_KERNELS == {("nest", "spmv"), ("nest", "spmm")}
     gemv_call = lowering.prepare_call(
         compiler.gemv_nest(64, 64), gemv.MATVEC,
         {"A": torch.ones(64, 64), "x": torch.ones(64)})
