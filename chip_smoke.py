@@ -17,10 +17,12 @@ printing JSON lines:
 
 1. build every Hopper kernel from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all at once), print the ``kernel_attributes`` line (K12,
-   K13, R13, R14, K3, R3, B3, R1, R2 and R4: registers and local bytes a
-   thread as ``cudaFuncGetAttributes`` reads them; K3, R3, B3, R1, R2 and
-   R4 also their CTAs an SM from the occupancy API, the rings at their
-   main path's rings) and the card's name and power limit;
+   K13, R13, R14, K3, R3, B3, R1, R2, R4, R15, K14 and K11's tiles at
+   D = 80, 128, 192 and 256: registers and local bytes a thread as
+   ``cudaFuncGetAttributes`` reads them; K3, R3, B3, R1, R2, R4, R15, K14
+   and K11 also their CTAs an SM from the occupancy API, the rings at
+   their main path's rings; K11 its shared memory as its entry and the
+   wrapper's mirror count it) and the card's name and power limit;
 2. drive the main path once, with every launch counter at 0 before it:
    dot and relu (f32, int32 above 2**24, bf16) at n = 2**26, gemm at
    4096**3 and gemv at 8192**2 in f32, plus one direct ``ssr_call``, and
@@ -46,9 +48,9 @@ printing JSON lines:
    composition of the first; check that every kernel launched, that a fused
    call is one launch and an unfused one one per stage, that a sparse or
    stream call is one wrapper call of its kernel, that one sort_2p26 call
-   runs the 28 device kernels of K16's schedule (at most 32) and one
-   fft_2048_b32768 call K15's one (``torch.profiler`` counts: the ``device_launches``
-   line), that a ChainedKernel call is one K17 launch, and that no
+   runs the 28 device kernels of K16's schedule (at most 32), one
+   fft_2048_b32768 call K15's one and one scan_2p26 call K14's one after a
+   memset (``torch.profiler`` counts: the ``device_launches`` line), that a ChainedKernel call is one K17 launch, and that no
    fallback fired, and that ``ops.spmv`` and ``ops.sparse_gemv`` lay out
    no stream by a copy (K12 takes ``pack_ell``'s (m, k) planes as they
    are: ``lowering.LAYOUT_COPIES``, the ``layout_copies`` of the
@@ -152,9 +154,10 @@ printing JSON lines:
    degrades to all-fused (one K6 launch), quarantines the entry and stays
    right;
 7. print the ``{"kernels": [...]}`` line (K1–K17, B1–B8 and R1–R15, 40
-   rows; K11's and R12's rows are the attention_qwen3 cell, the other
-   attention cells have time and depth_sweep lines of their own; an R row
-   times its main-path depth), then the device line last.
+   rows; K11's and R12's rows are the attention_qwen3 cell, K11's row
+   carries the other attention cells under ``cells``, which also have time
+   and depth_sweep lines of their own; an R row times its main-path
+   depth), then the device line last.
 
 Phase 2 also drives the rings: ``ssr_dot``, ``ssr_relu`` (three dtypes),
 ``ssr_gemv`` and ``fused_gemv_relu`` at depth 4, ``ssr_matmul`` at depth
@@ -217,6 +220,8 @@ STENCIL_LIMIT = 1e-6
 # its products in another order: about 1e-7 of max |v|; the plain version
 # on q, k, v rounded to TF32 reads about 1e-4, and must land above.
 ATTENTION_LIMIT = 1e-5
+#: K11's tiles in phase 1: (lanes, head dim) of danube, qwen3, d192, d256
+K11_TILES = ((128, 80), (128, 128), (256, 192), (256, 256))
 # the attention cells: (heads, sequence, head dim, causal, window); D = 192
 # and 256 run on K11's 256-lane tiles (192 zero-padded)
 ATTENTION_CELLS = {"attention_qwen3": (40, 4096, 128, True, None),
@@ -406,7 +411,8 @@ PAIRS = {"reduce_mul": "base_reduce", "map_relu": "base_relu",
 
 
 #: the stream kernels whose device launches a call are counted: their cell
-STREAM_CELL = {"stream_bitonic": "sort", "stream_fft": "fft"}
+STREAM_CELL = {"stream_bitonic": "sort", "stream_fft": "fft",
+               "stream_scan": "prefix_sum"}
 
 
 def emit(obj) -> None:
@@ -737,6 +743,18 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                      ("ring_contract_gemv", r4_smem),
                      ("ring_stream_scan", r15_smem)):
         attributes[n] = hopper.kernel_attributes(n, smem_)
+    # K14's (its two slots, static) and K11's tiles: the 128-lane tile,
+    # the wide tile on 192 and 256 live lanes; K11's shared memory as its
+    # entry counts it beside the wrapper's mirror (held equal in phase 3)
+    attributes["stream_scan"] = hopper.kernel_attributes("stream_scan")
+    for lanes, dim in K11_TILES:
+        key = f"rescale_attention_{lanes}_d{dim}"
+        attributes[key] = hopper.kernel_attributes("rescale_attention",
+                                                   tile=(lanes, dim))
+        attributes[key]["smemBytes"] = hopper.kernel_smem_bytes(
+            "rescale_attention", lanes, dim)
+        attributes[key]["smemMirror"] = hopper.rescale_attention_tiles(
+            dim, lanes)["smem"]
     # K3's two buffers as its entry counts them, beside the wrapper's count
     k3_smem = {str(dt): (hopper.kernel_smem_bytes("contract_gemm", dt),
                          hopper.contract_gemm_smem_bytes(dt))
@@ -1012,9 +1030,10 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     if copies["spmv"] or copies["sparse_gemv"] or copies["spmm"]:
         raise SystemExit(f"chip_smoke: a sparse entry copied its planes into "
                          f"padded layouts: {copies}")
-    # a stream call is one wrapper call of its kernel (three device launches
-    # for a scan, one for the FFT cell, 28 for the sort cell: LAUNCHES and
-    # the device_launches line below)
+    # a stream call is one wrapper call of its kernel (K14's scan one device
+    # kernel after a memset of its state, B8's three device launches, one
+    # for the FFT cell, 28 for the sort cell: LAUNCHES and the
+    # device_launches line below)
     stream_launches = {"prefix_sum": {"stream_scan": 1},
                        "prefix_sum_baseline": {"base_scan": 1},
                        "fft": {"stream_fft": 1},
@@ -1027,13 +1046,14 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                          f"{ {key: per_call[key] for key in stream_launches} }")
     # the device kernels of one sort_2p26 and one fft_2048_b32768 call,
     # counted by the profiler, against K16's and K15's Python schedules;
-    # one scan_2p26 call at GATHER_MAIN_DEPTH runs R15's one pass (after a
-    # memset of its state, which is no kernel) and none of K14's
+    # one scan_2p26 call runs K14's one pass and one at GATHER_MAIN_DEPTH
+    # R15's (each after a memset of its state, which is no kernel)
     device_launches = count_device_launches({
         "sort": (lambda: ops.sort(xso, ssr=True),
                  len(bitonic.sort_passes(SORT_N)), SORT_MOST_LAUNCHES,
                  ("sort_pass",)),
         "fft": (lambda: ops.fft(fre, fim, ssr=True), 1, 1, ("fft_rows",)),
+        "prefix_sum": (path["prefix_sum"], 1, 1, ("::scan_tiles<",)),
         "prefix_sum_ring": (path["prefix_sum_ring"], 1, 1,
                             ("ring_scan_tiles",))})
     # a call deeper than 2 launches its ring kernel and no K kernel; its
@@ -2305,11 +2325,22 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     checks["ring_gather_spmm_local_bytes"] = {
         "exact": local <= R14_LOCAL_BYTES, "local_bytes": local,
         "local_limit": R14_LOCAL_BYTES, "abs_err": 0.0, "limit": 0.0}
-    for name in ("ring_stream_scan", "gather_spmm"):
+    for name in ("ring_stream_scan", "gather_spmm", "stream_scan",
+                 "rescale_attention_256_d192", "rescale_attention_256_d256"):
         local = attributes[name]["localSizeBytes"]
         checks[f"{name}_local_bytes"] = {
             "exact": local == 0, "local_bytes": local, "local_limit": 0,
             "abs_err": 0.0, "limit": 0.0}
+    # K11's shared memory: the wrapper's mirror is the entry's count, and
+    # each tile fits what a CTA may opt into
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    k11_smem = {f"{lanes}_d{dim}": attributes[
+        f"rescale_attention_{lanes}_d{dim}"] for lanes, dim in K11_TILES}
+    checks["rescale_attention_smem_mirror"] = {
+        "exact": all(a_["smemBytes"] == a_["smemMirror"] <= optin
+                     for a_ in k11_smem.values()),
+        "smem": {k: a_["smemBytes"] for k, a_ in k11_smem.items()},
+        "optin": optin, "abs_err": 0.0, "limit": 0.0}
 
     # R15 against K14 to the bit, both launched on the scan's Launch at
     # each depth, whatever its grid (n = 1024 is one block, which the entry
@@ -2329,6 +2360,24 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         d_ = (a_ - b_).abs()
         return float(torch.nan_to_num(d_, nan=0.0).max())
 
+    # K14 against the bits of the three-launch design it replaced, as
+    # hopper.scan_model computes them (numpy float32: per tile 16 elements
+    # a thread in order, the CTA scan, the fixed second pass over the
+    # totals), on the padded vector
+    def k14_model(x_, k14_):
+        padded = scan._prepare(x_)[0][0].reshape(-1).cpu()
+        model = hopper.scan_model(padded.numpy().astype(np.float32)
+                                  if x_.dtype == torch.int32
+                                  else padded.float().numpy())
+        got_ = k14_.reshape(-1).cpu()
+        return {"exact": bool(torch.equal(got_.view(torch.int32),
+                                          torch.from_numpy(model)
+                                          .view(torch.int32))),
+                "abs_err": float(torch.nan_to_num(
+                    (got_ - torch.from_numpy(model)).abs(), nan=0.0).max()),
+                "limit": 0.0, "kernel": "stream_scan",
+                "against": "hopper.scan_model"}
+
     for dt in (torch.float32, torch.bfloat16, torch.int32):
         tag = str(dt).removeprefix("torch.")
         for n_ in (1024, 4096, SCAN_N - 1024, SCAN_N + 1024):
@@ -2343,6 +2392,7 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                     "exact": same_bits(got, want, torch.int32),
                     "abs_err": bits_diff(got, want), "limit": 0.0,
                     "kernel": "ring_stream_scan", "against": "stream_scan"}
+            checks[f"k14_model_{tag}_{n_}"] = k14_model(x_, want)
             x_[:1024] = 0
             ctrl = r15_and_k14(x_, GATHER_MAIN_DEPTH)[0]
             if same_bits(ctrl, want, torch.int32):
@@ -2684,7 +2734,10 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         emit({"phase": "time", **rows[-1], **(
             {"device_launches": device_launches[STREAM_CELL[name]]}
             if name in STREAM_CELL else {})})
-    # the other attention cells: K11 over their heads, as the row above
+    # the other attention cells: K11 over their heads, as the row above,
+    # each also in the kernels line under K11's row (``cells``)
+    k11_row = next(r_ for r_ in rows if r_["name"] == "rescale_attention")
+    k11_row["cell"], k11_row["cells"] = "attention_qwen3", {}
     for cell in ATTENTION_CELLS:
         if cell == "attention_qwen3":
             continue
@@ -2696,6 +2749,7 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": time_ms(sdpa(cell))}
+        k11_row["cells"][cell] = line
         emit({"phase": "time", "cell": cell, "name": "rescale_attention",
               **line})
     # the fused cells: the fused instantiation against the unfused stages'

@@ -73,8 +73,9 @@ above 2, as R5 ``ring_chained_map``; its plain version is
 
 The waivered stream kernels run a module's :class:`~repro_torch.kernels.
 frontend.Launch` instead of a lowered schedule (:data:`STREAM_KERNELS`, by
-body op): K14 ``stream_scan`` (``scan``: the inclusive prefix sum, its
-carry combined by a deterministic second pass), K15 ``stream_fft``
+body op): K14 ``stream_scan`` (``scan``: the inclusive prefix sum in one
+pass that reads x once, each tile's offset found from its predecessors'
+published totals in a fixed order), K15 ``stream_fft``
 (``fft``: the radix-2 Stockham stages, a row a CTA up to
 :data:`FFT_SMEM_POINTS` points with :data:`FFT_RADIX_LOG2` stages at a time
 in registers, as global passes above) and K16 ``stream_bitonic``
@@ -145,7 +146,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import (Any, Callable, Dict, Iterable, NamedTuple, Optional,
+from typing import (Any, Callable, Dict, Iterable, List, NamedTuple, Optional,
                     Sequence, Tuple, Union)
 
 import numpy as np
@@ -256,7 +257,8 @@ KERNELS: Dict[str, Dict[str, str]] = {
 #: call that launched its kernel.  A call of ``reduce_mul``, ``base_reduce``,
 #: or of a reduce of ``chain_elem`` or ``dag_softmax_xent``, is two device
 #: launches (the per-CTA partials, then the one-CTA fold); every other
-#: kernel's call is one — except the stream kernels: a ``stream_scan`` or
+#: kernel's call is one — except the stream kernels: a ``stream_scan`` call
+#: is one kernel, its one pass, after one memset of its state; a
 #: ``base_scan`` call is three (the tiles' totals, the one-CTA scan of the
 #: totals, the tiles' scans); a ``stream_fft`` call one for n up to
 #: FFT_SMEM_POINTS, else log2 n (one global pass a stage); a
@@ -393,13 +395,13 @@ _SIGNATURES = {
                        _P],
     "rescale_attention": [_P, _P, _P, _P, _I, _I, _GP, _SP, _SP, _SP, _SP,
                           _I64, _I64, _P, ctypes.c_float, _I, _I64, _I64,
-                          _I64, _P],
+                          _I64, _I64, _P],
     "base_stencil1d": [_P, _P, _P, _I, _I64, _I64, _I64, _P],
     "gather_spmv": [_P, _P, _P, _P, _GP, _SP, _SP, _SP] + [_I64] * 6 + [_P],
     "gather_spmm": [_P, _P, _P, _P, _GP, _SP, _SP, _SP] + [_I64] * 8 + [_P],
     "base_spmv": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
     "base_spmm": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
-    "stream_scan": [_P, _I, _P, _P, _I64, _I64, _P],
+    "stream_scan": [_P, _I, _P, _P, _I64, _I64, _I64, _P],
     "base_scan": [_P, _I, _P, _P, _I64, _I64, _P],
     "stream_fft": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _P],
     "stream_bitonic": [_P, _P, _I, _I64, _I64, _P],
@@ -439,7 +441,7 @@ _SIGNATURES = {
 #: Arguments of a kernel's ``ssr_<name>_smem_bytes`` (none for the rest).
 _SMEM_SIGNATURES = {"contract_gemm": [_I],
                     "halo_stencil1d": [_I64], "halo_stencil2d": [_I64],
-                    "rescale_attention": [_I64], "stream_fft": [_I64]}
+                    "rescale_attention": [_I64, _I64], "stream_fft": [_I64]}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -472,28 +474,36 @@ def _lib(name: str) -> ctypes.CDLL:
 _OCCUPANCY_ATTRIBUTES = ("contract_gemm", "ring_contract_gemm", "base_gemm",
                          "ring_reduce_mul", "ring_map_relu",
                          "ring_contract_gemv", "ring_stream_scan")
+#: The kernels whose attributes entry reads their CTAs an SM at the shared
+#: memory they take themselves: K14 (static) and K11 (its widest tiles).
+_OWN_OCCUPANCY_ATTRIBUTES = ("stream_scan", "rescale_attention")
 
 
-def kernel_attributes(name: str, smem: int = 0) -> Dict[str, int]:
+def kernel_attributes(name: str, smem: int = 0,
+                      tile: Sequence[int] = ()) -> Dict[str, int]:
     """Registers a thread (``numRegs``) and local, spilled bytes a thread
     (``localSizeBytes``) of kernel ``name`` as ``cudaFuncGetAttributes``
-    reads them on the current card: K12, K13, R13 and R14 report them; K3,
-    R3, B3, R1, R2, R4 and R15 also their CTAs an SM (``ctasPerSm``) at
-    ``smem`` bytes of dynamic shared memory (the ring and its barriers of
-    R3, R1, R2, R4 and R15, at their main path's instantiation; K3 and B3
-    take their own)."""
+    reads them on the current card (the most over its instantiations): K12,
+    K13, R13 and R14 report them; K3, R3, B3, R1, R2, R4 and R15 also their
+    CTAs an SM (``ctasPerSm``) at ``smem`` bytes of dynamic shared memory
+    (the ring and its barriers of R3, R1, R2, R4 and R15, at their main
+    path's instantiation; K3 and B3 take their own); K14 and K11 at the
+    shared memory they take themselves, K11 for the tile of ``tile`` =
+    (lanes, head dim) (:func:`rescale_attention_tiles`)."""
     fn = getattr(_lib(name), f"ssr_{name}_attributes")
     occupancy = name in _OCCUPANCY_ATTRIBUTES
+    own = name in _OWN_OCCUPANCY_ATTRIBUTES
+    args = [smem] if occupancy else list(tile)
     fn.argtypes = [ctypes.POINTER(ctypes.c_int64),
-                   *([ctypes.c_int64] if occupancy else [])]
+                   *([ctypes.c_int64] * len(args))]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int64 * 3)()
-    rc = fn(out, smem) if occupancy else fn(out)
+    rc = fn(out, *args)
     if rc != 0:
         raise RuntimeError(f"{name}: cudaFuncGetAttributes failed with CUDA "
                            f"error {rc}")
     got = {"numRegs": int(out[0]), "localSizeBytes": int(out[1])}
-    if occupancy:
+    if occupancy or own:
         got["ctasPerSm"] = int(out[2])
     return got
 
@@ -666,10 +676,37 @@ _SMEM_ARGS: Dict[str, Callable[[StreamGeometry, torch.dtype], tuple]] = {
     "halo_stencil1d": lambda geo, dtype: (geo.halos[0].windows[0],),
     "halo_stencil1d_relu": lambda geo, dtype: (geo.halos[0].windows[0],),
     "halo_stencil2d": lambda geo, dtype: (geo.halos[0].windows[0],),
-    "rescale_attention": lambda geo, dtype: (geo.ins[0].block[1],),
+    # the widest head dim the lanes tile holds: the most shared memory
+    "rescale_attention": lambda geo, dtype: (geo.ins[0].block[1],) * 2,
 }
-#: The scalar parameters a kernel takes from its body (K11's mask).
-_PARAMS = {"rescale_attention": 5}
+#: The scalar parameters a kernel takes from its body (K11's mask and the
+#: head dim).
+_PARAMS = {"rescale_attention": 6}
+
+
+def rescale_attention_tiles(dim: int, lanes: int) -> Dict[str, int]:
+    """K11's tile for a head dim ``dim`` on a lanes tile of ``lanes`` (128
+    or 256, the head dim padded), as ``csrc/rescale_attention.cu`` picks
+    it: ``rows`` (query rows a CTA), ``live`` (the lanes it stages and
+    sums: the lanes tile up to 128, else 192 for ``dim`` ≤ 192, else 256),
+    ``acc_lanes`` (accumulator lanes a thread) and ``smem`` (bytes of
+    shared memory a CTA, counted in f32 as
+    ``ssr_rescale_attention_smem_bytes`` counts them)."""
+    if not 1 <= dim <= lanes or lanes not in (128, 256):
+        raise ValueError(f"rescale_attention: takes a head dim of 1 to the "
+                         f"lanes tile, on 128 or 256 lanes; got {dim} on "
+                         f"{lanes}")
+    sub = ATTENTION_SUBTILE
+    if lanes == 128:
+        rows = 128
+        smem = 4 * (lanes * (rows + 4) + lanes * (sub + 1) + sub * lanes
+                    + sub * (rows + 4))
+        return {"rows": rows, "live": lanes, "acc_lanes": 8, "smem": smem}
+    rows, live = 64, 192 if dim <= 192 else 256
+    # Q and K on a pitch of live + 4 floats, V of live, the p tile
+    smem = 4 * ((rows + sub) * (live + 4) + sub * live + sub * (rows + 4))
+    return {"rows": rows, "live": live, "acc_lanes": live // 32,
+            "smem": smem}
 
 
 def kernel_smem_bytes(name: str, *args: Union[int, torch.dtype]) -> int:
@@ -922,9 +959,11 @@ SCAN_GROUP, SCAN_CHUNK = 16, 4096
 
 
 def scan_state_words(tiles: int) -> int:
-    """The 64-bit words of one R15 call's state, zeroed by its entry: each
-    tile's total, each group's sum, each chunk's carry (one more than the
-    chunks) and the ticket counter (``ssr_ring_stream_scan_state_words``)."""
+    """The 64-bit words of one K14 or R15 call's state, zeroed by its
+    entry: each tile's total, each group's sum, each chunk's carry (one
+    more than the chunks) and the ticket counter
+    (``ssr_stream_scan_state_words``, ``ssr_ring_stream_scan_state_words``:
+    ``csrc/ssr_scan.cuh``'s ``state_words``)."""
     return tiles + -(-tiles // SCAN_GROUP) + -(-tiles // SCAN_CHUNK) + 2
 
 
@@ -939,30 +978,34 @@ def scan_state_words(tiles: int) -> int:
 _SCAN_THREADS, _WARP = 256, 32
 
 
-def cta_exclusive_scan_model(v: np.ndarray) -> Tuple[np.ndarray, np.float32]:
-    """``ssr_cta_exclusive_scan<256>`` in float32 on one value a thread:
-    each warp's Kogge–Stone scan by shuffles (lane l adds lane l − o's
-    value for o = 1, 2, … 16), its exclusive value the lane below's
-    inclusive one (0 in lane 0), then the same scan over the 8 warps'
-    totals (lanes past 8 hold 0); each thread's exclusive value (its warp's
-    predecessors' inclusive total plus its own, in warps past the first)
-    and the CTA's total."""
-    incl = np.asarray(v, np.float32).reshape(-1, _WARP).copy()
-    warps = incl.shape[0]
+def cta_exclusive_scan_model(v: np.ndarray) -> Tuple[np.ndarray, Any]:
+    """``ssr_cta_exclusive_scan<256>`` in float32 on one value a thread
+    (the last axis of ``v``; leading axes are independent CTAs): each
+    warp's Kogge–Stone scan by shuffles (lane l adds lane l − o's value
+    for o = 1, 2, … 16), its exclusive value the lane below's inclusive one
+    (0 in lane 0), then the same scan over the 8 warps' totals (lanes past
+    8 hold 0); each thread's exclusive value (its warp's predecessors'
+    inclusive total plus its own, in warps past the first) and the CTA's
+    total."""
+    v = np.asarray(v, np.float32)
+    lead = v.shape[:-1]
+    incl = v.reshape(*lead, -1, _WARP).copy()
+    warps = incl.shape[-2]
     o = 1
     while o < _WARP:
-        incl[:, o:] = incl[:, o:] + incl[:, :-o]
+        incl[..., o:] = incl[..., o:] + incl[..., :-o]
         o *= 2
     excl = np.zeros_like(incl)
-    excl[:, 1:] = incl[:, :-1]
-    w = np.zeros(_WARP, np.float32)
-    w[:warps] = incl[:, -1]
+    excl[..., 1:] = incl[..., :-1]
+    w = np.zeros((*lead, _WARP), np.float32)
+    w[..., :warps] = incl[..., -1]
     o = 1
     while o < warps:
-        w[o:] = w[o:] + w[:-o]
+        w[..., o:] = w[..., o:] + w[..., :-o]
         o *= 2
-    excl[1:] = w[:warps - 1, None] + excl[1:]
-    return excl.reshape(-1), np.float32(w[warps - 1])
+    excl[..., 1:, :] = w[..., :warps - 1, None] + excl[..., 1:, :]
+    total = w[..., warps - 1]
+    return excl.reshape(v.shape), (np.float32(total) if not lead else total)
 
 
 def _group_sums_model(v: np.ndarray) -> np.ndarray:
@@ -975,8 +1018,9 @@ def _group_sums_model(v: np.ndarray) -> np.ndarray:
 
 
 def scan_offsets_model(totals: np.ndarray) -> np.ndarray:
-    """K14's second pass, ``ssr_exclusive_offsets`` (``csrc/
-    ssr_common.cuh``), in float32: the tiles' ``totals`` in chunks of
+    """The fixed-order second pass over the tiles' totals,
+    ``ssr_exclusive_offsets`` (``csrc/ssr_common.cuh``; B8's, and K14's
+    before it read x once), in float32: the tiles' ``totals`` in chunks of
     SCAN_CHUNK with a running carry from 0; in a chunk each of 256 threads
     sums its 16 totals in order from 0 (0 past the end), a CTA scan of the
     sums, and tile 16 t + j's offset is carry + (the thread's exclusive
@@ -999,46 +1043,88 @@ def scan_offsets_model(totals: np.ndarray) -> np.ndarray:
     return out
 
 
+def _group_sum_model(mates: np.ndarray, total: float) -> np.float32:
+    """The sum a tile closing its group publishes: its 15 mates' totals
+    and its own, in order from 0 (``Words::close``)."""
+    s = np.float32(0)
+    for t in (*np.asarray(mates, np.float32), np.float32(total)):
+        s = np.float32(s + t)
+    return s
+
+
+def _chunk_group_sums(tile: int, groups: Dict[int, np.float32],
+                      own: Optional[np.float32] = None) -> np.ndarray:
+    """The CTA scan's input for tile ``tile``'s chunk: the chunk's group
+    sums before the tile's own group (a KeyError for one not yet
+    published), then ``own`` (its group's sum where it closes it) or 0."""
+    chunk, pos = divmod(tile, SCAN_CHUNK)
+    q = pos // SCAN_GROUP
+    g = np.zeros(_SCAN_THREADS, np.float32)
+    for t in range(q):
+        g[t] = groups[chunk * _SCAN_THREADS + t]
+    if own is not None:
+        g[q] = own
+    return g
+
+
+def _next_carry_model(tile: int, own: np.float32,
+                      groups: Dict[int, np.float32],
+                      carries: Dict[int, np.float32]) -> np.float32:
+    """The carry a tile closing its chunk publishes: the CTA scan's total
+    over the chunk's 256 group sums (its own group's last), added to the
+    chunk's carry."""
+    chunk = tile // SCAN_CHUNK
+    _, total = cta_exclusive_scan_model(_chunk_group_sums(tile, groups, own))
+    carry = carries[chunk] if chunk else np.float32(0)
+    return np.float32(carry + total)
+
+
+def _offset_model(tile: int, mates: np.ndarray,
+                  groups: Dict[int, np.float32],
+                  carries: Dict[int, np.float32]) -> np.float32:
+    """Tile ``tile``'s offset from its group ``mates``' totals, the chunk's
+    earlier group sums and its carry (``Words::offset``): the group's
+    exclusive value from the CTA scan, the mates added in order, then the
+    carry."""
+    chunk, pos = divmod(tile, SCAN_CHUNK)
+    excl, _ = cta_exclusive_scan_model(_chunk_group_sums(tile, groups))
+    carry = carries[chunk] if chunk else np.float32(0)
+    run = excl[pos // SCAN_GROUP]
+    for t in np.asarray(mates, np.float32):
+        run = np.float32(run + t)
+    return np.float32(carry + run)
+
+
 def scan_tile_offset_model(prior: np.ndarray, total: float,
                            groups: Dict[int, np.float32],
                            carries: Dict[int, np.float32]) -> np.float32:
-    """R15's offset of tile i = ``len(prior)`` (steps 3 and 4 of
-    ``csrc/ring_stream_scan.cu``), from what tiles before i published and
-    nothing else: ``prior`` their totals, ``groups`` the group sums and
+    """K14's and R15's offset of tile i = ``len(prior)``
+    (``csrc/ssr_scan.cuh``'s ``Words``), from what tiles before i published
+    and nothing else: ``prior`` their totals, ``groups`` the group sums and
     ``carries`` the chunks' carries published so far (a KeyError if one is
     read before it is).  With ``total``, the tile's own, it publishes its
     group's sum (in order from 0) where it closes the group, and the next
     chunk's carry where it closes the chunk (its scan's total over the
-    chunk's 256 group sums, added to the chunk's carry) -- the kernel does
+    chunk's 256 group sums, added to the chunk's carry) -- the kernels do
     both in the tile's sum step.  The chunk's earlier group sums go
-    through the CTA scan with 0 from the tile's own group on (its own
-    group's sum there where it closes it): the exclusive value of its
-    group depends on the groups before it alone."""
+    through the CTA scan with 0 from the tile's own group on: the exclusive
+    value of its group depends on the groups before it alone."""
     i = len(prior)
-    chunk, pos = divmod(i, SCAN_CHUNK)
-    q, j = divmod(pos, SCAN_GROUP)
+    pos = i % SCAN_CHUNK
+    j = pos % SCAN_GROUP
     mates = np.asarray(prior[i - j:i], np.float32)
-    g = np.zeros(_SCAN_THREADS, np.float32)
     if j == SCAN_GROUP - 1:
-        s = np.float32(0)
-        for t in (*mates, np.float32(total)):
-            s = np.float32(s + t)
-        groups[i // SCAN_GROUP] = g[q] = s
-    for t in range(q):
-        g[t] = groups[chunk * _SCAN_THREADS + t]
-    excl, chunk_total = cta_exclusive_scan_model(g)
-    carry = carries[chunk] if chunk else np.float32(0)
-    run = excl[q]
-    for t in mates:
-        run = np.float32(run + t)
-    if pos == SCAN_CHUNK - 1:
-        carries[chunk + 1] = np.float32(carry + chunk_total)
-    return np.float32(carry + run)
+        own = groups[i // SCAN_GROUP] = _group_sum_model(mates, total)
+        if pos == SCAN_CHUNK - 1:
+            carries[i // SCAN_CHUNK + 1] = _next_carry_model(i, own, groups,
+                                                             carries)
+    return _offset_model(i, mates, groups, carries)
 
 
 def scan_tile_offsets_model(totals: np.ndarray) -> np.ndarray:
-    """Every tile's offset as R15 finds it (:func:`scan_tile_offset_model`,
-    tile by tile in ticket order, each from its predecessors' totals)."""
+    """Every tile's offset as K14 and R15 find it
+    (:func:`scan_tile_offset_model`, tile by tile in ticket order, each
+    from its predecessors' totals)."""
     totals = np.asarray(totals, np.float32)
     groups: Dict[int, np.float32] = {}
     carries: Dict[int, np.float32] = {}
@@ -1047,33 +1133,142 @@ def scan_tile_offsets_model(totals: np.ndarray) -> np.ndarray:
                      for i in range(len(totals))], np.float32)
 
 
+class ScanDeadlock(RuntimeError):
+    """K14's schedule model reached a state where no CTA could move."""
+
+
+def scan_schedule_model(totals: np.ndarray, ctas: int, seed: int = 0,
+                        values: bool = True, stalled: Sequence[int] = ()
+                        ) -> Tuple[np.ndarray, dict]:
+    """K14's schedule (``csrc/stream_scan.cu``) on ``ctas`` persistent CTAs,
+    interleaved at random (from ``seed``), over tiles whose totals are
+    ``totals``.  Each CTA takes tickets from one counter, so tiles start in
+    increasing order, and holds at most two tiles: it sums its first tile
+    (publishing its total, then closing its group or chunk where it closes
+    one), then, per ticket B, sums B the same way, then waits for its held
+    tile A's offset and writes A, and keeps B.  A CTA moves only when what
+    it waits on is published: a closing tile waits for its group mates'
+    totals (and, closing a chunk, the chunk's group sums and carry), an
+    offset for its mates' totals, the chunk's earlier group sums and its
+    carry.  The CTAs in ``stalled`` take one ticket and never move again,
+    as a CTA that was not resident with the rest would.  Raises
+    :class:`ScanDeadlock` if every unfinished CTA waits.
+    Returns each tile's offset (float32, from the published values in the
+    kernel's operations; NaN without ``values``) and the schedule's stats:
+    ``held`` (the most tiles a CTA held), ``rounds`` (of the interleaving)
+    and ``order`` (the tiles in the order their totals were published)."""
+    totals = np.asarray(totals, np.float32)
+    tiles = len(totals)
+    pub = np.zeros(tiles, bool)
+    groups: Dict[int, np.float32] = {}
+    carries: Dict[int, np.float32] = {}
+    offsets = np.full(tiles, np.nan, np.float32)
+    counter = [0]
+    stats: Dict[str, Any] = {"held": 0, "rounds": 0, "order": []}
+
+    def take() -> Optional[int]:
+        if counter[0] >= tiles:
+            return None
+        counter[0] += 1
+        return counter[0] - 1
+
+    def ready_totals(lo: int, hi: int) -> Callable[[], bool]:
+        return lambda: bool(pub[lo:hi].all())
+
+    def ready_chunk(tile: int) -> Callable[[], bool]:
+        chunk, pos = divmod(tile, SCAN_CHUNK)
+        keys = [chunk * _SCAN_THREADS + t for t in range(pos // SCAN_GROUP)]
+        return lambda: all(k in groups for k in keys) and (
+            chunk == 0 or chunk in carries)
+
+    def sum_step(b: int):
+        pub[b] = True                  # the total, before any wait
+        stats["order"].append(b)
+        pos = b % SCAN_CHUNK
+        if pos % SCAN_GROUP != SCAN_GROUP - 1:
+            return
+        yield ready_totals(b - SCAN_GROUP + 1, b)
+        own = _group_sum_model(totals[b - SCAN_GROUP + 1:b], totals[b]) \
+            if values else np.float32(0)
+        groups[b // SCAN_GROUP] = own
+        if pos == SCAN_CHUNK - 1:
+            yield ready_chunk(b)
+            carries[b // SCAN_CHUNK + 1] = _next_carry_model(
+                b, own, groups, carries) if values else np.float32(0)
+
+    def offset_step(a: int):
+        j = a % SCAN_GROUP
+        yield ready_totals(a - j, a)
+        yield ready_chunk(a)
+        if values:
+            offsets[a] = _offset_model(a, totals[a - j:a], groups, carries)
+
+    def cta(c: int):
+        a = take()
+        if a is None:
+            return
+        stats["held"] = max(stats["held"], 1)
+        if c in stalled:
+            yield lambda: False
+        yield from sum_step(a)
+        while True:
+            b = take()
+            if b is not None:        # A and B held
+                stats["held"] = max(stats["held"], 2)
+                yield from sum_step(b)
+            yield from offset_step(a)
+            if b is None:            # A written
+                return
+            a = b
+
+    rng = np.random.default_rng(seed)
+    gens = [cta(c) for c in range(ctas)]
+    waits: List[Optional[Callable[[], bool]]] = [None] * ctas
+    live = list(range(ctas))
+    while live:
+        stats["rounds"] += 1
+        moved, still = False, []
+        for c in rng.permutation(live):
+            if waits[c] is not None and not waits[c]():
+                still.append(c)
+                continue
+            moved = True
+            try:
+                waits[c] = next(gens[c])
+                still.append(c)
+            except StopIteration:
+                pass
+        if not moved:
+            raise ScanDeadlock(f"{len(live)} CTAs wait and none can move "
+                               f"({int(pub.sum())} of {tiles} totals out)")
+        live = still
+    return offsets, stats
+
+
 def scan_model(x: np.ndarray) -> np.ndarray:
-    """R15's (and K14's) inclusive prefix sum of the padded vector ``x`` in
-    float32 (``csrc/ssr_scan.cuh``): per SCAN_TILE tile (0 past the end),
-    each of 256 threads sums its 16 elements in order from the first, a CTA
-    scan of the sums gives the tile's total and each thread's exclusive
-    value, and each element is the tile's offset
-    (:func:`scan_tile_offsets_model`) + its running sum from that value."""
+    """K14's (and R15's) inclusive prefix sum of the padded vector ``x``
+    in float32 (``csrc/ssr_scan.cuh``): per SCAN_TILE tile (0 past the
+    end), each of 256 threads sums its 16 elements in order from the first,
+    a CTA scan of the sums gives the tile's total and each thread's
+    exclusive value, and each element is the tile's offset (the fixed
+    second pass over the totals, :func:`scan_offsets_model`, which the
+    tiles' look-back reproduces: :func:`scan_tile_offsets_model`) + its
+    running sum from that value.  The tiles run at once."""
     x = np.asarray(x, np.float32).reshape(-1)
     n = len(x)
     tiles = -(-n // SCAN_TILE)
     v = np.zeros(tiles * SCAN_TILE, np.float32)
     v[:n] = x
     v = v.reshape(tiles, _SCAN_THREADS, SCAN_GROUP)
-    runs, totals = [], np.empty(tiles, np.float32)
-    for i in range(tiles):
-        s = v[i, :, 0].copy()
-        for j in range(1, SCAN_GROUP):
-            s = s + v[i, :, j]
-        run, totals[i] = cta_exclusive_scan_model(s)
-        runs.append(run)
-    offs = scan_tile_offsets_model(totals)
+    s = v[:, :, 0].copy()
+    for j in range(1, SCAN_GROUP):
+        s = s + v[:, :, j]
+    run, totals = cta_exclusive_scan_model(s)
+    offs = scan_offsets_model(totals)[:, None]
     out = np.empty_like(v)
-    for i in range(tiles):
-        run = runs[i]
-        for j in range(SCAN_GROUP):
-            run = run + v[i, :, j]
-            out[i, :, j] = offs[i] + run
+    for j in range(SCAN_GROUP):
+        run = run + v[:, :, j]
+        out[:, :, j] = offs + run
     return out.reshape(-1)[:n]
 
 
@@ -1782,8 +1977,10 @@ def rescale_attention(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                       ring: Optional[RingProgram] = None) -> torch.Tensor:
     """K11: O = softmax(Q·Kᵀ·scale + mask)·V for every head of the batch in
     one launch, the kv walk a loop inside each CTA carrying m, l and acc.
-    The mask is the body's parameters: (causal, window, scale, sk − sq,
-    sk).  With ``ring`` (a pipelined call) R12: K and V through rings of
+    The mask and the head dim are the body's parameters: (causal, window,
+    scale, sk − sq, sk, d); K11 stages and sums the lanes that hold d
+    (:func:`rescale_attention_tiles`) and writes 0 to the padded lanes of
+    O.  With ``ring`` (a pipelined call) R12: K and V through rings of
     their streams' depths in units of :data:`ATTENTION_RING_TILES` keys,
     Q staged once a CTA, to K11's bits."""
     name = "rescale_attention"
@@ -1798,7 +1995,7 @@ def rescale_attention(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
     if out_dtype not in _FLOATS:
         raise TypeError(f"{name}: drains to float32 or bfloat16, asked for "
                         f"{out_dtype}")
-    causal, window, scale, off_rc, sk = program.params[0]
+    causal, window, scale, off_rc, sk, dim = program.params[0]
     k, v, q = layouts
     shape = geo.out_shape if k.dim() == 2 else (heads, *geo.out_shape)
     out = torch.empty(shape, dtype=out_dtype, device=dev)
@@ -1816,7 +2013,8 @@ def rescale_attention(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
             float(scale), int(bool(causal)),
             -1 if window is None else int(window), int(off_rc), int(sk))
     if ring is None:
-        _launch(name, dev, *args)
+        # K11 stages and sums only the lanes that hold the head dim
+        _launch(name, dev, *args, int(dim))
         return out
     dr = device_ring("ring_rescale_attention", geo, ring, k.dtype)
     _launch("ring_rescale_attention", dev, *args,
@@ -2120,7 +2318,7 @@ def _checked_launch(name: str, launch: Any, *expect) -> None:
 
 def _scan_launch(name: str, dev: torch.device, x: torch.Tensor
                  ) -> torch.Tensor:
-    """K14's or B8's three launches over the padded vector x."""
+    """B8's three launches over the padded vector x."""
     reason = _smem_refusal(name, dev)
     if reason is not None:
         raise ValueError(reason)
@@ -2147,11 +2345,23 @@ def _checked_scan(name: str, launch: Any, x: torch.Tensor) -> torch.device:
 
 def stream_scan(launch: Any, x: torch.Tensor) -> Tuple[torch.Tensor]:
     """K14: the inclusive prefix sum of the padded vector x (rows, 128) in
-    f32, the Launch's (8, 128) blocks walked in order with an f32 carry:
-    per SCAN_TILE tile its total, one CTA's scan of the totals in order,
-    then each tile's scan from its offset — the same result every run."""
-    dev = _checked_scan("stream_scan", launch, x)
-    return (_scan_launch("stream_scan", dev, x),)
+    f32, the Launch's (8, 128) blocks walked in order with an f32 carry,
+    in one pass that reads x once: persistent CTAs take SCAN_TILE tiles by
+    ticket, in increasing order, two slots a CTA, and each tile finds its
+    offset from its predecessors' published totals as a fixed-order second
+    pass over the totals would (:func:`scan_model`) — the same bits every
+    run.  One memset of the call's state (:func:`scan_state_words`), then
+    one launch."""
+    name = "stream_scan"
+    dev = _checked_scan(name, launch, x)
+    x = _aligned16(x)
+    tiles = -(-x.numel() // SCAN_TILE)
+    out = torch.empty(x.shape, dtype=torch.float32, device=dev)
+    nwords = scan_state_words(tiles)
+    words = torch.empty(nwords, dtype=torch.int64, device=dev)
+    _launch(name, dev, x.data_ptr(), _DTYPE_CODE[x.dtype], out.data_ptr(),
+            words.data_ptr(), x.numel(), tiles, nwords)
+    return (out,)
 
 
 def launch_geometry(launch: Any) -> StreamGeometry:

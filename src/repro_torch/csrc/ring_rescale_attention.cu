@@ -66,36 +66,6 @@ struct KPitch {
   static constexpr int value = D + 16 / static_cast<int>(sizeof(T));
 };
 
-// The sub-tiles of one CTA's kv walk in grid order, masked ones skipped.
-struct KvWalk {
-  SsrOdometer odo;
-  int64_t z = 0, zsteps, j0 = 0, blk;
-  __device__ __forceinline__ KvWalk(const SsrGrid& g, int64_t step0,
-                                    int64_t zsteps_, int64_t blk_)
-      : odo(g, step0), zsteps(zsteps_), blk(blk_) {}
-  __device__ __forceinline__ bool done() const { return z >= zsteps; }
-  __device__ __forceinline__ int kvalid() const {
-    return static_cast<int>(blk - j0 < kBK ? blk - j0 : kBK);
-  }
-  __device__ __forceinline__ int64_t kv0(const SsrStream& sk) const {
-    return block_row(odo, sk) + j0;
-  }
-  __device__ __forceinline__ void next(const SsrGrid& g) {
-    j0 += kBK;
-    if (j0 >= blk) {
-      j0 = 0;
-      ++z;
-      odo.advance(g);
-    }
-  }
-  // move to the first sub-tile from here that some row sees
-  __device__ __forceinline__ void seek(const SsrGrid& g, const SsrStream& sk,
-                                       const Mask& mk, int64_t row_min,
-                                       int64_t row_max) {
-    while (!done() && masked_out(kv0(sk), kvalid(), row_min, row_max, mk)) next(g);
-  }
-};
-
 // One unit's raw scores into the p tile: rows RS rg .., keys kg + kKG k of
 // the unit, each q . k over d in order, fmaf from zero.
 template <typename R, typename T>
@@ -191,7 +161,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   T* const fring = fetch_k ? kring : vring;
   const int fld = fetch_k ? KP : kD;
   KvWalk fw(g, p * zsteps, zsteps, sk.block[0]);
-  fw.seek(g, sk, mk, row_min, row_max);
+  seek(fw, g, sk, mk, row_min, row_max);
   int fu = 0, put = 0;
   auto issue = [&]() {
     if (!fw.done()) {
@@ -210,7 +180,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (++fu == kU) {
         fu = 0;
         fw.next(g);
-        fw.seek(g, sk, mk, row_min, row_max);
+        seek(fw, g, sk, mk, row_min, row_max);
       }
     }
     put = put + 1 == depth ? 0 : put + 1;
@@ -247,7 +217,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   KvWalk w(g, p * zsteps, zsteps, sk.block[0]);
-  w.seek(g, sk, mk, row_min, row_max);
+  seek(w, g, sk, mk, row_min, row_max);
   int kget = 0, vget = 0;
   while (!w.done()) {
 #pragma unroll 1
@@ -277,7 +247,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       vget = vget + 1 == dv ? 0 : vget + 1;
     }
     w.next(g);
-    w.seek(g, sk, mk, row_min, row_max);
+    seek(w, g, sk, mk, row_min, row_max);
   }
 
   drain(acc, l, out, so.pitch, nrows, tr, tc);

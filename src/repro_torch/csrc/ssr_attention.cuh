@@ -1,9 +1,14 @@
 // The arithmetic of the online-softmax accumulator, shared by K11
 // rescale_attention and R12 ring_rescale_attention: the tiles of a lanes
-// tile D, the mask, the skip test of a 64-key sub-tile, the rescale of m, l
-// and acc by a sub-tile's scores, the p v products and the drain.  Both
-// kernels hand these the same raw scores (q . k summed over d in order, in
-// FP32 FMA) and the same p and v, so R12 gives K11's bits at every depth.
+// tile D, the mask, the skip test of a 64-key sub-tile and the walk of the
+// sub-tiles, the rescale of m, l and acc by a sub-tile's scores, the p v
+// products and the drain.  Both kernels hand these the same raw scores (q
+// . k summed over d in order, in FP32 FMA) and the same p and v, so R12
+// gives K11's bits at every depth.  The rescale's thread mapping (rows 8
+// tr .., keys tc + kCG k) fixes the order of each row's sum of p: a thread
+// sums its kSC keys in order, then a butterfly over the kCG column groups;
+// acc holds NA lanes a thread (8, or fewer where K11 computes only the
+// live lanes of a head dim), which the rescale and p v leave in place.
 #pragma once
 
 #include "ssr_common.cuh"
@@ -60,6 +65,30 @@ __device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
+// The sub-tiles of one CTA's kv walk in grid order, masked ones skipped.
+struct KvWalk {
+  SsrOdometer odo;
+  int64_t z = 0, zsteps, j0 = 0, blk;
+  __device__ __forceinline__ KvWalk(const SsrGrid& g, int64_t step0,
+                                    int64_t zsteps_, int64_t blk_)
+      : odo(g, step0), zsteps(zsteps_), blk(blk_) {}
+  __device__ __forceinline__ bool done() const { return z >= zsteps; }
+  __device__ __forceinline__ int kvalid() const {
+    return static_cast<int>(blk - j0 < kBK ? blk - j0 : kBK);
+  }
+  __device__ __forceinline__ int64_t kv0(const SsrStream& sk) const {
+    return block_row(odo, sk) + j0;
+  }
+  __device__ __forceinline__ void next(const SsrGrid& g) {
+    j0 += kBK;
+    if (j0 >= blk) {
+      j0 = 0;
+      ++z;
+      odo.advance(g);
+    }
+  }
+};
+
 struct Mask {
   float scale;
   int causal;
@@ -78,15 +107,24 @@ __device__ __forceinline__ bool masked_out(int64_t kv0, int kvalid,
          (mk.window >= 0 && kv0 + kvalid - 1 <= row_min - mk.window);
 }
 
+// Move `w` to the first sub-tile from here that some row of row_min ..
+// row_max sees.
+__device__ __forceinline__ void seek(KvWalk& w, const SsrGrid& g,
+                                     const SsrStream& sk, const Mask& mk,
+                                     int64_t row_min, int64_t row_max) {
+  while (!w.done() && masked_out(w.kv0(sk), w.kvalid(), row_min, row_max, mk))
+    w.next(g);
+}
+
 // One sub-tile's rescale: the raw scores s (rows 8 tr + i, keys tc + kCG k
 // of the sub-tile from key kv0) scaled and masked (-1e30, never -inf), the
 // row maxima and sums over the column group by shuffles, m and l updated,
 // acc rescaled by alpha = exp(m - m'), and p = exp(s - m') written to pt
 // (transposed: key-major, kPPitch apart) for the p v products.  expf is the
 // accurate one.
-template <typename L>
+template <typename L, int NA>
 __device__ __forceinline__ void rescale(float (&s)[8][L::kSC], float (&m)[8],
-                                        float (&l)[8], float (&acc)[8][8],
+                                        float (&l)[8], float (&acc)[8][NA],
                                         float* pt, int64_t row0, int tr,
                                         int tc, int64_t kv0, int kvalid,
                                         const Mask& mk) {
@@ -120,7 +158,7 @@ __device__ __forceinline__ void rescale(float (&s)[8][L::kSC], float (&m)[8],
     l[i] = l[i] * alpha + sum;
     m[i] = m_new;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] *= alpha;
+    for (int j = 0; j < NA; ++j) acc[i][j] *= alpha;
   }
 #pragma unroll
   for (int k = 0; k < kSC; ++k) {
@@ -148,30 +186,53 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
   v[4] = c.x; v[5] = c.y; v[6] = d.x; v[7] = d.y;
 }
 
+// Six consecutive elements of a staged V row as floats (8 bytes of f32
+// three times, or 4 bytes of bf16 three times, converted exactly).
+__device__ __forceinline__ void load6(const float* p, float (&v)[6]) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float2 a = reinterpret_cast<const float2*>(p)[k];
+    v[2 * k] = a.x;
+    v[2 * k + 1] = a.y;
+  }
+}
+__device__ __forceinline__ void load6(const __nv_bfloat16* p, float (&v)[6]) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float2 a = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(p)[k]);
+    v[2 * k] = a.x;
+    v[2 * k + 1] = a.y;
+  }
+}
+template <typename V>
+__device__ __forceinline__ void load_lanes(const V* p, float (&v)[8]) { load8(p, v); }
+template <typename V>
+__device__ __forceinline__ void load_lanes(const V* p, float (&v)[6]) { load6(p, v); }
+
 // acc += p v over N consecutive keys in order: p from pt (key-major, the
 // first key's row at pt), v from staged rows `ld` elements apart (the
-// first key's row at vs).
-template <typename L, int N, typename V>
-__device__ __forceinline__ void accumulate_pv(float (&acc)[8][8], const float* pt,
+// first key's row at vs), the thread's NA lanes from NA tc.
+template <typename L, int N, typename V, int NA>
+__device__ __forceinline__ void accumulate_pv(float (&acc)[8][NA], const float* pt,
                                               const V* vs, int ld, int tr, int tc) {
 #pragma unroll 4
   for (int c = 0; c < N; ++c) {
     const float4 pa = reinterpret_cast<const float4*>(pt + c * L::kPPitch)[2 * tr];
     const float4 pb = reinterpret_cast<const float4*>(pt + c * L::kPPitch)[2 * tr + 1];
     const float pv[8] = {pa.x, pa.y, pa.z, pa.w, pb.x, pb.y, pb.z, pb.w};
-    float vv[8];
-    load8(vs + c * ld + 8 * tc, vv);
+    float vv[NA];
+    load_lanes(vs + c * ld + NA * tc, vv);
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+      for (int j = 0; j < NA; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
   }
 }
 
 // The drain: acc / max(l, 1e-30), cast to the output dtype, for the
-// thread's rows below `nrows`.
-template <typename O>
-__device__ __forceinline__ void drain(const float (&acc)[8][8], const float (&l)[8],
+// thread's rows below `nrows` and its NA lanes from NA tc.
+template <typename O, int NA>
+__device__ __forceinline__ void drain(const float (&acc)[8][NA], const float (&l)[8],
                                       O* out, int64_t pitch, int nrows, int tr,
                                       int tc) {
 #pragma unroll
@@ -179,9 +240,9 @@ __device__ __forceinline__ void drain(const float (&acc)[8][8], const float (&l)
     const int r = 8 * tr + i;
     if (r >= nrows) break;
     const float lmax = fmaxf(l[i], 1e-30f);
-    O* dst = out + r * pitch + 8 * tc;
+    O* dst = out + r * pitch + NA * tc;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) dst[j] = ssr_cast<O>(acc[i][j] / lmax);
+    for (int j = 0; j < NA; ++j) dst[j] = ssr_cast<O>(acc[i][j] / lmax);
   }
 }
 

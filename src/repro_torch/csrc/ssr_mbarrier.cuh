@@ -50,6 +50,17 @@ __device__ __forceinline__ void bar_arrive_expect(uint64_t* bar,
       : "memory");
 }
 
+// Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from
+// device memory to shared memory as one bulk copy that completes on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // Wait until the phase of `bar` with parity `parity` has completed.
 __device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
   unsigned done;

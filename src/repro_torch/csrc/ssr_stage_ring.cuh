@@ -53,6 +53,7 @@ using mbar::bar_arrive_expect;
 using mbar::bar_arrive_on_copies;
 using mbar::bar_init;
 using mbar::bar_wait;
+using mbar::bulk_copy;
 using mbar::kBarrierBytes;
 using mbar::Slots;
 using mbar::smem_u32;
@@ -62,17 +63,6 @@ constexpr int kComputeThreads = 32 * kComputeWarps;
 constexpr int kThreads = kComputeThreads + 32;   // and the filling warp
 // R1's warp sums: two sets of eight, a run's and the next one's
 constexpr int kSumBytes = 2 * kComputeWarps * 4;
-
-// Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from
-// device memory to shared memory as one bulk copy that completes on `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
 
 // Set the barriers of streams of depths `da` and `db` (0: no second
 // stream), one thread: `full` completes on the fill (lane 0's arrival and

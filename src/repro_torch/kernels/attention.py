@@ -14,8 +14,9 @@ On the card the recurrence runs as K11 ``rescale_attention``
 (``csrc/rescale_attention.cu``), the kv walk a loop inside each CTA; a
 schedule deeper than 2 runs R12 ``ring_rescale_attention``, K11's
 arithmetic with K and V arriving through N-deep rings.  The
-mask parameters are the body's :class:`~repro_torch.core.ssr.KernelBody`
-``params``, so each keys the kernel caches.
+mask parameters and the head dim are the body's
+:class:`~repro_torch.core.ssr.KernelBody` ``params``, so each keys the
+kernel caches.
 
 Heads: the reference runs heads with ``jax.vmap``; here q (…, Sq, D) and
 k, v (…, Sk, D) with the same leading dims run as ONE K11 launch whose CTA
@@ -57,11 +58,13 @@ def _nest(static):
 
 
 def attention_scores(k_blk, v_blk, q_blk, offs, causal, window, scale,
-                     off_rc, sk):
+                     off_rc, sk, d):
     """Raw scores of one (q-tile, kv-tile) step, scaled and masked; the
     lowering's online-softmax kernel owns the m/l/acc recurrence.  ``offs``
     are the per-level global offsets (q, d, kv); query rows align to the
-    keys' end (``off_rc = sk − sq``)."""
+    keys' end (``off_rc = sk − sq``).  ``d`` is the head dim: the blocks'
+    lanes past it are the layout's zero padding, which add 0 here and which
+    the card's kernel neither stages nor sums."""
     s = torch.matmul(promote(q_blk), promote(k_blk).mT) * scale
     rows = offs[0] + torch.arange(s.shape[0], device=s.device)[:, None] \
         + off_rc
@@ -77,7 +80,7 @@ def attention_scores(k_blk, v_blk, q_blk, offs, causal, window, scale,
 def _body(static) -> KernelBody:
     sq, sk, d, causal, window, scale, _dt = static
     return KernelBody(attention_scores, "attn_scores",
-                      params=(causal, window, scale, sk - sq, sk))
+                      params=(causal, window, scale, sk - sq, sk, d))
 
 
 _ssr = NestKernel("attention", prepare=_prepare, nest=_nest, body=_body,

@@ -287,7 +287,7 @@ def test_mask_parameters_key_the_kernel_cache():
     assert float((a - b).abs().max()) > 1e-3
     body = attention._body(attention._prepare(q, k, v, True, 7)[1])
     assert body.op == "attn_scores"
-    assert body.params == (True, 7, 0.25, 0, 64)
+    assert body.params == (True, 7, 0.25, 0, 64, 16)
 
 
 def test_refs_and_registry_match_the_reference():

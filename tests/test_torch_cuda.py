@@ -2283,6 +2283,91 @@ def test_ring_stream_scan_is_one_kernel_that_spills_nothing(dev):
     assert attrs["localSizeBytes"] == 0 and attrs["ctasPerSm"] >= 1
 
 
+def test_stream_scan_is_one_kernel_after_a_memset_that_spills_nothing(dev):
+    """K14 reads x once: one device kernel a call (its state zeroed by a
+    memset, no kernel), by the profiler, none of the three-launch design's;
+    no local bytes; at least one CTA an SM."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import scan
+    x = torch.randn(1 << 22, device=dev)
+    scan.ssr_scan(x, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        scan.ssr_scan(x, device=dev)
+        torch.cuda.synchronize()
+    keys = [e.key for e in prof.key_averages()]
+    calls = sum(e.count for e in prof.key_averages()
+                if "::scan_tiles<" in e.key)
+    assert calls == 1
+    assert not any("tile_totals" in k or "exclusive_offsets" in k
+                   or "ring_scan_tiles" in k for k in keys)
+    attrs = hopper.kernel_attributes("stream_scan")
+    assert attrs["localSizeBytes"] == 0 and attrs["ctasPerSm"] >= 1
+
+
+@pytest.mark.parametrize("n", [1024, 4096, 5000, (1 << 22) + 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_stream_scan_keeps_the_three_launch_designs_bits(dev, dtype, n):
+    """K14 in one pass gives the bits of the three-launch scan it replaced
+    (``hopper.scan_model``: that design's association in numpy float32),
+    and R15 at depth 4 gives K14's."""
+    from repro_torch.kernels import scan
+    g = torch.Generator(device=dev).manual_seed(n)
+    if dtype == torch.int32:
+        x = torch.randint(-(1 << 30), 1 << 30, (n,), generator=g, device=dev,
+                          dtype=dtype)
+    else:
+        x = torch.randn(n, generator=g, device=dev).to(dtype)
+    got, want = _r15_and_k14(x, 4)
+    padded = scan._prepare(x)[0][0].reshape(-1).cpu()
+    model = hopper.scan_model(padded.numpy().astype(np.float32)
+                              if dtype == torch.int32
+                              else padded.float().numpy())
+    assert torch.equal(want.reshape(-1).cpu().view(torch.int32),
+                       torch.from_numpy(model).view(torch.int32))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("d", [192, 256])
+def test_rescale_attention_wide_tile_spills_nothing(dev, d):
+    """K11's wide tile on 192 or 256 live lanes: no local bytes, one CTA an
+    SM, its shared memory as the wrapper's mirror counts it."""
+    attrs = hopper.kernel_attributes("rescale_attention", tile=(256, d))
+    assert attrs["localSizeBytes"] == 0 and attrs["ctasPerSm"] >= 1
+    assert hopper.kernel_smem_bytes("rescale_attention", 256, d) == \
+        hopper.rescale_attention_tiles(d, 256)["smem"]
+
+
+@pytest.mark.parametrize("shape", [(8, 512, 192, True, None),
+                                   (3, 333, 192, True, 70),
+                                   (2, 300, 160, False, None)])
+def test_rescale_attention_live_lanes_keep_r12_at_k11s_bits(dev, shape):
+    """K11 on the live lanes of a head dim up to 192 against its plain
+    version, zeros past the head dim in its output layout, and R12 on the
+    padded lanes to its bits at depth 4."""
+    from repro_torch.kernels import attention
+    heads, s_, d, causal, window = shape
+    q, k, v = _qkv(dev, s_, s_, d, heads + s_, lead=(heads,))
+    _, static, _ = attention._prepare(q[0], k[0], v[0], causal, window)
+    call = lowering.prepare_call(attention._nest(static),
+                                 attention._body(static),
+                                 {"Q": q[0], "K": k[0], "V": v[0]},
+                                 device=dev)
+    got, want, launched = _run_and_plain(call)
+    assert launched == {"rescale_attention"}
+    assert float((got - want).abs().max()) <= \
+        ATTENTION_LIMIT * float(v[0].abs().max())
+    padded = call.kernel(*call.layouts)
+    assert not padded[:, d:].any()
+    k11 = attention.ssr_flash_attention(q, k, v, causal=causal,
+                                        window=window, device=dev)
+    r12 = attention.ssr_flash_attention(
+        q, k, v, causal=causal, window=window, device=dev,
+        schedule=lowering.Schedule(buffer_depth=4))
+    assert torch.equal(k11.view(torch.int32), r12.view(torch.int32))
+
+
 @pytest.mark.parametrize("c", [1, 200])
 @pytest.mark.parametrize("case", SPARSE_CASES)
 def test_gather_spmm_reads_pack_ell_planes_with_no_copy(dev, case, c):

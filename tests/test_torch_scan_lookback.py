@@ -20,8 +20,22 @@ models in ``repro_torch.core.hopper``), from numpy seeds:
   registry's scan tolerance of ``ref.scan_ref`` and of the JAX package's
   ``scan_ref``.
 
-The card's checks (R15 against K14 to the bit at depths 3, 4 and 8) are in
-``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+K14 ``stream_scan`` itself is one pass now: persistent CTAs take tiles by
+ticket, hold at most two (one summed, one being summed), publish a tile's
+total before any wait, and find each offset by the same look-back
+(``csrc/ssr_scan.cuh``).  Its schedule, in ``hopper.scan_schedule_model``:
+
+* **every tile finishes** — no interleaving of 1 to 4 CTAs an SM on 132
+  SMs over 1 to 20,000 tiles leaves every unfinished CTA waiting, no CTA
+  holds more than two tiles, and every tile's total is published once;
+* **the same offsets** — over more than one chunk (> 4096 tiles) the
+  offsets the schedule computes from what it published equal the second
+  pass's to the bit, whatever the interleaving;
+* **its state** — the words a call's memset zeroes.
+
+The card's checks (R15 against K14 to the bit at depths 3, 4 and 8, K14
+against ``hopper.scan_model``'s bits, K14 one kernel after a memset) are
+in ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
 import jax.numpy as jnp
@@ -110,3 +124,98 @@ def test_the_models_scan_is_within_the_references(n):
                                **tol)
     np.testing.assert_allclose(got, np.asarray(jref.scan_ref(jnp.asarray(x))),
                                **tol)
+
+
+# -- K14's schedule: persistent CTAs, two tiles each -----------------------------
+
+SMS = 132
+SCHEDULE_TILES = [1, 2, 15, 16, 17, 4095, 4096, 4097, 20000]
+
+
+@pytest.mark.parametrize("per_sm", [1, 2, 3, 4])
+@pytest.mark.parametrize("tiles", SCHEDULE_TILES)
+def test_k14_schedule_finishes_every_tile(tiles, per_sm):
+    totals = np.zeros(tiles, np.float32)
+    _, stats = hopper.scan_schedule_model(totals, per_sm * SMS,
+                                          seed=tiles + per_sm, values=False)
+    assert sorted(stats["order"]) == list(range(tiles))
+    assert stats["held"] == (1 if tiles == 1 else 2)
+
+
+@pytest.mark.parametrize("ctas", [1, 5, SMS, 4 * SMS])
+@pytest.mark.parametrize("tiles", [4097, 9000])
+def test_k14_schedule_offsets_are_the_second_pass_bit_for_bit(tiles, ctas):
+    totals = _totals("random", tiles, seed=ctas)
+    got, stats = hopper.scan_schedule_model(totals, ctas, seed=ctas)
+    want = hopper.scan_offsets_model(totals)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    # tiles started in ticket order, so their totals were published in an
+    # order no tile waits out of: the model finished with both checks
+    assert stats["held"] == 2 and len(stats["order"]) == tiles
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_k14_schedule_offsets_on_signed_zeros_and_wide_totals(seed):
+    for kind in ("signed_zeros", "wide"):
+        totals = _totals(kind, 4096 + 300, seed=seed)
+        got, _ = hopper.scan_schedule_model(totals, 2 * SMS, seed=seed)
+        np.testing.assert_array_equal(_bits(got),
+                                      _bits(hopper.scan_offsets_model(totals)))
+
+
+def test_a_ticket_held_by_a_cta_that_never_runs_deadlocks():
+    """Why K14's CTAs are all resident at once: a CTA that took a ticket
+    and never ran would leave the tiles after its own waiting for its
+    total, and the model reports that."""
+    totals = np.zeros(40, np.float32)
+    with pytest.raises(hopper.ScanDeadlock, match="none can move"):
+        hopper.scan_schedule_model(totals, 3, values=False, stalled=(0,))
+    # the same schedule with every CTA running finishes
+    _, stats = hopper.scan_schedule_model(totals, 3, values=False)
+    assert sorted(stats["order"]) == list(range(40))
+
+
+@pytest.mark.parametrize("tiles", [1, 15, 16, 17, 4095, 4096, 4097, 16384,
+                                   16385])
+def test_k14_state_words(tiles):
+    groups, chunks = -(-tiles // 16), -(-tiles // 4096)
+    # each tile's total, each group's sum, one carry more than the chunks,
+    # the ticket counter
+    assert hopper.scan_state_words(tiles) == tiles + groups + chunks + 1 + 1
+
+
+def test_the_batched_cta_scan_model_is_the_one_cta_model():
+    v = np.random.default_rng(2).standard_normal((5, 256)).astype(np.float32)
+    excl, total = hopper.cta_exclusive_scan_model(v)
+    for i in range(5):
+        e, t = hopper.cta_exclusive_scan_model(v[i])
+        np.testing.assert_array_equal(_bits(excl[i]), _bits(e))
+        assert _bits(total[i]) == _bits(t)
+
+
+@pytest.mark.parametrize("n", [1024, 4096, 5 * 4096 + 1024, 4097 * 4096])
+def test_scan_model_is_the_per_tile_look_back(n):
+    """The model's scan, its tiles at once over the second pass's offsets,
+    gives the bits of each tile scanned from the offset its look-back
+    finds."""
+    x = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    tiles = -(-n // hopper.SCAN_TILE)
+    v = np.zeros(tiles * hopper.SCAN_TILE, np.float32)
+    v[:n] = x
+    v = v.reshape(tiles, 256, 16)
+    sums = v[:, :, 0].copy()
+    for j in range(1, 16):
+        sums = sums + v[:, :, j]
+    runs, totals = [], np.empty(tiles, np.float32)
+    for i in range(tiles):
+        r, totals[i] = hopper.cta_exclusive_scan_model(sums[i])
+        runs.append(r)
+    offs = hopper.scan_tile_offsets_model(totals)
+    want = np.empty_like(v)
+    for i in range(tiles):
+        run = runs[i]
+        for j in range(16):
+            run = run + v[i, :, j]
+            want[i, :, j] = offs[i] + run
+    np.testing.assert_array_equal(_bits(hopper.scan_model(x)),
+                                  _bits(want.reshape(-1)[:n]))
