@@ -17,10 +17,11 @@ printing JSON lines:
 
 1. build every Hopper kernel from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all at once), print the ``kernel_attributes`` line (K12,
-   K13, R13, R14, K3, R3, B3, R1, R2, R4, R15, K14 and K11's tiles at
-   D = 80, 128, 192 and 256: registers and local bytes a thread as
-   ``cudaFuncGetAttributes`` reads them; K3, R3, B3, R1, R2, R4, R15, K14
-   and K11 also their CTAs an SM from the occupancy API, the rings at
+   K13, R13, R14, K3, R3, B3, R1, R2, R4, R15, K14, B8, K4's eight builds
+   and K11's tiles at D = 80, 128, 192 and 256: registers and local bytes
+   a thread as ``cudaFuncGetAttributes`` reads them; K3, R3, B3, R1, R2,
+   R4, R15, K14, B8, K4 and K11 also their CTAs an SM from the occupancy
+   API (K4's held to ``hopper.GEMV_PER_SM``), the rings at
    their main path's rings; K11 its shared memory as its entry and the
    wrapper's mirror count it) and the card's name and power limit;
 2. drive the main path once, with every launch counter at 0 before it:
@@ -50,7 +51,8 @@ printing JSON lines:
    stream call is one wrapper call of its kernel, that one sort_2p26 call
    runs the 28 device kernels of K16's schedule (at most 32), one
    fft_2048_b32768 call K15's one and one scan_2p26 call K14's one after a
-   memset (``torch.profiler`` counts: the ``device_launches`` line), that a ChainedKernel call is one K17 launch, and that no
+   memset, and its baseline B8's one (``torch.profiler`` counts: the
+   ``device_launches`` line), that a ChainedKernel call is one K17 launch, and that no
    fallback fired, and that ``ops.spmv`` and ``ops.sparse_gemv`` lay out
    no stream by a copy (K12 takes ``pack_ell``'s (m, k) planes as they
    are: ``lowering.LAYOUT_COPIES``, the ``layout_copies`` of the
@@ -64,7 +66,9 @@ printing JSON lines:
    there also against its plain version on pack_ell's planes, beside its
    run on the values doubled); K14 and
    B8 (and their plain versions) against an f64 prefix sum, K14 twice to
-   the bit; K15 to the bit on the batch cell and bf16 inputs, within the
+   the bit, B8 to ``hopper.base_scan_model``'s bits in f32, bf16 and int32
+   at n = 1024, 4096 and 2**26 ± 1024 and five B8 runs of scan_2p26 to one
+   set of bits, B8's and every K4 build's local bytes none; K15 to the bit on the batch cell and bf16 inputs, within the
    limit on one transform of 2**22 points (the global passes); K16 to the
    bit on the cell, a batch of
    2**16 rows of 1024, bf16 and int32, and inputs holding ±0 and a NaN;
@@ -115,7 +119,9 @@ printing JSON lines:
    kernel's runs, within SPARSE_LIMIT or SCAN_LIMIT, beside the
    zeroed-block control above it;
 4. time each kernel, its plain version and one PyTorch library call with
-   CUDA events, beside the least time the card could take, each baseline
+   CUDA events, beside the least time the card could take (K4's row also
+   through its C entry, ``c_entry_ms``, and the host's time to issue one
+   wrapper call, ``host_ms``), each baseline
    against its streamed kernel (``ssr_over_baseline``), each fused cell
    against its unfused stages (``fused_over_unfused``), each entry
    point of the main path by the host's clock once warm, and the sparse
@@ -554,6 +560,19 @@ def busy_ms(fn, calls: int = 5) -> float:
     return statistics.median(sample() for _ in range(REPS))
 
 
+def host_ms(fn, calls: int = 200) -> float:
+    """Host time to issue one ``fn`` call, back to back (the mean of
+    ``calls``), once warm: a wrapper's own work, with its launch."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
 def wall_ms(fn) -> float:
     """Median host wall time of one call that ends in a synchronize: what a
     caller of the entry point waits, host work included."""
@@ -747,6 +766,11 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     # the wide tile on 192 and 256 live lanes; K11's shared memory as its
     # entry counts it beside the wrapper's mirror (held equal in phase 3)
     attributes["stream_scan"] = hopper.kernel_attributes("stream_scan")
+    # B8 (static, its three dtypes) and each of K4's eight builds
+    attributes["base_scan"] = hopper.kernel_attributes("base_scan")
+    for build in hopper.GEMV_BUILDS:
+        attributes[f"contract_gemv_{build}"] = hopper.kernel_attributes(
+            "contract_gemv", build=build)
     for lanes, dim in K11_TILES:
         key = f"rescale_attention_{lanes}_d{dim}"
         attributes[key] = hopper.kernel_attributes("rescale_attention",
@@ -1030,10 +1054,9 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     if copies["spmv"] or copies["sparse_gemv"] or copies["spmm"]:
         raise SystemExit(f"chip_smoke: a sparse entry copied its planes into "
                          f"padded layouts: {copies}")
-    # a stream call is one wrapper call of its kernel (K14's scan one device
-    # kernel after a memset of its state, B8's three device launches, one
-    # for the FFT cell, 28 for the sort cell: LAUNCHES and the
-    # device_launches line below)
+    # a stream call is one wrapper call of its kernel (K14's and B8's scan
+    # one device kernel after a memset of its state, one for the FFT cell,
+    # 28 for the sort cell: LAUNCHES and the device_launches line below)
     stream_launches = {"prefix_sum": {"stream_scan": 1},
                        "prefix_sum_baseline": {"base_scan": 1},
                        "fft": {"stream_fft": 1},
@@ -1046,14 +1069,17 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                          f"{ {key: per_call[key] for key in stream_launches} }")
     # the device kernels of one sort_2p26 and one fft_2048_b32768 call,
     # counted by the profiler, against K16's and K15's Python schedules;
-    # one scan_2p26 call runs K14's one pass and one at GATHER_MAIN_DEPTH
-    # R15's (each after a memset of its state, which is no kernel)
+    # one scan_2p26 call runs K14's one pass, one at GATHER_MAIN_DEPTH
+    # R15's and one baseline call B8's (each after a memset of its state,
+    # which is no kernel)
     device_launches = count_device_launches({
         "sort": (lambda: ops.sort(xso, ssr=True),
                  len(bitonic.sort_passes(SORT_N)), SORT_MOST_LAUNCHES,
                  ("sort_pass",)),
         "fft": (lambda: ops.fft(fre, fim, ssr=True), 1, 1, ("fft_rows",)),
         "prefix_sum": (path["prefix_sum"], 1, 1, ("::scan_tiles<",)),
+        "prefix_sum_baseline": (path["prefix_sum_baseline"], 1, 1,
+                                ("base_scan_tiles<",)),
         "prefix_sum_ring": (path["prefix_sum_ring"], 1, 1,
                             ("ring_scan_tiles",))})
     # a call deeper than 2 launches its ring kernel and no K kernel; its
@@ -2326,11 +2352,19 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         "exact": local <= R14_LOCAL_BYTES, "local_bytes": local,
         "local_limit": R14_LOCAL_BYTES, "abs_err": 0.0, "limit": 0.0}
     for name in ("ring_stream_scan", "gather_spmm", "stream_scan",
-                 "rescale_attention_256_d192", "rescale_attention_256_d256"):
+                 "rescale_attention_256_d192", "rescale_attention_256_d256",
+                 "base_scan",
+                 *(f"contract_gemv_{b}" for b in hopper.GEMV_BUILDS)):
         local = attributes[name]["localSizeBytes"]
         checks[f"{name}_local_bytes"] = {
             "exact": local == 0, "local_bytes": local, "local_limit": 0,
             "abs_err": 0.0, "limit": 0.0}
+    # every K4 build reaches the CTAs an SM its one-wave split counts on
+    k4_ctas = {b: attributes[f"contract_gemv_{b}"]["ctasPerSm"]
+               for b in hopper.GEMV_BUILDS}
+    checks["contract_gemv_ctas_per_sm"] = {
+        "exact": all(c_ >= hopper.GEMV_PER_SM for c_ in k4_ctas.values()),
+        "ctas_per_sm": k4_ctas, "abs_err": 0.0, "limit": 0.0}
     # K11's shared memory: the wrapper's mirror is the entry's count, and
     # each tile fits what a CTA may opt into
     optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
@@ -2378,6 +2412,24 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                 "limit": 0.0, "kernel": "stream_scan",
                 "against": "hopper.scan_model"}
 
+    # B8 against the bits of the three-launch B8 it replaced, as
+    # hopper.base_scan_model computes them (numpy float32: per block 4
+    # elements a thread in order, the CTA scan, each tile's blocks' totals
+    # in order, the fixed second pass over the tiles' totals)
+    def b8_model(x_):
+        padded_t = scan._prepare(x_)[0][0]
+        got_ = hopper.base_scan(padded_t).reshape(-1).cpu()
+        flat = padded_t.reshape(-1).cpu()
+        model = torch.from_numpy(hopper.base_scan_model(
+            flat.numpy().astype(np.float32) if x_.dtype == torch.int32
+            else flat.float().numpy()))
+        return {"exact": bool(torch.equal(got_.view(torch.int32),
+                                          model.view(torch.int32))),
+                "abs_err": float(torch.nan_to_num(
+                    (got_ - model).abs(), nan=0.0).max()),
+                "limit": 0.0, "kernel": "base_scan",
+                "against": "hopper.base_scan_model"}
+
     for dt in (torch.float32, torch.bfloat16, torch.int32):
         tag = str(dt).removeprefix("torch.")
         for n_ in (1024, 4096, SCAN_N - 1024, SCAN_N + 1024):
@@ -2393,6 +2445,7 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                     "abs_err": bits_diff(got, want), "limit": 0.0,
                     "kernel": "ring_stream_scan", "against": "stream_scan"}
             checks[f"k14_model_{tag}_{n_}"] = k14_model(x_, want)
+            checks[f"b8_model_{tag}_{n_}"] = b8_model(x_)
             x_[:1024] = 0
             ctrl = r15_and_k14(x_, GATHER_MAIN_DEPTH)[0]
             if same_bits(ctrl, want, torch.int32):
@@ -2425,6 +2478,12 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                      for r_ in runs), "abs_err": max(
             bits_diff(r_, main["prefix_sum_ring"]) for r_ in runs),
         "limit": 0.0, "kernel": "ring_stream_scan"}
+    runs = [registry.get("scan").baseline(xsc) for _ in range(5)]
+    checks["b8_scan_2p26_five_runs"] = {
+        "exact": all(same_bits(r_, main["prefix_sum_baseline"], torch.int32)
+                     for r_ in runs), "abs_err": max(
+            bits_diff(r_, main["prefix_sum_baseline"]) for r_ in runs),
+        "limit": 0.0, "kernel": "base_scan"}
     del runs
     # R13/R14 at depth 4 on the odd CSR inputs, against K12/K13 to the bit
     # (R13 on the padded layouts, K12 on pack_ell's planes); K12 against
@@ -2731,6 +2790,9 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": time_ms(library[name]),
         })
+        if name == "contract_gemv":   # K4 on the line, its C entry, its host
+            rows[-1].update(c_entry_ms=time_ms(entry_fn(calls[name])),
+                            host_ms=host_ms(kernel))
         emit({"phase": "time", **rows[-1], **(
             {"device_launches": device_launches[STREAM_CELL[name]]}
             if name in STREAM_CELL else {})})

@@ -137,6 +137,7 @@ hold each kernel against them.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -257,10 +258,9 @@ KERNELS: Dict[str, Dict[str, str]] = {
 #: call that launched its kernel.  A call of ``reduce_mul``, ``base_reduce``,
 #: or of a reduce of ``chain_elem`` or ``dag_softmax_xent``, is two device
 #: launches (the per-CTA partials, then the one-CTA fold); every other
-#: kernel's call is one — except the stream kernels: a ``stream_scan`` call
-#: is one kernel, its one pass, after one memset of its state; a
-#: ``base_scan`` call is three (the tiles' totals, the one-CTA scan of the
-#: totals, the tiles' scans); a ``stream_fft`` call one for n up to
+#: kernel's call is one — except the stream kernels: a ``stream_scan`` or
+#: ``base_scan`` call is one kernel, its one pass, after one memset of its
+#: state; a ``stream_fft`` call one for n up to
 #: FFT_SMEM_POINTS, else log2 n (one global pass a stage); a
 #: ``stream_bitonic`` call one for n up to SORT_TILE, else one tile sort
 #: plus, for each k = 2 SORT_TILE … n, a group pass for each SORT_GROUP
@@ -375,8 +375,8 @@ _SIGNATURES = {
     "reduce_mul": [_P, _P, _I, _I, _GP, _SP, _SP, _P, _I64, _I64, _P, _P],
     "map_relu": [_P, _P, _I, _I, _GP, _SP, _SP, _I64, _I64, _P],
     "contract_gemm": [_P, _P, _P, _I, _I, _I, _GP, _SP, _SP, _SP, _I64, _P],
-    "contract_gemv": [_P, _P, _P, _I, _I, _I, _GP, _SP, _SP, _SP, _I64, _I,
-                      _P],
+    "contract_gemv": [_P, _P, _P, _I, _I, _I, _I, _GP, _SP, _SP, _SP, _I64,
+                      _I64, _I, _P],
     "base_reduce": [_P, _P, _I, _I64, _P, _I64, _I64, _P, _P],
     "base_relu": [_P, _P, _I, _I64, _I64, _I64, _P],
     "base_gemm": [_P, _P, _P, _I, _I, _I, _I64, _I64, _I64, _P],
@@ -402,7 +402,7 @@ _SIGNATURES = {
     "base_spmv": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
     "base_spmm": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "stream_scan": [_P, _I, _P, _P, _I64, _I64, _I64, _P],
-    "base_scan": [_P, _I, _P, _P, _I64, _I64, _P],
+    "base_scan": [_P, _I, _P, _P, _I64, _I64, _I64, _P],
     "stream_fft": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _P],
     "stream_bitonic": [_P, _P, _I, _I64, _I64, _P],
     "ring_reduce_mul": [_P, _P, _I, _I, _GP, _SP, _SP, _RP, _I64, _P, _I64,
@@ -475,25 +475,37 @@ _OCCUPANCY_ATTRIBUTES = ("contract_gemm", "ring_contract_gemm", "base_gemm",
                          "ring_reduce_mul", "ring_map_relu",
                          "ring_contract_gemv", "ring_stream_scan")
 #: The kernels whose attributes entry reads their CTAs an SM at the shared
-#: memory they take themselves: K14 (static) and K11 (its widest tiles).
-_OWN_OCCUPANCY_ATTRIBUTES = ("stream_scan", "rescale_attention")
+#: memory they take themselves: K14 and B8 (static), K4 (static, one build
+#: at a time) and K11 (its widest tiles).
+_OWN_OCCUPANCY_ATTRIBUTES = ("stream_scan", "base_scan", "contract_gemv",
+                             "rescale_attention")
+#: K4's eight builds, in the order of its attributes entry: input and
+#: output dtype, and A's 16-byte packs (``v4``/``v8``) or elements (``v1``).
+GEMV_BUILDS = ("f32_f32_v4", "f32_f32_v1", "f32_bf16_v4", "f32_bf16_v1",
+               "bf16_f32_v8", "bf16_f32_v1", "bf16_bf16_v8", "bf16_bf16_v1")
 
 
 def kernel_attributes(name: str, smem: int = 0,
-                      tile: Sequence[int] = ()) -> Dict[str, int]:
+                      tile: Sequence[int] = (),
+                      build: Optional[str] = None) -> Dict[str, int]:
     """Registers a thread (``numRegs``) and local, spilled bytes a thread
     (``localSizeBytes``) of kernel ``name`` as ``cudaFuncGetAttributes``
     reads them on the current card (the most over its instantiations): K12,
     K13, R13 and R14 report them; K3, R3, B3, R1, R2, R4 and R15 also their
     CTAs an SM (``ctasPerSm``) at ``smem`` bytes of dynamic shared memory
     (the ring and its barriers of R3, R1, R2, R4 and R15, at their main
-    path's instantiation; K3 and B3 take their own); K14 and K11 at the
-    shared memory they take themselves, K11 for the tile of ``tile`` =
-    (lanes, head dim) (:func:`rescale_attention_tiles`)."""
+    path's instantiation; K3 and B3 take their own); K14, B8, K4 and K11
+    at the shared memory they take themselves, K11 for the tile of ``tile``
+    = (lanes, head dim) (:func:`rescale_attention_tiles`), K4 for one
+    ``build`` of :data:`GEMV_BUILDS` (not the most over them)."""
+    if (name == "contract_gemv") != (build is not None):
+        raise ValueError(f"{name}: a build of GEMV_BUILDS is K4's argument "
+                         f"and only K4's, got build={build!r}")
     fn = getattr(_lib(name), f"ssr_{name}_attributes")
     occupancy = name in _OCCUPANCY_ATTRIBUTES
     own = name in _OWN_OCCUPANCY_ATTRIBUTES
-    args = [smem] if occupancy else list(tile)
+    args = [smem] if occupancy else [GEMV_BUILDS.index(build)] \
+        if build is not None else list(tile)
     fn.argtypes = [ctypes.POINTER(ctypes.c_int64),
                    *([ctypes.c_int64] * len(args))]
     fn.restype = ctypes.c_int
@@ -521,12 +533,16 @@ def _grid_arg(grid: Sequence[int]) -> _Grid:
 
 
 def _stream_arg(agu: BlockAGU, layout: torch.Tensor) -> _Stream:
+    return _stream_pitch_arg(agu, layout.shape[1])
+
+
+def _stream_pitch_arg(agu: BlockAGU, pitch: int) -> _Stream:
     s = _Stream()
     s.offset[0], s.offset[1] = agu.offset
     for k, (c0, c1) in enumerate(agu.coeffs):
         s.coeff[k][0], s.coeff[k][1] = c0, c1
     s.block[0], s.block[1] = agu.block
-    s.pitch = layout.shape[1]
+    s.pitch = pitch
     return s
 
 
@@ -953,8 +969,8 @@ def scan_slot_words(itemsize: int) -> int:
 #: in the tile's own slot.
 SCAN_RING_STAGED_BYTES = 512
 #: R15's groups (a group's totals summed in order) and chunks (the totals
-#: one carry spans): ``ssr_exclusive_offsets``' 16 totals a thread and
-#: 4096 a pass of its 256 threads.
+#: one carry spans): the second pass's 16 totals a thread and 4096 a pass
+#: of its 256 threads (:func:`scan_offsets_model`).
 SCAN_GROUP, SCAN_CHUNK = 16, 4096
 
 
@@ -970,7 +986,7 @@ def scan_state_words(tiles: int) -> int:
 # -- the scans' association, in float32 on the host ----------------------------
 #
 # K14 and R15 give the same bits because R15 computes each tile's offset by
-# the operations of K14's second pass (``ssr_exclusive_offsets``), from its
+# the operations of the second pass (:func:`scan_offsets_model`), from its
 # predecessors alone.  These models run both in numpy float32 (IEEE single
 # adds, in the kernels' order), so the CPU tests can hold them equal.
 
@@ -1018,13 +1034,13 @@ def _group_sums_model(v: np.ndarray) -> np.ndarray:
 
 
 def scan_offsets_model(totals: np.ndarray) -> np.ndarray:
-    """The fixed-order second pass over the tiles' totals,
-    ``ssr_exclusive_offsets`` (``csrc/ssr_common.cuh``; B8's, and K14's
-    before it read x once), in float32: the tiles' ``totals`` in chunks of
-    SCAN_CHUNK with a running carry from 0; in a chunk each of 256 threads
-    sums its 16 totals in order from 0 (0 past the end), a CTA scan of the
-    sums, and tile 16 t + j's offset is carry + (the thread's exclusive
-    value + its first j totals, in order).  Each tile's exclusive offset."""
+    """The fixed-order second pass over the tiles' totals that K14 and B8
+    ran in one CTA before each read x once, in float32: the tiles'
+    ``totals`` in chunks of SCAN_CHUNK with a running carry from 0; in a
+    chunk each of 256 threads sums its 16 totals in order from 0 (0 past
+    the end), a CTA scan of the sums, and tile 16 t + j's offset is carry +
+    (the thread's exclusive value + its first j totals, in order).  Each
+    tile's exclusive offset."""
     totals = np.asarray(totals, np.float32)
     out = np.empty(len(totals), np.float32)
     carry = np.float32(0)
@@ -1138,19 +1154,21 @@ class ScanDeadlock(RuntimeError):
 
 
 def scan_schedule_model(totals: np.ndarray, ctas: int, seed: int = 0,
-                        values: bool = True, stalled: Sequence[int] = ()
-                        ) -> Tuple[np.ndarray, dict]:
+                        values: bool = True, stalled: Sequence[int] = (),
+                        ahead: bool = True) -> Tuple[np.ndarray, dict]:
     """K14's schedule (``csrc/stream_scan.cu``) on ``ctas`` persistent CTAs,
     interleaved at random (from ``seed``), over tiles whose totals are
     ``totals``.  Each CTA takes tickets from one counter, so tiles start in
     increasing order, and holds at most two tiles: it sums its first tile
     (publishing its total, then closing its group or chunk where it closes
     one), then, per ticket B, sums B the same way, then waits for its held
-    tile A's offset and writes A, and keeps B.  A CTA moves only when what
-    it waits on is published: a closing tile waits for its group mates'
-    totals (and, closing a chunk, the chunk's group sums and carry), an
-    offset for its mates' totals, the chunk's earlier group sums and its
-    carry.  The CTAs in ``stalled`` take one ticket and never move again,
+    tile A's offset and writes A, and keeps B.  Without ``ahead``, B8's
+    (``csrc/base_scan.cu``): a CTA holds one tile, sums it, waits for its
+    offset and writes it before it takes the next ticket.  A CTA moves only
+    when what it waits on is published: a closing tile waits for its group
+    mates' totals (and, closing a chunk, the chunk's group sums and carry),
+    an offset for its mates' totals, the chunk's earlier group sums and
+    its carry.  The CTAs in ``stalled`` take one ticket and never move again,
     as a CTA that was not resident with the rest would.  Raises
     :class:`ScanDeadlock` if every unfinished CTA waits.
     Returns each tile's offset (float32, from the published values in the
@@ -1203,13 +1221,7 @@ def scan_schedule_model(totals: np.ndarray, ctas: int, seed: int = 0,
         if values:
             offsets[a] = _offset_model(a, totals[a - j:a], groups, carries)
 
-    def cta(c: int):
-        a = take()
-        if a is None:
-            return
-        stats["held"] = max(stats["held"], 1)
-        if c in stalled:
-            yield lambda: False
+    def one_ahead(a: int):
         yield from sum_step(a)
         while True:
             b = take()
@@ -1220,6 +1232,21 @@ def scan_schedule_model(totals: np.ndarray, ctas: int, seed: int = 0,
             if b is None:            # A written
                 return
             a = b
+
+    def one_at_a_time(a: Optional[int]):
+        while a is not None:
+            yield from sum_step(a)
+            yield from offset_step(a)    # A written
+            a = take()
+
+    def cta(c: int):
+        a = take()
+        if a is None:
+            return
+        stats["held"] = max(stats["held"], 1)
+        if c in stalled:
+            yield lambda: False
+        yield from one_ahead(a) if ahead else one_at_a_time(a)
 
     rng = np.random.default_rng(seed)
     gens = [cta(c) for c in range(ctas)]
@@ -1270,6 +1297,57 @@ def scan_model(x: np.ndarray) -> np.ndarray:
         run = run + v[:, :, j]
         out[:, :, j] = offs + run
     return out.reshape(-1)[:n]
+
+
+def base_scan_schedule_model(totals: np.ndarray, per_sm: int,
+                             sms: int = 132, seed: int = 0,
+                             values: bool = True) -> Tuple[np.ndarray, dict]:
+    """B8's schedule at ``per_sm`` CTAs an SM on ``sms`` SMs: as many
+    persistent CTAs as fit (at most one a tile), each holding one tile at
+    a time (:func:`scan_schedule_model` without ``ahead``)."""
+    ctas = max(1, min(len(totals), per_sm * sms))
+    return scan_schedule_model(totals, ctas, seed=seed, values=values,
+                               ahead=False)
+
+
+def base_scan_model(x: np.ndarray) -> np.ndarray:
+    """B8's inclusive prefix sum of the padded vector ``x`` (a multiple of
+    ROWS·LANES = 1024 elements) in float32 (``csrc/base_scan.cu``): in each
+    (8, 128) block each of 256 threads sums its 4 consecutive elements in
+    order from the first, and a CTA scan of the thread sums gives the
+    block's total and each thread's exclusive value; a SCAN_TILE tile's
+    total is 0 plus its blocks' totals in order (the blocks it has), its
+    offset the fixed second pass's over the tiles' totals
+    (:func:`scan_offsets_model`), and each element is the carry (the
+    offset, plus the tile's earlier blocks' totals in order) + (the
+    thread's exclusive value + its running sum).  The tiles run at
+    once."""
+    x = np.asarray(x, np.float32).reshape(-1)
+    per_block, per_tile = ROWS * LANES, SCAN_TILE // (ROWS * LANES)
+    blocks = len(x) // per_block
+    if blocks * per_block != len(x) or not blocks:
+        raise ValueError(f"base_scan_model: {len(x)} elements are not whole "
+                         f"blocks of {per_block}")
+    v = x.reshape(blocks, _SCAN_THREADS, per_block // _SCAN_THREADS)
+    run = v.copy()
+    for i in range(1, run.shape[2]):
+        run[:, :, i] = run[:, :, i - 1] + v[:, :, i]
+    excl, block_totals = cta_exclusive_scan_model(run[:, :, -1])
+    sums = excl[:, :, None] + run
+    tiles = -(-blocks // per_tile)
+    first = np.arange(tiles) * per_tile          # each tile's first block
+    total = np.zeros(tiles, np.float32)
+    for k in range(per_tile):
+        has = first + k < blocks
+        total[has] = total[has] + block_totals[first[has] + k]
+    carry = scan_offsets_model(total)
+    out = np.empty_like(sums)
+    for k in range(per_tile):
+        has = first + k < blocks
+        b = first[has] + k
+        out[b] = carry[has][:, None, None] + sums[b]
+        carry[has] = carry[has] + block_totals[b]
+    return out.reshape(-1)
 
 
 def _ctas_per_sm(smem: int, most: int) -> int:
@@ -1342,6 +1420,46 @@ def _gemv_runs(groups: int, blocks: int, z: int, step_bytes: int,
         return max(steps * step_bytes / sm_rate, per * z * GEMV_STEP_US), per
     runs = range(1, min(blocks, per_sm * sms // groups) + 1)
     return min((-(-blocks // r) for r in runs), key=cost, default=blocks)
+
+
+#: K4's rows a CTA (its row group: 8 warps of four rows) and the CTAs an
+#: SM every build of it is built for (``csrc/contract_gemv.cu``'s
+#: kRowsPerCta and kMinCtas).
+GEMV_ROWS = 32
+GEMV_PER_SM = 2
+
+
+def gemv_split(geo: StreamGeometry, sms: int) -> Tuple[int, int]:
+    """(units a CTA, CTAs) of K4 on a card of ``sms`` SMs.  A unit is a
+    GEMV_ROWS-row group of one output block; the units run in grid order,
+    output block by output block and row group by row group within one,
+    and CTA c walks units [c·per, (c + 1)·per).  Of the runs that keep
+    every CTA in one wave at ``GEMV_PER_SM`` CTAs an SM, the one
+    whose busiest SM, the CTAs dealt out evenly, walks the fewest units
+    (the shorter run where two tie; :func:`_fewest_on_an_sm`)."""
+    groups = -(-geo.ins[0].block[0] // GEMV_ROWS)
+    units = geo.steps // geo.contraction_steps * groups
+    per = _fewest_on_an_sm(units, GEMV_PER_SM, sms)
+    return per, -(-units // per)
+
+
+def gemv_walk(geo: StreamGeometry, per: int
+              ) -> List[List[Tuple[int, int, int, Tuple[int, ...]]]]:
+    """K4's walk on ``per`` units a CTA, as its CTAs run it: for each CTA
+    its units in order, each as (output block, first row, end row, the
+    grid steps it reads, in order)."""
+    z, tm = geo.contraction_steps, geo.ins[0].block[0]
+    groups = -(-tm // GEMV_ROWS)
+    units = geo.steps // z * groups
+    walk = []
+    for c in range(-(-units // per)):
+        run = []
+        for u in range(c * per, min(units, (c + 1) * per)):
+            p, g = divmod(u, groups)
+            run.append((p, g * GEMV_ROWS, min(tm, (g + 1) * GEMV_ROWS),
+                        tuple(range(p * z, (p + 1) * z))))
+        walk.append(run)
+    return walk
 
 
 @functools.lru_cache(maxsize=256)
@@ -1594,9 +1712,13 @@ def _card(dev: torch.device):
 
 def _launch(name: str, dev: torch.device, *args) -> None:
     lib = _lib(name)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, f"ssr_{name}")(*args, stream)
+    entry = getattr(lib, f"ssr_{name}")
+    current = torch.cuda.current_device()
+    index = current if dev.index is None else dev.index
+    # the entry launches on the current device, on its current stream
+    with (contextlib.nullcontext() if index == current
+          else torch.cuda.device(index)):
+        rc = entry(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"{name}: launch failed with CUDA error {rc} "
                            f"({lib.ssr_error_string(rc).decode()})")
@@ -1694,14 +1816,29 @@ def map_relu(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
     return out
 
 
-def _contract(name: str, geo: StreamGeometry,
-              layouts: Sequence[torch.Tensor], out_dtype: torch.dtype,
-              acc_dtype: torch.dtype, program: Optional[Any],
-              ring: Optional[RingProgram], op: tuple,
-              args: Callable[[torch.device], tuple]) -> torch.Tensor:
-    """Check and launch a contraction: ``args(dev)`` are the kernel's
-    arguments after the operands, dtypes and vector widths, or, with
-    ``ring``, the ring kernel's."""
+class _Prepared(NamedTuple):
+    """A contraction's launch as far as it depends on its key alone: the
+    kernel, the device, the output's shape, whether the second operand is
+    copied to a 16-byte boundary, and the entry's arguments after the three
+    pointers (dtypes, vector widths, the AGU structs, the CTA split)."""
+    kernel: str
+    dev: torch.device
+    out_shape: Tuple[int, ...]
+    align_b: bool
+    args: tuple
+
+
+#: :func:`_contract`'s prepared launches by key; cleared when full.
+_PREPARED: Dict[tuple, _Prepared] = {}
+_PREPARED_MOST = 256
+
+
+def _prepare_contract(name: str, geo: StreamGeometry,
+                      layouts: Sequence[torch.Tensor], out_dtype: torch.dtype,
+                      acc_dtype: torch.dtype, program: Optional[Any],
+                      ring: Optional[RingProgram], op: tuple,
+                      args: Callable[[torch.device], tuple]) -> _Prepared:
+    """Every check of a contraction, then its launch's arguments."""
     dev = _checked(name, geo, layouts, program, ring, op)
     if acc_dtype != torch.float32:
         raise TypeError(f"{name}: accumulates in float32, the schedule asks "
@@ -1709,16 +1846,54 @@ def _contract(name: str, geo: StreamGeometry,
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: drains to float32 or bfloat16, asked for "
                         f"{out_dtype}")
-    out = torch.empty(geo.out_shape, dtype=out_dtype, device=dev)
-    kernel, widths, rest = args(dev)
+    kernel, widths, rest, align_b = args(dev)
     g = _grid_arg(geo.grid)
     s0, s1 = (_stream_arg(a, t) for a, t in zip(geo.ins, layouts))
-    so = _stream_arg(geo.out, out)
-    _launch(kernel, dev, layouts[0].data_ptr(), layouts[1].data_ptr(),
-            out.data_ptr(), _DTYPE_CODE[layouts[0].dtype],
-            _DTYPE_CODE[out_dtype], *widths, ctypes.byref(g),
-            ctypes.byref(s0), ctypes.byref(s1), ctypes.byref(so),
-            geo.contraction_steps, *rest)
+    so = _stream_pitch_arg(geo.out, geo.out_shape[1])
+    return _Prepared(kernel, dev, tuple(geo.out_shape), align_b, (
+        _DTYPE_CODE[layouts[0].dtype], _DTYPE_CODE[out_dtype], *widths,
+        ctypes.byref(g), ctypes.byref(s0), ctypes.byref(s1), ctypes.byref(so),
+        geo.contraction_steps, *rest))
+
+
+def _contract_key(name: str, op: tuple, geo: StreamGeometry,
+                  ring: Optional[RingProgram], program: Optional[Any],
+                  out_dtype: torch.dtype, acc_dtype: torch.dtype,
+                  a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """What a contraction's checks and launch arguments depend on: the
+    wrapper, op, geometry, ring, program, dtypes, and each operand's shape,
+    strides, dtype, device and base pointer's 16-byte alignment."""
+    return (name, op, geo, ring, program, out_dtype, acc_dtype,
+            a.shape, a.stride(), a.dtype, a.device, a.data_ptr() % 16,
+            b.shape, b.stride(), b.dtype, b.device, b.data_ptr() % 16)
+
+
+def _contract(name: str, geo: StreamGeometry,
+              layouts: Sequence[torch.Tensor], out_dtype: torch.dtype,
+              acc_dtype: torch.dtype, program: Optional[Any],
+              ring: Optional[RingProgram], op: tuple,
+              args: Callable[[torch.device], tuple]) -> torch.Tensor:
+    """Check and launch a contraction: ``args(dev)`` gives the kernel's
+    name, its vector widths, its arguments after the contraction steps
+    and whether the second operand is copied to a 16-byte boundary, or,
+    with ``ring``, the ring kernel's.  What depends only on the call's key
+    (:func:`_contract_key`) is checked and built once per key
+    (:data:`_PREPARED`); a call then allocates the output and launches."""
+    a, b = layouts
+    key = _contract_key(name, op, geo, ring, program, out_dtype, acc_dtype,
+                        a, b)
+    prep = _PREPARED.get(key)
+    if prep is None:
+        prep = _prepare_contract(name, geo, layouts, out_dtype, acc_dtype,
+                                 program, ring, op, args)
+        if len(_PREPARED) >= _PREPARED_MOST:
+            _PREPARED.clear()
+        _PREPARED[key] = prep
+    if prep.align_b:
+        b = _aligned16(b)
+    out = torch.empty(prep.out_shape, dtype=out_dtype, device=prep.dev)
+    _launch(prep.kernel, prep.dev, a.data_ptr(), b.data_ptr(),
+            out.data_ptr(), *prep.args)
     return out
 
 
@@ -1780,12 +1955,14 @@ def contract_gemm(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
     def args(dev):
         if ring is None:
             return "contract_gemm", (
-                _CONTRACT_GEMM_ROUTES[contract_gemm_route(geo, layouts)],), ()
+                _CONTRACT_GEMM_ROUTES[contract_gemm_route(geo, layouts)],), \
+                (), False
         dr = device_ring("ring_contract_gemm", geo, ring, layouts[0].dtype)
         return "ring_contract_gemm", (
             _GEMM_ROUTES[gemm_ring_route(geo, layouts)],), (
             ctypes.byref(_ring_arg(dr)),
-            dr.ring_bytes + _staged_bytes("ring_contract_gemm", (), geo))
+            dr.ring_bytes + _staged_bytes("ring_contract_gemm", (), geo)), \
+            False
 
     return _contract("contract_gemm", geo, layouts, out_dtype, acc_dtype,
                      program, ring, ("nest", "dot"), args)
@@ -1799,29 +1976,32 @@ def contract_gemv(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
                   relu: bool = False) -> torch.Tensor:
     """K4: y block (1, tm) += A block (tm, tn) · x block (1, tn)ᵀ; with
     ``relu`` the drain writes max(0, y) (selected, as K2 does), once per
-    output block, never to a partial.  With ``ring`` (a pipelined call) R4,
-    a filling warp on mbarriers, its persistent CTAs each on a run of whole
-    output blocks of its 8 rows (:func:`ring_run_steps`), all in one
-    wave."""
-    # A is read in 16-byte packs where it can be; x is staged element-wise
-    vec = _vector_width(layouts[:1], geo.ins[:1])
-    if ring is not None and vec > 1:
-        # R4's bulk route copies x's blocks in 16-byte packs too: a view
-        # off a 16-byte boundary is copied once
-        layouts = (layouts[0], _aligned16(layouts[1]))
-
+    output block, never to a partial.  K4's CTAs are one wave, each on a
+    run of units (a GEMV_ROWS-row group of one output block,
+    :func:`gemv_split`), x staged many steps at a time.  With ``ring`` (a
+    pipelined call) R4, a filling warp on mbarriers, its persistent CTAs
+    each on a run of whole output blocks of its 8 rows
+    (:func:`ring_run_steps`), all in one wave."""
     def args(dev):
+        # A is read in 16-byte packs where it can be; then K4 stages and
+        # R4's bulk route copies x's blocks in 16-byte packs too, and a
+        # view of x off a 16-byte boundary is copied once a call
+        a, x = layouts
+        vec = _vector_width(layouts[:1], geo.ins[:1])
+        align_x = vec > 1
+        xvec = int(_vector_width((_aligned16(x) if align_x else x,),
+                                 geo.ins[1:]) > 1)
+        sms = _card(dev).multi_processor_count
         if ring is None:
-            return "contract_gemv", (vec,), (int(relu),)
-        dtype = layouts[0].dtype
-        dr = device_ring("ring_contract_gemv", geo, ring, dtype)
-        run = ring_run_steps("ring_contract_gemv", geo, ring, dtype,
-                             _card(dev).multi_processor_count)
-        xvec = int(_vector_width(layouts[1:], geo.ins[1:]) > 1)
+            per, _ = gemv_split(geo, sms)
+            return "contract_gemv", (vec, xvec), (per, int(relu)), align_x
+        dr = device_ring("ring_contract_gemv", geo, ring, a.dtype)
+        run = ring_run_steps("ring_contract_gemv", geo, ring, a.dtype, sms)
         return "ring_contract_gemv", (vec, xvec), (
             run // geo.contraction_steps, int(relu),
             ctypes.byref(_ring_arg(dr)),
-            dr.ring_bytes + _staged_bytes("ring_contract_gemv", (), geo))
+            dr.ring_bytes + _staged_bytes("ring_contract_gemv", (), geo)), \
+            align_x
 
     return _contract("contract_gemv", geo, layouts, out_dtype, acc_dtype,
                      program, ring,
@@ -2314,21 +2494,6 @@ def _checked_launch(name: str, launch: Any, *expect) -> None:
     reason = _launch_refusal(name, launch, *expect)
     if reason is not None:
         raise ValueError(reason)
-
-
-def _scan_launch(name: str, dev: torch.device, x: torch.Tensor
-                 ) -> torch.Tensor:
-    """B8's three launches over the padded vector x."""
-    reason = _smem_refusal(name, dev)
-    if reason is not None:
-        raise ValueError(reason)
-    x = _aligned16(x)
-    tiles = -(-x.numel() // SCAN_TILE)
-    out = torch.empty(x.shape, dtype=torch.float32, device=dev)
-    totals = torch.empty(tiles, dtype=torch.float32, device=dev)
-    _launch(name, dev, x.data_ptr(), _DTYPE_CODE[x.dtype], out.data_ptr(),
-            totals.data_ptr(), x.numel(), tiles)
-    return out
 
 
 def _checked_scan(name: str, launch: Any, x: torch.Tensor) -> torch.device:
@@ -3202,14 +3367,27 @@ def base_spmm(vals: torch.Tensor, cidx: torch.Tensor, x: torch.Tensor,
 def base_scan(x: torch.Tensor,
               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """B8: the inclusive prefix sum of the padded vector x (rows, 128) in
-    f32 on K14's CTAs and tiles: each CTA walks its tile's (8, 128) blocks
-    in order, the carry in a register, one explicit load a thread a block,
-    used before the next block's."""
+    f32 on K14's tiles: each CTA walks its tile's (8, 128) blocks in order,
+    one explicit load a thread a block, used before the next block's, and
+    holds the tile's sums in registers until its offset comes from the
+    look-back K14 runs (:func:`base_scan_model`: the bits).  One memset of
+    the call's state (:func:`scan_state_words`), then one launch that reads
+    x once."""
     name = "base_scan"
     dev = _checked_base(name, (x,), _FLOATS + (torch.int32,))
     _row_blocks(name, x)
     _f32_out(name, out_dtype)
-    return _scan_launch(name, dev, x)
+    reason = _smem_refusal(name, dev)
+    if reason is not None:
+        raise ValueError(reason)
+    x = _aligned16(x)
+    tiles = -(-x.numel() // SCAN_TILE)
+    out = torch.empty(x.shape, dtype=torch.float32, device=dev)
+    nwords = scan_state_words(tiles)
+    words = torch.empty(nwords, dtype=torch.int64, device=dev)
+    _launch(name, dev, x.data_ptr(), _DTYPE_CODE[x.dtype], out.data_ptr(),
+            words.data_ptr(), x.numel(), tiles, nwords)
+    return out
 
 
 #: Body op → the baseline kernel that runs it on the card.  Every wrapper

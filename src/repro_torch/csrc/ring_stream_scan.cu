@@ -13,7 +13,7 @@
 // element in f32) against one add an element.  R15 reads x once.
 //
 // Design.  K14's one pass (ssr_scan.cuh: the tile's sums, the look-back
-// to ssr_exclusive_offsets' offsets, the staged store), its tiles
+// to the second pass's offsets, the staged store), its tiles
 // delivered through a deeper ring than K14's two slots, so that more tiles
 // are summed ahead of the one whose offset is awaited.
 //

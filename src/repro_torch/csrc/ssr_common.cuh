@@ -218,35 +218,6 @@ __device__ __forceinline__ float ssr_cta_exclusive_scan(float v, float* total) {
   return warp > 0 ? warp_incl[warp - 1] + excl : excl;
 }
 
-// One CTA of THREADS threads turns totals[0, n) into exclusive prefix sums
-// in place, in a fixed order: chunks of THREADS x 16 in order with a running
-// carry; in a chunk each thread sums its 16 consecutive totals in order, then
-// a CTA scan of the thread sums.  The scan kernels' second pass (K14, B8).
-template <int THREADS>
-__global__ void __launch_bounds__(THREADS)
-    ssr_exclusive_offsets(float* totals, int64_t n) {
-  constexpr int kItems = 16;
-  float carry = 0.f;
-  for (int64_t base = 0; base < n; base += THREADS * kItems) {
-    const int64_t e0 = base + static_cast<int64_t>(threadIdx.x) * kItems;
-    float v[kItems];
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      v[j] = e0 + j < n ? totals[e0 + j] : 0.f;
-      s += v[j];
-    }
-    float chunk;
-    float run = ssr_cta_exclusive_scan<THREADS>(s, &chunk);
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      if (e0 + j < n) totals[e0 + j] = carry + run;
-      run += v[j];
-    }
-    carry += chunk;
-  }
-}
-
 // Four consecutive elements as floats, one 16-byte (f32, int32) or 8-byte
 // (bf16) load; int32 rounds to nearest, as a cast to float32 does.  The
 // caller checked the alignment.

@@ -12,10 +12,11 @@
 // the 16 in order and the CTA scan of the thread sums
 // (ssr_cta_exclusive_scan) give the tile's total and each element's prefix.
 //
-// The offsets are those of ssr_exclusive_offsets (ssr_common.cuh), the
-// second pass of the three-launch scan that K14 was: chunks of 4096 totals
-// in order with a running carry; in a chunk, thread t sums its 16 totals (a
-// group) in order from 0.f, a fixed CTA scan of the 256 group sums, and
+// The offsets are those of the fixed second pass over the tiles' totals
+// that K14's and B8's three-launch designs ran in one CTA
+// (hopper.scan_offsets_model): chunks of 4096 totals in order with a
+// running carry; in a chunk, thread t sums its 16 totals (a group) in
+// order from 0.f, a fixed CTA scan of the 256 group sums, and
 // each offset is carry + the group's exclusive sum + its earlier totals in
 // order.  Tile i's offset there depends only on the totals of the tiles
 // before i, so one pass can give the same bits: each tile publishes its
@@ -75,11 +76,17 @@ __device__ __forceinline__ unsigned long long load_word(const uint64_t* w) {
   return word;
 }
 
-// The value of a word loaded earlier, once it is published (polled
-// without a pause: a 20 ns __nanosleep between polls measured 2 % slower).
+// The value of a word loaded earlier, once it is published, polled every
+// kPauseNs nanoseconds (K14 and R15 poll without a pause: a 20 ns
+// __nanosleep between polls measured 2 % slower there; B8, whose CTAs wait
+// more, pauses).
+template <int kPauseNs = 0>
 __device__ __forceinline__ float ready(unsigned long long word,
                                        const uint64_t* w) {
-  while (!(word >> 32)) word = load_word(w);
+  while (!(word >> 32)) {
+    if constexpr (kPauseNs > 0) __nanosleep(kPauseNs);
+    word = load_word(w);
+  }
   return __uint_as_float(static_cast<unsigned>(word));
 }
 
@@ -170,14 +177,15 @@ struct Pending {
   unsigned long long mate, group, carry;
 };
 
-struct Words {
+template <int kPauseNs = 0>
+struct WordsPolled {
   uint64_t* tile;      // each tile's total
   uint64_t* group;     // each group's sum
   uint64_t* carry;     // each chunk's carry (index c: chunk c's)
 
   // The state of a call of `tiles` tiles at `words`; its ticket counter
   // follows the carries.
-  __device__ __forceinline__ Words(uint64_t* words, int64_t tiles)
+  __device__ __forceinline__ WordsPolled(uint64_t* words, int64_t tiles)
       : tile(words), group(words + tiles),
         carry(words + tiles + (tiles + kGroup - 1) / kGroup) {}
   __device__ __forceinline__ unsigned long long* counter(int64_t tiles) const {
@@ -196,7 +204,7 @@ struct Words {
     return p;
   }
 
-  // Tile `tile`'s exclusive offset, ssr_exclusive_offsets' value for it,
+  // Tile `tile`'s exclusive offset, the second pass's value for it,
   // from its predecessors' totals, group sums and carry, all published in
   // their tiles' sum steps.  Every computing thread calls it; the offset
   // in all of them.  `gv` holds kGroup floats, `sh` 3.
@@ -205,10 +213,12 @@ struct Words {
     const int t = threadIdx.x;
     const int c = tile / kChunk, pos = tile % kChunk;
     const int q = pos / kGroup, j = pos % kGroup;
-    if (t < j) gv[t] = ready(p.mate, this->tile + tile - j + t);
+    if (t < j) gv[t] = ready<kPauseNs>(p.mate, this->tile + tile - j + t);
     float g = 0.f;
-    if (t < q) g = ready(p.group, group + int64_t{c} * kThreads + t);
-    if (t == kThreads - 1 && c > 0) sh[0] = ready(p.carry, carry + c);
+    if (t < q)
+      g = ready<kPauseNs>(p.group, group + int64_t{c} * kThreads + t);
+    if (t == kThreads - 1 && c > 0)
+      sh[0] = ready<kPauseNs>(p.carry, carry + c);
     float chunk;      // the scan's barriers order gv and sh[0] too
     const float excl = ssr_cta_exclusive_scan<kThreads, kBar>(g, &chunk);
     if (t == q) {
@@ -224,7 +234,7 @@ struct Words {
 
   // The sum step after a tile's total is published: where tile `tile`
   // closes its group, wait for its group mates' totals and publish the
-  // group's sum, in order from 0.f as ssr_exclusive_offsets sums a
+  // group's sum, in order from 0.f as the second pass sums a
   // thread's 16 totals; where it closes its chunk too, wait for the
   // chunk's group sums and carry and publish the next carry (the CTA
   // scan's total over the 256 group sums, added).  It waits on sum steps
@@ -235,8 +245,8 @@ struct Words {
     const int c = tile / kChunk, pos = tile % kChunk;
     if (pos % kGroup != kGroup - 1) return;   // the same in every thread
     if (t < kGroup - 1)
-      gv[t] = ready(load_word(this->tile + tile - (kGroup - 1) + t),
-                    this->tile + tile - (kGroup - 1) + t);
+      gv[t] = ready<kPauseNs>(load_word(this->tile + tile - (kGroup - 1) + t),
+                              this->tile + tile - (kGroup - 1) + t);
     sync_compute();
     float s = 0.f;
 #pragma unroll
@@ -245,8 +255,10 @@ struct Words {
     if (t == 0) publish(group + tile / kGroup, s);
     if (pos == kChunk - 1) {
       const uint64_t* const gw = group + int64_t{c} * kThreads + t;
-      const float g = t < kThreads - 1 ? ready(load_word(gw), gw) : s;
-      if (t == 0 && c > 0) sh[2] = ready(load_word(carry + c), carry + c);
+      const float g =
+          t < kThreads - 1 ? ready<kPauseNs>(load_word(gw), gw) : s;
+      if (t == 0 && c > 0)
+        sh[2] = ready<kPauseNs>(load_word(carry + c), carry + c);
       float chunk;
       ssr_cta_exclusive_scan<kThreads, kBar>(g, &chunk);
       if (t == 0) publish(carry + c + 1, (c > 0 ? sh[2] : 0.f) + chunk);
@@ -254,6 +266,9 @@ struct Words {
     sync_compute();   // gv read by all before the offset step writes it
   }
 };
+
+// K14's and R15's look-back, polled without a pause.
+using Words = WordsPolled<>;
 
 // A tile's prefix sums, each thread's 16 from its exclusive value in the
 // tile plus the tile's offset, up to n, staged in the warp's own part of

@@ -14,7 +14,7 @@
 // finds its offset instead from what the tiles before it published, by
 // the operations of a fixed-order second pass over the tiles' totals
 // (ssr_scan.cuh: the look-back, Words), so every run gives the same bits,
-// those of a three-launch scan (the tiles' totals, ssr_exclusive_offsets
+// those of a three-launch scan (the tiles' totals, a one-CTA second pass
 // over them, each tile's scan from its offset).  One memset of the call's
 // state, then one launch:
 // persistent CTAs, as many as fit the card at once, take tiles by ticket

@@ -2329,6 +2329,91 @@ def test_stream_scan_keeps_the_three_launch_designs_bits(dev, dtype, n):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+def test_base_scan_is_one_kernel_after_a_memset_that_spills_nothing(dev):
+    """B8 reads x once: one device kernel a call (its state zeroed by a
+    memset, no kernel), by the profiler, none of the three-launch design's;
+    no local bytes in any dtype; at least one CTA an SM."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import scan
+    x = torch.randn(1 << 22, device=dev)
+    scan.baseline_scan(x, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        scan.baseline_scan(x, device=dev)
+        torch.cuda.synchronize()
+    keys = [e.key for e in prof.key_averages()]
+    calls = sum(e.count for e in prof.key_averages()
+                if "base_scan_tiles<" in e.key)
+    assert calls == 1
+    assert not any("walk_tile" in k or "exclusive_offsets" in k
+                   for k in keys)
+    attrs = hopper.kernel_attributes("base_scan")
+    assert attrs["localSizeBytes"] == 0 and attrs["ctasPerSm"] >= 1
+
+
+@pytest.mark.parametrize("n", [1024, 4096, 5000, (1 << 22) + 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_base_scan_keeps_the_three_launch_designs_bits(dev, dtype, n):
+    """B8 in one pass gives the bits of the three-launch B8 it replaced
+    (``hopper.base_scan_model``: that design's association in numpy
+    float32), the same every run."""
+    from repro_torch.kernels import scan
+    g = torch.Generator(device=dev).manual_seed(n)
+    if dtype == torch.int32:
+        x = torch.randint(-(1 << 30), 1 << 30, (n,), generator=g, device=dev,
+                          dtype=dtype)
+    else:
+        x = torch.randn(n, generator=g, device=dev).to(dtype)
+    padded = scan._prepare(x)[0][0]
+    got = hopper.base_scan(padded)
+    flat = padded.reshape(-1).cpu()
+    model = hopper.base_scan_model(flat.numpy().astype(np.float32)
+                                   if dtype == torch.int32
+                                   else flat.float().numpy())
+    assert torch.equal(got.reshape(-1).cpu().view(torch.int32),
+                       torch.from_numpy(model).view(torch.int32))
+    assert torch.equal(hopper.base_scan(padded).view(torch.int32),
+                       got.view(torch.int32))
+
+
+@pytest.mark.parametrize("build", hopper.GEMV_BUILDS)
+def test_contract_gemv_builds_spill_nothing(dev, build):
+    """Each of K4's eight builds has no local bytes and reaches the CTAs
+    an SM its split counts on (``hopper.GEMV_PER_SM``)."""
+    attrs = hopper.kernel_attributes("contract_gemv", build=build)
+    assert attrs["localSizeBytes"] == 0
+    assert attrs["ctasPerSm"] >= hopper.GEMV_PER_SM
+
+
+@pytest.mark.parametrize("mn", [(33, 4100), (8192, 8192), (100, 20000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("off", [0, 1])
+def test_contract_gemv_is_r4_to_the_bit_on_odd_layouts(dev, mn, dtype, off):
+    """K4 against R4 at depth 3 to the bit (R4 keeps K4's first design's
+    bits): rows not a multiple of a CTA's 32, a block wider than the staged
+    x (20000 columns: pieces of one step), and A and x as views one element
+    off a 16-byte boundary (A's elements route; x copied or staged by
+    elements); the second call of a key runs the memo and the same bits."""
+    m, n = mn
+    g = torch.Generator(device=dev).manual_seed(m + n + off)
+    a = torch.randn(m * n + 1, generator=g, device=dev).to(dtype)
+    x = torch.randn(n + 1, generator=g, device=dev).to(dtype)
+    a, x = a[off:off + m * n].view(m, n), x[off:off + n]
+    nest = compiler.gemv_nest(m, n)
+    call = lowering.prepare_call(nest, gemv.MATVEC, {"A": a, "x": x})
+    before = dict(hopper.LAUNCHES)
+    want = call.run()
+    assert _launched(before) == {"contract_gemv"}
+    again = call.run()
+    deep = lowering.prepare_call(nest, gemv.MATVEC, {"A": a, "x": x},
+                                 schedule=_depth(3))
+    got = deep.run()
+    bits = torch.int32 if want.dtype == torch.float32 else torch.int16
+    assert torch.equal(got.view(bits), want.view(bits))
+    assert torch.equal(again.view(bits), want.view(bits))
+
+
 @pytest.mark.parametrize("d", [192, 256])
 def test_rescale_attention_wide_tile_spills_nothing(dev, d):
     """K11's wide tile on 192 or 256 live lanes: no local bytes, one CTA an

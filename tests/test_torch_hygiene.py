@@ -217,8 +217,9 @@ def test_build_key_follows_the_sources(tmp_path, monkeypatch):
              "ssr_gemm.cuh": {"contract_gemm", "ring_contract_gemm",
                               "base_gemm"},
              "ssr_mbarrier.cuh": {"ring_contract_gemm", "ring_gather_spmv",
-                                  "ring_gather_spmm", "stream_scan", *stage},
-             "ssr_scan.cuh": {"stream_scan", "ring_stream_scan"},
+                                  "ring_gather_spmm", "stream_scan",
+                                  "base_scan", *stage},
+             "ssr_scan.cuh": {"stream_scan", "ring_stream_scan", "base_scan"},
              "ssr_stage_ring.cuh": stage,
              "ssr_ring.cuh": {n for n in hopper.KERNELS
                               if n.startswith("ring_")}

@@ -2,7 +2,7 @@
 predecessors alone, operation for operation as K14's second pass.
 
 K14 ``stream_scan`` fixes its tiles' offsets in one CTA
-(``ssr_exclusive_offsets``: chunks of 4096 totals with a running carry,
+(a second pass: chunks of 4096 totals with a running carry,
 each thread's 16 totals summed in order from 0, a Kogge–Stone CTA scan of
 those sums).  R15 ``ring_stream_scan`` reads x once: each tile publishes
 its total, the tile that closes a group of 16 its group's sum, the tile
