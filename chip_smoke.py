@@ -17,11 +17,11 @@ printing JSON lines:
 
 1. build every Hopper kernel from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all at once), print the ``kernel_attributes`` line (K12,
-   K13, R13, R14, K3, R3, B3, R1, R2, R4, R15, K14, B8, K4's eight builds
-   and K11's tiles at D = 80, 128, 192 and 256: registers and local bytes
-   a thread as ``cudaFuncGetAttributes`` reads them; K3, R3, B3, R1, R2,
-   R4, R15, K14, B8, K4 and K11 also their CTAs an SM from the occupancy
-   API (K4's held to ``hopper.GEMV_PER_SM``), the rings at
+   K13, R13, R14, K3, R3, B3, R1, R2, R4, R15, K14, B8, K1, K2, K4's eight
+   builds and K11's tiles at D = 80, 128, 192 and 256: registers and local
+   bytes a thread as ``cudaFuncGetAttributes`` reads them; K3, R3, B3, R1,
+   R2, R4, R15, K14, B8, K1, K2, K4 and K11 also their CTAs an SM from the
+   occupancy API (K4's held to ``hopper.GEMV_PER_SM``), the rings at
    their main path's rings; K11 its shared memory as its entry and the
    wrapper's mirror count it) and the card's name and power limit;
 2. drive the main path once, with every launch counter at 0 before it:
@@ -51,8 +51,9 @@ printing JSON lines:
    stream call is one wrapper call of its kernel, that one sort_2p26 call
    runs the 28 device kernels of K16's schedule (at most 32), one
    fft_2048_b32768 call K15's one and one scan_2p26 call K14's one after a
-   memset, and its baseline B8's one (``torch.profiler`` counts: the
-   ``device_launches`` line), that a ChainedKernel call is one K17 launch, and that no
+   memset, and its baseline B8's one, and one K1 call on the dot cell its
+   one kernel, its last CTA folding the partials (``torch.profiler``
+   counts: the ``device_launches`` line), that a ChainedKernel call is one K17 launch, and that no
    fallback fired, and that ``ops.spmv`` and ``ops.sparse_gemv`` lay out
    no stream by a copy (K12 takes ``pack_ell``'s (m, k) planes as they
    are: ``lowering.LAYOUT_COPIES``, the ``layout_copies`` of the
@@ -68,7 +69,11 @@ printing JSON lines:
    B8 (and their plain versions) against an f64 prefix sum, K14 twice to
    the bit, B8 to ``hopper.base_scan_model``'s bits in f32, bf16 and int32
    at n = 1024, 4096 and 2**26 ± 1024 and five B8 runs of scan_2p26 to one
-   set of bits, B8's and every K4 build's local bytes none; K15 to the bit on the batch cell and bf16 inputs, within the
+   set of bits, B8's and every K4 build's local bytes none; K1 to
+   ``hopper.reduce_mul_model``'s bits (the two-launch K1's association) on
+   the dot cell in f32 and bf16 and at n = 1000 and 2**20 ± 1024, five K1
+   runs of the dot cell to the main path's bits beside its run on the first
+   block zeroed, which must differ, and K1's and K2's local bytes none; K15 to the bit on the batch cell and bf16 inputs, within the
    limit on one transform of 2**22 points (the global passes); K16 to the
    bit on the cell, a batch of
    2**16 rows of 1024, bf16 and int32, and inputs holding ±0 and a NaN;
@@ -119,9 +124,9 @@ printing JSON lines:
    kernel's runs, within SPARSE_LIMIT or SCAN_LIMIT, beside the
    zeroed-block control above it;
 4. time each kernel, its plain version and one PyTorch library call with
-   CUDA events, beside the least time the card could take (K4's row also
-   through its C entry, ``c_entry_ms``, and the host's time to issue one
-   wrapper call, ``host_ms``), each baseline
+   CUDA events, beside the least time the card could take (K1's, K2's and
+   K4's rows also through the C entry, ``c_entry_ms``, and the host's time
+   to issue one wrapper call, ``host_ms``), each baseline
    against its streamed kernel (``ssr_over_baseline``), each fused cell
    against its unfused stages (``fused_over_unfused``), each entry
    point of the main path by the host's clock once warm, and the sparse
@@ -416,9 +421,13 @@ PAIRS = {"reduce_mul": "base_reduce", "map_relu": "base_relu",
          "gather_spmm": "base_spmm", "stream_scan": "base_scan"}
 
 
-#: the stream kernels whose device launches a call are counted: their cell
+#: the kernels whose device launches a call are counted: their cell
 STREAM_CELL = {"stream_bitonic": "sort", "stream_fft": "fft",
-               "stream_scan": "prefix_sum"}
+               "stream_scan": "prefix_sum", "reduce_mul": "dot_k1"}
+#: the kernels whose rows of the kernels line also time their C entry
+#: (``c_entry_ms``) and the host's time to issue a wrapper call
+#: (``host_ms``)
+ENTRY_ROWS = ("contract_gemv", "reduce_mul", "map_relu")
 
 
 def emit(obj) -> None:
@@ -766,8 +775,12 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     # the wide tile on 192 and 256 live lanes; K11's shared memory as its
     # entry counts it beside the wrapper's mirror (held equal in phase 3)
     attributes["stream_scan"] = hopper.kernel_attributes("stream_scan")
-    # B8 (static, its three dtypes) and each of K4's eight builds
+    # B8 (static, its three dtypes), K1 and K2 (static, every build; CTAs
+    # an SM of their f32 builds in 16-byte packs) and each of K4's eight
+    # builds
     attributes["base_scan"] = hopper.kernel_attributes("base_scan")
+    for name in ("reduce_mul", "map_relu"):
+        attributes[name] = hopper.kernel_attributes(name)
     for build in hopper.GEMV_BUILDS:
         attributes[f"contract_gemv_{build}"] = hopper.kernel_attributes(
             "contract_gemv", build=build)
@@ -1069,9 +1082,12 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                          f"{ {key: per_call[key] for key in stream_launches} }")
     # the device kernels of one sort_2p26 and one fft_2048_b32768 call,
     # counted by the profiler, against K16's and K15's Python schedules;
+    # one K1 call on the dot cell its one kernel;
     # one scan_2p26 call runs K14's one pass, one at GATHER_MAIN_DEPTH
     # R15's and one baseline call B8's (each after a memset of its state,
     # which is no kernel)
+    k1_call = lowering.prepare_call(compiler.dot_product_nest(n_vec),
+                                    reduction.MUL, {"A": x, "B": y})
     device_launches = count_device_launches({
         "sort": (lambda: ops.sort(xso, ssr=True),
                  len(bitonic.sort_passes(SORT_N)), SORT_MOST_LAUNCHES,
@@ -1081,7 +1097,9 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         "prefix_sum_baseline": (path["prefix_sum_baseline"], 1, 1,
                                 ("base_scan_tiles<",)),
         "prefix_sum_ring": (path["prefix_sum_ring"], 1, 1,
-                            ("ring_scan_tiles",))})
+                            ("ring_scan_tiles",)),
+        # K1 on the dot cell: one kernel, its last CTA folding the partials
+        "dot_k1": (k1_call.run, 1, 1, ("reduce_mul_kernel<",))})
     # a call deeper than 2 launches its ring kernel and no K kernel; its
     # depth-2 twin launches its K kernel and no ring
     ring_launches = {key: per_call[key] for pair in RING_PATH.items()
@@ -1199,6 +1217,49 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     err = abs(float(main["dot_baseline"]) - float(main["dot"]))
     checks["dot_baseline_vs_ssr"] = {"abs_err": err, "rel_err": err / scale,
                                      "limit": DOT_LIMIT}
+    # K1 to the bits of the two-launch K1 it replaced, as
+    # hopper.reduce_mul_model computes them (numpy float32: each thread's
+    # packs in step order, one FMA rounding each, ssr_cta_sum<256> a run,
+    # the fold's 1,024 lanes), on the dot cell in f32 and rounded to bf16
+    # and at n = 1,000 and 2**20 ± 1,024; five K1 runs of the dot cell give
+    # the main path's bits, and its run on the first block zeroed differs
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def k1_model(key, x_, y_):
+        call_ = lowering.prepare_call(compiler.dot_product_nest(x_.numel()),
+                                      reduction.MUL, {"A": x_, "B": y_})
+        got_ = np.float32(float(call_.run()))
+        geo_ = call_.kernel.geometry
+        runs_, per_, _, _ = hopper.reduce_split(geo_.steps, sms)
+        a_, b_ = (t.float().cpu().numpy() for t in call_.layouts)
+        model = hopper.reduce_mul_model(
+            a_, b_, per_, runs_,
+            vec=hopper._vector_width(call_.layouts, geo_.ins))
+        checks[f"k1_model_{key}"] = {
+            "exact": bool(got_.view(np.int32) == model.view(np.int32)),
+            "abs_err": abs(float(got_) - float(model)), "limit": 0.0,
+            "kernel": "reduce_mul", "against": "hopper.reduce_mul_model"}
+
+    for dt in (torch.float32, torch.bfloat16):
+        tag = str(dt).removeprefix("torch.")
+        k1_model(f"dot_{tag}", x.to(dt), y.to(dt))
+        for n_ in (1000, (1 << 20) - 1024, (1 << 20) + 1024):
+            k1_model(f"{tag}_{n_}",
+                     torch.rand(n_, generator=gen, device=dev).to(dt),
+                     torch.rand(n_, generator=gen, device=dev).to(dt))
+    runs = [calls["reduce_mul"].run() for _ in range(5)]
+    xz = x.clone()
+    xz[:step] = 0
+    ctrl = lowering.prepare_call(compiler.dot_product_nest(n_vec),
+                                 reduction.MUL, {"A": xz, "B": y}).run()
+    checks["k1_dot_five_runs"] = {
+        "exact": all(torch.equal(r_.reshape(-1), main["dot"].reshape(-1))
+                     for r_ in runs)
+        and not torch.equal(ctrl.reshape(-1), main["dot"].reshape(-1)),
+        "abs_err": max(abs(float(r_) - float(main["dot"])) for r_ in runs),
+        "limit": 0.0, "kernel": "reduce_mul",
+        "zeroed_block_control": float(ctrl)}
+    del xz, runs, ctrl
     # relu: the value is selected, never computed — exact to the bit in
     # every dtype, NaN payloads and signed zeros included.
     bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
@@ -2353,7 +2414,7 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         "local_limit": R14_LOCAL_BYTES, "abs_err": 0.0, "limit": 0.0}
     for name in ("ring_stream_scan", "gather_spmm", "stream_scan",
                  "rescale_attention_256_d192", "rescale_attention_256_d256",
-                 "base_scan",
+                 "base_scan", "reduce_mul", "map_relu",
                  *(f"contract_gemv_{b}" for b in hopper.GEMV_BUILDS)):
         local = attributes[name]["localSizeBytes"]
         checks[f"{name}_local_bytes"] = {
@@ -2790,7 +2851,7 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": time_ms(library[name]),
         })
-        if name == "contract_gemv":   # K4 on the line, its C entry, its host
+        if name in ENTRY_ROWS:   # on the line, its C entry, its host
             rows[-1].update(c_entry_ms=time_ms(entry_fn(calls[name])),
                             host_ms=host_ms(kernel))
         emit({"phase": "time", **rows[-1], **(

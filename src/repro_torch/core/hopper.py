@@ -110,7 +110,8 @@ serialised load per block (:data:`BASELINE_KERNELS`, by body op):
 ``base_scan`` (``scan``).
 Each runs on the same number of
 CTAs, with the same CTA tile, as its streamed counterpart, so the time of
-the pair is the card's SSR-against-baseline comparison.
+the pair is the card's SSR-against-baseline comparison; B2 keeps the split
+K2 ran before K2 read ahead (:data:`RING_MAP_PER_SM`, R2's).
 
 The kernels are CUDA C++ for ``sm_90a`` under ``repro_torch/csrc``, each
 built by ``nvcc`` into a shared library with a plain C interface at first
@@ -255,9 +256,10 @@ KERNELS: Dict[str, Dict[str, str]] = {
 }
 
 #: Wrapper calls per kernel since the last :func:`reset_launches`: one per
-#: call that launched its kernel.  A call of ``reduce_mul``, ``base_reduce``,
-#: or of a reduce of ``chain_elem`` or ``dag_softmax_xent``, is two device
-#: launches (the per-CTA partials, then the one-CTA fold); every other
+#: call that launched its kernel.  A call of ``base_reduce``, or of a
+#: reduce of ``chain_elem`` or ``dag_softmax_xent``, is two device launches
+#: (the per-CTA partials, then the one-CTA fold); a ``reduce_mul`` call is
+#: one, its last CTA folding the partials (:func:`reduce_split`); every other
 #: kernel's call is one — except the stream kernels: a ``stream_scan`` or
 #: ``base_scan`` call is one kernel, its one pass, after one memset of its
 #: state; a ``stream_fft`` call one for n up to
@@ -271,7 +273,7 @@ KERNELS: Dict[str, Dict[str, str]] = {
 #: batch of rows.
 #: A pipelined call counts its ring kernel (R4's drain as
 #: ``ring_contract_gemv``, R10's as ``ring_halo_stencil1d``; an R1 call, or
-#: a reduce of R6 or R8, is two device launches, as K1's, K5's and K7's; an
+#: a reduce of R6 or R8, is two device launches, as K5's and K7's; an
 #: R12 call over a head batch is one; a ``ring_stream_scan`` call is one
 #: kernel, its one pass, after one memset of its state).  A ``chained_map``
 #: or ``ring_chained_map`` call is one.
@@ -372,7 +374,8 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _GP, _SP = ctypes.POINTER(_Grid), ctypes.POINTER(_Stream)
 _RP = ctypes.POINTER(_Ring)
 _SIGNATURES = {
-    "reduce_mul": [_P, _P, _I, _I, _GP, _SP, _SP, _P, _I64, _I64, _P, _P],
+    "reduce_mul": [_P, _P, _P, _P, _I, _I, _GP, _SP, _SP, _I64, _I64, _I64,
+                   _P],
     "map_relu": [_P, _P, _I, _I, _GP, _SP, _SP, _I64, _I64, _P],
     "contract_gemm": [_P, _P, _P, _I, _I, _I, _GP, _SP, _SP, _SP, _I64, _P],
     "contract_gemv": [_P, _P, _P, _I, _I, _I, _I, _GP, _SP, _SP, _SP, _I64,
@@ -405,8 +408,8 @@ _SIGNATURES = {
     "base_scan": [_P, _I, _P, _P, _I64, _I64, _I64, _P],
     "stream_fft": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _P],
     "stream_bitonic": [_P, _P, _I, _I64, _I64, _P],
-    "ring_reduce_mul": [_P, _P, _I, _I, _GP, _SP, _SP, _RP, _I64, _P, _I64,
-                        _I64, _I64, _P, _P],
+    "ring_reduce_mul": [_P, _P, _P, _P, _I, _I, _GP, _SP, _SP, _RP, _I64,
+                        _I64, _I64, _I64, _P],
     "ring_map_relu": [_P, _P, _I, _I, _GP, _SP, _SP, _RP, _I64, _I64, _I64,
                       _P],
     "ring_contract_gemm": [_P, _P, _P, _I, _I, _I, _GP, _SP, _SP, _SP, _I64,
@@ -476,9 +479,10 @@ _OCCUPANCY_ATTRIBUTES = ("contract_gemm", "ring_contract_gemm", "base_gemm",
                          "ring_contract_gemv", "ring_stream_scan")
 #: The kernels whose attributes entry reads their CTAs an SM at the shared
 #: memory they take themselves: K14 and B8 (static), K4 (static, one build
-#: at a time) and K11 (its widest tiles).
+#: at a time), K11 (its widest tiles), K1 and K2 (static; their f32 builds
+#: in 16-byte packs).
 _OWN_OCCUPANCY_ATTRIBUTES = ("stream_scan", "base_scan", "contract_gemv",
-                             "rescale_attention")
+                             "rescale_attention", "reduce_mul", "map_relu")
 #: K4's eight builds, in the order of its attributes entry: input and
 #: output dtype, and A's 16-byte packs (``v4``/``v8``) or elements (``v1``).
 GEMV_BUILDS = ("f32_f32_v4", "f32_f32_v1", "f32_bf16_v4", "f32_bf16_v1",
@@ -494,10 +498,10 @@ def kernel_attributes(name: str, smem: int = 0,
     K13, R13 and R14 report them; K3, R3, B3, R1, R2, R4 and R15 also their
     CTAs an SM (``ctasPerSm``) at ``smem`` bytes of dynamic shared memory
     (the ring and its barriers of R3, R1, R2, R4 and R15, at their main
-    path's instantiation; K3 and B3 take their own); K14, B8, K4 and K11
-    at the shared memory they take themselves, K11 for the tile of ``tile``
-    = (lanes, head dim) (:func:`rescale_attention_tiles`), K4 for one
-    ``build`` of :data:`GEMV_BUILDS` (not the most over them)."""
+    path's instantiation; K3 and B3 take their own); K14, B8, K4, K11, K1
+    and K2 at the shared memory they take themselves, K11 for the tile of
+    ``tile`` = (lanes, head dim) (:func:`rescale_attention_tiles`), K4 for
+    one ``build`` of :data:`GEMV_BUILDS` (not the most over them)."""
     if (name == "contract_gemv") != (build is not None):
         raise ValueError(f"{name}: a build of GEMV_BUILDS is K4's argument "
                          f"and only K4's, got build={build!r}")
@@ -857,8 +861,16 @@ RING_BARRIER_BYTES = 4 * 8 * 8
 #: R1's warp sums besides its barriers: two sets of its 8 computing warps'
 #: floats, one K1 run's and the next one's (``csrc/ssr_stage_ring.cuh``).
 STAGE_SUM_BYTES = 2 * 8 * 4
-#: The CTAs an SM of K1's split (``reduce_mul``): R1 walks K1's runs.
+#: The CTAs an SM K2's split asks for (``map_relu``, :func:`_ctas`): runs
+#: of 4 steps on the relu cells, one batch of loads a thread; R2 and B2
+#: ask for RING_MAP_PER_SM, runs of 8.
+MAP_PER_SM, RING_MAP_PER_SM = 128, 64
+#: The runs an SM of K1's split (``reduce_mul``), one partial each: R1
+#: walks K1's runs.
 REDUCE_PER_SM = 8
+#: The CTAs an SM K1 is built for (``csrc/reduce_mul.cu``'s kMinCtas), each
+#: walking several of its runs one after another (:func:`reduce_split`).
+REDUCE_CTAS_PER_SM = 4
 #: Shared memory an SM of an H100 or H200 holds for its CTAs (228 KiB), and
 #: what the card keeps of it for each CTA (1 KiB): a persistent ring
 #: kernel launches as many CTAs as fit an SM beside their rings, at most
@@ -1350,6 +1362,111 @@ def base_scan_model(x: np.ndarray) -> np.ndarray:
     return out.reshape(-1)
 
 
+def _fma32(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """fmaf(a, b, c) of float32 arrays, rounded once as the card rounds
+    it: a·b is exact in float64, the sum's error is carried by TwoSum, and
+    a float64 sum that lands on a float32 tie is settled by that error's
+    sign."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    c64 = c.astype(np.float64)
+    s = p + c64
+    bv = s - p
+    err = (p - (s - bv)) + (c64 - bv)
+    r = s.astype(np.float32)
+    back = r.astype(np.float64)
+    with np.errstate(invalid="ignore"):
+        other = np.nextafter(r, np.where(s > back, np.inf, -np.inf)
+                             .astype(np.float32))
+        tie = (s != back) & (2 * s == back + other.astype(np.float64)) \
+            & (err != 0)
+        up = tie & ((err > 0) == (other.astype(np.float64) > back))
+    return np.where(up, other, r).astype(np.float32)
+
+
+def _warp_butterfly(v: np.ndarray) -> np.ndarray:
+    """Each lane of the warps in the last axis (32 lanes) after the
+    butterfly ``v += shfl_xor(v, o)`` for o = 16, 8, 4, 2, 1, float32."""
+    lane = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        v = (v + v[..., lane ^ o]).astype(np.float32)
+    return v
+
+
+def cta_sum_model(v: np.ndarray) -> np.ndarray:
+    """``ssr_cta_sum<THREADS>`` over the last axis of ``v`` (THREADS
+    float32 values, a multiple of 32, at most 1,024), as thread 0 gets it:
+    each warp's butterfly, then warp 0's over the warp sums (its other
+    lanes 0)."""
+    v = np.asarray(v, np.float32)
+    threads = v.shape[-1]
+    if threads % 32 or not 32 <= threads <= 1024:
+        raise ValueError(f"a CTA of {threads} threads: a multiple of 32, "
+                         "at most 1,024")
+    warps = _warp_butterfly(v.reshape(*v.shape[:-1], threads // 32, 32))
+    lanes = np.zeros((*v.shape[:-1], 32), np.float32)
+    lanes[..., :threads // 32] = warps[..., 0]
+    return _warp_butterfly(lanes)[..., 0]
+
+
+#: Threads of a K1 CTA, and the lanes of the fold over its partials
+#: (``csrc/reduce_mul.cu``, ``csrc/ssr_run.cuh``'s kFoldLanes).
+REDUCE_THREADS, FOLD_LANES = 256, 1024
+
+
+def reduce_mul_model(a: np.ndarray, b: np.ndarray, steps_per_run: int,
+                     runs: int, vec: int = 4,
+                     block: Tuple[int, int] = (8, 128)) -> np.float32:
+    """K1's Σ a·b with K1's bits, in numpy float32.  ``a`` and ``b`` hold
+    the streams' blocks in grid-step order, each block's elements row-major
+    (the flat (rows, 128) layouts of a vector's dot), promoted to float32;
+    ``vec`` elements a pack (4 for f32 and 8 for bf16 in 16-byte packs, else
+    1).  The association: thread t of a 256-thread CTA takes the packs t, t
+    + 256, ... of each step's block (SsrBlockWalk's order) and accumulates
+    each pack's products element by element with one rounding each (an
+    FMA), step by step through its run of ``steps_per_run`` steps; the run's
+    partial is ``ssr_cta_sum<256>`` of its threads; the fold gives lane L
+    of 1,024 the partials L, L + 1,024, ... in order and sums the lanes by
+    ``ssr_cta_sum<1024>``.  ``runs`` must be K1's (the steps over
+    ``steps_per_run``)."""
+    size = block[0] * block[1]
+    a = np.asarray(a, np.float32).reshape(-1)
+    b = np.asarray(b, np.float32).reshape(-1)
+    if a.size != b.size or a.size % size or size % vec:
+        raise ValueError(f"reduce_mul_model: two streams of whole {block} "
+                         f"blocks of {vec}-element packs, got {a.size} and "
+                         f"{b.size} elements")
+    steps, packs = a.size // size, size // vec
+    if runs != -(-steps // steps_per_run):
+        raise ValueError(f"reduce_mul_model: {steps} steps in runs of "
+                         f"{steps_per_run} are not {runs} runs")
+    cells = -(-packs // REDUCE_THREADS)
+    per = steps_per_run
+
+    def walk(x: np.ndarray) -> np.ndarray:
+        """(runs, step of the run, cell of a thread, thread, element)."""
+        out = np.zeros((runs * per, cells * REDUCE_THREADS, vec), np.float32)
+        out[:steps, :packs] = x.reshape(steps, packs, vec)
+        return out.reshape(runs, per, cells, REDUCE_THREADS, vec)
+
+    wa, wb = walk(a), walk(b)
+    valid = np.zeros((runs * per, cells * REDUCE_THREADS), bool)
+    valid[:steps, :packs] = True
+    valid = valid.reshape(runs, per, cells, REDUCE_THREADS)
+    acc = np.zeros((runs, REDUCE_THREADS), np.float32)
+    for s in range(per):
+        for c in range(cells):
+            live = valid[:, s, c]
+            for j in range(vec):
+                acc = np.where(live, _fma32(wa[:, s, c, :, j],
+                                            wb[:, s, c, :, j], acc), acc)
+    partials = cta_sum_model(acc)
+    lanes = np.zeros(FOLD_LANES, np.float32)
+    for i in range(0, runs, FOLD_LANES):
+        row = partials[i:i + FOLD_LANES]
+        lanes[:row.size] = (lanes[:row.size] + row).astype(np.float32)
+    return np.float32(cta_sum_model(lanes))
+
+
 def _ctas_per_sm(smem: int, most: int) -> int:
     """CTAs of a kernel taking ``smem`` bytes of shared memory that fit an
     SM, at most ``most``."""
@@ -1399,6 +1516,18 @@ def _fewest_on_an_sm(units: int, per_sm: int, sms: int) -> int:
         return -(-ctas // sms) * per, per
     return min((-(-units // (c * sms)) for c in range(1, per_sm + 1)),
                key=busiest)
+
+
+def reduce_split(steps: int, sms: int) -> Tuple[int, int, int, int]:
+    """(runs, steps a run, runs a CTA, CTAs) of K1 on a card of ``sms``
+    SMs.  The runs are K1's partials, ``_k_split(steps, REDUCE_PER_SM ·
+    sms)`` (R1 walks the same runs, so their sums are K1's bits); a CTA
+    walks a run of them one after another at :data:`REDUCE_CTAS_PER_SM`
+    CTAs an SM, all in one wave: of those splits, the one whose busiest SM
+    walks the fewest runs (:func:`_fewest_on_an_sm`)."""
+    runs, per = _k_split(steps, REDUCE_PER_SM * sms)
+    k = _fewest_on_an_sm(runs, REDUCE_CTAS_PER_SM, sms)
+    return runs, per, k, -(-runs // k)
 
 
 def _gemv_runs(groups: int, blocks: int, z: int, step_bytes: int,
@@ -1751,40 +1880,157 @@ def _ring_arg(ring: RingProgram) -> _Ring:
     return r
 
 
-def reduce_mul(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
-               out_dtype: torch.dtype,
-               acc_dtype: torch.dtype = torch.float32,
-               program: Optional[Any] = None,
-               ring: Optional[RingProgram] = None) -> torch.Tensor:
-    """K1: Σ promote(a)·promote(b) over every step → (1, 1) f32; with
-    ``ring`` (a pipelined call) R1, whose persistent CTAs walk K1's runs
-    (:func:`ring_run_steps`), one partial a run."""
+class _Prepared(NamedTuple):
+    """A launch as far as it depends on its key alone: the kernel, the
+    device, the output's shape and dtype, which layouts are copied to a
+    16-byte boundary a call, the 4-byte words of the stream's scratch a
+    call takes (:func:`_work`; 0 for none), and the entry's arguments after
+    its pointers (the layouts', the output's, the scratch's): dtypes,
+    vector widths, the AGU structs, the CTA split."""
+    kernel: str
+    dev: torch.device
+    out_shape: Tuple[int, ...]
+    out_dtype: torch.dtype
+    align: Tuple[bool, ...]
+    work: int
+    args: tuple
+
+
+#: The wrappers' prepared launches by key (:func:`_launch_key`); emptied
+#: when full.
+_PREPARED: Dict[tuple, _Prepared] = {}
+_PREPARED_MOST = 256
+
+
+def _launch_key(name: str, op: tuple, geo: StreamGeometry,
+                ring: Optional[RingProgram], program: Optional[Any],
+                out_dtype: torch.dtype, acc_dtype: torch.dtype,
+                layouts: Sequence[torch.Tensor]) -> tuple:
+    """What a wrapper's checks and launch arguments depend on: the
+    wrapper, op, geometry, ring, program, dtypes, and each layout's shape,
+    strides, dtype, device and base pointer's 16-byte alignment."""
+    return (name, op, geo, ring, program, out_dtype, acc_dtype,
+            tuple((t.shape, t.stride(), t.dtype, t.device, t.data_ptr() % 16)
+                  for t in layouts))
+
+
+def _prepared(key: tuple, prepare: Callable[[], _Prepared]) -> _Prepared:
+    """The launch of ``key``, checked and built by ``prepare()`` once."""
+    prep = _PREPARED.get(key)
+    if prep is None:
+        prep = prepare()
+        if len(_PREPARED) >= _PREPARED_MOST:
+            _PREPARED.clear()
+        _PREPARED[key] = prep
+    return prep
+
+
+#: Each stream's scratch by (device index, stream handle): K1's ticket and
+#: partials, R1's partials (:func:`_work`).
+_WORK: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _work(dev: torch.device, words: int) -> torch.Tensor:
+    """At least ``words`` 4-byte words of scratch for launches on the
+    device's current stream, zero when first made: K1's first word is its
+    ticket, which each launch leaves at zero, and the partials follow it.
+    Launches on one stream run one after another, so they share it."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (index, torch._C._cuda_getCurrentRawStream(index))
+    work = _WORK.get(key)
+    if work is None or work.numel() < words:
+        work = torch.zeros(words, dtype=torch.int32,
+                           device=torch.device("cuda", index))
+        _WORK[key] = work
+    return work
+
+
+def _run(prep: _Prepared, layouts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """A call of a prepared launch: the output allocated, the layouts
+    copied where ``prep.align`` asks, the scratch, then the launch."""
+    ins = [_aligned16(t) if al else t for t, al in zip(layouts, prep.align)]
+    out = torch.empty(prep.out_shape, dtype=prep.out_dtype, device=prep.dev)
+    work = (_work(prep.dev, prep.work).data_ptr(),) if prep.work else ()
+    _launch(prep.kernel, prep.dev, *(t.data_ptr() for t in ins),
+            out.data_ptr(), *work, *prep.args)
+    return out
+
+
+def _prepare_reduce_mul(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
+                        out_dtype: torch.dtype, program: Optional[Any],
+                        ring: Optional[RingProgram]) -> _Prepared:
+    """Every check of K1 (or R1), then its launch's arguments."""
     dev = _checked("reduce_mul", geo, layouts, program, ring,
                    ("reduce", "mul"))
     if out_dtype != torch.float32:
         raise TypeError(f"reduce_mul: accumulates in float32, asked for "
                         f"{out_dtype}")
     a, b = layouts
-    ctas, per_cta = _ctas(dev, geo.steps, per_sm=REDUCE_PER_SM)
-    partials = torch.empty(ctas, dtype=torch.float32, device=dev)
-    out = torch.empty((1, 1), dtype=torch.float32, device=dev)
-    g, sa, sb = _grid_arg(geo.grid), _stream_arg(geo.ins[0], a), \
-        _stream_arg(geo.ins[1], b)
-    streams = (a.data_ptr(), b.data_ptr(), _DTYPE_CODE[a.dtype],
-               _vector_width(layouts, geo.ins), ctypes.byref(g),
-               ctypes.byref(sa), ctypes.byref(sb))
+    sms = _card(dev).multi_processor_count
+    runs, per, k, _ = reduce_split(geo.steps, sms)
+    head = (_DTYPE_CODE[a.dtype], _vector_width(layouts, geo.ins),
+            ctypes.byref(_grid_arg(geo.grid)),
+            ctypes.byref(_stream_arg(geo.ins[0], a)),
+            ctypes.byref(_stream_arg(geo.ins[1], b)))
     if ring is None:
-        _launch("reduce_mul", dev, *streams, partials.data_ptr(), ctas,
-                per_cta, out.data_ptr())
-        return out
+        return _Prepared("reduce_mul", dev, (1, 1), torch.float32,
+                         (False, False), 1 + runs, (*head, runs, per, k))
     dr = device_ring("ring_reduce_mul", geo, ring, a.dtype)
-    run = ring_run_steps("ring_reduce_mul", geo, ring, a.dtype,
-                         _card(dev).multi_processor_count)
-    _launch("ring_reduce_mul", dev, *streams, ctypes.byref(_ring_arg(dr)),
-            dr.ring_bytes + _staged_bytes("ring_reduce_mul", (), geo),
-            partials.data_ptr(), ctas, per_cta, run // per_cta,
-            out.data_ptr())
-    return out
+    run = ring_run_steps("ring_reduce_mul", geo, ring, a.dtype, sms)
+    return _Prepared("ring_reduce_mul", dev, (1, 1), torch.float32,
+                     (False, False), 1 + runs, (
+                         *head, ctypes.byref(_ring_arg(dr)),
+                         dr.ring_bytes + _staged_bytes("ring_reduce_mul", (),
+                                                       geo),
+                         runs, per, run // per))
+
+
+def reduce_mul(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
+               out_dtype: torch.dtype,
+               acc_dtype: torch.dtype = torch.float32,
+               program: Optional[Any] = None,
+               ring: Optional[RingProgram] = None) -> torch.Tensor:
+    """K1: Σ promote(a)·promote(b) over every step → (1, 1) f32, in one
+    launch on :func:`reduce_split`'s runs, its last CTA folding the runs'
+    partials; with ``ring`` (a pipelined call) R1, whose persistent CTAs
+    walk K1's runs (:func:`ring_run_steps`), one partial a run, then a
+    second launch folds them.  Checked and built once per key
+    (:func:`_launch_key`)."""
+    key = _launch_key("reduce_mul", ("reduce", "mul"), geo, ring, program,
+                      out_dtype, acc_dtype, layouts)
+    return _run(_prepared(key, lambda: _prepare_reduce_mul(
+        geo, layouts, out_dtype, program, ring)), layouts)
+
+
+def _prepare_map_relu(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
+                      out_dtype: torch.dtype, program: Optional[Any],
+                      ring: Optional[RingProgram]) -> _Prepared:
+    """Every check of K2 (or R2), then its launch's arguments.  The output
+    is a new tensor each call, so 16-byte aligned: its pitch and block
+    width decide its packs."""
+    dev = _checked("map_relu", geo, layouts, program, ring, ("map", "relu"))
+    (x,) = layouts
+    if out_dtype != x.dtype:
+        raise TypeError(f"map_relu: keeps the dtype ({x.dtype}), asked for "
+                        f"{out_dtype}")
+    vec = _vector_width(layouts, geo.ins)
+    if geo.out_shape[1] % vec or geo.out.block[1] % vec:
+        vec = 1
+    ctas, per_cta = _ctas(dev, geo.steps, per_sm=MAP_PER_SM if ring is None
+                          else RING_MAP_PER_SM)
+    head = (_DTYPE_CODE[x.dtype], vec, ctypes.byref(_grid_arg(geo.grid)),
+            ctypes.byref(_stream_arg(geo.ins[0], x)),
+            ctypes.byref(_stream_pitch_arg(geo.out, geo.out_shape[1])))
+    if ring is None:
+        return _Prepared("map_relu", dev, tuple(geo.out_shape), x.dtype,
+                         (False,), 0, (*head, ctas, per_cta))
+    dr = device_ring("ring_map_relu", geo, ring, x.dtype)
+    return _Prepared("ring_map_relu", dev, tuple(geo.out_shape), x.dtype,
+                     (False,), 0, (
+                         *head, ctypes.byref(_ring_arg(dr)),
+                         dr.ring_bytes + _staged_bytes("ring_map_relu", (),
+                                                       geo),
+                         ctas, per_cta))
 
 
 def map_relu(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
@@ -1792,45 +2038,14 @@ def map_relu(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
              acc_dtype: torch.dtype = torch.float32,
              program: Optional[Any] = None,
              ring: Optional[RingProgram] = None) -> torch.Tensor:
-    """K2: each step's block → max(0, block) through the dense out map;
-    with ``ring`` (a pipelined call) R2, on K2's split of the steps."""
-    dev = _checked("map_relu", geo, layouts, program, ring, ("map", "relu"))
-    (x,) = layouts
-    if out_dtype != x.dtype:
-        raise TypeError(f"map_relu: keeps the dtype ({x.dtype}), asked for "
-                        f"{out_dtype}")
-    ctas, per_cta = _ctas(dev, geo.steps, per_sm=64)
-    out = torch.empty(geo.out_shape, dtype=x.dtype, device=dev)
-    g, sx, so = _grid_arg(geo.grid), _stream_arg(geo.ins[0], x), \
-        _stream_arg(geo.out, out)
-    streams = (x.data_ptr(), out.data_ptr(), _DTYPE_CODE[x.dtype],
-               _vector_width((x, out), (geo.ins[0], geo.out)),
-               ctypes.byref(g), ctypes.byref(sx), ctypes.byref(so))
-    if ring is None:
-        _launch("map_relu", dev, *streams, ctas, per_cta)
-    else:
-        dr = device_ring("ring_map_relu", geo, ring, x.dtype)
-        _launch("ring_map_relu", dev, *streams, ctypes.byref(_ring_arg(dr)),
-                dr.ring_bytes + _staged_bytes("ring_map_relu", (), geo),
-                ctas, per_cta)
-    return out
-
-
-class _Prepared(NamedTuple):
-    """A contraction's launch as far as it depends on its key alone: the
-    kernel, the device, the output's shape, whether the second operand is
-    copied to a 16-byte boundary, and the entry's arguments after the three
-    pointers (dtypes, vector widths, the AGU structs, the CTA split)."""
-    kernel: str
-    dev: torch.device
-    out_shape: Tuple[int, ...]
-    align_b: bool
-    args: tuple
-
-
-#: :func:`_contract`'s prepared launches by key; cleared when full.
-_PREPARED: Dict[tuple, _Prepared] = {}
-_PREPARED_MOST = 256
+    """K2: each step's block → max(0, block) through the dense out map, on
+    runs of steps at MAP_PER_SM CTAs an SM; with ``ring`` (a pipelined call)
+    R2, at RING_MAP_PER_SM.  Checked and built once per key
+    (:func:`_launch_key`)."""
+    key = _launch_key("map_relu", ("map", "relu"), geo, ring, program,
+                      out_dtype, acc_dtype, layouts)
+    return _run(_prepared(key, lambda: _prepare_map_relu(
+        geo, layouts, out_dtype, program, ring)), layouts)
 
 
 def _prepare_contract(name: str, geo: StreamGeometry,
@@ -1850,22 +2065,12 @@ def _prepare_contract(name: str, geo: StreamGeometry,
     g = _grid_arg(geo.grid)
     s0, s1 = (_stream_arg(a, t) for a, t in zip(geo.ins, layouts))
     so = _stream_pitch_arg(geo.out, geo.out_shape[1])
-    return _Prepared(kernel, dev, tuple(geo.out_shape), align_b, (
-        _DTYPE_CODE[layouts[0].dtype], _DTYPE_CODE[out_dtype], *widths,
-        ctypes.byref(g), ctypes.byref(s0), ctypes.byref(s1), ctypes.byref(so),
-        geo.contraction_steps, *rest))
-
-
-def _contract_key(name: str, op: tuple, geo: StreamGeometry,
-                  ring: Optional[RingProgram], program: Optional[Any],
-                  out_dtype: torch.dtype, acc_dtype: torch.dtype,
-                  a: torch.Tensor, b: torch.Tensor) -> tuple:
-    """What a contraction's checks and launch arguments depend on: the
-    wrapper, op, geometry, ring, program, dtypes, and each operand's shape,
-    strides, dtype, device and base pointer's 16-byte alignment."""
-    return (name, op, geo, ring, program, out_dtype, acc_dtype,
-            a.shape, a.stride(), a.dtype, a.device, a.data_ptr() % 16,
-            b.shape, b.stride(), b.dtype, b.device, b.data_ptr() % 16)
+    return _Prepared(kernel, dev, tuple(geo.out_shape), out_dtype,
+                     (False, align_b), 0, (
+                         _DTYPE_CODE[layouts[0].dtype], _DTYPE_CODE[out_dtype],
+                         *widths, ctypes.byref(g), ctypes.byref(s0),
+                         ctypes.byref(s1), ctypes.byref(so),
+                         geo.contraction_steps, *rest))
 
 
 def _contract(name: str, geo: StreamGeometry,
@@ -1877,24 +2082,13 @@ def _contract(name: str, geo: StreamGeometry,
     name, its vector widths, its arguments after the contraction steps
     and whether the second operand is copied to a 16-byte boundary, or,
     with ``ring``, the ring kernel's.  What depends only on the call's key
-    (:func:`_contract_key`) is checked and built once per key
+    (:func:`_launch_key`) is checked and built once per key
     (:data:`_PREPARED`); a call then allocates the output and launches."""
-    a, b = layouts
-    key = _contract_key(name, op, geo, ring, program, out_dtype, acc_dtype,
-                        a, b)
-    prep = _PREPARED.get(key)
-    if prep is None:
-        prep = _prepare_contract(name, geo, layouts, out_dtype, acc_dtype,
-                                 program, ring, op, args)
-        if len(_PREPARED) >= _PREPARED_MOST:
-            _PREPARED.clear()
-        _PREPARED[key] = prep
-    if prep.align_b:
-        b = _aligned16(b)
-    out = torch.empty(prep.out_shape, dtype=out_dtype, device=prep.dev)
-    _launch(prep.kernel, prep.dev, a.data_ptr(), b.data_ptr(),
-            out.data_ptr(), *prep.args)
-    return out
+    key = _launch_key(name, op, geo, ring, program, out_dtype, acc_dtype,
+                      layouts)
+    return _run(_prepared(key, lambda: _prepare_contract(
+        name, geo, layouts, out_dtype, acc_dtype, program, ring, op, args)),
+        layouts)
 
 
 #: R3's routes (:func:`gemm_ring_route`) → the ``cvec`` its entry takes.
@@ -3245,7 +3439,7 @@ def base_relu(x: torch.Tensor,
         raise TypeError(f"base_relu: keeps the dtype ({x.dtype}), asked for "
                         f"{out_dtype}")
     nblk = _row_blocks("base_relu", x)
-    ctas, per_cta = _ctas(dev, nblk, per_sm=64)      # K2's split
+    ctas, per_cta = _ctas(dev, nblk, per_sm=RING_MAP_PER_SM)   # R2's split
     out = torch.empty_like(x)
     _launch("base_relu", dev, x.data_ptr(), out.data_ptr(),
             _DTYPE_CODE[x.dtype], nblk, ctas, per_cta)

@@ -8,8 +8,9 @@
 //
 // Bound on H100: bytes, as K2 -- one read and one write per element.
 //
-// Design: K2's split of the steps (runs of consecutive steps, 64 CTAs an SM
-// asked for, four resident), each CTA a filling warp that fills its ring
+// Design: runs of consecutive steps, 64 CTAs an SM asked for (the split K2
+// ran before it read ahead; core/hopper.py RING_MAP_PER_SM), four
+// resident, each CTA a filling warp that fills its ring
 // on mbarriers and 8 computing warps that meet no CTA barrier in the step
 // loop (ssr_stage_ring.cuh).  Measured on an H100 (PERF.md), persistent
 // CTAs in one wave took 13-15 % longer on the relu cells than this split:

@@ -20,8 +20,9 @@
 // accumulates them the same way; at a run's end the computing warps sum
 // it in ssr_cta_sum's order (behind a barrier of their own, the filling
 // warp not in it) and write the run's partial.  The fold -- the one-CTA
-// second launch shared with the DAG kernels -- then sums K1's partials, so
-// R1 gives K1's bits at every depth.
+// second launch shared with the DAG kernels, which K1 replays in its own
+// launch -- then sums K1's partials in K1's order, so R1 gives K1's bits
+// at every depth.
 #include "ssr_rows.cuh"
 #include "ssr_stage_ring.cuh"
 
@@ -118,17 +119,18 @@ int launch(const void* a, const void* b, const SsrGrid* g, const SsrStream* sa,
 }  // namespace
 
 // `vec` as for K1 (16 / sizeof(element), the bulk route, when every stream
-// allows 16-byte accesses, else 1); `num_runs` K1's CTAs (one partial
-// each, in `partials`) of `steps_per_run` steps, `runs_per_cta` of them a
-// CTA, all CTAs resident at once; `smem_bytes` the barriers, the warp sums
-// and the ring as the wrapper counted them, checked here.
-extern "C" int ssr_ring_reduce_mul(const void* a, const void* b, int dtype,
-                                   int vec, const SsrGrid* g,
-                                   const SsrStream* sa, const SsrStream* sb,
-                                   const SsrRing* ring, int64_t smem_bytes,
-                                   void* partials, int64_t num_runs,
+// allows 16-byte accesses, else 1); `num_runs` K1's runs (one partial
+// each, in `work` after its first word, K1's ticket, which R1 leaves
+// alone) of `steps_per_run` steps, `runs_per_cta` of them a CTA, all CTAs
+// resident at once; `smem_bytes` the barriers, the warp sums and the ring
+// as the wrapper counted them, checked here.
+extern "C" int ssr_ring_reduce_mul(const void* a, const void* b, void* out,
+                                   void* work, int dtype, int vec,
+                                   const SsrGrid* g, const SsrStream* sa,
+                                   const SsrStream* sb, const SsrRing* ring,
+                                   int64_t smem_bytes, int64_t num_runs,
                                    int64_t steps_per_run, int64_t runs_per_cta,
-                                   void* out, void* stream) {
+                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int64_t steps = 1;
   for (int k = 0; k < g->ndim; ++k) steps *= g->dims[k];
@@ -140,7 +142,7 @@ extern "C" int ssr_ring_reduce_mul(const void* a, const void* b, int dtype,
       smem_bytes != kBarrierBytes + kSumBytes +
                         (da + db) * sa->block[0] * sa->block[1] * size)
     return static_cast<int>(cudaErrorInvalidValue);
-  float* part = static_cast<float*>(partials);
+  float* part = static_cast<float*>(work) + 1;
   const int64_t n = num_runs, per = steps_per_run, k = runs_per_cta;
   int rc;
   if (dtype == SSR_F32 && vec == 4)

@@ -8,6 +8,7 @@ them; ``--noconftest`` skips the repo's JAX test settings::
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -2375,6 +2376,77 @@ def test_base_scan_keeps_the_three_launch_designs_bits(dev, dtype, n):
                        torch.from_numpy(model).view(torch.int32))
     assert torch.equal(hopper.base_scan(padded).view(torch.int32),
                        got.view(torch.int32))
+
+
+def test_reduce_mul_is_one_kernel_and_k1_k2_spill_nothing(dev):
+    """K1 folds its partials in its own launch: one device kernel a call,
+    by the profiler, and none of the two-launch design's fold; K1 and K2
+    have no local bytes in any build and reach the CTAs an SM K1's split
+    counts on (``hopper.REDUCE_CTAS_PER_SM``)."""
+    from torch.profiler import ProfilerActivity, profile
+    n = 1 << 22
+    x = torch.rand(n, device=dev)
+    call = lowering.prepare_call(compiler.dot_product_nest(n), reduction.MUL,
+                                 {"A": x, "B": x}, device=dev)
+    call.run()
+    torch.cuda._sleep(1000)            # the marks' kernel loaded
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(3):      # a trace can lose a kernel's record, not add one
+        # the call between two marks, with the host paused on each side,
+        # inside the profiler's window (chip_smoke.py's traced_kernels)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            torch.cuda._sleep(100_000)
+            call.run()
+            torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        events = prof.key_averages()
+        assert not any("fold_partials" in e.key for e in events)
+        counts.append(sum(e.count for e in events
+                          if "reduce_mul_kernel<" in e.key))
+        if counts[-1] == 1:
+            break
+    assert max(counts) == 1, counts
+    for name in ("reduce_mul", "map_relu"):
+        attrs = hopper.kernel_attributes(name)
+        assert attrs["localSizeBytes"] == 0, name
+        assert attrs["ctasPerSm"] >= hopper.REDUCE_CTAS_PER_SM, name
+
+
+@pytest.mark.parametrize("n", [1000, (1 << 20) - 1024, (1 << 20) + 1024,
+                               (1 << 24) + 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("off", [0, 1])
+def test_reduce_mul_keeps_the_two_launch_designs_bits(dev, dtype, n, off):
+    """K1 in one launch, reading ahead, gives the bits of the two-launch K1
+    it replaced (``hopper.reduce_mul_model``), in 16-byte packs and on
+    views one element off a 16-byte boundary (one element an access), the
+    same every run, and R1 at depth 4 gives them too."""
+    g = torch.Generator(device=dev).manual_seed(n + off)
+    x = torch.rand(n + 1, generator=g, device=dev).to(dtype)[off:off + n]
+    y = torch.rand(n + 1, generator=g, device=dev).to(dtype)[off:off + n]
+    nest = compiler.dot_product_nest(n)
+    call = lowering.prepare_call(nest, reduction.MUL, {"A": x, "B": y},
+                                 device=dev)
+    got = call.run()
+    geo = call.kernel.geometry
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    runs, per, _, _ = hopper.reduce_split(geo.steps, sms)
+    vec = hopper._vector_width(call.layouts, geo.ins)
+    assert (vec > 1) == (off == 0 or call.layouts[0].data_ptr() % 16 == 0)
+    a, b = (t.float().cpu().numpy() for t in call.layouts)
+    model = hopper.reduce_mul_model(a, b, per, runs, vec=vec)
+    assert np.float32(float(got)).view(np.int32) == model.view(np.int32)
+    assert torch.equal(call.run(), got)
+    ring = lowering.prepare_call(nest, reduction.MUL, {"A": x, "B": y},
+                                 schedule=lowering.Schedule(buffer_depth=4),
+                                 device=dev)
+    # a one-step grid never stages
+    assert ring.kernel.pipelined == (geo.steps > 1)
+    assert torch.equal(ring.run(), got)
 
 
 @pytest.mark.parametrize("build", hopper.GEMV_BUILDS)

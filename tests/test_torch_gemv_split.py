@@ -13,7 +13,7 @@ walk the kernel's loops make on that split.  On the CPU:
   32, one contraction step, many output blocks, a block wider than the
   staged x) and bf16 run in one wave on 132 SMs at ``GEMV_PER_SM``;
 * **the memo** — ``_contract`` checks and builds a launch once per key
-  (``hopper._contract_key``): every field of the key changes it, the
+  (``hopper._launch_key``): every field of the key changes it, the
   second call of a key runs no check and passes the first call's
   arguments, and a new key runs every check again.
 
@@ -135,7 +135,8 @@ def _key(**change):
                   ring=None, program=None, out_dtype=torch.float32,
                   acc_dtype=torch.float32, a=a, b=x)
     fields.update(change)
-    return hopper._contract_key(**fields)
+    fields["layouts"] = (fields.pop("a"), fields.pop("b"))
+    return hopper._launch_key(**fields)
 
 
 def test_every_field_of_the_key_changes_it():

@@ -56,7 +56,8 @@ def test_csrc_holds_every_kernel():
     # the kernels whose attributes kernel_attributes reads define the
     # entry in their own source
     for name in ("contract_gemm", "ring_contract_gemm", "base_gemm",
-                 "ring_reduce_mul", "ring_map_relu"):
+                 "ring_reduce_mul", "ring_map_relu", "reduce_mul",
+                 "map_relu"):
         src = (PORT / "csrc" / f"{name}.cu").read_text()
         assert f'extern "C" int ssr_{name}_attributes(' in src
     for name, info in hopper.KERNELS.items():
@@ -195,7 +196,7 @@ def test_build_key_follows_the_sources(tmp_path, monkeypatch):
                        "ssr_chained_map.cuh", "ssr_common.cuh", "ssr_dag.cuh",
                        "ssr_gather.cuh", "ssr_gather_ring.cuh", "ssr_gemm.cuh",
                        "ssr_mbarrier.cuh", "ssr_ring.cuh", "ssr_rows.cuh",
-                       "ssr_scan.cuh", "ssr_stage_ring.cuh",
+                       "ssr_run.cuh", "ssr_scan.cuh", "ssr_stage_ring.cuh",
                        "ssr_stencil1d.cuh", "ssr_stencil2d.cuh"]
     dags = {"dag_layernorm", "dag_softmax_xent", "dag_mlp",
             "ring_dag_layernorm", "ring_dag_softmax_xent", "ring_dag_mlp"}
@@ -224,7 +225,8 @@ def test_build_key_follows_the_sources(tmp_path, monkeypatch):
              "ssr_ring.cuh": {n for n in hopper.KERNELS
                               if n.startswith("ring_")}
              | {"contract_gemm", "rescale_attention"},
-             "ssr_rows.cuh": {n for n in hopper.KERNELS if n in rows}}
+             "ssr_rows.cuh": {n for n in hopper.KERNELS if n in rows},
+             "ssr_run.cuh": {"reduce_mul", "map_relu"}}
     for header in headers:
         with open(csrc / header, "a") as f:
             f.write("\n// edited\n")
