@@ -17,10 +17,11 @@ printing JSON lines:
 
 1. build every Hopper kernel from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all at once), print the ``kernel_attributes`` line (K12,
-   K13, R13, R14, K3, R3, B3, R1, R2, R4, R15, K14, B8, K1, K2, K4's eight
-   builds and K11's tiles at D = 80, 128, 192 and 256: registers and local
-   bytes a thread as ``cudaFuncGetAttributes`` reads them; K3, R3, B3, R1,
-   R2, R4, R15, K14, B8, K1, K2, K4 and K11 also their CTAs an SM from the
+   K13, R13, R14, K3, R3, B3, R1, R2, R4, R15, K14, B8, K1, K2, B1, B2,
+   K4's eight builds and K11's tiles at D = 80, 128, 192 and 256: registers
+   and local bytes a thread as ``cudaFuncGetAttributes`` reads them; K3,
+   R3, B3, R1, R2, R4, R15, K14, B8, K1, K2, B1, B2, K4 and K11 also their
+   CTAs an SM from the
    occupancy API (K4's held to ``hopper.GEMV_PER_SM``), the rings at
    their main path's rings; K11 its shared memory as its entry and the
    wrapper's mirror count it) and the card's name and power limit;
@@ -51,8 +52,9 @@ printing JSON lines:
    stream call is one wrapper call of its kernel, that one sort_2p26 call
    runs the 28 device kernels of K16's schedule (at most 32), one
    fft_2048_b32768 call K15's one and one scan_2p26 call K14's one after a
-   memset, and its baseline B8's one, and one K1 call on the dot cell its
-   one kernel, its last CTA folding the partials (``torch.profiler``
+   memset, and its baseline B8's one, and one K1 call and one B1 call on
+   the dot cell each its one kernel, its last CTA folding the partials
+   (``torch.profiler``
    counts: the ``device_launches`` line), that a ChainedKernel call is one K17 launch, and that no
    fallback fired, and that ``ops.spmv`` and ``ops.sparse_gemv`` lay out
    no stream by a copy (K12 takes ``pack_ell``'s (m, k) planes as they
@@ -73,7 +75,15 @@ printing JSON lines:
    ``hopper.reduce_mul_model``'s bits (the two-launch K1's association) on
    the dot cell in f32 and bf16 and at n = 1000 and 2**20 ± 1024, five K1
    runs of the dot cell to the main path's bits beside its run on the first
-   block zeroed, which must differ, and K1's and K2's local bytes none; K15 to the bit on the batch cell and bf16 inputs, within the
+   block zeroed, which must differ, and K1's and K2's local bytes none;
+   B1 likewise to ``hopper.reduce_mul_model``'s bits at its own packs (the
+   dot cell in f32 and bf16, n = 1000 and 2**20 ± 1024), five B1 runs to
+   one set of bits beside its run on the first block zeroed, B1 on the
+   dot cell equal to K1 to the bit where both read 16-byte f32 packs, B2
+   bit-exact against its plain version and K2 in f32, bf16 and int32 on a
+   view one element off a 16-byte boundary (one element an access), B1's
+   and B2's local bytes none and B1 at least ``hopper.REDUCE_PER_SM`` CTAs
+   an SM; K15 to the bit on the batch cell and bf16 inputs, within the
    limit on one transform of 2**22 points (the global passes); K16 to the
    bit on the cell, a batch of
    2**16 rows of 1024, bf16 and int32, and inputs holding ±0 and a NaN;
@@ -124,9 +134,10 @@ printing JSON lines:
    kernel's runs, within SPARSE_LIMIT or SCAN_LIMIT, beside the
    zeroed-block control above it;
 4. time each kernel, its plain version and one PyTorch library call with
-   CUDA events, beside the least time the card could take (K1's, K2's and
-   K4's rows also through the C entry, ``c_entry_ms``, and the host's time
-   to issue one wrapper call, ``host_ms``), each baseline
+   CUDA events, beside the least time the card could take (K1's, K2's,
+   K4's, B1's, B2's and B4's rows also through the C entry,
+   ``c_entry_ms``, and the host's time to issue one wrapper call,
+   ``host_ms``), each baseline
    against its streamed kernel (``ssr_over_baseline``), each fused cell
    against its unfused stages (``fused_over_unfused``), each entry
    point of the main path by the host's clock once warm, and the sparse
@@ -423,11 +434,13 @@ PAIRS = {"reduce_mul": "base_reduce", "map_relu": "base_relu",
 
 #: the kernels whose device launches a call are counted: their cell
 STREAM_CELL = {"stream_bitonic": "sort", "stream_fft": "fft",
-               "stream_scan": "prefix_sum", "reduce_mul": "dot_k1"}
+               "stream_scan": "prefix_sum", "reduce_mul": "dot_k1",
+               "base_reduce": "dot_b1"}
 #: the kernels whose rows of the kernels line also time their C entry
 #: (``c_entry_ms``) and the host's time to issue a wrapper call
 #: (``host_ms``)
-ENTRY_ROWS = ("contract_gemv", "reduce_mul", "map_relu")
+ENTRY_ROWS = ("contract_gemv", "reduce_mul", "map_relu", "base_reduce",
+              "base_relu", "base_gemv")
 
 
 def emit(obj) -> None:
@@ -775,11 +788,11 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     # the wide tile on 192 and 256 live lanes; K11's shared memory as its
     # entry counts it beside the wrapper's mirror (held equal in phase 3)
     attributes["stream_scan"] = hopper.kernel_attributes("stream_scan")
-    # B8 (static, its three dtypes), K1 and K2 (static, every build; CTAs
-    # an SM of their f32 builds in 16-byte packs) and each of K4's eight
-    # builds
+    # B8 (static, its three dtypes), K1, K2, B1 and B2 (static, every
+    # build; CTAs an SM of their f32 builds in 16-byte packs) and each of
+    # K4's eight builds
     attributes["base_scan"] = hopper.kernel_attributes("base_scan")
-    for name in ("reduce_mul", "map_relu"):
+    for name in ("reduce_mul", "map_relu", "base_reduce", "base_relu"):
         attributes[name] = hopper.kernel_attributes(name)
     for build in hopper.GEMV_BUILDS:
         attributes[f"contract_gemv_{build}"] = hopper.kernel_attributes(
@@ -1088,6 +1101,8 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     # which is no kernel)
     k1_call = lowering.prepare_call(compiler.dot_product_nest(n_vec),
                                     reduction.MUL, {"A": x, "B": y})
+    # the baselines' padded layouts, as their MonolithicKernels prepare them
+    xp, yp = frontend.pad_vector(x), frontend.pad_vector(y)
     device_launches = count_device_launches({
         "sort": (lambda: ops.sort(xso, ssr=True),
                  len(bitonic.sort_passes(SORT_N)), SORT_MOST_LAUNCHES,
@@ -1098,8 +1113,11 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                                 ("base_scan_tiles<",)),
         "prefix_sum_ring": (path["prefix_sum_ring"], 1, 1,
                             ("ring_scan_tiles",)),
-        # K1 on the dot cell: one kernel, its last CTA folding the partials
-        "dot_k1": (k1_call.run, 1, 1, ("reduce_mul_kernel<",))})
+        # K1 and B1 on the dot cell: one kernel each, its last CTA folding
+        # the partials
+        "dot_k1": (k1_call.run, 1, 1, ("reduce_mul_kernel<",)),
+        "dot_b1": (lambda: hopper.base_reduce(xp, yp), 1, 1,
+                   ("base_reduce_kernel<",))})
     # a call deeper than 2 launches its ring kernel and no K kernel; its
     # depth-2 twin launches its K kernel and no ring
     ring_launches = {key: per_call[key] for pair in RING_PATH.items()
@@ -1173,8 +1191,6 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     calls["gather_spmm"] = lowering.prepare_call(
         compiler.spmm_nest(sm, SPMM_RHS, sk, SPMM_RHS), sparse.SPMM,
         sparse_ops["spmm"])
-    # the baselines' padded layouts, as their MonolithicKernels prepare them
-    xp, yp = frontend.pad_vector(x), frontend.pad_vector(y)
     gxp = gx.reshape(1, gn)
     base_layouts = {"base_reduce": (xp, yp),
                     "base_relu": (frontend.pad_vector(xr),),
@@ -1260,6 +1276,49 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         "limit": 0.0, "kernel": "reduce_mul",
         "zeroed_block_control": float(ctrl)}
     del xz, runs, ctrl
+    # B1 likewise, to reduce_mul_model's bits at its own packs on K1's runs
+    # (one element an access off 16 bytes); five B1 runs of the dot cell
+    # give the main path's bits, and its run on the first block zeroed
+    # differs; where B1 reads 16-byte f32 packs it is K1 to the bit
+
+    def b1_model(key, x_, y_):
+        xp_, yp_ = frontend.pad_vector(x_), frontend.pad_vector(y_)
+        got_ = np.float32(float(hopper.base_reduce(xp_, yp_)))
+        runs_, per_ = hopper.reduce_split(xp_.shape[0] // hopper.ROWS,
+                                          sms)[:2]
+        vec_ = hopper._vector_width((xp_, yp_), ())
+        a_, b_ = (t.float().cpu().numpy() for t in (xp_, yp_))
+        model = hopper.reduce_mul_model(a_, b_, per_, runs_, vec=vec_)
+        checks[f"b1_model_{key}"] = {
+            "exact": bool(got_.view(np.int32) == model.view(np.int32)),
+            "abs_err": abs(float(got_) - float(model)), "limit": 0.0,
+            "vec": vec_, "kernel": "base_reduce",
+            "against": "hopper.reduce_mul_model"}
+
+    for dt in (torch.float32, torch.bfloat16):
+        tag = str(dt).removeprefix("torch.")
+        b1_model(f"dot_{tag}", x.to(dt), y.to(dt))
+        for n_ in (1000, (1 << 20) - 1024, (1 << 20) + 1024):
+            b1_model(f"{tag}_{n_}",
+                     torch.rand(n_, generator=gen, device=dev).to(dt),
+                     torch.rand(n_, generator=gen, device=dev).to(dt))
+    dot_b1 = main["dot_baseline"].reshape(-1)
+    runs = [hopper.base_reduce(xp, yp) for _ in range(5)]
+    xz = xp.clone()
+    xz[:hopper.ROWS] = 0
+    ctrl = hopper.base_reduce(xz, yp)
+    checks["b1_dot_five_runs"] = {
+        "exact": all(torch.equal(r_.reshape(-1), dot_b1) for r_ in runs)
+        and not torch.equal(ctrl.reshape(-1), dot_b1),
+        "abs_err": max(abs(float(r_) - float(dot_b1)) for r_ in runs),
+        "limit": 0.0, "kernel": "base_reduce",
+        "zeroed_block_control": float(ctrl)}
+    b1_vec = hopper._vector_width((xp, yp), ())
+    checks["b1_dot_is_k1"] = {
+        "exact": b1_vec != 4 or torch.equal(dot_b1, main["dot"].reshape(-1)),
+        "abs_err": abs(float(dot_b1) - float(main["dot"])), "limit": 0.0,
+        "vec": b1_vec, "kernel": "base_reduce", "against": "reduce_mul"}
+    del xz, runs, ctrl
     # relu: the value is selected, never computed — exact to the bit in
     # every dtype, NaN payloads and signed zeros included.
     bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
@@ -1285,6 +1344,20 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             errors.get("base_relu", 0.0),
             exact(f"{key}_baseline", main[f"{key}_baseline"], want_b))
         exact(f"{key}_baseline_vs_ssr", main[f"{key}_baseline"], main[key])
+        # B2 on a view one element off a 16-byte boundary: one element an
+        # access, against its plain version and K2 on the same view
+        view = inp[1:1 + (1 << 20)]
+        vp = frontend.pad_vector(view)
+        got_b = hopper.base_relu(vp)
+        errors["base_relu"] = max(
+            errors["base_relu"],
+            exact(f"{key}_baseline_misaligned", got_b,
+                  base_plain["base_relu"](vp)))
+        exact(f"{key}_baseline_misaligned_vs_ssr",
+              frontend.trim_vector(got_b, view.numel()),
+              relu.ssr_relu(view).reshape(-1))
+        checks[f"{key}_baseline_misaligned"]["vec"] = \
+            hopper._vector_width((vp,), ())
     # gemm/gemv: k-long f32 dot products summed in two orders, held to
     # CONTRACT_LIMIT·(|a|·|b|) per output.  The control is the same product
     # from TF32 inputs (cuBLAS with TF32 on for gemm; inputs rounded to TF32
@@ -2414,12 +2487,19 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         "local_limit": R14_LOCAL_BYTES, "abs_err": 0.0, "limit": 0.0}
     for name in ("ring_stream_scan", "gather_spmm", "stream_scan",
                  "rescale_attention_256_d192", "rescale_attention_256_d256",
-                 "base_scan", "reduce_mul", "map_relu",
+                 "base_scan", "reduce_mul", "map_relu", "base_reduce",
+                 "base_relu",
                  *(f"contract_gemv_{b}" for b in hopper.GEMV_BUILDS)):
         local = attributes[name]["localSizeBytes"]
         checks[f"{name}_local_bytes"] = {
             "exact": local == 0, "local_bytes": local, "local_limit": 0,
             "abs_err": 0.0, "limit": 0.0}
+    # B1's runs, one CTA each, are one wave at REDUCE_PER_SM CTAs an SM
+    checks["base_reduce_ctas_per_sm"] = {
+        "exact": attributes["base_reduce"]["ctasPerSm"]
+        >= hopper.REDUCE_PER_SM,
+        "ctas_per_sm": attributes["base_reduce"]["ctasPerSm"],
+        "abs_err": 0.0, "limit": 0.0}
     # every K4 build reaches the CTAs an SM its one-wave split counts on
     k4_ctas = {b: attributes[f"contract_gemv_{b}"]["ctasPerSm"]
                for b in hopper.GEMV_BUILDS}
@@ -2718,17 +2798,15 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         return lambda: dk(kern.geometry, call.layouts, kern.out_dtype,
                           kern.acc_dtype, **kw)
 
-    def entry_fn(call):
-        """The kernel's C entry with the arguments its wrapper passes for
-        ``call`` (and the output it allocated, kept alive): its device time
-        without the wrapper's host work."""
-        kern, got = call.kernel, {}
+    def entry_fn(wrapper_call):
+        """The C entry ``wrapper_call()`` launches, with the arguments its
+        wrapper passes (and the output it allocated, kept alive): its device
+        time without the wrapper's host work."""
+        got = {}
         real = hopper._launch
         hopper._launch = lambda name, dev_, *a: got.update(name=name, args=a)
         try:
-            out = kern.device_kernel()(kern.geometry, call.layouts,
-                                       kern.out_dtype, kern.acc_dtype,
-                                       **kern.device_args())
+            out = wrapper_call()
         finally:
             hopper._launch = real
         fn = getattr(hopper._lib(got["name"]), f"ssr_{got['name']}")
@@ -2852,7 +2930,7 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             "library_ms": time_ms(library[name]),
         })
         if name in ENTRY_ROWS:   # on the line, its C entry, its host
-            rows[-1].update(c_entry_ms=time_ms(entry_fn(calls[name])),
+            rows[-1].update(c_entry_ms=time_ms(entry_fn(kernel)),
                             host_ms=host_ms(kernel))
         emit({"phase": "time", **rows[-1], **(
             {"device_launches": device_launches[STREAM_CELL[name]]}
@@ -2987,9 +3065,10 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             "ring_over_sync": {str(d): at[2] / t for d, t in at.items()
                                if d != 2}}
         if cell.startswith("gemv"):     # K4 and R4 with no wrapper's host
-            c_at = {2: time_ms(entry_fn(cell_call(cell, 2)))}
+            c_at = {2: time_ms(entry_fn(kernel_fn(cell_call(cell, 2))))}
             for depth in depths:
-                c_at[depth] = time_ms(entry_fn(ring_calls[cell, depth]))
+                c_at[depth] = time_ms(entry_fn(kernel_fn(
+                    ring_calls[cell, depth])))
             sweeps[cell]["c_entry_ms"] = {str(d): t for d, t in c_at.items()}
             sweeps[cell]["c_entry_ring_over_sync"] = {
                 str(d): c_at[2] / t for d, t in c_at.items() if d != 2}

@@ -110,8 +110,8 @@ serialised load per block (:data:`BASELINE_KERNELS`, by body op):
 ``base_scan`` (``scan``).
 Each runs on the same number of
 CTAs, with the same CTA tile, as its streamed counterpart, so the time of
-the pair is the card's SSR-against-baseline comparison; B2 keeps the split
-K2 ran before K2 read ahead (:data:`RING_MAP_PER_SM`, R2's).
+the pair is the card's SSR-against-baseline comparison: B1 on K1's runs
+(:func:`reduce_split`), B2 on K2's split (:data:`MAP_PER_SM`).
 
 The kernels are CUDA C++ for ``sm_90a`` under ``repro_torch/csrc``, each
 built by ``nvcc`` into a shared library with a plain C interface at first
@@ -256,10 +256,10 @@ KERNELS: Dict[str, Dict[str, str]] = {
 }
 
 #: Wrapper calls per kernel since the last :func:`reset_launches`: one per
-#: call that launched its kernel.  A call of ``base_reduce``, or of a
-#: reduce of ``chain_elem`` or ``dag_softmax_xent``, is two device launches
-#: (the per-CTA partials, then the one-CTA fold); a ``reduce_mul`` call is
-#: one, its last CTA folding the partials (:func:`reduce_split`); every other
+#: call that launched its kernel.  A reduce of ``chain_elem`` or
+#: ``dag_softmax_xent`` is two device launches (the per-CTA partials, then
+#: the one-CTA fold); a ``reduce_mul`` or ``base_reduce`` call is one, its
+#: last CTA folding the partials (:func:`reduce_split`); every other
 #: kernel's call is one — except the stream kernels: a ``stream_scan`` or
 #: ``base_scan`` call is one kernel, its one pass, after one memset of its
 #: state; a ``stream_fft`` call one for n up to
@@ -380,8 +380,8 @@ _SIGNATURES = {
     "contract_gemm": [_P, _P, _P, _I, _I, _I, _GP, _SP, _SP, _SP, _I64, _P],
     "contract_gemv": [_P, _P, _P, _I, _I, _I, _I, _GP, _SP, _SP, _SP, _I64,
                       _I64, _I, _P],
-    "base_reduce": [_P, _P, _I, _I64, _P, _I64, _I64, _P, _P],
-    "base_relu": [_P, _P, _I, _I64, _I64, _I64, _P],
+    "base_reduce": [_P, _P, _P, _P, _I, _I, _I64, _I64, _I64, _P],
+    "base_relu": [_P, _P, _I, _I, _I64, _I64, _I64, _P],
     "base_gemm": [_P, _P, _P, _I, _I, _I, _I64, _I64, _I64, _P],
     "base_gemv": [_P, _P, _P, _I, _I, _I64, _I64, _P],
     "chain_elem": [_I, _P, _P, _P, _P, ctypes.c_float, _I, _GP, _SP, _SP,
@@ -479,10 +479,11 @@ _OCCUPANCY_ATTRIBUTES = ("contract_gemm", "ring_contract_gemm", "base_gemm",
                          "ring_contract_gemv", "ring_stream_scan")
 #: The kernels whose attributes entry reads their CTAs an SM at the shared
 #: memory they take themselves: K14 and B8 (static), K4 (static, one build
-#: at a time), K11 (its widest tiles), K1 and K2 (static; their f32 builds
-#: in 16-byte packs).
+#: at a time), K11 (its widest tiles), K1, K2, B1 and B2 (static; their f32
+#: builds in 16-byte packs).
 _OWN_OCCUPANCY_ATTRIBUTES = ("stream_scan", "base_scan", "contract_gemv",
-                             "rescale_attention", "reduce_mul", "map_relu")
+                             "rescale_attention", "reduce_mul", "map_relu",
+                             "base_reduce", "base_relu")
 #: K4's eight builds, in the order of its attributes entry: input and
 #: output dtype, and A's 16-byte packs (``v4``/``v8``) or elements (``v1``).
 GEMV_BUILDS = ("f32_f32_v4", "f32_f32_v1", "f32_bf16_v4", "f32_bf16_v1",
@@ -498,10 +499,12 @@ def kernel_attributes(name: str, smem: int = 0,
     K13, R13 and R14 report them; K3, R3, B3, R1, R2, R4 and R15 also their
     CTAs an SM (``ctasPerSm``) at ``smem`` bytes of dynamic shared memory
     (the ring and its barriers of R3, R1, R2, R4 and R15, at their main
-    path's instantiation; K3 and B3 take their own); K14, B8, K4, K11, K1
-    and K2 at the shared memory they take themselves, K11 for the tile of
-    ``tile`` = (lanes, head dim) (:func:`rescale_attention_tiles`), K4 for
-    one ``build`` of :data:`GEMV_BUILDS` (not the most over them)."""
+    path's instantiation; K3 and B3 take their own); K14, B8, K4, K11, K1,
+    K2, B1 and B2 at the shared memory they take themselves (the CTAs an SM
+    of K1, K2, B1 and B2 are their f32 builds' in 16-byte packs), K11 for
+    the tile of ``tile`` = (lanes, head dim)
+    (:func:`rescale_attention_tiles`), K4 for one ``build`` of
+    :data:`GEMV_BUILDS` (not the most over them)."""
     if (name == "contract_gemv") != (build is not None):
         raise ValueError(f"{name}: a build of GEMV_BUILDS is K4's argument "
                          f"and only K4's, got build={build!r}")
@@ -862,8 +865,8 @@ RING_BARRIER_BYTES = 4 * 8 * 8
 #: floats, one K1 run's and the next one's (``csrc/ssr_stage_ring.cuh``).
 STAGE_SUM_BYTES = 2 * 8 * 4
 #: The CTAs an SM K2's split asks for (``map_relu``, :func:`_ctas`): runs
-#: of 4 steps on the relu cells, one batch of loads a thread; R2 and B2
-#: ask for RING_MAP_PER_SM, runs of 8.
+#: of 4 steps on the relu cells, one batch of loads a thread; B2 runs on
+#: it too; R2 asks for RING_MAP_PER_SM, runs of 8.
 MAP_PER_SM, RING_MAP_PER_SM = 128, 64
 #: The runs an SM of K1's split (``reduce_mul``), one partial each: R1
 #: walks K1's runs.
@@ -1416,7 +1419,8 @@ REDUCE_THREADS, FOLD_LANES = 256, 1024
 def reduce_mul_model(a: np.ndarray, b: np.ndarray, steps_per_run: int,
                      runs: int, vec: int = 4,
                      block: Tuple[int, int] = (8, 128)) -> np.float32:
-    """K1's Σ a·b with K1's bits, in numpy float32.  ``a`` and ``b`` hold
+    """K1's Σ a·b with K1's bits, in numpy float32 (B1's too, at the packs
+    B1 reads, on K1's runs: ``csrc/base_reduce.cu``).  ``a`` and ``b`` hold
     the streams' blocks in grid-step order, each block's elements row-major
     (the flat (rows, 128) layouts of a vector's dot), promoted to float32;
     ``vec`` elements a pack (4 for f32 and 8 for bf16 in 16-byte packs, else
@@ -1907,11 +1911,17 @@ def _launch_key(name: str, op: tuple, geo: StreamGeometry,
                 out_dtype: torch.dtype, acc_dtype: torch.dtype,
                 layouts: Sequence[torch.Tensor]) -> tuple:
     """What a wrapper's checks and launch arguments depend on: the
-    wrapper, op, geometry, ring, program, dtypes, and each layout's shape,
-    strides, dtype, device and base pointer's 16-byte alignment."""
+    wrapper, op, geometry, ring, program, dtypes and the layouts
+    (:func:`_layouts_key`)."""
     return (name, op, geo, ring, program, out_dtype, acc_dtype,
-            tuple((t.shape, t.stride(), t.dtype, t.device, t.data_ptr() % 16)
-                  for t in layouts))
+            _layouts_key(layouts))
+
+
+def _layouts_key(layouts: Sequence[torch.Tensor]) -> tuple:
+    """What a launch depends on of its layouts: each one's shape, strides,
+    dtype, device and base pointer's 16-byte alignment."""
+    return tuple((t.shape, t.stride(), t.dtype, t.device, t.data_ptr() % 16)
+                 for t in layouts)
 
 
 def _prepared(key: tuple, prepare: Callable[[], _Prepared]) -> _Prepared:
@@ -3411,39 +3421,69 @@ def _row_blocks(name: str, t: torch.Tensor) -> int:
     return rows // ROWS
 
 
-def base_reduce(x: torch.Tensor, y: torch.Tensor,
-                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """B1: Σ promote(x)·promote(y) over the (8, 128) blocks → (1, 1) f32."""
-    dev = _checked_base("base_reduce", (x, y), _FLOATS)
+def _base_key(name: str, layouts: Sequence[torch.Tensor],
+              out_dtype: Optional[torch.dtype]) -> tuple:
+    """What B1's and B2's checks and launch arguments depend on: the
+    wrapper, ``out_dtype`` and the layouts (:func:`_layouts_key`)."""
+    return (name, out_dtype, _layouts_key(layouts))
+
+
+def _prepare_base_reduce(x: torch.Tensor, y: torch.Tensor,
+                         out_dtype: torch.dtype) -> _Prepared:
+    """Every check of B1, then its launch's arguments: K1's runs."""
+    name = "base_reduce"
+    dev = _checked_base(name, (x, y), _FLOATS)
     if out_dtype != torch.float32:
-        raise TypeError(f"base_reduce: accumulates in float32, asked for "
+        raise TypeError(f"{name}: accumulates in float32, asked for "
                         f"{out_dtype}")
     if x.shape != y.shape:
-        raise ValueError(f"base_reduce: layouts {tuple(x.shape)} and "
+        raise ValueError(f"{name}: layouts {tuple(x.shape)} and "
                          f"{tuple(y.shape)} differ")
-    nblk = _row_blocks("base_reduce", x)
-    ctas, per_cta = _ctas(dev, nblk, per_sm=8)       # K1's split
-    partials = torch.empty(ctas, dtype=torch.float32, device=dev)
-    out = torch.empty((1, 1), dtype=torch.float32, device=dev)
-    _launch("base_reduce", dev, x.data_ptr(), y.data_ptr(),
-            _DTYPE_CODE[x.dtype], nblk, partials.data_ptr(), ctas, per_cta,
-            out.data_ptr())
-    return out
+    nblk = _row_blocks(name, x)
+    runs, per = reduce_split(nblk, _card(dev).multi_processor_count)[:2]
+    return _Prepared(name, dev, (1, 1), torch.float32, (False, False),
+                     1 + runs, (_DTYPE_CODE[x.dtype],
+                                _vector_width((x, y), ()), nblk, runs, per))
+
+
+def base_reduce(x: torch.Tensor, y: torch.Tensor,
+                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """B1: Σ promote(x)·promote(y) over the (8, 128) blocks → (1, 1) f32,
+    in one launch on K1's runs (:func:`reduce_split`), one CTA a run: each
+    thread loads its pack of each stream a block (16 bytes where both
+    layouts allow it, else one element an access) and uses it before the
+    next block's; the last CTA folds the runs' partials
+    (:func:`reduce_mul_model`'s bits at B1's packs).  Checked and built
+    once per key (:func:`_base_key`)."""
+    key = _base_key("base_reduce", (x, y), out_dtype)
+    return _run(_prepared(key, lambda: _prepare_base_reduce(x, y, out_dtype)),
+                (x, y))
+
+
+def _prepare_base_relu(x: torch.Tensor,
+                       out_dtype: Optional[torch.dtype]) -> _Prepared:
+    """Every check of B2, then its launch's arguments: K2's split."""
+    name = "base_relu"
+    dev = _checked_base(name, (x,), _FLOATS + (torch.int32,))
+    if out_dtype not in (None, x.dtype):
+        raise TypeError(f"{name}: keeps the dtype ({x.dtype}), asked for "
+                        f"{out_dtype}")
+    nblk = _row_blocks(name, x)
+    ctas, per_cta = _ctas(dev, nblk, per_sm=MAP_PER_SM)
+    return _Prepared(name, dev, tuple(x.shape), x.dtype, (False,), 0,
+                     (_DTYPE_CODE[x.dtype], _vector_width((x,), ()), nblk,
+                      ctas, per_cta))
 
 
 def base_relu(x: torch.Tensor,
               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """B2: each (8, 128) block → max(0, block), dtype kept."""
-    dev = _checked_base("base_relu", (x,), _FLOATS + (torch.int32,))
-    if out_dtype not in (None, x.dtype):
-        raise TypeError(f"base_relu: keeps the dtype ({x.dtype}), asked for "
-                        f"{out_dtype}")
-    nblk = _row_blocks("base_relu", x)
-    ctas, per_cta = _ctas(dev, nblk, per_sm=RING_MAP_PER_SM)   # R2's split
-    out = torch.empty_like(x)
-    _launch("base_relu", dev, x.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[x.dtype], nblk, ctas, per_cta)
-    return out
+    """B2: each (8, 128) block → max(0, block), dtype kept, on K2's split
+    and CTAs: each thread loads its pack a block (16 bytes where x allows
+    it, else one element an access) and stores its relu before the next
+    block's load.  Checked and built once per key (:func:`_base_key`)."""
+    key = _base_key("base_relu", (x,), out_dtype)
+    return _run(_prepared(key, lambda: _prepare_base_relu(x, out_dtype)),
+                (x,))
 
 
 def base_gemm(a: torch.Tensor, b: torch.Tensor,

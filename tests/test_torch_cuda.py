@@ -2449,6 +2449,90 @@ def test_reduce_mul_keeps_the_two_launch_designs_bits(dev, dtype, n, off):
     assert torch.equal(ring.run(), got)
 
 
+def test_base_reduce_is_one_kernel_and_b1_b2_spill_nothing(dev):
+    """B1 folds its partials in its own launch: one device kernel a call,
+    by the profiler, and no second fold kernel; B1 and B2 have no local
+    bytes in any build, and B1 reaches the CTAs an SM its one-wave split
+    counts on (``hopper.REDUCE_PER_SM``)."""
+    from torch.profiler import ProfilerActivity, profile
+    x = frontend.pad_vector(torch.rand(1 << 22, device=dev))
+    hopper.base_reduce(x, x)
+    torch.cuda._sleep(1000)            # the marks' kernel loaded
+    torch.cuda.synchronize()
+    counts = []
+    for _ in range(3):      # a trace can lose a kernel's record, not add one
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            torch.cuda._sleep(100_000)
+            hopper.base_reduce(x, x)
+            torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        events = prof.key_averages()
+        assert not any("fold_partials" in e.key for e in events)
+        counts.append(sum(e.count for e in events
+                          if "base_reduce_kernel<" in e.key))
+        if counts[-1] == 1:
+            break
+    assert max(counts) == 1, counts
+    for name in ("base_reduce", "base_relu"):
+        assert hopper.kernel_attributes(name)["localSizeBytes"] == 0, name
+    assert hopper.kernel_attributes("base_reduce")["ctasPerSm"] >= \
+        hopper.REDUCE_PER_SM
+
+
+@pytest.mark.parametrize("n", [1000, (1 << 20) - 1024, (1 << 20) + 1024,
+                               1 << 20])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("off", [0, 1])
+def test_base_reduce_keeps_the_models_bits(dev, dtype, n, off):
+    """B1 gives ``hopper.reduce_mul_model``'s bits on K1's runs at its own
+    packs: 16 bytes, or one element an access on a view one element off a
+    16-byte boundary (2**20 is whole blocks, so the view is not copied),
+    the same in five runs; on 16-byte packs K1's bits."""
+    g = torch.Generator(device=dev).manual_seed(n + off + 34)
+    x = torch.rand(n + 1, generator=g, device=dev).to(dtype)[off:off + n]
+    y = torch.rand(n + 1, generator=g, device=dev).to(dtype)[off:off + n]
+    xp, yp = frontend.pad_vector(x), frontend.pad_vector(y)
+    got = hopper.base_reduce(xp, yp)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    runs, per = hopper.reduce_split(xp.shape[0] // hopper.ROWS, sms)[:2]
+    vec = hopper._vector_width((xp, yp), ())
+    assert (vec == 1) == (xp.data_ptr() % 16 != 0)
+    a, b = (t.float().cpu().numpy() for t in (xp, yp))
+    model = hopper.reduce_mul_model(a, b, per, runs, vec=vec)
+    assert np.float32(float(got)).view(np.int32) == model.view(np.int32)
+    assert all(torch.equal(hopper.base_reduce(xp, yp), got)
+               for _ in range(5))
+    if vec > 1:
+        assert torch.equal(got.reshape(-1),
+                           ops.dot(x, y, ssr=True, device=dev).reshape(-1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_base_relu_bit_exact_off_16_bytes(dev, dtype):
+    """B2 on a view one element off a 16-byte boundary reads one element
+    an access, to the bits of its plain version and of K2 on the view."""
+    n = 1 << 20
+    g = torch.Generator(device=dev).manual_seed(n + 3)
+    if dtype == torch.int32:
+        x = torch.randint(-(1 << 31), (1 << 31) - 1, (n + 1,), generator=g,
+                          device=dev, dtype=dtype)
+    else:
+        x = torch.randn(n + 1, generator=g, device=dev).to(dtype)
+        x[1:4] = torch.tensor([-0.0, float("nan"), float("-inf")])
+    view = x[1:]
+    xp = frontend.pad_vector(view)
+    assert hopper._vector_width((xp,), ()) == 1
+    got = hopper.base_relu(xp)
+    want = hopper.plain_base_map(relu.relu_block, xp)
+    streamed = ops.relu(view, ssr=True, device=dev)
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(got.reshape(-1)), _bits(streamed.reshape(-1)))
+
+
 @pytest.mark.parametrize("build", hopper.GEMV_BUILDS)
 def test_contract_gemv_builds_spill_nothing(dev, build):
     """Each of K4's eight builds has no local bytes and reaches the CTAs

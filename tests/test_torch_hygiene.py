@@ -226,7 +226,8 @@ def test_build_key_follows_the_sources(tmp_path, monkeypatch):
                               if n.startswith("ring_")}
              | {"contract_gemm", "rescale_attention"},
              "ssr_rows.cuh": {n for n in hopper.KERNELS if n in rows},
-             "ssr_run.cuh": {"reduce_mul", "map_relu"}}
+             "ssr_run.cuh": {"reduce_mul", "map_relu", "base_reduce",
+                             "base_relu"}}
     for header in headers:
         with open(csrc / header, "a") as f:
             f.write("\n// edited\n")
