@@ -18,8 +18,10 @@ printing JSON lines:
 1. build every Hopper kernel from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all at once), print the ``kernel_attributes`` line (K12,
    K13, R13, R14, K3, R3, B3, R1, R2, R4, R15, K14, B8, K1, K2, B1, B2,
-   K4's eight builds and K11's tiles at D = 80, 128, 192 and 256: registers
-   and local bytes a thread as ``cudaFuncGetAttributes`` reads them; K3,
+   K4's eight builds, K11's tiles at D = 80, 96, 128, 192 and 256 (96, 96,
+   128, 192 and 256 live lanes) and R12 (the most over its sixteen
+   instantiations): registers and local bytes a thread as
+   ``cudaFuncGetAttributes`` reads them; K3,
    R3, B3, R1, R2, R4, R15, K14, B8, K1, K2, B1, B2, K4 and K11 also their
    CTAs an SM from the
    occupancy API (K4's held to ``hopper.GEMV_PER_SM``), the rings at
@@ -201,6 +203,7 @@ set (the rings would not run), it exits non-zero before any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -242,8 +245,10 @@ STENCIL_LIMIT = 1e-6
 # its products in another order: about 1e-7 of max |v|; the plain version
 # on q, k, v rounded to TF32 reads about 1e-4, and must land above.
 ATTENTION_LIMIT = 1e-5
-#: K11's tiles in phase 1: (lanes, head dim) of danube, qwen3, d192, d256
-K11_TILES = ((128, 80), (128, 128), (256, 192), (256, 256))
+#: K11's tiles in phase 1: (lanes, head dim) of danube and the widest head
+#: dim on the 128-lane tile's 96 live lanes, qwen3 (128 live lanes), d192
+#: and d256 (the wide tile's 192 and 256)
+K11_TILES = ((128, 80), (128, 96), (128, 128), (256, 192), (256, 256))
 # the attention cells: (heads, sequence, head dim, causal, window); D = 192
 # and 256 run on K11's 256-lane tiles (192 zero-padded)
 ATTENTION_CELLS = {"attention_qwen3": (40, 4096, 128, True, None),
@@ -805,6 +810,9 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             "rescale_attention", lanes, dim)
         attributes[key]["smemMirror"] = hopper.rescale_attention_tiles(
             dim, lanes)["smem"]
+    # R12: the most registers and local bytes over its instantiations
+    attributes["ring_rescale_attention"] = hopper.kernel_attributes(
+        "ring_rescale_attention")
     # K3's two buffers as its entry counts them, beside the wrapper's count
     k3_smem = {str(dt): (hopper.kernel_smem_bytes("contract_gemm", dt),
                          hopper.contract_gemm_smem_bytes(dt))
@@ -1472,6 +1480,36 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         if tuple(main[cell].shape) != tuple(qkv[cell][0].shape):
             failed.append(f"{cell}: output shape {tuple(main[cell].shape)}")
         del want, ctrl
+    # K11 on danube's 96 live lanes against K11 told the head dim is 128
+    # (every lane staged and summed), to the bit on the same zero-padded
+    # layouts, beside its run on K's first block zeroed, which must differ
+    dcall = att_calls["attention_danube"]
+
+    def k11_at_dim(dim, layouts):
+        prog = dcall.kernel.program
+        program = dataclasses.replace(
+            prog, params=(prog.params[0][:5] + (dim,),))
+        return hopper.rescale_attention(dcall.kernel.geometry, layouts,
+                                        dcall.kernel.out_dtype,
+                                        program=program)
+    live = k11_at_dim(ATTENTION_CELLS["attention_danube"][2], dcall.layouts)
+    full = k11_at_dim(128, dcall.layouts)
+    kz = dcall.layouts[0].clone()
+    kz[:, :dcall.kernel.geometry.ins[0].block[0]] = 0
+    zeroed = k11_at_dim(ATTENTION_CELLS["attention_danube"][2],
+                        (kz, *dcall.layouts[1:]))
+    checks["rescale_attention_live_lanes_danube"] = {
+        "exact": bool(torch.equal(live.view(torch.int32),
+                                  full.view(torch.int32))),
+        "control_differs": not torch.equal(zeroed.view(torch.int32),
+                                           live.view(torch.int32)),
+        "abs_err": float((live - full).abs().max()), "limit": 0.0,
+        "live_lanes": hopper.rescale_attention_tiles(
+            ATTENTION_CELLS["attention_danube"][2], 128)["live"]}
+    if not checks["rescale_attention_live_lanes_danube"]["control_differs"]:
+        failed.append("rescale_attention_live_lanes_danube: the zeroed "
+                      "first K block left the result unchanged")
+    del live, full, kz, zeroed
 
     # -- 3b. the fused kernels' instantiations against their plain versions
     def inst_check(label, kname, call, kind):
@@ -2486,7 +2524,8 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         "exact": local <= R14_LOCAL_BYTES, "local_bytes": local,
         "local_limit": R14_LOCAL_BYTES, "abs_err": 0.0, "limit": 0.0}
     for name in ("ring_stream_scan", "gather_spmm", "stream_scan",
-                 "rescale_attention_256_d192", "rescale_attention_256_d256",
+                 *(f"rescale_attention_{lanes}_d{dim}"
+                   for lanes, dim in K11_TILES), "ring_rescale_attention",
                  "base_scan", "reduce_mul", "map_relu", "base_reduce",
                  "base_relu",
                  *(f"contract_gemv_{b}" for b in hopper.GEMV_BUILDS)):

@@ -434,7 +434,7 @@ _SIGNATURES = {
                             _RP, _I64, _P],
     "ring_rescale_attention": [_P, _P, _P, _P, _I, _I, _GP, _SP, _SP, _SP,
                                _SP, _I64, _I64, _P, ctypes.c_float, _I, _I64,
-                               _I64, _I64, _RP, _I64, _P],
+                               _I64, _I64, _RP, _I64, _I64, _P],
     "ring_gather_spmv": [_P, _P, _P, _P, _GP, _SP, _SP, _SP] + [_I64] * 8
     + [_RP, _I64, _P],
     "ring_gather_spmm": [_P, _P, _P, _P, _GP, _SP, _SP, _SP] + [_I64] * 10
@@ -496,7 +496,7 @@ def kernel_attributes(name: str, smem: int = 0,
     """Registers a thread (``numRegs``) and local, spilled bytes a thread
     (``localSizeBytes``) of kernel ``name`` as ``cudaFuncGetAttributes``
     reads them on the current card (the most over its instantiations): K12,
-    K13, R13 and R14 report them; K3, R3, B3, R1, R2, R4 and R15 also their
+    K13, R13, R14 and R12 report them; K3, R3, B3, R1, R2, R4 and R15 also their
     CTAs an SM (``ctasPerSm``) at ``smem`` bytes of dynamic shared memory
     (the ring and its barriers of R3, R1, R2, R4 and R15, at their main
     path's instantiation; K3 and B3 take their own); K14, B8, K4, K11, K1,
@@ -711,20 +711,24 @@ def rescale_attention_tiles(dim: int, lanes: int) -> Dict[str, int]:
     """K11's tile for a head dim ``dim`` on a lanes tile of ``lanes`` (128
     or 256, the head dim padded), as ``csrc/rescale_attention.cu`` picks
     it: ``rows`` (query rows a CTA), ``live`` (the lanes it stages and
-    sums: the lanes tile up to 128, else 192 for ``dim`` ≤ 192, else 256),
-    ``acc_lanes`` (accumulator lanes a thread) and ``smem`` (bytes of
-    shared memory a CTA, counted in f32 as
-    ``ssr_rescale_attention_smem_bytes`` counts them)."""
+    sums: 96 for ``dim`` ≤ 96, else 128, on 128 lanes; 192 for ``dim`` ≤
+    192, else 256, on 256), ``acc_lanes`` (accumulator lanes a thread:
+    ``live`` over 16 column groups on 128 lanes, 32 on 256) and ``smem``
+    (bytes of shared memory a CTA, counted in f32 as
+    ``ssr_rescale_attention_smem_bytes`` counts them: on 128 lanes Q^T,
+    the p tile and two buffers each of K, on a pitch of ``live`` + 4, and
+    of V; on 256 Q and K on that pitch, V and the p tile)."""
     if not 1 <= dim <= lanes or lanes not in (128, 256):
         raise ValueError(f"rescale_attention: takes a head dim of 1 to the "
                          f"lanes tile, on 128 or 256 lanes; got {dim} on "
                          f"{lanes}")
     sub = ATTENTION_SUBTILE
     if lanes == 128:
-        rows = 128
-        smem = 4 * (lanes * (rows + 4) + lanes * (sub + 1) + sub * lanes
-                    + sub * (rows + 4))
-        return {"rows": rows, "live": lanes, "acc_lanes": 8, "smem": smem}
+        rows, live = 128, 96 if dim <= 96 else 128
+        smem = 4 * (live * rows + sub * (rows + 4)
+                    + 2 * (sub * (live + 4) + sub * live))
+        return {"rows": rows, "live": live, "acc_lanes": live // 16,
+                "smem": smem}
     rows, live = 64, 192 if dim <= 192 else 256
     # Q and K on a pitch of live + 4 floats, V of live, the p tile
     smem = 4 * ((rows + sub) * (live + 4) + sub * live + sub * (rows + 4))
@@ -846,12 +850,14 @@ STENCIL1D_STAGED = 528
 #: f32 or 144 bf16 elements (``csrc/ssr_stencil2d.cuh``).
 STENCIL2D_WIDE_ROWS = 42
 STENCIL2D_PITCH = {torch.float32: 140, torch.bfloat16: 144}
-#: R12's tiles by lanes tile D: (query rows a CTA, keys a ring unit).  A K
-#: slot is a unit of rows on a pitch of D elements and 16 bytes, a V slot a
-#: unit of rows of D; Q^T (D × rows, f32) is staged once a CTA, and the p
-#: tile (64 keys × rows + 4, f32) besides the ring
-#: (``csrc/ring_rescale_attention.cu``).
-ATTENTION_RING_TILES = {128: (128, 32), 256: (64, 16)}
+#: R12's tiles by lanes tile D: (query rows a CTA, a K unit's (keys,
+#: lanes), a V unit's keys).  A K slot is its keys on a pitch of its lanes
+#: and 16 bytes — on 128 lanes 32 keys of every lane, on 256 the sub-tile's
+#: 64 keys on a quarter of the lanes — and a V slot its keys of D.  Q is
+#: staged once a CTA, on 128 lanes as Q^T in f32 (D × rows), on 256 as its
+#: rows on a pitch of D elements and 16 bytes; the p tile (64 keys × rows +
+#: 4, f32) besides the ring (``csrc/ring_rescale_attention.cu``).
+ATTENTION_RING_TILES = {128: (128, (32, 128), 32), 256: (64, (64, 64), 16)}
 #: Keys a rescale of m, l and acc covers (K11's and R12's sub-tile).
 ATTENTION_SUBTILE = 64
 #: R13's and R14's rows a CTA (K12's and K13's): a slot holds one step's
@@ -894,7 +900,7 @@ def device_ring(name: str, geo: StreamGeometry, ring: RingProgram,
     whole (:func:`_staged_bytes`), are never among the streams it
     ``reads``.  R10 and R11 ring the halo's first slot at its depth: the
     shifted twins get no bytes, the invariant taps one slot of 11 floats;
-    R12 rings K and V in units of :data:`ATTENTION_RING_TILES` keys, and
+    R12 rings K and V in the units of :data:`ATTENTION_RING_TILES`, and
     counts Q as the one tile it stages, at depth 1.  R13 and R14 ring vals
     and cidx at their depths, a slot a row group's step on the pitch of
     :func:`gather_slot_width`, and give the table 0 bytes: it is gathered
@@ -942,10 +948,11 @@ def _device_ring(name: str, geo: StreamGeometry, ring: RingProgram,
                   else STENCIL_TAPS * 4 for k in range(len(geo.ins))))
     if name == "ring_rescale_attention":
         d = geo.ins[0].block[1]
-        rows, unit = ATTENTION_RING_TILES[d]
+        rows, (kkeys, klanes), vkeys = ATTENTION_RING_TILES[d]
+        q = d * rows * 4 if d == 128 else rows * (d + 16 // size) * size
         return RingProgram(
             (*ring.depths[:2], 1), ring.invariant,
-            (unit * (d + 16 // size) * size, unit * d * size, d * rows * 4))
+            (kkeys * (klanes + 16 // size) * size, vkeys * d * size, q))
     if name in ("ring_gather_spmv", "ring_gather_spmm"):
         rows = SPMV_RING_ROWS if name == "ring_gather_spmv" \
             else SPMM_RING_ROWS
@@ -2354,22 +2361,15 @@ def _heads(name: str, layouts: Sequence[torch.Tensor]
                      f"{[tuple(t.shape) for t in layouts]}")
 
 
-def rescale_attention(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
-                      out_dtype: torch.dtype,
-                      acc_dtype: torch.dtype = torch.float32,
-                      program: Optional[Any] = None,
-                      ring: Optional[RingProgram] = None) -> torch.Tensor:
-    """K11: O = softmax(Q·Kᵀ·scale + mask)·V for every head of the batch in
-    one launch, the kv walk a loop inside each CTA carrying m, l and acc.
-    The mask and the head dim are the body's parameters: (causal, window,
-    scale, sk − sq, sk, d); K11 stages and sums the lanes that hold d
-    (:func:`rescale_attention_tiles`) and writes 0 to the padded lanes of
-    O.  With ``ring`` (a pipelined call) R12: K and V through rings of
-    their streams' depths in units of :data:`ATTENTION_RING_TILES` keys,
-    Q staged once a CTA, to K11's bits."""
+def _prepare_rescale_attention(geo: StreamGeometry,
+                               layouts: Sequence[torch.Tensor],
+                               out_dtype: torch.dtype, acc_dtype: torch.dtype,
+                               program: Optional[Any],
+                               ring: Optional[RingProgram]) -> _Prepared:
+    """Every check of K11 (or R12), then its launch's arguments.  K11
+    loads rows in 16-byte packs: a layout that is a view starting off a
+    16-byte boundary (a slice of a larger tensor) is copied once a call."""
     name = "rescale_attention"
-    # K11 loads rows in 16-byte packs: a layout that is a view starting off
-    # a 16-byte boundary (a slice of a larger tensor) is copied once
     layouts = [_aligned16(t) for t in layouts]
     heads, head0 = _heads(name, layouts)
     dev = _checked(name, geo, head0, program, ring, ("nest", "attn_scores"))
@@ -2380,31 +2380,52 @@ def rescale_attention(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
         raise TypeError(f"{name}: drains to float32 or bfloat16, asked for "
                         f"{out_dtype}")
     causal, window, scale, off_rc, sk, dim = program.params[0]
-    k, v, q = layouts
+    k = layouts[0]
     shape = geo.out_shape if k.dim() == 2 else (heads, *geo.out_shape)
-    out = torch.empty(shape, dtype=out_dtype, device=dev)
-    per_head = [t[0].numel() if t.dim() == 3 else 0 for t in (k, v, q, out)]
-    strides = (ctypes.c_int64 * 4)(*per_head)
-    g = _grid_arg(geo.grid)
-    sk_, sv, sq, so = (_stream_arg(geo.ins[0], head0[0]),
-                       _stream_arg(geo.ins[1], head0[1]),
-                       _stream_arg(geo.ins[2], head0[2]),
-                       _stream_arg(geo.out, out if out.dim() == 2 else out[0]))
-    args = (k.data_ptr(), v.data_ptr(), q.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[k.dtype], _DTYPE_CODE[out_dtype], ctypes.byref(g),
-            ctypes.byref(sk_), ctypes.byref(sv), ctypes.byref(sq),
-            ctypes.byref(so), geo.contraction_steps, heads, strides,
+    per_head = [t[0].numel() if t.dim() == 3 else 0 for t in layouts] + \
+        [math.prod(geo.out_shape) if k.dim() == 3 else 0]
+    args = (_DTYPE_CODE[k.dtype], _DTYPE_CODE[out_dtype],
+            ctypes.byref(_grid_arg(geo.grid)),
+            *(ctypes.byref(_stream_arg(a, t)) for a, t in zip(geo.ins, head0)),
+            ctypes.byref(_stream_pitch_arg(geo.out, geo.out_shape[1])),
+            geo.contraction_steps, heads, (ctypes.c_int64 * 4)(*per_head),
             float(scale), int(bool(causal)),
             -1 if window is None else int(window), int(off_rc), int(sk))
+    align = (True,) * len(layouts)
     if ring is None:
         # K11 stages and sums only the lanes that hold the head dim
-        _launch(name, dev, *args, int(dim))
-        return out
+        return _Prepared(name, dev, tuple(shape), out_dtype, align, 0,
+                         (*args, int(dim)))
     dr = device_ring("ring_rescale_attention", geo, ring, k.dtype)
-    _launch("ring_rescale_attention", dev, *args,
-            ctypes.byref(_ring_arg(dr)),
-            dr.ring_bytes + _staged_bytes("ring_rescale_attention", (), geo))
-    return out
+    return _Prepared("ring_rescale_attention", dev, tuple(shape), out_dtype,
+                     align, 0, (*args, ctypes.byref(_ring_arg(dr)),
+                                dr.ring_bytes + _staged_bytes(
+                                    "ring_rescale_attention", (), geo),
+                                int(dim)))
+
+
+def rescale_attention(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
+                      out_dtype: torch.dtype,
+                      acc_dtype: torch.dtype = torch.float32,
+                      program: Optional[Any] = None,
+                      ring: Optional[RingProgram] = None) -> torch.Tensor:
+    """K11: O = softmax(Q·Kᵀ·scale + mask)·V for every head of the batch in
+    one launch, the kv walk a loop inside each CTA carrying m, l and acc.
+    The mask and the head dim are the body's parameters: (causal, window,
+    scale, sk − sq, sk, d); K11 stages and sums the live lanes that hold d
+    (:func:`rescale_attention_tiles`: 96 or 128 of a 128-lane tile, 192 or
+    256 of a 256-lane one) and writes 0 to the lanes past them in O.  With
+    ``ring`` (a pipelined call) R12: K and V through rings of their
+    streams' depths in the units of :data:`ATTENTION_RING_TILES`, Q staged
+    once a CTA, on K11's live lanes, to K11's bits.  Checked and built once
+    per key (:func:`_launch_key` and the card's shared memory a CTA)."""
+    dev = layouts[0].device
+    key = (_launch_key("rescale_attention", ("nest", "attn_scores"), geo,
+                       ring, program, out_dtype, acc_dtype, layouts),
+           _card(dev).shared_memory_per_block_optin
+           if dev.type == "cuda" else None)
+    return _run(_prepared(key, lambda: _prepare_rescale_attention(
+        geo, layouts, out_dtype, acc_dtype, program, ring)), layouts)
 
 
 # -- the gather kernels --------------------------------------------------------

@@ -16,58 +16,79 @@
 // (m, l, acc) in VMEM scratch.  Here the kv axis is a loop inside the CTA:
 // a CTA owns kBQ query rows of one lowered Q block (grid.x) of one head
 // (grid.y), keeps m and l in registers (replicated over the column group of
-// a row) and acc -- 8 rows x 8 lanes a thread -- in registers, and walks
-// the lowered kv blocks in grid order in sub-tiles of 64 keys.  Per
-// sub-tile: K (transposed) and V are staged in shared memory, a thread's
-// loads of a chunk of 8 packs issued before the stores of the chunk (the
-// first chunk's before the barrier that precedes them); each thread
-// computes an 8-row score micro-tile in FP32 FMA (no TF32: the reference
-// asks for f32), masks it, updates m and l with warp shuffles over its row
-// group, rescales acc by alpha = exp(m - m') and adds p v, with p passed
-// through shared memory.  expf is the accurate one (no fast math).  m starts
-// at -1e30 and masked scores are -1e30, never -inf: a row whose first keys
-// are all masked adds p = 1 garbage that alpha = exp(-1e30 - m) = 0 removes
+// a row) and acc in registers, and walks the lowered kv blocks in grid
+// order in sub-tiles of 64 keys.  Per sub-tile each thread computes raw
+// scores in FP32 FMA (no TF32: the reference asks for f32), then the
+// rescale masks them, updates m and l with warp shuffles over its row
+// group, rescales acc by alpha = exp(m - m') and writes p to the p tile,
+// and acc adds p v.  expf is the accurate one (no fast math).  m starts at
+// -1e30 and masked scores are -1e30, never -inf: a row whose first keys are
+// all masked adds p = 1 garbage that alpha = exp(-1e30 - m) = 0 removes
 // exactly once it meets a visible key, where -inf would give NaN.  A
 // sub-tile masked for every row of the CTA (past the causal diagonal,
-// before the window, or padding) is skipped: the result is the same to
-// float error.  Heavy CTAs (late query blocks under the causal mask) are
-// launched first.
+// before the window, or padding) is skipped, in the copies too: the result
+// is the same to float error.  Heavy CTAs (late query blocks under the
+// causal mask) are launched first.  K and V arrive by cp.async ahead of
+// their use; the lanes past the live lanes DL are neither staged nor
+// summed, and the drain writes 0 there.
 //
 // Tiles by head dim.  The lowered lanes tile kD pads the head dim D to a
 // multiple of 128; the wrapper passes D itself too:
-//   * D <= 128 (80 arrives zero-padded to 128): kD = 128, kBQ = 128 query
-//     rows, 16 row groups x 16 column groups, 8 x 4 scores a thread a
-//     sub-tile, 64 accumulator floats; shared memory 41,856 floats (163.5
-//     KiB); the padded lanes add 0 to every score and leave 0 in acc;
+//   * D <= 128 (80 arrives zero-padded to 128): kBQ = 128 query rows on
+//     the live lanes DL = 96 (D <= 96) or 128, the CTA narrow_cta
+//     (ssr_attention.cuh), which R12 runs on its ring.  Q^T is staged once
+//     a CTA in f32 (rows fastest over the threads), K row-major on a pitch
+//     of DL + 16 bytes (a warp's 16 keys: two bank wavefronts a 16-byte
+//     load), V on DL, in two buffers each: K sub-tile s + 2 is copied in
+//     once sub-tile s's scores are done, V sub-tile s + 1 once sub-tile s
+//     - 1's p v is.  Each thread computes its 8 x 4 raw scores in the
+//     rescale's own mapping (rows 8 tr + i, keys tc + 16 k; tile_scores:
+//     per 4 lanes of d, 12 16-byte loads for 128 FMAs), so no score passes
+//     through the p tile, and the rescale skips the mask on a sub-tile
+//     every row sees whole.  acc holds DL / 16 lanes a thread: 6
+//     consecutive at DL = 96 (load6, one wavefront a load), 8 at 128 in
+//     two runs of 4 (acc_lane: a warp's V loads cover 256 contiguous
+//     bytes).  Two barriers a sub-tile: the first shows this sub-tile's K
+//     (and, the first time, Q^T) and frees V's older buffer and the p
+//     tile; the second shows V and every p and frees K's buffer.  Shared
+//     memory in f32: 232,448 bytes at DL = 128 (all a CTA may opt into),
+//     183,296 at 96; one CTA of 8 warps an SM;
 //   * 128 < D <= 256 (192 arrives zero-padded to 256): the wide kernel on
 //     the live lanes DL = 192 (D <= 192) or 256, kBQ = 64.  Q, K and V
 //     arrive by cp.async, Q's and K's rows on a pitch of DL + 16 bytes
-//     (rows 4 apart hit distinct banks), V's of DL; the lanes past DL are
-//     neither staged nor summed, and the drain writes 0 there.  Each
-//     thread computes 4 x 4 raw scores (rows rq + 16 i, keys kq + 16 k, a
+//     (rows 4 apart hit distinct banks), V's of DL.  Each thread computes
+//     4 x 4 raw scores (wide_scores: rows rq + 16 i, keys kq + 16 k, a
 //     warp 8 row sets x 4 key sets: per 4 lanes of d, 8 16-byte loads for
-//     64 FMAs, each load one bank wavefront, against the 2 x 8 tile's 16
-//     FMAs per 4 loads), q . k over d in order from 0.f, into the p tile;
-//     then the rescale reads them back in the 256-lane mapping (8 rows x 2
-//     keys a thread, 32 column groups), so each row's sum of p runs in
-//     its order, and acc holds DL / 32 lanes a thread (6 or 8).  K for the
-//     next sub-tile is copied in while this one is rescaled and summed
-//     into acc, V while the next one's scores are computed.  Shared memory
-//     at DL = 192 in f32: 166,912 bytes; at 256: 216,064, within the
-//     227 KiB a CTA can opt into; one CTA of 8 warps an SM.
-// Skipping the trailing zero lanes of a score's FMA chain changes at most
-// the sign of a zero score, which no output sees (exp(+-0 - m) is one
-// value).  Other lanes tiles are refused.  The mask, the rescale, the p v
-// products and the drain are ssr_attention.cuh, which R12
-// ring_rescale_attention runs too, on the padded lanes: K11's bits.
+//     64 FMAs), q . k over d in order from 0.f, into the p tile; then the
+//     rescale reads them back in the 256-lane mapping (8 rows x 2 keys a
+//     thread, 32 column groups), so each row's sum of p runs in its order,
+//     and acc holds DL / 32 lanes a thread (6 or 8).  K for the next
+//     sub-tile is copied in while this one is rescaled and summed into
+//     acc, V while the next one's scores are computed.  Shared memory at
+//     DL = 192 in f32: 166,912 bytes; at 256: 216,064, within the 227 KiB
+//     a CTA can opt into; one CTA of 8 warps an SM.
+// Other lanes tiles are refused.  The copies, the score micro-tiles, the
+// mask, the rescale, the p v products and the drain are ssr_attention.cuh,
+// which R12 ring_rescale_attention runs too: K11's bits.
 #include "ssr_attention.cuh"
-#include "ssr_ring.cuh"
 
 namespace {
 
 using namespace attention;
 
-template <typename L, typename T, typename O>
+// The 128-lane tile on its live lanes DL, with Tiles128's rescale.
+template <int DL>
+struct Narrow {
+  using L = Tiles128;
+  static constexpr int kBQ = L::kBQ;
+  static constexpr int kBuffers = 2;                 // of K and of V
+  // f32 staging (bf16 takes less of the same layout): Q^T, p, K, V
+  static constexpr int64_t kSmemBytes =
+      4 * (int64_t{DL} * kBQ + int64_t{kBK} * L::kPPitch +
+           kBuffers * (int64_t{kBK} * (DL + 4) + int64_t{kBK} * DL));
+};
+
+template <int DL, typename T, typename O>
 __global__ void __launch_bounds__(kThreads, 1)
     rescale_attention_kernel(const T* __restrict__ kp, const T* __restrict__ vp,
                              const T* __restrict__ qp, O* __restrict__ op,
@@ -75,120 +96,15 @@ __global__ void __launch_bounds__(kThreads, 1)
                              SsrStream sq, SsrStream so, int64_t zsteps,
                              int64_t qsub, int64_t nblocks, int64_t hk,
                              int64_t hv, int64_t hq, int64_t ho, Mask mk) {
-  constexpr int kD = L::kD, kBQ = L::kBQ, kCG = L::kColGroups, kSC = L::kSC;
-  constexpr int kQPitch = L::kQPitch, kKPitch = L::kKPitch;
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                    // [kD][kQPitch]: Q transposed
-  float* kt = qt + kD * kQPitch;       // [kD][kKPitch]: K transposed
-  float* vs = kt + kD * kKPitch;       // [kBK][kD]
-  float* pt = vs + kBK * kD;           // [kBK][kPPitch]: p transposed
-
-  const int64_t p = nblocks - 1 - static_cast<int64_t>(blockIdx.x) / qsub;
-  const int64_t qs = static_cast<int64_t>(blockIdx.x) % qsub;
-  const int64_t head = blockIdx.y;
-  kp += head * hk;
-  vp += head * hv;
-  qp += head * hq;
-  op += head * ho;
-
-  const int tid = threadIdx.x;
-  const int tr = tid / kCG;    // rows 8 tr .. 8 tr + 7
-  const int tc = tid % kCG;    // score columns tc + kCG k; acc lanes 8 tc ..
-  SsrOdometer odo(g, p * zsteps);
-  const int64_t qr0 = qs * kBQ;
-  const int nrows = static_cast<int>(sq.block[0] - qr0 < kBQ ? sq.block[0] - qr0 : kBQ);
-  const int64_t row0 = block_row(odo, sq) + qr0 + mk.off_rc;  // row 0's index
-  const T* q = qp + odo.origin(sq) + qr0 * sq.pitch;
-  O* out = op + odo.origin(so) + qr0 * so.pitch;
-
-  {  // stage Q transposed: every load issued before any store
-    float4 r4[L::kQPacks];
-#pragma unroll
-    for (int k = 0; k < L::kQPacks; ++k) {
-      const int i = tid + k * kThreads, r = i / (kD / 4), d4 = i % (kD / 4);
-      r4[k] = r < nrows ? load4(q + r * sq.pitch + 4 * d4) : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-#pragma unroll
-    for (int k = 0; k < L::kQPacks; ++k) {
-      const int i = tid + k * kThreads, r = i / (kD / 4), d4 = i % (kD / 4);
-      qt[(4 * d4) * kQPitch + r] = r4[k].x;
-      qt[(4 * d4 + 1) * kQPitch + r] = r4[k].y;
-      qt[(4 * d4 + 2) * kQPitch + r] = r4[k].z;
-      qt[(4 * d4 + 3) * kQPitch + r] = r4[k].w;
-    }
-  }
-
-  float m[8], l[8], acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    m[i] = kFill;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-  const int64_t row_min = row0, row_max = row0 + nrows - 1;
-
-  for (int64_t z = 0; z < zsteps; ++z, odo.advance(g)) {
-    const T* kb = kp + odo.origin(sk);
-    const T* vb = vp + odo.origin(sv);
-    const int64_t kv_block = block_row(odo, sk);
-    for (int64_t j0 = 0; j0 < sk.block[0]; j0 += kBK) {
-      const int kvalid = static_cast<int>(sk.block[0] - j0 < kBK ? sk.block[0] - j0 : kBK);
-      const int64_t kv0 = kv_block + j0;
-      if (masked_out(kv0, kvalid, row_min, row_max, mk)) continue;
-      // K (transposed) and V of the sub-tile, a chunk of packs at a time:
-      // a chunk's loads all issued before its stores, the first chunk's
-      // before the barrier, so the sub-tile costs one or two trips to memory
-#pragma unroll
-      for (int c0 = 0; c0 < L::kKPacks; c0 += kChunk) {
-        float4 k4[kChunk], v4[kChunk];
-#pragma unroll
-        for (int k = 0; k < kChunk; ++k) {
-          const int i = tid + (c0 + k) * kThreads, c = i / (kD / 4), d4 = i % (kD / 4);
-          const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-          k4[k] = c < kvalid ? load4(kb + (j0 + c) * sk.pitch + 4 * d4) : zero;
-          v4[k] = c < kvalid ? load4(vb + (j0 + c) * sv.pitch + 4 * d4) : zero;
-        }
-        if (c0 == 0) __syncthreads();   // the previous sub-tile's readers are done
-#pragma unroll
-        for (int k = 0; k < kChunk; ++k) {
-          const int i = tid + (c0 + k) * kThreads, c = i / (kD / 4), d4 = i % (kD / 4);
-          kt[(4 * d4) * kKPitch + c] = k4[k].x;
-          kt[(4 * d4 + 1) * kKPitch + c] = k4[k].y;
-          kt[(4 * d4 + 2) * kKPitch + c] = k4[k].z;
-          kt[(4 * d4 + 3) * kKPitch + c] = k4[k].w;
-          reinterpret_cast<float4*>(vs + c * kD)[d4] = v4[k];
-        }
-      }
-      __syncthreads();
-
-      float s[8][kSC];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int k = 0; k < kSC; ++k) s[i][k] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < kD; ++d) {
-        const float4 qa = reinterpret_cast<const float4*>(qt + d * kQPitch)[2 * tr];
-        const float4 qb = reinterpret_cast<const float4*>(qt + d * kQPitch)[2 * tr + 1];
-        const float qv[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
-        float kk[kSC];
-#pragma unroll
-        for (int k = 0; k < kSC; ++k) kk[k] = kt[d * kKPitch + tc + kCG * k];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int k = 0; k < kSC; ++k) s[i][k] = fmaf(qv[i], kk[k], s[i][k]);
-      }
-
-      rescale<L>(s, m, l, acc, pt, row0, tr, tc, kv0, kvalid, mk);
-      __syncthreads();
-
-      accumulate_pv<L, kBK>(acc, pt, vs, kD, tr, tc);
-    }
-  }
-
-  drain(acc, l, out, so.pitch, nrows, tr, tc);
+  using N = Narrow<DL>;
+  constexpr int KP = DL + 16 / static_cast<int>(sizeof(T));   // K's pitch
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* const qt = reinterpret_cast<float*>(smem_raw);      // [DL][kBQ]
+  float* const pt = qt + DL * N::kBQ;                        // [kBK][kPPitch]
+  T* const ks = reinterpret_cast<T*>(pt + kBK * N::L::kPPitch);   // 2 x [kBK][KP]
+  T* const vs = ks + N::kBuffers * kBK * KP;                 // 2 x [kBK][DL]
+  narrow_cta<DL, KP, DL>(kp, vp, qp, op, g, sk, sv, sq, so, zsteps, qsub, nblocks,
+                         hk, hv, hq, ho, mk, qt, pt, ks, vs, N::kBuffers, N::kBuffers);
 }
 
 // The wide tiles: kBQ = 64 query rows on the live lanes DL of a 256-lane
@@ -204,21 +120,6 @@ struct Wide {
       4 * (int64_t{kBQ} * (DL + 4) + int64_t{kBK} * (DL + 4) + int64_t{kBK} * DL +
            int64_t{kBK} * L::kPPitch);
 };
-
-// Rows [0, kRows) of DL elements from `src` (row pitch `spitch`) to `dst`
-// (row pitch `dpitch`) by 16-byte cp.async; rows from `valid` on
-// zero-filled (reading nothing past the block).
-template <int kRows, int DL, typename T>
-__device__ __forceinline__ void copy_rows(T* dst, int dpitch, const T* src,
-                                          int64_t spitch, int valid) {
-  constexpr int kElems = 16 / static_cast<int>(sizeof(T));
-  constexpr int kPacks = DL / kElems;                 // a row's
-  for (int i = threadIdx.x; i < kRows * kPacks; i += kThreads) {
-    const int r = i / kPacks, c = (i - r * kPacks) * kElems;
-    const bool in = r < valid;
-    ssr_ring_cp16(dst + r * dpitch + c, in ? src + r * spitch + c : src, in);
-  }
-}
 
 template <int DL, typename T, typename O>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -278,6 +179,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int j = 0; j < kNA; ++j) acc[i][j] = 0.f;
   }
+  const T* qr[4];
+  const T* kr[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    qr[i] = qs + (rq + 16 * i) * P;
+    kr[i] = ks + (kq + 16 * i) * P;
+  }
 
   while (!w.done()) {
     const int64_t kv0 = w.kv0(sk);
@@ -289,23 +197,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int k = 0; k < 4; ++k) s[i][k] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < DL; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = load4(qs + (rq + 16 * i) * P + d);
-#pragma unroll
-      for (int k = 0; k < 4; ++k) kv[k] = load4(ks + (kq + 16 * k) * P + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          s[i][k] = fmaf(qv[i].x, kv[k].x, s[i][k]);
-          s[i][k] = fmaf(qv[i].y, kv[k].y, s[i][k]);
-          s[i][k] = fmaf(qv[i].z, kv[k].z, s[i][k]);
-          s[i][k] = fmaf(qv[i].w, kv[k].w, s[i][k]);
-        }
-    }
+    wide_scores<DL>(s, qr, kr);
 #pragma unroll
     for (int k = 0; k < 4; ++k)
 #pragma unroll
@@ -341,10 +233,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   ssr_cp_async_wait<0>();
 
   drain(acc, l, out, so.pitch, nrows, tr, tc);
-  // the padded lanes of O: 0
-  const int pad = static_cast<int>(so.block[1]) - DL;
-  for (int i = tid; i < nrows * pad; i += kThreads)
-    out[(i / pad) * so.pitch + DL + i % pad] = ssr_cast<O>(0.f);
+  zero_lanes(out, so.pitch, nrows, DL, static_cast<int>(so.block[1]));
 }
 
 template <int DL, typename T, typename O>
@@ -372,21 +261,22 @@ int launch_wide(const void* k, const void* v, const void* q, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename L, typename T, typename O>
+template <int DL, typename T, typename O>
 int launch_tiles(const void* k, const void* v, const void* q, void* o,
                  const SsrGrid* g, const SsrStream* sk, const SsrStream* sv,
                  const SsrStream* sq, const SsrStream* so, int64_t zsteps,
                  int64_t heads, const int64_t* strides, const Mask& mk,
                  cudaStream_t st) {
-  const size_t smem = sizeof(float) * L::kSmemFloats;
-  auto kernel = rescale_attention_kernel<L, T, O>;
+  const size_t smem = static_cast<size_t>(Narrow<DL>::kSmemBytes);
+  if (!kv_walk_is_linear(g, zsteps)) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = rescale_attention_kernel<DL, T, O>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   int64_t steps = 1;
   for (int a = 0; a < g->ndim; ++a) steps *= g->dims[a];
   const int64_t nblocks = steps / zsteps;
-  const int64_t qsub = (sq->block[0] + L::kBQ - 1) / L::kBQ;
+  const int64_t qsub = (sq->block[0] + Narrow<DL>::kBQ - 1) / Narrow<DL>::kBQ;
   if (nblocks * qsub >= (int64_t{1} << 31) || heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(nblocks * qsub), static_cast<unsigned>(heads));
@@ -398,8 +288,8 @@ int launch_tiles(const void* k, const void* v, const void* q, void* o,
 }
 
 // The instantiation of the lanes tile (the blocks' width, 128 or 256) and
-// the head dim D: the 128-lane tiles, or the wide kernel on 192 or 256
-// live lanes.
+// the head dim D: the 128-lane tile on 96 or 128 live lanes, or the wide
+// kernel on 192 or 256.
 template <typename T, typename O>
 int launch(const void* k, const void* v, const void* q, void* o,
            const SsrGrid* g, const SsrStream* sk, const SsrStream* sv,
@@ -408,9 +298,12 @@ int launch(const void* k, const void* v, const void* q, void* o,
            cudaStream_t st) {
   const int64_t lanes = sq->block[1];
   if (dim < 1 || dim > lanes) return static_cast<int>(cudaErrorInvalidValue);
+  if (lanes == Tiles128::kD && dim <= 96)
+    return launch_tiles<96, T, O>(k, v, q, o, g, sk, sv, sq, so, zsteps, heads,
+                                  strides, mk, st);
   if (lanes == Tiles128::kD)
-    return launch_tiles<Tiles128, T, O>(k, v, q, o, g, sk, sv, sq, so, zsteps, heads,
-                                        strides, mk, st);
+    return launch_tiles<128, T, O>(k, v, q, o, g, sk, sv, sq, so, zsteps, heads,
+                                   strides, mk, st);
   if (lanes == Tiles256::kD && dim <= 192)
     return launch_wide<192, T, O>(k, v, q, o, g, sk, sv, sq, so, zsteps, heads,
                                   strides, mk, st);
@@ -454,15 +347,12 @@ extern "C" int ssr_rescale_attention(const void* k, const void* v,
 }
 
 // Shared memory of one CTA for a lanes tile of `lanes` (the head dim padded
-// to a multiple of 128) holding a head dim of `dim`: the 128-row tiles up
-// to 128 lanes; above, the wide kernel's on 192 live lanes (dim <= 192) or
-// 256, counted in f32.
+// to a multiple of 128) holding a head dim of `dim`: the 128-row tile's on
+// 96 live lanes (dim <= 96) or 128, up to 128 lanes; above, the wide
+// kernel's on 192 live lanes (dim <= 192) or 256; counted in f32.
 extern "C" int64_t ssr_rescale_attention_smem_bytes(int64_t lanes, int64_t dim) {
-  if (lanes <= Tiles128::kD) {
-    constexpr int64_t bq = Tiles128::kBQ;
-    return static_cast<int64_t>(sizeof(float)) *
-           (lanes * (bq + 4) + lanes * (kBK + 1) + kBK * lanes + kBK * (bq + 4));
-  }
+  if (lanes <= Tiles128::kD)
+    return dim <= 96 ? Narrow<96>::kSmemBytes : Narrow<128>::kSmemBytes;
   return dim <= 192 ? Wide<192>::kSmemBytes : Wide<256>::kSmemBytes;
 }
 
@@ -496,12 +386,18 @@ extern "C" int ssr_rescale_attention_attributes(int64_t* out, int64_t lanes,
                                                 int64_t dim) {
   const int64_t smem = ssr_rescale_attention_smem_bytes(lanes, dim);
   using BF = __nv_bfloat16;
+  if (lanes <= Tiles128::kD && dim <= 96) {
+    const void* const ks[4] = {SSR_K(rescale_attention_kernel<96, float, float>),
+                               SSR_K(rescale_attention_kernel<96, BF, BF>),
+                               SSR_K(rescale_attention_kernel<96, BF, float>),
+                               SSR_K(rescale_attention_kernel<96, float, BF>)};
+    return tile_attributes(ks, smem, out);
+  }
   if (lanes <= Tiles128::kD) {
-    const void* const ks[4] = {
-        SSR_K(rescale_attention_kernel<Tiles128, float, float>),
-        SSR_K(rescale_attention_kernel<Tiles128, BF, BF>),
-        SSR_K(rescale_attention_kernel<Tiles128, BF, float>),
-        SSR_K(rescale_attention_kernel<Tiles128, float, BF>)};
+    const void* const ks[4] = {SSR_K(rescale_attention_kernel<128, float, float>),
+                               SSR_K(rescale_attention_kernel<128, BF, BF>),
+                               SSR_K(rescale_attention_kernel<128, BF, float>),
+                               SSR_K(rescale_attention_kernel<128, float, BF>)};
     return tile_attributes(ks, smem, out);
   }
   if (dim <= 192) {

@@ -1,20 +1,22 @@
 """K11's tiles by head dim: the live lanes of a wide head.
 
 On the card K11 ``rescale_attention`` runs the 128-lane tile up to D = 128
-(80 zero-padded to 128) and, above, the wide kernel on the live lanes of
-the 256-lane layout: 192 of them for D ≤ 192, else 256 — Q, K and V staged
-and the score and p·v products summed over those lanes alone, the drain
-writing 0 past them.  The wrapper reads D from the attention body's
-parameters.  Here, on the CPU:
+(80 zero-padded to 128) on its live lanes, 96 of them for D ≤ 96, else
+128, and, above, the wide kernel on the live lanes of the 256-lane layout:
+192 of them for D ≤ 192, else 256 — Q, K and V staged and the score and
+p·v products summed over those lanes alone, the drain writing 0 past them.
+The wrapper reads D from the attention body's parameters.  Here, on the
+CPU:
 
-* the tile ``hopper.rescale_attention_tiles`` picks for D = 80, 128, 192
-  and 256, and the shared memory it counts for it (the mirror of
-  ``ssr_rescale_attention_smem_bytes``, which ``chip_smoke.py`` holds equal
-  to the C count on the card), within the 227 KiB a CTA may opt into;
+* the tile ``hopper.rescale_attention_tiles`` picks for D = 64, 80, 96,
+  97, 128, 160, 192, 193 and 256, and the shared memory it counts for it
+  (the mirror of ``ssr_rescale_attention_smem_bytes``, which
+  ``chip_smoke.py`` holds equal to the C count on the card), within the
+  227 KiB a CTA may opt into;
 * the body's parameters carry D, and the kernel's refusal counts the
   widest tile of the lanes;
-* the port's attention at D = 192 against the JAX package, the same seeded
-  numpy inputs through both, at the registry ``tol``.
+* the port's attention at D = 80, 96, 97 and 192 against the JAX package,
+  the same seeded numpy inputs through both, at the registry ``tol``.
 
 The card's checks (K11 against its plain version, R12 to K11's bits) are in
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -46,8 +48,11 @@ def _cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("dim, lanes, rows, live, acc, smem", [
-    (80, 128, 128, 128, 8, 167_424),
-    (128, 128, 128, 128, 8, 167_424),
+    (64, 128, 128, 96, 6, 183_296),
+    (80, 128, 128, 96, 6, 183_296),
+    (96, 128, 128, 96, 6, 183_296),
+    (97, 128, 128, 128, 8, 232_448),
+    (128, 128, 128, 128, 8, 232_448),
     (160, 256, 64, 192, 6, 166_912),
     (192, 256, 64, 192, 6, 166_912),
     (193, 256, 64, 256, 8, 216_064),
@@ -85,6 +90,20 @@ def test_the_layouts_pad_each_head_dim_to_its_lanes_tile():
             assert not t[:, d:].any()
 
 
+def test_the_128_lane_tile_stages_q_transposed_and_k_on_a_16_byte_pitch():
+    """The 128-lane tile's shared memory, term by term: Q^T (live × 128
+    rows), the p tile (64 × 132) and two buffers each of K (64 keys on a
+    pitch of live + 4 floats) and V (64 × live), in f32; the widest (D =
+    128) is the most, all a CTA may opt into on an H100."""
+    for dim, live in ((80, 96), (128, 128)):
+        want = 4 * (live * 128 + 64 * 132 + 2 * (64 * (live + 4) + 64 * live))
+        assert hopper.rescale_attention_tiles(dim, 128)["smem"] == want
+    assert hopper.rescale_attention_tiles(128, 128)["smem"] == max(
+        hopper.rescale_attention_tiles(d, 128)["smem"] for d in range(1, 129))
+    assert hopper.rescale_attention_tiles(128, 128)["smem"] == \
+        hopper.SMEM_OPTIN_BYTES
+
+
 def test_the_body_carries_the_head_dim_and_the_refusal_the_widest_tile():
     q = torch.randn(40, 192)
     _, static, _ = attention._prepare(q, q, q, True, 9)
@@ -118,6 +137,34 @@ def test_d192_heads_match_the_jax_package(case):
         *(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
         window=window)
     assert tuple(got.shape) == (heads, sq, 192)
+    for h in range(heads):
+        want = np.asarray(jattention.ssr_flash_attention(
+            *(jnp.asarray(a[h]) for a in (q, k, v)), causal=causal,
+            window=window, schedule=jlowering.DEFAULT_SCHEDULE))
+        np.testing.assert_allclose(got[h].numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("case", [(2, 80, 120, True, None),
+                                  (2, 80, 150, True, 33),
+                                  (1, 96, 70, True, None),
+                                  (3, 96, 96, True, 17),
+                                  (2, 97, 130, True, None),
+                                  (1, 97, 100, True, 40)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_128_lane_live_widths_match_the_jax_package(case):
+    """The port's attention at D = 80 and 96 (96 live lanes of the 128-lane
+    tile on the card) and 97 (all 128), causal and windowed, over a head
+    batch against the JAX package (its Pallas kernel in interpret mode,
+    one head at a time), the same seeded numpy inputs through both, at the
+    registry tol."""
+    heads, d, s_, causal, window = case
+    rng = np.random.default_rng(heads * 1000 + d + s_)
+    q, k, v = (rng.standard_normal((heads, s_, d)).astype(np.float32)
+               for _ in range(3))
+    got = attention.ssr_flash_attention(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+        window=window)
+    assert tuple(got.shape) == (heads, s_, d)
     for h in range(heads):
         want = np.asarray(jattention.ssr_flash_attention(
             *(jnp.asarray(a[h]) for a in (q, k, v)), causal=causal,

@@ -2609,6 +2609,103 @@ def test_rescale_attention_live_lanes_keep_r12_at_k11s_bits(dev, shape):
     assert torch.equal(k11.view(torch.int32), r12.view(torch.int32))
 
 
+@pytest.mark.parametrize("d", [80, 96, 128])
+def test_rescale_attention_128_lane_tile_spills_nothing(dev, d):
+    """K11's 128-lane tile on 96 or 128 live lanes, in all four dtype
+    pairs: no local bytes, one CTA an SM, its shared memory as the
+    wrapper's mirror counts it; R12 spills nothing in any instantiation."""
+    attrs = hopper.kernel_attributes("rescale_attention", tile=(128, d))
+    assert attrs["localSizeBytes"] == 0 and attrs["ctasPerSm"] >= 1
+    tile = hopper.rescale_attention_tiles(d, 128)
+    assert tile["live"] == (96 if d <= 96 else 128)
+    assert hopper.kernel_smem_bytes("rescale_attention", 128, d) == \
+        tile["smem"]
+    assert hopper.kernel_attributes("ring_rescale_attention")[
+        "localSizeBytes"] == 0
+
+
+def _k11_at_dim(call, dim, layouts=None):
+    """K11 on the call's layouts with the body's head dim set to ``dim``
+    (the layouts as they are: zero past the true head dim)."""
+    kern = call.kernel
+    prog = kern.program
+    program = dataclasses.replace(prog, params=(prog.params[0][:5] + (dim,),))
+    return hopper.rescale_attention(kern.geometry, layouts or call.layouts,
+                                    kern.out_dtype, program=program)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(100, 333, 80, True, 64),
+                                   (256, 600, 80, True, None),
+                                   (129, 130, 96, False, None),
+                                   (300, 300, 64, True, 40)])
+def test_rescale_attention_live_lanes_are_the_padded_tiles_bits(dev, shape,
+                                                                dtype):
+    """K11 at the head dim on 96 live lanes equals K11 told the head dim
+    is 128 (every lane staged and summed) to the bit, on the same
+    zero-padded layouts, lanes past D zero in both; beside K's first and
+    last blocks zeroed (a window can hide the first), which must differ."""
+    from repro_torch.kernels import attention
+    sq, sk, d, causal, window = shape
+    q, k, v = _qkv(dev, sq, sk, d, sq + sk + d, dtype=dtype)
+    _, static, _ = attention._prepare(q, k, v, causal, window)
+    call = lowering.prepare_call(attention._nest(static),
+                                 attention._body(static),
+                                 {"Q": q, "K": k, "V": v}, out_dtype=dtype,
+                                 device=dev)
+    assert call.kernel.geometry.ins[0].block[1] == 128
+    before = dict(hopper.LAUNCHES)
+    live, full = _k11_at_dim(call, d), _k11_at_dim(call, 128)
+    assert hopper.LAUNCHES["rescale_attention"] - \
+        before["rescale_attention"] == 2
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(live.view(bits), full.view(bits))
+    assert not live[:, d:].any()
+    kz, rows = call.layouts[0].clone(), call.kernel.geometry.ins[0].block[0]
+    kz[:rows] = 0
+    kz[-rows:] = 0
+    zeroed = _k11_at_dim(call, d, (kz, *call.layouts[1:]))
+    assert not torch.equal(zeroed.view(bits), live.view(bits))
+
+
+@pytest.mark.parametrize("d", [97, 128])
+def test_rescale_attention_128_live_lanes_head_batch_is_one_launch(dev, d):
+    from repro_torch.kernels import attention, ref
+    q, k, v = _qkv(dev, 100, 333, d, d, lead=(2, 3))
+    before = dict(hopper.LAUNCHES)
+    got = attention.ssr_flash_attention(q, k, v, causal=True, window=64,
+                                        device=dev)
+    assert hopper.LAUNCHES["rescale_attention"] - \
+        before["rescale_attention"] == 1
+    assert got.shape == (2, 3, 100, d)
+    want = ref.attention_ref(q, k, v, causal=True, window=64)
+    assert float((got - want).abs().max()) <= 2e-4
+
+
+@pytest.mark.parametrize("depth", [3, 4], ids=str)
+@pytest.mark.parametrize("shape", [(100, 333, 64, True, 64),
+                                   (300, 500, 80, True, None),
+                                   (129, 700, 128, False, None),
+                                   (256, 600, 128, True, 100)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_rescale_attention_live_widths_are_k11_to_the_bit(dev, shape,
+                                                               depth, dtype):
+    """R12 on the live lanes of D = 64, 80 (96 of 128) and 128 at depths 3
+    and 4 gives K11's bits, beside the end blocks zeroed."""
+    from repro_torch.kernels import attention
+    sq, sk, d, causal, window = shape
+    q, k, v = _qkv(dev, sq, sk, d, sq * d + sk, dtype=dtype)
+    _, static, _ = attention._prepare(q, k, v, causal, window)
+
+    def make(sched):
+        return lowering.prepare_call(attention._nest(static),
+                                     attention._body(static),
+                                     {"Q": q, "K": k, "V": v},
+                                     out_dtype=dtype, schedule=sched,
+                                     device=dev)
+    _ring_is_sync(make, depth, "rescale_attention", "ring_rescale_attention")
+
+
 @pytest.mark.parametrize("c", [1, 200])
 @pytest.mark.parametrize("case", SPARSE_CASES)
 def test_gather_spmm_reads_pack_ell_planes_with_no_copy(dev, case, c):

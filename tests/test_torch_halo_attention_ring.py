@@ -17,9 +17,12 @@ at small sizes and on inputs from a numpy seed:
   256 attention, a head batch;
 * **pipelined where a ring runs**, routed to R10–R12;
 * **one budget** — ``device_ring`` gives the shifted twins no bytes, the
-  invariant taps one slot and Q the one tile R12 stages; ``accepts``
-  counts R12's p tile beside its ring, refuses depth 8 naming the kernel
-  and its bytes, and admits R11 at every depth;
+  invariant taps one slot and Q the one tile R12 stages (Q^T in f32 on
+  128 lanes, Q's rows on 256), R12's K slots its units of 32 keys (128
+  lanes) or of 64 keys on a quarter of the lanes (256); ``accepts``
+  counts R12's p tile beside its ring, takes depth 4 on a 128-lane
+  geometry in f32 and bf16, refuses every depth over the budget (and
+  depth 8) naming the kernel and its bytes, and admits R11 at every depth;
 * **the plain ring of attention is the online softmax** — ``plain_ring``
   runs ``plain_rescale`` (the kernel's ``plain_kind``) on the delivered
   blocks;
@@ -287,22 +290,27 @@ def test_r11_ring_bytes_and_every_depth_fits(dtype, slot):
                               **k.device_args()) == (True, "ok")
 
 
-@pytest.mark.parametrize("name, d, unit, rows", [("causal_d80", 128, 32, 128),
-                                                 ("d192", 256, 16, 64)])
-def test_r12_ring_bytes_count_q_once(name, d, unit, rows):
+@pytest.mark.parametrize("name, d, kunit, vkeys, rows", [
+    ("causal_d80", 128, (32, 128), 32, 128), ("d192", 256, (64, 64), 16, 64)])
+def test_r12_ring_bytes_count_q_once(name, d, kunit, vkeys, rows):
     kern = _call(name, Schedule(stream_depths=(4, 3, 2))).kernel
     assert kern.geometry.ins[0].block[1] == d
+    assert hopper.ATTENTION_RING_TILES[d] == (rows, kunit, vkeys)
     dr = hopper.device_ring("ring_rescale_attention", kern.geometry,
                             kern.ring, torch.float32)
-    # K and V units at their depths, Q the one tile R12 stages
+    # K and V units at their depths, Q the one tile R12 stages: Q^T in f32
+    # on 128 lanes, Q's rows on a pitch of d + 16 bytes on 256
+    keys, lanes = kunit
+    q32 = d * rows * 4 if d == 128 else rows * (d + 4) * 4
     assert dr.depths == (4, 3, 1)
-    assert dr.slot_bytes == (unit * (d + 4) * 4, unit * d * 4, d * rows * 4)
+    assert dr.slot_bytes == (keys * (lanes + 4) * 4, vkeys * d * 4, q32)
     staged = hopper._staged_bytes("ring_rescale_attention", (),
                                   kern.geometry)
     assert staged == 4 * 64 * (rows + 4)
     bf = hopper.device_ring("ring_rescale_attention", kern.geometry,
                             kern.ring, torch.bfloat16)
-    assert bf.slot_bytes == (unit * (d + 8) * 2, unit * d * 2, d * rows * 4)
+    q16 = d * rows * 4 if d == 128 else rows * (d + 8) * 2
+    assert bf.slot_bytes == (keys * (lanes + 8) * 2, vkeys * d * 2, q16)
 
 
 @pytest.mark.parametrize("name, fits, over", [("causal_d80", 4, 5),
@@ -330,6 +338,61 @@ def test_accepts_counts_the_p_tile_and_refuses_r12_beyond(name, fits, over):
         assert why.startswith("ring_rescale_attention: its ring at depths "
                               f"{(depth,) * 3} needs {need} bytes")
         assert "its p tile" in why and str(hopper.SMEM_OPTIN_BYTES) in why
+
+
+def _qwen3_shaped(depth, d=128):
+    """A causal attention call shaped as the qwen3 cell's heads (D = 128,
+    a 128-lane tile; or D on a 256-lane one), at ``depth``."""
+    q = torch.from_numpy(_f32(20, 512, d))
+    _, static, _ = attention._prepare(q, q, q, True, None)
+    return lowering.prepare_call(attention._nest(static),
+                                 attention._body(static),
+                                 {"Q": q, "K": q, "V": q},
+                                 schedule=Schedule(buffer_depth=depth)).kernel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_r12_takes_depth_4_on_the_qwen3_geometry(dtype):
+    """The main path's depth: R12 at depth 4 on D = 128 in f32 (every byte
+    a CTA may opt into: Q^T 65,536, p 33,792, K 4 × 16,896, V 4 × 16,384)
+    and in bf16 (the ring's bytes halved)."""
+    kern = _qwen3_shaped(4)
+    assert kern.geometry.ins[0].block[1] == 128
+    assert hopper.accepts(kern.device_key, kern.geometry, dtype, "cpu",
+                          **kern.device_args()) == (True, "ok")
+    dr = hopper.device_ring("ring_rescale_attention", kern.geometry,
+                            kern.ring, dtype)
+    need = dr.ring_bytes + hopper._staged_bytes("ring_rescale_attention",
+                                                (), kern.geometry)
+    size = dtype.itemsize
+    ring = 4 * (32 * (128 + 16 // size) * size + 32 * 128 * size)
+    assert need == 65_536 + 33_792 + ring
+    if dtype == torch.float32:
+        assert need == hopper.SMEM_OPTIN_BYTES
+
+
+@pytest.mark.parametrize("d, dtype, deepest", [(128, torch.float32, 4),
+                                               (128, torch.bfloat16, 7),
+                                               (256, torch.float32, 4),
+                                               (256, torch.bfloat16, 8)])
+def test_r12_refuses_by_name_each_depth_over_its_budget(d, dtype, deepest):
+    """Every depth from 3 to 8 that R12's ring fits is taken; every one
+    over the budget is refused naming the kernel, the depths and the
+    bytes, as depth 8 is in f32."""
+    for depth in range(3, 9):
+        kern = _qwen3_shaped(depth, d)
+        takes, why = hopper.accepts(kern.device_key, kern.geometry, dtype,
+                                    "cpu", **kern.device_args())
+        dr = hopper.device_ring("ring_rescale_attention", kern.geometry,
+                                kern.ring, dtype)
+        need = dr.ring_bytes + hopper._staged_bytes(
+            "ring_rescale_attention", (), kern.geometry)
+        assert takes == (depth <= deepest) == (need <=
+                                               hopper.SMEM_OPTIN_BYTES)
+        if not takes:
+            assert why.startswith("ring_rescale_attention: its ring at "
+                                  f"depths {(depth,) * 3} needs {need} "
+                                  "bytes")
 
 
 def test_bf16_admits_the_same_depths():
