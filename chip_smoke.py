@@ -20,13 +20,14 @@ printing JSON lines:
    K13, R13, R14, K3, R3, B3, R1, R2, R4, R15, K14, B8, K1, K2, B1, B2,
    K4's eight builds, K11's tiles at D = 80, 96, 128, 192 and 256 (96, 96,
    128, 192 and 256 live lanes) and R12 (the most over its sixteen
-   instantiations): registers and local bytes a thread as
-   ``cudaFuncGetAttributes`` reads them; K3,
-   R3, B3, R1, R2, R4, R15, K14, B8, K1, K2, B1, B2, K4 and K11 also their
-   CTAs an SM from the
+   instantiations), K8 and R9 (the most over their ten): registers and
+   local bytes a thread as ``cudaFuncGetAttributes`` reads them; K3,
+   R3, B3, R1, R2, R4, R15, K14, B8, K1, K2, B1, B2, K4, K11, K8 and R9
+   also their CTAs an SM from the
    occupancy API (K4's held to ``hopper.GEMV_PER_SM``), the rings at
-   their main path's rings; K11 its shared memory as its entry and the
-   wrapper's mirror count it) and the card's name and power limit;
+   their main path's rings; K11 and K8 their shared memory as their
+   entries and the wrapper's mirrors count it, and R9 its at the DAG
+   rings' depths) and the card's name and power limit;
 2. drive the main path once, with every launch counter at 0 before it:
    dot and relu (f32, int32 above 2**24, bf16) at n = 2**26, gemm at
    4096**3 and gemv at 8192**2 in f32, plus one direct ``ssr_call``, and
@@ -54,8 +55,9 @@ printing JSON lines:
    stream call is one wrapper call of its kernel, that one sort_2p26 call
    runs the 28 device kernels of K16's schedule (at most 32), one
    fft_2048_b32768 call K15's one and one scan_2p26 call K14's one after a
-   memset, and its baseline B8's one, and one K1 call and one B1 call on
-   the dot cell each its one kernel, its last CTA folding the partials
+   memset, and its baseline B8's one, one K1 call and one B1 call on
+   the dot cell each its one kernel, its last CTA folding the partials,
+   and one fused mlp_block call K8's one kernel, its unfused one three
    (``torch.profiler``
    counts: the ``device_launches`` line), that a ChainedKernel call is one K17 launch, and that no
    fallback fired, and that ``ops.spmv`` and ``ops.sparse_gemv`` lay out
@@ -123,9 +125,11 @@ printing JSON lines:
    scan_2p26 at 3, 4 and 8, each beside its run on the moving streams'
    first blocks zeroed, which must differ; R13/R14 at depth 4 on the odd
    CSR inputs (R13 on the padded layouts, K12 on the planes); R14's local
-   bytes a thread at most R14_LOCAL_BYTES, R3's, K3's, R1's, R2's and
-   R4's none, and K3's shared memory as its entry and the wrapper
-   count it; the gemm check names K3's route (``packs``, ``words`` or
+   bytes a thread at most R14_LOCAL_BYTES, R3's, K3's, R1's, R2's, R4's,
+   K8's and R9's none, K3's shared memory as its entry and the wrapper
+   count it, K8's likewise and within the opt-in limit, and R9's as its
+   entry and the wrapper count it at depths 3, 4, 8 (and the residual's
+   (4, 2)) on the DAG cell's blocks; the gemm check names K3's route (``packs``, ``words`` or
    ``elements``, ``hopper.contract_gemm_route``); every R3 check names the
    route its producer warp took (``tma``, ``cp.async`` or ``cp.async
    elements``, ``hopper.gemm_ring_route``), and
@@ -813,6 +817,17 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     # R12: the most registers and local bytes over its instantiations
     attributes["ring_rescale_attention"] = hopper.kernel_attributes(
         "ring_rescale_attention")
+    # K8 (its two tiles and the weights, as its entry and the wrapper's
+    # mirror count them) and R9 at the main path's ring: depth 4 on the
+    # DAG cell's 8-row blocks, the weights and the tiles its ring lands in
+    attributes["dag_mlp"] = hopper.kernel_attributes("dag_mlp")
+    attributes["dag_mlp"]["smemBytes"] = hopper.kernel_smem_bytes("dag_mlp")
+    attributes["dag_mlp"]["smemMirror"] = hopper.MLP_STAGED_BYTES
+    r9_smem = hopper.MLP_WEIGHT_BYTES + hopper.mlp_ring_tiles(
+        DAG_MAIN_DEPTH, 8) * hopper.MLP_TILE_BYTES
+    attributes["ring_dag_mlp"] = hopper.kernel_attributes("ring_dag_mlp",
+                                                          r9_smem)
+    attributes["ring_dag_mlp"]["smemBytes"] = r9_smem
     # K3's two buffers as its entry counts them, beside the wrapper's count
     k3_smem = {str(dt): (hopper.kernel_smem_bytes("contract_gemm", dt),
                          hopper.contract_gemm_smem_bytes(dt))
@@ -1103,7 +1118,8 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
                          f"{ {key: per_call[key] for key in stream_launches} }")
     # the device kernels of one sort_2p26 and one fft_2048_b32768 call,
     # counted by the profiler, against K16's and K15's Python schedules;
-    # one K1 call on the dot cell its one kernel;
+    # one K1 call on the dot cell its one kernel; one fused mlp_block call
+    # K8's one, its unfused composition three;
     # one scan_2p26 call runs K14's one pass, one at GATHER_MAIN_DEPTH
     # R15's and one baseline call B8's (each after a memset of its state,
     # which is no kernel)
@@ -1125,7 +1141,12 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         # the partials
         "dot_k1": (k1_call.run, 1, 1, ("reduce_mul_kernel<",)),
         "dot_b1": (lambda: hopper.base_reduce(xp, yp), 1, 1,
-                   ("base_reduce_kernel<",))})
+                   ("base_reduce_kernel<",)),
+        # K8 on the mlp_block cell: the fused call one kernel, the unfused
+        # composition one a stage (the residual alone its own kernel)
+        "mlp_block": (path["mlp_block"], 1, 1, ("dag_mlp_kernel<",)),
+        "mlp_block_unfused": (path["mlp_block_unfused"], 3, 3,
+                              ("dag_mlp_kernel<", "dag_mlp_residual<"))})
     # a call deeper than 2 launches its ring kernel and no K kernel; its
     # depth-2 twin launches its K kernel and no ring
     ring_launches = {key: per_call[key] for pair in RING_PATH.items()
@@ -2545,9 +2566,44 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     checks["contract_gemv_ctas_per_sm"] = {
         "exact": all(c_ >= hopper.GEMV_PER_SM for c_ in k4_ctas.values()),
         "ctas_per_sm": k4_ctas, "abs_err": 0.0, "limit": 0.0}
+    # K8 and R9 spill nothing, in any instantiation; K8's shared memory as
+    # its entry counts it is the wrapper's mirror, within the opt-in limit;
+    # R9's entry counts what the wrapper counts at the DAG rings' depths on
+    # the cell's 8-row blocks (the weights and tiles of K8's instantiations,
+    # the residual's step slots)
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    for name in ("dag_mlp", "ring_dag_mlp"):
+        local = attributes[name]["localSizeBytes"]
+        checks[f"{name}_local_bytes"] = {
+            "exact": local == 0, "local_bytes": local, "local_limit": 0,
+            "ctas_per_sm": attributes[name]["ctasPerSm"],
+            "registers": attributes[name]["numRegs"],
+            "abs_err": 0.0, "limit": 0.0}
+    k8_smem = attributes["dag_mlp"]
+    checks["dag_mlp_smem_mirror"] = {
+        "exact": k8_smem["smemBytes"] == k8_smem["smemMirror"] <= optin,
+        "smem": k8_smem["smemBytes"], "mirror": k8_smem["smemMirror"],
+        "optin": optin, "abs_err": 0.0, "limit": 0.0}
+    r9_counts = {}
+    geo_ = fused_calls["mlp_block"].kernel.geometry
+    rows_ = geo_.out.block[0]
+    for depth in (*RING_DEPTHS, (4, 2)):
+        if isinstance(depth, tuple):      # the residual alone: H, Y slots
+            entry = hopper.kernel_smem_bytes("ring_dag_mlp", 4, *depth, rows_)
+            mirror = sum(depth) * rows_ * hopper.MLP_PITCH * 4
+        else:
+            entry = hopper.kernel_smem_bytes("ring_dag_mlp", 7, depth, 0,
+                                             rows_)
+            mirror = hopper._staged_bytes(
+                "ring_dag_mlp", fused_calls["mlp_block"].kernel.program.ops,
+                geo_, hopper.RingProgram((depth,), (False,)))
+        r9_counts[str(depth)] = (entry, mirror)
+    checks["ring_dag_mlp_smem_mirror"] = {
+        "exact": all(e == m <= optin for e, m in r9_counts.values()),
+        "entry_and_wrapper": r9_counts, "optin": optin, "abs_err": 0.0,
+        "limit": 0.0}
     # K11's shared memory: the wrapper's mirror is the entry's count, and
     # each tile fits what a CTA may opt into
-    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     k11_smem = {f"{lanes}_d{dim}": attributes[
         f"rescale_attention_{lanes}_d{dim}"] for lanes, dim in K11_TILES}
     checks["rescale_attention_smem_mirror"] = {

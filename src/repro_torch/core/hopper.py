@@ -45,7 +45,7 @@ step, filled by a ninth warp on mbarriers, persistent CTAs on runs of whole
 output blocks, :func:`ring_run_steps`), R6
 ``ring_chain_elem`` (every program of K5), R7 ``ring_dag_layernorm``, R8
 ``ring_dag_softmax_xent`` and R9 ``ring_dag_mlp`` (every instantiation of
-K6–K8; R9's ring of step blocks feeds K8's 128-row tile), R10
+K6–K8; R9's ring lands its step blocks in K8's 64-row tiles), R10
 ``ring_halo_stencil1d`` (K9's items, with the relu drain), R11
 ``ring_halo_stencil2d`` (K10's windows) and R12 ``ring_rescale_attention``
 (K11's K/V walk in units of 32 or 16 keys), R13 ``ring_gather_spmv`` and
@@ -390,7 +390,7 @@ _SIGNATURES = {
                       _I64, _P],
     "dag_softmax_xent": [_I, _P, _P, _P, _P, _P, _P, _I, _GP, _SP, _SP, _SP,
                          _SP, _SP, _I64, _I64, _P],
-    "dag_mlp": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _GP, _SP, _SP, _SP,
+    "dag_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _GP, _SP, _SP, _SP,
                 _SP, _I64, _P],
     "halo_stencil1d": [_P, _P, _P, _I, _I, _GP, _SP, _SP, _SP, _I64, _I64,
                        _I, _P],
@@ -426,7 +426,7 @@ _SIGNATURES = {
                            _RP, _I64, _I64, _I64, _P],
     "ring_dag_softmax_xent": [_I, _P, _P, _P, _P, _P, _P, _I, _GP, _SP, _SP,
                               _SP, _SP, _SP, _RP, _I64, _I64, _I64, _P],
-    "ring_dag_mlp": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _GP, _SP, _SP,
+    "ring_dag_mlp": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _GP, _SP, _SP,
                      _SP, _SP, _RP, _I64, _I64, _I64, _P],
     "ring_halo_stencil1d": [_P, _P, _P, _I, _I, _GP, _SP, _SP, _SP, _I64,
                             _I64, _I, _RP, _I64, _P],
@@ -444,7 +444,8 @@ _SIGNATURES = {
 #: Arguments of a kernel's ``ssr_<name>_smem_bytes`` (none for the rest).
 _SMEM_SIGNATURES = {"contract_gemm": [_I],
                     "halo_stencil1d": [_I64], "halo_stencil2d": [_I64],
-                    "rescale_attention": [_I64, _I64], "stream_fft": [_I64]}
+                    "rescale_attention": [_I64, _I64], "stream_fft": [_I64],
+                    "ring_dag_mlp": [_I64] * 4}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -476,14 +477,15 @@ def _lib(name: str) -> ctypes.CDLL:
 #: shared memory it is given).
 _OCCUPANCY_ATTRIBUTES = ("contract_gemm", "ring_contract_gemm", "base_gemm",
                          "ring_reduce_mul", "ring_map_relu",
-                         "ring_contract_gemv", "ring_stream_scan")
+                         "ring_contract_gemv", "ring_stream_scan",
+                         "ring_dag_mlp")
 #: The kernels whose attributes entry reads their CTAs an SM at the shared
 #: memory they take themselves: K14 and B8 (static), K4 (static, one build
 #: at a time), K11 (its widest tiles), K1, K2, B1 and B2 (static; their f32
-#: builds in 16-byte packs).
+#: builds in 16-byte packs), K8 (its fused f32 build in 16-byte packs).
 _OWN_OCCUPANCY_ATTRIBUTES = ("stream_scan", "base_scan", "contract_gemv",
                              "rescale_attention", "reduce_mul", "map_relu",
-                             "base_reduce", "base_relu")
+                             "base_reduce", "base_relu", "dag_mlp")
 #: K4's eight builds, in the order of its attributes entry: input and
 #: output dtype, and A's 16-byte packs (``v4``/``v8``) or elements (``v1``).
 GEMV_BUILDS = ("f32_f32_v4", "f32_f32_v1", "f32_bf16_v4", "f32_bf16_v1",
@@ -496,12 +498,13 @@ def kernel_attributes(name: str, smem: int = 0,
     """Registers a thread (``numRegs``) and local, spilled bytes a thread
     (``localSizeBytes``) of kernel ``name`` as ``cudaFuncGetAttributes``
     reads them on the current card (the most over its instantiations): K12,
-    K13, R13, R14 and R12 report them; K3, R3, B3, R1, R2, R4 and R15 also their
-    CTAs an SM (``ctasPerSm``) at ``smem`` bytes of dynamic shared memory
-    (the ring and its barriers of R3, R1, R2, R4 and R15, at their main
-    path's instantiation; K3 and B3 take their own); K14, B8, K4, K11, K1,
-    K2, B1 and B2 at the shared memory they take themselves (the CTAs an SM
-    of K1, K2, B1 and B2 are their f32 builds' in 16-byte packs), K11 for
+    K13, R13, R14 and R12 report them; K3, R3, B3, R1, R2, R4, R15 and R9
+    also their CTAs an SM (``ctasPerSm``) at ``smem`` bytes of dynamic
+    shared memory (the ring and its barriers of R3, R1, R2, R4 and R15, R9's
+    weights and tiles, at their main path's instantiation; K3 and B3 take
+    their own); K14, B8, K4, K11, K1, K2, B1, B2 and K8 at the shared memory
+    they take themselves (the CTAs an SM of K1, K2, B1 and B2 are their f32
+    builds' in 16-byte packs, K8's its fused f32 build's), K11 for
     the tile of ``tile`` = (lanes, head dim)
     (:func:`rescale_attention_tiles`), K4 for one ``build`` of
     :data:`GEMV_BUILDS` (not the most over them)."""
@@ -838,11 +841,18 @@ GEMV_RING_ROWS = 8
 #: reports as ``shared_memory_per_block_optin``): the budget of a ring, the
 #: same wherever the schedule is checked.
 SMEM_OPTIN_BYTES = 232448
-#: What R9 (as K8) stages besides its ring: W1 and W2 once a CTA and one
-#: 128-row tile on a 132-float pitch (``csrc/ssr_dag.cuh``); its ring's
-#: slots are step blocks on that pitch.  The residual alone stages nothing.
-MLP_ROWS_TILE, MLP_PITCH = 128, 132
-MLP_STAGED_BYTES = 4 * (2 * 128 * 128 + MLP_ROWS_TILE * MLP_PITCH)
+#: K8's tile (``csrc/ssr_dag.cuh``): 64 rows on a 132-float pitch.  K8
+#: stages W1 and W2 once a CTA and two tiles, multiplying one while the
+#: next lands.  R9 stages the weights and the tiles its ring lands in
+#: (:func:`mlp_ring_tiles`); the residual alone stages nothing, its ring's
+#: slots being step blocks on the tile's pitch.
+MLP_ROWS_TILE, MLP_PITCH = 64, 132
+MLP_WEIGHT_BYTES = 4 * 2 * 128 * 128
+MLP_TILE_BYTES = 4 * MLP_ROWS_TILE * MLP_PITCH
+MLP_STAGED_BYTES = MLP_WEIGHT_BYTES + 2 * MLP_TILE_BYTES
+#: K8's residual alone (an elementwise add): its CTAs an SM, 32 rows a warp
+#: at a time.
+MLP_RESIDUAL_PER_SM = 8
 #: R10's slot: one of K9's work items, 512 outputs and their halo on a
 #: 528-element stretch (``csrc/ssr_stencil1d.cuh``'s kStaged).
 STENCIL1D_STAGED = 528
@@ -887,6 +897,93 @@ REDUCE_CTAS_PER_SM = 4
 SMEM_SM_BYTES, SMEM_CTA_RESERVED = 233472, 1024
 
 
+def mlp_ring_tiles(depth: int, rows: int) -> int:
+    """The tiles R9's ring lands in at ``depth`` with step blocks of
+    ``rows`` rows, ``64 // rows`` steps a tile (``ssr_dag.cuh``'s
+    ``mlp_ring_tiles``): the tile being multiplied and every tile a fetch
+    issued during its product reaches, its steps fetched ``depth − 1``
+    ahead of the next tile's.  A block of more than 64 rows takes a tile of
+    its own (and R9 refuses it: such tiles never fit)."""
+    per = MLP_ROWS_TILE // rows if rows <= MLP_ROWS_TILE else 1
+    return 3 + (depth - 2) // per
+
+
+def mlp_split(steps: int, rows: int, sms: int,
+              ring: bool = False) -> Tuple[int, int]:
+    """(CTAs, steps a tile) of K8's tiled instantiations — 64-row tiles of
+    the flat rows, whatever the step — or, with ``ring``, of R9 — ``64 //
+    rows`` whole steps a tile (one for a block of more rows, which only the
+    residual alone takes): persistent CTAs, at most one an SM, CTA b taking
+    tiles b, b + CTAs, ... (:func:`mlp_tile_walk`).  K8's residual alone
+    takes :data:`MLP_RESIDUAL_PER_SM` CTAs an SM instead."""
+    if not ring:
+        return min(-(-steps * rows // MLP_ROWS_TILE), sms), 0
+    per = max(1, MLP_ROWS_TILE // rows)
+    return min(-(-steps // per), sms), per
+
+
+def mlp_tile_walk(steps: int, rows: int, sms: int,
+                  ring: bool = False) -> List[List[Tuple[int, int]]]:
+    """The rows each CTA of K8 (or R9) writes, tile by tile, as ``[start,
+    stop)`` ranges of the flat rows, on :func:`mlp_split`'s split."""
+    ctas, per = mlp_split(steps, rows, sms, ring)
+    total = steps * rows
+    span = per * rows if ring else MLP_ROWS_TILE
+    tiles = -(-total // span)
+    return [[(t * span, min(total, (t + 1) * span))
+             for t in range(b, tiles, ctas)] for b in range(ctas)]
+
+
+def mlp_ring_schedule(steps: int, rows: int, depth: int, ctas: int,
+                      hook_steps: int) -> List[List[tuple]]:
+    """R9's run on one of K8's tiled instantiations, CTA by CTA, as
+    ``csrc/ring_dag_mlp.cu`` issues it: ``("fetch", step, tile, first
+    row)`` (one commit group of every thread), ``("wait", pending)`` (the
+    groups each thread lets stay in flight), ``("tile", i, tile, steps)``
+    (the barrier, then the product of the CTA's i-th tile) and ``("done",
+    i)``.  The first tile's steps and ``depth − 1`` beyond them are fetched
+    first; a tile's product, in ``hook_steps`` steps, issues
+    the fetches that the next tile's steps would, each ``depth − 1`` steps
+    ahead (``hook_steps`` is ``ssr_dag.cuh``'s ``mlp_hook_steps``: one a
+    product).  The tiles are :func:`mlp_ring_tiles` buffers in turn."""
+    per = MLP_ROWS_TILE // rows
+    nb = mlp_ring_tiles(depth, rows)
+    tiles = -(-steps // per)
+    out = []
+    for cta in range(min(ctas, tiles)):
+        mine = (tiles - 1 - cta) // ctas + 1
+        n_of = [min(per, steps - (cta + i * ctas) * per) for i in range(mine)]
+        run = sum(n_of)
+        ev: list = []
+        cur = [0, 0, 0, 0]           # issued, tile, step in it, buffer
+
+        def fetch():
+            issued, fi, fp, fb = cur
+            ev.append(("fetch", (cta + fi * ctas) * per + fp, fb, fp * rows))
+            cur[0] = issued + 1
+            if fp + 1 == per:
+                cur[1:] = [fi + 1, 0, (fb + 1) % nb]
+            else:
+                cur[2] = fp + 1
+        end = n_of[0]
+        while cur[0] < min(run, end + depth - 1):
+            fetch()
+        tb = 0
+        for i in range(mine):
+            ev.append(("wait", cur[0] - end))
+            ev.append(("tile", i, tb, n_of[i]))
+            base, ahead = cur[0], n_of[i + 1] if i + 1 < mine else 0
+            for q in range(hook_steps):
+                want = min(run, base + -(-(q + 1) * ahead // hook_steps))
+                while cur[0] < want:
+                    fetch()
+            ev.append(("done", i))
+            end += ahead
+            tb = (tb + 1) % nb
+        out.append(ev)
+    return out
+
+
 def device_ring(name: str, geo: StreamGeometry, ring: RingProgram,
                 dtype: torch.dtype,
                 reads: Optional[frozenset] = None) -> RingProgram:
@@ -898,7 +995,10 @@ def device_ring(name: str, geo: StreamGeometry, ring: RingProgram,
     and R6–R8 give an invariant stream the one slot it is fetched into.
     R9's slots are step blocks on the tile's pitch; its uniforms, staged
     whole (:func:`_staged_bytes`), are never among the streams it
-    ``reads``.  R10 and R11 ring the halo's first slot at its depth: the
+    ``reads``; an instantiation that reads one value (all but the residual
+    alone) lands its steps in the tiles :func:`_staged_bytes` counts, so
+    its slots take no bytes of their own.  R10 and R11 ring the halo's
+    first slot at its depth: the
     shifted twins get no bytes, the invariant taps one slot of 11 floats;
     R12 rings K and V in the units of :data:`ATTENTION_RING_TILES`, and
     counts Q as the one tile it stages, at depth 1.  R13 and R14 ring vals
@@ -910,6 +1010,8 @@ def device_ring(name: str, geo: StreamGeometry, ring: RingProgram,
     dr = _device_ring(name, geo, ring, dtype)
     if reads is None:
         return dr
+    if name == "ring_dag_mlp" and len(reads) == 1:
+        return RingProgram(dr.depths, dr.invariant, (0,) * len(dr.slot_bytes))
     return RingProgram(dr.depths, dr.invariant, tuple(
         b if k in reads else 0 for k, b in enumerate(dr.slot_bytes)))
 
@@ -1664,19 +1766,23 @@ def _ring_refusal(op: tuple, name: str, geo: StreamGeometry,
         return reason.replace(f"{name}:", f"{rname}:", 1)
     ops = op[1] if isinstance(op[1], tuple) else (op[1],)
     return _ring_budget_refusal(rname, geo, dtype, ring,
-                                _staged_bytes(rname, ops, geo), reads)
+                                _staged_bytes(rname, ops, geo, ring), reads)
 
 
-def _staged_bytes(rname: str, ops: Sequence[str],
-                  geo: StreamGeometry) -> int:
+def _staged_bytes(rname: str, ops: Sequence[str], geo: StreamGeometry,
+                  ring: Optional[RingProgram] = None) -> int:
     """The shared memory ring kernel ``rname`` takes besides its ring,
-    running the stage ``ops``: R9 stages K8's weights and tile but for the
-    residual alone; R12 its p tile (Q is in its ring, one tile); R3 and R13
-    their slots' barriers; R2 and R4 their slots' barriers and R1 those and
-    its warp sums; R15 its barriers, slot numbers and group sums
-    (:data:`SCAN_RING_STAGED_BYTES`); the others nothing."""
+    running the stage ``ops``: R9 stages K8's weights and, at the depth of
+    ``ring``'s first stream (x or H), the :func:`mlp_ring_tiles` tiles its
+    ring lands in, but for the residual alone; R12 its p tile (Q is in its
+    ring, one tile); R3 and R13 their slots' barriers; R2 and R4 their
+    slots' barriers and R1 those and its warp sums; R15 its barriers, slot
+    numbers and group sums (:data:`SCAN_RING_STAGED_BYTES`); the others
+    nothing."""
     if rname == "ring_dag_mlp" and tuple(ops) != ("mlp_residual",):
-        return MLP_STAGED_BYTES
+        rows = geo.out.block[0]
+        return MLP_WEIGHT_BYTES + mlp_ring_tiles(ring.depths[0], rows) * \
+            max(MLP_ROWS_TILE, rows) * MLP_PITCH * 4
     if rname in ("ring_contract_gemm", "ring_gather_spmv", "ring_map_relu",
                  "ring_contract_gemv"):
         return RING_BARRIER_BYTES
@@ -1691,7 +1797,8 @@ def _staged_bytes(rname: str, ops: Sequence[str],
 
 
 #: What a ring kernel's staged bytes hold, for its refusal.
-_STAGED_WHAT = {"ring_dag_mlp": "its staged weights and tile",
+_STAGED_WHAT = {"ring_dag_mlp": "its staged weights and the tiles its ring "
+                                "lands in",
                 "ring_rescale_attention": "its p tile",
                 "ring_contract_gemm": "its slots' barriers",
                 "ring_gather_spmv": "its slots' barriers",
@@ -1897,7 +2004,9 @@ class _Prepared(NamedTuple):
     16-byte boundary a call, the 4-byte words of the stream's scratch a
     call takes (:func:`_work`; 0 for none), and the entry's arguments after
     its pointers (the layouts', the output's, the scratch's): dtypes,
-    vector widths, the AGU structs, the CTA split."""
+    vector widths, the AGU structs, the CTA split.  ``order`` names the
+    layout each of the entry's leading pointers takes (empty: each layout
+    in turn)."""
     kernel: str
     dev: torch.device
     out_shape: Tuple[int, ...]
@@ -1905,6 +2014,7 @@ class _Prepared(NamedTuple):
     align: Tuple[bool, ...]
     work: int
     args: tuple
+    order: Tuple[int, ...] = ()
 
 
 #: The wrappers' prepared launches by key (:func:`_launch_key`); emptied
@@ -1963,8 +2073,11 @@ def _work(dev: torch.device, words: int) -> torch.Tensor:
 
 
 def _run(prep: _Prepared, layouts: Sequence[torch.Tensor]) -> torch.Tensor:
-    """A call of a prepared launch: the output allocated, the layouts
-    copied where ``prep.align`` asks, the scratch, then the launch."""
+    """A call of a prepared launch: the output allocated, the layouts (in
+    ``prep.order``) copied where ``prep.align`` asks, the scratch, then the
+    launch."""
+    if prep.order:
+        layouts = [layouts[j] for j in prep.order]
     ins = [_aligned16(t) if al else t for t, al in zip(layouts, prep.align)]
     out = torch.empty(prep.out_shape, dtype=prep.out_dtype, device=prep.dev)
     work = (_work(prep.dev, prep.work).data_ptr(),) if prep.work else ()
@@ -3237,7 +3350,7 @@ def _read_ring(rname: str, res: _Resolved, names: Sequence[str],
     if reason is not None:      # a schedule the ring kernel does not take
         from .ssr import LoweringError
         raise LoweringError(reason)
-    dr = device_ring(rname, geo, ring, torch.float32)
+    dr = device_ring(rname, geo, ring, torch.float32, reads)
     at = [res.streams[v] for v in names if v in res.streams]
     return RingProgram(tuple(dr.depths[j] for j in at),
                        tuple(dr.invariant[j] for j in at),
@@ -3341,39 +3454,63 @@ def dag_softmax_xent(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
     return out
 
 
+def _prepare_dag_mlp(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
+                     out_dtype: torch.dtype, program: Optional[Any],
+                     ring: Optional[RingProgram]) -> _Prepared:
+    """Every check of K8 (or R9), then its launch's arguments.  The entry
+    takes x, H and Y (a value it does not read gets the first layout, which
+    it never touches), then the uniforms.  The output is a new tensor each
+    call, so 16-byte aligned."""
+    dev, res = _checked_stages("dag_mlp", geo, layouts, program)
+    _f32_out("dag_mlp", out_dtype)
+    names = ("X", "H", "Y")
+    n = program.n_streams
+    order = (*(res.streams.get(v, 0) for v in names), *range(n, n + 4))
+    (_, sx), (_, sh), (_, sy) = _value_streams(res, names, geo, layouts)
+    used = sorted(set(res.streams.values()))
+    vec = _vector_width([layouts[j] for j in used] + list(layouts[n:]),
+                        [geo.ins[j] for j in used] + list(geo.ins[n:]))
+    if geo.out_shape[1] % vec:
+        vec = 1
+    head = (res.mask, vec, ctypes.byref(_grid_arg(geo.grid)),
+            ctypes.byref(sx), ctypes.byref(sh), ctypes.byref(sy),
+            ctypes.byref(_stream_pitch_arg(geo.out, geo.out_shape[1])))
+    sms = _card(dev).multi_processor_count
+    ctas, per_tile = mlp_split(geo.steps, geo.out.block[0], sms,
+                               ring is not None)
+    align = (False,) * len(order)
+    if ring is None:
+        if res.mask == 4:         # the residual alone: 256 rows a CTA turn
+            ctas = min(-(-geo.steps * geo.out.block[0] // 256),
+                       MLP_RESIDUAL_PER_SM * sms)
+        return _Prepared("dag_mlp", dev, tuple(geo.out_shape), torch.float32,
+                         align, 0, (*head, ctas), order)
+    staged = _staged_bytes("ring_dag_mlp", program.ops, geo, ring)
+    dr = _read_ring("ring_dag_mlp", res, names, geo, ring, staged)
+    return _Prepared("ring_dag_mlp", dev, tuple(geo.out_shape), torch.float32,
+                     align, 0, (*head, ctypes.byref(_ring_arg(dr)),
+                                dr.ring_bytes + staged, per_tile, ctas),
+                     order)
+
+
 def dag_mlp(geo: StreamGeometry, layouts: Sequence[torch.Tensor],
             out_dtype: torch.dtype, acc_dtype: torch.dtype = torch.float32,
             program: Optional[Any] = None,
             ring: Optional[RingProgram] = None) -> torch.Tensor:
     """K8: the MLP block's diamond x → H = relu(xW₁ + b₁) → {Y = HW₂ + b₂,
     Y + H} on 128-wide rows, any subset of its stages, in FP32 FMA; W₁ and
-    W₂ (uniforms) staged in shared memory once per CTA.  With ``ring`` (a
-    pipelined call) R9: a ring of step blocks feeding K8's 128-row tile,
-    to K8's bits."""
-    dev, res = _checked_stages("dag_mlp", geo, layouts, program)
-    _f32_out("dag_mlp", out_dtype)
-    out, _ = _stage_out(geo, dev, "map", 0)
-    names = ("X", "H", "Y")
-    (px, sx), (ph, sh), (py, sy) = _value_streams(res, names, geo, layouts)
-    w1, b1, w2, b2 = layouts[program.n_streams:]
-    g, so = _grid_arg(geo.grid), _stream_arg(geo.out, out)
-    head = (res.mask, px, ph, py, w1.data_ptr(), b1.data_ptr(),
-            w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-            _stage_vec(res, geo, layouts, out, "map", program.n_streams),
-            ctypes.byref(g), ctypes.byref(sx), ctypes.byref(sh),
-            ctypes.byref(sy), ctypes.byref(so))
-    sms = _card(dev).multi_processor_count
-    if ring is None:
-        rows = geo.steps * geo.out.block[0]  # 128-row tiles, persistent CTAs
-        _launch("dag_mlp", dev, *head, min(-(-rows // MLP_ROWS_TILE), sms))
-        return out
-    staged = _staged_bytes("ring_dag_mlp", program.ops, geo)
-    dr = _read_ring("ring_dag_mlp", res, names, geo, ring, staged)
-    per_tile = max(1, MLP_ROWS_TILE // geo.out.block[0])
-    _launch("ring_dag_mlp", dev, *head, ctypes.byref(_ring_arg(dr)),
-            dr.ring_bytes + staged, per_tile,
-            min(-(-geo.steps // per_tile), sms))
-    return out
+    W₂ (uniforms) staged in shared memory once per CTA, 64-row tiles, the
+    next one copied in while the CTA multiplies the last.  With ``ring`` (a
+    pipelined call) R9: a ring of step blocks landing in K8's tiles
+    (:func:`mlp_ring_tiles`), to K8's bits.  Checked and built once per key
+    (:func:`_launch_key` and the card's shared memory a CTA)."""
+    dev = layouts[0].device
+    key = (_launch_key("dag_mlp", ("map", "mlp"), geo, ring, program,
+                       out_dtype, acc_dtype, layouts),
+           _card(dev).shared_memory_per_block_optin
+           if dev.type == "cuda" else None)
+    return _run(_prepared(key, lambda: _prepare_dag_mlp(
+        geo, layouts, out_dtype, program, ring)), layouts)
 
 
 def _stage_keys(fam: _Family, value: Any) -> Dict[tuple, Any]:

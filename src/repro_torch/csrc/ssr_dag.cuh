@@ -121,16 +121,44 @@ __device__ __forceinline__ void sx_row(const float* zr, const float* cr,
 }
 
 // -- K8 / R9: the MLP block's diamond x -> H = relu(x W1 + b1) ->
-// {Y = H W2 + b2, Y + H} on tiles of 128 rows ------------------------------
+// {Y = H W2 + b2, Y + H} on tiles of 64 rows ------------------------------
+//
+// A CTA of kMlpThreads threads holds W1 and W2 in shared memory and
+// multiplies one 64-row tile (pitch 132 floats) while the rows of its next
+// tile land by cp.async in another buffer.  The threads form a grid of
+// kMlpThreads / 16 thread rows by 16 thread columns: thread (rt, ct) owns
+// the outputs of rows rt + kMlpRowStep i (i < kMlpRows) and columns 4 ct..
+// and 64 + 4 ct..; a warp is 4 consecutive rt by 8 consecutive ct
+// (mlp_place), so its reads of the tile hit 4 rows 4 banks apart (one
+// wavefront) and each of its W reads one 128-byte run.  A thread's product
+// walks k in chunks of 4: kMlpRows float4 of the tile and 8 of W for
+// 32 kMlpRows FMAs, the next chunk's operands read into registers while
+// this chunk's FMAs issue.
 
 constexpr int kMlpThreads = 256;
 constexpr int kMlpN = 128;              // row width, and both weights' sides
-constexpr int kMlpTile = 128;           // rows of a CTA tile
-constexpr int kMlpPitch = kMlpN + 4;    // shared-memory row pitch of the tile
+constexpr int kMlpTile = 64;            // rows of a CTA tile
+constexpr int kMlpPitch = kMlpN + 4;    // shared-memory row pitch of a tile
+constexpr int kMlpRowStep = kMlpThreads / 16;   // thread rows
+constexpr int kMlpRows = kMlpTile / kMlpRowStep; // rows a thread owns
+constexpr int kMlpTileFloats = kMlpTile * kMlpPitch;
 constexpr int kMlpHidden = 1, kMlpOut = 2, kMlpResidual = 4;
-// W1, W2 and the tile (the residual alone stages none of them)
-constexpr int64_t kMlpStagedBytes =
-    static_cast<int64_t>(sizeof(float)) * (2 * kMlpN * kMlpN + kMlpTile * kMlpPitch);
+constexpr int64_t kMlpWeightBytes =
+    static_cast<int64_t>(sizeof(float)) * 2 * kMlpN * kMlpN;
+constexpr int64_t kMlpTileBytes =
+    static_cast<int64_t>(sizeof(float)) * kMlpTileFloats;
+// K8's shared memory: W1, W2 and two tiles (the residual alone stages none)
+constexpr int64_t kMlpStagedBytes = kMlpWeightBytes + 2 * kMlpTileBytes;
+
+// The tiles R9's ring lands in at `depth` with step blocks of `rows` rows
+// (`kMlpTile / rows` steps a tile): the tile being multiplied, and every
+// tile a fetch issued during its product may reach -- its steps are
+// fetched depth - 1 ahead of the next tile's, which the product's time
+// stands for (ring_dag_mlp.cu).
+__host__ __device__ constexpr int mlp_ring_tiles(int64_t depth, int64_t rows) {
+  return 3 + static_cast<int>((depth - 2) /
+                              (rows <= kMlpTile ? kMlpTile / rows : 1));
+}
 
 // The values an MLP subset reads: x or H (stream 0), and Y (stream 1).
 template <int MASK>
@@ -155,33 +183,93 @@ __device__ __forceinline__ void mlp_store4(float* p, float4 v) {
   }
 }
 
-// acc[i][j] = sum_k T[ty + 16 i][k] * W[k][col j], col j = c0 + j (j < 4)
-// or c1 + j - 4.  Sequential in k, one FMA per term.
-__device__ __forceinline__ void mlp_tile_product(const float* T, const float* W,
-                                                 int ty, int c0, int c1,
-                                                 float acc[8][8]) {
+// Thread `tid`'s thread row rt and thread column ct.
+__device__ __forceinline__ void mlp_place(int tid, int& rt, int& ct) {
+  const int warp = tid >> 5, lane = tid & 31;
+  rt = (warp >> 1) * 4 + (lane >> 3);
+  ct = (warp & 1) * 8 + (lane & 7);
+}
+
+// The tile row whose output address lane `lane` of warp `warp` finds for
+// its warp (lanes < 4 kMlpRows): row group lane & 3 of the warp's four, of
+// its thread rows' (lane >> 2)-th rows; thread (lane >> 3) of row i reads
+// it from lane (lane >> 3) + 4 i.
+__device__ __forceinline__ int mlp_store_row_of(int warp, int lane) {
+  return (warp >> 1) * 4 + (lane & 3) + kMlpRowStep * ((lane >> 2) % kMlpRows);
+}
+
+__device__ __forceinline__ float mlp_lane(const float4& v, int kk) {
+  return kk == 0 ? v.x : kk == 1 ? v.y : kk == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void mlp_zero(float (&acc)[kMlpRows][8]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < kMlpRows; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll 1
-  for (int k = 0; k < kMlpN; k += 4) {
-    float a[8][4];
+}
+
+// One 4-k chunk of a thread's operands: its rows of the tile T at k..k+3,
+// and rows k..k+3 of W at its columns.
+struct MlpChunk {
+  float4 a[kMlpRows];
+  float4 w[4][2];
+
+  __device__ __forceinline__ void load(const float* T, const float* W, int rt,
+                                       int ct, int k) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float4 v =
-          *reinterpret_cast<const float4*>(T + (ty + 16 * i) * kMlpPitch + k);
-      a[i][0] = v.x; a[i][1] = v.y; a[i][2] = v.z; a[i][3] = v.w;
-    }
+    for (int i = 0; i < kMlpRows; ++i)
+      a[i] = *reinterpret_cast<const float4*>(T + (rt + kMlpRowStep * i) * kMlpPitch + k);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const float4 w0 = *reinterpret_cast<const float4*>(W + (k + kk) * kMlpN + c0);
-      const float4 w1 = *reinterpret_cast<const float4*>(W + (k + kk) * kMlpN + c1);
-      const float w[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+      w[kk][0] = *reinterpret_cast<const float4*>(W + (k + kk) * kMlpN + 4 * ct);
+      w[kk][1] =
+          *reinterpret_cast<const float4*>(W + (k + kk) * kMlpN + 64 + 4 * ct);
+    }
+  }
+
+  // acc[i][j] = fmaf(T[row i][k + kk], W[k + kk][col j], acc[i][j]), kk in
+  // order: each output's chain stays sequential in k.
+  __device__ __forceinline__ void fma(float (&acc)[kMlpRows][8]) const {
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+    for (int kk = 0; kk < 4; ++kk) {
+      const float wv[8] = {w[kk][0].x, w[kk][0].y, w[kk][0].z, w[kk][0].w,
+                           w[kk][1].x, w[kk][1].y, w[kk][1].z, w[kk][1].w};
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i][kk], w[j], acc[i][j]);
+      for (int i = 0; i < kMlpRows; ++i) {
+        const float av = mlp_lane(a[i], kk);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av, wv[j], acc[i][j]);
+      }
+    }
+  }
+};
+
+// k between two hook points of a product (R9 issues its fetches there; K8
+// has none): the product's k loops run between them, with nothing else in
+// their bodies.  One a product: more points cost R9 more than they spread.
+constexpr int kMlpHookK = 128;
+
+// acc[i][j] = sum_k T[rt + kMlpRowStep i][k] * W[k][col j], col j = 4 ct + j
+// (j < 4) or 64 + 4 ct + j - 4: one FMA a term, in order of k from 0.f.  Calls
+// hook(q0 + n) before the n-th kMlpHookK values of k.
+template <typename Hook>
+__device__ __forceinline__ void mlp_tile_product(const float* T, const float* W,
+                                                 int rt, int ct,
+                                                 float (&acc)[kMlpRows][8],
+                                                 int q0, Hook& hook) {
+  mlp_zero(acc);
+  MlpChunk c0, c1;
+  c0.load(T, W, rt, ct, 0);
+#pragma unroll
+  for (int h = 0; h < kMlpN / kMlpHookK; ++h) {
+    hook(q0 + h);
+#pragma unroll 1
+    for (int k = h * kMlpHookK; k < (h + 1) * kMlpHookK; k += 8) {
+      c1.load(T, W, rt, ct, k + 4);
+      c0.fma(acc);
+      c0.load(T, W, rt, ct, (k + 8) & (kMlpN - 1));  // (the last: unused)
+      c1.fma(acc);
     }
   }
 }
@@ -202,32 +290,42 @@ __device__ __forceinline__ void mlp_bias(const float* b, int c0, int c1,
   for (int j = 0; j < 8; ++j) bv[j] = t[j];
 }
 
-// The subset's products on the tile T (the 128 rows of x or H, pitch
-// kMlpPitch) with W1s and W2s staged: each thread's 8 x 8 outputs (rows
-// ty + 16 i, columns c0.. and c1..) in `acc`.  `bv` are the biases of the
+// The hook steps of one tile of the subset: kMlpN / kMlpHookK a product.
+template <int MASK>
+__host__ __device__ constexpr int mlp_hook_steps() {
+  return kMlpN / kMlpHookK *
+         (((MASK & kMlpHidden) != 0) + ((MASK & kMlpOut) != 0));
+}
+
+// The subset's products on the tile T (64 rows of x or H, pitch kMlpPitch)
+// with W1s and W2s staged: each thread's kMlpRows x 8 outputs (rows rt +
+// kMlpRowStep i, columns 4 ct.. and 64 + 4 ct..) in `acc`.  `bv` are the biases of the
 // last product, b1v those of the hidden stage when the out stage follows.
 // H = relu(acc + b1) (selected, as K2 does) replaces x in the tile when
 // the out stage follows, so the second product and the residual read it
-// there.  Every thread of the CTA calls it.
-template <int MASK>
+// there.  Every thread of the CTA calls it; `hook` as mlp_tile_product,
+// over mlp_hook_steps<MASK>() steps.
+template <int MASK, typename Hook>
 __device__ __forceinline__ void mlp_tile(float* T, const float* W1s,
-                                         const float* W2s, int ty, int c0,
-                                         int c1, const float bv[8],
-                                         const float b1v[8], float acc[8][8]) {
+                                         const float* W2s, int rt, int ct,
+                                         const float bv[8], const float b1v[8],
+                                         float (&acc)[kMlpRows][8],
+                                         Hook& hook) {
   constexpr bool kH = (MASK & kMlpHidden) != 0, kY = (MASK & kMlpOut) != 0,
                  kR = (MASK & kMlpResidual) != 0;
+  const int c0 = 4 * ct, c1 = 64 + 4 * ct;
   if constexpr (kH) {
-    mlp_tile_product(T, W1s, ty, c0, c1, acc);
+    mlp_tile_product(T, W1s, rt, ct, acc, 0, hook);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < kMlpRows; ++i)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         acc[i][j] = ssr_relu(acc[i][j] + (kY ? b1v[j] : bv[j]));
     if constexpr (kY) {
       __syncthreads();  // every thread has read x from the tile
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        float* row = T + (ty + 16 * i) * kMlpPitch;
+      for (int i = 0; i < kMlpRows; ++i) {
+        float* row = T + (rt + kMlpRowStep * i) * kMlpPitch;
         *reinterpret_cast<float4*>(row + c0) =
             make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
         *reinterpret_cast<float4*>(row + c1) =
@@ -237,20 +335,23 @@ __device__ __forceinline__ void mlp_tile(float* T, const float* W1s,
     }
   }
   if constexpr (kY) {
-    mlp_tile_product(T, W2s, ty, c0, c1, acc);
+    mlp_tile_product(T, W2s, rt, ct, acc, kH ? kMlpN / kMlpHookK : 0, hook);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float* hrow = T + (ty + 16 * i) * kMlpPitch;
+    for (int i = 0; i < kMlpRows; ++i) {
+      const float* hrow = T + (rt + kMlpRowStep * i) * kMlpPitch;
+      const float4 h0 = *reinterpret_cast<const float4*>(hrow + c0);
+      const float4 h1 = *reinterpret_cast<const float4*>(hrow + c1);
+      const float hv[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         acc[i][j] += bv[j];
-        if constexpr (kR) acc[i][j] += hrow[j < 4 ? c0 + j : c1 + j - 4];
+        if constexpr (kR) acc[i][j] += hv[j];
       }
     }
   }
 }
 
-// Write this thread's outputs of row `ty + 16 i` to `po` (the row's start).
+// Write this thread's outputs of one row to `po` (the row's start).
 template <int V>
 __device__ __forceinline__ void mlp_store_row(float* po, int c0, int c1,
                                               const float acc[8]) {

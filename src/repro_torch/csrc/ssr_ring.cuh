@@ -74,7 +74,7 @@ __device__ __forceinline__ void ssr_ring_cp16_part(void* smem, const void* gmem,
 }
 
 // Wait until at most `pending` of this thread's cp.async groups are in
-// flight (0 <= pending <= 6).
+// flight (0 <= pending <= 7).
 __device__ __forceinline__ void ssr_ring_wait(int pending) {
   switch (pending) {
     case 0: ssr_cp_async_wait<0>(); break;
@@ -83,7 +83,8 @@ __device__ __forceinline__ void ssr_ring_wait(int pending) {
     case 3: ssr_cp_async_wait<3>(); break;
     case 4: ssr_cp_async_wait<4>(); break;
     case 5: ssr_cp_async_wait<5>(); break;
-    default: ssr_cp_async_wait<6>(); break;
+    case 6: ssr_cp_async_wait<6>(); break;
+    default: ssr_cp_async_wait<7>(); break;
   }
 }
 

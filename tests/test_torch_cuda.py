@@ -1833,6 +1833,103 @@ def test_ring_dag_mlp_over_the_budget_raises_on_the_card(dev):
     assert hopper.LAUNCHES == before
 
 
+# K8's 64-row tiles and R9's ring landing in them: row counts around the
+# tile (a tile of 1 row, one short, whole, one over, two and one over) and
+# the mlp_block cell's 2**19 rows with one more step
+MLP_ROWS = [1, 37, 63, 64, 65, 129, (1 << 19) + 8]
+
+
+def _mlp_instances(dev, rows, packs):
+    """Every instantiation of the MLP block's legal cuts at ``rows`` rows,
+    each on the values the kernels before it produced, in 16-byte packs
+    (``v4``) or, with x and the uniforms read through views 4 bytes off a
+    16-byte boundary, in elements (``v1``)."""
+    from repro_torch.core import autotune
+    case, args = _dag_case("mlp_block", rows, rows)
+
+    def placed(t):
+        t = t.to(dev)
+        if packs == "v4":
+            return t
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+    args = tuple(placed(a) for a in args)
+    nests, bodies, operands, mode, uniforms = case.spec(*args)
+    graph = lowering._dag_for(nests, None)
+    out = {}
+    for cut in autotune.enumerate_cuts(graph):
+        if not autotune.dag_cut_is_legal(graph, cut, nests=nests,
+                                         bodies=bodies, mode=mode,
+                                         uniforms=uniforms, device=dev)[0]:
+            continue
+        env = dict(operands)
+        for comp in lowering.dag_components(graph, nests, bodies, cut,
+                                            mode=mode):
+            inst = (comp.nests, comp.bodies, dict(env), comp.mode, uniforms)
+            if comp.stages not in out:
+                out[comp.stages] = (inst, _dag_instance_call(
+                    inst, lowering.DEFAULT_SCHEDULE).run())
+            if comp.exported is not None:
+                env[comp.exported] = out[comp.stages][1]
+    return out
+
+
+@pytest.mark.parametrize("packs", ["v4", "v1"])
+@pytest.mark.parametrize("rows", MLP_ROWS)
+def test_dag_mlp_tiles_against_plain_and_r9(dev, rows, packs):
+    """K8 on every instantiation at row counts around its 64-row tile,
+    against its plain version within the products limit; R9 at depths 3,
+    4 and 8 (the residual also at (4, 2)) to K8's bits."""
+    insts = _mlp_instances(dev, rows, packs)
+    assert set(insts) == {(0, 1, 2), (0,), (1,), (2,), (1, 2)}
+    for stages, (inst, k8) in insts.items():
+        call = _dag_instance_call(inst, lowering.DEFAULT_SCHEDULE)
+        got, want, launched = _run_and_plain(call)
+        assert launched == {"dag_mlp"}, stages
+        assert torch.equal(got.view(torch.int32), k8.view(torch.int32))
+        err = (got - want).abs() / (_abs_call(call) + 1e-30)
+        assert float(err.max()) <= CONTRACT_LIMIT, stages
+        scheds = [lowering.Schedule(buffer_depth=d) for d in (3, 4, 8)]
+        if stages == (2,):
+            scheds.append(lowering.Schedule(stream_depths=(4, 2)))
+        for sched in scheds:
+            ring = _dag_instance_call(inst, sched)
+            if not ring.kernel.pipelined:    # a one-step grid never stages
+                assert rows <= 8
+                continue
+            before = dict(hopper.LAUNCHES)
+            r9 = ring.run()
+            assert _launched(before) == {"ring_dag_mlp"}, (stages, sched)
+            assert torch.equal(r9.view(torch.int32), k8.view(torch.int32)), \
+                (stages, sched, float((r9 - k8).abs().max()))
+
+
+def test_dag_mlp_and_r9_spill_nothing_and_count_their_shared_memory(dev):
+    """K8 and R9 keep no local bytes in any instantiation; K8's entry and
+    the wrapper count the same shared memory, within what a CTA may opt
+    into, and so do R9's at every depth and step block it takes."""
+    optin = hopper._card(dev).shared_memory_per_block_optin
+    for name in ("dag_mlp", "ring_dag_mlp"):
+        smem = hopper.MLP_STAGED_BYTES if name == "dag_mlp" else optin
+        got = hopper.kernel_attributes(name, smem) if name == "ring_dag_mlp" \
+            else hopper.kernel_attributes(name)
+        assert got["localSizeBytes"] == 0, (name, got)
+        assert got["ctasPerSm"] == 1, (name, got)
+    assert hopper.kernel_smem_bytes("dag_mlp") == hopper.MLP_STAGED_BYTES \
+        <= optin
+    for rows in (1, 8, 16, 24, 32, 64):
+        for depth in range(2, 9):
+            want = hopper.MLP_WEIGHT_BYTES + hopper.mlp_ring_tiles(
+                depth, rows) * hopper.MLP_TILE_BYTES
+            assert hopper.kernel_smem_bytes(
+                "ring_dag_mlp", 7, depth, 0, rows) == want, (rows, depth)
+            assert hopper.kernel_smem_bytes(
+                "ring_dag_mlp", 4, depth, 2, rows) == \
+                (depth + 2) * rows * hopper.MLP_PITCH * 4
+
+
 # -- the halo and attention rings (R10–R12) -----------------------------------
 
 

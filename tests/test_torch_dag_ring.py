@@ -17,10 +17,10 @@ seed:
 * **pipelined where a ring runs** — at a depth above 2 on a grid of more
   than one step, every component of a cut too; not at depth 2, on a
   one-step grid or under ``REPRO_DISABLE_PIPELINE``;
-* **one budget** — ``accepts`` counts R9's staged weights and tile beside
-  its ring, refuses over it with the kernel's name and depths, and takes
-  the largest depth that fits; the card's race keeps depth-only DAG
-  candidates.
+* **one budget** — ``accepts`` counts R9's staged weights and the tiles
+  its ring lands in, refuses over it with the kernel's name and depths,
+  and takes the largest depth that fits; the card's race keeps depth-only
+  DAG candidates.
 
 The card's own checks (R7–R9 against K6–K8 to the bit) are in
 ``tests/test_torch_cuda.py``.
@@ -282,28 +282,31 @@ def _mlp_kernel(stages, rows, depth):
 
 
 @pytest.mark.parametrize("stages, rows, fits", [
-    ((0, 1, 2), 8, 8), ((0, 1, 2), 16, 4), ((0, 1, 2), 32, 2),
-    ((0,), 16, 4), ((1, 2), 16, 4), ((2,), 16, 8), ((2,), 32, 6)], ids=str)
+    ((0, 1, 2), 8, 8), ((0, 1, 2), 16, 5), ((0, 1, 2), 32, 3),
+    ((0,), 16, 5), ((1, 2), 16, 5), ((2,), 16, 8), ((2,), 32, 6)], ids=str)
 def test_accepts_counts_r9s_staged_weights_and_tile(stages, rows, fits):
-    """R9's ring with K8's staged W1, W2 and tile against the opt-in
-    budget: the largest depth that fits is taken, the next refused with the
-    exact message, on the CPU as on the card.  The residual alone stages
-    nothing; a value two stages read (H in {1, 2}) takes one ring."""
-    n_read = 2 if stages == (2,) else 1
-    slot = rows * hopper.MLP_PITCH * 4
-    staged = 0 if stages == (2,) else hopper.MLP_STAGED_BYTES
-    assert staged in (0, 4 * (2 * 128 * 128 + 128 * 132))
+    """R9's ring with K8's staged W1 and W2 and the 64-row tiles its steps
+    land in against the opt-in budget: the largest depth that fits is
+    taken, the next refused with the exact message, on the CPU as on the
+    card.  The tiles are the one multiplied and those its fetches, depth −
+    1 steps ahead of the next tile's, reach: 3 + (depth − 2) // (64 //
+    rows).  The residual alone stages nothing and rings H and Y in step
+    slots; a value two stages read (H in {1, 2}) is fetched once."""
     for depth in range(3, ssr.MAX_BUFFER_DEPTH + 1):
         kern = _mlp_kernel(stages, rows, depth)
         assert kern.pipelined
         takes, why = hopper.accepts(kern.device_key, kern.geometry,
                                     torch.float32, "cpu",
                                     **kern.device_args())
-        need = n_read * depth * slot + staged
+        if stages == (2,):
+            staged, need = 0, 2 * depth * rows * 132 * 4
+        else:
+            tiles = 3 + (depth - 2) // (64 // rows)
+            staged = need = 4 * (2 * 128 * 128 + tiles * 64 * 132)
         assert takes is (depth <= fits) is (need <= hopper.SMEM_OPTIN_BYTES)
         if not takes:
-            also = f" ({staged} of them its staged weights and tile)" \
-                if staged else ""
+            also = f" ({staged} of them its staged weights and the tiles " \
+                "its ring lands in)" if staged else ""
             assert why == (f"ring_dag_mlp: its ring at depths {kern.depths} "
                            f"needs {need} bytes of shared memory a CTA"
                            f"{also}, the card allows 232448")
@@ -312,13 +315,16 @@ def test_accepts_counts_r9s_staged_weights_and_tile(stages, rows, fits):
 def test_ring_over_the_budget_is_a_lowering_error_on_any_device():
     """The wrapper refuses what accepts refuses, before it touches the
     card: the LoweringError names the kernel and its depths."""
-    kern = _mlp_kernel((0, 1, 2), 16, 5)
+    kern = _mlp_kernel((0, 1, 2), 16, 6)
     res = hopper._resolve("dag_mlp", kern.program)
+    staged = hopper._staged_bytes("ring_dag_mlp", kern.program.ops,
+                                  kern.geometry, kern.ring)
+    assert staged == 266240
     with pytest.raises(lowering.LoweringError,
-                       match=r"ring_dag_mlp: its ring at depths \(5, 5, 5, "
-                             r"5, 5\) needs 240896 bytes"):
+                       match=r"ring_dag_mlp: its ring at depths \(6, 6, 6, "
+                             r"6, 6\) needs 266240 bytes"):
         hopper._read_ring("ring_dag_mlp", res, ("X", "H", "Y"),
-                          kern.geometry, kern.ring, hopper.MLP_STAGED_BYTES)
+                          kern.geometry, kern.ring, staged)
 
 
 @pytest.mark.parametrize("name, rows", [("layernorm", 64),
