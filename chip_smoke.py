@@ -18,12 +18,12 @@ printing JSON lines:
 1. build every Hopper kernel from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, all at once), print the ``kernel_attributes`` line (K12,
    K13, R13, R14, K3, R3, B3, R1, R2, R4, R15, K14, B8, K1, K2, B1, B2,
-   K4's eight builds, K11's tiles at D = 80, 96, 128, 192 and 256 (96, 96,
+   B5, B7, K4's eight builds, K11's tiles at D = 80, 96, 128, 192 and 256 (96, 96,
    128, 192 and 256 live lanes) and R12 (the most over its sixteen
    instantiations), K8 and R9 (the most over their ten): registers and
    local bytes a thread as ``cudaFuncGetAttributes`` reads them; K3,
-   R3, B3, R1, R2, R4, R15, K14, B8, K1, K2, B1, B2, K4, K11, K8 and R9
-   also their CTAs an SM from the
+   R3, B3, R1, R2, R4, R15, K14, B8, K1, K2, B1, B2, B5, B7, K4, K11, K8
+   and R9 also their CTAs an SM from the
    occupancy API (K4's held to ``hopper.GEMV_PER_SM``), the rings at
    their main path's rings; K11 and K8 their shared memory as their
    entries and the wrapper's mirrors count it, and R9 its at the DAG
@@ -57,7 +57,9 @@ printing JSON lines:
    fft_2048_b32768 call K15's one and one scan_2p26 call K14's one after a
    memset, and its baseline B8's one, one K1 call and one B1 call on
    the dot cell each its one kernel, its last CTA folding the partials,
-   and one fused mlp_block call K8's one kernel, its unfused one three
+   one B5 call on the stencil1d cell and one B7 call on spmm_hpcg's
+   planes each its one, and one fused mlp_block call K8's one kernel,
+   its unfused one three
    (``torch.profiler``
    counts: the ``device_launches`` line), that a ChainedKernel call is one K17 launch, and that no
    fallback fired, and that ``ops.spmv`` and ``ops.sparse_gemv`` lay out
@@ -87,7 +89,10 @@ printing JSON lines:
    bit-exact against its plain version and K2 in f32, bf16 and int32 on a
    view one element off a 16-byte boundary (one element an access), B1's
    and B2's local bytes none and B1 at least ``hopper.REDUCE_PER_SM`` CTAs
-   an SM; K15 to the bit on the batch cell and bf16 inputs, within the
+   an SM; B5 to ``hopper.base_stencil1d_model``'s bits on the stencil1d
+   cell in f32 and bf16 and B7 to ``hopper.base_spmm_model``'s bits on
+   spmm_hpcg, five more runs of each cell to those bits, B5's and B7's
+   local bytes none (their registers and CTAs an SM beside); K15 to the bit on the batch cell and bf16 inputs, within the
    limit on one transform of 2**22 points (the global passes); K16 to the
    bit on the cell, a batch of
    2**16 rows of 1024, bf16 and int32, and inputs holding ±0 and a NaN;
@@ -801,7 +806,10 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     # build; CTAs an SM of their f32 builds in 16-byte packs) and each of
     # K4's eight builds
     attributes["base_scan"] = hopper.kernel_attributes("base_scan")
-    for name in ("reduce_mul", "map_relu", "base_reduce", "base_relu"):
+    # B5 and B7 (the most over their builds; CTAs an SM of B5's f32 tile
+    # in 16-byte loads and of B7's 16-byte loads) likewise
+    for name in ("reduce_mul", "map_relu", "base_reduce", "base_relu",
+                 "base_stencil1d", "base_spmm"):
         attributes[name] = hopper.kernel_attributes(name)
     for build in hopper.GEMV_BUILDS:
         attributes[f"contract_gemv_{build}"] = hopper.kernel_attributes(
@@ -1142,6 +1150,13 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         "dot_k1": (k1_call.run, 1, 1, ("reduce_mul_kernel<",)),
         "dot_b1": (lambda: hopper.base_reduce(xp, yp), 1, 1,
                    ("base_reduce_kernel<",)),
+        # B5 on the stencil1d cell and B7 on spmm_hpcg's planes: one
+        # kernel each
+        "stencil1d_b5": (lambda: hopper.base_stencil1d(
+            xs.reshape(1, -1), ws.reshape(1, -1)), 1, 1,
+            ("base_stencil1d_kernel<",)),
+        "spmm_b7": (lambda: hopper.base_spmm(sv, sc, sX), 1, 1,
+                    ("base_spmm_kernel<",)),
         # K8 on the mlp_block cell: the fused call one kernel, the unfused
         # composition one a stage (the residual alone its own kernel)
         "mlp_block": (path["mlp_block"], 1, 1, ("dag_mlp_kernel<",)),
@@ -1467,6 +1482,25 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     stencil_check("stencil1d_baseline", "base_stencil1d",
                   main["stencil1d_baseline"], want, scale_t,
                   hopper.plain_base_stencil1d(bf16(bx), bf16(bwt)).reshape(-1))
+    # B5 to hopper.base_stencil1d_model's bits on the cell (tap 1's product
+    # rounded, tap 0's fused onto it, taps 2 .. 10 by one FMA each), in f32
+    # and on x rounded to bf16; five runs of the f32 cell one set of bits
+    b5_w = bwt.reshape(-1).cpu().numpy()
+    for tag, bx_ in (("f32", bx), ("bf16", bx.to(torch.bfloat16))):
+        got_ = main["stencil1d_baseline"].reshape(-1) if tag == "f32" \
+            else hopper.base_stencil1d(bx_, bwt).reshape(-1)
+        model = torch.from_numpy(hopper.base_stencil1d_model(
+            bx_.float().reshape(-1).cpu().numpy(), b5_w)).to(dev)
+        runs = [got_] if tag != "f32" else \
+            [got_] + [hopper.base_stencil1d(bx_, bwt).reshape(-1)
+                      for _ in range(5)]
+        checks[f"b5_model_stencil1d_{tag}"] = {
+            "exact": all(torch.equal(r_.view(torch.int32),
+                                     model.view(torch.int32)) for r_ in runs),
+            "abs_err": max(float((r_ - model).abs().max()) for r_ in runs),
+            "limit": 0.0, "runs": len(runs), "kernel": "base_stencil1d",
+            "against": "hopper.base_stencil1d_model"}
+        del model, runs, got_
     checks["stencil1d_baseline_vs_ssr"] = {
         "abs_err": float((main["stencil1d_baseline"]
                           - main["stencil1d"]).abs().max()),
@@ -1768,6 +1802,21 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             "abs_err": float((main[key] - main[kkey]).abs().max()),
             "rel_err": rel_max(main[key], main[kkey], sparse_scale[kkey]),
             "limit": SPARSE_LIMIT}
+    # B7 to hopper.base_spmm_model's bits on spmm_hpcg (each output the
+    # fmaf chain over its row's 27 elements from 0, pads included); five
+    # runs one set of bits
+    b7_model = torch.from_numpy(hopper.base_spmm_model(
+        sv.cpu().numpy(), sc.cpu().numpy(), sX.cpu().numpy())).to(dev)
+    runs = [main["spmm_baseline"]] + [hopper.base_spmm(sv, sc, sX)
+                                      for _ in range(5)]
+    checks["b7_model_spmm_hpcg"] = {
+        "exact": all(torch.equal(r_.view(torch.int32),
+                                 b7_model.view(torch.int32)) for r_ in runs),
+        "abs_err": max(float((r_ - b7_model).abs().max()) for r_ in runs),
+        "limit": 0.0, "runs": len(runs), "vec": hopper._vector_width(
+            (sX,), ()), "kernel": "base_spmm",
+        "against": "hopper.base_spmm_model"}
+    del b7_model, runs
     # odd CSR inputs through the entry points and the baselines, against
     # the densified oracle within the registry tol of the terms' sizes:
     # |got − oracle| ≤ tol·(1 + Σ_j |v_ij|·|x_cidx|)
@@ -2553,6 +2602,14 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         local = attributes[name]["localSizeBytes"]
         checks[f"{name}_local_bytes"] = {
             "exact": local == 0, "local_bytes": local, "local_limit": 0,
+            "abs_err": 0.0, "limit": 0.0}
+    # B5 and B7 spill nothing in any build; their registers and CTAs an SM
+    for name in ("base_stencil1d", "base_spmm"):
+        checks[f"{name}_local_bytes"] = {
+            "exact": attributes[name]["localSizeBytes"] == 0,
+            "local_bytes": attributes[name]["localSizeBytes"],
+            "local_limit": 0, "registers": attributes[name]["numRegs"],
+            "ctas_per_sm": attributes[name]["ctasPerSm"],
             "abs_err": 0.0, "limit": 0.0}
     # B1's runs, one CTA each, are one wave at REDUCE_PER_SM CTAs an SM
     checks["base_reduce_ctas_per_sm"] = {

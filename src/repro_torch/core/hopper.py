@@ -147,6 +147,7 @@ import math
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import (Any, Callable, Dict, Iterable, List, NamedTuple, Optional,
                     Sequence, Tuple, Union)
@@ -399,11 +400,11 @@ _SIGNATURES = {
     "rescale_attention": [_P, _P, _P, _P, _I, _I, _GP, _SP, _SP, _SP, _SP,
                           _I64, _I64, _P, ctypes.c_float, _I, _I64, _I64,
                           _I64, _I64, _P],
-    "base_stencil1d": [_P, _P, _P, _I, _I64, _I64, _I64, _P],
+    "base_stencil1d": [_P, _P, _P, _I, _I, _I64, _I64, _I64, _P],
     "gather_spmv": [_P, _P, _P, _P, _GP, _SP, _SP, _SP] + [_I64] * 6 + [_P],
     "gather_spmm": [_P, _P, _P, _P, _GP, _SP, _SP, _SP] + [_I64] * 8 + [_P],
     "base_spmv": [_P, _P, _P, _P, _I64, _I64, _I64, _P],
-    "base_spmm": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+    "base_spmm": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I, _P],
     "stream_scan": [_P, _I, _P, _P, _I64, _I64, _I64, _P],
     "base_scan": [_P, _I, _P, _P, _I64, _I64, _I64, _P],
     "stream_fft": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I64, _I64, _I, _P],
@@ -482,10 +483,12 @@ _OCCUPANCY_ATTRIBUTES = ("contract_gemm", "ring_contract_gemm", "base_gemm",
 #: The kernels whose attributes entry reads their CTAs an SM at the shared
 #: memory they take themselves: K14 and B8 (static), K4 (static, one build
 #: at a time), K11 (its widest tiles), K1, K2, B1 and B2 (static; their f32
-#: builds in 16-byte packs), K8 (its fused f32 build in 16-byte packs).
+#: builds in 16-byte packs), K8 (its fused f32 build in 16-byte packs), B5
+#: (its static tile; f32 in 16-byte loads) and B7 (16-byte loads).
 _OWN_OCCUPANCY_ATTRIBUTES = ("stream_scan", "base_scan", "contract_gemv",
                              "rescale_attention", "reduce_mul", "map_relu",
-                             "base_reduce", "base_relu", "dag_mlp")
+                             "base_reduce", "base_relu", "dag_mlp",
+                             "base_stencil1d", "base_spmm")
 #: K4's eight builds, in the order of its attributes entry: input and
 #: output dtype, and A's 16-byte packs (``v4``/``v8``) or elements (``v1``).
 GEMV_BUILDS = ("f32_f32_v4", "f32_f32_v1", "f32_bf16_v4", "f32_bf16_v1",
@@ -502,9 +505,10 @@ def kernel_attributes(name: str, smem: int = 0,
     also their CTAs an SM (``ctasPerSm``) at ``smem`` bytes of dynamic
     shared memory (the ring and its barriers of R3, R1, R2, R4 and R15, R9's
     weights and tiles, at their main path's instantiation; K3 and B3 take
-    their own); K14, B8, K4, K11, K1, K2, B1, B2 and K8 at the shared memory
-    they take themselves (the CTAs an SM of K1, K2, B1 and B2 are their f32
-    builds' in 16-byte packs, K8's its fused f32 build's), K11 for
+    their own); K14, B8, K4, K11, K1, K2, B1, B2, K8, B5 and B7 at the
+    shared memory they take themselves (the CTAs an SM of K1, K2, B1, B2
+    and B5 are their f32 builds' in 16-byte packs, K8's its fused f32
+    build's, B7's its 16-byte loads'), K11 for
     the tile of ``tile`` = (lanes, head dim)
     (:func:`rescale_attention_tiles`), K4 for one ``build`` of
     :data:`GEMV_BUILDS` (not the most over them)."""
@@ -1495,6 +1499,22 @@ def _fma32(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
     return np.where(up, other, r).astype(np.float32)
 
 
+def _fma32_fast(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """:func:`_fma32`'s bits, its TwoSum taken only where it can matter:
+    the float64 sum's float32 rounding is the exact value's unless that sum
+    lies on a float32 midpoint (of the 29 significand bits float32 drops,
+    the first set and the rest clear) or under float32's normal range."""
+    a, b, c = np.broadcast_arrays(a, b, c)
+    s = a.astype(np.float64) * b + c
+    r = s.astype(np.float32)
+    low = s.view(np.uint64) & np.uint64(0x1FFFFFFF)
+    slow = (low == np.uint64(0x10000000)) | (np.abs(s) < 2.0 ** -125)
+    if slow.any():
+        at = np.nonzero(slow)
+        r[at] = _fma32(a[at], b[at], c[at])
+    return r
+
+
 def _warp_butterfly(v: np.ndarray) -> np.ndarray:
     """Each lane of the warps in the last axis (32 lanes) after the
     butterfly ``v += shfl_xor(v, o)`` for o = 16, 8, 4, 2, 1, float32."""
@@ -1578,6 +1598,83 @@ def reduce_mul_model(a: np.ndarray, b: np.ndarray, steps_per_run: int,
         row = partials[i:i + FOLD_LANES]
         lanes[:row.size] = (lanes[:row.size] + row).astype(np.float32)
     return np.float32(cta_sum_model(lanes))
+
+
+#: Elements of the output the baselines' models compute a chunk, the
+#: chunks on the host's cores at once (numpy's loops release the GIL).
+_MODEL_CHUNK = 1 << 20
+
+
+def _in_chunks(total: int, chunk: int, fn: Callable[[int, int], None]
+               ) -> None:
+    """``fn(lo, hi)`` over [0, total) in chunks of ``chunk``, in threads."""
+    bounds = [(lo, min(total, lo + chunk)) for lo in range(0, total, chunk)]
+    workers = min(len(bounds), os.cpu_count() or 1)
+    if workers <= 1:
+        for lo, hi in bounds:
+            fn(lo, hi)
+        return
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        list(pool.map(lambda b: fn(*b), bounds))
+
+
+def base_stencil1d_model(x: np.ndarray, w: np.ndarray,
+                         rounded_tap: int = 1) -> np.ndarray:
+    """B5's y (n,) with B5's bits, in numpy float32: x holds n + 10
+    elements (bf16 promoted to float32), w the 11 f32 taps.  Each output:
+    tap ``rounded_tap``'s product (0 or 1) rounded alone, the other of the
+    first two taps fused onto it by one FMA, then taps 2 .. 10 each by one
+    FMA in tap order.  B5 computes ``rounded_tap = 1``: fmaf(w0, x0,
+    w1·x1), as nvcc contracted the parent's acc = w0·x0; acc + w1·x1."""
+    x = np.asarray(x, np.float32).reshape(-1)
+    w = np.asarray(w, np.float32).reshape(-1)
+    taps = w.size
+    n = x.size - (taps - 1)
+    if taps != STENCIL_TAPS or n < 1 or rounded_tap not in (0, 1):
+        raise ValueError(f"base_stencil1d_model: x of n + {STENCIL_TAPS - 1}"
+                         f" elements, {STENCIL_TAPS} taps and rounded_tap 0 "
+                         f"or 1, got {x.size}, {taps} and {rounded_tap}")
+    fused = 1 - rounded_tap
+    y = np.empty(n, np.float32)
+
+    def chunk(i0: int, i1: int) -> None:
+        def tap(j):
+            return x[i0 + j:i1 + j]
+        acc = (w[rounded_tap] * tap(rounded_tap)).astype(np.float32)
+        acc = _fma32_fast(w[fused], tap(fused), acc)
+        for j in range(2, taps):
+            acc = _fma32_fast(w[j], tap(j), acc)
+        y[i0:i1] = acc
+    _in_chunks(n, _MODEL_CHUNK, chunk)
+    return y
+
+
+def base_spmm_model(vals: np.ndarray, cidx: np.ndarray,
+                    x: np.ndarray) -> np.ndarray:
+    """B7's out (m, c) with B7's bits, in numpy float32: each output is the
+    chain acc = fmaf(vals[i, j], X[clip(cidx[i, j]), col], acc) over j = 0
+    .. k − 1 from 0, pads included, each FMA rounded once, the columns
+    independent (so the same at either load width)."""
+    vals = np.asarray(vals, np.float32)
+    cidx = np.asarray(cidx)
+    x = np.asarray(x, np.float32)
+    if vals.ndim != 2 or vals.shape != cidx.shape or x.ndim != 2 \
+            or x.shape[0] < 1:
+        raise ValueError(f"base_spmm_model: vals and cidx (m, k) and X "
+                         f"(n, c), got {vals.shape}, {cidx.shape} and "
+                         f"{x.shape}")
+    m, k = vals.shape
+    c = x.shape[1]
+    rows = np.clip(cidx.astype(np.int64), 0, x.shape[0] - 1)
+    out = np.empty((m, c), np.float32)
+
+    def chunk(r0: int, r1: int) -> None:
+        acc = np.zeros((r1 - r0, c), np.float32)
+        for j in range(k):
+            acc = _fma32_fast(vals[r0:r1, j:j + 1], x[rows[r0:r1, j]], acc)
+        out[r0:r1] = acc
+    _in_chunks(m, max(1, _MODEL_CHUNK // max(1, c)), chunk)
+    return out
 
 
 def _ctas_per_sm(smem: int, most: int) -> int:
@@ -1900,13 +1997,18 @@ def _program_refusal(name: str, program: Optional[Any]) -> Optional[str]:
             "parameters or a permutation")
 
 
+def _cuda_device(name: str, t: torch.Tensor) -> torch.device:
+    """``t``'s device, which must be a CUDA device."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: launches on CUDA tensors, got {t.device}")
+    return t.device
+
+
 def _checked_operands(name: str, tensors: Sequence[torch.Tensor],
                       dtypes: Sequence[torch.dtype]) -> torch.device:
     """What every wrapper's kernel takes of its operands — one CUDA device,
     one dtype of ``dtypes``, contiguous 2-D layouts; return the device."""
-    dev = tensors[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: launches on CUDA tensors, got {dev}")
+    dev = _cuda_device(name, tensors[0])
     for k, t in enumerate(tensors):
         if t.device != dev:
             raise ValueError(f"{name}: operand {k} on {t.device}, not {dev}")
@@ -3581,7 +3683,7 @@ def _row_blocks(name: str, t: torch.Tensor) -> int:
 
 def _base_key(name: str, layouts: Sequence[torch.Tensor],
               out_dtype: Optional[torch.dtype]) -> tuple:
-    """What B1's and B2's checks and launch arguments depend on: the
+    """What B1's, B2's, B5's and B7's checks and launch arguments depend on: the
     wrapper, ``out_dtype`` and the layouts (:func:`_layouts_key`)."""
     return (name, out_dtype, _layouts_key(layouts))
 
@@ -3688,27 +3790,45 @@ def base_gemv(a: torch.Tensor, x: torch.Tensor,
 
 #: B5's grid step: K9's default tile (128 lanes × lanes_tile_factor 4).
 STENCIL_TILE = 512
+#: B5's split: runs of consecutive steps over BASE_STENCIL_PER_SM CTAs an SM
+#: (``csrc/base_stencil1d.cu``'s kMinCtas), all resident at once.
+BASE_STENCIL_PER_SM = 16
+
+
+def _prepare_base_stencil1d(x: torch.Tensor, w: torch.Tensor,
+                            out_dtype: torch.dtype) -> _Prepared:
+    """Every check of B5, then its launch's arguments: the dtype, the
+    tile's loads (16-byte packs where x's base allows them, else one
+    element a load) and the split."""
+    name = "base_stencil1d"
+    dev = _checked_base(name, (x,), _FLOATS)
+    _checked_operands(name, (w,), (torch.float32,))
+    n = x.shape[1] - (STENCIL_TAPS - 1)
+    if x.shape[0] != 1 or n < 1 or tuple(w.shape) != (1, STENCIL_TAPS) \
+            or w.device != dev:
+        raise ValueError(f"{name}: needs x (1, n + {STENCIL_TAPS - 1})"
+                         f" and w (1, {STENCIL_TAPS}) on one device, got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    _f32_out(name, out_dtype)
+    # every step's tile starts 512 elements on: 16-byte packs where x's
+    # base does, whatever n
+    vec = 16 // x.element_size() if x.data_ptr() % 16 == 0 else 1
+    ctas, per_cta = _ctas(dev, -(-n // STENCIL_TILE),
+                          per_sm=BASE_STENCIL_PER_SM)
+    return _Prepared(name, dev, (1, n), torch.float32, (False, False), 0,
+                     (_DTYPE_CODE[x.dtype], vec, n, ctas, per_cta))
 
 
 def base_stencil1d(x: torch.Tensor, w: torch.Tensor,
                    out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """B5: y (1, n) f32 = Σ_j w[j]·x[i+j] over x (1, n + 10) and the f32
-    taps w (1, 11), one global load per tap, on K9's default CTAs."""
-    dev = _checked_base("base_stencil1d", (x,), _FLOATS)
-    _checked_operands("base_stencil1d", (w,), (torch.float32,))
-    n = x.shape[1] - (STENCIL_TAPS - 1)
-    if x.shape[0] != 1 or n < 1 or tuple(w.shape) != (1, STENCIL_TAPS) \
-            or w.device != dev:
-        raise ValueError(f"base_stencil1d: needs x (1, n + {STENCIL_TAPS - 1})"
-                         f" and w (1, {STENCIL_TAPS}) on one device, got "
-                         f"{tuple(x.shape)} and {tuple(w.shape)}")
-    _f32_out("base_stencil1d", out_dtype)
-    ctas, per_cta = _ctas(dev, -(-n // STENCIL_TILE),
-                          per_sm=STENCIL_PER_SM)          # K9's split
-    out = torch.empty((1, n), dtype=torch.float32, device=dev)
-    _launch("base_stencil1d", dev, x.data_ptr(), w.data_ptr(),
-            out.data_ptr(), _DTYPE_CODE[x.dtype], n, ctas, per_cta)
-    return out
+    taps w (1, 11): each step's 512 + 10 inputs staged in shared memory by
+    plain loads, then each output's 11 taps read from the tile in tap
+    order (:func:`base_stencil1d_model`'s bits).  Checked and built once
+    per key (:func:`_base_key`)."""
+    key = _base_key("base_stencil1d", (x, w), out_dtype)
+    return _run(_prepared(key, lambda: _prepare_base_stencil1d(
+        x, w, out_dtype)), (x, w))
 
 
 def _checked_ell(name: str, vals: torch.Tensor, cidx: torch.Tensor,
@@ -3742,18 +3862,45 @@ def base_spmv(vals: torch.Tensor, cidx: torch.Tensor, x: torch.Tensor,
     return out
 
 
+#: B7's CTA: BASE_SPMM_ROWS consecutive rows a warp at once, four warps,
+#: so BASE_SPMM_BAND consecutive rows a CTA (``csrc/base_spmm.cu``), and
+#: SPMM_COLS columns a CTA (grid y).
+BASE_SPMM_ROWS = 4
+BASE_SPMM_BAND = 4 * BASE_SPMM_ROWS
+#: The most CUDA allows in grid x and grid y.
+_GRID_X_MOST, _GRID_Y_MOST = 2 ** 31 - 1, 65535
+
+
+def _prepare_base_spmm(vals: torch.Tensor, cidx: torch.Tensor,
+                       x: torch.Tensor, out_dtype: torch.dtype) -> _Prepared:
+    """Every check of B7, then its launch's arguments: the sizes and the
+    segments' loads (16-byte where c % 4 == 0 and X's base allows them,
+    else four 4-byte loads a lane)."""
+    name = "base_spmm"
+    dev, m, k = _checked_ell(name, vals, cidx, x)
+    _f32_out(name, out_dtype)
+    n, c = x.shape
+    if -(-m // BASE_SPMM_BAND) > _GRID_X_MOST \
+            or -(-c // SPMM_COLS) > _GRID_Y_MOST:
+        raise ValueError(f"{name}: {m} rows in bands of {BASE_SPMM_BAND} and "
+                         f"{c} columns in chunks of {SPMM_COLS} exceed the "
+                         f"grid ({_GRID_X_MOST} × {_GRID_Y_MOST} CTAs)")
+    return _Prepared(name, dev, (m, c), torch.float32, (False,) * 3, 0,
+                     (m, k, n, c, _vector_width((x,), ())))
+
+
 def base_spmm(vals: torch.Tensor, cidx: torch.Tensor, x: torch.Tensor,
               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """B7: out (m, c) f32 = Σ_j vals[i, j]·X[clip(cidx[i, j]), :] over the
-    unpadded ELL planes and X (n, c): every lane loads the index itself,
-    then its columns of the row; on K13's CTAs (a warp a row, SPMM_COLS
-    columns a CTA)."""
-    dev, m, k = _checked_ell("base_spmm", vals, cidx, x)
-    _f32_out("base_spmm", out_dtype)
-    out = torch.empty((m, x.shape[1]), dtype=torch.float32, device=dev)
-    _launch("base_spmm", dev, vals.data_ptr(), cidx.data_ptr(), x.data_ptr(),
-            out.data_ptr(), m, k, x.shape[0], x.shape[1])
-    return out
+    unpadded ELL planes and X (n, c): each row's index loaded, its address
+    computed and clipped, its X segment and value loaded and used before
+    its next index; BASE_SPMM_ROWS rows a warp at once, CTAs on bands of
+    BASE_SPMM_BAND consecutive rows, 16-byte loads where X allows them
+    (:func:`base_spmm_model`'s bits).  Checked and built once per key
+    (:func:`_base_key`)."""
+    key = _base_key("base_spmm", (vals, cidx, x), out_dtype)
+    return _run(_prepared(key, lambda: _prepare_base_spmm(
+        vals, cidx, x, out_dtype)), (vals, cidx, x))
 
 
 def base_scan(x: torch.Tensor,

@@ -22,9 +22,11 @@ and CTAs.  From numpy seeds:
 * **the memo** — ``base_reduce`` and ``base_relu`` check and build a launch
   once a key, and a view off a 16-byte boundary is a key of its own whose
   launch reads one element an access (``vec = 1``);
-* **the rule** — neither source reads ahead: no ``ssr_for`` batch, no run
-  walk, no ring, no bulk copy, no prefetch, one kernel each, and the block
-  loop is rolled (``#pragma unroll 1``).
+* **the rule** — no baseline's source reads ahead (B1, B2, and B5 and B7,
+  whose bits and wrappers ``tests/test_torch_base_gathers.py`` holds): no
+  ``ssr_for`` batch, no run walk, no ring, no bulk copy, no prefetch, one
+  kernel each, and the block, element or step loop is rolled (``#pragma
+  unroll 1``).
 
 The card's checks (B1 to the model's bits, five runs to one set of bits,
 one device kernel a call, no local bytes, B2 to the bit) are in
@@ -276,11 +278,22 @@ def test_the_wrappers_refuse_what_their_kernels_do_not_take(monkeypatch,
 # -- the baselines' rule, in their sources ------------------------------------
 
 
-@pytest.mark.parametrize("name", sorted(POINTERS))
+#: each baseline's rolled loop: B1's and B2's block loop, B7's loop over a
+#: row's elements, B5's step loop (an output's taps are read from the
+#: step's tile)
+ROLLED = {
+    "base_reduce": r"for \(int64_t i = b0; i < b1; \+\+i\)",
+    "base_relu": r"for \(int64_t i = b0; i < b1; \+\+i\)",
+    "base_spmm": r"for \(int64_t j = 0; j < k; \+\+j\)",
+    "base_stencil1d": r"for \(int64_t step = first; step < last; \+\+step\)",
+}
+
+
+@pytest.mark.parametrize("name", sorted(ROLLED))
 def test_the_baselines_keep_an_explicit_load_before_every_use(name):
     """The header states the rule, and the code keeps it: one kernel with a
-    rolled block loop, no read-ahead batch, run walk, ring, bulk copy or
-    prefetch."""
+    rolled block, element or step loop, no read-ahead batch, run walk,
+    ring, bulk copy or prefetch."""
     text = (hopper.CSRC / f"{name}.cu").read_text()
     header = " ".join(line.lstrip("/").strip() for line in text.splitlines()
                       if line.startswith("//"))
@@ -291,5 +304,4 @@ def test_the_baselines_keep_an_explicit_load_before_every_use(name):
                    "__pipeline", "fold_partials"):
         assert banned not in code, banned
     assert code.count("__global__") == 1
-    assert re.search(r"#pragma unroll 1\s+for \(int64_t i = b0; i < b1; "
-                     r"\+\+i\)", code)
+    assert re.search(r"#pragma unroll 1\s+" + ROLLED[name], code)

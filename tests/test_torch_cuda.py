@@ -957,6 +957,69 @@ def test_base_spmv_and_spmm(dev, case):
             <= SPARSE_LIMIT
 
 
+def _off16(t):
+    """``t`` as a view one element off a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _same_bits(got, want) -> bool:
+    return np.array_equal(got.cpu().numpy().view(np.int32),
+                          np.asarray(want, np.float32).view(np.int32))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("k", [1, 27])
+@pytest.mark.parametrize("c", [128, 200, 3])
+def test_base_spmm_gives_its_models_bits(dev, c, k, aligned):
+    """B7 at 16-byte loads (c % 4 == 0, X aligned) and at 4-byte loads, on
+    rows past its last band and indices outside X (clipped): the model's
+    bits, five runs one set of bits."""
+    m, n = 1001, 700
+    rng = np.random.default_rng(c * k + aligned)
+    vals = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    cidx = torch.from_numpy(rng.integers(-2, n + 2, (m, k)).astype(np.int32))
+    X = torch.from_numpy(rng.standard_normal((n, c)).astype(np.float32))
+    want = hopper.base_spmm_model(vals.numpy(), cidx.numpy(), X.numpy())
+    vals, cidx, X = vals.to(dev), cidx.to(dev), X.to(dev)
+    if not aligned:
+        X = _off16(X)
+    before = dict(hopper.LAUNCHES)
+    runs = [hopper.base_spmm(vals, cidx, X) for _ in range(5)]
+    assert _launched(before) == {"base_spmm"}
+    assert all(_same_bits(r, want) for r in runs)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("n", [1, 7, 1025, 5000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_base_stencil1d_gives_its_models_bits(dev, n, dtype, aligned):
+    """B5 with its tile in 16-byte loads and one element a load, on a last
+    step shorter than the tile: the model's bits, five runs one set of
+    bits."""
+    rng = np.random.default_rng(n + aligned)
+    x = torch.from_numpy(rng.standard_normal(n + 10).astype(np.float32)
+                         ).to(dtype)
+    w = torch.from_numpy((rng.standard_normal(11) * 0.3).astype(np.float32))
+    want = hopper.base_stencil1d_model(x.float().numpy(), w.numpy())
+    xl, wl = x.to(dev).reshape(1, -1), w.to(dev).reshape(1, -1)
+    if not aligned:
+        xl = _off16(xl)
+    before = dict(hopper.LAUNCHES)
+    runs = [hopper.base_stencil1d(xl, wl) for _ in range(5)]
+    assert _launched(before) == {"base_stencil1d"}
+    assert all(_same_bits(r.reshape(-1), want) for r in runs)
+
+
+def test_base_spmm_and_stencil1d_spill_nothing(dev):
+    for name in ("base_spmm", "base_stencil1d"):
+        attrs = hopper.kernel_attributes(name)
+        assert attrs["localSizeBytes"] == 0, (name, attrs)
+        assert attrs["ctasPerSm"] >= 1, (name, attrs)
+
+
 def test_gather_addresses_are_64_bit(dev):
     """cidx · 128 past 2**31: a table of 2**31 + 2048 elements (8 GiB) read
     at rows beyond 2**24 gives the rows' values, not a wrapped address."""
