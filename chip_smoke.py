@@ -168,6 +168,19 @@ printing JSON lines:
    pairs) and per halo and attention cell (K9–K11 and R10–R12 at depth 2
    and at their ring depths) and per gather and scan cell (K12–K14 and
    R13–R15 at depth 2, 3, 4, 8 and the pairs);
+4b. the cluster (``parallel/cluster.py``): dot, relu, sum_sq_diff and
+   axpy_dot at n = 2**26, gemm at 4096**3, gemv at 8192**2 and stencil1d
+   at 2**26 through their registry entries' ``cluster`` at 1, 2, 4 and 8
+   cores, and each entry's odd example at 8 (tiles off 16-byte
+   boundaries), every launch counter at 0 just before: cores = 1 and every
+   map to the single-core entry's bits, the reduces within DOT_LIMIT of
+   Σ|terms| beside core 0's partial left out, each core's Hopper kernel
+   launched once, ``LAST_DISPATCH``'s cores and tile bounds, no fallback,
+   ``cluster_over_single`` and the entries' wall times (the
+   ``cluster_time`` lines); then the locality audit on dot and relu at 4
+   cores.  The device kernels of each clustered call at 1, 2, 4 and 8
+   cores are counted in phase 2's ``device_launches`` line, against
+   ``cluster_launches``;
 5. tune gemm 4096**3 over the quick candidates into the cache (one
    candidate per distinct kernel, depth-only variants racing as R3; a
    winner within the race's spread of the default is held back), and
@@ -456,6 +469,24 @@ STREAM_CELL = {"stream_bitonic": "sort", "stream_fft": "fft",
 ENTRY_ROWS = ("contract_gemv", "reduce_mul", "map_relu", "base_reduce",
               "base_relu", "base_gemv")
 
+# The cluster (parallel/cluster.py): each full-size cell's clustered entry
+# at these core counts (and its entry's odd example at the last), beside
+# the single-core entry.  Cell → (registry entry, mode, the Hopper kernel
+# one core's call launches)
+CLUSTER_CORES = (1, 2, 4, 8)
+CLUSTER_CELLS = {"dot": ("reduction", "reduce", "reduce_mul"),
+                 "relu": ("relu", "map", "map_relu"),
+                 "gemm": ("gemm", "map", "contract_gemm"),
+                 "gemv": ("gemv", "map", "contract_gemv"),
+                 "stencil1d": ("stencil1d", "map", "halo_stencil1d"),
+                 "sum_sq_diff": ("sum_sq_diff", "reduce", "chain_elem"),
+                 "axpy_dot": ("axpy_dot", "reduce", "chain_elem")}
+# device kernels of one single-core call of each cell (the stencil's: x and
+# w laid out by F.pad, then K9; the chains': K5 and its fold of the
+# partials), as the first run counted them (PERF.md §2)
+CLUSTER_SHARD_LAUNCHES = {"dot": 1, "relu": 1, "gemm": 1, "gemv": 1,
+                          "stencil1d": 3, "sum_sq_diff": 2, "axpy_dot": 2}
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -661,6 +692,180 @@ def first_block_zeroed(call):
             t[:rows, :cols] = 0
         out.append(t)
     return tuple(out)
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shapes, dtypes and bits (NaN payloads and signed zeros too)."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def cluster_launches(cell: str, cores: int) -> int:
+    """The device kernels of one clustered call: each core's call (a gemm
+    core on a column panel of B, Cc > 1, also lays the strided panel out
+    contiguous), then the reduce's combine (C − 1 adds, core 0 first) or
+    the map's assembly (one cat; the gemm's 2-D grid a cat a row of it
+    where Cc > 1, then one of the rows)."""
+    from repro_torch.parallel.cluster import factor_cores
+
+    shard = CLUSTER_SHARD_LAUNCHES[cell]
+    if cores == 1:
+        return shard
+    if CLUSTER_CELLS[cell][1] == "reduce":
+        return cores * shard + cores - 1
+    if cell != "gemm":
+        return cores * shard + 1
+    cr, cc = factor_cores(cores)
+    return cores * (shard + (cc > 1)) + (1 if cc == 1 else cr + 1)
+
+
+def cluster_traced_calls(dev: torch.device, inputs: dict) -> dict:
+    """``count_device_launches``'s entries for each cell's clustered call at
+    CLUSTER_CORES: ``cluster_launches`` device kernels, any names."""
+    from repro_torch.kernels import registry
+
+    def call(cell, c):
+        args, kw = inputs[cell]
+        entry = registry.get(CLUSTER_CELLS[cell][0])
+        return lambda: entry.cluster(*args, cores=c, device=dev, **kw)
+    return {f"cluster_{cell}_c{c}": (call(cell, c), cluster_launches(cell, c),
+                                     cluster_launches(cell, c), ("",))
+            for cell in CLUSTER_CELLS for c in CLUSTER_CORES}
+
+
+def cluster_phase(dev: torch.device, inputs: dict, smi: str) -> None:
+    """The cluster on the card: every cell of ``inputs`` (cell → (args,
+    kwargs), at full size) through its registry entry's ``cluster`` at
+    CLUSTER_CORES and on the entry's odd example at the last.  Hard: cores
+    = 1 to the single-core entry's bits; maps to its bits at every count;
+    reduces within DOT_LIMIT of Σ|terms| of it, beside a control with core
+    0's partial left out that must read above it; each core's Hopper
+    kernel launched once a core (``hopper.LAUNCHES``, counters at 0 just
+    before the drive; the device kernels a call are phase 2's, from
+    ``cluster_traced_calls``); ``LAST_DISPATCH``'s cores and tile bounds;
+    no fallback; the locality audit on dot (reduce) and relu (map) at 4
+    cores.  Reported: ``cluster_over_single`` (the single-core entry's ms
+    over the clustered entry's at each count, ``time_ms``) and both
+    entries' wall times once warm (``wall_ms``)."""
+    from repro_torch.core import hopper, lowering, resilience
+    from repro_torch.kernels import frontend, registry
+    from repro_torch.launch.audit import check_cluster_locality
+    from repro_torch.parallel import cluster
+
+    entries = {cell: registry.get(name)
+               for cell, (name, _m, _k) in CLUSTER_CELLS.items()}
+    top = CLUSTER_CORES[-1]
+    cases = [(cell, c, inputs[cell]) for cell in CLUSTER_CELLS
+             for c in CLUSTER_CORES]
+    for cell, e in entries.items():   # the odd examples, on the card
+        args, kw = e.example(np.random.default_rng(top), odd=True)
+        cases.append((f"{cell}_odd", top, (tuple(a.to(dev) for a in args),
+                                           kw)))
+
+    def cell_of(key: str) -> str:
+        return key[:-len("_odd")] if key.endswith("_odd") else key
+
+    def terms(cell: str, args, kw) -> float:
+        """Σ|terms| of a reduce, in float64."""
+        a = [t.double() for t in args]
+        if cell == "dot":
+            return float((a[0] * a[1]).abs().sum())
+        if cell == "sum_sq_diff":
+            return float(((a[0] - a[1]) ** 2).sum())
+        return float(((kw["alpha"] * a[0] + a[1]) * a[2]).abs().sum())
+
+    # what the clustered calls are held to, computed before the drive (so
+    # its counters see the clustered calls alone): the single-core entry,
+    # and a reduce's core-0 partial for the control
+    singles, partial0, scale = {}, {}, {}
+    for key, c, (args, kw) in cases:
+        cell = cell_of(key)
+        e = entries[cell]
+        if (key, 1) not in singles:
+            singles[key, 1] = e.ssr(*args, device=dev, **kw)
+        if CLUSTER_CELLS[cell][1] == "reduce" and c > 1:
+            (padded, n_pad) = cluster.pad_to_cores(args, c)
+            partial0[key, c] = e.ssr(*(t[:n_pad // c] for t in padded),
+                                     device=dev, **kw)
+            scale[key] = terms(cell, args, kw)
+    torch.cuda.synchronize()
+
+    # the cluster's main path, every counter at 0 just before it
+    lowering.reset_dispatch_stats()
+    frontend.reset_dispatch_stats()
+    resilience.reset_fallback_log()
+    hopper.reset_launches()
+    checks, failed, want_launches = {}, [], {}
+    for key, c, (args, kw) in cases:
+        cell = cell_of(key)
+        name, mode, kernel = CLUSTER_CELLS[cell]
+        want_launches[kernel] = want_launches.get(kernel, 0) + c
+        cluster.LAST_DISPATCH.clear()
+        got = entries[cell].cluster(*args, cores=c, device=dev, **kw)
+        torch.cuda.synchronize()
+        single = singles[key, 1]
+        check = {"cores": c}
+        if mode == "map" or c == 1:
+            check["bits"] = ok = bits_equal(got, single)
+        else:
+            err = abs(float(got) - float(single)) / scale[key]
+            control = abs(float(got - partial0[key, c]) - float(single)) \
+                / scale[key]
+            check.update(rel_err=err, control=control, limit=DOT_LIMIT)
+            ok = err <= DOT_LIMIT < control
+        if cell in ("dot", "relu", "sum_sq_diff", "axpy_dot"):
+            n_pad = cluster.pad_to_cores(args, c)[1]
+            d = dict(cluster.LAST_DISPATCH)
+            check["dispatch"] = [d.get("cores"), list(d.get("tile_bounds",
+                                                            ()))]
+            ok = ok and d.get("cores") == c and \
+                d.get("tile_bounds") == (n_pad // c,)
+        checks[f"{key}_c{c}"] = check
+        if not ok:
+            failed.append(f"{key}_c{c}")
+    launches = {k_: v for k_, v in hopper.LAUNCHES.items() if v}
+    fallbacks = {"events": len(resilience.fallback_events()),
+                 **{c_: lowering.DISPATCH_STATS[c_]
+                    for c_ in ("fallbacks", "degraded")}}
+    emit({"phase": "cluster_main_path", "launches": launches,
+          "want": want_launches, "fallbacks": fallbacks, "checks": checks})
+    if launches != want_launches:
+        failed.append(f"launches {launches} != {want_launches}")
+    if any(fallbacks.values()):
+        failed.append(f"a fallback fired: {fallbacks}")
+
+    # reported: each cell's clustered entry against its single-core entry
+    for cell, (name, _m, _k) in CLUSTER_CELLS.items():
+        args, kw = inputs[cell]
+        calls = {"single": lambda e=entries[cell]: e.ssr(*args, device=dev,
+                                                         **kw),
+                 **{c: (lambda c=c, e=entries[cell]: e.cluster(
+                     *args, cores=c, device=dev, **kw))
+                    for c in CLUSTER_CORES}}
+        ms = {c: time_ms(fn) for c, fn in calls.items()}
+        walls = {c: wall_ms(fn) for c, fn in calls.items()}
+        emit({"phase": "cluster_time", "cell": cell, "card": smi,
+              "ms": {str(c): t for c, t in ms.items()},
+              "cluster_over_single": {str(c): ms["single"] / ms[c]
+                                      for c in CLUSTER_CORES},
+              "entry_wall_ms": {str(c): t for c, t in walls.items()}})
+    if failed:
+        raise SystemExit(f"chip_smoke: the cluster failed its checks: "
+                         f"{failed}")
+
+    # the locality audit: dot's one combine, relu's none (a profile of no
+    # CUDA activity, after every CUDA trace of the run)
+    locality = {}
+    for cell, mode in (("dot", "reduce"), ("relu", "map")):
+        args, kw = inputs[cell]
+        chk = check_cluster_locality(
+            lambda *a, e=entries[cell], k=kw: e.cluster(
+                *a, cores=4, device=dev, **k), args, mode=mode, world=4)
+        locality[cell] = {"ok": chk.ok, "counts": chk.counts}
+    emit({"phase": "cluster_locality", "checks": locality})
+    if not all(c_["ok"] for c_ in locality.values()):
+        raise SystemExit(f"chip_smoke: a clustered call leaked off core: "
+                         f"{locality}")
 
 
 def chained_kernels(frontend, chained, relu, block_stream, direction):
@@ -895,6 +1100,12 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
     # and im planes ~ N(0, 1)
     xsc, xso = randn(SCAN_N), randn(SORT_N)
     fre, fim = randn(FFT_BATCH, FFT_N), randn(FFT_BATCH, FFT_N)
+    # the cluster cells (phase 4b; their device kernels traced in phase 2)
+    cluster_inputs = {"dot": ((x, y), {}), "relu": ((xr,), {}),
+                      "gemm": ((a, b), {}), "gemv": ((ga, gx), {}),
+                      "stencil1d": ((xs, ws), {}),
+                      "sum_sq_diff": ((x, y), {}),
+                      "axpy_dot": ((x, y, w), {"alpha": 0.5})}
     fused_args = {"gemv_relu": ((ga, gx), {}), "sum_sq_diff": ((x, y), {}),
                   "axpy_dot": ((x, y, w), {"alpha": 0.5}),
                   "layernorm": ((lx,), {}), "softmax_xent": ((lz, lp), {}),
@@ -1161,7 +1372,12 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         # composition one a stage (the residual alone its own kernel)
         "mlp_block": (path["mlp_block"], 1, 1, ("dag_mlp_kernel<",)),
         "mlp_block_unfused": (path["mlp_block_unfused"], 3, 3,
-                              ("dag_mlp_kernel<", "dag_mlp_residual<"))})
+                              ("dag_mlp_kernel<", "dag_mlp_residual<")),
+        # each cluster cell's call at 1, 2, 4 and 8 cores: C cores' kernels
+        # and the combine's or the assembly's (traced here, where the
+        # run's traces are whole at the first try: after phase 4 most took
+        # two, PERF.md §7)
+        **cluster_traced_calls(dev, cluster_inputs)})
     # a call deeper than 2 launches its ring kernel and no K kernel; its
     # depth-2 twin launches its K kernel and no ring
     ring_launches = {key: per_call[key] for pair in RING_PATH.items()
@@ -3559,6 +3775,9 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
             info["gathered_bytes"] = nnz * SPMM_RHS * 4
             info["gathered_bytes_per_ms"] = info["gathered_bytes"] / row["ms"]
         emit({"phase": "sparse_cell", "cell": cell, **info})
+
+    # -- 4b. the cluster on the full-size cells -------------------------------
+    cluster_phase(dev, cluster_inputs, smi)
 
     # -- 5. the tuner on the card --------------------------------------------
     nest, operands = compiler.gemm_nest(m, n, k), {"A": a, "B": b}

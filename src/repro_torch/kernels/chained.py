@@ -22,24 +22,26 @@ in ``repro.kernels.chained``:
 Each registry entry exposes ``ssr`` = the fused kernel, ``baseline`` = the
 honest unfused composition (the same streamed engine pinned to the default
 schedule, intermediate through device memory), and ``ref`` = the PyTorch
-oracle.  The ``cluster_*`` variants arrive with the cluster (port slice 7).
+oracle; ``sum_sq_diff`` and ``axpy_dot`` also ``cluster``, the fused chain
+on each of C cores (``parallel/cluster.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..core import compiler
 from ..core.compiler import LoopNest, MemRef
 from ..core.lowering import (DEFAULT_POLICY, DEFAULT_SCHEDULE, ssr_call,
                              ssr_chain_call)
 from ..core.ssr import KernelBody
 from ..core.stream import Direction
-from .frontend import BLOCK_ELEMS, NestKernel
+from .frontend import BLOCK_ELEMS, NestKernel, on_device
 from .gemv import matvec_block, ssr_gemv
 from .registry import KernelEntry, register_kernel
 from .relu import relu_block, ssr_relu
@@ -178,6 +180,27 @@ def unfused_sum_sq_diff(x: torch.Tensor, y: torch.Tensor, *,
                     mode="reduce", schedule=DEFAULT_SCHEDULE, device=device)
 
 
+def cluster_sum_sq_diff(x: torch.Tensor, y: torch.Tensor, *, cores: int,
+                        device=None) -> torch.Tensor:
+    """Σ (x − y)² on a C-core cluster: chaining × clustering composed.
+
+    Each core runs the whole fused map→reduce chain (K5 on the card) on its
+    views — the (x−y)² intermediate stays on chip — and only the final
+    partial crosses cores, in the one combine (§5.3's shared-TCDM
+    reduction).  Zero padding is neutral: (0−0)² = 0.
+    """
+    from ..parallel.cluster import cluster_chain_call, pad_to_cores
+
+    x, y = on_device((x, y), resolve_device(device))
+    (x, y), n_pad = pad_to_cores((x, y), cores)
+    # schedule pinned to match the fused single-core contract (the cores=1
+    # degenerate must stay bit-identical to fused_sum_sq_diff)
+    return cluster_chain_call(_chain_nests(n_pad, consumer_reads_w=False),
+                              (SQ_DIFF, IDENTITY), {"X": x, "Y": y},
+                              mode="reduce", cores=cores,
+                              schedule=DEFAULT_SCHEDULE, device=device)
+
+
 # --------------------------------------------------------------------------
 # axpy → dot: (α·x + y) · w through the chain() compiler path
 # --------------------------------------------------------------------------
@@ -228,6 +251,26 @@ def unfused_axpy_dot(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor, *,
                     mode="reduce", schedule=DEFAULT_SCHEDULE, device=device)
 
 
+def cluster_axpy_dot(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor, *,
+                     alpha: float = 1.0, cores: int = 1,
+                     device=None) -> torch.Tensor:
+    """(α·x + y)·w on a C-core cluster, the fused chain on each core.
+
+    Same composition as :func:`cluster_sum_sq_diff`: the axpy intermediate
+    never leaves its core's chip memory, one combine finishes the dot.
+    Zero padding is neutral: (α·0 + 0)·0 = 0.
+    """
+    from ..parallel.cluster import cluster_chain_call, pad_to_cores
+
+    x, y, w = on_device((x, y, w), resolve_device(device))
+    (x, y, w), n_pad = pad_to_cores((x, y, w), cores)
+    return cluster_chain_call(_chain_nests(n_pad, consumer_reads_w=True),
+                              (axpy_block(alpha), DOT),
+                              {"X": x, "Y": y, "W": w}, mode="reduce",
+                              cores=cores, schedule=DEFAULT_SCHEDULE,
+                              device=device)
+
+
 # --------------------------------------------------------------------------
 # Fused-case table: tests, chip_smoke.py and the registry iterate this.
 # --------------------------------------------------------------------------
@@ -239,6 +282,8 @@ class FusedCase:
 
     ``inter_type(*args)`` returns the (dtype, dims) of the padded 2-D
     buffer the *unfused* composition materialises for the intermediate.
+    ``cluster`` (optional) is the multi-core variant, forwarded to the
+    registry entry.
     """
 
     name: str
@@ -248,6 +293,7 @@ class FusedCase:
     example: Callable
     inter_type: Callable[..., Tuple[str, Tuple[int, ...]]]
     tol: Dict[str, float]
+    cluster: Optional[Callable] = None
 
 
 def _vector_inter(x, *rest, **kw) -> Tuple[str, Tuple[int, ...]]:
@@ -303,9 +349,11 @@ def fused_cases() -> Tuple[FusedCase, ...]:
                   unfused_stencil1d_relu, ref.stencil1d_relu_ref,
                   ex_stencil, _stencil_inter, loose),
         FusedCase("sum_sq_diff", fused_sum_sq_diff, unfused_sum_sq_diff,
-                  ref.sum_sq_diff_ref, ex_ssd, _vector_inter, reduce_tol),
+                  ref.sum_sq_diff_ref, ex_ssd, _vector_inter, reduce_tol,
+                  cluster=cluster_sum_sq_diff),
         FusedCase("axpy_dot", fused_axpy_dot, unfused_axpy_dot,
-                  ref.axpy_dot_ref, ex_axpy, _vector_inter, reduce_tol),
+                  ref.axpy_dot_ref, ex_axpy, _vector_inter, reduce_tol,
+                  cluster=cluster_axpy_dot),
     )
 
 
@@ -314,7 +362,8 @@ def _register(case: FusedCase) -> None:
     def _entry() -> KernelEntry:
         return KernelEntry(name=case.name, ssr=case.fused,
                            baseline=case.unfused, ref=case.ref,
-                           example=case.example, tol=dict(case.tol),
+                           cluster=case.cluster, example=case.example,
+                           tol=dict(case.tol),
                            problem=f"fused chain: {case.name}")
 
 

@@ -21,9 +21,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import resolve_device
 from ..core import compiler, hopper
 from ..core.ssr import KernelBody
-from .frontend import MonolithicKernel, NestKernel, promote
+from .frontend import MonolithicKernel, NestKernel, on_device, promote
 from .registry import KernelEntry, register_kernel
 
 
@@ -98,6 +99,37 @@ def baseline_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None,
     return _base(a, b, out_dtype=out_dtype, device=device)
 
 
+def cluster_matmul(a: torch.Tensor, b: torch.Tensor, *, cores: int,
+                   out_dtype=None, device=None) -> torch.Tensor:
+    """GEMM on a C-core cluster (paper §5.3): the 2-D row×col split.
+
+    The iteration space splits on *both* parallel levels: cores factor into
+    a (rows × cols) grid (closest to square), each core takes a view of a
+    row panel of A and of a column panel of B and runs the unchanged
+    compiled GEMM (K3 on the card) on its (m/Cr, n/Cc) output tile — the
+    contraction (k) stays core-local, so there is no combine.  A column
+    panel of B is a strided view, which the lowering lays out contiguous
+    for K3, one copy a core.  ``cores=1`` is ``ssr_matmul``.
+    """
+    from ..parallel.cluster import cluster_kernel2d, factor_cores
+
+    if cores == 1:
+        return ssr_matmul(a, b, out_dtype=out_dtype, device=device)
+    a, b = on_device((a, b), resolve_device(device))
+    cr, cc = factor_cores(cores)
+    m, n = a.shape[0], b.shape[1]
+    pm, pn = (-m) % cr, (-n) % cc
+    if pm:
+        a = F.pad(a, (0, 0, 0, pm))
+    if pn:
+        b = F.pad(b, (0, pn))
+    out = cluster_kernel2d(
+        lambda ac, bc: ssr_matmul(ac, bc, out_dtype=out_dtype,
+                                  device=device),
+        (a, b), cores=cores, in_dims=((0, None), (None, 1)), out_dims=(0, 1))
+    return out[:m, :n]
+
+
 @register_kernel("gemm")
 def _entry() -> KernelEntry:
     from . import ref
@@ -114,5 +146,5 @@ def _entry() -> KernelEntry:
 
     return KernelEntry(name="gemm", ssr=ssr_matmul,
                        baseline=baseline_matmul, ref=_ref,
-                       example=example, tol={"rtol": 2e-4, "atol": 2e-4},
+                       cluster=cluster_matmul, example=example, tol={"rtol": 2e-4, "atol": 2e-4},
                        problem="32×32 · 32×32")

@@ -18,9 +18,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..core import compiler, hopper
 from ..core.ssr import KernelBody
-from .frontend import ROWS, MonolithicKernel, NestKernel, pad_leading, promote
+from .frontend import (ROWS, MonolithicKernel, NestKernel, on_device,
+                       pad_leading, promote)
 from .registry import KernelEntry, register_kernel
 
 
@@ -42,6 +44,28 @@ def ssr_gemv(a: torch.Tensor, x: torch.Tensor, *, schedule=None,
              device=None) -> torch.Tensor:
     """Streamed GEMV through the full compiler path."""
     return _ssr(a, x, schedule=schedule, device=device)
+
+
+def cluster_gemv(a: torch.Tensor, x: torch.Tensor, *, cores: int,
+                 device=None) -> torch.Tensor:
+    """GEMV on a C-core cluster (paper §5.3): row-block split.
+
+    GEMV is a reduction *per row*, so the nest-level map/reduce modes do
+    not apply; instead the output rows split across cores
+    (``cluster_kernel``): each core runs the unchanged streamed GEMV (K4
+    on the card) on its view of a row panel of A with x replicated (the
+    TCDM broadcast), and the row tiles concatenate with no combine.  A is
+    padded (copied) only where ``cores · ROWS`` does not divide its rows.
+    """
+    from ..parallel.cluster import cluster_kernel
+
+    a, x = on_device((a, x), resolve_device(device))
+    m = a.shape[0]
+    a = pad_leading(a, cores * ROWS)
+    out = cluster_kernel(
+        lambda ac, xc: ssr_gemv(ac, xc, device=device),
+        (a, x), cores=cores, in_dims=(0, None), out_dim=0)
+    return out.reshape(-1)[:m]
 
 
 def _prepare_base(a, x):
@@ -76,6 +100,6 @@ def _entry() -> KernelEntry:
                 {})
 
     return KernelEntry(name="gemv", ssr=ssr_gemv, baseline=baseline_gemv,
-                       ref=ref.gemv_ref,
+                       ref=ref.gemv_ref, cluster=cluster_gemv,
                        example=example, tol={"rtol": 1e-3, "atol": 1e-3},
                        problem="64×64 · 64")

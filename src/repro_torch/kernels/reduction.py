@@ -18,9 +18,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..core import compiler, hopper
 from ..core.ssr import KernelBody
-from .frontend import MonolithicKernel, NestKernel, pad_vector, promote
+from .frontend import (MonolithicKernel, NestKernel, on_device, pad_vector,
+                       promote)
 from .registry import KernelEntry, register_kernel
 
 
@@ -60,6 +62,24 @@ def ssr_dot(x: torch.Tensor, y: torch.Tensor, *, schedule=None,
     return _ssr(x, y, schedule=schedule, device=device)
 
 
+def cluster_dot(x: torch.Tensor, y: torch.Tensor, *, cores: int,
+                device=None) -> torch.Tensor:
+    """Dot product on a C-core cluster (paper §5.3/Fig. 10).
+
+    The Fig. 4 nest split C ways on its (only) loop level; each core runs
+    K1 on its views of x and y (on the card), and the per-core partials
+    meet in the one combine.  Zero padding makes any n divisible and is
+    reduce-neutral.
+    """
+    from ..parallel.cluster import cluster_call, pad_to_cores
+
+    x, y = on_device((x, y), resolve_device(device))
+    (x, y), n_pad = pad_to_cores((x, y), cores)
+    return cluster_call(compiler.dot_product_nest(n_pad), MUL,
+                        {"A": x, "B": y}, mode="reduce", cores=cores,
+                        device=device)
+
+
 def baseline_dot(x: torch.Tensor, y: torch.Tensor, *,
                  device=None) -> torch.Tensor:
     """The monolithic baseline of the dot product."""
@@ -77,6 +97,6 @@ def _entry() -> KernelEntry:
                 {})
 
     return KernelEntry(name="reduction", ssr=ssr_dot, baseline=baseline_dot,
-                       ref=ref.dot_ref,
+                       ref=ref.dot_ref, cluster=cluster_dot,
                        example=example, tol={"rtol": 1e-2, "atol": 1e-2},
                        problem="dot product, n=2048")

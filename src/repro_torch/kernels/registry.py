@@ -37,6 +37,12 @@ class KernelEntry:
     ``ref``      — the plain-PyTorch oracle, also the ``ssrcfg``-off path
     ``baseline`` — the monolithic baseline (explicit in-body loads; takes
                    ``device=``)
+    ``cluster``  — the multi-core variant (paper §5.3–5.5): ``ssr``'s
+                   positional args plus ``cores=C`` (and ``device=``), the
+                   outer level split C ways (``parallel/cluster.py``);
+                   ``None`` where the iteration space has no clean outer
+                   split.  Not in :meth:`variants`, as in the reference:
+                   :meth:`cluster_variants` lists it
     ``example``  — ``example(rng, odd=False) -> (args, kwargs)``, CPU
                    tensors drawn from a numpy ``Generator``
     ``tol``      — allclose tolerances for ssr-vs-ref comparisons
@@ -47,6 +53,7 @@ class KernelEntry:
     ssr: Callable
     ref: Callable
     baseline: Optional[Callable] = None
+    cluster: Optional[Callable] = None
     example: Optional[Callable] = None
     tol: Dict[str, float] = dataclasses.field(
         default_factory=lambda: {"rtol": 1e-3, "atol": 1e-3})
@@ -57,6 +64,10 @@ class KernelEntry:
         if self.baseline is not None:
             out["baseline"] = self.baseline
         return out
+
+    def cluster_variants(self) -> Dict[str, Callable]:
+        """The multi-core variants, keyed like :meth:`variants`."""
+        return {"cluster": self.cluster} if self.cluster is not None else {}
 
 
 _FACTORIES: Dict[str, Callable[[], KernelEntry]] = {}

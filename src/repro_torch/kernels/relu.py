@@ -22,9 +22,11 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..core import compiler, hopper
 from ..core.ssr import KernelBody
-from .frontend import MonolithicKernel, NestKernel, pad_vector, trim_vector
+from .frontend import (MonolithicKernel, NestKernel, on_device, pad_vector,
+                       trim_vector)
 from .registry import KernelEntry, register_kernel
 from .ref import relu_ref
 
@@ -79,6 +81,26 @@ def baseline_relu(x: torch.Tensor, *, device=None) -> torch.Tensor:
     return _base(x, device=device)
 
 
+def cluster_relu(x: torch.Tensor, *, cores: int,
+                 device=None) -> torch.Tensor:
+    """ReLU on a C-core cluster (paper §5.3): a pure map split C ways.
+
+    Each core streams its view of x through the §3.2 compiler path (K2 on
+    the card), dtype kept as ``ssr_relu`` keeps it; the output tiles
+    concatenate along the split with no combine, because an elementwise
+    map shares nothing between cores.
+    """
+    from ..parallel.cluster import cluster_call, pad_to_cores
+
+    (x,) = on_device((x,), resolve_device(device))
+    n = x.shape[0]
+    (x,), n_pad = pad_to_cores((x,), cores)
+    out = cluster_call(compiler.elementwise_nest(n_pad), RELU, {"X": x},
+                       mode="map", cores=cores, out_dtype=x.dtype,
+                       device=device)
+    return out[:n]
+
+
 @register_kernel("relu")
 def _entry() -> KernelEntry:
     def example(rng: np.random.Generator, odd: bool = False):
@@ -87,6 +109,6 @@ def _entry() -> KernelEntry:
                 {})
 
     return KernelEntry(name="relu", ssr=ssr_relu, baseline=baseline_relu,
-                       ref=relu_ref,
+                       ref=relu_ref, cluster=cluster_relu,
                        example=example, tol={"rtol": 0.0, "atol": 0.0},
                        problem="max(0,x), n=1024")

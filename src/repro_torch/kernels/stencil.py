@@ -16,8 +16,9 @@ are never read.  A schedule deeper than 2 runs them as the ring kernels R10
 arithmetic, the widened items or windows arriving through an N-deep ring
 at the first slot's depth.  The 1-D baseline is the reference's monolithic kernel (one
 explicit dynamic-slice load per tap), on the card B5 ``base_stencil1d``
-(``csrc/base_stencil1d.cu``).  ``cluster_stencil1d`` arrives with the
-cluster (port slice 7).
+(``csrc/base_stencil1d.cu``).  ``cluster_stencil1d`` runs the 1-D
+stencil on C cores (``parallel/cluster.py``), each core on an overlapping
+view of x.
 """
 
 from __future__ import annotations
@@ -26,11 +27,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from .. import resolve_device
 from ..core import compiler, hopper
 from ..core.lowering import Schedule
 from ..core.ssr import KernelBody
-from .frontend import MonolithicKernel, NestKernel, promote
+from .frontend import MonolithicKernel, NestKernel, on_device, promote
 from .registry import KernelEntry, register_kernel
 
 TAPS = 11
@@ -110,6 +113,38 @@ def baseline_stencil1d(x: torch.Tensor, w: torch.Tensor, *,
     return _base_1d(x, w, device=device)
 
 
+def cluster_stencil1d(x: torch.Tensor, w: torch.Tensor, *, cores: int,
+                      device=None) -> torch.Tensor:
+    """1-D stencil on a C-core cluster (paper §5.3): output-tile split.
+
+    Each core owns a contiguous slab of ``tile`` outputs and reads its slab
+    plus a ``TAPS − 1`` halo of input — the shared-TCDM neighbourhood the
+    paper's cores read for free.  Core c's input is the view
+    ``x[c·tile : c·tile + tile + TAPS − 1]`` (C overlapping views of one
+    tensor, where the reference gathers C tiles); each core runs the
+    unchanged streamed stencil (K9 on the card) on it, and the output slabs
+    concatenate with no combine (per-element tap sums are the single-core
+    walk's, so the split is exact).  x is padded (copied) only where C
+    slabs reach past it.
+    """
+    from ..parallel.cluster import cluster_kernel
+
+    if cores == 1:
+        return ssr_stencil1d(x, w, device=device)
+    _check_taps(w)
+    x, w = on_device((x, w), resolve_device(device))
+    n = x.shape[0] - (TAPS - 1)
+    tile = -(-n // cores)
+    need = cores * tile + TAPS - 1
+    if need > x.shape[0]:
+        x = F.pad(x, (0, need - x.shape[0]))
+    tiles = x.contiguous().as_strided((cores, tile + TAPS - 1), (tile, 1))
+    out = cluster_kernel(
+        lambda xt, wt: ssr_stencil1d(xt[0], wt, device=device)[None, :],
+        (tiles, w), cores=cores, in_dims=(0, None), out_dim=0)
+    return out.reshape(-1)[:n]
+
+
 # -- 2-D --------------------------------------------------------------------
 
 
@@ -171,6 +206,7 @@ def _entry_1d() -> KernelEntry:
 
     return KernelEntry(name="stencil1d", ssr=ssr_stencil1d,
                        baseline=baseline_stencil1d, ref=ref.stencil1d_ref,
+                       cluster=cluster_stencil1d,
                        example=example, tol={"rtol": 1e-3, "atol": 1e-4},
                        problem="11-point star, n=1024")
 

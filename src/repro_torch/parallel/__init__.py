@@ -1,0 +1,13 @@
+"""Parallel execution subsystem of the port.
+
+* ``cluster``     — the paper's §5.3–5.5 multi-core cluster on one device:
+  streamed iteration spaces split C ways on their outer loop level
+  (``cluster_call`` / ``cluster_chain_call`` / ``cluster_kernel``), each
+  core one shard run through the single-core path, with a single
+  fixed-order sum standing in for the shared-TCDM combine.
+* ``sharding``, ``collectives``, ``activations`` — the model stack's
+  policies, ring matmuls and activation sharding: port slice 9.
+
+Import submodules explicitly (``from repro_torch.parallel import
+cluster``); this package root stays import-free.
+"""

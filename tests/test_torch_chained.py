@@ -313,8 +313,8 @@ def test_registry_lists_the_chains_like_the_reference():
     for name in CHAINED:
         e, je = registry.get(name), jregistry.get(name)
         assert (e.tol, e.problem) == (je.tol, je.problem)
-        assert sorted(e.variants()) == sorted(
-            v for v in je.variants() if v != "cluster")
+        assert sorted(e.variants()) == sorted(je.variants())
+        assert sorted(e.cluster_variants()) == sorted(je.cluster_variants())
         assert e.baseline is not None
 
 
@@ -326,6 +326,7 @@ def test_fused_case_table_matches_the_reference():
         args, kw = case.example(np.random.default_rng(1), odd=True)
         jargs, jkw = _jargs(args, kw)
         assert case.tol == theirs[name].tol
+        assert (case.cluster is None) == (theirs[name].cluster is None)
         assert case.inter_type(*args, **kw) == \
             theirs[name].inter_type(*jargs, **jkw)
 

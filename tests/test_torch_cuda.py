@@ -2982,3 +2982,53 @@ def test_ring_gather_copies_4_bytes_where_a_layout_is_off_16(dev, kind):
     assert _launched(before) == {ring}
     want = call.run()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# -- the cluster (parallel/cluster.py): C shards on one card ----------------
+
+#: each clustered entry → the Hopper kernel one of its cores launches
+CLUSTER_KERNEL = {"reduction": "reduce_mul", "relu": "map_relu",
+                  "gemm": "contract_gemm", "gemv": "contract_gemv",
+                  "stencil1d": "halo_stencil1d", "sum_sq_diff": "chain_elem",
+                  "axpy_dot": "chain_elem"}
+#: the reduces' Σ|terms|, the scale of DOT_LIMIT
+CLUSTER_SCALE = {
+    "reduction": lambda x, y: (x.float() * y.float()).abs().sum(),
+    "sum_sq_diff": lambda x, y: ((x.float() - y.float()) ** 2).sum(),
+    "axpy_dot": lambda x, y, w, alpha: (
+        (alpha * x.float() + y.float()) * w.float()).abs().sum(),
+}
+
+
+@pytest.mark.parametrize("cores", [2, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(CLUSTER_KERNEL))
+def test_cluster_variant_runs_its_kernel_on_every_core(dev, name, dtype,
+                                                       cores):
+    """On the odd example (tiles off 16-byte boundaries): one launch of the
+    entry's kernel a core; a map to the single-core entry's bits, a reduce
+    within DOT_LIMIT of Σ|terms| of it.  K5 takes f32 only: in bf16 the
+    chains refuse by name, single-core and clustered alike."""
+    entry = registry.get(name)
+    args, kw = entry.example(np.random.default_rng(cores), odd=True)
+    args = tuple(a.to(dev, dtype) for a in args)
+    if CLUSTER_KERNEL[name] == "chain_elem" and dtype != torch.float32:
+        for call in (lambda: entry.ssr(*args, device=dev, **kw),
+                     lambda: entry.cluster(*args, cores=cores, device=dev,
+                                           **kw)):
+            with pytest.raises(TypeError, match="chain_elem: operand 0 has "
+                               "dtype torch.bfloat16"):
+                call()
+        return
+    want = entry.ssr(*args, device=dev, **kw)
+    before = dict(hopper.LAUNCHES)
+    got = entry.cluster(*args, cores=cores, device=dev, **kw)
+    torch.cuda.synchronize()
+    kernel = CLUSTER_KERNEL[name]
+    assert hopper.LAUNCHES[kernel] - before[kernel] == cores
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if name in CLUSTER_SCALE:
+        scale = float(CLUSTER_SCALE[name](*args, **kw))
+        assert abs(float(got) - float(want)) <= DOT_LIMIT * scale
+    else:
+        assert torch.equal(got, want)

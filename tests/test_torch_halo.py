@@ -339,8 +339,8 @@ def test_registry_entries_match_the_reference():
     for name in ("stencil1d", "stencil2d", "stencil1d_relu"):
         e, je = registry.get(name), jregistry.get(name)
         assert (e.tol, e.problem) == (je.tol, je.problem)
-        assert sorted(e.variants()) == sorted(v for v in je.variants()
-                                              if v != "cluster")
+        assert sorted(e.variants()) == sorted(je.variants())
+        assert sorted(e.cluster_variants()) == sorted(je.cluster_variants())
         for odd in (False, True):
             args, kw = e.example(np.random.default_rng(2), odd=odd)
             jargs, jkw = je.example(np.random.default_rng(2), odd=odd)

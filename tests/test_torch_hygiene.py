@@ -40,7 +40,8 @@ def test_every_port_module_imports_without_jax_or_repro():
 
 
 @pytest.mark.parametrize(
-    "path", [*sorted(PORT.rglob("*.py")), SRC.parent / "chip_smoke.py"],
+    "path", [*sorted(PORT.rglob("*.py")), SRC.parent / "chip_smoke.py",
+             *sorted((SRC.parent / "examples").glob("torch_*.py"))],
     ids=lambda p: str(p.relative_to(PORT)) if p.is_relative_to(PORT)
     else p.name)
 def test_no_source_imports_jax_or_repro(path):

@@ -60,9 +60,8 @@ def test_registry_lists_the_slice():
         e, je = registry.get(name), jregistry.get(name)
         assert e.tol == je.tol and e.problem == je.problem
         assert (e.baseline is None) == (je.baseline is None)
-        # the cluster variants arrive with port slice 7
-        assert sorted(e.variants()) == sorted(v for v in je.variants()
-                                              if v != "cluster")
+        assert sorted(e.variants()) == sorted(je.variants())
+        assert sorted(e.cluster_variants()) == sorted(je.cluster_variants())
     with pytest.raises(KeyError, match="registered"):
         registry.get("typo")
 
