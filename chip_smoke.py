@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with a CUDA card::
 
-    python3 chip_smoke.py [--seed N]     # about a minute, the build included
+    python3 chip_smoke.py [--seed N]    # about six minutes, the build included
 
 The main path is the paper's compile-and-run loop (``ssrify`` →
 ``lower_plan``/``lower_nest`` → ``ssr_call``) behind ``repro_torch.kernels
@@ -199,11 +199,34 @@ printing JSON lines:
 6b. arm one ``compile`` fault under that cut and check that the call
    degrades to all-fused (one K6 launch), quarantines the entry and stays
    right;
-7. print the ``{"kernels": [...]}`` line (K1–K17, B1–B8 and R1–R15, 40
+7. the serving path (``models/``, ``launch/steps.py``,
+   ``launch/serve.py``), once phases 1–6's tensors are freed and the peak
+   memory counter reset: qwen3-14b at its published size (40 layers,
+   d_model 5120, 40/8 heads, d_ff 17408, vocab 151,936, bf16: 14.8 B
+   parameters, 27.5 GiB of weights drawn on the card from ``--seed``; the
+   phase peaks near 31 GiB) serves 8 prompts of 64 tokens from the data
+   pipeline through ``serve.generate`` (a first run, then a timed one: 31
+   greedy decode steps); hard checks, each beside a control that must read
+   above its limit: every logit finite; each decode step's logits against
+   one teacher-forced ``forward`` over the prompts and the generated
+   tokens (``SERVE_TF_LIMIT``; control: every cache's first position
+   zeroed); one 2048-token prefill through ``flash_sdpa`` (its 40 calls
+   counted), and ``flash_sdpa`` against ``_sdpa`` on layer 0's q, k, v
+   (``SERVE_FLASH_LIMIT``; control: ``_sdpa`` unmasked); the smoke variant
+   on the card against the CPU from one set of weights in f32 with TF32 off
+   (``SERVE_CPU_LIMIT``; control: the card on the weights rounded to
+   bf16).  The ``serve`` line reports, beside the card's name and power
+   limit, prefill ms and tokens/s, decode ms a step and tokens/s (the
+   serve CLI's report lines too), peak memory, one decode step's device
+   kernels and busy share (Σ kernel time over the step's wall time, from
+   ``torch.profiler``), and the bounds: a decode step's weight and cache
+   bytes over the HBM peak, prefill's 2·N·tokens over the dense bf16 peak;
+8. print the ``{"kernels": [...]}`` line (K1–K17, B1–B8 and R1–R15, 40
    rows; K11's and R12's rows are the attention_qwen3 cell, K11's row
    carries the other attention cells under ``cells``, which also have time
    and depth_sweep lines of their own; an R row times its main-path
-   depth), then the device line last.
+   depth), then the device line last.  The serving path runs no Pallas
+   kernel in the reference, so it adds no row.
 
 Phase 2 also drives the rings: ``ssr_dot``, ``ssr_relu`` (three dtypes),
 ``ssr_gemv`` and ``fused_gemv_relu`` at depth 4, ``ssr_matmul`` at depth
@@ -909,6 +932,312 @@ def chained_kernels(frontend, chained, relu, block_stream, direction):
     return axpy_relu, scale_relu
 
 
+
+# The serving phase (models/, launch/steps.py, launch/serve.py): qwen3-14b
+# at its published size (40 layers, d_model 5120, 40/8 heads, d_ff 17408,
+# vocab 151,936, bf16: 14.8 B parameters, 29.6 GB), random weights drawn on
+# the card from --seed; SERVE_BATCH prompts of SERVE_PROMPT tokens from the
+# data pipeline, SERVE_GEN greedy tokens (SERVE_GEN - 1 decode steps).
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "qwen3_14b", 8, 64, 32
+# (layers, d_model, heads, kv heads, d_ff, vocab, dtype) as published
+SERVE_SHAPE = (40, 5120, 40, 8, 17408, 151936, "bfloat16")
+# one prefill of this many tokens (batch 1) goes through flash_sdpa
+SERVE_FLASH_LEN = 2048
+# Published dense bf16 peak of the H100 SXM at 700 W (NVIDIA data sheet).
+BF16_PEAK = {"H100 80GB HBM3": 989e12}
+# Decode against teacher forcing: max |Δlogit| over the row's max |logit|.
+# Decode multiplies 8 rows where the forward multiplies 760, so the card's
+# GEMMs sum in other orders and a bf16 value of the residual stream may
+# round the other way (2**-8 of it) in any of the 40 layers: uncorrelated,
+# sqrt(40) · 2**-8 ≈ 0.025 of the logits, and 2.5 times that for the
+# limit, 2**-4.  The control (the caches' first position zeroed in every
+# layer) must read above it.
+SERVE_TF_LIMIT = 2.0 ** -4
+# flash_sdpa against _sdpa on layer 0's q, k, v at SERVE_FLASH_LEN: max |Δ|
+# over max |v|.  _sdpa rounds p to bf16 before p·v (≤ 2**-9 of max |v|),
+# and both round their output to bf16 (≤ 2**-9 of it each): 3 · 2**-9, so
+# 2**-7.  The control, _sdpa without the causal mask, must read above it.
+SERVE_FLASH_LIMIT = 2.0 ** -7
+# The smoke variant on the card against the CPU from one set of weights,
+# f32 with TF32 off: max |Δlogit| over the row's max |logit|.  The control,
+# the card's run on the weights rounded to bf16, must read above it.
+SERVE_CPU_LIMIT = 1e-5
+
+
+def row_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max over rows of max |got − want| / max |want| (the last axis)."""
+    return float(((got.float() - want.float()).abs().amax(-1)
+                  / want.float().abs().amax(-1)).max())
+
+
+def teacher_forcing(params, cfg, prompts, res, steps, model, blocks):
+    """(decode's error against one forward over the prompts and the
+    generated tokens, the same with every cache's first position zeroed):
+    ``row_err`` of each decode step's logits at its position."""
+    seq = torch.cat([prompts["tokens"], res.tokens[:, :-1]], dim=1)
+    with torch.no_grad():
+        full, _, _ = model.forward(params, cfg, tokens=seq)
+    want = full[:, res.start - 1:]
+    err = row_err(torch.cat(res.logits, dim=1), want)
+    _, caches = steps.make_prefill_step(
+        cfg, cache_len=res.start + SERVE_GEN + 1)(params, prompts)
+    for buf in blocks.tree_leaves(caches):     # (layers, B, slots, kv, hd)
+        buf[:, :, 0].zero_()
+    decode = steps.make_decode_step(cfg)
+    pos = torch.full((prompts["tokens"].shape[0],), res.start,
+                     dtype=torch.int32, device=seq.device)
+    ctrl = []
+    for t in range(SERVE_GEN - 1):
+        logits, caches = decode(params, caches, res.tokens[:, t:t + 1],
+                                pos + t)
+        ctrl.append(logits)
+    return err, row_err(torch.cat(ctrl, dim=1), want[:, 1:])
+
+
+def flash_against_sdpa(params, cfg, tokens, attention, flash, layers):
+    """flash_sdpa against _sdpa on layer 0's q, k, v of ``tokens`` (1, S):
+    (error, the control's error against _sdpa unmasked)."""
+    from torch.utils import _pytree as pytree
+
+    lp = pytree.tree_map_only(torch.Tensor, lambda t: t[0],
+                              params["groups"][0][0])
+    s = tokens.shape[1]
+    pos = torch.arange(s, device=tokens.device)[None]
+    with torch.no_grad():
+        x = layers.rms_norm(params["embed"][tokens].to(torch.bfloat16),
+                            lp["norm1"], cfg.norm_eps)
+        q, k, v = attention._qkv(lp["mixer"], x, cfg, pos)
+        scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
+        got = flash.flash_sdpa(q, k, v, q_pos=pos, k_pos=pos, causal=True,
+                               window=None, scale=scale)
+        want = attention._sdpa(q, k, v, attention._mask(
+            s, s, pos, pos, True, None), scale)
+        unmasked = attention._sdpa(q, k, v, attention._mask(
+            s, s, pos, pos, False, None), scale)
+    vmax = float(v.float().abs().max())
+    return (float((got.float() - want.float()).abs().max()) / vmax,
+            float((got.float() - unmasked.float()).abs().max()) / vmax)
+
+
+def card_against_cpu(seed, dev, configs, pipeline, steps, model):
+    """The smoke variant's prefill and 4 decode steps on the card and on
+    the CPU from one set of weights (drawn on the CPU), f32: (error, the
+    control's: the card on the weights rounded to bf16)."""
+    from torch.utils import _pytree as pytree
+
+    cfg = configs.get_smoke(SERVE_ARCH)
+    cpu_params = model.init_params(seed, cfg, device="cpu")
+    batch = pipeline.make_batch(cfg, pipeline.DataConfig(2, 16), 0,
+                                device="cpu")
+    batch.pop("labels")
+
+    def run_on(params, where):
+        b = {k: v.to(where) for k, v in batch.items()}
+        logits, caches = steps.make_prefill_step(cfg, cache_len=21)(params, b)
+        out = [logits]
+        tok = torch.zeros(2, 1, dtype=torch.int32, device=where)
+        for t in range(4):
+            pos = torch.full((2,), 16 + t, dtype=torch.int32, device=where)
+            logits, caches = steps.make_decode_step(cfg)(params, caches, tok,
+                                                         pos)
+            out.append(logits)
+            tok = (tok * 7 + 3) % cfg.vocab_size
+        return torch.cat(out, dim=1).cpu()
+
+    want = run_on(cpu_params, "cpu")
+    on_card = pytree.tree_map_only(torch.Tensor, lambda t: t.to(dev),
+                                   cpu_params)
+    rounded = pytree.tree_map_only(
+        torch.Tensor, lambda t: t.to(torch.bfloat16).float(), on_card)
+    return (row_err(run_on(on_card, dev), want),
+            row_err(run_on(rounded, dev), want))
+
+
+def decode_trace(fn, key: str):
+    """(device kernels, Σ their time in ms) of one ``fn()`` from a
+    ``torch.profiler`` trace."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    trace = os.path.join(os.environ["REPRO_SCHEDULE_CACHE"],
+                         f"trace_{key}.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f)
+    events = events.get("traceEvents", events) \
+        if isinstance(events, dict) else events
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return len(kernels), sum(float(e.get("dur", 0)) for e in kernels) / 1e3
+
+
+def serve_phase(seed: int, smi: str, card: str, dev: torch.device) -> None:
+    """Serve qwen3-14b at its published size through launch/serve.py's
+    prefill and decode functions, after the earlier phases' tensors are
+    freed; check decode against teacher forcing, flash_sdpa against _sdpa
+    at 2048 positions and the smoke variant on the card against the CPU,
+    each beside its control; report times, peak memory, a decode step's
+    kernels and busy share, and the bounds."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import attention, blocks, flash, layers, model
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    residual = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("chip_smoke: the serving phase needs TF32 off")
+
+    cfg = configs.get(SERVE_ARCH)
+    shape = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+             cfg.d_ff, cfg.vocab_size, cfg.param_dtype)
+    if shape != SERVE_SHAPE:
+        raise SystemExit(f"chip_smoke: {SERVE_ARCH} is not its published "
+                         f"size: {shape}")
+    n_params = cfg.param_count()
+    t0 = time.perf_counter()
+    params = model.init_params(torch.Generator(device=dev).manual_seed(seed),
+                               cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in blocks.tree_leaves(params))
+    embed_bytes = params["embed"].numel() * params["embed"].element_size()
+    prompts = pipeline.make_batch(
+        cfg, pipeline.DataConfig(SERVE_BATCH, SERVE_PROMPT, seed=11), 0,
+        device=dev)
+    prompts.pop("labels")
+
+    # a first run loads the kernels; the second is timed and checked
+    first = serve.generate(params, cfg, prompts, gen=SERVE_GEN)
+    res = serve.generate(params, cfg, prompts, gen=SERVE_GEN,
+                         keep_logits=True)
+    finite = all(bool(torch.isfinite(lg).all()) for lg in res.logits)
+    tf_err, tf_ctrl = teacher_forcing(params, cfg, prompts, res, steps,
+                                      model, blocks)
+
+    # one more decode step (the slot after the last), timed and traced
+    decode = steps.make_decode_step(cfg)
+    tok = res.tokens[:, -1:]
+    pos = torch.full((SERVE_BATCH,), res.start + SERVE_GEN - 1,
+                     dtype=torch.int32, device=dev)
+    step = lambda: decode(params, res.caches, tok, pos)  # noqa: E731
+    step_ms = wall_ms(step)
+    # the host's state, which sets a step's host time: the live Python
+    # objects a full collection walks (the earlier phases' leave many), a
+    # step timed with the collector off, and the dispatch modes on the stack
+    host_state = {"python_objects": len(gc.get_objects()),
+                  "dispatch_modes": torch._C._len_torch_dispatch_stack()}
+    gc.disable()
+    try:
+        host_state["decode_step_wall_ms_gc_off"] = wall_ms(step)
+    finally:
+        gc.enable()
+    n_kernels, kernel_ms = decode_trace(step, "serve_decode_step")
+    n_kernels_again, _ = decode_trace(step, "serve_decode_step_2")
+
+    # the flash path at full width: one prefill of SERVE_FLASH_LEN tokens
+    long_tokens = pipeline.make_batch(
+        cfg, pipeline.DataConfig(1, SERVE_FLASH_LEN, seed=12), 0,
+        device=dev)["tokens"]
+    calls = []
+    inner = attention.flash_sdpa
+
+    def counted(*a, **k):
+        calls.append(a[0].shape)
+        return inner(*a, **k)
+
+    attention.flash_sdpa = counted
+    try:
+        prefill_long = steps.make_prefill_step(
+            cfg, cache_len=SERVE_FLASH_LEN + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        long_logits, long_caches = prefill_long(params,
+                                                {"tokens": long_tokens})
+        torch.cuda.synchronize()
+        long_s = time.perf_counter() - t0
+    finally:
+        attention.flash_sdpa = inner
+    long_finite = bool(torch.isfinite(long_logits).all())
+    del long_logits, long_caches
+    flash_err, flash_ctrl = flash_against_sdpa(params, cfg, long_tokens,
+                                               attention, flash, layers)
+    peak = torch.cuda.max_memory_allocated()
+    prefill_s, decode_s = res.prefill_s, res.decode_s
+    report = serve.report(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, res)
+    same_tokens = bool(torch.equal(first.tokens, res.tokens))
+    last_pos = int(pos[0])
+    del params, first, res, prompts, tok, pos, long_tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cpu_err, cpu_ctrl = card_against_cpu(seed, dev, configs, pipeline,
+                                         steps, model)
+
+    bw, _ = card_peaks(card)
+    bf16 = next(v for k_, v in BF16_PEAK.items() if k_ in card)
+    # a decode step reads every weight but the embedding table (its B rows
+    # only) and the caches up to its position
+    cache_bytes = (2 * cfg.num_layers * SERVE_BATCH * (last_pos + 1)
+                   * cfg.num_kv_heads * cfg.resolved_head_dim * 2)
+    decode_bytes = weight_bytes - embed_bytes + \
+        SERVE_BATCH * cfg.d_model * 2 + cache_bytes
+    # prefill multiplies every parameter but the embedding table's, once a
+    # token (the head too: the forward takes every position's logits)
+    mm_params = n_params - cfg.vocab_size * cfg.d_model
+    tokens = SERVE_BATCH * SERVE_PROMPT
+    checks = {
+        "finite": finite and long_finite,
+        "same_tokens_both_runs": same_tokens,
+        "decode_vs_teacher_forcing": {"err": tf_err, "limit": SERVE_TF_LIMIT,
+                                      "control_first_position_zeroed":
+                                          tf_ctrl},
+        "flash_vs_sdpa": {"err": flash_err, "limit": SERVE_FLASH_LIMIT,
+                          "control_unmasked": flash_ctrl,
+                          "flash_calls": len(calls),
+                          "layers": cfg.num_layers},
+        "card_vs_cpu": {"err": cpu_err, "limit": SERVE_CPU_LIMIT,
+                        "control_bf16_weights": cpu_ctrl},
+    }
+    emit({"phase": "serve", "card": smi, "arch": cfg.name,
+          "params": n_params, "weights_gib": weight_bytes / 2**30,
+          "residual_gib_before": residual / 2**30, "init_s": init_s,
+          "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
+          "prefill_ms": prefill_s * 1e3, "prefill_tok_s": tokens / prefill_s,
+          "prefill_bound_ms": 2 * mm_params * tokens / bf16 * 1e3,
+          "decode_ms_step": decode_s / (SERVE_GEN - 1) * 1e3,
+          "decode_tok_s": SERVE_BATCH * SERVE_GEN / decode_s,
+          "decode_step_wall_ms": step_ms,
+          "decode_step_kernels": n_kernels,
+          "decode_step_kernels_second_trace": n_kernels_again,
+          "decode_step_kernel_ms": kernel_ms,
+          "decode_step_busy_share": kernel_ms / step_ms,
+          "decode_step_bound_ms": decode_bytes / bw * 1e3,
+          "decode_step_bytes": decode_bytes,
+          "prefill_long_tokens": SERVE_FLASH_LEN,
+          "prefill_long_ms": long_s * 1e3,
+          "prefill_long_tok_s": SERVE_FLASH_LEN / long_s,
+          "peak_gib": peak / 2**30, "host_state": host_state,
+          "report": report, "checks": checks})
+    bad = [name for name, ok in (
+        ("finite", checks["finite"]),
+        ("decode_vs_teacher_forcing", tf_err <= SERVE_TF_LIMIT < tf_ctrl),
+        ("flash_vs_sdpa", flash_err <= SERVE_FLASH_LIMIT < flash_ctrl
+         and len(calls) == cfg.num_layers),
+        ("card_vs_cpu", cpu_err <= SERVE_CPU_LIMIT < cpu_ctrl)) if not ok]
+    if bad:
+        raise SystemExit(f"chip_smoke: the serving phase failed {bad}: "
+                         f"{checks}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -935,12 +1264,21 @@ def main() -> int:
     # the main path must run its kernels: no opt-in rung may stand in
     os.environ.pop("REPRO_BASELINE_FALLBACK", None)
     try:
-        return run(root, args.seed, cache_dir)
+        rows, card, smi = run(root, args.seed, cache_dir)
+        # -- 7. the serving phase, once the earlier phases' tensors are gone
+        serve_phase(args.seed, smi, card, torch.device("cuda"))
+        # -- 8. result ------------------------------------------------------
+        emit({"kernels": rows})
+        emit({"ok": True, "device": {"platform": "gpu", "kind": card,
+                                     "count": torch.cuda.device_count()}})
+        return 0
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
 
 
-def run(root: Path, seed: int, cache_dir: str) -> int:
+def run(root: Path, seed: int, cache_dir: str):
+    """Phases 1–6 (all but the serving phase): returns the kernels line's
+    rows, the card's name and its ``nvidia-smi`` line."""
     sys.path.insert(0, str(root / "src"))
     import repro_torch
     from repro_torch.core import (autotune, compiler, hopper, lowering,
@@ -3978,11 +4316,7 @@ def run(root: Path, seed: int, cache_dir: str) -> int:
         raise SystemExit("chip_smoke: the compile fault under the committed "
                          "cut did not degrade to all-fused correctly")
 
-    # -- 7. result ----------------------------------------------------------
-    emit({"kernels": rows})
-    emit({"ok": True, "device": {"platform": "gpu", "kind": card,
-                                 "count": torch.cuda.device_count()}})
-    return 0
+    return rows, card, smi
 
 
 if __name__ == "__main__":

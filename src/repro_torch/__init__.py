@@ -1,16 +1,18 @@
 """PyTorch port of the SSR reproduction (``repro``), for NVIDIA Hopper.
 
 The package mirrors ``repro``'s layout — ``repro_torch.core`` holds the
-stream compiler and its lowering, ``repro_torch.kernels`` the kernel suite —
-and imports neither JAX nor anything of ``repro``.  The streamed kernels run
-as hand-written CUDA C++ (``csrc/``) on a CUDA device and through their plain
-PyTorch versions on the CPU.
+stream compiler and its lowering, ``repro_torch.kernels`` the kernel suite,
+``repro_torch.models``, ``configs``, ``data`` and ``launch.serve`` the
+dense model stack's serving path — and imports neither JAX nor anything of
+``repro``.  The streamed kernels run as hand-written CUDA C++ (``csrc/``)
+on a CUDA device and through their plain PyTorch versions on the CPU.
 
 Entry points (``kernels.ops``, ``core.lowering.ssr_call``,
-``kernels.frontend.NestKernel``) run on ``cuda`` unless the caller asks for
-the CPU, per call through ``device=`` or for the process through
-:func:`set_default_device`.  Asking for ``cuda`` where there is none raises:
-the CPU path is never taken silently.
+``kernels.frontend.NestKernel``, ``models.init_params``,
+``data.pipeline.make_batch``, ``launch.serve``) run on ``cuda`` unless the
+caller asks for the CPU, per call through ``device=`` or for the process
+through :func:`set_default_device`.  Asking for ``cuda`` where there is
+none raises: the CPU path is never taken silently.
 """
 
 from __future__ import annotations

@@ -12,7 +12,10 @@ from a reference object's fields (duck typing: nothing here imports
   tensors on a chosen device;
 * :func:`rekey_schedule` — a schedule committed for one backend (a single
   nest's, or a fused DAG's with its ``cut_edges``), served under another
-  backend's key.
+  backend's key;
+* :func:`params_from_reference` — a model's parameter tree, from the
+  reference's ``init_params`` (as numpy arrays), stacked axes included, so
+  both packages compute one function on one set of weights.
 
 The schedule cache needs no conversion: both packages write the same
 document (``version``, ``schedule`` JSON, ``meta``) under the same key for
@@ -53,8 +56,15 @@ def loop_nest_from_reference(nest: Any) -> LoopNest:
 
 
 def to_tensor(array: Any, device: DeviceLike = None) -> torch.Tensor:
-    """A numpy array (or anything ``np.asarray`` takes) as a tensor."""
-    return torch.as_tensor(np.asarray(array), device=resolve_device(device))
+    """A numpy array (or anything ``np.asarray`` takes) as a tensor; numpy's
+    ``bfloat16`` (``ml_dtypes``) arrives as ``torch.bfloat16``, bit for
+    bit."""
+    a = np.array(array)        # a writable copy: jax hands out read-only
+    dev = resolve_device(device)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16))
+        return bits.view(torch.bfloat16).to(dev)
+    return torch.as_tensor(a, device=dev)
 
 
 def operands_to_tensors(operands: Dict[str, Any],
@@ -106,3 +116,43 @@ def rekey_schedule(nest: Any, operands: Dict[str, Any], *,
               meta={**doc.get("meta", {}),
                     "rekeyed_from": {"key": src, "backend": from_backend}})
     return dst
+
+
+def params_from_reference(params: Any, cfg: Any,
+                          device: DeviceLike = None) -> Dict[str, Any]:
+    """The port's parameter tree holding a reference ``init_params`` tree's
+    values (numpy arrays, or anything ``np.asarray`` takes).
+
+    Both trees have one layout: ``embed``, ``frontend_proj``, ``groups``
+    (per scan group, per pattern element, the block's dict stacked on the
+    repeats axis), ``final_norm``, ``lm_head``; ``None`` stays ``None``.
+    Every leaf is checked against the port's own tree for ``cfg`` (built on
+    the meta device): the same key paths, shapes and dtypes, or
+    ``ValueError``.
+    """
+    from torch.utils import _pytree as pytree
+
+    from .models import model as mdl
+
+    given = {pytree.keystr(path): leaf for path, leaf
+             in pytree.tree_flatten_with_path(params)[0]}
+    want, spec = pytree.tree_flatten_with_path(
+        mdl.init_params(0, cfg, device="meta"))
+    paths = [pytree.keystr(path) for path, _ in want]
+    if set(given) != set(paths):
+        raise ValueError(f"the reference tree's leaves are not the port's "
+                         f"for {cfg.name}: {sorted(set(given) ^ set(paths))}")
+    out = []
+    for path, (_, w) in zip(paths, want):
+        if w is None:
+            if given[path] is not None:
+                raise ValueError(f"{path}: the port wants None")
+            out.append(None)
+            continue
+        t = to_tensor(given[path], device)
+        if tuple(t.shape) != tuple(w.shape) or t.dtype != w.dtype:
+            raise ValueError(
+                f"{path}: the reference gives {tuple(t.shape)} {t.dtype}, "
+                f"the port wants {tuple(w.shape)} {w.dtype}")
+        out.append(t)
+    return pytree.tree_unflatten(out, spec)

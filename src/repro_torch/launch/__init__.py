@@ -1,11 +1,14 @@
 """Launch-side tooling of the port.
 
-* ``audit`` — ``check_cluster_locality``: from a ``torch.profiler`` trace
+* ``audit`` — ``check_cluster_locality`` (from a ``torch.profiler`` trace
   of a clustered call, does every per-core intermediate stay core-local
-  but for the one combine?
+  but for the one combine?) and the fusion audits ``check_fusion`` /
+  ``check_dag_fusion`` (is a fused program's intermediate buffer gone?);
+* ``steps`` — the serving path's prefill and decode steps;
+* ``serve`` — batched serving and its command line (``python -m
+  repro_torch.launch.serve``).
 
-The reference's ``launch`` package also holds the mesh, the train/serve
-steps and the dry-run (port slice 9) and, beside its HLO cluster audit,
-the fusion audits and the HLO parser (port slice 8).  Import submodules
-explicitly; this package root stays import-free.
+The reference's ``launch`` package also holds the train step and loop
+(port slice 9c), the mesh, the dry-run and the HLO parser (port slice 9d).
+Import submodules explicitly; this package root stays import-free.
 """

@@ -5,8 +5,10 @@
   (``cluster_call`` / ``cluster_chain_call`` / ``cluster_kernel``), each
   core one shard run through the single-core path, with a single
   fixed-order sum standing in for the shared-TCDM combine.
-* ``sharding``, ``collectives``, ``activations`` — the model stack's
-  policies, ring matmuls and activation sharding: port slice 9.
+* ``activations`` — the model stack's activation-sharding constraints:
+  the identity on one device (a mesh is port slice 9d).
+* ``sharding``, ``collectives`` — the model stack's policies and ring
+  matmuls: port slice 9d.
 
 Import submodules explicitly (``from repro_torch.parallel import
 cluster``); this package root stays import-free.

@@ -3032,3 +3032,85 @@ def test_cluster_variant_runs_its_kernel_on_every_core(dev, name, dtype,
         assert abs(float(got) - float(want)) <= DOT_LIMIT * scale
     else:
         assert torch.equal(got, want)
+
+
+# -- the dense serving path (models/, launch/steps.py) ----------------------
+
+# logits on the card against the CPU, f32 with TF32 off: max |Δ| over the
+# row's max |logit| (chip_smoke.py's SERVE_CPU_LIMIT)
+SERVE_CPU_LIMIT = 1e-5
+
+
+@pytest.mark.parametrize("arch", ["qwen3_14b", "h2o_danube_18b",
+                                  "internvl2_26b"])
+def test_smoke_model_on_the_card_against_the_cpu(dev, arch):
+    """The smoke variant's weights drawn once on the CPU; prefill and four
+    decode steps on the card and on the CPU agree within the limit."""
+    from torch.utils import _pytree as pytree
+
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+
+    cfg = configs.get_smoke(arch)
+    cpu_params = model.init_params(0, cfg, device="cpu")
+    params = pytree.tree_map_only(torch.Tensor, lambda t: t.to(dev),
+                                  cpu_params)
+    batch = pipeline.make_batch(cfg, pipeline.DataConfig(2, 16), 0,
+                                device="cpu")
+    batch.pop("labels")
+    start = 16 + cfg.frontend_len
+    out = {}
+    for where, p in (("cpu", cpu_params), ("cuda", params)):
+        b = {k: v.to(where) for k, v in batch.items()}
+        logits, caches = steps.make_prefill_step(cfg, cache_len=start + 5)(
+            p, b)
+        seq = [logits]
+        tok = torch.zeros(2, 1, dtype=torch.int32, device=where)
+        for t in range(4):
+            pos = torch.full((2,), start + t, dtype=torch.int32,
+                             device=where)
+            logits, caches = steps.make_decode_step(cfg)(p, caches, tok, pos)
+            seq.append(logits)
+            tok = (tok * 7 + 3) % cfg.vocab_size
+        out[where] = torch.cat(seq, dim=1)
+    want, got = out["cpu"], out["cuda"].cpu()
+    assert bool(torch.isfinite(got).all())
+    scale = want.abs().amax(dim=-1, keepdim=True)
+    assert float(((got - want).abs() / scale).max()) <= SERVE_CPU_LIMIT
+
+
+def test_bf16_products_sum_in_f32_on_the_card(dev):
+    """dot_f32/bmm_f32 on bf16 CUDA operands: an f32 result that equals the
+    f32 product of the upcast operands within f32 rounding, not bf16's."""
+    from repro_torch.models import layers
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randn(4, 64, 512, generator=g, device=dev).bfloat16()
+    b = torch.randn(4, 512, 96, generator=g, device=dev).bfloat16()
+    want = torch.bmm(a.float(), b.float())
+    got = layers.bmm_f32(a, b)
+    assert got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 1e-4
+    got2 = layers.dot_f32(a, b[0])
+    assert got2.dtype == torch.float32
+    assert float((got2 - torch.matmul(a.float(), b[0].float())).abs().max()) \
+        <= 1e-4
+
+
+def test_fusion_audit_counts_device_work(dev):
+    from repro_torch.kernels import chained
+    from repro_torch.launch import audit
+
+    case = chained.fused_cases()[2]        # sum_sq_diff
+    args, kwargs = case.example(np.random.default_rng(7))
+    args = tuple(a.to(dev) for a in args)
+    dtype, dims = case.inter_type(*args, **kwargs)
+    chk = audit.check_fusion(
+        lambda *a, **k: case.fused(*a, device=dev, **k),
+        lambda *a, **k: case.unfused(*a, device=dev, **k),
+        args, kwargs, dtype, dims)
+    assert chk.fused_device_ops is not None
+    assert chk.fused_device_ops < chk.unfused_device_ops
+    assert chk.intermediate_eliminated

@@ -1,0 +1,60 @@
+#!/usr/bin/env python3
+"""chip_smoke.py's serving phase alone, in a fresh process.
+
+Run from the root of a checkout on a machine with a CUDA card::
+
+    python3 tools/serve_alone.py [--seed 0]
+
+Serves qwen3-14b at its published size (random bf16 weights drawn on the
+card from ``--seed``) exactly as ``chip_smoke.py``'s phase 7 does, with its
+checks, and prints its ``serve`` line; no kernel is built, so it takes
+about a minute and a half.  Beside ``chip_smoke.py``'s run it separates
+what the serving path costs from what the earlier phases leave in the
+process.  Exits non-zero without a CUDA device or if a check fails.
+"""
+
+import argparse
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
+
+import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("serve_alone: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    # the profiler's traces land in a temporary directory
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    traces = tempfile.mkdtemp(prefix="serve_alone_", dir=os.path.join(
+        ROOT, "build"))
+    os.environ["REPRO_SCHEDULE_CACHE"] = traces
+    try:
+        chip_smoke.serve_phase(args.seed, smi, torch.cuda.get_device_name(0),
+                               torch.device("cuda"))
+    finally:
+        shutil.rmtree(traces, ignore_errors=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
