@@ -221,12 +221,37 @@ printing JSON lines:
    kernels and busy share (Σ kernel time over the step's wall time, from
    ``torch.profiler``), and the bounds: a decode step's weight and cache
    bytes over the HBM peak, prefill's 2·N·tokens over the dense bf16 peak;
+7b. the experts, the latent attention and the recurrent mixers
+   (``models/moe.py``, MLA, ``models/ssm.py``), once phase 7's tensors
+   are freed, one config at a time at its published widths, depth cut by
+   setting every group's repeats to 1: deepseek-v3 (2 of 61 layers, one
+   dense and one of 256 experts top-8 with a shared one, 13.9 B
+   parameters), jamba-v0.1 (one 8-layer period: 7 Mamba, 1 attention, 4
+   MoE of 16 experts top-2, 13.3 B) and xlstm-125m (whole); each serves
+   the phase-7 batch through ``serve.generate`` (a first run recording
+   the MoE calls, then a timed one); hard checks beside their controls:
+   every logit finite; decode against teacher forcing at capacity factor
+   e / k (no slot drops at either token count) on the positions no
+   routing flip reaches (``FAMILY_TF_LIMIT``; flips counted from
+   ``_route`` on each MoE layer's input in both runs, at most
+   ``FAMILY_FLIP_CAP`` of the tokens, at least ``FAMILY_MIN_CHECKED`` of
+   the positions kept; xlstm-125m's on an f32 copy of its weights,
+   ``FAMILY_TF_F32``; control: every attention or latent cache's first
+   position and every recurrent state zeroed); deepseek's 2048-token
+   prefill through ``flash_sdpa`` (q·k over 192, v 128) against
+   ``_sdpa`` on layer 0 (``SERVE_FLASH_LIMIT``); the smoke variant on the
+   card against the CPU (``SERVE_CPU_LIMIT``, times its mLSTM layers).  The ``serve_families``
+   line reports per config prefill and decode times, peak memory, a
+   decode step's kernels and busy share, the dropped-slot shares at the
+   published capacity (prefill and each decode step) and the bounds (a
+   decode step reads every expert's weights: the dense-capacity dispatch
+   multiplies all e buffers);
 8. print the ``{"kernels": [...]}`` line (K1–K17, B1–B8 and R1–R15, 40
    rows; K11's and R12's rows are the attention_qwen3 cell, K11's row
    carries the other attention cells under ``cells``, which also have time
    and depth_sweep lines of their own; an R row times its main-path
-   depth), then the device line last.  The serving path runs no Pallas
-   kernel in the reference, so it adds no row.
+   depth), then the device line last.  The serving paths run no Pallas
+   kernel in the reference, so they add no row.
 
 Phase 2 also drives the rings: ``ssr_dot``, ``ssr_relu`` (three dtypes),
 ``ssr_gemv`` and ``fused_gemv_relu`` at depth 4, ``ssr_matmul`` at depth
@@ -1019,13 +1044,14 @@ def flash_against_sdpa(params, cfg, tokens, attention, flash, layers):
             float((got.float() - unmasked.float()).abs().max()) / vmax)
 
 
-def card_against_cpu(seed, dev, configs, pipeline, steps, model):
+def card_against_cpu(seed, dev, configs, pipeline, steps, model,
+                     arch=SERVE_ARCH):
     """The smoke variant's prefill and 4 decode steps on the card and on
     the CPU from one set of weights (drawn on the CPU), f32: (error, the
     control's: the card on the weights rounded to bf16)."""
     from torch.utils import _pytree as pytree
 
-    cfg = configs.get_smoke(SERVE_ARCH)
+    cfg = configs.get_smoke(arch)
     cpu_params = model.init_params(seed, cfg, device="cpu")
     batch = pipeline.make_batch(cfg, pipeline.DataConfig(2, 16), 0,
                                 device="cpu")
@@ -1238,6 +1264,447 @@ def serve_phase(seed: int, smi: str, card: str, dev: torch.device) -> None:
                          f"{checks}")
 
 
+# Phase 7b: the experts, the latent attention and the recurrent mixers at
+# their published widths.  deepseek-v3 and jamba are configs.get(...) with
+# every group's repeats set to 1 (smoke_variant's cut of depth): deepseek's
+# first dense layer and first MoE layer (2 of 61), jamba's one 8-layer
+# period (of 4); xlstm-125m runs whole (12 layers).
+FAMILY_ARCHS = ("deepseek_v3_671b", "jamba_v01_52b", "xlstm_125m")
+FAMILY_DEPTH_CUT = ("deepseek_v3_671b", "jamba_v01_52b")
+FAMILY_CUT = {"deepseek_v3_671b": "2 of 61 layers: one (mla, mlp), one "
+                                  "(mla, moe)",
+              "jamba_v01_52b": "one 8-layer period of 4: 7 Mamba, 1 "
+                               "attention, 4 MoE",
+              "xlstm_125m": "none: 12 layers, 10 mLSTM, 2 sLSTM"}
+# Decode against teacher forcing, max |Δlogit| over the row's max |logit|
+# on the rows no routing flip reaches.  √L · 2**-8 · 2.5 (phase 7's
+# derivation) gives 0.014, 0.028 and 0.034 for 2, 8 and 12 layers; the
+# absorbed MLA decode rounds q·W_uk to bf16 where the forward rounds
+# ckv·W_uk, and an mLSTM layer's normaliser amplifies a difference in its
+# input several times (tests/test_torch_models.py::logits_limit), so phase
+# 7's 2**-4 holds for all three.  The control (the first position of every
+# attention or latent cache zeroed, every recurrent state zeroed) must read
+# above it.
+FAMILY_TF_LIMIT = 2.0 ** -4
+# xlstm-125m's check runs on an f32 copy of its weights: in bf16 the
+# reference's own decode reads 0.16-0.31 of max |logit| from its own
+# forward (7 steps after a 64-token prefill, on the CPU), its mLSTM
+# normalisers amplifying bf16 roundings, where in f32 it reads 2.6e-4.
+# The f32 limit is 2**-8, 15 times that reading.
+FAMILY_TF_F32 = {"xlstm_125m": 2.0 ** -8}
+# At least this share of the compared positions must stay in the check
+# once the positions that routing flips reach are left out.
+FAMILY_MIN_CHECKED = 1 / 8
+# Routing flips.  A token's top-k set can differ between decode and the
+# forward from one bf16 rounding of the router's input: the residual
+# stream differs by a bf16 ulp in a share of its elements, which moves a
+# logit by about 2**-9 · sqrt(0.2 · d) / sqrt(d) ≈ 1e-3 of its N(0, 1)
+# scale, against a gap between the k-th and (k+1)-th of e logits of about
+# 0.06 (deepseek: 8th of 256) and 0.4 (jamba: 2nd of 16): a flip a token
+# with a chance of ~3 % (deepseek) and ~0.5 % a layer (jamba, 4 layers).
+# The cap is 10 % of the tokens (prompt and generated), about three times
+# the larger.
+FAMILY_FLIP_CAP = 0.1
+# mla_full's flash path against _sdpa on layer 0's q, k, v at 2048
+# positions (q·k over 192 dims, v 128): phase 7's SERVE_FLASH_LIMIT.
+FAMILY_FLASH_ARCH, FAMILY_FLASH_LEN = "deepseek_v3_671b", 2048
+
+
+def family_config(configs, arch: str):
+    """``configs.get(arch)``, every group's repeats set to 1 where the
+    depth is cut."""
+    cfg = configs.get(arch)
+    if arch not in FAMILY_DEPTH_CUT:
+        return cfg
+    return dataclasses.replace(cfg, groups=tuple(
+        dataclasses.replace(g, repeats=1) for g in cfg.groups))
+
+
+def mlstm_layers(cfg) -> int:
+    return sum(g.repeats * sum(m == "mlstm" for m, _ in g.pattern)
+               for g in cfg.groups)
+
+
+def moe_layers(cfg):
+    """Per MoE block in layer order: whether a mixer follows it (a
+    difference at one position then reaches every later position)."""
+    seq = [f for g in cfg.groups for _ in range(g.repeats)
+           for _, f in g.pattern]
+    return [i < len(seq) - 1 for i, f in enumerate(seq) if f == "moe"]
+
+
+class RecordMoE:
+    """Records every ``moe_apply`` call's input and router while active."""
+
+    def __init__(self, moe):
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        inner = self.inner = self.moe.moe_apply
+
+        def recording(params, x, cfg):
+            self.calls.append((x, params["router"]))
+            return inner(params, x, cfg)
+
+        self.moe.moe_apply = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_apply = self.inner
+
+
+def routed_sets(moe, x, router, m):
+    """(B, S, k) sorted expert ids of x (B, S, D) from the port's _route."""
+    _, ids, _, _ = moe._route(x.reshape(-1, x.shape[-1]), router, m)
+    return torch.sort(ids, dim=-1).values.reshape(*x.shape[:2], -1)
+
+
+def dropped_shares(moe, calls, m):
+    """The share of each call's dispatch slots past its capacity."""
+    out = []
+    for x, router in calls:
+        n = x.shape[0] * x.shape[1]
+        _, ids, _, _ = moe._route(x.reshape(n, -1), router, m)
+        pos = moe._positions_in_expert(ids.reshape(-1), m.num_experts)
+        out.append(float((pos >= moe.capacity(n, m)).float().mean()))
+    return out
+
+
+def zero_state(caches):
+    """The control: every attention or latent cache's first position
+    zeroed, every recurrent state zeroed, in place."""
+    from torch.utils import _pytree as pytree
+    for path, leaf in pytree.tree_flatten_with_path(caches)[0]:
+        if path[-1].key in ("k", "v", "lat"):
+            leaf[:, :, 0].zero_()        # (layers, B, slots, ...)
+        else:
+            leaf.zero_()
+
+
+def family_teacher_forcing(params, cfg, prompts, gen, serve, steps, model,
+                           moe, limit=FAMILY_TF_LIMIT):
+    """Decode at an ample capacity (factor e / k: no slot drops at either
+    token count) against one teacher-forced forward over the prompts and
+    the generated tokens: the error on the compared positions no routing
+    flip reaches, the control's on all, the tokens whose top-k set differs
+    in any MoE layer (prompt and generated) and the compared positions
+    left out."""
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    with RecordMoE(moe) as run:
+        res = serve.generate(params, cfg, prompts, gen=gen,
+                             keep_logits=True)
+    seq = torch.cat([prompts["tokens"], res.tokens[:, :-1]], dim=1)
+    with RecordMoE(moe) as fwd, torch.no_grad():
+        full, _, _ = model.forward(params, cfg, tokens=seq)
+    b, start = seq.shape[0], res.start
+    want = full[:, start - 1:]                       # (B, gen, V)
+    got = torch.cat(res.logits, dim=1)
+    err = ((got - want).abs().amax(-1) / want.abs().amax(-1))  # (B, gen)
+    left_out = torch.zeros((b, gen), dtype=torch.bool, device=seq.device)
+    flipped = torch.zeros(seq.shape, dtype=torch.bool, device=seq.device)
+    follows = moe_layers(cfg)
+    if follows:
+        n = len(follows)
+        # the run's calls: prefill's n, then n a decode step
+        for i, mixes in enumerate(follows):
+            ran = torch.cat([x for x, _ in run.calls[i::n]], dim=1)
+            want_sets = routed_sets(moe, fwd.calls[i][0], fwd.calls[i][1],
+                                    cfg.moe)[:, :ran.shape[1]]
+            flip = (routed_sets(moe, ran, run.calls[i][1], cfg.moe)
+                    != want_sets).any(-1)            # (B, positions)
+            flipped |= flip
+            # a flip reaches the logits at its own position, and at every
+            # later one where a mixer follows its layer
+            hit = flip.cumsum(1) > 0 if mixes else flip
+            left_out |= hit[:, start - 1:start - 1 + gen]
+    tf_err = float(err[~left_out].max()) if bool((~left_out).any()) \
+        else float("inf")
+    # every position left out is printed, with the error it reads
+    out_rows = {str(r): [start - 1 + int(t) for t in
+                         left_out[r].nonzero().flatten()]
+                for r in range(b) if bool(left_out[r].any())}
+    out_err = float(err[left_out].max()) if bool(left_out.any()) else None
+    _, caches = steps.make_prefill_step(cfg, cache_len=start + gen + 1)(
+        params, prompts)
+    zero_state(caches)
+    decode = steps.make_decode_step(cfg)
+    pos = torch.full((b,), start, dtype=torch.int32, device=seq.device)
+    ctrl = []
+    for t in range(gen - 1):
+        logits, caches = decode(params, caches, res.tokens[:, t:t + 1],
+                                pos + t)
+        ctrl.append(logits)
+    ctrl_err = row_err(torch.cat(ctrl, dim=1), want[:, 1:])
+    return {"err": tf_err, "limit": limit, "dtype": cfg.param_dtype,
+            "control_state_zeroed": ctrl_err,
+            "flipped_tokens": int(flipped.sum()), "tokens": flipped.numel(),
+            "flip_cap": FAMILY_FLIP_CAP, "compared_tokens": b * gen,
+            "compared_left_out": int(left_out.sum()),
+            "left_out_positions": out_rows, "left_out_err": out_err}
+
+
+def mla_flash_against_sdpa(params, cfg, tokens, attention, flash, layers):
+    """mla_full's flash_sdpa against _sdpa on layer 0's q, k, v (q·k over
+    the rope-folded 192 dims, v 128): (error, the control's: _sdpa
+    unmasked), over max |v|."""
+    from torch.utils import _pytree as pytree
+
+    lp = pytree.tree_map_only(torch.Tensor, lambda t: t[0],
+                              params["groups"][0][0])
+    m, h = cfg.mla, cfg.num_heads
+    s = tokens.shape[1]
+    pos = torch.arange(s, device=tokens.device)[None]
+    with torch.no_grad():
+        x = layers.rms_norm(params["embed"][tokens].to(torch.bfloat16),
+                            lp["norm1"], cfg.norm_eps)
+        q_nope, q_rope, ckv, kr = attention._mla_qkr(lp["mixer"], x, cfg,
+                                                     pos)
+        k_nope = layers.dot(ckv, lp["mixer"]["wuk"]).reshape(
+            1, s, h, m.qk_nope_head_dim)
+        v = layers.dot(ckv, lp["mixer"]["wuv"]).reshape(1, s, h,
+                                                        m.v_head_dim)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, kr[:, :, None].expand(
+            1, s, h, m.qk_rope_head_dim)], dim=-1)
+        scale = 1.0 / math.sqrt(m.qk_head_dim)
+        got = flash.flash_sdpa(q, k, v, q_pos=pos, k_pos=pos, causal=True,
+                               window=None, scale=scale)
+        want = attention._sdpa(q, k, v, attention._mask(
+            s, s, pos, pos, True, None), scale)
+        unmasked = attention._sdpa(q, k, v, attention._mask(
+            s, s, pos, pos, False, None), scale)
+    vmax = float(v.float().abs().max())
+    return (float((got.float() - want.float()).abs().max()) / vmax,
+            float((got.float() - unmasked.float()).abs().max()) / vmax,
+            (q.shape[-1], v.shape[-1]))
+
+
+def family_bounds(cfg, params, caches, n_params, tokens, card, blocks,
+                  moe):
+    """(prefill bound ms, decode step bound ms, decode step bytes).
+
+    Prefill: the larger of its products' operations over the dense bf16
+    peak (2 · the multiplied non-expert parameters a token, and every
+    expert's (capacity, d) buffer through its three products, as the
+    dense-capacity dispatch computes them) and its weights read once.  A
+    decode step reads every weight but the embedding table's rows (every
+    expert's too: the dispatch multiplies all e buffers, routed or not)
+    and every cache whole, and writes the recurrent state back."""
+    from torch.utils import _pytree as pytree
+
+    bw, _ = card_peaks(card)
+    bf16 = next(v for k_, v in BF16_PEAK.items() if k_ in card)
+    leaves = pytree.tree_flatten_with_path(params)[0]
+    expert = sum(t.numel() for p, t in leaves
+                 if t is not None and "experts" in pytree.keystr(p))
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in blocks.tree_leaves(params))
+    embed = params["embed"]
+    flops = 2 * (n_params - expert - embed.numel()
+                 + (embed.numel() if cfg.tie_embeddings else 0)) * tokens
+    if cfg.moe is not None:
+        m = cfg.moe
+        c = moe.capacity(tokens, m)
+        n_moe = len(moe_layers(cfg))
+        flops += n_moe * 2 * 3 * cfg.d_model * m.d_expert * m.num_experts * c
+    prefill_ms = max(flops / bf16, (weight_bytes - embed.numel()
+                                    * embed.element_size()) / bw) * 1e3
+    state = 0
+    cache_bytes = 0
+    for p, t in pytree.tree_flatten_with_path(caches)[0]:
+        nbytes = t.numel() * t.element_size()
+        cache_bytes += nbytes
+        if p[-1].key not in ("k", "v", "lat"):
+            state += nbytes
+    b = next(t for t in blocks.tree_leaves(caches)).shape[1]
+    decode_bytes = (weight_bytes - embed.numel() * embed.element_size()
+                    + b * cfg.d_model * embed.element_size() + cache_bytes
+                    + state)
+    return prefill_ms, decode_bytes / bw * 1e3, decode_bytes
+
+
+def families_phase(seed: int, smi: str, card: str,
+                   dev: torch.device) -> None:
+    """Phase 7b: serve deepseek-v3 (2 layers), jamba (one period) and
+    xlstm-125m (whole) at their published widths through launch/serve.py,
+    one config at a time (the previous one's tensors freed); check every
+    logit finite, decode against teacher forcing at an ample capacity (the
+    tokens a routing flip reaches left out and counted; xlstm in f32),
+    mla_full's flash
+    path against _sdpa at 2048 positions (deepseek) and each smoke variant
+    on the card against the CPU, each beside its control; report the
+    ``serve_families`` line."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.data import pipeline
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import (attention, blocks, flash, layers, model,
+                                    moe)
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("chip_smoke: phase 7b needs TF32 off")
+    rows, bad = [], []
+    for arch in FAMILY_ARCHS:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        residual = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = family_config(configs, arch)
+        n_params = cfg.param_count()
+        t0 = time.perf_counter()
+        params = model.init_params(
+            torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated()
+        weight_bytes = sum(t.numel() * t.element_size()
+                           for t in blocks.tree_leaves(params))
+        prompts = pipeline.make_batch(
+            cfg, pipeline.DataConfig(SERVE_BATCH, SERVE_PROMPT, seed=11), 0,
+            device=dev)
+        prompts.pop("labels")
+
+        # a first run, recorded: the MoE calls' dropped shares at the
+        # published capacity; the second is timed
+        with RecordMoE(moe) as rec:
+            first = serve.generate(params, cfg, prompts, gen=SERVE_GEN)
+        dropped = {}
+        if cfg.moe is not None:
+            shares = dropped_shares(moe, rec.calls, cfg.moe)
+            n = len(moe_layers(cfg))
+            dropped = {"capacity_factor": cfg.moe.capacity_factor,
+                       "prefill": shares[:n],
+                       "decode_steps": [shares[i:i + n] for i in
+                                        range(n, len(shares), n)]}
+        del rec
+        res = serve.generate(params, cfg, prompts, gen=SERVE_GEN,
+                             keep_logits=True)
+        finite = all(bool(torch.isfinite(lg).all()) for lg in res.logits)
+        same_tokens = bool(torch.equal(first.tokens, res.tokens))
+        del first
+
+        decode = steps.make_decode_step(cfg)
+        tok = res.tokens[:, -1:]
+        pos = torch.full((SERVE_BATCH,), res.start + SERVE_GEN - 1,
+                         dtype=torch.int32, device=dev)
+        step = lambda: decode(params, res.caches, tok, pos)  # noqa: E731
+        step_ms = wall_ms(step)
+        n_kernels, kernel_ms = decode_trace(step, f"families_{arch}")
+        prefill_bound, decode_bound, decode_bytes = family_bounds(
+            cfg, params, res.caches, n_params, SERVE_BATCH * SERVE_PROMPT,
+            card, blocks, moe)
+        report = serve.report(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, res)
+        prefill_s, decode_s = res.prefill_s, res.decode_s
+        del res, step
+        gc.collect()
+
+        if arch in FAMILY_TF_F32:
+            from torch.utils import _pytree as pytree
+            tf = family_teacher_forcing(
+                pytree.tree_map_only(torch.Tensor, lambda t: t.float(),
+                                     params),
+                dataclasses.replace(cfg, param_dtype="float32",
+                                    compute_dtype="float32"),
+                prompts, SERVE_GEN, serve, steps, model, moe,
+                limit=FAMILY_TF_F32[arch])
+        else:
+            tf = family_teacher_forcing(params, cfg, prompts, SERVE_GEN,
+                                        serve, steps, model, moe)
+        checks = {"finite": finite, "same_tokens_both_runs": same_tokens,
+                  "decode_vs_teacher_forcing": tf}
+        ok = finite and tf["err"] <= tf["limit"] \
+            < tf["control_state_zeroed"] \
+            and tf["flipped_tokens"] <= FAMILY_FLIP_CAP * tf["tokens"] \
+            and tf["compared_left_out"] <= (1 - FAMILY_MIN_CHECKED) * tf[
+                "compared_tokens"]
+        extra = {}
+        if arch == FAMILY_FLASH_ARCH:
+            long_tokens = pipeline.make_batch(
+                cfg, pipeline.DataConfig(1, FAMILY_FLASH_LEN, seed=12), 0,
+                device=dev)["tokens"]
+            calls = []
+            inner = attention.flash_sdpa
+
+            def counted(*a, **k):
+                calls.append(tuple(a[0].shape))
+                return inner(*a, **k)
+
+            attention.flash_sdpa = counted
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                long_logits, long_caches = steps.make_prefill_step(
+                    cfg, cache_len=FAMILY_FLASH_LEN + 1)(
+                    params, {"tokens": long_tokens})
+                torch.cuda.synchronize()
+                long_s = time.perf_counter() - t0
+            finally:
+                attention.flash_sdpa = inner
+            long_finite = bool(torch.isfinite(long_logits).all())
+            del long_logits, long_caches
+            f_err, f_ctrl, dims = mla_flash_against_sdpa(
+                params, cfg, long_tokens, attention, flash, layers)
+            checks["flash_vs_sdpa"] = {
+                "err": f_err, "limit": SERVE_FLASH_LIMIT,
+                "control_unmasked": f_ctrl, "flash_calls": len(calls),
+                "layers": cfg.num_layers, "qk_dim": dims[0],
+                "v_dim": dims[1], "finite": long_finite}
+            extra = {"prefill_long_tokens": FAMILY_FLASH_LEN,
+                     "prefill_long_ms": long_s * 1e3,
+                     "prefill_long_tok_s": FAMILY_FLASH_LEN / long_s}
+            ok = ok and long_finite and f_err <= SERVE_FLASH_LIMIT < f_ctrl \
+                and len(calls) == cfg.num_layers and dims == (192, 128)
+        peak = torch.cuda.max_memory_allocated()
+        del params, prompts, tok, pos
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        cpu_err, cpu_ctrl = card_against_cpu(seed, dev, configs, pipeline,
+                                             steps, model, arch=arch)
+        # an mLSTM layer amplifies a difference in its input several times
+        # (tests/test_torch_models.py::logits_limit): the limit a layer
+        cpu_limit = SERVE_CPU_LIMIT * max(1, mlstm_layers(
+            configs.get_smoke(arch)))
+        checks["card_vs_cpu"] = {"err": cpu_err, "limit": cpu_limit,
+                                 "control_bf16_weights": cpu_ctrl}
+        ok = ok and cpu_err <= cpu_limit < cpu_ctrl
+        tokens = SERVE_BATCH * SERVE_PROMPT
+        rows.append({
+            "arch": cfg.name, "cut": FAMILY_CUT[arch],
+            "layers": cfg.num_layers, "params": n_params,
+            "weights_gib": weight_bytes / 2**30, "init_s": init_s,
+            "init_peak_gib": init_peak / 2**30,
+            "residual_gib_before": residual / 2**30,
+            "prefill_ms": prefill_s * 1e3,
+            "prefill_tok_s": tokens / prefill_s,
+            "prefill_bound_ms": prefill_bound,
+            "decode_ms_step": decode_s / (SERVE_GEN - 1) * 1e3,
+            "decode_tok_s": SERVE_BATCH * SERVE_GEN / decode_s,
+            "decode_step_wall_ms": step_ms,
+            "decode_step_kernels": n_kernels,
+            "decode_step_kernel_ms": kernel_ms,
+            "decode_step_busy_share": kernel_ms / step_ms,
+            "decode_step_bound_ms": decode_bound,
+            "decode_step_bytes": decode_bytes,
+            "decode_bound_reads": "every weight but the embedding rows, "
+                                  "every expert's included (the dense-"
+                                  "capacity dispatch multiplies all e "
+                                  "buffers each step), the caches whole, "
+                                  "the recurrent state written back",
+            "dropped_share": dropped, "peak_gib": peak / 2**30,
+            "report": report, "checks": checks, "ok": ok, **extra})
+        if not ok:
+            bad.append(arch)
+    emit({"phase": "serve_families", "card": smi, "batch": SERVE_BATCH,
+          "prompt": SERVE_PROMPT, "gen": SERVE_GEN, "configs": rows})
+    if bad:
+        raise SystemExit(f"chip_smoke: phase 7b failed on {bad}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1267,6 +1734,8 @@ def main() -> int:
         rows, card, smi = run(root, args.seed, cache_dir)
         # -- 7. the serving phase, once the earlier phases' tensors are gone
         serve_phase(args.seed, smi, card, torch.device("cuda"))
+        # -- 7b. the experts, MLA and the recurrent mixers, phase 7's gone
+        families_phase(args.seed, smi, card, torch.device("cuda"))
         # -- 8. result ------------------------------------------------------
         emit({"kernels": rows})
         emit({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -1,5 +1,5 @@
-"""Composable model stack for the assigned architectures (the dense
-families; the experts, MLA and the recurrent mixers are port slice 9b)."""
+"""Composable model stack for the assigned architectures: GQA and latent
+attention, dense and expert FFNs, Mamba and xLSTM mixers."""
 
 from .config import (  # noqa: F401
     MLAConfig,

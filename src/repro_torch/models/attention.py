@@ -1,5 +1,4 @@
-"""Attention mixers: GQA (qk-norm / sliding-window options); MLA is port
-slice 9b.
+"""Attention mixers: GQA (qk-norm / sliding-window options) and MLA.
 
 Two execution modes share the mixer:
 
@@ -21,7 +20,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .config import ModelConfig
+from .config import MLAConfig, ModelConfig
 from .flash import flash_sdpa
 from .layers import (Init, apply_rope, bmm_f32, dot, dtype_of, init_dense,
                      rms_norm, rope_angles)
@@ -32,10 +31,6 @@ _NEG = -1e30
 # SDPA (exact, simple — fine for smoke tests) to the chunked flash schedule
 # (same math, O(tile) memory — required at prefill_32k scale)
 FLASH_THRESHOLD = 1024
-
-#: the slice that ports the latent attention (with the experts and mixers)
-MLA_SLICE = "port slice 9b (the MLA half of models/attention.py)"
-
 
 def init_attn(init: Init,
               cfg: ModelConfig) -> Dict[str, Optional[torch.Tensor]]:
@@ -196,25 +191,118 @@ def attn_decode(params, x: torch.Tensor, cfg: ModelConfig, cache, *,
 
 
 # ---------------------------------------------------------------------------
-# MLA — DeepSeek-V3 multi-head latent attention: port slice 9b.
+# MLA — DeepSeek-V3 multi-head latent attention.
 # ---------------------------------------------------------------------------
 
 
-def init_mla(init: Init, cfg: ModelConfig):
-    raise NotImplementedError(f"init_mla: the 'mla' mixer is {MLA_SLICE}")
+def init_mla(init: Init, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    m: MLAConfig = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    dt = dtype_of(cfg.param_dtype)
+    return {
+        "wdq": init_dense(init, d, m.q_lora_rank, dt),
+        "q_norm": init.ones((m.q_lora_rank,), dt),
+        "wuq": init_dense(init, m.q_lora_rank, h * m.qk_head_dim, dt),
+        "wdkv": init_dense(init, d, m.kv_lora_rank, dt),
+        "kv_norm": init.ones((m.kv_lora_rank,), dt),
+        "wkr": init_dense(init, d, m.qk_rope_head_dim, dt),
+        "wuk": init_dense(init, m.kv_lora_rank, h * m.qk_nope_head_dim, dt),
+        "wuv": init_dense(init, m.kv_lora_rank, h * m.v_head_dim, dt),
+        "wo": init_dense(init, h * m.v_head_dim, d, dt),
+    }
 
 
-def mla_full(params, x, cfg: ModelConfig, *, positions, want_cache: bool,
-             cache_len: int = 0):
-    raise NotImplementedError(f"mla_full: the 'mla' mixer is {MLA_SLICE}")
+def _mla_qkr(params, x: torch.Tensor, cfg: ModelConfig,
+             positions: torch.Tensor):
+    """Shared q / latent / rope-key computation."""
+    m: MLAConfig = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    cq = rms_norm(dot(x, params["wdq"]), params["q_norm"], cfg.norm_eps)
+    q = dot(cq, params["wuq"]).reshape(b, s, h, m.qk_head_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    ckv = rms_norm(dot(x, params["wdkv"]), params["kv_norm"], cfg.norm_eps)
+    kr = dot(x, params["wkr"]).reshape(b, s, 1, m.qk_rope_head_dim)
+    cos, sin = rope_angles(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    kr = apply_rope(kr, cos, sin)[:, :, 0]  # shared across heads
+    return q_nope, q_rope, ckv, kr
 
 
-def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, *,
-                   device=None):
-    raise NotImplementedError(
-        f"init_mla_cache: the 'mla' mixer is {MLA_SLICE}")
+def mla_full(params, x: torch.Tensor, cfg: ModelConfig, *,
+             positions: torch.Tensor, want_cache: bool, cache_len: int = 0):
+    """Full-sequence MLA: the latent expanded to per-head k and v, the
+    shared rope key folded into every head (q·k over 192 dims, v 128 at
+    the published widths)."""
+    m: MLAConfig = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    q_nope, q_rope, ckv, kr = _mla_qkr(params, x, cfg, positions)
+    k_nope = dot(ckv, params["wuk"]).reshape(b, s, h, m.qk_nope_head_dim)
+    v = dot(ckv, params["wuv"]).reshape(b, s, h, m.v_head_dim)
+    scale = 1.0 / math.sqrt(m.qk_head_dim)
+    # fold the shared rope key in: q' = [q_nope, q_rope], k' = [k_nope, kr]
+    qq = torch.cat([q_nope, q_rope], dim=-1)
+    kk = torch.cat([k_nope, kr[:, :, None, :].expand(
+        b, s, h, m.qk_rope_head_dim)], dim=-1)
+    if s > FLASH_THRESHOLD:
+        out = flash_sdpa(qq, kk, v, q_pos=positions, k_pos=positions,
+                         causal=cfg.causal, window=cfg.window, scale=scale)
+    else:
+        mask = _mask(s, s, positions, positions, cfg.causal, cfg.window)
+        out = _sdpa(qq, kk, v, mask, scale)
+    out = dot(out.reshape(b, s, h * m.v_head_dim).to(x.dtype), params["wo"])
+    cache = None
+    if want_cache:
+        cache = init_mla_cache(cfg, b, cache_len, x.dtype, device=x.device)
+        size = cache["lat"].shape[1]
+        lat = torch.cat([ckv, kr], dim=-1)[:, :size]
+        cache["lat"][:, :lat.shape[1]] = lat
+    return out.to(x.dtype), cache
 
 
-def mla_decode(params, x, cfg: ModelConfig, cache, *, positions):
-    raise NotImplementedError(f"mla_decode: the 'mla' mixer is {MLA_SLICE}")
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype: torch.dtype, *, device=None):
+    return {"lat": torch.zeros((batch, max_len, cfg.mla.cache_dim),
+                               dtype=dtype, device=device)}
 
+
+def _per_head_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bhx,xhy->bhy", a, w)`` summed and returned in f32: one
+    batched product a head."""
+    return bmm_f32(a.transpose(0, 1), w.transpose(0, 1)).transpose(0, 1)
+
+
+def mla_decode(params, x: torch.Tensor, cfg: ModelConfig, cache, *,
+               positions: torch.Tensor):
+    """Absorbed-formulation decode: scores & values via the latent only.
+
+    Writes the token's latent into ``cache`` in place (slot ``position``)
+    and returns it with the output.  The five products sum in f32, as the
+    reference's ``preferred_element_type=f32`` einsums.
+    """
+    m: MLAConfig = cfg.mla
+    b, s, _ = x.shape
+    if s != 1:
+        raise ValueError(f"mla_decode takes one token a row, got {s}")
+    h, r = cfg.num_heads, m.kv_lora_rank
+    q_nope, q_rope, ckv, kr = _mla_qkr(params, x, cfg, positions[:, None])
+    lat = cache["lat"]
+    rows = torch.arange(b, device=x.device)
+    lat[rows, positions] = torch.cat([ckv, kr], dim=-1)[:, 0]
+    ckv_all, kr_all = lat[..., :r], lat[..., r:]
+    # absorb W_uk into q: q_lat (B, H, r)
+    wuk = params["wuk"].reshape(r, h, m.qk_nope_head_dim)
+    q_lat = _per_head_f32(q_nope[:, 0], wuk.permute(2, 1, 0))
+    scale = 1.0 / math.sqrt(m.qk_head_dim)
+    logits = (bmm_f32(q_lat.to(lat.dtype), ckv_all.transpose(1, 2))
+              + bmm_f32(q_rope[:, 0], kr_all.transpose(1, 2))) * scale
+    valid = torch.arange(lat.shape[1], device=x.device)[None, :] \
+        <= positions[:, None]
+    logits = torch.where(valid[:, None], logits, _NEG)
+    p = torch.softmax(logits, dim=-1)
+    o_lat = bmm_f32(p.to(lat.dtype), ckv_all)                # (B, H, r)
+    wuv = params["wuv"].reshape(r, h, m.v_head_dim)
+    out = _per_head_f32(o_lat.to(wuv.dtype), wuv)
+    out = dot(out.reshape(b, 1, h * m.v_head_dim).to(x.dtype), params["wo"])
+    return out.to(x.dtype), cache

@@ -7,12 +7,11 @@ loop, one layer's views at a time.  The reference's ``remat`` and its
 nested layer-group scan (``_layer_chunk``) shape backward memory only; a
 forward-only path has no counterpart, and the training slice decides.
 
-Decode updates each layer's cache in place (``attention.attn_decode``):
-the stacked buffers given are the buffers returned.
-
-Only the dense kinds run here: the ``attn`` mixer with the ``mlp``
-(``dense_mlp``) or ``gelu_mlp`` ffn.  ``mla``, ``mamba``, ``mlstm``,
-``slstm`` and ``moe`` raise ``NotImplementedError`` by name.
+Decode keeps every layer's state in its slot of the stacked buffers: the
+attention mixers write their token in place (``attn_decode``,
+``mla_decode``), the recurrent ones return new state tensors, which
+:func:`group_decode` copies into the slot.  The stacked buffers given are
+the buffers returned.
 """
 
 from __future__ import annotations
@@ -23,14 +22,27 @@ import torch
 from torch.utils import _pytree as pytree
 
 from . import attention as attn_mod
+from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .config import ModelConfig, ScanGroup
 from .layers import (META, Init, dtype_of, gelu_mlp, init_dense, rms_norm,
                      swiglu)
 
-#: block kinds of the next slice → the reference module that holds them
-UNPORTED = {"mla": "models/attention.py (MLA)", "mamba": "models/ssm.py",
-            "mlstm": "models/ssm.py", "slstm": "models/ssm.py",
-            "moe": "models/moe.py"}
+_MIXER_INIT = {
+    "attn": attn_mod.init_attn,
+    "mla": attn_mod.init_mla,
+    "mamba": ssm_mod.init_mamba,
+    "mlstm": ssm_mod.init_mlstm,
+    "slstm": ssm_mod.init_slstm,
+}
+
+_MIXER_DECODE = {
+    "attn": attn_mod.attn_decode,
+    "mla": attn_mod.mla_decode,
+    "mamba": ssm_mod.mamba_decode,
+    "mlstm": ssm_mod.mlstm_decode,
+    "slstm": ssm_mod.slstm_decode,
+}
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
@@ -43,24 +55,13 @@ def _layer(tree, r: int):
     return pytree.tree_map_only(torch.Tensor, lambda x: x[r], tree)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` naming the first block kind of ``cfg``
-    that the port does not run yet."""
-    for g in cfg.groups:
-        for mixer, ffn in g.pattern:
-            for kind in (mixer, ffn):
-                if kind in UNPORTED:
-                    raise NotImplementedError(
-                        f"{cfg.name}: block kind {kind!r} "
-                        f"({UNPORTED[kind]}) is port slice 9b; the port "
-                        f"runs the dense kinds 'attn' + 'mlp'/'gelu_mlp'")
-
-
 def init_ffn(init: Init, kind: str, cfg: ModelConfig) -> Dict[str, Any]:
     dt = dtype_of(cfg.param_dtype)
     d, f = cfg.d_model, cfg.d_ff
     if kind == "none":
         return {}
+    if kind == "moe":
+        return moe_mod.init_moe(init, cfg)
     if kind == "gelu_mlp":
         return {"w_up": init_dense(init, d, f, dt),
                 "w_down": init_dense(init, f, d, dt)}
@@ -74,7 +75,7 @@ def init_block(init: Init, mixer: str, ffn: str,
     dt = dtype_of(cfg.param_dtype)
     p: Dict[str, Any] = {
         "norm1": init.ones((cfg.d_model,), dt),
-        "mixer": attn_mod.init_attn(init, cfg),
+        "mixer": _MIXER_INIT[mixer](init, cfg),
         "ffn": init_ffn(init, ffn, cfg),
     }
     if ffn != "none":
@@ -82,11 +83,13 @@ def init_block(init: Init, mixer: str, ffn: str,
     return p
 
 
-def _apply_ffn(params, kind: str, h: torch.Tensor,
-               cfg: ModelConfig) -> torch.Tensor:
+def _apply_ffn(params, kind: str, h: torch.Tensor, cfg: ModelConfig):
+    """The block's ffn → (out, the router's aux loss; 0.0 for a dense ffn)."""
+    if kind == "moe":
+        return moe_mod.moe_apply(params, h, cfg)
     if kind == "gelu_mlp":
-        return gelu_mlp(h, params["w_up"], params["w_down"])
-    return swiglu(h, params["w_gate"], params["w_up"], params["w_down"])
+        return gelu_mlp(h, params["w_up"], params["w_down"]), 0.0
+    return swiglu(h, params["w_gate"], params["w_up"], params["w_down"]), 0.0
 
 
 def block_full(params, h: torch.Tensor, cfg: ModelConfig, mixer: str,
@@ -94,36 +97,48 @@ def block_full(params, h: torch.Tensor, cfg: ModelConfig, mixer: str,
                cache_len: int):
     """One block, full-sequence mode. Returns (h, cache, aux)."""
     x = rms_norm(h, params["norm1"], cfg.norm_eps)
-    y, cache = attn_mod.attn_full(params["mixer"], x, cfg,
-                                  positions=positions, want_cache=want_cache,
-                                  cache_len=cache_len)
+    if mixer in ("attn", "mla"):
+        full = attn_mod.attn_full if mixer == "attn" else attn_mod.mla_full
+        y, cache = full(params["mixer"], x, cfg, positions=positions,
+                        want_cache=want_cache, cache_len=cache_len)
+    else:
+        full = {"mamba": ssm_mod.mamba_full, "mlstm": ssm_mod.mlstm_full,
+                "slstm": ssm_mod.slstm_full}[mixer]
+        y, cache = full(params["mixer"], x, cfg, want_cache=want_cache)
     h = h + y
+    aux = 0.0
     if ffn != "none":
         z = rms_norm(h, params["norm2"], cfg.norm_eps)
-        h = h + _apply_ffn(params["ffn"], ffn, z, cfg)
-    # the router's auxiliary loss is the experts'; a dense block adds none
-    return h, cache, 0.0
+        out, aux = _apply_ffn(params["ffn"], ffn, z, cfg)
+        h = h + out
+    return h, cache, aux
 
 
 def block_decode(params, h: torch.Tensor, cfg: ModelConfig, mixer: str,
                  ffn: str, *, cache, positions: torch.Tensor):
     x = rms_norm(h, params["norm1"], cfg.norm_eps)
-    y, cache = attn_mod.attn_decode(params["mixer"], x, cfg, cache,
+    y, cache = _MIXER_DECODE[mixer](params["mixer"], x, cfg, cache,
                                     positions=positions)
     h = h + y
     if ffn != "none":
         z = rms_norm(h, params["norm2"], cfg.norm_eps)
-        h = h + _apply_ffn(params["ffn"], ffn, z, cfg)
+        out, _ = _apply_ffn(params["ffn"], ffn, z, cfg)
+        h = h + out
     return h, cache
 
 
 def init_cache_for(mixer: str, cfg: ModelConfig, batch: int, max_len: int,
                    dtype: torch.dtype, *, device=None):
-    if mixer != "attn":
-        raise NotImplementedError(
-            f"mixer {mixer!r} ({UNPORTED[mixer]}) is port slice 9b")
-    return attn_mod.init_attn_cache(cfg, batch, max_len, dtype,
-                                    device=device)
+    if mixer == "attn":
+        return attn_mod.init_attn_cache(cfg, batch, max_len, dtype,
+                                        device=device)
+    if mixer == "mla":
+        return attn_mod.init_mla_cache(cfg, batch, max_len, dtype,
+                                       device=device)
+    init = {"mamba": ssm_mod.init_mamba_cache,
+            "mlstm": ssm_mod.init_mlstm_cache,
+            "slstm": ssm_mod.init_slstm_cache}[mixer]
+    return init(cfg, batch, dtype, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -135,10 +150,17 @@ def init_group(init: Init, group: ScanGroup, cfg: ModelConfig) -> list:
     """Stacked params: one entry per pattern element, leading axis repeats.
 
     Each layer is drawn and copied into its slot of the stack in turn, so
-    at most one layer's f32 draw is live beside the stack.
+    at most one layer's f32 draw is live beside the stack; a group of one
+    repeat takes the drawn layer as its stack (a view), so its peak is the
+    weights and one leaf's f32 draw.
     """
     out = []
     for mixer, ffn in group.pattern:
+        if group.repeats == 1:
+            out.append(pytree.tree_map_only(
+                torch.Tensor, lambda x: x.unsqueeze(0),
+                init_block(init, mixer, ffn, cfg)))
+            continue
         stack = None
         for r in range(group.repeats):
             one = init_block(init, mixer, ffn, cfg)
@@ -195,12 +217,20 @@ def group_full(group_params, h: torch.Tensor, cfg: ModelConfig,
 
 def group_decode(group_params, h: torch.Tensor, cfg: ModelConfig,
                  group: ScanGroup, *, caches, positions: torch.Tensor):
-    """Decode through a scan group, each layer's cache updated in place in
-    its slot of the stacked buffers (returned as given)."""
+    """Decode through a scan group, each layer's state kept in its slot of
+    the stacked buffers (returned as given).
+
+    An attention mixer writes its slot in place and returns it; a recurrent
+    one returns new state, which is copied into the slot (cast to the
+    buffer's dtype, as the reference's ``dynamic_update_index_in_dim``).
+    """
     for r in range(group.repeats):
         layer_params = _layer(group_params, r)
         for e, (mixer, ffn) in enumerate(group.pattern):
-            h, _ = block_decode(layer_params[e], h, cfg, mixer, ffn,
-                                cache=_layer(caches[e], r),
-                                positions=positions)
+            slot = _layer(caches[e], r)
+            h, new = block_decode(layer_params[e], h, cfg, mixer, ffn,
+                                  cache=slot, positions=positions)
+            for dst, src in zip(tree_leaves(slot), tree_leaves(new)):
+                if src is not dst:
+                    dst.copy_(src)
     return h, caches

@@ -15,9 +15,8 @@ ffn:   ``mlp`` (SwiGLU), ``gelu_mlp`` (encoder-style), ``moe``
 (top-k routed experts, optional shared expert), ``none`` (xLSTM blocks
 carry their own projections).
 
-The port runs the dense kinds (``attn`` with ``mlp`` or ``gelu_mlp``); the
-others are described here but raise ``NotImplementedError`` when a model
-is built with them (port slice 9b).
+The port runs every kind on one device; the expert-parallel dispatch
+that a device mesh selects is port slice 9d.
 """
 
 from __future__ import annotations
@@ -173,10 +172,23 @@ class ModelConfig:
         return sum(math.prod(x.shape) for x in blocks.tree_leaves(params))
 
     def active_param_count(self) -> int:
-        """Active parameters per token.  Every parameter of the dense kinds
-        is active; a config with expert blocks raises in ``param_count``
-        (the experts' inactive share is port slice 9b's)."""
-        return self.param_count()
+        """Active parameters per token (MoE: only top-k + shared experts):
+        every leaf whose key path holds ``experts`` counts ``k / e`` of its
+        size, from the ``meta`` tree (no storage)."""
+        total = self.param_count()
+        if self.moe is None:
+            return total
+        from torch.utils import _pytree as pytree  # noqa: PLC0415
+
+        from . import model  # noqa: PLC0415
+
+        params = model.init_params(0, self, device="meta")
+        e, k = self.moe.num_experts, self.moe.top_k
+        inactive = 0
+        for path, leaf in pytree.tree_flatten_with_path(params)[0]:
+            if leaf is not None and "experts" in pytree.keystr(path):
+                inactive += math.prod(leaf.shape) * (1 - k / e)
+        return int(total - inactive)
 
 
 def uniform_dense_groups(num_layers: int, ffn: str = "mlp",

@@ -63,6 +63,10 @@ class Init:
              ) -> torch.Tensor:
         return torch.ones(shape, dtype=dtype, device=self.device)
 
+    def zeros(self, shape: Tuple[int, ...], dtype: torch.dtype
+              ) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
 
 def dtype_of(name: str) -> torch.dtype:
     """``"bfloat16"`` → ``torch.bfloat16`` and so on."""

@@ -24,7 +24,6 @@ def init_params(key, cfg: ModelConfig, *, device=None) -> Dict[str, Any]:
     reference's (``jax.random``'s bits); ``interop.params_from_reference``
     carries a reference tree across.
     """
-    blocks.check_supported(cfg)
     init = Init.of(key, device)
     dt = dtype_of(cfg.param_dtype)
     params: Dict[str, Any] = {}
@@ -66,7 +65,11 @@ def forward(params, cfg: ModelConfig, *,
             embeds: Optional[torch.Tensor] = None, want_cache: bool = False,
             cache_len: int = 0, positions: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Optional[list], torch.Tensor]:
-    """Full-sequence pass → (logits f32, caches | None, aux_loss)."""
+    """Full-sequence pass → (logits f32, caches | None, aux_loss).
+
+    ``aux_loss`` is the sum of every MoE block's router loss (0 without
+    experts).
+    """
     h = _embed_inputs(params, cfg, tokens, embeds)
     b, s, _ = h.shape
     if positions is None:
@@ -80,7 +83,7 @@ def forward(params, cfg: ModelConfig, *,
         aux = aux + a
         if want_cache:
             caches.append(cache)
-    aux = torch.full((), aux, dtype=torch.float32, device=h.device)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
     return _head(params, cfg, h), caches, aux
 
 
@@ -98,7 +101,9 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, caches,
                 positions: torch.Tensor) -> Tuple[torch.Tensor, list]:
     """One-token step: tokens (B, 1), positions (B,) → (logits, caches).
 
-    The caches are updated in place; the list returned is ``caches``.
+    Every layer's state (attention k/v, MLA latents, recurrent state) is
+    updated in its slot of the stacked buffers; the list returned is
+    ``caches``.
     """
     h = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
     for gp, g, gc in zip(params["groups"], cfg.groups, caches):

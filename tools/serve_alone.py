@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's serving phase alone, in a fresh process.
+"""chip_smoke.py's serving phases alone, in a fresh process.
 
 Run from the root of a checkout on a machine with a CUDA card::
 
-    python3 tools/serve_alone.py [--seed 0]
+    python3 tools/serve_alone.py [--seed 0] [--phases 7 7b]
 
-Serves qwen3-14b at its published size (random bf16 weights drawn on the
-card from ``--seed``) exactly as ``chip_smoke.py``'s phase 7 does, with its
-checks, and prints its ``serve`` line; no kernel is built, so it takes
-about a minute and a half.  Beside ``chip_smoke.py``'s run it separates
+Phase 7 serves qwen3-14b at its published size (random bf16 weights drawn
+on the card from ``--seed``) and prints its ``serve`` line; phase 7b
+serves deepseek-v3 (2 layers), jamba (one period) and xlstm-125m at their
+published widths and prints the ``serve_families`` line; each exactly as
+``chip_smoke.py`` runs it, with its checks.  No kernel is built, so phase
+7 takes about a minute and a half.  Beside ``chip_smoke.py``'s run it separates
 what the serving path costs from what the earlier phases leave in the
 process.  Exits non-zero without a CUDA device or if a check fails.
 """
@@ -31,6 +33,8 @@ import chip_smoke  # noqa: E402
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", nargs="+", default=["7", "7b"],
+                    choices=["7", "7b"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("serve_alone: torch.cuda.is_available() is False",
@@ -49,8 +53,11 @@ def main() -> int:
         ROOT, "build"))
     os.environ["REPRO_SCHEDULE_CACHE"] = traces
     try:
-        chip_smoke.serve_phase(args.seed, smi, torch.cuda.get_device_name(0),
-                               torch.device("cuda"))
+        card, dev = torch.cuda.get_device_name(0), torch.device("cuda")
+        if "7" in args.phases:
+            chip_smoke.serve_phase(args.seed, smi, card, dev)
+        if "7b" in args.phases:
+            chip_smoke.families_phase(args.seed, smi, card, dev)
     finally:
         shutil.rmtree(traces, ignore_errors=True)
     return 0
