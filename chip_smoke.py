@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with a CUDA card::
 
-    python3 chip_smoke.py [--seed N]    # about six minutes, the build included
+    python3 chip_smoke.py [--seed N]    # about eight minutes, the build included
 
 The main path is the paper's compile-and-run loop (``ssrify`` →
 ``lower_plan``/``lower_nest`` → ``ssr_call``) behind ``repro_torch.kernels
@@ -246,12 +246,41 @@ printing JSON lines:
    published capacity (prefill and each decode step) and the bounds (a
    decode step reads every expert's weights: the dense-capacity dispatch
    multiplies all e buffers);
+7c. training (``optim/``, ``launch/steps.py``'s train step with remat,
+   ``checkpoint/``, ``runtime/fault.py``, ``launch/train.py``), once
+   phase 7b's tensors are freed and the peak counter reset, TF32 off:
+   h2o-danube-1.8b at its published size (24 layers, d_model 2560, 32/8
+   heads of 80, d_ff 6912, vocab 32,000, window 4096, bf16 weights and
+   f32 moments: 1.83 B parameters, 17.1 GiB of state drawn on the card
+   from ``--seed``) trains 20 steps through ``launch/train.py``'s step at
+   the CLI's defaults (batch 8 × 128 from the data pipeline, lr 3e-4,
+   warmup 10), then one step of 2 × 4096 tokens in 2 microbatches
+   (``flash_sdpa`` and the f32 accumulator under remat); hard checks,
+   each beside a control that must read above its limit: every loss and
+   gradient norm finite; the loss falls by ``TRAIN_LOSS_DROP`` (control:
+   the untrained weights on the last batches); the long step goes through
+   ``flash_sdpa`` with remat in every layer; on the trained weights, an
+   f32 copy's ⟨g, d⟩ against extrapolated central differences
+   (``GRAD_FD_LIMIT``) and the bf16 gradients against the f32 copy's, a
+   layer's tensor at a time (``GRAD_BF16_LIMIT``; controls: the last
+   layer's gradient zeroed, the opposite sign); the ten smoke variants'
+   train step on the card against the CPU from one state, in f32
+   (``SERVE_CPU_LIMIT``) and bf16 (``TRAIN_BF16_CPU_LIMIT``; control:
+   another batch); xlstm-125m whole trained 10 steps clean and with
+   failures at 3 and 7 from checkpoints every 2 steps under ``build/``,
+   under deterministic algorithms: the final parameters to the bit
+   (control: the checkpoint two steps before the end).  The ``train``
+   line reports the losses and gradient norms, a step's ms and tokens/s
+   beside its bound (6·N·tokens over the dense bf16 peak), its device
+   kernels and busy share (``torch.profiler``), peak memory, the long
+   step's ms and peak beside the reckoning of what it holds, and the
+   checkpoint's save and restore seconds;
 8. print the ``{"kernels": [...]}`` line (K1–K17, B1–B8 and R1–R15, 40
    rows; K11's and R12's rows are the attention_qwen3 cell, K11's row
    carries the other attention cells under ``cells``, which also have time
    and depth_sweep lines of their own; an R row times its main-path
-   depth), then the device line last.  The serving paths run no Pallas
-   kernel in the reference, so they add no row.
+   depth), then the device line last.  The serving and training paths run
+   no Pallas kernel in the reference, so they add no row.
 
 Phase 2 also drives the rings: ``ssr_dot``, ``ssr_relu`` (three dtypes),
 ``ssr_gemv`` and ``fused_gemv_relu`` at depth 4, ``ssr_matmul`` at depth
@@ -1705,6 +1734,545 @@ def families_phase(seed: int, smi: str, card: str,
         raise SystemExit(f"chip_smoke: phase 7b failed on {bad}")
 
 
+# Phase 7c: training (optim/, launch/steps.py's train step with remat,
+# checkpoint/, runtime/fault.py, launch/train.py).  h2o-danube-1.8b at its
+# published size trains through launch/train.py's step at the CLI's
+# defaults, with weights drawn on the card from --seed.
+TRAIN_ARCH = "h2o_danube_18b"
+# (layers, d_model, heads, kv heads, head dim, d_ff, vocab, window, dtype)
+TRAIN_SHAPE = (24, 2560, 32, 8, 80, 6912, 32000, 4096, "bfloat16")
+# launch/train.py's defaults: batch, sequence, peak lr (warmup 10 steps)
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 20, 8, 128, 3e-4
+# The loss falls: the first step's loss less the mean of the last
+# TRAIN_TAIL by at least TRAIN_LOSS_DROP nats (examples/train_e2e.py's
+# LEARNED margin).  The control, the untrained weights' loss on those last
+# batches, must fall by less: the fall is the training's, not easier data.
+TRAIN_TAIL, TRAIN_LOSS_DROP = 5, 0.5
+# One step at the long shape: batch, sequence, microbatches (flash_sdpa
+# and the f32 accumulator under remat).
+TRAIN_LONG = (2, 4096, 2)
+# Gradient checks on the trained weights, a batch of GRAD_BATCH ×
+# GRAD_SEQ.  On an f32 copy: ⟨g, d⟩ for d ~ N(0, 1) scaled to each leaf's
+# RMS against central differences (L(θ + εd) − L(θ − εd)) / 2ε at
+# ε = GRAD_EPS and ε/2, extrapolated to cancel their O(ε²) term, relative
+# to that derivative: the loss (~8) rounds at ~1e-6 against differences of
+# ~5e-4, a few 1e-3 at most, so GRAD_FD_LIMIT = 5e-3 (at ε alone the smoke
+# variant reads 1.1e-2 on the CPU, its curvature term; the extrapolation
+# reads 5.5e-4 on danube).  The bf16 gradients against the f32 copy's, per
+# layer's tensor, as ‖g_bf16 − g_f32‖ / ‖g_f32‖: 0.012 at the median,
+# 0.21 at the worst (a last layer's wq: a small gradient through the
+# softmax's Jacobian, where the bf16 logits' rounding against their spread
+# is largest), so GRAD_BF16_LIMIT = 1/2.  Controls: the last layer's
+# gradient zeroed, and the opposite sign.
+GRAD_BATCH, GRAD_SEQ, GRAD_EPS = 2, 128, 1e-2
+GRAD_FD_LIMIT = 5e-3
+GRAD_BF16_LIMIT = 2.0 ** -1
+# The smoke variants' train step on the card against the CPU, from one
+# state (weights drawn on the CPU, moments carried at each leaf's
+# gradient scale, count 3, lr 1e-2): per leaf, |Δ| over the CPU step's
+# largest |update| (params) or |value| (moments).  f32, TF32 off:
+# SERVE_CPU_LIMIT (times the mLSTM layers) plus two f32 ulps of the
+# leaf's largest |p|.  bf16: TRAIN_BF16_CPU_LIMIT beyond one bf16 ulp of
+# each element (the card's products sum in other orders, so a bf16 value
+# may round the other way; the CPU upcasts, as the reference computes its
+# f32-output products and their gradients): xlstm's reads 4.2e-4 (its
+# mLSTM layers amplify such a flip), the others 2.0e-4 or less, so
+# 2**-10.  Control: the card's step on another batch, above the limit on
+# the params, the first and the second moments (each's worst leaf); it
+# moves m by a tenth of a gradient's change, ~2**-5 of its largest value.
+TRAIN_BF16_CPU_LIMIT = 2.0 ** -10
+# Restart exactness on xlstm-125m whole: RESTART_STEPS steps at the CLI's
+# batch and sequence, once clean and once with failures at RESTART_FAILS,
+# checkpointing every RESTART_EVERY steps (keep RESTART_KEEP) under
+# build/, with torch.use_deterministic_algorithms(True).
+RESTART_ARCH, RESTART_STEPS, RESTART_FAILS = "xlstm_125m", 10, (3, 7)
+RESTART_EVERY, RESTART_KEEP = 2, 2
+
+
+def state_bytes(tree, keypaths) -> int:
+    return sum(t.numel() * t.element_size() for t in keypaths.leaves(tree))
+
+
+def layer_slices(tree, cfg, keypaths):
+    """{name: tensor} of a parameter tree, a stacked leaf split into its
+    layers (``groups/0/0/mixer/wq[23]``)."""
+    out = {}
+    for path, t in keypaths.leaves_with_path(tree):
+        key = keypaths.key(path)
+        if path[0] == "groups":
+            for r in range(t.shape[0]):
+                out[f"{key}[{r}]"] = t[r]
+        else:
+            out[key] = t
+    return out
+
+
+def rel_l2(got, want) -> float:
+    w = want.double()
+    return float(torch.linalg.vector_norm(got.double() - w)
+                 / torch.linalg.vector_norm(w).clamp_min(1e-300))
+
+
+def gradient_checks(seed, dev, params, cfg, keypaths, pipeline, steps,
+                    model):
+    """The bf16 gradients against an f32 copy's, and the f32 copy's
+    directional derivative against a central difference, each beside its
+    controls (``GRAD_*``)."""
+    batch = pipeline.make_batch(
+        cfg, pipeline.DataConfig(GRAD_BATCH, GRAD_SEQ, seed=13), 0,
+        device=dev)
+    _, g16 = steps._value_and_grad(params, cfg, batch)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    p32 = keypaths.map_with_path(lambda _, p: p.float(), params)
+    loss32, g32 = steps._value_and_grad(p32, cfg32, batch)
+    last = cfg.groups[-1].repeats - 1
+    s16, s32 = layer_slices(g16, cfg, keypaths), layer_slices(g32, cfg,
+                                                              keypaths)
+    per = {k: rel_l2(s16[k], s32[k]) for k in s32}
+    norms = {k: float(torch.linalg.vector_norm(s32[k].double()))
+             for k in s32}
+    zeroed = {k: (rel_l2(torch.zeros_like(s16[k]), s32[k])
+                  if k.endswith(f"[{last}]") else v)
+              for k, v in per.items()}
+    opposite = {k: rel_l2(-s16[k], s32[k]) for k in s32}
+    worst = max(per, key=per.get)
+    del g16, s16
+
+    gen_seed = seed + 7
+    scales = [float(p.float().pow(2).mean().sqrt()) for p in
+              keypaths.leaves(p32)]
+
+    def walk(fn):
+        gen = torch.Generator(device=dev).manual_seed(gen_seed)
+        for p, s in zip(keypaths.leaves(p32), scales):
+            fn(p, torch.randn(p.shape, generator=gen, device=dev) * s)
+
+    gd = [0.0, 0.0]                     # ⟨g, d⟩, the last layer's share
+    gl = iter(keypaths.leaves_with_path(g32))
+
+    def dot(p, d):
+        path, g = next(gl)
+        gd[0] += float(torch.sum(g.double() * d.double()))
+        if path[0] == "groups" and len(path) > 1 and \
+                path[1] == len(cfg.groups) - 1:
+            gd[1] += float(torch.sum(g[last].double() * d[last].double()))
+
+    walk(dot)
+    del g32, s32
+
+    def loss_at(sign):
+        walk(lambda p, d: p.add_(sign * GRAD_EPS * d))
+        with torch.no_grad():
+            lv, _ = model.loss_fn(p32, cfg32, batch)
+        return float(lv)
+
+    # central differences at ε and ε/2, extrapolated (Richardson):
+    # (4·D(ε/2) − D(ε)) / 3 cancels the O(ε²) term
+    at = {}
+    for eps, signs in ((GRAD_EPS, (1.0, -2.0, 1.0)),
+                       (GRAD_EPS / 2, (0.5, -1.0, 0.5))):
+        plus, minus = loss_at(signs[0]), loss_at(signs[1])
+        walk(lambda p, d: p.add_(signs[2] * GRAD_EPS * d))
+        at[eps] = (plus - minus) / (2 * eps)
+    fd = (4 * at[GRAD_EPS / 2] - at[GRAD_EPS]) / 3
+    err = abs(gd[0] - fd) / abs(fd)
+    ctrl_zero = abs(gd[0] - gd[1] - fd) / abs(fd)
+    ctrl_sign = abs(-gd[0] - fd) / abs(fd)
+    return {
+        "batch": [GRAD_BATCH, GRAD_SEQ], "loss_f32": float(loss32),
+        "directional": {"g_dot_d": gd[0], "central_difference": fd,
+                        "at_eps": at[GRAD_EPS],
+                        "at_half_eps": at[GRAD_EPS / 2],
+                        "eps": GRAD_EPS, "err": err,
+                        "limit": GRAD_FD_LIMIT,
+                        "control_last_layer_zeroed": ctrl_zero,
+                        "control_opposite_sign": ctrl_sign},
+        "bf16_vs_f32": {"tensors": len(per), "err": per[worst],
+                        "worst_tensor": worst, "limit": GRAD_BF16_LIMIT,
+                        "median": statistics.median(per.values()),
+                        "worst5": [[k, per[k], norms[k]] for k in sorted(
+                            per, key=per.get)[-5:]],
+                        "control_last_layer_zeroed": max(zeroed.values()),
+                        "control_opposite_sign": min(opposite.values())},
+    }
+
+
+def carried_state(params, grads, keypaths, seed: int):
+    """A train state holding ``params``, moments carried at each leaf's
+    gradient scale s (its RMS in ``grads``: m ~ N(0, s²),
+    v ~ s² · U[1/2, 3/2]) and count 3, drawn on the CPU: a step is then a
+    smooth function of the gradient (from zero moments the first update
+    is g / (|g| + ε), whose sign flips for a gradient within its rounding
+    of 0)."""
+    gen = torch.Generator().manual_seed(seed)
+    rms = {keypaths.key(p): float(g.float().pow(2).mean().sqrt()) + 1e-12
+           for p, g in keypaths.leaves_with_path(grads)}
+    m = keypaths.map_with_path(lambda path, p: torch.randn(
+        p.shape, generator=gen) * rms[keypaths.key(path)], params)
+    v = keypaths.map_with_path(lambda path, p: (torch.rand(
+        p.shape, generator=gen) + 0.5) * rms[keypaths.key(path)] ** 2,
+        params)
+    return {"params": params, "opt": {
+        "m": m, "v": v, "count": torch.tensor(3, dtype=torch.int32)}}
+
+
+def step_errors(want, got, old, limit: float, bf16: bool, keypaths):
+    """{leaf: (err, limit)} of a train state ``got`` against ``want`` (both
+    on the CPU): params over ``want``'s largest |update| beyond two f32
+    ulps of its largest |p| (bf16: beyond one bf16 ulp of each element),
+    moments over their largest |value|."""
+    out = {}
+    for (path, g), w in zip(keypaths.leaves_with_path(got),
+                            keypaths.leaves(want)):
+        k = keypaths.key(path)
+        if k == "opt/count":
+            continue
+        w64, g64 = w.double(), g.double()
+        d = (g64 - w64).abs()
+        if path[0] == "params":
+            scale = float((w64 - old[k].double()).abs().max())
+            if bf16:
+                ulp = torch.exp2(torch.floor(torch.log2(
+                    w64.abs().clamp_min(1e-30))) - 7)
+                d = (d - ulp).clamp_min(0.0)
+                allow = 0.0
+            else:
+                top = max(float(w64.abs().max()), 1e-30)
+                allow = 2 * 2.0 ** (math.floor(math.log2(top)) - 23)
+        else:
+            scale, allow = float(w64.abs().max()), 0.0
+        out[k] = (float(d.max()), scale * limit + allow)
+    return out
+
+
+def train_card_against_cpu(seed, dev, arch, dtype, configs, keypaths,
+                           pipeline, steps, model, adamw):
+    """One train step of ``arch``'s smoke variant in ``dtype`` on the card
+    and on the CPU from one state: {"err": the worst leaf's error over its
+    limit, "control": the card's step on another batch, the worst leaf of
+    the params, of m and of v, each over its limit} (see
+    ``TRAIN_BF16_CPU_LIMIT``)."""
+    cfg = dataclasses.replace(configs.get_smoke(arch), param_dtype=dtype,
+                              compute_dtype=dtype)
+    opt = adamw.AdamWConfig(learning_rate=1e-2)
+    params = model.init_params(seed, cfg, device="cpu")
+    batches = [pipeline.make_batch(cfg, pipeline.DataConfig(2, 16), s,
+                                   device="cpu") for s in (0, 1)]
+    base = carried_state(params, steps._value_and_grad(
+        params, cfg, batches[0])[1], keypaths, seed + 1)
+    old = {keypaths.key(p): t.clone()
+           for p, t in keypaths.leaves_with_path(base)}
+
+    def run(where, b):
+        st = keypaths.map_with_path(lambda _, t: t.clone().to(where), base)
+        batch = {k: v.to(where) for k, v in b.items()}
+        steps.make_train_step(cfg, opt)(st["params"], st["opt"], batch)
+        return keypaths.map_with_path(lambda _, t: t.cpu(), st)
+
+    mlstm = max(1, mlstm_layers(cfg))
+    limit = SERVE_CPU_LIMIT * mlstm if dtype == "float32" \
+        else TRAIN_BF16_CPU_LIMIT
+    want = run("cpu", batches[0])
+    errs = step_errors(want, run(dev, batches[0]), old, limit,
+                       dtype != "float32", keypaths)
+    ctrls = step_errors(want, run(dev, batches[1]), old, limit,
+                        dtype != "float32", keypaths)
+    ratio = {k: e / lim for k, (e, lim) in errs.items()}
+    cr = {k: e / lim for k, (e, lim) in ctrls.items()}
+    worst = max(ratio, key=ratio.get)
+    return {"arch": cfg.name, "dtype": dtype, "limit": limit,
+            "err": ratio[worst], "worst_leaf": worst,
+            "control": {part: max(v for k, v in cr.items()
+                                  if k.startswith(part))
+                        for part in ("params", "opt/m", "opt/v")}}
+
+
+def restart_exactness(seed, dev, root, configs, keypaths, pipeline, steps,
+                      train):
+    """xlstm-125m: RESTART_STEPS steps clean and with failures, under
+    deterministic algorithms; the final params to the bit (or, where an
+    op has no deterministic CUDA kernel, named, within the f32 rounding of
+    its largest |p|), beside the clean run's checkpoint two steps before
+    the end, which must differ; save and restore seconds."""
+    import warnings
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.runtime.fault import FailureInjector, Supervisor
+
+    cfg = configs.get(RESTART_ARCH)
+    opt = train.optimizer(cfg, TRAIN_LR, RESTART_STEPS)
+    dcfg = pipeline.DataConfig(TRAIN_BATCH, TRAIN_SEQ)
+    base = tempfile.mkdtemp(prefix="chip_smoke_restart_", dir=root / "build")
+    step_s = []
+
+    def run(fail_at, name):
+        st = steps.init_train_state(
+            torch.Generator(device=dev).manual_seed(seed), cfg, opt,
+            device=dev)
+        sup = Supervisor(ckpt=CheckpointManager(os.path.join(base, name),
+                                                keep=RESTART_KEEP),
+                         checkpoint_every=RESTART_EVERY,
+                         injector=FailureInjector(fail_at_steps=fail_at))
+        inner = train.make_step_fn(cfg, opt, dcfg, microbatches=1,
+                                   device=dev,
+                                   on_metrics=lambda s, m: None)
+
+        def timed(state, step):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(state, step)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            return out
+
+        return sup.run(st, timed, RESTART_STEPS), sup
+
+    # cuBLAS is deterministic on one stream with a fixed workspace; this is
+    # the setting torch asks for before it calls it so
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            clean, _ = run((), "clean")
+            faulty, sup = run(RESTART_FAILS, "faulty")
+        nondet = sorted({str(w.message).split(" does not have")[0][:160]
+                         for w in caught
+                         if "deterministic" in str(w.message)})
+        mgr = CheckpointManager(os.path.join(base, "clean"),
+                                keep=RESTART_KEEP)
+        t0 = time.perf_counter()
+        before = mgr.restore(RESTART_STEPS - RESTART_EVERY, clean)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        CheckpointManager(os.path.join(base, "timed"), keep=1).save(
+            RESTART_STEPS, clean)
+        save_s = time.perf_counter() - t0
+        save_bytes = state_bytes(clean, keypaths)
+        pairs = list(zip(keypaths.leaves(clean["params"]),
+                         keypaths.leaves(faulty["params"])))
+        bits = all(bits_equal(a, b) for a, b in pairs)
+        # where an op runs without a deterministic kernel: its f32 sums
+        # may round otherwise, one ulp of the leaf's largest |p| a step
+        dev_ulps = max(float((a.float() - b.float()).abs().max())
+                       / 2.0 ** (math.floor(math.log2(max(float(
+                           a.float().abs().max()), 1e-30))) - 23)
+                       for a, b in pairs)
+        ctrl_equal = all(bits_equal(a, b) for a, b in zip(
+            keypaths.leaves(clean["params"]),
+            keypaths.leaves(before["params"])))
+        ok = (bits if not nondet else dev_ulps <= RESTART_STEPS) \
+            and not ctrl_equal and sup.restarts == len(RESTART_FAILS)
+        return {"arch": cfg.name, "params": cfg.param_count(),
+                "steps": RESTART_STEPS, "fail_at": list(RESTART_FAILS),
+                "checkpoint_every": RESTART_EVERY, "keep": RESTART_KEEP,
+                "restarts": sup.restarts, "events": sup.events,
+                "bits_equal": bits, "max_ulps_of_leaf_max": dev_ulps,
+                "nondeterministic_ops": nondet,
+                "control_checkpoint_two_steps_before_equal": ctrl_equal,
+                "checkpoint_gib": save_bytes / 2**30,
+                "save_s": save_s, "restore_s": restore_s,
+                "step_ms_median": statistics.median(step_s) * 1e3,
+                "ok": ok}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if cublas is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def long_step_reckoning(cfg, n_params, state_b, tokens_mb, blocks) -> dict:
+    """What a long step holds at once, reckoned from the shapes (bytes):
+    the train state, the f32 accumulator, one microbatch's bf16
+    gradients, the layer boundaries the √R remat keeps (R/g outer and g
+    inner inputs, bf16), one layer's recomputed activations (q, k, v and
+    the attention output in bf16; SwiGLU's gate and up products in f32,
+    their product and the layer's input in bf16), and the head's f32
+    logits with their log-softmax and gradient.  The head's terms and the
+    last microbatch's gradients need not all be live at the peak."""
+    r = cfg.groups[0].repeats
+    g = blocks._layer_chunk(r)
+    d, f = cfg.d_model, cfg.d_ff
+    hd = cfg.resolved_head_dim
+    attn = tokens_mb * (cfg.num_heads + 2 * cfg.num_kv_heads
+                        + cfg.num_heads) * hd * 2
+    ffn = tokens_mb * (2 * f * 4 + f * 2 + d * 2)
+    parts = {"state": state_b, "accumulator_f32": n_params * 4,
+             "gradients_bf16": n_params * 2,
+             "layer_boundaries": (r // g + g) * tokens_mb * d * 2,
+             "one_layer": attn + ffn,
+             "head": 3 * tokens_mb * cfg.vocab_size * 4}
+    return {"parts_gib": {k: v / 2**30 for k, v in parts.items()},
+            "reckoned_gib": sum(parts.values()) / 2**30}
+
+
+def training_phase(seed: int, smi: str, card: str, dev: torch.device,
+                   root: Path) -> None:
+    """Phase 7c: train h2o-danube-1.8b at its published size (20 steps at
+    the train CLI's defaults, then one long step), check its gradients,
+    hold every smoke variant's train step on the card to the CPU's (f32
+    and bf16), and restart xlstm-125m exactly; each check beside its
+    control.  Reports the ``train`` line."""
+    import gc
+
+    from repro_torch import configs, keypaths
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps, train
+    from repro_torch.models import attention, blocks, model
+    from repro_torch.optim import adamw
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("chip_smoke: phase 7c needs TF32 off")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    residual = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bf16 = next(v for k_, v in BF16_PEAK.items() if k_ in card)
+
+    cfg = configs.get(TRAIN_ARCH)
+    shape = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+             cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size, cfg.window,
+             cfg.param_dtype)
+    if shape != TRAIN_SHAPE:
+        raise SystemExit(f"chip_smoke: {TRAIN_ARCH} is not its published "
+                         f"size: {shape}")
+    n_params = cfg.param_count()
+    opt = train.optimizer(cfg, TRAIN_LR, TRAIN_STEPS)
+    t0 = time.perf_counter()
+    state = steps.init_train_state(
+        torch.Generator(device=dev).manual_seed(seed), cfg, opt, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_b = state_bytes(state, keypaths)
+    untrained = keypaths.map_with_path(lambda _, p: p.clone(),
+                                       state["params"])
+    dcfg = pipeline.DataConfig(TRAIN_BATCH, TRAIN_SEQ)
+    log = []
+    step_fn = train.make_step_fn(
+        cfg, opt, dcfg, microbatches=1, device=dev,
+        on_metrics=lambda s, m: log.append((float(m["loss"]),
+                                            float(m["grad_norm"]))))
+    times = []
+    for step in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state = step_fn(state, step)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    losses = [x for x, _ in log]
+    gnorms = [x for _, x in log]
+    finite = all(math.isfinite(x) for x in losses + gnorms)
+    tail = statistics.mean(losses[-TRAIN_TAIL:])
+    with torch.no_grad():
+        ctrl_tail = statistics.mean(float(model.loss_fn(
+            untrained, cfg, pipeline.make_batch(cfg, dcfg, s, device=dev))[0])
+            for s in range(TRAIN_STEPS - TRAIN_TAIL, TRAIN_STEPS))
+    del untrained
+    step_ms = statistics.median(times[1:]) * 1e3
+    n_kernels, kernel_ms = decode_trace(
+        lambda: step_fn(state, TRAIN_STEPS), "train_step")
+    peak_short = torch.cuda.max_memory_allocated()
+
+    # -- one long step: flash_sdpa and the f32 accumulator under remat
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    lb, ls, lm = TRAIN_LONG
+    long_batch = pipeline.make_batch(cfg, pipeline.DataConfig(lb, ls),
+                                     TRAIN_STEPS + 1, device=dev)
+    calls = []
+    inner = attention.flash_sdpa
+
+    def counted(*a, **k):
+        calls.append(bool(k.get("remat")))
+        return inner(*a, **k)
+
+    attention.flash_sdpa = counted
+    try:
+        long_step = steps.make_train_step(cfg, opt, microbatches=lm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, metrics = long_step(state["params"], state["opt"], long_batch)
+        long_loss, long_gnorm = float(metrics["loss"]), float(
+            metrics["grad_norm"])
+        torch.cuda.synchronize()
+        long_s = time.perf_counter() - t0
+    finally:
+        attention.flash_sdpa = inner
+    long_peak = torch.cuda.max_memory_allocated()
+    reckoned = long_step_reckoning(cfg, n_params, state_b, lb * ls // lm,
+                                   blocks)
+    long_finite = math.isfinite(long_loss) and math.isfinite(long_gnorm)
+    params = state["params"]
+    del state, long_batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    grads = gradient_checks(seed, dev, params, cfg, keypaths, pipeline,
+                            steps, model)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    smoke = [train_card_against_cpu(seed, dev, arch, dt, configs, keypaths,
+                                    pipeline, steps, model, adamw)
+             for arch in configs.ARCH_IDS
+             for dt in ("float32", "bfloat16")]
+    restart = restart_exactness(seed, dev, root, configs, keypaths,
+                                pipeline, steps, train)
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    d = grads["directional"]
+    b = grads["bf16_vs_f32"]
+    checks = {
+        "finite": finite and long_finite,
+        "loss_falls": {"first": losses[0], "last_mean": tail,
+                       "drop": losses[0] - tail, "least": TRAIN_LOSS_DROP,
+                       "control_untrained_drop": losses[0] - ctrl_tail},
+        "long_step_flash_calls": len(calls),
+        "gradients": grads, "smoke_card_vs_cpu": smoke, "restart": restart,
+    }
+    emit({"phase": "train", "card": smi, "arch": cfg.name,
+          "params": n_params, "state_gib": state_b / 2**30,
+          "residual_gib_before": residual / 2**30, "init_s": init_s,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+          "lr": TRAIN_LR, "losses": losses, "grad_norms": gnorms,
+          "step_ms": step_ms, "step_ms_first": times[0] * 1e3,
+          "tok_s": tokens / step_ms * 1e3,
+          "step_bound_ms": 6 * n_params * tokens / bf16 * 1e3,
+          "step_bound_note": "6·N·tokens over the dense bf16 peak; the "
+                             "backward's f32-output products run as f32 "
+                             "GEMMs, below that peak",
+          "step_kernels": n_kernels, "step_kernel_ms": kernel_ms,
+          "step_busy_share": kernel_ms / step_ms,
+          "peak_gib": peak_short / 2**30,
+          "long": {"batch": lb, "seq": ls, "microbatches": lm,
+                   "ms": long_s * 1e3, "tok_s": lb * ls / long_s,
+                   "bound_ms": 6 * n_params * lb * ls / bf16 * 1e3,
+                   "loss": long_loss, "grad_norm": long_gnorm,
+                   "peak_gib": long_peak / 2**30, **reckoned},
+          "checks": checks})
+    bad = [name for name, ok in (
+        ("finite", checks["finite"]),
+        ("loss_falls", losses[0] - tail >= TRAIN_LOSS_DROP
+         > losses[0] - ctrl_tail),
+        ("long_step_flash", len(calls) >= lm * cfg.num_layers
+         and all(calls)),
+        ("directional_derivative", d["err"] <= GRAD_FD_LIMIT
+         < min(d["control_last_layer_zeroed"], d["control_opposite_sign"])),
+        ("bf16_vs_f32_gradients", b["err"] <= GRAD_BF16_LIMIT
+         < min(b["control_last_layer_zeroed"], b["control_opposite_sign"])),
+        ("smoke_card_vs_cpu", all(
+            r["err"] <= 1 < min(r["control"].values()) for r in smoke)),
+        ("restart", restart["ok"])) if not ok]
+    if bad:
+        raise SystemExit(f"chip_smoke: phase 7c failed {bad}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1736,6 +2304,8 @@ def main() -> int:
         serve_phase(args.seed, smi, card, torch.device("cuda"))
         # -- 7b. the experts, MLA and the recurrent mixers, phase 7's gone
         families_phase(args.seed, smi, card, torch.device("cuda"))
+        # -- 7c. training, phase 7b's tensors gone
+        training_phase(args.seed, smi, card, torch.device("cuda"), root)
         # -- 8. result ------------------------------------------------------
         emit({"kernels": rows})
         emit({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -3,13 +3,15 @@
 The package mirrors ``repro``'s layout — ``repro_torch.core`` holds the
 stream compiler and its lowering, ``repro_torch.kernels`` the kernel suite,
 ``repro_torch.models``, ``configs``, ``data`` and ``launch.serve`` the
-dense model stack's serving path — and imports neither JAX nor anything of
+model stack's serving path, ``optim``, ``checkpoint``, ``runtime`` and
+``launch.train`` its training — and imports neither JAX nor anything of
 ``repro``.  The streamed kernels run as hand-written CUDA C++ (``csrc/``)
 on a CUDA device and through their plain PyTorch versions on the CPU.
 
 Entry points (``kernels.ops``, ``core.lowering.ssr_call``,
 ``kernels.frontend.NestKernel``, ``models.init_params``,
-``data.pipeline.make_batch``, ``launch.serve``) run on ``cuda`` unless the
+``data.pipeline.make_batch``, ``launch.serve``, ``launch.steps
+.init_train_state``, ``launch.train``) run on ``cuda`` unless the
 caller asks for the CPU, per call through ``device=`` or for the process
 through :func:`set_default_device`.  Asking for ``cuda`` where there is
 none raises: the CPU path is never taken silently.

@@ -15,7 +15,10 @@ from a reference object's fields (duck typing: nothing here imports
   backend's key;
 * :func:`params_from_reference` — a model's parameter tree, from the
   reference's ``init_params`` (as numpy arrays), stacked axes included, so
-  both packages compute one function on one set of weights.
+  both packages compute one function on one set of weights;
+* :func:`train_state_from_reference` — a whole train state (params, the
+  optimiser's moments and count), so both packages take one step from
+  one state.
 
 The schedule cache needs no conversion: both packages write the same
 document (``version``, ``schedule`` JSON, ``meta``) under the same key for
@@ -119,7 +122,9 @@ def rekey_schedule(nest: Any, operands: Dict[str, Any], *,
 
 
 def params_from_reference(params: Any, cfg: Any,
-                          device: DeviceLike = None) -> Dict[str, Any]:
+                          device: DeviceLike = None, *,
+                          dtype: Optional[torch.dtype] = None
+                          ) -> Dict[str, Any]:
     """The port's parameter tree holding a reference ``init_params`` tree's
     values (numpy arrays, or anything ``np.asarray`` takes).
 
@@ -127,8 +132,8 @@ def params_from_reference(params: Any, cfg: Any,
     (per scan group, per pattern element, the block's dict stacked on the
     repeats axis), ``final_norm``, ``lm_head``; ``None`` stays ``None``.
     Every leaf is checked against the port's own tree for ``cfg`` (built on
-    the meta device): the same key paths, shapes and dtypes, or
-    ``ValueError``.
+    the meta device): the same key paths, shapes and dtypes (``dtype``,
+    where given, for every leaf: a moment tree's), or ``ValueError``.
     """
     from torch.utils import _pytree as pytree
 
@@ -150,9 +155,33 @@ def params_from_reference(params: Any, cfg: Any,
             out.append(None)
             continue
         t = to_tensor(given[path], device)
-        if tuple(t.shape) != tuple(w.shape) or t.dtype != w.dtype:
+        want_dt = w.dtype if dtype is None else dtype
+        if tuple(t.shape) != tuple(w.shape) or t.dtype != want_dt:
             raise ValueError(
                 f"{path}: the reference gives {tuple(t.shape)} {t.dtype}, "
-                f"the port wants {tuple(w.shape)} {w.dtype}")
+                f"the port wants {tuple(w.shape)} {want_dt}")
         out.append(t)
     return pytree.tree_unflatten(out, spec)
+
+
+def train_state_from_reference(state: Any, cfg: Any, opt_cfg: Any,
+                               device: DeviceLike = None) -> Dict[str, Any]:
+    """The port's train state (``steps.init_train_state``'s layout) holding
+    a reference train state's values: ``params`` through
+    :func:`params_from_reference`, the moments ``m`` and ``v`` checked to
+    the same paths and shapes in ``opt_cfg.moment_dtype``, and ``count``
+    as an int32 scalar."""
+    from .models.layers import dtype_of
+
+    opt = state["opt"]
+    mdt = dtype_of(opt_cfg.moment_dtype)
+    count = to_tensor(opt["count"], device)
+    if count.shape != () or count.dtype != torch.int32:
+        raise ValueError(f"count: {tuple(count.shape)} {count.dtype}, the "
+                         f"port wants an int32 scalar")
+    return {"params": params_from_reference(state["params"], cfg, device),
+            "opt": {"m": params_from_reference(opt["m"], cfg, device,
+                                               dtype=mdt),
+                    "v": params_from_reference(opt["v"], cfg, device,
+                                               dtype=mdt),
+                    "count": count}}

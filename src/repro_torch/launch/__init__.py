@@ -4,11 +4,14 @@
   of a clustered call, does every per-core intermediate stay core-local
   but for the one combine?) and the fusion audits ``check_fusion`` /
   ``check_dag_fusion`` (is a fused program's intermediate buffer gone?);
-* ``steps`` — the serving path's prefill and decode steps;
+* ``steps`` — the train step (gradient-accumulated, its state) and the
+  serving path's prefill and decode steps;
 * ``serve`` — batched serving and its command line (``python -m
-  repro_torch.launch.serve``).
+  repro_torch.launch.serve``);
+* ``train`` — the checkpointed, fault-tolerant training loop and its
+  command line (``python -m repro_torch.launch.train``).
 
-The reference's ``launch`` package also holds the train step and loop
-(port slice 9c), the mesh, the dry-run and the HLO parser (port slice 9d).
-Import submodules explicitly; this package root stays import-free.
+The reference's ``launch`` package also holds the mesh, the dry-run and
+the HLO parser (port slice 9d).  Import submodules explicitly; this
+package root stays import-free.
 """

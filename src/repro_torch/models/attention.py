@@ -113,7 +113,7 @@ def attn_full(params, x: torch.Tensor, cfg: ModelConfig, *,
     if s > FLASH_THRESHOLD:
         out = flash_sdpa(q, k, v, q_pos=positions, k_pos=positions,
                          causal=cfg.causal, window=cfg.window,
-                         scale=1.0 / math.sqrt(hd))
+                         scale=1.0 / math.sqrt(hd), remat=cfg.remat)
     else:
         mask = _mask(s, s, positions, positions, cfg.causal, cfg.window)
         out = _sdpa(q, k, v, mask, 1.0 / math.sqrt(hd))
@@ -247,7 +247,8 @@ def mla_full(params, x: torch.Tensor, cfg: ModelConfig, *,
         b, s, h, m.qk_rope_head_dim)], dim=-1)
     if s > FLASH_THRESHOLD:
         out = flash_sdpa(qq, kk, v, q_pos=positions, k_pos=positions,
-                         causal=cfg.causal, window=cfg.window, scale=scale)
+                         causal=cfg.causal, window=cfg.window, scale=scale,
+                         remat=cfg.remat)
     else:
         mask = _mask(s, s, positions, positions, cfg.causal, cfg.window)
         out = _sdpa(qq, kk, v, mask, scale)

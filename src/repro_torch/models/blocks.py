@@ -3,9 +3,17 @@
 A :class:`~repro_torch.models.config.ScanGroup`'s parameters and caches are
 stacked on a leading ``repeats`` axis, as the reference's are; where the
 reference scans that axis (``lax.scan``), the port walks it in a Python
-loop, one layer's views at a time.  The reference's ``remat`` and its
-nested layer-group scan (``_layer_chunk``) shape backward memory only; a
-forward-only path has no counterpart, and the training slice decides.
+loop, one layer's views at a time.  A full-sequence pass takes the layers'
+views by one ``unbind`` a stacked leaf, so backward assembles each stacked
+gradient once (indexing a layer at a time would add a zero-filled
+stack-sized gradient a layer).
+
+With ``cfg.remat``, as the reference's ``jax.checkpoint``s: each layer's
+body is recomputed in backward, which keeps only its input; a group of 8
+or more layers is also walked as ~√R outer chunks (``_layer_chunk``), each
+recomputed whole, so backward keeps the chunks' boundaries and one chunk's
+layer inputs at a time.  Without autograd recording (serving), nothing is
+recomputed and the walk is the plain loop.
 
 Decode keeps every layer's state in its slot of the stacked buffers: the
 attention mixers write their token in place (``attn_decode``,
@@ -25,8 +33,8 @@ from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .config import ModelConfig, ScanGroup
-from .layers import (META, Init, dtype_of, gelu_mlp, init_dense, rms_norm,
-                     swiglu)
+from .layers import (META, Init, dtype_of, gelu_mlp, init_dense, remat,
+                     rms_norm, swiglu)
 
 _MIXER_INIT = {
     "attn": attn_mod.init_attn,
@@ -48,11 +56,6 @@ _MIXER_DECODE = {
 def tree_leaves(tree) -> List[torch.Tensor]:
     """The tensors of a parameter or cache tree (``None`` leaves left out)."""
     return [x for x in pytree.tree_leaves(tree) if isinstance(x, torch.Tensor)]
-
-
-def _layer(tree, r: int):
-    """Layer ``r``'s views of a stacked tree."""
-    return pytree.tree_map_only(torch.Tensor, lambda x: x[r], tree)
 
 
 def init_ffn(init: Init, kind: str, cfg: ModelConfig) -> Dict[str, Any]:
@@ -187,6 +190,24 @@ def init_group_cache(group: ScanGroup, cfg: ModelConfig, batch: int,
     return out
 
 
+def _layers(tree, repeats: int) -> list:
+    """Every layer's views of a stacked tree, one ``unbind`` a leaf (its
+    slots, for a cache)."""
+    flat, spec = pytree.tree_flatten(tree)
+    cols = [x.unbind(0) if isinstance(x, torch.Tensor) else [x] * repeats
+            for x in flat]
+    return [pytree.tree_unflatten([c[r] for c in cols], spec)
+            for r in range(repeats)]
+
+
+def _layer_chunk(repeats: int) -> int:
+    """√R-ish divisor for nested layer-group remat."""
+    g = max(1, int(repeats ** 0.5))
+    while repeats % g:
+        g -= 1
+    return g
+
+
 def group_full(group_params, h: torch.Tensor, cfg: ModelConfig,
                group: ScanGroup, *, positions: torch.Tensor,
                want_cache: bool, cache_len: int):
@@ -194,24 +215,46 @@ def group_full(group_params, h: torch.Tensor, cfg: ModelConfig,
 
     With ``want_cache`` each layer's cache lands in its slot of one stacked
     buffer per pattern element, as the reference's scan stacks its ys.
+    With ``cfg.remat`` (and no caches wanted) each layer's body is
+    recomputed in backward, and a group of 8 or more layers in ~√R outer
+    chunks too, as the reference's nested checkpointed scans.
     """
-    caches = [None] * len(group.pattern) if want_cache else None
+    layers = _layers(group_params, group.repeats)
+    if not want_cache:
+        def body(hh, aux, lp):
+            for j, (mixer, ffn) in enumerate(group.pattern):
+                hh, _, a = block_full(lp[j], hh, cfg, mixer, ffn,
+                                      positions=positions, want_cache=False,
+                                      cache_len=cache_len)
+                aux = aux + a
+            return hh, aux
+
+        def chunk(hh, aux, lps):
+            for lp in lps:
+                hh, aux = remat(body, hh, aux, lp, enabled=cfg.remat)
+            return hh, aux
+
+        r = group.repeats
+        g = _layer_chunk(r) if cfg.remat and r >= 8 else r
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(0, r, g):
+            h, aux = remat(chunk, h, aux, layers[i:i + g], enabled=g < r)
+        return h, None, aux
+
+    caches = [None] * len(group.pattern)
     aux = 0.0
     for r in range(group.repeats):
-        layer_params = _layer(group_params, r)
         for j, (mixer, ffn) in enumerate(group.pattern):
             h, cache, a = block_full(
-                layer_params[j], h, cfg, mixer, ffn, positions=positions,
-                want_cache=want_cache, cache_len=cache_len)
+                layers[r][j], h, cfg, mixer, ffn, positions=positions,
+                want_cache=True, cache_len=cache_len)
             aux = aux + a
-            if want_cache:
-                if caches[j] is None:
-                    caches[j] = pytree.tree_map_only(
-                        torch.Tensor, lambda x: x.new_empty(
-                            (group.repeats,) + tuple(x.shape)), cache)
-                for dst, src in zip(tree_leaves(caches[j]),
-                                    tree_leaves(cache)):
-                    dst[r].copy_(src)
+            if caches[j] is None:
+                caches[j] = pytree.tree_map_only(
+                    torch.Tensor, lambda x: x.new_empty(
+                        (group.repeats,) + tuple(x.shape)), cache)
+            for dst, src in zip(tree_leaves(caches[j]), tree_leaves(cache)):
+                dst[r].copy_(src)
     return h, caches, aux
 
 
@@ -224,11 +267,12 @@ def group_decode(group_params, h: torch.Tensor, cfg: ModelConfig,
     one returns new state, which is copied into the slot (cast to the
     buffer's dtype, as the reference's ``dynamic_update_index_in_dim``).
     """
+    layers = _layers(group_params, group.repeats)
+    slots = [_layers(c, group.repeats) for c in caches]
     for r in range(group.repeats):
-        layer_params = _layer(group_params, r)
         for e, (mixer, ffn) in enumerate(group.pattern):
-            slot = _layer(caches[e], r)
-            h, new = block_decode(layer_params[e], h, cfg, mixer, ffn,
+            slot = slots[e][r]
+            h, new = block_decode(layers[r][e], h, cfg, mixer, ffn,
                                   cache=slot, positions=positions)
             for dst, src in zip(tree_leaves(slot), tree_leaves(new)):
                 if src is not dst:

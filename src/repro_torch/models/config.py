@@ -115,8 +115,8 @@ class ModelConfig:
     remat: bool = True
     microbatches: int = 1
     optimizer_dtype: str = "float32"
-    # dtype of the cross-microbatch gradient accumulator (the training
-    # slice reads it; the 405B/671B configs use bf16)
+    # dtype of the cross-microbatch gradient accumulator (the train step's;
+    # the 405B/671B configs use bf16)
     grad_accum_dtype: str = "float32"
 
     def __post_init__(self) -> None:

@@ -9,15 +9,30 @@ through :func:`bmm_f32`), which pick per device: the CUDA backend has the
 result); the CPU backend has no kernel for them (``aten::mm.dtype``), so
 there both operands are upcast, which is exact, bf16 values being f32
 values.
+
+The card's ``out_dtype`` overloads have no derivative, so there the
+products are :class:`F32Product`, whose backward computes each cotangent
+product as the reference's gradient of a ``preferred_element_type=f32``
+dot does: the f32 cotangent times the other operand upcast to f32, summed
+in f32, then cast to the operand's dtype.  That is the CPU's upcast path's
+gradient, so both devices round a gradient alike.  TF32 must be off for
+these products (``torch.backends.cuda.matmul.allow_tf32``), as for the
+forward.
+
+``remat`` wraps a function in ``torch.utils.checkpoint`` (non-reentrant)
+where the model asks for it and autograd is recording, the port's
+counterpart of the reference's ``jax.checkpoint``: backward keeps the
+function's inputs and recomputes the rest.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
 
@@ -94,6 +109,37 @@ def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(dt), w.to(dt))
 
 
+class F32Product(torch.autograd.Function):
+    """``a @ b`` of two 2-D or two 3-D (batched) operands of one dtype,
+    summed and returned in f32, with the reference's gradient: each
+    cotangent product is the f32 cotangent times the other operand upcast
+    to f32, summed in f32 and cast to its operand's dtype.
+
+    Forward is the card's ``out_dtype=torch.float32`` overload of
+    ``mm``/``bmm``; on the CPU, which has no kernel for it, the upcast
+    product (the same sums, as ``dot_f32`` computes there).
+    """
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        mm = torch.mm if a.ndim == 2 else torch.bmm
+        if a.device.type == "cuda":
+            return mm(a, b, out_dtype=torch.float32)
+        return mm(a.float(), b.float())
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        a, b = ctx.saved_tensors
+        g = g.float()
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(g, b.float().transpose(-1, -2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.matmul(a.float().transpose(-1, -2), g).to(b.dtype)
+        return ga, gb
+
+
 def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` over x's last axis, summed and returned in f32."""
     if x.dtype != w.dtype:
@@ -101,8 +147,7 @@ def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.dtype == torch.float32:
         return torch.matmul(x, w)
     if x.device.type == "cuda":
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w,
-                       out_dtype=torch.float32)
+        out = F32Product.apply(x.reshape(-1, x.shape[-1]), w)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float())
 
@@ -114,8 +159,19 @@ def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
     if a.device.type == "cuda":
-        return torch.bmm(a, b, out_dtype=torch.float32)
+        return F32Product.apply(a, b)
     return torch.bmm(a.float(), b.float())
+
+
+def remat(fn: Callable, *args, enabled: bool):
+    """``fn(*args)``; with ``enabled`` and autograd recording, under
+    ``torch.utils.checkpoint``, so backward saves only ``args`` and
+    recomputes the rest (the models draw no random numbers, so no RNG
+    state is kept)."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,

@@ -3,9 +3,11 @@
 A sequential recurrence whose operands stream past a small resident
 state.  The full-sequence paths walk time in Python loops (the
 reference's ``lax.scan``s); decode is a single-step state update, O(1) a
-token.  The reference wraps its chunk bodies in ``jax.checkpoint`` to
-bound backward memory; a forward-only path has nothing to save, and the
-training slice decides what to recompute.
+token.  With ``cfg.remat``, as the reference's ``jax.checkpoint``s, each
+chunk body (Mamba's and mLSTM's, sLSTM's steps through
+``flash.chunked_scan``) is recomputed in backward, which keeps only the
+chunk-boundary state: one chunk's transition tensors at a time, not the
+sequence's.
 
 As in the reference: the selective scan is a straight sequential scan
 (chunked only to bound the (B, chunk, di, d_state) transition tensors),
@@ -22,7 +24,7 @@ import torch.nn.functional as F
 
 from .config import MambaConfig, ModelConfig, XLSTMConfig
 from .flash import chunked_scan
-from .layers import Init, dot, dtype_of, init_dense, rms_norm
+from .layers import Init, dot, dtype_of, init_dense, remat, rms_norm
 
 # sequence-chunk length of the chunked schedules below
 SCAN_CHUNK = 256
@@ -101,18 +103,23 @@ def mamba_full(params, x: torch.Tensor, cfg: ModelConfig, *,
              for j in range(m.d_conv))
     xc = F.silu(xc + params["conv_b"])
 
+    def chunk_body(h, xck):
+        delta, a, b_ssm, c_ssm = _mamba_inner(params, xck, cfg)
+        da = torch.exp(delta[..., None] * a)                 # (B,c,di,ds)
+        dbx = (delta * xck.float())[..., None] * b_ssm[:, :, None, :]
+        ys = []
+        for t in range(xck.shape[1]):
+            h = da[:, t] * h + dbx[:, t]
+            ys.append(torch.bmm(h, c_ssm[:, t, :, None])[..., 0])
+        return h, torch.stack(ys, dim=1)
+
     c = _chunk(s)
     h = torch.zeros((b, di, m.d_state), dtype=torch.float32, device=x.device)
     ys = []
     for i in range(0, s, c):
-        xck = xc[:, i:i + c]
-        delta, a, b_ssm, c_ssm = _mamba_inner(params, xck, cfg)
-        da = torch.exp(delta[..., None] * a)                 # (B,c,di,ds)
-        dbx = (delta * xck.float())[..., None] * b_ssm[:, :, None, :]
-        for t in range(xck.shape[1]):
-            h = da[:, t] * h + dbx[:, t]
-            ys.append(torch.bmm(h, c_ssm[:, t, :, None])[..., 0])
-    y = torch.stack(ys, dim=1)                               # (B, S, di)
+        h, yc = remat(chunk_body, h, xc[:, i:i + c], enabled=cfg.remat)
+        ys.append(yc)
+    y = torch.cat(ys, dim=1)                                 # (B, S, di)
     y = y + xc.float() * params["d_skip"].float()
     out = dot((y * F.silu(z.float())).to(x.dtype), params["w_out"])
     cache = None
@@ -209,13 +216,8 @@ def mlstm_full(params, x: torch.Tensor, cfg: ModelConfig, *,
     c = _chunk(s)
     causal = torch.tril(torch.ones((c, c), dtype=torch.bool,
                                    device=x.device))[None, :, :, None]
-    C = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=x.device)
-    n = torch.zeros((b, h, dh), dtype=torch.float32, device=x.device)
-    m = torch.zeros((b, h), dtype=torch.float32, device=x.device)
-    ys = []
-    for i in range(0, s, c):
-        qc, kc, vc = q[:, i:i + c], k[:, i:i + c], v[:, i:i + c]
-        ic, fc = i_pre[:, i:i + c], f_pre[:, i:i + c]        # (B, c, H)
+
+    def chunk_body(C, n, m, qc, kc, vc, ic, fc):
         Lf = torch.cumsum(F.logsigmoid(fc), dim=1)           # inclusive
         a_inter = m[:, None] + Lf                            # (B, c, H)
         # intra-chunk decay: D[t,s] = Lf_t − Lf_s + i_s  (s ≤ t)
@@ -232,8 +234,7 @@ def mlstm_full(params, x: torch.Tensor, cfg: ModelConfig, *,
         wqk = w * qk
         num = num_in + torch.einsum("btsh,bshd->bthd", wqk, vc)
         den = den_in + torch.sum(wqk, dim=2)
-        ys.append(num / torch.maximum(torch.abs(den),
-                                      torch.exp(-m_t))[..., None])
+        y = num / torch.maximum(torch.abs(den), torch.exp(-m_t))[..., None]
         # end-of-chunk state update (stabilised against m_new)
         LfT = Lf[:, -1]                                      # (B, H)
         m_new = torch.maximum(m + LfT, torch.amax(
@@ -243,7 +244,17 @@ def mlstm_full(params, x: torch.Tensor, cfg: ModelConfig, *,
         C = decay[:, :, None, None] * C \
             + torch.einsum("bsh,bshv,bshk->bhvk", wS, vc, kc)
         n = decay[..., None] * n + torch.einsum("bsh,bshk->bhk", wS, kc)
-        m = m_new
+        return C, n, m_new, y
+
+    C = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=x.device)
+    n = torch.zeros((b, h, dh), dtype=torch.float32, device=x.device)
+    m = torch.zeros((b, h), dtype=torch.float32, device=x.device)
+    ys = []
+    for i in range(0, s, c):
+        C, n, m, y = remat(chunk_body, C, n, m, q[:, i:i + c], k[:, i:i + c],
+                           v[:, i:i + c], i_pre[:, i:i + c],
+                           f_pre[:, i:i + c], enabled=cfg.remat)
+        ys.append(y)
     y = torch.cat(ys, dim=1).reshape(b, s, dp)
     # the norm runs over the whole dp width, not a head at a time
     y = rms_norm(y.to(x.dtype), params["skip_norm"], cfg.norm_eps)
@@ -347,7 +358,8 @@ def slstm_full(params, x: torch.Tensor, cfg: ModelConfig, *,
                  for _ in range(4))
     carry, ys = chunked_scan(
         lambda cr, xt: _slstm_step(w32, xt, cr),
-        init, x.float().transpose(0, 1), chunk=SCAN_CHUNK, length=s)
+        init, x.float().transpose(0, 1), chunk=SCAN_CHUNK, length=s,
+        remat=cfg.remat)
     y = ys.transpose(0, 1).to(x.dtype)
     out = _slstm_ffn(params, y)
     cache = None

@@ -1,3 +1,5 @@
-"""Run-time support of the port: so far the straggler watch (``fault``)."""
+"""Run-time support: failure injection, supervised restart and the
+straggler watch (``fault``)."""
 
-from .fault import StragglerMonitor  # noqa: F401
+from .fault import (FailureInjector, SimulatedFailure,  # noqa: F401
+                    StragglerMonitor, Supervisor)

@@ -8,6 +8,7 @@ them; ``--noconftest`` skips the repo's JAX test settings::
 """
 
 import dataclasses
+import math
 import time
 
 import numpy as np
@@ -3086,6 +3087,99 @@ def test_smoke_model_on_the_card_against_the_cpu(dev, arch):
                 for g in cfg.groups)
     assert float(((got - want).abs() / scale).max()) <= \
         SERVE_CPU_LIMIT * max(1, mlstm)
+
+
+# the smoke variants' train step on the card against the CPU, per leaf,
+# |Δ| over the CPU step's largest |update| (params) or |value| (moments):
+# f32 with TF32 off within SERVE_CPU_LIMIT (times the mLSTM layers) beyond
+# two f32 ulps of the leaf's largest |p|; bf16 within TRAIN_BF16_CPU_LIMIT
+# beyond one bf16 ulp of each element (chip_smoke.py's phase 7c)
+TRAIN_BF16_CPU_LIMIT = 2.0 ** -10
+
+
+def _train_step_errors(dev, arch, dtype, limit, batch_step):
+    """The worst leaf's error over its limit, per part (params, m, v), of
+    the card's step (on batch ``batch_step``) against the CPU's (on batch
+    0), from one state: weights drawn on the CPU, moments at each leaf's
+    gradient scale, count 3."""
+    from repro_torch import configs, keypaths
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(configs.get_smoke(arch), param_dtype=dtype,
+                              compute_dtype=dtype)
+    opt = adamw.AdamWConfig(learning_rate=1e-2)
+    params = model.init_params(0, cfg, device="cpu")
+    batch = {s: pipeline.make_batch(cfg, pipeline.DataConfig(2, 16), s,
+                                    device="cpu") for s in (0, 1)}
+    grads = steps._value_and_grad(params, cfg, batch[0])[1]
+    gen = torch.Generator().manual_seed(1)
+    rms = {path: float(g.float().pow(2).mean().sqrt()) + 1e-12
+           for path, g in keypaths.leaves_with_path(grads)}
+    base = {"params": params, "opt": {
+        "m": keypaths.map_with_path(lambda path, p: torch.randn(
+            p.shape, generator=gen) * rms[path], params),
+        "v": keypaths.map_with_path(lambda path, p: (torch.rand(
+            p.shape, generator=gen) + 0.5) * rms[path] ** 2, params),
+        "count": torch.tensor(3, dtype=torch.int32)}}
+
+    def run(where, b):
+        st = keypaths.map_with_path(lambda _, t: t.clone().to(where), base)
+        steps.make_train_step(cfg, opt)(
+            st["params"], st["opt"], {k: v.to(where) for k, v in b.items()})
+        return keypaths.map_with_path(lambda _, t: t.cpu(), st)
+
+    want, got = run("cpu", batch[0]), run(dev, batch[batch_step])
+    worst = {}
+    for (path, g), w, o in zip(keypaths.leaves_with_path(got),
+                               keypaths.leaves(want),
+                               keypaths.leaves(base)):
+        part = "/".join(str(k) for k in path[:2]) if path[0] == "opt" \
+            else "params"
+        if part == "opt/count":
+            assert int(g) == int(w) == 4
+            continue
+        w64, d = w.double(), (g.double() - w.double()).abs()
+        allow = 0.0
+        if part == "params":
+            scale = float((w64 - o.double()).abs().max())
+            if dtype == "bfloat16":
+                d = (d - torch.exp2(torch.floor(torch.log2(
+                    w64.abs().clamp_min(1e-30))) - 7)).clamp_min(0.0)
+            else:
+                allow = 2 * 2.0 ** (math.floor(math.log2(max(float(
+                    w64.abs().max()), 1e-30))) - 23)
+        else:
+            scale = float(w64.abs().max())
+        worst[part] = max(worst.get(part, 0.0),
+                          float(d.max()) / (scale * limit + allow))
+    return worst
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["yi_6b", "llama3_405b", "h2o_danube_18b",
+                                  "qwen3_14b", "hubert_xlarge",
+                                  "internvl2_26b", "xlstm_125m",
+                                  "jamba_v01_52b", "deepseek_v3_671b",
+                                  "dbrx_132b"])
+def test_smoke_train_step_on_the_card_against_the_cpu(dev, arch, dtype):
+    """One train step of the smoke variant on the card and on the CPU from
+    one state; in bf16 this holds the card's f32-output products' backward
+    (``layers.F32Product``) to the CPU's upcast products.  The control,
+    the card's step on another batch, reads above the limit on the
+    params, m and v."""
+    from repro_torch import configs
+
+    mlstm = sum(g.repeats * sum(m == "mlstm" for m, _ in g.pattern)
+                for g in configs.get_smoke(arch).groups)
+    limit = SERVE_CPU_LIMIT * max(1, mlstm) if dtype == "float32" \
+        else TRAIN_BF16_CPU_LIMIT
+    err = _train_step_errors(dev, arch, dtype, limit, 0)
+    ctrl = _train_step_errors(dev, arch, dtype, limit, 1)
+    assert max(err.values()) <= 1, err
+    assert min(ctrl.values()) > 1, ctrl
 
 
 def test_bf16_products_sum_in_f32_on_the_card(dev):

@@ -1,12 +1,14 @@
-"""The port's two kernel examples run to the end on the CPU.
+"""The port's examples and its train CLI run to the end on the CPU.
 
-``examples/torch_quickstart.py`` and ``examples/torch_ssr_kernels_tour.py``
-are the reference's ``quickstart.py`` and ``ssr_kernels_tour.py`` on
-``repro_torch``, with a ``--device`` argument (default ``cuda``).  Here they
-run with ``--device cpu`` and a temporary ``REPRO_SCHEDULE_CACHE``; the
-quickstart's closed-form sections (1, 2, 3 and 5) print the reference
-example's lines, and its autotuner writes under that cache and nowhere in
-``HOME``.
+``examples/torch_quickstart.py``, ``examples/torch_ssr_kernels_tour.py``
+and ``examples/torch_train_e2e.py`` are the reference's ``quickstart.py``,
+``ssr_kernels_tour.py`` and ``train_e2e.py`` on ``repro_torch``, with a
+``--device`` argument (default ``cuda``).  Here they run with ``--device
+cpu`` and a temporary ``REPRO_SCHEDULE_CACHE``; the quickstart's
+closed-form sections (1, 2, 3 and 5) print the reference example's lines,
+and its autotuner writes under that cache and nowhere in ``HOME``.  The
+training example runs 21 of its 200 steps with a failure injected, and
+``python -m repro_torch.launch.train`` its smoke run with a restart.
 """
 
 import os
@@ -20,14 +22,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = os.path.join(REPO, "examples")
 
 
-def _run(script, tmp_path, *args, env_extra=None):
+def _run(script, tmp_path, *args, env_extra=None, module=False):
     env = dict(os.environ)
     env.update(PYTHONPATH=os.path.join(REPO, "src"), JAX_PLATFORMS="cpu",
                HOME=str(tmp_path / "home"),
                REPRO_SCHEDULE_CACHE=str(tmp_path / "schedules"))
     env.update(env_extra or {})
-    return subprocess.run([sys.executable, os.path.join(EXAMPLES, script),
-                           *args], capture_output=True, text=True, env=env,
+    cmd = ["-m", script] if module else [os.path.join(EXAMPLES, script)]
+    return subprocess.run([sys.executable, *cmd, *args],
+                          capture_output=True, text=True, env=env,
                           timeout=600, cwd=str(tmp_path))
 
 
@@ -76,8 +79,59 @@ def test_tour_runs_every_kernel_to_the_end(tmp_path):
     assert "All streamed kernels validated" in out.stdout
 
 
+def test_train_e2e_learns_and_restarts(tmp_path):
+    """21 steps of the 20m preset, a failure at step 12: one restart from
+    the checkpoint at 0 (it checkpoints every 25), whose replay logs steps
+    0 and 10 again with the same losses; the loss falls by more than 0.5
+    from step 0 to 20 (``LEARNED``), and the temporary checkpoints are
+    gone."""
+    (tmp_path / "tmp").mkdir()
+    # two threads: the suite's other workers share the cores
+    out = _run("torch_train_e2e.py", tmp_path, "--device", "cpu",
+               "--steps", "21", "--fail-at", "12",
+               env_extra={"TMPDIR": str(tmp_path / "tmp"),
+                          "OMP_NUM_THREADS": "2"})
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0].startswith("model: train-e2e-20m")
+    logged = [ln.split() for ln in lines if ln.startswith("step")]
+    assert [x[1] for x in logged] == ["0", "10", "0", "10", "20"]
+    assert logged[0] == logged[2] and logged[1] == logged[3]
+    assert "restarts=1" in out.stdout
+    assert lines[-1].endswith("(LEARNED)"), lines[-1]
+    assert not any((tmp_path / "tmp").iterdir())
+
+
+def test_the_train_cli_restarts_once(tmp_path):
+    """``python -m repro_torch.launch.train --arch yi_6b --smoke --steps 6
+    --fail-at 3 --device cpu``: the reference CLI's report lines, one
+    restart, and its temporary checkpoint directory removed."""
+    (tmp_path / "tmp").mkdir()
+    out = _run("repro_torch.launch.train", tmp_path, "--arch", "yi_6b",
+               "--smoke", "--steps", "6", "--fail-at", "3", "--device",
+               "cpu", "--log-every", "1", module=True,
+               env_extra={"TMPDIR": str(tmp_path / "tmp")})
+    assert out.returncode == 0, out.stderr
+    done = [ln for ln in out.stdout.splitlines() if ln.startswith("done:")]
+    assert len(done) == 1 and "restarts=1" in done[0]
+    assert "failure@3" in done[0] and "restored@0" in done[0]
+    assert out.stdout.splitlines()[-1].startswith("loss: first ")
+    steps = [ln.split()[1] for ln in out.stdout.splitlines()
+             if ln.startswith("step")]
+    assert steps == ["0", "1", "2", "0", "1", "2", "3", "4", "5"]
+    assert not any((tmp_path / "tmp").iterdir())
+
+
+def test_the_train_cli_refuses_a_mesh_naming_9d(tmp_path):
+    out = _run("repro_torch.launch.train", tmp_path, "--arch", "yi_6b",
+               "--smoke", "--mesh", "2,1", "--device", "cpu", module=True)
+    assert out.returncode != 0
+    assert "NotImplementedError" in out.stderr and "9d" in out.stderr
+
+
 @pytest.mark.parametrize("script", ["torch_quickstart.py",
-                                    "torch_ssr_kernels_tour.py"])
+                                    "torch_ssr_kernels_tour.py",
+                                    "torch_train_e2e.py"])
 def test_without_a_card_the_default_device_fails_at_once(tmp_path, script):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks a machine "

@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's serving phases alone, in a fresh process.
+"""chip_smoke.py's model phases alone, in a fresh process.
 
 Run from the root of a checkout on a machine with a CUDA card::
 
-    python3 tools/serve_alone.py [--seed 0] [--phases 7 7b]
+    python3 tools/serve_alone.py [--seed 0] [--phases 7 7b 7c]
 
 Phase 7 serves qwen3-14b at its published size (random bf16 weights drawn
 on the card from ``--seed``) and prints its ``serve`` line; phase 7b
 serves deepseek-v3 (2 layers), jamba (one period) and xlstm-125m at their
-published widths and prints the ``serve_families`` line; each exactly as
+published widths and prints the ``serve_families`` line; phase 7c trains
+h2o-danube-1.8b at its published size, checks its gradients, holds the
+smoke variants' train step on the card to the CPU's and restarts
+xlstm-125m exactly, and prints the ``train`` line; each exactly as
 ``chip_smoke.py`` runs it, with its checks.  No kernel is built, so phase
-7 takes about a minute and a half.  Beside ``chip_smoke.py``'s run it separates
-what the serving path costs from what the earlier phases leave in the
-process.  Exits non-zero without a CUDA device or if a check fails.
+7 takes about a minute and a half.  Beside ``chip_smoke.py``'s run it
+separates what the model path costs from what the earlier phases leave in
+the process.  Exits non-zero without a CUDA device or if a check fails.
 """
 
 import argparse
@@ -33,8 +36,8 @@ import chip_smoke  # noqa: E402
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--phases", nargs="+", default=["7", "7b"],
-                    choices=["7", "7b"])
+    ap.add_argument("--phases", nargs="+", default=["7", "7b", "7c"],
+                    choices=["7", "7b", "7c"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("serve_alone: torch.cuda.is_available() is False",
@@ -58,6 +61,9 @@ def main() -> int:
             chip_smoke.serve_phase(args.seed, smi, card, dev)
         if "7b" in args.phases:
             chip_smoke.families_phase(args.seed, smi, card, dev)
+        if "7c" in args.phases:
+            from pathlib import Path
+            chip_smoke.training_phase(args.seed, smi, card, dev, Path(ROOT))
     finally:
         shutil.rmtree(traces, ignore_errors=True)
     return 0
