@@ -3,7 +3,7 @@
 
 Run from the root of a checkout on a machine with a CUDA card::
 
-    python3 chip_smoke.py [--seed N]    # about eight minutes, the build included
+    python3 chip_smoke.py [--seed N]    # about ten minutes, the build included
 
 The main path is the paper's compile-and-run loop (``ssrify`` →
 ``lower_plan``/``lower_nest`` → ``ssr_call``) behind ``repro_torch.kernels
@@ -275,6 +275,23 @@ printing JSON lines:
    kernels and busy share (``torch.profiler``), peak memory, the long
    step's ms and peak beside the reckoning of what it holds, and the
    checkpoint's save and restore seconds;
+7d. the multi-device layer (``launch/mesh.py``, ``parallel/``, the EP
+   MoE, the sharded train step, the elastic restore), once 7c's tensors
+   are freed, on ranks that share the card: (a) one NCCL rank takes
+   danube's sharded step on a (1, 1) mesh, to the unsharded step's bits
+   under deterministic algorithms (control: another batch); (b) four gloo
+   ranks on (data 2, model 2) take danube's sharded step against the
+   unsharded step from one state, per leaf within ``MESH_STEP_LIMIT``
+   (control: another batch's gradient), run ``compressed_psum`` over
+   ``data`` within its bounds, and checkpoint danube cut to 2 layers from
+   their shards and restore it onto (1, 2) to the bit, then step there;
+   (c) deepseek-v3's MoE layer at published widths through ep2d (8
+   tokens) and ep (8 × 1,024) on (2, 2), dbrx's through ep_dstat on (3,
+   2), each against the plain dispatch within ``EP_LIMIT`` on the tokens
+   no routing flip reaches (control: one rank's experts zeroed). The
+   ``mesh_world1`` and ``mesh`` lines report a rank's resident state,
+   peak, step and collective ms ("ranks share one H100 over gloo") and
+   the phase's seconds (at most ``MESH_PHASE_S``);
 8. print the ``{"kernels": [...]}`` line (K1–K17, B1–B8 and R1–R15, 40
    rows; K11's and R12's rows are the attention_qwen3 cell, K11's row
    carries the other attention cells under ``cells``, which also have time
@@ -302,6 +319,7 @@ set (the rings would not run), it exits non-zero before any result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import json
 import math
@@ -2273,6 +2291,862 @@ def training_phase(seed: int, smi: str, card: str, dev: torch.device,
         raise SystemExit(f"chip_smoke: phase 7c failed {bad}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 7d: the multi-device layer (launch/mesh.py, parallel/sharding.py and
+# collectives.py, the expert-parallel MoE, the sharded train step, the
+# elastic restore) on ranks that share the card.  NCCL refuses two ranks of
+# one communicator on one GPU, so: (a) one NCCL rank; (b) and (c) gloo
+# ranks whose compute runs on the card and whose collectives go through the
+# host (parallel/collectives.py stages a CUDA tensor through the host on a
+# gloo group).  Neither says anything of NVLink or of scaling.
+# ---------------------------------------------------------------------------
+# (b): the (data, model) mesh and the elastic restore's mesh; the elastic
+# restore's state is danube cut to MESH_ELASTIC_LAYERS layers at published
+# widths (3.0 GiB: gloo moves the checkpoint's leaves through the host at
+# well under 1 GB/s, and the whole 17.05 GiB would take most of the phase's
+# 150 s)
+MESH_SHAPE, MESH_ELASTIC, MESH_ELASTIC_LAYERS = (2, 2), (1, 2), 2
+# (b)'s sharded step against the unsharded step from one state, per leaf:
+# the params beyond one bf16 ulp over the largest update, m and v over
+# their largest |value|.  The sharded step's gradient is the f32 mean of
+# two half-batch gradients, each rounded to bf16 (≤ 2**-9 of each half),
+# where the unsharded step rounds the whole batch's once, and the
+# embedding's backward sums a token's repeats in bf16; v squares the
+# gradient, doubling its relative error.  The first run on an H100 read
+# 2**-6.1 on the embedding's v (0.014 of max |v|), every other leaf below
+# 2**-10 (phase 7c's card-vs-CPU bf16 limit, where both steps see one
+# gradient).
+# Set after that reading, 2x above it.  Control: the unsharded step on
+# another batch, which read 10-35x this limit.
+MESH_STEP_LIMIT = 2.0 ** -5
+# (c): one MoE layer at published widths, mesh, and the cases as (rows,
+# positions, the dispatch the reference picks there)
+EP_CELLS = {"deepseek_v3_671b": ((2, 2), ((8, 1, "ep2d"), (8, 1024, "ep"))),
+            "dbrx_132b": ((3, 2), ((6, 1, "ep_dstat"),))}
+# (c): max |EP − plain| over max |plain| on the tokens no routing flip
+# reaches.  The combine sums a token's slots on each rank in f32 and then
+# the ranks' partials (another association of the same f32 sum, ~2**-20),
+# and adds the shared expert in bf16 after casting the routed part (the
+# plain path adds in f32 and casts once): two bf16 roundings where the
+# plain path has one, at most 2**-8 of the largest |y| each, so 2**-7.
+# Control: one rank's experts zeroed, which drops their share (O(|y|)).
+EP_LIMIT = 2.0 ** -7
+# the phase's wall seconds at most
+MESH_PHASE_S = 150.0
+
+
+def _digest(t: torch.Tensor, offsets=None, full_shape=None) -> torch.Tensor:
+    """Two int64 sums of ``t``'s bits: plain and weighted by each element's
+    flat index in the full leaf (``offsets``: the shard's place in it), so
+    shards' digests add up to the full leaf's."""
+    bits = t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32).long()
+    full_shape = tuple(full_shape or t.shape)
+    offsets = offsets or (0,) * t.ndim
+    idx = torch.zeros((), dtype=torch.int64, device=t.device)
+    stride = 1
+    for d in reversed(range(t.ndim)):
+        ar = torch.arange(t.shape[d], device=t.device) + offsets[d]
+        idx = idx + (ar * stride).view([-1 if i == d else 1
+                                        for i in range(t.ndim)])
+        stride *= full_shape[d]
+    w = idx % 65521 + 1
+    return torch.stack([bits.sum(), (bits * w).sum()])
+
+
+def _tree_digests(state, spec_of, mesh, keypaths, shd, col, dev) -> dict:
+    """{leaf: [Σ bits, Σ bits·w]} of a train state's full leaves, from this
+    rank's shards (each leaf counted once: its owner rank along the axes it
+    is replicated over), summed over the mesh; each taken on ``dev``."""
+    rows, keys = [], []
+    for path, t in keypaths.leaves_with_path(state):
+        key = keypaths.key(path)
+        if path[0] == "params":
+            spec = spec_of(path[1:])
+        elif path[1] in ("m", "v"):
+            spec = spec_of(path[2:])
+        else:
+            spec = shd.P()
+        held = shd.sharded_axes(spec)
+        owner = all(c == 0 for a, c in mesh.coords.items() if a not in held)
+        full = list(t.shape)
+        offs = []
+        for i, e in enumerate(spec):
+            axes = () if e is None else (e if isinstance(e, tuple) else (e,))
+            n = mesh.axes_size(axes)
+            full[i] *= n
+            offs.append(mesh.index(axes) * t.shape[i] if n > 1 else 0)
+        offs += [0] * (t.ndim - len(offs))
+        d = _digest(t.to(dev), offs, full).cpu()
+        rows.append(d if owner else torch.zeros_like(d))
+        keys.append(key)
+    total = col.all_reduce(torch.stack(rows), mesh, mesh.axis_names)
+    return {k: v.tolist() for k, v in zip(keys, total.cpu())}
+
+
+def _elastic_cfg(cfg):
+    """``cfg`` with its one scan group cut to MESH_ELASTIC_LAYERS."""
+    (group,) = cfg.groups
+    return dataclasses.replace(cfg, groups=(dataclasses.replace(
+        group, repeats=MESH_ELASTIC_LAYERS),))
+
+
+def _rank_device(device: str) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda":           # every rank shares the one card
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _peak_gib(dev: torch.device):
+    return torch.cuda.max_memory_allocated(dev) / 2**30 \
+        if dev.type == "cuda" else None
+
+
+def _mesh_cfg(arch: str, small: bool):
+    from repro_torch import configs
+    return configs.get_smoke(arch) if small else configs.get(arch)
+
+
+def _carried_moments(params, rms, seed, keypaths, shd, spec_of, mesh):
+    """This rank's shards of moments at each leaf's gradient scale s (phase
+    7c's ``carried_state``: m ~ N(0, s²), v ~ s² · U[1/2, 3/2]), each leaf
+    drawn whole on the card from a generator of its own (``seed``, the
+    leaf's index) and cut at once; ``rms`` maps a leaf to (s, its full
+    shape)."""
+    ms, vs = {}, {}
+    for i, (path, p) in enumerate(keypaths.leaves_with_path(params)):
+        key = keypaths.key(path)
+        s, shape = rms[key]
+        gen = torch.Generator(device=p.device).manual_seed(
+            seed * 1_000_003 + i)
+        m = torch.randn(shape, generator=gen, device=p.device) * s
+        v = (torch.rand(shape, generator=gen, device=p.device) + 0.5) * s * s
+        ms[key] = shd.shard(m, spec_of(path), mesh)
+        vs[key] = shd.shard(v, spec_of(path), mesh)
+    return (keypaths.map_with_path(lambda p, _: ms[keypaths.key(p)], params),
+            keypaths.map_with_path(lambda p, _: vs[keypaths.key(p)], params))
+
+
+def world1_rank(rank, world, job):
+    """(a): one NCCL rank on a (1, 1) mesh: the sharded step from the state
+    the unsharded step starts from, under deterministic algorithms; per
+    leaf digests of both results and of the sharded step on another
+    batch."""
+    import torch.distributed as dist
+
+    from repro_torch import keypaths
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dev = _rank_device(job["device"])
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cfg = _mesh_cfg(job["arch"], job["small"])
+    opt = train.optimizer(cfg, TRAIN_LR, TRAIN_STEPS)
+    mesh = make_host_mesh()
+    dcfg = pipeline.DataConfig(*job["batch"])
+    batches = [pipeline.make_batch(cfg, dcfg, s, device=dev) for s in (0, 1)]
+    probe = torch.ones((), device=dev)
+    dist.all_reduce(probe)                 # the NCCL communicator is live
+
+    def digests(state):
+        return [_digest(t).tolist() for t in keypaths.leaves(state)]
+
+    def drawn():
+        return steps.init_train_state(
+            torch.Generator(device=dev).manual_seed(job["seed"]), cfg, opt,
+            device=dev)
+
+    state = drawn()
+    shards = steps.shard_train_state(state, cfg, mesh)  # whole-leaf copies
+    steps.make_train_step(cfg, opt)(state["params"], state["opt"],
+                                    batches[0])
+    want = digests(state)
+    del state
+    step = steps.make_sharded_train_step(cfg, opt, mesh)
+    _sync(dev)
+    t0 = time.perf_counter()
+    step(shards["params"], shards["opt"], batches[0])
+    _sync(dev)
+    step_s = time.perf_counter() - t0
+    got = digests(shards)
+    del shards
+    shards = steps.shard_train_state(drawn(), cfg, mesh)
+    step(shards["params"], shards["opt"], batches[1])
+    ctrl = digests(shards)
+    return {"backend": dist.get_backend(), "world": world,
+            "leaves": len(want), "bits_equal": got == want,
+            "control_other_batch_equal": ctrl == want,
+            "step_ms": step_s * 1e3, "peak_gib": _peak_gib(dev),
+            "all_reduce_probe": float(probe)}
+
+
+def mesh_rank(rank, world, job):
+    """Six gloo ranks: (b) and the elastic restore on a (2, 2) mesh of
+    ranks 0–3 (onto (1, 2), ranks 0–1), (c)'s deepseek cell on the (2, 2)
+    mesh, then dbrx's on (3, 2), all six; returns each rank's report
+    (rank 0's holds the checks)."""
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch import keypaths, set_default_device
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+    from repro_torch.models import model
+    from repro_torch.optim import adamw, compress
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.activations import activation_mesh
+    from repro_torch.runtime.elastic import restore_on_mesh
+
+    dev = _rank_device(job["device"])
+    set_default_device(dev)
+    out = {"rank": rank}
+    cfg = _mesh_cfg(job["arch"], job["small"])
+    opt = train.optimizer(cfg, TRAIN_LR, TRAIN_STEPS)
+    # every rank makes every mesh's groups, in one order
+    mesh = Mesh(MESH_SHAPE, ("data", "model")).connect()
+    small = Mesh(MESH_ELASTIC, ("data", "model")).connect()
+    wide = make_host_mesh(*EP_CELLS["dbrx_132b"][0])
+    spec_of = steps._spec_of(steps.train_specs(cfg, mesh))
+    dcfg = pipeline.DataConfig(*job["batch"])
+    batches = [pipeline.make_batch(cfg, dcfg, s, device=dev) for s in (0, 1)]
+    t_all = time.perf_counter()
+    started = time.time() - job["spawned"]
+
+    def note(stage: str, **more) -> None:
+        """Rank 0's progress, a line a stage (the phase's time budget)."""
+        if rank == 0:
+            emit({"phase": "mesh_progress", "stage": stage,
+                  "s": time.perf_counter() - t_all,
+                  "peak_gib": _peak_gib(dev), **more})
+
+    note("connected", since_spawn_s=started)
+
+    if mesh.rank is not None:
+        # -- the state the unsharded step started from, as this rank's shards
+        full = model.init_params(
+            torch.Generator(device=dev).manual_seed(job["seed"]), cfg,
+            device=dev)
+        params = keypaths.map_with_path(
+            lambda p, t: shd.shard(t, spec_of(p), mesh), full)
+        del full
+        rms = {k: (s, tuple(shape)) for k, (s, shape) in job["rms"].items()}
+        m, v = _carried_moments(params, rms, job["seed"] + 1, keypaths, shd,
+                                spec_of, mesh)
+        # the moments' shards live on the host (AdamW computes each piece on
+        # the card and writes it back): four ranks' gathered weights and
+        # gradients fill the card's memory
+        m, v = (keypaths.map_with_path(
+            lambda _, t: t.cpu().pin_memory() if t.is_cuda else t, x)
+            for x in (m, v))
+        state = {"params": params, "opt": {
+            "m": m, "v": v,
+            "count": torch.tensor(3, dtype=torch.int32, device=dev)}}
+        # the parameters the step starts from, kept on the host (the card's
+        # memory is the four ranks' budget)
+        old = [t.to("cpu", copy=True) for t in keypaths.leaves(params)]
+        out["resident_gib"] = sum(t.numel() * t.element_size()
+                                  for t in keypaths.leaves(state)) / 2**30
+        out["resident_card_gib"] = sum(
+            t.numel() * t.element_size() for t in keypaths.leaves(state)
+            if t.device.type == dev.type) / 2**30
+        if dev.type == "cuda":     # the moments' whole-leaf draws are cached
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        note("state_drawn")
+        step = steps.make_sharded_train_step(cfg, opt, mesh)
+        mesh.comm_log = []
+        _sync(dev)
+        t0 = time.perf_counter()
+        _, _, metrics = step(state["params"], state["opt"], batches[0])
+        _sync(dev)
+        out["step_ms"] = (time.perf_counter() - t0) * 1e3
+        out["step_collective_ms"] = sum(c["s"] for c in mesh.comm_log) * 1e3
+        out["step_collectives"] = len(mesh.comm_log)
+        out["step_collective_ms_by_op"] = {}
+        for c in mesh.comm_log:
+            by = out["step_collective_ms_by_op"]
+            by[c["op"]] = by.get(c["op"], 0.0) + c["s"] * 1e3
+        out["step_peak_gib"] = _peak_gib(dev)
+        out["loss"] = float(metrics["loss"])
+        mesh.comm_log = None
+        note("step", step_ms=out["step_ms"],
+             collective_ms=out["step_collective_ms_by_op"])
+
+        # -- against the unsharded step: its gradient and norm (the parent's),
+        # its AdamW update applied to this rank's shard (elementwise)
+        grads = job["grads"]
+
+        # the moments the step started from, drawn again (on the card: the
+        # step is done) for both comparisons
+        ms0, vs0 = _carried_moments(state["params"], rms, job["seed"] + 1,
+                                    keypaths, shd, spec_of, mesh)
+        ms0, vs0 = keypaths.leaves(ms0), keypaths.leaves(vs0)
+
+        def errors(g_tree, norm):
+            errs = {}
+            m0 = [t.clone() for t in ms0]
+            v0 = [t.clone() for t in vs0]
+            for i, (path, p_got) in enumerate(
+                    keypaths.leaves_with_path(state["params"])):
+                key = keypaths.key(path)
+                g = shd.shard(g_tree[key], spec_of(path), mesh).to(dev)
+                p = old[i].to(dev, copy=True)
+                st = {"m": {"x": m0[i]}, "v": {"x": v0[i]},
+                      "count": torch.tensor(3, dtype=torch.int32, device=dev)}
+                adamw.update({"x": g}, st, {"x": p}, opt,
+                             grad_norm=torch.tensor(norm, device=dev))
+                o64 = old[i].to(dev).double()
+                w64 = p.double()
+                ulp = torch.exp2(torch.floor(torch.log2(
+                    w64.abs().clamp_min(1e-30))) - 7)
+                dp = ((p_got.double() - w64).abs() - ulp).clamp_min(0.0)
+                parts = {
+                    "params": (dp.max(), (w64 - o64).abs().max()),
+                    "opt/m": ((keypaths.leaves(state["opt"]["m"])[i].to(dev)
+                               .double() - st["m"]["x"].double()).abs().max(),
+                              st["m"]["x"].double().abs().max()),
+                    "opt/v": ((keypaths.leaves(state["opt"]["v"])[i].to(dev)
+                               .double() - st["v"]["x"].double()).abs().max(),
+                              st["v"]["x"].double().abs().max())}
+                for part, (e, scale) in parts.items():
+                    pair = col.all_reduce(
+                        torch.stack([e, scale]).float(), mesh,
+                        mesh.axis_names, op="max")
+                    errs[f"{part}/{key}"] = float(pair[0]) / max(
+                        float(pair[1]) * job["limit"], 1e-30)
+            return errs
+
+        t0 = time.perf_counter()
+        ratio = errors(grads[0], job["norms"][0])
+        ctrl = errors(grads[1], job["norms"][1])
+        out["compare_s"] = time.perf_counter() - t0
+        del ms0, vs0
+        note("compare")
+        worst = max(ratio, key=ratio.get)
+        out["step_vs_unsharded"] = {
+            "limit": job["limit"], "err_over_limit": ratio[worst],
+            "worst_leaf": worst,
+            "control_other_batch": {
+                part: max(v for k, v in ctrl.items() if k.startswith(part))
+                for part in ("params", "opt/m", "opt/v")}}
+
+        # -- compressed_psum over data on the unsharded step's gradient
+        # trees, batch 0's on data rank 0 and batch 1's on data rank 1,
+        # each rank's model half of every leaf (so the two ranks of a data
+        # group hold the same part); the exact mean of both, here
+        t0 = time.perf_counter()
+        half = {k: shd.P(*[e if e == "model" else None for e in sp])
+                for k, sp in ((keypaths.key(p), spec_of(p))
+                              for p, _ in keypaths.leaves_with_path(
+                                  state["params"]))}
+        worst_err = worst_res = 0.0
+        for key in half:
+            pair = [shd.shard(gt[key], half[key], mesh).to(dev).float()
+                    for gt in grads]
+            g = pair[mesh.coords["data"]]
+            one = {"g": g}
+            mean, resid = compress.compressed_psum(
+                one, compress.init_residuals(one), "data", mesh=mesh)
+            exact = (pair[0] + pair[1]) / 2
+            scale = max(max(float(p.abs().max()) for p in pair),
+                        1e-12) / 127.0
+            worst_err = max(worst_err, float(
+                (mean["g"] - exact).abs().max()) / (2 * scale))
+            own = max(float(g.abs().max()), 1e-12) / 127.0
+            worst_res = max(worst_res, float(resid["g"].abs().max()) / own)
+            del pair, g, one, mean, resid, exact
+        out["compressed_psum"] = {"err_over_2scale": worst_err,
+                                  "resid_over_scale": worst_res,
+                                  "seconds": time.perf_counter() - t0}
+        del grads, state, old
+        gc.collect()
+        note("compressed_psum")
+
+        # -- elastic: danube cut to MESH_ELASTIC_LAYERS layers (published
+        # widths), checkpointed from (2, 2)'s shards
+        t0 = time.perf_counter()
+        ecfg = _elastic_cfg(cfg)
+        espec = steps._spec_of(steps.train_specs(ecfg, mesh))
+        est = steps.shard_train_state(steps.init_train_state(
+            torch.Generator(device=dev).manual_seed(job["seed"] + 2), ecfg,
+            opt, device=dev), ecfg, mesh)
+        before = _tree_digests(est, espec, mesh, keypaths, shd, col, dev)
+        saved = steps.collect_train_state(est, ecfg, mesh)
+        out["elastic_gib"] = sum(t.numel() * t.element_size()
+                                 for t in keypaths.leaves(est)) / 2**30
+        del est
+        if mesh.rank == 0:
+            CheckpointManager(job["ckpt"]).save(1, saved)
+        del saved
+    dist.barrier()
+    if mesh.rank is not None:
+        out["save_s"] = time.perf_counter() - t0
+    note("save")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if small.rank is not None:
+        ecfg = _elastic_cfg(_mesh_cfg(job["arch"], job["small"]))
+        t0 = time.perf_counter()
+        restored = restore_on_mesh(CheckpointManager(job["ckpt"]), 1,
+                                   steps.abstract_train_state(ecfg, opt),
+                                   ecfg, small, device=dev)
+        _sync(dev)
+        out["restore_s"] = time.perf_counter() - t0
+        spec_small = steps._spec_of(steps.train_specs(ecfg, small))
+        after = _tree_digests(restored, spec_small, small, keypaths, shd,
+                              col, dev)
+        out["restore_bits_equal"] = after == before
+        step_small = steps.make_sharded_train_step(ecfg, opt, small)
+        _, _, m2 = step_small(restored["params"], restored["opt"],
+                              batches[1])
+        moved = _tree_digests(restored, spec_small, small, keypaths, shd,
+                              col, dev)
+        out["elastic_step"] = {"loss": float(m2["loss"]),
+                               "params_moved": moved != after}
+        del restored
+        gc.collect()
+    dist.barrier()
+    note("elastic")
+    out["mesh_s"] = time.perf_counter() - t_all
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- (c): the EP dispatches of deepseek-v3's MoE layer on (2, 2), then
+    # dbrx's on (3, 2)
+    if mesh.rank is not None:
+        out["ep"] = _ep_cases(job["ep"], mesh, dev, mesh.rank)
+    note("ep_deepseek")
+    out["ep_wide"] = _ep_cases(job["ep_wide"], wide, dev, wide.rank)
+    note("ep_dbrx")
+    return out
+
+
+def _ep_layer(arch: str, small: bool, factor: float):
+    from repro_torch import configs
+    cfg = configs.get(arch)
+    if small:       # the same dispatch on a (3, 2)-divisible small layer
+        s = configs.get_smoke(arch)
+        cfg = dataclasses.replace(s, d_model=96, moe=dataclasses.replace(
+            s.moe, num_experts=16 if cfg.moe.num_experts > 16 else 4,
+            d_expert=48, top_k=2))
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=factor))
+
+
+def _ep_draw(cfg, seed, dev, experts):
+    """The MoE layer's router, shared experts and the routed experts in
+    ``experts`` (a range), each expert drawn from a generator of its own."""
+    d, m = cfg.d_model, cfg.moe
+    f, e = m.d_expert, m.num_experts
+    dt = torch.bfloat16 if cfg.param_dtype == "bfloat16" else torch.float32
+
+    def gen(i):
+        return torch.Generator(device=dev).manual_seed(seed * 1_000_003 + i)
+
+    out = {"router": torch.randn((d, e), generator=gen(0), device=dev)
+           / math.sqrt(d)}
+    experts = list(experts)
+    ws = {"w_gate": torch.empty((len(experts), d, f), dtype=dt, device=dev),
+          "w_up": torch.empty((len(experts), d, f), dtype=dt, device=dev),
+          "w_down": torch.empty((len(experts), f, d), dtype=dt, device=dev)}
+    for i, x in enumerate(experts):      # in place: no second copy
+        g = gen(16 + x)
+        ws["w_gate"][i] = torch.randn((d, f), generator=g, device=dev) \
+            / math.sqrt(d)
+        ws["w_up"][i] = torch.randn((d, f), generator=g, device=dev) \
+            / math.sqrt(d)
+        ws["w_down"][i] = torch.randn((f, d), generator=g, device=dev) \
+            / math.sqrt(f)
+    out["experts"] = ws
+    if m.num_shared:
+        g = gen(1)
+        fs = f * m.num_shared
+        out["shared"] = {
+            "w_gate": (torch.randn((d, fs), generator=g, device=dev)
+                       / math.sqrt(d)).to(dt),
+            "w_up": (torch.randn((d, fs), generator=g, device=dev)
+                     / math.sqrt(d)).to(dt),
+            "w_down": (torch.randn((fs, d), generator=g, device=dev)
+                       / math.sqrt(fs)).to(dt)}
+    return out
+
+
+def _ep_x(cfg, rows, seq, seed, dev):
+    dt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    gen = torch.Generator(device=dev).manual_seed(seed * 7919 + rows * seq)
+    return torch.randn((rows, seq, cfg.d_model), generator=gen,
+                       device=dev).to(dt)
+
+
+def _ep_cases(job, mesh, dev, rank):
+    """This rank's part of each EP case of ``job``: its rows of y, its
+    routing ids, times; then the same with the experts of rank
+    ``job['zero_rank']`` zeroed (the control)."""
+    import gc
+
+    from repro_torch.models import moe
+    from repro_torch.parallel.activations import activation_mesh
+
+    cfg = _ep_layer(job["arch"], job["small"], job["factor"])
+    e, tp = cfg.moe.num_experts, mesh.shape["model"]
+    mine = range(mesh.coords["model"] * (e // tp),
+                 (mesh.coords["model"] + 1) * (e // tp))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = _ep_draw(cfg, job["seed"], dev, mine)
+    resident = sum(t.numel() * t.element_size()
+                   for t in params["experts"].values()) / 2**30
+    routed = []
+    inner = moe._route
+
+    def spy(xf, router, m):
+        res = inner(xf, router, m)
+        routed.append(res[1].cpu())
+        return res
+
+    out = {"resident_expert_gib": resident, "cases": []}
+    dd = mesh.shape["data"]
+
+    def run(x):
+        r = x.shape[0] // dd
+        xl = x[mesh.coords["data"] * r:(mesh.coords["data"] + 1) * r]
+        with activation_mesh(mesh):
+            return moe.moe_apply(params, xl, cfg)
+
+    xs = [_ep_x(cfg, rows, seq, job["seed"], dev)
+          for rows, seq, _ in job["cases"]]
+    for (rows, seq, _), x in zip(job["cases"], xs):
+        case = {"rows": rows, "seq": seq, "data": mesh.coords["data"],
+                "dispatch": moe.dispatch_name(cfg.moe, mesh, rows * seq)}
+        moe._route = spy
+        try:
+            mesh.comm_log = []
+            _sync(dev)
+            t0 = time.perf_counter()
+            y, aux = run(x)
+            _sync(dev)
+            case["ms"] = (time.perf_counter() - t0) * 1e3
+            case["collective_ms"] = sum(c["s"] for c in mesh.comm_log) * 1e3
+        finally:
+            moe._route = inner
+            mesh.comm_log = None
+        case.update(y=y.cpu(), aux=float(aux), ids=routed[0])
+        routed.clear()
+        out["cases"].append(case)
+    # the control: one rank's experts zeroed (in place, their last use)
+    if rank == job["zero_rank"]:
+        for w in params["experts"].values():
+            w.zero_()
+    for case, x in zip(out["cases"], xs):
+        case["y_control"] = run(x)[0].cpu()
+    out["peak_gib"] = _peak_gib(dev)
+    del params
+    gc.collect()
+    return out
+
+
+def _ep_reference(arch, small, seed, dev, cases, dd):
+    """The plain ``moe_apply`` of the layer on every case (no mesh), its
+    routing ids, and the least capacity factor (from the config's, in
+    steps of 1/4) at which no token set drops a slot: the whole batch and
+    each data rank's rows."""
+    import gc
+
+    from repro_torch.models import moe
+
+    cfg = _ep_layer(arch, small, 1.0)
+    m = cfg.moe
+    params = _ep_draw(cfg, seed, dev, range(m.num_experts))
+    xs = [_ep_x(cfg, rows, seq, seed, dev) for rows, seq, _ in cases]
+    factor = _mesh_cfg(arch, small).moe.capacity_factor
+    while True:
+        mm = dataclasses.replace(m, capacity_factor=factor)
+        ok = True
+        for x in xs:
+            flat = x.reshape(-1, cfg.d_model)
+            for part in [flat] + list(flat.chunk(dd)):
+                _, ids, _, _ = moe._route(part, params["router"], mm)
+                counts = torch.bincount(ids.reshape(-1),
+                                        minlength=m.num_experts)
+                ok &= int(counts.max()) <= moe.capacity(part.shape[0], mm)
+        if ok:
+            break
+        factor += 0.25
+    cfg = dataclasses.replace(cfg, moe=mm)
+    out = {"factor": factor, "cases": []}
+    with torch.no_grad():
+        for x in xs:
+            _, ids, _, _ = moe._route(x.reshape(-1, cfg.d_model),
+                                      params["router"], mm)
+            _sync(dev)
+            t0 = time.perf_counter()
+            y, aux = moe.moe_apply(params, x, cfg)
+            _sync(dev)
+            out["cases"].append({"y": y.cpu(), "aux": float(aux),
+                                 "ids": ids.cpu(),
+                                 "ms": (time.perf_counter() - t0) * 1e3})
+    out["expert_gib"] = sum(t.numel() * t.element_size()
+                            for t in params["experts"].values()) / 2**30
+    del params, xs
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ep_check(ref, eps, cases, dd) -> dict:
+    """Per case: every rank's routing against its data group's first rank
+    (exact) and against the plain path's (flips), the assembled y against
+    the plain y on the tokens no flip reaches, beside the control (``eps``:
+    each rank's ``_ep_cases``)."""
+    out = []
+    for c, (rows, seq, want) in enumerate(cases):
+        parts = [e["cases"][c] for e in eps]
+        dispatch = {p["dispatch"] for p in parts}
+        same = all(torch.equal(p["ids"], next(
+            q for q in parts if q["data"] == p["data"])["ids"])
+                   for p in parts)
+        first = sorted((p for p in parts), key=lambda p: p["data"])
+        by_data = {}
+        for p in first:
+            by_data.setdefault(p["data"], p)
+        y = torch.cat([by_data[d]["y"] for d in range(dd)], 0).float()
+        y_ctrl = torch.cat([by_data[d]["y_control"] for d in range(dd)],
+                           0).float()
+        ref_ids = ref["cases"][c]["ids"]
+        # the token sets each rank routed: all rows (gathered) or its own
+        ids = by_data[0]["ids"]
+        if ids.shape[0] == ref_ids.shape[0]:
+            got_ids = ids
+        else:
+            got_ids = torch.cat([by_data[d]["ids"] for d in range(dd)], 0)
+        flip = (got_ids.sort(-1).values != ref_ids.sort(-1).values).any(-1)
+        keep = ~flip.reshape(rows, seq)
+        want_y = ref["cases"][c]["y"].float()
+        scale = float(want_y.abs().max())
+        err = float((y - want_y)[keep].abs().max()) / scale
+        ctrl = float((y_ctrl - want_y)[keep].abs().max()) / scale
+        out.append({"rows": rows, "seq": seq, "dispatch": sorted(dispatch),
+                    "want_dispatch": want, "routing_equal_rank0": same,
+                    "flips": int(flip.sum()), "tokens": rows * seq,
+                    "flip_cap": FAMILY_FLIP_CAP, "err": err,
+                    "limit": EP_LIMIT, "control_rank_zeroed": ctrl,
+                    "aux": [p["aux"] for p in parts],
+                    "aux_plain": ref["cases"][c]["aux"],
+                    "ms": [p["ms"] for p in parts],
+                    "collective_ms": [p["collective_ms"] for p in parts],
+                    "plain_ms": ref["cases"][c]["ms"]})
+    return out
+
+
+def _ep_ok(c) -> bool:
+    aux = max(abs(a - c["aux_plain"]) for a in c["aux"]) \
+        <= 1e-3 * abs(c["aux_plain"])
+    return (c["dispatch"] == [c["want_dispatch"]] and c["routing_equal_rank0"]
+            and c["flips"] <= FAMILY_FLIP_CAP * c["tokens"]
+            and c["err"] <= EP_LIMIT < c["control_rank_zeroed"] and aux)
+
+
+def mesh_phase(seed: int, smi: str, card: str, dev: torch.device,
+               root: Path, *, small: bool = False) -> None:
+    """Phase 7d: (a) the sharded step on one NCCL rank to the bit; (b)
+    four gloo ranks on (data 2, model 2): danube's sharded step against
+    the unsharded one, compressed_psum, the elastic restore on (1, 2); (c)
+    the EP dispatches at published widths.  Reports the ``mesh`` line;
+    ``small`` runs the smoke configs (a rehearsal on the CPU)."""
+    import gc
+
+    from repro_torch import keypaths
+    from repro_torch.data import pipeline
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import model
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    arch = TRAIN_ARCH
+    batch = (TRAIN_BATCH, TRAIN_SEQ) if not small else (8, 16)
+    device = str(dev.type)
+    base = tempfile.mkdtemp(prefix="chip_smoke_mesh_", dir=root / "build")
+    timings = {}
+    try:
+        # -- (a) one NCCL rank, its process run beside (b)'s preparation
+        # here (deterministic algorithms: cuBLAS wants its workspace fixed
+        # before it starts, in the rank's environment)
+        t0 = time.perf_counter()
+        cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+        world1_run = pool.submit(
+            run_ranks, world1_rank, 1,
+            backend="nccl" if device == "cuda" else "gloo", timeout=600,
+            args=({"device": device, "arch": arch, "small": small,
+                   "seed": seed, "batch": batch},))
+
+        # -- (b)'s unsharded gradients (batch 0 and, for the control, 1),
+        # their norms, and the moments' scale from batch 0's
+        t0 = time.perf_counter()
+        cfg = _mesh_cfg(arch, small)
+        params = model.init_params(
+            torch.Generator(device=dev).manual_seed(seed), cfg, device=dev)
+        dcfg = pipeline.DataConfig(*batch)
+        files, norms, rms = [], [], {}
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        for s in (0, 1):
+            b = pipeline.make_batch(cfg, dcfg, s, device=dev)
+            _, g = steps._value_and_grad(params, cfg, b)
+            norms.append(float(adamw.global_norm(g)))
+            if s == 0:
+                rms = {keypaths.key(p): (
+                    float(t.float().pow(2).mean().sqrt()) + 1e-12,
+                    tuple(t.shape)) for p, t in keypaths.leaves_with_path(g)}
+            # to the ranks through shared memory, not a file
+            files.append({keypaths.key(p): torch.empty(
+                t.shape, dtype=t.dtype).share_memory_().copy_(t)
+                for p, t in keypaths.leaves_with_path(g)})
+            del g, b
+        timings["unsharded_grad_peak_gib"] = _peak_gib(dev)
+        timings["grads_s"] = time.perf_counter() - t0
+        del params
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        try:
+            (world1,) = world1_run.result()
+        finally:
+            pool.shutdown()
+            if cublas is None:
+                os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+            else:
+                os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+        timings["a_s"] = time.perf_counter() - t0
+        emit({"phase": "mesh_world1", "card": smi, **world1,
+              "seconds": timings["a_s"], "beside": "(b)'s gradients"})
+        # (c)'s plain dispatches, once the card is (a)'s no more
+        ep_ds = EP_CELLS["deepseek_v3_671b"]
+        cases_ds = list(ep_ds[1])
+        ref_ds = _ep_reference("deepseek_v3_671b", small, seed, dev,
+                               cases_ds, ep_ds[0][0])
+        ep_db = EP_CELLS["dbrx_132b"]
+        ref_db = _ep_reference("dbrx_132b", small, seed, dev, ep_db[1],
+                               ep_db[0][0])
+        timings["b_prep_s"] = time.perf_counter() - t0
+        timings["ep_refs_s"] = timings["b_prep_s"] - timings["a_s"]
+        emit({"phase": "mesh_progress", "stage": "parent_prep",
+              **timings})
+
+        # -- (b), the elastic restore and (c) on six ranks
+        t0 = time.perf_counter()
+        job = {"device": device, "arch": arch, "small": small, "seed": seed,
+               "batch": batch, "rms": rms, "norms": norms,
+               # the smoke rehearsal is f32: both steps' gradients agree
+               # far below the bf16 halves' rounding
+               "limit": TRAIN_BF16_CPU_LIMIT if small else MESH_STEP_LIMIT,
+               "grads": files, "ckpt": os.path.join(base, "ckpt"),
+               "ep": {"arch": "deepseek_v3_671b", "small": small,
+                      "seed": seed, "factor": ref_ds["factor"],
+                      "cases": cases_ds, "zero_rank": 1},
+               "ep_wide": {"arch": "dbrx_132b", "small": small,
+                           "seed": seed, "factor": ref_db["factor"],
+                           "cases": list(ep_db[1]), "zero_rank": 1}}
+        job["spawned"] = time.time()
+        alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        try:
+            ranks6 = run_ranks(mesh_rank, 6, backend="gloo", args=(job,),
+                               timeout=900)
+        finally:
+            if alloc is None:
+                os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+            else:
+                os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+        timings["ranks_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+    ranks4 = ranks6[:4]               # the (2, 2) mesh's
+    r0 = ranks4[0]
+    ep = {}
+    for arch_ep, (mesh_ep, cases), ref, eps in (
+            ("deepseek_v3_671b", ep_ds, ref_ds, [r["ep"] for r in ranks4]),
+            ("dbrx_132b", ep_db, ref_db, [r["ep_wide"] for r in ranks6])):
+        ep[arch_ep] = {
+            "mesh": list(mesh_ep), "factor": ref["factor"],
+            "expert_gib": ref["expert_gib"],
+            "resident_expert_gib_per_rank": [
+                e["resident_expert_gib"] for e in eps],
+            "peak_gib_per_rank": [e["peak_gib"] for e in eps],
+            "cases": _ep_check(ref, eps, cases, mesh_ep[0])}
+    state_gib = sum(t.numel() * t.element_size() for t in keypaths.leaves(
+        steps.abstract_train_state(cfg, train.optimizer(
+            cfg, TRAIN_LR, TRAIN_STEPS)))) / 2**30
+    seconds = time.perf_counter() - t_phase
+    sv = r0["step_vs_unsharded"]
+    cp = r0["compressed_psum"]
+    line = {"phase": "mesh", "card": smi, "arch": cfg.name,
+            "note": "ranks share one H100 over gloo (their collectives "
+                    "through the host); (a) is one NCCL rank",
+            "world1_nccl": world1,
+            "sharded_step": {
+                "mesh": list(MESH_SHAPE), "batch": list(batch),
+                "state_gib": state_gib,
+                "resident_gib_per_rank": [r["resident_gib"] for r in ranks4],
+                "resident_card_gib_per_rank": [r["resident_card_gib"]
+                                               for r in ranks4],
+                "moments": "on the host, each piece updated on the card",
+                "peak_gib_per_rank": [r["step_peak_gib"] for r in ranks4],
+                "step_ms_per_rank": [r["step_ms"] for r in ranks4],
+                "collective_ms_per_rank": [r["step_collective_ms"]
+                                           for r in ranks4],
+                "collectives": r0["step_collectives"],
+                "loss": r0["loss"], **sv},
+            "compressed_psum": cp,
+            "elastic": {"from": list(MESH_SHAPE), "to": list(MESH_ELASTIC),
+                        "layers": MESH_ELASTIC_LAYERS,
+                        "state_gib": r0.get("elastic_gib"),
+                        "save_s": r0["save_s"],
+                        "restore_s": r0.get("restore_s"),
+                        "bits_equal": r0.get("restore_bits_equal"),
+                        "step": r0.get("elastic_step")},
+            "ep": ep, "timings_s": timings, "seconds": seconds,
+            "seconds_limit": MESH_PHASE_S}
+    emit(line)
+    es = r0.get("elastic_step") or {}
+    bad = [name for name, ok in (
+        ("world1_bits", world1["bits_equal"]
+         and not world1["control_other_batch_equal"]),
+        ("sharded_step", sv["err_over_limit"] <= 1
+         < min(sv["control_other_batch"].values())),
+        ("compressed_psum", cp["err_over_2scale"] <= 1
+         and cp["resid_over_scale"] <= 1 + 1e-6),
+        ("elastic", bool(r0.get("restore_bits_equal"))
+         and math.isfinite(es.get("loss", math.nan))
+         and es.get("params_moved")),
+        ("ep", all(_ep_ok(c) for a in ep.values() for c in a["cases"])),
+        ("seconds", small or seconds <= MESH_PHASE_S)) if not ok]
+    if bad:
+        raise SystemExit(f"chip_smoke: phase 7d failed {bad}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2306,6 +3180,8 @@ def main() -> int:
         families_phase(args.seed, smi, card, torch.device("cuda"))
         # -- 7c. training, phase 7b's tensors gone
         training_phase(args.seed, smi, card, torch.device("cuda"), root)
+        # -- 7d. the multi-device layer, on ranks that share the card
+        mesh_phase(args.seed, smi, card, torch.device("cuda"), root)
         # -- 8. result ------------------------------------------------------
         emit({"kernels": rows})
         emit({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -21,9 +21,12 @@ too (the reference itself cannot: fault C10).
 Async: ``save(..., blocking=False)`` copies every leaf to host memory
 before it returns (the train step updates its tensors in place), then
 writes on a background thread; ``wait()`` joins.  Keep-last-k GC after
-each commit.  Re-placing leaves under another mesh's shardings is the
-multi-device layer's (port slice 9d); ``restore`` puts each leaf on a
-device.
+each commit.
+
+Checkpoints hold full leaves.  ``restore(..., shardings=...)`` places each
+leaf as this rank's shard under a mesh's placements (a tree of
+``parallel.sharding.NamedSharding``), which may be another mesh than the
+one that saved: that is the elastic restart (``runtime/elastic.py``).
 """
 
 from __future__ import annotations
@@ -88,7 +91,13 @@ def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 
 def _unflatten_into(template: Any, flat: Dict[str, np.ndarray],
-                    dtypes: Dict[str, str], device: DeviceLike) -> Any:
+                    dtypes: Dict[str, str], device: DeviceLike,
+                    shardings: Any = None) -> Any:
+    place = {}
+    if shardings is not None:
+        place = {keypaths.key(p): s
+                 for p, s in keypaths.leaves_with_path(shardings)}
+
     def load(path, leaf):
         key = keypaths.key(path)
         if key not in flat:
@@ -100,7 +109,10 @@ def _unflatten_into(template: Any, flat: Dict[str, np.ndarray],
         dev = device if device is not None else leaf.device
         if torch.device(dev) == META:
             dev = resolve_device(None)
-        return _from_numpy(arr, dtypes.get(key, arr.dtype.name)).to(dev)
+        t = _from_numpy(arr, dtypes.get(key, arr.dtype.name))
+        if key in place:
+            t = place[key].shard(t)
+        return t.to(dev)
 
     return keypaths.map_with_path(load, template)
 
@@ -176,16 +188,23 @@ class CheckpointManager:
             self.all_steps()[-1] if self.all_steps() else None)
 
     def restore(self, step: int, template: Any, *,
-                device: DeviceLike = None) -> Any:
+                device: DeviceLike = None,
+                shardings: Optional[Any] = None) -> Any:
         """The saved leaves in ``template``'s structure, each checked
-        against its template leaf's shape, in the manifest's dtype, on
-        ``device`` (default: the template leaf's; a ``meta`` template's
-        leaves go to the default device)."""
+        against its template leaf's (full) shape, in the manifest's dtype,
+        on ``device`` (default: the template leaf's; a ``meta`` template's
+        leaves go to the default device).
+
+        ``shardings`` (a tree like ``template``'s of
+        ``parallel.sharding.NamedSharding``, or a part of it) makes each
+        leaf it places this rank's shard; it may come from another mesh
+        than the one that saved.
+        """
         d = os.path.join(self.directory, f"step_{step:08d}")
-        with np.load(os.path.join(d, "leaves.npz")) as z:
-            flat = {k: z[k] for k in z.files}
         dtypes = {k: v[1] for k, v in self.manifest(step)["leaves"].items()}
-        return _unflatten_into(template, flat, dtypes, device)
+        # the archive's members are read as asked for: one full leaf at a time
+        with np.load(os.path.join(d, "leaves.npz")) as z:
+            return _unflatten_into(template, z, dtypes, device, shardings)
 
     def manifest(self, step: int) -> Dict[str, Any]:
         d = os.path.join(self.directory, f"step_{step:08d}")

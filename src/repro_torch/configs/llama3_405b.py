@@ -1,8 +1,9 @@
 """llama3-405b — dense GQA, 128k vocab [arXiv:2407.21783; unverified].
 
 126 layers, d_model 16384, 128 heads (GQA kv=8), d_ff 53248, vocab 128256.
-The scale stressor: its bf16 weights alone (812 GB) exceed one card, so it
-serves only once the port shards (port slice 9d).
+The scale stressor: its bf16 weights alone (812 GB) exceed one card, so no
+card serves or trains it whole; the dry run (``launch/dryrun.py``) reckons
+a rank's share of it on the production meshes.
 """
 
 from repro_torch.models.config import ModelConfig, smoke_variant, uniform_dense_groups

@@ -18,7 +18,10 @@ from a reference object's fields (duck typing: nothing here imports
   both packages compute one function on one set of weights;
 * :func:`train_state_from_reference` — a whole train state (params, the
   optimiser's moments and count), so both packages take one step from
-  one state.
+  one state;
+* :func:`shards_from_reference` — a rank's shards of the reference's
+  params on a mesh (``parallel.sharding``), so a sharded run starts from
+  the reference's numbers.
 
 The schedule cache needs no conversion: both packages write the same
 document (``version``, ``schedule`` JSON, ``meta``) under the same key for
@@ -185,3 +188,16 @@ def train_state_from_reference(state: Any, cfg: Any, opt_cfg: Any,
                     "v": params_from_reference(opt["v"], cfg, device,
                                                dtype=mdt),
                     "count": count}}
+
+
+def shards_from_reference(params: Any, cfg: Any, mesh: Any,
+                          device: DeviceLike = None, *,
+                          inference: bool = False) -> Dict[str, Any]:
+    """This rank of ``mesh``'s shards of a reference ``init_params`` tree:
+    :func:`params_from_reference`, then ``parallel.sharding.shard_tree``
+    by ``param_spec_tree(..., inference=inference)``."""
+    from .parallel import sharding
+
+    full = params_from_reference(params, cfg, device)
+    specs = sharding.param_spec_tree(full, cfg, mesh, inference=inference)
+    return sharding.shard_tree(full, specs, mesh)

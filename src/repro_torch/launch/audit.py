@@ -32,8 +32,8 @@ too, from ``torch.profiler``.  On the CPU the fused programs run as the
 plain block walk, so their intermediates are block-sized there.
 
 The HLO text parser (``parse_computations``, ``analyze_hlo``,
-``collective_counts``) serves the dry-run's roofline of XLA programs and
-comes with ``launch/dryrun.py`` (port slice 9d).
+``collective_counts``) is ``launch/hlo_analysis.py``, which also gives
+these audits under the reference's module.
 """
 
 from __future__ import annotations

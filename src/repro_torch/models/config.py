@@ -15,8 +15,8 @@ ffn:   ``mlp`` (SwiGLU), ``gelu_mlp`` (encoder-style), ``moe``
 (top-k routed experts, optional shared expert), ``none`` (xLSTM blocks
 carry their own projections).
 
-The port runs every kind on one device; the expert-parallel dispatch
-that a device mesh selects is port slice 9d.
+Every kind runs on one device; under a device mesh the MoE takes the
+reference's expert-parallel dispatch (``models/moe.py``).
 """
 
 from __future__ import annotations

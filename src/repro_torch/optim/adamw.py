@@ -12,9 +12,12 @@ reference's order, by sorted key path (``keypaths``).
 Unlike the reference, which is pure and donates its buffers to ``jax.jit``,
 ``update`` writes the new parameters and moments into the tensors it is
 given and returns those trees: a step then holds one copy of the train
-state, not two.  Each leaf is updated in pieces along its leading axis, so
-the f32 temporaries stay a piece's size; the update is elementwise, so the
-pieces do not change a bit.
+state, not two.  The moments may live on another device than the
+parameters (the host, where the card's memory is short): each piece is
+computed on the parameters' device and written back.  Each leaf is
+updated in pieces along its leading axis, so the f32 temporaries stay a
+piece's size; the update is elementwise, so the pieces do not change a
+bit.
 
 Decay follows the reference's rule, ``p.ndim >= 2``.  A block's norm
 weights are stacked on the repeats axis, so they are 2-D and are decayed;
@@ -88,12 +91,16 @@ def _pieces(x: torch.Tensor):
 
 @torch.no_grad()
 def update(grads: Any, state: Dict[str, Any], params: Any,
-           cfg: AdamWConfig) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
+           cfg: AdamWConfig, *, grad_norm: Optional[torch.Tensor] = None
+           ) -> Tuple[Any, Dict[str, Any], Dict[str, Any]]:
     """One step → (params, state, {"grad_norm", "lr"}); ``params`` and
-    ``state`` are updated in place and returned."""
+    ``state`` are updated in place and returned.  ``grad_norm`` is the
+    gradients' global norm where the trees hold shards of the leaves (the
+    sharded train step computes it over every rank); by default
+    :func:`global_norm` of ``grads``."""
     dev = _device(params)
     count = state["count"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = None
     if cfg.clip_norm is not None:
         scale = torch.minimum(_f32(1.0, dev), _f32(cfg.clip_norm, dev)
@@ -108,8 +115,10 @@ def update(grads: Any, state: Dict[str, Any], params: Any,
     def one(p, g, m, v, decay):
         # a clipped gradient is f32, as the reference's bf16 g · f32 scale
         gf = g.float() if scale is None else g.float() * scale
-        m_new = cfg.b1 * m.float() + (1 - cfg.b1) * gf
-        v_new = cfg.b2 * v.float() + (1 - cfg.b2) * gf * gf
+        # moments kept on another device (the host) are computed on the
+        # parameters' and written back where they live
+        m_new = cfg.b1 * m.to(p.device).float() + (1 - cfg.b1) * gf
+        v_new = cfg.b2 * v.to(p.device).float() + (1 - cfg.b2) * gf * gf
         upd = (m_new / b1c) / (torch.sqrt(v_new / b2c) + cfg.eps)
         if decay:
             upd = upd + cfg.weight_decay * p.float()

@@ -5,10 +5,13 @@
   (``cluster_call`` / ``cluster_chain_call`` / ``cluster_kernel``), each
   core one shard run through the single-core path, with a single
   fixed-order sum standing in for the shared-TCDM combine.
-* ``activations`` — the model stack's activation-sharding constraints:
-  the identity on one device (a mesh is port slice 9d).
-* ``sharding``, ``collectives`` — the model stack's policies and ring
-  matmuls: port slice 9d.
+* ``activations`` — the ambient mesh (``activation_mesh``) and the
+  reference's activation-sharding constraints, the identity in explicit
+  SPMD;
+* ``sharding`` — the sharding policy (the reference's spec trees) and
+  placing leaves as a rank's shards (``shard_tree`` / ``gather_tree``);
+* ``collectives`` — collectives over a mesh's axes (gloo stages a CUDA
+  tensor through the host), their adjoints, and the ring matmuls.
 
 Import submodules explicitly (``from repro_torch.parallel import
 cluster``); this package root stays import-free.

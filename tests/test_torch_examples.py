@@ -122,11 +122,58 @@ def test_the_train_cli_restarts_once(tmp_path):
     assert not any((tmp_path / "tmp").iterdir())
 
 
+def _losses(stdout: str) -> list:
+    return [float(ln.split()[3]) for ln in stdout.splitlines()
+            if ln.startswith("step")]
+
+
 def test_the_train_cli_refuses_a_mesh_naming_9d(tmp_path):
-    out = _run("repro_torch.launch.train", tmp_path, "--arch", "yi_6b",
-               "--smoke", "--mesh", "2,1", "--device", "cpu", module=True)
-    assert out.returncode != 0
-    assert "NotImplementedError" in out.stderr and "9d" in out.stderr
+    """``--mesh 2,2 --smoke --steps 3 --device cpu`` runs four gloo ranks
+    of the sharded step: the mesh line, rank 0's report lines, and each
+    loss within 2e-4 (the reference's sharded-vs-single limit) of the
+    single-device CLI's."""
+    (tmp_path / "tmp").mkdir()
+    args = ["--arch", "yi_6b", "--smoke", "--steps", "3", "--device", "cpu",
+            "--log-every", "1"]
+    env = {"TMPDIR": str(tmp_path / "tmp")}
+    out = _run("repro_torch.launch.train", tmp_path, *args, "--mesh", "2,2",
+               module=True, env_extra=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.splitlines()[0] == "mesh: data=2×model=2 (4 chips)"
+    done = [ln for ln in out.stdout.splitlines() if ln.startswith("done:")]
+    assert len(done) == 1 and "restarts=0" in done[0]
+    single = _run("repro_torch.launch.train", tmp_path, *args, module=True,
+                  env_extra=env)
+    assert single.returncode == 0, single.stderr[-3000:]
+    got, want = _losses(out.stdout), _losses(single.stdout)
+    assert len(got) == len(want) == 3
+    assert max(abs(a - b) for a, b in zip(got, want)) < 2e-4
+    assert not any((tmp_path / "tmp").iterdir())
+
+
+def test_the_elastic_example_resumes_the_stream(tmp_path):
+    """``examples/torch_elastic_restart.py --device cpu``: 6 steps on
+    (4, 2), a checkpoint, then 4 on (2, 2) at twice the microbatches; the
+    resumed run's first loss continues the first run's stream (within 2e-4
+    of what the (4, 2) run takes at that step), unlike its step before."""
+    (tmp_path / "tmp").mkdir()
+    out = _run("torch_elastic_restart.py", tmp_path, "--device", "cpu",
+               "--timeout", "300", env_extra={"TMPDIR": str(tmp_path / "tmp")})
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.splitlines()
+    assert lines[-1] == "elastic restart OK: same stream, half the fleet"
+    loss = {}
+    for ln in lines:
+        words = ln.split()
+        if words[:2] == ["reference", "step"]:
+            loss["ref6"] = float(words[4])
+        elif words and words[0] == "step":
+            loss.setdefault(int(words[1]), []).append(float(words[3]))
+    assert sorted(k for k in loss if k != "ref6") == list(range(10))
+    assert "grad-accum ×2" in out.stdout
+    assert abs(loss[6][0] - loss["ref6"]) < 2e-4
+    assert abs(loss[5][0] - loss["ref6"]) > 2e-4
+    assert not any((tmp_path / "tmp").iterdir())
 
 
 @pytest.mark.parametrize("script", ["torch_quickstart.py",

@@ -124,9 +124,9 @@ def test_supervisor_straggler_hook(tmp_path):
 
 # -- the training modules' names ----------------------------------------------
 
-#: names of the reference's training modules that wait for the
-#: multi-device layer (port slice 9d), by module; none so far: the mesh
-#: all-reduce ``compressed_psum`` is present and raises naming 9d
+#: names of the reference's training modules that the port leaves out, by
+#: module: none (the mesh all-reduce ``compressed_psum`` runs over a mesh
+#: axis, ``tests/test_torch_collectives.py``)
 DEFERRED = {}
 
 

@@ -728,6 +728,11 @@ def test_tokens_diverge_from_the_references_by_design():
 # ---------------------------------------------------------------------------
 
 def test_constrain_is_the_identity_and_meshes_raise():
+    """``constrain`` is the identity with or without a mesh (explicit
+    SPMD places every tensor itself); ``activation_mesh`` sets the ambient
+    mesh that ``models/moe.py`` reads, and restores the one before."""
+    from repro_torch.launch.mesh import Mesh
+
     x = torch.ones(4, 8)
     assert activations.constrain(x, activations.BATCH, None) is x
     tree = {"a": x, "b": [x]}
@@ -735,9 +740,10 @@ def test_constrain_is_the_identity_and_meshes_raise():
     assert out["a"] is x and out["b"][0] is x
     with activations.activation_mesh(None) as mesh:
         assert mesh is None and activations.get_activation_mesh() is None
-    with pytest.raises(NotImplementedError, match="slice 9d"):
-        with activations.activation_mesh(object()):
-            pass
+    m = Mesh((2, 4), ("data", "model"))
+    with activations.activation_mesh(m):
+        assert activations.get_activation_mesh() is m
+        assert activations.constrain(x, activations.BATCH, None) is x
     assert activations.get_activation_mesh() is None
     from repro.parallel import activations as jactivations
     assert (activations.BATCH, activations.MODEL, activations.BOTH) == (

@@ -167,13 +167,25 @@ def test_init_moe_is_the_references_tree():
 
 
 def test_a_mesh_raises_naming_the_multi_device_slice():
+    """Under a one-rank mesh ``moe_apply`` is the plain dispatch, to the
+    bit; a mesh with ``model`` > 1 dividing the experts selects expert
+    parallelism (``tests/test_torch_moe_ep.py`` runs it), ``impl="xla"``
+    never does."""
+    from repro_torch.launch.mesh import Mesh
+
     _, pcfg = _cfgs()
     _, pp = _params(pcfg)
     _, px = _x((1, 4, 64))
-    with pytest.raises(NotImplementedError, match="9d"):
-        with activations.activation_mesh(object()):
-            moe.moe_apply(pp, px, pcfg)
+    want, want_aux = moe.moe_apply(pp, px, pcfg)
+    with activations.activation_mesh(Mesh((1, 1), ("data", "model"),
+                                          rank=0)):
+        y, aux = moe.moe_apply(pp, px, pcfg)
+    assert torch.equal(y, want) and torch.equal(aux, want_aux)
+    m = Mesh((2, 2), ("data", "model"))
+    assert moe.dispatch_name(pcfg.moe, m, 8) == "ep2d"
+    assert moe.dispatch_name(pcfg.moe, m, 8192) == "ep"
     cfg = dataclasses.replace(pcfg, moe=dataclasses.replace(pcfg.moe,
                                                             impl="xla"))
+    assert moe.dispatch_name(cfg.moe, m, 8) == "xla"
     y, _ = moe.moe_apply(pp, px, cfg)       # no mesh: the plain path
     assert y.shape == px.shape

@@ -346,5 +346,27 @@ def test_init_residuals_are_f32_zeros_of_the_tree():
 
 
 def test_compressed_psum_waits_for_the_multi_device_layer():
-    with pytest.raises(NotImplementedError, match="9d"):
-        compress.compressed_psum({}, {}, "pod")
+    """``compressed_psum`` over an axis of one rank equals the reference's
+    over a one-device ``shard_map`` to the bit (the multi-rank cases:
+    ``tests/test_torch_collectives.py``); without a mesh it refuses."""
+    from jax.experimental.shard_map import shard_map
+    from jax.sharding import Mesh as JMesh
+    from jax.sharding import PartitionSpec as JP
+
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel.activations import activation_mesh
+
+    rng = np.random.default_rng(11)
+    grads = tree(rng, "float32", scale=0.3)
+    resid = tree(rng, "float32", scale=1e-3)
+    jmesh = JMesh(np.array(jax.devices()[:1]), ("pod",))
+    want = shard_map(lambda g, r: jcompress.compressed_psum(g, r, "pod"),
+                     mesh=jmesh, in_specs=(JP(), JP()),
+                     out_specs=(JP(), JP()))(to_ref(grads), to_ref(resid))
+    with activation_mesh(Mesh((1,), ("pod",), rank=0)):
+        got = compress.compressed_psum(to_port(grads), to_port(resid),
+                                       "pod")
+    for w, g in zip(jax.tree.leaves(want), keypaths.leaves(got)):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    with pytest.raises(ValueError, match="needs a mesh"):
+        compress.compressed_psum(to_port(grads), to_port(resid), "pod")
